@@ -1,0 +1,416 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch + CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (an H100: the kernels are built for sm_90a) and the CUDA
+toolkit.  Phases, one result line each:
+
+1. device — the card's name and power limit (nvidia-smi);
+2. build  — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
+3. matmul — the matmul kernel against its plain version: every epilogue class
+   at small ragged shapes (bf16 and f32), then minitron-4b's main-path shapes,
+   timed beside the plain version and ``torch.matmul``, and under both the
+   default schedule and 64x64 output tiles;
+4. attention — the flash-attention kernel against its plain version: causal,
+   window, softcap, q_offset, GQA groups 1 and 3, ragged lengths, head dims
+   16 to 256, then the main-path prefill shapes, timed beside the plain
+   version and ``F.scaled_dot_product_attention``;
+5. serve — minitron-4b at full width (32 layers, bf16, random weights from a
+   seeded generator on the card) through ``repro_torch.launch.serve.main``
+   and then the slot engine directly with 100-400-token prompts; every
+   request must finish with its token count, both kernels' launch counts
+   must grow, and the kernel path's prefill logits must agree with the plain
+   path's on the same weights.
+
+Then one JSON line with every kernel's numbers, the nvidia-smi line, and the
+last line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
+exits non-zero and prints no result.  Times come from CUDA events, each
+launch after an L2 flush (the serving path reads weights cold).  Bounds use
+the H100 SXM's published peaks: 3.35 TB/s and 989 TFLOP/s dense bf16.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+# Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise).
+# bf16: the repo's bf16 tolerance (tests/test_kernels_matmul.py::
+# test_bfloat16_tolerance), on inputs scaled so outputs are of order one: both
+# sides sum exact bf16 products in f32, in different orders, then round once
+# to bf16, so they differ by at most about one bf16 ulp of the output.
+# f32: the repo's f32 kernel tolerance (tests/test_kernels_*.py).
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)
+F32_TOL = dict(rtol=2e-4, atol=2e-4)
+# Prefill logits of the 32-layer bf16 model, kernel path vs plain path: each
+# of ~200 ops rounds its bf16 output in the same places on both paths, but f32
+# sums taken in other orders can round to neighbouring bf16 values, and those
+# one-ulp differences (2^-8 relative) carry through the residual stream.
+LOGITS_REL_BOUND = 0.05   # max |kernel - plain| <= 5% of max |plain logit|
+
+MAIN_KN = [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072), (3072, 256000)]
+
+
+def log(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def import_port():
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "__init__.py").is_file():
+        raise SystemExit(f"chip_smoke.py: the port is not beside this script ({src}/repro_torch)")
+    sys.path.insert(0, str(src))
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+
+class Timer:
+    """Median of per-launch CUDA-event times, each launch after an L2 flush."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+
+    def ms(self, fn, iters: int = 10, warmup: int = 2) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(iters):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return statistics.median(times)
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def assert_close(torch, got, want, tol: dict, what: str) -> float:
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = (got.float() - want.float()).abs()
+    lim = tol["atol"] + tol["rtol"] * want.float().abs()
+    if bool((err > lim).any()):
+        raise AssertionError(f"{what}: max |err| {float(err.max())} exceeds atol {tol['atol']} "
+                             f"+ rtol {tol['rtol']}·|plain|")
+    return float(err.max())
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.monotonic()
+    path = _build.build()
+    _build.library()
+    usage = [ln.strip() for ln in _build.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    log("build", seconds=time.monotonic() - t0, library=path.name, ptxas=usage)
+
+
+def _mm_inputs(torch, g, m, n, k, class_id, dtype):
+    x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((k, n), generator=g, device="cuda") / k ** 0.5).to(dtype)
+    out_n = n // 2 if "glu" in class_id else n
+    bias = torch.randn((n,), generator=g, device="cuda").to(dtype) if class_id in (
+        "matmul_bias", "matmul_bias_gelu") else None
+    residual = torch.randn((m, out_n), generator=g, device="cuda").to(dtype) \
+        if class_id == "matmul_residual" else None
+    softcap = 2.0 if class_id == "matmul_lmhead_softcap" else 0.0
+    return x, w, dict(bias=bias, residual=residual, softcap=softcap)
+
+
+def phase_matmul(torch, timer) -> dict:
+    from repro_torch.core.schedule import Schedule, concretize
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    errs = {}
+    # every epilogue class, ragged shapes (rows body: M tile <= 16; tiled: above;
+    # N not a multiple of 8, or an N tile of 500, takes the scalar-load path),
+    # bf16 and f32
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        for class_id in ref.MATMUL_CLASSES:
+            for m, n, k in ((5, 40, 24), (3, 50, 17), (4, 1000, 64), (70, 200, 33), (130, 96, 300)):
+                x, w, kw = _mm_inputs(torch, g, m, n, k, class_id, dtype)
+                cs = ops.schedule_for(ops.instance(class_id, dtype, M=m, N=n, K=k))
+                got = mm.launch(x, w, cs, class_id=class_id, **kw)
+                want = ref.matmul(x, w, class_id, **kw)
+                name = f"{class_id}/{ops.dtype_name(dtype)}/{m}x{n}x{k}"
+                errs[name] = assert_close(torch, got, want, tol, name)
+        # a non-default schedule: N-outer rasterisation, ragged M and N tiles
+        inst = ops.instance("matmul_silu_glu", dtype, M=37, N=100, K=64)
+        cs = concretize(Schedule.make("matmul_silu_glu", {"M": 16, "N": 48, "K": 32},
+                                      order=("N", "M", "K")), inst)
+        x, w, kw = _mm_inputs(torch, g, 37, 100, 64, "matmul_silu_glu", dtype)
+        errs[f"custom_schedule/{ops.dtype_name(dtype)}"] = assert_close(
+            torch, mm.launch(x, w, cs, class_id="matmul_silu_glu", **kw),
+            ref.matmul(x, w, "matmul_silu_glu", **kw), tol, "custom schedule")
+    log("matmul_classes", checks=len(errs), max_abs_err=max(errs.values()), tol=BF16_TOL,
+        f32_tol=F32_TOL)
+
+    # main-path shapes: M = slots (decode) and a prefill bucket, bf16
+    shapes = []
+    for m in (4, 256):
+        for k, n in MAIN_KN:
+            class_id = ("matmul_lmhead" if n == 256000 else
+                        "matmul_bias_gelu" if n == 9216 else "matmul")
+            x, w, kw = _mm_inputs(torch, g, m, n, k, class_id, torch.bfloat16)
+            cs = ops.schedule_for(ops.instance(class_id, torch.bfloat16, M=m, N=n, K=k))
+            got = mm.launch(x, w, cs, class_id=class_id, **kw)
+            want = ref.matmul(x, w, class_id, **kw)
+            err = assert_close(torch, got, want, BF16_TOL, f"{class_id} {m}x{k}x{n}")
+            del got, want
+            # the same kernel under 64x64 output tiles, sized to fill the card's SMs
+            cs64 = concretize(Schedule.make(class_id, {"M": 64, "N": 64, "K": cs.t["K"]}), cs.instance)
+            err = max(err, assert_close(torch, mm.launch(x, w, cs64, class_id=class_id, **kw),
+                                        ref.matmul(x, w, class_id, **kw), BF16_TOL, "64x64 tiles"))
+            b_ms, b_by = bound_ms(2 * (m * k + k * n + m * n), 2 * m * n * k)
+            row = {"class": class_id, "M": m, "K": k, "N": n,
+                   "tiles": cs.t, "ctas": cs.g["M"] * cs.g["N"], "max_abs_err": err,
+                   "ms": timer.ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw)),
+                   "tile64_ctas": cs64.g["M"] * cs64.g["N"],
+                   "tile64_ms": timer.ms(lambda: mm.launch(x, w, cs64, class_id=class_id, **kw)),
+                   "plain_ms": timer.ms(lambda: ref.matmul(x, w, class_id, **kw)),
+                   # one library call computes the same function only without an epilogue
+                   "library_ms": (timer.ms(lambda: torch.matmul(x, w))
+                                  if class_id != "matmul_bias_gelu" else None),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            shapes.append(row)
+            log("matmul_shape", **row)
+            del x, w
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "max_abs_err": max([errs[n] for n in errs] + [r["max_abs_err"] for r in shapes])}
+
+
+def _attn_inputs(torch, g, b, hq, hkv, sq, skv, d, dtype):
+    return tuple(torch.randn(s, generator=g, device="cuda").to(dtype)
+                 for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+
+
+def phase_attention(torch, timer) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    errs = {}
+    # (b, hkv, group, sq, skv, d, causal, window, softcap, q_offset)
+    cases = [
+        (2, 2, 1, 64, 64, 128, True, 0, 0.0, 0),
+        (2, 2, 3, 100, 100, 128, True, 0, 0.0, 0),      # GQA 3, ragged
+        (1, 2, 3, 77, 77, 128, False, 0, 0.0, 0),       # bidirectional
+        (1, 2, 1, 90, 90, 128, True, 16, 0.0, 0),       # sliding window
+        (1, 2, 3, 64, 64, 128, True, 0, 20.0, 0),       # softcap
+        (1, 2, 1, 33, 200, 128, True, 0, 0.0, 167),     # q_offset (chunk vs cache)
+        (1, 2, 3, 1, 300, 128, True, 0, 0.0, 299),      # decode-shaped
+        (1, 2, 3, 45, 130, 128, True, 24, 30.0, 85),    # all masks together
+        (1, 2, 2, 70, 70, 256, True, 0, 50.0, 0),       # gemma2 head dim
+        (1, 2, 1, 40, 40, 256, True, 8, 0.0, 0),
+        (1, 2, 2, 50, 50, 16, True, 0, 0.0, 0),         # reduced-config head dim
+        (1, 1, 3, 37, 60, 80, True, 8, 0.0, 10),        # head dim padded to 128
+    ]
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        for b, hkv, group, sq, skv, d, causal, window, softcap, q_offset in cases:
+            q, k, v = _attn_inputs(torch, g, b, hkv * group, hkv, sq, skv, d, dtype)
+            kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+            cs = ops.schedule_for(ops.instance("flash_attention_causal", dtype, Q=sq, KV=skv,
+                                               H=hkv * group, D=d, B=b, window=window))
+            got = fa.launch(q, k, v, cs, **kw)
+            want = ref.chunked_attention(q, k, v, chunk=cs.t["KV"], **kw)
+            name = f"{ops.dtype_name(dtype)}/g{group}/{sq}x{skv}/d{d}/{kw}"
+            errs[name] = assert_close(torch, got, want, tol, name)
+    log("attention_masks", checks=len(errs), max_abs_err=max(errs.values()), tol=BF16_TOL,
+        f32_tol=F32_TOL)
+
+    shapes = []
+    b, hq, hkv, d = 1, 24, 8, 128
+    for s in (128, 512):
+        q, k, v = _attn_inputs(torch, g, b, hq, hkv, s, s, d, torch.bfloat16)
+        cs = ops.schedule_for(ops.instance("flash_attention_causal", torch.bfloat16, Q=s, KV=s,
+                                           H=hq, D=d, B=b, window=0))
+        got = fa.launch(q, k, v, cs)
+        want = ref.chunked_attention(q, k, v, chunk=cs.t["KV"])
+        err = assert_close(torch, got, want, BF16_TOL, f"attention S={s}")
+        # the yardstick takes GQA expanded to Hq heads (expansion outside the timing)
+        ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+        live = s * (s + 1) / 2            # causal (q, k) pairs this input needs
+        flops = 4 * b * hq * live * d
+        nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        row = {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "tiles": cs.t,
+               "ctas": b * hq * cs.g["Q"], "max_abs_err": err,
+               "ms": timer.ms(lambda: fa.launch(q, k, v, cs), iters=20),
+               "plain_ms": timer.ms(lambda: ref.chunked_attention(q, k, v, chunk=cs.t["KV"])),
+               "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                   q, ke, ve, is_causal=True), iters=20),
+               "bound_ms": b_ms, "bound_by": b_by}
+        shapes.append(row)
+        log("attention_shape", **row)
+    return {"shapes": shapes, "max_abs_err": max([errs[n] for n in errs] + [r["max_abs_err"] for r in shapes])}
+
+
+def phase_serve(torch) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels.ops import use_backend
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_arch("minitron-4b")
+    mm.reset_launches()
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the user's entry point, at full width
+    res = serve.main(["--arch", "minitron-4b", "--preset", "full", "--device", "cuda"])
+    if res["requests"] != 8 or res["tokens"] != 8 * 8:
+        raise AssertionError(f"serve.main finished {res['requests']} requests / {res['tokens']} tokens")
+
+    # the slot engine directly: long prompts, so prefill runs several Q tiles
+    model = build_model(cfg, "cuda")
+    params = model.init(seed=0)
+    engine = ServingEngine(model, params, slots=4, max_len=512)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, size=int(n))]
+               for n in rng.integers(100, 401, size=8)]
+    new_tokens = 16
+    pending, done = list(prompts), []
+    prefill_s = decode_s = 0.0
+    steps = 0
+    while pending or engine.active:
+        while pending and engine.free_slots:
+            t0 = time.monotonic()
+            req = engine.add_request(pending.pop(0), max_new_tokens=new_tokens)
+            prefill_s += time.monotonic() - t0     # add_request syncs on its argmax
+            if req.done:
+                done.append(req)
+        t0 = time.monotonic()
+        done.extend(engine.step())                 # step syncs on its argmax
+        decode_s += time.monotonic() - t0
+        steps += 1
+        if steps > 1000:
+            raise AssertionError("the slot engine did not converge")
+    torch.cuda.synchronize()
+    launches = {"matmul": mm.launches, "flash_attention": fa.launches}
+    if len(done) != len(prompts) or any(len(r.generated) != new_tokens for r in done):
+        raise AssertionError(f"engine finished {len(done)} requests with token counts "
+                             f"{[len(r.generated) for r in done]}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = sum(len(r.generated) for r in done)
+
+    # kernel path vs plain path on the same weights: the first prompt's prefill
+    toks = torch.tensor([prompts[0]], dtype=torch.long, device="cuda")
+    logits_k, _ = model.prefill(params, {"tokens": toks}, max_len=512)
+    with use_backend("ref"):
+        logits_r, _ = model.prefill(params, {"tokens": toks}, max_len=512)
+    torch.cuda.synchronize()
+    if tuple(logits_k.shape) != (1, cfg.vocab_size) or not bool(torch.isfinite(logits_k).all()):
+        raise AssertionError(f"prefill logits: shape {tuple(logits_k.shape)} or non-finite")
+    diff = max_err(torch, logits_k, logits_r)
+    scale = float(logits_r.float().abs().max())
+    if diff > LOGITS_REL_BOUND * scale:
+        raise AssertionError(f"prefill logits differ by {diff} > {LOGITS_REL_BOUND} x {scale}")
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "params": cfg.param_count(),
+           "serve_main": {k: res[k] for k in ("requests", "tokens", "decode_steps", "tok_per_s")},
+           "requests": len(done), "tokens": tokens, "prompt_lens": [len(p) for p in prompts],
+           "decode_steps": steps, "prefill_s": prefill_s, "decode_s": decode_s,
+           "tok_per_s": tokens / (prefill_s + decode_s),
+           "decode_tok_per_s": (tokens - len(done)) / decode_s,
+           "launches": launches, "peak_mem_gib": peak_gib,
+           "logits_max_abs_diff": diff, "logits_max_abs": scale,
+           "logits_bound": LOGITS_REL_BOUND * scale,
+           "argmax_equal": int(logits_k.argmax()) == int(logits_r.argmax())}
+    log("serve", **row)
+    return row
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
+        return 1
+    import_port()
+    smi = nvidia_smi()
+    log("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+        name=torch.cuda.get_device_name(0))
+    # the plain versions run in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase_build()
+    timer = Timer(torch)
+    mmr = phase_matmul(torch, timer)
+    far = phase_attention(torch, timer)
+    del timer
+    torch.cuda.empty_cache()
+    srv = phase_serve(torch)
+
+    rep_mm = next(r for r in mmr["shapes"] if r["M"] == 4 and r["N"] == 256000)
+    rep_fa = next(r for r in far["shapes"] if r["S"] == 512)
+    kernels = [
+        {"name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:205", "launches": srv["launches"]["matmul"],
+         "max_abs_err": mmr["max_abs_err"],
+         "shape": {k: rep_mm[k] for k in ("class", "M", "K", "N")},
+         **{k: rep_mm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:126",
+         "launches": srv["launches"]["flash_attention"], "max_abs_err": far["max_abs_err"],
+         "shape": {k: rep_fa[k] for k in ("B", "Hq", "Hkv", "S", "D")},
+         **{k: rep_fa[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,150 @@
+"""Plain PyTorch versions of the kernels (mirrors of ``repro.kernels.ref``).
+
+The CPU tests hold these against the JAX oracles, the kernel wrappers take
+them for tensors that lie on the CPU, and ``chip_smoke.py`` holds each CUDA
+kernel against them on the card.  When a card is present, nothing on the
+main path calls them.
+
+Numerics follow the reference: products in f32 (``preferred_element_type``),
+epilogues in f32, one cast back to the input dtype; ``jax.nn.gelu`` is the
+tanh form (``approximate=True``), so :func:`gelu` is too.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# Matmul + fused epilogues
+# ---------------------------------------------------------------------------
+
+#: every non-grouped class of the matmul family: the classes the matmul kernel takes
+MATMUL_CLASSES = ("matmul", "matmul_bias", "matmul_bias_gelu", "matmul_silu_glu",
+                  "matmul_gelu_glu", "matmul_residual", "matmul_lmhead",
+                  "matmul_lmhead_softcap", "moe_router")
+
+
+def gelu(y: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(y, approximate="tanh")
+
+
+def _glu(y: torch.Tensor, act: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """Interleaved GLU: columns are packed (gate, up, gate, up, ...)."""
+    return act(y[..., 0::2]) * y[..., 1::2]
+
+
+def apply_epilogue(y: torch.Tensor, class_id: str, *, bias: torch.Tensor | None = None,
+                   residual: torch.Tensor | None = None, softcap: float = 0.0) -> torch.Tensor:
+    if bias is not None:
+        y = y + bias
+    if class_id in ("matmul", "matmul_bias", "matmul_lmhead", "moe_router", "moe_gemm"):
+        pass
+    elif class_id == "matmul_bias_gelu":
+        y = gelu(y)
+    elif class_id in ("matmul_silu_glu", "moe_gemm_silu_glu"):
+        y = _glu(y, F.silu)
+    elif class_id == "matmul_gelu_glu":
+        y = _glu(y, gelu)
+    elif class_id == "matmul_residual":
+        if residual is None:
+            raise ValueError("matmul_residual needs a residual")
+        y = y + residual
+    elif class_id == "matmul_lmhead_softcap":
+        if softcap <= 0.0:
+            raise ValueError("matmul_lmhead_softcap needs softcap > 0")
+        y = torch.tanh(y / softcap) * softcap
+    else:
+        raise ValueError(f"unknown matmul epilogue class {class_id!r}")
+    return y
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "matmul", *,
+           bias: torch.Tensor | None = None, residual: torch.Tensor | None = None,
+           softcap: float = 0.0) -> torch.Tensor:
+    """x: (..., K) @ w: (K, N) in f32, epilogue in f32, cast to x.dtype."""
+    y = torch.matmul(x.float(), w.float())
+    y = apply_epilogue(y, class_id, bias=bias, residual=residual, softcap=softcap)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _mask_ok(sq: int, skv: int, q_offset: int, causal: bool, window: int,
+             device) -> torch.Tensor:
+    q_pos = q_offset + torch.arange(sq, device=device)[:, None]
+    kv_pos = torch.arange(skv, device=device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kv_pos <= q_pos
+    if window > 0:
+        ok &= kv_pos > q_pos - window
+    return ok
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              window: int = 0, softcap: float = 0.0, q_offset: int = 0,
+              scale: float | None = None) -> torch.Tensor:
+    """Naive full-materialization attention.
+
+    q: (B, Hq, Sq, D), k/v: (B, Hkv, Skv, D) with Hq % Hkv == 0 (GQA).
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, group, sq, d).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    ok = _mask_ok(sq, skv, q_offset, causal, window, q.device)
+    s = s + torch.where(ok, 0.0, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0, softcap: float = 0.0,
+                      q_offset: int = 0, chunk: int = 1024,
+                      scale: float | None = None) -> torch.Tensor:
+    """Online-softmax attention chunked over KV: O(Sq·chunk) live memory."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    chunk = min(chunk, skv)
+    qg = (q.reshape(b, hkv, group, sq, d) * scale).float()
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((b, hkv, group, sq), float("-inf"), device=q.device)
+    l = torch.zeros((b, hkv, group, sq), device=q.device)
+    acc = torch.zeros((b, hkv, group, sq, d), device=q.device)
+    for start in range(0, skv, chunk):
+        kb = k[:, :, start:start + chunk].float()
+        vb = v[:, :, start:start + chunk].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb)
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        kv_pos = start + torch.arange(kb.shape[2], device=q.device)
+        ok = torch.ones((sq, kb.shape[2]), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= kv_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            ok &= kv_pos[None, :] > q_pos[:, None] - window
+        s = torch.where(ok, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows (m_new == -inf)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(ok, p, 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(b, hq, sq, d).to(q.dtype)

@@ -1,0 +1,105 @@
+"""Shared model substrate: norms, RoPE, initializers, GLU weight packing
+(the counterpart of ``repro.models.common``).
+
+Parameters are plain nested dicts of tensors, as in the reference.  Every
+random draw comes from an explicit ``torch.Generator`` and lands on the
+generator's device; the scales are the reference's.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen: torch.Generator, shape: tuple[int, ...]) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+
+
+def dense_init(gen: torch.Generator, fan_in: int, fan_out: int, dtype) -> torch.Tensor:
+    scale = (2.0 / (fan_in + fan_out)) ** 0.5
+    return (_normal(gen, (fan_in, fan_out)) * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype) -> torch.Tensor:
+    return (_normal(gen, (vocab, dim)) * dim ** -0.5).to(dtype)
+
+
+def pack_glu(w_gate: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
+    """Interleave gate/up columns: (K, F) + (K, F) -> (K, 2F) with columns
+    (g0, u0, g1, u1, ...), the layout the fused GLU epilogue reads."""
+    k, f = w_gate.shape
+    return torch.stack([w_gate, w_up], dim=2).reshape(k, 2 * f)
+
+
+def glu_init(gen: torch.Generator, d: int, f: int, dtype) -> torch.Tensor:
+    return pack_glu(dense_init(gen, d, f, dtype), dense_init(gen, d, f, dtype))
+
+
+# ---------------------------------------------------------------------------
+# Norms (computed in f32, cast back)
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return y.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def norm_params(d: int, kind: str, dtype, device) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def apply_norm(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------------------
+# RoPE (interleaved pairs, as the reference)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, H, S, D); positions: (B, S) or (S,) absolute positions.
+
+    Rotates the interleaved pairs (x[..., 0::2], x[..., 1::2]), not the
+    rotate-half halves."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                # (D/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs            # (B, S, D/2)
+    cos = torch.cos(ang)[:, None, :, :]
+    sin = torch.sin(ang)[:, None, :, :]
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)

@@ -1,0 +1,222 @@
+"""Reduced minitron-4b (f32) in the port against ``repro.models``.
+
+The reference builds the weights; ``repro_torch.convert`` hands the same
+weights to the port.  Prefill logits (with and without right padding), the
+filled cache and teacher-forced decode logits at per-slot positions must
+agree within rtol = atol = 2e-4 (the repo's f32 kernel tolerance); one
+prefill of the reference runs its Pallas kernels in interpret mode.
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.configs import get_arch as jget_arch
+from repro.configs import reduced as jreduced
+from repro.kernels.ops import use_backend as juse_backend
+from repro.models import build_model as jbuild_model
+from repro_torch.configs import get_arch, reduced
+from repro_torch.convert import cache_from_jax, params_from_jax
+from repro_torch.models import build_model
+from repro_torch.models.common import apply_rope, pack_glu, rmsnorm
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+MAX_LEN = 24
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jcfg = jreduced(jget_arch("minitron-4b"))
+    cfg = reduced(get_arch("minitron-4b"))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    jmodel = jbuild_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = build_model(cfg, "cpu")
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    return cfg, jmodel, jparams, model, params
+
+
+def _tokens(b, s, seed=0, vocab=512):
+    return np.random.default_rng(seed).integers(1, vocab, size=(b, s)).astype(np.int32)
+
+
+def _np_cache(c):
+    return jax.tree_util.tree_map(np.asarray, c)
+
+
+def _assert_cache_equal(cache, jcache, cfg):
+    want = cache_from_jax(_np_cache(jcache), cfg)
+    np.testing.assert_array_equal(cache["t"].numpy(), want["t"].numpy())
+    assert len(cache["layers"]) == cfg.n_layers
+    for got_l, want_l in zip(cache["layers"], want["layers"]):
+        for key in ("k", "v"):
+            np.testing.assert_allclose(got_l[key].numpy(), want_l[key].numpy(), **TOL)
+
+
+def test_full_width_config_matches_reference():
+    assert dataclasses.asdict(get_arch("minitron-4b")) == dataclasses.asdict(jget_arch("minitron-4b"))
+    assert get_arch("minitron-4b").param_count() == jget_arch("minitron-4b").param_count()
+
+
+def test_converted_params_have_port_layout(pair):
+    cfg, _, jparams, _, params = pair
+    assert len(params["layers"]) == cfg.n_layers
+    np.testing.assert_array_equal(params["layers"][1]["attn"]["wq"].numpy(),
+                                  np.asarray(jparams["groups"]["0"]["attn"]["wq"][1]))
+    assert set(params) == {"embed", "layers", "final_norm", "lm_head"}
+
+
+def test_forward_logits_match(pair):
+    cfg, jmodel, jparams, model, params = pair
+    toks = _tokens(2, 12, seed=1)
+    jlogits, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(toks)}, remat=False)
+    logits, aux = model.forward(params, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    assert float(aux) == 0.0
+
+
+@pytest.mark.parametrize("true_len", [None, 5])
+def test_prefill_logits_and_cache_match(pair, true_len):
+    cfg, jmodel, jparams, model, params = pair
+    toks = _tokens(2, 8, seed=2)
+    jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN,
+                           true_len=true_len)
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=MAX_LEN,
+                                  true_len=true_len)
+    assert logits.shape == (2, cfg.vocab_size)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_equal(cache, jc, cfg)
+
+
+def test_padded_prefill_equals_exact_prefill(pair):
+    """Right padding with true_len is inert: same logits as the exact prompt."""
+    cfg, _, _, model, params = pair
+    toks = _tokens(1, 8, seed=3)
+    padded = toks.copy()
+    padded[:, 5:] = 0
+    lp, _ = model.prefill(params, {"tokens": torch.from_numpy(padded)}, max_len=MAX_LEN, true_len=5)
+    le, _ = model.prefill(params, {"tokens": torch.from_numpy(toks[:, :5])}, max_len=MAX_LEN)
+    np.testing.assert_allclose(lp.numpy(), le.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_teacher_forced_decode_at_per_slot_positions(pair):
+    """Four decode steps with slots at different positions, fed the same
+    tokens in both packages: logits and caches agree at every step."""
+    cfg, jmodel, jparams, model, params = pair
+    toks = _tokens(2, 8, seed=4)
+    _, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN)
+    _, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=MAX_LEN)
+    t = np.array([8, 6], np.int32)           # slot 1 rewinds: per-slot positions
+    jc["t"] = jnp.asarray(t)
+    cache["t"] = torch.from_numpy(t)
+    feed = _tokens(4, 2, seed=5)
+    for step in range(4):
+        jl, jc = jmodel.decode_step(jparams, jc, jnp.asarray(feed[step]))
+        logits, cache = model.decode_step(params, cache, torch.from_numpy(feed[step]))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_equal(cache, jc, cfg)
+    np.testing.assert_array_equal(cache["t"].numpy(), t + 4)
+
+
+def test_prefill_matches_reference_pallas_interpret(pair):
+    """The reference's own kernels (Pallas, interpret mode) agree too."""
+    cfg, jmodel, jparams, model, params = pair
+    toks = _tokens(1, 16, seed=6)
+    with juse_backend("pallas"):
+        jl, _ = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN)
+    logits, _ = model.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=MAX_LEN)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+
+
+def test_substrate_helpers_match_reference():
+    from repro.models import common as jcommon
+
+    r = np.random.default_rng(7)
+    x = r.normal(size=(2, 3, 5, 16)).astype(np.float32)
+    pos = r.integers(0, 500, size=(2, 5)).astype(np.int32)
+    np.testing.assert_allclose(
+        apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 10000.0).numpy(),
+        np.asarray(jcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10000.0)), **TOL)
+    scale = r.normal(size=(16,)).astype(np.float32)
+    np.testing.assert_allclose(
+        rmsnorm(torch.from_numpy(x), torch.from_numpy(scale)).numpy(),
+        np.asarray(jcommon.rmsnorm(jnp.asarray(x), jnp.asarray(scale))), **TOL)
+    g, u = r.normal(size=(4, 3)).astype(np.float32), r.normal(size=(4, 3)).astype(np.float32)
+    np.testing.assert_array_equal(pack_glu(torch.from_numpy(g), torch.from_numpy(u)).numpy(),
+                                  np.asarray(jcommon.pack_glu(jnp.asarray(g), jnp.asarray(u))))
+
+
+# Variants of reduced minitron built identically in both packages: they drive
+# the layer paths minitron itself does not (ring caches with their prefill
+# roll and decode wrap, softcaps, tied embeddings with the sqrt(d) scale, GLU
+# MLPs, a biased MLP, and a `tail` layer in the reference's pytree).
+VARIANTS = {
+    "local_global_softcap_tied_geglu": dict(layer_pattern=("L", "G"), n_layers=3, window=8,
+                                            attn_softcap=50.0, final_softcap=30.0,
+                                            tie_embeddings=True, mlp_kind="geglu"),
+    "swa_swiglu": dict(layer_pattern=("L",), window=6, mlp_kind="swiglu"),
+    "biased_gelu": dict(mlp_bias=True),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(VARIANTS))
+def variant(request):
+    kw = VARIANTS[request.param]
+    jcfg = dataclasses.replace(jreduced(jget_arch("minitron-4b")), **kw)
+    cfg = dataclasses.replace(reduced(get_arch("minitron-4b")), **kw)
+    jmodel = jbuild_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(1))
+    if kw.get("mlp_bias"):  # the reference initialises biases to zero: give them values
+        r = np.random.default_rng(2)
+        for grp in jparams["groups"].values():
+            for key in ("b_in", "b_out"):
+                grp["mlp"][key] = jnp.asarray(r.normal(size=grp["mlp"][key].shape), jnp.float32)
+    model = build_model(cfg, "cpu")
+    return cfg, jmodel, jparams, model, params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+
+
+def test_variant_prefill_and_ring_decode_match(variant):
+    """A prompt longer than the window (ring prefill with its roll), then
+    decode steps that wrap the ring, at per-slot positions."""
+    cfg, jmodel, jparams, model, params = variant
+    toks = _tokens(2, 12, seed=8)
+    jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN, true_len=11)
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=MAX_LEN,
+                                  true_len=11)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_equal(cache, jc, cfg)
+    t = np.array([11, 9], np.int32)
+    jc["t"] = jnp.asarray(t)
+    cache["t"] = torch.from_numpy(t)
+    feed = _tokens(6, 2, seed=9)
+    for step in range(6):
+        jl, jc = jmodel.decode_step(jparams, jc, jnp.asarray(feed[step]))
+        logits, cache = model.decode_step(params, cache, torch.from_numpy(feed[step]))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_equal(cache, jc, cfg)
+
+
+def test_variant_forward_matches(variant):
+    cfg, jmodel, jparams, model, params = variant
+    toks = _tokens(1, 10, seed=10)
+    jlogits, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(toks)}, remat=False)
+    logits, _ = model.forward(params, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+
+
+def test_unported_layer_kinds_raise():
+    cfg = dataclasses.replace(reduced(get_arch("minitron-4b")), layer_pattern=("R", "G"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(cfg, "cpu").init(seed=0)
+
+
+def test_cuda_device_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(reduced(get_arch("minitron-4b")))
