@@ -16,21 +16,33 @@ toolkit.  Phases, one result line each:
    window, softcap, q_offset, GQA groups 1 and 3, ragged lengths, head dims
    16 to 256, then the main-path prefill shapes, timed beside the plain
    version and ``F.scaled_dot_product_attention``;
-5. serve — minitron-4b at full width (32 layers, bf16, random weights from a
-   seeded generator on the card) through ``repro_torch.launch.serve.main``
-   and then the slot engine directly with 100-400-token prompts; every
-   request must finish with its token count, both kernels' launch counts
-   must grow, and the kernel path's prefill logits must agree with the plain
-   path's on the same weights.
+5. scans — the rwkv6 (wkv6) and RG-LRU scan kernels against their plain
+   versions, bf16 and f32, from a non-zero initial state: decode (T = 1), a
+   prime T (default T tile 1), T = 256 under T tiles 2, 8, 64 and the
+   default (y and state bit-identical across tiles), head dims 16 and 64,
+   1 and 3 heads, 2560 channels and a ragged 12 under a tile of 8, and
+   state continuation (two scans from the returned state equal one, bit for
+   bit); then the main-path shapes timed beside the plain versions;
+6. serve — minitron-4b, rwkv6-1.6b and recurrentgemma-2b, each at full width
+   and full depth (bf16, random weights from a seeded generator on the
+   card), one after the other, each freed before the next loads: through
+   ``repro_torch.launch.serve.main`` and then the slot engine directly with
+   100-400-token prompts.  Every request must finish with its token count,
+   the launch counts of the arch's kernels (set to 0 just before, read just
+   after) must be above 0, and the kernel path's prefill logits must agree
+   with the plain path's on the same weights.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
 exits non-zero and prints no result.  Times come from CUDA events, each
 launch after an L2 flush (the serving path reads weights cold).  Bounds use
-the H100 SXM's published peaks: 3.35 TB/s and 989 TFLOP/s dense bf16.
+the H100 SXM's published peaks: 3.35 TB/s, 989 TFLOP/s dense bf16 on the
+tensor cores, and 67 TFLOP/s f32 on the CUDA cores for the scans, which run
+no matrix product.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -41,6 +53,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_CUDA_CORE_FLOPS = 67e12
 
 # Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise).
 # bf16: the repo's bf16 tolerance (tests/test_kernels_matmul.py::
@@ -50,11 +63,34 @@ BF16_FLOPS = 989e12
 # f32: the repo's f32 kernel tolerance (tests/test_kernels_*.py).
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 F32_TOL = dict(rtol=2e-4, atol=2e-4)
-# Prefill logits of the 32-layer bf16 model, kernel path vs plain path: each
-# of ~200 ops rounds its bf16 output in the same places on both paths, but f32
-# sums taken in other orders can round to neighbouring bf16 values, and those
-# one-ulp differences (2^-8 relative) carry through the residual stream.
-LOGITS_REL_BOUND = 0.05   # max |kernel - plain| <= 5% of max |plain logit|
+# Prefill logits of the full-depth bf16 model, kernel path vs plain path:
+# each of ~200 ops rounds its bf16 output in the same places on both paths,
+# but f32 sums taken in other orders can round to neighbouring bf16 values,
+# and those one-ulp differences (2^-8 relative) carry through the residual
+# stream.  How far they grow depends on the arch: minitron-4b and
+# recurrentgemma-2b keep them near 1%, but rwkv6-1.6b at random init
+# amplifies any difference from layer to layer, so two plain versions that
+# differ only in how they accumulate drift as far apart as the kernel path
+# does.
+# The bound is therefore the larger of 5% of max |plain logit| and twice
+# the control: the distance from the plain path to the plain path with its
+# matmuls accumulated in f64 instead of f32 (same bf16 roundings, another
+# sum order and precision: what the kernels change, with no kernel in it).
+LOGITS_REL_BOUND = 0.05
+CONTROL_FACTOR = 2.0
+# The same comparison without the drift: each layer, run by both paths on
+# the plain path's input to that layer, must give a block output (the
+# layer's output minus its input) within 2% relative L2 of the plain
+# path's.  One layer rounds a handful of ops to bf16 in the same places on
+# both paths, a few tenths of a percent apart.
+LAYER_REL_BOUND = 0.02
+# Scan states, kernel vs plain.  The state is f32 on both sides, computed
+# from the same f32 (or bf16-exact) inputs, in the same order over tokens;
+# the two differ only where the kernel fuses a multiply and an add into
+# one rounding (about one f32 ulp per step), and each step's error is
+# damped by the decay (w, a < 1).  So the state is held at the f32
+# tolerance whatever the input dtype; y at its dtype's tolerance.
+STATE_TOL = F32_TOL
 
 MAIN_KN = [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072), (3072, 256000)]
 
@@ -105,8 +141,8 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -286,28 +322,254 @@ def phase_attention(torch, timer) -> dict:
     return {"shapes": shapes, "max_abs_err": max([errs[n] for n in errs] + [r["max_abs_err"] for r in shapes])}
 
 
-def phase_serve(torch) -> dict:
+def _rw_inputs(torch, g, b, h, t, d, dtype, near_one=False):
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    r, k, v = (n(b, h, t, d).to(dtype) for _ in range(3))
+    if near_one:   # the model's decay exp(-exp(w0 + dw)) with w0 = -6: ~0.998
+        w = torch.exp(-torch.exp(-6.0 + 0.5 * n(b, h, t, d))).to(dtype)
+    else:
+        w = (0.05 + 0.9 * torch.sigmoid(n(b, h, t, d))).to(dtype)
+    return r, k, v, w, 0.5 * n(h, d), n(b, h, d, d)
+
+
+def _rg_inputs(torch, g, b, t, c, dtype):
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    return n(b, t, c).to(dtype), torch.sigmoid(n(b, t, c)).to(dtype), n(b, c)
+
+
+def phase_scans(torch, timer) -> dict:
+    from repro_torch.core.schedule import Schedule, concretize
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rw_cs(dtype, b, h, t, d, tile_t=None):
+        inst = ops.instance("rwkv6_scan", dtype, T=t, C=h * d, D=d, B=b)
+        if tile_t is None:
+            return ops.schedule_for(inst)
+        return concretize(Schedule.make("rwkv6_scan", {"T": tile_t, "C": h * d},
+                                        order=("C", "T")), inst)
+
+    def rg_cs(dtype, b, t, c, tile_t=None, tile_c=None):
+        inst = ops.instance("rglru_scan", dtype, T=t, C=c, B=b)
+        if tile_t is None and tile_c is None:
+            return ops.schedule_for(inst)
+        dflt = ops.schedule_for(inst).t
+        return concretize(Schedule.make("rglru_scan", {"T": tile_t or dflt["T"],
+                                                       "C": tile_c or dflt["C"]},
+                                        order=("C", "T")), inst)
+
+    errs = {"rwkv6": {}, "rglru": {}}
+
+    def check(kind, name, x, cs, tol):
+        kernel, plain = (rw.launch, ref.rwkv6_scan) if kind == "rwkv6" else (rg.launch, ref.rglru_scan)
+        y, s = kernel(*x, cs)
+        yr, sr = plain(*x)
+        errs[kind][name] = max(assert_close(torch, y, yr, tol, name),
+                               assert_close(torch, s, sr, STATE_TOL, name + " state"))
+        return y, s
+
+    def same(a, b, what):
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(a, b)):
+            raise AssertionError(f"{what}: y or the state is not bit-identical")
+
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        dn = ops.dtype_name(dtype)
+        # K3: decode, prime T (default T tile 1), head dims 16/64, 1 and 3 heads
+        for b, h, t, d, near in ((2, 1, 1, 16, False), (4, 3, 1, 64, True),
+                                 (1, 3, 97, 64, False), (2, 1, 97, 16, True),
+                                 (1, 3, 256, 16, True)):
+            check("rwkv6", f"rwkv6/{dn}/{b}x{h}x{t}x{d}",
+                  _rw_inputs(torch, g, b, h, t, d, dtype, near), rw_cs(dtype, b, h, t, d), tol)
+        b, h, t, d = 1, 3, 256, 64
+        x = _rw_inputs(torch, g, b, h, t, d, dtype)
+        full = check("rwkv6", f"rwkv6/{dn}/T{t}/default", x, rw_cs(dtype, b, h, t, d), tol)
+        for ct in (2, 8, 64):
+            same(check("rwkv6", f"rwkv6/{dn}/T{t}/tile{ct}", x, rw_cs(dtype, b, h, t, d, ct), tol),
+                 full, f"rwkv6 {dn} T tile {ct}")
+        t1 = 100   # continuation: [0:t1], then [t1:T] from the returned state
+        r, k, v, w, u, s0 = x
+        part = [z[:, :, :t1].contiguous() for z in (r, k, v, w)]
+        rest = [z[:, :, t1:].contiguous() for z in (r, k, v, w)]
+        ya, sa = check("rwkv6", f"rwkv6/{dn}/cont1", (*part, u, s0), rw_cs(dtype, b, h, t1, d), tol)
+        yb, sb = check("rwkv6", f"rwkv6/{dn}/cont2", (*rest, u, sa), rw_cs(dtype, b, h, t - t1, d), tol)
+        same((torch.cat([ya, yb], dim=2), sb), full, f"rwkv6 {dn} state continuation")
+
+        # K4: decode, prime T, full width under the default C tile, a C tile
+        # above 1024 threads, a ragged C under a tile of 8
+        for b, t, c, tile_c in ((2, 1, 2560, None), (4, 1, 2560, None), (1, 97, 2560, None),
+                                (1, 64, 2560, 2560), (2, 33, 12, None), (2, 33, 12, 8)):
+            check("rglru", f"rglru/{dn}/{b}x{t}x{c}/c{tile_c}", _rg_inputs(torch, g, b, t, c, dtype),
+                  rg_cs(dtype, b, t, c, tile_c=tile_c), tol)
+        b, t, c = 1, 256, 2560
+        x = _rg_inputs(torch, g, b, t, c, dtype)
+        full = check("rglru", f"rglru/{dn}/T{t}/default", x, rg_cs(dtype, b, t, c), tol)
+        for ct in (2, 8, 64):
+            same(check("rglru", f"rglru/{dn}/T{t}/tile{ct}", x, rg_cs(dtype, b, t, c, tile_t=ct), tol),
+                 full, f"rglru {dn} T tile {ct}")
+        xs, a, h0 = x
+        ya, ha = check("rglru", f"rglru/{dn}/cont1", (xs[:, :t1].contiguous(), a[:, :t1].contiguous(), h0),
+                       rg_cs(dtype, b, t1, c), tol)
+        yb, hb = check("rglru", f"rglru/{dn}/cont2", (xs[:, t1:].contiguous(), a[:, t1:].contiguous(), ha),
+                       rg_cs(dtype, b, t - t1, c), tol)
+        same((torch.cat([ya, yb], dim=1), hb), full, f"rglru {dn} state continuation")
+    for kind in errs:
+        log(f"{kind}_checks", checks=len(errs[kind]), max_abs_err=max(errs[kind].values()),
+            tol=BF16_TOL, f32_tol=F32_TOL, state_tol=STATE_TOL)
+
+    # main-path shapes, bf16: prefill (a bucket-sized and a prime T) and 4-slot decode
+    out = {"rwkv6": [], "rglru": []}
+    for b, h, t, d, tile_t in ((1, 32, 256, 64, None), (4, 32, 1, 64, None),
+                               (1, 32, 397, 64, None), (1, 32, 397, 64, 397)):
+        x = _rw_inputs(torch, g, b, h, t, d, torch.bfloat16, near_one=True)
+        cs = rw_cs(torch.bfloat16, b, h, t, d, tile_t)
+        y, s = rw.launch(*x, cs)
+        yr, sr = ref.rwkv6_scan(*x)
+        err = max(assert_close(torch, y, yr, BF16_TOL, "rwkv6 main shape"),
+                  assert_close(torch, s, sr, STATE_TOL, "rwkv6 main shape state"))
+        nbytes = 5 * b * h * t * d * 2 + h * d * 4 + 2 * b * h * d * d * 4
+        b_ms, b_by = bound_ms(nbytes, 7 * b * h * t * d * d, F32_CUDA_CORE_FLOPS)
+        row = {"B": b, "H": h, "T": t, "D": d, "tiles": cs.t, "ctas": b * h, "max_abs_err": err,
+               "ms": timer.ms(lambda: rw.launch(*x, cs)),
+               "plain_ms": timer.ms(lambda: ref.rwkv6_scan(*x), iters=5),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        out["rwkv6"].append(row)
+        log("rwkv6_shape", **row)
+    for b, t, c in ((1, 256, 2560), (4, 1, 2560), (1, 397, 2560)):
+        x = _rg_inputs(torch, g, b, t, c, torch.bfloat16)
+        cs = rg_cs(torch.bfloat16, b, t, c)
+        y, s = rg.launch(*x, cs)
+        yr, sr = ref.rglru_scan(*x)
+        err = max(assert_close(torch, y, yr, BF16_TOL, "rglru main shape"),
+                  assert_close(torch, s, sr, STATE_TOL, "rglru main shape state"))
+        b_ms, b_by = bound_ms(3 * b * t * c * 2 + 2 * b * c * 4, 7 * b * t * c, F32_CUDA_CORE_FLOPS)
+        row = {"B": b, "T": t, "C": c, "tiles": cs.t, "ctas": b * cs.g["C"], "max_abs_err": err,
+               "ms": timer.ms(lambda: rg.launch(*x, cs)),
+               "plain_ms": timer.ms(lambda: ref.rglru_scan(*x), iters=5),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        out["rglru"].append(row)
+        log("rglru_shape", **row)
+    for kind in out:
+        out[kind] = {"shapes": out[kind],
+                     "max_abs_err": max([*errs[kind].values(), *(r["max_abs_err"] for r in out[kind])])}
+    return out
+
+
+def phase_prime_matmul(torch, timer) -> list:
+    """The matmul kernel at an unbucketed prime prefill length (M tile 1
+    under the default schedule), beside 64x64 output tiles."""
+    from repro_torch.core.schedule import Schedule, concretize
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for m, k, n, class_id in ((397, 2048, 2048, "matmul"), (397, 2560, 15360, "matmul_gelu_glu")):
+        x, w, kw = _mm_inputs(torch, g, m, n, k, class_id, torch.bfloat16)
+        cs = ops.schedule_for(ops.instance(class_id, torch.bfloat16, M=m, N=n, K=k))
+        cs64 = concretize(Schedule.make(class_id, {"M": 64, "N": 64, "K": cs.t["K"]}), cs.instance)
+        want = ref.matmul(x, w, class_id, **kw)
+        err = max(assert_close(torch, mm.launch(x, w, cs, class_id=class_id, **kw), want, BF16_TOL,
+                               f"{class_id} M={m}"),
+                  assert_close(torch, mm.launch(x, w, cs64, class_id=class_id, **kw), want, BF16_TOL,
+                               f"{class_id} M={m} 64x64"))
+        b_ms, b_by = bound_ms(2 * (m * k + k * n + m * (n // 2 if "glu" in class_id else n)),
+                              2 * m * n * k)
+        row = {"class": class_id, "M": m, "K": k, "N": n, "tiles": cs.t,
+               "ctas": cs.g["M"] * cs.g["N"], "max_abs_err": err,
+               "ms": timer.ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw), iters=5),
+               "tile64_ctas": cs64.g["M"] * cs64.g["N"],
+               "tile64_ms": timer.ms(lambda: mm.launch(x, w, cs64, class_id=class_id, **kw), iters=5),
+               "plain_ms": timer.ms(lambda: ref.matmul(x, w, class_id, **kw), iters=5),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        log("matmul_prime_shape", **row)
+        del x, w, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def f64_accumulation():
+    """The plain matmul accumulating in f64 instead of f32: an equally
+    valid plain version that rounds to bf16 in the same places."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    plain = ref.matmul
+
+    def matmul64(x, w, class_id="matmul", **kw):
+        y = torch.matmul(x.double(), w.double()).float()
+        return ref.apply_epilogue(y, class_id, **kw).to(x.dtype)
+
+    ref.matmul = matmul64
+    try:
+        yield
+    finally:
+        ref.matmul = plain
+
+
+def layerwise_rel_err(torch, model, params, toks) -> list:
+    """Each layer run by both paths on the plain path's input to that layer:
+    per layer, |kernel - plain| / |plain| of the block output (output minus
+    input), in L2."""
+    from repro_torch.kernels.ops import use_backend
+    from repro_torch.models import lm
+
+    cfg = model.cfg
+    h = lm._embed(params, cfg, toks)
+    b, s, _ = h.shape
+    kw = dict(positions=lm._positions(b, s, h.device), pos=None, decode=False)
+    errs = []
+    for j, kind in enumerate(cfg.layer_kinds):
+        fresh = lambda: lm.init_block_cache(cfg, kind, b, 512, h.device)  # noqa: E731
+        out_k, _ = lm.apply_block(params["layers"][j], cfg, kind, h, cache=fresh(), **kw)
+        with use_backend("ref"):
+            out_r, _ = lm.apply_block(params["layers"][j], cfg, kind, h, cache=fresh(), **kw)
+        delta = (out_r.float() - h.float()).norm()
+        errs.append(float((out_k.float() - out_r.float()).norm() / delta))
+        h = out_r
+    return errs
+
+
+#: the kernels each served arch must launch
+SERVE_KERNELS = {"minitron-4b": ("matmul", "flash_attention"),
+                 "rwkv6-1.6b": ("matmul", "rwkv6_scan"),
+                 "recurrentgemma-2b": ("matmul", "flash_attention", "rglru_scan")}
+
+
+def phase_serve(torch, arch: str) -> dict:
     import numpy as np
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.kernels.ops import use_backend
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
 
-    cfg = get_arch("minitron-4b")
-    mm.reset_launches()
-    fa.reset_launches()
+    cfg = get_arch(arch)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    for kmod in (mm, fa, rw, rg):
+        kmod.reset_launches()
 
     # the user's entry point, at full width
-    res = serve.main(["--arch", "minitron-4b", "--preset", "full", "--device", "cuda"])
+    res = serve.main(["--arch", arch, "--preset", "full", "--device", "cuda"])
     if res["requests"] != 8 or res["tokens"] != 8 * 8:
         raise AssertionError(f"serve.main finished {res['requests']} requests / {res['tokens']} tokens")
 
-    # the slot engine directly: long prompts, so prefill runs several Q tiles
+    # the slot engine directly: long prompts of unbucketed lengths for the
+    # recurrent archs, power-of-two buckets for minitron
     model = build_model(cfg, "cuda")
     params = model.init(seed=0)
     engine = ServingEngine(model, params, slots=4, max_len=512)
@@ -332,28 +594,39 @@ def phase_serve(torch) -> dict:
         if steps > 1000:
             raise AssertionError("the slot engine did not converge")
     torch.cuda.synchronize()
-    launches = {"matmul": mm.launches, "flash_attention": fa.launches}
+    launches = serve.kernel_launches()
     if len(done) != len(prompts) or any(len(r.generated) != new_tokens for r in done):
         raise AssertionError(f"engine finished {len(done)} requests with token counts "
                              f"{[len(r.generated) for r in done]}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+    if min(launches[k] for k in SERVE_KERNELS[arch]) <= 0:
+        raise AssertionError(f"{arch}: a kernel of the main path was never launched: {launches}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens = sum(len(r.generated) for r in done)
 
-    # kernel path vs plain path on the same weights: the first prompt's prefill
+    # kernel path vs plain path on the same weights: the first prompt's
+    # prefill, end to end and layer by layer
     toks = torch.tensor([prompts[0]], dtype=torch.long, device="cuda")
     logits_k, _ = model.prefill(params, {"tokens": toks}, max_len=512)
     with use_backend("ref"):
         logits_r, _ = model.prefill(params, {"tokens": toks}, max_len=512)
+        with f64_accumulation():
+            logits_c, _ = model.prefill(params, {"tokens": toks}, max_len=512)
     torch.cuda.synchronize()
     if tuple(logits_k.shape) != (1, cfg.vocab_size) or not bool(torch.isfinite(logits_k).all()):
         raise AssertionError(f"prefill logits: shape {tuple(logits_k.shape)} or non-finite")
     diff = max_err(torch, logits_k, logits_r)
+    control = max_err(torch, logits_c, logits_r)
     scale = float(logits_r.float().abs().max())
-    if diff > LOGITS_REL_BOUND * scale:
-        raise AssertionError(f"prefill logits differ by {diff} > {LOGITS_REL_BOUND} x {scale}")
-    row = {"arch": cfg.name, "layers": cfg.n_layers, "params": cfg.param_count(),
+    bound = max(LOGITS_REL_BOUND * scale, CONTROL_FACTOR * control)
+    if diff > bound:
+        raise AssertionError(f"{arch}: prefill logits differ by {diff} > {bound} "
+                             f"(max |logit| {scale}, control {control})")
+    layer_err = layerwise_rel_err(torch, model, params, toks)
+    if max(layer_err) > LAYER_REL_BOUND:
+        raise AssertionError(f"{arch}: a layer's output differs by {max(layer_err)} "
+                             f"> {LAYER_REL_BOUND} (per layer: {layer_err})")
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": cfg.param_count(),
            "serve_main": {k: res[k] for k in ("requests", "tokens", "decode_steps", "tok_per_s")},
            "requests": len(done), "tokens": tokens, "prompt_lens": [len(p) for p in prompts],
            "decode_steps": steps, "prefill_s": prefill_s, "decode_s": decode_s,
@@ -361,9 +634,12 @@ def phase_serve(torch) -> dict:
            "decode_tok_per_s": (tokens - len(done)) / decode_s,
            "launches": launches, "peak_mem_gib": peak_gib,
            "logits_max_abs_diff": diff, "logits_max_abs": scale,
-           "logits_bound": LOGITS_REL_BOUND * scale,
-           "argmax_equal": int(logits_k.argmax()) == int(logits_r.argmax())}
+           "logits_control": control, "logits_bound": bound,
+           "argmax_equal": int(logits_k.argmax()) == int(logits_r.argmax()),
+           "layer_rel_err_max": max(layer_err), "layer_rel_err": layer_err}
     log("serve", **row)
+    del model, params, engine, logits_k, logits_r, logits_c
+    torch.cuda.empty_cache()
     return row
 
 
@@ -385,24 +661,38 @@ def main() -> int:
     timer = Timer(torch)
     mmr = phase_matmul(torch, timer)
     far = phase_attention(torch, timer)
+    scr = phase_scans(torch, timer)
+    phase_prime_matmul(torch, timer)
     del timer
     torch.cuda.empty_cache()
-    srv = phase_serve(torch)
+    srv = [phase_serve(torch, arch) for arch in SERVE_KERNELS]
+
+    def served(name):   # launches summed over the serve phases
+        return sum(r["launches"][name] for r in srv)
+
+    def timed(row, keys):
+        return {"shape": {k: row[k] for k in keys},
+                **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
 
     rep_mm = next(r for r in mmr["shapes"] if r["M"] == 4 and r["N"] == 256000)
     rep_fa = next(r for r in far["shapes"] if r["S"] == 512)
+    rep_rw = scr["rwkv6"]["shapes"][0]
+    rep_rg = scr["rglru"]["shapes"][0]
     kernels = [
         {"name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
-         "replaces": "src/repro/kernels/matmul.py:205", "launches": srv["launches"]["matmul"],
-         "max_abs_err": mmr["max_abs_err"],
-         "shape": {k: rep_mm[k] for k in ("class", "M", "K", "N")},
-         **{k: rep_mm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+         "replaces": "src/repro/kernels/matmul.py:205", "launches": served("matmul"),
+         "max_abs_err": mmr["max_abs_err"], **timed(rep_mm, ("class", "M", "K", "N"))},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:126",
-         "launches": srv["launches"]["flash_attention"], "max_abs_err": far["max_abs_err"],
-         "shape": {k: rep_fa[k] for k in ("B", "Hq", "Hkv", "S", "D")},
-         **{k: rep_fa[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+         "launches": served("flash_attention"), "max_abs_err": far["max_abs_err"],
+         **timed(rep_fa, ("B", "Hq", "Hkv", "S", "D"))},
+        {"name": "rwkv6_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+         "replaces": "src/repro/kernels/rwkv6_scan.py:86", "launches": served("rwkv6_scan"),
+         "max_abs_err": scr["rwkv6"]["max_abs_err"], **timed(rep_rw, ("B", "H", "T", "D"))},
+        {"name": "rglru_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:65", "launches": served("rglru_scan"),
+         "max_abs_err": scr["rglru"]["max_abs_err"], **timed(rep_rg, ("B", "T", "C"))},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,8 +1,9 @@
 """Architecture configuration: a copy of ``repro.configs.base``'s
 ``ArchConfig``, ``reduced()`` and ``get_arch()``.
 
-The registry holds only the archs the port can build so far; the others
-arrive with the slices that port their layers (MoE, recurrent, enc-dec, VLM).
+The registry holds only the archs the port can build so far (dense and
+recurrent); the others arrive with the slices that port their layers (MoE,
+enc-dec, VLM).
 """
 from __future__ import annotations
 
@@ -56,18 +57,47 @@ class ArchConfig:
         return pat * reps + pat[:rem]
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention stack (embeddings +
-        blocks + head) — the families this port builds so far."""
+        """Analytic parameter count (embeddings + blocks + head)."""
         d, ff, hd = self.d_model, self.d_ff, self.head_dim
         qkv = d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * d
-        mlp = 3 * d * ff if self.mlp_kind in ("swiglu", "geglu") else 2 * d * ff
-        total = self.n_layers * (qkv + mlp + 2 * d) + self.vocab_size * d
+        if self.mlp_kind in ("swiglu", "geglu"):
+            mlp = 3 * d * ff
+        else:
+            mlp = 2 * d * ff
+        total = 0
+        for kind in self.layer_kinds:
+            if kind == "R":
+                if self.family == "ssm":  # rwkv6: time-mix ~5 proj + channel-mix
+                    total += 5 * d * d + d * d + 2 * d * self.d_ff + self.d_ff * 0
+                else:  # griffin recurrent block
+                    w = self.rnn_width or d
+                    total += 2 * d * w + w * d + self.conv_width * w + 3 * w
+                total += mlp if self.family != "ssm" else 0
+            else:
+                if self.n_experts > 0:
+                    total += qkv + d * self.n_experts + self.n_experts * mlp
+                else:
+                    total += qkv + mlp
+            total += 2 * d  # norms
+        total += self.vocab_size * d  # token embedding
         if not self.tie_embeddings:
             total += d * self.vocab_size
+        if self.encoder_layers:
+            total += self.encoder_layers * (qkv + (2 * d * ff) + 2 * d)
+            total += self.n_layers * (qkv + 2 * d)  # decoder cross-attention
         return total
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k experts only) for 6·N·D."""
+        if self.n_experts == 0:
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        mlp = 3 * d * ff if self.mlp_kind in ("swiglu", "geglu") else 2 * d * ff
+        dense = self.param_count() - self.n_layers * self.n_experts * mlp
+        return dense + self.n_layers * self.moe_topk * mlp
 
-ARCH_IDS = ("minitron-4b",)
+
+ARCH_IDS = ("rwkv6-1.6b", "minitron-4b", "recurrentgemma-2b")
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 _REGISTRY: dict[str, ArchConfig] = {}

@@ -12,7 +12,8 @@ The models call these, with the reference's signatures and class ids
 
 Kernel instances are built exactly as in ``repro.kernels.ops`` (matmul:
 ``M`` = product of the leading dims, ``N``, ``K``; attention: ``Q``, ``KV``,
-``H``, ``D``, ``B``, ``window``), so workload keys match the reference.  This
+``H``, ``D``, ``B``, ``window``; rwkv6: ``T``, ``C`` = H·D, ``D``, ``B``;
+rglru: ``T``, ``C``, ``B``), so workload keys match the reference.  This
 slice resolves default schedules only; the resolution pipeline, registry and
 tuning service come with a later slice.
 """
@@ -30,6 +31,8 @@ from repro_torch.core.workload import KernelInstance
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.kernels import rwkv6_scan as _rw
 
 BACKENDS = ("cuda", "ref")
 _state = threading.local()
@@ -111,3 +114,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), cs,
                                causal=causal, window=window, softcap=softcap,
                                q_offset=q_offset)
+
+
+# ---------------------------------------------------------------------------
+# recurrent scans
+# ---------------------------------------------------------------------------
+
+
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+          u: torch.Tensor, state: torch.Tensor, *,
+          backend: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w: (B,H,T,D); u: (H,D); state: (B,H,D,D) f32 -> (y, state)."""
+    backend = backend or _default_backend()
+    if backend == "ref":
+        return ref.rwkv6_scan(r, k, v, w, u, state)
+    b, h, t, d = r.shape
+    cs = schedule_for(instance("rwkv6_scan", r.dtype, T=t, C=h * d, D=d, B=b))
+    return _rw.rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
+                          u, state, cs)
+
+
+def rglru(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor, *,
+          backend: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x, a: (B,T,C); state: (B,C) f32 -> (y, state)."""
+    backend = backend or _default_backend()
+    if backend == "ref":
+        return ref.rglru_scan(x, a, state)
+    b, t, c = x.shape
+    cs = schedule_for(instance("rglru_scan", x.dtype, T=t, C=c, B=b))
+    return _rg.rglru_scan(x.contiguous(), a.contiguous(), state, cs)

@@ -148,3 +148,53 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 time-mix scan (Finch wkv: data-dependent per-channel decay + bonus)
+# ---------------------------------------------------------------------------
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               u: torch.Tensor, state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain wkv6 recurrence, one step per token.
+
+    r/k/v/w: (B, H, T, D); u: (H, D); state: (B, H, D, D) mapping k-dim->v-dim.
+      y_t   = (S_t + (u ⊙ k_t) v_tᵀ)ᵀ r_t
+      S_t+1 = diag(w_t) S_t + k_t v_tᵀ
+    Returns (y (B, H, T, D) in r's dtype, final state (B, H, D, D) f32).
+    """
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    s = state.float()
+    ys = []
+    for t in range(r.shape[2]):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]          # (B,H,D,D)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, t], s + uf * kv))
+        s = wf[:, :, t, :, None] * s + kv
+    y = torch.stack(ys, dim=2) if ys else rf.new_zeros(r.shape)
+    return y.to(r.dtype), s
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan (Griffin / RecurrentGemma)
+# ---------------------------------------------------------------------------
+
+
+def rglru_scan(x: torch.Tensor, a: torch.Tensor,
+               state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain RG-LRU recurrence, one step per token.
+
+    x, a: (B, T, C) — pre-gated input and per-step decay a_t ∈ (0,1);
+    state: (B, C).   h_t = a_t ⊙ h_{t-1} + sqrt(max(1 - a_t², 0)) ⊙ x_t
+    Returns (y (B, T, C) in x's dtype, final h (B, C) f32).
+    """
+    xf, af = x.float(), a.float()
+    h = state.float()
+    hs = []
+    for t in range(x.shape[1]):
+        at = af[:, t]
+        h = at * h + torch.sqrt(torch.clamp(1.0 - at * at, min=0.0)) * xf[:, t]
+        hs.append(h)
+    y = torch.stack(hs, dim=1) if hs else xf.new_zeros(x.shape)
+    return y.to(x.dtype), h

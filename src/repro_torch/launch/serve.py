@@ -7,7 +7,10 @@ the slot engine and prints one JSON object: throughput, token counts and each
 kernel's launch count.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b --preset full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --preset full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke --arch rwkv6-1.6b
 
 ``--device cuda`` (the default) runs on the card and raises where there is
 none; ``--backend ref`` runs the plain PyTorch versions instead of the CUDA
@@ -23,9 +26,11 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_arch, reduced
+from repro_torch.configs.base import ARCH_IDS, get_arch, reduced
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.kernels.ops import BACKENDS, use_backend
 from repro_torch.models.build import build_model
 from repro_torch.serving import ServingEngine, SlotsFull
@@ -41,12 +46,13 @@ def sample_prompts(rng: np.random.Generator, n: int, vocab_size: int, *,
 
 
 def kernel_launches() -> dict[str, int]:
-    return {"matmul": mm.launches, "flash_attention": fa.launches}
+    return {"matmul": mm.launches, "flash_attention": fa.launches,
+            "rwkv6_scan": rw.launches, "rglru_scan": rg.launches}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description="serve an architecture on the port")
-    ap.add_argument("--arch", default="minitron-4b")
+    ap.add_argument("--arch", default="minitron-4b", choices=list(ARCH_IDS))
     ap.add_argument("--preset", choices=["smoke", "full"], default="smoke")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=64)

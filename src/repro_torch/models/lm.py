@@ -1,5 +1,5 @@
-"""Decoder-only LM stack (the dense-attention counterpart of
-``repro.models.lm``).
+"""Decoder-only LM stack: dense attention and recurrent (rwkv6, griffin)
+layers (the counterpart of ``repro.models.lm``).
 
 The reference stacks each layer-pattern position's params along a leading
 axis and runs ``jax.lax.scan`` over the repeats plus explicit tail layers.
@@ -22,19 +22,16 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
+from repro_torch.models import recurrent as rec
 from repro_torch.models.common import apply_norm, dense_init, dtype_of, embed_init, norm_params
 
 _NOT_PORTED = {
-    "R": "recurrent layers (rwkv6 / griffin) are not ported yet: ROADMAP A.6 "
-         "and the scan kernels K3/K4",
-    "moe": "MoE layers are not ported yet: ROADMAP A.5 and the grouped GEMM K1g",
-    "encdec_vlm": "enc-dec and vision-prefixed archs are not ported yet: ROADMAP A.7",
+    "moe": "MoE layers are not ported yet: ROADMAP A.1 and the grouped GEMM K1g",
+    "encdec_vlm": "enc-dec and vision-prefixed archs are not ported yet: ROADMAP A.6",
 }
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if "R" in cfg.layer_kinds:
-        raise NotImplementedError(_NOT_PORTED["R"])
     if cfg.n_experts > 0:
         raise NotImplementedError(_NOT_PORTED["moe"])
     if cfg.vision_tokens or cfg.encoder_layers:
@@ -47,12 +44,14 @@ def _check_supported(cfg: ArchConfig) -> None:
 
 
 def block_params(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
-    if kind == "R":
-        raise NotImplementedError(_NOT_PORTED["R"])
+    if kind == "R" and cfg.family == "ssm":
+        return rec.rwkv_params(gen, cfg)
     dt = dtype_of(cfg.dtype)
+    mixer = ({"rnn": rec.griffin_params(gen, cfg)} if kind == "R"
+             else {"attn": attn.attn_params(gen, cfg)})
     return {
         "ln1": norm_params(cfg.d_model, cfg.norm, dt, gen.device),
-        "attn": attn.attn_params(gen, cfg),
+        **mixer,
         "ln2": norm_params(cfg.d_model, cfg.norm, dt, gen.device),
         "mlp": mlpm.mlp_params(gen, cfg),
     }
@@ -61,11 +60,14 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
 def apply_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
                 positions: torch.Tensor | None, pos: torch.Tensor | None,
                 cache: dict | None, decode: bool) -> tuple[torch.Tensor, dict | None]:
-    """Returns (x, cache written)."""
-    if kind == "R":
-        raise NotImplementedError(_NOT_PORTED["R"])
+    """Returns (x, cache written).  Recurrent blocks carry their state
+    through ``cache`` at prefill and decode alike."""
+    if kind == "R" and cfg.family == "ssm":  # rwkv blocks apply their own norms
+        return rec.rwkv_block(p, cfg, x, cache=cache)
     xn = apply_norm(p["ln1"], x, cfg.norm)
-    if decode:
+    if kind == "R":
+        a, c = rec.griffin_block(p["rnn"], cfg, xn, cache=cache)
+    elif decode:
         a, c = attn.attn_decode(p["attn"], cfg, xn, kind, pos=pos, cache=cache)
     else:
         a, c = attn.attn_forward(p["attn"], cfg, xn, kind, positions=positions, cache=cache)
@@ -123,7 +125,7 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def forward(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence logits and the (zero, dense-stack) auxiliary loss."""
+    """Full-sequence logits and the auxiliary loss (zero: no MoE layers)."""
     _check_supported(cfg)
     h = _embed(params, cfg, batch["tokens"])
     b, s, _ = h.shape
@@ -137,10 +139,18 @@ def forward(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, t
 # ---------------------------------------------------------------------------
 
 
+def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, device) -> dict:
+    if kind == "R":
+        if cfg.family == "ssm":
+            return rec.init_rwkv_cache(cfg, batch, device)
+        return rec.init_griffin_cache(cfg, batch, device)
+    return attn.init_attn_cache(cfg, kind, batch, max_len, device)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
     _check_supported(cfg)
     return {
-        "layers": [attn.init_attn_cache(cfg, kind, batch, max_len, device)
+        "layers": [init_block_cache(cfg, kind, batch, max_len, device)
                    for kind in cfg.layer_kinds],
         "t": torch.zeros((batch,), dtype=torch.int32, device=device),  # per-slot positions
     }
@@ -173,7 +183,8 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *, max_len: int,
 def decode_step(params: dict, cfg: ArchConfig, cache: dict,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """tokens: (B,) — one new token per slot. Returns (logits (B, V), cache);
-    the cache's KV rows are written in place and ``t`` advances by one."""
+    the cache's KV rows are written in place, recurrent layers return fresh
+    state, and ``t`` advances by one."""
     pos = cache["t"]
     h = _embed(params, cfg, tokens[:, None])
     layers = []

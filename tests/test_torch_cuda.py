@@ -5,9 +5,11 @@ none.  On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-f32 throughout, tolerance rtol = atol = 2e-4 (the repo's f32 kernel
-tolerance); the plain versions run in full f32 (TF32 off).  This file
-imports no JAX: the card's machine need not have it.
+f32 at rtol = atol = 2e-4 (the repo's f32 kernel tolerance), bf16 scan
+outputs at 3e-2 (one bf16 rounding of f32 values computed in another
+order; the scans' f32 states stay at 2e-4); the plain versions run in full
+f32 (TF32 off).  This file imports no JAX: the card's machine need not have
+it.
 """
 import dataclasses
 
@@ -19,12 +21,15 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.kernels.ops import use_backend
 from repro_torch.models import build_model
 from repro_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=2e-4, atol=2e-4)
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 
 
 @pytest.fixture(scope="module")
@@ -41,9 +46,9 @@ def card():
     return torch.device("cuda")
 
 
-def _close(got, want):
+def _close(got, want, tol=TOL):
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(got, want, **tol)
 
 
 @pytest.mark.parametrize("class_id", ref.MATMUL_CLASSES)
@@ -84,6 +89,47 @@ def test_attention_kernel_matches_plain(card, sq, skv, d, group, causal, window,
     _close(got, ref.attention(q, k, v, **kw))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,t,d", [(2, 1, 1, 16), (3, 2, 1, 64), (1, 3, 37, 64),
+                                     (2, 2, 40, 16), (1, 1, 70, 32)])
+def test_rwkv6_kernel_matches_plain(card, dtype, b, h, t, d):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(b + h + t + d)
+    r, k, v = (torch.randn((b, h, t, d), generator=g, device=card).to(dt) for _ in range(3))
+    w = (0.05 + 0.9 * torch.sigmoid(torch.randn((b, h, t, d), generator=g, device=card))).to(dt)
+    u = torch.randn((h, d), generator=g, device=card)
+    s0 = torch.randn((b, h, d, d), generator=g, device=card)
+    before = rw.launches
+    y, s = ops.rwkv6(r, k, v, w, u, s0)
+    assert rw.launches == before + 1 and y.dtype == dt and s.dtype == torch.float32
+    yr, sr = ref.rwkv6_scan(r, k, v, w, u, s0)
+    _close(y, yr, TOL if dt == torch.float32 else BF16_TOL)
+    _close(s, sr)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,c,tile_c", [(2, 1, 64, None), (4, 1, 2560, None), (1, 23, 100, None),
+                                          (2, 17, 12, 8), (1, 9, 1500, 1500)])
+def test_rglru_kernel_matches_plain(card, dtype, b, t, c, tile_c):
+    """Decode (T = 1), a ragged C under a tile of 8, a tile above 1024 threads."""
+    from repro_torch.core.schedule import Schedule, concretize
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(b + t + c)
+    x = torch.randn((b, t, c), generator=g, device=card).to(dt)
+    a = torch.sigmoid(torch.randn((b, t, c), generator=g, device=card)).to(dt)
+    h0 = torch.randn((b, c), generator=g, device=card)
+    cs = ops.schedule_for(ops.instance("rglru_scan", dt, T=t, C=c, B=b))
+    if tile_c is not None:
+        cs = concretize(Schedule.make("rglru_scan", {"T": cs.t["T"], "C": tile_c}), cs.instance)
+    before = rg.launches
+    y, h = rg.rglru_scan(x, a, h0, cs)
+    assert rg.launches == before + 1 and y.dtype == dt and h.dtype == torch.float32
+    yr, hr = ref.rglru_scan(x, a, h0)
+    _close(y, yr, TOL if dt == torch.float32 else BF16_TOL)
+    _close(h, hr)
+
+
 def test_kernel_rejects_what_it_does_not_take(card):
     x = torch.zeros((4, 8), device=card)
     w = torch.zeros((8, 16), device=card, dtype=torch.bfloat16)
@@ -97,32 +143,46 @@ def test_kernel_rejects_what_it_does_not_take(card):
                                         H=2, D=320, B=1, window=0))
     with pytest.raises(ValueError, match="head dims"):
         fa.launch(q, q, q, acs)
+    r = torch.zeros((1, 2, 4, 48), device=card)
+    rcs = ops.schedule_for(ops.instance("rwkv6_scan", r.dtype, T=4, C=96, D=48, B=1))
+    with pytest.raises(ValueError, match="head dims"):
+        rw.launch(r, r, r, r, torch.zeros((2, 48), device=card),
+                  torch.zeros((1, 2, 48, 48), device=card), rcs)
+    x = torch.zeros((1, 4, 8), device=card)
+    gcs = ops.schedule_for(ops.instance("rglru_scan", x.dtype, T=4, C=8, B=1))
+    with pytest.raises(ValueError, match="one dtype"):
+        rg.launch(x, x.bfloat16(), torch.zeros((1, 8), device=card), gcs)
 
 
-# reduced minitron, and a variant whose layers drive the window, softcap,
-# GLU and softcapped-head paths of both kernels
-CONFIGS = {"minitron": {},
-           "local_global_softcap_geglu": dict(layer_pattern=("L", "G"), window=8,
-                                              attn_softcap=50.0, final_softcap=30.0,
-                                              tie_embeddings=True, mlp_kind="geglu")}
+# reduced minitron, a variant whose layers drive the window, softcap, GLU
+# and softcapped-head paths of K1 and K2, and the two recurrent archs (K3,
+# K4 and griffin's local attention): arch, config overrides, kernels run
+CONFIGS = {"minitron": ("minitron-4b", {}, (mm, fa)),
+           "local_global_softcap_geglu": ("minitron-4b",
+                                          dict(layer_pattern=("L", "G"), window=8,
+                                               attn_softcap=50.0, final_softcap=30.0,
+                                               tie_embeddings=True, mlp_kind="geglu"), (mm, fa)),
+           "rwkv6": ("rwkv6-1.6b", {}, (mm, rw)),
+           "recurrentgemma": ("recurrentgemma-2b", {}, (mm, fa, rg))}
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def reduced_model(card, request):
-    cfg = dataclasses.replace(reduced(get_arch("minitron-4b")), **CONFIGS[request.param])
+    arch, kw, kernels = CONFIGS[request.param]
+    cfg = dataclasses.replace(reduced(get_arch(arch)), **kw)
     model = build_model(cfg, card)
-    return model, model.init(seed=0)
+    return model, model.init(seed=0), kernels
 
 
 def test_reduced_model_kernel_path_matches_plain_path(reduced_model):
-    model, params = reduced_model
+    model, params, kernels = reduced_model
     toks = torch.randint(1, 512, (2, 12), generator=torch.Generator().manual_seed(0)).to(model.device)
-    launches = (mm.launches, fa.launches)
+    launches = [km.launches for km in kernels]
     lk, ck = model.prefill(params, {"tokens": toks}, max_len=32, true_len=9)
     with use_backend("ref"):
         lr, cr = model.prefill(params, {"tokens": toks}, max_len=32, true_len=9)
     _close(lk, lr)
-    assert mm.launches > launches[0] and fa.launches > launches[1]
+    assert all(km.launches > n for km, n in zip(kernels, launches))
     for step in range(3):
         feed = toks[:, step]
         lk, ck = model.decode_step(params, ck, feed)
@@ -132,7 +192,7 @@ def test_reduced_model_kernel_path_matches_plain_path(reduced_model):
 
 
 def test_engine_on_the_card_finishes_requests(reduced_model):
-    model, params = reduced_model
+    model, params, _ = reduced_model
     eng = ServingEngine(model, params, slots=2, max_len=32)
     before = mm.launches
     reqs = [eng.add_request([1, 2, 3], max_new_tokens=4),

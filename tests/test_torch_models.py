@@ -1,10 +1,13 @@
-"""Reduced minitron-4b (f32) in the port against ``repro.models``.
+"""Reduced minitron-4b, rwkv6-1.6b and recurrentgemma-2b (f32) in the port
+against ``repro.models``.
 
 The reference builds the weights; ``repro_torch.convert`` hands the same
 weights to the port.  Prefill logits (with and without right padding), the
-filled cache and teacher-forced decode logits at per-slot positions must
-agree within rtol = atol = 2e-4 (the repo's f32 kernel tolerance); one
-prefill of the reference runs its Pallas kernels in interpret mode.
+filled cache (KV rows, recurrent states, token-shift and conv carries) and
+teacher-forced decode logits at per-slot positions must agree within rtol =
+atol = 2e-4 (the repo's f32 kernel tolerance); one prefill of the reference
+runs its Pallas kernels in interpret mode.  Plus the configs and their
+parameter counts against the reference's.
 """
 import dataclasses
 
@@ -20,7 +23,7 @@ from repro.configs import get_arch as jget_arch
 from repro.configs import reduced as jreduced
 from repro.kernels.ops import use_backend as juse_backend
 from repro.models import build_model as jbuild_model
-from repro_torch.configs import get_arch, reduced
+from repro_torch.configs import ARCH_IDS, get_arch, reduced
 from repro_torch.convert import cache_from_jax, params_from_jax
 from repro_torch.models import build_model
 from repro_torch.models.common import apply_rope, pack_glu, rmsnorm
@@ -54,7 +57,9 @@ def _assert_cache_equal(cache, jcache, cfg):
     np.testing.assert_array_equal(cache["t"].numpy(), want["t"].numpy())
     assert len(cache["layers"]) == cfg.n_layers
     for got_l, want_l in zip(cache["layers"], want["layers"]):
-        for key in ("k", "v"):
+        assert set(got_l) == set(want_l)
+        for key in want_l:
+            assert got_l[key].dtype == want_l[key].dtype, key
             np.testing.assert_allclose(got_l[key].numpy(), want_l[key].numpy(), **TOL)
 
 
@@ -210,9 +215,11 @@ def test_variant_forward_matches(variant):
 
 
 def test_unported_layer_kinds_raise():
-    cfg = dataclasses.replace(reduced(get_arch("minitron-4b")), layer_pattern=("R", "G"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, "cpu").init(seed=0)
+    """MoE and enc-dec layers are still to port: building either raises."""
+    base = reduced(get_arch("minitron-4b"))
+    for kw in (dict(n_experts=4, moe_topk=2), dict(encoder_layers=2, encoder_seq=16)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(dataclasses.replace(base, **kw), "cpu").init(seed=0)
 
 
 def test_cuda_device_without_gpu_raises():
@@ -220,3 +227,140 @@ def test_cuda_device_without_gpu_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(reduced(get_arch("minitron-4b")))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_config_and_param_count_match_reference(arch):
+    """Every arch the port registers: the config is a copy of the
+    reference's, and ``param_count`` / ``active_param_count`` agree at full
+    width and reduced (also for MoE and enc-dec variants, which the copy
+    counts as the reference does)."""
+    cfg, jcfg = get_arch(arch), jget_arch(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    variants = [(cfg, jcfg), (reduced(cfg), jreduced(jcfg))]
+    for kw in (dict(n_experts=8, moe_topk=2), dict(encoder_layers=2, encoder_seq=16)):
+        variants.append((dataclasses.replace(cfg, **kw), dataclasses.replace(jcfg, **kw)))
+    for c, jc in variants:
+        assert c.param_count() == jc.param_count()
+        assert c.active_param_count() == jc.active_param_count()
+
+
+# ---------------------------------------------------------------------------
+# Recurrent archs: rwkv6 (attention-free) and recurrentgemma (griffin R, R, L)
+# ---------------------------------------------------------------------------
+
+RECURRENT = ("rwkv6-1.6b", "recurrentgemma-2b")
+
+# Leaves the reference initialises to constants (token-shift mixes 0.5, base
+# decay -6, gates 0, lambda 2, group-norm scale 1): the tests give them
+# values, (mean, sd), so every term of the recurrences is exercised.
+_RANDOMISED = {"mu": (0.5, 0.2), "mu_c": (0.5, 0.2), "w0": (-3.0, 0.5), "ln_x": (1.0, 0.1),
+               "lambda": (2.0, 0.5), "gate_a": (0.0, 1.0), "gate_i": (0.0, 1.0)}
+
+
+def _randomise(tree, r):
+    if isinstance(tree, dict):
+        return {k: (jnp.asarray(_RANDOMISED[k][0] + _RANDOMISED[k][1] * r.normal(size=v.shape),
+                                v.dtype)
+                    if k in _RANDOMISED and not isinstance(v, (dict, list)) else _randomise(v, r))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_randomise(v, r) for v in tree]
+    return tree
+
+
+@pytest.fixture(scope="module", params=RECURRENT)
+def recurrent(request):
+    jcfg = jreduced(jget_arch(request.param))
+    cfg = reduced(get_arch(request.param))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    jmodel = jbuild_model(jcfg)
+    jparams = _randomise(jmodel.init(jax.random.PRNGKey(0)), np.random.default_rng(11))
+    model = build_model(cfg, "cpu")
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    return cfg, jmodel, jparams, model, params
+
+
+def test_recurrent_converted_params_have_port_layout(recurrent):
+    """griffin's 5 reduced layers are one (R, R, L) group plus an (R, R)
+    tail in the reference; the port keeps them in layer order."""
+    cfg, _, jparams, _, params = recurrent
+    assert len(params["layers"]) == cfg.n_layers == len(cfg.layer_kinds)
+    if cfg.family == "ssm":
+        np.testing.assert_array_equal(params["layers"][1]["u"].numpy(),
+                                      np.asarray(jparams["groups"]["0"]["u"][1]))
+    else:
+        assert cfg.layer_kinds == ("R", "R", "L", "R", "R") and len(jparams["tail"]) == 2
+        np.testing.assert_array_equal(params["layers"][4]["rnn"]["gate_a"].numpy(),
+                                      np.asarray(jparams["tail"][1]["rnn"]["gate_a"]))
+        assert set(params["layers"][2]) == {"ln1", "attn", "ln2", "mlp"}
+
+
+def test_recurrent_forward_logits_match(recurrent):
+    cfg, jmodel, jparams, model, params = recurrent
+    toks = _tokens(2, 11, seed=21)
+    jlogits, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(toks)}, remat=False)
+    logits, aux = model.forward(params, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    assert float(aux) == 0.0
+
+
+def test_recurrent_prefill_logits_and_cache_match(recurrent):
+    """A prompt longer than griffin's 8-position attention ring."""
+    cfg, jmodel, jparams, model, params = recurrent
+    toks = _tokens(2, 13, seed=22)
+    jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN)
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=MAX_LEN)
+    assert logits.shape == (2, cfg.vocab_size)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_equal(cache, jc, cfg)
+
+
+def test_recurrent_teacher_forced_decode_at_per_slot_positions(recurrent):
+    """Five decode steps with slots at different positions, fed the same
+    tokens in both packages: logits, states and carries agree at every step."""
+    cfg, jmodel, jparams, model, params = recurrent
+    toks = _tokens(2, 9, seed=23)
+    _, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN)
+    _, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=MAX_LEN)
+    t = np.array([9, 6], np.int32)
+    jc["t"] = jnp.asarray(t)
+    cache["t"] = torch.from_numpy(t)
+    feed = _tokens(5, 2, seed=24)
+    for step in range(5):
+        jl, jc = jmodel.decode_step(jparams, jc, jnp.asarray(feed[step]))
+        logits, cache = model.decode_step(params, cache, torch.from_numpy(feed[step]))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+        _assert_cache_equal(cache, jc, cfg)
+    np.testing.assert_array_equal(cache["t"].numpy(), t + 5)
+
+
+def test_recurrent_prefill_matches_reference_pallas_interpret(recurrent):
+    """The reference's own scan kernels (Pallas, interpret mode) agree too."""
+    cfg, jmodel, jparams, model, params = recurrent
+    toks = _tokens(1, 10, seed=25)
+    with juse_backend("pallas"):
+        jl, _ = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN)
+    logits, _ = model.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=MAX_LEN)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_bf16_params_keep_f32_leaves(arch):
+    """At the archs' own dtype (bf16) the reference keeps u, w0, lambda and
+    the gates in f32; conversion and the port's own init keep them so."""
+    jcfg = dataclasses.replace(jreduced(jget_arch(arch)), dtype="bfloat16")
+    cfg = dataclasses.replace(reduced(get_arch(arch)), dtype="bfloat16")
+    jparams = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
+    converted = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    own = build_model(cfg, "cpu").init(seed=0)
+    f32 = {"u", "w0"} if cfg.family == "ssm" else {"lambda", "gate_a", "gate_i"}
+    for params in (converted, own):
+        layer = params["layers"][0] if cfg.family == "ssm" else params["layers"][0]["rnn"]
+        for key, leaf in layer.items():
+            assert leaf.dtype == (torch.float32 if key in f32 else torch.bfloat16), key
+        assert params["embed"].dtype == torch.bfloat16
+    jlayer = jax.tree_util.tree_map(lambda a: a[0], jparams["groups"]["0"])
+    jlayer = jlayer if cfg.family == "ssm" else jlayer["rnn"]
+    for key, leaf in layer.items():
+        assert tuple(leaf.shape) == tuple(jlayer[key].shape), key

@@ -1,8 +1,9 @@
 """The port's workload keys and default schedules equal the reference's.
 
 The reference's kernel instances are recorded at trace time (``eval_shape``
-under the Pallas backend, so nothing runs) for minitron-4b's reduced and full
-prefill and decode.  For each, the port's ``workload_key()``,
+under the Pallas backend, so nothing runs) for the reduced and full prefill
+and decode of minitron-4b, rwkv6-1.6b and recurrentgemma-2b (the recurrent
+archs at a prime, unbucketed prompt length, as their engine runs them).  For each, the port's ``workload_key()``,
 ``default_schedule()`` and ``concretize()`` must equal the reference's; at
 the reduced size the port's ops, run on the CPU, must emit the same
 instances.
@@ -77,6 +78,10 @@ def test_keys_and_default_schedules_match_reference(size, phase, seq, max_len):
     classes = {i.class_id for i in insts}
     assert {"matmul", "matmul_bias_gelu", "matmul_lmhead"} <= classes
     assert ("flash_attention_causal" in classes) == (phase == "prefill")
+    _assert_port_matches(insts)
+
+
+def _assert_port_matches(insts):
     for jinst in insts:
         inst = KernelInstance.make(jinst.class_id, dtype=jinst.dtype, **dict(jinst.params))
         assert inst.to_json() == jinst.to_json()
@@ -152,3 +157,44 @@ def test_ragged_tiles_and_glu_rules_match_reference():
                     concretize(s, inst, mode=mode)
                 continue
             assert _cs_fields(concretize(s, inst, mode=mode)) == want
+
+
+RECURRENT_CELLS = [(arch, size, phase, seq, max_len)
+                   for arch in ("rwkv6-1.6b", "recurrentgemma-2b")
+                   for size, phase, seq, max_len in (("reduced", "prefill", 13, 32),
+                                                     ("reduced", "decode", 1, 32),
+                                                     ("full", "prefill", 397, 512),
+                                                     ("full", "decode", 1, 512))]
+
+
+@pytest.mark.parametrize("arch,size,phase,seq,max_len", RECURRENT_CELLS)
+def test_recurrent_keys_and_default_schedules_match_reference(arch, size, phase, seq, max_len):
+    jcfg = jget_arch(arch)
+    if size == "reduced":
+        jcfg = jreduced(jcfg)
+    insts = _reference_instances(jcfg, phase, seq, max_len)
+    classes = {i.class_id for i in insts}
+    scan = "rwkv6_scan" if jcfg.family == "ssm" else "rglru_scan"
+    assert scan in classes and "matmul_lmhead" in classes
+    assert ("flash_attention_local" in classes) == (jcfg.family == "hybrid" and phase == "prefill")
+    _assert_port_matches(insts)
+
+
+@pytest.fixture(scope="module", params=["rwkv6-1.6b", "recurrentgemma-2b"])
+def recurrent_reduced_pair(request):
+    jcfg = jreduced(jget_arch(request.param))
+    cfg = reduced(get_arch(request.param))
+    jparams = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
+    model = build_model(cfg, "cpu")
+    return jcfg, cfg, model, params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+
+
+def test_recurrent_port_emits_reference_instances(monkeypatch, recurrent_reduced_pair):
+    jcfg, cfg, model, params = recurrent_reduced_pair
+    toks = torch.ones((1, 13), dtype=torch.long)
+    got = _port_instances(monkeypatch, lambda: model.prefill(params, {"tokens": toks}, max_len=32))
+    assert got == _as_set(_reference_instances(jcfg, "prefill", 13, 32))
+    cache = model.init_cache(SLOTS, 32)
+    toks = torch.ones((SLOTS,), dtype=torch.long)
+    got = _port_instances(monkeypatch, lambda: model.decode_step(params, cache, toks))
+    assert got == _as_set(_reference_instances(jcfg, "decode", 1, 32))

@@ -1,4 +1,5 @@
-"""The port's slot engine on reduced minitron-4b against ``repro.serving``.
+"""The port's slot engine on reduced minitron-4b, rwkv6-1.6b and
+recurrentgemma-2b against ``repro.serving``.
 
 Same converted weights, same prompts: per-step logits of the two engines
 agree within rtol = atol = 2e-4 (f32).  Plus the engine's admission rules
@@ -173,9 +174,43 @@ def test_serve_main_on_cpu_prints_result(capsys):
             "tok_per_s", "prefill_shapes", "kernel_launches"} <= set(res)
     assert res["requests"] == 5 and res["tokens"] == 15 and res["device"] == "cpu"
     # CPU tensors take the plain versions: no kernel launch
-    assert res["kernel_launches"] == {"matmul": 0, "flash_attention": 0}
+    assert res["kernel_launches"] == {"matmul": 0, "flash_attention": 0,
+                                      "rwkv6_scan": 0, "rglru_scan": 0}
 
 
 def test_serve_main_ref_backend_gives_same_tokens(capsys):
     argv = ["--device", "cpu", "--requests", "3", "--new-tokens", "3"]
     assert serve.main(argv)["tokens"] == serve.main(argv + ["--backend", "ref"])["tokens"] == 9
+
+
+@pytest.fixture(scope="module", params=["rwkv6-1.6b", "recurrentgemma-2b"])
+def recurrent_pair(request):
+    jcfg = jreduced(jget_arch(request.param))
+    cfg = reduced(get_arch(request.param))
+    jmodel = jbuild_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(4))
+    model = build_model(cfg, "cpu")
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    return jmodel, jparams, model, params
+
+
+def test_recurrent_engine_steps_match_reference(recurrent_pair):
+    """Recurrent archs prefill at the exact prompt length (a pad step would
+    fold into the state); requests join at different steps, a slot is
+    freed and reused with its state and carries replaced, and griffin's
+    8-position attention ring wraps."""
+    jmodel, jparams, model, params = recurrent_pair
+    jeng = JServingEngine(jmodel, jparams, slots=2, max_len=32)
+    eng = ServingEngine(model, params, slots=2, max_len=32)
+    assert not eng.prefill_buckets and not jeng.prefill_buckets
+    assert [eng.bucket_for(n) for n in (3, 5, 12)] == [3, 5, 12]
+    _serve_both(jeng, eng, [list(range(1, 13)), [4, 5, 6, 7, 8], [9, 9, 2], [7] * 10], 6)
+    assert eng.prefill_padded_tokens == eng.prefill_true_tokens == 12 + 5 + 3 + 10
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b"])
+def test_serve_main_recurrent_arch_on_cpu(capsys, arch):
+    res = serve.main(["--device", "cpu", "--preset", "smoke", "--arch", arch, "--requests", "3",
+                      "--new-tokens", "4", "--slots", "2"])
+    assert res["arch"] == arch and res["requests"] == 3 and res["tokens"] == 12
+    assert set(res["kernel_launches"].values()) == {0}
