@@ -23,14 +23,26 @@ toolkit.  Phases, one result line each:
    1 and 3 heads, 2560 channels and a ragged 12 under a tile of 8, and
    state continuation (two scans from the returned state equal one, bit for
    bit); then the main-path shapes timed beside the plain versions;
-6. serve — minitron-4b, rwkv6-1.6b and recurrentgemma-2b, each at full width
-   and full depth (bf16, random weights from a seeded generator on the
-   card), one after the other, each freed before the next loads: through
-   ``repro_torch.launch.serve.main`` and then the slot engine directly with
-   100-400-token prompts.  Every request must finish with its token count,
-   the launch counts of the arch's kernels (set to 0 just before, read just
-   after) must be above 0, and the kernel path's prefill logits must agree
-   with the plain path's on the same weights.
+6. grouped — the grouped (MoE expert) matmul kernel against its plain
+   version in both classes (``moe_gemm_silu_glu``, ``moe_gemm``), bf16 and
+   f32: 1, 3 and 8 experts, decode-shaped 4 rows per expert, a ragged row
+   count under a tile that does not divide it (rows and tiled bodies), N
+   not a multiple of 8, N-outer schedules; then mixtral-8x22b's main-path
+   shapes (4 and 256 rows per expert) timed beside the plain version and
+   ``torch.bmm`` (for ``moe_gemm``; no one call computes the GLU class);
+7. serve — minitron-4b, rwkv6-1.6b and recurrentgemma-2b at full width and
+   full depth, and mixtral-8x22b at full width with 8 of its 56 layers (at
+   full depth its bf16 weights, ~280 GB, fit no one card); bf16, random
+   weights from a seeded generator on the card, one arch after the other,
+   each freed before the next loads: through
+   ``repro_torch.launch.serve.main`` (``--preset full``; ``smoke`` for
+   mixtral) and then the slot engine directly with 100-400-token prompts.
+   Every request must finish with its token count, the launch counts of
+   the arch's kernels must be above 0 (serve.main's as it counts them; the
+   engine's set to 0 just before its run and read just after), and the
+   kernel path's prefill logits must agree with the plain path's on the
+   same weights, end to end and layer by layer (a MoE layer's tokens that
+   the two paths route to different experts counted and left out).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -43,6 +55,7 @@ no matrix product.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -93,6 +106,12 @@ LAYER_REL_BOUND = 0.02
 STATE_TOL = F32_TOL
 
 MAIN_KN = [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072), (3072, 256000)]
+# mixtral-8x22b's expert GEMMs, (class, E, K, N): the up-GEMM (GLU, 2·d_ff
+# columns in, d_ff out) and the down-GEMM
+MOE_SHAPES = [("moe_gemm_silu_glu", 8, 6144, 32768), ("moe_gemm", 8, 16384, 6144)]
+# rows per expert on the main path: decode (4 slots, dropless cap = tokens)
+# and a 256-token prefill bucket
+MOE_ROWS = (4, 256)
 
 
 def log(phase: str, **fields) -> None:
@@ -515,33 +534,151 @@ def f64_accumulation():
         ref.matmul = plain
 
 
-def layerwise_rel_err(torch, model, params, toks) -> list:
+def _grouped_inputs(torch, g, e, m, n, k, dtype):
+    x = torch.randn((e, m, k), generator=g, device="cuda").to(dtype)
+    w = torch.empty((e, k, n), dtype=dtype, device="cuda")
+    for i in range(e):   # one expert at a time: mixtral's f32 stack would take 6.4 GB
+        w[i] = torch.randn((k, n), generator=g, device="cuda") / k ** 0.5
+    return x, w
+
+
+def phase_grouped(torch, timer) -> dict:
+    from repro_torch.core.schedule import Schedule, concretize
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def cs_for(class_id, dtype, e, m, n, k, tiles=None):
+        inst = ops.instance(class_id, dtype, M=m * e, N=n, K=k, E=e)
+        if tiles is None:
+            return ops.schedule_for(inst)
+        return concretize(Schedule.make(class_id, {**tiles, "K": k, "E": 1},
+                                        order=("N", "M", "E", "K")), inst)
+
+    errs = {}
+    # (E, rows per expert, N, K, tiles): E = 1/3/8; decode-shaped 4 rows; a
+    # ragged 300 rows under the default tile of 120 (M = 2400) and 13 under a
+    # rows-body tile of 8; N not a multiple of 8 (scalar loads); N-outer
+    # schedules with ragged M and N tiles in both bodies
+    cases = [(1, 5, 40, 24, None), (1, 70, 96, 33, None), (3, 37, 100, 64, None),
+             (8, 4, 96, 48, None), (8, 300, 64, 32, None), (3, 13, 64, 40, {"M": 8, "N": 64}),
+             (3, 4, 50, 17, None), (3, 70, 50, 33, None),
+             (3, 37, 100, 64, {"M": 16, "N": 48}), (3, 100, 100, 64, {"M": 64, "N": 48})]
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        for class_id in ref.GROUPED_CLASSES:
+            for e, m, n, k, tiles in cases:
+                x, w = _grouped_inputs(torch, g, e, m, n, k, dtype)
+                cs = cs_for(class_id, dtype, e, m, n, k, tiles)
+                name = f"{class_id}/{ops.dtype_name(dtype)}/{e}x{m}x{n}x{k}/{tiles or 'default'}"
+                errs[name] = assert_close(torch, mm.grouped_launch(x, w, cs, class_id=class_id),
+                                          ref.grouped_matmul(x, w, class_id), tol, name)
+    log("grouped_checks", checks=len(errs), max_abs_err=max(errs.values()), tol=BF16_TOL,
+        f32_tol=F32_TOL)
+
+    shapes = []
+    for m in MOE_ROWS:
+        for class_id, e, k, n in MOE_SHAPES:
+            x, w = _grouped_inputs(torch, g, e, m, n, k, torch.bfloat16)
+            cs = cs_for(class_id, torch.bfloat16, e, m, n, k)
+            err = assert_close(torch, mm.grouped_launch(x, w, cs, class_id=class_id),
+                               ref.grouped_matmul(x, w, class_id), BF16_TOL,
+                               f"{class_id} {e}x{m}x{k}x{n}")
+            n_out = n // 2 if class_id == "moe_gemm_silu_glu" else n
+            b_ms, b_by = bound_ms(2 * e * (m * k + k * n + m * n_out), 2 * e * m * n * k)
+            *_, tile_m, tile_n = mm.grouped_geometry(x, w, cs, class_id)
+            iters = 10 if m <= 16 else 5
+            row = {"class": class_id, "E": e, "M": m, "K": k, "N": n,
+                   "tiles": {"M": tile_m, "N": tile_n},
+                   "ctas": e * -(-m // tile_m) * -(-n // tile_n), "max_abs_err": err,
+                   "ms": timer.ms(lambda: mm.grouped_launch(x, w, cs, class_id=class_id), iters=iters),
+                   "plain_ms": timer.ms(lambda: ref.grouped_matmul(x, w, class_id), iters=iters),
+                   # one library call computes the same function only without the GLU
+                   "library_ms": (timer.ms(lambda: torch.bmm(x, w), iters=iters)
+                                  if class_id == "moe_gemm" else None),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            shapes.append(row)
+            log("grouped_shape", **row)
+            del x, w
+            torch.cuda.empty_cache()
+    return {"shapes": shapes, "max_abs_err": max([*errs.values(), *(r["max_abs_err"] for r in shapes)])}
+
+
+def layerwise_rel_err(torch, model, params, toks) -> dict:
     """Each layer run by both paths on the plain path's input to that layer:
     per layer, |kernel - plain| / |plain| of the block output (output minus
-    input), in L2."""
+    input), in L2.  Returns {"checked", "block", "routed_alike", "route_flips"}
+    lists (the last two hold None for a layer without MoE).
+
+    A MoE layer's block output changes by a whole expert's output for a
+    token whose top-k expert set differs between the paths: a one-ulp
+    difference that the attention sub-block leaves in the router's input
+    swaps the k-th expert of a token whose k-th and (k+1)-th probabilities
+    nearly tie.  So such a layer counts those tokens (route_flips), and its
+    checked error is the largest of: the whole-block error over the tokens
+    both paths route alike (routed_alike); its attention sub-block's error on
+    the layer's input; its MoE sub-block's error on the plain path's
+    residual stream after attention, the same on both paths.  The
+    whole-block error over every token (block) is reported, not checked."""
     from repro_torch.kernels.ops import use_backend
-    from repro_torch.models import lm
+    from repro_torch.models import lm, mlp
+
+    def rel(got, want, base, rows=None):
+        diff, ref_ = got.float() - want.float(), want.float() - base
+        if rows is not None:
+            diff, ref_ = diff[rows], ref_[rows]
+        return float(diff.norm() / ref_.norm())
 
     cfg = model.cfg
     h = lm._embed(params, cfg, toks)
     b, s, _ = h.shape
     kw = dict(positions=lm._positions(b, s, h.device), pos=None, decode=False)
-    errs = []
+    out = {"checked": [], "block": [], "routed_alike": [], "route_flips": []}
     for j, kind in enumerate(cfg.layer_kinds):
+        p = params["layers"][j]
         fresh = lambda: lm.init_block_cache(cfg, kind, b, 512, h.device)  # noqa: E731
-        out_k, _ = lm.apply_block(params["layers"][j], cfg, kind, h, cache=fresh(), **kw)
+        out_k, _, _ = lm.apply_block(p, cfg, kind, h, cache=fresh(), **kw)
         with use_backend("ref"):
-            out_r, _ = lm.apply_block(params["layers"][j], cfg, kind, h, cache=fresh(), **kw)
-        delta = (out_r.float() - h.float()).norm()
-        errs.append(float((out_k.float() - out_r.float()).norm() / delta))
+            out_r, _, _ = lm.apply_block(p, cfg, kind, h, cache=fresh(), **kw)
+        out["block"].append(rel(out_k, out_r, h.float()))
+        if "moe" not in p:
+            out["checked"].append(out["block"][-1])
+            out["routed_alike"].append(None)
+            out["route_flips"].append(None)
+            h = out_r
+            continue
+
+        def experts(x):   # the sorted top-k expert set of each token, (B, S, k)
+            xn = lm.ffn_input(p, cfg, x).reshape(b * s, -1)
+            return mlp.moe_route(p["moe"], cfg, xn)[2].sort(-1).values.reshape(b, s, -1)
+
+        a_k, _ = lm.apply_mixer(p, cfg, kind, h, cache=fresh(), **kw)
+        e_k = experts(h + a_k)
+        with use_backend("ref"):
+            a_r, _ = lm.apply_mixer(p, cfg, kind, h, cache=fresh(), **kw)
+            e_r = experts(h + a_r)
+            y_r, _ = lm.apply_ffn(p, cfg, h + a_r)
+        y_k, _ = lm.apply_ffn(p, cfg, h + a_r)
+        alike = (e_k == e_r).all(-1)
+        out["route_flips"].append(int((~alike).sum()))
+        if not bool(alike.any()):
+            raise AssertionError(f"layer {j}: the two paths route no token alike")
+        out["routed_alike"].append(rel(out_k, out_r, h.float(), alike))
+        out["checked"].append(max(out["routed_alike"][-1], rel(a_k, a_r, 0.0), rel(y_k, y_r, 0.0)))
         h = out_r
-    return errs
+    return out
 
 
 #: the kernels each served arch must launch
 SERVE_KERNELS = {"minitron-4b": ("matmul", "flash_attention"),
                  "rwkv6-1.6b": ("matmul", "rwkv6_scan"),
-                 "recurrentgemma-2b": ("matmul", "flash_attention", "rglru_scan")}
+                 "recurrentgemma-2b": ("matmul", "flash_attention", "rglru_scan"),
+                 "mixtral-8x22b": ("matmul", "flash_attention", "grouped_matmul")}
+#: archs served at full width with their depth cut, and the depth: mixtral's
+#: 56 layers hold ~140 B bf16 parameters (280 GB); 8 layers hold 20.4 B
+#: (40.9 GB) and leave room for the plain path's f32 and f64 copies of one
+#: expert's weights in the logits check
+SERVE_DEPTH = {"mixtral-8x22b": 8}
 
 
 def phase_serve(torch, arch: str) -> dict:
@@ -558,18 +695,24 @@ def phase_serve(torch, arch: str) -> dict:
     from repro_torch.serving import ServingEngine
 
     cfg = get_arch(arch)
+    if arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for kmod in (mm, fa, rw, rg):
-        kmod.reset_launches()
 
-    # the user's entry point, at full width
-    res = serve.main(["--arch", arch, "--preset", "full", "--device", "cuda"])
+    # the user's entry point: at full width, or at the reduced size for an
+    # arch whose full depth fits no one card; it counts its own launches
+    preset = "smoke" if arch in SERVE_DEPTH else "full"
+    res = serve.main(["--arch", arch, "--preset", preset, "--device", "cuda"])
     if res["requests"] != 8 or res["tokens"] != 8 * 8:
         raise AssertionError(f"serve.main finished {res['requests']} requests / {res['tokens']} tokens")
+    if min(res["kernel_launches"][k] for k in SERVE_KERNELS[arch]) <= 0:
+        raise AssertionError(f"{arch}: serve.main never launched a kernel of its path: "
+                             f"{res['kernel_launches']}")
 
-    # the slot engine directly: long prompts of unbucketed lengths for the
-    # recurrent archs, power-of-two buckets for minitron
+    # the main path, at full width: the slot engine with long prompts of
+    # unbucketed lengths for the recurrent archs, power-of-two buckets for
+    # minitron; the launch counts are set to 0 just before it, read just after
     model = build_model(cfg, "cuda")
     params = model.init(seed=0)
     engine = ServingEngine(model, params, slots=4, max_len=512)
@@ -578,6 +721,8 @@ def phase_serve(torch, arch: str) -> dict:
                for n in rng.integers(100, 401, size=8)]
     new_tokens = 16
     pending, done = list(prompts), []
+    for kmod in (mm, fa, rw, rg):
+        kmod.reset_launches()
     prefill_s = decode_s = 0.0
     steps = 0
     while pending or engine.active:
@@ -621,22 +766,28 @@ def phase_serve(torch, arch: str) -> dict:
     if diff > bound:
         raise AssertionError(f"{arch}: prefill logits differ by {diff} > {bound} "
                              f"(max |logit| {scale}, control {control})")
-    layer_err = layerwise_rel_err(torch, model, params, toks)
+    layers = layerwise_rel_err(torch, model, params, toks)
+    layer_err = layers["checked"]
     if max(layer_err) > LAYER_REL_BOUND:
         raise AssertionError(f"{arch}: a layer's output differs by {max(layer_err)} "
-                             f"> {LAYER_REL_BOUND} (per layer: {layer_err})")
+                             f"> {LAYER_REL_BOUND} (per layer: {layers})")
     row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "params": cfg.param_count(),
-           "serve_main": {k: res[k] for k in ("requests", "tokens", "decode_steps", "tok_per_s")},
+           "serve_main": {k: res[k] for k in ("preset", "requests", "tokens", "decode_steps",
+                                               "tok_per_s", "kernel_launches")},
            "requests": len(done), "tokens": tokens, "prompt_lens": [len(p) for p in prompts],
            "decode_steps": steps, "prefill_s": prefill_s, "decode_s": decode_s,
+           "decode_ms_per_step": 1e3 * decode_s / steps,
            "tok_per_s": tokens / (prefill_s + decode_s),
            "decode_tok_per_s": (tokens - len(done)) / decode_s,
            "launches": launches, "peak_mem_gib": peak_gib,
            "logits_max_abs_diff": diff, "logits_max_abs": scale,
            "logits_control": control, "logits_bound": bound,
            "argmax_equal": int(logits_k.argmax()) == int(logits_r.argmax()),
-           "layer_rel_err_max": max(layer_err), "layer_rel_err": layer_err}
+           "layer_rel_err_max": max(layer_err), "layer_rel_err": layer_err,
+           "layer_block_rel_err": layers["block"],
+           "layer_routed_alike_rel_err": layers["routed_alike"],
+           "layer_route_flips": layers["route_flips"]}
     log("serve", **row)
     del model, params, engine, logits_k, logits_r, logits_c
     torch.cuda.empty_cache()
@@ -663,6 +814,7 @@ def main() -> int:
     far = phase_attention(torch, timer)
     scr = phase_scans(torch, timer)
     phase_prime_matmul(torch, timer)
+    grr = phase_grouped(torch, timer)
     del timer
     torch.cuda.empty_cache()
     srv = [phase_serve(torch, arch) for arch in SERVE_KERNELS]
@@ -678,6 +830,7 @@ def main() -> int:
     rep_fa = next(r for r in far["shapes"] if r["S"] == 512)
     rep_rw = scr["rwkv6"]["shapes"][0]
     rep_rg = scr["rglru"]["shapes"][0]
+    rep_gr = next(r for r in grr["shapes"] if r["M"] == MOE_ROWS[0] and r["class"] == "moe_gemm")
     kernels = [
         {"name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:205", "launches": served("matmul"),
@@ -693,6 +846,9 @@ def main() -> int:
         {"name": "rglru_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:65", "launches": served("rglru_scan"),
          "max_abs_err": scr["rglru"]["max_abs_err"], **timed(rep_rg, ("B", "T", "C"))},
+        {"name": "grouped_matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:236", "launches": served("grouped_matmul"),
+         "max_abs_err": grr["max_abs_err"], **timed(rep_gr, ("class", "E", "M", "K", "N"))},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

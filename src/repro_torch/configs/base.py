@@ -1,9 +1,9 @@
 """Architecture configuration: a copy of ``repro.configs.base``'s
 ``ArchConfig``, ``reduced()`` and ``get_arch()``.
 
-The registry holds only the archs the port can build so far (dense and
-recurrent); the others arrive with the slices that port their layers (MoE,
-enc-dec, VLM).
+The registry holds only the archs the port can build so far (dense, MoE and
+recurrent); the others arrive with the slices that port their layers
+(enc-dec, VLM).
 """
 from __future__ import annotations
 
@@ -97,7 +97,7 @@ class ArchConfig:
         return dense + self.n_layers * self.moe_topk * mlp
 
 
-ARCH_IDS = ("rwkv6-1.6b", "minitron-4b", "recurrentgemma-2b")
+ARCH_IDS = ("dbrx-132b", "mixtral-8x22b", "rwkv6-1.6b", "minitron-4b", "recurrentgemma-2b")
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 _REGISTRY: dict[str, ArchConfig] = {}

@@ -1,8 +1,19 @@
 // Schedule-driven matmul with a fused epilogue, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel of src/repro/kernels/matmul.py (build_call /
-// _kernel, reached through matmul()): out = epilogue(x(M,K) @ w(K,N)) with an
-// f32 accumulator and the epilogue applied once the whole K range is summed.
+// _kernel), reached through matmul() (K1): out = epilogue(x(M,K) @ w(K,N))
+// with an f32 accumulator and the epilogue applied once the whole K range is
+// summed; and through grouped_matmul() (K1g, the MoE expert GEMM):
+// out[e] = epilogue(x[e] @ w[e]) for x(E,M,K), w(E,K,N).
+//
+// K1g is K1's body under a second grid axis, as in the reference (a leading
+// expert grid axis over the same kernel body): blockIdx.y = e offsets x, w
+// and out by one expert's extent (in size_t: dbrx's w_in stack has 2.1e9
+// elements), and the tiles of one expert are masked at that expert's own M
+// and N edges, so a ragged tile never reads or writes the next expert's rows.
+// What bounds K1g is what bounds K1 at the per-expert M: the E weight stacks'
+// bytes at decode (mixtral: 3.2 GB for the up-GEMM at 4 rows per expert) and
+// up to ~300 rows per expert, the operations above.
 //
 // One CTA owns one logical (tile_m x tile_n) output tile of the schedule and
 // walks it in sub-blocks that fit its registers and shared memory.  Tiles are
@@ -30,9 +41,22 @@ enum Epilogue : int {
 
 struct MatmulArgs {
   const void* x; const void* w; const float* bias; const float* residual; void* out;
-  int m, n, k, n_out;
+  int m, n, k, n_out;           // per expert when grouped
   int epi; float softcap;
   int tile_m, tile_n, tiles_m, tiles_n, m_outer;
+  int groups;                   // experts (gridDim.y); 1 for a plain matmul
+};
+
+// This CTA's expert's slices of x, w and out (blockIdx.y = expert).
+template <typename T>
+struct ExpertPtrs {
+  const T* x; const T* w; T* out;
+  __device__ __forceinline__ explicit ExpertPtrs(const MatmulArgs& a) {
+    const size_t e = blockIdx.y;
+    x = static_cast<const T*>(a.x) + e * a.m * a.k;
+    w = static_cast<const T*>(a.w) + e * a.k * a.n;
+    out = static_cast<T*>(a.out) + e * a.m * a.n_out;
+  }
 };
 
 __device__ __forceinline__ void tile_origin(const MatmulArgs& a, int* m0, int* n0) {
@@ -91,9 +115,10 @@ __global__ void __launch_bounds__(kRowsWarps * 32) matmul_rows_kernel(MatmulArgs
   constexpr int CW = 32 * VEC;  // columns per pass
   __shared__ float red[kRowsWarps][kRowsRM][CW];
 
-  const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
-  T* out = static_cast<T*>(a.out);
+  const ExpertPtrs<T> p(a);
+  const T* x = p.x;
+  const T* w = p.w;
+  T* out = p.out;
   int m0, n0;
   tile_origin(a, &m0, &n0);
   const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.tile_n, a.n);
@@ -173,9 +198,10 @@ __global__ void __launch_bounds__(256) matmul_tiled_kernel(MatmulArgs a) {
   __shared__ float As[kBK][kBM + 4];  // x tile, transposed: As[k][m]
   __shared__ float Bs[kBK][kBN + 4];  // w tile: Bs[k][n]
 
-  const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
-  T* out = static_cast<T*>(a.out);
+  const ExpertPtrs<T> p(a);
+  const T* x = p.x;
+  const T* w = p.w;
+  T* out = p.out;
   int m0, n0;
   tile_origin(a, &m0, &n0);
   const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.tile_n, a.n);
@@ -242,12 +268,30 @@ __global__ void __launch_bounds__(256) matmul_tiled_kernel(MatmulArgs a) {
 
 template <typename T>
 void launch(const MatmulArgs& a, cudaStream_t stream) {
-  const dim3 grid(a.tiles_m * a.tiles_n);
+  const dim3 grid(a.tiles_m * a.tiles_n, a.groups);
   if (a.tile_m <= 16) {
     matmul_rows_kernel<T><<<grid, kRowsWarps * 32, 0, stream>>>(a);
   } else {
     matmul_tiled_kernel<T><<<grid, 256, 0, stream>>>(a);
   }
+}
+
+// Checks the shared arguments, fills the tiling and launches; returns a
+// cudaError_t (cudaErrorInvalidValue for bad arguments).
+int run(MatmulArgs& a, int dtype, void* stream) {
+  if (a.m <= 0 || a.n <= 0 || a.k <= 0 || a.tile_m <= 0 || a.tile_n <= 0) return (int)cudaErrorInvalidValue;
+  if (a.groups <= 0 || a.groups > 65535) return (int)cudaErrorInvalidValue;
+  if (a.epi < kNone || a.epi > kSoftcap) return (int)cudaErrorInvalidValue;
+  const bool glu = is_glu(a.epi);
+  if (glu && ((a.n % 2) || (a.tile_n % 2))) return (int)cudaErrorInvalidValue;
+  if (a.epi == kResidual && a.residual == nullptr) return (int)cudaErrorInvalidValue;
+  a.n_out = glu ? a.n / 2 : a.n;
+  a.tiles_m = cdiv(a.m, a.tile_m); a.tiles_n = cdiv(a.n, a.tile_n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16) launch<__nv_bfloat16>(a, s);
+  else if (dtype == kFloat32) launch<float>(a, s);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace repro
@@ -258,22 +302,25 @@ void launch(const MatmulArgs& a, cudaStream_t stream) {
 extern "C" int repro_matmul(const void* x, const void* w, const void* bias, const void* residual,
                             void* out, int m, int n, int k, int dtype, int epi, float softcap,
                             int tile_m, int tile_n, int m_outer, void* stream) {
-  using namespace repro;
-  if (m <= 0 || n <= 0 || k <= 0 || tile_m <= 0 || tile_n <= 0) return (int)cudaErrorInvalidValue;
-  if (epi < kNone || epi > kSoftcap) return (int)cudaErrorInvalidValue;
-  const bool glu = is_glu(epi);
-  if (glu && ((n % 2) || (tile_n % 2))) return (int)cudaErrorInvalidValue;
-  if (epi == kResidual && residual == nullptr) return (int)cudaErrorInvalidValue;
-  MatmulArgs a;
+  repro::MatmulArgs a{};
   a.x = x; a.w = w; a.bias = static_cast<const float*>(bias);
   a.residual = static_cast<const float*>(residual); a.out = out;
-  a.m = m; a.n = n; a.k = k; a.n_out = glu ? n / 2 : n;
+  a.m = m; a.n = n; a.k = k;
   a.epi = epi; a.softcap = softcap;
-  a.tile_m = tile_m; a.tile_n = tile_n;
-  a.tiles_m = cdiv(m, tile_m); a.tiles_n = cdiv(n, tile_n); a.m_outer = m_outer;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) launch<__nv_bfloat16>(a, s);
-  else if (dtype == kFloat32) launch<float>(a, s);
-  else return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  a.tile_m = tile_m; a.tile_n = tile_n; a.m_outer = m_outer; a.groups = 1;
+  return repro::run(a, dtype, stream);
+}
+
+// Grouped (MoE expert) matmul: out[e] = epilogue(x[e] (M,K) @ w[e] (K,N)) for
+// e < groups, contiguous (E,M,K), (E,K,N) and (E,M,N_out).  m, tile_m and
+// tile_n are per expert.  No bias or residual (the grouped classes have none).
+extern "C" int repro_grouped_matmul(const void* x, const void* w, void* out, int groups,
+                                    int m, int n, int k, int dtype, int epi,
+                                    int tile_m, int tile_n, int m_outer, void* stream) {
+  repro::MatmulArgs a{};
+  a.x = x; a.w = w; a.out = out;
+  a.m = m; a.n = n; a.k = k;
+  a.epi = epi;
+  a.tile_m = tile_m; a.tile_n = tile_n; a.m_outer = m_outer; a.groups = groups;
+  return repro::run(a, dtype, stream);
 }

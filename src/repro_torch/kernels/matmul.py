@@ -1,12 +1,20 @@
-"""Schedule-driven matmul with fused epilogues: the CUDA kernel's wrapper.
+"""Schedule-driven matmul with fused epilogues: the CUDA kernel's wrappers.
 
-Replaces the Pallas kernel ``src/repro/kernels/matmul.py`` (``matmul()`` →
-``build_call`` → ``_kernel``; kernel K1).  The CUDA source is
-``csrc/matmul.cu``.  ``out = epilogue(x (M,K) @ w (K,N))`` for every
-non-grouped class of the matmul family: ``matmul``, ``matmul_bias``,
-``matmul_lmhead``, ``moe_router`` (no epilogue), ``matmul_bias_gelu`` (tanh
-gelu), ``matmul_silu_glu`` / ``matmul_gelu_glu`` (interleaved GLU, emits N/2
-columns), ``matmul_residual`` and ``matmul_lmhead_softcap``.  bf16 and f32.
+Replaces the Pallas kernel ``src/repro/kernels/matmul.py`` (``build_call`` →
+``_kernel``) on both of its paths.  The CUDA source is ``csrc/matmul.cu``.
+
+* :func:`matmul` (kernel K1, the reference's ``matmul()``):
+  ``out = epilogue(x (M,K) @ w (K,N))`` for every non-grouped class of the
+  matmul family: ``matmul``, ``matmul_bias``, ``matmul_lmhead``,
+  ``moe_router`` (no epilogue), ``matmul_bias_gelu`` (tanh gelu),
+  ``matmul_silu_glu`` / ``matmul_gelu_glu`` (interleaved GLU, emits N/2
+  columns), ``matmul_residual`` and ``matmul_lmhead_softcap``.
+* :func:`grouped_matmul` (kernel K1g, the reference's ``grouped_matmul()``,
+  the MoE expert GEMM): ``out[e] = epilogue(x[e] (M,K) @ w[e] (K,N))`` for
+  ``moe_gemm`` (no epilogue) and ``moe_gemm_silu_glu`` (interleaved GLU).
+  The same kernel bodies under a second grid axis over the experts.
+
+bf16 and f32.
 
 How the :class:`~repro_torch.core.schedule.ConcreteSchedule` maps onto the
 kernel:
@@ -24,6 +32,12 @@ kernel:
   to the output dtype at every K step; the kernel does not, so it matches the
   reference under the default schedule, which takes the f32-scratch path.
 * ``parallel``, ``unroll``, ``vec`` — ignored (TPU compiler hints).
+* grouped: the instance's ``M`` is ``m·E`` (rows over all experts, as in
+  ``ops.moe_gemm``), but the tiles are clamped to one expert's extent
+  (``min(tile, m)``, as the reference's ``bm = min(bm, m)``) and the grid
+  covers one expert's ``m`` rows per expert; ``tiles["E"]`` is ignored (the
+  reference's expert block is always 1).  A tile that does not divide ``m``
+  is masked at the expert's own edge.
 
 What bounds it on the card: the bytes of ``w`` at decode (M = slots) and
 up to a few hundred rows (the H100 does ~295 bf16 tensor-core operations per
@@ -32,8 +46,9 @@ byte of HBM, so a (K,N) weight read once is the larger cost while M is below
 16 bytes a lane, and runs the operations as CUDA-core FMA (no tensor cores
 yet, so far below either bound).
 
-A tensor on the CPU takes the plain version (:func:`repro_torch.kernels.ref.matmul`);
-a CUDA tensor launches the kernel or raises.  ``launches`` counts launches.
+A tensor on the CPU takes the plain version (:func:`repro_torch.kernels.ref.matmul`,
+:func:`~repro_torch.kernels.ref.grouped_matmul`); a CUDA tensor launches the
+kernel or raises.  ``launches`` and ``grouped_launches`` count launches.
 """
 from __future__ import annotations
 
@@ -46,15 +61,21 @@ from repro_torch.kernels import _build, ref
 EPILOGUE = {"matmul": 0, "matmul_bias": 0, "matmul_lmhead": 0, "moe_router": 0,
             "matmul_bias_gelu": 1, "matmul_silu_glu": 2, "matmul_gelu_glu": 3,
             "matmul_residual": 4, "matmul_lmhead_softcap": 5}
+#: grouped class_id -> epilogue code of csrc/matmul.cu
+GROUPED_EPILOGUE = {"moe_gemm": 0, "moe_gemm_silu_glu": 2}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: kernel launches since the last reset (a plain count; see chip_smoke.py)
+#: kernel launches since the last reset (plain counts; see chip_smoke.py):
+#: ``launches`` of :func:`launch` (K1), ``grouped_launches`` of
+#: :func:`grouped_launch` (K1g)
 launches = 0
+grouped_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    """Set both counts to 0."""
+    global launches, grouped_launches
+    launches = grouped_launches = 0
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
@@ -115,4 +136,60 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
         tile_m, tile_n, int(order[0] == "M"), _build.stream_handle(x.device))
     _build.check(rc, "matmul kernel")
     launches += 1
+    return out
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
+                   class_id: str = "moe_gemm") -> torch.Tensor:
+    """x (E,M,K) @ w (E,K,N) per expert with the class's epilogue -> (E, M, N or N/2)."""
+    if x.device.type == "cpu":
+        return ref.grouped_matmul(x, w, class_id)
+    return grouped_launch(x, w, cs, class_id=class_id)
+
+
+def grouped_geometry(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule,
+                     class_id: str) -> tuple[int, int, int, int, int, int]:
+    """(E, m, N, K, tile_m, tile_n) of a grouped launch, per expert; raises on
+    what the kernel does not take (any device: the CPU tests reach it)."""
+    if class_id not in GROUPED_EPILOGUE:
+        raise ValueError(f"grouped matmul kernel has no class {class_id!r}")
+    if x.dtype not in DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"grouped matmul kernel takes bf16 or f32 x and w of one dtype, "
+                         f"got {x.dtype}, {w.dtype}")
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"grouped matmul kernel takes x (E,M,K) and w (E,K,N), "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)}")
+    if w.device != x.device or not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("grouped matmul kernel takes contiguous x and w on one device")
+    e, m, k = x.shape
+    n = w.shape[2]
+    p = cs.instance.p
+    if (cs.instance.class_id, p["M"], p["N"], p["K"], p["E"]) != (class_id, m * e, n, k, e):
+        raise ValueError(f"schedule for {cs.instance} does not fit {class_id} "
+                         f"{e}x({m},{k})x({k},{n}) (M = m·E)")
+    # per-expert tiles: the schedule's M tile divides m·E, not necessarily m
+    tile_m, tile_n = min(cs.t["M"], m), min(cs.t["N"], n)
+    if class_id in GLU_CLASSES and (n % 2 or tile_n % 2):
+        raise ValueError(f"GLU epilogue needs even N and N tile, got {n}, {tile_n}")
+    return e, m, n, k, tile_m, tile_n
+
+
+def grouped_launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
+                   class_id: str = "moe_gemm") -> torch.Tensor:
+    """Launch the CUDA kernel over every expert; raises on anything it does not take."""
+    global grouped_launches
+    if not x.is_cuda:
+        raise ValueError(f"the grouped matmul kernel runs on a CUDA tensor, got {x.device}")
+    e, m, n, k, tile_m, tile_n = grouped_geometry(x, w, cs, class_id)
+    out = torch.empty((e, m, n // 2 if class_id in GLU_CLASSES else n), dtype=x.dtype,
+                      device=x.device)
+    if m == 0 or e == 0:
+        return out
+    order = [a for a in cs.order if a in ("M", "N")]
+    rc = _build.library().repro_grouped_matmul(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, DTYPES[x.dtype],
+        GROUPED_EPILOGUE[class_id], tile_m, tile_n, int(order[0] == "M"),
+        _build.stream_handle(x.device))
+    _build.check(rc, "grouped matmul kernel")
+    grouped_launches += 1
     return out

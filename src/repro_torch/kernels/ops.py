@@ -11,7 +11,8 @@ The models call these, with the reference's signatures and class ids
   ``chip_smoke.py``, to hold the kernels against them on the card).
 
 Kernel instances are built exactly as in ``repro.kernels.ops`` (matmul:
-``M`` = product of the leading dims, ``N``, ``K``; attention: ``Q``, ``KV``,
+``M`` = product of the leading dims, ``N``, ``K``; grouped matmul: ``M`` =
+rows per expert × ``E``, ``N``, ``K``, ``E``; attention: ``Q``, ``KV``,
 ``H``, ``D``, ``B``, ``window``; rwkv6: ``T``, ``C`` = H·D, ``D``, ``B``;
 rglru: ``T``, ``C``, ``B``), so workload keys match the reference.  This
 slice resolves default schedules only; the resolution pipeline, registry and
@@ -96,6 +97,18 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "matmul",
     y = _mm.matmul(x2, w.contiguous(), cs, class_id=class_id, bias=bias, residual=res2,
                    softcap=softcap)
     return y.reshape(*lead, y.shape[-1])
+
+
+def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "moe_gemm",
+             backend: str | None = None) -> torch.Tensor:
+    """Grouped expert GEMM: x (E, M, K) @ w (E, K, N)."""
+    backend = backend or _default_backend()
+    if backend == "ref":
+        return ref.grouped_matmul(x, w, class_id)
+    e, m, k = x.shape
+    n = w.shape[2]
+    cs = schedule_for(instance(class_id, x.dtype, M=m * e, N=n, K=k, E=e))
+    return _mm.grouped_matmul(x.contiguous(), w.contiguous(), cs, class_id=class_id)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -24,6 +24,8 @@ import torch.nn.functional as F
 MATMUL_CLASSES = ("matmul", "matmul_bias", "matmul_bias_gelu", "matmul_silu_glu",
                   "matmul_gelu_glu", "matmul_residual", "matmul_lmhead",
                   "matmul_lmhead_softcap", "moe_router")
+#: the grouped (MoE expert) classes: the grouped matmul kernel takes these
+GROUPED_CLASSES = ("moe_gemm_silu_glu", "moe_gemm")
 
 
 def gelu(y: torch.Tensor) -> torch.Tensor:
@@ -68,6 +70,16 @@ def matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "matmul", *,
     y = torch.matmul(x.float(), w.float())
     y = apply_epilogue(y, class_id, bias=bias, residual=residual, softcap=softcap)
     return y.to(x.dtype)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "moe_gemm") -> torch.Tensor:
+    """x: (E, M, K) @ w: (E, K, N): :func:`matmul` applied to each expert (the
+    reference's ``jax.vmap(ref.matmul)``).  Calls this module's ``matmul`` one
+    expert at a time, so a patched ``matmul`` patches this too, and only one
+    expert's f32 copy of ``w`` is alive at once."""
+    if class_id not in GROUPED_CLASSES:
+        raise ValueError(f"unknown grouped matmul class {class_id!r}")
+    return torch.stack([matmul(xe, we, class_id) for xe, we in zip(x, w)])
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,13 @@ kernel's launch count.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --preset full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --preset smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke --arch rwkv6-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke --arch mixtral-8x22b
+
+The MoE archs (mixtral-8x22b, dbrx-132b) run ``--preset smoke`` only: at
+full depth their bf16 weights (~280 GB, ~264 GB) fit no one card.
 
 ``--device cuda`` (the default) runs on the card and raises where there is
 none; ``--backend ref`` runs the plain PyTorch versions instead of the CUDA
@@ -46,8 +51,8 @@ def sample_prompts(rng: np.random.Generator, n: int, vocab_size: int, *,
 
 
 def kernel_launches() -> dict[str, int]:
-    return {"matmul": mm.launches, "flash_attention": fa.launches,
-            "rwkv6_scan": rw.launches, "rglru_scan": rg.launches}
+    return {"matmul": mm.launches, "grouped_matmul": mm.grouped_launches,
+            "flash_attention": fa.launches, "rwkv6_scan": rw.launches, "rglru_scan": rg.launches}
 
 
 def main(argv=None) -> dict:

@@ -1,5 +1,5 @@
-"""Decoder-only LM stack: dense attention and recurrent (rwkv6, griffin)
-layers (the counterpart of ``repro.models.lm``).
+"""Decoder-only LM stack: dense and MoE attention layers and recurrent
+(rwkv6, griffin) layers (the counterpart of ``repro.models.lm``).
 
 The reference stacks each layer-pattern position's params along a leading
 axis and runs ``jax.lax.scan`` over the repeats plus explicit tail layers.
@@ -25,17 +25,9 @@ from repro_torch.models import mlp as mlpm
 from repro_torch.models import recurrent as rec
 from repro_torch.models.common import apply_norm, dense_init, dtype_of, embed_init, norm_params
 
-_NOT_PORTED = {
-    "moe": "MoE layers are not ported yet: ROADMAP A.1 and the grouped GEMM K1g",
-    "encdec_vlm": "enc-dec and vision-prefixed archs are not ported yet: ROADMAP A.6",
-}
-
-
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_NOT_PORTED["moe"])
     if cfg.vision_tokens or cfg.encoder_layers:
-        raise NotImplementedError(_NOT_PORTED["encdec_vlm"])
+        raise NotImplementedError("enc-dec and vision-prefixed archs are not ported yet: ROADMAP A.6")
 
 
 # ---------------------------------------------------------------------------
@@ -49,32 +41,55 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
     dt = dtype_of(cfg.dtype)
     mixer = ({"rnn": rec.griffin_params(gen, cfg)} if kind == "R"
              else {"attn": attn.attn_params(gen, cfg)})
+    moe = kind != "R" and cfg.n_experts > 0   # griffin's R blocks keep a dense MLP
     return {
         "ln1": norm_params(cfg.d_model, cfg.norm, dt, gen.device),
         **mixer,
         "ln2": norm_params(cfg.d_model, cfg.norm, dt, gen.device),
-        "mlp": mlpm.mlp_params(gen, cfg),
+        **({"moe": mlpm.moe_params(gen, cfg)} if moe else {"mlp": mlpm.mlp_params(gen, cfg)}),
     }
+
+
+def apply_mixer(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
+                positions: torch.Tensor | None, pos: torch.Tensor | None,
+                cache: dict | None, decode: bool) -> tuple[torch.Tensor, dict | None]:
+    """A norm-mixer-MLP block's first half: (the mixer's output to add to
+    the residual stream x, cache written)."""
+    xn = apply_norm(p["ln1"], x, cfg.norm)
+    if kind == "R":
+        return rec.griffin_block(p["rnn"], cfg, xn, cache=cache)
+    if decode:
+        return attn.attn_decode(p["attn"], cfg, xn, kind, pos=pos, cache=cache)
+    return attn.attn_forward(p["attn"], cfg, xn, kind, positions=positions, cache=cache)
+
+
+def ffn_input(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """What the block's MLP or MoE reads from the residual stream x."""
+    return apply_norm(p["ln2"], x, cfg.norm)
+
+
+def apply_ffn(p: dict, cfg: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A norm-mixer-MLP block's second half: (the MLP's or MoE's output to
+    add to the residual stream x, aux loss)."""
+    xn = ffn_input(p, cfg, x)
+    if "moe" in p:
+        return mlpm.moe_apply(p["moe"], cfg, xn)
+    return mlpm.mlp_apply(p["mlp"], cfg, xn), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def apply_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
                 positions: torch.Tensor | None, pos: torch.Tensor | None,
-                cache: dict | None, decode: bool) -> tuple[torch.Tensor, dict | None]:
-    """Returns (x, cache written).  Recurrent blocks carry their state
-    through ``cache`` at prefill and decode alike."""
+                cache: dict | None, decode: bool) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+    """Returns (x, cache written, aux loss).  Recurrent blocks carry their
+    state through ``cache`` at prefill and decode alike; the aux loss is the
+    MoE load-balance loss, zero for any other block."""
     if kind == "R" and cfg.family == "ssm":  # rwkv blocks apply their own norms
-        return rec.rwkv_block(p, cfg, x, cache=cache)
-    xn = apply_norm(p["ln1"], x, cfg.norm)
-    if kind == "R":
-        a, c = rec.griffin_block(p["rnn"], cfg, xn, cache=cache)
-    elif decode:
-        a, c = attn.attn_decode(p["attn"], cfg, xn, kind, pos=pos, cache=cache)
-    else:
-        a, c = attn.attn_forward(p["attn"], cfg, xn, kind, positions=positions, cache=cache)
+        x, c = rec.rwkv_block(p, cfg, x, cache=cache)
+        return x, c, torch.zeros((), dtype=torch.float32, device=x.device)
+    a, c = apply_mixer(p, cfg, kind, x, positions=positions, pos=pos, cache=cache, decode=decode)
     x = x + a
-    xn2 = apply_norm(p["ln2"], x, cfg.norm)
-    x = x + mlpm.mlp_apply(p["mlp"], cfg, xn2)
-    return x, c
+    y, aux = apply_ffn(p, cfg, x)
+    return x + y, c, aux
 
 
 # ---------------------------------------------------------------------------
@@ -108,16 +123,19 @@ def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _stack_pass(params: dict, cfg: ArchConfig, h: torch.Tensor, *,
-                positions: torch.Tensor, caches: list | None) -> tuple[torch.Tensor, list | None]:
+def _stack_pass(params: dict, cfg: ArchConfig, h: torch.Tensor, *, positions: torch.Tensor,
+                caches: list | None) -> tuple[torch.Tensor, list | None, torch.Tensor]:
+    """All layers; returns (h, caches written, the layers' summed aux loss)."""
     new = [] if caches is not None else None
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, kind in enumerate(cfg.layer_kinds):
         c_in = caches[j] if caches is not None else None
-        h, c_out = apply_block(params["layers"][j], cfg, kind, h, positions=positions,
-                               pos=None, cache=c_in, decode=False)
+        h, c_out, a = apply_block(params["layers"][j], cfg, kind, h, positions=positions,
+                                  pos=None, cache=c_in, decode=False)
+        aux = aux + a
         if new is not None:
             new.append(c_out)
-    return h, new
+    return h, new, aux
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -125,13 +143,14 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def forward(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence logits and the auxiliary loss (zero: no MoE layers)."""
+    """Full-sequence logits and the auxiliary loss: the MoE layers' summed
+    load-balance loss (zero without MoE layers)."""
     _check_supported(cfg)
     h = _embed(params, cfg, batch["tokens"])
     b, s, _ = h.shape
-    h, _ = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device), caches=None)
+    h, _, aux = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device), caches=None)
     h = apply_norm(params["final_norm"], h, cfg.norm)
-    return _lm_head(params, cfg, h), torch.zeros((), device=h.device)
+    return _lm_head(params, cfg, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -168,8 +187,8 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *, max_len: int,
     h = _embed(params, cfg, tokens)
     b, s, _ = h.shape
     caches = init_cache(cfg, b, max_len, h.device)
-    h, layers = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device),
-                            caches=caches["layers"])
+    h, layers, _ = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device),
+                               caches=caches["layers"])
     t = s if true_len is None else int(true_len)
     if not 1 <= t <= s:
         raise ValueError(f"true_len {t} outside 1..{s}")
@@ -189,8 +208,8 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
     h = _embed(params, cfg, tokens[:, None])
     layers = []
     for j, kind in enumerate(cfg.layer_kinds):
-        h, c_out = apply_block(params["layers"][j], cfg, kind, h, positions=None, pos=pos,
-                               cache=cache["layers"][j], decode=True)
+        h, c_out, _ = apply_block(params["layers"][j], cfg, kind, h, positions=None, pos=pos,
+                                  cache=cache["layers"][j], decode=True)
         layers.append(c_out)
     h = apply_norm(params["final_norm"], h, cfg.norm)
     logits = _lm_head(params, cfg, h)

@@ -1,9 +1,14 @@
-"""Dense MLP blocks (the dense half of ``repro.models.mlp``).
+"""MLP and Mixture-of-Experts blocks (the counterpart of ``repro.models.mlp``).
 
-Gated MLPs (swiglu / geglu) keep the interleaved packing the fused GLU
+Dense: gated MLPs (swiglu / geglu) keep the interleaved packing the fused GLU
 epilogue reads; the plain gelu MLP (minitron) runs its up-projection as
-``matmul_bias_gelu`` (with no bias unless ``mlp_bias``).  The MoE half waits
-for the slice that ports the grouped GEMM.
+``matmul_bias_gelu`` (with no bias unless ``mlp_bias``).
+
+MoE: the reference's token-dropping sort-based dispatch.  Token-expert pairs
+are stably sorted by expert, packed into a fixed (E, capacity, D) buffer
+(overflow drops), pushed through the two grouped GEMMs (``ops.moe_gemm``,
+kernel K1g) and combined back with the router weights.  Capacity factor 1.25,
+dropless (capacity = tokens) while tokens × top-k <= 4096.
 """
 from __future__ import annotations
 
@@ -38,3 +43,91 @@ def mlp_apply(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     h = ops.matmul(x, p["w_in"], class_id="matmul_bias_gelu", bias=bias_in)
     cls = "matmul_bias" if bias_out is not None else "matmul"
     return ops.matmul(h, p["w_out"], class_id=cls, bias=bias_out)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+CAPACITY_FACTOR = 1.25
+
+
+def moe_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = dtype_of(cfg.dtype)
+    return {
+        "router": dense_init(gen, d, e, torch.float32),                      # router kept f32
+        "w_in": torch.stack([glu_init(gen, d, f, dt) for _ in range(e)]),    # (E, D, 2F) interleaved
+        "w_out": torch.stack([dense_init(gen, f, d, dt) for _ in range(e)]),  # (E, F, D)
+    }
+
+
+def moe_route(p: dict, cfg: ArchConfig,
+              x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (T, D). Returns (router probs (T, E) f32, renormalised top-k gates
+    (T, k), their expert indices (T, k))."""
+    logits = ops.matmul(x.float(), p["router"], class_id="moe_router")    # (T, E) f32
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k breaks ties toward the lower index and torch.topk promises no
+    # order among ties; random f32 probabilities do not tie
+    gate_vals, expert_idx = torch.topk(probs, cfg.moe_topk, dim=-1)        # (T, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate_vals, expert_idx
+
+
+def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor,
+              capacity_factor: float = CAPACITY_FACTOR) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D). Returns (out, aux_loss) — aux is the load-balance loss.
+
+    The reference pins the dispatch buffer's and the output's sharding with
+    ``constrain_named``; on one device that does nothing, so it is left out
+    until the port is distributed (ROADMAP A.8)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_topk
+    t = b * s
+    dev = x.device
+    xf = x.reshape(t, d)
+    probs, gate_vals, expert_idx = moe_route(p, cfg, xf)
+
+    # Load-balance auxiliary loss (Switch-style): E * Σ_e f_e · p_e
+    me = probs.mean(dim=0)
+    ce = torch.bincount(expert_idx.reshape(-1), minlength=e).float() / (t * k)
+    aux = e * torch.sum(me * ce)
+
+    # --- sort-based dispatch (dropless while t * k <= 4096) ------------------
+    if t * k <= 4096:
+        cap = t
+    else:
+        cap = int(max(1, round(t * k / e * capacity_factor)))
+    flat_e = expert_idx.reshape(-1)                                         # (T*k,)
+    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+    flat_g = gate_vals.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sg = flat_e[order], flat_t[order], flat_g[order]
+    counts = torch.bincount(se, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(t * k, device=dev) - starts[se]
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, e * cap)                       # overflow row
+
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
+    buf[slot] = xf[st]                     # kept slots are distinct; the overflow row is dropped
+    buf = buf[:-1].reshape(e, cap, d)
+
+    h = ops.moe_gemm(buf, p["w_in"], class_id="moe_gemm_silu_glu")
+    y = ops.moe_gemm(h, p["w_out"], class_id="moe_gemm")                   # (E, cap, D)
+
+    y_flat = y.reshape(e * cap, d)
+    contrib = torch.where(keep, sg, 0.0)[:, None].to(x.dtype)
+    gathered = y_flat[torch.where(keep, se * cap + pos, 0)] * contrib
+    # Combine in a fixed order: the reference's scatter-add adds each token's
+    # k contributions in ascending expert order (the pairs are sorted by
+    # expert), rounding to x.dtype after each add.  A stable sort by token
+    # keeps that order within each token; adding the k columns one after
+    # another repeats it, where index_add_ on the card would add in an order
+    # that changes from run to run.
+    per_token = gathered[torch.argsort(st, stable=True)].reshape(t, k, d)
+    out = torch.zeros((t, d), dtype=x.dtype, device=dev)
+    for j in range(k):
+        out = out + per_token[:, j]
+    return out.reshape(b, s, d), aux

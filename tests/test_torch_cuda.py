@@ -24,6 +24,7 @@ from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.kernels.ops import use_backend
+from repro_torch.launch.serve import kernel_launches
 from repro_torch.models import build_model
 from repro_torch.serving import ServingEngine
 
@@ -130,6 +131,30 @@ def test_rglru_kernel_matches_plain(card, dtype, b, t, c, tile_c):
     _close(h, hr)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("class_id", ref.GROUPED_CLASSES)
+@pytest.mark.parametrize("e,m,n,k,tile_m", [(1, 6, 64, 40, None), (3, 20, 48, 33, None),
+                                            (8, 4, 96, 64, None), (8, 300, 64, 32, None),
+                                            (3, 13, 50, 24, 8)])
+def test_grouped_kernel_matches_plain(card, dtype, class_id, e, m, n, k, tile_m):
+    """E = 1/3/8, decode-shaped m = 4, m = 300 under the default tile of 120
+    (ragged inside each expert, tiled body), 13 under a rows-body tile of 8."""
+    from repro_torch.core.schedule import Schedule, concretize
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(e + m + n + k)
+    x = torch.randn((e, m, k), generator=g, device=card).to(dt)
+    w = (torch.randn((e, k, n), generator=g, device=card) / k ** 0.5).to(dt)
+    cs = ops.schedule_for(ops.instance(class_id, dt, M=m * e, N=n, K=k, E=e))
+    if tile_m is not None:
+        cs = concretize(Schedule.make(class_id, {"M": tile_m, "N": cs.t["N"], "K": k, "E": 1}),
+                        cs.instance)
+    before = mm.grouped_launches
+    got = mm.grouped_matmul(x, w, cs, class_id=class_id)
+    assert mm.grouped_launches == before + 1 and got.dtype == dt
+    _close(got, ref.grouped_matmul(x, w, class_id), TOL if dt == torch.float32 else BF16_TOL)
+
+
 def test_kernel_rejects_what_it_does_not_take(card):
     x = torch.zeros((4, 8), device=card)
     w = torch.zeros((8, 16), device=card, dtype=torch.bfloat16)
@@ -155,15 +180,18 @@ def test_kernel_rejects_what_it_does_not_take(card):
 
 
 # reduced minitron, a variant whose layers drive the window, softcap, GLU
-# and softcapped-head paths of K1 and K2, and the two recurrent archs (K3,
-# K4 and griffin's local attention): arch, config overrides, kernels run
-CONFIGS = {"minitron": ("minitron-4b", {}, (mm, fa)),
+# and softcapped-head paths of K1 and K2, the two recurrent archs (K3, K4
+# and griffin's local attention) and mixtral (K1g): arch, config overrides,
+# kernels run (names of serve.kernel_launches)
+CONFIGS = {"minitron": ("minitron-4b", {}, ("matmul", "flash_attention")),
            "local_global_softcap_geglu": ("minitron-4b",
                                           dict(layer_pattern=("L", "G"), window=8,
                                                attn_softcap=50.0, final_softcap=30.0,
-                                               tie_embeddings=True, mlp_kind="geglu"), (mm, fa)),
-           "rwkv6": ("rwkv6-1.6b", {}, (mm, rw)),
-           "recurrentgemma": ("recurrentgemma-2b", {}, (mm, fa, rg))}
+                                               tie_embeddings=True, mlp_kind="geglu"),
+                                          ("matmul", "flash_attention")),
+           "rwkv6": ("rwkv6-1.6b", {}, ("matmul", "rwkv6_scan")),
+           "recurrentgemma": ("recurrentgemma-2b", {}, ("matmul", "flash_attention", "rglru_scan")),
+           "mixtral": ("mixtral-8x22b", {}, ("matmul", "flash_attention", "grouped_matmul"))}
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
@@ -177,12 +205,13 @@ def reduced_model(card, request):
 def test_reduced_model_kernel_path_matches_plain_path(reduced_model):
     model, params, kernels = reduced_model
     toks = torch.randint(1, 512, (2, 12), generator=torch.Generator().manual_seed(0)).to(model.device)
-    launches = [km.launches for km in kernels]
+    before = kernel_launches()
     lk, ck = model.prefill(params, {"tokens": toks}, max_len=32, true_len=9)
     with use_backend("ref"):
         lr, cr = model.prefill(params, {"tokens": toks}, max_len=32, true_len=9)
     _close(lk, lr)
-    assert all(km.launches > n for km, n in zip(kernels, launches))
+    after = kernel_launches()
+    assert all(after[name] > before[name] for name in kernels)
     for step in range(3):
         feed = toks[:, step]
         lk, ck = model.decode_step(params, ck, feed)

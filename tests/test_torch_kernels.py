@@ -10,15 +10,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro.core.schedule import Schedule as JSchedule
 from repro.core.schedule import concretize as jconcretize
 from repro.core.schedule import default_schedule as jdefault_schedule
 from repro.core.workload import KernelInstance as JKernelInstance
 from repro.kernels import flash_attention as jfa
 from repro.kernels import matmul as jmm
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.core.schedule import Schedule, concretize
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
@@ -91,6 +95,92 @@ def test_ref_matmul_bf16_matches_jax_oracle():
     yj = jref.matmul(_j(x, jnp.bfloat16), _j(w, jnp.bfloat16), "matmul_bias_gelu")
     assert y.dtype == torch.bfloat16
     np.testing.assert_allclose(y.float().numpy(), np.asarray(yj, np.float32), **BF16_TOL)
+
+
+def _grouped_data(e, m, n, k, seed=0):
+    r = np.random.default_rng(seed)
+    return (r.normal(size=(e, m, k)).astype(np.float32),
+            (r.normal(size=(e, k, n)) / np.sqrt(k)).astype(np.float32))
+
+
+# (E, rows per expert, N, K, custom M/N tiles): E = 1 and 3, rows that the M
+# tile does not divide (ragged inside each expert), the default schedule and
+# an N-outer one
+GROUPED_CASES = [
+    (1, 16, 32, 24, None),
+    (3, 20, 48, 32, None),
+    (3, 20, 48, 32, (16, 16)),
+    (1, 13, 40, 16, (8, 16)),
+    (3, 7, 24, 40, (4, 8)),
+]
+
+
+@pytest.mark.parametrize("class_id", ref.GROUPED_CLASSES)
+@pytest.mark.parametrize("e,m,n,k,tiles", GROUPED_CASES)
+def test_ref_grouped_matmul_matches_jax_oracle_and_pallas(class_id, e, m, n, k, tiles):
+    """The plain grouped version against the reference's vmapped oracle and
+    the Pallas kernel's grouped path in interpret mode."""
+    x, w = _grouped_data(e, m, n, k, seed=e + m + n)
+    y = ref.grouped_matmul(_t(x), _t(w), class_id).numpy()
+    assert y.shape == (e, m, n // 2 if "glu" in class_id else n)
+    yj = jax.vmap(lambda a, b: jref.matmul(a, b, class_id))(_j(x), _j(w))
+    np.testing.assert_allclose(y, np.asarray(yj), **TOL)
+    inst = JKernelInstance.make(class_id, M=m * e, N=n, K=k, E=e, dtype="float32")
+    sched = (jdefault_schedule(inst) if tiles is None else
+             JSchedule.make(class_id, {"M": tiles[0], "N": tiles[1], "K": k, "E": 1},
+                            order=("N", "M", "E", "K")))
+    cs = jconcretize(sched, inst)
+    yp = jmm.grouped_matmul(_j(x), _j(w), cs, class_id=class_id, interpret=True)
+    np.testing.assert_allclose(y, np.asarray(yp), **TOL)
+
+
+@pytest.mark.parametrize("class_id", ref.GROUPED_CLASSES)
+def test_ops_moe_gemm_builds_reference_instance_and_takes_plain_version_on_cpu(class_id):
+    """``ops.moe_gemm`` builds the reference's instance (M = m·E) and resolves
+    the same schedule; a CPU tensor takes the plain version, and the grouped
+    kernel's launch count does not move."""
+    e, m, n, k = 3, 20, 48, 32
+    x, w = _grouped_data(e, m, n, k, seed=5)
+    inst = ops.instance(class_id, torch.float32, M=m * e, N=n, K=k, E=e)
+    jinst = jops._instance(class_id, _j(x).dtype, M=m * e, N=n, K=k, E=e)
+    assert inst.workload_key() == jinst.workload_key()
+    cs, jcs = ops.schedule_for(inst), jconcretize(jdefault_schedule(jinst), jinst)
+    assert (cs.tiles, cs.grid, cs.order) == (jcs.tiles, jcs.grid, jcs.schedule.order)
+    before = mm.grouped_launches
+    y = ops.moe_gemm(_t(x), _t(w), class_id=class_id)
+    yr = ops.moe_gemm(_t(x), _t(w), class_id=class_id, backend="ref")
+    assert mm.grouped_launches == before
+    np.testing.assert_array_equal(y.numpy(), yr.numpy())
+    yj = jops.moe_gemm(_j(x), _j(w), class_id=class_id, backend="ref")
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), **TOL)
+
+
+def test_grouped_geometry_clamps_tiles_to_one_expert():
+    """The schedule's M counts rows over all experts; the kernel's tiles are
+    one expert's: a default tile of 120 for 8 experts of 300 rows leaves a
+    ragged 60-row tile inside each expert (masked at the expert's edge), an
+    M tile above m shrinks to m, and the E tile is ignored."""
+    def geometry(class_id, e, m, n, k, tiles=None, e_tile=1):
+        x, w = torch.zeros((e, m, k)), torch.zeros((e, k, n))
+        inst = ops.instance(class_id, x.dtype, M=m * e, N=n, K=k, E=e)
+        cs = (ops.schedule_for(inst) if tiles is None else
+              concretize(Schedule.make(class_id, {"M": tiles[0], "N": tiles[1], "K": k,
+                                                  "E": e_tile}), inst))
+        return mm.grouped_geometry(x, w, cs, class_id)
+
+    assert geometry("moe_gemm", 8, 300, 64, 32) == (8, 300, 64, 32, 120, 64)
+    assert geometry("moe_gemm_silu_glu", 8, 4, 96, 48) == (8, 4, 96, 48, 4, 96)
+    assert geometry("moe_gemm", 4, 10, 64, 16, tiles=(40, 32), e_tile=4) == (4, 10, 64, 16, 10, 32)
+    x, w = torch.zeros((2, 8, 16)), torch.zeros((2, 16, 64))
+    cs = ops.schedule_for(ops.instance("moe_gemm", x.dtype, M=8, N=64, K=16, E=2))
+    with pytest.raises(ValueError, match="does not fit"):   # M must be m·E, not m
+        mm.grouped_geometry(x, w, cs, "moe_gemm")
+    with pytest.raises(ValueError, match="no class"):
+        mm.grouped_geometry(x, w, cs, "matmul")
+    with pytest.raises(ValueError, match="one dtype"):
+        mm.grouped_geometry(x, w.bfloat16(), cs, "moe_gemm")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mm.grouped_launch(x, w, cs)
 
 
 def _attn_data(b, hq, hkv, sq, skv, d, seed=0):
@@ -171,7 +261,7 @@ def test_asking_for_a_kernel_without_a_gpu_raises():
 def test_build_is_keyed_by_sources_and_lists_every_csrc_file():
     assert sorted(p.name for p in _build._sources()) == ["flash_attention.cu", "matmul.cu",
                                                          "rglru_scan.cu", "rwkv6_scan.cu"]
-    assert {"repro_rwkv6_scan", "repro_rglru_scan"} <= set(_build.SIGNATURES)
+    assert {"repro_rwkv6_scan", "repro_rglru_scan", "repro_grouped_matmul"} <= set(_build.SIGNATURES)
     assert len(_build._key()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
     assert _build.BUILD_DIR.name == "build"

@@ -1,5 +1,5 @@
-"""Reduced minitron-4b, rwkv6-1.6b and recurrentgemma-2b (f32) in the port
-against ``repro.models``.
+"""Reduced minitron-4b, rwkv6-1.6b, recurrentgemma-2b, mixtral-8x22b and
+dbrx-132b (f32) in the port against ``repro.models``.
 
 The reference builds the weights; ``repro_torch.convert`` hands the same
 weights to the port.  Prefill logits (with and without right padding), the
@@ -215,11 +215,10 @@ def test_variant_forward_matches(variant):
 
 
 def test_unported_layer_kinds_raise():
-    """MoE and enc-dec layers are still to port: building either raises."""
+    """Enc-dec layers are still to port: building such a config raises."""
     base = reduced(get_arch("minitron-4b"))
-    for kw in (dict(n_experts=4, moe_topk=2), dict(encoder_layers=2, encoder_seq=16)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(dataclasses.replace(base, **kw), "cpu").init(seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(dataclasses.replace(base, encoder_layers=2, encoder_seq=16), "cpu").init(seed=0)
 
 
 def test_cuda_device_without_gpu_raises():
@@ -364,3 +363,169 @@ def test_recurrent_bf16_params_keep_f32_leaves(arch):
     jlayer = jlayer if cfg.family == "ssm" else jlayer["rnn"]
     for key, leaf in layer.items():
         assert tuple(leaf.shape) == tuple(jlayer[key].shape), key
+
+
+# ---------------------------------------------------------------------------
+# MoE archs: mixtral-8x22b (all sliding-window) and dbrx-132b (global)
+# ---------------------------------------------------------------------------
+
+MOE = ("mixtral-8x22b", "dbrx-132b")
+
+
+@pytest.fixture(scope="module", params=MOE)
+def moe(request):
+    jcfg = jreduced(jget_arch(request.param))
+    cfg = reduced(get_arch(request.param))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    jmodel = jbuild_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = build_model(cfg, "cpu")
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    return cfg, jmodel, jparams, model, params
+
+
+def test_moe_converted_params_have_port_layout(moe):
+    """The reference stacks (reps, E, D, 2F) expert weights and a (reps, D, E)
+    router per pattern position; conversion gives each layer its own."""
+    cfg, _, jparams, _, params = moe
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    assert len(params["layers"]) == cfg.n_layers
+    for j, layer in enumerate(params["layers"]):
+        assert set(layer) == {"ln1", "attn", "ln2", "moe"}
+        shapes = {key: tuple(v.shape) for key, v in layer["moe"].items()}
+        assert shapes == {"router": (d, e), "w_in": (e, d, 2 * f), "w_out": (e, f, d)}
+        for key in ("router", "w_in", "w_out"):
+            np.testing.assert_array_equal(layer["moe"][key].numpy(),
+                                          np.asarray(jparams["groups"]["0"]["moe"][key][j]))
+
+
+def test_moe_forward_logits_and_aux_match(moe):
+    cfg, jmodel, jparams, model, params = moe
+    toks = _tokens(2, 12, seed=31)
+    jlogits, jaux = jmodel.forward(jparams, {"tokens": jnp.asarray(toks)}, remat=False)
+    logits, aux = model.forward(params, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    assert float(aux) > 0.0
+    np.testing.assert_allclose(float(aux), float(jaux), **TOL)
+
+
+@pytest.mark.parametrize("true_len", [None, 7])
+def test_moe_prefill_logits_and_cache_match(moe, true_len):
+    """A prompt longer than mixtral's 8-position ring, with and without
+    right padding."""
+    cfg, jmodel, jparams, model, params = moe
+    toks = _tokens(2, 11, seed=32)
+    jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN,
+                           true_len=true_len)
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=MAX_LEN,
+                                  true_len=true_len)
+    assert logits.shape == (2, cfg.vocab_size)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_equal(cache, jc, cfg)
+
+
+def test_moe_teacher_forced_decode_at_per_slot_positions(moe):
+    cfg, jmodel, jparams, model, params = moe
+    toks = _tokens(2, 9, seed=33)
+    _, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN)
+    _, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=MAX_LEN)
+    t = np.array([9, 5], np.int32)
+    jc["t"] = jnp.asarray(t)
+    cache["t"] = torch.from_numpy(t)
+    feed = _tokens(5, 2, seed=34)
+    for step in range(5):
+        jl, jc = jmodel.decode_step(jparams, jc, jnp.asarray(feed[step]))
+        logits, cache = model.decode_step(params, cache, torch.from_numpy(feed[step]))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_equal(cache, jc, cfg)
+    np.testing.assert_array_equal(cache["t"].numpy(), t + 5)
+
+
+def test_moe_prefill_matches_reference_pallas_interpret(moe):
+    """The reference's own kernels, the grouped expert GEMM among them (Pallas,
+    interpret mode), agree too."""
+    cfg, jmodel, jparams, model, params = moe
+    toks = _tokens(1, 10, seed=35)
+    with juse_backend("pallas"):
+        jl, _ = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN)
+    logits, _ = model.prefill(params, {"tokens": torch.from_numpy(toks)}, max_len=MAX_LEN)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_bf16_params_keep_f32_router(arch):
+    """At the archs' own dtype the reference keeps the router in f32 and the
+    experts in bf16; conversion and the port's own init keep them so."""
+    jcfg = dataclasses.replace(jreduced(jget_arch(arch)), dtype="bfloat16")
+    cfg = dataclasses.replace(reduced(get_arch(arch)), dtype="bfloat16")
+    jparams = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
+    converted = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    own = build_model(cfg, "cpu").init(seed=0)
+    jmoe = jax.tree_util.tree_map(lambda a: a[0], jparams["groups"]["0"]["moe"])
+    for params in (converted, own):
+        layer = params["layers"][0]["moe"]
+        assert layer["router"].dtype == torch.float32
+        assert layer["w_in"].dtype == layer["w_out"].dtype == torch.bfloat16
+        for key, leaf in layer.items():
+            assert tuple(leaf.shape) == tuple(jmoe[key].shape), key
+
+
+def test_moe_capacity_drops_match_reference():
+    """Past the dropless limit (T·k = 1100·4 > 4096) capacity is
+    round(T·k/E·1.25) = 688 rows per expert.  Tokens share a direction v and
+    the router favours expert 0 along it, so expert 0 is asked for by more
+    tokens than it holds: drops occur, and both packages drop the same pairs."""
+    from repro.models import mlp as jmlp
+    from repro_torch.models import mlp
+
+    kw = dict(n_experts=8, moe_topk=4)
+    jcfg = dataclasses.replace(jreduced(jget_arch("mixtral-8x22b")), **kw)
+    cfg = dataclasses.replace(reduced(get_arch("mixtral-8x22b")), **kw)
+    jp = jmlp.moe_params(jax.random.PRNGKey(7), jcfg)
+    r = np.random.default_rng(8)
+    v = r.normal(size=(cfg.d_model,)).astype(np.float32)
+    v /= np.linalg.norm(v)
+    x = (r.normal(size=(1, 1100, cfg.d_model)) + 2.0 * v).astype(np.float32)
+    router = np.asarray(jp["router"]).copy()
+    router[:, 0] += 1.5 * v
+    jp = {**jp, "router": jnp.asarray(router)}
+    p = {k: torch.from_numpy(np.array(a)) for k, a in jp.items()}
+
+    picks = np.argsort(-(x[0] @ router), axis=-1, kind="stable")[:, :4]
+    cap = round(1100 * 4 / 8 * 1.25)
+    assert np.bincount(picks.ravel(), minlength=8)[0] > cap   # expert 0 overflows
+
+    jout, jaux = jmlp.moe_apply(jp, jcfg, jnp.asarray(x))
+    out, aux = mlp.moe_apply(p, cfg, torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), **TOL)
+    # the drops changed the output: with room for every pair it differs
+    roomy, _ = mlp.moe_apply(p, cfg, torch.from_numpy(x), capacity_factor=100.0)
+    assert not np.allclose(out.numpy(), roomy.numpy(), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "recurrentgemma-2b", "mixtral-8x22b"])
+def test_block_halves_compose_to_apply_block(arch):
+    """apply_block is apply_mixer, then apply_ffn on the residual stream,
+    bit for bit; a MoE block's routing reads what apply_ffn's MoE reads."""
+    from repro_torch.models import lm, mlp
+
+    cfg = reduced(get_arch(arch))
+    model = build_model(cfg, "cpu")
+    params = model.init(seed=0)
+    x = np.random.default_rng(9).normal(size=(2, 9, cfg.d_model)).astype(np.float32)
+    x = torch.from_numpy(x)
+    positions = torch.arange(9).expand(2, 9)
+    for j, kind in enumerate(cfg.layer_kinds[:3]):
+        p = params["layers"][j]
+        kw = dict(positions=positions, pos=None, decode=False)
+        cache = lambda: lm.init_block_cache(cfg, kind, 2, 16, "cpu")  # noqa: E731
+        out, _, aux = lm.apply_block(p, cfg, kind, x, cache=cache(), **kw)
+        a, _ = lm.apply_mixer(p, cfg, kind, x, cache=cache(), **kw)
+        y, aux2 = lm.apply_ffn(p, cfg, x + a)
+        assert torch.equal(out, x + a + y) and torch.equal(aux, aux2)
+        if "moe" in p:
+            xn = lm.ffn_input(p, cfg, x + a).reshape(18, -1)
+            probs, gates, idx = mlp.moe_route(p["moe"], cfg, xn)
+            assert idx.shape == (18, cfg.moe_topk) and bool((aux > 0) & torch.isfinite(probs).all())
+            np.testing.assert_allclose(gates.sum(-1).numpy(), 1.0, rtol=1e-6)

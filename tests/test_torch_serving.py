@@ -1,5 +1,5 @@
-"""The port's slot engine on reduced minitron-4b, rwkv6-1.6b and
-recurrentgemma-2b against ``repro.serving``.
+"""The port's slot engine on reduced minitron-4b, rwkv6-1.6b,
+recurrentgemma-2b and mixtral-8x22b against ``repro.serving``.
 
 Same converted weights, same prompts: per-step logits of the two engines
 agree within rtol = atol = 2e-4 (f32).  Plus the engine's admission rules
@@ -174,7 +174,7 @@ def test_serve_main_on_cpu_prints_result(capsys):
             "tok_per_s", "prefill_shapes", "kernel_launches"} <= set(res)
     assert res["requests"] == 5 and res["tokens"] == 15 and res["device"] == "cpu"
     # CPU tensors take the plain versions: no kernel launch
-    assert res["kernel_launches"] == {"matmul": 0, "flash_attention": 0,
+    assert res["kernel_launches"] == {"matmul": 0, "grouped_matmul": 0, "flash_attention": 0,
                                       "rwkv6_scan": 0, "rglru_scan": 0}
 
 
@@ -210,6 +210,30 @@ def test_recurrent_engine_steps_match_reference(recurrent_pair):
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b"])
 def test_serve_main_recurrent_arch_on_cpu(capsys, arch):
+    res = serve.main(["--device", "cpu", "--preset", "smoke", "--arch", arch, "--requests", "3",
+                      "--new-tokens", "4", "--slots", "2"])
+    assert res["arch"] == arch and res["requests"] == 3 and res["tokens"] == 12
+    assert set(res["kernel_launches"].values()) == {0}
+
+
+def test_moe_engine_steps_match_reference():
+    """Reduced mixtral (4 experts top-2, 8-position rings): prompts up to the
+    ring size prefill in buckets, a longer one at its exact length; every
+    decode step routes the active slots' tokens through the experts."""
+    jcfg = jreduced(jget_arch("mixtral-8x22b"))
+    cfg = reduced(get_arch("mixtral-8x22b"))
+    jmodel = jbuild_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(5))
+    model = build_model(cfg, "cpu")
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    jeng = JServingEngine(jmodel, jparams, slots=3, max_len=32)
+    eng = ServingEngine(model, params, slots=3, max_len=32)
+    assert [eng.bucket_for(n) for n in (3, 5, 12)] == [jeng.bucket_for(n) for n in (3, 5, 12)]
+    _serve_both(jeng, eng, [list(range(1, 13)), [4, 5, 6, 7, 8], [9, 9, 2], [7] * 6], 6)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b"])
+def test_serve_main_moe_arch_on_cpu(capsys, arch):
     res = serve.main(["--device", "cpu", "--preset", "smoke", "--arch", arch, "--requests", "3",
                       "--new-tokens", "4", "--slots", "2"])
     assert res["arch"] == arch and res["requests"] == 3 and res["tokens"] == 12
