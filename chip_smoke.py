@@ -8,10 +8,13 @@ toolkit.  Phases, one result line each:
 
 1. device — the card's name and power limit (nvidia-smi);
 2. build  — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
+   the tensor-core matmul body's registers and spills (ptxas), per CTA tile;
 3. matmul — the matmul kernel against its plain version: every epilogue class
    at small ragged shapes (bf16 and f32), then minitron-4b's main-path shapes,
    timed beside the plain version and ``torch.matmul``, and under both the
-   default schedule and 64x64 output tiles;
+   default schedule and 64x64 output tiles, each 256-row shape with its body,
+   CTA tile, CTA count and time over ``torch.matmul``'s in the same call,
+   and checked and timed on each compiled CTA tile of the tensor-core body;
 4. attention — the flash-attention kernel against its plain version: causal,
    window, softcap, q_offset, GQA groups 1 and 3, ragged lengths, head dims
    16 to 256, then the main-path prefill shapes, timed beside the plain
@@ -29,7 +32,8 @@ toolkit.  Phases, one result line each:
    count under a tile that does not divide it (rows and tiled bodies), N
    not a multiple of 8, N-outer schedules; then mixtral-8x22b's main-path
    shapes (4 and 256 rows per expert) timed beside the plain version and
-   ``torch.bmm`` (for ``moe_gemm``; no one call computes the GLU class);
+   ``torch.bmm`` (for ``moe_gemm``; no one call computes the GLU class),
+   with body, CTA tile and count, and at 256 rows on each compiled CTA tile;
 7. serve — minitron-4b, rwkv6-1.6b and recurrentgemma-2b at full width and
    full depth, and mixtral-8x22b at full width with 8 of its 56 layers (at
    full depth its bf16 weights, ~280 GB, fit no one card); bf16, random
@@ -39,7 +43,9 @@ toolkit.  Phases, one result line each:
    mixtral) and then the slot engine directly with 100-400-token prompts.
    Every request must finish with its token count, the launch counts of
    the arch's kernels must be above 0 (serve.main's as it counts them; the
-   engine's set to 0 just before its run and read just after), and the
+   engine's set to 0 just before its run and read just after), the
+   engine's bf16 prefill GEMMs must all take the matmul's tensor-core body
+   (its launches above 0, the CUDA-core body's bf16 launches 0), and the
    kernel path's prefill logits must agree with the plain path's on the
    same weights, end to end and layer by layer (a MoE layer's tokens that
    the two paths route to different experts counted and left out).
@@ -195,6 +201,17 @@ def phase_build():
     usage = [ln.strip() for ln in _build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
     log("build", seconds=time.monotonic() - t0, library=path.name, ptxas=usage)
+    # the tensor-core body's registers and spills, per compiled CTA tile
+    mma, name = {}, None
+    for ln in _build.build_log.splitlines():
+        for marker in ("Compiling entry function '", "Function properties for "):
+            if marker in ln:
+                name = ln.split(marker, 1)[1].strip().strip("'")
+        if name and "matmul_mma_kernel" in name and ("registers" in ln or "spill" in ln):
+            mma.setdefault(name, []).append(ln.strip())
+    if not mma:
+        raise AssertionError("the build log shows no matmul_mma_kernel")
+    log("build_mma_body", ptxas=mma)
 
 
 def _mm_inputs(torch, g, m, n, k, class_id, dtype):
@@ -207,6 +224,37 @@ def _mm_inputs(torch, g, m, n, k, class_id, dtype):
         if class_id == "matmul_residual" else None
     softcap = 2.0 if class_id == "matmul_lmhead_softcap" else 0.0
     return x, w, dict(bias=bias, residual=residual, softcap=softcap)
+
+
+@contextlib.contextmanager
+def forced_cta_tile(cta):
+    """The matmul's tensor-core body on one compiled CTA tile, whatever
+    ``tiled_geometry`` would choose (to time the choice against the others)."""
+    from repro_torch.kernels import matmul as mm
+
+    chosen = mm.tiled_geometry
+
+    def forced(m, n, tile_m, tile_n, groups=1):
+        return (*cta, mm.cta_count(m, n, tile_m, tile_n, *cta))
+
+    mm.tiled_geometry = forced
+    try:
+        yield
+    finally:
+        mm.tiled_geometry = chosen
+
+
+def time_cta_tiles(torch, timer, launch, want, what, iters=10) -> dict:
+    """Each compiled CTA tile of the tensor-core body: checked against the
+    plain version, then timed; {"MxN": ms}."""
+    from repro_torch.kernels import matmul as mm
+
+    out = {}
+    for cta in mm.MMA_CTA_TILES:
+        with forced_cta_tile(cta):
+            assert_close(torch, launch(), want, BF16_TOL, f"{what} on {cta} CTA tiles")
+            out["x".join(map(str, cta))] = timer.ms(launch, iters=iters)
+    return out
 
 
 def phase_matmul(torch, timer) -> dict:
@@ -250,22 +298,29 @@ def phase_matmul(torch, timer) -> dict:
             got = mm.launch(x, w, cs, class_id=class_id, **kw)
             want = ref.matmul(x, w, class_id, **kw)
             err = assert_close(torch, got, want, BF16_TOL, f"{class_id} {m}x{k}x{n}")
+            body = mm.launch_geometry(x.dtype, m, n, cs.t["M"], cs.t["N"])[0]
+            cta_ms = (time_cta_tiles(torch, timer, lambda: mm.launch(x, w, cs, class_id=class_id, **kw),
+                                     want, f"{class_id} {m}x{k}x{n}") if body == "mma" else None)
             del got, want
             # the same kernel under 64x64 output tiles, sized to fill the card's SMs
             cs64 = concretize(Schedule.make(class_id, {"M": 64, "N": 64, "K": cs.t["K"]}), cs.instance)
             err = max(err, assert_close(torch, mm.launch(x, w, cs64, class_id=class_id, **kw),
                                         ref.matmul(x, w, class_id, **kw), BF16_TOL, "64x64 tiles"))
             b_ms, b_by = bound_ms(2 * (m * k + k * n + m * n), 2 * m * n * k)
-            row = {"class": class_id, "M": m, "K": k, "N": n,
-                   "tiles": cs.t, "ctas": cs.g["M"] * cs.g["N"], "max_abs_err": err,
+            body, cta_m, cta_n, ctas = mm.launch_geometry(x.dtype, m, n, cs.t["M"], cs.t["N"])
+            row = {"class": class_id, "M": m, "K": k, "N": n, "tiles": cs.t,
+                   "logical_tiles": cs.g["M"] * cs.g["N"], "body": body,
+                   "cta_tile": [cta_m, cta_n], "ctas": ctas, "max_abs_err": err,
                    "ms": timer.ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw)),
-                   "tile64_ctas": cs64.g["M"] * cs64.g["N"],
+                   "cta_tile_ms": cta_ms,
+                   "tile64_ctas": mm.launch_geometry(x.dtype, m, n, cs64.t["M"], cs64.t["N"])[3],
                    "tile64_ms": timer.ms(lambda: mm.launch(x, w, cs64, class_id=class_id, **kw)),
                    "plain_ms": timer.ms(lambda: ref.matmul(x, w, class_id, **kw)),
                    # one library call computes the same function only without an epilogue
                    "library_ms": (timer.ms(lambda: torch.matmul(x, w))
                                   if class_id != "matmul_bias_gelu" else None),
                    "bound_ms": b_ms, "bound_by": b_by}
+            row["library_ratio"] = row["ms"] / row["library_ms"] if row["library_ms"] else None
             shapes.append(row)
             log("matmul_shape", **row)
             del x, w
@@ -581,22 +636,29 @@ def phase_grouped(torch, timer) -> dict:
         for class_id, e, k, n in MOE_SHAPES:
             x, w = _grouped_inputs(torch, g, e, m, n, k, torch.bfloat16)
             cs = cs_for(class_id, torch.bfloat16, e, m, n, k)
-            err = assert_close(torch, mm.grouped_launch(x, w, cs, class_id=class_id),
-                               ref.grouped_matmul(x, w, class_id), BF16_TOL,
-                               f"{class_id} {e}x{m}x{k}x{n}")
+            want = ref.grouped_matmul(x, w, class_id)
+            err = assert_close(torch, mm.grouped_launch(x, w, cs, class_id=class_id), want,
+                               BF16_TOL, f"{class_id} {e}x{m}x{k}x{n}")
             n_out = n // 2 if class_id == "moe_gemm_silu_glu" else n
             b_ms, b_by = bound_ms(2 * e * (m * k + k * n + m * n_out), 2 * e * m * n * k)
             *_, tile_m, tile_n = mm.grouped_geometry(x, w, cs, class_id)
+            body, cta_m, cta_n, ctas = mm.launch_geometry(x.dtype, m, n, tile_m, tile_n, e)
             iters = 10 if m <= 16 else 5
+            cta_ms = (time_cta_tiles(torch, timer, lambda: mm.grouped_launch(x, w, cs, class_id=class_id),
+                                     want, f"{class_id} {e}x{m}x{k}x{n}", iters) if body == "mma" else None)
+            del want
             row = {"class": class_id, "E": e, "M": m, "K": k, "N": n,
                    "tiles": {"M": tile_m, "N": tile_n},
-                   "ctas": e * -(-m // tile_m) * -(-n // tile_n), "max_abs_err": err,
+                   "logical_tiles": e * -(-m // tile_m) * -(-n // tile_n), "body": body,
+                   "cta_tile": [cta_m, cta_n], "ctas": e * ctas, "max_abs_err": err,
+                   "cta_tile_ms": cta_ms,
                    "ms": timer.ms(lambda: mm.grouped_launch(x, w, cs, class_id=class_id), iters=iters),
                    "plain_ms": timer.ms(lambda: ref.grouped_matmul(x, w, class_id), iters=iters),
                    # one library call computes the same function only without the GLU
                    "library_ms": (timer.ms(lambda: torch.bmm(x, w), iters=iters)
                                   if class_id == "moe_gemm" else None),
                    "bound_ms": b_ms, "bound_by": b_by}
+            row["library_ratio"] = row["ms"] / row["library_ms"] if row["library_ms"] else None
             shapes.append(row)
             log("grouped_shape", **row)
             del x, w
@@ -688,6 +750,7 @@ def phase_serve(torch, arch: str) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.kernels.ops import use_backend
     from repro_torch.launch import serve
@@ -740,6 +803,12 @@ def phase_serve(torch, arch: str) -> dict:
             raise AssertionError("the slot engine did not converge")
     torch.cuda.synchronize()
     launches = serve.kernel_launches()
+    bodies = {f"{kernel}/{body}/{ops.dtype_name(dtype)}": count
+              for (kernel, body, dtype), count in sorted(mm.body_launches.items(), key=str)}
+    # every bf16 prefill GEMM above 16 rows ran on the tensor cores: none
+    # took the CUDA-core body, which is for f32 alone
+    if mm.body_count("mma") <= 0 or mm.body_count("fma", dtype=torch.bfloat16) != 0:
+        raise AssertionError(f"{arch}: launches per matmul body {bodies}")
     if len(done) != len(prompts) or any(len(r.generated) != new_tokens for r in done):
         raise AssertionError(f"engine finished {len(done)} requests with token counts "
                              f"{[len(r.generated) for r in done]}")
@@ -780,7 +849,7 @@ def phase_serve(torch, arch: str) -> dict:
            "decode_ms_per_step": 1e3 * decode_s / steps,
            "tok_per_s": tokens / (prefill_s + decode_s),
            "decode_tok_per_s": (tokens - len(done)) / decode_s,
-           "launches": launches, "peak_mem_gib": peak_gib,
+           "launches": launches, "body_launches": bodies, "peak_mem_gib": peak_gib,
            "logits_max_abs_diff": diff, "logits_max_abs": scale,
            "logits_control": control, "logits_bound": bound,
            "argmax_equal": int(logits_k.argmax()) == int(logits_r.argmax()),
@@ -822,6 +891,10 @@ def main() -> int:
     def served(name):   # launches summed over the serve phases
         return sum(r["launches"][name] for r in srv)
 
+    def served_body(name):   # a kernel's launches of its tensor-core body, summed
+        return sum(c for r in srv for key, c in r["body_launches"].items()
+                   if key.startswith(f"{name}/mma/"))
+
     def timed(row, keys):
         return {"shape": {k: row[k] for k in keys},
                 **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
@@ -831,6 +904,9 @@ def main() -> int:
     rep_rw = scr["rwkv6"]["shapes"][0]
     rep_rg = scr["rglru"]["shapes"][0]
     rep_gr = next(r for r in grr["shapes"] if r["M"] == MOE_ROWS[0] and r["class"] == "moe_gemm")
+    # the tensor-core body at prefill: K1's q/o projection, K1g's down-GEMM
+    pre_mm = next(r for r in mmr["shapes"] if (r["M"], r["K"], r["N"]) == (256, 3072, 3072))
+    pre_gr = next(r for r in grr["shapes"] if r["M"] == MOE_ROWS[1] and r["class"] == "moe_gemm")
     kernels = [
         {"name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:205", "launches": served("matmul"),
@@ -849,6 +925,15 @@ def main() -> int:
         {"name": "grouped_matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:236", "launches": served("grouped_matmul"),
          "max_abs_err": grr["max_abs_err"], **timed(rep_gr, ("class", "E", "M", "K", "N"))},
+        {"name": "matmul_prefill", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:205", "body": "mma",
+         "launches": served_body("matmul"), "max_abs_err": mmr["max_abs_err"],
+         **timed(pre_mm, ("class", "M", "K", "N", "cta_tile", "ctas"))},
+        {"name": "grouped_matmul_prefill", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:236", "body": "mma",
+         "launches": served_body("grouped_matmul"), "max_abs_err": grr["max_abs_err"],
+         **timed(pre_gr, ("class", "E", "M", "K", "N", "cta_tile", "ctas"))},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,31 +6,55 @@
 // summed; and through grouped_matmul() (K1g, the MoE expert GEMM):
 // out[e] = epilogue(x[e] @ w[e]) for x(E,M,K), w(E,K,N).
 //
-// K1g is K1's body under a second grid axis, as in the reference (a leading
+// K1g is K1's bodies under a second grid axis, as in the reference (a leading
 // expert grid axis over the same kernel body): blockIdx.y = e offsets x, w
 // and out by one expert's extent (in size_t: dbrx's w_in stack has 2.1e9
 // elements), and the tiles of one expert are masked at that expert's own M
 // and N edges, so a ragged tile never reads or writes the next expert's rows.
-// What bounds K1g is what bounds K1 at the per-expert M: the E weight stacks'
-// bytes at decode (mixtral: 3.2 GB for the up-GEMM at 4 rows per expert) and
-// up to ~300 rows per expert, the operations above.
 //
-// One CTA owns one logical (tile_m x tile_n) output tile of the schedule and
-// walks it in sub-blocks that fit its registers and shared memory.  Tiles are
-// numbered in the schedule's order (m_outer: M is the outer loop, so
-// consecutive CTAs walk along N).  Two bodies, chosen by the tile height:
+// Three bodies, chosen by the dtype and the schedule's M tile (the wrapper,
+// kernels/matmul.py body_for, makes the same choice and counts launches per
+// body):
 //
-//  * rows (tile_m <= 16, decode and the prefill lm head): w's bytes bound
-//    it.  Each lane streams 16-byte vectors of w along one column strip, the
-//    8 warps split K between them, and the partial sums meet in shared memory
-//    before the epilogue.  Rows go in passes of 4; x is read through L1, where
-//    a warp's lanes share each element.
-//  * tiled (tile_m > 16, prefill): w's bytes bound it up to M ~ 300, the
-//    operations above.  Classic 64x64x16 shared-memory tiles, 256 threads
-//    each holding a 4x4 f32 micro-tile.
+//  * rows (tile_m <= 16, either dtype: decode and the 1-row prefill LM head):
+//    w's bytes bound it.  Each lane streams 16-byte vectors of w along one
+//    column strip, the 8 warps split K between them, and the partial sums
+//    meet in shared memory before the epilogue.  Rows go in passes of 4; x
+//    is read through L1, where a warp's lanes share each element.
+//  * mma (bf16, tile_m > 16: every prefill projection and expert GEMM): the
+//    tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, operands read from
+//    shared memory with ldmatrix (.trans for w, which is (K, N) row-major).
+//    A ring of 4 shared stages, each 32 deep in K, is filled by 16-byte
+//    cp.async copies, so the next K slices load while this one multiplies.
+//    Shared rows are padded by 16 bytes, so the 8 rows one ldmatrix reads
+//    fall in 8 distinct bank groups.  w's bytes bound it below ~300 rows
+//    per expert (the H100 does ~295 bf16 operations per byte of HBM), the
+//    operations above.
+//  * fma (f32, tile_m > 16: the main path's one f32 caller is mixtral's
+//    router): CUDA-core FMA on 64x64x16 shared tiles, a 4x4 micro-tile per
+//    thread.  f32 stays off the tensor cores by rule: TF32 keeps about three
+//    decimal digits and the f32 tolerance is 2e-4.  This is a dtype rule,
+//    not a fallback: no bf16 call reaches this body.
 //
-// Both mask the ragged edges of M, N and K themselves.  No tensor cores, TMA
-// or pipelining yet: CUDA-core FMA on f32 copies of the inputs.
+// Logical tile and CTA tile.  The schedule's (tile_m x tile_n) output tile is
+// the unit of rasterisation and of edge masking: logical tiles are numbered
+// in the schedule's order (m_outer: M is the outer loop, so consecutive tiles
+// walk along N).  The rows and fma bodies run one CTA per logical tile and
+// walk it in sub-blocks.  The mma body runs a compiled CTA tile (128x128,
+// 64x128 or 64x64) and covers each logical tile with sub_m x sub_n CTAs,
+// numbered consecutively along N, so they run together and share the tile's
+// x rows and w columns in L2; a logical tile smaller than the CTA tile gets
+// one CTA, masked at the logical tile's edge.  The wrapper chooses the CTA
+// tile (kernels/matmul.py tiled_geometry: the largest that fits the logical
+// tile and still launches at least one CTA per SM, 132, where M and N allow)
+// and run() re-checks the CTA count it passes.
+//
+// Every body masks the ragged edges of M, N and K itself (the mma body
+// zero-fills its stages: cp.async's src-size form, or guarded scalar loads
+// where a row of x or w does not start on 16 bytes).  A GLU pair (gate at
+// even column n, up at n + 1) stays in one thread in every body.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace repro {
@@ -43,7 +67,8 @@ struct MatmulArgs {
   const void* x; const void* w; const float* bias; const float* residual; void* out;
   int m, n, k, n_out;           // per expert when grouped
   int epi; float softcap;
-  int tile_m, tile_n, tiles_m, tiles_n, m_outer;
+  int tile_m, tile_n, tiles_m, tiles_n, m_outer;   // logical tiles
+  int cta_m, cta_n, sub_m, sub_n, ctas;   // CTA tile, CTAs per logical tile in M and N, gridDim.x
   int groups;                   // experts (gridDim.y); 1 for a plain matmul
 };
 
@@ -59,8 +84,9 @@ struct ExpertPtrs {
   }
 };
 
-__device__ __forceinline__ void tile_origin(const MatmulArgs& a, int* m0, int* n0) {
-  int t = blockIdx.x, tm, tn;
+// Origin of logical tile t in the schedule's order.
+__device__ __forceinline__ void tile_origin(const MatmulArgs& a, int t, int* m0, int* n0) {
+  int tm, tn;
   if (a.m_outer) { tm = t / a.tiles_n; tn = t % a.tiles_n; }
   else           { tn = t / a.tiles_m; tm = t % a.tiles_m; }
   *m0 = tm * a.tile_m;
@@ -120,7 +146,7 @@ __global__ void __launch_bounds__(kRowsWarps * 32) matmul_rows_kernel(MatmulArgs
   const T* w = p.w;
   T* out = p.out;
   int m0, n0;
-  tile_origin(a, &m0, &n0);
+  tile_origin(a, blockIdx.x, &m0, &n0);
   const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.tile_n, a.n);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // 16-byte vectors stay aligned only if every row of w and every tile's
@@ -188,13 +214,218 @@ __global__ void __launch_bounds__(kRowsWarps * 32) matmul_rows_kernel(MatmulArgs
 }
 
 // ---------------------------------------------------------------------------
-// tiled body: 64x64x16 shared-memory tiles, 4x4 per thread
+// mma body: bf16 on the tensor cores, mma.sync m16n8k16 from a cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int kStageK = 32;  // K depth of one shared-memory stage
+constexpr int kStages = 4;   // stages in the ring
+constexpr int kPad = 8;      // bf16 of padding per shared row (16 bytes)
+
+// One compiled CTA tile: BM x BN outputs on WM x WN warps.
+template <int BM_, int BN_, int WM_, int WN_>
+struct MmaTile {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int kWarpM = BM / WM, kWarpN = BN / WN;         // one warp's outputs
+  static constexpr int kFragM = kWarpM / 16, kFragN = kWarpN / 8;  // its m16n8 fragments
+  static constexpr int kLdA = kStageK + kPad, kLdB = BN + kPad;    // shared row strides
+  static constexpr int kStageElems = BM * kLdA + kStageK * kLdB;
+  static constexpr int kSmemBytes = kStages * kStageElems * 2;
+  static constexpr int kChunksA = BM * kStageK / 8, kChunksB = kStageK * BN / 8;  // 16-byte chunks
+  static_assert(kWarpM % 16 == 0 && kWarpN % 16 == 0, "a warp tile is whole 16x16 blocks");
+  static_assert(kChunksA % kThreads == 0 && kChunksB % kThreads == 0,
+                "every thread stages the same number of chunks");
+};
+// the CTA tiles of kernels/matmul.py MMA_CTA_TILES
+using MmaTile128x128 = MmaTile<128, 128, 2, 4>;  // warp tile 64x32
+using MmaTile64x128 = MmaTile<64, 128, 2, 4>;    // 32x32
+using MmaTile64x64 = MmaTile<64, 64, 2, 2>;      // 32x32
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy global -> shared that reads `bytes` (0..16) and zero-fills the rest
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// d += a (16x16, row) @ b (16x8, col), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stages 8 consecutive bf16 of one row, src[0, valid), into 16 bytes of
+// shared memory, zeros past `valid`: one cp.async when the row is read in
+// 16-byte-aligned chunks (vec), guarded scalar loads otherwise.  src must be
+// a valid address even when valid <= 0.
+__device__ __forceinline__ void stage8(__nv_bfloat16* dst, const __nv_bfloat16* src, int valid, bool vec) {
+  valid = max(0, min(valid, 8));
+  if (vec) {
+    cp_async16(smem_addr(dst), src, 2 * valid);
+  } else {
+    __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = i < valid ? src[i] : __float2bfloat16_rn(0.f);
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// two neighbouring outputs: one 4-byte store where aligned
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float y0, float y1) {
+  if ((reinterpret_cast<uintptr_t>(o) & 3) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(y0, y1);
+  } else {
+    o[0] = __float2bfloat16_rn(y0);
+    o[1] = __float2bfloat16_rn(y1);
+  }
+}
+
+template <class Tile>
+__global__ void __launch_bounds__(Tile::kThreads) matmul_mma_kernel(MatmulArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int BM = Tile::BM, BN = Tile::BN, kLdA = Tile::kLdA, kLdB = Tile::kLdB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+
+  const ExpertPtrs<bf16> p(a);
+  // this CTA's place: logical tile, then the sub-tile inside it (along N first)
+  const int per_tile = a.sub_m * a.sub_n, sub = blockIdx.x % per_tile;
+  int m0, n0;
+  tile_origin(a, blockIdx.x / per_tile, &m0, &n0);
+  const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.tile_n, a.n);
+  const int cm0 = m0 + (sub / a.sub_n) * BM, cn0 = n0 + (sub % a.sub_n) * BN;
+  if (cm0 >= m1 || cn0 >= n1) return;   // a ragged logical tile needs fewer sub-tiles
+  const int cm1 = min(cm0 + BM, m1), cn1 = min(cn0 + BN, n1);
+  // 16-byte chunks stay aligned only if every row and every CTA's first
+  // column start on 16 bytes
+  const bool vec_x = a.k % 8 == 0 && (reinterpret_cast<uintptr_t>(p.x) % 16) == 0;
+  const bool vec_w = a.n % 8 == 0 && a.tile_n % 8 == 0 && (reinterpret_cast<uintptr_t>(p.w) % 16) == 0;
+
+  // x rows [cm0, cm1) and w columns [cn0, cn1) of K slice [k0, k0 + kStageK)
+  auto load_stage = [&](int slot, int k0) {
+    bf16* sa = smem + slot * Tile::kStageElems;
+    bf16* sb = sa + BM * kLdA;
+#pragma unroll
+    for (int j = 0; j < Tile::kChunksA / Tile::kThreads; ++j) {
+      const int i = threadIdx.x + j * Tile::kThreads;
+      const int r = i / (kStageK / 8), c = (i % (kStageK / 8)) * 8;
+      const int gr = cm0 + r, gk = k0 + c;
+      const int valid = gr < cm1 ? a.k - gk : 0;
+      stage8(sa + r * kLdA + c, valid > 0 ? p.x + (size_t)gr * a.k + gk : p.x, valid, vec_x);
+    }
+#pragma unroll
+    for (int j = 0; j < Tile::kChunksB / Tile::kThreads; ++j) {
+      const int i = threadIdx.x + j * Tile::kThreads;
+      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+      const int gk = k0 + r, gn = cn0 + c;
+      const int valid = gk < a.k ? cn1 - gn : 0;
+      stage8(sb + r * kLdB + c, valid > 0 ? p.w + (size_t)gk * a.n + gn : p.w, valid, vec_w);
+    }
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm0 = (warp / Tile::WN) * Tile::kWarpM, wn0 = (warp % Tile::WN) * Tile::kWarpN;
+  float acc[Tile::kFragM][Tile::kFragN][4];
+#pragma unroll
+  for (int i = 0; i < Tile::kFragM; ++i)
+#pragma unroll
+    for (int j = 0; j < Tile::kFragN; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+
+  const int ktiles = cdiv(a.k, kStageK);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ktiles) load_stage(s, s * kStageK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kStages - 2>();  // stage kt has landed (this thread's copies)
+    __syncthreads();               // ... everyone's; and stage kt - 1 is free again
+    const int next = kt + kStages - 1;
+    if (next < ktiles) load_stage(next % kStages, next * kStageK);
+    cp_async_commit();
+
+    const bf16* sa = smem + (kt % kStages) * Tile::kStageElems;
+    const bf16* sb = sa + BM * kLdA;
+#pragma unroll
+    for (int kk = 0; kk < kStageK; kk += 16) {
+      // lane l addresses row l % 16, column block l / 16 of a 16x16 block:
+      // the four 8x8 matrices come back in the order the mma operands take
+      uint32_t af[Tile::kFragM][4], bfr[Tile::kFragN][2];
+#pragma unroll
+      for (int i = 0; i < Tile::kFragM; ++i)
+        ldmatrix_x4(af[i], smem_addr(sa + (wm0 + i * 16 + lane % 16) * kLdA + kk + (lane / 16) * 8));
+#pragma unroll
+      for (int j = 0; j < Tile::kFragN; j += 2) {
+        uint32_t t[4];
+        ldmatrix_x4_trans(t, smem_addr(sb + (kk + lane % 16) * kLdB + wn0 + j * 8 + (lane / 16) * 8));
+        bfr[j][0] = t[0]; bfr[j][1] = t[1]; bfr[j + 1][0] = t[2]; bfr[j + 1][1] = t[3];
+      }
+#pragma unroll
+      for (int i = 0; i < Tile::kFragM; ++i)
+#pragma unroll
+        for (int j = 0; j < Tile::kFragN; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    }
+  }
+  cp_async_wait<0>();  // only empty groups remain; leave none in flight
+
+  // accumulator fragment: lane (g, t) = (lane / 4, lane % 4) holds rows g and
+  // g + 8, columns 2t and 2t + 1 of each m16n8 block: a GLU pair (even
+  // column, odd column) never leaves its thread
+  const bool glu = is_glu(a.epi);
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int i = 0; i < Tile::kFragM; ++i) {
+#pragma unroll
+    for (int j = 0; j < Tile::kFragN; ++j) {
+      const int col = cn0 + wn0 + j * 8 + 2 * tq;
+      if (col >= cn1) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = cm0 + wm0 + i * 16 + g + 8 * h;
+        if (row >= cm1) continue;
+        const float y0 = acc[i][j][2 * h], y1 = acc[i][j][2 * h + 1];
+        bf16* o = p.out + (size_t)row * a.n_out;
+        if (glu) {  // col is even and cn1 is even, so col + 1 < cn1
+          o[col / 2] = from_f<bf16>(epilogue_glu(a, y0, y1, col));
+        } else if (col + 1 < cn1) {
+          store2(o + col, epilogue1(a, y0, row, col), epilogue1(a, y1, row, col + 1));
+        } else {
+          o[col] = from_f<bf16>(epilogue1(a, y0, row, col));
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fma body: f32 on the CUDA cores, 64x64x16 shared-memory tiles, 4x4 per thread
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 64, kBN = 64, kBK = 16;
 
-template <typename T>
-__global__ void __launch_bounds__(256) matmul_tiled_kernel(MatmulArgs a) {
+__global__ void __launch_bounds__(256) matmul_fma_kernel(MatmulArgs a) {
+  using T = float;
   __shared__ float As[kBK][kBM + 4];  // x tile, transposed: As[k][m]
   __shared__ float Bs[kBK][kBN + 4];  // w tile: Bs[k][n]
 
@@ -203,7 +434,7 @@ __global__ void __launch_bounds__(256) matmul_tiled_kernel(MatmulArgs a) {
   const T* w = p.w;
   T* out = p.out;
   int m0, n0;
-  tile_origin(a, &m0, &n0);
+  tile_origin(a, blockIdx.x, &m0, &n0);
   const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.tile_n, a.n);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const bool glu = is_glu(a.epi);
@@ -266,31 +497,59 @@ __global__ void __launch_bounds__(256) matmul_tiled_kernel(MatmulArgs a) {
   }
 }
 
-template <typename T>
-void launch(const MatmulArgs& a, cudaStream_t stream) {
-  const dim3 grid(a.tiles_m * a.tiles_n, a.groups);
-  if (a.tile_m <= 16) {
-    matmul_rows_kernel<T><<<grid, kRowsWarps * 32, 0, stream>>>(a);
-  } else {
-    matmul_tiled_kernel<T><<<grid, 256, 0, stream>>>(a);
-  }
+enum Body : int { kRows = 0, kMma = 1, kFma = 2 };
+
+template <class Tile>
+int launch_mma(const MatmulArgs& a, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(matmul_mma_kernel<Tile>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             Tile::kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  matmul_mma_kernel<Tile><<<dim3(a.ctas, a.groups), Tile::kThreads, Tile::kSmemBytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-// Checks the shared arguments, fills the tiling and launches; returns a
-// cudaError_t (cudaErrorInvalidValue for bad arguments).
+// Checks the shared arguments and the CTA geometry the wrapper chose
+// (kernels/matmul.py launch_geometry), then launches; returns a cudaError_t
+// (cudaErrorInvalidValue for bad arguments).
 int run(MatmulArgs& a, int dtype, void* stream) {
   if (a.m <= 0 || a.n <= 0 || a.k <= 0 || a.tile_m <= 0 || a.tile_n <= 0) return (int)cudaErrorInvalidValue;
   if (a.groups <= 0 || a.groups > 65535) return (int)cudaErrorInvalidValue;
   if (a.epi < kNone || a.epi > kSoftcap) return (int)cudaErrorInvalidValue;
+  if (dtype != kBFloat16 && dtype != kFloat32) return (int)cudaErrorInvalidValue;
   const bool glu = is_glu(a.epi);
   if (glu && ((a.n % 2) || (a.tile_n % 2))) return (int)cudaErrorInvalidValue;
   if (a.epi == kResidual && a.residual == nullptr) return (int)cudaErrorInvalidValue;
   a.n_out = glu ? a.n / 2 : a.n;
   a.tiles_m = cdiv(a.m, a.tile_m); a.tiles_n = cdiv(a.n, a.tile_n);
+  const Body body = a.tile_m <= 16 ? kRows : dtype == kBFloat16 ? kMma : kFma;
+  if (body == kMma) {
+    const bool compiled = (a.cta_m == 128 && a.cta_n == 128) || (a.cta_m == 64 && a.cta_n == 128) ||
+                          (a.cta_m == 64 && a.cta_n == 64);
+    if (!compiled) return (int)cudaErrorInvalidValue;
+    a.sub_m = cdiv(std::min(a.tile_m, a.m), a.cta_m);
+    a.sub_n = cdiv(std::min(a.tile_n, a.n), a.cta_n);
+  } else {  // one CTA per logical tile
+    if (a.cta_m != a.tile_m || a.cta_n != a.tile_n) return (int)cudaErrorInvalidValue;
+    a.sub_m = a.sub_n = 1;
+  }
+  if ((long long)a.tiles_m * a.tiles_n * a.sub_m * a.sub_n != (long long)a.ctas) return (int)cudaErrorInvalidValue;
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16) launch<__nv_bfloat16>(a, s);
-  else if (dtype == kFloat32) launch<float>(a, s);
-  else return (int)cudaErrorInvalidValue;
+  const dim3 grid(a.ctas, a.groups);
+  switch (body) {
+    case kRows:
+      if (dtype == kBFloat16) matmul_rows_kernel<__nv_bfloat16><<<grid, kRowsWarps * 32, 0, s>>>(a);
+      else matmul_rows_kernel<float><<<grid, kRowsWarps * 32, 0, s>>>(a);
+      break;
+    case kFma:
+      matmul_fma_kernel<<<grid, 256, 0, s>>>(a);
+      break;
+    case kMma:
+      if (a.cta_m == 128) return launch_mma<MmaTile128x128>(a, s);
+      if (a.cta_n == 128) return launch_mma<MmaTile64x128>(a, s);
+      return launch_mma<MmaTile64x64>(a, s);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -301,13 +560,15 @@ int run(MatmulArgs& a, int dtype, void* stream) {
 // cudaError_t: the launch's, or cudaErrorInvalidValue for bad arguments.
 extern "C" int repro_matmul(const void* x, const void* w, const void* bias, const void* residual,
                             void* out, int m, int n, int k, int dtype, int epi, float softcap,
-                            int tile_m, int tile_n, int m_outer, void* stream) {
+                            int tile_m, int tile_n, int m_outer, int cta_m, int cta_n, int ctas,
+                            void* stream) {
   repro::MatmulArgs a{};
   a.x = x; a.w = w; a.bias = static_cast<const float*>(bias);
   a.residual = static_cast<const float*>(residual); a.out = out;
   a.m = m; a.n = n; a.k = k;
   a.epi = epi; a.softcap = softcap;
   a.tile_m = tile_m; a.tile_n = tile_n; a.m_outer = m_outer; a.groups = 1;
+  a.cta_m = cta_m; a.cta_n = cta_n; a.ctas = ctas;
   return repro::run(a, dtype, stream);
 }
 
@@ -316,11 +577,13 @@ extern "C" int repro_matmul(const void* x, const void* w, const void* bias, cons
 // tile_n are per expert.  No bias or residual (the grouped classes have none).
 extern "C" int repro_grouped_matmul(const void* x, const void* w, void* out, int groups,
                                     int m, int n, int k, int dtype, int epi,
-                                    int tile_m, int tile_n, int m_outer, void* stream) {
+                                    int tile_m, int tile_n, int m_outer, int cta_m, int cta_n,
+                                    int ctas, void* stream) {
   repro::MatmulArgs a{};
   a.x = x; a.w = w; a.out = out;
   a.m = m; a.n = n; a.k = k;
   a.epi = epi;
   a.tile_m = tile_m; a.tile_n = tile_n; a.m_outer = m_outer; a.groups = groups;
+  a.cta_m = cta_m; a.cta_n = cta_n; a.ctas = ctas;
   return repro::run(a, dtype, stream);
 }

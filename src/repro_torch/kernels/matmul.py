@@ -19,14 +19,32 @@ bf16 and f32.
 How the :class:`~repro_torch.core.schedule.ConcreteSchedule` maps onto the
 kernel:
 
-* ``tiles["M"]``, ``tiles["N"]`` — the CTA's logical output tile.  One CTA per
-  tile; it walks the tile in sub-blocks that fit its registers and shared
-  memory (64x64 when the M tile is above 16 rows, 4-row passes of 256 bf16 /
-  128 f32 columns below).
-* ``order`` — tile rasterisation: the CTA index walks the inner of M and N
-  fastest.
+* ``tiles["M"]``, ``tiles["N"]`` — the logical output tile: the unit of
+  rasterisation and of edge masking.  How CTAs cover it depends on the body
+  (:func:`launch_geometry`):
+
+  - **rows** (M tile ≤ 16, bf16 or f32: decode, the 1-row prefill LM head)
+    and **fma** (f32 with an M tile above 16: the router): one CTA per
+    logical tile, walking it in sub-blocks (4-row passes of 256 bf16 / 128
+    f32 columns; 64x64 blocks on the CUDA cores).
+  - **mma** (bf16 with an M tile above 16: every prefill projection and
+    expert GEMM): the tensor cores.  Each CTA runs a compiled tile from
+    :data:`MMA_CTA_TILES`; a logical tile larger than it is covered by
+    several CTAs, numbered consecutively (along N first) so they run
+    together and share the tile's rows of ``x`` and columns of ``w`` in L2,
+    and a smaller one by one CTA masked at the tile's edge.
+    :func:`tiled_geometry` chooses the CTA tile: the largest that fits the
+    logical tile and still launches :data:`SMS` CTAs (one per SM), where M
+    and N allow.  A tuned 64x64 schedule still gets 64x64 CTAs, and the
+    default 128x512 tile no longer caps a 256x3072 GEMM at 12 CTAs.
+
+  f32 stays off the tensor cores: TF32 keeps about three decimal digits and
+  the f32 tolerance is 2e-4.  That is the dtype rule, not a fallback.
+* ``order`` — tile rasterisation: the logical tile index walks the inner of
+  M and N fastest.
 * ``tiles["K"]`` — not used: the kernel sums the whole K range of a tile in
-  one f32 accumulator (16-deep shared-memory steps, or streamed).
+  one f32 accumulator (32-deep shared-memory stages on the tensor cores,
+  16-deep on the CUDA cores, or streamed in the rows body).
 * ``cache_write`` — always on in effect: the accumulator is f32.  With
   ``cache_write=False`` (or K not innermost) the reference rounds partial sums
   to the output dtype at every K step; the kernel does not, so it matches the
@@ -42,15 +60,18 @@ kernel:
 What bounds it on the card: the bytes of ``w`` at decode (M = slots) and
 up to a few hundred rows (the H100 does ~295 bf16 tensor-core operations per
 byte of HBM, so a (K,N) weight read once is the larger cost while M is below
-~300); the operations above that.  The kernel streams ``w`` once per row pass,
-16 bytes a lane, and runs the operations as CUDA-core FMA (no tensor cores
-yet, so far below either bound).
+~300); the operations above that.  The rows body streams ``w`` once per row
+pass, 16 bytes a lane; the mma body stages ``x`` and ``w`` through a 4-deep
+``cp.async`` ring into ``mma.sync`` tensor-core products.
 
 A tensor on the CPU takes the plain version (:func:`repro_torch.kernels.ref.matmul`,
 :func:`~repro_torch.kernels.ref.grouped_matmul`); a CUDA tensor launches the
-kernel or raises.  ``launches`` and ``grouped_launches`` count launches.
+kernel or raises.  ``launches`` and ``grouped_launches`` count launches per
+kernel, ``body_launches`` per kernel, body and dtype.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -65,17 +86,87 @@ EPILOGUE = {"matmul": 0, "matmul_bias": 0, "matmul_lmhead": 0, "moe_router": 0,
 GROUPED_EPILOGUE = {"moe_gemm": 0, "moe_gemm_silu_glu": 2}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: the mma body's compiled CTA tiles (M, N), largest first (csrc/matmul.cu)
+MMA_CTA_TILES = ((128, 128), (64, 128), (64, 64))
+#: streaming multiprocessors of the H100: the CTA count that fills the card once
+SMS = 132
+
 #: kernel launches since the last reset (plain counts; see chip_smoke.py):
 #: ``launches`` of :func:`launch` (K1), ``grouped_launches`` of
-#: :func:`grouped_launch` (K1g)
+#: :func:`grouped_launch` (K1g), and ``body_launches`` of both by
+#: (kernel, body, dtype): kernel ``"matmul"`` or ``"grouped_matmul"``, body
+#: ``"rows"``, ``"mma"`` or ``"fma"`` (:func:`body_for`)
 launches = 0
 grouped_launches = 0
+body_launches: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
-    """Set both counts to 0."""
+    """Set every count to 0."""
     global launches, grouped_launches
     launches = grouped_launches = 0
+    body_launches.clear()
+
+
+def body_count(body: str | None = None, *, kernel: str | None = None,
+               dtype: torch.dtype | None = None) -> int:
+    """Launches since the last reset of ``body`` (any if None), of one kernel
+    and one dtype where given."""
+    return sum(c for (k, b, d), c in body_launches.items()
+               if body in (None, b) and kernel in (None, k) and dtype in (None, d))
+
+
+def body_for(dtype: torch.dtype, tile_m: int) -> str:
+    """The kernel body a launch takes: ``rows`` for an M tile of at most 16
+    rows, else ``mma`` (tensor cores) for bf16 and ``fma`` (CUDA cores) for
+    f32."""
+    if tile_m <= 16:
+        return "rows"
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tiled_geometry(m: int, n: int, tile_m: int, tile_n: int,
+                   groups: int = 1) -> tuple[int, int, int]:
+    """(cta_m, cta_n, ctas) of the mma body for an (m, n) output under
+    (tile_m, tile_n) logical tiles; grouped, per expert, with ``groups``
+    experts side by side on the card.
+
+    Each logical tile gets ceil(min(tile, extent) / cta) CTAs along each
+    axis; a ragged edge tile may leave some of them empty (they return at
+    once).  The CTA tile is the largest of :data:`MMA_CTA_TILES` that fits
+    the logical tile (rounded up to 64) and launches at least :data:`SMS`
+    CTAs over all experts; where none does, the one that launches the most."""
+    tm, tn = min(tile_m, m), min(tile_n, n)
+
+    def ctas(cta: tuple[int, int]) -> int:
+        return cta_count(m, n, tile_m, tile_n, *cta)
+
+    fits = [c for c in MMA_CTA_TILES if c[0] <= 64 * _cdiv(tm, 64) and c[1] <= 64 * _cdiv(tn, 64)]
+    cta = next((c for c in fits if groups * ctas(c) >= SMS), max(fits, key=ctas))
+    return (*cta, ctas(cta))
+
+
+def cta_count(m: int, n: int, tile_m: int, tile_n: int, cta_m: int, cta_n: int) -> int:
+    """CTAs that cover an (m, n) output under (tile_m, tile_n) logical tiles
+    with (cta_m, cta_n) CTA tiles: per logical tile, ceil(min(tile, extent) /
+    cta) along each axis (the kernel's gridDim.x, per expert)."""
+    return (_cdiv(m, tile_m) * _cdiv(n, tile_n)
+            * _cdiv(min(tile_m, m), cta_m) * _cdiv(min(tile_n, n), cta_n))
+
+
+def launch_geometry(dtype: torch.dtype, m: int, n: int, tile_m: int, tile_n: int,
+                    groups: int = 1) -> tuple[str, int, int, int]:
+    """(body, cta_m, cta_n, ctas) of a launch, CTAs per expert: the mma
+    body's CTA tiles from :func:`tiled_geometry`, one CTA per logical tile
+    in the others.  The kernel re-checks it and refuses a mismatch."""
+    body = body_for(dtype, tile_m)
+    if body == "mma":
+        return (body, *tiled_geometry(m, n, tile_m, tile_n, groups))
+    return body, tile_m, tile_n, cta_count(m, n, tile_m, tile_n, tile_m, tile_n)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
@@ -127,15 +218,17 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     if m == 0:
         return out
     order = [a for a in cs.order if a in ("M", "N")]
+    body, cta_m, cta_n, ctas = launch_geometry(x.dtype, m, n, tile_m, tile_n)
     lib = _build.library()
     rc = lib.repro_matmul(
         x.data_ptr(), w.data_ptr(),
         bias32.data_ptr() if bias32 is not None else None,
         res32.data_ptr() if res32 is not None else None,
         out.data_ptr(), m, n, k, DTYPES[x.dtype], EPILOGUE[class_id], float(softcap),
-        tile_m, tile_n, int(order[0] == "M"), _build.stream_handle(x.device))
+        tile_m, tile_n, int(order[0] == "M"), cta_m, cta_n, ctas, _build.stream_handle(x.device))
     _build.check(rc, "matmul kernel")
     launches += 1
+    body_launches["matmul", body, x.dtype] += 1
     return out
 
 
@@ -186,10 +279,12 @@ def grouped_launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     if m == 0 or e == 0:
         return out
     order = [a for a in cs.order if a in ("M", "N")]
+    body, cta_m, cta_n, ctas = launch_geometry(x.dtype, m, n, tile_m, tile_n, e)
     rc = _build.library().repro_grouped_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, DTYPES[x.dtype],
-        GROUPED_EPILOGUE[class_id], tile_m, tile_n, int(order[0] == "M"),
+        GROUPED_EPILOGUE[class_id], tile_m, tile_n, int(order[0] == "M"), cta_m, cta_n, ctas,
         _build.stream_handle(x.device))
     _build.check(rc, "grouped matmul kernel")
     grouped_launches += 1
+    body_launches["grouped_matmul", body, x.dtype] += 1
     return out

@@ -5,9 +5,9 @@ none.  On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-f32 at rtol = atol = 2e-4 (the repo's f32 kernel tolerance), bf16 scan
-outputs at 3e-2 (one bf16 rounding of f32 values computed in another
-order; the scans' f32 states stay at 2e-4); the plain versions run in full
+f32 at rtol = atol = 2e-4 (the repo's f32 kernel tolerance), bf16 outputs
+at 3e-2 (one bf16 rounding of f32 values computed in another order; the
+scans' f32 states stay at 2e-4); the plain versions run in full
 f32 (TF32 off).  This file imports no JAX: the card's machine need not have
 it.
 """
@@ -52,22 +52,31 @@ def _close(got, want, tol=TOL):
     torch.testing.assert_close(got, want, **tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("class_id", ref.MATMUL_CLASSES)
-@pytest.mark.parametrize("m,n,k", [(4, 64, 96), (3, 50, 17), (4, 1000, 64), (96, 80, 40)])
-def test_matmul_kernel_matches_plain(card, class_id, m, n, k):
+@pytest.mark.parametrize("m,n,k", [(4, 64, 96), (3, 50, 17), (4, 1000, 64), (96, 80, 40),
+                                   (70, 200, 33), (130, 96, 300)])
+def test_matmul_kernel_matches_plain(card, dtype, class_id, m, n, k):
+    """Rows body (M <= 16) and, above 16 rows, the tensor-core body (bf16) or
+    the CUDA-core body (f32), at ragged M, N and K, with K or N not a
+    multiple of 8 (rows of x or w not on 16 bytes)."""
+    dt = getattr(torch, dtype)
     g = torch.Generator(device=card).manual_seed(m + n + k)
-    x = torch.randn((m, k), generator=g, device=card)
-    w = torch.randn((k, n), generator=g, device=card) / k ** 0.5
-    bias = torch.randn((n,), generator=g, device=card) if "bias" in class_id else None
+    x = torch.randn((m, k), generator=g, device=card).to(dt)
+    w = (torch.randn((k, n), generator=g, device=card) / k ** 0.5).to(dt)
+    bias = torch.randn((n,), generator=g, device=card).to(dt) if "bias" in class_id else None
     out_n = n // 2 if "glu" in class_id else n
-    residual = torch.randn((m, out_n), generator=g, device=card) \
+    residual = torch.randn((m, out_n), generator=g, device=card).to(dt) \
         if class_id == "matmul_residual" else None
     softcap = 2.0 if "softcap" in class_id else 0.0
     kw = dict(class_id=class_id, bias=bias, residual=residual, softcap=softcap)
-    before = mm.launches
+    body = mm.body_for(dt, ops.schedule_for(ops.instance(class_id, dt, M=m, N=n, K=k)).t["M"])
+    before, total, ours = mm.launches, mm.body_count(), mm.body_count(body, kernel="matmul", dtype=dt)
     got = ops.matmul(x, w, **kw)
     assert mm.launches == before + 1
-    _close(got, ops.matmul(x, w, backend="ref", **kw))
+    assert mm.body_count() == total + 1
+    assert mm.body_count(body, kernel="matmul", dtype=dt) == ours + 1
+    _close(got, ops.matmul(x, w, backend="ref", **kw), TOL if dt == torch.float32 else BF16_TOL)
 
 
 @pytest.mark.parametrize("sq,skv,d,group,causal,window,softcap,q_offset", [
@@ -135,10 +144,12 @@ def test_rglru_kernel_matches_plain(card, dtype, b, t, c, tile_c):
 @pytest.mark.parametrize("class_id", ref.GROUPED_CLASSES)
 @pytest.mark.parametrize("e,m,n,k,tile_m", [(1, 6, 64, 40, None), (3, 20, 48, 33, None),
                                             (8, 4, 96, 64, None), (8, 300, 64, 32, None),
-                                            (3, 13, 50, 24, 8)])
+                                            (3, 13, 50, 24, 8), (8, 256, 1024, 512, None)])
 def test_grouped_kernel_matches_plain(card, dtype, class_id, e, m, n, k, tile_m):
     """E = 1/3/8, decode-shaped m = 4, m = 300 under the default tile of 120
-    (ragged inside each expert, tiled body), 13 under a rows-body tile of 8."""
+    (ragged inside each expert, tensor-core or CUDA-core body), 13 under a
+    rows-body tile of 8, a prefill's 256 rows per expert under the default
+    schedule."""
     from repro_torch.core.schedule import Schedule, concretize
 
     dt = getattr(torch, dtype)
@@ -149,9 +160,13 @@ def test_grouped_kernel_matches_plain(card, dtype, class_id, e, m, n, k, tile_m)
     if tile_m is not None:
         cs = concretize(Schedule.make(class_id, {"M": tile_m, "N": cs.t["N"], "K": k, "E": 1}),
                         cs.instance)
-    before = mm.grouped_launches
+    body = mm.body_for(dt, mm.grouped_geometry(x, w, cs, class_id)[4])
+    before, total = mm.grouped_launches, mm.body_count()
+    ours = mm.body_count(body, kernel="grouped_matmul", dtype=dt)
     got = mm.grouped_matmul(x, w, cs, class_id=class_id)
     assert mm.grouped_launches == before + 1 and got.dtype == dt
+    assert mm.body_count() == total + 1
+    assert mm.body_count(body, kernel="grouped_matmul", dtype=dt) == ours + 1
     _close(got, ref.grouped_matmul(x, w, class_id), TOL if dt == torch.float32 else BF16_TOL)
 
 

@@ -22,7 +22,7 @@ from repro.kernels import flash_attention as jfa
 from repro.kernels import matmul as jmm
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.core.schedule import Schedule, concretize
+from repro_torch.core.schedule import GLU_CLASSES, Schedule, concretize
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
@@ -181,6 +181,148 @@ def test_grouped_geometry_clamps_tiles_to_one_expert():
         mm.grouped_geometry(x, w.bfloat16(), cs, "moe_gemm")
     with pytest.raises(ValueError, match="CUDA tensor"):
         mm.grouped_launch(x, w, cs)
+
+
+def _cta_regions(m, n, tile_m, tile_n, m_outer, cta_m, cta_n, ctas):
+    """The output region of every CTA, as csrc/matmul.cu places it: CTA b
+    runs sub-tile b % (sub_m·sub_n) (along N first) of logical tile
+    b // (sub_m·sub_n) (in the schedule's order), masked at that logical
+    tile's edge.  Yields (b, logical tile (m0, m1, n0, n1), CTA region)."""
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    tiles_m, tiles_n = cdiv(m, tile_m), cdiv(n, tile_n)
+    sub_m, sub_n = cdiv(min(tile_m, m), cta_m), cdiv(min(tile_n, n), cta_n)
+    assert tiles_m * tiles_n * sub_m * sub_n == ctas
+    for b in range(ctas):
+        t, s = divmod(b, sub_m * sub_n)
+        tm, tn = divmod(t, tiles_n) if m_outer else (t % tiles_m, t // tiles_m)
+        m0, n0 = tm * tile_m, tn * tile_n
+        m1, n1 = min(m0 + tile_m, m), min(n0 + tile_n, n)
+        cm0, cn0 = m0 + (s // sub_n) * cta_m, n0 + (s % sub_n) * cta_n
+        if cm0 < m1 and cn0 < n1:   # a ragged logical tile may need fewer CTAs
+            yield b, (m0, m1, n0, n1), (cm0, min(cm0 + cta_m, m1), cn0, min(cn0 + cta_n, n1))
+
+
+def _launch_case(kind, class_id, dtype, e, m, n, k, tiles):
+    """(per-expert m, N, tile_m, tile_n, m_outer, E) of a K1 or K1g launch
+    under the default schedule or custom (M, N) tiles (N-outer order)."""
+    order = ("N", "M", "K") if kind == "K1" else ("N", "M", "E", "K")
+    if kind == "K1":
+        inst = ops.instance(class_id, dtype, M=m, N=n, K=k)
+        sched = None if tiles is None else Schedule.make(
+            class_id, {"M": tiles[0], "N": tiles[1], "K": k}, order=order)
+    else:
+        inst = ops.instance(class_id, dtype, M=m * e, N=n, K=k, E=e)
+        sched = None if tiles is None else Schedule.make(
+            class_id, {"M": tiles[0], "N": tiles[1], "K": k, "E": 1}, order=order)
+    cs = ops.schedule_for(inst) if sched is None else concretize(sched, inst)
+    m_outer = [a for a in cs.order if a in ("M", "N")][0] == "M"
+    if kind == "K1":
+        return m, n, cs.t["M"], cs.t["N"], m_outer, 1
+    x, w = torch.zeros((e, m, k), dtype=dtype), torch.zeros((e, k, n), dtype=dtype)
+    _, m, n, _, tile_m, tile_n = mm.grouped_geometry(x, w, cs, class_id)
+    return m, n, tile_m, tile_n, m_outer, e
+
+
+# (kernel, class, E, rows (per expert), N, K, custom (M, N) tiles or None):
+# ragged edges, GLU, E = 1/3/8, custom 16x48 and 64x64 schedules, the default
+# schedule at 256 x {1024, 3072, 9216} and at 300 rows per expert
+GEOMETRY_CASES = [
+    ("K1", "matmul", 1, 70, 200, 33, None),
+    ("K1", "matmul_silu_glu", 1, 130, 96, 300, None),
+    ("K1", "matmul_gelu_glu", 1, 37, 100, 64, (16, 48)),
+    ("K1", "matmul", 1, 256, 3072, 64, (64, 64)),
+    ("K1", "matmul", 1, 256, 3072, 64, None),
+    ("K1", "matmul", 1, 256, 1024, 64, None),
+    ("K1", "matmul_bias_gelu", 1, 256, 9216, 64, None),
+    ("K1", "matmul", 1, 100, 1000, 64, None),
+    ("K1", "matmul_silu_glu", 1, 200, 600, 64, (128, 520)),
+    ("K1g", "moe_gemm", 1, 70, 96, 33, None),
+    ("K1g", "moe_gemm_silu_glu", 3, 37, 100, 64, (16, 48)),
+    ("K1g", "moe_gemm_silu_glu", 3, 100, 100, 64, (64, 48)),
+    ("K1g", "moe_gemm", 8, 300, 64, 32, None),
+    ("K1g", "moe_gemm_silu_glu", 8, 300, 1000, 32, None),
+    ("K1g", "moe_gemm", 8, 256, 6144, 64, None),
+    ("K1g", "moe_gemm_silu_glu", 8, 256, 4096, 64, None),
+]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind,class_id,e,m,n,k,tiles", GEOMETRY_CASES)
+def test_cta_geometry_covers_every_output_once(dtype, kind, class_id, e, m, n, k, tiles):
+    """Every output element of each expert is covered by exactly one CTA; no
+    CTA crosses its logical tile's (and so its expert's) edge; the CTAs of
+    one logical tile are numbered consecutively; a GLU CTA starts on an even
+    column and spans whole pairs."""
+    dt = getattr(torch, dtype)
+    m, n, tile_m, tile_n, m_outer, e = _launch_case(kind, class_id, dt, e, m, n, k, tiles)
+    body, cta_m, cta_n, ctas = mm.launch_geometry(dt, m, n, tile_m, tile_n, e)
+    assert body == mm.body_for(dt, tile_m)
+    if body == "mma":
+        assert (cta_m, cta_n) in mm.MMA_CTA_TILES
+    else:
+        assert (cta_m, cta_n) == (tile_m, tile_n)
+    cover = np.zeros((m, n), dtype=np.int64)
+    first = {}
+    for b, (m0, m1, n0, n1), (cm0, cm1, cn0, cn1) in _cta_regions(
+            m, n, tile_m, tile_n, m_outer, cta_m, cta_n, ctas):
+        assert m0 <= cm0 < cm1 <= m1 <= m and n0 <= cn0 < cn1 <= n1 <= n
+        first.setdefault((m0, n0), b)
+        assert b - first[(m0, n0)] < -(-min(tile_m, m) // cta_m) * -(-min(tile_n, n) // cta_n)
+        if class_id in GLU_CLASSES:
+            assert cn0 % 2 == 0 and (cn1 - cn0) % 2 == 0
+        cover[cm0:cm1, cn0:cn1] += 1
+    assert (cover == 1).all()
+
+
+# CTA tile and count of the mma body at the main path's 256-row prefill
+# shapes under the default 128x512 tile (PERF.md §6): minitron-4b's
+# projections and mixtral-8x22b's expert GEMMs (8 experts, 256 rows each)
+MAIN_PATH_GEOMETRY = [
+    (1, 256, 3072, (64, 64, 192)),     # q, o
+    (1, 256, 1024, (64, 64, 64)),      # k, v
+    (1, 256, 9216, (128, 128, 144)),   # MLP in
+    (1, 256, 256000, (128, 128, 4000)),
+    (8, 256, 32768, (128, 128, 512)),  # K1g up, per expert (4096 in all)
+    (8, 256, 6144, (128, 128, 96)),    # K1g down, per expert (768 in all)
+]
+
+
+@pytest.mark.parametrize("e,m,n,want", MAIN_PATH_GEOMETRY)
+def test_cta_geometry_at_main_path_shapes(e, m, n, want):
+    inst = ops.instance("matmul" if e == 1 else "moe_gemm", torch.bfloat16, M=m * e, N=n, K=64,
+                        **({} if e == 1 else {"E": e}))
+    cs = ops.schedule_for(inst)
+    assert (cs.t["M"], cs.t["N"]) == (128, 512)
+    assert mm.launch_geometry(torch.bfloat16, m, n, 128, 512, e) == ("mma", *want)
+    # one CTA per SM at least, or the smallest CTA tile where M·N is too small for that
+    assert e * want[2] >= mm.SMS or want[:2] == mm.MMA_CTA_TILES[-1]
+
+
+def test_body_follows_dtype_and_m_tile():
+    """bf16 with an M tile above 16 rows takes the tensor-core body, f32 the
+    CUDA-core one, and an M tile of at most 16 rows (decode) the rows body;
+    a 64x64 schedule keeps 64x64 CTAs."""
+    assert mm.body_for(torch.bfloat16, 17) == "mma"
+    assert mm.body_for(torch.float32, 17) == "fma"
+    assert mm.body_for(torch.bfloat16, 16) == mm.body_for(torch.float32, 16) == "rows"
+    for m in (1, 4, 16):   # decode: the default M tile is the slot count
+        cs = ops.schedule_for(ops.instance("matmul", torch.bfloat16, M=m, N=3072, K=3072))
+        assert mm.launch_geometry(torch.bfloat16, m, 3072, cs.t["M"], cs.t["N"])[0] == "rows"
+    cs = ops.schedule_for(ops.instance("moe_router", torch.float32, M=256, N=8, K=6144))
+    assert mm.launch_geometry(torch.float32, 256, 8, cs.t["M"], cs.t["N"]) == ("fma", 128, 8, 2)
+    assert mm.launch_geometry(torch.bfloat16, 256, 3072, 64, 64) == ("mma", 64, 64, 192)
+    assert mm.tiled_geometry(40, 40, 40, 40) == (64, 64, 1)   # smaller than any CTA tile: masked
+
+    saved = (mm.launches, mm.grouped_launches, mm.body_launches.copy())
+    mm.body_launches.update({("matmul", "mma", torch.bfloat16): 3,
+                             ("grouped_matmul", "mma", torch.bfloat16): 2,
+                             ("matmul", "fma", torch.float32): 1})
+    assert mm.body_count("mma") == 5 and mm.body_count("mma", kernel="matmul") == 3
+    assert mm.body_count("fma", dtype=torch.bfloat16) == 0 and mm.body_count() == 6
+    mm.reset_launches()
+    assert mm.body_count() == 0 and mm.launches == mm.grouped_launches == 0
+    mm.launches, mm.grouped_launches = saved[:2]
+    mm.body_launches.update(saved[2])
 
 
 def _attn_data(b, hq, hkv, sq, skv, d, seed=0):
