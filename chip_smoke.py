@@ -8,17 +8,25 @@ toolkit.  Phases, one result line each:
 
 1. device — the card's name and power limit (nvidia-smi);
 2. build  — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
-   the tensor-core matmul body's registers and spills (ptxas), per CTA tile;
+   registers and spills (ptxas) of the tensor-core matmul body per CTA
+   tile, of the tensor-core attention body per head dim, and of the rows
+   (decode) matmul body per dtype;
 3. matmul — the matmul kernel against its plain version: every epilogue class
    at small ragged shapes (bf16 and f32), then minitron-4b's main-path shapes,
    timed beside the plain version and ``torch.matmul``, and under both the
-   default schedule and 64x64 output tiles, each 256-row shape with its body,
-   CTA tile, CTA count and time over ``torch.matmul``'s in the same call,
-   and checked and timed on each compiled CTA tile of the tensor-core body;
-4. attention — the flash-attention kernel against its plain version: causal,
-   window, softcap, q_offset, GQA groups 1 and 3, ragged lengths, head dims
-   16 to 256, then the main-path prefill shapes, timed beside the plain
-   version and ``F.scaled_dot_product_attention``;
+   default schedule and 64x64 output tiles, each shape with its body, CTA
+   tile, K split, CTA count and time over ``torch.matmul``'s in the same
+   call; the 256-row shapes checked and timed on each compiled CTA tile of
+   the tensor-core body; the 4-row (decode) shapes on the rows body also
+   timed on the device alone (profiler), and a row's bits checked equal at
+   M = 1 and M = 4 and across two runs;
+4. attention — the flash-attention kernel against its plain version, bf16
+   (tensor-core body) and f32 (CUDA-core body), each launch's body checked:
+   causal, window, softcap, q_offset, GQA groups 1 and 3, ragged lengths,
+   head dims 16 to 256; a prompt's rows bit-equal in one call and in two
+   calls split by q_offset; then each served arch's prefill shape, timed
+   beside the plain version and ``F.scaled_dot_product_attention`` (event
+   time and device time), with its CTA count;
 5. scans — the rwkv6 (wkv6) and RG-LRU scan kernels against their plain
    versions, bf16 and f32, from a non-zero initial state: decode (T = 1), a
    prime T (default T tile 1), T = 256 under T tiles 2, 8, 64 and the
@@ -33,7 +41,8 @@ toolkit.  Phases, one result line each:
    not a multiple of 8, N-outer schedules; then mixtral-8x22b's main-path
    shapes (4 and 256 rows per expert) timed beside the plain version and
    ``torch.bmm`` (for ``moe_gemm``; no one call computes the GLU class),
-   with body, CTA tile and count, and at 256 rows on each compiled CTA tile;
+   with body, CTA tile, K split and count, and at 256 rows on each compiled
+   CTA tile;
 7. serve — minitron-4b, rwkv6-1.6b and recurrentgemma-2b at full width and
    full depth, and mixtral-8x22b at full width with 8 of its 56 layers (at
    full depth its bf16 weights, ~280 GB, fit no one card); bf16, random
@@ -45,21 +54,29 @@ toolkit.  Phases, one result line each:
    the arch's kernels must be above 0 (serve.main's as it counts them; the
    engine's set to 0 just before its run and read just after), the
    engine's bf16 prefill GEMMs must all take the matmul's tensor-core body
-   (its launches above 0, the CUDA-core body's bf16 launches 0), and the
-   kernel path's prefill logits must agree with the plain path's on the
-   same weights, end to end and layer by layer (a MoE layer's tokens that
-   the two paths route to different experts counted and left out).
+   (its launches above 0, the CUDA-core body's bf16 launches 0), every
+   rows-body launch must take its layout from ``rows_geometry`` (the M = 4
+   decode layouts are reported), every bf16 attention launch must take the
+   tensor-core body, and the kernel path's prefill logits must agree with
+   the plain path's on the same weights, end to end and layer by layer (a
+   MoE layer's tokens that the two paths route to different experts
+   counted and left out).  For minitron-4b, one torch.profiler capture of
+   three decode steps gives the device's busy share and its five ops with
+   the most device time.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
 exits non-zero and prints no result.  Times come from CUDA events, each
-launch after an L2 flush (the serving path reads weights cold).  Bounds use
+launch after an L2 flush (the serving path reads weights cold); they
+include the host's time to enqueue the call, which is most of a decode-sized
+launch, so those shapes also report device time from a profiler trace.  Bounds use
 the H100 SXM's published peaks: 3.35 TB/s, 989 TFLOP/s dense bf16 on the
 tensor cores, and 67 TFLOP/s f32 on the CUDA cores for the scans, which run
 no matrix product.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -165,6 +182,28 @@ class Timer:
             times.append(s.elapsed_time(e))
         return statistics.median(times)
 
+    def device_ms(self, fn, iters: int = 10) -> float:
+        """Mean device time per call: the summed durations of the kernels one
+        call launches, each call after an L2 flush, from a torch.profiler
+        trace (the flush's own kernel left out).  Unlike :meth:`ms`, it leaves
+        out the host's time to enqueue the call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "FillFunctor" not in e.name and "Memset" not in e.name]
+        if not spans:
+            raise AssertionError("the profiler recorded no device time")
+        return sum(spans) / iters / 1e3
+
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
@@ -201,17 +240,21 @@ def phase_build():
     usage = [ln.strip() for ln in _build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
     log("build", seconds=time.monotonic() - t0, library=path.name, ptxas=usage)
-    # the tensor-core body's registers and spills, per compiled CTA tile
-    mma, name = {}, None
+    # registers and spills of the tensor-core bodies (per compiled CTA tile
+    # or head dim) and of the rows body, per dtype
+    bodies, name = {}, None
     for ln in _build.build_log.splitlines():
         for marker in ("Compiling entry function '", "Function properties for "):
             if marker in ln:
                 name = ln.split(marker, 1)[1].strip().strip("'")
-        if name and "matmul_mma_kernel" in name and ("registers" in ln or "spill" in ln):
-            mma.setdefault(name, []).append(ln.strip())
-    if not mma:
-        raise AssertionError("the build log shows no matmul_mma_kernel")
-    log("build_mma_body", ptxas=mma)
+        if name and ("registers" in ln or "spill" in ln):
+            for kernel in ("matmul_mma_kernel", "attention_mma_kernel", "matmul_rows_kernel"):
+                if kernel in name:
+                    bodies.setdefault(kernel, {}).setdefault(name, []).append(ln.strip())
+    for kernel in ("matmul_mma_kernel", "attention_mma_kernel", "matmul_rows_kernel"):
+        if kernel not in bodies:
+            raise AssertionError(f"the build log shows no {kernel}")
+        log(f"build_{kernel}", ptxas=bodies[kernel])
 
 
 def _mm_inputs(torch, g, m, n, k, class_id, dtype):
@@ -298,7 +341,15 @@ def phase_matmul(torch, timer) -> dict:
             got = mm.launch(x, w, cs, class_id=class_id, **kw)
             want = ref.matmul(x, w, class_id, **kw)
             err = assert_close(torch, got, want, BF16_TOL, f"{class_id} {m}x{k}x{n}")
-            body = mm.launch_geometry(x.dtype, m, n, cs.t["M"], cs.t["N"])[0]
+            body = mm.launch_geometry(x.dtype, m, n, k, cs.t["M"], cs.t["N"])[0]
+            if body == "rows":   # a row's bits do not depend on M (nor on the run)
+                cs1 = ops.schedule_for(ops.instance(class_id, torch.bfloat16, M=1, N=n, K=k))
+                one = mm.launch(x[:1].contiguous(), w, cs1, class_id=class_id, **kw)
+                again = mm.launch(x, w, cs, class_id=class_id, **kw)
+                torch.cuda.synchronize()
+                if not (torch.equal(one, got[:1]) and torch.equal(again, got)):
+                    raise AssertionError(f"{class_id} {m}x{k}x{n}: rows-body bits depend on M or the run")
+                del one, again
             cta_ms = (time_cta_tiles(torch, timer, lambda: mm.launch(x, w, cs, class_id=class_id, **kw),
                                      want, f"{class_id} {m}x{k}x{n}") if body == "mma" else None)
             del got, want
@@ -307,13 +358,14 @@ def phase_matmul(torch, timer) -> dict:
             err = max(err, assert_close(torch, mm.launch(x, w, cs64, class_id=class_id, **kw),
                                         ref.matmul(x, w, class_id, **kw), BF16_TOL, "64x64 tiles"))
             b_ms, b_by = bound_ms(2 * (m * k + k * n + m * n), 2 * m * n * k)
-            body, cta_m, cta_n, ctas = mm.launch_geometry(x.dtype, m, n, cs.t["M"], cs.t["N"])
+            body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(x.dtype, m, n, k, cs.t["M"],
+                                                                   cs.t["N"])
             row = {"class": class_id, "M": m, "K": k, "N": n, "tiles": cs.t,
                    "logical_tiles": cs.g["M"] * cs.g["N"], "body": body,
-                   "cta_tile": [cta_m, cta_n], "ctas": ctas, "max_abs_err": err,
+                   "cta_tile": [cta_m, cta_n], "split_k": split_k, "ctas": ctas, "max_abs_err": err,
                    "ms": timer.ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw)),
                    "cta_tile_ms": cta_ms,
-                   "tile64_ctas": mm.launch_geometry(x.dtype, m, n, cs64.t["M"], cs64.t["N"])[3],
+                   "tile64_ctas": mm.launch_geometry(x.dtype, m, n, k, cs64.t["M"], cs64.t["N"])[4],
                    "tile64_ms": timer.ms(lambda: mm.launch(x, w, cs64, class_id=class_id, **kw)),
                    "plain_ms": timer.ms(lambda: ref.matmul(x, w, class_id, **kw)),
                    # one library call computes the same function only without an epilogue
@@ -321,6 +373,12 @@ def phase_matmul(torch, timer) -> dict:
                                   if class_id != "matmul_bias_gelu" else None),
                    "bound_ms": b_ms, "bound_by": b_by}
             row["library_ratio"] = row["ms"] / row["library_ms"] if row["library_ms"] else None
+            if body == "rows":   # decode: the host's time to enqueue a call is most of ms
+                row["device_ms"] = timer.device_ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw))
+                row["library_device_ms"] = (timer.device_ms(lambda: torch.matmul(x, w))
+                                            if row["library_ms"] else None)
+                row["device_ratio"] = (row["device_ms"] / row["library_device_ms"]
+                                       if row["library_device_ms"] else None)
             shapes.append(row)
             log("matmul_shape", **row)
             del x, w
@@ -362,37 +420,79 @@ def phase_attention(torch, timer) -> dict:
             kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
             cs = ops.schedule_for(ops.instance("flash_attention_causal", dtype, Q=sq, KV=skv,
                                                H=hkv * group, D=d, B=b, window=window))
+            body = fa.body_for(dtype)
+            before = fa.body_count(body, dtype=dtype)
             got = fa.launch(q, k, v, cs, **kw)
+            if fa.body_count(body, dtype=dtype) != before + 1:
+                raise AssertionError(f"attention {dtype}: the launch did not take the {body} body")
             want = ref.chunked_attention(q, k, v, chunk=cs.t["KV"], **kw)
             name = f"{ops.dtype_name(dtype)}/g{group}/{sq}x{skv}/d{d}/{kw}"
             errs[name] = assert_close(torch, got, want, tol, name)
     log("attention_masks", checks=len(errs), max_abs_err=max(errs.values()), tol=BF16_TOL,
-        f32_tol=F32_TOL)
+        f32_tol=F32_TOL, bodies={f"{b}/{ops.dtype_name(d)}": c
+                                 for (b, d), c in sorted(fa.body_launches.items(), key=str)})
 
+    # a prompt attended in one call and in two calls split by q_offset: the
+    # same bits row for row, in both bodies
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _attn_inputs(torch, g, 1, 24, 8, 512, 512, 128, dtype)
+        whole = ops.flash_attention(q, k, v)
+        first = ops.flash_attention(q[:, :, :200].contiguous(), k[:, :, :200].contiguous(),
+                                    v[:, :, :200].contiguous())
+        second = ops.flash_attention(q[:, :, 200:].contiguous(), k, v, q_offset=200)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.cat([first, second], dim=2), whole):
+            raise AssertionError(f"attention {dtype}: rows differ when the prompt is split by q_offset")
+    log("attention_q_offset_split", bit_equal=True, split=[200, 312])
+
+    # each served arch's prefill shape (bf16, the tensor-core body): minitron
+    # at buckets 128 and 512, mixtral at bucket 512 (window 4096 > S), and
+    # recurrentgemma at the engine's longest prompt (356: 89-row Q tiles) and
+    # its prime one (181: 1-row Q tiles), window 2048 > S
     shapes = []
-    b, hq, hkv, d = 1, 24, 8, 128
-    for s in (128, 512):
+    for arch, b, hq, hkv, s, d, window in (("minitron-4b", 1, 24, 8, 128, 128, 0),
+                                            ("minitron-4b", 1, 24, 8, 512, 128, 0),
+                                            ("mixtral-8x22b", 1, 48, 8, 512, 128, 4096),
+                                            ("recurrentgemma-2b", 1, 10, 1, 356, 256, 2048),
+                                            ("recurrentgemma-2b", 1, 10, 1, 181, 256, 2048)):
         q, k, v = _attn_inputs(torch, g, b, hq, hkv, s, s, d, torch.bfloat16)
         cs = ops.schedule_for(ops.instance("flash_attention_causal", torch.bfloat16, Q=s, KV=s,
-                                           H=hq, D=d, B=b, window=0))
-        got = fa.launch(q, k, v, cs)
-        want = ref.chunked_attention(q, k, v, chunk=cs.t["KV"])
-        err = assert_close(torch, got, want, BF16_TOL, f"attention S={s}")
-        # the yardstick takes GQA expanded to Hq heads (expansion outside the timing)
+                                           H=hq, D=d, B=b, window=window))
+        got = fa.launch(q, k, v, cs, window=window)
+        want = ref.chunked_attention(q, k, v, chunk=cs.t["KV"], window=window)
+        err = assert_close(torch, got, want, BF16_TOL, f"attention {arch} S={s}")
+        # the yardstick takes GQA expanded to Hq heads (expansion outside the
+        # timing); S < window, so the causal mask alone is the same function
         ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
         live = s * (s + 1) / 2            # causal (q, k) pairs this input needs
         flops = 4 * b * hq * live * d
         nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
         b_ms, b_by = bound_ms(nbytes, flops)
-        row = {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "tiles": cs.t,
-               "ctas": b * hq * cs.g["Q"], "max_abs_err": err,
-               "ms": timer.ms(lambda: fa.launch(q, k, v, cs), iters=20),
-               "plain_ms": timer.ms(lambda: ref.chunked_attention(q, k, v, chunk=cs.t["KV"])),
+        body, cta_q, ctas = fa.attention_geometry(torch.bfloat16, s, cs.t["Q"])
+        row = {"arch": arch, "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": window,
+               "tiles": cs.t, "body": body, "cta_q": cta_q, "ctas": b * hq * ctas,
+               "max_abs_err": err,
+               "ms": timer.ms(lambda: fa.launch(q, k, v, cs, window=window), iters=20),
+               "plain_ms": timer.ms(lambda: ref.chunked_attention(q, k, v, chunk=cs.t["KV"],
+                                                                  window=window)),
                "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                    q, ke, ve, is_causal=True), iters=20),
                "bound_ms": b_ms, "bound_by": b_by}
+        row["library_ratio"] = row["ms"] / row["library_ms"]
+        row["device_ms"] = timer.device_ms(lambda: fa.launch(q, k, v, cs, window=window))
+        row["library_device_ms"] = timer.device_ms(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True))
+        row["device_ratio"] = row["device_ms"] / row["library_device_ms"]
+        # the f32 body at the same shape, for the record (not the served dtype)
+        if (arch, s) == ("minitron-4b", 512):
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            cs32 = ops.schedule_for(ops.instance("flash_attention_causal", torch.float32, Q=s, KV=s,
+                                                 H=hq, D=d, B=b, window=0))
+            row["fma_f32_ms"] = timer.ms(lambda: fa.launch(q32, k32, v32, cs32), iters=5)
+            del q32, k32, v32
         shapes.append(row)
         log("attention_shape", **row)
+        del q, k, v, ke, ve, got, want
     return {"shapes": shapes, "max_abs_err": max([errs[n] for n in errs] + [r["max_abs_err"] for r in shapes])}
 
 
@@ -554,13 +654,19 @@ def phase_prime_matmul(torch, timer) -> list:
                                f"{class_id} M={m} 64x64"))
         b_ms, b_by = bound_ms(2 * (m * k + k * n + m * (n // 2 if "glu" in class_id else n)),
                               2 * m * n * k)
-        row = {"class": class_id, "M": m, "K": k, "N": n, "tiles": cs.t,
-               "ctas": cs.g["M"] * cs.g["N"], "max_abs_err": err,
+        body, _, cta_n, split_k, ctas = mm.launch_geometry(x.dtype, m, n, k, cs.t["M"], cs.t["N"])
+        row = {"class": class_id, "M": m, "K": k, "N": n, "tiles": cs.t, "body": body,
+               "cta_n": cta_n, "split_k": split_k, "ctas": ctas, "max_abs_err": err,
                "ms": timer.ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw), iters=5),
-               "tile64_ctas": cs64.g["M"] * cs64.g["N"],
+               "tile64_ctas": mm.launch_geometry(x.dtype, m, n, k, 64, 64)[4],
                "tile64_ms": timer.ms(lambda: mm.launch(x, w, cs64, class_id=class_id, **kw), iters=5),
                "plain_ms": timer.ms(lambda: ref.matmul(x, w, class_id, **kw), iters=5),
                "bound_ms": b_ms, "bound_by": b_by}
+        # the same-call yardstick: the rows body's time over the tensor-core body's
+        row["tile64_ratio"] = row["ms"] / row["tile64_ms"]
+        row["device_ms"] = timer.device_ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw), iters=5)
+        row["tile64_device_ms"] = timer.device_ms(lambda: mm.launch(x, w, cs64, class_id=class_id, **kw),
+                                                  iters=5)
         rows.append(row)
         log("matmul_prime_shape", **row)
         del x, w, want
@@ -642,7 +748,7 @@ def phase_grouped(torch, timer) -> dict:
             n_out = n // 2 if class_id == "moe_gemm_silu_glu" else n
             b_ms, b_by = bound_ms(2 * e * (m * k + k * n + m * n_out), 2 * e * m * n * k)
             *_, tile_m, tile_n = mm.grouped_geometry(x, w, cs, class_id)
-            body, cta_m, cta_n, ctas = mm.launch_geometry(x.dtype, m, n, tile_m, tile_n, e)
+            body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(x.dtype, m, n, k, tile_m, tile_n, e)
             iters = 10 if m <= 16 else 5
             cta_ms = (time_cta_tiles(torch, timer, lambda: mm.grouped_launch(x, w, cs, class_id=class_id),
                                      want, f"{class_id} {e}x{m}x{k}x{n}", iters) if body == "mma" else None)
@@ -650,7 +756,8 @@ def phase_grouped(torch, timer) -> dict:
             row = {"class": class_id, "E": e, "M": m, "K": k, "N": n,
                    "tiles": {"M": tile_m, "N": tile_n},
                    "logical_tiles": e * -(-m // tile_m) * -(-n // tile_n), "body": body,
-                   "cta_tile": [cta_m, cta_n], "ctas": e * ctas, "max_abs_err": err,
+                   "cta_tile": [cta_m, cta_n], "split_k": split_k, "ctas": e * ctas,
+                   "max_abs_err": err,
                    "cta_tile_ms": cta_ms,
                    "ms": timer.ms(lambda: mm.grouped_launch(x, w, cs, class_id=class_id), iters=iters),
                    "plain_ms": timer.ms(lambda: ref.grouped_matmul(x, w, class_id), iters=iters),
@@ -659,6 +766,12 @@ def phase_grouped(torch, timer) -> dict:
                                   if class_id == "moe_gemm" else None),
                    "bound_ms": b_ms, "bound_by": b_by}
             row["library_ratio"] = row["ms"] / row["library_ms"] if row["library_ms"] else None
+            row["device_ms"] = timer.device_ms(lambda: mm.grouped_launch(x, w, cs, class_id=class_id),
+                                               iters=iters)
+            row["library_device_ms"] = (timer.device_ms(lambda: torch.bmm(x, w), iters=iters)
+                                        if row["library_ms"] else None)
+            row["device_ratio"] = (row["device_ms"] / row["library_device_ms"]
+                                   if row["library_device_ms"] else None)
             shapes.append(row)
             log("grouped_shape", **row)
             del x, w
@@ -731,6 +844,67 @@ def layerwise_rel_err(torch, model, params, toks) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def traced_rows_geometry():
+    """Every call of the matmul's ``rows_geometry`` (one per rows-body
+    launch) while the context is open: [((m, n, k, tile_m, tile_n, groups),
+    (cta_n, split_k, ctas)), ...]."""
+    from repro_torch.kernels import matmul as mm
+
+    plain, calls = mm.rows_geometry, []
+
+    def traced(m, n, k, tile_m, tile_n, groups=1):
+        out = plain(m, n, k, tile_m, tile_n, groups)
+        calls.append(((m, n, k, tile_m, tile_n, groups), out))
+        return out
+
+    mm.rows_geometry = traced
+    try:
+        yield calls
+    finally:
+        mm.rows_geometry = plain
+
+
+def profile_decode(torch, engine, prompts, steps: int = 3) -> dict:
+    """One torch.profiler capture of ``steps`` decode steps of a busy slot
+    engine: the device's busy share of the window (the union of its kernel
+    intervals over the host-clock window, which ends in a sync) and its five
+    ops with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        engine.add_request(p, max_new_tokens=steps + 2)
+    engine.step()                 # one step outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    while engine.active:
+        engine.step()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:            # the union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    ops_ = []
+    for avg in prof.key_averages():
+        dev = getattr(avg, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(avg, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            ops_.append({"name": avg.key[:120], "calls": avg.count, "device_ms": dev / 1e3})
+    ops_.sort(key=lambda o: -o["device_ms"])
+    return {"steps": steps, "window_ms": wall_us / 1e3, "device_events": len(spans),
+            "device_busy_ms": busy / 1e3 if spans else None,
+            "device_busy_share": busy / wall_us if spans else None,
+            "top_device_ops": ops_[:5]}
+
+
 #: the kernels each served arch must launch
 SERVE_KERNELS = {"minitron-4b": ("matmul", "flash_attention"),
                  "rwkv6-1.6b": ("matmul", "rwkv6_scan"),
@@ -788,19 +962,20 @@ def phase_serve(torch, arch: str) -> dict:
         kmod.reset_launches()
     prefill_s = decode_s = 0.0
     steps = 0
-    while pending or engine.active:
-        while pending and engine.free_slots:
+    with traced_rows_geometry() as rows_calls:
+        while pending or engine.active:
+            while pending and engine.free_slots:
+                t0 = time.monotonic()
+                req = engine.add_request(pending.pop(0), max_new_tokens=new_tokens)
+                prefill_s += time.monotonic() - t0     # add_request syncs on its argmax
+                if req.done:
+                    done.append(req)
             t0 = time.monotonic()
-            req = engine.add_request(pending.pop(0), max_new_tokens=new_tokens)
-            prefill_s += time.monotonic() - t0     # add_request syncs on its argmax
-            if req.done:
-                done.append(req)
-        t0 = time.monotonic()
-        done.extend(engine.step())                 # step syncs on its argmax
-        decode_s += time.monotonic() - t0
-        steps += 1
-        if steps > 1000:
-            raise AssertionError("the slot engine did not converge")
+            done.extend(engine.step())                 # step syncs on its argmax
+            decode_s += time.monotonic() - t0
+            steps += 1
+            if steps > 1000:
+                raise AssertionError("the slot engine did not converge")
     torch.cuda.synchronize()
     launches = serve.kernel_launches()
     bodies = {f"{kernel}/{body}/{ops.dtype_name(dtype)}": count
@@ -809,11 +984,33 @@ def phase_serve(torch, arch: str) -> dict:
     # took the CUDA-core body, which is for f32 alone
     if mm.body_count("mma") <= 0 or mm.body_count("fma", dtype=torch.bfloat16) != 0:
         raise AssertionError(f"{arch}: launches per matmul body {bodies}")
+    # every rows-body launch (decode, 1-row prefill tiles) took its layout
+    # from rows_geometry: one call per launch
+    if len(rows_calls) != mm.body_count("rows"):
+        raise AssertionError(f"{arch}: {mm.body_count('rows')} rows-body launches, "
+                             f"{len(rows_calls)} rows_geometry layouts")
+    decode_geometry = collections.Counter(
+        f"{n}x{k}/E{e}: split_k {split_k}, {e * ctas} CTAs"
+        for (m, n, k, tile_m, tile_n, e), (_, split_k, ctas) in rows_calls if m == 4)
+    if not decode_geometry:
+        raise AssertionError(f"{arch}: no M = 4 decode launch took the rows body")
+    # every bf16 attention launch took the tensor-core body
+    attn_bodies = {f"{body}/{ops.dtype_name(dtype)}": count
+                   for (body, dtype), count in sorted(fa.body_launches.items(), key=str)}
+    if "flash_attention" in SERVE_KERNELS[arch] and (
+            fa.body_count("mma", dtype=torch.bfloat16) != launches["flash_attention"]
+            or fa.body_count("fma", dtype=torch.bfloat16) != 0):
+        raise AssertionError(f"{arch}: launches per attention body {attn_bodies}")
     if len(done) != len(prompts) or any(len(r.generated) != new_tokens for r in done):
         raise AssertionError(f"engine finished {len(done)} requests with token counts "
                              f"{[len(r.generated) for r in done]}")
     if min(launches[k] for k in SERVE_KERNELS[arch]) <= 0:
         raise AssertionError(f"{arch}: a kernel of the main path was never launched: {launches}")
+    # where the decode step's time goes on the device: a profiler capture of
+    # three minitron decode steps at 4 busy slots (after the counts are read)
+    profile = (profile_decode(torch, engine, prompts[:4]) if arch == "minitron-4b" else None)
+    if profile is not None:
+        log("decode_profile", arch=arch, **profile)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens = sum(len(r.generated) for r in done)
 
@@ -849,7 +1046,9 @@ def phase_serve(torch, arch: str) -> dict:
            "decode_ms_per_step": 1e3 * decode_s / steps,
            "tok_per_s": tokens / (prefill_s + decode_s),
            "decode_tok_per_s": (tokens - len(done)) / decode_s,
-           "launches": launches, "body_launches": bodies, "peak_mem_gib": peak_gib,
+           "launches": launches, "body_launches": bodies, "attention_body_launches": attn_bodies,
+           "decode_rows_geometry": dict(decode_geometry), "decode_profile": profile,
+           "peak_mem_gib": peak_gib,
            "logits_max_abs_diff": diff, "logits_max_abs": scale,
            "logits_control": control, "logits_bound": bound,
            "argmax_equal": int(logits_k.argmax()) == int(logits_r.argmax()),
@@ -891,16 +1090,18 @@ def main() -> int:
     def served(name):   # launches summed over the serve phases
         return sum(r["launches"][name] for r in srv)
 
-    def served_body(name):   # a kernel's launches of its tensor-core body, summed
+    def served_body(name, body="mma"):   # a kernel's launches of one body, summed
         return sum(c for r in srv for key, c in r["body_launches"].items()
-                   if key.startswith(f"{name}/mma/"))
+                   if key.startswith(f"{name}/{body}/"))
 
     def timed(row, keys):
         return {"shape": {k: row[k] for k in keys},
                 **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
 
     rep_mm = next(r for r in mmr["shapes"] if r["M"] == 4 and r["N"] == 256000)
-    rep_fa = next(r for r in far["shapes"] if r["S"] == 512)
+    rep_fa = next(r for r in far["shapes"] if (r["arch"], r["S"]) == ("minitron-4b", 512))
+    # the rows body at decode: K1's q/o projection at 4 slots
+    dec_mm = next(r for r in mmr["shapes"] if (r["M"], r["K"], r["N"]) == (4, 3072, 3072))
     rep_rw = scr["rwkv6"]["shapes"][0]
     rep_rg = scr["rglru"]["shapes"][0]
     rep_gr = next(r for r in grr["shapes"] if r["M"] == MOE_ROWS[0] and r["class"] == "moe_gemm")
@@ -910,12 +1111,16 @@ def main() -> int:
     kernels = [
         {"name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:205", "launches": served("matmul"),
-         "max_abs_err": mmr["max_abs_err"], **timed(rep_mm, ("class", "M", "K", "N"))},
+         "max_abs_err": mmr["max_abs_err"], **timed(rep_mm, ("class", "M", "K", "N", "split_k", "ctas"))},
+        {"name": "matmul_decode", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:205", "body": "rows",
+         "launches": served_body("matmul", "rows"), "max_abs_err": mmr["max_abs_err"],
+         **timed(dec_mm, ("class", "M", "K", "N", "split_k", "ctas"))},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:126",
-         "launches": served("flash_attention"), "max_abs_err": far["max_abs_err"],
-         **timed(rep_fa, ("B", "Hq", "Hkv", "S", "D"))},
+         "body": "mma", "launches": served("flash_attention"), "max_abs_err": far["max_abs_err"],
+         **timed(rep_fa, ("B", "Hq", "Hkv", "S", "D", "ctas"))},
         {"name": "rwkv6_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:86", "launches": served("rwkv6_scan"),
          "max_abs_err": scr["rwkv6"]["max_abs_err"], **timed(rep_rw, ("B", "H", "T", "D"))},
@@ -924,7 +1129,8 @@ def main() -> int:
          "max_abs_err": scr["rglru"]["max_abs_err"], **timed(rep_rg, ("B", "T", "C"))},
         {"name": "grouped_matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:236", "launches": served("grouped_matmul"),
-         "max_abs_err": grr["max_abs_err"], **timed(rep_gr, ("class", "E", "M", "K", "N"))},
+         "body": "rows", "max_abs_err": grr["max_abs_err"],
+         **timed(rep_gr, ("class", "E", "M", "K", "N", "split_k", "ctas"))},
         {"name": "matmul_prefill", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:205", "body": "mma",
          "launches": served_body("matmul"), "max_abs_err": mmr["max_abs_err"],

@@ -37,10 +37,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C entry points and their argument types (pointers, ints, floats, stream)
 SIGNATURES = {
-    "repro_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P],
-    "repro_grouped_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "repro_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                     _I, _P, _P],
+    "repro_grouped_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _F, _I, _F, _I, _P],
+                              _I, _I, _F, _I, _F, _I, _I, _I, _P],
     "repro_rwkv6_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_rglru_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -17,10 +17,16 @@
 // body):
 //
 //  * rows (tile_m <= 16, either dtype: decode and the 1-row prefill LM head):
-//    w's bytes bound it.  Each lane streams 16-byte vectors of w along one
-//    column strip, the 8 warps split K between them, and the partial sums
-//    meet in shared memory before the epilogue.  Rows go in passes of 4; x
-//    is read through L1, where a warp's lanes share each element.
+//    w's bytes bound it.  A CTA covers one 64-column strip of one logical
+//    tile over one K slice; its 256 threads each stream 16-byte vectors of w
+//    (eight loads in flight before their FMAs), 8 (bf16) or 16 (f32) threads
+//    across the strip and the rest down K.  Where the strips alone launch
+//    fewer than two CTAs per SM, K is split across CTAs (split_k, from
+//    kernels/matmul.py rows_geometry, a function of K, N, the N tile and the
+//    expert count only): each slice writes f32 partial sums to a workspace
+//    and a second pass adds them in slice order and applies the epilogue
+//    once.  No float atomics; a row's summation order never depends on M.
+//    Rows go in passes of 4; x is read through L1, where lanes share it.
 //  * mma (bf16, tile_m > 16: every prefill projection and expert GEMM): the
 //    tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, operands read from
 //    shared memory with ldmatrix (.trans for w, which is (K, N) row-major).
@@ -39,8 +45,10 @@
 // Logical tile and CTA tile.  The schedule's (tile_m x tile_n) output tile is
 // the unit of rasterisation and of edge masking: logical tiles are numbered
 // in the schedule's order (m_outer: M is the outer loop, so consecutive tiles
-// walk along N).  The rows and fma bodies run one CTA per logical tile and
-// walk it in sub-blocks.  The mma body runs a compiled CTA tile (128x128,
+// walk along N).  The fma body runs one CTA per logical tile and walks it in
+// sub-blocks.  The rows body covers a logical tile with 64-column strips,
+// each split into split_k K slices (numbered strip-major, slices together).
+// The mma body runs a compiled CTA tile (128x128,
 // 64x128 or 64x64) and covers each logical tile with sub_m x sub_n CTAs,
 // numbered consecutively along N, so they run together and share the tile's
 // x rows and w columns in L2; a logical tile smaller than the CTA tile gets
@@ -55,7 +63,7 @@
 // even column n, up at n + 1) stays in one thread in every body.
 #include <algorithm>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace repro {
 
@@ -70,6 +78,8 @@ struct MatmulArgs {
   int tile_m, tile_n, tiles_m, tiles_n, m_outer;   // logical tiles
   int cta_m, cta_n, sub_m, sub_n, ctas;   // CTA tile, CTAs per logical tile in M and N, gridDim.x
   int groups;                   // experts (gridDim.y); 1 for a plain matmul
+  int split_k;                  // rows body: K slices per strip (1 in the others)
+  float* ws;                    // rows body, split_k > 1: f32 partial sums (E, split_k, M, N)
 };
 
 // This CTA's expert's slices of x, w and out (blockIdx.y = expert).
@@ -114,102 +124,211 @@ __device__ __forceinline__ float epilogue_glu(const MatmulArgs& a, float g, floa
 __host__ __device__ __forceinline__ bool is_glu(int epi) { return epi == kSiluGlu || epi == kGeluGlu; }
 
 // ---------------------------------------------------------------------------
-// rows body: small tile_m, streams w
+// rows body: small tile_m, streams w.  A CTA covers one 64-column strip of
+// one logical tile over one K slice (kernels/matmul.py rows_geometry).
 // ---------------------------------------------------------------------------
 
-constexpr int kRowsWarps = 8;
-constexpr int kRowsRM = 4;   // rows per pass
+constexpr int kRowsThreads = 256;
+constexpr int kRowsCtaN = 64;    // columns of one CTA strip (kernels/matmul.py ROWS_CTA_N)
+constexpr int kRowsRM = 4;       // rows per pass over the strip
+constexpr int kRowsUnroll = 8;   // 16-byte loads of w in flight per thread
+constexpr int kRowsSliceAlign = 32;  // K slices are multiples of this (ROWS_SLICE_ALIGN)
+static_assert(kRowsSliceAlign % kRowsUnroll == 0, "a thread's K rows start on a multiple of 8");
 
-template <typename T>
-__device__ __forceinline__ void load_w_vec(const T* wrow, int col, int n1, bool vec_ok,
-                                           float (&wv)[16 / sizeof(T)]) {
+// K slice length for split_k slices (kernels/matmul.py rows_k_slice)
+__host__ __device__ __forceinline__ int rows_k_slice(int k, int split_k) {
+  return kRowsSliceAlign * cdiv(cdiv(k, split_k), kRowsSliceAlign);
+}
+
+// One thread's FMAs over its K rows for the rows [r0, r0 + rows) and VEC
+// columns from col: rounds of kRowsUnroll consecutive K rows, ty's block of
+// each round of kRowsUnroll * TK, in ascending order.  Every load of a
+// round (kRowsUnroll 16-byte vectors of w, and kRowsUnroll values of x per
+// row, 16 bytes at a time where aligned) is requested before its first FMA.
+// kVec: 16-byte loads of w; otherwise guarded scalar loads, zeros past the
+// strip's edge cn1.  K rows past k1 load zeros for x and w alike.
+template <typename T, int TK, bool kVec>
+__device__ __forceinline__ void rows_accumulate(const T* __restrict__ x, const T* __restrict__ w,
+                                                const MatmulArgs& a, int r0, int rows, int col,
+                                                int cn1, int k0, int k1, int ty, bool x_vec,
+                                                float (&acc)[kRowsRM][16 / sizeof(T)]) {
   constexpr int VEC = 16 / sizeof(T);
-  if (vec_ok && col + VEC <= n1) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(wrow + col));
-    const T* e = reinterpret_cast<const T*>(&raw);
+  constexpr int U = kRowsUnroll;
+  constexpr int XQ = U * (int)sizeof(T) / 16;   // 16-byte x vectors per row and round
+  static_assert(XQ * 16 == U * (int)sizeof(T), "a round's x values are whole 16-byte vectors");
+  for (int kb = k0 + ty * U; kb < k1; kb += U * TK) {
+    uint4 wr[U];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) wv[v] = to_f(e[v]);
-  } else {
+    for (int u = 0; u < U; ++u) {
+      const int ku = kb + u;
+      if (kVec) {
+        wr[u] = ku < k1 ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)ku * a.n + col))
+                        : make_uint4(0, 0, 0, 0);
+      } else {
+        T* e = reinterpret_cast<T*>(&wr[u]);
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) wv[v] = (col + v < n1) ? to_f(wrow[col + v]) : 0.f;
+        for (int v = 0; v < VEC; ++v)
+          e[v] = (ku < k1 && col + v < cn1) ? w[(size_t)ku * a.n + col + v] : from_f<T>(0.f);
+      }
+    }
+    uint4 xq[kRowsRM][XQ];
+    const bool whole = x_vec && kb + U <= k1;
+#pragma unroll
+    for (int r = 0; r < kRowsRM; ++r) {
+      const T* xrow = x + (size_t)(r0 + min(r, rows - 1)) * a.k + kb;   // rows past `rows` reload a row
+      if (whole) {
+#pragma unroll
+        for (int q = 0; q < XQ; ++q) xq[r][q] = __ldg(reinterpret_cast<const uint4*>(xrow) + q);
+      } else {
+        T* e = reinterpret_cast<T*>(&xq[r][0]);
+#pragma unroll
+        for (int u = 0; u < U; ++u) e[u] = kb + u < k1 ? xrow[u] : from_f<T>(0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const T* e = reinterpret_cast<const T*>(&wr[u]);
+#pragma unroll
+      for (int r = 0; r < kRowsRM; ++r) {
+        if (r < rows) {   // uniform over the CTA
+          const float xv = to_f(reinterpret_cast<const T*>(&xq[r][0])[u]);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(xv, to_f(e[v]), acc[r][v]);
+        }
+      }
+    }
   }
 }
 
+// Each row's sum: per thread over its K rows in ascending order, then a
+// butterfly over the warp's K lanes, then the 8 warps in order, then (when
+// split) the K slices in order, in the reduce kernel.  None of it depends on
+// M or on the other rows, so a row's bits are the same at M = 1 and M = 4.
 template <typename T>
-__global__ void __launch_bounds__(kRowsWarps * 32) matmul_rows_kernel(MatmulArgs a) {
+__global__ void __launch_bounds__(kRowsThreads, 2) matmul_rows_kernel(MatmulArgs a) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int CW = 32 * VEC;  // columns per pass
-  __shared__ float red[kRowsWarps][kRowsRM][CW];
+  constexpr int TN = kRowsCtaN / VEC;      // threads along N: 8 (bf16), 16 (f32)
+  constexpr int TK = kRowsThreads / TN;    // threads along K: 32, 16
+  constexpr int kWarps = kRowsThreads / 32;
+  static_assert(TN <= 32 && 32 % TN == 0, "a warp holds whole K lanes");
+  __shared__ float red[kWarps][kRowsRM][kRowsCtaN];
 
   const ExpertPtrs<T> p(a);
-  const T* x = p.x;
-  const T* w = p.w;
-  T* out = p.out;
+  // this CTA's place: logical tile, then its strip, then its K slice
+  const int per_tile = a.sub_n * a.split_k;
+  const int rem = blockIdx.x % per_tile;
+  const int strip = rem / a.split_k, slice = rem % a.split_k;
   int m0, n0;
-  tile_origin(a, blockIdx.x, &m0, &n0);
+  tile_origin(a, blockIdx.x / per_tile, &m0, &n0);
   const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.tile_n, a.n);
+  const int cn0 = n0 + strip * kRowsCtaN;
+  if (cn0 >= n1) return;   // a ragged logical tile needs fewer strips
+  const int cn1 = min(cn0 + kRowsCtaN, n1);
+  const int k_slice = rows_k_slice(a.k, a.split_k);
+  const int k0 = slice * k_slice, k1 = min(k0 + k_slice, a.k);
+  const int tx = threadIdx.x % TN, ty = threadIdx.x / TN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = cn0 + tx * VEC;
   // 16-byte vectors stay aligned only if every row of w and every tile's
   // first column start on 16 bytes (a default N tile may be 500, say)
   const bool vec_ok = (a.n % VEC) == 0 && (a.tile_n % VEC) == 0 &&
-                      (reinterpret_cast<uintptr_t>(w) % 16) == 0;
+                      (reinterpret_cast<uintptr_t>(p.w) % 16) == 0;
+  // ... and x's rows, read kRowsUnroll values at a time from a multiple of 8
+  const bool x_vec = (a.k % 8) == 0 && (reinterpret_cast<uintptr_t>(p.x) % 16) == 0;
   const bool glu = is_glu(a.epi);
+  const int width = cn1 - cn0;
 
   for (int r0 = m0; r0 < m1; r0 += kRowsRM) {
     const int rows = min(kRowsRM, m1 - r0);
-    for (int c0 = n0; c0 < n1; c0 += CW) {
-      const int col = c0 + lane * VEC;
-      float acc[kRowsRM][VEC];
+    float acc[kRowsRM][VEC];
 #pragma unroll
-      for (int r = 0; r < kRowsRM; ++r)
+    for (int r = 0; r < kRowsRM; ++r)
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
-
-      if (col < n1) {
-#pragma unroll 4
-        for (int kk = warp; kk < a.k; kk += kRowsWarps) {
-          float wv[VEC];
-          load_w_vec<T>(w + (size_t)kk * a.n, col, n1, vec_ok, wv);
+      for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
+    if (col < cn1) {
+      if (vec_ok) rows_accumulate<T, TK, true>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
+      else rows_accumulate<T, TK, false>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
+    }
+    // the warp's K lanes (lane bits from TN up): every lane ends with the same sum
 #pragma unroll
-          for (int r = 0; r < kRowsRM; ++r) {
-            if (r < rows) {
-              const float xv = to_f(x[(size_t)(r0 + r) * a.k + kk]);
+    for (int r = 0; r < kRowsRM; ++r) {
+      if (r >= rows) break;   // uniform over the CTA
 #pragma unroll
-              for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(xv, wv[v], acc[r][v]);
-            }
-          }
-        }
+      for (int v = 0; v < VEC; ++v) {
+        float s = acc[r][v];
+#pragma unroll
+        for (int o = TN; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        acc[r][v] = s;
       }
+    }
+    if (lane < TN) {
 #pragma unroll
       for (int r = 0; r < kRowsRM; ++r)
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) red[warp][r][lane * VEC + v] = acc[r][v];
-      __syncthreads();
+        for (int v = 0; v < VEC; ++v) red[warp][r][tx * VEC + v] = acc[r][v];
+    }
+    __syncthreads();
 
-      const int width = min(CW, n1 - c0);           // accumulator columns in this pass
-      const int ow = glu ? width / 2 : width;       // output columns in this pass
+    if (a.split_k > 1) {   // raw partial sums of every accumulator column; the reduce pass ends it
+      float* ws = a.ws + ((size_t)blockIdx.y * a.split_k + slice) * a.m * a.n;
+      for (int idx = threadIdx.x; idx < rows * width; idx += blockDim.x) {
+        const int r = idx / width, j = idx % width;
+        float s = 0.f;
+#pragma unroll
+        for (int wi = 0; wi < kWarps; ++wi) s += red[wi][r][j];
+        ws[(size_t)(r0 + r) * a.n + cn0 + j] = s;
+      }
+    } else {
+      const int ow = glu ? width / 2 : width;   // output columns of this strip
       for (int idx = threadIdx.x; idx < rows * ow; idx += blockDim.x) {
         const int r = idx / ow, j = idx % ow;
         const int row = r0 + r;
         float y;
         int ocol;
-        if (glu) {
+        if (glu) {   // cn0 and width are even: the pair (2j, 2j + 1) is in this strip
           float g = 0.f, u = 0.f;
 #pragma unroll
-          for (int wi = 0; wi < kRowsWarps; ++wi) { g += red[wi][r][2 * j]; u += red[wi][r][2 * j + 1]; }
-          y = epilogue_glu(a, g, u, c0 + 2 * j);
-          ocol = (c0 + 2 * j) / 2;
+          for (int wi = 0; wi < kWarps; ++wi) { g += red[wi][r][2 * j]; u += red[wi][r][2 * j + 1]; }
+          y = epilogue_glu(a, g, u, cn0 + 2 * j);
+          ocol = (cn0 + 2 * j) / 2;
         } else {
           float s = 0.f;
 #pragma unroll
-          for (int wi = 0; wi < kRowsWarps; ++wi) s += red[wi][r][j];
-          ocol = c0 + j;
+          for (int wi = 0; wi < kWarps; ++wi) s += red[wi][r][j];
+          ocol = cn0 + j;
           y = epilogue1(a, s, row, ocol);
         }
-        out[(size_t)row * a.n_out + ocol] = from_f<T>(y);
+        p.out[(size_t)row * a.n_out + ocol] = from_f<T>(y);
       }
-      __syncthreads();
     }
+    __syncthreads();
+  }
+}
+
+// Second pass of a split rows launch: each output sums its K slices'
+// partial sums in slice order and takes the epilogue once.
+template <typename T>
+__global__ void __launch_bounds__(256) matmul_rows_reduce_kernel(MatmulArgs a) {
+  const ExpertPtrs<T> p(a);
+  const size_t plane = (size_t)a.m * a.n;
+  const float* ws = a.ws + (size_t)blockIdx.y * a.split_k * plane;
+  const bool glu = is_glu(a.epi);
+  const int total = a.m * a.n_out;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
+    const int row = i / a.n_out, oc = i % a.n_out;
+    float y;
+    if (glu) {
+      const size_t at = (size_t)row * a.n + 2 * oc;
+      float g = ws[at], u = ws[at + 1];
+      for (int j = 1; j < a.split_k; ++j) { g += ws[j * plane + at]; u += ws[j * plane + at + 1]; }
+      y = epilogue_glu(a, g, u, 2 * oc);
+    } else {
+      const size_t at = (size_t)row * a.n + oc;
+      float s = ws[at];
+      for (int j = 1; j < a.split_k; ++j) s += ws[j * plane + at];
+      y = epilogue1(a, s, row, oc);
+    }
+    p.out[(size_t)row * a.n_out + oc] = from_f<T>(y);
   }
 }
 
@@ -240,64 +359,6 @@ struct MmaTile {
 using MmaTile128x128 = MmaTile<128, 128, 2, 4>;  // warp tile 64x32
 using MmaTile64x128 = MmaTile<64, 128, 2, 4>;    // 32x32
 using MmaTile64x64 = MmaTile<64, 64, 2, 2>;      // 32x32
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy global -> shared that reads `bytes` (0..16) and zero-fills the rest
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-// d += a (16x16, row) @ b (16x8, col), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stages 8 consecutive bf16 of one row, src[0, valid), into 16 bytes of
-// shared memory, zeros past `valid`: one cp.async when the row is read in
-// 16-byte-aligned chunks (vec), guarded scalar loads otherwise.  src must be
-// a valid address even when valid <= 0.
-__device__ __forceinline__ void stage8(__nv_bfloat16* dst, const __nv_bfloat16* src, int valid, bool vec) {
-  valid = max(0, min(valid, 8));
-  if (vec) {
-    cp_async16(smem_addr(dst), src, 2 * valid);
-  } else {
-    __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = i < valid ? src[i] : __float2bfloat16_rn(0.f);
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
-  }
-}
-
-// two neighbouring outputs: one 4-byte store where aligned
-__device__ __forceinline__ void store2(__nv_bfloat16* o, float y0, float y1) {
-  if ((reinterpret_cast<uintptr_t>(o) & 3) == 0) {
-    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(y0, y1);
-  } else {
-    o[0] = __float2bfloat16_rn(y0);
-    o[1] = __float2bfloat16_rn(y1);
-  }
-}
 
 template <class Tile>
 __global__ void __launch_bounds__(Tile::kThreads) matmul_mma_kernel(MatmulArgs a) {
@@ -523,25 +584,40 @@ int run(MatmulArgs& a, int dtype, void* stream) {
   a.n_out = glu ? a.n / 2 : a.n;
   a.tiles_m = cdiv(a.m, a.tile_m); a.tiles_n = cdiv(a.n, a.tile_n);
   const Body body = a.tile_m <= 16 ? kRows : dtype == kBFloat16 ? kMma : kFma;
+  if (a.split_k < 1 || (body != kRows && a.split_k != 1)) return (int)cudaErrorInvalidValue;
   if (body == kMma) {
     const bool compiled = (a.cta_m == 128 && a.cta_n == 128) || (a.cta_m == 64 && a.cta_n == 128) ||
                           (a.cta_m == 64 && a.cta_n == 64);
     if (!compiled) return (int)cudaErrorInvalidValue;
     a.sub_m = cdiv(std::min(a.tile_m, a.m), a.cta_m);
     a.sub_n = cdiv(std::min(a.tile_n, a.n), a.cta_n);
+  } else if (body == kRows) {  // 64-column strips of the logical tile, split_k K slices each
+    if (a.cta_m != a.tile_m || a.cta_n != kRowsCtaN) return (int)cudaErrorInvalidValue;
+    if (cdiv(a.k, rows_k_slice(a.k, a.split_k)) != a.split_k) return (int)cudaErrorInvalidValue;
+    if (a.split_k > 1 && a.ws == nullptr) return (int)cudaErrorInvalidValue;
+    a.sub_m = 1;
+    a.sub_n = cdiv(std::min(a.tile_n, a.n), kRowsCtaN);
   } else {  // one CTA per logical tile
     if (a.cta_m != a.tile_m || a.cta_n != a.tile_n) return (int)cudaErrorInvalidValue;
     a.sub_m = a.sub_n = 1;
   }
-  if ((long long)a.tiles_m * a.tiles_n * a.sub_m * a.sub_n != (long long)a.ctas) return (int)cudaErrorInvalidValue;
+  if ((long long)a.tiles_m * a.tiles_n * a.sub_m * a.sub_n * a.split_k != (long long)a.ctas)
+    return (int)cudaErrorInvalidValue;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(a.ctas, a.groups);
   switch (body) {
-    case kRows:
-      if (dtype == kBFloat16) matmul_rows_kernel<__nv_bfloat16><<<grid, kRowsWarps * 32, 0, s>>>(a);
-      else matmul_rows_kernel<float><<<grid, kRowsWarps * 32, 0, s>>>(a);
+    case kRows: {
+      const dim3 rgrid(std::min(cdiv(a.m * a.n_out, 256), 4096), a.groups);
+      if (dtype == kBFloat16) {
+        matmul_rows_kernel<__nv_bfloat16><<<grid, kRowsThreads, 0, s>>>(a);
+        if (a.split_k > 1) matmul_rows_reduce_kernel<__nv_bfloat16><<<rgrid, 256, 0, s>>>(a);
+      } else {
+        matmul_rows_kernel<float><<<grid, kRowsThreads, 0, s>>>(a);
+        if (a.split_k > 1) matmul_rows_reduce_kernel<float><<<rgrid, 256, 0, s>>>(a);
+      }
       break;
+    }
     case kFma:
       matmul_fma_kernel<<<grid, 256, 0, s>>>(a);
       break;
@@ -556,12 +632,13 @@ int run(MatmulArgs& a, int dtype, void* stream) {
 }  // namespace repro
 
 // C entry point bound with ctypes.  bias (N,) and residual (M, N_out) are f32
-// (the wrapper converts them: the reference reads both into f32).  Returns a
+// (the wrapper converts them: the reference reads both into f32).  ws: the
+// rows body's f32 workspace (split_k, M, N) when split_k > 1, else unused.  Returns a
 // cudaError_t: the launch's, or cudaErrorInvalidValue for bad arguments.
 extern "C" int repro_matmul(const void* x, const void* w, const void* bias, const void* residual,
                             void* out, int m, int n, int k, int dtype, int epi, float softcap,
                             int tile_m, int tile_n, int m_outer, int cta_m, int cta_n, int ctas,
-                            void* stream) {
+                            int split_k, void* ws, void* stream) {
   repro::MatmulArgs a{};
   a.x = x; a.w = w; a.bias = static_cast<const float*>(bias);
   a.residual = static_cast<const float*>(residual); a.out = out;
@@ -569,21 +646,24 @@ extern "C" int repro_matmul(const void* x, const void* w, const void* bias, cons
   a.epi = epi; a.softcap = softcap;
   a.tile_m = tile_m; a.tile_n = tile_n; a.m_outer = m_outer; a.groups = 1;
   a.cta_m = cta_m; a.cta_n = cta_n; a.ctas = ctas;
+  a.split_k = split_k; a.ws = static_cast<float*>(ws);
   return repro::run(a, dtype, stream);
 }
 
 // Grouped (MoE expert) matmul: out[e] = epilogue(x[e] (M,K) @ w[e] (K,N)) for
 // e < groups, contiguous (E,M,K), (E,K,N) and (E,M,N_out).  m, tile_m and
 // tile_n are per expert.  No bias or residual (the grouped classes have none).
+// ws: (E, split_k, M, N) f32 when the rows body splits K.
 extern "C" int repro_grouped_matmul(const void* x, const void* w, void* out, int groups,
                                     int m, int n, int k, int dtype, int epi,
                                     int tile_m, int tile_n, int m_outer, int cta_m, int cta_n,
-                                    int ctas, void* stream) {
+                                    int ctas, int split_k, void* ws, void* stream) {
   repro::MatmulArgs a{};
   a.x = x; a.w = w; a.out = out;
   a.m = m; a.n = n; a.k = k;
   a.epi = epi;
   a.tile_m = tile_m; a.tile_n = tile_n; a.m_outer = m_outer; a.groups = groups;
   a.cta_m = cta_m; a.cta_n = cta_n; a.ctas = ctas;
+  a.split_k = split_k; a.ws = static_cast<float*>(ws);
   return repro::run(a, dtype, stream);
 }

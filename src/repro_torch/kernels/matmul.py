@@ -23,10 +23,16 @@ kernel:
   rasterisation and of edge masking.  How CTAs cover it depends on the body
   (:func:`launch_geometry`):
 
-  - **rows** (M tile ≤ 16, bf16 or f32: decode, the 1-row prefill LM head)
-    and **fma** (f32 with an M tile above 16: the router): one CTA per
-    logical tile, walking it in sub-blocks (4-row passes of 256 bf16 / 128
-    f32 columns; 64x64 blocks on the CUDA cores).
+  - **rows** (M tile ≤ 16, bf16 or f32: decode, the 1-row prefill LM head):
+    a CTA covers one 64-column strip of one logical tile, all its rows, over
+    one K slice (:func:`rows_geometry`).  Where the strips of all experts
+    launch fewer than two CTAs per SM, K is split across CTAs: each slice
+    writes f32 partial sums to a workspace the wrapper allocates, and a
+    second pass adds them in slice order and applies the epilogue once (no
+    float atomics).  ``split_k`` depends on K, N, the N tile and the expert
+    count, never on M, so a row's bits are the same at M = 1 and M = 4.
+  - **fma** (f32 with an M tile above 16: the router): one CTA per logical
+    tile, walking it in 64x64 blocks on the CUDA cores.
   - **mma** (bf16 with an M tile above 16: every prefill projection and
     expert GEMM): the tensor cores.  Each CTA runs a compiled tile from
     :data:`MMA_CTA_TILES`; a logical tile larger than it is covered by
@@ -43,8 +49,8 @@ kernel:
 * ``order`` — tile rasterisation: the logical tile index walks the inner of
   M and N fastest.
 * ``tiles["K"]`` — not used: the kernel sums the whole K range of a tile in
-  one f32 accumulator (32-deep shared-memory stages on the tensor cores,
-  16-deep on the CUDA cores, or streamed in the rows body).
+  f32 (32-deep shared-memory stages on the tensor cores, 16-deep on the CUDA
+  cores, or streamed in the rows body, in K slices of its own choosing).
 * ``cache_write`` — always on in effect: the accumulator is f32.  With
   ``cache_write=False`` (or K not innermost) the reference rounds partial sums
   to the output dtype at every K step; the kernel does not, so it matches the
@@ -60,8 +66,9 @@ kernel:
 What bounds it on the card: the bytes of ``w`` at decode (M = slots) and
 up to a few hundred rows (the H100 does ~295 bf16 tensor-core operations per
 byte of HBM, so a (K,N) weight read once is the larger cost while M is below
-~300); the operations above that.  The rows body streams ``w`` once per row
-pass, 16 bytes a lane; the mma body stages ``x`` and ``w`` through a 4-deep
+~300); the operations above that.  The rows body streams ``w`` once per
+4-row pass, 16 bytes a thread with eight loads in flight, on enough CTAs to
+fill the card; the mma body stages ``x`` and ``w`` through a 4-deep
 ``cp.async`` ring into ``mma.sync`` tensor-core products.
 
 A tensor on the CPU takes the plain version (:func:`repro_torch.kernels.ref.matmul`,
@@ -90,6 +97,15 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MMA_CTA_TILES = ((128, 128), (64, 128), (64, 64))
 #: streaming multiprocessors of the H100: the CTA count that fills the card once
 SMS = 132
+#: the rows body's CTA strip: columns of one CTA (csrc/matmul.cu kRowsCtaN)
+ROWS_CTA_N = 64
+#: the rows body splits K until its CTAs reach this many (two per SM), where
+#: the strips alone launch fewer
+ROWS_MIN_CTAS = 2 * SMS
+#: ... but no K slice shorter than this
+ROWS_MIN_SLICE = 256
+#: K slices are whole multiples of this (csrc/matmul.cu kRowsSliceAlign)
+ROWS_SLICE_ALIGN = 32
 
 #: kernel launches since the last reset (plain counts; see chip_smoke.py):
 #: ``launches`` of :func:`launch` (K1), ``grouped_launches`` of
@@ -158,15 +174,54 @@ def cta_count(m: int, n: int, tile_m: int, tile_n: int, cta_m: int, cta_n: int) 
             * _cdiv(min(tile_m, m), cta_m) * _cdiv(min(tile_n, n), cta_n))
 
 
-def launch_geometry(dtype: torch.dtype, m: int, n: int, tile_m: int, tile_n: int,
-                    groups: int = 1) -> tuple[str, int, int, int]:
-    """(body, cta_m, cta_n, ctas) of a launch, CTAs per expert: the mma
+def rows_k_slice(k: int, split_k: int) -> int:
+    """K rows of one slice when the rows body splits K into ``split_k``
+    slices (the last may be shorter): a multiple of :data:`ROWS_SLICE_ALIGN`."""
+    return ROWS_SLICE_ALIGN * _cdiv(_cdiv(k, split_k), ROWS_SLICE_ALIGN)
+
+
+def rows_geometry(m: int, n: int, k: int, tile_m: int, tile_n: int,
+                  groups: int = 1) -> tuple[int, int, int]:
+    """(cta_n, split_k, ctas) of the rows body for an (m, n) output with
+    depth k under (tile_m, tile_n) logical tiles; grouped, per expert, with
+    ``groups`` experts side by side on the card.
+
+    A CTA covers one :data:`ROWS_CTA_N`-column strip of one logical tile
+    (all of its <= 16 rows) over one K slice, and never crosses the logical
+    tile's edge.  Where the strips of all experts launch fewer than
+    :data:`ROWS_MIN_CTAS`, K is split into ``split_k`` slices of at least
+    :data:`ROWS_MIN_SLICE` rows, summed in slice order by a second pass.
+    ``split_k`` depends on k, n, tile_n and groups only, never on m, so a
+    row's summation order (and its bits) is the same at M = 1 and M = 4."""
+    strips = _cdiv(n, tile_n) * _cdiv(min(tile_n, n), ROWS_CTA_N)
+    split_k = 1
+    if groups * strips < ROWS_MIN_CTAS:
+        split_k = max(1, min(_cdiv(ROWS_MIN_CTAS, groups * strips), k // ROWS_MIN_SLICE))
+        split_k = _cdiv(k, rows_k_slice(k, split_k))   # no empty slice
+    return ROWS_CTA_N, split_k, _cdiv(m, tile_m) * strips * split_k
+
+
+def launch_geometry(dtype: torch.dtype, m: int, n: int, k: int, tile_m: int, tile_n: int,
+                    groups: int = 1) -> tuple[str, int, int, int, int]:
+    """(body, cta_m, cta_n, split_k, ctas) of a launch, CTAs per expert: the
+    rows body's strips and K slices from :func:`rows_geometry`, the mma
     body's CTA tiles from :func:`tiled_geometry`, one CTA per logical tile
-    in the others.  The kernel re-checks it and refuses a mismatch."""
+    in the fma body.  The kernel re-checks it and refuses a mismatch."""
     body = body_for(dtype, tile_m)
+    if body == "rows":
+        cta_n, split_k, ctas = rows_geometry(m, n, k, tile_m, tile_n, groups)
+        return body, tile_m, cta_n, split_k, ctas
     if body == "mma":
-        return (body, *tiled_geometry(m, n, tile_m, tile_n, groups))
-    return body, tile_m, tile_n, cta_count(m, n, tile_m, tile_n, tile_m, tile_n)
+        cta_m, cta_n, ctas = tiled_geometry(m, n, tile_m, tile_n, groups)
+        return body, cta_m, cta_n, 1, ctas
+    return body, tile_m, tile_n, 1, cta_count(m, n, tile_m, tile_n, tile_m, tile_n)
+
+
+def _workspace(x: torch.Tensor, groups: int, split_k: int, m: int, n: int) -> torch.Tensor | None:
+    """The rows body's f32 partial sums (groups, split_k, m, n) when it splits K."""
+    if split_k == 1:
+        return None
+    return torch.empty((groups, split_k, m, n), dtype=torch.float32, device=x.device)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
@@ -218,14 +273,16 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     if m == 0:
         return out
     order = [a for a in cs.order if a in ("M", "N")]
-    body, cta_m, cta_n, ctas = launch_geometry(x.dtype, m, n, tile_m, tile_n)
+    body, cta_m, cta_n, split_k, ctas = launch_geometry(x.dtype, m, n, k, tile_m, tile_n)
+    ws = _workspace(x, 1, split_k, m, n)
     lib = _build.library()
     rc = lib.repro_matmul(
         x.data_ptr(), w.data_ptr(),
         bias32.data_ptr() if bias32 is not None else None,
         res32.data_ptr() if res32 is not None else None,
         out.data_ptr(), m, n, k, DTYPES[x.dtype], EPILOGUE[class_id], float(softcap),
-        tile_m, tile_n, int(order[0] == "M"), cta_m, cta_n, ctas, _build.stream_handle(x.device))
+        tile_m, tile_n, int(order[0] == "M"), cta_m, cta_n, ctas, split_k,
+        ws.data_ptr() if ws is not None else None, _build.stream_handle(x.device))
     _build.check(rc, "matmul kernel")
     launches += 1
     body_launches["matmul", body, x.dtype] += 1
@@ -279,11 +336,12 @@ def grouped_launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     if m == 0 or e == 0:
         return out
     order = [a for a in cs.order if a in ("M", "N")]
-    body, cta_m, cta_n, ctas = launch_geometry(x.dtype, m, n, tile_m, tile_n, e)
+    body, cta_m, cta_n, split_k, ctas = launch_geometry(x.dtype, m, n, k, tile_m, tile_n, e)
+    ws = _workspace(x, e, split_k, m, n)
     rc = _build.library().repro_grouped_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, DTYPES[x.dtype],
         GROUPED_EPILOGUE[class_id], tile_m, tile_n, int(order[0] == "M"), cta_m, cta_n, ctas,
-        _build.stream_handle(x.device))
+        split_k, ws.data_ptr() if ws is not None else None, _build.stream_handle(x.device))
     _build.check(rc, "grouped matmul kernel")
     grouped_launches += 1
     body_launches["grouped_matmul", body, x.dtype] += 1

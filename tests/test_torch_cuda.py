@@ -79,24 +79,66 @@ def test_matmul_kernel_matches_plain(card, dtype, class_id, m, n, k):
     _close(got, ops.matmul(x, w, backend="ref", **kw), TOL if dt == torch.float32 else BF16_TOL)
 
 
-@pytest.mark.parametrize("sq,skv,d,group,causal,window,softcap,q_offset", [
-    (40, 40, 16, 2, True, 0, 0.0, 0),
-    (33, 70, 64, 3, True, 0, 0.0, 37),
-    (64, 64, 128, 1, True, 16, 0.0, 0),
-    (50, 50, 128, 3, False, 0, 0.0, 0),
-    (20, 20, 256, 2, True, 0, 30.0, 0),
-    (1, 90, 80, 3, True, 0, 0.0, 89),
-])
-def test_attention_kernel_matches_plain(card, sq, skv, d, group, causal, window, softcap, q_offset):
+# (b, hkv, group, sq, skv, d, causal, window, softcap, q_offset): ragged
+# lengths, head dims 16 / 64 / 80 / 128 / 256 (padded to the compiled
+# widths), every mask; then the main path's heads: minitron 24/8 x 128,
+# mixtral 48/8 x 128 (window 4096), recurrentgemma 10/1 x 256 (window 2048)
+ATTN_CASES = [
+    (2, 2, 2, 40, 40, 16, True, 0, 0.0, 0),
+    (2, 2, 3, 33, 70, 64, True, 0, 0.0, 37),
+    (2, 2, 1, 64, 64, 128, True, 16, 0.0, 0),
+    (2, 2, 3, 50, 50, 128, False, 0, 0.0, 0),
+    (2, 2, 2, 20, 20, 256, True, 0, 30.0, 0),
+    (2, 2, 3, 1, 90, 80, True, 0, 0.0, 89),
+    (1, 8, 3, 256, 256, 128, True, 0, 0.0, 0),
+    (1, 8, 6, 200, 200, 128, True, 4096, 0.0, 0),
+    (1, 1, 10, 181, 181, 256, True, 2048, 0.0, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hkv,group,sq,skv,d,causal,window,softcap,q_offset", ATTN_CASES)
+def test_attention_kernel_matches_plain(card, dtype, b, hkv, group, sq, skv, d, causal, window,
+                                        softcap, q_offset):
+    """bf16 takes the tensor-core body, f32 the CUDA-core one; each against
+    the plain version at its dtype's tolerance."""
+    dt = getattr(torch, dtype)
     g = torch.Generator(device=card).manual_seed(sq + skv + d)
-    q = torch.randn((2, 2 * group, sq, d), generator=g, device=card)
-    k = torch.randn((2, 2, skv, d), generator=g, device=card)
-    v = torch.randn((2, 2, skv, d), generator=g, device=card)
+    q = torch.randn((b, hkv * group, sq, d), generator=g, device=card).to(dt)
+    k = torch.randn((b, hkv, skv, d), generator=g, device=card).to(dt)
+    v = torch.randn((b, hkv, skv, d), generator=g, device=card).to(dt)
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
-    before = fa.launches
+    body = fa.body_for(dt)
+    assert body == ("mma" if dt == torch.bfloat16 else "fma")
+    before, ours = fa.launches, fa.body_count(body, dtype=dt)
     got = ops.flash_attention(q, k, v, **kw)
     assert fa.launches == before + 1
-    _close(got, ref.attention(q, k, v, **kw))
+    assert fa.body_count(body, dtype=dt) == ours + 1
+    _close(got, ref.attention(q, k, v, **kw), TOL if dt == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hkv,group,s,split,d,window", [(2, 3, 300, 100, 128, 0),
+                                                         (2, 2, 260, 128, 64, 0),
+                                                         (1, 4, 333, 190, 256, 70),
+                                                         (2, 1, 150, 37, 80, 0)])
+def test_attention_rows_do_not_depend_on_the_split(card, dtype, hkv, group, s, split, d, window):
+    """A prompt attended in one call, and in two calls split at ``split``
+    (the second with q_offset = split against all keys so far), gives the
+    same bits row for row: chunks start at global multiples, rows are
+    computed independently, and two runs agree."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(s + split + d)
+    q = torch.randn((1, hkv * group, s, d), generator=g, device=card).to(dt)
+    k = torch.randn((1, hkv, s, d), generator=g, device=card).to(dt)
+    v = torch.randn((1, hkv, s, d), generator=g, device=card).to(dt)
+    whole = ops.flash_attention(q, k, v, window=window)
+    first = ops.flash_attention(q[:, :, :split], k[:, :, :split], v[:, :, :split], window=window)
+    second = ops.flash_attention(q[:, :, split:], k, v, window=window, q_offset=split)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([first, second], dim=2), whole)
+    assert torch.equal(ops.flash_attention(q, k, v, window=window), whole)
+    _close(whole, ref.attention(q, k, v, window=window), TOL if dt == torch.float32 else BF16_TOL)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -168,6 +210,81 @@ def test_grouped_kernel_matches_plain(card, dtype, class_id, e, m, n, k, tile_m)
     assert mm.body_count() == total + 1
     assert mm.body_count(body, kernel="grouped_matmul", dtype=dt) == ours + 1
     _close(got, ref.grouped_matmul(x, w, class_id), TOL if dt == torch.float32 else BF16_TOL)
+
+
+# decode-shaped rows-body launches whose strips alone launch few CTAs, so K
+# is split (kernel, class, E, K, N)
+ROWS_SPLIT_CASES = [("K1", c, 1, 1024, 256) for c in ref.MATMUL_CLASSES] + [
+    ("K1", "matmul", 1, 3000, 200),            # ragged last slice, N not a multiple of 64
+    ("K1", "matmul_silu_glu", 1, 777, 100),    # K, N not multiples of 8: scalar loads
+    ("K1g", "moe_gemm", 2, 1024, 256), ("K1g", "moe_gemm_silu_glu", 3, 640, 96)]
+
+
+def _rows_launch(kind, class_id, dt, e, m, k, n, seed):
+    """Inputs of a rows-body launch at m rows (per expert): returns (run,
+    plain, geometry), where run(rows) launches the kernel on those rows of
+    x (and of the residual) under their own default schedule."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "K1":
+        x = torch.randn((m, k), generator=g, device="cuda").to(dt)
+        w = (torch.randn((k, n), generator=g, device="cuda") / k ** 0.5).to(dt)
+        bias = torch.randn((n,), generator=g, device="cuda").to(dt) if "bias" in class_id else None
+        residual = (torch.randn((m, n // 2 if "glu" in class_id else n), generator=g,
+                                device="cuda").to(dt) if class_id == "matmul_residual" else None)
+        kw = dict(class_id=class_id, bias=bias, softcap=2.0 if "softcap" in class_id else 0.0)
+        cs = ops.schedule_for(ops.instance(class_id, dt, M=m, N=n, K=k))
+
+        def run(rows=slice(None)):
+            xs = x[rows].contiguous()
+            return mm.launch(xs, w, ops.schedule_for(ops.instance(class_id, dt, M=xs.shape[0],
+                                                                  N=n, K=k)),
+                             residual=None if residual is None else residual[rows].contiguous(), **kw)
+
+        return (run, lambda: ref.matmul(x, w, residual=residual, **kw),
+                mm.launch_geometry(dt, m, n, k, cs.t["M"], cs.t["N"]))
+    x = torch.randn((e, m, k), generator=g, device="cuda").to(dt)
+    w = (torch.randn((e, k, n), generator=g, device="cuda") / k ** 0.5).to(dt)
+    cs = ops.schedule_for(ops.instance(class_id, dt, M=m * e, N=n, K=k, E=e))
+    tile_m, tile_n = mm.grouped_geometry(x, w, cs, class_id)[4:]
+
+    def run(rows=slice(None)):
+        xs = x[:, rows].contiguous()
+        return mm.grouped_launch(xs, w, ops.schedule_for(
+            ops.instance(class_id, dt, M=xs.shape[1] * e, N=n, K=k, E=e)), class_id=class_id)
+
+    return (run, lambda: ref.grouped_matmul(x, w, class_id),
+            mm.launch_geometry(dt, m, n, k, tile_m, tile_n, e))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,class_id,e,k,n", ROWS_SPLIT_CASES)
+def test_rows_body_with_split_k_matches_plain(card, dtype, kind, class_id, e, k, n):
+    """M = 4 (decode slots) on the rows body with K split across CTAs, every
+    epilogue class, K1 and K1g, against the plain version."""
+    dt = getattr(torch, dtype)
+    run, plain, geo = _rows_launch(kind, class_id, dt, e, 4, k, n, seed=k + n + e)
+    assert geo[0] == "rows" and geo[3] > 1
+    before = mm.body_count("rows", dtype=dt)
+    got = run()
+    assert mm.body_count("rows", dtype=dt) == before + 1
+    _close(got, plain(), TOL if dt == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,class_id,e,k,n",
+                         ROWS_SPLIT_CASES + [("K1", "matmul_lmhead", 1, 3072, 4000)])
+def test_rows_body_bits_do_not_depend_on_m(card, dtype, kind, class_id, e, k, n):
+    """A row's output bits at M = 1 equal its bits at M = 4, and two runs
+    give the same bits: split_k and each row's summation order do not
+    depend on M."""
+    dt = getattr(torch, dtype)
+    run, _, _ = _rows_launch(kind, class_id, dt, e, 4, k, n, seed=7 * k + n)
+    four = run()
+    assert torch.equal(run(), four)
+    for i in range(4):
+        one = run(slice(i, i + 1))
+        torch.cuda.synchronize()
+        assert torch.equal(one, four[i:i + 1] if kind == "K1" else four[:, i:i + 1])
 
 
 def test_kernel_rejects_what_it_does_not_take(card):

@@ -183,23 +183,29 @@ def test_grouped_geometry_clamps_tiles_to_one_expert():
         mm.grouped_launch(x, w, cs)
 
 
-def _cta_regions(m, n, tile_m, tile_n, m_outer, cta_m, cta_n, ctas):
-    """The output region of every CTA, as csrc/matmul.cu places it: CTA b
-    runs sub-tile b % (sub_m·sub_n) (along N first) of logical tile
-    b // (sub_m·sub_n) (in the schedule's order), masked at that logical
-    tile's edge.  Yields (b, logical tile (m0, m1, n0, n1), CTA region)."""
+def _cta_regions(m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas):
+    """The output region and K slice of every CTA, as csrc/matmul.cu places
+    them: CTA b runs sub-tile (b % per_tile) // split_k (along N first; a
+    64-column strip in the rows body) and K slice b % split_k of logical
+    tile b // per_tile (in the schedule's order), masked at that logical
+    tile's edge.  Yields (b, logical tile (m0, m1, n0, n1), CTA region,
+    slice j, (k0, k1))."""
     cdiv = lambda a, b: -(-a // b)  # noqa: E731
     tiles_m, tiles_n = cdiv(m, tile_m), cdiv(n, tile_n)
     sub_m, sub_n = cdiv(min(tile_m, m), cta_m), cdiv(min(tile_n, n), cta_n)
-    assert tiles_m * tiles_n * sub_m * sub_n == ctas
+    per_tile = sub_m * sub_n * split_k
+    assert tiles_m * tiles_n * per_tile == ctas
+    k_slice = mm.rows_k_slice(k, split_k)
     for b in range(ctas):
-        t, s = divmod(b, sub_m * sub_n)
+        t, rem = divmod(b, per_tile)
+        s, j = divmod(rem, split_k)
         tm, tn = divmod(t, tiles_n) if m_outer else (t % tiles_m, t // tiles_m)
         m0, n0 = tm * tile_m, tn * tile_n
         m1, n1 = min(m0 + tile_m, m), min(n0 + tile_n, n)
         cm0, cn0 = m0 + (s // sub_n) * cta_m, n0 + (s % sub_n) * cta_n
         if cm0 < m1 and cn0 < n1:   # a ragged logical tile may need fewer CTAs
-            yield b, (m0, m1, n0, n1), (cm0, min(cm0 + cta_m, m1), cn0, min(cn0 + cta_n, n1))
+            yield (b, (m0, m1, n0, n1), (cm0, min(cm0 + cta_m, m1), cn0, min(cn0 + cta_n, n1)),
+                   j, (j * k_slice, min((j + 1) * k_slice, k)))
 
 
 def _launch_case(kind, class_id, dtype, e, m, n, k, tiles):
@@ -243,35 +249,59 @@ GEOMETRY_CASES = [
     ("K1g", "moe_gemm_silu_glu", 8, 300, 1000, 32, None),
     ("K1g", "moe_gemm", 8, 256, 6144, 64, None),
     ("K1g", "moe_gemm_silu_glu", 8, 256, 4096, 64, None),
+    # the rows body at decode (M = 4 slots) with K split across CTAs, ragged
+    # strips and slices, GLU, an N tile of 500 and a custom 8-row tile
+    ("K1", "matmul", 1, 4, 3072, 3072, None),
+    ("K1", "matmul_silu_glu", 1, 4, 1000, 1000, None),
+    ("K1", "matmul", 1, 3, 200, 3000, None),
+    ("K1", "matmul_lmhead", 1, 4, 4000, 3072, None),
+    ("K1", "matmul_gelu_glu", 1, 13, 200, 777, (8, 96)),
+    ("K1g", "moe_gemm_silu_glu", 8, 4, 1024, 2048, None),
+    ("K1g", "moe_gemm", 3, 13, 64, 600, (8, 64)),
+    ("K1g", "moe_gemm", 2, 4, 200, 1024, None),
 ]
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("kind,class_id,e,m,n,k,tiles", GEOMETRY_CASES)
 def test_cta_geometry_covers_every_output_once(dtype, kind, class_id, e, m, n, k, tiles):
-    """Every output element of each expert is covered by exactly one CTA; no
-    CTA crosses its logical tile's (and so its expert's) edge; the CTAs of
-    one logical tile are numbered consecutively; a GLU CTA starts on an even
-    column and spans whole pairs."""
+    """Every output element of each expert is covered by exactly one CTA in
+    each K slice, and the K slices partition K; no CTA crosses its logical
+    tile's (and so its expert's) edge; the CTAs of one logical tile are
+    numbered consecutively; a GLU CTA starts on an even column and spans
+    whole pairs."""
     dt = getattr(torch, dtype)
     m, n, tile_m, tile_n, m_outer, e = _launch_case(kind, class_id, dt, e, m, n, k, tiles)
-    body, cta_m, cta_n, ctas = mm.launch_geometry(dt, m, n, tile_m, tile_n, e)
+    body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(dt, m, n, k, tile_m, tile_n, e)
     assert body == mm.body_for(dt, tile_m)
     if body == "mma":
         assert (cta_m, cta_n) in mm.MMA_CTA_TILES
+    elif body == "rows":
+        assert (cta_m, cta_n) == (tile_m, mm.ROWS_CTA_N)
+        assert (cta_n, split_k, ctas) == mm.rows_geometry(m, n, k, tile_m, tile_n, e)
     else:
         assert (cta_m, cta_n) == (tile_m, tile_n)
-    cover = np.zeros((m, n), dtype=np.int64)
+    assert split_k >= 1 and (body == "rows" or split_k == 1)
+    cover = np.zeros((split_k, m, n), dtype=np.int64)
+    slices = {}
     first = {}
-    for b, (m0, m1, n0, n1), (cm0, cm1, cn0, cn1) in _cta_regions(
-            m, n, tile_m, tile_n, m_outer, cta_m, cta_n, ctas):
+    for b, (m0, m1, n0, n1), (cm0, cm1, cn0, cn1), j, (k0, k1) in _cta_regions(
+            m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas):
         assert m0 <= cm0 < cm1 <= m1 <= m and n0 <= cn0 < cn1 <= n1 <= n
         first.setdefault((m0, n0), b)
-        assert b - first[(m0, n0)] < -(-min(tile_m, m) // cta_m) * -(-min(tile_n, n) // cta_n)
+        assert b - first[(m0, n0)] < (-(-min(tile_m, m) // cta_m) * -(-min(tile_n, n) // cta_n)
+                                      * split_k)
         if class_id in GLU_CLASSES:
             assert cn0 % 2 == 0 and (cn1 - cn0) % 2 == 0
-        cover[cm0:cm1, cn0:cn1] += 1
+        cover[j, cm0:cm1, cn0:cn1] += 1
+        slices[j] = (k0, k1)
     assert (cover == 1).all()
+    # the K slices partition K, in order, none empty
+    assert sorted(slices) == list(range(split_k))
+    bounds = [slices[j] for j in range(split_k)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(k0 < k1 for k0, k1 in bounds)
+    assert all(bounds[j][1] == bounds[j + 1][0] for j in range(split_k - 1))
 
 
 # CTA tile and count of the mma body at the main path's 256-row prefill
@@ -293,7 +323,7 @@ def test_cta_geometry_at_main_path_shapes(e, m, n, want):
                         **({} if e == 1 else {"E": e}))
     cs = ops.schedule_for(inst)
     assert (cs.t["M"], cs.t["N"]) == (128, 512)
-    assert mm.launch_geometry(torch.bfloat16, m, n, 128, 512, e) == ("mma", *want)
+    assert mm.launch_geometry(torch.bfloat16, m, n, 64, 128, 512, e) == ("mma", *want[:2], 1, want[2])
     # one CTA per SM at least, or the smallest CTA tile where M·N is too small for that
     assert e * want[2] >= mm.SMS or want[:2] == mm.MMA_CTA_TILES[-1]
 
@@ -307,10 +337,10 @@ def test_body_follows_dtype_and_m_tile():
     assert mm.body_for(torch.bfloat16, 16) == mm.body_for(torch.float32, 16) == "rows"
     for m in (1, 4, 16):   # decode: the default M tile is the slot count
         cs = ops.schedule_for(ops.instance("matmul", torch.bfloat16, M=m, N=3072, K=3072))
-        assert mm.launch_geometry(torch.bfloat16, m, 3072, cs.t["M"], cs.t["N"])[0] == "rows"
+        assert mm.launch_geometry(torch.bfloat16, m, 3072, 3072, cs.t["M"], cs.t["N"])[0] == "rows"
     cs = ops.schedule_for(ops.instance("moe_router", torch.float32, M=256, N=8, K=6144))
-    assert mm.launch_geometry(torch.float32, 256, 8, cs.t["M"], cs.t["N"]) == ("fma", 128, 8, 2)
-    assert mm.launch_geometry(torch.bfloat16, 256, 3072, 64, 64) == ("mma", 64, 64, 192)
+    assert mm.launch_geometry(torch.float32, 256, 8, 6144, cs.t["M"], cs.t["N"]) == ("fma", 128, 8, 1, 2)
+    assert mm.launch_geometry(torch.bfloat16, 256, 3072, 3072, 64, 64) == ("mma", 64, 64, 1, 192)
     assert mm.tiled_geometry(40, 40, 40, 40) == (64, 64, 1)   # smaller than any CTA tile: masked
 
     saved = (mm.launches, mm.grouped_launches, mm.body_launches.copy())
@@ -323,6 +353,120 @@ def test_body_follows_dtype_and_m_tile():
     assert mm.body_count() == 0 and mm.launches == mm.grouped_launches == 0
     mm.launches, mm.grouped_launches = saved[:2]
     mm.body_launches.update(saved[2])
+
+
+# rows-body launches of the main path at decode (M = 4 slots, default
+# schedules: 4 x 512 tiles; mixtral's experts 4 x 512 per expert):
+# (E, K, N, split_k, ctas per expert).  minitron-4b's q/o, k/v, MLP in and
+# out and LM head, rwkv6-1.6b's 2048^2, recurrentgemma-2b's gelu-GLU MLP in,
+# mixtral-8x22b's expert up and down GEMMs
+MAIN_PATH_DECODE = [
+    (1, 3072, 3072, 6, 288),
+    (1, 3072, 1024, 12, 192),
+    (1, 3072, 9216, 2, 288),
+    (1, 9216, 3072, 6, 288),
+    (1, 3072, 256000, 1, 4000),
+    (1, 2048, 2048, 8, 256),
+    (1, 2560, 15360, 2, 480),
+    (8, 6144, 32768, 1, 512),
+    (8, 16384, 6144, 1, 96),
+]
+
+
+@pytest.mark.parametrize("e,k,n,split_k,ctas", MAIN_PATH_DECODE)
+def test_rows_geometry_at_main_path_decode_shapes(e, k, n, split_k, ctas):
+    """Each decode launch fills the card: at least one CTA per SM over all
+    experts (two where K allows a split), K split only where the strips
+    alone launch fewer than two per SM."""
+    inst = ops.instance("matmul" if e == 1 else "moe_gemm", torch.bfloat16, M=4 * e, N=n, K=k,
+                        **({} if e == 1 else {"E": e}))
+    cs = ops.schedule_for(inst)
+    tile_m, tile_n = min(cs.t["M"], 4), cs.t["N"]
+    assert (tile_m, tile_n) == (4, 512)
+    got = mm.launch_geometry(torch.bfloat16, 4, n, k, tile_m, tile_n, e)
+    assert got == ("rows", 4, mm.ROWS_CTA_N, split_k, ctas)
+    assert e * ctas >= mm.SMS
+    strips = e * ctas // split_k
+    assert (split_k == 1) == (strips >= mm.ROWS_MIN_CTAS)
+
+
+@pytest.mark.parametrize("k,n,tile_n,groups", [(3072, 3072, 512, 1), (3072, 1024, 512, 1),
+                                               (2048, 2048, 512, 1), (777, 100, 100, 1),
+                                               (16384, 6144, 512, 8), (640, 96, 96, 3),
+                                               (3000, 200, 200, 1), (3072, 256000, 512, 1)])
+def test_rows_split_k_does_not_change_with_m(k, n, tile_n, groups):
+    """split_k (and so each row's summation order) is a function of K, N,
+    the N tile and the expert count: the same at M = 1, the 4 decode slots,
+    16 rows and a prime 397-row prefill on 1-row tiles."""
+    geos = {m: mm.rows_geometry(m, n, k, tile_m, tile_n, groups)
+            for m, tile_m in ((1, 1), (4, 4), (16, 16), (397, 1), (13, 8))}
+    assert len({(cta_n, split_k) for cta_n, split_k, _ in geos.values()}) == 1
+    cta_n, split_k, _ = geos[4]
+    for m, tile_m in ((1, 1), (4, 4), (16, 16), (397, 1), (13, 8)):
+        assert geos[m][2] == -(-m // tile_m) * -(-n // tile_n) * -(-min(tile_n, n) // cta_n) * split_k
+    # a slice is never shorter than ROWS_MIN_SLICE unless K itself is
+    assert split_k == 1 or mm.rows_k_slice(k, split_k) >= mm.ROWS_MIN_SLICE
+
+
+def _attn_cta_rows(sq, tile_q, cta_q, ctas):
+    """Query rows of every CTA of one (b, h), as csrc/flash_attention.cu
+    places them: the mma body's CTA of rank r (launch order, heaviest
+    first) runs row block (ctas - 1 - r) % sub of logical tile
+    (ctas - 1 - r) // sub; the fma body one CTA per tile."""
+    sub = -(-min(tile_q, sq) // cta_q)
+    for rank in range(ctas):
+        idx = ctas - 1 - rank
+        t0 = (idx // sub) * tile_q
+        t1 = min(t0 + tile_q, sq)
+        r0 = t0 + (idx % sub) * cta_q
+        if r0 < t1:
+            yield rank, (t0, t1), (r0, min(r0 + cta_q, t1))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("sq,tile_q", [(512, 128), (128, 128), (256, 128), (397, 1), (181, 1),
+                                       (100, 128), (300, 96), (70, 16), (1, 1), (64, 64),
+                                       (200, 200)])
+def test_attention_geometry_covers_each_q_tile_once(dtype, sq, tile_q):
+    """Every query row is covered by exactly one CTA, no CTA crosses its
+    logical Q tile's edge, and (mma body) the last row blocks come first."""
+    dt = getattr(torch, dtype)
+    body, cta_q, ctas = fa.attention_geometry(dt, sq, tile_q)
+    assert body == fa.body_for(dt) == ("mma" if dt == torch.bfloat16 else "fma")
+    if body == "mma":
+        assert cta_q == fa.MMA_CTA_Q
+        assert ctas == -(-sq // tile_q) * -(-min(tile_q, sq) // fa.MMA_CTA_Q)
+    else:
+        assert (cta_q, ctas) == (tile_q, -(-sq // tile_q))
+    cover = np.zeros(sq, dtype=np.int64)
+    starts = []
+    for _, (t0, t1), (r0, r1) in _attn_cta_rows(sq, tile_q, cta_q, ctas):
+        assert t0 <= r0 < r1 <= t1 <= sq
+        cover[r0:r1] += 1
+        starts.append(r0)
+    assert (cover == 1).all()
+    if body == "mma":
+        assert starts == sorted(starts, reverse=True)
+
+
+def test_attention_geometry_at_main_path_prefill_shapes():
+    """1·24·512·128 (minitron, bucket 512) runs 8 CTAs per head, 192 in
+    all (96 before the CTA was decoupled from the 128-row logical tile)."""
+    cs = ops.schedule_for(ops.instance("flash_attention_causal", torch.bfloat16, Q=512, KV=512,
+                                       H=24, D=128, B=1, window=0))
+    assert cs.t["Q"] == 128
+    assert fa.attention_geometry(torch.bfloat16, 512, cs.t["Q"]) == ("mma", 64, 8)
+    assert 24 * fa.attention_geometry(torch.bfloat16, 512, cs.t["Q"])[2] == 192
+    assert fa.attention_geometry(torch.float32, 512, cs.t["Q"]) == ("fma", 128, 4)
+
+    saved = (fa.launches, fa.body_launches.copy())
+    fa.body_launches.update({("mma", torch.bfloat16): 3, ("fma", torch.float32): 1})
+    assert fa.body_count("mma") == 3 and fa.body_count() == 4
+    assert fa.body_count("mma", dtype=torch.float32) == 0
+    fa.reset_launches()
+    assert fa.body_count() == 0 and fa.launches == 0
+    fa.launches = saved[0]
+    fa.body_launches.update(saved[1])
 
 
 def _attn_data(b, hq, hkv, sq, skv, d, seed=0):
