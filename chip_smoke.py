@@ -29,11 +29,14 @@ toolkit.  Phases, one result line each:
    time and device time), with its CTA count;
 5. scans — the rwkv6 (wkv6) and RG-LRU scan kernels against their plain
    versions, bf16 and f32, from a non-zero initial state: decode (T = 1), a
-   prime T (default T tile 1), T = 256 under T tiles 2, 8, 64 and the
-   default (y and state bit-identical across tiles), head dims 16 and 64,
-   1 and 3 heads, 2560 channels and a ragged 12 under a tile of 8, and
-   state continuation (two scans from the returned state equal one, bit for
-   bit); then the main-path shapes timed beside the plain versions;
+   prime T (default T tile 1), head dims 16, 32 and 64, 1 to 3 heads, 2560
+   channels, a ragged 12 under a tile of 8 and 100 (element-wise staging);
+   bit for bit: T = 256 under T tiles 1, 2, 8, 64, 256 and the default,
+   (RG-LRU) C tiles 8, 512 and 2560, state continuation (two scans from the
+   returned state equal one), a batch row at B = 1 and at B = 4, and two
+   runs; then the main-path shapes, each with its CTA count from the
+   kernel's geometry function, timed by events and on the device beside
+   the plain versions;
 6. grouped — the grouped (MoE expert) matmul kernel against its plain
    version in both classes (``moe_gemm_silu_glu``, ``moe_gemm``), bf16 and
    f32: 1, 3 and 8 experts, decode-shaped 4 rows per expert, a ragged row
@@ -65,7 +68,14 @@ toolkit.  Phases, one result line each:
    the most device time.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and the
-last line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
+last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --scans-ab PARENT
+
+times the scan kernels of another tree (``PARENT``, a checkout with its
+own ``src/``; say, the parent commit unpacked with ``git archive``) against
+this tree's at the main-path shapes, in turns (parent, this, this, parent),
+each turn in its own process, and prints the same-call ratios.  Any failure raises: the script
 exits non-zero and prints no result.  Times come from CUDA events, each
 launch after an L2 flush (the serving path reads weights cold); they
 include the host's time to enqueue the call, which is most of a decode-sized
@@ -147,8 +157,7 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def import_port():
-    src = ROOT / "src"
+def import_port(src: Path = ROOT / "src"):
     if not (src / "repro_torch" / "__init__.py").is_file():
         raise SystemExit(f"chip_smoke.py: the port is not beside this script ({src}/repro_torch)")
     sys.path.insert(0, str(src))
@@ -182,27 +191,30 @@ class Timer:
             times.append(s.elapsed_time(e))
         return statistics.median(times)
 
-    def device_ms(self, fn, iters: int = 10) -> float:
+    def device_ms(self, fn, iters: int = 10, captures: int = 3) -> float:
         """Mean device time per call: the summed durations of the kernels one
         call launches, each call after an L2 flush, from a torch.profiler
         trace (the flush's own kernel left out).  Unlike :meth:`ms`, it leaves
-        out the host's time to enqueue the call."""
+        out the host's time to enqueue the call.  A capture now and then
+        delivers no device events at all; it is taken again, up to
+        ``captures`` times."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "FillFunctor" not in e.name and "Memset" not in e.name]
-        if not spans:
-            raise AssertionError("the profiler recorded no device time")
-        return sum(spans) / iters / 1e3
+        for _ in range(captures):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            spans = [e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "FillFunctor" not in e.name and "Memset" not in e.name]
+            if spans:
+                return sum(spans) / iters / 1e3
+        raise AssertionError(f"the profiler recorded no device time in {captures} captures")
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
@@ -513,30 +525,87 @@ def _rg_inputs(torch, g, b, t, c, dtype):
     return n(b, t, c).to(dtype), torch.sigmoid(n(b, t, c)).to(dtype), n(b, c)
 
 
-def phase_scans(torch, timer) -> dict:
+def _rw_cs(torch, dtype, b, h, t, d, tile_t=None):
     from repro_torch.core.schedule import Schedule, concretize
+    from repro_torch.kernels import ops
+
+    inst = ops.instance("rwkv6_scan", dtype, T=t, C=h * d, D=d, B=b)
+    if tile_t is None:
+        return ops.schedule_for(inst)
+    return concretize(Schedule.make("rwkv6_scan", {"T": tile_t, "C": h * d}, order=("C", "T")), inst)
+
+
+def _rg_cs(torch, dtype, b, t, c, tile_t=None, tile_c=None):
+    from repro_torch.core.schedule import Schedule, concretize
+    from repro_torch.kernels import ops
+
+    inst = ops.instance("rglru_scan", dtype, T=t, C=c, B=b)
+    if tile_t is None and tile_c is None:
+        return ops.schedule_for(inst)
+    dflt = ops.schedule_for(inst).t
+    return concretize(Schedule.make("rglru_scan", {"T": tile_t or dflt["T"], "C": tile_c or dflt["C"]},
+                                    order=("C", "T")), inst)
+
+
+# main-path shapes, bf16: rwkv6-1.6b (B, H, T, D, T tile; None: the default
+# schedule's) and recurrentgemma-2b (B, T, C): a bucket-sized prefill,
+# 4-slot decode and a prime-length prefill (default T tile 1)
+RW_MAIN = ((1, 32, 256, 64, None), (4, 32, 1, 64, None), (1, 32, 397, 64, None),
+           (1, 32, 397, 64, 397))
+RG_MAIN = ((1, 256, 2560), (4, 1, 2560), (1, 397, 2560))
+
+
+def scan_bounds(kind: str, shape: tuple) -> tuple[float, str]:
+    """The least time for one scan: every input and output once over HBM,
+    or 7 f32 operations per state element per token on the CUDA cores."""
+    if kind == "rwkv6":
+        b, h, t, d = shape[:4]
+        nbytes = 5 * b * h * t * d * 2 + h * d * 4 + 2 * b * h * d * d * 4
+        return bound_ms(nbytes, 7 * b * h * t * d * d, F32_CUDA_CORE_FLOPS)
+    b, t, c = shape
+    return bound_ms(3 * b * t * c * 2 + 2 * b * c * 4, 7 * b * t * c, F32_CUDA_CORE_FLOPS)
+
+
+def time_scans(torch, timer, plain: bool = True) -> list:
+    """The scan kernels of the ``repro_torch`` on ``sys.path`` at the main-path
+    shapes: each checked against its plain version, then timed by events
+    and on the device (and the plain version by events, if ``plain``).
+    Takes only the wrappers' ``launch``, so it times an older tree's
+    kernels alike."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    cases = [("rwkv6", s, _rw_inputs(torch, g, *s[:4], torch.bfloat16, near_one=True),
+              _rw_cs(torch, torch.bfloat16, *s), rw.launch, ref.rwkv6_scan) for s in RW_MAIN]
+    cases += [("rglru", s, _rg_inputs(torch, g, *s, torch.bfloat16), _rg_cs(torch, torch.bfloat16, *s),
+               rg.launch, ref.rglru_scan) for s in RG_MAIN]
+    for kind, shape, x, cs, kernel, ref_fn in cases:
+        y, s = kernel(*x, cs)
+        yr, sr = ref_fn(*x)
+        err = max(assert_close(torch, y, yr, BF16_TOL, f"{kind} main shape"),
+                  assert_close(torch, s, sr, STATE_TOL, f"{kind} main shape state"))
+        b_ms, b_by = scan_bounds(kind, shape)
+        dims = ("B", "H", "T", "D") if kind == "rwkv6" else ("B", "T", "C")
+        row = {"kind": kind, **dict(zip(dims, shape)), "tiles": cs.t, "max_abs_err": err,
+               "ms": timer.ms(lambda: kernel(*x, cs)),
+               "device_ms": timer.device_ms(lambda: kernel(*x, cs)),
+               "plain_ms": timer.ms(lambda: ref_fn(*x), iters=5) if plain else None,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+    return rows
+
+
+def phase_scans(torch, timer) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as rw
 
     g = torch.Generator(device="cuda").manual_seed(3)
-
-    def rw_cs(dtype, b, h, t, d, tile_t=None):
-        inst = ops.instance("rwkv6_scan", dtype, T=t, C=h * d, D=d, B=b)
-        if tile_t is None:
-            return ops.schedule_for(inst)
-        return concretize(Schedule.make("rwkv6_scan", {"T": tile_t, "C": h * d},
-                                        order=("C", "T")), inst)
-
-    def rg_cs(dtype, b, t, c, tile_t=None, tile_c=None):
-        inst = ops.instance("rglru_scan", dtype, T=t, C=c, B=b)
-        if tile_t is None and tile_c is None:
-            return ops.schedule_for(inst)
-        dflt = ops.schedule_for(inst).t
-        return concretize(Schedule.make("rglru_scan", {"T": tile_t or dflt["T"],
-                                                       "C": tile_c or dflt["C"]},
-                                        order=("C", "T")), inst)
-
+    rw_cs = lambda *a, **k: _rw_cs(torch, *a, **k)
+    rg_cs = lambda *a, **k: _rg_cs(torch, *a, **k)
     errs = {"rwkv6": {}, "rglru": {}}
 
     def check(kind, name, x, cs, tol):
@@ -552,20 +621,24 @@ def phase_scans(torch, timer) -> dict:
         if not all(torch.equal(p, q) for p, q in zip(a, b)):
             raise AssertionError(f"{what}: y or the state is not bit-identical")
 
+    bits = collections.Counter()   # bit-exact checks passed, by contract
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         dn = ops.dtype_name(dtype)
         # K3: decode, prime T (default T tile 1), head dims 16/64, 1 and 3 heads
         for b, h, t, d, near in ((2, 1, 1, 16, False), (4, 3, 1, 64, True),
                                  (1, 3, 97, 64, False), (2, 1, 97, 16, True),
-                                 (1, 3, 256, 16, True)):
+                                 (1, 3, 256, 16, True), (2, 2, 50, 32, False)):
             check("rwkv6", f"rwkv6/{dn}/{b}x{h}x{t}x{d}",
                   _rw_inputs(torch, g, b, h, t, d, dtype, near), rw_cs(dtype, b, h, t, d), tol)
         b, h, t, d = 1, 3, 256, 64
         x = _rw_inputs(torch, g, b, h, t, d, dtype)
         full = check("rwkv6", f"rwkv6/{dn}/T{t}/default", x, rw_cs(dtype, b, h, t, d), tol)
-        for ct in (2, 8, 64):
+        same(rw.launch(*x, rw_cs(dtype, b, h, t, d)), full, f"rwkv6 {dn} second run")
+        bits["rwkv6 runs"] += 1
+        for ct in (1, 2, 8, 64, t):
             same(check("rwkv6", f"rwkv6/{dn}/T{t}/tile{ct}", x, rw_cs(dtype, b, h, t, d, ct), tol),
                  full, f"rwkv6 {dn} T tile {ct}")
+            bits["rwkv6 T tiles"] += 1
         t1 = 100   # continuation: [0:t1], then [t1:T] from the returned state
         r, k, v, w, u, s0 = x
         part = [z[:, :, :t1].contiguous() for z in (r, k, v, w)]
@@ -573,65 +646,99 @@ def phase_scans(torch, timer) -> dict:
         ya, sa = check("rwkv6", f"rwkv6/{dn}/cont1", (*part, u, s0), rw_cs(dtype, b, h, t1, d), tol)
         yb, sb = check("rwkv6", f"rwkv6/{dn}/cont2", (*rest, u, sa), rw_cs(dtype, b, h, t - t1, d), tol)
         same((torch.cat([ya, yb], dim=2), sb), full, f"rwkv6 {dn} state continuation")
+        bits["rwkv6 continuation"] += 1
+        # a batch row's bits do not depend on B: row 2 of B = 4 against B = 1
+        for t in (1, 97):
+            r, k, v, w, u, s0 = x4 = _rw_inputs(torch, g, 4, 2, t, 64, dtype, True)
+            y4, s4 = check("rwkv6", f"rwkv6/{dn}/B4xT{t}", x4, rw_cs(dtype, 4, 2, t, 64), tol)
+            one = [z[2:3].contiguous() for z in (r, k, v, w)]
+            same(rw.launch(*one, u, s0[2:3].contiguous(), rw_cs(dtype, 1, 2, t, 64)),
+                 (y4[2:3], s4[2:3]), f"rwkv6 {dn} T={t} row at B = 1 and B = 4")
+            bits["rwkv6 B=1 vs B=4"] += 1
 
         # K4: decode, prime T, full width under the default C tile, a C tile
-        # above 1024 threads, a ragged C under a tile of 8
+        # above 1024 channels, a ragged C under a tile of 8
         for b, t, c, tile_c in ((2, 1, 2560, None), (4, 1, 2560, None), (1, 97, 2560, None),
-                                (1, 64, 2560, 2560), (2, 33, 12, None), (2, 33, 12, 8)):
+                                (1, 64, 2560, 2560), (2, 33, 12, None), (2, 33, 12, 8),
+                                (1, 40, 100, None)):
             check("rglru", f"rglru/{dn}/{b}x{t}x{c}/c{tile_c}", _rg_inputs(torch, g, b, t, c, dtype),
                   rg_cs(dtype, b, t, c, tile_c=tile_c), tol)
         b, t, c = 1, 256, 2560
         x = _rg_inputs(torch, g, b, t, c, dtype)
         full = check("rglru", f"rglru/{dn}/T{t}/default", x, rg_cs(dtype, b, t, c), tol)
-        for ct in (2, 8, 64):
+        same(rg.launch(*x, rg_cs(dtype, b, t, c)), full, f"rglru {dn} second run")
+        bits["rglru runs"] += 1
+        for ct in (1, 2, 8, 64, t):
             same(check("rglru", f"rglru/{dn}/T{t}/tile{ct}", x, rg_cs(dtype, b, t, c, tile_t=ct), tol),
                  full, f"rglru {dn} T tile {ct}")
+            bits["rglru T tiles"] += 1
+        for cc in (8, 512, c):
+            same(check("rglru", f"rglru/{dn}/T{t}/ctile{cc}", x, rg_cs(dtype, b, t, c, tile_c=cc), tol),
+                 full, f"rglru {dn} C tile {cc}")
+            bits["rglru C tiles"] += 1
         xs, a, h0 = x
         ya, ha = check("rglru", f"rglru/{dn}/cont1", (xs[:, :t1].contiguous(), a[:, :t1].contiguous(), h0),
                        rg_cs(dtype, b, t1, c), tol)
         yb, hb = check("rglru", f"rglru/{dn}/cont2", (xs[:, t1:].contiguous(), a[:, t1:].contiguous(), ha),
                        rg_cs(dtype, b, t - t1, c), tol)
         same((torch.cat([ya, yb], dim=1), hb), full, f"rglru {dn} state continuation")
+        bits["rglru continuation"] += 1
+        for t in (1, 97):
+            xs, a, h0 = x4 = _rg_inputs(torch, g, 4, t, c, dtype)
+            y4, h4 = check("rglru", f"rglru/{dn}/B4xT{t}", x4, rg_cs(dtype, 4, t, c), tol)
+            same(rg.launch(*(z[2:3].contiguous() for z in x4), rg_cs(dtype, 1, t, c)),
+                 (y4[2:3], h4[2:3]), f"rglru {dn} T={t} row at B = 1 and B = 4")
+            bits["rglru B=1 vs B=4"] += 1
     for kind in errs:
         log(f"{kind}_checks", checks=len(errs[kind]), max_abs_err=max(errs[kind].values()),
-            tol=BF16_TOL, f32_tol=F32_TOL, state_tol=STATE_TOL)
+            tol=BF16_TOL, f32_tol=F32_TOL, state_tol=STATE_TOL,
+            bit_exact={k: n for k, n in bits.items() if k.startswith(kind)})
 
-    # main-path shapes, bf16: prefill (a bucket-sized and a prime T) and 4-slot decode
     out = {"rwkv6": [], "rglru": []}
-    for b, h, t, d, tile_t in ((1, 32, 256, 64, None), (4, 32, 1, 64, None),
-                               (1, 32, 397, 64, None), (1, 32, 397, 64, 397)):
-        x = _rw_inputs(torch, g, b, h, t, d, torch.bfloat16, near_one=True)
-        cs = rw_cs(torch.bfloat16, b, h, t, d, tile_t)
-        y, s = rw.launch(*x, cs)
-        yr, sr = ref.rwkv6_scan(*x)
-        err = max(assert_close(torch, y, yr, BF16_TOL, "rwkv6 main shape"),
-                  assert_close(torch, s, sr, STATE_TOL, "rwkv6 main shape state"))
-        nbytes = 5 * b * h * t * d * 2 + h * d * 4 + 2 * b * h * d * d * 4
-        b_ms, b_by = bound_ms(nbytes, 7 * b * h * t * d * d, F32_CUDA_CORE_FLOPS)
-        row = {"B": b, "H": h, "T": t, "D": d, "tiles": cs.t, "ctas": b * h, "max_abs_err": err,
-               "ms": timer.ms(lambda: rw.launch(*x, cs)),
-               "plain_ms": timer.ms(lambda: ref.rwkv6_scan(*x), iters=5),
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        out["rwkv6"].append(row)
-        log("rwkv6_shape", **row)
-    for b, t, c in ((1, 256, 2560), (4, 1, 2560), (1, 397, 2560)):
-        x = _rg_inputs(torch, g, b, t, c, torch.bfloat16)
-        cs = rg_cs(torch.bfloat16, b, t, c)
-        y, s = rg.launch(*x, cs)
-        yr, sr = ref.rglru_scan(*x)
-        err = max(assert_close(torch, y, yr, BF16_TOL, "rglru main shape"),
-                  assert_close(torch, s, sr, STATE_TOL, "rglru main shape state"))
-        b_ms, b_by = bound_ms(3 * b * t * c * 2 + 2 * b * c * 4, 7 * b * t * c, F32_CUDA_CORE_FLOPS)
-        row = {"B": b, "T": t, "C": c, "tiles": cs.t, "ctas": b * cs.g["C"], "max_abs_err": err,
-               "ms": timer.ms(lambda: rg.launch(*x, cs)),
-               "plain_ms": timer.ms(lambda: ref.rglru_scan(*x), iters=5),
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        out["rglru"].append(row)
-        log("rglru_shape", **row)
+    for row in time_scans(torch, timer):
+        kind = row.pop("kind")
+        if kind == "rwkv6":
+            geo = rw.scan_geometry(row["B"], row["H"], row["T"], row["D"], row["tiles"]["T"])
+            row.update(cta_cols=geo[0], key_split=geo[1], stage_t=geo[2], ctas=geo[3])
+        else:
+            geo = rg.scan_geometry(row["B"], row["T"], row["C"], row["tiles"]["T"], row["tiles"]["C"])
+            row.update(cta_c=geo[0], stage_t=geo[1], ctas=geo[2])
+        out[kind].append(row)
+        log(f"{kind}_shape", **row)
     for kind in out:
         out[kind] = {"shapes": out[kind],
                      "max_abs_err": max([*errs[kind].values(), *(r["max_abs_err"] for r in out[kind])])}
     return out
+
+
+def scans_ab(parent: Path) -> int:
+    """The scan kernels of the tree at ``parent`` (say, an unpacked parent
+    commit) and of this tree, timed at the main-path shapes in turns —
+    parent, this, this, parent — each turn in its own process with that
+    tree's ``src`` first on the path.  Prints each turn's rows, then per
+    shape the mean device and event times and their ratios (parent / this)."""
+    turns = [("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)]
+    got = collections.defaultdict(list)
+    for who, tree in turns:
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--time-scans",
+                              str(tree / "src")], capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            sys.stderr.write(out.stderr[-4000:])
+            raise AssertionError(f"timing the scans of {tree} failed ({out.returncode})")
+        for line in out.stdout.splitlines():
+            row = json.loads(line)
+            log("scan_turn", who=who, **row)
+            got[(row["kind"], str(row["B"]), str(row["T"]), str(row["tiles"]["T"]), who)].append(row)
+    for key in sorted({k[:4] for k in got}):
+        mean = {who: {m: statistics.mean(r[m] for r in got[(*key, who)]) for m in ("ms", "device_ms")}
+                for who in ("parent", "this")}
+        log("scan_ab", kind=key[0], B=int(key[1]), T=int(key[2]), tile_t=int(key[3]),
+            parent_device_ms=mean["parent"]["device_ms"], device_ms=mean["this"]["device_ms"],
+            device_ratio=mean["parent"]["device_ms"] / mean["this"]["device_ms"],
+            parent_ms=mean["parent"]["ms"], ms=mean["this"]["ms"],
+            ratio=mean["parent"]["ms"] / mean["this"]["ms"])
+    print(nvidia_smi())
+    return 0
 
 
 def phase_prime_matmul(torch, timer) -> list:
@@ -1062,12 +1169,23 @@ def phase_serve(torch, arch: str) -> dict:
     return row
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 1
+    if argv[:1] == ["--scans-ab"] and len(argv) == 2:
+        return scans_ab(Path(argv[1]).resolve())
+    if argv[:1] == ["--time-scans"] and len(argv) == 2:   # one turn of --scans-ab
+        import_port(Path(argv[1]))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for row in time_scans(torch, Timer(torch), plain=False):
+            print(json.dumps(row), flush=True)
+        return 0
+    if argv:
+        print(f"chip_smoke.py: unknown arguments {argv}", file=sys.stderr)
+        return 2
     import_port()
     smi = nvidia_smi()
     log("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1123,10 +1241,12 @@ def main() -> int:
          **timed(rep_fa, ("B", "Hq", "Hkv", "S", "D", "ctas"))},
         {"name": "rwkv6_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:86", "launches": served("rwkv6_scan"),
-         "max_abs_err": scr["rwkv6"]["max_abs_err"], **timed(rep_rw, ("B", "H", "T", "D"))},
+         "max_abs_err": scr["rwkv6"]["max_abs_err"], "device_ms": rep_rw["device_ms"],
+         **timed(rep_rw, ("B", "H", "T", "D", "ctas"))},
         {"name": "rglru_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:65", "launches": served("rglru_scan"),
-         "max_abs_err": scr["rglru"]["max_abs_err"], **timed(rep_rg, ("B", "T", "C"))},
+         "max_abs_err": scr["rglru"]["max_abs_err"], "device_ms": rep_rg["device_ms"],
+         **timed(rep_rg, ("B", "T", "C", "ctas"))},
         {"name": "grouped_matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:236", "launches": served("grouped_matmul"),
          "body": "rows", "max_abs_err": grr["max_abs_err"],
@@ -1150,4 +1270,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

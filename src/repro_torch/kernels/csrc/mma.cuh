@@ -1,26 +1,11 @@
 // Tensor-core helpers shared by the matmul's mma body and the attention's
-// mma body: cp.async staging into shared memory, ldmatrix operand loads and
-// the mma.sync m16n8k16 bf16 x bf16 -> f32 product.
+// mma body: ldmatrix operand loads and the mma.sync m16n8k16 bf16 x bf16 ->
+// f32 product (cp.async staging is in common.cuh).
 #pragma once
 
 #include "common.cuh"
 
 namespace repro {
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy global -> shared that reads `bytes` (0..16) and zero-fills the rest
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

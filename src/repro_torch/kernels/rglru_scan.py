@@ -7,23 +7,33 @@ Replaces the Pallas kernel ``src/repro/kernels/rglru_scan.py``
 channels and sequential over time.  x and a are bf16 or f32 (one dtype); the
 state is f32; y comes back in x's dtype.
 
+The launch layout (:func:`scan_geometry`, :func:`cta_channels`) is
+decoupled from the schedule's C tile: a CTA covers :data:`CTA_C` channels
+of one batch row and never crosses a logical C tile's edge — 80 CTAs per
+batch row at recurrentgemma-2b's 2560 channels under the default
+512-channel tile.  In a CTA one warp runs the recurrence, a lane per
+channel, so its critical path is one FMA per token; eight helper warps
+stage x and a :data:`STAGE_T` tokens at a time through a 4-stage
+``cp.async`` ring and work out the input factor ``sqrt(max(1 − a², 0))·x``
+ahead of the chain.  Every channel runs the same arithmetic whatever the
+layout, so y and the state are bit-identical across C tiles, T tiles and
+batch sizes, and when a scan is continued from its returned state.  The
+kernel re-checks the layout and refuses a mismatch.
+
 How the :class:`~repro_torch.core.schedule.ConcreteSchedule` maps onto the
 kernel:
 
-* ``tiles["C"]`` — the CTA's logical channel tile.  One CTA per (batch, C
-  tile), one thread per channel, walked in blocks of at most 1024 threads;
-  the ragged C edge is masked.
-* ``tiles["T"]`` — not used: each thread streams its channel's x and a
-  straight from device memory over the whole sequence (the TPU chunked time
-  to fit VMEM; here there is nothing to share between threads).  y and the
-  state are therefore identical across T tiles.
+* ``tiles["C"]`` — the logical channel tile: the unit the CTAs are laid
+  out in (``ceil(min(tile, C) / CTA_C)`` CTAs per tile, the ragged C edge
+  masked).
+* ``tiles["T"]`` — not used: the stage is fixed (the TPU chunked time to
+  fit VMEM).
 * ``order``, ``parallel``, ``unroll``, ``vec`` — ignored (TPU compiler hints).
 
 What bounds it on the card: the bytes of x, a and y, read or written once
-(~6 f32 operations per element are far below the CUDA cores' rate).  Loads
-and stores are coalesced across neighbouring channels.  The default
-512-channel tile gives 5 CTAs per batch row at recurrentgemma-2b's 2560
-channels, which under-fills 132 SMs.
+(~7 f32 operations per element are far below the CUDA cores' rate).  Loads
+and stores are 16-byte chunks across neighbouring channels where C and the
+C tile allow it, element by element otherwise.
 
 A tensor on the CPU takes the plain version (:func:`repro_torch.kernels.ref.rglru_scan`);
 a CUDA tensor launches the kernel or raises.  ``launches`` counts launches.
@@ -36,6 +46,13 @@ from repro_torch.core.schedule import ConcreteSchedule
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.matmul import DTYPES
 
+#: channels per CTA (csrc/rglru_scan.cu kLruCtaC)
+CTA_C = 32
+#: tokens per shared-memory stage (kLruStageT)
+STAGE_T = 64
+#: batch rows the grid takes (its y dimension)
+MAX_BATCH = 65535
+
 #: kernel launches since the last reset (a plain count; see chip_smoke.py)
 launches = 0
 
@@ -43,6 +60,37 @@ launches = 0
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def scan_geometry(b: int, t: int, c: int, tile_t: int, tile_c: int) -> tuple[int, int, int]:
+    """(cta_c, stage_t, ctas) of a launch over (B, T, C) under (tile_t,
+    tile_c) logical tiles: channels per CTA, tokens per stage and the CTA
+    count, ``ceil(min(tile_c, C) / CTA_C)`` per C tile and batch row (a
+    ragged last tile may leave some empty).  The layout never depends on T
+    or the T tile.  Raises ``ValueError`` on a shape the kernel does not
+    take."""
+    if min(b, t, c, tile_t, tile_c) < 1 or b > MAX_BATCH:
+        raise ValueError(f"RG-LRU scan needs 1 <= B <= {MAX_BATCH} and T, C and both tiles "
+                         f">= 1, got {(b, t, c, tile_t, tile_c)}")
+    return CTA_C, STAGE_T, b * _cdiv(c, tile_c) * _cdiv(min(tile_c, c), CTA_C)
+
+
+def cta_channels(c: int, tile_c: int) -> list[range]:
+    """The channels each CTA of one batch row covers, in launch order, as
+    the kernel maps them: CTA i takes part ``i % per_tile`` of C tile
+    ``i // per_tile``, clipped to that tile and to C (empty where a ragged
+    last tile leaves it nothing)."""
+    per_tile = _cdiv(min(tile_c, c), CTA_C)
+    out = []
+    for i in range(_cdiv(c, tile_c) * per_tile):
+        tile, part = divmod(i, per_tile)
+        c0 = tile * tile_c + part * CTA_C
+        out.append(range(c0, max(c0, min(c0 + CTA_C, (tile + 1) * tile_c, c))))
+    return out
 
 
 def rglru_scan(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
@@ -65,8 +113,7 @@ def launch(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
         raise ValueError(f"RG-LRU scan takes x and a of one shape (B,T,C), "
                          f"got {tuple(x.shape)}, {tuple(a.shape)}")
     b, t, c = x.shape
-    if t < 1:
-        raise ValueError("RG-LRU scan needs at least one token")
+    cta_c, stage_t, ctas = scan_geometry(b, t, c, cs.t["T"], cs.t["C"])
     if tuple(state.shape) != (b, c):
         raise ValueError(f"state must be {(b, c)}, got {tuple(state.shape)}")
     if a.device != x.device or state.device != x.device:
@@ -81,8 +128,8 @@ def launch(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
     h_out = torch.empty_like(h0)
     lib = _build.library()
     rc = lib.repro_rglru_scan(x.data_ptr(), a.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                              h_out.data_ptr(), b, t, c, DTYPES[x.dtype], cs.t["C"],
-                              _build.stream_handle(x.device))
+                              h_out.data_ptr(), b, t, c, DTYPES[x.dtype], cs.t["T"], cs.t["C"],
+                              cta_c, stage_t, ctas, _build.stream_handle(x.device))
     _build.check(rc, "RG-LRU scan kernel")
     launches += 1
     return y, h_out

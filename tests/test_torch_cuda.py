@@ -182,6 +182,106 @@ def test_rglru_kernel_matches_plain(card, dtype, b, t, c, tile_c):
     _close(h, hr)
 
 
+def _scan_cs(class_id, dt, tiles=None, **dims):
+    from repro_torch.core.schedule import Schedule, concretize
+
+    inst = ops.instance(class_id, dt, **dims)
+    if tiles is None:
+        return ops.schedule_for(inst)
+    return concretize(Schedule.make(class_id, {**ops.schedule_for(inst).t, **tiles},
+                                    order=("C", "T")), inst)
+
+
+def _equal_bits(got, want):
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(got, want))
+
+
+SCAN_CONTRACTS = ("t_tiles", "continuation", "decode_steps", "batch_row", "two_runs")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("contract", SCAN_CONTRACTS)
+def test_rwkv6_kernel_bit_contracts(card, dtype, contract):
+    """y and the state bit for bit: under T tiles 1, 8 and T; split at t1
+    (mid-stage) and continued from the returned state; the last 3 tokens
+    as one-token (decode) steps after the rest; a batch row at B = 1
+    against B = 4; two runs."""
+    dt = getattr(torch, dtype)
+    b, h, t, d, t1 = 4, 2, 72, 64, 20
+    g = torch.Generator(device=card).manual_seed(11)
+    r, k, v = (torch.randn((b, h, t, d), generator=g, device=card).to(dt) for _ in range(3))
+    w = (0.05 + 0.9 * torch.sigmoid(torch.randn((b, h, t, d), generator=g, device=card))).to(dt)
+    u = torch.randn((h, d), generator=g, device=card)
+    s0 = torch.randn((b, h, d, d), generator=g, device=card)
+    cs = lambda b=b, t=t, tiles=None: _scan_cs("rwkv6_scan", dt, tiles, T=t, C=h * d, D=d, B=b)
+    whole = rw.launch(r, k, v, w, u, s0, cs())
+    if contract == "t_tiles":
+        for tile in (1, 8, t):
+            _equal_bits(rw.launch(r, k, v, w, u, s0, cs(tiles={"T": tile})), whole)
+    elif contract == "continuation":
+        ya, sa = rw.launch(*(z[:, :, :t1].contiguous() for z in (r, k, v, w)), u, s0, cs(t=t1))
+        yb, sb = rw.launch(*(z[:, :, t1:].contiguous() for z in (r, k, v, w)), u, sa, cs(t=t - t1))
+        _equal_bits((torch.cat([ya, yb], dim=2), sb), whole)
+    elif contract == "decode_steps":
+        ys, st = [], s0
+        for lo, hi in ((0, t - 3), (t - 3, t - 2), (t - 2, t - 1), (t - 1, t)):
+            yi, st = rw.launch(*(z[:, :, lo:hi].contiguous() for z in (r, k, v, w)), u, st, cs(t=hi - lo))
+            ys.append(yi)
+        _equal_bits((torch.cat(ys, dim=2), st), whole)
+    elif contract == "batch_row":
+        one = rw.launch(*(z[1:2].contiguous() for z in (r, k, v, w)), u, s0[1:2].contiguous(), cs(b=1))
+        _equal_bits(one, (whole[0][1:2], whole[1][1:2]))
+    else:
+        _equal_bits(rw.launch(r, k, v, w, u, s0, cs()), whole)
+    yr, sr = ref.rwkv6_scan(r, k, v, w, u, s0)
+    _close(whole[0], yr, TOL if dt == torch.float32 else BF16_TOL)
+    _close(whole[1], sr)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("contract", SCAN_CONTRACTS + ("c_tiles",))
+@pytest.mark.parametrize("c", [2560, 100])
+def test_rglru_kernel_bit_contracts(card, dtype, contract, c):
+    """y and the state bit for bit: under T tiles 1, 8 and T; under C tiles
+    8, 512 and C; split at t1 and continued from the returned state; the
+    last 3 tokens as one-token (decode) steps after the rest; a batch row at
+    B = 1 against B = 4; two runs.  C = 100 takes the element-wise staging
+    (rows not in whole 16-byte chunks)."""
+    dt = getattr(torch, dtype)
+    b, t, t1 = 4, 72, 40
+    g = torch.Generator(device=card).manual_seed(12)
+    x = torch.randn((b, t, c), generator=g, device=card).to(dt)
+    a = torch.sigmoid(torch.randn((b, t, c), generator=g, device=card)).to(dt)
+    h0 = torch.randn((b, c), generator=g, device=card)
+    cs = lambda b=b, t=t, tiles=None: _scan_cs("rglru_scan", dt, tiles, T=t, C=c, B=b)
+    whole = rg.launch(x, a, h0, cs())
+    if contract == "t_tiles":
+        for tile in (1, 8, t):
+            _equal_bits(rg.launch(x, a, h0, cs(tiles={"T": tile})), whole)
+    elif contract == "c_tiles":
+        for tile in (8, 512, c):
+            _equal_bits(rg.launch(x, a, h0, cs(tiles={"C": tile})), whole)
+    elif contract == "continuation":
+        ya, ha = rg.launch(x[:, :t1].contiguous(), a[:, :t1].contiguous(), h0, cs(t=t1))
+        yb, hb = rg.launch(x[:, t1:].contiguous(), a[:, t1:].contiguous(), ha, cs(t=t - t1))
+        _equal_bits((torch.cat([ya, yb], dim=1), hb), whole)
+    elif contract == "decode_steps":
+        ys, hs = [], h0
+        for lo, hi in ((0, t - 3), (t - 3, t - 2), (t - 2, t - 1), (t - 1, t)):
+            yi, hs = rg.launch(x[:, lo:hi].contiguous(), a[:, lo:hi].contiguous(), hs, cs(t=hi - lo))
+            ys.append(yi)
+        _equal_bits((torch.cat(ys, dim=1), hs), whole)
+    elif contract == "batch_row":
+        one = rg.launch(x[2:3].contiguous(), a[2:3].contiguous(), h0[2:3].contiguous(), cs(b=1))
+        _equal_bits(one, (whole[0][2:3], whole[1][2:3]))
+    else:
+        _equal_bits(rg.launch(x, a, h0, cs()), whole)
+    yr, hr = ref.rglru_scan(x, a, h0)
+    _close(whole[0], yr, TOL if dt == torch.float32 else BF16_TOL)
+    _close(whole[1], hr)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("class_id", ref.GROUPED_CLASSES)
 @pytest.mark.parametrize("e,m,n,k,tile_m", [(1, 6, 64, 40, None), (3, 20, 48, 33, None),

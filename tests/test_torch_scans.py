@@ -176,3 +176,82 @@ def test_scan_kernels_refuse_cpu_tensors_and_unknown_head_dims():
     with pytest.raises(ValueError, match="CUDA tensor"):
         rg.launch(x, a, h0, gcs)
     assert 64 in rw.HEAD_DIMS and 16 in rw.HEAD_DIMS and 48 not in rw.HEAD_DIMS
+
+
+def _default_tiles(cls, **params):
+    return ops.schedule_for(ops.instance(cls, torch.bfloat16, **params)).t
+
+
+def test_rwkv6_geometry_fills_the_card_at_the_main_shapes():
+    """rwkv6-1.6b (32 heads of 64) under its default schedules: at least
+    128 CTAs at a 256-token prefill, 512 at 4-slot decode (one CTA per
+    (batch, head) would launch 32 and 128)."""
+    tiles = _default_tiles("rwkv6_scan", T=256, C=2048, D=64, B=1)
+    cta_cols, split, stage_t, ctas = rw.scan_geometry(1, 32, 256, 64, tiles["T"])
+    assert ctas >= 128 and (cta_cols, split, stage_t) == (rw.CTA_COLS, 64 // rw.THREAD_ROWS, rw.STAGE_T)
+    tiles = _default_tiles("rwkv6_scan", T=1, C=2048, D=64, B=4)
+    assert rw.scan_geometry(4, 32, 1, 64, tiles["T"])[3] == 512
+
+
+@pytest.mark.parametrize("b,h,d", [(1, 32, 64), (4, 32, 64), (2, 3, 16), (1, 5, 32)])
+def test_rwkv6_geometry_does_not_depend_on_t_or_the_t_tile(b, h, d):
+    """Every (T, T tile), a prime T under its default tile of 1 included,
+    gets one layout: columns of the head split evenly over CTAs, key rows
+    evenly over a column's threads."""
+    base = rw.scan_geometry(b, h, 256, d, 128)
+    cta_cols, split, stage_t, ctas = base
+    assert d % cta_cols == 0 and split * rw.THREAD_ROWS == d and ctas == b * h * (d // cta_cols)
+    for t in (1, 2, 16, 17, 181, 397):
+        for tile in {1, 8, t, _default_tiles("rwkv6_scan", T=t, C=h * d, D=d, B=b)["T"]}:
+            assert rw.scan_geometry(b, h, t, d, tile) == base
+
+
+@pytest.mark.parametrize("args", [(1, 32, 256, 48, 128), (1, 32, 256, 128, 128), (0, 32, 256, 64, 128),
+                                  (1, 0, 256, 64, 128), (1, 32, 0, 64, 128), (1, 32, 256, 64, 0)])
+def test_rwkv6_geometry_refuses_invalid_arguments(args):
+    with pytest.raises(ValueError):
+        rw.scan_geometry(*args)
+
+
+def test_rglru_geometry_fills_the_card_at_the_main_shapes():
+    """recurrentgemma-2b (2560 channels) under its default schedules: at
+    least 40 CTAs at a 256-token prefill (one CTA per 512-channel C tile
+    would launch 5), and 320 at 4-slot decode."""
+    tiles = _default_tiles("rglru_scan", T=256, C=2560, B=1)
+    cta_c, stage_t, ctas = rg.scan_geometry(1, 256, 2560, tiles["T"], tiles["C"])
+    assert ctas >= 40 and (cta_c, stage_t) == (rg.CTA_C, rg.STAGE_T)
+    tiles = _default_tiles("rglru_scan", T=1, C=2560, B=4)
+    assert rg.scan_geometry(4, 1, 2560, tiles["T"], tiles["C"])[2] == 320
+
+
+@pytest.mark.parametrize("b,c,tile_c", [(1, 2560, 512), (4, 2560, 512), (2, 12, 8), (1, 100, 100),
+                                        (3, 70, 33)])
+def test_rglru_geometry_does_not_depend_on_t_or_the_t_tile(b, c, tile_c):
+    base = rg.scan_geometry(b, 256, c, 128, tile_c)
+    for t in (1, 2, 31, 33, 181, 397):
+        for tile_t in {1, 8, t, _default_tiles("rglru_scan", T=t, C=c, B=b)["T"]}:
+            assert rg.scan_geometry(b, t, c, tile_t, tile_c) == base
+
+
+@pytest.mark.parametrize("c,tile_c", [(2560, 512), (2560, 8), (2560, 2560), (12, 8), (100, 100),
+                                      (100, 48), (1000, 96), (70, 33), (5, 512), (31, 1)])
+def test_rglru_ctas_never_cross_a_c_tile_edge(c, tile_c):
+    """Each CTA's channels lie in one logical C tile, at most CTA_C of them;
+    together the CTAs cover every channel once; their count is the
+    geometry's."""
+    ranges = rg.cta_channels(c, tile_c)
+    assert len(ranges) * 3 == rg.scan_geometry(3, 7, c, 1, tile_c)[2]
+    seen = []
+    for rng in ranges:
+        assert len(rng) <= rg.CTA_C
+        if len(rng):
+            assert rng[0] // tile_c == rng[-1] // tile_c
+        seen.extend(rng)
+    assert seen == list(range(c))
+
+
+@pytest.mark.parametrize("args", [(0, 4, 8, 1, 8), (65536, 4, 8, 1, 8), (1, 0, 8, 1, 8),
+                                  (1, 4, 0, 1, 8), (1, 4, 8, 0, 8), (1, 4, 8, 1, 0)])
+def test_rglru_geometry_refuses_invalid_arguments(args):
+    with pytest.raises(ValueError):
+        rg.scan_geometry(*args)
