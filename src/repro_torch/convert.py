@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.lm import tied_head
 
 
 def _tensor(a: Any, device) -> torch.Tensor:
@@ -45,10 +46,13 @@ def _unstack(groups: dict, tail: list, cfg: ArchConfig, device) -> list:
 
 
 def params_from_jax(tree: dict, cfg: ArchConfig, device="cpu") -> dict:
-    """The reference's ``lm.init_params`` pytree -> the port's params."""
+    """The reference's ``lm.init_params`` pytree -> the port's params (with a
+    tied embedding's head copy, ``embed_t``, as ``lm.init_params`` holds it)."""
     out = {k: _map(lambda a: _tensor(a, device), v)
            for k, v in tree.items() if k not in ("groups", "tail")}
     out["layers"] = _unstack(tree["groups"], tree["tail"], cfg, device)
+    if cfg.tie_embeddings:
+        out["embed_t"] = tied_head(out["embed"])
     return out
 
 

@@ -1,24 +1,58 @@
-"""Schedule IR: a copy of ``repro.core.schedule``'s schedule, concretization
-and default schedules (the port imports nothing of ``repro``).
+"""Schedule IR: the TPU reformulation of the paper's schedule primitives, a
+copy of ``repro.core.schedule`` (the port imports nothing of ``repro``), so a
+kernel instance resolves to the same schedules in both packages.  The knobs
+model the TPU; which of them each CUDA kernel reads is written in its
+wrapper's docstring (:mod:`repro_torch.kernels.matmul`,
+:mod:`repro_torch.kernels.flash_attention`, ...) and returned by its
+``schedule_key``.
 
-A :class:`Schedule` stores absolute tile sizes, a loop order and the
-TPU-flavoured knobs (``parallel``, ``unroll``, ``vec``, ``cache_write``);
-:func:`concretize` binds it to one :class:`KernelInstance` exactly as the
-reference does, so a kernel instance resolves to the same
-:class:`ConcreteSchedule` in both packages.  How the CUDA kernels read each
-field is written in their wrappers' docstrings
-(:mod:`repro_torch.kernels.matmul`, :mod:`repro_torch.kernels.flash_attention`).
+Paper primitives (Algorithm 1) and their TPU/Pallas mapping:
+
+=================  ========================================================
+TVM primitive       This framework
+=================  ========================================================
+Split(ax, f)        ``tiles[ax] = f`` — BlockSpec block size for the axis.
+Reorder(...)        ``order`` — grid iteration order (outer→inner); changes
+                    which operand block stays VMEM-resident between
+                    consecutive grid steps, i.e. the HBM traffic pattern.
+Fuse + Parallel     ``parallel`` — number of leading grid axes given
+                    ``dimension_semantics="parallel"`` (Megacore/pipelining).
+Unroll(ax, n)       ``unroll`` — in-kernel sub-tile unroll factor for the
+                    innermost loop (instruction-overhead knob).
+Vectorize(ax)       ``vec`` — lane multiple the innermost tile must respect
+                    ((8,128) VREG tiling; misalignment wastes lanes).
+ComputeAt/Cache     ``cache_write`` — accumulate into an f32 VMEM scratch
+                    buffer instead of the (bf16) output block.
+=================  ========================================================
+
+A ``Schedule`` stores *absolute* tile sizes — exactly what an auto-scheduler
+measures on its source kernel.  Applying a schedule to another instance of
+the same class is *transfer-tuning*; ``concretize`` validates it:
+
+* ``strict``  — the paper's semantics: a tile that does not divide the new
+  extent (or exceeds it, or overflows VMEM) makes the transferred schedule
+  INVALID (the ``-1`` bars of paper Fig. 4).
+* ``adaptive`` — beyond-paper extension: reformulate the tile
+  shape-agnostically (paper §4.1's ``Split(N, N/8, 8)`` trick, generalized):
+  snap the tile to the nearest divisor of the new extent, preserving the
+  schedule's *structure*.  Recovers most invalid transfers; evaluated
+  separately in EXPERIMENTS.md.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping, Sequence
 
-from repro_torch.core.workload import KernelInstance, class_axes, class_family
+from repro_torch.core.workload import KernelInstance, class_axes
 
 
 class ScheduleInvalid(Exception):
     """Transferred schedule produces invalid code for this instance."""
+
+
+UNROLL_CHOICES = (0, 4, 16, 64, 512)
+VEC_CHOICES = (128, 256, 512)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +94,9 @@ class Schedule:
     def t(self) -> dict[str, int]:
         return dict(self.tiles)
 
+    def with_source(self, source: str) -> "Schedule":
+        return dataclasses.replace(self, source=source)
+
     def to_json(self) -> dict:
         return {
             "class_id": self.class_id,
@@ -71,6 +108,19 @@ class Schedule:
             "cache_write": self.cache_write,
             "source": self.source,
         }
+
+    @staticmethod
+    def from_json(d: Mapping) -> "Schedule":
+        return Schedule(
+            class_id=d["class_id"],
+            tiles=tuple((str(a), int(v)) for a, v in d["tiles"]),
+            order=tuple(d["order"]),
+            parallel=int(d["parallel"]),
+            unroll=int(d["unroll"]),
+            vec=int(d["vec"]),
+            cache_write=bool(d["cache_write"]),
+            source=d.get("source", ""),
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,31 +145,48 @@ class ConcreteSchedule:
     def order(self) -> tuple[str, ...]:
         return self.schedule.order
 
+    def trip_counts(self) -> tuple[int, ...]:
+        return tuple(n for _, n in self.grid)
+
+    def total_steps(self) -> int:
+        return math.prod(self.trip_counts())
+
+
+def divisors_leq(n: int, cap: int) -> list[int]:
+    return [d for d in range(1, min(n, cap) + 1) if n % d == 0]
+
 
 def nearest_divisor(n: int, target: int) -> int:
-    """Largest divisor of n that is <= target (n itself if none)."""
+    """Largest divisor of n that is <= target, else smallest divisor >= target."""
     below = [d for d in range(1, n + 1) if n % d == 0 and d <= target]
     if below:
         return below[-1]
-    return n
+    return n  # target < 1 cannot happen; fall back to full extent
 
 
-#: Axes whose partial tiles the kernels mask (token rows, output columns,
-#: both attention axes, scan channels).  Reduction-carrying axes stay strict.
+#: Axes whose partial tiles the kernels mask on TPU (cdiv grids with clipped
+#: OOB write-back / score masks): token rows (M), output columns (N — each
+#: output column depends only on its own weight column), both attention axes,
+#: and scan channels (C).  Reduction-carrying axes stay strict — a partial K
+#: tile would pollute the accumulation and a partial T chunk would corrupt
+#: the recurrent state — and those are exactly the splits that produce
+#: invalid transferred code, the analogue of the paper's Fig. 4 "-1" bars.
 MASKABLE_AXES = {"M", "N", "Q", "KV", "C"}
 
-#: GLU epilogues pair adjacent (gate, up) columns: an odd N tile splits pairs.
+#: GLU epilogues pair adjacent (gate, up) columns: a partial N tile is fine
+#: but an odd tile would split pairs.
 GLU_CLASSES = ("matmul_silu_glu", "matmul_gelu_glu", "moe_gemm_silu_glu")
 
 
 def concretize(schedule: Schedule, instance: KernelInstance, mode: str = "strict") -> ConcreteSchedule:
     """Bind a (possibly foreign) schedule to an instance.
 
-    strict:   raise ScheduleInvalid on any layout-critical mismatch
-              (maskable axes tolerate partial tiles).
-    adaptive: snap tiles to the nearest divisor of the new extent.
+    strict:   paper semantics — raise ScheduleInvalid on any layout-critical
+              mismatch (maskable row axes tolerate partial tiles).
+    adaptive: beyond-paper — shape-agnostic reformulation of tiles.
     """
     if schedule.class_id != instance.class_id:
+        # Across-class transfer is out of scope (paper §4.2): always invalid.
         raise ScheduleInvalid(
             f"class mismatch: schedule {schedule.class_id} vs instance {instance.class_id}"
         )
@@ -134,8 +201,10 @@ def concretize(schedule: Schedule, instance: KernelInstance, mode: str = "strict
         maskable = axis in MASKABLE_AXES
         if tile > extent:
             if maskable:
-                tile = extent
+                tile = extent  # one (partial) block — masked, still valid
             elif mode == "strict":
+                # Paper §4.2: "a loop splitting factor which is larger than
+                # the loop itself" → invalid code.
                 raise ScheduleInvalid(f"tile {axis}={tile} exceeds extent {extent}")
             else:
                 tile, adapted = extent, True
@@ -161,17 +230,33 @@ def concretize(schedule: Schedule, instance: KernelInstance, mode: str = "strict
     )
 
 
+def is_valid(schedule: Schedule, instance: KernelInstance, mode: str = "strict") -> bool:
+    try:
+        concretize(schedule, instance, mode=mode)
+        return True
+    except ScheduleInvalid:
+        return False
+
+
 # ---------------------------------------------------------------------------
-# Default (untuned) schedules
+# Default (untuned) schedules: the baseline every speedup is measured against,
+# playing the role of TVM's generic fallback schedules in the paper.
+# They are deliberately generic: small fixed tiles, natural order, no staging.
 # ---------------------------------------------------------------------------
+
 
 REDUCTION_AXIS = {"matmul": "K", "attention": "KV", "scan": "T"}
 
+#: Generic fallback tile targets — the analogue of TVM's hand-written
+#: default schedules (sensible blocking + staging, but shape-agnostic and
+#: therefore leaving the shape-specific headroom auto-scheduling recovers).
 _DEFAULT_TARGET = {"M": 128, "Q": 128, "T": 128, "N": 512, "KV": 512, "C": 512,
                    "K": 256, "E": 1}
 
 
 def default_schedule(instance: KernelInstance) -> Schedule:
+    from repro_torch.core.workload import class_family
+
     axes = class_axes(instance.class_id)
     tiles: dict[str, int] = {}
     for axis in axes:

@@ -102,6 +102,13 @@ def attention_geometry(dtype: torch.dtype, sq: int, tile_q: int) -> tuple[str, i
     return body, tile_q, tiles
 
 
+def schedule_key(cs: ConcreteSchedule) -> tuple[int]:
+    """What a launch reads of a concrete schedule: the Q tile.  The KV tile,
+    ``order``, ``parallel``, ``unroll``, ``vec`` and ``cache_write`` reach no
+    launch."""
+    return (cs.t["Q"],)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cs: ConcreteSchedule, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset: int = 0,

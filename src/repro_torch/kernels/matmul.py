@@ -145,6 +145,20 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def schedule_key(cs: ConcreteSchedule) -> tuple[int, int, bool]:
+    """What a launch reads of a concrete schedule: (M tile, N tile, M outer),
+    the tiles per expert for the grouped classes (clamped to one expert's
+    ``M / E`` rows and to N).  Schedules with one key launch the same kernel
+    in the same layout: the K and E tiles, ``parallel``, ``unroll``, ``vec``
+    and ``cache_write`` reach no launch."""
+    tile_m, tile_n = cs.t["M"], cs.t["N"]
+    p = cs.instance.p
+    if cs.instance.class_id in GROUPED_EPILOGUE:
+        tile_m, tile_n = min(tile_m, p["M"] // p["E"]), min(tile_n, p["N"])
+    order = [a for a in cs.order if a in ("M", "N")]
+    return tile_m, tile_n, order[0] == "M"
+
+
 def tiled_geometry(m: int, n: int, tile_m: int, tile_n: int,
                    groups: int = 1) -> tuple[int, int, int]:
     """(cta_m, cta_n, ctas) of the mma body for an (m, n) output under
@@ -253,7 +267,7 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     if (cs.instance.class_id, cs.instance.p["M"], cs.instance.p["N"], cs.instance.p["K"]) != (class_id, m, n, k):
         raise ValueError(f"schedule for {cs.instance} does not fit {class_id} ({m},{k})x({k},{n})")
     glu = class_id in GLU_CLASSES
-    tile_m, tile_n = cs.t["M"], cs.t["N"]
+    tile_m, tile_n, m_outer = schedule_key(cs)
     if glu and (n % 2 or tile_n % 2):
         raise ValueError(f"GLU epilogue needs even N and N tile, got {n}, {tile_n}")
     n_out = n // 2 if glu else n
@@ -272,7 +286,6 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    order = [a for a in cs.order if a in ("M", "N")]
     body, cta_m, cta_n, split_k, ctas = launch_geometry(x.dtype, m, n, k, tile_m, tile_n)
     ws = _workspace(x, 1, split_k, m, n)
     lib = _build.library()
@@ -281,7 +294,7 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
         bias32.data_ptr() if bias32 is not None else None,
         res32.data_ptr() if res32 is not None else None,
         out.data_ptr(), m, n, k, DTYPES[x.dtype], EPILOGUE[class_id], float(softcap),
-        tile_m, tile_n, int(order[0] == "M"), cta_m, cta_n, ctas, split_k,
+        tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas, split_k,
         ws.data_ptr() if ws is not None else None, _build.stream_handle(x.device))
     _build.check(rc, "matmul kernel")
     launches += 1
@@ -318,7 +331,7 @@ def grouped_geometry(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule,
         raise ValueError(f"schedule for {cs.instance} does not fit {class_id} "
                          f"{e}x({m},{k})x({k},{n}) (M = m·E)")
     # per-expert tiles: the schedule's M tile divides m·E, not necessarily m
-    tile_m, tile_n = min(cs.t["M"], m), min(cs.t["N"], n)
+    tile_m, tile_n, _ = schedule_key(cs)
     if class_id in GLU_CLASSES and (n % 2 or tile_n % 2):
         raise ValueError(f"GLU epilogue needs even N and N tile, got {n}, {tile_n}")
     return e, m, n, k, tile_m, tile_n
@@ -335,12 +348,11 @@ def grouped_launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
                       device=x.device)
     if m == 0 or e == 0:
         return out
-    order = [a for a in cs.order if a in ("M", "N")]
     body, cta_m, cta_n, split_k, ctas = launch_geometry(x.dtype, m, n, k, tile_m, tile_n, e)
     ws = _workspace(x, e, split_k, m, n)
     rc = _build.library().repro_grouped_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, DTYPES[x.dtype],
-        GROUPED_EPILOGUE[class_id], tile_m, tile_n, int(order[0] == "M"), cta_m, cta_n, ctas,
+        GROUPED_EPILOGUE[class_id], tile_m, tile_n, int(schedule_key(cs)[2]), cta_m, cta_n, ctas,
         split_k, ws.data_ptr() if ws is not None else None, _build.stream_handle(x.device))
     _build.check(rc, "grouped matmul kernel")
     grouped_launches += 1

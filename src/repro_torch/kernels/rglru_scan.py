@@ -93,6 +93,13 @@ def cta_channels(c: int, tile_c: int) -> list[range]:
     return out
 
 
+def schedule_key(cs: ConcreteSchedule) -> tuple[int]:
+    """What a launch reads of a concrete schedule: the C tile, which lays out
+    the CTAs.  The T tile is passed and checked but changes nothing, and the
+    TPU hints are ignored."""
+    return (cs.t["C"],)
+
+
 def rglru_scan(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
                cs: ConcreteSchedule) -> tuple[torch.Tensor, torch.Tensor]:
     """x, a: (B, T, C); state: (B, C) f32. Returns (y in x's dtype, final h f32)."""

@@ -104,13 +104,22 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     params: dict[str, Any] = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt)}
     params["layers"] = [block_params(gen, cfg, kind) for kind in cfg.layer_kinds]
     params["final_norm"] = norm_params(cfg.d_model, cfg.norm, dt, gen.device)
-    if not cfg.tie_embeddings:
+    if cfg.tie_embeddings:
+        params["embed_t"] = tied_head(params["embed"])
+    else:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
     return params
 
 
+def tied_head(embed: torch.Tensor) -> torch.Tensor:
+    """The LM head's w of a tied embedding: one transposed, contiguous copy
+    (d_model, vocab), built once with the params and held beside them, so
+    the head launches on it without copying the embedding at every call."""
+    return embed.T.contiguous()
+
+
 def _lm_head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = params["embed_t"] if cfg.tie_embeddings else params["lm_head"]
     if cfg.final_softcap > 0:
         return ops.matmul(h, w, class_id="matmul_lmhead_softcap", softcap=cfg.final_softcap)
     return ops.matmul(h, w, class_id="matmul_lmhead")

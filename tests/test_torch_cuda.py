@@ -462,3 +462,66 @@ def test_engine_on_the_card_finishes_requests(reduced_model):
     assert [len(r.generated) for r in reqs] == [4, 3]
     assert mm.launches > before
     assert all(r.done for r in reqs)
+
+
+# ---------------------------------------------------------------------------
+# MeasuredRunner: schedules timed on the card
+# ---------------------------------------------------------------------------
+
+
+def test_measured_runner_ranks_the_prime_shape(card):
+    """397×2048² bf16: the default schedule's 1-row M tiles (the rows body)
+    time at least 5× the 64×64 tiles (the tensor-core body); one launch, one
+    timing."""
+    from repro_torch.core import KernelInstance, Schedule, default_schedule
+    from repro_torch.core.measured_runner import MeasuredRunner
+
+    runner = MeasuredRunner()
+    inst = KernelInstance.make("matmul", M=397, N=2048, K=2048)
+    dflt = default_schedule(inst)
+    assert dflt.t["M"] == 1
+    tile64 = Schedule.make("matmul", {"M": 64, "N": 64, "K": dflt.t["K"]})
+    assert runner.seconds(inst) >= 5 * runner.seconds(inst, tile64)
+    assert runner.measure(inst, dflt).seconds == runner.seconds(inst)
+    assert runner.stats.measurements == 2 and runner.target == "h100"
+
+
+TUNED_CLASSES = {
+    "matmul_bias_gelu": dict(M=200, N=384, K=256),
+    "matmul_silu_glu": dict(M=96, N=512, K=128),
+    "moe_gemm_silu_glu": dict(M=4 * 48, N=256, K=128, E=4),
+    "flash_attention_swa": dict(Q=150, KV=150, H=4, D=128, B=1, window=64),
+    "flash_attention_softcap": dict(Q=97, KV=97, H=2, D=256, B=2),
+    "rwkv6_scan": dict(T=70, C=2 * 64, D=64, B=2),
+    "rglru_scan": dict(T=70, C=640, B=2),
+}
+
+
+@pytest.mark.parametrize("class_id", sorted(TUNED_CLASSES))
+def test_measured_runner_random_schedules_match_plain(card, class_id):
+    """Eight random valid schedules per class, as the autoscheduler draws
+    them (odd and 1-row tiles, N-outer orders): the runner's launch agrees
+    with the plain version on the same inputs (bf16 3e-2; scan states f32
+    2e-4)."""
+    import random
+
+    from repro_torch.core import KernelInstance, ScheduleInvalid
+    from repro_torch.core.autoscheduler import random_schedule
+    from repro_torch.core.measured_runner import MeasuredRunner
+
+    runner = MeasuredRunner()
+    inst = KernelInstance.make(class_id, **TUNED_CLASSES[class_id])
+    rng, checked = random.Random(1), 0
+    while checked < 8:
+        sched = random_schedule(inst, rng)
+        try:
+            cs = runner.concrete(inst, sched)
+        except ScheduleInvalid:
+            continue
+        got, want = runner.run(cs), runner.run(cs, plain=True)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        _close(got[0], want[0], BF16_TOL)
+        for g, w in zip(got[1:], want[1:]):
+            _close(g, w, TOL)
+        assert runner.measure(inst, sched).seconds > 0
+        checked += 1

@@ -228,6 +228,40 @@ def test_cuda_device_without_gpu_raises():
         build_model(reduced(get_arch("minitron-4b")))
 
 
+@pytest.mark.parametrize("source", ["init", "converted"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "gemma2-2b"])
+def test_tied_head_launches_on_one_held_copy(arch, source, monkeypatch):
+    """A tied LM head hands the matmul one transposed, contiguous copy of
+    the embedding, built with the params (by ``init`` and by conversion): the
+    same tensor at every call, so nothing is copied per call; the logits are
+    bit-equal to the old path's, which transposed the embedding per call."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    cfg = reduced(get_arch(arch))
+    assert cfg.tie_embeddings
+    if source == "init":
+        params = build_model(cfg, "cpu").init(seed=0)
+    else:
+        jparams = jbuild_model(jreduced(jget_arch(arch))).init(jax.random.PRNGKey(0))
+        params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    torch.testing.assert_close(params["embed_t"], params["embed"].T, rtol=0, atol=0)
+    h = torch.randn(2, 3, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    cls = "matmul_lmhead_softcap" if cfg.final_softcap > 0 else "matmul_lmhead"
+    old = ops.matmul(h, params["embed"].T, class_id=cls, softcap=cfg.final_softcap)
+    seen, real = [], mm.matmul
+
+    def spy(x, w, cs, **kw):
+        seen.append((w.data_ptr(), w.is_contiguous()))
+        return real(x, w, cs, **kw)
+
+    monkeypatch.setattr(mm, "matmul", spy)
+    first, second = lm._lm_head(params, cfg, h), lm._lm_head(params, cfg, h)
+    assert seen == [(params["embed_t"].data_ptr(), True)] * 2
+    assert torch.equal(first, old) and torch.equal(second, old)
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_config_and_param_count_match_reference(arch):
     """Every arch the port registers: the config is a copy of the
