@@ -19,7 +19,14 @@ toolkit.  Phases, one result line each:
    call; the 256-row shapes checked and timed on each compiled CTA tile of
    the tensor-core body; the 4-row (decode) shapes on the rows body also
    timed on the device alone (profiler), and a row's bits checked equal at
-   M = 1 and M = 4 and across two runs;
+   M = 1 and M = 4 and across two runs; then rounding mode
+   (``cache_write=False``: partial sums rounded to bf16 after every K tile,
+   as the reference does) on the rows body at 4 rows and the tensor-core
+   body at 256, K tiles of 16, 128 and 24, and the served path's rounding
+   launch (recurrentgemma-2b's decode LM head, K tile 256), each against
+   the plain version with the same rounding K tile (the share of elements
+   that differ, the largest distance in bf16 values) and timed beside the
+   same tiles with f32 sums;
 4. attention — the flash-attention kernel against its plain version, bf16
    (tensor-core body) and f32 (CUDA-core body), each launch's body checked:
    causal, window, softcap, q_offset, GQA groups 1 and 3, ragged lengths,
@@ -45,7 +52,7 @@ toolkit.  Phases, one result line each:
    shapes (4 and 256 rows per expert) timed beside the plain version and
    ``torch.bmm`` (for ``moe_gemm``; no one call computes the GLU class),
    with body, CTA tile, K split and count, and at 256 rows on each compiled
-   CTA tile;
+   CTA tile; rounding mode on both bodies as in the matmul phase;
 7. tuning — the paper's workflow on the card, every second timed by
    ``repro_torch.core.measured_runner.MeasuredRunner`` (the port's kernels
    launched under each schedule, L2 flushed, the stream held behind a sleep
@@ -87,7 +94,24 @@ toolkit.  Phases, one result line each:
    counted and left out).  For minitron-4b, one torch.profiler capture of
    three decode steps gives the device's busy share and its five ops with
    the most device time.  Peak memory is read over weight init alone and
-   then over serving (``init_peak_gib``, ``serve_peak_gib``).
+   then over serving (``init_peak_gib``, ``serve_peak_gib``).  The prime
+   181-token prompt's matmul launches per body are kept (the recurrent
+   archs prefill it unpadded: every default M tile is 1, all rows body);
+9. serve_tuned — recurrentgemma-2b at full width served through a schedule
+   registry (``launch.serve.make_provider``, ``--target h100``): the tuning
+   phase's donor records plus one record in rounding mode (the decode LM
+   head), a plan for the decode step, a warm pass (prefill lookups timed on
+   the card), the deferred jobs drained, then a timed pass during which a
+   record published for a decode instance makes the engine re-plan once.
+   It prints the plan's tiers, lookups by tier, plan misses and the
+   instances that missed, prefill seconds for the 8 prompts and for the
+   181-token one against the serve phase's default run (same-call ratios),
+   ms per decode step and the provider's share of a step's host time; it
+   fails if the measured runner timed anything in the timed pass, if the
+   prime prompt's K1 launches on the tensor cores are not exactly those the
+   registry gave an M tile above 16, if a non-default launch served
+   disagrees with its plain version, if the prefill logits leave the serve
+   bound, or if the engine did not re-plan once.
 
 Then the tuning line, the script's wall time, one JSON line with every
 kernel's numbers, the nvidia-smi line, and the last line
@@ -266,6 +290,12 @@ def assert_close(torch, got, want, tol: dict, what: str) -> float:
 # ---------------------------------------------------------------------------
 
 
+#: kernels whose registers and spills the build phase reports (each
+#: instantiation: CTA tiles, head dims, dtypes, rounding mode)
+BUILD_BODIES = ("matmul_mma_kernel", "attention_mma_kernel", "matmul_rows_kernel",
+                "matmul_rows_round_kernel")
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -283,10 +313,10 @@ def phase_build():
             if marker in ln:
                 name = ln.split(marker, 1)[1].strip().strip("'")
         if name and ("registers" in ln or "spill" in ln):
-            for kernel in ("matmul_mma_kernel", "attention_mma_kernel", "matmul_rows_kernel"):
+            for kernel in BUILD_BODIES:
                 if kernel in name:
                     bodies.setdefault(kernel, {}).setdefault(name, []).append(ln.strip())
-    for kernel in ("matmul_mma_kernel", "attention_mma_kernel", "matmul_rows_kernel"):
+    for kernel in BUILD_BODIES:
         if kernel not in bodies:
             raise AssertionError(f"the build log shows no {kernel}")
         log(f"build_{kernel}", ptxas=bodies[kernel])
@@ -333,6 +363,98 @@ def time_cta_tiles(torch, timer, launch, want, what, iters=10) -> dict:
             assert_close(torch, launch(), want, BF16_TOL, f"{what} on {cta} CTA tiles")
             out["x".join(map(str, cta))] = timer.ms(launch, iters=iters)
     return out
+
+
+#: rounding mode (``cache_write=False``), per kernel: (class, body, E,
+#: rows per expert, K, N, M tile, K tiles).  Each bf16 body at K tiles of 16
+#: and 128, and 24, not a multiple of 16 (an MMA step that a tile boundary
+#: crosses is split): K1 at minitron's q/o projection, K1g at 8 experts of
+#: 3072x1024; and the launch the registry-served path makes in rounding
+#: mode, recurrentgemma-2b's decode LM head at its default K tile of 256
+ROUND_CASES = {
+    "matmul": (("matmul", "rows", None, 4, 3072, 3072, 4, (16, 128, 24)),
+               ("matmul", "mma", None, 256, 3072, 3072, 128, (16, 128, 24)),
+               ("matmul_lmhead", "rows", None, 4, 2560, 256000, 4, (256,))),
+    "moe_gemm": (("moe_gemm", "rows", 8, 4, 3072, 1024, 4, (16, 128, 24)),
+                 ("moe_gemm", "mma", 8, 256, 3072, 1024, 128, (16, 128, 24)))}
+#: the served path's rounding-mode launch among ROUND_CASES (class, M, K, N, K tile)
+ROUND_SERVED = ("matmul_lmhead", 4, 2560, 256000, 256)
+#: ulps are counted where |plain| is at least this (outputs are of order
+#: one; near zero a sign flip spans thousands of bf16 values for a tiny |err|)
+ULP_FLOOR = 2 ** -4
+
+
+def bf16_ulps(torch, a, b):
+    """Per element, how many bf16 values lie between bf16 tensors a and b."""
+    def ordinal(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+def rounding_cases(torch, timer, family: str) -> list:
+    """The kernel in rounding mode on each bf16 body: against the plain
+    version with the same ``round_k`` (bf16 tolerance; the share of
+    elements that differ and the largest distance in bf16 values), the
+    plain version's own distance from f32 sums (what the rounding changes),
+    and its time beside the same tiles with f32 sums (``scratch_ms``)."""
+    from repro_torch.core.schedule import Schedule, concretize
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for class_id, body, e, m, k, n, tile_m, k_tiles in ROUND_CASES[family]:
+        kernel = "matmul" if e is None else "grouped_matmul"
+        if e is None:
+            x, w, _ = _mm_inputs(torch, g, m, n, k, class_id, torch.bfloat16)
+            inst = ops.instance(class_id, torch.bfloat16, M=m, N=n, K=k)
+        else:
+            x, w = _grouped_inputs(torch, g, e, m, n, k, torch.bfloat16)
+            inst = ops.instance(class_id, torch.bfloat16, M=m * e, N=n, K=k, E=e)
+        for tile_k in k_tiles:
+            tiles = {"M": tile_m, "N": 512, "K": tile_k, **({} if e is None else {"E": 1})}
+            cs = concretize(Schedule.make(class_id, tiles, cache_write=False), inst)
+            scratch = concretize(Schedule.make(class_id, tiles), inst)
+            if mm.round_k_for(cs) != tile_k or mm.round_k_for(scratch) != 0:
+                raise AssertionError(f"{class_id} {tiles}: round_k {mm.round_k_for(cs)}")
+            if mm.launch_geometry(torch.bfloat16, m, n, k, tile_m, 512, e or 1, tile_k)[0] != body:
+                raise AssertionError(f"{class_id} {tiles}: not the {body} body")
+
+            def launch(c, cid=class_id):
+                return (mm.launch(x, w, c, class_id=cid) if e is None
+                        else mm.grouped_launch(x, w, c, class_id=cid))
+
+            def plain(rk=tile_k, cid=class_id):
+                return (ref.matmul(x, w, cid, round_k=rk) if e is None
+                        else ref.grouped_matmul(x, w, cid, round_k=rk))
+            name = f"{class_id} rounding {body} M{m} K{k} tile {tile_k}"
+            before = mm.round_launches[kernel, body]
+            got, want, f32 = launch(cs), plain(), plain(0)
+            if mm.round_launches[kernel, body] != before + 1:
+                raise AssertionError(f"{name}: no rounding-mode launch of the {body} body")
+            err = assert_close(torch, got, want, BF16_TOL, name)
+            ulps = bf16_ulps(torch, got, want)[want.float().abs() >= ULP_FLOOR]
+            b_ms, b_by = bound_ms(2 * (e or 1) * (m * k + k * n + m * n), 2 * (e or 1) * m * n * k)
+            row = {"class": class_id, "E": e, "M": m, "K": k, "N": n, "tiles": cs.t, "body": body,
+                   "round_k": tile_k, "max_abs_err": err,
+                   "differ_share": float((got != want).float().mean()),
+                   "max_ulps": int(ulps.max()) if ulps.numel() else 0,
+                   "plain_vs_f32_differ_share": float((want != f32).float().mean()),
+                   "plain_vs_f32_max_abs": max_err(torch, want, f32),
+                   "ms": timer.ms(lambda: launch(cs)),
+                   "scratch_ms": timer.ms(lambda: launch(scratch)),
+                   "plain_ms": timer.ms(plain, iters=3, warmup=1),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   # no one library call rounds partial sums per K tile
+                   "library_ms": None}
+            row["round_over_scratch"] = row["ms"] / row["scratch_ms"]
+            rows.append(row)
+            log("matmul_rounding", **row)
+            del got, want, f32
+        del x, w
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_matmul(torch, timer) -> dict:
@@ -418,7 +540,9 @@ def phase_matmul(torch, timer) -> dict:
             log("matmul_shape", **row)
             del x, w
     torch.cuda.empty_cache()
-    return {"shapes": shapes, "max_abs_err": max([errs[n] for n in errs] + [r["max_abs_err"] for r in shapes])}
+    rounding = rounding_cases(torch, timer, "matmul")
+    return {"shapes": shapes, "rounding": rounding,
+            "max_abs_err": max([errs[n] for n in errs] + [r["max_abs_err"] for r in shapes])}
 
 
 def _attn_inputs(torch, g, b, hq, hkv, sq, skv, d, dtype):
@@ -817,7 +941,10 @@ def f64_accumulation():
 
     plain = ref.matmul
 
-    def matmul64(x, w, class_id="matmul", **kw):
+    def matmul64(x, w, class_id="matmul", round_k=0, **kw):
+        # the plain path (backend "ref") never rounds partial sums
+        if round_k:
+            raise ValueError("the f64 control takes no rounding K tile")
         y = torch.matmul(x.double(), w.double()).float()
         return ref.apply_epilogue(y, class_id, **kw).to(x.dtype)
 
@@ -909,7 +1036,9 @@ def phase_grouped(torch, timer) -> dict:
             log("grouped_shape", **row)
             del x, w
             torch.cuda.empty_cache()
-    return {"shapes": shapes, "max_abs_err": max([*errs.values(), *(r["max_abs_err"] for r in shapes)])}
+    rounding = rounding_cases(torch, timer, "moe_gemm")
+    return {"shapes": shapes, "rounding": rounding,
+            "max_abs_err": max([*errs.values(), *(r["max_abs_err"] for r in shapes)])}
 
 
 #: the tuning phase's kernel lists: one 256-token prompt (minitron-4b's first
@@ -1060,12 +1189,15 @@ def tuning_pair(torch, cached, runner, db, donor_runs, donor_uses, name, donors,
     return out, chosen
 
 
-def phase_tuning(torch, timer) -> dict:
+def phase_tuning(torch, timer):
     """The paper's workflow on the card at full width: the measured runner
     checked against the profiler, one search per kernel beyond the GEMMs,
     then per pair the donors' full tuning, the Eq. 1 pick, transfer-tuning
     and the full tuning needed to match it; every non-default schedule the
-    searches chose (and a few random ones) held against the plain version."""
+    searches chose (and a few random ones) held against the plain version
+    (with the rounding K tile where the schedule rounds).  Returns (the
+    summary, the donors' ScheduleDB: their records no slower than the
+    default, under ``h100``)."""
     import random
 
     from repro_torch.configs import ShapeConfig, get_arch
@@ -1172,7 +1304,7 @@ def phase_tuning(torch, timer) -> dict:
                "runner": runner.telemetry(), "wall_s": time.monotonic() - t0}
     del runner, cached
     torch.cuda.empty_cache()
-    return summary
+    return summary, db
 
 
 def layerwise_rel_err(torch, model, params, toks) -> dict:
@@ -1249,8 +1381,8 @@ def traced_rows_geometry():
 
     plain, calls = mm.rows_geometry, []
 
-    def traced(m, n, k, tile_m, tile_n, groups=1):
-        out = plain(m, n, k, tile_m, tile_n, groups)
+    def traced(m, n, k, tile_m, tile_n, groups=1, round_k=0):
+        out = plain(m, n, k, tile_m, tile_n, groups, round_k)
         calls.append(((m, n, k, tile_m, tile_n, groups), out))
         return out
 
@@ -1261,23 +1393,42 @@ def traced_rows_geometry():
         mm.rows_geometry = plain
 
 
-def profile_decode(torch, engine, prompts, steps: int = 3) -> dict:
+#: the profiler label of a schedule provider's ``get`` (profile_decode)
+PROVIDER_LABEL = "ScheduleProvider.get"
+
+
+def profile_decode(torch, engine, prompts, steps: int = 3, provider=None) -> dict:
     """One torch.profiler capture of ``steps`` decode steps of a busy slot
     engine: the device's busy share of the window (the union of its kernel
     intervals over the host-clock window, which ends in a sync) and its five
-    ops with the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+    ops with the most device time.  With ``provider``, each of its ``get``
+    calls inside the window is a labelled range, and the host time of those
+    ranges over the window is the share of a step the provider takes (the
+    label's own cost included)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for p in prompts:
         engine.add_request(p, max_new_tokens=steps + 2)
     engine.step()                 # one step outside the window
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+    if provider is not None:
+        real_get = provider.get
+
+        def labelled(inst):
+            with record_function(PROVIDER_LABEL):
+                return real_get(inst)
+
+        provider.get = labelled
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(steps):
+                engine.step()
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+    finally:
+        if provider is not None:
+            del provider.get      # back to the class's method
     while engine.active:
         engine.step()
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -1295,10 +1446,18 @@ def profile_decode(torch, engine, prompts, steps: int = 3) -> dict:
         if dev > 0:
             ops_.append({"name": avg.key[:120], "calls": avg.count, "device_ms": dev / 1e3})
     ops_.sort(key=lambda o: -o["device_ms"])
-    return {"steps": steps, "window_ms": wall_us / 1e3, "device_events": len(spans),
-            "device_busy_ms": busy / 1e3 if spans else None,
-            "device_busy_share": busy / wall_us if spans else None,
-            "top_device_ops": ops_[:5]}
+    out = {"steps": steps, "window_ms": wall_us / 1e3, "device_events": len(spans),
+           "device_busy_ms": busy / 1e3 if spans else None,
+           "device_busy_share": busy / wall_us if spans else None,
+           "top_device_ops": ops_[:5]}
+    if provider is not None:
+        label = next((a for a in prof.key_averages() if a.key == PROVIDER_LABEL), None)
+        if label is None:
+            raise AssertionError("the profiler recorded no schedule provider range")
+        out["provider_calls"] = label.count
+        out["provider_host_ms"] = label.cpu_time_total / 1e3
+        out["provider_host_share"] = label.cpu_time_total / wall_us
+    return out
 
 
 #: the kernels each served arch must launch
@@ -1313,16 +1472,67 @@ SERVE_KERNELS = {"minitron-4b": ("matmul", "flash_attention"),
 SERVE_DEPTH = {"mixtral-8x22b": 8}
 
 
-def phase_serve(torch, arch: str) -> dict:
+def prefill_logits_check(torch, model, params, toks, what: str, provider=None) -> dict:
+    """The kernel path's prefill logits (under ``provider``'s schedules)
+    against the plain path's on the same weights, within the larger of
+    LOGITS_REL_BOUND of max |logit| and CONTROL_FACTOR times the f64
+    control; raises beyond it."""
+    from repro_torch.kernels.ops import use_backend
+
+    logits_k, _ = model.prefill(params, {"tokens": toks}, max_len=512, provider=provider)
+    with use_backend("ref"):
+        logits_r, _ = model.prefill(params, {"tokens": toks}, max_len=512)
+        with f64_accumulation():
+            logits_c, _ = model.prefill(params, {"tokens": toks}, max_len=512)
+    torch.cuda.synchronize()
+    if tuple(logits_k.shape) != (1, model.cfg.vocab_size) or not bool(torch.isfinite(logits_k).all()):
+        raise AssertionError(f"prefill logits: shape {tuple(logits_k.shape)} or non-finite")
+    diff = max_err(torch, logits_k, logits_r)
+    control = max_err(torch, logits_c, logits_r)
+    scale = float(logits_r.float().abs().max())
+    bound = max(LOGITS_REL_BOUND * scale, CONTROL_FACTOR * control)
+    if diff > bound:
+        raise AssertionError(f"{what}: prefill logits differ by {diff} > {bound} "
+                             f"(max |logit| {scale}, control {control})")
+    return {"logits_max_abs_diff": diff, "logits_max_abs": scale,
+            "logits_control": control, "logits_bound": bound,
+            "argmax_equal": int(logits_k.argmax()) == int(logits_r.argmax())}
+
+
+#: the prime prompt length among the serve phases' prompts (seed 0): the
+#: recurrent archs prefill it unpadded, at default M and Q tiles of 1
+PRIME_PROMPT = 181
+
+
+#: new tokens per request in the engine runs of the serve phases
+SERVE_NEW_TOKENS = 16
+
+
+def serve_prompts(cfg) -> list:
+    """The serve phases' 8 prompts: 100-400 random tokens each, seed 0
+    (lengths 356, 291, 253, 181, 192, 112, 122, 104)."""
     import numpy as np
 
+    rng = np.random.default_rng(0)
+    return [[int(t) for t in rng.integers(1, cfg.vocab_size, size=int(n))]
+            for n in rng.integers(100, 401, size=8)]
+
+
+def body_counts(mm) -> dict:
+    """The matmul's launches per (kernel, body, dtype) so far, as text keys."""
+    from repro_torch.kernels import ops
+
+    return {f"{kernel}/{body}/{ops.dtype_name(dtype)}": count
+            for (kernel, body, dtype), count in sorted(mm.body_launches.items(), key=str)}
+
+
+def phase_serve(torch, arch: str) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6_scan as rw
-    from repro_torch.kernels.ops import use_backend
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
@@ -1355,33 +1565,19 @@ def phase_serve(torch, arch: str) -> dict:
     init_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     engine = ServingEngine(model, params, slots=4, max_len=512)
-    rng = np.random.default_rng(0)
-    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, size=int(n))]
-               for n in rng.integers(100, 401, size=8)]
-    new_tokens = 16
-    pending, done = list(prompts), []
+    prompts = serve_prompts(cfg)
     for kmod in (mm, fa, rw, rg):
         kmod.reset_launches()
-    prefill_s = decode_s = 0.0
-    steps = 0
     with traced_rows_geometry() as rows_calls:
-        while pending or engine.active:
-            while pending and engine.free_slots:
-                t0 = time.monotonic()
-                req = engine.add_request(pending.pop(0), max_new_tokens=new_tokens)
-                prefill_s += time.monotonic() - t0     # add_request syncs on its argmax
-                if req.done:
-                    done.append(req)
-            t0 = time.monotonic()
-            done.extend(engine.step())                 # step syncs on its argmax
-            decode_s += time.monotonic() - t0
-            steps += 1
-            if steps > 1000:
-                raise AssertionError("the slot engine did not converge")
-    torch.cuda.synchronize()
+        run = serve_stream(torch, engine, prompts, SERVE_NEW_TOKENS)
     launches = serve.kernel_launches()
-    bodies = {f"{kernel}/{body}/{ops.dtype_name(dtype)}": count
-              for (kernel, body, dtype), count in sorted(mm.body_launches.items(), key=str)}
+    bodies = body_counts(mm)
+    prime_bodies = run["prime_bodies"]
+    # an unbucketed prime prompt: every default M tile is 1, so its K1
+    # launches all take the rows body
+    if not engine.prefill_buckets and (prime_bodies.get("matmul/mma/bfloat16", 0)
+                                       or not prime_bodies.get("matmul/rows/bfloat16", 0)):
+        raise AssertionError(f"{arch}: the {PRIME_PROMPT}-token prefill's K1 bodies {prime_bodies}")
     # every bf16 prefill GEMM above 16 rows ran on the tensor cores: none
     # took the CUDA-core body, which is for f32 alone
     if mm.body_count("mma") <= 0 or mm.body_count("fma", dtype=torch.bfloat16) != 0:
@@ -1403,9 +1599,6 @@ def phase_serve(torch, arch: str) -> dict:
             fa.body_count("mma", dtype=torch.bfloat16) != launches["flash_attention"]
             or fa.body_count("fma", dtype=torch.bfloat16) != 0):
         raise AssertionError(f"{arch}: launches per attention body {attn_bodies}")
-    if len(done) != len(prompts) or any(len(r.generated) != new_tokens for r in done):
-        raise AssertionError(f"engine finished {len(done)} requests with token counts "
-                             f"{[len(r.generated) for r in done]}")
     if min(launches[k] for k in SERVE_KERNELS[arch]) <= 0:
         raise AssertionError(f"{arch}: a kernel of the main path was never launched: {launches}")
     # where the decode step's time goes on the device: a profiler capture of
@@ -1414,26 +1607,11 @@ def phase_serve(torch, arch: str) -> dict:
     if profile is not None:
         log("decode_profile", arch=arch, **profile)
     serve_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    tokens = sum(len(r.generated) for r in done)
 
     # kernel path vs plain path on the same weights: the first prompt's
     # prefill, end to end and layer by layer
     toks = torch.tensor([prompts[0]], dtype=torch.long, device="cuda")
-    logits_k, _ = model.prefill(params, {"tokens": toks}, max_len=512)
-    with use_backend("ref"):
-        logits_r, _ = model.prefill(params, {"tokens": toks}, max_len=512)
-        with f64_accumulation():
-            logits_c, _ = model.prefill(params, {"tokens": toks}, max_len=512)
-    torch.cuda.synchronize()
-    if tuple(logits_k.shape) != (1, cfg.vocab_size) or not bool(torch.isfinite(logits_k).all()):
-        raise AssertionError(f"prefill logits: shape {tuple(logits_k.shape)} or non-finite")
-    diff = max_err(torch, logits_k, logits_r)
-    control = max_err(torch, logits_c, logits_r)
-    scale = float(logits_r.float().abs().max())
-    bound = max(LOGITS_REL_BOUND * scale, CONTROL_FACTOR * control)
-    if diff > bound:
-        raise AssertionError(f"{arch}: prefill logits differ by {diff} > {bound} "
-                             f"(max |logit| {scale}, control {control})")
+    logits = prefill_logits_check(torch, model, params, toks, arch)
     layers = layerwise_rel_err(torch, model, params, toks)
     layer_err = layers["checked"]
     if max(layer_err) > LAYER_REL_BOUND:
@@ -1443,23 +1621,338 @@ def phase_serve(torch, arch: str) -> dict:
            "params": cfg.param_count(),
            "serve_main": {k: res[k] for k in ("preset", "requests", "tokens", "decode_steps",
                                                "tok_per_s", "kernel_launches")},
-           "requests": len(done), "tokens": tokens, "prompt_lens": [len(p) for p in prompts],
-           "decode_steps": steps, "prefill_s": prefill_s, "decode_s": decode_s,
-           "decode_ms_per_step": 1e3 * decode_s / steps,
-           "tok_per_s": tokens / (prefill_s + decode_s),
-           "decode_tok_per_s": (tokens - len(done)) / decode_s,
+           "requests": run["requests"], "tokens": run["tokens"],
+           "prompt_lens": [len(p) for p in prompts], "decode_steps": run["steps"],
+           "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+           "prompt_prefill_s": run["prompt_prefill_s"], "prime_prefill_body_launches": prime_bodies,
+           "decode_ms_per_step": run["decode_ms_per_step"],
+           "tok_per_s": run["tokens"] / (run["prefill_s"] + run["decode_s"]),
+           "decode_tok_per_s": (run["tokens"] - run["requests"]) / run["decode_s"],
            "launches": launches, "body_launches": bodies, "attention_body_launches": attn_bodies,
            "decode_rows_geometry": dict(decode_geometry), "decode_profile": profile,
            "init_peak_gib": init_peak_gib, "serve_peak_gib": serve_peak_gib,
-           "logits_max_abs_diff": diff, "logits_max_abs": scale,
-           "logits_control": control, "logits_bound": bound,
-           "argmax_equal": int(logits_k.argmax()) == int(logits_r.argmax()),
+           **logits,
            "layer_rel_err_max": max(layer_err), "layer_rel_err": layer_err,
            "layer_block_rel_err": layers["block"],
            "layer_routed_alike_rel_err": layers["routed_alike"],
            "layer_route_flips": layers["route_flips"]}
     log("serve", **row)
-    del model, params, engine, logits_k, logits_r, logits_c
+    del model, params, engine
+    torch.cuda.empty_cache()
+    return row
+
+
+#: the arch served through a registry: K1, K2 and K4 on its path, exact
+#: prompt lengths (none of its prefill instances is planned), the prime prompt
+TUNED_ARCH = "recurrentgemma-2b"
+
+
+class ResolutionRecorder:
+    """Every schedule a provider hands out while installed: (instance, tier,
+    concrete schedule, whether the active plan answered)."""
+
+    def __init__(self, provider):
+        self.provider, self.calls = provider, []
+        real_get, real_resolve = provider.get, provider.pipeline.resolve
+        last = {}
+
+        def resolve(inst, mode=None):
+            last["r"] = real_resolve(inst, mode)
+            return last["r"]
+
+        def get(inst):
+            plan = provider.plan
+            r = plan.lookup(inst) if plan is not None else None
+            cs = real_get(inst)
+            self.calls.append((inst, (r or last["r"]).tier, cs, r is not None))
+            return cs
+
+        provider.get, provider.pipeline.resolve = get, resolve
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+    def close(self) -> None:
+        del self.provider.get, self.provider.pipeline.resolve
+
+
+def serve_stream(torch, engine, prompts, new_tokens: int, rec=None, after_admissions=None) -> dict:
+    """The serve phases' stream through ``engine``: prefill seconds per
+    prompt (add_request syncs on its argmax), decode seconds, steps; the
+    prime prompt's matmul launches per body and (with ``rec``) its
+    resolutions.  ``after_admissions`` runs once, after the last prompt is
+    admitted, between two decode steps."""
+    from repro_torch.kernels import matmul as mm
+
+    pending, done = list(prompts), []
+    out = {"prompt_prefill_s": [], "decode_s": 0.0, "steps": 0}
+    while pending or engine.active:
+        while pending and engine.free_slots:
+            prompt = pending.pop(0)
+            bodies0 = collections.Counter(body_counts(mm))
+            n0 = len(rec.calls) if rec is not None else 0
+            t0 = time.monotonic()
+            req = engine.add_request(prompt, max_new_tokens=new_tokens)
+            out["prompt_prefill_s"].append(time.monotonic() - t0)
+            if len(prompt) == PRIME_PROMPT:
+                out["prime_bodies"] = dict(collections.Counter(body_counts(mm)) - bodies0)
+                out["prime_calls"] = rec.calls[n0:] if rec is not None else []
+            if req.done:
+                done.append(req)
+            if not pending and after_admissions is not None:
+                after_admissions()
+        t0 = time.monotonic()
+        done.extend(engine.step())
+        out["decode_s"] += time.monotonic() - t0
+        out["steps"] += 1
+        if out["steps"] > 1000:
+            raise AssertionError("the slot engine did not converge")
+    torch.cuda.synchronize()
+    if len(done) != len(prompts) or any(len(r.generated) != new_tokens for r in done):
+        raise AssertionError(f"engine finished {len(done)} requests with token counts "
+                             f"{[len(r.generated) for r in done]}")
+    if "prime_bodies" not in out:
+        raise AssertionError(f"no {PRIME_PROMPT}-token prompt among {[len(p) for p in prompts]}")
+    out["requests"], out["tokens"] = len(done), sum(len(r.generated) for r in done)
+    out["prefill_s"] = sum(out["prompt_prefill_s"])
+    out["decode_ms_per_step"] = 1e3 * out["decode_s"] / out["steps"]
+    return out
+
+
+def _desc(inst) -> str:
+    return f"{inst.class_id} {dict(inst.params)}"
+
+
+def phase_serve_tuned(torch, db, default_row: dict) -> dict:
+    """recurrentgemma-2b at full width served through a schedule registry on
+    the card, as a user would (``launch.serve.make_provider`` with
+    ``--tuning-registry`` and ``--target h100``): the registry holds the
+    tuning phase's donor records; the engine plans its decode step at init.
+    Beside them the registry holds one record in rounding mode: the decode
+    LM head's default tiles with ``cache_write=False`` (as the autoscheduler
+    draws for 30% of its schedules); no other record has its workload, so
+    the exact tier serves it and the kernel's rounding mode runs on the main
+    path.  A warm pass resolves every prefill instance (exact prompt
+    lengths, none planned: service lookups time the default and probe
+    donors on the card inside the forward pass), then the deferred jobs are
+    drained and the plan refreshed.  Then the timed pass, in which a record
+    for a decode instance is published once every prompt is admitted (the
+    engine re-plans at the next step boundary), and the measured runner
+    must time nothing new.
+
+    Checks: no new timing in the timed pass; at the prime prompt's prefill,
+    K1 launches on the tensor-core body exactly where an exact or transfer
+    resolution gives an M tile above 16 (the default run: none); every
+    distinct non-default launch served agrees with its plain version (the
+    same rounding K tile); the first prompt's prefill logits under the
+    registry's schedules within the serve bound; one re-plan, two monotone
+    plan generations in the timed pass."""
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core.database import Record
+    from repro_torch.core.extract import extract_kernels
+    from repro_torch.core.schedule import (GLU_CLASSES, Schedule, concretize, default_schedule,
+                                           nearest_divisor)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    t_phase = time.monotonic()
+    cfg = get_arch(TUNED_ARCH)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="registry-") as root:
+        args = serve.parse_args(["--arch", TUNED_ARCH, "--preset", "full", "--device", "cuda",
+                                 "--target", "h100", "--tuning-registry", root])
+        provider, service = serve.make_provider(args)
+        measured = service.runner.inner          # the MeasuredRunner behind the cache
+        registry = service.registry              # publishes through it are seen at once
+        registry.merge_db(db)
+        model = build_model(cfg, "cuda")
+        params = model.init(seed=0)
+        prompts = serve_prompts(cfg)
+        new_tokens = SERVE_NEW_TOKENS
+
+        # the rounding-mode record: the decode step's least-used non-GLU
+        # GEMM (the LM head), its default tiles without the f32 scratch
+        decode = extract_kernels(cfg, ShapeConfig("serve_decode", 512, 4, "decode"))
+        round_use = min((u for u in decode if u.instance.class_id in mm.EPILOGUE
+                         and u.instance.class_id not in GLU_CLASSES),
+                        key=lambda u: (u.use_count, -u.instance.p["N"]))
+        round_inst = round_use.instance
+        dflt = default_schedule(round_inst)
+        k = round_inst.p["K"]
+        tile_k = dflt.t["K"] if dflt.t["K"] < k else nearest_divisor(k, k // 2)
+        round_sched = Schedule.make(round_inst.class_id, {**dflt.t, "K": tile_k}, order=dflt.order,
+                                    cache_write=False, source="rounding-mode check")
+        if mm.round_k_for(concretize(round_sched, round_inst)) != tile_k:
+            raise AssertionError(f"{_desc(round_inst)}: {round_sched} does not round")
+        round_rec = Record(instance=round_inst, schedule=round_sched,
+                           seconds=service.runner.seconds(round_inst, round_sched),
+                           model_id="serve/rounding-check", target=service.target)
+        registry.publish([round_rec])
+
+        t0 = time.monotonic()
+        engine = ServingEngine(model, params, slots=4, max_len=512, provider=provider)
+        plan_s = time.monotonic() - t0
+        plan_init = {"entries": len(engine.plan), "tiers": engine.plan.tier_counts()}
+        rec = ResolutionRecorder(provider)
+
+        # warm pass: the prefill lookups, then the deferred jobs
+        t0 = time.monotonic()
+        warm = serve_stream(torch, engine, prompts, new_tokens, rec)
+        warm_s = time.monotonic() - t0
+        warm_calls = rec.take()
+        t0 = time.monotonic()
+        drained = service.drain()
+        drain_s = time.monotonic() - t0
+        engine.refresh_plan()
+        for inst in {c[0].workload_key(): c[0] for c in warm_calls}.values():
+            provider.pipeline.resolve(inst)   # at the new generation, before the timed pass
+        if engine.plan.lookup(round_inst).schedule != round_sched:
+            raise AssertionError(f"the plan does not serve the rounding-mode record: "
+                                 f"{engine.plan.lookup(round_inst)}")
+
+        # the mid-run record: a decode plan entry's schedule under another
+        # unroll (the same launch, timed already), default tier first so
+        # that it is served
+        entries = sorted(engine.plan.items(), key=lambda ur: ur[1].tier != "default")
+        mid_use, mid_res = entries[0]
+        mid_sched = dataclasses.replace(mid_res.schedule, unroll=4 if mid_res.schedule.unroll != 4 else 16,
+                                        source="mid-run publish")
+        mid_rec = Record(instance=mid_use.instance, schedule=mid_sched,
+                         seconds=service.runner.seconds(mid_use.instance, mid_sched),
+                         model_id="serve/mid-run", target=service.target)
+
+        # the timed pass
+        for kmod in (mm, fa, rw, rg):
+            kmod.reset_launches()
+        timings0 = measured.stats.measurements
+        stats0, svc0 = provider.stats(), service.stats()
+        replans0, history0 = engine.replans, len(engine.plan_history)
+        timed = serve_stream(torch, engine, prompts, new_tokens, rec,
+                             after_admissions=lambda: registry.publish([mid_rec]))
+        new_timings = measured.stats.measurements - timings0
+        calls = rec.take()
+        launches = serve.kernel_launches()
+        bodies = body_counts(mm)
+        rounding = {f"{k}/{b}": c for (k, b), c in sorted(mm.round_launches.items())}
+        stats1, svc1 = provider.stats(), service.stats()
+        history = engine.plan_history[history0:]
+        replans = engine.replans - replans0
+        if new_timings:
+            raise AssertionError(f"the measured runner timed {new_timings} launches in the timed pass")
+        if min(launches[k] for k in SERVE_KERNELS[TUNED_ARCH]) <= 0:
+            raise AssertionError(f"a kernel of the path was never launched: {launches}")
+        if sum(mm.round_launches.values()) <= 0:
+            raise AssertionError(f"the rounding-mode record never reached the kernel: {round_rec}")
+        if replans != 1 or len(history) != 2 or not history[0][1] < history[1][1]:
+            raise AssertionError(f"re-plans {replans}, plan history {history}")
+        if engine.plan.lookup(mid_use.instance).schedule != mid_sched and mid_res.tier == "default":
+            raise AssertionError("the mid-run record did not become the plan's entry")
+
+        # the prime prompt: K1 on the tensor cores exactly where the registry
+        # gave an M tile above 16; under the default schedules, never
+        bf16 = torch.bfloat16
+        want_mma = sum(1 for inst, tier, cs, _ in timed["prime_calls"]
+                       if inst.class_id in mm.EPILOGUE and tier in ("exact", "transfer")
+                       and mm.body_for(bf16, mm.schedule_key(cs)[0]) == "mma")
+        default_mma = sum(1 for inst, tier, cs, _ in timed["prime_calls"]
+                          if inst.class_id in mm.EPILOGUE and tier == "default"
+                          and mm.body_for(bf16, mm.schedule_key(cs)[0]) == "mma")
+        got_mma = timed["prime_bodies"].get("matmul/mma/bfloat16", 0)
+        if got_mma != want_mma or default_mma or want_mma <= 0:
+            raise AssertionError(f"prime prefill: {got_mma} K1 mma launches, {want_mma} planned "
+                                 f"(default-tier mma {default_mma})")
+        if default_row["prime_prefill_body_launches"].get("matmul/mma/bfloat16", 0):
+            raise AssertionError("the default run's prime prefill took the tensor-core body")
+
+        # every distinct non-default launch served, against its plain version
+        checked, errs, rounding_checked = set(), {}, 0
+        slower = []
+        for inst, tier, cs, _ in warm_calls + calls:
+            if tier == "default":
+                continue
+            key = measured.launch_key(cs)
+            if key in checked:
+                continue
+            checked.add(key)
+            got, want = _outputs(measured.run(cs)), _outputs(measured.run(cs, plain=True))
+            name = f"{_desc(inst)} {cs.t} {key[1]}"
+            errs[name] = max(assert_close(torch, g, w, BF16_TOL if i == 0 else STATE_TOL, name)
+                             for i, (g, w) in enumerate(zip(got, want)))
+            rounding_checked += bool(inst.class_id in mm.EPILOGUE and mm.round_k_for(cs))
+            del got, want
+            ms, dflt = (service.runner.seconds(inst, cs.schedule) * 1e3,
+                        service.runner.seconds(inst) * 1e3)
+            if ms > dflt:
+                slower.append({"instance": _desc(inst), "tier": tier, "tiles": cs.t,
+                               "ms": ms, "default_ms": dflt})
+        if not rounding_checked:
+            raise AssertionError("no rounding-mode launch among those checked")
+
+        toks = torch.tensor([prompts[0]], dtype=torch.long, device="cuda")
+        logits = prefill_logits_check(torch, model, params, toks, f"{TUNED_ARCH} (registry)",
+                                      provider=provider)
+        rec.close()
+        profile = profile_decode(torch, engine, prompts[:4], provider=provider)
+        misses = collections.Counter(_desc(inst) for inst, _, _, planned in calls if not planned)
+        prime_i = [len(p) for p in prompts].index(PRIME_PROMPT)
+        row = {
+            "arch": TUNED_ARCH, "registry_records": len(db.records()),
+            "plan_s": plan_s, "plan_init": plan_init,
+            "plan": {"entries": len(engine.plan), "generation": engine.plan.generation,
+                     "tiers": engine.plan.tier_counts()},
+            "warm_s": warm_s, "warm_prefill_s": warm["prefill_s"], "drained_jobs": drained,
+            "drain_s": drain_s,
+            "lookups": {"exact": svc1["exact_hits"], "transfer": svc1["transfer_hits"],
+                        "default": svc1["default_misses"]},
+            "timed_lookups": {t: svc1[k] - svc0[k] for t, k in (("exact", "exact_hits"),
+                                                                ("transfer", "transfer_hits"),
+                                                                ("default", "default_misses"))},
+            "timed_plan_served": {t: stats1["plan_served"][t] - stats0["plan_served"][t]
+                                  for t in stats1["plan_served"]},
+            "timed_plan_misses": stats1["plan_misses"] - stats0["plan_misses"],
+            "timed_missed_instances": dict(misses),
+            "timed_new_timings": new_timings,
+            "prefill_s": timed["prefill_s"], "default_prefill_s": default_row["prefill_s"],
+            "prefill_ratio": timed["prefill_s"] / default_row["prefill_s"],
+            "prime_prefill_s": timed["prompt_prefill_s"][prime_i],
+            "default_prime_prefill_s": default_row["prompt_prefill_s"][prime_i],
+            "prime_prefill_ratio": (timed["prompt_prefill_s"][prime_i]
+                                    / default_row["prompt_prefill_s"][prime_i]),
+            "prompt_prefill_s": timed["prompt_prefill_s"],
+            "decode_steps": timed["steps"], "decode_ms_per_step": timed["decode_ms_per_step"],
+            "default_decode_ms_per_step": default_row["decode_ms_per_step"],
+            "decode_ratio": timed["decode_ms_per_step"] / default_row["decode_ms_per_step"],
+            "launches": launches, "body_launches": bodies, "round_launches": rounding,
+            "prime_prefill_body_launches": timed["prime_bodies"],
+            "default_prime_prefill_body_launches": default_row["prime_prefill_body_launches"],
+            "prime_k1_mma_planned": want_mma,
+            "rounding_record": {"instance": _desc(round_rec.instance),
+                                "tiles": round_rec.schedule.t,
+                                "shape": [round_inst.class_id, *(round_inst.p[a] for a in "MKN"),
+                                          tile_k],
+                                "ms": round_rec.seconds * 1e3,
+                                "default_ms": service.runner.seconds(round_rec.instance) * 1e3},
+            "mid_run_record": {"instance": _desc(mid_use.instance), "tier_before": mid_res.tier,
+                               "tier_after": engine.plan.lookup(mid_use.instance).tier},
+            "replans": replans, "plan_history": history,
+            "checks": len(errs), "rounding_checks": rounding_checked,
+            "max_abs_err": max(errs.values()), "slower_than_default": slower,
+            **logits, "decode_profile": profile,
+            "tuning_service": {k: svc1[k] for k in ("lookups", "jobs_enqueued", "jobs_completed",
+                                                    "upgrades", "search_seconds_spent",
+                                                    "probe_search_s", "generation")},
+            "runner": measured.telemetry(), "wall_s": time.monotonic() - t_phase}
+        log("serve_tuned", **row)
+        service.close()
+        del model, params, engine, provider, service, measured
     torch.cuda.empty_cache()
     return row
 
@@ -1497,10 +1990,11 @@ def main(argv: list[str]) -> int:
     scr = phase_scans(torch, timer)
     phase_prime_matmul(torch, timer)
     grr = phase_grouped(torch, timer)
-    tuning = phase_tuning(torch, timer)
+    tuning, tuned_db = phase_tuning(torch, timer)
     del timer
     torch.cuda.empty_cache()
     srv = [phase_serve(torch, arch) for arch in SERVE_KERNELS]
+    tuned = phase_serve_tuned(torch, tuned_db, next(r for r in srv if r["arch"] == TUNED_ARCH))
 
     def served(name):   # launches summed over the serve phases
         return sum(r["launches"][name] for r in srv)
@@ -1523,6 +2017,12 @@ def main(argv: list[str]) -> int:
     # the tensor-core body at prefill: K1's q/o projection, K1g's down-GEMM
     pre_mm = next(r for r in mmr["shapes"] if (r["M"], r["K"], r["N"]) == (256, 3072, 3072))
     pre_gr = next(r for r in grr["shapes"] if r["M"] == MOE_ROWS[1] and r["class"] == "moe_gemm")
+    # rounding mode, at the launch the registry-served path makes
+    if tuned["rounding_record"]["shape"] != list(ROUND_SERVED):
+        raise AssertionError(f"the served rounding launch {tuned['rounding_record']} is not "
+                             f"among the timed cases {ROUND_SERVED}")
+    rep_round = next(r for r in mmr["rounding"]
+                     if (r["class"], r["M"], r["K"], r["N"], r["round_k"]) == ROUND_SERVED)
     kernels = [
         {"name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:205", "launches": served("matmul"),
@@ -1557,6 +2057,12 @@ def main(argv: list[str]) -> int:
          "replaces": "src/repro/kernels/matmul.py:236", "body": "mma",
          "launches": served_body("grouped_matmul"), "max_abs_err": grr["max_abs_err"],
          **timed(pre_gr, ("class", "E", "M", "K", "N", "cta_tile", "ctas"))},
+        {"name": "matmul_kstep_round", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:205", "body": rep_round["body"],
+         "launches": sum(tuned["round_launches"].values()),
+         "max_abs_err": max(r["max_abs_err"] for r in mmr["rounding"] + grr["rounding"]),
+         **timed(rep_round, ("class", "M", "K", "N", "round_k"))},
     ]
     print(json.dumps({"tuning": tuning}))
     log("done", seconds=time.monotonic() - t_start)

@@ -1,7 +1,6 @@
 """Transfer-tuning core: the paper's contribution as a composable library.
 
-A copy of ``repro.core`` (the port imports nothing of ``repro``) without the
-resolution pipeline, which has not been ported yet, plus
+A copy of ``repro.core`` (the port imports nothing of ``repro``), plus
 :class:`~repro_torch.core.measured_runner.MeasuredRunner`, the runner that
 times schedules with the port's CUDA kernels on the card.
 
@@ -16,6 +15,7 @@ Public API:
     transfer_tune / transfer_matrix / cross_target_transfer  transfer.py
     select_donor / top_donors (Eq. 1) ...................... heuristic.py
     extract_kernels (model config -> kernel workloads) ..... extract.py
+    ResolutionPipeline / ExecutionPlan / plan_model ........ resolution.py
     Target / get_target / resolve_target ................... repro_torch.targets
 """
 from repro_torch.core.autoscheduler import ModelTuneResult, TuneResult, tune_kernel, tune_model, tune_model_into_db
@@ -30,6 +30,18 @@ from repro_torch.core.cost_model import (
 )
 from repro_torch.core.database import Record, ScheduleDB
 from repro_torch.core.heuristic import DonorScore, donor_scores, select_donor, top_donors
+from repro_torch.core.resolution import (
+    DefaultStage,
+    ExecutionPlan,
+    Resolution,
+    ResolutionPipeline,
+    ResolutionStage,
+    ServiceStage,
+    StaticMapStage,
+    plan_model,
+    plan_serving,
+    plan_uses,
+)
 from repro_torch.core.runner import (
     AnalyticalRunner,
     CachedRunner,
@@ -56,7 +68,9 @@ __all__ = [
     "CachedRunner",
     "ConcreteSchedule",
     "CostBreakdown",
+    "DefaultStage",
     "DonorScore",
+    "ExecutionPlan",
     "Target",
     "MeasureRunner",
     "MeasuredRunner",
@@ -68,9 +82,14 @@ __all__ = [
     "Measurement",
     "ModelTuneResult",
     "Record",
+    "Resolution",
+    "ResolutionPipeline",
+    "ResolutionStage",
     "Schedule",
     "ScheduleDB",
     "ScheduleInvalid",
+    "ServiceStage",
+    "StaticMapStage",
     "TransferResult",
     "TuneResult",
     "class_proportions",
@@ -88,6 +107,9 @@ __all__ = [
     "list_targets",
     "measure",
     "model_seconds",
+    "plan_model",
+    "plan_serving",
+    "plan_uses",
     "resolve_target",
     "select_donor",
     "top_donors",

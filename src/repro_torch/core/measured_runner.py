@@ -16,10 +16,12 @@ every CUDA kernel takes every schedule ``concretize`` accepts, because its
 CTA tile is decoupled from the logical tile.
 
 Timings are memoized by what the launch reads (the workload key and the
-kernel wrapper's ``schedule_key``: tiles and order), not by the whole
-schedule.  So ``measure`` and ``seconds`` give one number for one launch,
-schedules that differ only in fields no launch reads (the K tile,
-``parallel``, ``unroll``, ``vec``, ``cache_write``) tie exactly, and
+kernel wrapper's ``schedule_key``: tiles, order and, for the matmul, the
+rounding K tile), not by the whole schedule.  So ``measure`` and
+``seconds`` give one number for one launch, schedules that differ only in
+fields no launch reads (``parallel``, ``unroll``, ``vec``; the K tile and
+``cache_write`` wherever they do not make the matmul round its partial
+sums, see :func:`repro_torch.kernels.matmul.round_k_for`) tie exactly, and
 ``stats.measurements`` counts real timings; ``ties`` counts the
 ``measure`` calls answered from that memo.
 
@@ -156,7 +158,7 @@ class MeasuredRunner(MeasureRunner):
     @staticmethod
     def launch_key(cs: ConcreteSchedule) -> tuple:
         """What the launch reads: the workload key and the wrapper's
-        ``schedule_key`` (its tiles and order)."""
+        ``schedule_key`` (its tiles, order and rounding K tile)."""
         return cs.instance.workload_key(), _module(cs.instance.class_id).schedule_key(cs)
 
     # -- protocol -------------------------------------------------------------
@@ -234,11 +236,11 @@ class MeasuredRunner(MeasureRunner):
         if c in mm.EPILOGUE:
             xm, w, kw = x
             if plain:
-                return lambda: ref.matmul(xm, w, c, **kw)
+                return lambda: ref.matmul(xm, w, c, round_k=mm.round_k_for(cs), **kw)
             return lambda: mm.matmul(xm, w, cs, class_id=c, **kw)
         if c in mm.GROUPED_EPILOGUE:
             if plain:
-                return lambda: ref.grouped_matmul(*x, c)
+                return lambda: ref.grouped_matmul(*x, c, round_k=mm.round_k_for(cs))
             return lambda: mm.grouped_matmul(*x, cs, class_id=c)
         if inst.family == "attention":
             p = inst.p

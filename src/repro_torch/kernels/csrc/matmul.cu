@@ -61,6 +61,18 @@
 // zero-fills its stages: cp.async's src-size form, or guarded scalar loads
 // where a row of x or w does not start on 16 bytes).  A GLU pair (gate at
 // even column n, up at n + 1) stays in one thread in every body.
+//
+// Rounding mode (round_k > 0; kernels/matmul.py round_k_for).  Without its
+// f32 scratch (cache_write off, or K not the innermost grid axis) the
+// reference adds each K tile's f32 product to a sum held in the bf16 output
+// block, so the sum is rounded to bf16 after every K tile but the last:
+// o = bf16(p_0), o = bf16(o + p_j), out = epilogue(o + p_last).  round_k is
+// that K tile; it divides K.  Only bf16 non-GLU launches round (the GLU
+// classes always take the scratch; for f32 the rounding is the identity), so
+// the fma body never does.  The rows body chains the K tiles inside one CTA
+// (matmul_rows_round_kernel, K never split); the mma body rounds its f32
+// accumulator fragments in place where a K tile ends, and splits an MMA step
+// that a tile boundary crosses (mma_round_step).
 #include <algorithm>
 
 #include "mma.cuh"
@@ -80,7 +92,11 @@ struct MatmulArgs {
   int groups;                   // experts (gridDim.y); 1 for a plain matmul
   int split_k;                  // rows body: K slices per strip (1 in the others)
   float* ws;                    // rows body, split_k > 1: f32 partial sums (E, split_k, M, N)
+  int round_k;                  // rounding mode's K tile (0: f32 sums throughout)
 };
+
+// f32 -> bf16 -> f32: a partial sum as the reference's bf16 output block holds it
+__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
 // This CTA's expert's slices of x, w and out (blockIdx.y = expert).
 template <typename T>
@@ -333,6 +349,159 @@ __global__ void __launch_bounds__(256) matmul_rows_reduce_kernel(MatmulArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// rows body, rounding mode (bf16, non-GLU, round_k > 0)
+// ---------------------------------------------------------------------------
+
+// K tiles at least this deep are summed by all the CTA's K lanes at once;
+// shorter ones by one K lane each
+constexpr int kRowsRoundWide = 256;
+
+// One K lane's f32 sum over the K rows [k0, k1) for the rows [r0, r0 + rows)
+// and VEC columns from col, in ascending k.  kVec: 16-byte loads of w;
+// otherwise guarded scalar loads, zeros past the strip's edge cn1.
+template <bool kVec>
+__device__ __forceinline__ void rows_tile_serial(const __nv_bfloat16* __restrict__ x,
+                                                 const __nv_bfloat16* __restrict__ w,
+                                                 const MatmulArgs& a, int r0, int rows, int col,
+                                                 int cn1, int k0, int k1,
+                                                 float (&acc)[kRowsRM][8]) {
+  using T = __nv_bfloat16;
+#pragma unroll 4
+  for (int kk = k0; kk < k1; ++kk) {
+    uint4 wr;
+    if (kVec) {
+      wr = __ldg(reinterpret_cast<const uint4*>(w + (size_t)kk * a.n + col));
+    } else {
+      T* e = reinterpret_cast<T*>(&wr);
+#pragma unroll
+      for (int v = 0; v < 8; ++v) e[v] = col + v < cn1 ? w[(size_t)kk * a.n + col + v] : from_f<T>(0.f);
+    }
+    const T* e = reinterpret_cast<const T*>(&wr);
+#pragma unroll
+    for (int r = 0; r < kRowsRM; ++r) {
+      if (r < rows) {   // uniform over the CTA
+        const float xv = to_f(x[(size_t)(r0 + r) * a.k + kk]);
+#pragma unroll
+        for (int v = 0; v < 8; ++v) acc[r][v] = fmaf(xv, to_f(e[v]), acc[r][v]);
+      }
+    }
+  }
+}
+
+// A CTA covers one 64-column strip of one logical tile over the whole of K,
+// in passes of 4 rows; each of its 256 threads owns one (row, column) of a
+// pass and carries that output's chain over the K tiles in a register:
+// chain = p_0, then chain = bf16(chain) + p_j.  Each tile's f32 product p_j
+// is summed first: a tile of at least kRowsRoundWide rows by all 32 K lanes
+// as in the plain rows body (then the warp butterfly and the 8 warps in
+// order); a shorter one by one K lane alone, 32 tiles side by side, folded
+// into the chains in tile order from shared memory.  Slower than the plain
+// rows body (one CTA per strip, no K split), and exact to the rule.
+__global__ void __launch_bounds__(kRowsThreads) matmul_rows_round_kernel(MatmulArgs a) {
+  using T = __nv_bfloat16;
+  constexpr int VEC = 8;
+  constexpr int TN = kRowsCtaN / VEC;      // 8 threads across the strip
+  constexpr int TK = kRowsThreads / TN;    // 32 K lanes
+  constexpr int kWarps = kRowsThreads / 32;
+  __shared__ float part[TK][kRowsRM][kRowsCtaN];   // per K lane (narrow) or warp (wide)
+
+  const ExpertPtrs<T> p(a);
+  const int strip = blockIdx.x % a.sub_n;
+  int m0, n0;
+  tile_origin(a, blockIdx.x / a.sub_n, &m0, &n0);
+  const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.tile_n, a.n);
+  const int cn0 = n0 + strip * kRowsCtaN;
+  if (cn0 >= n1) return;
+  const int cn1 = min(cn0 + kRowsCtaN, n1), width = cn1 - cn0;
+  const int tx = threadIdx.x % TN, ty = threadIdx.x / TN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = cn0 + tx * VEC;
+  const bool vec_ok = (a.n % VEC) == 0 && (a.tile_n % VEC) == 0 &&
+                      (reinterpret_cast<uintptr_t>(p.w) % 16) == 0;
+  // x in 16-byte vectors only where every tile starts on a multiple of 8
+  const bool x_vec = (a.k % 8) == 0 && (a.round_k % 8) == 0 &&
+                     (reinterpret_cast<uintptr_t>(p.x) % 16) == 0;
+  const int orow = threadIdx.x / kRowsCtaN, ocol = threadIdx.x % kRowsCtaN;   // this thread's output
+  const int tiles = a.k / a.round_k;
+
+  for (int r0 = m0; r0 < m1; r0 += kRowsRM) {
+    const int rows = min(kRowsRM, m1 - r0);
+    const bool owner = orow < rows && ocol < width;
+    float chain = 0.f;
+    if (a.round_k >= kRowsRoundWide) {
+      for (int t = 0; t < tiles; ++t) {
+        float acc[kRowsRM][VEC];
+#pragma unroll
+        for (int r = 0; r < kRowsRM; ++r)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
+        const int k0 = t * a.round_k, k1 = k0 + a.round_k;
+        if (col < cn1) {
+          if (vec_ok) rows_accumulate<T, TK, true>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
+          else rows_accumulate<T, TK, false>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
+        }
+#pragma unroll
+        for (int r = 0; r < kRowsRM; ++r) {
+          if (r >= rows) break;   // uniform over the CTA
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            float s = acc[r][v];
+#pragma unroll
+            for (int o = TN; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+            acc[r][v] = s;
+          }
+        }
+        if (lane < TN) {
+#pragma unroll
+          for (int r = 0; r < kRowsRM; ++r)
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) part[warp][r][tx * VEC + v] = acc[r][v];
+        }
+        __syncthreads();
+        if (owner) {
+          float s = 0.f;
+#pragma unroll
+          for (int wi = 0; wi < kWarps; ++wi) s += part[wi][orow][ocol];
+          chain = t == 0 ? s : round_bf16(chain) + s;
+        }
+        __syncthreads();
+      }
+    } else {
+      for (int t0 = 0; t0 < tiles; t0 += TK) {
+        const int t = t0 + ty;
+        float acc[kRowsRM][VEC];
+#pragma unroll
+        for (int r = 0; r < kRowsRM; ++r)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
+        if (t < tiles && col < cn1) {
+          const int k0 = t * a.round_k, k1 = k0 + a.round_k;
+          if (vec_ok) rows_tile_serial<true>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, acc);
+          else rows_tile_serial<false>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, acc);
+        }
+#pragma unroll
+        for (int r = 0; r < kRowsRM; ++r)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) part[ty][r][tx * VEC + v] = acc[r][v];
+        __syncthreads();
+        if (owner) {
+          const int last = min(TK, tiles - t0);
+          for (int j = 0; j < last; ++j) {
+            const float s = part[j][orow][ocol];
+            chain = t0 + j == 0 ? s : round_bf16(chain) + s;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    if (owner) {
+      const int row = r0 + orow, oc = cn0 + ocol;
+      p.out[(size_t)row * a.n_out + oc] = from_f<T>(epilogue1(a, chain, row, oc));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // mma body: bf16 on the tensor cores, mma.sync m16n8k16 from a cp.async ring
 // ---------------------------------------------------------------------------
 
@@ -360,7 +529,60 @@ using MmaTile128x128 = MmaTile<128, 128, 2, 4>;  // warp tile 64x32
 using MmaTile64x128 = MmaTile<64, 128, 2, 4>;    // 32x32
 using MmaTile64x64 = MmaTile<64, 64, 2, 2>;      // 32x32
 
-template <class Tile>
+// Rounding mode's MMA step over the global K rows [kg, kg + 16): each K
+// tile's products go into the accumulator, which is rounded to bf16 in place
+// where a tile ends (not at K's end).  A tile boundary inside the step (a K
+// tile that is not a multiple of 16: 8, 40, ...) splits it into segments,
+// each an MMA with the A fragment's K columns outside the segment zeroed, so
+// no product crosses a rounding.  The next tile's products then accumulate
+// onto the rounded sum, where the reference adds the tile's own f32 sum to
+// it: the two differ only in the order of one tile's f32 additions.  The
+// segments depend on kg and round_k alone, uniform over the CTA.
+template <int FM, int FN>
+__device__ __forceinline__ void mma_round_step(float (&acc)[FM][FN][4], const uint32_t (&af)[FM][4],
+                                               const uint32_t (&bfr)[FN][2], int kg, int round_k,
+                                               int k, int tq) {
+  for (int s0 = 0; s0 < 16;) {
+    const int end = (kg + s0) / round_k * round_k + round_k;   // end of row kg + s0's K tile
+    const int s1 = min(end - kg, 16);
+    if (s0 == 0 && s1 == 16) {
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    } else {
+      // a lane's A registers hold K columns 2tq, 2tq + 1 (registers 0 and 1,
+      // rows g and g + 8) and 2tq + 8, 2tq + 9 (registers 2 and 3), the lower
+      // column in the low half
+      uint32_t mask[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int c = 2 * tq + 8 * (r >> 1);
+        mask[r] = (c >= s0 && c < s1 ? 0x0000ffffu : 0u) | (c + 1 >= s0 && c + 1 < s1 ? 0xffff0000u : 0u);
+      }
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        const uint32_t am[4] = {af[i][0] & mask[0], af[i][1] & mask[1], af[i][2] & mask[2],
+                                af[i][3] & mask[3]};
+#pragma unroll
+        for (int j = 0; j < FN; ++j) mma_bf16(acc[i][j], am, bfr[j][0], bfr[j][1]);
+      }
+    }
+    if (kg + s1 == end && end < k) {
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[i][j][v] = round_bf16(acc[i][j][v]);
+    }
+    s0 = s1;
+  }
+}
+
+// kRound: rounding mode (a.round_k > 0), a separate instantiation so the
+// plain body's code is untouched by it
+template <class Tile, bool kRound>
 __global__ void __launch_bounds__(Tile::kThreads) matmul_mma_kernel(MatmulArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int BM = Tile::BM, BN = Tile::BN, kLdA = Tile::kLdA, kLdB = Tile::kLdB;
@@ -442,10 +664,14 @@ __global__ void __launch_bounds__(Tile::kThreads) matmul_mma_kernel(MatmulArgs a
         ldmatrix_x4_trans(t, smem_addr(sb + (kk + lane % 16) * kLdB + wn0 + j * 8 + (lane / 16) * 8));
         bfr[j][0] = t[0]; bfr[j][1] = t[1]; bfr[j + 1][0] = t[2]; bfr[j + 1][1] = t[3];
       }
+      if constexpr (kRound) {
+        mma_round_step(acc, af, bfr, kt * kStageK + kk, a.round_k, a.k, lane % 4);
+      } else {
 #pragma unroll
-      for (int i = 0; i < Tile::kFragM; ++i)
+        for (int i = 0; i < Tile::kFragM; ++i)
 #pragma unroll
-        for (int j = 0; j < Tile::kFragN; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+          for (int j = 0; j < Tile::kFragN; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+      }
     }
   }
   cp_async_wait<0>();  // only empty groups remain; leave none in flight
@@ -560,14 +786,19 @@ __global__ void __launch_bounds__(256) matmul_fma_kernel(MatmulArgs a) {
 
 enum Body : int { kRows = 0, kMma = 1, kFma = 2 };
 
-template <class Tile>
-int launch_mma(const MatmulArgs& a, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(matmul_mma_kernel<Tile>,
+template <class Tile, bool kRound>
+int launch_mma_as(const MatmulArgs& a, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(matmul_mma_kernel<Tile, kRound>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              Tile::kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  matmul_mma_kernel<Tile><<<dim3(a.ctas, a.groups), Tile::kThreads, Tile::kSmemBytes, stream>>>(a);
+  matmul_mma_kernel<Tile, kRound><<<dim3(a.ctas, a.groups), Tile::kThreads, Tile::kSmemBytes, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <class Tile>
+int launch_mma(const MatmulArgs& a, cudaStream_t stream) {
+  return a.round_k > 0 ? launch_mma_as<Tile, true>(a, stream) : launch_mma_as<Tile, false>(a, stream);
 }
 
 // Checks the shared arguments and the CTA geometry the wrapper chose
@@ -580,6 +811,10 @@ int run(MatmulArgs& a, int dtype, void* stream) {
   if (dtype != kBFloat16 && dtype != kFloat32) return (int)cudaErrorInvalidValue;
   const bool glu = is_glu(a.epi);
   if (glu && ((a.n % 2) || (a.tile_n % 2))) return (int)cudaErrorInvalidValue;
+  // rounding mode: bf16, non-GLU, a K tile that divides K into at least two
+  if (a.round_k < 0) return (int)cudaErrorInvalidValue;
+  if (a.round_k > 0 && (dtype != kBFloat16 || glu || a.k % a.round_k || a.round_k >= a.k))
+    return (int)cudaErrorInvalidValue;
   if (a.epi == kResidual && a.residual == nullptr) return (int)cudaErrorInvalidValue;
   a.n_out = glu ? a.n / 2 : a.n;
   a.tiles_m = cdiv(a.m, a.tile_m); a.tiles_n = cdiv(a.n, a.tile_n);
@@ -594,6 +829,7 @@ int run(MatmulArgs& a, int dtype, void* stream) {
   } else if (body == kRows) {  // 64-column strips of the logical tile, split_k K slices each
     if (a.cta_m != a.tile_m || a.cta_n != kRowsCtaN) return (int)cudaErrorInvalidValue;
     if (cdiv(a.k, rows_k_slice(a.k, a.split_k)) != a.split_k) return (int)cudaErrorInvalidValue;
+    if (a.round_k > 0 && a.split_k != 1) return (int)cudaErrorInvalidValue;   // K tiles chain in one CTA
     if (a.split_k > 1 && a.ws == nullptr) return (int)cudaErrorInvalidValue;
     a.sub_m = 1;
     a.sub_n = cdiv(std::min(a.tile_n, a.n), kRowsCtaN);
@@ -609,7 +845,9 @@ int run(MatmulArgs& a, int dtype, void* stream) {
   switch (body) {
     case kRows: {
       const dim3 rgrid(std::min(cdiv(a.m * a.n_out, 256), 4096), a.groups);
-      if (dtype == kBFloat16) {
+      if (a.round_k > 0) {
+        matmul_rows_round_kernel<<<grid, kRowsThreads, 0, s>>>(a);
+      } else if (dtype == kBFloat16) {
         matmul_rows_kernel<__nv_bfloat16><<<grid, kRowsThreads, 0, s>>>(a);
         if (a.split_k > 1) matmul_rows_reduce_kernel<__nv_bfloat16><<<rgrid, 256, 0, s>>>(a);
       } else {
@@ -632,13 +870,14 @@ int run(MatmulArgs& a, int dtype, void* stream) {
 }  // namespace repro
 
 // C entry point bound with ctypes.  bias (N,) and residual (M, N_out) are f32
-// (the wrapper converts them: the reference reads both into f32).  ws: the
-// rows body's f32 workspace (split_k, M, N) when split_k > 1, else unused.  Returns a
+// (the wrapper converts them: the reference reads both into f32).  round_k:
+// the rounding mode's K tile, 0 for f32 sums throughout.  ws: the rows body's
+// f32 workspace (split_k, M, N) when split_k > 1, else unused.  Returns a
 // cudaError_t: the launch's, or cudaErrorInvalidValue for bad arguments.
 extern "C" int repro_matmul(const void* x, const void* w, const void* bias, const void* residual,
                             void* out, int m, int n, int k, int dtype, int epi, float softcap,
                             int tile_m, int tile_n, int m_outer, int cta_m, int cta_n, int ctas,
-                            int split_k, void* ws, void* stream) {
+                            int split_k, int round_k, void* ws, void* stream) {
   repro::MatmulArgs a{};
   a.x = x; a.w = w; a.bias = static_cast<const float*>(bias);
   a.residual = static_cast<const float*>(residual); a.out = out;
@@ -646,24 +885,25 @@ extern "C" int repro_matmul(const void* x, const void* w, const void* bias, cons
   a.epi = epi; a.softcap = softcap;
   a.tile_m = tile_m; a.tile_n = tile_n; a.m_outer = m_outer; a.groups = 1;
   a.cta_m = cta_m; a.cta_n = cta_n; a.ctas = ctas;
-  a.split_k = split_k; a.ws = static_cast<float*>(ws);
+  a.split_k = split_k; a.round_k = round_k; a.ws = static_cast<float*>(ws);
   return repro::run(a, dtype, stream);
 }
 
 // Grouped (MoE expert) matmul: out[e] = epilogue(x[e] (M,K) @ w[e] (K,N)) for
 // e < groups, contiguous (E,M,K), (E,K,N) and (E,M,N_out).  m, tile_m and
 // tile_n are per expert.  No bias or residual (the grouped classes have none).
-// ws: (E, split_k, M, N) f32 when the rows body splits K.
+// round_k: as repro_matmul's, per expert.  ws: (E, split_k, M, N) f32 when
+// the rows body splits K.
 extern "C" int repro_grouped_matmul(const void* x, const void* w, void* out, int groups,
                                     int m, int n, int k, int dtype, int epi,
                                     int tile_m, int tile_n, int m_outer, int cta_m, int cta_n,
-                                    int ctas, int split_k, void* ws, void* stream) {
+                                    int ctas, int split_k, int round_k, void* ws, void* stream) {
   repro::MatmulArgs a{};
   a.x = x; a.w = w; a.out = out;
   a.m = m; a.n = n; a.k = k;
   a.epi = epi;
   a.tile_m = tile_m; a.tile_n = tile_n; a.m_outer = m_outer; a.groups = groups;
   a.cta_m = cta_m; a.cta_n = cta_n; a.ctas = ctas;
-  a.split_k = split_k; a.ws = static_cast<float*>(ws);
+  a.split_k = split_k; a.round_k = round_k; a.ws = static_cast<float*>(ws);
   return repro::run(a, dtype, stream);
 }

@@ -48,13 +48,19 @@ kernel:
   the f32 tolerance is 2e-4.  That is the dtype rule, not a fallback.
 * ``order`` — tile rasterisation: the logical tile index walks the inner of
   M and N fastest.
-* ``tiles["K"]`` — not used: the kernel sums the whole K range of a tile in
-  f32 (32-deep shared-memory stages on the tensor cores, 16-deep on the CUDA
-  cores, or streamed in the rows body, in K slices of its own choosing).
-* ``cache_write`` — always on in effect: the accumulator is f32.  With
-  ``cache_write=False`` (or K not innermost) the reference rounds partial sums
-  to the output dtype at every K step; the kernel does not, so it matches the
-  reference under the default schedule, which takes the f32-scratch path.
+* ``tiles["K"]`` and ``cache_write`` — together they say where the
+  reference rounds (:func:`round_k_for`).  With ``cache_write`` on and K the
+  innermost grid axis (every default schedule), and for the GLU classes
+  and f32, the reference sums each output tile in f32 scratch: the kernel
+  sums the whole K range in f32 too, in stages of its own choosing (32
+  deep on the tensor cores, 16 on the CUDA cores, K slices in the rows
+  body), and the K tile reaches no launch.  Otherwise (``cache_write=False``,
+  or K not innermost) the reference adds each K tile's f32 product to a
+  sum held in the bf16 output block, rounding it to bf16 after every K tile
+  but the last, and the kernel launches in **rounding mode** with that K
+  tile (``round_k``): the rows body chains the tiles inside one CTA and
+  never splits K, the mma body rounds its accumulator where a tile ends.
+  Rounding mode is slower and is taken only where a schedule asks for it.
 * ``parallel``, ``unroll``, ``vec`` — ignored (TPU compiler hints).
 * grouped: the instance's ``M`` is ``m·E`` (rows over all experts, as in
   ``ops.moe_gemm``), but the tiles are clamped to one expert's extent
@@ -109,12 +115,14 @@ ROWS_SLICE_ALIGN = 32
 
 #: kernel launches since the last reset (plain counts; see chip_smoke.py):
 #: ``launches`` of :func:`launch` (K1), ``grouped_launches`` of
-#: :func:`grouped_launch` (K1g), and ``body_launches`` of both by
+#: :func:`grouped_launch` (K1g), ``body_launches`` of both by
 #: (kernel, body, dtype): kernel ``"matmul"`` or ``"grouped_matmul"``, body
-#: ``"rows"``, ``"mma"`` or ``"fma"`` (:func:`body_for`)
+#: ``"rows"``, ``"mma"`` or ``"fma"`` (:func:`body_for`), and
+#: ``round_launches`` of both in rounding mode by (kernel, body)
 launches = 0
 grouped_launches = 0
 body_launches: collections.Counter = collections.Counter()
+round_launches: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
@@ -122,6 +130,7 @@ def reset_launches() -> None:
     global launches, grouped_launches
     launches = grouped_launches = 0
     body_launches.clear()
+    round_launches.clear()
 
 
 def body_count(body: str | None = None, *, kernel: str | None = None,
@@ -145,18 +154,43 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def schedule_key(cs: ConcreteSchedule) -> tuple[int, int, bool]:
-    """What a launch reads of a concrete schedule: (M tile, N tile, M outer),
-    the tiles per expert for the grouped classes (clamped to one expert's
-    ``M / E`` rows and to N).  Schedules with one key launch the same kernel
-    in the same layout: the K and E tiles, ``parallel``, ``unroll``, ``vec``
-    and ``cache_write`` reach no launch."""
+def round_k_for(cs: ConcreteSchedule) -> int:
+    """The K tile after which the reference rounds partial sums to the
+    output dtype under ``cs``, or 0 where it sums in f32 throughout.
+
+    The reference (``build_call`` and ``_kernel`` of
+    ``src/repro/kernels/matmul.py``) keeps an f32 scratch accumulator when
+    ``cache_write`` is on and K is the innermost of its M, N, K grid axes,
+    and always for the GLU classes; otherwise, with more than one K trip, it
+    accumulates in the output block: ``o = bf16(p_0)``, ``o = bf16(o +
+    p_j)``, ``out = epilogue(o + p_last)``, ``p_j`` the f32 product of K tile
+    ``j``.  For f32 outputs that rounding is the identity, so only bf16
+    rounds.  The grouped classes follow the same rule per expert."""
+    inst = cs.instance
+    if inst.dtype != "bfloat16" or inst.class_id in GLU_CLASSES:
+        return 0
+    order = [a for a in cs.order if a in ("M", "N", "K")]
+    if cs.schedule.cache_write and order[-1] == "K":
+        return 0
+    k = inst.p["K"]
+    tile_k = min(cs.t["K"], k)
+    return tile_k if _cdiv(k, tile_k) > 1 else 0
+
+
+def schedule_key(cs: ConcreteSchedule) -> tuple[int, int, bool, int]:
+    """What a launch reads of a concrete schedule: (M tile, N tile, M outer,
+    rounding K tile), the tiles per expert for the grouped classes (clamped
+    to one expert's ``M / E`` rows and to N), the rounding K tile from
+    :func:`round_k_for` (0 where the sums stay f32).  Schedules with one key
+    launch the same kernel in the same layout: the E tile, ``parallel``,
+    ``unroll`` and ``vec`` reach no launch, and the K tile and
+    ``cache_write`` reach it only where they make it round."""
     tile_m, tile_n = cs.t["M"], cs.t["N"]
     p = cs.instance.p
     if cs.instance.class_id in GROUPED_EPILOGUE:
         tile_m, tile_n = min(tile_m, p["M"] // p["E"]), min(tile_n, p["N"])
     order = [a for a in cs.order if a in ("M", "N")]
-    return tile_m, tile_n, order[0] == "M"
+    return tile_m, tile_n, order[0] == "M", round_k_for(cs)
 
 
 def tiled_geometry(m: int, n: int, tile_m: int, tile_n: int,
@@ -195,7 +229,7 @@ def rows_k_slice(k: int, split_k: int) -> int:
 
 
 def rows_geometry(m: int, n: int, k: int, tile_m: int, tile_n: int,
-                  groups: int = 1) -> tuple[int, int, int]:
+                  groups: int = 1, round_k: int = 0) -> tuple[int, int, int]:
     """(cta_n, split_k, ctas) of the rows body for an (m, n) output with
     depth k under (tile_m, tile_n) logical tiles; grouped, per expert, with
     ``groups`` experts side by side on the card.
@@ -206,24 +240,26 @@ def rows_geometry(m: int, n: int, k: int, tile_m: int, tile_n: int,
     :data:`ROWS_MIN_CTAS`, K is split into ``split_k`` slices of at least
     :data:`ROWS_MIN_SLICE` rows, summed in slice order by a second pass.
     ``split_k`` depends on k, n, tile_n and groups only, never on m, so a
-    row's summation order (and its bits) is the same at M = 1 and M = 4."""
+    row's summation order (and its bits) is the same at M = 1 and M = 4.
+    In rounding mode (``round_k`` > 0) K is never split: one CTA chains the
+    K tiles in order."""
     strips = _cdiv(n, tile_n) * _cdiv(min(tile_n, n), ROWS_CTA_N)
     split_k = 1
-    if groups * strips < ROWS_MIN_CTAS:
+    if groups * strips < ROWS_MIN_CTAS and not round_k:
         split_k = max(1, min(_cdiv(ROWS_MIN_CTAS, groups * strips), k // ROWS_MIN_SLICE))
         split_k = _cdiv(k, rows_k_slice(k, split_k))   # no empty slice
     return ROWS_CTA_N, split_k, _cdiv(m, tile_m) * strips * split_k
 
 
 def launch_geometry(dtype: torch.dtype, m: int, n: int, k: int, tile_m: int, tile_n: int,
-                    groups: int = 1) -> tuple[str, int, int, int, int]:
+                    groups: int = 1, round_k: int = 0) -> tuple[str, int, int, int, int]:
     """(body, cta_m, cta_n, split_k, ctas) of a launch, CTAs per expert: the
     rows body's strips and K slices from :func:`rows_geometry`, the mma
     body's CTA tiles from :func:`tiled_geometry`, one CTA per logical tile
     in the fma body.  The kernel re-checks it and refuses a mismatch."""
     body = body_for(dtype, tile_m)
     if body == "rows":
-        cta_n, split_k, ctas = rows_geometry(m, n, k, tile_m, tile_n, groups)
+        cta_n, split_k, ctas = rows_geometry(m, n, k, tile_m, tile_n, groups, round_k)
         return body, tile_m, cta_n, split_k, ctas
     if body == "mma":
         cta_m, cta_n, ctas = tiled_geometry(m, n, tile_m, tile_n, groups)
@@ -243,7 +279,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
            residual: torch.Tensor | None = None, softcap: float = 0.0) -> torch.Tensor:
     """x (M,K) @ w (K,N) with the class's fused epilogue -> (M, N or N/2)."""
     if x.device.type == "cpu":
-        return ref.matmul(x, w, class_id, bias=bias, residual=residual, softcap=softcap)
+        return ref.matmul(x, w, class_id, bias=bias, residual=residual, softcap=softcap,
+                          round_k=round_k_for(cs))
     return launch(x, w, cs, class_id=class_id, bias=bias, residual=residual, softcap=softcap)
 
 
@@ -267,7 +304,7 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     if (cs.instance.class_id, cs.instance.p["M"], cs.instance.p["N"], cs.instance.p["K"]) != (class_id, m, n, k):
         raise ValueError(f"schedule for {cs.instance} does not fit {class_id} ({m},{k})x({k},{n})")
     glu = class_id in GLU_CLASSES
-    tile_m, tile_n, m_outer = schedule_key(cs)
+    tile_m, tile_n, m_outer, round_k = schedule_key(cs)
     if glu and (n % 2 or tile_n % 2):
         raise ValueError(f"GLU epilogue needs even N and N tile, got {n}, {tile_n}")
     n_out = n // 2 if glu else n
@@ -286,7 +323,8 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    body, cta_m, cta_n, split_k, ctas = launch_geometry(x.dtype, m, n, k, tile_m, tile_n)
+    body, cta_m, cta_n, split_k, ctas = launch_geometry(x.dtype, m, n, k, tile_m, tile_n,
+                                                        round_k=round_k)
     ws = _workspace(x, 1, split_k, m, n)
     lib = _build.library()
     rc = lib.repro_matmul(
@@ -294,11 +332,13 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
         bias32.data_ptr() if bias32 is not None else None,
         res32.data_ptr() if res32 is not None else None,
         out.data_ptr(), m, n, k, DTYPES[x.dtype], EPILOGUE[class_id], float(softcap),
-        tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas, split_k,
+        tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas, split_k, round_k,
         ws.data_ptr() if ws is not None else None, _build.stream_handle(x.device))
     _build.check(rc, "matmul kernel")
     launches += 1
     body_launches["matmul", body, x.dtype] += 1
+    if round_k:
+        round_launches["matmul", body] += 1
     return out
 
 
@@ -306,7 +346,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
                    class_id: str = "moe_gemm") -> torch.Tensor:
     """x (E,M,K) @ w (E,K,N) per expert with the class's epilogue -> (E, M, N or N/2)."""
     if x.device.type == "cpu":
-        return ref.grouped_matmul(x, w, class_id)
+        return ref.grouped_matmul(x, w, class_id, round_k=round_k_for(cs))
     return grouped_launch(x, w, cs, class_id=class_id)
 
 
@@ -331,7 +371,7 @@ def grouped_geometry(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule,
         raise ValueError(f"schedule for {cs.instance} does not fit {class_id} "
                          f"{e}x({m},{k})x({k},{n}) (M = m·E)")
     # per-expert tiles: the schedule's M tile divides m·E, not necessarily m
-    tile_m, tile_n, _ = schedule_key(cs)
+    tile_m, tile_n, *_ = schedule_key(cs)
     if class_id in GLU_CLASSES and (n % 2 or tile_n % 2):
         raise ValueError(f"GLU epilogue needs even N and N tile, got {n}, {tile_n}")
     return e, m, n, k, tile_m, tile_n
@@ -348,13 +388,18 @@ def grouped_launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
                       device=x.device)
     if m == 0 or e == 0:
         return out
-    body, cta_m, cta_n, split_k, ctas = launch_geometry(x.dtype, m, n, k, tile_m, tile_n, e)
+    _, _, m_outer, round_k = schedule_key(cs)
+    body, cta_m, cta_n, split_k, ctas = launch_geometry(x.dtype, m, n, k, tile_m, tile_n, e,
+                                                        round_k)
     ws = _workspace(x, e, split_k, m, n)
     rc = _build.library().repro_grouped_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, DTYPES[x.dtype],
-        GROUPED_EPILOGUE[class_id], tile_m, tile_n, int(schedule_key(cs)[2]), cta_m, cta_n, ctas,
-        split_k, ws.data_ptr() if ws is not None else None, _build.stream_handle(x.device))
+        GROUPED_EPILOGUE[class_id], tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas,
+        split_k, round_k, ws.data_ptr() if ws is not None else None,
+        _build.stream_handle(x.device))
     _build.check(rc, "grouped matmul kernel")
     grouped_launches += 1
     body_launches["grouped_matmul", body, x.dtype] += 1
+    if round_k:
+        round_launches["grouped_matmul", body] += 1
     return out

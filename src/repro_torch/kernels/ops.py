@@ -14,9 +14,17 @@ Kernel instances are built exactly as in ``repro.kernels.ops`` (matmul:
 ``M`` = product of the leading dims, ``N``, ``K``; grouped matmul: ``M`` =
 rows per expert × ``E``, ``N``, ``K``, ``E``; attention: ``Q``, ``KV``,
 ``H``, ``D``, ``B``, ``window``; rwkv6: ``T``, ``C`` = H·D, ``D``, ``B``;
-rglru: ``T``, ``C``, ``B``), so workload keys match the reference.  This
-slice resolves default schedules only; the resolution pipeline, registry and
-tuning service come with a later slice.
+rglru: ``T``, ``C``, ``B``), so workload keys match the reference.
+
+Schedule resolution is the reference's: a :class:`ScheduleProvider` (a copy
+of ``repro.kernels.ops.ScheduleProvider``) over a
+:class:`~repro_torch.core.resolution.ResolutionPipeline` (service → static
+map → default), consulting the active
+:class:`~repro_torch.core.resolution.ExecutionPlan` first.  An op resolves
+with the provider it is given, else the process default
+(:func:`set_default_provider`; an all-defaults provider until one is
+installed).  A plan hit is one dict lookup; an unplanned instance walks the
+pipeline once and is then a memo hit.
 """
 from __future__ import annotations
 
@@ -24,10 +32,13 @@ import contextlib
 import functools
 import math
 import threading
+from typing import Mapping
 
 import torch
 
-from repro_torch.core.schedule import ConcreteSchedule, concretize, default_schedule
+from repro_torch.core import resolution
+from repro_torch.core.resolution import ExecutionPlan, ResolutionPipeline
+from repro_torch.core.schedule import ConcreteSchedule, Schedule, concretize, default_schedule
 from repro_torch.core.workload import KernelInstance
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
@@ -64,6 +75,119 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+class ScheduleProvider:
+    """Resolves the schedule for each kernel instance the model emits.
+
+    A thin facade over a :class:`ResolutionPipeline` plus an optional active
+    :class:`ExecutionPlan`:
+
+    * ``plan`` (when set) answers first — pre-resolved dict hit;
+    * the pipeline walks service → static map → default on plan misses and
+      memoizes per ``(workload, mode, target, generation)``.
+
+    Construct either from the legacy pieces (``schedule_map`` and/or
+    ``service``) or from an explicit ``pipeline``.  Invalid entries (e.g. a
+    transferred schedule that does not concretize strictly) fall through to
+    the next stage — execution never fails on a bad DB.
+
+    Per-tier lookup counts (``exact``/``transfer``/``static``/``default``)
+    live in the pipeline and are thread-safe; a service answer of the
+    untuned-default tier is *not* a hit.  ``hits``/``misses`` remain as
+    derived compatibility properties.
+    """
+
+    def __init__(self, schedule_map: Mapping[str, Schedule] | None = None,
+                 mode: str = "strict", service=None, *,
+                 pipeline: ResolutionPipeline | None = None,
+                 plan: ExecutionPlan | None = None, target=None):
+        if pipeline is None:
+            pipeline = ResolutionPipeline.build(
+                schedule_map=schedule_map, service=service, mode=mode,
+                target=target)
+        self.pipeline = pipeline
+        self.plan = plan
+        self._lock = threading.Lock()
+        # Plan answers bucketed by tier (a default-tier plan entry is still
+        # an untuned kernel — it must not masquerade as a hit), plus misses
+        # (instances the plan does not cover, served by the pipeline) so
+        # coverage gaps are observable.
+        self._plan_served = {t: 0 for t in resolution.TIERS}
+        self._plan_misses = 0
+
+    @property
+    def mode(self) -> str:
+        return self.pipeline.mode
+
+    @property
+    def service(self):
+        return self.pipeline.service
+
+    @property
+    def schedule_map(self) -> dict[str, Schedule]:
+        return self.pipeline.schedule_map
+
+    def get(self, instance: KernelInstance) -> ConcreteSchedule:
+        plan = self.plan
+        if plan is not None:
+            r = plan.lookup(instance)
+            if r is not None:
+                with self._lock:
+                    self._plan_served[r.tier] += 1
+                return r.concrete
+            with self._lock:
+                self._plan_misses += 1
+        return self.pipeline.resolve(instance).concrete
+
+    # -- telemetry ------------------------------------------------------------
+    @property
+    def plan_hits(self) -> int:
+        """Total resolutions the active plan answered (any tier)."""
+        with self._lock:
+            return sum(self._plan_served.values())
+
+    def stats(self) -> dict:
+        out = self.pipeline.stats()
+        with self._lock:
+            out["plan_served"] = dict(self._plan_served)
+            out["plan_misses"] = self._plan_misses
+        out["plan_hits"] = sum(out["plan_served"].values())
+        out["plan_entries"] = len(self.plan) if self.plan is not None else 0
+        out["plan_generation"] = (self.plan.generation
+                                  if self.plan is not None else None)
+        return out
+
+    # Legacy counters: tuned-tier resolutions count as hits, untuned as
+    # misses (regardless of whether the plan or the pipeline served them).
+    @property
+    def hits(self) -> int:
+        s = self.stats()
+        return sum(s["plan_served"][t] + s[f"served_{t}"]
+                   for t in ("exact", "transfer", "static"))
+
+    @property
+    def misses(self) -> int:
+        s = self.stats()
+        return s["plan_served"]["default"] + s["served_default"]
+
+
+_DEFAULT_PROVIDER = ScheduleProvider()
+
+
+def set_default_provider(provider: ScheduleProvider | None) -> ScheduleProvider:
+    """Install the provider kernels use when no explicit one is passed.
+
+    Returns the previous default so callers can restore it.  ``None``
+    reinstalls an empty (all-defaults) provider."""
+    global _DEFAULT_PROVIDER
+    prev = _DEFAULT_PROVIDER
+    _DEFAULT_PROVIDER = provider if provider is not None else ScheduleProvider()
+    return prev
+
+
+def _resolve(provider: ScheduleProvider | None) -> ScheduleProvider:
+    return provider if provider is not None else _DEFAULT_PROVIDER
+
+
 @functools.lru_cache(maxsize=8192)
 def _interned(class_id: str, dtype: str,
               params: tuple[tuple[str, int], ...]) -> KernelInstance:
@@ -75,15 +199,16 @@ def instance(class_id: str, dtype: torch.dtype, **params: int) -> KernelInstance
                      tuple(sorted((k, int(v)) for k, v in params.items())))
 
 
-@functools.lru_cache(maxsize=8192)
 def schedule_for(inst: KernelInstance) -> ConcreteSchedule:
-    """The schedule a kernel instance runs under (default schedules only)."""
+    """The default schedule of a kernel instance, concretized: what an op
+    runs where no plan, service or static map answers."""
     return concretize(default_schedule(inst), inst)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "matmul",
            bias: torch.Tensor | None = None, residual: torch.Tensor | None = None,
-           softcap: float = 0.0, backend: str | None = None) -> torch.Tensor:
+           softcap: float = 0.0, provider: ScheduleProvider | None = None,
+           backend: str | None = None) -> torch.Tensor:
     """x: (..., K) @ w: (K, N) with fused epilogue. GLU classes emit N//2."""
     backend = backend or _default_backend()
     if backend == "ref":
@@ -93,13 +218,14 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "matmul",
     m = math.prod(lead)
     x2 = x.reshape(m, k).contiguous()
     res2 = residual.reshape(m, -1).contiguous() if residual is not None else None
-    cs = schedule_for(instance(class_id, x.dtype, M=m, N=n, K=k))
+    cs = _resolve(provider).get(instance(class_id, x.dtype, M=m, N=n, K=k))
     y = _mm.matmul(x2, w.contiguous(), cs, class_id=class_id, bias=bias, residual=res2,
                    softcap=softcap)
     return y.reshape(*lead, y.shape[-1])
 
 
 def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "moe_gemm",
+             provider: ScheduleProvider | None = None,
              backend: str | None = None) -> torch.Tensor:
     """Grouped expert GEMM: x (E, M, K) @ w (E, K, N)."""
     backend = backend or _default_backend()
@@ -107,23 +233,23 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "moe_gemm",
         return ref.grouped_matmul(x, w, class_id)
     e, m, k = x.shape
     n = w.shape[2]
-    cs = schedule_for(instance(class_id, x.dtype, M=m * e, N=n, K=k, E=e))
+    cs = _resolve(provider).get(instance(class_id, x.dtype, M=m * e, N=n, K=k, E=e))
     return _mm.grouped_matmul(x.contiguous(), w.contiguous(), cs, class_id=class_id)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     class_id: str = "flash_attention_causal",
                     causal: bool = True, window: int = 0, softcap: float = 0.0,
-                    q_offset: int = 0, backend: str | None = None,
-                    chunk: int = 1024) -> torch.Tensor:
+                    q_offset: int = 0, provider: ScheduleProvider | None = None,
+                    backend: str | None = None, chunk: int = 1024) -> torch.Tensor:
     """q: (B,Hq,Sq,D); k/v: (B,Hkv,Skv,D) — GQA-aware flash attention."""
     backend = backend or _default_backend()
     if backend == "ref":
         return ref.chunked_attention(q, k, v, causal=causal, window=window,
                                      softcap=softcap, q_offset=q_offset, chunk=chunk)
     b, hq, sq, d = q.shape
-    cs = schedule_for(instance(class_id, q.dtype, Q=sq, KV=k.shape[2], H=hq, D=d, B=b,
-                               window=window))
+    cs = _resolve(provider).get(instance(class_id, q.dtype, Q=sq, KV=k.shape[2], H=hq, D=d,
+                                         B=b, window=window))
     return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), cs,
                                causal=causal, window=window, softcap=softcap,
                                q_offset=q_offset)
@@ -135,24 +261,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-          u: torch.Tensor, state: torch.Tensor, *,
+          u: torch.Tensor, state: torch.Tensor, *, provider: ScheduleProvider | None = None,
           backend: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/w: (B,H,T,D); u: (H,D); state: (B,H,D,D) f32 -> (y, state)."""
     backend = backend or _default_backend()
     if backend == "ref":
         return ref.rwkv6_scan(r, k, v, w, u, state)
     b, h, t, d = r.shape
-    cs = schedule_for(instance("rwkv6_scan", r.dtype, T=t, C=h * d, D=d, B=b))
+    cs = _resolve(provider).get(instance("rwkv6_scan", r.dtype, T=t, C=h * d, D=d, B=b))
     return _rw.rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
                           u, state, cs)
 
 
 def rglru(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor, *,
+          provider: ScheduleProvider | None = None,
           backend: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """x, a: (B,T,C); state: (B,C) f32 -> (y, state)."""
     backend = backend or _default_backend()
     if backend == "ref":
         return ref.rglru_scan(x, a, state)
     b, t, c = x.shape
-    cs = schedule_for(instance("rglru_scan", x.dtype, T=t, C=c, B=b))
+    cs = _resolve(provider).get(instance("rglru_scan", x.dtype, T=t, C=c, B=b))
     return _rg.rglru_scan(x.contiguous(), a.contiguous(), state, cs)

@@ -65,21 +65,37 @@ def apply_epilogue(y: torch.Tensor, class_id: str, *, bias: torch.Tensor | None 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "matmul", *,
            bias: torch.Tensor | None = None, residual: torch.Tensor | None = None,
-           softcap: float = 0.0) -> torch.Tensor:
-    """x: (..., K) @ w: (K, N) in f32, epilogue in f32, cast to x.dtype."""
-    y = torch.matmul(x.float(), w.float())
+           softcap: float = 0.0, round_k: int = 0) -> torch.Tensor:
+    """x: (..., K) @ w: (K, N) in f32, epilogue in f32, cast to x.dtype.
+
+    ``round_k`` > 0 is the Pallas kernel's accumulation without its f32
+    scratch (``cache_write=False``, or K not innermost; see
+    :func:`repro_torch.kernels.matmul.round_k_for`): the f32 product of each
+    K tile of ``round_k`` rows is added to the sum so far, which is rounded
+    to x.dtype after every tile but the last.  0 sums all of K in f32."""
+    if not round_k:
+        y = torch.matmul(x.float(), w.float())
+    else:
+        k = x.shape[-1]
+        if k % round_k:
+            raise ValueError(f"the rounding K tile {round_k} does not divide K = {k}")
+        xf, wf = x.float(), w.float()
+        y = torch.matmul(xf[..., :round_k], wf[:round_k])
+        for k0 in range(round_k, k, round_k):
+            y = y.to(x.dtype).float() + torch.matmul(xf[..., k0:k0 + round_k], wf[k0:k0 + round_k])
     y = apply_epilogue(y, class_id, bias=bias, residual=residual, softcap=softcap)
     return y.to(x.dtype)
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "moe_gemm") -> torch.Tensor:
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "moe_gemm", *,
+                   round_k: int = 0) -> torch.Tensor:
     """x: (E, M, K) @ w: (E, K, N): :func:`matmul` applied to each expert (the
-    reference's ``jax.vmap(ref.matmul)``).  Calls this module's ``matmul`` one
-    expert at a time, so a patched ``matmul`` patches this too, and only one
-    expert's f32 copy of ``w`` is alive at once."""
+    reference's ``jax.vmap(ref.matmul)``), ``round_k`` as there.  Calls this
+    module's ``matmul`` one expert at a time, so a patched ``matmul`` patches
+    this too, and only one expert's f32 copy of ``w`` is alive at once."""
     if class_id not in GROUPED_CLASSES:
         raise ValueError(f"unknown grouped matmul class {class_id!r}")
-    return torch.stack([matmul(xe, we, class_id) for xe, we in zip(x, w)])
+    return torch.stack([matmul(xe, we, class_id, round_k=round_k) for xe, we in zip(x, w)])
 
 
 # ---------------------------------------------------------------------------

@@ -43,13 +43,13 @@ def _attn_class(cfg: ArchConfig, kind: str) -> str:
     return "flash_attention_causal"
 
 
-def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor):
+def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, provider):
     """(B, S, D) -> q (B, H, S, hd), k/v (B, KV, S, hd)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = ops.matmul(x, p["wq"]).reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = ops.matmul(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = ops.matmul(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = ops.matmul(x, p["wq"], provider=provider).reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
+    k = ops.matmul(x, p["wk"], provider=provider).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = ops.matmul(x, p["wv"], provider=provider).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
     return q, k, v
 
 
@@ -84,11 +84,11 @@ def _cache_size(cache: dict) -> int:
 
 
 def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
-                 positions: torch.Tensor,
+                 positions: torch.Tensor, provider=None,
                  cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
     """x: (B, S, D) normalized input. Returns (attn_out, cache written)."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _qkv(p, cfg, x, provider)
     q, k = _rope_qk(cfg, q, k, positions)
 
     window = cfg.window if kind == "L" else 0
@@ -98,9 +98,10 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
         causal=True,
         window=window,
         softcap=cfg.attn_softcap if kind == "G" else 0.0,
+        provider=provider,
     )
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    y = ops.matmul(out, p["wo"])
+    y = ops.matmul(out, p["wo"], provider=provider)
 
     if cache is None:
         return y, None
@@ -121,12 +122,12 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
 
 
 def attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
-                pos: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:
+                pos: torch.Tensor, cache: dict, provider=None) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, D); pos: (B,) per-slot absolute positions (every slot may
     be at a different decode position)."""
     b = x.shape[0]
     pos = torch.broadcast_to(pos.to(torch.long), (b,))
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _qkv(p, cfg, x, provider)
     q, k = _rope_qk(cfg, q, k, pos[:, None])
 
     size = _cache_size(cache)
@@ -149,7 +150,7 @@ def attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
         out = _masked_decode_attention(q, ck, cv, valid,
                                        softcap=cfg.attn_softcap if kind == "G" else 0.0)
     out = out.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    y = ops.matmul(out, p["wo"])
+    y = ops.matmul(out, p["wo"], provider=provider)
     return y, cache
 
 

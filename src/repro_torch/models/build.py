@@ -33,14 +33,16 @@ class Model:
         this model's device."""
         return lm.init_params(self.cfg, torch.Generator(device=self.device).manual_seed(seed))
 
-    def forward(self, params: dict, batch: dict):
-        return lm.forward(params, self.cfg, batch)
+    def forward(self, params: dict, batch: dict, provider=None):
+        return lm.forward(params, self.cfg, batch, provider=provider)
 
-    def prefill(self, params: dict, batch: dict, *, max_len: int, true_len: int | None = None):
-        return lm.prefill(params, self.cfg, batch, max_len=max_len, true_len=true_len)
+    def prefill(self, params: dict, batch: dict, *, max_len: int, true_len: int | None = None,
+                provider=None):
+        return lm.prefill(params, self.cfg, batch, max_len=max_len, true_len=true_len,
+                          provider=provider)
 
-    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
-        return lm.decode_step(params, self.cfg, cache, tokens)
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor, provider=None):
+        return lm.decode_step(params, self.cfg, cache, tokens, provider=provider)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return lm.init_cache(self.cfg, batch, max_len, self.device)

@@ -11,6 +11,10 @@ Entry points (bundled per config by :mod:`repro_torch.models.build`):
   forward(params, batch)            — full-sequence logits
   prefill(params, batch, max_len)   — last-position logits + filled cache
   decode_step(params, cache, tok)   — one token per slot, cache updated in place
+
+Each takes ``provider``, the :class:`~repro_torch.kernels.ops.ScheduleProvider`
+every kernel op resolves its schedule through (None: the process default),
+passed down to every op as the reference passes it.
 """
 from __future__ import annotations
 
@@ -52,15 +56,18 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
 
 def apply_mixer(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
                 positions: torch.Tensor | None, pos: torch.Tensor | None,
-                cache: dict | None, decode: bool) -> tuple[torch.Tensor, dict | None]:
+                cache: dict | None, decode: bool,
+                provider=None) -> tuple[torch.Tensor, dict | None]:
     """A norm-mixer-MLP block's first half: (the mixer's output to add to
     the residual stream x, cache written)."""
     xn = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "R":
-        return rec.griffin_block(p["rnn"], cfg, xn, cache=cache)
+        return rec.griffin_block(p["rnn"], cfg, xn, cache=cache, provider=provider)
     if decode:
-        return attn.attn_decode(p["attn"], cfg, xn, kind, pos=pos, cache=cache)
-    return attn.attn_forward(p["attn"], cfg, xn, kind, positions=positions, cache=cache)
+        return attn.attn_decode(p["attn"], cfg, xn, kind, pos=pos, cache=cache,
+                                provider=provider)
+    return attn.attn_forward(p["attn"], cfg, xn, kind, positions=positions, cache=cache,
+                             provider=provider)
 
 
 def ffn_input(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -68,27 +75,31 @@ def ffn_input(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return apply_norm(p["ln2"], x, cfg.norm)
 
 
-def apply_ffn(p: dict, cfg: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def apply_ffn(p: dict, cfg: ArchConfig, x: torch.Tensor,
+              provider=None) -> tuple[torch.Tensor, torch.Tensor]:
     """A norm-mixer-MLP block's second half: (the MLP's or MoE's output to
     add to the residual stream x, aux loss)."""
     xn = ffn_input(p, cfg, x)
     if "moe" in p:
-        return mlpm.moe_apply(p["moe"], cfg, xn)
-    return mlpm.mlp_apply(p["mlp"], cfg, xn), torch.zeros((), dtype=torch.float32, device=x.device)
+        return mlpm.moe_apply(p["moe"], cfg, xn, provider=provider)
+    return (mlpm.mlp_apply(p["mlp"], cfg, xn, provider=provider),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def apply_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
                 positions: torch.Tensor | None, pos: torch.Tensor | None,
-                cache: dict | None, decode: bool) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+                cache: dict | None, decode: bool,
+                provider=None) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """Returns (x, cache written, aux loss).  Recurrent blocks carry their
     state through ``cache`` at prefill and decode alike; the aux loss is the
     MoE load-balance loss, zero for any other block."""
     if kind == "R" and cfg.family == "ssm":  # rwkv blocks apply their own norms
-        x, c = rec.rwkv_block(p, cfg, x, cache=cache)
+        x, c = rec.rwkv_block(p, cfg, x, cache=cache, provider=provider)
         return x, c, torch.zeros((), dtype=torch.float32, device=x.device)
-    a, c = apply_mixer(p, cfg, kind, x, positions=positions, pos=pos, cache=cache, decode=decode)
+    a, c = apply_mixer(p, cfg, kind, x, positions=positions, pos=pos, cache=cache, decode=decode,
+                       provider=provider)
     x = x + a
-    y, aux = apply_ffn(p, cfg, x)
+    y, aux = apply_ffn(p, cfg, x, provider=provider)
     return x + y, c, aux
 
 
@@ -118,11 +129,12 @@ def tied_head(embed: torch.Tensor) -> torch.Tensor:
     return embed.T.contiguous()
 
 
-def _lm_head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+def _lm_head(params: dict, cfg: ArchConfig, h: torch.Tensor, provider=None) -> torch.Tensor:
     w = params["embed_t"] if cfg.tie_embeddings else params["lm_head"]
     if cfg.final_softcap > 0:
-        return ops.matmul(h, w, class_id="matmul_lmhead_softcap", softcap=cfg.final_softcap)
-    return ops.matmul(h, w, class_id="matmul_lmhead")
+        return ops.matmul(h, w, class_id="matmul_lmhead_softcap", softcap=cfg.final_softcap,
+                          provider=provider)
+    return ops.matmul(h, w, class_id="matmul_lmhead", provider=provider)
 
 
 def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -133,14 +145,15 @@ def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _stack_pass(params: dict, cfg: ArchConfig, h: torch.Tensor, *, positions: torch.Tensor,
-                caches: list | None) -> tuple[torch.Tensor, list | None, torch.Tensor]:
+                caches: list | None,
+                provider=None) -> tuple[torch.Tensor, list | None, torch.Tensor]:
     """All layers; returns (h, caches written, the layers' summed aux loss)."""
     new = [] if caches is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, kind in enumerate(cfg.layer_kinds):
         c_in = caches[j] if caches is not None else None
         h, c_out, a = apply_block(params["layers"][j], cfg, kind, h, positions=positions,
-                                  pos=None, cache=c_in, decode=False)
+                                  pos=None, cache=c_in, decode=False, provider=provider)
         aux = aux + a
         if new is not None:
             new.append(c_out)
@@ -151,15 +164,17 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.long, device=device).expand(b, s)
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: dict, cfg: ArchConfig, batch: dict,
+            provider=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits and the auxiliary loss: the MoE layers' summed
     load-balance loss (zero without MoE layers)."""
     _check_supported(cfg)
     h = _embed(params, cfg, batch["tokens"])
     b, s, _ = h.shape
-    h, _, aux = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device), caches=None)
+    h, _, aux = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device), caches=None,
+                            provider=provider)
     h = apply_norm(params["final_norm"], h, cfg.norm)
-    return _lm_head(params, cfg, h), aux
+    return _lm_head(params, cfg, h, provider=provider), aux
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +200,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, *, max_len: int,
-            true_len: int | None = None) -> tuple[torch.Tensor, dict]:
+            true_len: int | None = None, provider=None) -> tuple[torch.Tensor, dict]:
     """Process the prompt; returns (last-position logits (B, V), cache).
 
     ``true_len`` marks the number of real tokens when the prompt is
@@ -197,19 +212,19 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *, max_len: int,
     b, s, _ = h.shape
     caches = init_cache(cfg, b, max_len, h.device)
     h, layers, _ = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device),
-                               caches=caches["layers"])
+                               caches=caches["layers"], provider=provider)
     t = s if true_len is None else int(true_len)
     if not 1 <= t <= s:
         raise ValueError(f"true_len {t} outside 1..{s}")
     h_last = apply_norm(params["final_norm"], h[:, t - 1:t, :], cfg.norm)
-    logits = _lm_head(params, cfg, h_last)
+    logits = _lm_head(params, cfg, h_last, provider=provider)
     cache = {"layers": layers,
              "t": torch.full((b,), t, dtype=torch.int32, device=h.device)}
     return logits[:, 0, :], cache
 
 
-def decode_step(params: dict, cfg: ArchConfig, cache: dict,
-                tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+def decode_step(params: dict, cfg: ArchConfig, cache: dict, tokens: torch.Tensor,
+                provider=None) -> tuple[torch.Tensor, dict]:
     """tokens: (B,) — one new token per slot. Returns (logits (B, V), cache);
     the cache's KV rows are written in place, recurrent layers return fresh
     state, and ``t`` advances by one."""
@@ -218,8 +233,8 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
     layers = []
     for j, kind in enumerate(cfg.layer_kinds):
         h, c_out, _ = apply_block(params["layers"][j], cfg, kind, h, positions=None, pos=pos,
-                                  cache=cache["layers"][j], decode=True)
+                                  cache=cache["layers"][j], decode=True, provider=provider)
         layers.append(c_out)
     h = apply_norm(params["final_norm"], h, cfg.norm)
-    logits = _lm_head(params, cfg, h)
+    logits = _lm_head(params, cfg, h, provider=provider)
     return logits[:, 0, :], {"layers": layers, "t": pos + 1}

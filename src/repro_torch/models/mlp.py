@@ -31,18 +31,18 @@ def mlp_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return p
 
 
-def mlp_apply(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None) -> torch.Tensor:
     if cfg.mlp_kind == "swiglu":
-        h = ops.matmul(x, p["w_in"], class_id="matmul_silu_glu")
-        return ops.matmul(h, p["w_out"])
+        h = ops.matmul(x, p["w_in"], class_id="matmul_silu_glu", provider=provider)
+        return ops.matmul(h, p["w_out"], provider=provider)
     if cfg.mlp_kind == "geglu":
-        h = ops.matmul(x, p["w_in"], class_id="matmul_gelu_glu")
-        return ops.matmul(h, p["w_out"])
+        h = ops.matmul(x, p["w_in"], class_id="matmul_gelu_glu", provider=provider)
+        return ops.matmul(h, p["w_out"], provider=provider)
     bias_in = p.get("b_in")
     bias_out = p.get("b_out")
-    h = ops.matmul(x, p["w_in"], class_id="matmul_bias_gelu", bias=bias_in)
+    h = ops.matmul(x, p["w_in"], class_id="matmul_bias_gelu", bias=bias_in, provider=provider)
     cls = "matmul_bias" if bias_out is not None else "matmul"
-    return ops.matmul(h, p["w_out"], class_id=cls, bias=bias_out)
+    return ops.matmul(h, p["w_out"], class_id=cls, bias=bias_out, provider=provider)
 
 
 # ---------------------------------------------------------------------------
@@ -62,11 +62,12 @@ def moe_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     }
 
 
-def moe_route(p: dict, cfg: ArchConfig,
-              x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def moe_route(p: dict, cfg: ArchConfig, x: torch.Tensor,
+              provider=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (T, D). Returns (router probs (T, E) f32, renormalised top-k gates
     (T, k), their expert indices (T, k))."""
-    logits = ops.matmul(x.float(), p["router"], class_id="moe_router")    # (T, E) f32
+    logits = ops.matmul(x.float(), p["router"], class_id="moe_router",
+                        provider=provider)                                 # (T, E) f32
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k breaks ties toward the lower index and torch.topk promises no
     # order among ties; random f32 probabilities do not tie
@@ -75,7 +76,7 @@ def moe_route(p: dict, cfg: ArchConfig,
     return probs, gate_vals, expert_idx
 
 
-def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor,
+def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
               capacity_factor: float = CAPACITY_FACTOR) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D). Returns (out, aux_loss) — aux is the load-balance loss.
 
@@ -87,7 +88,7 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor,
     t = b * s
     dev = x.device
     xf = x.reshape(t, d)
-    probs, gate_vals, expert_idx = moe_route(p, cfg, xf)
+    probs, gate_vals, expert_idx = moe_route(p, cfg, xf, provider)
 
     # Load-balance auxiliary loss (Switch-style): E * Σ_e f_e · p_e
     me = probs.mean(dim=0)
@@ -114,8 +115,8 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor,
     buf[slot] = xf[st]                     # kept slots are distinct; the overflow row is dropped
     buf = buf[:-1].reshape(e, cap, d)
 
-    h = ops.moe_gemm(buf, p["w_in"], class_id="moe_gemm_silu_glu")
-    y = ops.moe_gemm(h, p["w_out"], class_id="moe_gemm")                   # (E, cap, D)
+    h = ops.moe_gemm(buf, p["w_in"], class_id="moe_gemm_silu_glu", provider=provider)
+    y = ops.moe_gemm(h, p["w_out"], class_id="moe_gemm", provider=provider)  # (E, cap, D)
 
     y_flat = y.reshape(e * cap, d)
     contrib = torch.where(keep, sg, 0.0)[:, None].to(x.dtype)

@@ -83,7 +83,7 @@ def _mix(xn: torch.Tensor, xs: torch.Tensor, mu: torch.Tensor, i: int) -> torch.
 
 
 def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
-               cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+               cache: dict | None, provider=None) -> tuple[torch.Tensor, dict | None]:
     """Full RWKV6 block (time-mix + channel-mix); it applies its own norms.
     x: (B, S, D) residual stream."""
     b, s, d = x.shape
@@ -96,11 +96,11 @@ def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
                                                                      device=x.device)
     xs = _token_shift(xn, last_tm)
     mu = p["mu"].float()
-    r = ops.matmul(_mix(xn, xs, mu, 0), p["wr"]).reshape(b, s, h, hd)
-    k = ops.matmul(_mix(xn, xs, mu, 1), p["wk"]).reshape(b, s, h, hd)
-    v = ops.matmul(_mix(xn, xs, mu, 2), p["wv"]).reshape(b, s, h, hd)
-    g = ops.matmul(_mix(xn, xs, mu, 4), p["wg"])
-    dw = torch.tanh(ops.matmul(_mix(xn, xs, mu, 3), p["wa"]).float())
+    r = ops.matmul(_mix(xn, xs, mu, 0), p["wr"], provider=provider).reshape(b, s, h, hd)
+    k = ops.matmul(_mix(xn, xs, mu, 1), p["wk"], provider=provider).reshape(b, s, h, hd)
+    v = ops.matmul(_mix(xn, xs, mu, 2), p["wv"], provider=provider).reshape(b, s, h, hd)
+    g = ops.matmul(_mix(xn, xs, mu, 4), p["wg"], provider=provider)
+    dw = torch.tanh(ops.matmul(_mix(xn, xs, mu, 3), p["wa"], provider=provider).float())
     dw = dw @ p["wb"].float()
     w = torch.exp(-torch.exp(p["w0"] + dw)).reshape(b, s, h, hd)   # decay in (0,1)
 
@@ -109,14 +109,15 @@ def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
 
     state0 = cache["state"] if cache is not None else torch.zeros(
         (b, h, hd, hd), dtype=torch.float32, device=x.device)
-    y, state = ops.rwkv6(tr(r), tr(k), tr(v), tr(w.to(x.dtype)), p["u"], state0)
+    y, state = ops.rwkv6(tr(r), tr(k), tr(v), tr(w.to(x.dtype)), p["u"], state0,
+                         provider=provider)
     y = y.transpose(1, 2).reshape(b, s, d)
     # per-head group norm + silu output gate
     yh = y.reshape(b, s, h, hd).float()
     yh = yh * torch.rsqrt(torch.mean(yh * yh, dim=-1, keepdim=True) + 1e-6)
     y = (yh.reshape(b, s, d) * p["ln_x"].float()).to(x.dtype)
     y = y * F.silu(g.float()).to(x.dtype)
-    x = x + ops.matmul(y, p["wo"])
+    x = x + ops.matmul(y, p["wo"], provider=provider)
 
     # ---- channel mix ----
     xn2 = rmsnorm(x, zeros)
@@ -124,10 +125,10 @@ def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
                                                                      device=x.device)
     xs2 = _token_shift(xn2, last_cm)
     mc = p["mu_c"].float()
-    kk = ops.matmul(_mix(xn2, xs2, mc, 0), p["ck"])
+    kk = ops.matmul(_mix(xn2, xs2, mc, 0), p["ck"], provider=provider)
     kk = torch.square(torch.relu(kk.float())).to(x.dtype)
-    vv = ops.matmul(kk, p["cv"])
-    rr = torch.sigmoid(ops.matmul(_mix(xn2, xs2, mc, 1), p["cr"]).float())
+    vv = ops.matmul(kk, p["cv"], provider=provider)
+    rr = torch.sigmoid(ops.matmul(_mix(xn2, xs2, mc, 1), p["cr"], provider=provider).float())
     x = x + (rr * vv.float()).to(x.dtype)
 
     new_cache = None
@@ -178,12 +179,12 @@ def _rglru_decay(xc: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def griffin_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
-                  cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+                  cache: dict | None, provider=None) -> tuple[torch.Tensor, dict | None]:
     """Griffin recurrent block on the *normalized* input x: (B, S, D).
     Returns the block output (the caller adds the residual)."""
     b, s, d = x.shape
-    gate = gelu(ops.matmul(x, p["w_gate"]).float())
-    xr = ops.matmul(x, p["w_x"])                           # (B, S, W)
+    gate = gelu(ops.matmul(x, p["w_gate"], provider=provider).float())
+    xr = ops.matmul(x, p["w_x"], provider=provider)        # (B, S, W)
 
     # temporal conv1d (causal, width cw)
     cw = cfg.conv_width
@@ -199,10 +200,11 @@ def griffin_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     a = _rglru_decay(conv, p)
     h0 = cache["h"] if cache is not None else torch.zeros(
         (b, xr.shape[-1]), dtype=torch.float32, device=x.device)
-    y, h_final = ops.rglru((i_gate * conv.float()).to(xr.dtype), a.to(xr.dtype), h0)
+    y, h_final = ops.rglru((i_gate * conv.float()).to(xr.dtype), a.to(xr.dtype), h0,
+                           provider=provider)
 
     out = (y.float() * gate).to(x.dtype)
-    out = ops.matmul(out, p["w_out"])
+    out = ops.matmul(out, p["w_out"], provider=provider)
 
     new_cache = None
     if cache is not None:

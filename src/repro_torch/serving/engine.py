@@ -12,9 +12,18 @@ Prompts are right-padded to power-of-two buckets with ``true_len`` (exact
 logits and cache positions), where padding is provably inert: attention-only
 stacks, and pad lengths that fit the smallest KV cache.
 
-Execution plans and re-planning at step boundaries wait for the slice that
-ports the resolution pipeline; this engine runs every kernel under its
-default schedule.
+**Execution plans**, as in the reference: constructed with a
+:class:`~repro_torch.kernels.ops.ScheduleProvider`, the engine pre-resolves
+its kernel set (the decode batch and the prefill buckets) into an
+:class:`~repro_torch.core.resolution.ExecutionPlan` (:func:`plan_serving`)
+and, between decode steps only, checks the resolution pipeline's
+generation: when a newer schedule is published, it re-plans at the step
+boundary, so a schedule published to a live registry reaches the running
+server.  Nothing is traced here, so a re-plan swaps ``provider.plan`` and
+nothing else.  ``plan_history`` records the (step, generation) transition
+points; ``replans`` counts swaps.  Prompts of unbucketed lengths (every
+prompt of a recurrent arch) are not in the plan and resolve through the
+pipeline.
 """
 from __future__ import annotations
 
@@ -22,7 +31,9 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.resolution import ExecutionPlan, plan_serving
 from repro_torch.models.build import Model
+from repro_torch.obs import NULL_TRACER
 
 
 class SlotsFull(RuntimeError):
@@ -42,6 +53,7 @@ class Request:
 
 class ServingEngine:
     def __init__(self, model: Model, params: dict, *, slots: int, max_len: int,
+                 provider=None, plan: ExecutionPlan | None = None,
                  prefill_buckets: bool = True):
         self.model = model
         self.params = params
@@ -64,6 +76,26 @@ class ServingEngine:
         self.prefill_true_tokens = 0
         self.prefill_padded_tokens = 0
 
+        # observability: the owner rebinds these after construction; the
+        # no-op default keeps the hot path at one attribute check
+        self.tracer = NULL_TRACER
+        self.trace_track = "engine"
+
+        # execution plan: pre-resolve the decode batch and the prefill buckets
+        self.provider = provider
+        self.plan = plan
+        self.replans = 0
+        # (step, plan generation) at each plan transition (the first step and
+        # every swap): bounded by the re-plans, not by the decode steps
+        self.plan_history: list[tuple[int, int]] = []
+        self._steps = 0
+        if provider is not None and getattr(provider, "pipeline", None) is not None:
+            if self.plan is None:
+                self.plan = plan_serving(
+                    cfg, provider.pipeline, slots=slots, max_len=max_len,
+                    prefill_lengths=self._bucket_lengths())
+            provider.plan = self.plan
+
     # -- prefill buckets -------------------------------------------------------
     def _pad_len(self, n: int) -> int:
         """Power-of-two bucket for a prompt of n tokens (n itself when
@@ -74,6 +106,17 @@ class ServingEngine:
         while b < n:
             b *= 2
         return min(b, self._bucket_cap)
+
+    def _bucket_lengths(self) -> list[int]:
+        """Every pad length prefill can run at (for plan coverage)."""
+        if not self.prefill_buckets:
+            return []
+        out, b = [], 1
+        while b < self._bucket_cap:
+            out.append(b)
+            b *= 2
+        out.append(self._bucket_cap)
+        return out
 
     @property
     def prefill_shape_count(self) -> int:
@@ -90,6 +133,17 @@ class ServingEngine:
 
     def utilization(self) -> float:
         return len(self.active) / self.slots
+
+    # -- capacity gauges (comparable with the paged engine's) ------------------
+    def kv_used_tokens(self) -> int:
+        """Cache positions actually holding tokens across active slots."""
+        return sum(len(r.prompt) + len(r.generated) - 1
+                   for r in self.active.values())
+
+    def kv_capacity_tokens(self) -> int:
+        """Every slot reserves max_len rows whether used or not — the
+        stranded-capacity denominator."""
+        return self.slots * self.max_len
 
     # -- request admission ---------------------------------------------------
     def add_request(self, prompt: list[int], max_new_tokens: int = 16,
@@ -116,8 +170,16 @@ class ServingEngine:
         self.prefill_padded_tokens += pad
         toks = torch.tensor([req.prompt + [0] * (pad - n)], dtype=torch.long,
                             device=self.model.device)
-        logits, cache1 = self.model.prefill(self.params, {"tokens": toks},
-                                            max_len=self.max_len, true_len=n)
+        if self.tracer.enabled:
+            with self.tracer.span("prefill", self.trace_track, uid=req.uid, true_len=n,
+                                  bucket=pad):
+                logits, cache1 = self.model.prefill(self.params, {"tokens": toks},
+                                                    max_len=self.max_len, true_len=n,
+                                                    provider=self.provider)
+        else:
+            logits, cache1 = self.model.prefill(self.params, {"tokens": toks},
+                                                max_len=self.max_len, true_len=n,
+                                                provider=self.provider)
         tok = int(torch.argmax(logits[0]))
         req.generated.append(tok)
         if max_new_tokens <= 0 or (eos_id is not None and tok == eos_id) or \
@@ -130,15 +192,52 @@ class ServingEngine:
         return req
 
     # -- decode ----------------------------------------------------------------
+    def _maybe_replan(self) -> None:
+        """Swap in a fresh plan when a publish moved the generation.
+
+        Only ever called at a step boundary: a plan is immutable for the
+        duration of one decode step.
+        """
+        if self.plan is None or self.provider is None:
+            return
+        if self.provider.pipeline.generation() == self.plan.generation:
+            return
+        self.plan = self.plan.refresh(self.provider.pipeline)
+        self.provider.plan = self.plan
+        self.replans += 1
+        if self.tracer.enabled:
+            self.tracer.event("replan", self.trace_track,
+                              generation=self.plan.generation,
+                              replans=self.replans)
+
+    def refresh_plan(self) -> bool:
+        """Adopt any newer published schedule generation *now* — the same
+        boundary check :meth:`step` performs, without decoding a token.
+        Returns True when the plan was swapped."""
+        before = self.replans
+        self._maybe_replan()
+        return self.replans != before
+
     def step(self) -> list[Request]:
         """One batched decode step for all active slots; returns finished."""
+        self._maybe_replan()
         if not self.active:
             return []
+        self._steps += 1
+        if self.plan is not None and (
+                not self.plan_history
+                or self.plan_history[-1][1] != self.plan.generation):
+            self.plan_history.append((self._steps, self.plan.generation))
         toks = torch.zeros(self.slots, dtype=torch.long)
         for slot, req in self.active.items():
             toks[slot] = req.generated[-1]
-        logits, self.cache = self.model.decode_step(self.params, self.cache,
-                                                    toks.to(self.model.device))
+        if self.tracer.enabled:
+            with self.tracer.span("decode_step", self.trace_track, active=len(self.active)):
+                logits, self.cache = self.model.decode_step(
+                    self.params, self.cache, toks.to(self.model.device), provider=self.provider)
+        else:
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, toks.to(self.model.device), provider=self.provider)
         self.last_logits = logits
         nxt = torch.argmax(logits, dim=-1).tolist()   # one host transfer
         finished = []

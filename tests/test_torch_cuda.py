@@ -387,6 +387,49 @@ def test_rows_body_bits_do_not_depend_on_m(card, dtype, kind, class_id, e, k, n)
         assert torch.equal(one, four[i:i + 1] if kind == "K1" else four[:, i:i + 1])
 
 
+# rounding mode (cache_write=False): (rows per expert, M tile), (K, K tile):
+# the rows body at 4 rows and the tensor-core body at 256, K tiles of 16
+# and 128 at K = 2048, 40 (not a multiple of 16) at 2560, 8 at 1024, and 3
+# at 192 (odd: x rows off 16 bytes, MMA steps split in up to 6 segments)
+ROUND_ROWS = [(4, 4), (256, 128)]
+ROUND_K = [(2048, 16), (2048, 128), (2560, 40), (1024, 8), (192, 3)]
+
+
+@pytest.mark.parametrize("m,tile_m", ROUND_ROWS)
+@pytest.mark.parametrize("k,k_tile", ROUND_K)
+@pytest.mark.parametrize("class_id,e", [("matmul", None), ("matmul_residual", None),
+                                        ("moe_gemm", 3)])
+def test_rounding_mode_matches_plain(card, m, tile_m, k, k_tile, class_id, e):
+    """bf16 with ``cache_write=False``: the kernel rounds its sums to bf16
+    after every K tile, as the plain version with the same ``round_k`` does,
+    on the rows body and on the tensor-core body, K1 and K1g."""
+    from repro_torch.core.schedule import Schedule, concretize
+
+    dt, n = torch.bfloat16, 320
+    g = torch.Generator(device=card).manual_seed(m + k + k_tile)
+    lead = () if e is None else (e,)
+    x = torch.randn((*lead, m, k), generator=g, device=card).to(dt)
+    w = (torch.randn((*lead, k, n), generator=g, device=card) / k ** 0.5).to(dt)
+    params = dict(M=m * (e or 1), N=n, K=k, **({"E": e} if e else {}))
+    tiles = {"M": tile_m, "N": 128, "K": k_tile, **({"E": 1} if e else {})}
+    cs = concretize(Schedule.make(class_id, tiles, cache_write=False),
+                    ops.instance(class_id, dt, **params))
+    assert mm.round_k_for(cs) == k_tile
+    kernel = "matmul" if e is None else "grouped_matmul"
+    body = "rows" if tile_m <= 16 else "mma"
+    before = mm.round_launches[kernel, body]
+    if e is None:
+        res = (torch.randn((m, n), generator=g, device=card).to(dt)
+               if class_id == "matmul_residual" else None)
+        got = mm.matmul(x, w, cs, class_id=class_id, residual=res)
+        want = ref.matmul(x, w, class_id, residual=res, round_k=k_tile)
+    else:
+        got = mm.grouped_matmul(x, w, cs, class_id=class_id)
+        want = ref.grouped_matmul(x, w, class_id, round_k=k_tile)
+    assert mm.round_launches[kernel, body] == before + 1
+    _close(got, want, BF16_TOL)
+
+
 def test_kernel_rejects_what_it_does_not_take(card):
     x = torch.zeros((4, 8), device=card)
     w = torch.zeros((8, 16), device=card, dtype=torch.bfloat16)

@@ -1,4 +1,5 @@
-"""The port imports nothing of JAX or of the JAX package ``repro``."""
+"""The port imports nothing of JAX or of the JAX package ``repro``: every
+module, the copies of ``repro.obs`` and ``repro.service`` included."""
 import ast
 import subprocess
 import sys
@@ -41,7 +42,9 @@ def test_importing_every_module_loads_no_jax():
         "sys.path.insert(0, sys.argv[1]); import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 49, mods\n"
+        "assert len(mods) >= 56, mods\n"
+        "assert {'repro_torch.obs.tracer', 'repro_torch.obs.metrics', 'repro_torch.service.registry',\n"
+        "        'repro_torch.service.tuning_service', 'repro_torch.core.resolution'} <= set(mods), mods\n"
         "print(len(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)], capture_output=True, text=True,

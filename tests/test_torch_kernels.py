@@ -551,3 +551,129 @@ def test_build_is_keyed_by_sources_and_lists_every_csrc_file():
     assert len(_build._key()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
     assert _build.BUILD_DIR.name == "build"
+
+
+# ---------------------------------------------------------------------------
+# Partial-sum rounding without the f32 scratch (cache_write=False, or K not
+# innermost): the reference rounds its sum to bf16 after every K tile
+# ---------------------------------------------------------------------------
+
+
+def _bf16_pair(m, n, k, seed, e=None):
+    r = np.random.default_rng(seed)
+    lead = () if e is None else (e,)
+    x = r.normal(size=(*lead, m, k)).astype(np.float32)
+    w = (r.normal(size=(*lead, k, n)) / np.sqrt(k)).astype(np.float32)
+    return x, w
+
+
+def _pallas_bf16(x, w, class_id, tiles, order, cache_write, e=None):
+    """The Pallas kernel in interpret mode, bf16, under the given schedule;
+    returns (output as an f32 tensor, the port's concrete schedule)."""
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    params = dict(M=m * (e or 1), N=n, K=k, **({"E": e} if e else {}))
+    jinst = JKernelInstance.make(class_id, dtype="bfloat16", **params)
+    jcs = jconcretize(JSchedule.make(class_id, tiles, order=order, cache_write=cache_write), jinst)
+    if e is None:
+        yp = jmm.matmul(_j(x, jnp.bfloat16), _j(w, jnp.bfloat16), jcs, class_id=class_id,
+                        interpret=True)
+    else:
+        yp = jmm.grouped_matmul(_j(x, jnp.bfloat16), _j(w, jnp.bfloat16), jcs,
+                                class_id=class_id, interpret=True)
+    inst = ops.instance(class_id, torch.bfloat16, **params)
+    cs = concretize(Schedule.make(class_id, tiles, order=order, cache_write=cache_write), inst)
+    return torch.from_numpy(np.asarray(yp, np.float32)), cs
+
+
+def _bf16_ulps(a, b):
+    """Per element, how many bf16 values lie between a and b (bf16 tensors)."""
+    def ordinal(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+def test_f32_accumulation_differs_from_the_reference_without_its_scratch():
+    """The fault the rounding mode repairs: at 8x128x4096 bf16 with a K tile
+    of 16 and ``cache_write=False``, the Pallas kernel rounds its sum to bf16
+    after every K tile, and the plain version that sums all of K in f32
+    differs from it on more than half the elements, by more than 2% of
+    max |y| somewhere."""
+    x, w = _bf16_pair(8, 128, 4096, seed=0)
+    yp, cs = _pallas_bf16(x, w, "matmul", {"M": 8, "N": 128, "K": 16}, ("M", "N", "K"), False)
+    y32 = ref.matmul(_t(x).bfloat16(), _t(w).bfloat16(), "matmul").float()
+    differ = (y32 != yp).float().mean().item()
+    err = (y32 - yp).abs().max().item()
+    assert differ > 0.5
+    assert err > 0.02 * yp.abs().max().item()
+    assert mm.round_k_for(cs) == 16
+
+
+# (class, (E or None, M, N, K), tiles, order, cache_write, expected round_k)
+ROUND_CASES = [
+    ("matmul", (None, 8, 128, 4096), {"M": 8, "N": 128, "K": 16}, ("M", "N", "K"), False, 16),
+    ("matmul", (None, 16, 256, 2048), {"M": 16, "N": 256, "K": 128}, ("M", "N", "K"), False, 128),
+    ("matmul", (None, 16, 64, 512), {"M": 16, "N": 64, "K": 64}, ("K", "M", "N"), True, 64),
+    ("matmul_lmhead", (None, 24, 96, 320), {"M": 8, "N": 32, "K": 40}, ("N", "K", "M"), True, 40),
+    ("matmul", (None, 8, 64, 96), {"M": 8, "N": 64, "K": 3}, ("M", "N", "K"), False, 3),
+    ("matmul_silu_glu", (None, 16, 128, 1024), {"M": 16, "N": 128, "K": 64}, ("M", "N", "K"),
+     False, 0),
+    ("moe_gemm", (3, 8, 64, 512), {"M": 8, "N": 64, "K": 32, "E": 1}, ("E", "M", "N", "K"),
+     False, 32),
+]
+
+
+@pytest.mark.parametrize("class_id,shape,tiles,order,cache_write,want_round_k", ROUND_CASES)
+def test_plain_version_rounds_as_the_reference_does(class_id, shape, tiles, order, cache_write,
+                                                    want_round_k):
+    """With ``round_k_for(cs)`` the plain version repeats the Pallas kernel's
+    accumulation (interpret mode): bit for bit on at least 99.9% of the
+    elements, within one bf16 value everywhere (the two sum a K tile's f32
+    products in other orders).  Covers a K tile of 16 at K = 4096, 128 at
+    2048, K outermost with the scratch on, K tiles of 40 and 3 (not
+    multiples of 16), a GLU class (always the scratch: no rounding) and the
+    grouped class (per expert)."""
+    e, m, n, k = shape
+    x, w = _bf16_pair(m, n, k, seed=m + n + k, e=e)
+    yp, cs = _pallas_bf16(x, w, class_id, tiles, order, cache_write, e=e)
+    assert mm.round_k_for(cs) == want_round_k
+    xb, wb = _t(x).bfloat16(), _t(w).bfloat16()
+    if e is None:
+        got = mm.matmul(xb, wb, cs, class_id=class_id)
+        plain = ref.matmul(xb, wb, class_id, round_k=want_round_k)
+    else:
+        got = mm.grouped_matmul(xb, wb, cs, class_id=class_id)
+        plain = ref.grouped_matmul(xb, wb, class_id, round_k=want_round_k)
+    assert torch.equal(got, plain)   # the wrapper's CPU route passes round_k on
+    ulps = _bf16_ulps(plain, yp.bfloat16())
+    assert (ulps == 0).float().mean().item() >= 0.999
+    assert ulps.max().item() <= 1
+
+
+def test_schedule_key_carries_the_rounding_k_tile():
+    """``cache_write`` changes the launch (the rounding K tile in the key)
+    only where the reference would round: bf16, not GLU, more than one K
+    tile."""
+    def keys(class_id, dtype, k_tile, **params):
+        inst = ops.instance(class_id, dtype, **params)
+        tiles = {"M": 8, "N": 32, "K": k_tile, **({"E": 1} if "E" in params else {})}
+        return [mm.schedule_key(concretize(Schedule.make(class_id, tiles, cache_write=cw), inst))
+                for cw in (True, False)]
+
+    on, off = keys("matmul", torch.bfloat16, 16, M=8, N=64, K=64)
+    assert on == (8, 32, True, 0) and off == (8, 32, True, 16)
+    on, off = keys("moe_gemm", torch.bfloat16, 16, M=16, N=64, K=64, E=2)
+    assert on[3] == 0 and off[3] == 16
+    for args in (("matmul", torch.float32, 16), ("matmul_silu_glu", torch.bfloat16, 16),
+                 ("matmul", torch.bfloat16, 64)):   # f32; GLU; one K tile
+        on, off = keys(*args, M=8, N=64, K=64)
+        assert on == off and on[3] == 0
+
+
+def test_rows_body_never_splits_k_in_rounding_mode():
+    """The rows body chains the K tiles inside one CTA: no K split (and no
+    workspace) in rounding mode, the plain split where the sums stay f32."""
+    assert mm.rows_geometry(4, 3072, 3072, 4, 512)[1] > 1
+    assert mm.rows_geometry(4, 3072, 3072, 4, 512, round_k=16)[1] == 1
+    assert mm.launch_geometry(torch.bfloat16, 4, 3072, 3072, 4, 512, round_k=16)[3] == 1

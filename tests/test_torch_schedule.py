@@ -103,15 +103,20 @@ def reduced_pair():
 
 
 def _port_instances(monkeypatch, run):
+    """The instances the port's ops resolve while ``run`` runs, through the
+    default provider every op falls back to."""
     seen = set()
-    resolve = ops.schedule_for
 
-    def recording(inst):
-        seen.add(inst)
-        return resolve(inst)
+    class Recording(ops.ScheduleProvider):
+        def get(self, inst):
+            seen.add(inst)
+            return super().get(inst)
 
-    monkeypatch.setattr(ops, "schedule_for", recording)
-    run()
+    prev = ops.set_default_provider(Recording())
+    try:
+        run()
+    finally:
+        ops.set_default_provider(prev)
     return {(i.class_id, i.params, i.dtype) for i in seen}
 
 

@@ -238,3 +238,213 @@ def test_serve_main_moe_arch_on_cpu(capsys, arch):
                       "--new-tokens", "4", "--slots", "2"])
     assert res["arch"] == arch and res["requests"] == 3 and res["tokens"] == 12
     assert set(res["kernel_launches"].values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# Execution plans: resolution through a provider, re-planning at step
+# boundaries, the entry point's tuning flags
+# ---------------------------------------------------------------------------
+
+
+def _service(tmp_path, **kw):
+    from repro_torch.core.runner import AnalyticalRunner, CachedRunner
+    from repro_torch.service import ScheduleRegistry, TuningService
+
+    registry = ScheduleRegistry(str(tmp_path / "reg"))
+    kw.setdefault("probe_candidates", 0)
+    return registry, TuningService(registry, model_id="serve", max_workers=0,
+                                   runner=CachedRunner(AnalyticalRunner()), **kw)
+
+
+def test_plan_replans_at_step_boundary_and_serves_upgrade(pair, tmp_path):
+    """A schedule published mid-serve reaches the live engine: the plan is
+    swapped at a decode-step boundary (never mid-step) and the upgraded
+    schedule becomes the plan's exact-tier entry (a port of the reference's
+    test of the same name)."""
+    import dataclasses
+
+    from repro_torch.core.database import Record
+    from repro_torch.core.schedule import default_schedule
+    from repro_torch.kernels.ops import ScheduleProvider
+
+    _, _, model, params = pair
+    registry, service = _service(tmp_path)
+    provider = ScheduleProvider(service=service)
+    eng = ServingEngine(model, params, slots=2, max_len=32, provider=provider)
+    assert eng.plan is not None and len(eng.plan) > 0
+
+    eng.add_request([1, 2, 3], max_new_tokens=8)
+    eng.add_request([4, 5, 6, 7], max_new_tokens=8)
+    eng.step()
+    eng.step()
+    g0 = eng.plan.generation
+    assert eng.replans == 0
+
+    inst = next(u.instance for u in eng.plan.uses if u.instance.class_id == "matmul")
+    assert eng.plan.lookup(inst).tier == "default"
+    upgraded = dataclasses.replace(default_schedule(inst), unroll=4, source="background")
+    registry.publish([Record(instance=inst, schedule=upgraded,
+                             seconds=service.runner.seconds(inst, upgraded),
+                             model_id="background", target=service.target)])
+    # nothing swaps until the next step boundary
+    assert eng.plan.generation == g0
+
+    eng.run_to_completion()
+    assert eng.replans == 1
+    entry = eng.plan.lookup(inst)
+    assert entry.tier == "exact" and entry.schedule == upgraded
+    assert not eng.active  # the stream kept serving through the swap
+
+    gens = [g for _, g in eng.plan_history]
+    assert gens == sorted(gens)
+    assert gens[0] == g0 and gens[-1] > g0
+    assert len(gens) == len(set(gens)) == 2
+
+
+def test_replan_mid_run_gives_the_final_plans_tokens(pair, tmp_path):
+    """An engine that re-plans mid-run serves the same tokens as one that
+    runs on the final plan throughout."""
+    from repro_torch.core.database import Record
+    from repro_torch.core.schedule import Schedule
+    from repro_torch.kernels.ops import ScheduleProvider
+
+    _, _, model, params = pair
+    prompts = [[5, 6, 7, 8], [9, 10, 11], [3, 1, 4, 1, 5]]
+
+    def run(registry, service, publish_at):
+        eng = ServingEngine(model, params, slots=2, max_len=32,
+                            provider=ScheduleProvider(service=service))
+        pending, reqs, steps = list(prompts), [], 0
+        while pending or eng.active:
+            while pending and eng.free_slots:
+                reqs.append(eng.add_request(pending.pop(0), max_new_tokens=6))
+            eng.step()
+            steps += 1
+            if steps == publish_at:
+                registry.publish([record])
+        return eng, [r.generated for r in reqs]
+
+    reg_a, svc_a = _service(tmp_path / "a")
+    eng_a = ServingEngine(model, params, slots=2, max_len=32, provider=ScheduleProvider(service=svc_a))
+    inst = next(u.instance for u in eng_a.plan.uses
+                if u.instance.class_id == "matmul_bias_gelu" and u.instance.p["M"] == 2)
+    sched = Schedule.make(inst.class_id, {"M": 2, "N": 32, "K": inst.p["K"]},
+                          order=("N", "M", "K"))
+    record = Record(instance=inst, schedule=sched, seconds=svc_a.runner.seconds(inst, sched),
+                    model_id="background", target=svc_a.target)
+    replanned, tokens_a = run(reg_a, svc_a, publish_at=3)
+    assert replanned.replans == 1 and replanned.plan.lookup(inst).schedule == sched
+
+    reg_b, svc_b = _service(tmp_path / "b")
+    reg_b.publish([record])
+    final, tokens_b = run(reg_b, svc_b, publish_at=0)
+    assert final.replans == 0 and final.plan.lookup(inst).schedule == sched
+    assert tokens_a == tokens_b
+
+
+class _Recording:
+    """Wraps a provider's ``get``: every instance asked, and whether the
+    active plan answered it."""
+
+    def __init__(self, provider):
+        self.calls = []
+        real = provider.get
+
+        def get(inst):
+            self.calls.append((inst, provider.plan is not None
+                               and provider.plan.lookup(inst) is not None))
+            return real(inst)
+
+        provider.get = get
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "recurrentgemma-2b"])
+def test_decode_steps_are_plan_hits_and_plan_matches_reference(arch, tmp_path):
+    """Over one prefill and a few decode steps every decode-step instance is
+    a plan hit; the misses are what the reference's ``plan_serving`` cannot
+    cover either: the prefill LM head at 1 row, and every instance of a
+    prompt at an unplanned (exact, unbucketed) length.  The plan's workload
+    keys are the reference's ``plan_serving``'s for the same geometry."""
+    from repro.core.resolution import ResolutionPipeline as JResolutionPipeline
+    from repro.core.resolution import plan_serving as jplan_serving
+    from repro.core.extract import extract_kernels as jextract
+    from repro.configs import ShapeConfig as JShapeConfig
+    from repro_torch.kernels.ops import ScheduleProvider
+
+    cfg = reduced(get_arch(arch))
+    model = build_model(cfg, "cpu")
+    params = model.init(seed=0)
+    _, service = _service(tmp_path)
+    provider = ScheduleProvider(service=service)
+    eng = ServingEngine(model, params, slots=2, max_len=32, provider=provider)
+    jcfg = jreduced(jget_arch(arch))
+    jplan = jplan_serving(jcfg, JResolutionPipeline.build(), slots=2, max_len=32,
+                          prefill_lengths=eng._bucket_lengths())
+    assert [u.instance.workload_key() for u in eng.plan.uses] == \
+        [u.instance.workload_key() for u in jplan.uses]
+
+    rec = _Recording(provider)
+    eng.add_request([3, 1, 4, 1, 5], max_new_tokens=5)
+    prefill = rec.take()
+    for _ in range(3):
+        eng.step()
+        decode = rec.take()
+        assert decode and all(hit for _, hit in decode)
+    asked = {inst.workload_key(): inst for inst, _ in prefill}
+    misses = {inst.workload_key() for inst, hit in prefill if not hit}
+    assert misses == {k for k in asked if jplan.get(k) is None}
+    if eng.prefill_buckets:
+        # a bucketed prompt is planned (its 1-row LM head too: bucket 1's
+        # prefill has one), except the global attention, which the ops key
+        # with window=0 and extract_kernels without a window: the
+        # reference's plan misses it alike
+        assert {(asked[k].class_id, asked[k].p.get("window")) for k in misses} == \
+            {("flash_attention_causal", 0)}
+    else:
+        # an exact-length prompt: none of its instances is planned, the
+        # 1-row prefill LM head among them
+        assert misses == set(asked)
+        assert any(asked[k].class_id == "matmul_lmhead" and asked[k].p["M"] == 1 for k in misses)
+        planned_prompt = {u.instance.workload_key()
+                          for u in jextract(jcfg, JShapeConfig("p", 5, 1, "prefill"))}
+        assert all(jplan.get(k) is None for k in planned_prompt)
+    assert provider.stats()["plan_misses"] == sum(not hit for _, hit in prefill)
+
+
+def test_serve_main_with_registry_reports_the_reference_blocks(capsys, tmp_path):
+    """``--tuning-registry`` on the CPU under ``--target tpu-v5e``: the result
+    JSON carries the reference's blocks (resolution tier counts, the plan's
+    tiers, re-plans, the tuning service's stats) with the reference's keys."""
+    from repro.core.runner import AnalyticalRunner as JAnalyticalRunner
+    from repro.kernels.ops import ScheduleProvider as JScheduleProvider
+    from repro.service import ScheduleRegistry as JScheduleRegistry
+    from repro.service import TuningService as JTuningService
+
+    res = serve.main(["--device", "cpu", "--preset", "smoke", "--target", "tpu-v5e",
+                      "--tuning-registry", str(tmp_path / "reg"), "--requests", "3",
+                      "--new-tokens", "3", "--slots", "2", "--max-len", "16"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed["requests"] == res["requests"] == 3 and res["tokens"] == 9
+    assert {"target", "schedule_hits", "schedule_misses", "resolution", "replans", "plan",
+            "tuning_service"} <= set(res)
+    assert res["target"] == "tpu-v5e" and res["replans"] >= 0
+    jsvc = JTuningService(JScheduleRegistry(str(tmp_path / "jreg")), max_workers=0,
+                          runner=JAnalyticalRunner())
+    assert set(res["resolution"]) == set(JScheduleProvider(service=jsvc).stats())
+    assert set(res["tuning_service"]) == set(jsvc.stats())
+    assert set(res["plan"]) == {"entries", "generation", "tiers"}
+    assert sum(res["plan"]["tiers"].values()) == res["plan"]["entries"] > 0
+    # the deferred jobs ran at exit
+    assert res["tuning_service"]["jobs_completed"] == res["tuning_service"]["jobs_enqueued"] > 0
+
+
+def test_serve_main_refuses_a_measured_target_on_the_cpu(tmp_path):
+    with pytest.raises(ValueError, match="timed on the card"):
+        serve.main(["--device", "cpu", "--preset", "smoke", "--target", "h100",
+                    "--tuning-registry", str(tmp_path / "reg")])
+    with pytest.raises(ValueError, match="timed on the card"):
+        serve.main(["--device", "cpu", "--preset", "smoke", "--target", "h100"])

@@ -363,17 +363,22 @@ def test_measured_runner_times_one_launch_once(cpu_runner):
 
 
 def test_measured_runner_keys_follow_the_wrappers():
-    """What each family's launch reads: matmul tiles M and N and the order
-    (per expert for the grouped classes), attention the Q tile, RG-LRU the
-    C tile, rwkv6 nothing."""
+    """What each family's launch reads: matmul tiles M and N, the order (per
+    expert for the grouped classes) and the rounding K tile (bf16 without
+    the f32 scratch; 0 otherwise), attention the Q tile, RG-LRU the C tile,
+    rwkv6 nothing."""
     key = MeasuredRunner.launch_key
     mm = _f32("matmul", M=64, N=64, K=64)
     s = lambda c, t, **kw: Schedule.make(c, t, **kw)  # noqa: E731
-    assert key(concretize(s("matmul", {"M": 8, "N": 16, "K": 8}), mm))[1] == (8, 16, True)
+    assert key(concretize(s("matmul", {"M": 8, "N": 16, "K": 8}), mm))[1] == (8, 16, True, 0)
     assert key(concretize(s("matmul", {"M": 8, "N": 16, "K": 8}, order=("N", "M", "K")), mm))[1] == (
-        8, 16, False)
+        8, 16, False, 0)
+    bf = KernelInstance.make("matmul", M=64, N=64, K=64, dtype="bfloat16")
+    assert key(concretize(s("matmul", {"M": 8, "N": 16, "K": 8}, order=("N", "K", "M")), bf))[1] == (
+        8, 16, False, 8)
     moe = _f32("moe_gemm", M=64, N=32, K=16, E=4)
-    assert key(concretize(s("moe_gemm", {"M": 64, "N": 64, "K": 16, "E": 1}), moe))[1] == (16, 32, True)
+    assert key(concretize(s("moe_gemm", {"M": 64, "N": 64, "K": 16, "E": 1}), moe))[1] == (
+        16, 32, True, 0)
     att = _f32("flash_attention_causal", Q=32, KV=32, H=2, D=16, B=1)
     assert key(concretize(s("flash_attention_causal", {"Q": 8, "KV": 16}), att))[1] == (8,)
     rwi = _f32("rwkv6_scan", T=16, C=32, D=16, B=1)
