@@ -111,7 +111,28 @@ toolkit.  Phases, one result line each:
    prime prompt's K1 launches on the tensor cores are not exactly those the
    registry gave an M tile above 16, if a non-default launch served
    disagrees with its plain version, if the prefill logits leave the serve
-   bound, or if the engine did not re-plan once.
+   bound, or if the engine did not re-plan once;
+10. paged — the paged engine (``serving/paged.py``: pages of 16 tokens,
+   chunked prefill of 64 tokens, two chunks a step, 4 lanes, 512-token
+   contexts) serving the 8 prompts, 16 new tokens each, for minitron-4b
+   (K1, K2 at q_offset > 0), rwkv6-1.6b (K1, K3 continued from its state
+   chunk by chunk) and recurrentgemma-2b (K1, K4), at full width and depth,
+   beside the slot engine with exact-length prefill on the same weights in
+   the same call (``phase_paged``: its checks are listed there).  It prints
+   per arch the prefill seconds (the chunk calls), ms per decode step and
+   decode tok/s beside the slot engine's, the pool's bytes beside the slot
+   cache's, the serve peak, launches per kernel and body, and the 1-row-tile
+   launches;
+11. spec — speculative decoding on the paged engine, minitron-4b at full
+   width, a self-draft of its first two layers, 3 proposals a burst, in
+   three regimes (all-accept, all-reject, partial), each against plain
+   paged decode on the same target (``phase_spec``).  It prints committed
+   tokens per burst, ms per burst beside plain ms per step, and the K1
+   bodies the verify launches took.
+The chunk shapes of the paged path (K2: a 64-row chunk at q_offset 256 of a
+512-row cache; K1: 64x3072x3072 on the tensor cores) are timed after the
+grouped phase beside their plain versions, SDPA given the same boolean mask
+and ``torch.matmul`` (``phase_chunk_kernels``).
 
 Then the tuning line, the script's wall time, one JSON line with every
 kernel's numbers, the nvidia-smi line, and the last line
@@ -1715,6 +1736,7 @@ def serve_stream(torch, engine, prompts, new_tokens: int, rec=None, after_admiss
     if "prime_bodies" not in out:
         raise AssertionError(f"no {PRIME_PROMPT}-token prompt among {[len(p) for p in prompts]}")
     out["requests"], out["tokens"] = len(done), sum(len(r.generated) for r in done)
+    out["generated"] = [r.generated for r in sorted(done, key=lambda r: r.uid)]
     out["prefill_s"] = sum(out["prompt_prefill_s"])
     out["decode_ms_per_step"] = 1e3 * out["decode_s"] / out["steps"]
     return out
@@ -1957,6 +1979,486 @@ def phase_serve_tuned(torch, db, default_row: dict) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# the paged engine: chunked prefill and speculative decoding
+# ---------------------------------------------------------------------------
+
+#: the paged and spec phases' geometry: 4 lanes, 512-token contexts, pages
+#: of 16, chunks of 64, two chunks a step
+PAGED = dict(decode_batch=4, max_ctx=512, page_size=16, chunk=64, chunks_per_step=2)
+#: the preemption run's pool: 69 usable pages (1104 tokens) where the four
+#: longest requests hold 1145 tokens at once (one preemption at seed 0)
+PAGED_CUT_POOL = 70
+#: extra pages of the fragmented run, held every other one by dummies
+PAGED_SHRED = 24
+#: the archs of the paged phase, the kernels each must launch, and the scan
+#: each of its chunks must launch once per recurrent layer.  recurrentgemma's
+#: local layers hold a 2048-slot window in a 512-token context: a paged leaf
+#: whose chunks take attn_chunk's ring branch (masked plain attention, as the
+#: reference's), so its paged path runs no K2
+PAGED_ARCHS = {"minitron-4b": (("matmul", "flash_attention"), None),
+               "rwkv6-1.6b": (("matmul", "rwkv6_scan"), "rwkv6_scan"),
+               "recurrentgemma-2b": (("matmul", "rglru_scan"), "rglru_scan")}
+#: the spec phase: a draft of minitron-4b's first two layers, 3 proposals a
+#: burst (verify M = 4 lanes x 4 positions = 16 rows: K1's rows body, whose
+#: bits do not depend on M), the serve prompts' first four
+SPEC_K = 3
+SPEC_KEEP = 2
+SPEC_PROMPTS = 4
+SPEC_PARTIAL_DAMP = 0.05
+
+
+def phase_chunk_kernels(torch, timer) -> dict:
+    """The paged path's new launch shapes, timed: K2 at minitron-4b's chunk
+    shape (a 64-row chunk at q_offset 256 against the 512-row cache, GQA
+    24/8, D = 128) beside its plain version and SDPA given the same boolean
+    mask, and K1 at 64x3072x3072 (the chunk's q/o projection, tensor-core
+    body) beside its plain version and ``torch.matmul``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    b, hq, hkv, c, skv, d, off = 1, 24, 8, 64, 512, 128, 256
+    q, k, v = _attn_inputs(torch, g, b, hq, hkv, c, skv, d, torch.bfloat16)
+    cs = ops.schedule_for(ops.instance("flash_attention_causal", torch.bfloat16, Q=c, KV=skv, H=hq,
+                                       D=d, B=b, window=0))
+    got = fa.launch(q, k, v, cs, q_offset=off)
+    want = ref.chunked_attention(q, k, v, chunk=cs.t["KV"], q_offset=off)
+    err_fa = assert_close(torch, got, want, BF16_TOL, "attention at the chunk shape")
+    ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+    mask = torch.arange(skv, device="cuda")[None, :] <= off + torch.arange(c, device="cuda")[:, None]
+    sdpa = F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+    err_sdpa = assert_close(torch, sdpa, want, BF16_TOL, "SDPA at the chunk shape")
+    # the rows the causal mask needs: keys 0 .. off + c - 1
+    live = c * off + c * (c + 1) / 2
+    b_ms, b_by = bound_ms(2 * (2 * b * hq * c * d + 2 * b * hkv * (off + c) * d),
+                          4 * b * hq * live * d)
+    body, cta_q, ctas = fa.attention_geometry(torch.bfloat16, c, cs.t["Q"])
+    attn_row = {"B": b, "Hq": hq, "Hkv": hkv, "C": c, "KV": skv, "D": d, "q_offset": off,
+                "tiles": cs.t, "body": body, "ctas": b * hq * ctas, "max_abs_err": err_fa,
+                "sdpa_max_abs_err": err_sdpa,
+                "ms": timer.ms(lambda: fa.launch(q, k, v, cs, q_offset=off), iters=20),
+                "plain_ms": timer.ms(lambda: ref.chunked_attention(q, k, v, chunk=cs.t["KV"],
+                                                                   q_offset=off)),
+                "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                    q, ke, ve, attn_mask=mask), iters=20),
+                "bound_ms": b_ms, "bound_by": b_by}
+    attn_row["device_ms"] = timer.device_ms(lambda: fa.launch(q, k, v, cs, q_offset=off))
+    attn_row["library_device_ms"] = timer.device_ms(lambda: F.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=mask))
+    log("chunk_attention", **attn_row)
+
+    m, n, kk = 64, 3072, 3072
+    x, w, _ = _mm_inputs(torch, g, m, n, kk, "matmul", torch.bfloat16)
+    cs = ops.schedule_for(ops.instance("matmul", torch.bfloat16, M=m, N=n, K=kk))
+    body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(torch.bfloat16, m, n, kk, cs.t["M"],
+                                                           cs.t["N"])
+    if body != "mma":
+        raise AssertionError(f"K1 at {m}x{kk}x{n} takes the {body} body")
+    got = mm.launch(x, w, cs)
+    err_mm = assert_close(torch, got, ref.matmul(x, w), BF16_TOL, f"matmul {m}x{kk}x{n}")
+    b_ms, b_by = bound_ms(2 * (m * kk + kk * n + m * n), 2 * m * n * kk)
+    mm_row = {"class": "matmul", "M": m, "K": kk, "N": n, "tiles": cs.t, "body": body,
+              "cta_tile": [cta_m, cta_n], "ctas": ctas, "max_abs_err": err_mm,
+              "ms": timer.ms(lambda: mm.launch(x, w, cs), iters=20),
+              "plain_ms": timer.ms(lambda: ref.matmul(x, w)),
+              "library_ms": timer.ms(lambda: torch.matmul(x, w), iters=20),
+              "bound_ms": b_ms, "bound_by": b_by,
+              "device_ms": timer.device_ms(lambda: mm.launch(x, w, cs)),
+              "library_device_ms": timer.device_ms(lambda: torch.matmul(x, w))}
+    log("chunk_matmul", **mm_row)
+    return {"attention": attn_row, "matmul": mm_row}
+
+
+class EngineClock:
+    """Host-clock seconds (each call between two syncs), calls and K1
+    launches per body of a paged engine's model calls: ``_chunk``,
+    ``_decode``, ``_spec_step`` and ``_verify``.  With ``scan`` (a scan
+    kernel's module) it fails unless every chunk launched the scan
+    ``per_chunk`` times (once per recurrent layer)."""
+
+    CALLS = ("_chunk", "_decode", "_spec_step", "_verify")
+
+    def __init__(self, torch, engine, scan=None, per_chunk: int = 0):
+        from repro_torch.kernels import matmul as mm
+
+        self.seconds = collections.Counter()
+        self.calls = collections.Counter()
+        self.bodies = {name: collections.Counter() for name in self.CALLS}
+        for name in self.CALLS:
+            real = getattr(engine, name)
+
+            def timed(*args, _real=real, _name=name):
+                torch.cuda.synchronize()
+                scans0, bodies0 = (scan.launches if scan else 0), collections.Counter(body_counts(mm))
+                t0 = time.monotonic()
+                out = _real(*args)
+                torch.cuda.synchronize()
+                self.seconds[_name] += time.monotonic() - t0
+                self.calls[_name] += 1
+                self.bodies[_name] += collections.Counter(body_counts(mm)) - bodies0
+                if scan is not None and _name == "_chunk" and scan.launches - scans0 != per_chunk:
+                    raise AssertionError(f"a chunk launched the scan {scan.launches - scans0} "
+                                         f"times, not {per_chunk}")
+                return out
+
+            setattr(engine, name, timed)
+
+    def ms(self, name: str) -> float | None:
+        return 1e3 * self.seconds[name] / self.calls[name] if self.calls[name] else None
+
+
+def free_engines(torch) -> None:
+    """Free the engines dropped so far: ``EngineClock``'s wrappers and
+    ``paged_run``'s preemption hook hold their engine in a reference cycle,
+    which only the collector breaks, and an engine holds its params and its
+    pool; peak memory is read after this."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def paged_run(torch, model, params, prompts, *, fragment: bool = False, scan=None,
+              per_chunk: int = 0, **kw):
+    """One stream of ``prompts`` (SERVE_NEW_TOKENS each) through a paged
+    engine at the PAGED geometry: (engine, requests, clock, wall s, steps).
+    ``fragment`` shreds the free list first (PAGED_SHRED extra pages,
+    every other one held by a dummy for the whole run)."""
+    from repro_torch.serving import PagedServingEngine
+
+    geo = dict(PAGED, **kw)
+    if fragment:
+        geo["pool_pages"] = (geo["decode_batch"] * geo["max_ctx"] // geo["page_size"] + 1
+                             + PAGED_SHRED)
+    eng = PagedServingEngine(model, params, record_logits=True, **geo)
+    eng.preempted_uids = set()
+    real_preempt = eng._preempt
+
+    def preempt(uid):
+        eng.preempted_uids.add(uid)
+        real_preempt(uid)
+
+    eng._preempt = preempt
+    if fragment:
+        for i in range(PAGED_SHRED):
+            eng.table.ensure(10 ** 6 + i, geo["page_size"])
+        for i in range(0, PAGED_SHRED, 2):
+            eng.table.release(10 ** 6 + i)
+        if eng.table.fragmentation() <= 0.0:
+            raise AssertionError("the shredded pool is not fragmented")
+    clock = EngineClock(torch, eng, scan, per_chunk)
+    t0 = time.monotonic()
+    reqs = [eng.add_request(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+    steps = 0
+    while eng.in_flight:
+        eng.step()
+        steps += 1
+        if steps > 1000:
+            raise AssertionError("the paged engine did not converge")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    if not all(r.done and len(r.generated) == SERVE_NEW_TOKENS for r in reqs):
+        raise AssertionError(f"paged engine finished with token counts "
+                             f"{[len(r.generated) for r in reqs]}")
+    return eng, reqs, clock, wall, steps
+
+
+def first_divergence(torch, model, params, prompt, want, got) -> dict | None:
+    """Where a stream ``got`` first leaves ``want`` (the slot engine's):
+    the step and the top-2 margin of the logits there, from one prefill of
+    the prompt and ``want``'s tokens before that step (None: no divergence)."""
+    step = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if step is None:
+        return None
+    toks = torch.tensor([prompt + want[:step]], dtype=torch.long, device="cuda")
+    logits, _ = model.prefill(params, {"tokens": toks}, max_len=512)
+    top = torch.topk(logits[0].float(), 2).values
+    return {"step": step, "want": want[step], "got": got[step], "margin": float(top[0] - top[1])}
+
+
+def _cache_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_paged(torch, srv: list) -> list:
+    """The paged engine at full width and depth: minitron-4b (K1, K2),
+    rwkv6-1.6b (K1, K3) and recurrentgemma-2b (K1, K4), at the PAGED
+    geometry, the serve phases' 8 prompts and 16 new tokens each, beside
+    the slot engine (exact-length prefill) on the same weights.
+
+    Checks per arch: every request finishes; no prefill padding; each
+    stream equals the slot engine's, where a divergence fails unless the
+    top-2 margin at the first divergent step is below the logits bound and
+    the arch is recurrent or the slot engine prefilled that prompt on K1's
+    rows body (minitron-4b's prime 181-token prompt: 1-row tiles, where the
+    paged engine's chunks run on the tensor cores and sum otherwise); each
+    final chunk's logits within the logits bound of the slot engine's
+    one-shot prefill logits (the larger of LOGITS_REL_BOUND of max |logit|
+    and the serve phase's bound); the bf16 matmul never on the CUDA-core
+    body, the attention only on the tensor-core body.  minitron-4b: K2
+    launched at q_offset > 0, K1 on both the tensor-core and the rows
+    bodies; a fragmented pool gives the same tokens and final-chunk logits,
+    bit for bit; a pool cut to PAGED_CUT_POOL pages preempts and gives the
+    same streams (a victim's, recomputed on resume, may leave at a near-tie
+    only).  rwkv6-1.6b, recurrentgemma-2b: every chunk launches the
+    scan once per recurrent layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.paged import _leaves
+
+    rows = []
+    scans = {"rwkv6_scan": rw, "rglru_scan": rg}
+    for arch, (kernels, scan_name) in PAGED_ARCHS.items():
+        t_arch = time.monotonic()
+        cfg = get_arch(arch)
+        srv_row = next(r for r in srv if r["arch"] == cfg.name)
+        free_engines(torch)
+        model = build_model(cfg, "cuda")
+        params = model.init(seed=0)
+        prompts = serve_prompts(cfg)
+
+        # the slot engine, exact-length prefill, same weights, same call
+        slot = ServingEngine(model, params, slots=PAGED["decode_batch"],
+                             max_len=PAGED["max_ctx"], prefill_buckets=False)
+        t0 = time.monotonic()
+        slot_run = serve_stream(torch, slot, prompts, SERVE_NEW_TOKENS)
+        slot_wall = time.monotonic() - t0
+        slot_bytes = _cache_bytes(_leaves(slot.cache))
+        del slot
+        free_engines(torch)
+
+        # the main path: counts set to 0 just before, read just after
+        for kmod in (mm, fa, rw, rg):
+            kmod.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        scan = scans.get(scan_name)
+        per_chunk = sum(k == "R" for k in cfg.layer_kinds) if scan else 0
+        eng, reqs, clock, wall, steps = paged_run(torch, model, params, prompts, scan=scan,
+                                                  per_chunk=per_chunk)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = serve.kernel_launches()
+        bodies = body_counts(mm)
+        attn_bodies = {f"{b}/{ops.dtype_name(d)}": n for (b, d), n in fa.body_launches.items()}
+        offset_launches, fa_row_tiles = fa.offset_launches, fa.row_tile_launches
+        mm_row_tiles = mm.row_tile_launches
+        if eng.prefill_padded_tokens != eng.prefill_true_tokens:
+            raise AssertionError(f"{arch}: paged prefill padded {eng.prefill_padded_tokens} "
+                                 f"for {eng.prefill_true_tokens} tokens")
+        if mm.body_count("fma", dtype=torch.bfloat16) or fa.body_count("fma", dtype=torch.bfloat16):
+            raise AssertionError(f"{arch}: a bf16 launch took a CUDA-core body: {bodies}, "
+                                 f"{attn_bodies}")
+        if min(launches[k] for k in kernels) <= 0:
+            raise AssertionError(f"{arch}: a kernel of the paged path was never launched: "
+                                 f"{launches}")
+        pool_bytes = _cache_bytes(eng.leaves)
+
+        # streams against the slot engine's; final-chunk logits against its
+        # one-shot prefill logits, within the serve phases' bound: the larger
+        # of LOGITS_REL_BOUND of max |logit| and CONTROL_FACTOR times the f64
+        # control, the control taken on this prompt where the serve phase's
+        # (taken on the first prompt) is not enough
+        divergences, logits_err, bounds = [], [], []
+        for prompt, want, req in zip(prompts, slot_run["generated"], reqs):
+            div = first_divergence(torch, model, params, prompt, want, req.generated)
+            toks = torch.tensor([prompt], dtype=torch.long, device="cuda")
+            one, _ = model.prefill(params, {"tokens": toks}, max_len=512)
+            one = one[0].float().cpu()
+            chunk = torch.from_numpy(eng.chunk_logits[req.uid])
+            err = float((chunk - one).abs().max())
+            bound = max(LOGITS_REL_BOUND * float(one.abs().max()), srv_row["logits_bound"])
+            if err > bound:
+                bound = max(bound, CONTROL_FACTOR * f64_control(torch, model, params, toks))
+            logits_err.append(err)
+            bounds.append(bound)
+            if err > bound:
+                raise AssertionError(f"{arch}: the {len(prompt)}-token prompt's final-chunk logits "
+                                     f"differ from one-shot prefill's by {err} > {bound}")
+            if div is not None:
+                # minitron-4b: a prompt the slot engine prefills on K1's rows
+                # body (a prime length's 1-row tiles, ROADMAP B.1) sums
+                # otherwise than the paged engine's tensor-core chunks, so its
+                # stream may leave at a near-tie; any other must be exact
+                rows_prefill = mm.body_for(torch.bfloat16, ops.schedule_for(ops.instance(
+                    "matmul", torch.bfloat16, M=len(prompt), N=cfg.d_model, K=cfg.d_model)
+                ).t["M"]) == "rows"
+                div.update(prompt_len=len(prompt), logits_bound=bound,
+                           near_tie_allowed=scan is not None or rows_prefill)
+                divergences.append(div)
+        log("paged_streams", arch=arch, divergences=divergences, logits_bounds=bounds,
+            chunk_logits_max_abs_diff=logits_err)
+        for div in divergences:
+            if not div["near_tie_allowed"] or div["margin"] >= div["logits_bound"]:
+                raise AssertionError(f"{arch}: a paged stream leaves the slot engine's: {div}")
+
+        row = {"arch": cfg.name, "layers": cfg.n_layers, "geometry": PAGED,
+               "requests": len(reqs), "tokens": sum(len(r.generated) for r in reqs),
+               "steps": steps, "chunk_lens": sorted(eng._chunk_lens_run),
+               "prefill_s": clock.seconds["_chunk"], "chunks": clock.calls["_chunk"],
+               "decode_s": clock.seconds["_decode"], "decode_steps": clock.calls["_decode"],
+               "decode_ms_per_step": clock.ms("_decode"),
+               "decode_tok_per_s": (sum(len(r.generated) for r in reqs) - len(reqs))
+               / clock.seconds["_decode"],
+               "wall_s": wall,
+               "slot": {"prefill_s": slot_run["prefill_s"],
+                        "decode_ms_per_step": slot_run["decode_ms_per_step"],
+                        "decode_tok_per_s": (slot_run["tokens"] - slot_run["requests"])
+                        / slot_run["decode_s"],
+                        "decode_steps": slot_run["steps"], "wall_s": slot_wall},
+               "pool_bytes": pool_bytes, "slot_cache_bytes": slot_bytes,
+               "serve_peak_gib": peak_gib,
+               "launches": launches, "body_launches": bodies, "attention_body_launches": attn_bodies,
+               "attention_offset_launches": offset_launches,
+               "row_tile_launches": {"matmul": mm_row_tiles, "flash_attention": fa_row_tiles},
+               "chunk_body_launches": dict(clock.bodies["_chunk"]),
+               "decode_body_launches": dict(clock.bodies["_decode"]),
+               "divergences": divergences, "chunk_logits_max_abs_diff": logits_err,
+               "logits_bounds": bounds}
+
+        if arch == "minitron-4b":
+            if offset_launches <= 0 or mm.body_count("mma") <= 0 or mm.body_count("rows") <= 0:
+                raise AssertionError(f"{arch}: K2 at q_offset > 0 {offset_launches}, K1 bodies "
+                                     f"{bodies}")
+            fr_eng, fr_reqs, _, _, fr_steps = paged_run(torch, model, params, prompts,
+                                                        fragment=True)
+            if [r.generated for r in fr_reqs] != [r.generated for r in reqs] or any(
+                    not np_equal(fr_eng.chunk_logits[a.uid], eng.chunk_logits[b.uid])
+                    for a, b in zip(fr_reqs, reqs)):
+                raise AssertionError(f"{arch}: a fragmented pool changed the tokens or logits")
+            del fr_eng
+            free_engines(torch)
+            cut_eng, cut_reqs, _, _, cut_steps = paged_run(torch, model, params, prompts,
+                                                           pool_pages=PAGED_CUT_POOL)
+            # a victim's generated tokens are prefilled again on resume, in
+            # tensor-core chunks where decode ran them on the rows body: its
+            # stream may leave at a near-tie; any other stream must be exact
+            cut_div = []
+            for p, a, b in zip(prompts, reqs, cut_reqs):
+                div = first_divergence(torch, model, params, p, a.generated, b.generated)
+                if div is not None:
+                    div.update(prompt_len=len(p), victim=b.uid in cut_eng.preempted_uids)
+                    cut_div.append(div)
+            row.update(fragmented={"steps": fr_steps, "bit_equal": True},
+                       preempted={"pool_pages": PAGED_CUT_POOL, "steps": cut_steps,
+                                  "preemptions": cut_eng.preemptions,
+                                  "victims": sorted(cut_eng.preempted_uids),
+                                  "divergences": cut_div})
+            if cut_eng.preemptions <= 0 or any(not d["victim"] or d["margin"] >= max(bounds)
+                                               for d in cut_div):
+                raise AssertionError(f"{arch}: the cut pool preempted {cut_eng.preemptions} "
+                                     f"times; streams leave the full pool's: {cut_div}")
+            del cut_eng
+        row["phase_s"] = time.monotonic() - t_arch
+        log("paged", **row)
+        rows.append(row)
+        del model, params, eng, clock
+        free_engines(torch)
+    return rows
+
+
+def f64_control(torch, model, params, toks) -> float:
+    """The distance between the plain path's prefill logits and the same
+    path's with its matmuls accumulated in f64 (see ``f64_accumulation``)."""
+    from repro_torch.kernels.ops import use_backend
+
+    with use_backend("ref"):
+        plain, _ = model.prefill(params, {"tokens": toks}, max_len=512)
+        with f64_accumulation():
+            control, _ = model.prefill(params, {"tokens": toks}, max_len=512)
+    return max_err(torch, control, plain)
+
+
+def np_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def phase_spec(torch) -> dict:
+    """Speculative decoding on the paged engine, minitron-4b at full width
+    and depth: a self-draft of its first SPEC_KEEP layers, SPEC_K proposals
+    a burst, the PAGED geometry, SPEC_PROMPTS of the serve prompts, 16 new
+    tokens.  Three regimes: all-accept (damp 0: the damped target computes
+    the draft's function), all-reject (the draft's LM head rolled by one
+    column), partial (damp SPEC_PARTIAL_DAMP).  Checks in each: the
+    committed streams equal the plain paged engine's on the same target,
+    bit for bit; bursts ran; accepted == proposed, 0, or strictly between
+    them; every verify projection took the rows body."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import make_self_draft
+
+    t_phase = time.monotonic()
+    cfg = get_arch("minitron-4b")
+    torch.cuda.empty_cache()
+    model = build_model(cfg, "cuda")
+    params = model.init(seed=0)
+    prompts = serve_prompts(cfg)[:SPEC_PROMPTS]
+    out = {"arch": cfg.name, "spec_k": SPEC_K, "keep_layers": SPEC_KEEP, "geometry": PAGED,
+           "prompt_lens": [len(p) for p in prompts], "regimes": {}}
+    totals = collections.Counter()
+    body_totals = collections.Counter()
+    plain = {}
+    for regime, damp in (("all_accept", 0.0), ("all_reject", 0.0), ("partial", SPEC_PARTIAL_DAMP)):
+        dcfg, dparams, tparams = make_self_draft(cfg, params, keep_layers=SPEC_KEEP, damp=damp)
+        if regime == "all_reject":
+            dparams = dict(dparams, lm_head=torch.roll(dparams["lm_head"], 1, dims=1))
+        if damp not in plain:
+            _, p_reqs, p_clock, _, _ = paged_run(torch, model, tparams, prompts)
+            plain[damp] = ([r.generated for r in p_reqs], p_clock.ms("_decode"))
+            del p_clock
+            free_engines(torch)
+        for kmod in (mm, fa, rw, rg):
+            kmod.reset_launches()
+        eng, reqs, clock, wall, steps = paged_run(
+            torch, model, tparams, prompts, draft_model=build_model(dcfg, "cuda"),
+            draft_params=dparams, spec_k=SPEC_K)
+        totals.update(serve.kernel_launches())
+        body_totals.update(body_counts(mm))
+        streams, plain_ms = plain[damp]
+        equal = [r.generated for r in reqs] == streams
+        verify_bodies = dict(clock.bodies["_verify"])
+        row = {"damp": damp, "bit_equal_to_plain": equal, "steps": steps, "wall_s": wall,
+               "bursts": eng.spec_bursts, "proposed": eng.spec_proposed,
+               "accepted": eng.spec_accepted, "committed": eng.spec_committed,
+               "committed_per_burst": eng.spec_committed / max(eng.spec_bursts, 1),
+               "burst_calls": clock.calls["_spec_step"], "ms_per_burst": clock.ms("_spec_step"),
+               "verify_ms": clock.ms("_verify"), "plain_ms_per_step": plain_ms,
+               "decode_ms_per_step": clock.ms("_decode"), "verify_body_launches": verify_bodies}
+        log("spec", regime=regime, **row)
+        out["regimes"][regime] = row
+        want_accept = {"all_accept": eng.spec_accepted == eng.spec_proposed,
+                       "all_reject": eng.spec_accepted == 0,
+                       "partial": 0 < eng.spec_accepted < eng.spec_proposed}[regime]
+        if not equal:
+            raise AssertionError(f"spec {regime}: the committed streams differ from plain decode's")
+        if eng.spec_bursts <= 0 or not want_accept:
+            raise AssertionError(f"spec {regime}: {eng.spec_bursts} bursts, accepted "
+                                 f"{eng.spec_accepted} of {eng.spec_proposed}")
+        if not verify_bodies or any("/rows/" not in key for key in verify_bodies):
+            raise AssertionError(f"spec {regime}: verify's K1 bodies {verify_bodies}")
+        del eng, clock, dparams, tparams
+        free_engines(torch)
+    out["launches"], out["body_launches"] = dict(totals), dict(body_totals)
+    out["phase_s"] = time.monotonic() - t_phase
+    del model, params
+    free_engines(torch)
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1990,18 +2492,26 @@ def main(argv: list[str]) -> int:
     scr = phase_scans(torch, timer)
     phase_prime_matmul(torch, timer)
     grr = phase_grouped(torch, timer)
+    chunk = phase_chunk_kernels(torch, timer)
     tuning, tuned_db = phase_tuning(torch, timer)
     del timer
     torch.cuda.empty_cache()
     srv = [phase_serve(torch, arch) for arch in SERVE_KERNELS]
     tuned = phase_serve_tuned(torch, tuned_db, next(r for r in srv if r["arch"] == TUNED_ARCH))
+    paged = phase_paged(torch, srv)
+    spec = phase_spec(torch)
+    paths = {"slot": srv, "paged": paged, "spec": [spec]}   # main-path runs, counts read apart
 
-    def served(name):   # launches summed over the serve phases
-        return sum(r["launches"][name] for r in srv)
+    def count(r, name, body=None):   # one run's launches of a kernel (of one body)
+        if body is None:
+            return r["launches"][name]
+        return sum(c for key, c in r["body_launches"].items() if key.startswith(f"{name}/{body}/"))
 
-    def served_body(name, body="mma"):   # a kernel's launches of one body, summed
-        return sum(c for r in srv for key, c in r["body_launches"].items()
-                   if key.startswith(f"{name}/{body}/"))
+    def by_path(name, body=None):
+        return {path: sum(count(r, name, body) for r in rs) for path, rs in paths.items()}
+
+    def served(name, body=None):   # launches summed over the main-path runs
+        return sum(by_path(name, body).values())
 
     def timed(row, keys):
         return {"shape": {k: row[k] for k in keys},
@@ -2029,7 +2539,7 @@ def main(argv: list[str]) -> int:
          "max_abs_err": mmr["max_abs_err"], **timed(rep_mm, ("class", "M", "K", "N", "split_k", "ctas"))},
         {"name": "matmul_decode", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:205", "body": "rows",
-         "launches": served_body("matmul", "rows"), "max_abs_err": mmr["max_abs_err"],
+         "launches": served("matmul", "rows"), "max_abs_err": mmr["max_abs_err"],
          **timed(dec_mm, ("class", "M", "K", "N", "split_k", "ctas"))},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2050,12 +2560,12 @@ def main(argv: list[str]) -> int:
          **timed(rep_gr, ("class", "E", "M", "K", "N", "split_k", "ctas"))},
         {"name": "matmul_prefill", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:205", "body": "mma",
-         "launches": served_body("matmul"), "max_abs_err": mmr["max_abs_err"],
+         "launches": served("matmul", "mma"), "max_abs_err": mmr["max_abs_err"],
          **timed(pre_mm, ("class", "M", "K", "N", "cta_tile", "ctas"))},
         {"name": "grouped_matmul_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:236", "body": "mma",
-         "launches": served_body("grouped_matmul"), "max_abs_err": grr["max_abs_err"],
+         "launches": served("grouped_matmul", "mma"), "max_abs_err": grr["max_abs_err"],
          **timed(pre_gr, ("class", "E", "M", "K", "N", "cta_tile", "ctas"))},
         {"name": "matmul_kstep_round", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -2063,7 +2573,29 @@ def main(argv: list[str]) -> int:
          "launches": sum(tuned["round_launches"].values()),
          "max_abs_err": max(r["max_abs_err"] for r in mmr["rounding"] + grr["rounding"]),
          **timed(rep_round, ("class", "M", "K", "N", "round_k"))},
+        {"name": "flash_attention_chunk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:126", "body": "mma",
+         "launches": sum(r["attention_offset_launches"] for r in paged),
+         "max_abs_err": chunk["attention"]["max_abs_err"],
+         **{k: chunk["attention"][k] for k in ("device_ms", "library_device_ms")},
+         **timed(chunk["attention"], ("B", "Hq", "Hkv", "C", "KV", "D", "q_offset", "ctas"))},
+        {"name": "matmul_chunk", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:205", "body": "mma",
+         "launches": sum(c for r in paged for key, c in r["chunk_body_launches"].items()
+                         if key.startswith("matmul/mma/")),
+         "max_abs_err": chunk["matmul"]["max_abs_err"],
+         **{k: chunk["matmul"][k] for k in ("device_ms", "library_device_ms")},
+         **timed(chunk["matmul"], ("class", "M", "K", "N", "cta_tile", "ctas"))},
     ]
+    # each kernel's launches per path (slot engine, paged, spec)
+    for row in kernels:
+        if row["name"] in ("matmul", "flash_attention", "rwkv6_scan", "rglru_scan",
+                           "grouped_matmul"):
+            row["launches_by_path"] = by_path(row["name"])
+        elif row["name"] in ("matmul_decode", "matmul_prefill", "grouped_matmul_prefill"):
+            row["launches_by_path"] = by_path(row["name"].removesuffix("_decode")
+                                              .removesuffix("_prefill"), row["body"])
     print(json.dumps({"tuning": tuning}))
     log("done", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": kernels}))

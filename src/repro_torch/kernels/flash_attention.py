@@ -66,15 +66,20 @@ MAX_HEAD_DIM = 256
 MMA_CTA_Q = 64
 
 #: kernel launches since the last reset (plain counts; see chip_smoke.py):
-#: ``launches`` of :func:`launch`, ``body_launches`` by (body, dtype)
+#: ``launches`` of :func:`launch`, ``body_launches`` by (body, dtype),
+#: ``offset_launches`` with ``q_offset`` > 0 (chunked prefill) and
+#: ``row_tile_launches`` with 1-row Q tiles over Sq > 1 rows (a prime
+#: length's default)
 launches = 0
+offset_launches = 0
+row_tile_launches = 0
 body_launches: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     """Set every count to 0."""
-    global launches
-    launches = 0
+    global launches, offset_launches, row_tile_launches
+    launches = offset_launches = row_tile_launches = 0
     body_launches.clear()
 
 
@@ -125,7 +130,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cs: ConcreteSchedu
            causal: bool = True, window: int = 0, softcap: float = 0.0, q_offset: int = 0,
            scale: float | None = None) -> torch.Tensor:
     """Launch the CUDA kernel; raises on anything it does not take."""
-    global launches
+    global launches, offset_launches, row_tile_launches
     if not q.is_cuda:
         raise ValueError(f"the flash-attention kernel runs on a CUDA tensor, got {q.device}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -157,5 +162,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cs: ConcreteSchedu
         int(q_offset), float(scale), cs.t["Q"], cta_q, ctas, _build.stream_handle(q.device))
     _build.check(rc, "flash-attention kernel")
     launches += 1
+    offset_launches += q_offset > 0
+    row_tile_launches += cs.t["Q"] == 1 < sq
     body_launches[body, q.dtype] += 1
     return out

@@ -117,18 +117,21 @@ ROWS_SLICE_ALIGN = 32
 #: ``launches`` of :func:`launch` (K1), ``grouped_launches`` of
 #: :func:`grouped_launch` (K1g), ``body_launches`` of both by
 #: (kernel, body, dtype): kernel ``"matmul"`` or ``"grouped_matmul"``, body
-#: ``"rows"``, ``"mma"`` or ``"fma"`` (:func:`body_for`), and
-#: ``round_launches`` of both in rounding mode by (kernel, body)
+#: ``"rows"``, ``"mma"`` or ``"fma"`` (:func:`body_for`),
+#: ``round_launches`` of both in rounding mode by (kernel, body), and
+#: ``row_tile_launches`` of K1 with 1-row M tiles over M > 1 rows (a prime
+#: M's default)
 launches = 0
 grouped_launches = 0
+row_tile_launches = 0
 body_launches: collections.Counter = collections.Counter()
 round_launches: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     """Set every count to 0."""
-    global launches, grouped_launches
-    launches = grouped_launches = 0
+    global launches, grouped_launches, row_tile_launches
+    launches = grouped_launches = row_tile_launches = 0
     body_launches.clear()
     round_launches.clear()
 
@@ -288,7 +291,7 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
            class_id: str = "matmul", bias: torch.Tensor | None = None,
            residual: torch.Tensor | None = None, softcap: float = 0.0) -> torch.Tensor:
     """Launch the CUDA kernel; raises on anything it does not take."""
-    global launches
+    global launches, row_tile_launches
     if not x.is_cuda:
         raise ValueError(f"the matmul kernel runs on a CUDA tensor, got {x.device}")
     if class_id not in EPILOGUE:
@@ -336,6 +339,7 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
         ws.data_ptr() if ws is not None else None, _build.stream_handle(x.device))
     _build.check(rc, "matmul kernel")
     launches += 1
+    row_tile_launches += tile_m == 1 < m
     body_launches["matmul", body, x.dtype] += 1
     if round_k:
         round_launches["matmul", body] += 1

@@ -4,16 +4,25 @@ logit softcapping and KV caches (the counterpart of
 
 * ``attn_forward`` — full sequence (prefill): the projections go through the
   matmul kernel, the attention through the flash-attention kernel.
+* ``attn_chunk`` — one prefill chunk at absolute offset ``off`` against a
+  partially filled cache (the paged engine's chunked prefill): full-length
+  caches through the flash-attention kernel with ``q_offset=off``, ring
+  caches through a masked plain attention over [ring ‖ chunk].
 * ``attn_decode`` — one token per slot against the cache, at per-slot
   positions.  The masked decode attention is plain torch, as the reference's
   is plain jnp.
+* ``attn_verify`` — k+1 speculative positions per lane at per-lane offsets:
+  the decode attention applied once per position, so verify takes decode's
+  bits.
 * ``init_attn_cache`` — full cache for global layers, window-sized ring for
   local/SWA layers.
 
 Unlike the reference, which is functional, the caches are updated in place:
-``attn_forward`` writes the prefix of the (fresh) cache it is given, and
-``attn_decode`` writes one row per slot of the cache it is given.  Both
-return the cache dict they wrote.
+``attn_forward`` writes the prefix of the (fresh) cache it is given,
+``attn_chunk`` the chunk's rows (ring caches: after attention),
+``attn_decode`` one row per slot and ``attn_verify`` k+1 rows per lane of
+the cache they are given.  Each returns the cache dict it wrote, holding
+the tensors it was given.
 """
 from __future__ import annotations
 
@@ -117,6 +126,86 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
 
 
 # ---------------------------------------------------------------------------
+# Chunked prefill (a prompt slice against a partially filled cache)
+# ---------------------------------------------------------------------------
+
+
+def attn_chunk(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
+               positions: torch.Tensor, off: int, cache: dict,
+               provider=None) -> tuple[torch.Tensor, dict]:
+    """One prefill chunk: queries at absolute positions ``off .. off+C-1``
+    attend to the cache prefix (positions ``< off``) plus the chunk itself.
+
+    Full-length caches get the chunk written at ``[off, off+C)`` before one
+    causal pass of the flash-attention kernel over the whole buffer with
+    ``q_offset=off`` (rows beyond ``off+C`` hold garbage the causal mask
+    hides).  Ring caches attend over [ring prefix ‖ chunk] under explicit
+    position masks and are written *after* attention: writing a chunk into
+    the ring first would overwrite positions earlier queries still need.
+    """
+    b, s, _ = x.shape
+    off = int(off)
+    dev = x.device
+    q, k, v = _qkv(p, cfg, x, provider)
+    q, k = _rope_qk(cfg, q, k, positions)
+
+    size = _cache_size(cache)
+    window = cfg.window if kind == "L" else 0
+    softcap = cfg.attn_softcap if kind == "G" else 0.0
+    ck, cv = cache["k"], cache["v"]
+    if kind == "G" or cfg.window == 0:
+        ck[:, :, off:off + s] = k.to(ck.dtype)
+        cv[:, :, off:off + s] = v.to(cv.dtype)
+        # keyed as the reference keys it: Q = C, KV = the cache length,
+        # window 0
+        out = ops.flash_attention(q, ck, cv, class_id=_attn_class(cfg, kind), causal=True,
+                                  window=0, softcap=softcap, q_offset=off, provider=provider)
+    else:
+        # ring (slot convention p % size): each slot's absolute position is
+        # the latest p < off congruent to it (< 0: never written)
+        slots = torch.arange(size, device=dev)
+        ring_pos = off - 1 - torch.remainder(off - 1 - slots, size)
+        chunk_pos = off + torch.arange(s, device=dev)
+        kv_pos = torch.cat([ring_pos, chunk_pos])
+        ok = (kv_pos[None, :] >= 0) & (kv_pos[None, :] <= chunk_pos[:, None])
+        if window > 0:
+            ok &= kv_pos[None, :] > chunk_pos[:, None] - window
+        kk = torch.cat([ck.to(k.dtype), k], dim=2)
+        vv = torch.cat([cv.to(v.dtype), v], dim=2)
+        out = _masked_chunk_attention(q, kk, vv, ok, softcap=softcap)
+        # write after attention: slot (off+i) % size takes position off+i,
+        # later positions winning on wrap
+        if s >= size:
+            shift = (off + s) % size
+            ck.copy_(torch.roll(k[:, :, s - size:], shift, dims=2))
+            cv.copy_(torch.roll(v[:, :, s - size:], shift, dims=2))
+        else:
+            wslots = torch.remainder(chunk_pos, size)
+            ck[:, :, wslots] = k.to(ck.dtype)
+            cv[:, :, wslots] = v.to(cv.dtype)
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    y = ops.matmul(out, p["wo"], provider=provider)
+    return y, cache
+
+
+def _masked_chunk_attention(q, k, v, valid_mask, softcap: float = 0.0):
+    """Multi-query attention with an explicit (C, T) validity mask: the
+    chunk analogue of :func:`_masked_decode_attention` (ring semantics need
+    per-position masks the flash kernel's causal/window params cannot say)."""
+    b, hq, c, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    qg = q.reshape(b, hkv, group, c, d).float() * d ** -0.5
+    s = torch.einsum("bhgqd,bhtd->bhgqt", qg, k.float())
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(valid_mask[None, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqt,bhtd->bhgqd", p, v.float())
+    return o.reshape(b, hq, c, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Decode (single token against cache)
 # ---------------------------------------------------------------------------
 
@@ -154,17 +243,73 @@ def attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
     return y, cache
 
 
+# ---------------------------------------------------------------------------
+# Speculative verify (k+1 draft positions against cache, per-lane offsets)
+# ---------------------------------------------------------------------------
+
+
+def attn_verify(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
+                off: torch.Tensor, cache: dict, provider=None) -> tuple[torch.Tensor, dict]:
+    """x: (B, C, D); off: (B,) per-lane absolute write offsets.
+
+    The speculative analogue of :func:`attn_chunk`, batched across lanes
+    that each sit at a different cache offset: all C rows are written at
+    ``off .. off+C-1``, then each position attends to the slots at or before
+    it.  Rows beyond a lane's committed length may hold rejected positions
+    from an earlier burst; the validity mask hides them and later steps
+    overwrite them in order.  Full-length caches only (callers gate on
+    :func:`repro_torch.serving.speculative.spec_exact_reason`)."""
+    b, s, _ = x.shape
+    dev = x.device
+    off = torch.broadcast_to(torch.as_tensor(off, device=dev).long(), (b,))
+    q, k, v = _qkv(p, cfg, x, provider)
+    positions = off[:, None] + torch.arange(s, device=dev)   # (B, C)
+    q, k = _rope_qk(cfg, q, k, positions)
+
+    size = _cache_size(cache)
+    bi = torch.arange(b, device=dev)[:, None, None]
+    hi = torch.arange(cfg.n_kv_heads, device=dev)[None, :, None]
+    rows = positions[:, None, :]                              # (B, 1, C)
+    ck, cv = cache["k"], cache["v"]
+    ck[bi, hi, rows] = k.to(ck.dtype)
+    cv[bi, hi, rows] = v.to(cv.dtype)
+
+    slots = torch.arange(size, device=dev)
+    ok = slots[None, None, :] <= positions[:, :, None]       # (B, C, T)
+    out = _masked_verify_attention(q, ck, cv, ok,
+                                   softcap=cfg.attn_softcap if kind == "G" else 0.0)
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    y = ops.matmul(out, p["wo"], provider=provider)
+    return y, cache
+
+
+def _masked_verify_attention(q, k, v, valid_mask, softcap: float = 0.0):
+    """Multi-query attention with a per-lane (B, C, T) validity mask: the
+    decode attention applied once per verify position with that position's
+    (B, T) mask.  Each product then has decode's shapes, so it reduces in
+    decode's order and a verify position takes the bits plain decode would
+    (a batched product of another shape may be split otherwise)."""
+    kf, vf = k.float(), v.float()
+    return torch.cat([_decode_attention_f32(q[:, :, j:j + 1], kf, vf, valid_mask[:, j], softcap)
+                      for j in range(q.shape[2])], dim=2)
+
+
 def _masked_decode_attention(q, k, v, valid_mask, softcap: float = 0.0):
     """Single-query attention over the whole cache with an explicit (B, size)
     validity mask (causal prefix and ring-buffer semantics)."""
+    return _decode_attention_f32(q, k.float(), v.float(), valid_mask, softcap)
+
+
+def _decode_attention_f32(q, kf, vf, valid_mask, softcap: float):
+    """:func:`_masked_decode_attention` on a cache already cast to f32."""
     b, hq, _, d = q.shape
-    hkv = k.shape[1]
+    hkv = kf.shape[1]
     group = hq // hkv
     qg = q.reshape(b, hkv, group, d).float() * d ** -0.5
-    s = torch.einsum("bhgd,bhkd->bhgk", qg, k.float())
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, kf)
     if softcap > 0:
         s = torch.tanh(s / softcap) * softcap
     s = torch.where(valid_mask[:, None, None, :], s, -1e30)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+    o = torch.einsum("bhgk,bhkd->bhgd", p, vf)
     return o.reshape(b, hq, 1, d).to(q.dtype)

@@ -1,7 +1,8 @@
 """Model facade (the counterpart of ``repro.models.build``).
 
 ``build_model(cfg, device)`` returns a :class:`Model` bundling init /
-forward / prefill / decode_step / init_cache for one config on one device.
+forward / prefill / prefill_chunk / decode_step / verify_step / init_cache
+for one config on one device.
 The device is the card (``"cuda"``) unless the caller asks for the CPU, and
 asking for the card where there is none raises.
 """
@@ -41,11 +42,21 @@ class Model:
         return lm.prefill(params, self.cfg, batch, max_len=max_len, true_len=true_len,
                           provider=provider)
 
+    def prefill_chunk(self, params: dict, cache: dict, tokens: torch.Tensor, off: int,
+                      provider=None):
+        return lm.prefill_chunk(params, self.cfg, cache, tokens, off, provider=provider)
+
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor, provider=None):
         return lm.decode_step(params, self.cfg, cache, tokens, provider=provider)
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        return lm.init_cache(self.cfg, batch, max_len, self.device)
+    def verify_step(self, params: dict, cache: dict, tokens: torch.Tensor, off, provider=None):
+        return lm.verify_step(params, self.cfg, cache, tokens, off, provider=provider)
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        """A zeroed cache on this model's device, or on ``device`` (say
+        ``"meta"``: shapes and dtypes with no storage)."""
+        return lm.init_cache(self.cfg, batch, max_len,
+                             self.device if device is None else torch.device(device))
 
 
 def build_model(cfg: ArchConfig, device: str | torch.device = "cuda") -> Model:

@@ -24,23 +24,34 @@ def _normal(gen: torch.Generator, shape: tuple[int, ...]) -> torch.Tensor:
 
 
 def dense_init(gen: torch.Generator, fan_in: int, fan_out: int, dtype) -> torch.Tensor:
+    """One f32 draw, scaled in place, then cast: the only f32 copy alive is
+    the draw itself."""
     scale = (2.0 / (fan_in + fan_out)) ** 0.5
-    return (_normal(gen, (fan_in, fan_out)) * scale).to(dtype)
+    return _normal(gen, (fan_in, fan_out)).mul_(scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype) -> torch.Tensor:
-    return (_normal(gen, (vocab, dim)) * dim ** -0.5).to(dtype)
+    return _normal(gen, (vocab, dim)).mul_(dim ** -0.5).to(dtype)
 
 
-def pack_glu(w_gate: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
+def pack_glu(w_gate: torch.Tensor, w_up: torch.Tensor,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """Interleave gate/up columns: (K, F) + (K, F) -> (K, 2F) with columns
-    (g0, u0, g1, u1, ...), the layout the fused GLU epilogue reads."""
+    (g0, u0, g1, u1, ...), the layout the fused GLU epilogue reads.  Written
+    into ``out`` (K, 2F) where given, say one expert's slice of a stack."""
     k, f = w_gate.shape
-    return torch.stack([w_gate, w_up], dim=2).reshape(k, 2 * f)
+    if out is None:
+        out = torch.empty((k, 2 * f), dtype=w_gate.dtype, device=w_gate.device)
+    pairs = out.view(k, f, 2)
+    pairs[:, :, 0] = w_gate
+    pairs[:, :, 1] = w_up
+    return out
 
 
-def glu_init(gen: torch.Generator, d: int, f: int, dtype) -> torch.Tensor:
-    return pack_glu(dense_init(gen, d, f, dtype), dense_init(gen, d, f, dtype))
+def glu_init(gen: torch.Generator, d: int, f: int, dtype,
+             out: torch.Tensor | None = None) -> torch.Tensor:
+    w_gate = dense_init(gen, d, f, dtype)
+    return pack_glu(w_gate, dense_init(gen, d, f, dtype), out=out)
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,11 @@ order and a Python loop walks them (:mod:`repro_torch.convert` unstacks the
 reference's pytrees into this layout).
 
 Entry points (bundled per config by :mod:`repro_torch.models.build`):
-  forward(params, batch)            — full-sequence logits
-  prefill(params, batch, max_len)   — last-position logits + filled cache
-  decode_step(params, cache, tok)   — one token per slot, cache updated in place
+  forward(params, batch)                    — full-sequence logits
+  prefill(params, batch, max_len)           — last-position logits + filled cache
+  prefill_chunk(params, cache, tok, off)    — one prompt chunk at offset ``off``
+  decode_step(params, cache, tok)           — one token per slot, cache updated in place
+  verify_step(params, cache, tok, off)      — k+1 speculative positions per lane
 
 Each takes ``provider``, the :class:`~repro_torch.kernels.ops.ScheduleProvider`
 every kernel op resolves its schedule through (None: the process default),
@@ -31,7 +33,7 @@ from repro_torch.models.common import apply_norm, dense_init, dtype_of, embed_in
 
 def _check_supported(cfg: ArchConfig) -> None:
     if cfg.vision_tokens or cfg.encoder_layers:
-        raise NotImplementedError("enc-dec and vision-prefixed archs are not ported yet: ROADMAP A.6")
+        raise NotImplementedError("enc-dec and vision-prefixed archs are not ported yet: ROADMAP A.7")
 
 
 # ---------------------------------------------------------------------------
@@ -54,32 +56,53 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
     }
 
 
+def _norm(p: dict, cfg: ArchConfig, x: torch.Tensor, verify: bool = False) -> torch.Tensor:
+    """``apply_norm``; under ``verify``, once per position at decode's
+    (B, 1, D) shape.  A CUDA row reduction sums in an order set by how many
+    rows it reduces, and a verify position must take the bits plain decode
+    takes."""
+    if not verify:
+        return apply_norm(p, x, cfg.norm)
+    return torch.cat([apply_norm(p, x[:, j:j + 1].contiguous(), cfg.norm)
+                      for j in range(x.shape[1])], dim=1)
+
+
 def apply_mixer(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
                 positions: torch.Tensor | None, pos: torch.Tensor | None,
-                cache: dict | None, decode: bool,
+                cache: dict | None, decode: bool, off=None, verify: bool = False,
                 provider=None) -> tuple[torch.Tensor, dict | None]:
     """A norm-mixer-MLP block's first half: (the mixer's output to add to
-    the residual stream x, cache written)."""
-    xn = apply_norm(p["ln1"], x, cfg.norm)
+    the residual stream x, cache written).  ``off`` (an int) selects the
+    chunked-prefill attention path; ``verify`` reads ``off`` as per-lane
+    (B,) offsets of the speculative verify path (attention only)."""
+    if kind == "R" and verify:
+        raise ValueError("speculative verify does not support recurrent layers")
+    xn = _norm(p["ln1"], cfg, x, verify)
     if kind == "R":
         return rec.griffin_block(p["rnn"], cfg, xn, cache=cache, provider=provider)
     if decode:
         return attn.attn_decode(p["attn"], cfg, xn, kind, pos=pos, cache=cache,
                                 provider=provider)
+    if verify:
+        return attn.attn_verify(p["attn"], cfg, xn, kind, off=off, cache=cache,
+                                provider=provider)
+    if off is not None:
+        return attn.attn_chunk(p["attn"], cfg, xn, kind, positions=positions, off=off,
+                               cache=cache, provider=provider)
     return attn.attn_forward(p["attn"], cfg, xn, kind, positions=positions, cache=cache,
                              provider=provider)
 
 
-def ffn_input(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def ffn_input(p: dict, cfg: ArchConfig, x: torch.Tensor, verify: bool = False) -> torch.Tensor:
     """What the block's MLP or MoE reads from the residual stream x."""
-    return apply_norm(p["ln2"], x, cfg.norm)
+    return _norm(p["ln2"], cfg, x, verify)
 
 
-def apply_ffn(p: dict, cfg: ArchConfig, x: torch.Tensor,
-              provider=None) -> tuple[torch.Tensor, torch.Tensor]:
+def apply_ffn(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
+              verify: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """A norm-mixer-MLP block's second half: (the MLP's or MoE's output to
     add to the residual stream x, aux loss)."""
-    xn = ffn_input(p, cfg, x)
+    xn = ffn_input(p, cfg, x, verify)
     if "moe" in p:
         return mlpm.moe_apply(p["moe"], cfg, xn, provider=provider)
     return (mlpm.mlp_apply(p["mlp"], cfg, xn, provider=provider),
@@ -88,18 +111,21 @@ def apply_ffn(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 def apply_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
                 positions: torch.Tensor | None, pos: torch.Tensor | None,
-                cache: dict | None, decode: bool,
+                cache: dict | None, decode: bool, off=None, verify: bool = False,
                 provider=None) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """Returns (x, cache written, aux loss).  Recurrent blocks carry their
-    state through ``cache`` at prefill and decode alike; the aux loss is the
-    MoE load-balance loss, zero for any other block."""
+    state through ``cache`` at prefill, chunked prefill and decode alike, so
+    they need no chunk path; the aux loss is the MoE load-balance loss, zero
+    for any other block.  ``off`` and ``verify``: see :func:`apply_mixer`."""
     if kind == "R" and cfg.family == "ssm":  # rwkv blocks apply their own norms
+        if verify:
+            raise ValueError("speculative verify does not support recurrent layers")
         x, c = rec.rwkv_block(p, cfg, x, cache=cache, provider=provider)
         return x, c, torch.zeros((), dtype=torch.float32, device=x.device)
     a, c = apply_mixer(p, cfg, kind, x, positions=positions, pos=pos, cache=cache, decode=decode,
-                       provider=provider)
+                       off=off, verify=verify, provider=provider)
     x = x + a
-    y, aux = apply_ffn(p, cfg, x, provider=provider)
+    y, aux = apply_ffn(p, cfg, x, provider=provider, verify=verify)
     return x + y, c, aux
 
 
@@ -145,15 +171,18 @@ def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _stack_pass(params: dict, cfg: ArchConfig, h: torch.Tensor, *, positions: torch.Tensor,
-                caches: list | None,
+                caches: list | None, off=None, verify: bool = False,
                 provider=None) -> tuple[torch.Tensor, list | None, torch.Tensor]:
-    """All layers; returns (h, caches written, the layers' summed aux loss)."""
+    """All layers; returns (h, caches written, the layers' summed aux loss).
+    ``off`` (with caches) runs the chunked-prefill path, ``verify`` the
+    speculative verify path (``off`` per lane)."""
     new = [] if caches is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, kind in enumerate(cfg.layer_kinds):
         c_in = caches[j] if caches is not None else None
         h, c_out, a = apply_block(params["layers"][j], cfg, kind, h, positions=positions,
-                                  pos=None, cache=c_in, decode=False, provider=provider)
+                                  pos=None, cache=c_in, decode=False, off=off, verify=verify,
+                                  provider=provider)
         aux = aux + a
         if new is not None:
             new.append(c_out)
@@ -221,6 +250,48 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *, max_len: int,
     cache = {"layers": layers,
              "t": torch.full((b,), t, dtype=torch.int32, device=h.device)}
     return logits[:, 0, :], cache
+
+
+def prefill_chunk(params: dict, cfg: ArchConfig, cache: dict, tokens: torch.Tensor, off: int,
+                  provider=None) -> tuple[torch.Tensor, dict]:
+    """One prompt chunk against a partially filled cache: ``tokens`` (B, C)
+    cover absolute positions ``off .. off+C-1``.  Returns (last-position
+    logits (B, V), cache); attention caches are written in place, recurrent
+    layers return fresh state, ``t`` becomes ``off + C``.  Successive chunks
+    from ``off = 0`` compute what one :func:`prefill` of the whole prompt
+    does."""
+    _check_supported(cfg)
+    off = int(off)
+    h = _embed(params, cfg, tokens)
+    b, s, _ = h.shape
+    positions = off + _positions(b, s, h.device)
+    h, layers, _ = _stack_pass(params, cfg, h, positions=positions, caches=cache["layers"],
+                               off=off, provider=provider)
+    h_last = apply_norm(params["final_norm"], h[:, -1:, :], cfg.norm)
+    logits = _lm_head(params, cfg, h_last, provider=provider)
+    t = torch.full((b,), off + s, dtype=torch.int32, device=h.device)
+    return logits[:, 0, :], {"layers": layers, "t": t}
+
+
+def verify_step(params: dict, cfg: ArchConfig, cache: dict, tokens: torch.Tensor,
+                off: torch.Tensor, provider=None) -> tuple[torch.Tensor, dict]:
+    """Speculative verify: ``tokens`` (B, C), the pending token and the
+    draft burst, at per-lane absolute offsets ``off`` (B,).  Returns logits
+    at every position (B, C, V) and the cache with all C rows written
+    (rejected rows are hidden by the validity masks until overwritten).
+    Every norm and attention runs once per position at decode's shapes, and
+    the projections take the matmul's rows body, whose bits do not depend
+    on M: logits at an accepted position are plain decode's, bit for bit."""
+    _check_supported(cfg)
+    h = _embed(params, cfg, tokens)
+    b, s, _ = h.shape
+    off = torch.broadcast_to(torch.as_tensor(off, device=h.device).long(), (b,))
+    positions = off[:, None] + torch.arange(s, device=h.device)
+    h, layers, _ = _stack_pass(params, cfg, h, positions=positions, caches=cache["layers"],
+                               off=off, verify=True, provider=provider)
+    h = _norm(params["final_norm"], cfg, h, verify=True)
+    logits = _lm_head(params, cfg, h, provider=provider)
+    return logits, {"layers": layers, "t": (off + s).to(torch.int32)}
 
 
 def decode_step(params: dict, cfg: ArchConfig, cache: dict, tokens: torch.Tensor,

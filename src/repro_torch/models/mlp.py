@@ -55,11 +55,16 @@ CAPACITY_FACTOR = 1.25
 def moe_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     dt = dtype_of(cfg.dtype)
-    return {
-        "router": dense_init(gen, d, e, torch.float32),                      # router kept f32
-        "w_in": torch.stack([glu_init(gen, d, f, dt) for _ in range(e)]),    # (E, D, 2F) interleaved
-        "w_out": torch.stack([dense_init(gen, f, d, dt) for _ in range(e)]),  # (E, F, D)
-    }
+    # each stack is allocated once and filled expert by expert, so no list
+    # of experts is alive beside it
+    router = dense_init(gen, d, e, torch.float32)                             # router kept f32
+    w_in = torch.empty((e, d, 2 * f), dtype=dt, device=gen.device)           # (E, D, 2F) interleaved
+    for i in range(e):
+        glu_init(gen, d, f, dt, out=w_in[i])
+    w_out = torch.empty((e, f, d), dtype=dt, device=gen.device)              # (E, F, D)
+    for i in range(e):
+        w_out[i] = dense_init(gen, f, d, dt)
+    return {"router": router, "w_in": w_in, "w_out": w_out}
 
 
 def moe_route(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -82,7 +87,7 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
 
     The reference pins the dispatch buffer's and the output's sharding with
     ``constrain_named``; on one device that does nothing, so it is left out
-    until the port is distributed (ROADMAP A.8)."""
+    until the port is distributed (ROADMAP A.9)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_topk
     t = b * s

@@ -49,6 +49,9 @@ class Request:
     eos_id: int | None = None
     generated: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # speculative decode (paged engine only; the slot engine ignores both)
+    speculative: bool = False
+    request_class: str = ""
 
 
 class ServingEngine:

@@ -568,3 +568,116 @@ def test_measured_runner_random_schedules_match_plain(card, class_id):
             _close(g, w, TOL)
         assert runner.measure(inst, sched).seconds > 0
         checked += 1
+
+
+# ---------------------------------------------------------------------------
+# The paged engine, chunked prefill and speculative verify on the card
+# ---------------------------------------------------------------------------
+
+
+def _paged_run(model, params, prompts, fragment):
+    from repro_torch.serving import PagedServingEngine
+
+    eng = PagedServingEngine(model, params, decode_batch=len(prompts), max_ctx=64, page_size=4,
+                             chunk=8, record_logits=True)
+    if fragment:   # shred the free list before any real allocation
+        for i in range(20):
+            eng.table.ensure(900 + i, 4)
+        for i in range(0, 20, 2):
+            eng.table.release(900 + i)
+    reqs = [eng.add_request(p, max_new_tokens=6) for p in prompts]
+    eng.run_to_completion(max_steps=512)
+    assert all(r.done and len(r.generated) == 6 for r in reqs)
+    return [r.generated for r in reqs], [eng.chunk_logits[r.uid] for r in reqs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_engine_fragmented_pool_is_bit_exact(card, dtype):
+    """Reduced minitron-4b on the card: a shredded pool against a fresh one
+    gives the same tokens and the same final-chunk logits, bit for bit, and
+    the chunks reach the flash-attention kernel at q_offset > 0."""
+    import numpy as np
+
+    cfg = dataclasses.replace(reduced(get_arch("minitron-4b")), dtype=dtype)
+    model = build_model(cfg, card)
+    params = model.init(seed=0)
+    rng = np.random.default_rng(5)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, size=n)] for n in (3, 19, 30, 11)]
+    fa.reset_launches()
+    toks, logits = _paged_run(model, params, prompts, fragment=False)
+    assert fa.offset_launches > 0
+    ftoks, flogits = _paged_run(model, params, prompts, fragment=True)
+    assert ftoks == toks
+    assert all(np.array_equal(a, b) for a, b in zip(logits, flogits))
+
+
+@pytest.mark.parametrize("c,q_offset", [(64, 0), (64, 64), (64, 256), (64, 448), (53, 128),
+                                        (16, 300), (1, 511)])
+def test_flash_attention_at_chunk_shapes_matches_plain(card, c, q_offset):
+    """K2 at the paged engine's chunk shapes (minitron-4b: 24 query heads
+    over 8, D = 128, the chunk against a 512-row cache) at run-time
+    q_offsets, bf16, against the plain version; the prime 53-row chunk
+    takes 1-row Q tiles."""
+    g = torch.Generator(device="cuda").manual_seed(c + q_offset)
+    q = torch.randn((1, 24, c, 128), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((1, 8, 512, 128), generator=g, device="cuda").bfloat16() for _ in range(2))
+    got = ops.flash_attention(q, k, v, q_offset=q_offset)
+    want = ref.chunked_attention(q, k, v, q_offset=q_offset)
+    _close(got, want, BF16_TOL)
+
+
+@pytest.mark.parametrize("k,n", [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072)])
+def test_k1_rows_at_verify_m_take_decode_bits(card, k, n):
+    """The batched verify's projections (M = 4 lanes x 4 positions = 16
+    rows) and decode's (M = 4): each row's bits are the same."""
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    x = torch.randn((16, k), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((k, n), generator=g, device="cuda") / k ** 0.5).bfloat16()
+    sixteen = ops.matmul(x, w)
+    for i in range(0, 16, 4):
+        assert torch.equal(ops.matmul(x[i:i + 4].contiguous(), w), sixteen[i:i + 4])
+
+
+def test_verify_attention_takes_decode_bits(card):
+    """The plain verify attention on the card: every position's output is
+    the decode attention's with that position's mask, bit for bit."""
+    from repro_torch.models import attention as attn
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((4, 24, 4, 128), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((4, 8, 512, 128), generator=g, device="cuda").bfloat16() for _ in range(2))
+    pos = torch.tensor([100, 231, 356, 507], device="cuda")[:, None] + torch.arange(4, device="cuda")
+    pos = pos.clamp(max=511)
+    ok = torch.arange(512, device="cuda")[None, None, :] <= pos[:, :, None]
+    out = attn._masked_verify_attention(q, k, v, ok)
+    for j in range(4):
+        want = attn._masked_decode_attention(q[:, :, j:j + 1].contiguous(), k, v, ok[:, j])
+        assert torch.equal(out[:, :, j:j + 1], want)
+
+
+def test_verify_step_logits_are_decode_logits(card):
+    """Reduced minitron-4b in bf16 on the card: four lanes at different
+    offsets, four verify positions in one ``verify_step``, against four
+    ``decode_step`` calls feeding the same tokens: the logits at every
+    position are equal, bit for bit."""
+    cfg = dataclasses.replace(reduced(get_arch("minitron-4b")), dtype="bfloat16")
+    model = build_model(cfg, card)
+    params = model.init(seed=1)
+    g = torch.Generator().manual_seed(2)
+    lens = (5, 9, 14, 20)
+    cache = model.init_cache(4, 64)
+    for lane, n in enumerate(lens):
+        toks = torch.randint(1, cfg.vocab_size, (1, n), generator=g).to(card)
+        _, one = model.prefill(params, {"tokens": toks}, max_len=64)
+        for full, part in zip(cache["layers"], one["layers"]):
+            for key in full:
+                full[key][lane:lane + 1] = part[key]
+    cache["t"] = torch.tensor(lens, dtype=torch.int32, device=card)
+    feed = torch.randint(1, cfg.vocab_size, (4, 4), generator=g).to(card)
+    dec = {"layers": [{k: v.clone() for k, v in layer.items()} for layer in cache["layers"]],
+           "t": cache["t"].clone()}
+    logits, _ = model.verify_step(params, cache, feed, cache["t"].long())
+    for j in range(4):
+        step, dec = model.decode_step(params, dec, feed[:, j])
+        torch.cuda.synchronize()
+        assert torch.equal(logits[:, j], step), j
