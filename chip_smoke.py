@@ -128,7 +128,21 @@ toolkit.  Phases, one result line each:
    three regimes (all-accept, all-reject, partial), each against plain
    paged decode on the same target (``phase_spec``).  It prints committed
    tokens per burst, ms per burst beside plain ms per step, and the K1
-   bodies the verify launches took.
+   bodies the verify launches took;
+12. fleet — the serving fleet (``repro_torch.fleet``) at minitron-4b's full
+   width and depth on its virtual clock, read from the port's kernels timed
+   on the card (the ``h100`` target: ``CachedRunner(MeasuredRunner())``),
+   through a registry of the tuning phase's donor records, on the seeded
+   trace of 16 requests (32-356-token prompts, 8-16 new tokens): run A, two
+   slot replicas of 4 slots, plan-aware routing, prefetch, default SLOs, a
+   tracer; run B, one paged replica, speculative ``auto`` over a 2-layer
+   self-draft (``phase_fleet``: its checks are listed there).  It prints
+   per run the virtual latencies, TTFT and throughput beside the wall
+   seconds and their ratio, the measured runner's timings and their wall
+   seconds, the service's jobs, each replica's tiers before and after, the
+   speedup ledger (A) or the acceptance per class (B), the critical path
+   ``trace_report`` attributes, the launches per kernel and body, and the
+   phase's peak memory.
 The chunk shapes of the paged path (K2: a 64-row chunk at q_offset 256 of a
 512-row cache; K1: 64x3072x3072 on the tensor cores) are timed after the
 grouped phase beside their plain versions, SDPA given the same boolean mask
@@ -2459,6 +2473,296 @@ def phase_spec(torch) -> dict:
     return out
 
 
+#: the fleet phase: the seeded trace (the reference's TrafficGenerator
+#: parameters) at full-size prompts, run A's slot fleet and run B's paged
+#: speculative one, and the self-draft's residual damping in run B (the
+#: launcher's default, ``serve_fleet --spec-damp``)
+FLEET_TRAFFIC = dict(seed=0, arrival_rate=0.5, short_lens=(32, 128), long_lens=(181, 356),
+                     long_frac=0.25, new_tokens=(8, 16), prompt_cap=356)
+FLEET_REQUESTS = 16
+FLEET_MAX_LEN = 512
+FLEET_A = dict(replicas=2, slots=4, policy="plan_aware", prefetch=True, slos="default")
+FLEET_B = dict(replicas=1, engine="paged", speculative="auto", spec_k=SPEC_K,
+               **{k: v for k, v in PAGED.items() if k != "max_ctx"})
+FLEET_CLASS_MIX = {"chat": 0.7, "bulk": 0.3}
+FLEET_DAMP = 0.02
+
+
+class RunnerProbe:
+    """A fleet's measured runner, watched: how many timings it made and
+    their wall seconds, the kernel launches they made (kept out of the
+    serving path's counts), and the launch keys of any timing made while an
+    engine call ran (``in_steps``: the fleet must time between steps only)."""
+
+    def __init__(self, torch, measured):
+        from repro_torch.kernels import matmul as mm
+        from repro_torch.launch import serve
+
+        self.timings, self.wall_s, self.in_steps, self.depth = 0, 0.0, [], 0
+        self.launches, self.bodies = collections.Counter(), collections.Counter()
+        real = measured._seconds
+
+        def seconds(cs):
+            n0 = measured.stats.measurements
+            l0, b0 = collections.Counter(serve.kernel_launches()), collections.Counter(body_counts(mm))
+            t0 = time.monotonic()
+            out = real(cs)
+            if measured.stats.measurements != n0:
+                self.timings += 1
+                self.wall_s += time.monotonic() - t0
+                self.launches += collections.Counter(serve.kernel_launches()) - l0
+                self.bodies += collections.Counter(body_counts(mm)) - b0
+                if self.depth:
+                    self.in_steps.append(list(measured.launch_key(cs)))
+            return out
+
+        measured._seconds = seconds
+
+    def watch(self, engine) -> None:
+        for name in ("add_request", "step"):
+            real = getattr(engine, name)
+
+            def call(*args, _real=real, **kw):
+                self.depth += 1
+                try:
+                    return _real(*args, **kw)
+                finally:
+                    self.depth -= 1
+
+            setattr(engine, name, call)
+
+    def snapshot(self) -> tuple:
+        return self.timings, self.wall_s, collections.Counter(self.launches), \
+            collections.Counter(self.bodies)
+
+
+def fleet_run(torch, name: str, model, params, db, bound: float, srv_alone, **kw) -> dict:
+    """One fleet run at the h100 target through a registry seeded with the
+    tuning phase's donor records: the seeded trace served, its checks, and
+    the row printed.  ``srv_alone(prompt, n)`` serves one prompt alone on an
+    engine of the same kind and weights (default schedules) and returns its
+    tokens.  The launch counts are the serve's, set to 0 just before it and
+    read just after, the measured runner's own launches taken out."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.fleet import ServingFleet, TrafficGenerator, percentile
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import serve, trace_report
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.export import write_chrome_trace
+    from repro_torch.service import ScheduleRegistry
+
+    t_run = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="fleet-") as root:
+        registry = ScheduleRegistry(f"{root}/registry")
+        registry.merge_db(db)
+        tracer = Tracer()
+        t0 = time.monotonic()
+        fleet = ServingFleet(model.cfg, model, params, max_len=FLEET_MAX_LEN, registry=registry,
+                             targets="h100", tracer=tracer, **kw)
+        build_s = time.monotonic() - t0
+        runner = fleet.runner_for("h100")
+        measured = runner.inner
+        if type(measured).__name__ != "MeasuredRunner" or fleet.services["h100"].runner is not \
+                runner or any(r._runner is not runner for r in fleet.replicas):
+            raise AssertionError(f"fleet {name}: the h100 target is not priced by one shared "
+                                 f"MeasuredRunner: {type(measured).__name__}")
+        probe = RunnerProbe(torch, measured)
+        for r in fleet.replicas:
+            probe.watch(r.engine)
+        build_timings = measured.stats.measurements
+        tiers_before = [r.engine.plan.tier_counts() for r in fleet.replicas]
+        gen = TrafficGenerator(vocab_size=model.cfg.vocab_size, tick_s=fleet.tick_s,
+                               class_mix=FLEET_CLASS_MIX if kw.get("speculative") else None,
+                               **FLEET_TRAFFIC)
+        trace = gen.trace(FLEET_REQUESTS)
+        prompts = {r.uid: (r.prompt, r.max_new_tokens) for r in trace}
+
+        for kmod in (mm, fa, rw, rg):
+            kmod.reset_launches()
+        before = probe.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        try:
+            summary = fleet.serve(trace)
+        finally:
+            fleet.close()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        after = probe.snapshot()
+        runner_launches = after[2] - before[2]
+        launches = {k: v - runner_launches[k] for k, v in serve.kernel_launches().items()}
+        bodies = dict(collections.Counter(body_counts(mm)) - (after[3] - before[3]))
+        trace_path = f"{root}/trace.json"
+        write_chrome_trace(trace_path, tracer)
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = trace_report.main([trace_path, "--json"])
+
+    # every request completed, or shed for a reason the summary gives
+    shed = {fr.uid: fr.shed for fr in fleet.metrics.shed}
+    if summary["completed"] + summary["shed"] != FLEET_REQUESTS or any(
+            not why for why in shed.values()) or sum(summary["shed_by_reason"].values()) != \
+            summary["shed"]:
+        raise AssertionError(f"fleet {name}: {summary['completed']} completed, shed {shed}, "
+                             f"by reason {summary['shed_by_reason']}")
+    if summary["schedule_mismatches"]:
+        raise AssertionError(f"fleet {name}: {summary['schedule_mismatches']} schedule mismatches")
+    if probe.in_steps:
+        raise AssertionError(f"fleet {name}: the measured runner timed {probe.in_steps} while an "
+                             "engine call ran")
+    if min(launches.get(k, 0) for k in ("matmul", "flash_attention")) <= 0:
+        raise AssertionError(f"fleet {name}: the served path did not launch K1 and K2: {launches}")
+    if mm.body_count("fma", dtype=torch.bfloat16) or fa.body_count("fma", dtype=torch.bfloat16):
+        raise AssertionError(f"fleet {name}: a bf16 launch took a CUDA-core body: {bodies}")
+    cp = report["critical_path"]
+    if report["latency"]["requests"] != summary["completed"] or cp["attributed_frac"] != 1.0:
+        raise AssertionError(f"fleet {name}: trace_report attributes {cp['attributed_frac']} of "
+                             f"the critical path over {report['latency']['requests']} requests")
+
+    # each completed request's tokens against the same engine serving its
+    # prompt alone; a parting is allowed only at a near-tie (top-2 margin
+    # below the serve phase's logits bound): a replica that re-planned
+    # mid-stream may sum a projection on another K1 body than the defaults
+    t0 = time.monotonic()
+    divergences = []
+    for fr in sorted(fleet.metrics.completed, key=lambda r: r.uid):
+        prompt, n = prompts[fr.uid]
+        want = srv_alone(prompt, n)
+        if len(fr.generated) != n:
+            raise AssertionError(f"fleet {name}: request {fr.uid} made {len(fr.generated)} of "
+                                 f"{n} tokens")
+        div = first_divergence(torch, model, params, prompt, want, fr.generated)
+        if div is not None:
+            div.update(uid=fr.uid, prompt_len=len(prompt), bound=bound)
+            divergences.append(div)
+    alone_s = time.monotonic() - t0
+    log(f"fleet_{name}_streams", compared=summary["completed"], divergences=divergences,
+        rule=f"a parting allowed only where the top-2 margin is below {bound}", alone_s=alone_s)
+    if any(d["margin"] >= bound for d in divergences):
+        raise AssertionError(f"fleet {name}: a stream leaves the alone run's: {divergences}")
+
+    done = fleet.metrics.completed
+    ttft = [fr.prefill_done_s - fr.arrival_s for fr in done]
+    virtual = summary["makespan_s"]
+    row = {"run": name, "engine": summary["engine"], "replicas": len(fleet.replicas),
+           "requests": FLEET_REQUESTS, "completed": summary["completed"],
+           "shed_by_reason": summary["shed_by_reason"], "tokens": summary["tokens"],
+           "tick_s": summary["tick_s"], "virtual_s": virtual, "wall_s": wall,
+           "wall_over_virtual": wall / virtual,
+           "latency_s": summary["latency_s"],
+           "ttft_s": {"p50": percentile(ttft, 50), "p95": percentile(ttft, 95)},
+           "throughput_tok_per_s_virtual": summary["throughput_tok_per_s"],
+           "throughput_tok_per_s_wall": summary["tokens"] / wall,
+           "runner": {"build_timings": build_timings, "timings": after[0],
+                      "serve_timings": after[0] - before[0], "timing_wall_s": after[1],
+                      "serve_timing_wall_s": after[1] - before[1], "in_steps": 0,
+                      "launches": dict(after[2])},
+           "tuning": {k: summary["tuning"]["h100"][k]
+                      for k in ("lookups", "exact_hits", "transfer_hits", "default_misses",
+                                "jobs_enqueued", "jobs_completed", "upgrades", "in_flight",
+                                "search_seconds_spent")},
+           "tiers_before": tiers_before,
+           "tiers_after": [r["plan_tiers"] for r in summary["replicas"]],
+           "replans": [r["replans"] for r in summary["replicas"]],
+           "schedule_mismatches": summary["schedule_mismatches"],
+           "critical_path": {"segments": cp["segments"], "attributed_frac": cp["attributed_frac"]},
+           "launches": launches, "body_launches": bodies, "divergences": divergences,
+           "build_s": build_s, "alone_s": alone_s, "run_s": time.monotonic() - t_run}
+    if "speedup_ledger" in summary:
+        row["speedup_ledger"] = {k: summary["speedup_ledger"][k]
+                                 for k in ("workloads", "tuned_workloads", "realized_speedup",
+                                           "attainable_speedup", "realized_fraction", "tiers")}
+    if "speculative" in summary:
+        # the admit-time decision's inputs: the cells' measured kernel ms and
+        # the projected gain at the acceptance prior (auto speculates above 1)
+        prior = summary["speculative"]["acceptance"]["prior_alpha"]
+        row["speculative"] = {
+            "counters": summary["speculative"]["counters"],
+            "acceptance": summary["speculative"]["acceptance"],
+            "cells_ms": [{"decode": 1e3 * r.decode_cost(), "verify": 1e3 * r.verify_cost(),
+                          "draft_decode": 1e3 * r.draft_decode_cost(),
+                          "gain_at_prior": r.spec_gain(prior),
+                          "verify_top": [[u.instance.class_id, dict(u.instance.params),
+                                          u.use_count, 1e3 * s] for u, s in sorted(
+                              r.cell_workload_seconds("verify"), key=lambda us: -us[1])[:4]]}
+                         for r in fleet.replicas if r.spec_capable]}
+    if "slo" in summary:
+        row["slo"] = {k: {f: v[f] for f in ("alerting_windows", "evaluations", "alerting_now")}
+                      for k, v in summary["slo"].items()}
+    log(f"fleet_{name}", **row)
+    del fleet, tracer, probe
+    free_engines(torch)
+    return row
+
+
+def phase_fleet(torch, db, srv: list) -> list:
+    """The serving fleet (``repro_torch.fleet``) at minitron-4b's full width
+    and depth, bf16, random weights from seed 0, on its virtual clock read
+    from the port's kernels timed on the card (the ``h100`` target:
+    ``CachedRunner(MeasuredRunner())``, one per target), through a registry
+    of the tuning phase's donor records: FLEET_REQUESTS requests of the
+    seeded trace (FLEET_TRAFFIC: 32-356-token prompts, 8-16 new tokens).
+    Run A: two slot replicas of 4 slots sharing one copy of the weights,
+    plan-aware routing, demand-driven prefetch, default SLOs, a tracer.
+    Run B: one paged replica (4 lanes, pages of 16, chunks of 64, two a
+    step), speculative ``auto`` over a 2-layer self-draft, spec_k 3,
+    chat/bulk traffic.  Checks in each (``fleet_run``): every request
+    completed or shed for a reason given; 0 schedule mismatches; the
+    measured runner never timed while an engine call ran; K1 and K2
+    launched, no bf16 launch on a CUDA-core body; ``trace_report`` over the
+    run's Chrome trace attributes 100% of the critical path; each request's
+    tokens equal its prompt served alone, or part at a near-tie."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serving import PagedServingEngine, ServingEngine, make_self_draft
+
+    t_phase = time.monotonic()
+    cfg = get_arch("minitron-4b")
+    bound = next(r for r in srv if r["arch"] == cfg.name)["logits_bound"]
+    free_engines(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, "cuda")
+    params = model.init(seed=0)
+
+    slot = ServingEngine(model, params, slots=FLEET_A["slots"], max_len=FLEET_MAX_LEN)
+
+    def slot_alone(prompt, n):
+        req = slot.add_request(prompt, max_new_tokens=n)
+        slot.run_to_completion()
+        return req.generated
+
+    rows = [fleet_run(torch, "A", model, params, db, bound, slot_alone, **FLEET_A)]
+    del slot
+    free_engines(torch)
+
+    dcfg, dparams, tparams = make_self_draft(cfg, params, keep_layers=SPEC_KEEP,
+                                             damp=FLEET_DAMP)
+    paged = PagedServingEngine(model, tparams, max_ctx=FLEET_MAX_LEN,
+                               **{k: v for k, v in PAGED.items() if k != "max_ctx"})
+
+    def paged_alone(prompt, n):
+        req = paged.add_request(prompt, max_new_tokens=n)
+        paged.run_to_completion()
+        return req.generated
+
+    rows.append(fleet_run(torch, "B", model, tparams, db, bound, paged_alone,
+                          draft_model=build_model(dcfg, "cuda"), draft_params=dparams,
+                          **FLEET_B))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for row in rows:
+        row["phase_peak_gib"] = peak
+    log("fleet", runs=[r["run"] for r in rows], peak_gib=peak,
+        phase_s=time.monotonic() - t_phase)
+    del paged, model, params, tparams, dparams
+    free_engines(torch)
+    return rows
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -2500,7 +2804,9 @@ def main(argv: list[str]) -> int:
     tuned = phase_serve_tuned(torch, tuned_db, next(r for r in srv if r["arch"] == TUNED_ARCH))
     paged = phase_paged(torch, srv)
     spec = phase_spec(torch)
-    paths = {"slot": srv, "paged": paged, "spec": [spec]}   # main-path runs, counts read apart
+    fleet = phase_fleet(torch, tuned_db, srv)
+    # main-path runs, counts read apart
+    paths = {"slot": srv, "paged": paged, "spec": [spec], "fleet": fleet}
 
     def count(r, name, body=None):   # one run's launches of a kernel (of one body)
         if body is None:

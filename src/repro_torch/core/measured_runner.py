@@ -51,7 +51,7 @@ import time
 import torch
 
 from repro_torch.core.cost_model import Measurement
-from repro_torch.core.runner import MEASURED_TARGETS, MeasureRunner
+from repro_torch.core.runner import MEASURED_TARGETS, AnalyticalRunner, CachedRunner, MeasureRunner
 from repro_torch.core.schedule import (
     REDUCTION_AXIS,
     ConcreteSchedule,
@@ -66,7 +66,7 @@ from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as rw
-from repro_torch.targets import resolve_target
+from repro_torch.targets import resolve_target, target_name
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: timed runs per launch, after one warm-up run: their median is the time
@@ -299,3 +299,19 @@ class MeasuredRunner(MeasureRunner):
         ch = p["C"]
         return (randn(b, t, ch).to(dt), torch.sigmoid(randn(b, t, ch)).to(dt),
                 torch.zeros((b, ch), device=dev))
+
+
+def target_runner(target, device: str | torch.device = "cuda") -> CachedRunner:
+    """The runner that prices ``target``'s kernels for serving:
+    ``CachedRunner(AnalyticalRunner(target))`` for a modelled target, as the
+    reference prices every target, and ``CachedRunner(MeasuredRunner(target=
+    target))`` for a measured one (``h100``), which times the port's kernels
+    on the card.  A measured target served from ``device`` other than the
+    card raises: a CPU time never wears the card's name."""
+    name = target_name(target)
+    if name not in MEASURED_TARGETS:
+        return CachedRunner(AnalyticalRunner(name))
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"target {name!r} is timed on the card: serve it on the card, or "
+                         "name a modelled target (e.g. tpu-v5e) on the CPU")
+    return CachedRunner(MeasuredRunner(target=name))

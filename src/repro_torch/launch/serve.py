@@ -58,7 +58,9 @@ import torch
 
 from repro_torch.configs.base import ARCH_IDS, get_arch, reduced
 from repro_torch.core.database import ScheduleDB
-from repro_torch.core.runner import MEASURED_TARGETS, CachedRunner
+from repro_torch.core.measured_runner import target_runner
+from repro_torch.core.runner import MEASURED_TARGETS
+from repro_torch.fleet.traffic import sample_prompts
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import rglru_scan as rg
@@ -70,15 +72,6 @@ from repro_torch.targets import DEFAULT_TARGET, list_targets
 
 #: the target served when none is given, per device
 DEFAULT_TARGETS = {"cuda": "h100", "cpu": DEFAULT_TARGET}
-
-
-def sample_prompts(rng: np.random.Generator, n: int, vocab_size: int, *,
-                   lo: int = 3, hi: int = 8) -> list[list[int]]:
-    """``n`` random-token prompts with uniform[lo, hi] lengths (a copy of
-    ``repro.fleet.traffic.sample_prompts``: same seed, same prompts)."""
-    return [[int(t) for t in rng.integers(1, vocab_size,
-                                          size=int(rng.integers(lo, hi + 1)))]
-            for _ in range(n)]
 
 
 def make_provider(args) -> tuple[ScheduleProvider, object | None]:
@@ -114,13 +107,9 @@ def make_provider(args) -> tuple[ScheduleProvider, object | None]:
     if args.tuning_registry:
         from repro_torch.service import ScheduleRegistry, TuningService
 
-        runner = None
-        if measured:
-            from repro_torch.core.measured_runner import MeasuredRunner
-
-            runner = CachedRunner(MeasuredRunner(target=args.target))
         registry = ScheduleRegistry(args.tuning_registry)
-        service = TuningService(registry, model_id=f"serve/{args.arch}", runner=runner,
+        service = TuningService(registry, model_id=f"serve/{args.arch}",
+                                runner=target_runner(args.target, args.device),
                                 max_workers=workers, budget_s=args.tuning_budget_s,
                                 target=args.target, donor_target=args.tuning_donor_target)
     return ScheduleProvider(schedule_map, service=service, target=args.target), service
@@ -216,7 +205,7 @@ def main(argv=None) -> dict:
               "tokens": toks, "tok_per_s": toks / dt, "target": args.target,
               "schedule_hits": provider.hits, "schedule_misses": provider.misses,
               "resolution": provider.stats(), "replans": engine.replans,
-              "prefill_shapes": engine.prefill_shape_count,
+              "prefill_shapes": engine.prefill_trace_count,
               "kernel_launches": launches}
     if engine.plan is not None:
         result["plan"] = {"entries": len(engine.plan), "generation": engine.plan.generation,

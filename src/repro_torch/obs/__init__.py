@@ -1,8 +1,10 @@
-"""Observability: the tracer and the metrics registry, copies of
-``repro.obs.tracer`` and ``repro.obs.metrics`` (the port imports nothing of
-``repro``).  The resolution pipeline and the tuning service record through
-them; the rest of ``repro.obs`` (export, SLOs, the speedup ledger, the
-profiler report) is not ported yet.
+"""Unified observability: virtual-clock tracing, metrics, trace export.
+
+Copies of ``repro.obs``'s modules (the port imports nothing of ``repro``).
+Producers record through a :class:`Tracer` (default :data:`NULL_TRACER`, a
+no-op costing one attribute check) and a :class:`MetricsRegistry`;
+consumers export Chrome trace-event JSON for Perfetto or JSON-lines for
+``launch/trace_report.py``.  See DESIGN.md §10 and §12.
 """
 from .metrics import (
     Counter,
@@ -14,9 +16,24 @@ from .metrics import (
     percentile,
 )
 from .tracer import NULL_TRACER, Event, NullTracer, Span, Tracer
+from .export import (
+    chrome_trace,
+    load_records,
+    read_jsonl,
+    write_chrome_trace,
+    write_jsonl,
+)
+from .slo import KINDS, SLO, SLOMonitor, SLOStatus, default_slos
+from .ledger import LedgerEntry, SpeedupLedger
+from . import report
+from . import profiler
 
 __all__ = [
     "Counter", "CounterGroup", "Gauge", "Histogram", "MetricsRegistry",
     "default_registry", "percentile",
     "NULL_TRACER", "Event", "NullTracer", "Span", "Tracer",
+    "chrome_trace", "load_records", "read_jsonl", "write_chrome_trace",
+    "write_jsonl", "report", "profiler",
+    "KINDS", "SLO", "SLOMonitor", "SLOStatus", "default_slos",
+    "LedgerEntry", "SpeedupLedger",
 ]

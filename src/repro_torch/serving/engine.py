@@ -80,9 +80,13 @@ class ServingEngine:
         self.prefill_padded_tokens = 0
 
         # observability: the owner rebinds these after construction; the
-        # no-op default keeps the hot path at one attribute check
+        # no-op default keeps the hot path at one attribute check.
+        # trace_compute gates the wall-clock spans around the model calls:
+        # a fleet turns it off (its tracer runs on the virtual clock, where a
+        # wall-clock compute span is noise)
         self.tracer = NULL_TRACER
         self.trace_track = "engine"
+        self.trace_compute = True
 
         # execution plan: pre-resolve the decode batch and the prefill buckets
         self.provider = provider
@@ -122,8 +126,9 @@ class ServingEngine:
         return out
 
     @property
-    def prefill_shape_count(self) -> int:
-        """Distinct prefill lengths run so far (bounded by the buckets)."""
+    def prefill_trace_count(self) -> int:
+        """Distinct prefill lengths run so far (bounded by the buckets); the
+        reference's name, where each length is one jit trace."""
         return len(self._prefill_lengths)
 
     def bucket_for(self, prompt_len: int) -> int:
@@ -173,7 +178,7 @@ class ServingEngine:
         self.prefill_padded_tokens += pad
         toks = torch.tensor([req.prompt + [0] * (pad - n)], dtype=torch.long,
                             device=self.model.device)
-        if self.tracer.enabled:
+        if self.tracer.enabled and self.trace_compute:
             with self.tracer.span("prefill", self.trace_track, uid=req.uid, true_len=n,
                                   bucket=pad):
                 logits, cache1 = self.model.prefill(self.params, {"tokens": toks},
@@ -234,7 +239,7 @@ class ServingEngine:
         toks = torch.zeros(self.slots, dtype=torch.long)
         for slot, req in self.active.items():
             toks[slot] = req.generated[-1]
-        if self.tracer.enabled:
+        if self.tracer.enabled and self.trace_compute:
             with self.tracer.span("decode_step", self.trace_track, active=len(self.active)):
                 logits, self.cache = self.model.decode_step(
                     self.params, self.cache, toks.to(self.model.device), provider=self.provider)

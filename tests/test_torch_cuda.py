@@ -681,3 +681,65 @@ def test_verify_step_logits_are_decode_logits(card):
         step, dec = model.decode_step(params, dec, feed[:, j])
         torch.cuda.synchronize()
         assert torch.equal(logits[:, j], step), j
+
+
+# ---------------------------------------------------------------------------
+# The fleet on the card: the virtual clock read from measured kernel times
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("engine", ["slot", "paged_spec"])
+def test_fleet_on_h100_serves_on_measured_seconds(card, tmp_path, engine):
+    """Two replicas of reduced minitron-4b (bf16) at the ``h100`` target,
+    slot engines or paged engines speculating over a 1-layer self-draft: the
+    runner shared by the service and both replicas is the measured one,
+    ``tick_s`` is measured device time above 0, every request completes, no
+    replica diverges, and the runner timed nothing while an engine call
+    ran."""
+    from repro_torch.core.measured_runner import MeasuredRunner
+    from repro_torch.fleet import ServingFleet, TrafficGenerator
+    from repro_torch.service import ScheduleRegistry
+    from repro_torch.serving import make_self_draft
+
+    cfg = dataclasses.replace(reduced(get_arch("minitron-4b")), dtype="bfloat16")
+    model = build_model(cfg, card)
+    params = model.init(seed=0)
+    kw = {}
+    if engine == "paged_spec":
+        dcfg, dparams, params = make_self_draft(cfg, params, keep_layers=1, damp=0.02)
+        kw = dict(engine="paged", decode_batch=2, page_size=4, chunk=8, speculative=True,
+                  draft_model=build_model(dcfg, card), draft_params=dparams, spec_k=3)
+    fleet = ServingFleet(cfg, model, params, replicas=2, slots=2, max_len=32,
+                         targets="h100", registry=ScheduleRegistry(str(tmp_path)),
+                         policy="plan_aware", prefetch=True, **kw)
+    runner = fleet.runner_for("h100")
+    measured = runner.inner
+    assert isinstance(measured, MeasuredRunner)
+    assert fleet.services["h100"].runner is runner
+    assert all(r._runner is runner for r in fleet.replicas)
+    assert fleet.tick_s > 0.0
+    in_steps = []
+    for r in fleet.replicas:
+        for name in ("add_request", "step"):
+            real = getattr(r.engine, name)
+
+            def call(*a, _real=real, **kw):
+                before = measured.stats.measurements
+                out = _real(*a, **kw)
+                in_steps.append(measured.stats.measurements - before)
+                return out
+
+            setattr(r.engine, name, call)
+    gen = TrafficGenerator(seed=0, vocab_size=cfg.vocab_size, arrival_rate=0.5,
+                           tick_s=fleet.tick_s, short_lens=(3, 8), long_lens=(9, 16),
+                           new_tokens=(2, 4), prompt_cap=16)
+    try:
+        summary = fleet.serve(gen.trace(8))
+    finally:
+        fleet.close()
+    assert summary["completed"] + summary["shed"] == 8 and summary["completed"] > 0
+    assert summary["schedule_mismatches"] == 0
+    assert measured.stats.measurements > 0 and in_steps and sum(in_steps) == 0
+    assert summary["tuning"]["h100"]["jobs_completed"] > 0
+    if engine == "paged_spec":
+        assert summary["speculative"]["counters"]["bursts"] > 0
