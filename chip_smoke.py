@@ -10,7 +10,9 @@ toolkit.  Phases, one result line each:
 2. build  — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
    registers and spills (ptxas) of the tensor-core matmul body per CTA
    tile, of the tensor-core attention body per head dim, and of the rows
-   (decode) matmul body per dtype;
+   (decode) matmul body per dtype; then the L2 flush check
+   (``phase_l2_flush``: fixed reads timed after the timers' flush must not
+   fall under their bytes bound);
 3. matmul — the matmul kernel against its plain version: every epilogue class
    at small ragged shapes (bf16 and f32), then minitron-4b's main-path shapes,
    timed beside the plain version and ``torch.matmul``, and under both the
@@ -26,14 +28,20 @@ toolkit.  Phases, one result line each:
    launch (recurrentgemma-2b's decode LM head, K tile 256), each against
    the plain version with the same rounding K tile (the share of elements
    that differ, the largest distance in bf16 values) and timed beside the
-   same tiles with f32 sums;
+   same tiles with f32 sums; and the enc-dec and VLM shapes (``SLICE_MM``:
+   whisper-medium's encoder at 1500 rows under the 125-row M tile,
+   internvl2-26b's vision projection and decode projections);
 4. attention — the flash-attention kernel against its plain version, bf16
    (tensor-core body) and f32 (CUDA-core body), each launch's body checked:
    causal, window, softcap, q_offset, GQA groups 1 and 3, ragged lengths,
    head dims 16 to 256; a prompt's rows bit-equal in one call and in two
    calls split by q_offset; then each served arch's prefill shape, timed
    beside the plain version and ``F.scaled_dot_product_attention`` (event
-   time and device time), with its CTA count;
+   time and device time), with its CTA count; and the enc-dec and VLM
+   shapes (``SLICE_ATTN``: whisper-medium's non-causal encoder and
+   cross-attention at prefill and at decode, Q = 1; internvl2-26b's causal
+   prefill behind its vision prefix), bf16 and f32 against the plain
+   version, bf16 timed alike;
 5. scans — the rwkv6 (wkv6) and RG-LRU scan kernels against their plain
    versions, bf16 and f32, from a non-zero initial state: decode (T = 1), a
    prime T (default T tile 1), head dims 16, 32 and 64, 1 to 3 heads, 2560
@@ -59,7 +67,8 @@ toolkit.  Phases, one result line each:
    so CUDA events time the device), on the kernel lists of one 256-token
    prompt at each arch's full width: the runner checked (397x2048x2048's
    default 1-row M tiles at least 5x slower than 64x64 tiles; its times
-   beside the profiler's device times on four shapes); one search of 32
+   beside the profiler's device times on five shapes, the plain decode
+   attention among them); one search of 32
    trials each for K2 (minitron-4b), K3 (rwkv6-1.6b) and K4
    (recurrentgemma-2b); then three pairs: starcoder2-7b and stablelm-12b
    fully tuned as donors (their records no slower than the default
@@ -74,13 +83,19 @@ toolkit.  Phases, one result line each:
    chose that launches otherwise than the default, and four random ones per
    searched kernel, agree with the plain version.  Its results go on a
    line of their own, ``{"tuning": ...}``;
-8. serve — minitron-4b, rwkv6-1.6b and recurrentgemma-2b at full width and
-   full depth, and mixtral-8x22b at full width with 8 of its 56 layers (at
+8. serve — minitron-4b, rwkv6-1.6b, recurrentgemma-2b, whisper-medium
+   (24 encoder and 24 decoder layers, 1500 stub frames) and internvl2-26b
+   (48 layers, a 256-token stub vision prefix) at full width and full
+   depth, and mixtral-8x22b at full width with 8 of its 56 layers (at
    full depth its bf16 weights, ~280 GB, fit no one card); bf16, random
    weights from a seeded generator on the card, one arch after the other,
    each freed before the next loads: through
    ``repro_torch.launch.serve.main`` (``--preset full``; ``smoke`` for
-   mixtral) and then the slot engine directly with 100-400-token prompts.
+   mixtral; the reference's zero frames or patch embeddings) and then the
+   slot engine directly with 100-400-token prompts (whisper and internvl2
+   with seeded random frames or patch embeddings as ``extras``; their
+   encoder, decoder and vision-projection layers checked apart, and
+   whisper's bidirectional and cross-attention launches counted per class).
    Every request must finish with its token count, the launch counts of
    the arch's kernels must be above 0 (serve.main's as it counts them; the
    engine's set to 0 just before its run and read just after), the
@@ -146,7 +161,9 @@ toolkit.  Phases, one result line each:
 The chunk shapes of the paged path (K2: a 64-row chunk at q_offset 256 of a
 512-row cache; K1: 64x3072x3072 on the tensor cores) are timed after the
 grouped phase beside their plain versions, SDPA given the same boolean mask
-and ``torch.matmul`` (``phase_chunk_kernels``).
+and ``torch.matmul`` (``phase_chunk_kernels``).  Then every timed row bound
+by bytes is held to its bound (``under_bytes_bound``): a time under it
+means the timed call read data the flush left in the L2.
 
 Then the tuning line, the script's wall time, one JSON line with every
 kernel's numbers, the nvidia-smi line, and the last line
@@ -251,11 +268,17 @@ def import_port(src: Path = ROOT / "src"):
 
 
 class Timer:
-    """Median of per-launch CUDA-event times, each launch after an L2 flush."""
+    """Median of per-launch CUDA-event times, each launch after an L2 flush:
+    128 MiB zeroed, as the measured runner flushes (``flush``: another
+    callable, or None for none; ``flush_kernel``, a substring of its
+    kernel's name, which device traces leave out)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, flush="zero", flush_kernel=None):
         self.torch = torch
-        self.flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+        if flush == "zero":
+            flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
+        self.flush = flush or (lambda: None)
+        self.flush_kernel = flush_kernel
 
     def ms(self, fn, iters: int = 10, warmup: int = 2) -> float:
         torch = self.torch
@@ -263,7 +286,7 @@ class Timer:
             fn()
         times = []
         for _ in range(iters):
-            self.flush.zero_()
+            self.flush()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -288,12 +311,13 @@ class Timer:
         for _ in range(captures):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
-                    self.flush.zero_()
+                    self.flush()
                     fn()
                 torch.cuda.synchronize()
             spans = [e.time_range.elapsed_us() for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA
-                     and "FillFunctor" not in e.name and "Memset" not in e.name]
+                     and "FillFunctor" not in e.name and "Memset" not in e.name
+                     and (self.flush_kernel is None or self.flush_kernel not in e.name)]
             if spans:
                 return sum(spans) / iters / 1e3
         raise AssertionError(f"the profiler recorded no device time in {captures} captures")
@@ -355,6 +379,59 @@ def phase_build():
         if kernel not in bodies:
             raise AssertionError(f"the build log shows no {kernel}")
         log(f"build_{kernel}", ptxas=bodies[kernel])
+
+
+#: a timed row's fields held to its bytes bound
+TIMED_FIELDS = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "tile64_ms",
+                "tile64_device_ms")
+
+
+def under_bytes_bound(rows) -> list:
+    """The timings of rows bound by bytes that fall under that bound: a read
+    from memory cannot, so the timed call found its data in the L2, which
+    the flush before it should have evicted."""
+    return [{k: r.get(k) for k in ("class", "kind", "arch", "M", "K", "N", "S", "Sq", "T")
+             if r.get(k) is not None} | {"field": f, "ms": r[f], "bound_ms": r["bound_ms"]}
+            for r in rows if r.get("bound_by") == "bytes"
+            for f in TIMED_FIELDS if r.get(f) is not None and r[f] < r["bound_ms"]]
+
+
+def phase_l2_flush(torch) -> dict:
+    """Does the timers' flush evict what the timed call reads?  Two fixed
+    reads, each timed hot (no flush), after the timers' flush (zeroing 128
+    MiB, a write-only memset: ``Timer`` and ``MeasuredRunner``) and after a
+    read-modify-write (bitwise not) of 256 MiB, by events and on the device:
+    the sum of a 24 MiB buffer and ``torch.matmul`` at the chunk shape
+    64x3072x3072 (w is 18 MiB), both under the card's 50 MB L2.  A read from
+    memory takes at least its bytes over the HBM rate, so a time under that
+    bound means the data came from the L2.  It fails if a read after the
+    timers' flush falls under its bound."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+    buf = torch.randn(12 * 2 ** 20, generator=g, device="cuda").to(torch.bfloat16)
+    x = torch.randn((64, 3072), generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((3072, 3072), generator=g, device="cuda") / 3072 ** 0.5).to(torch.bfloat16)
+    rmw = torch.zeros(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    timers = {"none": Timer(torch, flush=None), "zero_128MiB": Timer(torch),
+              "rmw_256MiB": Timer(torch, flush=lambda: torch.bitwise_not(rmw, out=rmw),
+                                  flush_kernel="bitwise_not")}
+    reads = {"sum_24MiB": (lambda: buf.sum(), 2 * buf.numel()),
+             "matmul_64x3072x3072": (lambda: torch.matmul(x, w),
+                                     2 * (64 * 3072 + 3072 * 3072 + 64 * 3072))}
+    rows = []
+    for read, (fn, nbytes) in reads.items():
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        for flush, timer in timers.items():
+            row = {"read": read, "flush": flush, "bytes": nbytes, "bound_ms": b_ms,
+                   "ms": timer.ms(fn, iters=20), "device_ms": timer.device_ms(fn, iters=20)}
+            row["under_bound"] = row["device_ms"] < b_ms
+            rows.append(row)
+            log("l2_flush", **row)
+    bad = [r for r in rows if r["flush"] == "zero_128MiB" and r["under_bound"]]
+    if bad:
+        raise AssertionError(f"reads after the timers' flush fall under their bytes bound: {bad}")
+    del buf, x, w, rmw, timers
+    torch.cuda.empty_cache()
+    return {"rows": rows}
 
 
 def _mm_inputs(torch, g, m, n, k, class_id, dtype):
@@ -549,35 +626,74 @@ def phase_matmul(torch, timer) -> dict:
             cs64 = concretize(Schedule.make(class_id, {"M": 64, "N": 64, "K": cs.t["K"]}), cs.instance)
             err = max(err, assert_close(torch, mm.launch(x, w, cs64, class_id=class_id, **kw),
                                         ref.matmul(x, w, class_id, **kw), BF16_TOL, "64x64 tiles"))
-            b_ms, b_by = bound_ms(2 * (m * k + k * n + m * n), 2 * m * n * k)
-            body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(x.dtype, m, n, k, cs.t["M"],
-                                                                   cs.t["N"])
-            row = {"class": class_id, "M": m, "K": k, "N": n, "tiles": cs.t,
-                   "logical_tiles": cs.g["M"] * cs.g["N"], "body": body,
-                   "cta_tile": [cta_m, cta_n], "split_k": split_k, "ctas": ctas, "max_abs_err": err,
-                   "ms": timer.ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw)),
-                   "cta_tile_ms": cta_ms,
-                   "tile64_ctas": mm.launch_geometry(x.dtype, m, n, k, cs64.t["M"], cs64.t["N"])[4],
-                   "tile64_ms": timer.ms(lambda: mm.launch(x, w, cs64, class_id=class_id, **kw)),
-                   "plain_ms": timer.ms(lambda: ref.matmul(x, w, class_id, **kw)),
-                   # one library call computes the same function only without an epilogue
-                   "library_ms": (timer.ms(lambda: torch.matmul(x, w))
-                                  if class_id != "matmul_bias_gelu" else None),
-                   "bound_ms": b_ms, "bound_by": b_by}
-            row["library_ratio"] = row["ms"] / row["library_ms"] if row["library_ms"] else None
-            if body == "rows":   # decode: the host's time to enqueue a call is most of ms
-                row["device_ms"] = timer.device_ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw))
-                row["library_device_ms"] = (timer.device_ms(lambda: torch.matmul(x, w))
-                                            if row["library_ms"] else None)
-                row["device_ratio"] = (row["device_ms"] / row["library_device_ms"]
-                                       if row["library_device_ms"] else None)
+            row = timed_matmul_row(torch, timer, x, w, kw, class_id, cs, err)
+            row.update(cta_tile_ms=cta_ms,
+                       tile64_ctas=mm.launch_geometry(x.dtype, m, n, k, cs64.t["M"], cs64.t["N"])[4],
+                       tile64_ms=timer.ms(lambda: mm.launch(x, w, cs64, class_id=class_id, **kw)))
             shapes.append(row)
             log("matmul_shape", **row)
             del x, w
     torch.cuda.empty_cache()
+    # the enc-dec and VLM slice's shapes: whisper-medium's encoder at 1500
+    # rows (default M tile nearest_divisor(1500, 128) = 125, a logical tile
+    # the tensor-core body's 64-row CTAs cover masked at its edge) and
+    # internvl2-26b's vision projection and decode shapes
+    for arch, class_id, m, k, n, tile_m in SLICE_MM:
+        x, w, kw = _mm_inputs(torch, g, m, n, k, class_id, torch.bfloat16)
+        cs = ops.schedule_for(ops.instance(class_id, torch.bfloat16, M=m, N=n, K=k))
+        if tile_m is not None and cs.t["M"] != tile_m:
+            raise AssertionError(f"{class_id} {m}x{k}x{n}: default M tile {cs.t['M']}, not {tile_m}")
+        err = assert_close(torch, mm.launch(x, w, cs, class_id=class_id, **kw),
+                           ref.matmul(x, w, class_id, **kw), BF16_TOL, f"{class_id} {m}x{k}x{n}")
+        row = {"arch": arch, **timed_matmul_row(torch, timer, x, w, kw, class_id, cs, err)}
+        shapes.append(row)
+        log("matmul_shape", **row)
+        del x, w, kw
+        torch.cuda.empty_cache()
     rounding = rounding_cases(torch, timer, "matmul")
     return {"shapes": shapes, "rounding": rounding,
             "max_abs_err": max([errs[n] for n in errs] + [r["max_abs_err"] for r in shapes])}
+
+
+#: the slice's K1 shapes, (arch, class, M, K, N, default M tile to check):
+#: whisper-medium's encoder q/k/v/o and MLP up at 1500 rows; internvl2-26b's
+#: vision projection (256 patch rows) and its 4-slot decode MLP and LM head
+SLICE_MM = (("whisper-medium", "matmul", 1500, 1024, 1024, 125),
+            ("whisper-medium", "matmul_bias_gelu", 1500, 1024, 4096, 125),
+            ("internvl2-26b", "matmul", 256, 6144, 6144, None),
+            ("internvl2-26b", "matmul_silu_glu", 4, 6144, 2 * 16384, None),
+            ("internvl2-26b", "matmul", 4, 16384, 6144, None),
+            ("internvl2-26b", "matmul_lmhead", 4, 6144, 92553, None))
+
+
+def timed_matmul_row(torch, timer, x, w, kw, class_id, cs, err) -> dict:
+    """K1 under ``cs`` on (x, w): its launch geometry, its time beside the
+    plain version's and, for a class with no epilogue, ``torch.matmul``'s
+    (events; a rows-body launch also by device time), and its bound."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+
+    (m, k), n = x.shape, w.shape[1]
+    n_out = n // 2 if "glu" in class_id else n
+    b_ms, b_by = bound_ms(2 * (m * k + k * n + m * n_out), 2 * m * n * k)
+    body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(x.dtype, m, n, k, cs.t["M"], cs.t["N"])
+    row = {"class": class_id, "M": m, "K": k, "N": n, "tiles": cs.t,
+           "logical_tiles": cs.g["M"] * cs.g["N"], "body": body,
+           "cta_tile": [cta_m, cta_n], "split_k": split_k, "ctas": ctas, "max_abs_err": err,
+           "ms": timer.ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw)),
+           "plain_ms": timer.ms(lambda: ref.matmul(x, w, class_id, **kw)),
+           # one library call computes the same function only without an epilogue
+           "library_ms": (timer.ms(lambda: torch.matmul(x, w))
+                          if class_id in ("matmul", "matmul_lmhead") else None),
+           "bound_ms": b_ms, "bound_by": b_by}
+    row["library_ratio"] = row["ms"] / row["library_ms"] if row["library_ms"] else None
+    if body == "rows":   # decode: the host's time to enqueue a call is most of ms
+        row["device_ms"] = timer.device_ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw))
+        row["library_device_ms"] = (timer.device_ms(lambda: torch.matmul(x, w))
+                                    if row["library_ms"] else None)
+        row["device_ratio"] = (row["device_ms"] / row["library_device_ms"]
+                               if row["library_device_ms"] else None)
+    return row
 
 
 def _attn_inputs(torch, g, b, hq, hkv, sq, skv, d, dtype):
@@ -687,7 +803,70 @@ def phase_attention(torch, timer) -> dict:
         shapes.append(row)
         log("attention_shape", **row)
         del q, k, v, ke, ve, got, want
-    return {"shapes": shapes, "max_abs_err": max([errs[n] for n in errs] + [r["max_abs_err"] for r in shapes])}
+    slice_rows = [slice_attention_row(torch, timer, g, *case) for case in SLICE_ATTN]
+    return {"shapes": shapes, "slice": slice_rows,
+            "max_abs_err": max([errs[n] for n in errs] + [r["max_abs_err"]
+                                                          for r in shapes + slice_rows])}
+
+
+#: the slice's K2 shapes, (arch, class, B, Hq, Hkv, Sq, Skv, D, causal):
+#: whisper-medium's encoder (bidirectional, 1500 frames) and its
+#: cross-attention over the 1500 frames at a prime prefill (181 rows: the
+#: default Q tile is 1), a 256-row one and 4-slot decode (Q = 1); and
+#: internvl2-26b's causal prefill of a 512-token bucket behind its
+#: 256-token vision prefix
+SLICE_ATTN = (("whisper-medium", "flash_attention_bidir", 1, 16, 16, 1500, 1500, 64, False),
+              ("whisper-medium", "flash_attention_cross", 1, 16, 16, 181, 1500, 64, False),
+              ("whisper-medium", "flash_attention_cross", 1, 16, 16, 256, 1500, 64, False),
+              ("whisper-medium", "flash_attention_cross", 4, 16, 16, 1, 1500, 64, False),
+              ("internvl2-26b", "flash_attention_causal", 1, 48, 8, 768, 768, 128, True))
+
+
+def slice_attention_row(torch, timer, g, arch, class_id, b, hq, hkv, sq, skv, d, causal) -> dict:
+    """K2 at one of the slice's shapes: f32 (CUDA-core body) and bf16
+    (tensor-core body) against the plain version, then bf16 timed beside the
+    plain version and ``F.scaled_dot_product_attention`` (event and device
+    time), with its CTA count and bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    what = f"attention {arch} {class_id} {b}x{hq}/{hkv}x{sq}x{skv}x{d}"
+    errs = []
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        q, k, v = _attn_inputs(torch, g, b, hq, hkv, sq, skv, d, dtype)
+        cs = ops.schedule_for(ops.instance(class_id, dtype, Q=sq, KV=skv, H=hq, D=d, B=b,
+                                           window=0))
+        body = fa.body_for(dtype)
+        before = fa.body_count(body, dtype=dtype)
+        got = fa.launch(q, k, v, cs, causal=causal)
+        if fa.body_count(body, dtype=dtype) != before + 1:
+            raise AssertionError(f"{what} {dtype}: the launch did not take the {body} body")
+        want = ref.chunked_attention(q, k, v, chunk=cs.t["KV"], causal=causal)
+        errs.append(assert_close(torch, got, want, tol, f"{what} {dtype}"))
+        del got, want
+    # bf16 from here on: the served dtype
+    ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+    live = sq * (sq + 1) / 2 if causal else sq * skv   # (q, k) pairs this input needs
+    b_ms, b_by = bound_ms(2 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d), 4 * b * hq * live * d)
+    body, cta_q, ctas = fa.attention_geometry(torch.bfloat16, sq, cs.t["Q"])
+    row = {"arch": arch, "class": class_id, "B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "KV": skv,
+           "D": d, "causal": causal, "tiles": cs.t, "body": body, "cta_q": cta_q,
+           "ctas": b * hq * ctas, "f32_max_abs_err": errs[0], "max_abs_err": errs[1],
+           "ms": timer.ms(lambda: fa.launch(q, k, v, cs, causal=causal), iters=20),
+           "plain_ms": timer.ms(lambda: ref.chunked_attention(q, k, v, chunk=cs.t["KV"],
+                                                              causal=causal)),
+           "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+               q, ke, ve, is_causal=causal), iters=20),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "device_ms": timer.device_ms(lambda: fa.launch(q, k, v, cs, causal=causal)),
+           "library_device_ms": timer.device_ms(lambda: F.scaled_dot_product_attention(
+               q, ke, ve, is_causal=causal))}
+    row["library_ratio"] = row["ms"] / row["library_ms"]
+    row["device_ratio"] = row["device_ms"] / row["library_device_ms"]
+    log("attention_slice_shape", **row)
+    return row
 
 
 def _rw_inputs(torch, g, b, h, t, d, dtype, near_one=False):
@@ -1107,7 +1286,9 @@ PRIME_MIN_RATIO = 5.0
 #: profiler's device time: (class, params) of decode and prefill GEMMs, K2, K3
 TIMER_CHECKS = (("matmul", dict(M=4, N=3072, K=3072)), ("matmul", dict(M=256, N=3072, K=3072)),
                 ("flash_attention_causal", dict(Q=256, KV=256, H=24, D=128, B=1)),
-                ("rwkv6_scan", dict(T=256, C=32 * 64, D=64, B=1)))
+                ("rwkv6_scan", dict(T=256, C=32 * 64, D=64, B=1)),
+                # minitron's 4-slot decode attention: the plain masked one (C.6)
+                ("flash_attention_causal", dict(Q=1, KV=512, H=24, D=128, B=4)))
 
 
 def _outputs(out):
@@ -1342,11 +1523,16 @@ def phase_tuning(torch, timer):
     return summary, db
 
 
-def layerwise_rel_err(torch, model, params, toks) -> dict:
+def layerwise_rel_err(torch, model, params, toks, extras=None) -> dict:
     """Each layer run by both paths on the plain path's input to that layer:
     per layer, |kernel - plain| / |plain| of the block output (output minus
-    input), in L2.  Returns {"checked", "block", "routed_alike", "route_flips"}
-    lists (the last two hold None for a layer without MoE).
+    input), in L2.  Returns {"layer", "checked", "block", "routed_alike",
+    "route_flips"} lists (the layer's name; the last two hold None for a
+    layer without MoE).  ``extras`` are the batch's stub inputs: an enc-dec
+    arch's encoder layers come first, each decoder layer then attends to the
+    plain path's encoder output; a vision-prefixed arch's first entry is the
+    vision projection (its output against the plain path's), and its layers
+    take the plain path's prefix.
 
     A MoE layer's block output changes by a whole expert's output for a
     token whose top-k expert set differs between the paths: a one-ulp
@@ -1368,23 +1554,65 @@ def layerwise_rel_err(torch, model, params, toks) -> dict:
         return float(diff.norm() / ref_.norm())
 
     cfg = model.cfg
+    out = {"layer": [], "checked": [], "block": [], "routed_alike": [], "route_flips": []}
+
+    def dense(name, err):   # a layer checked whole
+        out["layer"].append(name)
+        out["block"].append(err)
+        out["checked"].append(err)
+        out["routed_alike"].append(None)
+        out["route_flips"].append(None)
+
+    def both(fn, h):   # one layer by the kernel path and the plain path
+        out_k = fn(h)
+        with use_backend("ref"):
+            out_r = fn(h)
+        return out_k, out_r
+
+    extras = extras or {}
+    if cfg.family == "audio":
+        from repro_torch.models import attention, encdec
+
+        frames = extras["frames"]
+        h = frames.to(params["enc_pos"].dtype) + params["enc_pos"][None, :frames.shape[1]]
+        for j, p in enumerate(params["encoder"]):
+            out_k, out_r = both(lambda x: encdec.enc_block(p, cfg, x), h)
+            dense(f"enc{j}", rel(out_k, out_r, h.float()))
+            h = out_r
+        enc = lm.apply_norm(params["enc_norm"], h, cfg.norm)
+        h = encdec._dec_embed(params, toks)
+        b, s, _ = h.shape
+        positions = lm._positions(b, s, h.device)
+        for j, p in enumerate(params["decoder"]):
+            out_k, out_r = both(lambda x: encdec.dec_block(
+                p, cfg, x, enc=enc, positions=positions,
+                cache={"self": attention.init_attn_cache(cfg, "G", b, s, x.device)})[0], h)
+            dense(f"dec{j}", rel(out_k, out_r, h.float()))
+            h = out_r
+        return out
+
     h = lm._embed(params, cfg, toks)
+    if cfg.vision_tokens:
+        from repro_torch.kernels import ops
+
+        pe = extras["patch_embeds"].to(h.dtype)
+        vis_k, vis_r = both(lambda x: ops.matmul(x, params["vis_proj"]), pe)
+        dense("vis_proj", rel(vis_k, vis_r, 0.0))
+        h = torch.cat([vis_r, h], dim=1)
     b, s, _ = h.shape
     kw = dict(positions=lm._positions(b, s, h.device), pos=None, decode=False)
-    out = {"checked": [], "block": [], "routed_alike": [], "route_flips": []}
     for j, kind in enumerate(cfg.layer_kinds):
         p = params["layers"][j]
-        fresh = lambda: lm.init_block_cache(cfg, kind, b, 512, h.device)  # noqa: E731
+        fresh = lambda: lm.init_block_cache(cfg, kind, b, max(s, 512), h.device)  # noqa: E731
         out_k, _, _ = lm.apply_block(p, cfg, kind, h, cache=fresh(), **kw)
         with use_backend("ref"):
             out_r, _, _ = lm.apply_block(p, cfg, kind, h, cache=fresh(), **kw)
-        out["block"].append(rel(out_k, out_r, h.float()))
         if "moe" not in p:
-            out["checked"].append(out["block"][-1])
-            out["routed_alike"].append(None)
-            out["route_flips"].append(None)
+            dense(str(j), rel(out_k, out_r, h.float()))
             h = out_r
             continue
+        out["layer"].append(str(j))
+        out["block"].append(rel(out_k, out_r, h.float()))
 
         def experts(x):   # the sorted top-k expert set of each token, (B, S, k)
             xn = lm.ffn_input(p, cfg, x).reshape(b * s, -1)
@@ -1499,7 +1727,13 @@ def profile_decode(torch, engine, prompts, steps: int = 3, provider=None) -> dic
 SERVE_KERNELS = {"minitron-4b": ("matmul", "flash_attention"),
                  "rwkv6-1.6b": ("matmul", "rwkv6_scan"),
                  "recurrentgemma-2b": ("matmul", "flash_attention", "rglru_scan"),
-                 "mixtral-8x22b": ("matmul", "flash_attention", "grouped_matmul")}
+                 "mixtral-8x22b": ("matmul", "flash_attention", "grouped_matmul"),
+                 "whisper-medium": ("matmul", "flash_attention"),
+                 "internvl2-26b": ("matmul", "flash_attention")}
+#: the flash-attention classes an arch must launch, each on the tensor-core
+#: body: whisper's encoder and cross-attention are its first non-causal launches
+SERVE_ATTENTION_CLASSES = {"whisper-medium": ("flash_attention_bidir", "flash_attention_cross"),
+                           "internvl2-26b": ("flash_attention_causal",)}
 #: archs served at full width with their depth cut, and the depth: mixtral's
 #: 56 layers hold ~140 B bf16 parameters (280 GB); 8 layers hold 20.4 B
 #: (40.9 GB) and leave room for the plain path's f32 and f64 copies of one
@@ -1507,18 +1741,20 @@ SERVE_KERNELS = {"minitron-4b": ("matmul", "flash_attention"),
 SERVE_DEPTH = {"mixtral-8x22b": 8}
 
 
-def prefill_logits_check(torch, model, params, toks, what: str, provider=None) -> dict:
+def prefill_logits_check(torch, model, params, toks, what: str, provider=None,
+                         extras=None) -> dict:
     """The kernel path's prefill logits (under ``provider``'s schedules)
     against the plain path's on the same weights, within the larger of
     LOGITS_REL_BOUND of max |logit| and CONTROL_FACTOR times the f64
-    control; raises beyond it."""
+    control; raises beyond it.  ``extras``: the batch's stub inputs."""
     from repro_torch.kernels.ops import use_backend
 
-    logits_k, _ = model.prefill(params, {"tokens": toks}, max_len=512, provider=provider)
+    batch = {"tokens": toks, **(extras or {})}
+    logits_k, _ = model.prefill(params, batch, max_len=512, provider=provider)
     with use_backend("ref"):
-        logits_r, _ = model.prefill(params, {"tokens": toks}, max_len=512)
+        logits_r, _ = model.prefill(params, batch, max_len=512)
         with f64_accumulation():
-            logits_c, _ = model.prefill(params, {"tokens": toks}, max_len=512)
+            logits_c, _ = model.prefill(params, batch, max_len=512)
     torch.cuda.synchronize()
     if tuple(logits_k.shape) != (1, model.cfg.vocab_size) or not bool(torch.isfinite(logits_k).all()):
         raise AssertionError(f"prefill logits: shape {tuple(logits_k.shape)} or non-finite")
@@ -1541,6 +1777,21 @@ PRIME_PROMPT = 181
 
 #: new tokens per request in the engine runs of the serve phases
 SERVE_NEW_TOKENS = 16
+
+
+def serve_extras(torch, cfg) -> dict:
+    """The stub inputs of the engine runs: seeded random encoder frames
+    (whisper) or patch embeddings (internvl2), of order one, f32, on the
+    card, so the encoder and the vision projection see real inputs (the
+    reference's entry points serve zeros)."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    extras = {}
+    if cfg.family == "audio":
+        extras["frames"] = torch.randn((cfg.encoder_seq, cfg.d_model), generator=g, device="cuda")
+    if cfg.vision_tokens:
+        extras["patch_embeds"] = torch.randn((cfg.vision_tokens, cfg.d_model), generator=g,
+                                             device="cuda")
+    return extras
 
 
 def serve_prompts(cfg) -> list:
@@ -1599,7 +1850,8 @@ def phase_serve(torch, arch: str) -> dict:
     params = model.init(seed=0)
     init_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
-    engine = ServingEngine(model, params, slots=4, max_len=512)
+    extras = serve_extras(torch, cfg)
+    engine = ServingEngine(model, params, slots=4, max_len=512, extras=extras)
     prompts = serve_prompts(cfg)
     for kmod in (mm, fa, rw, rg):
         kmod.reset_launches()
@@ -1607,12 +1859,20 @@ def phase_serve(torch, arch: str) -> dict:
         run = serve_stream(torch, engine, prompts, SERVE_NEW_TOKENS)
     launches = serve.kernel_launches()
     bodies = body_counts(mm)
+    attn_classes = {f"{c}/{b}": n for (c, b), n in sorted(fa.class_launches.items())}
     prime_bodies = run["prime_bodies"]
     # an unbucketed prime prompt: every default M tile is 1, so its K1
-    # launches all take the rows body
-    if not engine.prefill_buckets and (prime_bodies.get("matmul/mma/bfloat16", 0)
+    # launches all take the rows body, but for whisper's encoder and cross
+    # K/V projections at 1500 frames (M tile 125: the tensor cores), six per
+    # encoder layer and two per decoder layer
+    enc_mma = 6 * cfg.encoder_layers + 2 * cfg.n_layers if cfg.encoder_layers else 0
+    if not engine.prefill_buckets and (prime_bodies.get("matmul/mma/bfloat16", 0) != enc_mma
                                        or not prime_bodies.get("matmul/rows/bfloat16", 0)):
         raise AssertionError(f"{arch}: the {PRIME_PROMPT}-token prefill's K1 bodies {prime_bodies}")
+    # each attention class of the arch launched, all on the tensor-core body
+    for c in SERVE_ATTENTION_CLASSES.get(arch, ()):
+        if attn_classes.get(f"{c}/mma", 0) <= 0 or attn_classes.get(f"{c}/fma", 0):
+            raise AssertionError(f"{arch}: launches per attention class and body {attn_classes}")
     # every bf16 prefill GEMM above 16 rows ran on the tensor cores: none
     # took the CUDA-core body, which is for f32 alone
     if mm.body_count("mma") <= 0 or mm.body_count("fma", dtype=torch.bfloat16) != 0:
@@ -1643,16 +1903,30 @@ def phase_serve(torch, arch: str) -> dict:
         log("decode_profile", arch=arch, **profile)
     serve_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
+    # whisper: the encoder's share of a prefill, one encode of the frames
+    encoder_s = None
+    if cfg.encoder_layers:
+        from repro_torch.models import encdec
+
+        frames = extras["frames"][None]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        encdec.encode(params, cfg, frames)
+        torch.cuda.synchronize()
+        encoder_s = time.monotonic() - t0
+
     # kernel path vs plain path on the same weights: the first prompt's
     # prefill, end to end and layer by layer
     toks = torch.tensor([prompts[0]], dtype=torch.long, device="cuda")
-    logits = prefill_logits_check(torch, model, params, toks, arch)
-    layers = layerwise_rel_err(torch, model, params, toks)
+    batch_extras = {k: v[None] for k, v in extras.items()}
+    logits = prefill_logits_check(torch, model, params, toks, arch, extras=batch_extras)
+    layers = layerwise_rel_err(torch, model, params, toks, batch_extras)
     layer_err = layers["checked"]
     if max(layer_err) > LAYER_REL_BOUND:
         raise AssertionError(f"{arch}: a layer's output differs by {max(layer_err)} "
                              f"> {LAYER_REL_BOUND} (per layer: {layers})")
     row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "encoder_layers": cfg.encoder_layers, "vision_tokens": cfg.vision_tokens,
            "params": cfg.param_count(),
            "serve_main": {k: res[k] for k in ("preset", "requests", "tokens", "decode_steps",
                                                "tok_per_s", "kernel_launches")},
@@ -1663,11 +1937,15 @@ def phase_serve(torch, arch: str) -> dict:
            "decode_ms_per_step": run["decode_ms_per_step"],
            "tok_per_s": run["tokens"] / (run["prefill_s"] + run["decode_s"]),
            "decode_tok_per_s": (run["tokens"] - run["requests"]) / run["decode_s"],
+           "encoder_s": encoder_s,
+           "encoder_share": 8 * encoder_s / run["prefill_s"] if encoder_s else None,
            "launches": launches, "body_launches": bodies, "attention_body_launches": attn_bodies,
+           "attention_class_launches": attn_classes,
            "decode_rows_geometry": dict(decode_geometry), "decode_profile": profile,
            "init_peak_gib": init_peak_gib, "serve_peak_gib": serve_peak_gib,
            **logits,
            "layer_rel_err_max": max(layer_err), "layer_rel_err": layer_err,
+           "layer_names": layers["layer"],
            "layer_block_rel_err": layers["block"],
            "layer_routed_alike_rel_err": layers["routed_alike"],
            "layer_route_flips": layers["route_flips"]}
@@ -2790,13 +3068,21 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
+    phase_l2_flush(torch)
     timer = Timer(torch)
     mmr = phase_matmul(torch, timer)
     far = phase_attention(torch, timer)
     scr = phase_scans(torch, timer)
-    phase_prime_matmul(torch, timer)
+    prime = phase_prime_matmul(torch, timer)
     grr = phase_grouped(torch, timer)
     chunk = phase_chunk_kernels(torch, timer)
+    under = under_bytes_bound(mmr["shapes"] + mmr["rounding"] + far["shapes"] + far["slice"]
+                              + scr["rwkv6"]["shapes"] + scr["rglru"]["shapes"] + prime
+                              + grr["shapes"] + grr["rounding"]
+                              + [chunk["attention"], chunk["matmul"]])
+    log("bytes_bound_check", under=under)
+    if under:
+        raise AssertionError(f"timings under their bytes bound (data left in the L2): {under}")
     tuning, tuned_db = phase_tuning(torch, timer)
     del timer
     torch.cuda.empty_cache()
@@ -2819,6 +3105,10 @@ def main(argv: list[str]) -> int:
     def served(name, body=None):   # launches summed over the main-path runs
         return sum(by_path(name, body).values())
 
+    def class_by_path(class_id):   # K2 launches of one class per path
+        return {path: sum(n for r in rs for key, n in r.get("attention_class_launches", {}).items()
+                          if key.split("/")[0] == class_id) for path, rs in paths.items()}
+
     def timed(row, keys):
         return {"shape": {k: row[k] for k in keys},
                 **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
@@ -2839,6 +3129,10 @@ def main(argv: list[str]) -> int:
                              f"among the timed cases {ROUND_SERVED}")
     rep_round = next(r for r in mmr["rounding"]
                      if (r["class"], r["M"], r["K"], r["N"], r["round_k"]) == ROUND_SERVED)
+    # the slice's non-causal K2: whisper's encoder, and its cross-attention
+    # at decode (Q = 1), the launch it makes most
+    rep_bidir = next(r for r in far["slice"] if r["class"] == "flash_attention_bidir")
+    rep_cross = next(r for r in far["slice"] if r["class"] == "flash_attention_cross" and r["Sq"] == 1)
     kernels = [
         {"name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:205", "launches": served("matmul"),
@@ -2893,6 +3187,13 @@ def main(argv: list[str]) -> int:
          "max_abs_err": chunk["matmul"]["max_abs_err"],
          **{k: chunk["matmul"][k] for k in ("device_ms", "library_device_ms")},
          **timed(chunk["matmul"], ("class", "M", "K", "N", "cta_tile", "ctas"))},
+        *({"name": c, "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:126", "body": "mma",
+           "launches": sum(class_by_path(c).values()), "launches_by_path": class_by_path(c),
+           "max_abs_err": row["max_abs_err"], "f32_max_abs_err": row["f32_max_abs_err"],
+           **{k: row[k] for k in ("device_ms", "library_device_ms")},
+           **timed(row, ("B", "Hq", "Hkv", "Sq", "KV", "D", "causal", "ctas"))}
+          for c, row in (("flash_attention_bidir", rep_bidir), ("flash_attention_cross", rep_cross))),
     ]
     # each kernel's launches per path (slot engine, paged, spec)
     for row in kernels:

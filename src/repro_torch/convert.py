@@ -4,7 +4,11 @@ torch cannot reproduce ``jax.random``, so the tests build weights once in
 the reference and hand them to both packages.  The reference stacks each
 layer-pattern position's params along a leading ``groups`` axis for
 ``lax.scan`` (``repro.models.lm.init_params``) and keeps the remainder in
-``tail``; the port keeps one list in layer order.  Inputs are nested
+``tail``; the port keeps one list in layer order.  The enc-dec model
+(``repro.models.encdec``) stacks its ``encoder`` and ``decoder`` layers
+along a leading axis, and its cache is ``{"layers": {"self", "cross_k",
+"cross_v"} stacked, "t"}``; the port keeps lists of per-layer dicts.  A
+VLM's ``vis_proj`` passes straight through.  Inputs are nested
 dicts/lists of numpy arrays (``jax.tree_util.tree_map(np.asarray, tree)``).
 """
 from __future__ import annotations
@@ -45,9 +49,21 @@ def _unstack(groups: dict, tail: list, cfg: ArchConfig, device) -> list:
     return layers
 
 
+def _layer_list(stacked: Any, n: int, device) -> list:
+    """A tree stacked along a leading layer axis -> one tree per layer."""
+    return [_map(lambda a, i=i: _tensor(np.asarray(a)[i], device), stacked) for i in range(n)]
+
+
 def params_from_jax(tree: dict, cfg: ArchConfig, device="cpu") -> dict:
-    """The reference's ``lm.init_params`` pytree -> the port's params (with a
-    tied embedding's head copy, ``embed_t``, as ``lm.init_params`` holds it)."""
+    """The reference's ``lm.init_params`` (or ``encdec.init_params``) pytree
+    -> the port's params (with a tied embedding's head copy, ``embed_t``, as
+    ``lm.init_params`` holds it)."""
+    if cfg.family == "audio":
+        out = {k: _map(lambda a: _tensor(a, device), v)
+               for k, v in tree.items() if k not in ("encoder", "decoder")}
+        out["encoder"] = _layer_list(tree["encoder"], cfg.encoder_layers, device)
+        out["decoder"] = _layer_list(tree["decoder"], cfg.n_layers, device)
+        return out
     out = {k: _map(lambda a: _tensor(a, device), v)
            for k, v in tree.items() if k not in ("groups", "tail")}
     out["layers"] = _unstack(tree["groups"], tree["tail"], cfg, device)
@@ -57,6 +73,10 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device="cpu") -> dict:
 
 
 def cache_from_jax(tree: dict, cfg: ArchConfig, device="cpu") -> dict:
-    """The reference's ``lm.init_cache`` / ``prefill`` cache -> the port's."""
+    """The reference's ``lm.init_cache`` / ``prefill`` cache (or the
+    enc-dec model's) -> the port's."""
+    if cfg.family == "audio":
+        return {"layers": _layer_list(tree["layers"], cfg.n_layers, device),
+                "t": _tensor(tree["t"], device).to(torch.int32)}
     return {"layers": _unstack(tree["groups"], tree["tail"], cfg, device),
             "t": _tensor(tree["t"], device).to(torch.int32)}

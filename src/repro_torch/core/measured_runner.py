@@ -38,6 +38,15 @@ time):
   causal, sliding-window, local and softcap classes (the queries the last Q
   of KV positions), the instance's window, and gemma2's softcap of 50 for
   the softcap class;
+* except a causal class at Q = 1, the decode instance: decode runs no K2
+  launch there but the masked decode attention of
+  :func:`repro_torch.models.attention._masked_decode_attention` (its f32
+  upcast of the cache included), so that is what is timed, on cache-shaped
+  K/V (the instance's B and KV, every row live), behind a longer stream
+  hold (:data:`DECODE_SLEEP_CYCLES`).  No schedule reaches it: its launch
+  key holds none, so it is timed once per instance.  The
+  non-causal classes at Q = 1 (cross-attention at decode) launch K2, as
+  decode does;
 * scans: :func:`repro_torch.kernels.rwkv6_scan.rwkv6_scan` (H = C / D) and
   :func:`repro_torch.kernels.rglru_scan.rglru_scan`, from a zero state;
 * the CNN classes have no kernel in the port: they raise ``ValueError``.
@@ -66,6 +75,7 @@ from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as rw
+from repro_torch.models import attention
 from repro_torch.targets import resolve_target, target_name
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -78,10 +88,22 @@ FLUSH_BYTES = 128 * 2 ** 20
 #: the H100's 1.98 GHz: the wrapper's host work is enqueued behind it, so
 #: the events time the device alone, even for a decode-sized launch
 SLEEP_CYCLES = 400_000
+#: the hold for the plain decode attention, about 1 ms: it enqueues about
+#: ten kernels (casts, products, mask, softmax), whose host work outlasts
+#: the single launch's hold on a busy host
+DECODE_SLEEP_CYCLES = 2_000_000
 #: gemma2's attention logit softcap (``attn_softcap``): the softcap class's
 SOFTCAP = 50.0
 CAUSAL = ("flash_attention_causal", "flash_attention_swa", "flash_attention_local",
           "flash_attention_softcap")
+#: the launch key's schedule part for the decode attention, which reads no schedule
+DECODE_ATTENTION_KEY = ("masked_decode_attention",)
+
+
+def is_decode_attention(instance: KernelInstance) -> bool:
+    """A causal attention instance at Q = 1: decode's, which the models run
+    as the masked decode attention, not as a K2 launch."""
+    return instance.class_id in CAUSAL and instance.p["Q"] == 1
 
 
 def _module(class_id: str):
@@ -158,7 +180,10 @@ class MeasuredRunner(MeasureRunner):
     @staticmethod
     def launch_key(cs: ConcreteSchedule) -> tuple:
         """What the launch reads: the workload key and the wrapper's
-        ``schedule_key`` (its tiles, order and rounding K tile)."""
+        ``schedule_key`` (its tiles, order and rounding K tile); for the
+        decode attention, which reads no schedule, a fixed key."""
+        if is_decode_attention(cs.instance):
+            return cs.instance.workload_key(), DECODE_ATTENTION_KEY
         return cs.instance.workload_key(), _module(cs.instance.class_id).schedule_key(cs)
 
     # -- protocol -------------------------------------------------------------
@@ -204,11 +229,12 @@ class MeasuredRunner(MeasureRunner):
     def _seconds(self, cs: ConcreteSchedule) -> float:
         key = self.launch_key(cs)
         if key not in self._times:
-            self._times[key] = self._time(self._launcher(cs))
+            self._times[key] = self._time(self._launcher(cs), DECODE_SLEEP_CYCLES
+                                          if is_decode_attention(cs.instance) else SLEEP_CYCLES)
             self.stats.measurements += 1
         return self._times[key]
 
-    def _time(self, fn) -> float:
+    def _time(self, fn, sleep_cycles: int = SLEEP_CYCLES) -> float:
         fn()   # warm-up
         times = []
         if self.device.type == "cpu":
@@ -219,7 +245,7 @@ class MeasuredRunner(MeasureRunner):
             return statistics.median(times)
         for _ in range(REPEATS):
             self._flush.zero_()
-            torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda._sleep(sleep_cycles)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -242,6 +268,11 @@ class MeasuredRunner(MeasureRunner):
             if plain:
                 return lambda: ref.grouped_matmul(*x, c, round_k=mm.round_k_for(cs))
             return lambda: mm.grouped_matmul(*x, cs, class_id=c)
+        if is_decode_attention(inst):   # the plain decode attention, on either path
+            q, k, v = x
+            valid = torch.ones((k.shape[0], k.shape[2]), dtype=torch.bool, device=k.device)
+            softcap = SOFTCAP if c == "flash_attention_softcap" else 0.0
+            return lambda: attention._masked_decode_attention(q, k, v, valid, softcap=softcap)
         if inst.family == "attention":
             p = inst.p
             kw = dict(causal=c in CAUSAL, window=p.get("window", 0),

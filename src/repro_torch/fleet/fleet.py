@@ -24,8 +24,9 @@ source and what the engines run on:
   the service's lookups time them between steps, never inside the forward
   pass.
 * **The engines** run eager PyTorch over the port's CUDA kernels (the
-  reference's are jitted); the audio and vision archs are refused until the
-  slot engine takes ``extras`` (ROADMAP A.7).
+  reference's are jitted).  ``extras`` (encoder frames, patch embeddings)
+  reach every slot engine, as in the reference; the paged engine refuses
+  the audio and vision archs, as the reference's does.
 
 This is the layer the ROADMAP's north star asks for — a front-end that
 turns a request *stream* into batched work across engine replicas — built
@@ -725,7 +726,7 @@ class ServingFleet:
                  tuning_budget_s: float = float("inf"),
                  drain_jobs: int = 2, drain_every: int = 4,
                  autoscaler=None, min_replicas: int = 1,
-                 seed: int = 0,
+                 seed: int = 0, extras: dict | None = None,
                  speculative: "bool | str" = False, draft_model=None,
                  draft_params=None, spec_k: int = 4,
                  acceptance: "AcceptanceTracker | None" = None,
@@ -734,12 +735,6 @@ class ServingFleet:
                  advisor: "TuningAdvisor | None" = None):
         if engine not in ("slot", "paged"):
             raise ValueError(f"unknown engine {engine!r}: 'slot' or 'paged'")
-        if cfg.family == "audio" or cfg.encoder_layers or cfg.vision_tokens:
-            # the port's slot engine takes no extras (encoder frames, patch
-            # embeddings) yet: refuse rather than serve them wrong
-            raise ValueError(f"the fleet does not serve {cfg.name!r} ({cfg.family}) yet: the "
-                             "slot engine takes no encoder frames or patch embeddings "
-                             "(ROADMAP A.7)")
         if prefetch not in (False, True, "advisor"):
             raise ValueError(
                 f"prefetch must be False, True, or 'advisor', got {prefetch!r}")
@@ -787,7 +782,7 @@ class ServingFleet:
                         page_size=page_size, pool_pages=pool_pages,
                         chunk=chunk, chunks_per_step=chunks_per_step,
                         admit_cap=admit_cap,
-                        defrag_threshold=defrag_threshold,
+                        defrag_threshold=defrag_threshold, extras=extras,
                         draft_model=draft_model if speculative else None,
                         draft_params=draft_params if speculative else None,
                         spec_k=spec_k if speculative else 0)
@@ -948,7 +943,7 @@ class ServingFleet:
                 rep.spec_hist = self.obs.histogram("spec.committed_per_burst")
             return rep
         eng = ServingEngine(mk["model"], mk["params"], slots=mk["slots"],
-                            max_len=mk["max_len"], provider=provider)
+                            max_len=mk["max_len"], extras=mk["extras"], provider=provider)
         self._bind_engine_obs(eng, idx)
         return Replica(idx, self.cfg, eng, svc, target, self.runner_for(target))
 

@@ -49,7 +49,8 @@ A tensor on the CPU takes the plain version
 (:func:`repro_torch.kernels.ref.chunked_attention`, the online-softmax oracle
 that, like the kernel, leaves fully masked rows at 0); a CUDA tensor launches
 the kernel or raises.  ``launches`` counts launches, ``body_launches`` per
-body and dtype.
+body and dtype, ``class_launches`` per kernel class (the schedule's instance:
+``flash_attention_causal``, ``_bidir``, ``_cross``, ...) and body.
 """
 from __future__ import annotations
 
@@ -67,13 +68,14 @@ MMA_CTA_Q = 64
 
 #: kernel launches since the last reset (plain counts; see chip_smoke.py):
 #: ``launches`` of :func:`launch`, ``body_launches`` by (body, dtype),
-#: ``offset_launches`` with ``q_offset`` > 0 (chunked prefill) and
+#: ``offset_launches`` with ``q_offset`` > 0 (chunked prefill),
 #: ``row_tile_launches`` with 1-row Q tiles over Sq > 1 rows (a prime
-#: length's default)
+#: length's default) and ``class_launches`` by (class id, body)
 launches = 0
 offset_launches = 0
 row_tile_launches = 0
 body_launches: collections.Counter = collections.Counter()
+class_launches: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
@@ -81,6 +83,7 @@ def reset_launches() -> None:
     global launches, offset_launches, row_tile_launches
     launches = offset_launches = row_tile_launches = 0
     body_launches.clear()
+    class_launches.clear()
 
 
 def body_count(body: str | None = None, *, dtype: torch.dtype | None = None) -> int:
@@ -165,4 +168,5 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cs: ConcreteSchedu
     offset_launches += q_offset > 0
     row_tile_launches += cs.t["Q"] == 1 < sq
     body_launches[body, q.dtype] += 1
+    class_launches[cs.instance.class_id, body] += 1
     return out

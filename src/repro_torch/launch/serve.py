@@ -9,13 +9,18 @@ kernel's launch count.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --preset full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --preset full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --preset smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke --arch rwkv6-1.6b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke --arch mixtral-8x22b
 
 The MoE archs (mixtral-8x22b, dbrx-132b) run ``--preset smoke`` only: at
-full depth their bf16 weights (~280 GB, ~264 GB) fit no one card.
+full depth their bf16 weights (~280 GB, ~264 GB) fit no one card.  The
+audio and vision archs take the reference's stub inputs: zero encoder frames
+(whisper-medium) or zero patch embeddings (internvl2-26b), the same for every
+request.
 
 ``--device cuda`` (the default) runs on the card and raises where there is
 none; ``--backend ref`` runs the plain PyTorch versions instead of the CUDA
@@ -115,6 +120,18 @@ def make_provider(args) -> tuple[ScheduleProvider, object | None]:
     return ScheduleProvider(schedule_map, service=service, target=args.target), service
 
 
+def stub_extras(cfg) -> dict:
+    """The stub frontends' inputs the reference's entry points serve: zero
+    encoder frames for the audio family, zero patch embeddings for a
+    vision-prefixed arch (none for the others)."""
+    extras = {}
+    if cfg.family == "audio":
+        extras["frames"] = np.zeros((cfg.encoder_seq, cfg.d_model), np.float32)
+    if cfg.vision_tokens:
+        extras["patch_embeds"] = np.zeros((cfg.vision_tokens, cfg.d_model), np.float32)
+    return extras
+
+
 def kernel_launches() -> dict[str, int]:
     return {"matmul": mm.launches, "grouped_matmul": mm.grouped_launches,
             "flash_attention": fa.launches, "rwkv6_scan": rw.launches, "rglru_scan": rg.launches}
@@ -173,6 +190,7 @@ def main(argv=None) -> dict:
         # queues tuning jobs) serves the kernels only: the plain versions
         # never consult a schedule
         engine = ServingEngine(model, params, slots=args.slots, max_len=args.max_len,
+                               extras=stub_extras(cfg),
                                provider=provider if args.backend == "cuda" else None)
         t0 = time.monotonic()
         with use_backend(args.backend):

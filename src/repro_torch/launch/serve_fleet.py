@@ -6,8 +6,9 @@ The port of ``repro.launch.serve_fleet``: the same flags, plus ``--device``
 ``--targets`` defaulting to ``h100`` on the card, whose virtual clock is the
 port's kernels timed there (``CachedRunner(MeasuredRunner())``, one per
 target, timing between steps only), and to ``tpu-v5e`` on the CPU, where a
-measured target is refused.  The audio and vision archs are refused (the
-slot engine takes no ``extras`` yet, ROADMAP A.7).
+measured target is refused.  The audio and vision archs are served with the
+reference's stub inputs (zero encoder frames, zero patch embeddings) on slot
+replicas; the paged engine refuses them, as the reference's does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_fleet --device cpu --preset smoke
     PYTHONPATH=src python -m repro_torch.launch.serve_fleet --preset full --max-len 512 \
@@ -96,7 +97,7 @@ from repro_torch.fleet import (
     save_trace,
 )
 from repro_torch.models.build import build_model
-from repro_torch.launch.serve import DEFAULT_TARGETS
+from repro_torch.launch.serve import DEFAULT_TARGETS, stub_extras
 from repro_torch.targets import list_targets
 
 
@@ -241,6 +242,7 @@ def main(argv=None) -> dict:
         args.targets = DEFAULT_TARGETS[args.device]
     model = build_model(cfg, args.device)
     params = model.init(seed=0)
+    extras = stub_extras(cfg)
 
     from repro_torch.service import ScheduleRegistry
 
@@ -289,7 +291,7 @@ def main(argv=None) -> dict:
             policy=args.policy, queue_cap=args.queue_cap,
             prefetch=prefetch, targets=targets,
             donor_target=args.donor_target, tuning_budget_s=args.tuning_budget_s,
-            drain_jobs=args.drain_jobs, seed=args.seed,
+            drain_jobs=args.drain_jobs, seed=args.seed, extras=extras,
             tracer=tracer, slos=slos, **engine_kw)
     except BaseException:  # a refused target leaves no temporary registry behind
         if tmp_root is not None:

@@ -1,0 +1,232 @@
+"""Encoder-decoder model, the whisper-medium backbone (the counterpart of
+``repro.models.encdec``).
+
+The conv/mel frontend is a stub, as in the reference: ``batch["frames"]``
+holds precomputed frame embeddings (B, encoder_seq, D).  The encoder is a
+stack of bidirectional attention blocks (flash attention with
+``causal=False``, class ``flash_attention_bidir``); each decoder block runs
+causal self-attention, cross-attention to the encoder's output (class
+``flash_attention_cross``, also ``causal=False``) and the MLP.  Positions are
+learned tables: ``enc_pos`` added to the frames, ``dec_pos`` to the token
+embeddings (per slot at decode).
+
+The reference stacks the encoder's and the decoder's layer params along a
+leading axis and scans them; here ``params["encoder"]`` and
+``params["decoder"]`` are lists in layer order and a Python loop walks them,
+as :mod:`repro_torch.models.lm` walks its layers
+(:func:`repro_torch.convert.params_from_jax` unstacks the reference's).
+
+Serving: prefill computes each layer's cross K/V once and keeps them in the
+cache, ``{"layers": [{"self": {"k", "v"}, "cross_k", "cross_v"}, ...],
+"t"}`` with ``cross_k``/``cross_v`` of shape (B, Hkv, encoder_seq, hd);
+every decode step attends to them.  Self-attention caches are written in
+place, as in :mod:`repro_torch.models.attention`.  The audio family has no
+chunked prefill and no speculative verify.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlpm
+from repro_torch.models.common import apply_norm, dense_init, dtype_of, embed_init, norm_params
+
+MAX_DECODE_POS = 32768  # learned position table size, the reference's
+
+
+def _enc_block_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    dt, dev = dtype_of(cfg.dtype), gen.device
+    return {
+        "ln1": norm_params(cfg.d_model, cfg.norm, dt, dev),
+        "attn": attn.attn_params(gen, cfg),
+        "ln2": norm_params(cfg.d_model, cfg.norm, dt, dev),
+        "mlp": mlpm.mlp_params(gen, cfg),
+    }
+
+
+def _dec_block_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    dt, dev = dtype_of(cfg.dtype), gen.device
+    return {
+        "ln1": norm_params(cfg.d_model, cfg.norm, dt, dev),
+        "self_attn": attn.attn_params(gen, cfg),
+        "ln_x": norm_params(cfg.d_model, cfg.norm, dt, dev),
+        "cross_attn": attn.attn_params(gen, cfg),
+        "ln2": norm_params(cfg.d_model, cfg.norm, dt, dev),
+        "mlp": mlpm.mlp_params(gen, cfg),
+    }
+
+
+def _pos_init(gen: torch.Generator, n: int, d: int, dtype) -> torch.Tensor:
+    return torch.randn((n, d), generator=gen, device=gen.device).mul_(0.01).to(dtype)
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    """Random params drawn from ``gen`` on ``gen.device``."""
+    dt, dev = dtype_of(cfg.dtype), gen.device
+    return {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
+        "enc_pos": _pos_init(gen, cfg.encoder_seq, cfg.d_model, dt),
+        "dec_pos": _pos_init(gen, MAX_DECODE_POS, cfg.d_model, dt),
+        "encoder": [_enc_block_params(gen, cfg) for _ in range(cfg.encoder_layers)],
+        "enc_norm": norm_params(cfg.d_model, cfg.norm, dt, dev),
+        "decoder": [_dec_block_params(gen, cfg) for _ in range(cfg.n_layers)],
+        "final_norm": norm_params(cfg.d_model, cfg.norm, dt, dev),
+        "lm_head": dense_init(gen, cfg.d_model, cfg.vocab_size, dt),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def enc_block(p: dict, cfg: ArchConfig, h: torch.Tensor, provider=None) -> torch.Tensor:
+    """One encoder block: bidirectional self-attention, then the MLP."""
+    b, s, _ = h.shape
+    xn = apply_norm(p["ln1"], h, cfg.norm)
+    q, k, v = attn._qkv(p["attn"], cfg, xn, provider)
+    o = ops.flash_attention(q, k, v, class_id="flash_attention_bidir", causal=False,
+                            provider=provider)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    h = h + ops.matmul(o, p["attn"]["wo"], provider=provider)
+    xn2 = apply_norm(p["ln2"], h, cfg.norm)
+    return h + mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider)
+
+
+def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, provider=None) -> torch.Tensor:
+    """frames: (B, enc_seq, D) stub embeddings -> encoder hidden states."""
+    h = frames.to(dtype_of(cfg.dtype)) + params["enc_pos"][None, :frames.shape[1]]
+    for p in params["encoder"]:
+        h = enc_block(p, cfg, h, provider)
+    return apply_norm(params["enc_norm"], h, cfg.norm)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def _cross_attend(p: dict, cfg: ArchConfig, x: torch.Tensor, ck: torch.Tensor,
+                  cv: torch.Tensor, provider=None) -> torch.Tensor:
+    """x: (B, S, D) attends to precomputed cross K/V (B, Hkv, Senc, hd)."""
+    b, s, _ = x.shape
+    q = ops.matmul(x, p["wq"], provider=provider).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    o = ops.flash_attention(q.transpose(1, 2), ck, cv, class_id="flash_attention_cross",
+                            causal=False, provider=provider)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    return ops.matmul(o, p["wo"], provider=provider)
+
+
+def _cross_kv(p: dict, cfg: ArchConfig, enc: torch.Tensor,
+              provider=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's output projected to cross K/V, each (B, Hkv, Senc, hd)."""
+    b, s, _ = enc.shape
+    k = ops.matmul(enc, p["wk"], provider=provider).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = ops.matmul(enc, p["wv"], provider=provider).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+
+def dec_block(p: dict, cfg: ArchConfig, h: torch.Tensor, *, enc: torch.Tensor | None = None,
+              cache: dict | None = None, positions: torch.Tensor | None = None,
+              pos: torch.Tensor | None = None, provider=None) -> tuple[torch.Tensor, dict | None]:
+    """One decoder block; returns (h, the layer's cache written).
+
+    Full sequence (``positions``): cross K/V from ``enc``, the self-attention
+    cache (given: a fresh one) written in place.  Decode (``pos``, (B,) per
+    slot): one token per slot against ``cache``'s self-KV and cross K/V."""
+    xn = apply_norm(p["ln1"], h, cfg.norm)
+    if pos is not None:
+        a, c_self = attn.attn_decode(p["self_attn"], cfg, xn, "G", pos=pos, cache=cache["self"],
+                                     provider=provider)
+        ck, cv = cache["cross_k"], cache["cross_v"]
+    else:
+        a, c_self = attn.attn_forward(p["self_attn"], cfg, xn, "G", positions=positions,
+                                      cache=None if cache is None else cache["self"],
+                                      provider=provider)
+        ck, cv = _cross_kv(p["cross_attn"], cfg, enc, provider)
+    h = h + a
+    xc = apply_norm(p["ln_x"], h, cfg.norm)
+    h = h + _cross_attend(p["cross_attn"], cfg, xc, ck, cv, provider)
+    xn2 = apply_norm(p["ln2"], h, cfg.norm)
+    h = h + mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider)
+    if cache is None:
+        return h, None
+    return h, {"self": c_self, "cross_k": ck, "cross_v": cv}
+
+
+def _dec_embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    s = tokens.shape[1]
+    return params["embed"][tokens.long()] + params["dec_pos"][None, :s]
+
+
+def forward(params: dict, cfg: ArchConfig, batch: dict,
+            provider=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """batch: frames (B, enc_seq, D) + tokens (B, S). Returns (logits, aux = 0)."""
+    enc = encode(params, cfg, batch["frames"], provider)
+    h = _dec_embed(params, batch["tokens"])
+    b, s, _ = h.shape
+    positions = torch.arange(s, device=h.device).expand(b, s)
+    for p in params["decoder"]:
+        h, _ = dec_block(p, cfg, h, enc=enc, positions=positions, provider=provider)
+    h = apply_norm(params["final_norm"], h, cfg.norm)
+    logits = ops.matmul(h, params["lm_head"], class_id="matmul_lmhead", provider=provider)
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def prefill(params: dict, cfg: ArchConfig, batch: dict, *, max_len: int,
+            true_len: int | None = None, provider=None) -> tuple[torch.Tensor, dict]:
+    """Encode the frames and process the prompt; returns (last-position
+    logits (B, V), cache).  ``true_len``: the number of real decoder tokens
+    when the prompt is right-padded (see :func:`repro_torch.models.lm.prefill`)."""
+    enc = encode(params, cfg, batch["frames"], provider)
+    h = _dec_embed(params, batch["tokens"])
+    b, s, _ = h.shape
+    positions = torch.arange(s, device=h.device).expand(b, s)
+    layers = []
+    for p in params["decoder"]:
+        c0 = {"self": attn.init_attn_cache(cfg, "G", b, max_len, h.device)}
+        h, c = dec_block(p, cfg, h, enc=enc, cache=c0, positions=positions, provider=provider)
+        layers.append(c)
+    t = s if true_len is None else int(true_len)
+    if not 1 <= t <= s:
+        raise ValueError(f"true_len {t} outside 1..{s}")
+    h_last = apply_norm(params["final_norm"], h[:, t - 1:t, :], cfg.norm)
+    logits = ops.matmul(h_last, params["lm_head"], class_id="matmul_lmhead", provider=provider)
+    return logits[:, 0, :], {"layers": layers,
+                             "t": torch.full((b,), t, dtype=torch.int32, device=h.device)}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
+    """A zeroed decode cache: self KV per layer and room for the cross K/V."""
+    dt = dtype_of(cfg.dtype)
+    shape = (batch, cfg.n_kv_heads, cfg.encoder_seq, cfg.head_dim)
+    return {
+        "layers": [{"self": attn.init_attn_cache(cfg, "G", batch, max_len, device),
+                    "cross_k": torch.zeros(shape, dtype=dt, device=device),
+                    "cross_v": torch.zeros(shape, dtype=dt, device=device)}
+                   for _ in range(cfg.n_layers)],
+        "t": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def decode_step(params: dict, cfg: ArchConfig, cache: dict, tokens: torch.Tensor,
+                provider=None) -> tuple[torch.Tensor, dict]:
+    """tokens: (B,) — one new token per slot, each at its own position.
+    Returns (logits (B, V), cache); self-KV rows are written in place and
+    ``t`` advances by one."""
+    pos = cache["t"]
+    h = params["embed"][tokens.long()[:, None]] + params["dec_pos"][pos.long()][:, None, :]
+    layers = []
+    for p, c in zip(params["decoder"], cache["layers"]):
+        h, c_out = dec_block(p, cfg, h, cache=c, pos=pos, provider=provider)
+        layers.append(c_out)
+    h = apply_norm(params["final_norm"], h, cfg.norm)
+    logits = ops.matmul(h, params["lm_head"], class_id="matmul_lmhead", provider=provider)
+    return logits[:, 0, :], {"layers": layers, "t": pos + 1}

@@ -1,5 +1,6 @@
-"""Decoder-only LM stack: dense and MoE attention layers and recurrent
-(rwkv6, griffin) layers (the counterpart of ``repro.models.lm``).
+"""Decoder-only LM stack: dense and MoE attention layers, recurrent
+(rwkv6, griffin) layers and the VLM's vision prefix (the counterpart of
+``repro.models.lm``).
 
 The reference stacks each layer-pattern position's params along a leading
 axis and runs ``jax.lax.scan`` over the repeats plus explicit tail layers.
@@ -13,6 +14,13 @@ Entry points (bundled per config by :mod:`repro_torch.models.build`):
   prefill_chunk(params, cache, tok, off)    — one prompt chunk at offset ``off``
   decode_step(params, cache, tok)           — one token per slot, cache updated in place
   verify_step(params, cache, tok, off)      — k+1 speculative positions per lane
+
+A vision-prefixed arch (internvl2) takes ``batch["patch_embeds"]`` (B, P, D)
+beside the tokens: the stub frontend's patch embeddings, projected by
+``vis_proj`` through the matmul kernel and prepended to the text, so
+``forward`` returns logits over P + S positions and a cache holds P +
+``max_len`` positions.  Such an arch has no chunked prefill and no verify
+(``ValueError``, as in the reference).
 
 Each takes ``provider``, the :class:`~repro_torch.kernels.ops.ScheduleProvider`
 every kernel op resolves its schedule through (None: the process default),
@@ -30,10 +38,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import recurrent as rec
 from repro_torch.models.common import apply_norm, dense_init, dtype_of, embed_init, norm_params
-
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.vision_tokens or cfg.encoder_layers:
-        raise NotImplementedError("enc-dec and vision-prefixed archs are not ported yet: ROADMAP A.7")
 
 
 # ---------------------------------------------------------------------------
@@ -136,9 +140,10 @@ def apply_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random params drawn from ``gen`` on ``gen.device``."""
-    _check_supported(cfg)
     dt = dtype_of(cfg.dtype)
     params: dict[str, Any] = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt)}
+    if cfg.vision_tokens:
+        params["vis_proj"] = dense_init(gen, cfg.d_model, cfg.d_model, dt)
     params["layers"] = [block_params(gen, cfg, kind) for kind in cfg.layer_kinds]
     params["final_norm"] = norm_params(cfg.d_model, cfg.norm, dt, gen.device)
     if cfg.tie_embeddings:
@@ -193,12 +198,22 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.long, device=device).expand(b, s)
 
 
+def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict, provider=None) -> torch.Tensor:
+    """The tokens' embeddings, behind the projected patch embeddings of a
+    vision-prefixed arch."""
+    h = _embed(params, cfg, batch["tokens"])
+    if not cfg.vision_tokens:
+        return h
+    vis = ops.matmul(batch["patch_embeds"].to(h.dtype), params["vis_proj"], provider=provider)
+    return torch.cat([vis, h], dim=1)
+
+
 def forward(params: dict, cfg: ArchConfig, batch: dict,
             provider=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits and the auxiliary loss: the MoE layers' summed
-    load-balance loss (zero without MoE layers)."""
-    _check_supported(cfg)
-    h = _embed(params, cfg, batch["tokens"])
+    load-balance loss (zero without MoE layers).  A vision-prefixed arch's
+    logits cover the prefix and the text."""
+    h = _embed_inputs(params, cfg, batch, provider)
     b, s, _ = h.shape
     h, _, aux = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device), caches=None,
                             provider=provider)
@@ -220,7 +235,8 @@ def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, devic
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
-    _check_supported(cfg)
+    """``max_len`` counts text positions; the vision prefix is added here."""
+    max_len = max_len + cfg.vision_tokens
     return {
         "layers": [init_block_cache(cfg, kind, batch, max_len, device)
                    for kind in cfg.layer_kinds],
@@ -235,16 +251,16 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *, max_len: int,
     ``true_len`` marks the number of real tokens when the prompt is
     right-padded to a bucket: logits come from the last real position and the
     decode position starts there (pad rows sit beyond it and are overwritten
-    before they become visible)."""
-    tokens = batch["tokens"]
-    h = _embed(params, cfg, tokens)
+    before they become visible).  It counts text tokens: a vision prefix
+    sits before them."""
+    h = _embed_inputs(params, cfg, batch, provider)
     b, s, _ = h.shape
     caches = init_cache(cfg, b, max_len, h.device)
     h, layers, _ = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device),
                                caches=caches["layers"], provider=provider)
-    t = s if true_len is None else int(true_len)
-    if not 1 <= t <= s:
-        raise ValueError(f"true_len {t} outside 1..{s}")
+    t = s if true_len is None else int(true_len) + cfg.vision_tokens
+    if not cfg.vision_tokens + 1 <= t <= s:
+        raise ValueError(f"true_len {true_len} outside 1..{s - cfg.vision_tokens}")
     h_last = apply_norm(params["final_norm"], h[:, t - 1:t, :], cfg.norm)
     logits = _lm_head(params, cfg, h_last, provider=provider)
     cache = {"layers": layers,
@@ -260,7 +276,8 @@ def prefill_chunk(params: dict, cfg: ArchConfig, cache: dict, tokens: torch.Tens
     layers return fresh state, ``t`` becomes ``off + C``.  Successive chunks
     from ``off = 0`` compute what one :func:`prefill` of the whole prompt
     does."""
-    _check_supported(cfg)
+    if cfg.vision_tokens:
+        raise ValueError("chunked prefill does not support vision-prefix archs")
     off = int(off)
     h = _embed(params, cfg, tokens)
     b, s, _ = h.shape
@@ -282,7 +299,8 @@ def verify_step(params: dict, cfg: ArchConfig, cache: dict, tokens: torch.Tensor
     Every norm and attention runs once per position at decode's shapes, and
     the projections take the matmul's rows body, whose bits do not depend
     on M: logits at an accepted position are plain decode's, bit for bit."""
-    _check_supported(cfg)
+    if cfg.vision_tokens:
+        raise ValueError("speculative verify does not support vision-prefix archs")
     h = _embed(params, cfg, tokens)
     b, s, _ = h.shape
     off = torch.broadcast_to(torch.as_tensor(off, device=h.device).long(), (b,))

@@ -6,7 +6,11 @@ whose ``t`` vector tracks a per-slot decode position, so sequences at
 different lengths decode together in one ``decode_step``.  A new request is
 prefilled (batch 1) and spliced into a free slot's rows of every cache
 tensor — in place, where the reference builds a new cache; a finished
-request frees its slot at once.
+request frees its slot at once.  ``extras`` are the stub frontends' inputs
+every prefill takes beside the tokens, as in the reference: encoder frames
+(``frames``, whisper) or patch embeddings (``patch_embeds``, internvl2); a
+2-D extra gets a batch axis at admission.  The enc-dec cache (self-KV,
+``cross_k``, ``cross_v``, ``t``) is spliced like any other.
 
 Prompts are right-padded to power-of-two buckets with ``true_len`` (exact
 logits and cache positions), where padding is provably inert: attention-only
@@ -56,12 +60,14 @@ class Request:
 
 class ServingEngine:
     def __init__(self, model: Model, params: dict, *, slots: int, max_len: int,
-                 provider=None, plan: ExecutionPlan | None = None,
+                 extras: dict | None = None, provider=None, plan: ExecutionPlan | None = None,
                  prefill_buckets: bool = True):
         self.model = model
         self.params = params
         self.slots = slots
         self.max_len = max_len
+        self.extras = {k: torch.as_tensor(v, device=model.device)
+                       for k, v in (extras or {}).items()}
         self.cache = model.init_cache(slots, max_len)
         self.active: dict[int, Request] = {}
         self.last_logits: torch.Tensor | None = None   # (slots, vocab), latest decode
@@ -176,18 +182,18 @@ class ServingEngine:
         self._prefill_lengths.add(pad)
         self.prefill_true_tokens += n
         self.prefill_padded_tokens += pad
-        toks = torch.tensor([req.prompt + [0] * (pad - n)], dtype=torch.long,
-                            device=self.model.device)
+        batch = {"tokens": torch.tensor([req.prompt + [0] * (pad - n)], dtype=torch.long,
+                                        device=self.model.device)}
+        for k, v in self.extras.items():
+            batch[k] = v[None] if v.dim() == 2 else v   # (1, ..., D) stub inputs
         if self.tracer.enabled and self.trace_compute:
             with self.tracer.span("prefill", self.trace_track, uid=req.uid, true_len=n,
                                   bucket=pad):
-                logits, cache1 = self.model.prefill(self.params, {"tokens": toks},
-                                                    max_len=self.max_len, true_len=n,
-                                                    provider=self.provider)
+                logits, cache1 = self.model.prefill(self.params, batch, max_len=self.max_len,
+                                                    true_len=n, provider=self.provider)
         else:
-            logits, cache1 = self.model.prefill(self.params, {"tokens": toks},
-                                                max_len=self.max_len, true_len=n,
-                                                provider=self.provider)
+            logits, cache1 = self.model.prefill(self.params, batch, max_len=self.max_len,
+                                                true_len=n, provider=self.provider)
         tok = int(torch.argmax(logits[0]))
         req.generated.append(tok)
         if max_new_tokens <= 0 or (eos_id is not None and tok == eos_id) or \

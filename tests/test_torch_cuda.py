@@ -626,6 +626,73 @@ def test_flash_attention_at_chunk_shapes_matches_plain(card, c, q_offset):
     _close(got, want, BF16_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("class_id,b,sq,skv", [("flash_attention_bidir", 1, 1500, 1500),
+                                               ("flash_attention_cross", 4, 1, 1500),
+                                               ("flash_attention_cross", 1, 181, 1500)])
+def test_noncausal_attention_at_whisper_shapes_matches_plain(card, dtype, class_id, b, sq, skv):
+    """K2 with ``causal=False`` at whisper-medium's shapes (16 heads, D =
+    64): the encoder's 1500 frames, cross-attention over them at 4-slot
+    decode (Q = 1: one live row per 64-row CTA, the last key chunk ragged)
+    and at the prime 181-row prefill (default Q tile 1), each launch counted
+    under its class and body."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(sq + b)
+    q = torch.randn((b, 16, sq, 64), generator=g, device=card).to(dt)
+    k, v = (torch.randn((b, 16, skv, 64), generator=g, device=card).to(dt) for _ in range(2))
+    body = fa.body_for(dt)
+    before = fa.class_launches[class_id, body]
+    got = ops.flash_attention(q, k, v, class_id=class_id, causal=False)
+    assert fa.class_launches[class_id, body] == before + 1
+    _close(got, ref.chunked_attention(q, k, v, causal=False),
+           TOL if dt == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b"])
+def test_encdec_and_vision_prefix_kernel_path_matches_plain_path(card, arch):
+    """Reduced whisper (encoder, cross-attention) and internvl2 (vision
+    projection) with seeded frames or patch embeddings: prefill and three
+    decode steps, kernel path against plain path, f32."""
+    cfg = reduced(get_arch(arch))
+    model = build_model(cfg, card)
+    params = model.init(seed=0)
+    g = torch.Generator(device=card).manual_seed(1)
+    toks = torch.randint(1, 512, (2, 12), generator=g, device=card)
+    extra = (("frames", cfg.encoder_seq) if cfg.family == "audio"
+             else ("patch_embeds", cfg.vision_tokens))
+    batch = {"tokens": toks,
+             extra[0]: torch.randn((2, extra[1], cfg.d_model), generator=g, device=card)}
+    before = dict(fa.class_launches)
+    lk, ck = model.prefill(params, batch, max_len=32, true_len=9)
+    with use_backend("ref"):
+        lr, cr = model.prefill(params, batch, max_len=32, true_len=9)
+    _close(lk, lr)
+    classes = (("flash_attention_bidir", "flash_attention_cross") if cfg.family == "audio"
+               else ("flash_attention_causal",))
+    assert all(fa.class_launches[c, "fma"] > before.get((c, "fma"), 0) for c in classes)
+    for step in range(3):
+        lk, ck = model.decode_step(params, ck, toks[:, step])
+        with use_backend("ref"):
+            lr, cr = model.decode_step(params, cr, toks[:, step])
+        _close(lk, lr)
+
+
+def test_measured_runner_times_decode_attention_without_k2(card):
+    """A causal attention instance at Q = 1 is timed as the decode attention
+    the model runs: no K2 launch; cross-attention at Q = 1 launches K2."""
+    from repro_torch.core.measured_runner import MeasuredRunner
+    from repro_torch.core.workload import KernelInstance
+
+    runner = MeasuredRunner()
+    dec = KernelInstance.make("flash_attention_causal", Q=1, KV=512, H=24, D=128, B=4,
+                              dtype="bfloat16")
+    cross = KernelInstance.make("flash_attention_cross", Q=1, KV=1500, H=16, D=64, B=4,
+                                dtype="bfloat16")
+    before = fa.launches
+    assert runner.seconds(dec) > 0 and fa.launches == before
+    assert runner.seconds(cross) > 0 and fa.launches > before
+
+
 @pytest.mark.parametrize("k,n", [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072)])
 def test_k1_rows_at_verify_m_take_decode_bits(card, k, n):
     """The batched verify's projections (M = 4 lanes x 4 positions = 16

@@ -51,6 +51,7 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.ops import use_backend
 from repro_torch.launch import serve_fleet, trace_report
+from repro_torch.launch.serve import stub_extras as serve_stub_extras
 from repro_torch.models import build_model
 from repro_torch.obs import Tracer
 from repro_torch.obs.export import chrome_trace, load_records
@@ -576,10 +577,32 @@ def test_measured_target_on_the_cpu_is_refused(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b"])
-def test_audio_and_vision_archs_are_refused(arch):
-    cfg = reduced(get_arch(arch))
-    with pytest.raises(ValueError, match="A.7"):
-        tfleet.ServingFleet(cfg, build_model(cfg, "cpu"), {}, replicas=1)
+def test_audio_and_vision_archs_are_refused(arch, tmp_path):
+    """The audio and vision archs are served, no longer refused: on reduced
+    configs with the reference's params converted and its stub inputs (zero
+    frames, zero patch embeddings) as ``extras``, slot replicas give the
+    reference fleet's whole summary and per-request tokens."""
+    jcfg, cfg = jreduced(jget_arch(arch)), reduced(get_arch(arch))
+    jmodel = jbuild_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = build_model(cfg, "cpu")
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    extras = serve_stub_extras(cfg)
+
+    def run(f, c, m, p, registry):
+        fleet = f.ServingFleet(c, m, p, registry=registry, extras=extras,
+                               **FLEETS["slot"] | {"slos": None})
+        try:
+            summary = fleet.serve(_traffic(f, "slot", c.vocab_size, fleet.tick_s)[:8])
+        finally:
+            fleet.close()
+        return summary, {r.uid: r.generated for r in fleet.metrics.completed}
+
+    want = run(jfleet, jcfg, jmodel, jparams, JScheduleRegistry(str(tmp_path / "a")))
+    with use_backend("ref"):
+        got = run(tfleet, cfg, model, params, ScheduleRegistry(str(tmp_path / "b")))
+    assert got == want
+    assert got[0]["completed"] > 0 and got[0]["schedule_mismatches"] == 0
 
 
 def test_serve_fleet_main_prints_summary_and_trace_report_attributes_all(tmp_path, capsys):

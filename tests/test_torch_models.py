@@ -215,10 +215,36 @@ def test_variant_forward_matches(variant):
 
 
 def test_unported_layer_kinds_raise():
-    """Enc-dec layers are still to port: building such a config raises."""
-    base = reduced(get_arch("minitron-4b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(base, encoder_layers=2, encoder_seq=16), "cpu").init(seed=0)
+    """Every layer kind is ported: the port raises only where the reference
+    raises.  A vision-prefixed arch has no chunked prefill and no verify
+    (the reference's ``ValueError``, word for word); the audio model has
+    neither (the reference's ``Model`` holds None for both); the paged
+    engine refuses both families, as the reference's does."""
+    from repro.serving import PagedServingEngine as JPagedServingEngine
+    from repro_torch.serving import PagedServingEngine
+
+    for arch in ("internvl2-26b", "whisper-medium"):
+        jcfg, cfg = jreduced(jget_arch(arch)), reduced(get_arch(arch))
+        jmodel, model = jbuild_model(jcfg), build_model(cfg, "cpu")
+        jparams, params = jmodel.init(jax.random.PRNGKey(0)), model.init(seed=0)
+        toks = _tokens(1, 4)
+        for name in ("prefill_chunk", "verify_step"):
+            off = np.zeros((1,), np.int32) if name == "verify_step" else 0
+            if cfg.family == "audio":
+                assert getattr(jmodel, name) is None
+                with pytest.raises(ValueError, match="audio"):
+                    getattr(model, name)(params, model.init_cache(1, 8), torch.from_numpy(toks), off)
+                continue
+            with pytest.raises(ValueError) as want:
+                getattr(jmodel, name)(jparams, jmodel.init_cache(1, 8), jnp.asarray(toks), off)
+            with pytest.raises(ValueError) as got:
+                getattr(model, name)(params, model.init_cache(1, 8), torch.from_numpy(toks), off)
+            assert str(got.value) == str(want.value)
+        with pytest.raises(ValueError) as want:
+            JPagedServingEngine(jmodel, jparams, decode_batch=2, max_ctx=16)
+        with pytest.raises(ValueError) as got:
+            PagedServingEngine(model, params, decode_batch=2, max_ctx=16)
+        assert str(got.value) == str(want.value)
 
 
 def test_cuda_device_without_gpu_raises():

@@ -387,6 +387,43 @@ def test_measured_runner_keys_follow_the_wrappers():
     assert key(concretize(s("rglru_scan", {"T": 4, "C": 16}), rgi))[1] == (16,)
 
 
+@pytest.mark.parametrize("class_id,q,window,runs", [
+    ("flash_attention_causal", 1, 0, "decode"), ("flash_attention_softcap", 1, 0, "decode"),
+    ("flash_attention_swa", 1, 24, "decode"), ("flash_attention_cross", 1, 0, "k2"),
+    ("flash_attention_causal", 8, 0, "k2"), ("flash_attention_bidir", 24, 0, "k2")])
+def test_measured_runner_times_the_attention_the_model_runs(cpu_runner, monkeypatch, class_id, q,
+                                                          window, runs):
+    """A causal class at Q = 1 is decode's instance, and decode runs the
+    masked decode attention (``attention._masked_decode_attention``), not K2:
+    that is what the runner times, under a launch key no schedule changes.
+    Every other attention instance, cross-attention at Q = 1 included,
+    times the K2 wrapper (``flash_attention.flash_attention``).  Both
+    compute the instance's attention."""
+    from repro_torch.core import measured_runner as mr
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+
+    calls = []
+    real_decode, real_k2 = attention._masked_decode_attention, fa.flash_attention
+    monkeypatch.setattr(attention, "_masked_decode_attention",
+                        lambda *a, **kw: calls.append("decode") or real_decode(*a, **kw))
+    monkeypatch.setattr(fa, "flash_attention", lambda *a, **kw: calls.append("k2") or real_k2(*a, **kw))
+    inst = _f32(class_id, Q=q, KV=24, H=2, D=16, B=2, window=window)
+    assert mr.is_decode_attention(inst) == (runs == "decode")
+    assert cpu_runner.seconds(inst) > 0
+    assert calls and set(calls) == {runs}
+    cs = concretize(default_schedule(inst), inst)
+    key = cpu_runner.launch_key(cs)
+    assert (key[1] == mr.DECODE_ATTENTION_KEY) == (runs == "decode")
+    q_, k, v = cpu_runner._inputs_for(inst)
+    causal = class_id != "flash_attention_bidir" and class_id != "flash_attention_cross"
+    want = ref.chunked_attention(q_, k, v, causal=causal, window=window,
+                                 softcap=mr.SOFTCAP if class_id == "flash_attention_softcap" else 0.0,
+                                 q_offset=24 - q if causal else 0)
+    torch.testing.assert_close(cpu_runner.run(cs), want, rtol=2e-4, atol=2e-4)
+
+
 def test_tuning_and_transfer_run_through_the_measured_runner(cpu_runner):
     """``tune_model``, ``select_donor`` and ``transfer_tune`` end to end on
     timed plain versions: records carry the test target, transferred kernels
