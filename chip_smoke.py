@@ -158,6 +158,28 @@ toolkit.  Phases, one result line each:
    speedup ledger (A) or the acceptance per class (B), the critical path
    ``trace_report`` attributes, the launches per kernel and body, and the
    phase's peak memory.
+13. train — gemma2-2b trained on the kernels, forward and backward
+   (``phase_train``).  First K2's backward kernel
+   (``csrc/flash_attention_bwd.cu``) against autograd of its plain version
+   at five shapes (gemma2's heads with a 128-token window and softcap 50,
+   the same global, minitron's GQA, a non-causal head, a prime length),
+   bf16 and f32; then timed at gemma2's training shapes (and minitron's)
+   beside its forward, its plain version and SDPA's forward and backward.
+   K1's backward (dX and dW as K1 launches) against autograd of the plain
+   version for every class gemma2 runs at its training shapes, the tied
+   head included, dX and dW timed beside ``torch.matmul``.  Then
+   ``repro_torch.launch.train.main`` at full width and full depth (26
+   layers, bf16, 4 x 512 tokens, 6 steps, random weights from a seeded
+   generator on the card): every loss finite and the last below the first,
+   K1 and its backward launched, 26 K2 backward launches a step, no plain
+   version reached on the card (``ref.cuda_calls``); ms per step (median of
+   steps 2-6), tokens/s, peak memory over the steps, and one step profiled
+   (busy share, top five ops).  Then gemma2-2b at 2 layers, kernel path
+   against plain path on one batch: the loss and every gradient leaf within
+   the bounds stated at ``TRAIN_LOSS_REL``.  Then the 2-layer params and
+   optimizer state after one step saved and restored bit for bit
+   (``checkpoint.CheckpointManager``), and ``train.main`` resumed from that
+   checkpoint for 2 more steps.
 The chunk shapes of the paged path (K2: a 64-row chunk at q_offset 256 of a
 512-row cache; K1: 64x3072x3072 on the tensor cores) are timed after the
 grouped phase beside their plain versions, SDPA given the same boolean mask
@@ -208,6 +230,13 @@ F32_CUDA_CORE_FLOPS = 67e12
 # f32: the repo's f32 kernel tolerance (tests/test_kernels_*.py).
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 F32_TOL = dict(rtol=2e-4, atol=2e-4)
+# K1's backward at gemma2's training shapes: dX is of order 0.02-0.1, where
+# an atol of 3e-2 would pass a dX 25% wrong, so each gradient is held to
+# its own scale: |kernel - plain| <= 1e-2·max|plain| + 3e-2·|plain|.  Both
+# sides differ by dZ's rounding to bf16 before the products (2^-9 relative)
+# and one bf16 rounding of the output: a few tenths of a percent of the
+# largest entry.
+GRAD_SCALE_ATOL, GRAD_RTOL = 1e-2, 3e-2
 # Prefill logits of the full-depth bf16 model, kernel path vs plain path:
 # each of ~200 ops rounds its bf16 output in the same places on both paths,
 # but f32 sums taken in other orders can round to neighbouring bf16 values,
@@ -296,36 +325,77 @@ class Timer:
             times.append(s.elapsed_time(e))
         return statistics.median(times)
 
-    def device_ms(self, fn, iters: int = 10, captures: int = 3) -> float:
+    def _kernels(self, fn, iters: int) -> tuple[collections.Counter, float]:
+        """One torch.profiler capture of ``iters`` calls, each after an L2
+        flush: the launches per kernel name and their summed microseconds
+        (the flush's own kernel, fills and memsets left out)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush()
+                fn()
+            torch.cuda.synchronize()
+        names, us = collections.Counter(), 0.0
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and "FillFunctor" not in e.name and "Memset" not in e.name
+                    and (self.flush_kernel is None or self.flush_kernel not in e.name)):
+                names[e.name] += 1
+                us += e.time_range.elapsed_us()
+        return names, us
+
+    def device_ms(self, fn, iters: int = 10, captures: int = 3) -> float | None:
         """Mean device time per call: the summed durations of the kernels one
         call launches, each call after an L2 flush, from a torch.profiler
         trace (the flush's own kernel left out).  Unlike :meth:`ms`, it leaves
-        out the host's time to enqueue the call.  A capture now and then
-        delivers no device events at all; it is taken again, up to
-        ``captures`` times."""
-        from torch.profiler import ProfilerActivity, profile
-
+        out the host's time to enqueue the call.  Captures now and then drop
+        device events (all of them, or all but the first calls' worth): a
+        capture counts only if it holds ``iters`` times the kernels of a
+        capture of one call, name by name; else both are taken again, up to
+        ``captures`` times, and then the time is not measured (None)."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         for _ in range(captures):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    self.flush()
-                    fn()
-                torch.cuda.synchronize()
-            spans = [e.time_range.elapsed_us() for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and "FillFunctor" not in e.name and "Memset" not in e.name
-                     and (self.flush_kernel is None or self.flush_kernel not in e.name)]
-            if spans:
-                return sum(spans) / iters / 1e3
-        raise AssertionError(f"the profiler recorded no device time in {captures} captures")
+            one, _ = self._kernels(fn, 1)
+            names, us = self._kernels(fn, iters)
+            if one and names == collections.Counter({k: n * iters for k, n in one.items()}):
+                return us / iters / 1e3
+            log("device_ms_capture_dropped", one_call=dict(one), **{f"{iters}_calls": dict(names)})
+        log("device_ms_not_measured", captures=captures)
+        return None
+
+    def held_ms(self, fn, iters: int = 10, hold_cycles: int = 2_000_000) -> float:
+        """Median device time of one call, without the profiler: after the
+        flush the stream is held by ``torch.cuda._sleep`` (~1 ms) before the
+        start event, so the host enqueues the call while the device waits
+        and the events time its kernels back to back, not the host's issue."""
+        torch = self.torch
+        fn()
+        times = []
+        for _ in range(iters):
+            self.flush()
+            torch.cuda._sleep(hold_cycles)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return statistics.median(times)
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ratio(a: float | None, b: float | None) -> float | None:
+    """a / b, or None where either was not measured."""
+    return a / b if a is not None and b else None
 
 
 def max_err(torch, a, b) -> float:
@@ -352,7 +422,7 @@ def assert_close(torch, got, want, tol: dict, what: str) -> float:
 #: kernels whose registers and spills the build phase reports (each
 #: instantiation: CTA tiles, head dims, dtypes, rounding mode)
 BUILD_BODIES = ("matmul_mma_kernel", "attention_mma_kernel", "matmul_rows_kernel",
-                "matmul_rows_round_kernel")
+                "matmul_rows_round_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
 
 
 def phase_build():
@@ -382,8 +452,8 @@ def phase_build():
 
 
 #: a timed row's fields held to its bytes bound
-TIMED_FIELDS = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "tile64_ms",
-                "tile64_device_ms")
+TIMED_FIELDS = ("ms", "device_ms", "held_ms", "plain_ms", "library_ms", "library_device_ms",
+                "library_held_ms", "tile64_ms", "tile64_device_ms")
 
 
 def under_bytes_bound(rows) -> list:
@@ -423,6 +493,8 @@ def phase_l2_flush(torch) -> dict:
         for flush, timer in timers.items():
             row = {"read": read, "flush": flush, "bytes": nbytes, "bound_ms": b_ms,
                    "ms": timer.ms(fn, iters=20), "device_ms": timer.device_ms(fn, iters=20)}
+            if row["device_ms"] is None:
+                raise AssertionError(f"l2 flush check: no whole profiler capture of {read}")
             row["under_bound"] = row["device_ms"] < b_ms
             rows.append(row)
             log("l2_flush", **row)
@@ -691,8 +763,7 @@ def timed_matmul_row(torch, timer, x, w, kw, class_id, cs, err) -> dict:
         row["device_ms"] = timer.device_ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw))
         row["library_device_ms"] = (timer.device_ms(lambda: torch.matmul(x, w))
                                     if row["library_ms"] else None)
-        row["device_ratio"] = (row["device_ms"] / row["library_device_ms"]
-                               if row["library_device_ms"] else None)
+        row["device_ratio"] = ratio(row["device_ms"], row["library_device_ms"])
     return row
 
 
@@ -792,7 +863,7 @@ def phase_attention(torch, timer) -> dict:
         row["device_ms"] = timer.device_ms(lambda: fa.launch(q, k, v, cs, window=window))
         row["library_device_ms"] = timer.device_ms(lambda: F.scaled_dot_product_attention(
             q, ke, ve, is_causal=True))
-        row["device_ratio"] = row["device_ms"] / row["library_device_ms"]
+        row["device_ratio"] = ratio(row["device_ms"], row["library_device_ms"])
         # the f32 body at the same shape, for the record (not the served dtype)
         if (arch, s) == ("minitron-4b", 512):
             q32, k32, v32 = q.float(), k.float(), v.float()
@@ -864,7 +935,7 @@ def slice_attention_row(torch, timer, g, arch, class_id, b, hq, hkv, sq, skv, d,
            "library_device_ms": timer.device_ms(lambda: F.scaled_dot_product_attention(
                q, ke, ve, is_causal=causal))}
     row["library_ratio"] = row["ms"] / row["library_ms"]
-    row["device_ratio"] = row["device_ms"] / row["library_device_ms"]
+    row["device_ratio"] = ratio(row["device_ms"], row["library_device_ms"])
     log("attention_slice_shape", **row)
     return row
 
@@ -1091,11 +1162,12 @@ def scans_ab(parent: Path) -> int:
             log("scan_turn", who=who, **row)
             got[(row["kind"], str(row["B"]), str(row["T"]), str(row["tiles"]["T"]), who)].append(row)
     for key in sorted({k[:4] for k in got}):
-        mean = {who: {m: statistics.mean(r[m] for r in got[(*key, who)]) for m in ("ms", "device_ms")}
-                for who in ("parent", "this")}
+        mean = {who: {m: (None if any(r[m] is None for r in got[(*key, who)])
+                          else statistics.mean(r[m] for r in got[(*key, who)]))
+                      for m in ("ms", "device_ms")} for who in ("parent", "this")}
         log("scan_ab", kind=key[0], B=int(key[1]), T=int(key[2]), tile_t=int(key[3]),
             parent_device_ms=mean["parent"]["device_ms"], device_ms=mean["this"]["device_ms"],
-            device_ratio=mean["parent"]["device_ms"] / mean["this"]["device_ms"],
+            device_ratio=ratio(mean["parent"]["device_ms"], mean["this"]["device_ms"]),
             parent_ms=mean["parent"]["ms"], ms=mean["this"]["ms"],
             ratio=mean["parent"]["ms"] / mean["this"]["ms"])
     print(nvidia_smi())
@@ -1244,8 +1316,7 @@ def phase_grouped(torch, timer) -> dict:
                                                iters=iters)
             row["library_device_ms"] = (timer.device_ms(lambda: torch.bmm(x, w), iters=iters)
                                         if row["library_ms"] else None)
-            row["device_ratio"] = (row["device_ms"] / row["library_device_ms"]
-                                   if row["library_device_ms"] else None)
+            row["device_ratio"] = ratio(row["device_ms"], row["library_device_ms"])
             shapes.append(row)
             log("grouped_shape", **row)
             del x, w
@@ -1660,6 +1731,31 @@ def traced_rows_geometry():
 PROVIDER_LABEL = "ScheduleProvider.get"
 
 
+def profile_summary(torch, prof, wall_us: float) -> dict:
+    """A capture's device busy share (the union of its kernel intervals over
+    the host-clock window ``wall_us``) and its five ops with the most device
+    time."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:            # the union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    ops_ = []
+    for avg in prof.key_averages():
+        dev = getattr(avg, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(avg, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            ops_.append({"name": avg.key[:120], "calls": avg.count, "device_ms": dev / 1e3})
+    ops_.sort(key=lambda o: -o["device_ms"])
+    return {"window_ms": wall_us / 1e3, "device_events": len(spans),
+            "device_busy_ms": busy / 1e3 if spans else None,
+            "device_busy_share": busy / wall_us if spans else None,
+            "top_device_ops": ops_[:5]}
+
+
 def profile_decode(torch, engine, prompts, steps: int = 3, provider=None) -> dict:
     """One torch.profiler capture of ``steps`` decode steps of a busy slot
     engine: the device's busy share of the window (the union of its kernel
@@ -1694,25 +1790,7 @@ def profile_decode(torch, engine, prompts, steps: int = 3, provider=None) -> dic
             del provider.get      # back to the class's method
     while engine.active:
         engine.step()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:            # the union of the device intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    ops_ = []
-    for avg in prof.key_averages():
-        dev = getattr(avg, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(avg, "self_cuda_time_total", 0.0)
-        if dev > 0:
-            ops_.append({"name": avg.key[:120], "calls": avg.count, "device_ms": dev / 1e3})
-    ops_.sort(key=lambda o: -o["device_ms"])
-    out = {"steps": steps, "window_ms": wall_us / 1e3, "device_events": len(spans),
-           "device_busy_ms": busy / 1e3 if spans else None,
-           "device_busy_share": busy / wall_us if spans else None,
-           "top_device_ops": ops_[:5]}
+    out = {"steps": steps, **profile_summary(torch, prof, wall_us)}
     if provider is not None:
         label = next((a for a in prof.key_averages() if a.key == PROVIDER_LABEL), None)
         if label is None:
@@ -3041,6 +3119,394 @@ def phase_fleet(torch, db, srv: list) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# train: gemma2-2b trained at full width on the kernels, forward and backward
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "gemma2-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
+#: the step captured by torch.profiler (0-based; its time stays in the median)
+TRAIN_PROFILED_STEP = 3
+#: K2 backward shapes checked against autograd of the plain version,
+#: (name, B, Hq, Hkv, S, D, causal, window, softcap): gemma2's heads with a
+#: window that bites at 512 and softcap 50, the same global, minitron's
+#: GQA, a non-causal head and a prime length
+ATTN_BWD_CHECKS = (("gemma2_window", 1, 8, 4, 512, 256, True, 128, 50.0),
+                   ("gemma2_global", 1, 8, 4, 512, 256, True, 0, 50.0),
+                   ("minitron", 1, 24, 8, 512, 128, True, 0, 0.0),
+                   ("noncausal", 1, 16, 16, 300, 64, False, 0, 0.0),
+                   ("prime", 1, 8, 4, 181, 256, True, 0, 0.0))
+#: K2 backward shapes timed: gemma2's two layer kinds at the training batch
+#: (the local layer's window, 4096, does not bite at 512 and it has no
+#: softcap: SDPA computes the same function), and minitron's heads
+ATTN_BWD_TIMED = (("gemma2_local", 4, 8, 4, 512, 256, True, 4096, 0.0),
+                  ("gemma2_global", 4, 8, 4, 512, 256, True, 0, 50.0),
+                  ("minitron", 1, 24, 8, 512, 128, True, 0, 0.0))
+#: gemma2's K1 launches at the training batch (M = 4 x 512 tokens):
+#: (name, class, M, K, N): the q, k/v and o projections, the GeGLU up and
+#: down projections and the tied, softcapped LM head
+MM_BWD_SHAPES = (("q", "matmul", 2048, 2304, 2048), ("kv", "matmul", 2048, 2304, 1024),
+                 ("o", "matmul", 2048, 2048, 2304), ("up", "matmul_gelu_glu", 2048, 2304, 18432),
+                 ("down", "matmul", 2048, 9216, 2304),
+                 ("head", "matmul_lmhead_softcap", 2048, 2304, 256000))
+# Kernel path against plain path, end to end: gemma2-2b at full width and 2
+# layers, one batch, the loss and every gradient leaf.  Both paths round each
+# op's output to bf16 in the same places; f32 sums taken in other orders
+# round to neighbouring bf16 values (2^-8 relative), and the backward adds
+# one more such rounding per product (dZ enters dX and dW in bf16).  Over
+# the ~15 ops between a leaf and the loss that stays within a few percent of
+# the leaf's largest gradient entry, and the loss (a mean over 2044
+# positions) well inside 0.5%.
+TRAIN_LOSS_REL = 5e-3
+TRAIN_GRAD_COS = 0.995
+TRAIN_GRAD_MAXREL = 5e-2
+
+
+def attention_bwd_phase(torch, timer) -> dict:
+    """K2's backward kernel against autograd of its plain version
+    (``ref.chunked_attention_bwd``) at ``ATTN_BWD_CHECKS``, bf16 and f32;
+    then, at ``ATTN_BWD_TIMED`` (the training batch), checked alike in bf16
+    and timed beside the plain version, the forward kernel and SDPA's
+    forward and backward under autograd, by events and by held events
+    (:meth:`Timer.held_ms`: late in this script the profiler's captures of
+    these calls came back empty or with the first few calls only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+
+    def inputs(b, hq, hkv, s, d, dtype):
+        q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda").to(dtype)
+                   for h in (hq, hkv, hkv))
+        return q, k, v, torch.randn((b, hq, s, d), generator=g, device="cuda").to(dtype)
+
+    def cs_for(dtype, b, hq, s, d, window):
+        return ops.schedule_for(ops.instance("flash_attention_causal", dtype, Q=s, KV=s, H=hq,
+                                             D=d, B=b, window=window))
+
+    checks, errs = [], {"bf16": 0.0, "f32": 0.0}
+    for name, b, hq, hkv, s, d, causal, window, softcap in ATTN_BWD_CHECKS:
+        for dtype, tol, key in ((torch.bfloat16, BF16_TOL, "bf16"), (torch.float32, F32_TOL, "f32")):
+            q, k, v, do = inputs(b, hq, hkv, s, d, dtype)
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            o = fa.launch(q, k, v, cs_for(dtype, b, hq, s, d, window), **kw)
+            got = fa.launch_bwd(q, k, v, o, do, **kw)
+            want = ref.chunked_attention_bwd(q, k, v, do, **kw)
+            row = {"name": name, "dtype": key}
+            for grad, a, w in zip(("dq", "dk", "dv"), got, want):
+                row[grad] = assert_close(torch, a, w, tol, f"attention backward {name} {key} {grad}")
+                errs[key] = max(errs[key], row[grad])
+            checks.append(row)
+            del q, k, v, do, o, got, want
+    log("train_attention_bwd_checks", checks=checks)
+
+    timed = []
+    for name, b, hq, hkv, s, d, causal, window, softcap in ATTN_BWD_TIMED:
+        q, k, v, do = inputs(b, hq, hkv, s, d, torch.bfloat16)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        cs = cs_for(torch.bfloat16, b, hq, s, d, window)
+        o = fa.launch(q, k, v, cs, **kw)
+        # at the training batch too (B > 1: the b·Hkv + h/group indexing)
+        got, want = fa.launch_bwd(q, k, v, o, do, **kw), ref.chunked_attention_bwd(q, k, v, do, **kw)
+        max_errs = {grad: assert_close(torch, a, w, BF16_TOL, f"attention backward {name} bf16 {grad}")
+                    for grad, a, w in zip(("dq", "dk", "dv"), got, want)}
+        errs["bf16"] = max(errs["bf16"], *max_errs.values())
+        del got, want
+        live = sum(min(i + 1, window) if window else i + 1 for i in range(s)) if causal else s * s
+        nbytes = 2 * (4 * b * hq * s * d + 4 * b * hkv * s * d)   # q, o, dO, dQ; k, v, dK, dV
+        b_ms, b_by = bound_ms(nbytes, 10 * b * hq * live * d)      # 2.5x the forward's 4·live·D
+        row = {"name": name, "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": window,
+               "softcap": softcap, "max_abs_err": max_errs, "bound_ms": b_ms, "bound_by": b_by,
+               "ms": timer.ms(lambda: fa.launch_bwd(q, k, v, o, do, **kw)),
+               "held_ms": timer.held_ms(lambda: fa.launch_bwd(q, k, v, o, do, **kw)),
+               "fwd_ms": timer.ms(lambda: fa.launch(q, k, v, cs, **kw)),
+               "plain_ms": timer.ms(lambda: ref.chunked_attention_bwd(q, k, v, do, **kw), iters=3),
+               "library_ms": None, "library_held_ms": None}
+        row["fwd_bwd_ms"] = row["fwd_ms"] + row["ms"]
+        if not softcap and (window == 0 or window >= s):
+            # one library call computing the same function: SDPA forward and
+            # backward under autograd (the kv heads repeated outside the clock)
+            ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+
+            def sdpa():
+                leaves = [t.detach().requires_grad_() for t in (q, ke, ve)]
+                out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+                return torch.autograd.grad(out, leaves, do)
+
+            row["library_ms"] = timer.ms(sdpa)
+            row["library_held_ms"] = timer.held_ms(sdpa)
+            del ke, ve
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        timed.append(row)
+        log("train_attention_bwd_shape", **row)
+        del q, k, v, do, o
+    torch.cuda.empty_cache()
+    return {"checks": checks, "timed": timed, "max_abs_err": errs["bf16"],
+            "f32_max_abs_err": errs["f32"]}
+
+
+def matmul_bwd_phase(torch, timer) -> dict:
+    """K1's backward (``MatmulFn``: dX and dW as K1 launches, the
+    epilogue's derivative elementwise) against autograd of the plain
+    version for each class gemma2 runs, at its training shapes (the tied
+    head through ``transpose_of``); then dX's and dW's launches timed beside
+    the plain backward and ``torch.matmul`` of the same product."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cuda").manual_seed(32)
+    rows, err = [], 0.0
+    for name, class_id, m, k, n in MM_BWD_SHAPES:
+        n_out = n // 2 if "glu" in class_id else n
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device="cuda") / k ** 0.5).to(torch.bfloat16)
+        dy = (torch.randn((m, n_out), generator=g, device="cuda") / n_out ** 0.5).to(torch.bfloat16)
+        kw = dict(softcap=30.0) if class_id == "matmul_lmhead_softcap" else {}
+        tied = name == "head"
+        src = w.T.contiguous() if tied else None          # the embedding (V, D)
+
+        def grads(backend):
+            xs = x.clone().requires_grad_()
+            if tied:
+                ws = src.clone().requires_grad_()
+                y = ops.matmul(xs, w, class_id=class_id, transpose_of=ws, backend=backend, **kw)
+            else:
+                ws = w.clone().requires_grad_()
+                y = ops.matmul(xs, ws, class_id=class_id, backend=backend, **kw)
+            return torch.autograd.grad(y, (xs, ws), dy)
+
+        before = mm.grad_launches
+        dx, dw = grads("cuda")
+        if mm.grad_launches == before:
+            raise AssertionError(f"K1 backward {name}: no gradient launch")
+        rx, rw = grads("ref")
+        row = {"name": name, "class": class_id, "M": m, "K": k, "N": n, "tied": tied}
+        for part, got, want in (("dx", dx, rx), ("dw", dw, rw)):
+            scale = float(want.float().abs().max())
+            tol = dict(rtol=GRAD_RTOL, atol=GRAD_SCALE_ATOL * scale)
+            row[f"{part}_err"] = assert_close(torch, got, want, tol, f"K1 backward {name} {part}")
+            row[f"{part}_scale"] = scale                    # max |plain|
+            row[f"{part}_rel"] = row[f"{part}_err"] / scale
+        err = max(err, row["dx_err"], row["dw_err"])
+        # dX = dZ (M, N) @ w^T (N, K); dW = x^T (K, M) @ dZ (M, N) (the tied
+        # head's: dZ^T (N, M) @ x (M, K))
+        dz = dy if "glu" not in class_id else torch.randn((m, n), generator=g, device="cuda").to(
+            torch.bfloat16)
+        wt = src if tied else w.T.contiguous()
+        a_w, b_w = (dz.T.contiguous(), x) if tied else (x.T.contiguous(), dz)
+        for part, (a, b) in (("dx", (dz, wt)), ("dw", (a_w, b_w))):
+            mm_, kk, nn = a.shape[0], a.shape[1], b.shape[1]
+            b_ms, b_by = bound_ms(2 * (mm_ * kk + kk * nn + mm_ * nn), 2 * mm_ * kk * nn)
+            row[part] = {"M": mm_, "K": kk, "N": nn, "bound_ms": b_ms, "bound_by": b_by,
+                         "ms": timer.ms(lambda: mm.grad_launch(a, b)),
+                         "library_ms": timer.ms(lambda: torch.matmul(a, b))}
+        row["plain_ms"] = timer.ms(lambda: grads("ref"), iters=3)   # the plain backward, whole
+        rows.append(row)
+        log("train_matmul_bwd", **row)
+        del x, w, dy, dx, dw, rx, rw, dz, wt, a_w, b_w, src
+        torch.cuda.empty_cache()
+    return {"shapes": rows, "max_abs_err": err, "max_rel_err": max(max(r["dx_rel"], r["dw_rel"])
+                                                                   for r in rows)}
+
+
+def step_profile(torch, run) -> tuple:
+    """``run()`` (one train step) under one torch.profiler capture ending in
+    a sync: (its result, :func:`profile_summary` of the window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = run()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    summary = profile_summary(torch, prof, wall_us)
+    if not summary["device_events"]:
+        raise AssertionError("the profiler recorded no device time in the train step")
+    return out, summary
+
+
+def train_counts(mm, fa, rw, rg, ref) -> dict:
+    return {"launches": {"matmul": mm.launches, "grouped_matmul": mm.grouped_launches,
+                         "flash_attention": fa.launches, "rwkv6_scan": rw.launches,
+                         "rglru_scan": rg.launches},
+            "matmul_grad_launches": mm.grad_launches, "attention_bwd_launches": fa.bwd_launches,
+            "body_launches": body_counts(mm), "plain_cuda_calls": dict(ref.cuda_calls)}
+
+
+def reset_counts(mm, fa, rw, rg, ref) -> None:
+    for module in (mm, fa, rw, rg):
+        module.reset_launches()
+    ref.reset_calls()
+
+
+def grad_agreement(torch, got, want) -> dict:
+    """Per leaf: cosine and max |kernel - plain| over max |plain|."""
+    a, b = got.float().flatten(), want.float().flatten()
+    cos = float(torch.dot(a, b) / torch.clamp(a.norm() * b.norm(), min=1e-30))
+    return {"cos": cos, "max_rel": float((a - b).abs().max() / torch.clamp(b.abs().max(), min=1e-30))}
+
+
+def phase_train(torch, timer) -> dict:
+    """gemma2-2b trained on the card: the backward kernels checked and
+    timed, then ``repro_torch.launch.train.main`` at full width and depth
+    (26 layers, bf16, 4 x 512 tokens, 6 steps; each step timed and one
+    profiled), then the kernel path against the plain path at 2 layers
+    (loss and every gradient leaf), then a checkpoint round trip of the
+    2-layer model's params and optimizer state (bit for bit) and a resume
+    through ``train.main``."""
+    import math
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticSource
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import trainable
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    free_engines(torch)
+    attn = attention_bwd_phase(torch, timer)
+    mmb = matmul_bwd_phase(torch, timer)
+    cfg = get_arch(TRAIN_ARCH)
+
+    # --- the main path: train.main at full width and depth ----------------
+    rec = {"ms": [], "losses": [], "profile": None}
+    make_step = steps_mod.make_train_step
+
+    def instrumented(*args, **kwargs):
+        step_fn = make_step(*args, **kwargs)
+
+        def step(params, opt, batch):
+            i = len(rec["ms"])
+            if i == 0:
+                torch.cuda.synchronize()
+                rec["init_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            if i == TRAIN_PROFILED_STEP:
+                out, rec["profile"] = step_profile(torch, lambda: step_fn(params, opt, batch))
+            else:
+                out = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.monotonic() - t0) * 1e3)
+            rec["losses"].append(float(out[2]["loss"]))
+            return out
+        return step
+
+    argv = ["--arch", TRAIN_ARCH, "--preset", "full", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+    steps_mod.make_train_step = instrumented
+    try:
+        reset_counts(mm, fa, rw, rg, ref)
+        t0 = time.monotonic()
+        res = train_mod.main(argv)
+        wall_s = time.monotonic() - t0
+        counts = train_counts(mm, fa, rw, rg, ref)
+    finally:
+        steps_mod.make_train_step = make_step
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    free_engines(torch)
+    if res["steps"] != TRAIN_STEPS or not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"train: {res}, losses {rec['losses']}")
+    if not res["last_loss"] < res["first_loss"]:
+        raise AssertionError(f"train: the loss did not fall: {res}")
+    if counts["launches"]["matmul"] == 0 or counts["matmul_grad_launches"] == 0:
+        raise AssertionError(f"train: K1 or its backward never launched: {counts}")
+    if counts["attention_bwd_launches"] != cfg.n_layers * TRAIN_STEPS:
+        raise AssertionError(f"train: {counts['attention_bwd_launches']} K2 backward launches, "
+                             f"want {cfg.n_layers} per step")
+    if counts["plain_cuda_calls"] or any(counts["launches"][k] for k in ("grouped_matmul",
+                                                                          "rwkv6_scan", "rglru_scan")):
+        raise AssertionError(f"train: the card reached a plain version: {counts}")
+    if counts["body_launches"].get("matmul/fma/bfloat16"):
+        raise AssertionError(f"train: a bf16 K1 launch took the CUDA-core body: {counts}")
+    step_ms = statistics.median(rec["ms"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    main_row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                "params": cfg.param_count(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "steps": res["steps"], "result": res, "losses": rec["losses"],
+                "step_ms": rec["ms"], "ms_per_step": step_ms, "tok_per_s": tokens / step_ms * 1e3,
+                "init_gib": rec["init_gib"], "peak_gib": peak_gib, "wall_s": wall_s,
+                "profiled_step": TRAIN_PROFILED_STEP, "profile": rec["profile"], **counts}
+    log("train_main", **main_row)
+
+    # --- kernel path against plain path at 2 layers ---------------------------
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model = build_model(cfg2, "cuda")
+    params = model.init(5)
+    np_batch = SyntheticSource(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH)).batch_at(0)
+    batch = {"tokens": torch.from_numpy(np_batch["tokens"]).cuda()}
+    loss_k, _, grads_k = steps_mod.value_and_grad(model, params, batch)
+    with ops.use_backend("ref"):
+        loss_p, _, grads_p = steps_mod.value_and_grad(model, params, batch)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    agree = {path: grad_agreement(torch, a, b)
+             for (path, a), b in zip(leaves_with_paths(grads_k), leaves(grads_p))}
+    del grads_k, grads_p
+    worst_cos = min(v["cos"] for v in agree.values())
+    worst_rel = max(v["max_rel"] for v in agree.values())
+    vs_plain = {"layers": 2, "loss": float(loss_k), "plain_loss": float(loss_p),
+                "loss_rel_err": loss_rel, "min_cos": worst_cos, "max_rel": worst_rel,
+                "bounds": {"loss_rel": TRAIN_LOSS_REL, "cos": TRAIN_GRAD_COS,
+                           "max_rel": TRAIN_GRAD_MAXREL}, "leaves": agree}
+    log("train_vs_plain", **vs_plain)
+    if loss_rel > TRAIN_LOSS_REL or worst_cos < TRAIN_GRAD_COS or worst_rel > TRAIN_GRAD_MAXREL:
+        raise AssertionError(f"train: kernel path against plain path out of bounds: "
+                             f"loss {loss_rel}, cos {worst_cos}, max_rel {worst_rel}")
+
+    # --- checkpoint round trip and resume ------------------------------------
+    opt = steps_mod.init_opt_state(params)
+    step_fn = steps_mod.make_train_step(model, AdamWConfig(peak_lr=3e-3, warmup_steps=2,
+                                                           total_steps=3))
+    params, opt, _ = step_fn(params, opt, batch)
+    bundle = {"params": trainable(params), "opt": opt}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        manager = CheckpointManager(d)
+        t0 = time.monotonic()
+        manager.save(1, bundle, blocking=False)
+        manager.wait()
+        save_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        step, restored = manager.restore(tree_map(torch.empty_like, bundle))
+        restore_s = time.monotonic() - t0
+        differ = [path for (path, a), b in zip(leaves_with_paths(bundle), leaves(restored))
+                  if a.dtype != b.dtype or not torch.equal(a.reshape(-1).view(torch.uint8),
+                                                           b.reshape(-1).view(torch.uint8))]
+        n_leaves = len(leaves(bundle))
+        ckpt_gib = sum(a.numel() * a.element_size() for a in leaves(bundle)) / 2 ** 30
+        del model, params, opt, bundle, restored, step_fn
+        free_engines(torch)
+        if step != 1 or differ:
+            raise AssertionError(f"checkpoint round trip: step {step}, leaves differ {differ}")
+        reset_counts(mm, fa, rw, rg, ref)
+        resumed = train_mod.main(["--arch", TRAIN_ARCH, "--preset", "full", "--layers", "2",
+                                  "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                                  "--steps", "3", "--ckpt-dir", d, "--resume", "--log-every", "1"])
+        resume_counts = train_counts(mm, fa, rw, rg, ref)
+    free_engines(torch)
+    if resumed["steps"] != 2 or not all(math.isfinite(resumed[k]) for k in ("first_loss", "last_loss")):
+        raise AssertionError(f"resume: {resumed}")
+    if resume_counts["plain_cuda_calls"] or not resume_counts["attention_bwd_launches"]:
+        raise AssertionError(f"resume: {resume_counts}")
+    ckpt = {"leaves": n_leaves, "gib": ckpt_gib, "save_s": save_s, "restore_s": restore_s,
+            "bit_exact": True, "resumed": resumed}
+    log("train_checkpoint", **ckpt)
+    return {"attention_bwd": attn, "matmul_bwd": mmb, "main": main_row, "vs_plain": vs_plain,
+            "checkpoint": ckpt}
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -3091,8 +3557,12 @@ def main(argv: list[str]) -> int:
     paged = phase_paged(torch, srv)
     spec = phase_spec(torch)
     fleet = phase_fleet(torch, tuned_db, srv)
+    train = phase_train(torch, Timer(torch))
+    under = under_bytes_bound(train["attention_bwd"]["timed"])
+    if under:
+        raise AssertionError(f"train timings under their bytes bound: {under}")
     # main-path runs, counts read apart
-    paths = {"slot": srv, "paged": paged, "spec": [spec], "fleet": fleet}
+    paths = {"slot": srv, "paged": paged, "spec": [spec], "fleet": fleet, "train": [train["main"]]}
 
     def count(r, name, body=None):   # one run's launches of a kernel (of one body)
         if body is None:
@@ -3195,7 +3665,31 @@ def main(argv: list[str]) -> int:
            **timed(row, ("B", "Hq", "Hkv", "Sq", "KV", "D", "causal", "ctas"))}
           for c, row in (("flash_attention_bidir", rep_bidir), ("flash_attention_cross", rep_cross))),
     ]
-    # each kernel's launches per path (slot engine, paged, spec)
+    # the slice's backward kernels: K2's at gemma2's local layer (SDPA's
+    # forward and backward beside it), K1's dX at the GeGLU up projection
+    rep_bwd = next(r for r in train["attention_bwd"]["timed"] if r["name"] == "gemma2_local")
+    rep_up = next(r for r in train["matmul_bwd"]["shapes"] if r["name"] == "up")
+    kernels += [
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:126",
+         "launches": train["main"]["attention_bwd_launches"],
+         "max_abs_err": train["attention_bwd"]["max_abs_err"],
+         "f32_max_abs_err": train["attention_bwd"]["f32_max_abs_err"],
+         **{k: rep_bwd[k] for k in ("held_ms", "library_held_ms", "fwd_ms", "fwd_bwd_ms")},
+         **timed(rep_bwd, ("B", "Hq", "Hkv", "S", "D", "window", "softcap"))},
+        {"name": "matmul_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:205",
+         "launches": train["main"]["matmul_grad_launches"],
+         "max_abs_err": train["matmul_bwd"]["max_abs_err"],
+         "max_rel_err": train["matmul_bwd"]["max_rel_err"],
+         "shape": {"class": rep_up["class"], "part": "dx",
+                   **{k: rep_up["dx"][k] for k in ("M", "K", "N")}},
+         "ms": rep_up["dx"]["ms"], "plain_ms": rep_up["plain_ms"],
+         "bound_ms": rep_up["dx"]["bound_ms"], "bound_by": rep_up["dx"]["bound_by"],
+         "library_ms": rep_up["dx"]["library_ms"], "dw": rep_up["dw"]},
+    ]
+    # each kernel's launches per path (slot engine, paged, spec, fleet, train)
     for row in kernels:
         if row["name"] in ("matmul", "flash_attention", "rwkv6_scan", "rglru_scan",
                            "grouped_matmul"):

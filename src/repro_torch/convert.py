@@ -10,16 +10,23 @@ along a leading axis, and its cache is ``{"layers": {"self", "cross_k",
 "cross_v"} stacked, "t"}``; the port keeps lists of per-layer dicts.  A
 VLM's ``vis_proj`` passes straight through.  Inputs are nested
 dicts/lists of numpy arrays (``jax.tree_util.tree_map(np.asarray, tree)``).
+
+Training state maps the same way: :func:`grads_from_jax` takes a gradient
+pytree (the params' structure) to the port's trainable layout, without the
+tied head's copy ``embed_t``; :func:`opt_state_from_jax` takes the
+reference's AdamW state (``m``, ``v``, ``master``, ``step`` and, with
+compressed gradients, ``residuals``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.lm import tied_head
+from repro_torch.models.lm import tied_head, trainable
+from repro_torch.tree import tree_map as _map
 
 
 def _tensor(a: Any, device) -> torch.Tensor:
@@ -27,14 +34,6 @@ def _tensor(a: Any, device) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: no numpy->torch bridge
         return torch.from_numpy(arr.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
-
-
-def _map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def _unstack(groups: dict, tail: list, cfg: ArchConfig, device) -> list:
@@ -69,6 +68,22 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device="cpu") -> dict:
     out["layers"] = _unstack(tree["groups"], tree["tail"], cfg, device)
     if cfg.tie_embeddings:
         out["embed_t"] = tied_head(out["embed"])
+    return out
+
+
+def grads_from_jax(tree: dict, cfg: ArchConfig, device="cpu") -> dict:
+    """A pytree of the params' structure (grads, AdamW moments, ...) -> the
+    port's trainable layout: layers unstacked, no ``embed_t``."""
+    return trainable(params_from_jax(tree, cfg, device))
+
+
+def opt_state_from_jax(state: dict, cfg: ArchConfig, device="cpu") -> dict:
+    """The reference's ``init_opt_state`` / ``apply_updates`` state -> the
+    port's (``repro_torch.optim.adamw``)."""
+    out = {k: grads_from_jax(state[k], cfg, device) for k in ("m", "v", "master")}
+    out["step"] = _tensor(state["step"], device).to(torch.int32)
+    if "residuals" in state:
+        out["residuals"] = grads_from_jax(state["residuals"], cfg, device)
     return out
 
 

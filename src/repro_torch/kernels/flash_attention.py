@@ -51,6 +51,18 @@ that, like the kernel, leaves fully masked rows at 0); a CUDA tensor launches
 the kernel or raises.  ``launches`` counts launches, ``body_launches`` per
 body and dtype, ``class_launches`` per kernel class (the schedule's instance:
 ``flash_attention_causal``, ``_bidir``, ``_cross``, ...) and body.
+
+The gradient is :func:`launch_bwd`: dQ, dK and dV from q, k, v, the
+forward's output and its gradient, by the backward kernel of
+``csrc/flash_attention_bwd.cu`` (a dq kernel, then a dkv kernel, one C
+call: one launch in ``bwd_launches``).  It takes what training gives the
+forward (causal or not, window, softcap, GQA, D up to 256, bf16 and f32)
+at ``q_offset`` 0, and no schedule: the reference keys no backward
+instance, so its tiles are its own.  :class:`FlashAttentionFn` enters it
+under autograd.  Its plain version is autograd through
+:func:`~repro_torch.kernels.ref.chunked_attention`
+(:func:`~repro_torch.kernels.ref.chunked_attention_bwd`), which a tensor on
+the CPU takes by torch's own autograd.
 """
 from __future__ import annotations
 
@@ -76,12 +88,14 @@ offset_launches = 0
 row_tile_launches = 0
 body_launches: collections.Counter = collections.Counter()
 class_launches: collections.Counter = collections.Counter()
+#: launches of the backward kernel (:func:`launch_bwd`) since the last reset
+bwd_launches = 0
 
 
 def reset_launches() -> None:
     """Set every count to 0."""
-    global launches, offset_launches, row_tile_launches
-    launches = offset_launches = row_tile_launches = 0
+    global launches, offset_launches, row_tile_launches, bwd_launches
+    launches = offset_launches = row_tile_launches = bwd_launches = 0
     body_launches.clear()
     class_launches.clear()
 
@@ -170,3 +184,60 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cs: ConcreteSchedu
     body_launches[body, q.dtype] += 1
     class_launches[cs.instance.class_id, body] += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K2 under autograd on CUDA tensors (``q_offset`` 0): :func:`launch`
+    forward (the same bits as without a gradient), :func:`launch_bwd`
+    backward on the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cs, causal, window, softcap):
+        o = launch(q, k, v, cs, causal=causal, window=window, softcap=softcap)
+        ctx.args = dict(causal=causal, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return (*launch_bwd(q, k, v, o, do.contiguous(), **ctx.args), None, None, None, None)
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+               do: torch.Tensor, *, causal: bool = True, window: int = 0, softcap: float = 0.0,
+               q_offset: int = 0, scale: float | None = None) -> tuple[torch.Tensor, ...]:
+    """Launch the backward kernel; raises on anything it does not take."""
+    global bwd_launches
+    if not q.is_cuda:
+        raise ValueError(f"the attention backward kernel runs on a CUDA tensor, got {q.device}")
+    if q_offset != 0:
+        raise ValueError(f"the attention backward kernel takes q_offset 0 (training), got {q_offset}")
+    ts = (q, k, v, o, do)
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"the attention backward takes bf16 or f32 tensors of one dtype, "
+                         f"got {[t.dtype for t in ts]}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"the attention backward takes q/o/do (B,Hq,Sq,D) and k/v (B,Hkv,Skv,D), "
+                         f"got {[tuple(t.shape) for t in ts]}")
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)} (GQA needs Hq % Hkv == 0)")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the attention backward takes head dims up to {MAX_HEAD_DIM}, got {d}")
+    if any(t.device != q.device for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError("the attention backward takes contiguous tensors on one device")
+    scale = scale if scale is not None else d ** -0.5
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # the dq kernel's row log-sum-exp and rowsum(dO * O), read by the dkv kernel
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    rc = _build.library().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, d,
+        DTYPES[q.dtype], int(causal), int(window), float(softcap), float(scale),
+        _build.stream_handle(q.device))
+    _build.check(rc, "attention backward kernel")
+    bwd_launches += 1
+    return dq, dk, dv

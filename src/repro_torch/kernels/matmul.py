@@ -81,14 +81,28 @@ A tensor on the CPU takes the plain version (:func:`repro_torch.kernels.ref.matm
 :func:`~repro_torch.kernels.ref.grouped_matmul`); a CUDA tensor launches the
 kernel or raises.  ``launches`` and ``grouped_launches`` count launches per
 kernel, ``body_launches`` per kernel, body and dtype.
+
+Under autograd a CUDA tensor goes through :class:`MatmulFn`: the forward is
+the same launch (the same bits as without a gradient); the backward is K1
+again.  For ``y = epilogue(x·w)``: the epilogue's derivative is elementwise
+torch in f32 (autograd of :func:`~repro_torch.kernels.ref.apply_epilogue`,
+on the pre-activation recomputed by one more launch for the gelu and GLU
+classes; the softcap's ``1 - tanh²`` from the output), then ``dX = dZ·wᵀ``
+and ``dW = xᵀ·dZ`` are two launches of class ``matmul`` on contiguous
+transposed operands (a tied head's ``wᵀ`` is the embedding itself), each
+under the default schedule of its own instance, summed in f32 (never in
+rounding mode), not through any provider.  ``grad_launches`` counts them.
+The grouped kernel has no backward yet (ROADMAP A.8).
 """
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 
-from repro_torch.core.schedule import GLU_CLASSES, ConcreteSchedule
+from repro_torch.core.schedule import GLU_CLASSES, ConcreteSchedule, concretize, default_schedule
+from repro_torch.core.workload import KernelInstance
 from repro_torch.kernels import _build, ref
 
 #: class_id -> epilogue code of csrc/matmul.cu
@@ -126,12 +140,14 @@ grouped_launches = 0
 row_tile_launches = 0
 body_launches: collections.Counter = collections.Counter()
 round_launches: collections.Counter = collections.Counter()
+#: K1 launches of :class:`MatmulFn`'s backward (also counted in ``launches``)
+grad_launches = 0
 
 
 def reset_launches() -> None:
     """Set every count to 0."""
-    global launches, grouped_launches, row_tile_launches
-    launches = grouped_launches = row_tile_launches = 0
+    global launches, grouped_launches, row_tile_launches, grad_launches
+    launches = grouped_launches = row_tile_launches = grad_launches = 0
     body_launches.clear()
     round_launches.clear()
 
@@ -344,6 +360,79 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     if round_k:
         round_launches["matmul", body] += 1
     return out
+
+
+@functools.lru_cache(maxsize=1024)
+def grad_schedule(class_id: str, dtype: torch.dtype, m: int, n: int, k: int) -> ConcreteSchedule:
+    """The default schedule of a backward launch's own instance: f32 sums
+    throughout (a default schedule never rounds; checked)."""
+    inst = KernelInstance(class_id=class_id, dtype=str(dtype).removeprefix("torch."),
+                          params=tuple(sorted(dict(M=m, N=n, K=k).items())))
+    cs = concretize(default_schedule(inst), inst)
+    if round_k_for(cs):
+        raise AssertionError(f"the default schedule of {inst} rounds partial sums")
+    return cs
+
+
+def grad_launch(a: torch.Tensor, b: torch.Tensor, class_id: str = "matmul",
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+    """a (M,K) @ b (K,N) by K1 for a gradient, under its default schedule."""
+    global grad_launches
+    cs = grad_schedule(class_id, a.dtype, a.shape[0], b.shape[1], a.shape[1])
+    out = launch(a, b, cs, class_id=class_id, bias=bias)
+    grad_launches += 1
+    return out
+
+
+def epilogue_grad(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                  class_id: str, bias: torch.Tensor | None, softcap: float) -> torch.Tensor:
+    """dL/dZ (f32) of ``y = epilogue(Z)`` (``Z = x·w``, plus ``bias``) at ``dy``."""
+    dyf = dy.float()
+    if class_id == "matmul_lmhead_softcap":
+        t = y.float() / softcap                     # tanh(z / c)
+        return dyf * (1.0 - t * t)
+    if class_id in ("matmul_bias_gelu", "matmul_silu_glu", "matmul_gelu_glu"):
+        z = grad_launch(x, w, "matmul" if bias is None else "matmul_bias", bias=bias)
+        with torch.enable_grad():
+            zf = z.float().requires_grad_()
+            return torch.autograd.grad(ref.apply_epilogue(zf, class_id), zf, dyf)[0]
+    return dyf                                      # no activation: bias, residual, head
+
+
+class MatmulFn(torch.autograd.Function):
+    """K1 under autograd on CUDA tensors: ``launch`` forward, K1 backward.
+
+    ``transpose_of`` (or None): the (N, K) tensor that ``w`` is a contiguous
+    transposed copy of (a tied LM head's ``embed``).  Its gradient is
+    returned in place of ``w``'s, and it is ``dX``'s operand as it is."""
+
+    @staticmethod
+    def forward(ctx, x, w, transpose_of, bias, residual, cs, class_id, softcap):
+        y = launch(x, w, cs, class_id=class_id, bias=bias, residual=residual, softcap=softcap)
+        ctx.class_id, ctx.softcap = class_id, softcap
+        ctx.res_dtype = residual.dtype if residual is not None else None
+        ctx.save_for_backward(x, w, transpose_of, bias,
+                              y if class_id == "matmul_lmhead_softcap" else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, w_src, bias, y = ctx.saved_tensors
+        need_x, need_w, need_src, need_bias, need_res = ctx.needs_input_grad[:5]
+        dzf = epilogue_grad(x, w, y, dy, ctx.class_id, bias, ctx.softcap)
+        dz = dzf.to(x.dtype)
+        dx = dw = dsrc = db = dres = None
+        if need_x:
+            dx = grad_launch(dz, w_src if w_src is not None else w.T.contiguous())
+        if need_w:
+            dw = grad_launch(x.T.contiguous(), dz)
+        if need_src:
+            dsrc = grad_launch(dz.T.contiguous(), x)
+        if need_bias:
+            db = dzf.sum(0).to(bias.dtype)
+        if need_res:
+            dres = dy.to(ctx.res_dtype)
+        return dx, dw, dsrc, db, dres, None, None, None
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,

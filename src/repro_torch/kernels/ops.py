@@ -16,6 +16,16 @@ rows per expert × ``E``, ``N``, ``K``, ``E``; attention: ``Q``, ``KV``,
 ``H``, ``D``, ``B``, ``window``; rwkv6: ``T``, ``C`` = H·D, ``D``, ``B``;
 rglru: ``T``, ``C``, ``B``), so workload keys match the reference.
 
+Under autograd (grad enabled and an input that requires it) a CUDA tensor
+goes through the kernels' autograd Functions (:class:`~repro_torch.kernels.
+matmul.MatmulFn`, :class:`~repro_torch.kernels.flash_attention.
+FlashAttentionFn`): the forward is the launch an op makes without a
+gradient, bit for bit, and the backward is kernels too.  A CPU tensor takes
+the plain version, which torch's autograd differentiates.  The grouped
+matmul and the scans have no backward kernel yet: under autograd on a CUDA
+tensor they raise ``NotImplementedError`` (ROADMAP A.8), never falling back
+to a plain version.
+
 Schedule resolution is the reference's: a :class:`ScheduleProvider` (a copy
 of ``repro.kernels.ops.ScheduleProvider``) over a
 :class:`~repro_torch.core.resolution.ResolutionPipeline` (service → static
@@ -50,7 +60,8 @@ BACKENDS = ("cuda", "ref")
 _state = threading.local()
 
 
-def _default_backend() -> str:
+def current_backend() -> str:
+    """This thread's backend: ``"cuda"`` unless set otherwise."""
     return getattr(_state, "backend", "cuda")
 
 
@@ -62,7 +73,7 @@ def set_backend(backend: str) -> None:
 
 @contextlib.contextmanager
 def use_backend(backend: str):
-    prev = _default_backend()
+    prev = current_backend()
     set_backend(backend)
     try:
         yield
@@ -205,12 +216,32 @@ def schedule_for(inst: KernelInstance) -> ConcreteSchedule:
     return concretize(default_schedule(inst), inst)
 
 
+def _needs_grad(*tensors: torch.Tensor | None) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _no_backward(kernel: str, *tensors: torch.Tensor) -> None:
+    if tensors[0].is_cuda and _needs_grad(*tensors):
+        raise NotImplementedError(f"the {kernel} kernel has no backward on the card yet "
+                                  "(ROADMAP A.8); train this arch on the CPU")
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "matmul",
            bias: torch.Tensor | None = None, residual: torch.Tensor | None = None,
            softcap: float = 0.0, provider: ScheduleProvider | None = None,
-           backend: str | None = None) -> torch.Tensor:
-    """x: (..., K) @ w: (K, N) with fused epilogue. GLU classes emit N//2."""
-    backend = backend or _default_backend()
+           backend: str | None = None,
+           transpose_of: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (..., K) @ w: (K, N) with fused epilogue. GLU classes emit N//2.
+
+    ``transpose_of``: the (N, K) tensor ``w`` is a contiguous transposed
+    copy of (a tied LM head: ``w`` is ``embed_t``, this is ``embed``).
+    Without a gradient it is not read.  Under autograd the gradient of
+    ``w`` goes to it, as ``jax.grad`` of ``embed.T`` gives it."""
+    backend = backend or current_backend()
+    grad = _needs_grad(x, w, bias, residual, transpose_of)
+    tied = grad and transpose_of is not None
+    if tied and (backend == "ref" or not x.is_cuda):
+        w, tied = transpose_of.T, False     # plain autograd carries it to transpose_of
     if backend == "ref":
         return ref.matmul(x, w, class_id, bias=bias, residual=residual, softcap=softcap)
     *lead, k = x.shape
@@ -219,8 +250,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "matmul",
     x2 = x.reshape(m, k).contiguous()
     res2 = residual.reshape(m, -1).contiguous() if residual is not None else None
     cs = _resolve(provider).get(instance(class_id, x.dtype, M=m, N=n, K=k))
-    y = _mm.matmul(x2, w.contiguous(), cs, class_id=class_id, bias=bias, residual=res2,
-                   softcap=softcap)
+    if grad and x.is_cuda:
+        y = _mm.MatmulFn.apply(x2, w.contiguous(), transpose_of if tied else None, bias, res2,
+                               cs, class_id, softcap)
+    else:
+        y = _mm.matmul(x2, w.contiguous(), cs, class_id=class_id, bias=bias, residual=res2,
+                       softcap=softcap)
     return y.reshape(*lead, y.shape[-1])
 
 
@@ -228,9 +263,10 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "moe_gemm",
              provider: ScheduleProvider | None = None,
              backend: str | None = None) -> torch.Tensor:
     """Grouped expert GEMM: x (E, M, K) @ w (E, K, N)."""
-    backend = backend or _default_backend()
+    backend = backend or current_backend()
     if backend == "ref":
         return ref.grouped_matmul(x, w, class_id)
+    _no_backward("grouped matmul", x, w)
     e, m, k = x.shape
     n = w.shape[2]
     cs = _resolve(provider).get(instance(class_id, x.dtype, M=m * e, N=n, K=k, E=e))
@@ -243,13 +279,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0, provider: ScheduleProvider | None = None,
                     backend: str | None = None, chunk: int = 1024) -> torch.Tensor:
     """q: (B,Hq,Sq,D); k/v: (B,Hkv,Skv,D) — GQA-aware flash attention."""
-    backend = backend or _default_backend()
+    backend = backend or current_backend()
     if backend == "ref":
         return ref.chunked_attention(q, k, v, causal=causal, window=window,
                                      softcap=softcap, q_offset=q_offset, chunk=chunk)
     b, hq, sq, d = q.shape
     cs = _resolve(provider).get(instance(class_id, q.dtype, Q=sq, KV=k.shape[2], H=hq, D=d,
                                          B=b, window=window))
+    if q.is_cuda and _needs_grad(q, k, v):
+        if q_offset:
+            raise ValueError(f"attention under autograd takes q_offset 0 (training), got {q_offset}")
+        return _fa.FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(), cs,
+                                          causal, window, softcap)
     return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), cs,
                                causal=causal, window=window, softcap=softcap,
                                q_offset=q_offset)
@@ -264,9 +305,10 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
           u: torch.Tensor, state: torch.Tensor, *, provider: ScheduleProvider | None = None,
           backend: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/w: (B,H,T,D); u: (H,D); state: (B,H,D,D) f32 -> (y, state)."""
-    backend = backend or _default_backend()
+    backend = backend or current_backend()
     if backend == "ref":
         return ref.rwkv6_scan(r, k, v, w, u, state)
+    _no_backward("rwkv6 scan", r, k, v, w, u, state)
     b, h, t, d = r.shape
     cs = _resolve(provider).get(instance("rwkv6_scan", r.dtype, T=t, C=h * d, D=d, B=b))
     return _rw.rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
@@ -277,9 +319,10 @@ def rglru(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor, *,
           provider: ScheduleProvider | None = None,
           backend: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """x, a: (B,T,C); state: (B,C) f32 -> (y, state)."""
-    backend = backend or _default_backend()
+    backend = backend or current_backend()
     if backend == "ref":
         return ref.rglru_scan(x, a, state)
+    _no_backward("RG-LRU scan", x, a, state)
     b, t, c = x.shape
     cs = _resolve(provider).get(instance("rglru_scan", x.dtype, T=t, C=c, B=b))
     return _rg.rglru_scan(x.contiguous(), a.contiguous(), state, cs)

@@ -8,13 +8,41 @@ main path calls them.
 Numerics follow the reference: products in f32 (``preferred_element_type``),
 epilogues in f32, one cast back to the input dtype; ``jax.nn.gelu`` is the
 tanh form (``approximate=True``), so :func:`gelu` is too.
+
+Every function here is differentiable by torch's autograd (no in-place
+write touches a tensor that carries a gradient): on the CPU, training
+differentiates these.  :func:`chunked_attention_bwd` is the plain version
+of the attention backward kernel: autograd through
+:func:`chunked_attention`.
+
+``cuda_calls`` counts the calls of each plain version on a CUDA tensor
+since :func:`reset_calls`, so a run on the card can show that its main path
+reached none of them.
 """
 from __future__ import annotations
 
+import collections
+import functools
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+#: calls of the plain versions on a CUDA tensor since the last reset, by name
+cuda_calls: collections.Counter = collections.Counter()
+
+
+def reset_calls() -> None:
+    cuda_calls.clear()
+
+
+def _counted(fn):
+    @functools.wraps(fn)
+    def counted(x, *args, **kwargs):
+        if x.is_cuda:
+            cuda_calls[fn.__name__] += 1
+        return fn(x, *args, **kwargs)
+    return counted
 
 # ---------------------------------------------------------------------------
 # Matmul + fused epilogues
@@ -63,6 +91,7 @@ def apply_epilogue(y: torch.Tensor, class_id: str, *, bias: torch.Tensor | None 
     return y
 
 
+@_counted
 def matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "matmul", *,
            bias: torch.Tensor | None = None, residual: torch.Tensor | None = None,
            softcap: float = 0.0, round_k: int = 0) -> torch.Tensor:
@@ -87,6 +116,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "matmul", *,
     return y.to(x.dtype)
 
 
+@_counted
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "moe_gemm", *,
                    round_k: int = 0) -> torch.Tensor:
     """x: (E, M, K) @ w: (E, K, N): :func:`matmul` applied to each expert (the
@@ -115,6 +145,7 @@ def _mask_ok(sq: int, skv: int, q_offset: int, causal: bool, window: int,
     return ok
 
 
+@_counted
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
               window: int = 0, softcap: float = 0.0, q_offset: int = 0,
               scale: float | None = None) -> torch.Tensor:
@@ -137,6 +168,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
+@_counted
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0, softcap: float = 0.0,
                       q_offset: int = 0, chunk: int = 1024,
@@ -178,11 +210,27 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
+@_counted
+def chunked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+                          causal: bool = True, window: int = 0, softcap: float = 0.0,
+                          q_offset: int = 0, chunk: int = 1024,
+                          scale: float | None = None) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of :func:`chunked_attention` at ``do`` (the output's
+    gradient), by torch's autograd: the plain version of the attention
+    backward kernel.  Each gradient takes its input's dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = chunked_attention(*leaves, causal=causal, window=window, softcap=softcap,
+                              q_offset=q_offset, chunk=chunk, scale=scale)
+        return torch.autograd.grad(o, leaves, do)
+
+
 # ---------------------------------------------------------------------------
 # RWKV6 time-mix scan (Finch wkv: data-dependent per-channel decay + bonus)
 # ---------------------------------------------------------------------------
 
 
+@_counted
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                u: torch.Tensor, state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain wkv6 recurrence, one step per token.
@@ -209,6 +257,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
 # ---------------------------------------------------------------------------
 
 
+@_counted
 def rglru_scan(x: torch.Tensor, a: torch.Tensor,
                state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain RG-LRU recurrence, one step per token.

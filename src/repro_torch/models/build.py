@@ -1,8 +1,8 @@
 """Model facade (the counterpart of ``repro.models.build``).
 
 ``build_model(cfg, device)`` returns a :class:`Model` bundling init /
-forward / prefill / prefill_chunk / decode_step / verify_step / init_cache
-for one config on one device: :mod:`repro_torch.models.encdec` for the
+forward / loss_fn / prefill / prefill_chunk / decode_step / verify_step /
+init_cache for one config on one device: :mod:`repro_torch.models.encdec` for the
 audio family (whisper), :mod:`repro_torch.models.lm` for every other.  As in
 the reference, the audio model has no chunked prefill and no verify: those
 two raise ``ValueError`` for it.
@@ -43,8 +43,13 @@ class Model:
         return self.module.init_params(self.cfg,
                                        torch.Generator(device=self.device).manual_seed(seed))
 
-    def forward(self, params: dict, batch: dict, provider=None):
-        return self.module.forward(params, self.cfg, batch, provider=provider)
+    def forward(self, params: dict, batch: dict, provider=None, remat: bool = True):
+        return self.module.forward(params, self.cfg, batch, remat=remat, provider=provider)
+
+    def loss_fn(self, params: dict, batch: dict, *, remat: bool = True, provider=None):
+        """(loss, {"ce", "aux"}); under autograd with ``remat`` each layer
+        is recomputed in the backward."""
+        return self.module.loss_fn(params, self.cfg, batch, remat=remat, provider=provider)
 
     def prefill(self, params: dict, batch: dict, *, max_len: int, true_len: int | None = None,
                 provider=None):

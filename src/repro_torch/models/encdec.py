@@ -22,6 +22,11 @@ cache, ``{"layers": [{"self": {"k", "v"}, "cross_k", "cross_v"}, ...],
 every decode step attends to them.  Self-attention caches are written in
 place, as in :mod:`repro_torch.models.attention`.  The audio family has no
 chunked prefill and no speculative verify.
+
+Training: ``forward`` and ``loss_fn`` take ``remat``: under autograd each
+encoder and decoder layer runs under ``torch.utils.checkpoint``, as the
+reference wraps each scanned layer in ``jax.checkpoint``
+(:func:`repro_torch.models.lm.rematted`).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models.common import apply_norm, dense_init, dtype_of, embed_init, norm_params
+from repro_torch.models.lm import next_token_nll, rematted
 
 MAX_DECODE_POS = 32768  # learned position table size, the reference's
 
@@ -95,11 +101,13 @@ def enc_block(p: dict, cfg: ArchConfig, h: torch.Tensor, provider=None) -> torch
     return h + mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider)
 
 
-def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, provider=None) -> torch.Tensor:
+def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, provider=None,
+           remat: bool = False) -> torch.Tensor:
     """frames: (B, enc_seq, D) stub embeddings -> encoder hidden states."""
     h = frames.to(dtype_of(cfg.dtype)) + params["enc_pos"][None, :frames.shape[1]]
+    block = rematted(lambda p, hh: enc_block(p, cfg, hh, provider), remat)
     for p in params["encoder"]:
-        h = enc_block(p, cfg, h, provider)
+        h = block(p, h)
     return apply_norm(params["enc_norm"], h, cfg.norm)
 
 
@@ -161,18 +169,28 @@ def _dec_embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()] + params["dec_pos"][None, :s]
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict,
+def forward(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
             provider=None) -> tuple[torch.Tensor, torch.Tensor]:
     """batch: frames (B, enc_seq, D) + tokens (B, S). Returns (logits, aux = 0)."""
-    enc = encode(params, cfg, batch["frames"], provider)
+    enc = encode(params, cfg, batch["frames"], provider, remat=remat)
     h = _dec_embed(params, batch["tokens"])
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
+    block = rematted(lambda p, hh, e: dec_block(p, cfg, hh, enc=e, positions=positions,
+                                                provider=provider)[0], remat)
     for p in params["decoder"]:
-        h, _ = dec_block(p, cfg, h, enc=enc, positions=positions, provider=provider)
+        h = block(p, h, enc)
     h = apply_norm(params["final_norm"], h, cfg.norm)
     logits = ops.matmul(h, params["lm_head"], class_id="matmul_lmhead", provider=provider)
     return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
+            provider=None) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy of the decoder.  Returns (ce, {"ce", "aux"})."""
+    logits, aux = forward(params, cfg, batch, remat=remat, provider=provider)
+    ce = next_token_nll(logits[:, :-1], batch["tokens"][:, 1:]).mean()
+    return ce, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

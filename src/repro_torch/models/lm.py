@@ -10,6 +10,7 @@ reference's pytrees into this layout).
 
 Entry points (bundled per config by :mod:`repro_torch.models.build`):
   forward(params, batch)                    — full-sequence logits
+  loss_fn(params, batch)                    — next-token cross-entropy (+ 0.01·aux)
   prefill(params, batch, max_len)           — last-position logits + filled cache
   prefill_chunk(params, cache, tok, off)    — one prompt chunk at offset ``off``
   decode_step(params, cache, tok)           — one token per slot, cache updated in place
@@ -25,19 +26,33 @@ beside the tokens: the stub frontend's patch embeddings, projected by
 Each takes ``provider``, the :class:`~repro_torch.kernels.ops.ScheduleProvider`
 every kernel op resolves its schedule through (None: the process default),
 passed down to every op as the reference passes it.
+
+Training: ``forward`` and ``loss_fn`` take ``remat`` (default on, as the
+reference's).  Under autograd each layer then runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
+counterpart of the reference's ``jax.checkpoint`` around each layer group:
+the ``full`` policy saves nothing inside a layer and recomputes it in the
+backward; it changes no number.  A tied embedding is one parameter,
+``embed``: the LM head launches on its transposed copy ``embed_t`` and its
+gradient reaches ``embed`` (``ops.matmul``'s ``transpose_of``), so
+``embed_t`` is no leaf of :func:`trainable` and is rebuilt from ``embed``
+after every update (:func:`retie`).
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import remat_policy
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models import recurrent as rec
 from repro_torch.models.common import apply_norm, dense_init, dtype_of, embed_init, norm_params
+from repro_torch.tree import leaves
 
 
 # ---------------------------------------------------------------------------
@@ -160,12 +175,56 @@ def tied_head(embed: torch.Tensor) -> torch.Tensor:
     return embed.T.contiguous()
 
 
+def trainable(params: dict) -> dict:
+    """The params a gradient step updates: all but a tied head's
+    ``embed_t``, which is ``embed``'s copy."""
+    return {k: v for k, v in params.items() if k != "embed_t"}
+
+
+@torch.no_grad()
+def retie(params: dict) -> dict:
+    """Rebuild ``embed_t`` from ``embed`` in place (after an update)."""
+    if "embed_t" in params:
+        params["embed_t"].copy_(params["embed"].T)
+    return params
+
+
 def _lm_head(params: dict, cfg: ArchConfig, h: torch.Tensor, provider=None) -> torch.Tensor:
-    w = params["embed_t"] if cfg.tie_embeddings else params["lm_head"]
+    if cfg.tie_embeddings:
+        w, tied = params["embed_t"], dict(transpose_of=params["embed"])
+    else:
+        w, tied = params["lm_head"], {}
     if cfg.final_softcap > 0:
         return ops.matmul(h, w, class_id="matmul_lmhead_softcap", softcap=cfg.final_softcap,
-                          provider=provider)
-    return ops.matmul(h, w, class_id="matmul_lmhead", provider=provider)
+                          provider=provider, **tied)
+    return ops.matmul(h, w, class_id="matmul_lmhead", provider=provider, **tied)
+
+
+def rematted(fn, remat: bool):
+    """``fn`` under ``torch.utils.checkpoint`` (the ``full`` policy) when
+    ``remat`` is on and a tensor among its arguments (params included)
+    requires grad under autograd; ``fn`` itself otherwise.  The recompute
+    runs under the ops backend the forward ran under: the backend is
+    thread-local, and the backward of CUDA tensors runs on autograd's own
+    thread."""
+    if not remat:
+        return fn
+    backend = ops.current_backend()
+
+    def replayable(*args):
+        with ops.use_backend(backend):
+            return fn(*args)
+
+    def run(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad for t in leaves(args))):
+            return fn(*args)
+        if remat_policy() != "full":
+            raise NotImplementedError(f"remat policy {remat_policy()!r}: only 'full' is "
+                                      "realised (ROADMAP A.8)")
+        return checkpoint(replayable, *args, use_reentrant=False)
+
+    return run
 
 
 def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -176,21 +235,28 @@ def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _stack_pass(params: dict, cfg: ArchConfig, h: torch.Tensor, *, positions: torch.Tensor,
-                caches: list | None, off=None, verify: bool = False,
+                caches: list | None, off=None, verify: bool = False, remat: bool = False,
                 provider=None) -> tuple[torch.Tensor, list | None, torch.Tensor]:
     """All layers; returns (h, caches written, the layers' summed aux loss).
     ``off`` (with caches) runs the chunked-prefill path, ``verify`` the
-    speculative verify path (``off`` per lane)."""
+    speculative verify path (``off`` per lane); ``remat`` (no caches) runs
+    each layer under :func:`rematted`."""
     new = [] if caches is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, kind in enumerate(cfg.layer_kinds):
-        c_in = caches[j] if caches is not None else None
-        h, c_out, a = apply_block(params["layers"][j], cfg, kind, h, positions=positions,
-                                  pos=None, cache=c_in, decode=False, off=off, verify=verify,
-                                  provider=provider)
-        aux = aux + a
-        if new is not None:
+        if caches is None:
+            def layer(p, hh, kind=kind):
+                out, _, a = apply_block(p, cfg, kind, hh, positions=positions, pos=None,
+                                        cache=None, decode=False, off=off, verify=verify,
+                                        provider=provider)
+                return out, a
+            h, a = rematted(layer, remat)(params["layers"][j], h)
+        else:
+            h, c_out, a = apply_block(params["layers"][j], cfg, kind, h, positions=positions,
+                                      pos=None, cache=caches[j], decode=False, off=off,
+                                      verify=verify, provider=provider)
             new.append(c_out)
+        aux = aux + a
     return h, new, aux
 
 
@@ -208,17 +274,45 @@ def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict, provider=None) -> 
     return torch.cat([vis, h], dim=1)
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict,
+def forward(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
             provider=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits and the auxiliary loss: the MoE layers' summed
     load-balance loss (zero without MoE layers).  A vision-prefixed arch's
-    logits cover the prefix and the text."""
+    logits cover the prefix and the text.  ``remat``: see the module."""
     h = _embed_inputs(params, cfg, batch, provider)
     b, s, _ = h.shape
     h, _, aux = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device), caches=None,
-                            provider=provider)
+                            remat=remat, provider=provider)
     h = apply_norm(params["final_norm"], h, cfg.norm)
     return _lm_head(params, cfg, h, provider=provider), aux
+
+
+def next_token_nll(logits: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[tgt], in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, tgt.long()[..., None]).squeeze(-1)
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
+            provider=None) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy (masked by ``batch["mask"]`` where given) plus
+    0.01·aux.  Returns (total, {"ce", "aux"}).  A vision prefix's last
+    position predicts the first text token."""
+    logits, aux = forward(params, cfg, batch, remat=remat, provider=provider)
+    p = cfg.vision_tokens
+    tokens = batch["tokens"]
+    if p:
+        pred, tgt = logits[:, p - 1:-1, :], tokens
+    else:
+        pred, tgt = logits[:, :-1, :], tokens[:, 1:]
+    nll = next_token_nll(pred, tgt)
+    mask = batch.get("mask")
+    if mask is not None:
+        m = (mask[:, 1:] if not p else mask).float()
+        ce = (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    else:
+        ce = nll.mean()
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -810,3 +810,146 @@ def test_fleet_on_h100_serves_on_measured_seconds(card, tmp_path, engine):
     assert summary["tuning"]["h100"]["jobs_completed"] > 0
     if engine == "paged_spec":
         assert summary["speculative"]["counters"]["bursts"] > 0
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels' backward
+# ---------------------------------------------------------------------------
+
+# (b, hq, hkv, s, d, causal, window, softcap): gemma2's local and global
+# layers (window 128 bites at S = 256), minitron's GQA, a non-causal head,
+# a prime length
+BWD_SHAPES = [(1, 8, 4, 256, 256, True, 128, 50.0), (1, 8, 4, 256, 256, True, 0, 50.0),
+              (1, 6, 2, 200, 128, True, 0, 0.0), (2, 4, 4, 150, 64, False, 0, 0.0),
+              (1, 4, 2, 181, 16, True, 0, 0.0), (1, 4, 2, 96, 100, False, 24, 0.0)]
+
+
+def _tol(dtype):
+    return BF16_TOL if dtype == torch.bfloat16 else TOL
+
+
+def _close_to_scale(got, want, tol):
+    """A gradient of order well under one held to its own scale:
+    |got - want| <= 1e-2·max|want| + rtol·|want| in bf16 (tol's atol as a
+    share of max|want| in f32), so an absolute atol cannot pass a wrong
+    gradient whose entries are all smaller than it."""
+    scale = float(want.abs().max())
+    share = 1e-2 if tol is BF16_TOL else tol["atol"]
+    _close(got, want, dict(rtol=tol["rtol"], atol=share * scale))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window,softcap", BWD_SHAPES)
+def test_attention_backward_matches_plain(card, dtype, b, hq, hkv, s, d, causal, window, softcap):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(s + d)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda").to(dt)
+               for h in (hq, hkv, hkv))
+    do = torch.randn((b, hq, s, d), generator=g, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa.bwd_launches
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(o, leaves, do)
+    assert fa.bwd_launches == before + 1
+    want = ref.chunked_attention_bwd(q, k, v, do, **kw)
+    for a, w in zip(got, want):
+        assert a.dtype == dt
+        _close(a, w, _tol(dt))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("class_id", ["matmul", "matmul_bias", "matmul_bias_gelu", "matmul_silu_glu",
+                                      "matmul_gelu_glu", "matmul_residual",
+                                      "matmul_lmhead_softcap"])
+def test_matmul_backward_matches_plain(card, dtype, class_id):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    m, k, n = 70, 96, 200
+    n_out = n // 2 if "glu" in class_id else n
+    x = torch.randn((2, m // 2, k), generator=g, device="cuda").to(dt)
+    w = (torch.randn((k, n), generator=g, device="cuda") / k ** 0.5).to(dt)
+    kw = {}
+    if "bias" in class_id:
+        kw["bias"] = (0.1 * torch.randn(n, generator=g, device="cuda")).to(dt)
+    if class_id == "matmul_residual":
+        kw["residual"] = torch.randn((2, m // 2, n_out), generator=g, device="cuda").to(dt)
+    if class_id == "matmul_lmhead_softcap":
+        kw["softcap"] = 3.0
+    dy = (torch.randn((2, m // 2, n_out), generator=g, device="cuda") / n_out ** 0.5).to(dt)
+    names = ["x", "w"] + [key for key in ("bias", "residual") if key in kw]
+
+    def grads(backend):
+        ins = {"x": x.clone().requires_grad_(), "w": w.clone().requires_grad_()}
+        call = dict(kw)
+        for key in names[2:]:
+            ins[key] = call[key] = kw[key].clone().requires_grad_()
+        y = ops.matmul(ins["x"], ins["w"], class_id=class_id, backend=backend, **call)
+        return y, torch.autograd.grad(y, [ins[key] for key in names], dy)
+
+    before = mm.grad_launches
+    y, got = grads("cuda")
+    assert mm.grad_launches > before
+    with torch.no_grad():
+        assert torch.equal(y, ops.matmul(x, w, class_id=class_id, **kw))   # same bits as serving
+    _, want = grads("ref")
+    for name, a, b_ in zip(names, got, want):
+        assert a.dtype == b_.dtype, name
+        _close_to_scale(a.float(), b_.float(), _tol(dt))
+
+
+def test_tied_head_gradient_reaches_the_embedding(card):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    emb = (torch.randn((1000, 64), generator=g, device="cuda") / 8).to(torch.bfloat16)
+    h = torch.randn((2, 9, 64), generator=g, device="cuda").to(torch.bfloat16)
+    dy = (torch.randn((2, 9, 1000), generator=g, device="cuda") / 30).to(torch.bfloat16)
+    e1, h1 = emb.clone().requires_grad_(), h.clone().requires_grad_()
+    emb_t = emb.T.contiguous()
+    y = ops.matmul(h1, emb_t, class_id="matmul_lmhead_softcap", softcap=30.0, transpose_of=e1)
+    got = torch.autograd.grad(y, (e1, h1), dy)
+    with torch.no_grad():
+        assert torch.equal(y, ops.matmul(h, emb_t, class_id="matmul_lmhead_softcap", softcap=30.0))
+    e2, h2 = emb.clone().requires_grad_(), h.clone().requires_grad_()
+    y2 = ops.matmul(h2, e2.T, class_id="matmul_lmhead_softcap", softcap=30.0, backend="ref")
+    want = torch.autograd.grad(y2, (e2, h2), dy)
+    for a, b_ in zip(got, want):
+        _close_to_scale(a.float(), b_.float(), BF16_TOL)
+
+
+def test_attention_forward_bits_equal_under_grad(card):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((1, h, 200, 128), generator=g, device="cuda").to(torch.bfloat16)
+               for h in (8, 2, 2))
+    with torch.no_grad():
+        o0 = ops.flash_attention(q, k, v, softcap=50.0)
+    o1 = ops.flash_attention(q.requires_grad_(), k, v, softcap=50.0)
+    assert o1.requires_grad and torch.equal(o0, o1)
+
+
+def test_kernels_without_backward_refuse_grad(card):
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((2, 4, 16), generator=g, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A.8"):
+        ops.moe_gemm(x, torch.randn((2, 16, 8), device="cuda"))
+    r, k, v, w = (torch.rand((1, 2, 5, 16), generator=g, device="cuda") for _ in range(4))
+    with pytest.raises(NotImplementedError, match="A.8"):
+        ops.rwkv6(r.requires_grad_(), k, v, w, torch.rand((2, 16), device="cuda"),
+                  torch.zeros((1, 2, 16, 16), device="cuda"))
+    with pytest.raises(NotImplementedError, match="A.8"):
+        ops.rglru(torch.rand((1, 5, 32), device="cuda", requires_grad=True),
+                  torch.rand((1, 5, 32), device="cuda"), torch.zeros((1, 32), device="cuda"))
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(x[:, None, :, :].contiguous(), x[:, None].detach(),
+                            x[:, None].detach(), q_offset=3)
+
+
+def test_reduced_gemma2_trains_on_the_card_through_the_kernels(card):
+    from repro_torch.launch import train as train_mod
+
+    ref.reset_calls()
+    before = (mm.grad_launches, fa.bwd_launches)
+    res = train_mod.main(["--arch", "gemma2-2b", "--steps", "8", "--batch", "4", "--seq", "24",
+                          "--log-every", "0"])
+    assert res["steps"] == 8 and res["last_loss"] < res["first_loss"]
+    assert mm.grad_launches > before[0] and fa.bwd_launches > before[1]
+    assert not ref.cuda_calls

@@ -1,5 +1,9 @@
 """The port imports nothing of JAX or of the JAX package ``repro``: every
-module, the copies of ``repro.obs`` and ``repro.service`` included."""
+module, the copies of ``repro.obs`` and ``repro.service`` included, and the
+training modules (``data``, ``optim``, ``checkpoint``, ``distributed``,
+``launch.steps``, ``launch.train``).  Its checkpoints need no ``ml_dtypes``
+either: nothing of ``repro_torch.checkpoint`` imports it, and importing the
+whole port loads it nowhere."""
 import ast
 import subprocess
 import sys
@@ -33,6 +37,12 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", sorted((PORT / "checkpoint").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_checkpoint_imports_no_ml_dtypes(path):
+    assert "ml_dtypes" not in set(_imported_roots(path)), f"{path.relative_to(ROOT)} imports ml_dtypes"
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -40,11 +50,15 @@ def test_importing_every_module_loads_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "sys.path.insert(0, sys.argv[1]); import chip_smoke\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 56, mods\n"
+        "assert len(mods) >= 68, mods\n"
         "assert {'repro_torch.obs.tracer', 'repro_torch.obs.metrics', 'repro_torch.service.registry',\n"
-        "        'repro_torch.service.tuning_service', 'repro_torch.core.resolution'} <= set(mods), mods\n"
+        "        'repro_torch.service.tuning_service', 'repro_torch.core.resolution',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.optim.adamw', 'repro_torch.optim.compression',\n"
+        "        'repro_torch.checkpoint.manager', 'repro_torch.distributed.context',\n"
+        "        'repro_torch.distributed.fault', 'repro_torch.launch.steps',\n"
+        "        'repro_torch.launch.train', 'repro_torch.tree'} <= set(mods), mods\n"
         "print(len(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)], capture_output=True, text=True,
