@@ -108,7 +108,10 @@ toolkit.  Phases, one result line each:
    MoE layer's tokens that the two paths route to different experts
    counted and left out).  For minitron-4b, one torch.profiler capture of
    three decode steps gives the device's busy share and its five ops with
-   the most device time.  Peak memory is read over weight init alone and
+   the most device time; a capture holding fewer kernels of a family than
+   the launch counters recorded in its window is refused and taken again,
+   at most ``PROFILE_TRIES`` times, and then the share is not measured
+   (``capture_shortfall``).  Peak memory is read over weight init alone and
    then over serving (``init_peak_gib``, ``serve_peak_gib``).  The prime
    181-token prompt's matmul launches per body are kept (the recurrent
    archs prefill it unpadded: every default M tile is 1, all rows body);
@@ -173,13 +176,30 @@ toolkit.  Phases, one result line each:
    generator on the card): every loss finite and the last below the first,
    K1 and its backward launched, 26 K2 backward launches a step, no plain
    version reached on the card (``ref.cuda_calls``); ms per step (median of
-   steps 2-6), tokens/s, peak memory over the steps, and one step profiled
-   (busy share, top five ops).  Then gemma2-2b at 2 layers, kernel path
+   steps 2-6), tokens/s and peak memory over the steps; its profiled step
+   comes from a fresh process (below).  Then gemma2-2b at 2 layers, kernel path
    against plain path on one batch: the loss and every gradient leaf within
    the bounds stated at ``TRAIN_LOSS_REL``.  Then the 2-layer params and
    optimizer state after one step saved and restored bit for bit
    (``checkpoint.CheckpointManager``), and ``train.main`` resumed from that
    checkpoint for 2 more steps.
+14. dist — sharded training (``repro_torch.distributed``,
+   ``launch.steps.make_sharded_train_step``) at world 1 under NCCL in this
+   process, over a ``FileStore`` in a temporary directory (``phase_dist``):
+   gemma2-2b at full width and 2 layers, two sharded steps (``dp``, a 1x1
+   mesh) against two unsharded ones on the same weights and batch — losses,
+   params and optimizer state bit-equal, the same kernel launches; that
+   state saved (rank 0 writes full leaves), the group destroyed, a fresh
+   one made and the state restored by ``elastic_restore``, bit-equal; then
+   full depth, 6 sharded steps: ms per step (median of steps 2-6) beside
+   the train phase's unsharded step, peak memory, and one step's
+   collectives by op, count and bytes, which must be what the planner's
+   ``launch.steps.plan_collectives`` gives.  The collectives are NCCL's; no
+   kernel is added.  Then ``chip_smoke.py --profile-steps`` in a fresh
+   process profiles one unsharded and one sharded full-depth step of
+   gemma2-2b (busy share, top five ops, the NCCL kernels' share of the busy
+   time), each capture held to the launch counters as the decode capture
+   is: late in the script every capture of a train step lost kernels.
 The chunk shapes of the paged path (K2: a 64-row chunk at q_offset 256 of a
 512-row cache; K1: 64x3072x3072 on the tensor cores) are timed after the
 grouped phase beside their plain versions, SDPA given the same boolean mask
@@ -1756,6 +1776,45 @@ def profile_summary(torch, prof, wall_us: float) -> dict:
             "top_device_ops": ops_[:5]}
 
 
+#: the kernels of each launch counter, by substrings of their names: every
+#: counted launch issues one of them (a rows-body K split adds a second
+#: pass, ``matmul_rows_reduce_kernel``, which is not counted)
+CAPTURE_KERNELS = {"matmul": ("matmul_mma_kernel", "matmul_rows_kernel",
+                              "matmul_rows_round_kernel", "matmul_fma_kernel"),
+                   "flash_attention": ("attention_mma_kernel", "attention_fma_kernel"),
+                   "attention_bwd": ("attention_bwd_dq_kernel",),
+                   "rwkv6_scan": ("rwkv6_scan_kernel",), "rglru_scan": ("rglru_scan_kernel",)}
+#: profiler captures taken before a busy share is reported as not measured
+PROFILE_TRIES = 3
+
+
+def launch_snapshot() -> dict:
+    """The port's launch counters, by :data:`CAPTURE_KERNELS`' families."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    return {"matmul": mm.launches + mm.grouped_launches, "flash_attention": fa.launches,
+            "attention_bwd": fa.bwd_launches, "rwkv6_scan": rw.launches,
+            "rglru_scan": rg.launches}
+
+
+def capture_shortfall(torch, prof, before: dict, after: dict) -> dict:
+    """The kernel families of which a capture holds fewer kernels than the
+    counters recorded launches between ``before`` and ``after``:
+    {family: (captured, launched)}.  Empty: the capture is whole."""
+    names = collections.Counter(e.name for e in prof.events()
+                                if e.device_type == torch.autograd.DeviceType.CUDA)
+    short = {}
+    for family, subs in CAPTURE_KERNELS.items():
+        launched = after[family] - before[family]
+        captured = sum(n for name, n in names.items() if any(s in name for s in subs))
+        if captured < launched:
+            short[family] = (captured, launched)
+    return short
+
+
 def profile_decode(torch, engine, prompts, steps: int = 3, provider=None) -> dict:
     """One torch.profiler capture of ``steps`` decode steps of a busy slot
     engine: the device's busy share of the window (the union of its kernel
@@ -1763,41 +1822,59 @@ def profile_decode(torch, engine, prompts, steps: int = 3, provider=None) -> dic
     ops with the most device time.  With ``provider``, each of its ``get``
     calls inside the window is a labelled range, and the host time of those
     ranges over the window is the share of a step the provider takes (the
-    label's own cost included)."""
+    label's own cost included).  The capture must hold a kernel for every
+    launch the counters recorded in the window (:func:`capture_shortfall`);
+    else the requests are served out and new ones profiled, up to
+    :data:`PROFILE_TRIES` times, and then the busy share is not measured
+    (None; the provider's host share, read from host ranges, still is)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    for p in prompts:
-        engine.add_request(p, max_new_tokens=steps + 2)
-    engine.step()                 # one step outside the window
-    torch.cuda.synchronize()
-    if provider is not None:
-        real_get = provider.get
-
-        def labelled(inst):
-            with record_function(PROVIDER_LABEL):
-                return real_get(inst)
-
-        provider.get = labelled
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            for _ in range(steps):
-                engine.step()
-            torch.cuda.synchronize()
-            wall_us = (time.monotonic() - t0) * 1e6
-    finally:
+    for attempt in range(1, PROFILE_TRIES + 1):
+        for p in prompts:
+            engine.add_request(p, max_new_tokens=steps + 2)
+        engine.step()                 # one step outside the window
+        torch.cuda.synchronize()
         if provider is not None:
-            del provider.get      # back to the class's method
-    while engine.active:
-        engine.step()
-    out = {"steps": steps, **profile_summary(torch, prof, wall_us)}
-    if provider is not None:
-        label = next((a for a in prof.key_averages() if a.key == PROVIDER_LABEL), None)
-        if label is None:
-            raise AssertionError("the profiler recorded no schedule provider range")
-        out["provider_calls"] = label.count
-        out["provider_host_ms"] = label.cpu_time_total / 1e3
-        out["provider_host_share"] = label.cpu_time_total / wall_us
+            real_get = provider.get
+
+            def labelled(inst):
+                with record_function(PROVIDER_LABEL):
+                    return real_get(inst)
+
+            provider.get = labelled
+        before = launch_snapshot()
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                for _ in range(steps):
+                    engine.step()
+                torch.cuda.synchronize()
+                wall_us = (time.monotonic() - t0) * 1e6
+        finally:
+            if provider is not None:
+                del provider.get      # back to the class's method
+        after = launch_snapshot()
+        while engine.active:
+            engine.step()
+        short = capture_shortfall(torch, prof, before, after)
+        if short:
+            log("profile_capture_short", what="decode", attempt=attempt, short=short)
+            out = {"steps": steps, "attempt": None, "device_busy_share": None,
+                   "not_measured": f"{attempt} captures short of the launch counts"}
+        else:
+            out = {"steps": steps, "attempt": attempt,
+                   "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]},
+                   **profile_summary(torch, prof, wall_us)}
+        if provider is not None:      # host ranges: a capture short of kernels still has them
+            label = next((a for a in prof.key_averages() if a.key == PROVIDER_LABEL), None)
+            if label is None:
+                raise AssertionError("the profiler recorded no schedule provider range")
+            out["provider_calls"] = label.count
+            out["provider_host_ms"] = label.cpu_time_total / 1e3
+            out["provider_host_share"] = label.cpu_time_total / wall_us
+        if not short:
+            return out
+    log("profile_not_measured", what="decode", tries=PROFILE_TRIES)
     return out
 
 
@@ -3125,8 +3202,6 @@ def phase_fleet(torch, db, srv: list) -> list:
 
 TRAIN_ARCH = "gemma2-2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
-#: the step captured by torch.profiler (0-based; its time stays in the median)
-TRAIN_PROFILED_STEP = 3
 #: K2 backward shapes checked against autograd of the plain version,
 #: (name, B, Hq, Hkv, S, D, causal, window, softcap): gemma2's heads with a
 #: window that bites at 512 and softcap 50, the same global, minitron's
@@ -3313,17 +3388,29 @@ def matmul_bwd_phase(torch, timer) -> dict:
 
 def step_profile(torch, run) -> tuple:
     """``run()`` (one train step) under one torch.profiler capture ending in
-    a sync: (its result, :func:`profile_summary` of the window)."""
+    a sync: (its result, :func:`profile_summary` of the window, or None
+    where the capture holds fewer kernels than the launch counters recorded
+    in it, :func:`capture_shortfall`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    before = launch_snapshot()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         out = run()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
+    after = launch_snapshot()
+    short = capture_shortfall(torch, prof, before, after)
+    if short:
+        log("profile_capture_short", what="train_step", short=short)
+        return out, None
     summary = profile_summary(torch, prof, wall_us)
-    if not summary["device_events"]:
-        raise AssertionError("the profiler recorded no device time in the train step")
+    summary["launches"] = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    nccl = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "nccl" in e.name.lower())
+    summary["nccl_device_ms"] = nccl / 1e3
+    summary["nccl_share_of_busy"] = (nccl / 1e3 / summary["device_busy_ms"]
+                                     if summary["device_busy_ms"] else None)
     return out, summary
 
 
@@ -3380,7 +3467,7 @@ def phase_train(torch, timer) -> dict:
     cfg = get_arch(TRAIN_ARCH)
 
     # --- the main path: train.main at full width and depth ----------------
-    rec = {"ms": [], "losses": [], "profile": None}
+    rec = {"ms": [], "losses": []}
     make_step = steps_mod.make_train_step
 
     def instrumented(*args, **kwargs):
@@ -3394,10 +3481,7 @@ def phase_train(torch, timer) -> dict:
                 torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            if i == TRAIN_PROFILED_STEP:
-                out, rec["profile"] = step_profile(torch, lambda: step_fn(params, opt, batch))
-            else:
-                out = step_fn(params, opt, batch)
+            out = step_fn(params, opt, batch)
             torch.cuda.synchronize()
             rec["ms"].append((time.monotonic() - t0) * 1e3)
             rec["losses"].append(float(out[2]["loss"]))
@@ -3438,7 +3522,7 @@ def phase_train(torch, timer) -> dict:
                 "steps": res["steps"], "result": res, "losses": rec["losses"],
                 "step_ms": rec["ms"], "ms_per_step": step_ms, "tok_per_s": tokens / step_ms * 1e3,
                 "init_gib": rec["init_gib"], "peak_gib": peak_gib, "wall_s": wall_s,
-                "profiled_step": TRAIN_PROFILED_STEP, "profile": rec["profile"], **counts}
+                **counts}
     log("train_main", **main_row)
 
     # --- kernel path against plain path at 2 layers ---------------------------
@@ -3507,6 +3591,271 @@ def phase_train(torch, timer) -> dict:
             "checkpoint": ckpt}
 
 
+#: the dist phase: gemma2-2b at the train phase's batch; 2 layers for the
+#: world-1 bit-equality and the elastic restore, full depth for the timing
+DIST_LAYERS = 2
+#: full-depth steps, timed as the train phase times its own (the median of
+#: all but the first)
+DIST_STEPS = TRAIN_STEPS
+
+
+def bits_equal(torch, a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+@contextlib.contextmanager
+def nccl_group(torch, directory: str, name: str):
+    """A one-rank NCCL process group on cuda:0 over a ``FileStore`` in
+    ``directory`` (no network), destroyed on exit."""
+    import os
+
+    import torch.distributed as dist
+
+    store = dist.FileStore(os.path.join(directory, name), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist(torch, unsharded_ms: float) -> dict:
+    """Sharded training on the card (``repro_torch.distributed``) at world
+    1 under NCCL, in this process: (1) gemma2-2b at full width and
+    ``DIST_LAYERS`` layers, two steps of ``make_sharded_train_step`` (the
+    ``dp`` strategy, a (1, 1) mesh) against two of ``make_train_step`` on the
+    same weights and batch: losses, params and optimizer state bit-equal,
+    the same kernel launches; (2) that state saved (rank 0 writes full
+    leaves), the group destroyed, a fresh one made and the state restored by
+    ``elastic_restore``, bit-equal; (3) full depth, ``DIST_STEPS`` sharded
+    steps: ms per step (median of all but the first) beside the train
+    phase's unsharded step, peak memory and one step's collectives by op,
+    held equal to the step's plan (``plan_collectives``, the planner's).
+    Its profiled step is :func:`profile_steps`'."""
+    import math
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticSource
+    from repro_torch.distributed.collectives import MeshGroups
+    from repro_torch.distributed.fault import elastic_restore
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import trainable
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    free_engines(torch)
+    t_phase = time.monotonic()
+    cfg = get_arch(TRAIN_ARCH)
+    np_batch = SyntheticSource(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH)).batch_at(0)
+    batch = {"tokens": torch.from_numpy(np_batch["tokens"]).cuda()}
+    opt_cfg = AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=DIST_STEPS)
+    cfg2 = dataclasses.replace(cfg, n_layers=DIST_LAYERS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as d:
+        # --- 1. world 1: the sharded step against the unsharded, bit for bit
+        with nccl_group(torch, d, "store0"):
+            model = build_model(cfg2, "cuda")
+            full = model.init(5)
+            step = steps_mod.make_sharded_train_step(model, opt_cfg, make_test_mesh(model=1),
+                                                     strategy="dp")
+            params = step.shard_params(full)
+            opt = step.init_opt_state(params)
+            full_opt = steps_mod.init_opt_state(full)
+            plain = steps_mod.make_train_step(model, opt_cfg)
+            runs = {}
+            for name, fn, p, o in (("unsharded", plain, full, full_opt),
+                                   ("sharded", step, params, opt)):
+                reset_counts(mm, fa, rw, rg, ref)
+                step.groups.counter.reset()
+                losses = []
+                for _ in range(2):
+                    p, o, metrics = fn(p, o, batch)
+                    losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                runs[name] = {"losses": losses, **train_counts(mm, fa, rw, rg, ref),
+                              "collectives": step.groups.counter.snapshot()}
+            got, want = {"params": params, "opt": opt}, {"params": trainable(full), "opt": full_opt}
+            differ = [path for (path, a), b in zip(leaves_with_paths(got), leaves(want))
+                      if not bits_equal(torch, a, b)]
+            same_launches = all(runs["sharded"][k] == runs["unsharded"][k] for k in (
+                "launches", "matmul_grad_launches", "attention_bwd_launches", "body_launches"))
+            equal_row = {"layers": DIST_LAYERS, "strategy": "dp", "mesh": "1x1",
+                         "leaves": len(leaves(got)), "differ": differ,
+                         "losses": runs["sharded"]["losses"],
+                         "unsharded_losses": runs["unsharded"]["losses"],
+                         "same_launches": same_launches, "runs": runs}
+            log("dist_world1_equal", **equal_row)
+            if (differ or runs["sharded"]["losses"] != runs["unsharded"]["losses"]
+                    or not same_launches):
+                raise AssertionError(f"dist: the sharded step at world 1 is not the unsharded "
+                                     f"step: leaves differ {differ}, {equal_row}")
+            if runs["sharded"]["plain_cuda_calls"] or not runs["sharded"]["collectives"].get(
+                    "reduce_scatter"):
+                raise AssertionError(f"dist: {runs['sharded']}")
+            # --- 2. the state saved by rank 0, for a fresh group to restore
+            del p, o, metrics
+            sharded = step.state_sharded(opt)
+            ck = os.path.join(d, "ckpt")
+            t0 = time.monotonic()
+            CheckpointManager(ck).save(2, got, sharded=sharded)
+            save_s = time.monotonic() - t0
+            like = sharded.like
+            del model, full, full_opt, plain, step
+        free_engines(torch)
+        with nccl_group(torch, d, "store1"):
+            groups = MeshGroups(make_test_mesh(model=1))
+            t0 = time.monotonic()
+            n, restored = elastic_restore(CheckpointManager(ck), like, cfg2, groups, dp_only=True)
+            restore_s = time.monotonic() - t0
+            lost = [path for (path, a), b in zip(leaves_with_paths(got), leaves(restored))
+                    if not bits_equal(torch, a.cpu(), b.cpu())]
+            elastic_row = {"step": n, "leaves": len(leaves(got)), "differ": lost,
+                           "gib": sum(a.numel() * a.element_size() for a in leaves(got)) / 2 ** 30,
+                           "save_s": save_s, "restore_s": restore_s}
+            log("dist_elastic_restore", **elastic_row)
+            if n != 2 or lost:
+                raise AssertionError(f"dist: elastic restore lost bits: {elastic_row}")
+            del got, restored, params, opt, want, sharded
+            free_engines(torch)
+
+            # --- 3. full depth
+            model = build_model(cfg, "cuda")
+            step = steps_mod.make_sharded_train_step(model, opt_cfg, groups.mesh, groups,
+                                                     strategy="dp")
+            full = model.init(0)
+            params = step.shard_params(full)
+            del full
+            free_engines(torch)
+            opt = step.init_opt_state(params)
+            torch.cuda.synchronize()
+            init_gib = torch.cuda.memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(mm, fa, rw, rg, ref)
+            ms, losses, per_step = [], [], None
+            for _ in range(DIST_STEPS):
+                groups.counter.reset()
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                out = step(params, opt, batch)
+                torch.cuda.synchronize()
+                ms.append((time.monotonic() - t0) * 1e3)
+                losses.append(float(out[2]["loss"]))
+                per_step = groups.counter.snapshot()
+            counts = train_counts(mm, fa, rw, rg, ref)
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            # the planner's count of a step is the step's, op by op
+            plan = steps_mod.plan_collectives(cfg, step.params.like, step.specs, groups.mesh)
+            issued = {op: ({k: v[k] for k in ("count", "operand_bytes", "result_bytes")}
+                           if isinstance(v, dict) else v) for op, v in per_step.items()}
+            if issued != plan:
+                raise AssertionError(f"dist: a step issued {issued}, its plan says {plan}")
+            del model, step, params, opt, out, groups
+        free_engines(torch)
+    step_ms = statistics.median(ms[1:])
+    full_row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "strategy": "dp", "mesh": "1x1", "backend": "nccl", "steps": DIST_STEPS,
+                "losses": losses, "step_ms": ms, "ms_per_step": step_ms,
+                "unsharded_ms_per_step": unsharded_ms, "ratio_to_unsharded": step_ms / unsharded_ms,
+                "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3, "init_gib": init_gib,
+                "peak_gib": peak_gib, "collectives_per_step": per_step,
+                "collectives_as_planned": True, **counts}
+    log("dist", **full_row, world1_bit_equal=True, elastic_restore_bit_equal=True,
+        seconds=time.monotonic() - t_phase)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"dist: losses {losses}")
+    if (counts["plain_cuda_calls"] or counts["attention_bwd_launches"] != cfg.n_layers * DIST_STEPS
+            or not counts["matmul_grad_launches"]):
+        raise AssertionError(f"dist: the full-depth sharded steps' launches {counts}")
+    return {"world1": equal_row, "elastic": elastic_row, "main": full_row}
+
+
+def first_whole_capture(torch, what: str, run) -> dict | None:
+    """:func:`step_profile` of ``run`` until a capture holds a kernel for
+    every launch the counters recorded, at most :data:`PROFILE_TRIES`
+    times; None (not measured) after that."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        _, summary = step_profile(torch, run)
+        if summary is not None:
+            return {"attempt": attempt, **summary}
+    log("profile_not_measured", what=what, tries=PROFILE_TRIES)
+    return None
+
+
+def profile_steps(torch) -> dict:
+    """In a fresh process (``chip_smoke.py --profile-steps``): one profiled
+    step of gemma2-2b at full depth and the train phase's batch, unsharded
+    (``make_train_step``) and sharded at world 1 under NCCL
+    (``make_sharded_train_step``, ``dp``), each after two unprofiled steps.
+    Late in the whole script every capture of a train step held three K1
+    kernels fewer than its 653 launches; in a fresh process none
+    did."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticSource
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_arch(TRAIN_ARCH)
+    np_batch = SyntheticSource(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH)).batch_at(0)
+    batch = {"tokens": torch.from_numpy(np_batch["tokens"]).cuda()}
+    opt_cfg = AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    model = build_model(cfg, "cuda")
+    out = {}
+    params = model.init(0)
+    opt = steps_mod.init_opt_state(params)
+    step = steps_mod.make_train_step(model, opt_cfg)
+    for _ in range(2):
+        step(params, opt, batch)
+    out["train"] = first_whole_capture(torch, "train_step", lambda: step(params, opt, batch))
+    del params, opt, step
+    free_engines(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as d:
+        with nccl_group(torch, d, "store"):
+            step = steps_mod.make_sharded_train_step(model, opt_cfg, make_test_mesh(model=1),
+                                                     strategy="dp")
+            params = step.shard_params(model.init(0))
+            opt = step.init_opt_state(params)
+            for _ in range(2):
+                step(params, opt, batch)
+            out["dist"] = first_whole_capture(torch, "dist_step",
+                                              lambda: step(params, opt, batch))
+            del params, opt, step
+    return out
+
+
+def phase_step_profiles(torch) -> dict:
+    """:func:`profile_steps` in a fresh process; returns its result."""
+    free_engines(torch)
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--profile-steps"],
+                         capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith('{"step_profiles"')]
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"--profile-steps failed ({out.returncode}):\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    for ln in out.stdout.splitlines():
+        if '"profile_' in ln:
+            print(ln, flush=True)          # its refused captures
+    res = json.loads(lines[-1])["step_profiles"]
+    log("step_profiles", **res)
+    return res
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -3515,6 +3864,11 @@ def main(argv: list[str]) -> int:
         return 1
     if argv[:1] == ["--scans-ab"] and len(argv) == 2:
         return scans_ab(Path(argv[1]).resolve())
+    if argv == ["--profile-steps"]:                        # a fresh process for the captures
+        import_port()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps({"step_profiles": profile_steps(torch)}), flush=True)
+        return 0
     if argv[:1] == ["--time-scans"] and len(argv) == 2:   # one turn of --scans-ab
         import_port(Path(argv[1]))
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3561,8 +3915,12 @@ def main(argv: list[str]) -> int:
     under = under_bytes_bound(train["attention_bwd"]["timed"])
     if under:
         raise AssertionError(f"train timings under their bytes bound: {under}")
+    dist_r = phase_dist(torch, train["main"]["ms_per_step"])
+    profiles = phase_step_profiles(torch)
+    train["main"]["profile"], dist_r["main"]["profile"] = profiles["train"], profiles["dist"]
     # main-path runs, counts read apart
-    paths = {"slot": srv, "paged": paged, "spec": [spec], "fleet": fleet, "train": [train["main"]]}
+    paths = {"slot": srv, "paged": paged, "spec": [spec], "fleet": fleet, "train": [train["main"]],
+             "dist": [dist_r["main"]]}
 
     def count(r, name, body=None):   # one run's launches of a kernel (of one body)
         if body is None:

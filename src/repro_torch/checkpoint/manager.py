@@ -12,8 +12,14 @@ bit: numpy has no bfloat16, and the port reads and writes the bytes through
 torch alone (no ``ml_dtypes``).  A checkpoint directory is written under a
 ``.tmp`` name and atomically renamed on completion, so a preemption
 mid-save never corrupts the latest checkpoint.  ``restore`` puts each leaf
-on its template leaf's device; restoring onto another mesh waits for the
-port's distributed training (ROADMAP A.9).
+on its template leaf's device.
+
+Sharded trees (:mod:`repro_torch.distributed`): ``save(..., sharded=)``
+gathers each leaf in turn (a collective on every rank) and rank 0 writes
+the reference's layout, full leaves, so its host holds one full leaf at a
+time; ``restore(..., shardings=)`` reads each leaf through
+``np.load(mmap_mode="r")`` and materialises only this rank's slice, so a
+checkpoint restores onto any mesh whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -27,13 +33,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_paths, unflatten
+from repro_torch.tree import flatten_up_to, leaves_with_paths, unflatten
 
 #: the manifest's dtype names (the reference's, numpy's) <-> torch dtypes
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32,
           "float64": torch.float64, "int8": torch.int8, "uint8": torch.uint8,
           "int16": torch.int16, "int32": torch.int32, "int64": torch.int64, "bool": torch.bool}
 _NAMES = {v: k for k, v in DTYPES.items()}
+_UINTS = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 
 
 def _raw_bytes(t: torch.Tensor) -> np.ndarray:
@@ -46,6 +53,16 @@ def _from_raw(raw: np.ndarray, dtype: str, shape: list[int]) -> torch.Tensor:
     return flat.view(DTYPES[dtype]).reshape(shape)
 
 
+def _slice_raw(raw: np.ndarray, dtype: str, shape: list[int], index: tuple) -> torch.Tensor:
+    """``index`` of a leaf stored as raw bytes, reading only what it covers
+    (``raw`` memory-mapped): the bytes are viewed as unsigned ints of the
+    dtype's width, sliced, then viewed as the dtype."""
+    width = torch.empty((), dtype=DTYPES[dtype]).element_size()
+    part = np.array(raw.view(_UINTS[width]).reshape(shape)[index], order="C")
+    flat = torch.from_numpy(part.reshape(-1).view(np.uint8).copy())
+    return flat.view(DTYPES[dtype]).reshape(part.shape)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
@@ -55,10 +72,19 @@ class CheckpointManager:
         self._error: BaseException | None = None
 
     # -- save -----------------------------------------------------------------
-    def save(self, step: int, tree: Any, blocking: bool = True) -> None:
+    def save(self, step: int, tree: Any, blocking: bool = True, sharded=None) -> None:
         """Snapshot to host then write. blocking=False writes in background
-        (async checkpointing): training resumes right after the snapshot."""
+        (async checkpointing): training resumes right after the snapshot.
+
+        ``sharded``: ``tree`` holds this rank's shards, placed by this
+        :class:`~repro_torch.distributed.collectives.ShardedTree`.  Every
+        rank calls; each leaf is gathered in turn and rank 0 writes it
+        (blocking; rank 0's host holds one full leaf at a time), then all
+        ranks meet at a barrier."""
         self.wait()
+        if sharded is not None:
+            self._save_sharded(step, tree, sharded)
+            return
         host = [(path, leaf.detach().to("cpu", copy=True)) for path, leaf in leaves_with_paths(tree)]
         if blocking:
             self._write(step, host)
@@ -72,7 +98,20 @@ class CheckpointManager:
         except BaseException as e:  # surfaced on the next wait()/save()
             self._error = e
 
-    def _write(self, step: int, host: list) -> None:
+    def _save_sharded(self, step: int, tree: Any, sharded) -> None:
+        import torch.distributed as dist
+
+        paths = [path for path, _ in leaves_with_paths(sharded.like)]   # full_leaves' order
+        fulls = sharded.full_leaves(tree)
+        if sharded.groups.rank == 0:
+            self._write(step, ((path, full.to("cpu")) for path, full in zip(paths, fulls)))
+        else:
+            for _ in fulls:
+                pass
+        dist.barrier()
+
+    def _write(self, step: int, host) -> None:
+        """Write (path, host tensor) pairs, one after another."""
         final = os.path.join(self.directory, f"step_{step:08d}")
         tmp = final + ".tmp"
         if os.path.exists(tmp):
@@ -117,10 +156,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: int | None = None) -> tuple[int, Any]:
+    def restore(self, template: Any, step: int | None = None,
+                shardings: Any = None) -> tuple[int, Any]:
         """Restore into the structure of ``template`` (tensors, or anything
         with ``shape``, ``dtype`` and ``device``: a ``meta`` tensor, say).
-        Each leaf comes back with its template's dtype on its device."""
+        Each leaf comes back with its template's dtype on its device.
+
+        ``shardings``: a tree of the template's structure whose leaves are
+        this rank's index into the full leaf (a tuple of slices, as
+        ``ShardedTree.slices`` gives) or None (the whole leaf); the template
+        has the full shapes.  Only the slice is read into memory."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -128,15 +173,23 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_path = {e["path"]: e for e in manifest["leaves"]}
+        flat = leaves_with_paths(template)
+        index = ([None] * len(flat) if shardings is None
+                 else flatten_up_to(shardings, template))
         out = []
-        for path, tmpl in leaves_with_paths(template):
+        for (path, tmpl), idx in zip(flat, index):
             if path not in by_path:
                 raise KeyError(f"checkpoint missing leaf {path}")
             entry = by_path[path]
-            arr = _from_raw(np.load(os.path.join(d, entry["file"])), entry["dtype"], entry["shape"])
-            if tuple(arr.shape) != tuple(tmpl.shape):
-                raise ValueError(f"shape mismatch for {path}: ckpt {tuple(arr.shape)} "
+            if tuple(entry["shape"]) != tuple(tmpl.shape):
+                raise ValueError(f"shape mismatch for {path}: ckpt {tuple(entry['shape'])} "
                                  f"vs {tuple(tmpl.shape)}")
+            if idx is None:
+                arr = _from_raw(np.load(os.path.join(d, entry["file"])), entry["dtype"],
+                                entry["shape"])
+            else:
+                arr = _slice_raw(np.load(os.path.join(d, entry["file"]), mmap_mode="r"),
+                                 entry["dtype"], entry["shape"], idx)
             device = tmpl.device if tmpl.device.type != "meta" else "cpu"
             out.append(arr.to(device=device, dtype=tmpl.dtype))
         return manifest["step"], unflatten(template, out)

@@ -1,20 +1,26 @@
-"""Fault tolerance on one process: straggler detection and preemption
-handling (the counterpart of ``StragglerMonitor`` and ``PreemptionHandler``
-in ``repro.distributed.fault``, copied).
+"""Fault tolerance: straggler detection, preemption handling, elastic
+re-mesh (the counterpart of ``repro.distributed.fault``).
 
 * :class:`StragglerMonitor` — EWMA of per-step wall times; steps slower than
-  ``threshold×`` the EWMA are flagged.
+  ``threshold×`` the EWMA are flagged (copied).
 * :class:`PreemptionHandler` — converts SIGTERM (and a programmatic
   ``request()``) into a "checkpoint now, then exit cleanly" flag the train
-  loop polls each step.
-
-``elastic_restore`` (a checkpoint restored onto another mesh) waits for the
-port's distributed training (ROADMAP A.9).
+  loop polls each step (copied).
+* :func:`elastic_restore` — restore a checkpoint onto the current process
+  group's mesh, whatever mesh (or single process) wrote it: the specs are
+  rebuilt for the new mesh from the same rules, and each rank reads only
+  its slices (checkpoints store full leaves, so this is total).
 """
 from __future__ import annotations
 
 import signal
 import threading
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import MeshGroups, ShardedTree
+from repro_torch.tree import tree_map
 
 
 class StragglerMonitor:
@@ -58,3 +64,23 @@ class PreemptionHandler:
     @property
     def requested(self) -> bool:
         return self._event.is_set()
+
+
+def elastic_restore(manager: CheckpointManager, template: dict, cfg: ArchConfig,
+                    groups: MeshGroups, step: int | None = None,
+                    dp_only: bool = False) -> tuple[int, dict]:
+    """Restore a {"params": …, "opt": …} bundle as this rank's shards on
+    ``groups.mesh``.
+
+    ``template`` is the bundle with full shapes (``meta`` tensors will do);
+    the specs are rebuilt for the new mesh from the same logical rules
+    (``dp_only``: the ``dp`` strategy's), so any divisibility fallbacks
+    re-evaluate for the new axis sizes.  Other keys restore whole."""
+    p_specs = shd.param_shardings(template["params"], cfg, groups.mesh, dp_only)
+    specs = {"params": p_specs}
+    if "opt" in template:
+        specs["opt"] = shd.opt_state_shardings(p_specs, template["opt"])
+    shardings = {k: (ShardedTree(groups, v, specs[k]).slices() if k in specs
+                     else tree_map(lambda _: None, v))
+                 for k, v in template.items()}
+    return manager.restore(template, step=step, shardings=shardings)

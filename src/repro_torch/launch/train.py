@@ -3,6 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b --preset full \
         --batch 4 --seq 512 --steps 6
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --preset smoke
+    PYTHONPATH=src torchrun --nproc-per-node 1 -m repro_torch.launch.train --strategy dp \
+        --arch gemma2-2b --preset full --batch 4 --seq 512 --steps 6
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+        --preset smoke --strategy fsdp_tp --mesh-model 2
 
 Loop structure, as the reference's:
   * deterministic data pipeline (the step number is the data cursor, so a
@@ -22,8 +26,25 @@ It prints and returns the reference's result dict (``first_loss``,
 gradient on the port's kernels, and raises where there is none.  The MoE,
 recurrent and audio archs have no backward kernels on the card yet (ROADMAP
 A.8): they train on the CPU.  ``--layers N`` keeps the first N layers
-(default: the config's depth).  One process: ``--mesh-model`` above 1 and
-``--strategy`` other than ``auto`` raise (ROADMAP A.9).
+(default: the config's depth).
+
+Sharded training: under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK`` in the environment) the trainer joins a process group (NCCL
+on ``cuda:LOCAL_RANK`` with ``--device cuda``, gloo on the CPU;
+``--dist-init`` overrides torchrun's ``env://``), lays a (world /
+``--mesh-model``, ``--mesh-model``) test mesh over it and trains through
+:class:`~repro_torch.launch.steps.ShardedTrainStep`, at world 1 too.
+``--strategy auto`` follows the reference's ``dp_dominant``; ``dp`` shards
+every leaf over the whole mesh, ``fsdp_tp`` takes the reference's layout.
+Both compute on weights gathered one layer at a time (ZeRO-3): under
+``fsdp_tp`` the ranks of one ``model`` row compute the same batch shard on
+the same full weights — it is not tensor-parallel compute, which is ROADMAP
+A.9b's.  Each rank draws the full params from the seed and keeps its
+shards.  Checkpoints: rank 0 writes full leaves, and ``--resume`` goes
+through :func:`~repro_torch.distributed.fault.elastic_restore`, so a run
+resumes at another world size (or in one process).  Rank 0 logs and
+prints.  Without ``torchrun`` the trainer runs one process and refuses
+``--mesh-model`` above 1 and ``--strategy`` other than ``auto``.
 
 ``--tuning-db``: the DB's records for the device's target (``h100`` on the
 card, ``tpu-v5e`` on the CPU, the serve launcher's defaults) become the
@@ -37,21 +58,26 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import get_arch, reduced
 from repro_torch.core.database import ScheduleDB
 from repro_torch.data import DataConfig, Pipeline
-from repro_torch.distributed import PreemptionHandler, StragglerMonitor
+from repro_torch.distributed import PreemptionHandler, StragglerMonitor, elastic_restore
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.context import REMAT_POLICIES, set_remat_policy
 from repro_torch.kernels.ops import ScheduleProvider
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.build import build_model
 from repro_torch.models.lm import retie, trainable
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.tree import leaves
 from repro_torch.targets import DEFAULT_TARGET
 
 #: the target whose tuned records are used, per device
@@ -88,34 +114,88 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--layers", type=int, default=0,
                     help="keep the first N layers (0: the config's depth)")
+    ap.add_argument("--dist-init", default="env://",
+                    help="init_method of the process group under torchrun")
     args = ap.parse_args(argv)
-    if args.mesh_model > 1 or args.strategy != "auto":
-        raise NotImplementedError("sharded training (--mesh-model > 1, --strategy dp/fsdp_tp) "
-                                  "waits for the port's distributed training (ROADMAP A.9)")
+    distributed = all(k in os.environ for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"))
+    if not distributed and (args.mesh_model > 1 or args.strategy != "auto"):
+        raise ValueError("sharded training (--mesh-model > 1, --strategy dp/fsdp_tp) runs "
+                         "under torchrun (RANK, WORLD_SIZE, LOCAL_RANK)")
 
     cfg = get_arch(args.arch)
     if args.preset == "smoke":
         cfg = reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    model = build_model(cfg, args.device)
-    provider = make_provider(args.tuning_db, DEFAULT_TARGETS[args.device])
+    device = args.device
+    if distributed:
+        device = _join_group(args)
+    try:
+        return _train(args, cfg, device, distributed)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
 
-    params = model.init(0)
-    opt_state = steps_mod.init_opt_state(params, compress_grads=args.compress_grads)
+
+def _join_group(args) -> str:
+    """Join torchrun's process group; returns this rank's device."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if args.device == "cuda":
+        local = int(os.environ["LOCAL_RANK"])
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl", init_method=args.dist_init, rank=rank,
+                                world_size=world, device_id=torch.device("cuda", local))
+        return f"cuda:{local}"
+    dist.init_process_group("gloo", init_method=args.dist_init, rank=rank, world_size=world)
+    return "cpu"
+
+
+def _train(args, cfg, device: str, distributed: bool) -> dict:
+    model = build_model(cfg, device)
+    provider = make_provider(args.tuning_db, DEFAULT_TARGETS[args.device])
     opt_cfg = AdamWConfig(peak_lr=args.lr, warmup_steps=max(args.steps // 10, 2),
                           total_steps=args.steps)
-    step_fn = steps_mod.make_train_step(model, opt_cfg, grad_accum=args.grad_accum,
-                                        compress_grads=args.compress_grads, provider=provider)
+    params = model.init(0)
+    lead, sharded = True, None
+    if distributed:
+        mesh = make_test_mesh(model=args.mesh_model)
+        strategy = args.strategy
+        if strategy == "auto":
+            strategy = ("dp" if shd.dp_dominant(cfg, mesh, kind="train", global_batch=args.batch)
+                        else "fsdp_tp")
+        step_fn = steps_mod.make_sharded_train_step(
+            model, opt_cfg, mesh, strategy=strategy, grad_accum=args.grad_accum,
+            compress_grads=args.compress_grads, provider=provider)
+        params = step_fn.shard_params(params)
+        opt_state = step_fn.init_opt_state(params)
+        sharded = step_fn.state_sharded(opt_state)
+        lead = step_fn.groups.rank == 0
+        if lead:
+            print(f"mesh {mesh.name} ({', '.join(mesh.axis_names)}), strategy {strategy}, "
+                  f"world {mesh.size}", flush=True)
+    else:
+        opt_state = steps_mod.init_opt_state(params, compress_grads=args.compress_grads)
+        step_fn = steps_mod.make_train_step(model, opt_cfg, grad_accum=args.grad_accum,
+                                            compress_grads=args.compress_grads, provider=provider)
+
+    def bundle():
+        return {"params": trainable(params), "opt": opt_state}
 
     start_step = 0
     manager = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     if manager and args.resume and manager.latest_step() is not None:
-        start_step, restored = manager.restore({"params": trainable(params), "opt": opt_state})
-        params.update(restored["params"])
-        opt_state = restored["opt"]
-        retie(params)
-        print(f"resumed from step {start_step}")
+        if sharded is not None:
+            start_step, restored = elastic_restore(manager, sharded.like, cfg, step_fn.groups,
+                                                   dp_only=step_fn.dp_only)
+            for k in ("params", "opt"):
+                _copy_into(bundle()[k], restored[k])
+        else:
+            start_step, restored = manager.restore(bundle())
+            params.update(restored["params"])
+            opt_state = restored["opt"]
+            retie(params)
+        if lead:
+            print(f"resumed from step {start_step}")
 
     data = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch), start_step=start_step)
@@ -132,23 +212,31 @@ def main(argv=None) -> dict:
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
         dt = time.monotonic() - t0
-        if monitor.record(step, dt):
+        if monitor.record(step, dt) and lead:
             print(f"[straggler] step {step} took {dt:.2f}s (ewma {monitor.ewma:.2f}s)")
         losses.append(loss)
-        if args.log_every and step % args.log_every == 0:
+        if args.log_every and step % args.log_every == 0 and lead:
             print(f"step {step:5d} loss {loss:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} {dt*1e3:.0f}ms", flush=True)
         if manager and args.ckpt_every and step and step % args.ckpt_every == 0:
-            manager.save(step, {"params": trainable(params), "opt": opt_state}, blocking=False)
+            manager.save(step, bundle(), blocking=sharded is not None, sharded=sharded)
     data.close()
     if manager:
-        manager.save(len(losses) + start_step, {"params": trainable(params), "opt": opt_state})
+        manager.save(len(losses) + start_step, bundle(), sharded=sharded)
         manager.wait()
     result = {"first_loss": losses[0] if losses else None,
               "last_loss": losses[-1] if losses else None,
               "steps": len(losses), "stragglers": len(monitor.flagged)}
-    print(json.dumps(result))
+    if lead:
+        print(json.dumps(result))
     return result
+
+
+@torch.no_grad()
+def _copy_into(dst, src) -> None:
+    """Write a restored tree into the live one, leaf by leaf, in place."""
+    for a, b in zip(leaves(dst), leaves(src)):
+        a.copy_(b)
 
 
 if __name__ == "__main__":

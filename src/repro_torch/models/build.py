@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, lm
+from repro_torch.tree import tree_map
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -42,6 +43,15 @@ class Model:
         this model's device."""
         return self.module.init_params(self.cfg,
                                        torch.Generator(device=self.device).manual_seed(seed))
+
+    def abstract_params(self) -> dict:
+        """The params' shapes and dtypes as ``meta`` tensors: ``init`` run
+        under ``FakeTensorMode``, so nothing is drawn or stored."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            fake = self.module.init_params(self.cfg, torch.Generator(device="cpu"))
+        return tree_map(lambda t: torch.empty(tuple(t.shape), dtype=t.dtype, device="meta"), fake)
 
     def forward(self, params: dict, batch: dict, provider=None, remat: bool = True):
         return self.module.forward(params, self.cfg, batch, remat=remat, provider=provider)

@@ -33,11 +33,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import param_gather
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models.common import apply_norm, dense_init, dtype_of, embed_init, norm_params
-from repro_torch.models.lm import next_token_nll, rematted
+from repro_torch.models.lm import gather_top, gathered, next_token_nll, rematted
 
 MAX_DECODE_POS = 32768  # learned position table size, the reference's
 
@@ -102,10 +103,12 @@ def enc_block(p: dict, cfg: ArchConfig, h: torch.Tensor, provider=None) -> torch
 
 
 def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, provider=None,
-           remat: bool = False) -> torch.Tensor:
-    """frames: (B, enc_seq, D) stub embeddings -> encoder hidden states."""
+           remat: bool = False, gather=None) -> torch.Tensor:
+    """frames: (B, enc_seq, D) stub embeddings -> encoder hidden states.
+    ``gather``: each layer's params gathered inside its remat (sharded
+    training, :func:`repro_torch.models.lm.gathered`)."""
     h = frames.to(dtype_of(cfg.dtype)) + params["enc_pos"][None, :frames.shape[1]]
-    block = rematted(lambda p, hh: enc_block(p, cfg, hh, provider), remat)
+    block = rematted(gathered(lambda p, hh: enc_block(p, cfg, hh, provider), gather), remat)
     for p in params["encoder"]:
         h = block(p, h)
     return apply_norm(params["enc_norm"], h, cfg.norm)
@@ -171,13 +174,18 @@ def _dec_embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def forward(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
             provider=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """batch: frames (B, enc_seq, D) + tokens (B, S). Returns (logits, aux = 0)."""
-    enc = encode(params, cfg, batch["frames"], provider, remat=remat)
+    """batch: frames (B, enc_seq, D) + tokens (B, S). Returns (logits, aux = 0).
+    Under a param gather (sharded training) the non-layer params are
+    gathered once and each layer's inside its remat, as in ``lm.forward``."""
+    gather = param_gather()
+    if gather is not None:
+        params = gather_top(params, cfg, gather)
+    enc = encode(params, cfg, batch["frames"], provider, remat=remat, gather=gather)
     h = _dec_embed(params, batch["tokens"])
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
-    block = rematted(lambda p, hh, e: dec_block(p, cfg, hh, enc=e, positions=positions,
-                                                provider=provider)[0], remat)
+    block = rematted(gathered(lambda p, hh, e: dec_block(p, cfg, hh, enc=e, positions=positions,
+                                                         provider=provider)[0], gather), remat)
     for p in params["decoder"]:
         h = block(p, h, enc)
     h = apply_norm(params["final_norm"], h, cfg.norm)

@@ -37,6 +37,14 @@ backward; it changes no number.  A tied embedding is one parameter,
 gradient reaches ``embed`` (``ops.matmul``'s ``transpose_of``), so
 ``embed_t`` is no leaf of :func:`trainable` and is rebuilt from ``embed``
 after every update (:func:`retie`).
+
+Sharded training (:mod:`repro_torch.distributed`): under a param gather
+(``distributed.context.gathered_params``) the params are this rank's shards.
+:func:`forward` gathers the non-layer params once (a tied head's ``embed_t``
+is rebuilt from the gathered ``embed``) and each layer's params inside the
+function :func:`rematted` wraps, so under remat the backward gathers them
+again and a layer's full weights live only while it runs.  Without a gather
+nothing changes.
 """
 from __future__ import annotations
 
@@ -46,7 +54,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.context import remat_policy
+from repro_torch.distributed.context import gathered_params, param_gather, remat_policy
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
@@ -60,13 +68,19 @@ from repro_torch.tree import leaves
 # ---------------------------------------------------------------------------
 
 
+def uses_moe(cfg: ArchConfig, kind: str) -> bool:
+    """Whether a layer of ``kind`` has a MoE MLP (griffin's R blocks keep a
+    dense one)."""
+    return kind != "R" and cfg.n_experts > 0
+
+
 def block_params(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
     if kind == "R" and cfg.family == "ssm":
         return rec.rwkv_params(gen, cfg)
     dt = dtype_of(cfg.dtype)
     mixer = ({"rnn": rec.griffin_params(gen, cfg)} if kind == "R"
              else {"attn": attn.attn_params(gen, cfg)})
-    moe = kind != "R" and cfg.n_experts > 0   # griffin's R blocks keep a dense MLP
+    moe = uses_moe(cfg, kind)
     return {
         "ln1": norm_params(cfg.d_model, cfg.norm, dt, gen.device),
         **mixer,
@@ -204,15 +218,15 @@ def rematted(fn, remat: bool):
     """``fn`` under ``torch.utils.checkpoint`` (the ``full`` policy) when
     ``remat`` is on and a tensor among its arguments (params included)
     requires grad under autograd; ``fn`` itself otherwise.  The recompute
-    runs under the ops backend the forward ran under: the backend is
-    thread-local, and the backward of CUDA tensors runs on autograd's own
-    thread."""
+    runs under the ops backend and the param gather the forward ran under:
+    both are thread-local, and the backward of CUDA tensors runs on
+    autograd's own thread."""
     if not remat:
         return fn
-    backend = ops.current_backend()
+    backend, gather = ops.current_backend(), param_gather()
 
     def replayable(*args):
-        with ops.use_backend(backend):
+        with ops.use_backend(backend), gathered_params(gather):
             return fn(*args)
 
     def run(*args):
@@ -227,6 +241,30 @@ def rematted(fn, remat: bool):
     return run
 
 
+def gathered(fn, gather):
+    """``fn(p, *rest)`` with its params ``p`` gathered first (``gather``
+    None: ``fn`` itself)."""
+    if gather is None:
+        return fn
+    return lambda p, *rest: fn(gather(p), *rest)
+
+
+#: the keys of a param tree (decoder-only or encoder-decoder) whose entries
+#: are layers, gathered one at a time inside :func:`rematted`
+LAYER_KEYS = ("layers", "encoder", "decoder")
+
+
+def gather_top(params: dict, cfg: ArchConfig, gather) -> dict:
+    """A sharded tree with every param but the layers' gathered, and a tied
+    head's ``embed_t`` rebuilt from the gathered ``embed`` (no gradient: the
+    head's gradient reaches ``embed`` through ``transpose_of``)."""
+    out = {k: v if k in LAYER_KEYS else gather(v) for k, v in params.items() if k != "embed_t"}
+    if cfg.tie_embeddings:
+        with torch.no_grad():
+            out["embed_t"] = tied_head(out["embed"])
+    return out
+
+
 def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     h = params["embed"][tokens.long()]
     if cfg.tie_embeddings:  # gemma-family embedding scaling
@@ -236,11 +274,12 @@ def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 def _stack_pass(params: dict, cfg: ArchConfig, h: torch.Tensor, *, positions: torch.Tensor,
                 caches: list | None, off=None, verify: bool = False, remat: bool = False,
-                provider=None) -> tuple[torch.Tensor, list | None, torch.Tensor]:
+                provider=None, gather=None) -> tuple[torch.Tensor, list | None, torch.Tensor]:
     """All layers; returns (h, caches written, the layers' summed aux loss).
     ``off`` (with caches) runs the chunked-prefill path, ``verify`` the
     speculative verify path (``off`` per lane); ``remat`` (no caches) runs
-    each layer under :func:`rematted`."""
+    each layer under :func:`rematted`, its params gathered inside it by
+    ``gather`` (sharded training)."""
     new = [] if caches is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, kind in enumerate(cfg.layer_kinds):
@@ -250,7 +289,7 @@ def _stack_pass(params: dict, cfg: ArchConfig, h: torch.Tensor, *, positions: to
                                         cache=None, decode=False, off=off, verify=verify,
                                         provider=provider)
                 return out, a
-            h, a = rematted(layer, remat)(params["layers"][j], h)
+            h, a = rematted(gathered(layer, gather), remat)(params["layers"][j], h)
         else:
             h, c_out, a = apply_block(params["layers"][j], cfg, kind, h, positions=positions,
                                       pos=None, cache=caches[j], decode=False, off=off,
@@ -278,11 +317,15 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
             provider=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits and the auxiliary loss: the MoE layers' summed
     load-balance loss (zero without MoE layers).  A vision-prefixed arch's
-    logits cover the prefix and the text.  ``remat``: see the module."""
+    logits cover the prefix and the text.  ``remat`` and sharded params:
+    see the module."""
+    gather = param_gather()
+    if gather is not None:
+        params = gather_top(params, cfg, gather)
     h = _embed_inputs(params, cfg, batch, provider)
     b, s, _ = h.shape
     h, _, aux = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device), caches=None,
-                            remat=remat, provider=provider)
+                            remat=remat, provider=provider, gather=gather)
     h = apply_norm(params["final_norm"], h, cfg.norm)
     return _lm_head(params, cfg, h, provider=provider), aux
 
@@ -297,7 +340,10 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
             provider=None) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy (masked by ``batch["mask"]`` where given) plus
     0.01·aux.  Returns (total, {"ce", "aux"}).  A vision prefix's last
-    position predicts the first text token."""
+    position predicts the first text token.  Under a param gather (sharded
+    training) the masked mean divides by the global batch's count
+    (``ParamGather.batch_count``), so the ranks' losses average to the
+    global batch's masked mean."""
     logits, aux = forward(params, cfg, batch, remat=remat, provider=provider)
     p = cfg.vision_tokens
     tokens = batch["tokens"]
@@ -309,7 +355,9 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
     mask = batch.get("mask")
     if mask is not None:
         m = (mask[:, 1:] if not p else mask).float()
-        ce = (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+        gather = param_gather()
+        count = torch.clamp(m.sum(), min=1.0) if gather is None else gather.batch_count(m.sum())
+        ce = (nll * m).sum() / count
     else:
         ce = nll.mean()
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}

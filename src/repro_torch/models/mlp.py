@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import constrain_named, param_gather
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init, dtype_of, glu_init
 
@@ -85,9 +86,9 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
               capacity_factor: float = CAPACITY_FACTOR) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D). Returns (out, aux_loss) — aux is the load-balance loss.
 
-    The reference pins the dispatch buffer's and the output's sharding with
-    ``constrain_named``; on one device that does nothing, so it is left out
-    until the port is distributed (ROADMAP A.9)."""
+    The dispatch buffer and the output pass ``constrain_named`` where the
+    reference pins their shardings: the identity under the port's gathered
+    compute (``distributed.context``)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_topk
     t = b * s
@@ -95,9 +96,13 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
     xf = x.reshape(t, d)
     probs, gate_vals, expert_idx = moe_route(p, cfg, xf, provider)
 
-    # Load-balance auxiliary loss (Switch-style): E * Σ_e f_e · p_e
+    # Load-balance auxiliary loss (Switch-style): E * Σ_e f_e · p_e, over
+    # the global batch (under sharded training, both means over the ranks)
     me = probs.mean(dim=0)
     ce = torch.bincount(expert_idx.reshape(-1), minlength=e).float() / (t * k)
+    gather = param_gather()
+    if gather is not None:
+        me, ce = gather.batch_mean(me), gather.batch_mean(ce)
     aux = e * torch.sum(me * ce)
 
     # --- sort-based dispatch (dropless while t * k <= 4096) ------------------
@@ -118,10 +123,11 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
 
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
     buf[slot] = xf[st]                     # kept slots are distinct; the overflow row is dropped
-    buf = buf[:-1].reshape(e, cap, d)
+    buf = constrain_named(buf[:-1].reshape(e, cap, d), "moe_buf")
 
     h = ops.moe_gemm(buf, p["w_in"], class_id="moe_gemm_silu_glu", provider=provider)
     y = ops.moe_gemm(h, p["w_out"], class_id="moe_gemm", provider=provider)  # (E, cap, D)
+    y = constrain_named(y, "moe_buf")
 
     y_flat = y.reshape(e * cap, d)
     contrib = torch.where(keep, sg, 0.0)[:, None].to(x.dtype)
@@ -136,4 +142,5 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
     out = torch.zeros((t, d), dtype=x.dtype, device=dev)
     for j in range(k):
         out = out + per_token[:, j]
+    out = constrain_named(out, "moe_out")   # combine lands in the token layout
     return out.reshape(b, s, d), aux

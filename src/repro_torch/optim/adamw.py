@@ -67,11 +67,14 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig
-                  ) -> tuple[Any, dict, dict]:
-    """One AdamW step, in place.  Returns (params, state, metrics)."""
+def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
+                  gnorm: torch.Tensor | None = None) -> tuple[Any, dict, dict]:
+    """One AdamW step, in place.  Returns (params, state, metrics).
+    ``gnorm``: the gradient's global norm where ``grads`` are shards of it
+    (sharded training); None: :func:`global_norm` of ``grads``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

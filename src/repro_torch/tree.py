@@ -39,3 +39,14 @@ def unflatten(tree: Any, values: list[Any]) -> Any:
     if next(it, None) is not None:
         raise ValueError("more values than leaves")
     return out
+
+
+def flatten_up_to(tree: Any, like: Any) -> list[Any]:
+    """``tree``'s values at the leaves of ``like`` (a tree of its structure
+    down to them), in ``like``'s order: a value there may itself be a tuple,
+    say a sharding spec, which :func:`leaves` would walk into."""
+    if isinstance(like, dict):
+        return [v for k in like for v in flatten_up_to(tree[k], like[k])]
+    if isinstance(like, (list, tuple)):
+        return [v for i in range(len(like)) for v in flatten_up_to(tree[i], like[i])]
+    return [tree]

@@ -953,3 +953,46 @@ def test_reduced_gemma2_trains_on_the_card_through_the_kernels(card):
     assert res["steps"] == 8 and res["last_loss"] < res["first_loss"]
     assert mm.grad_launches > before[0] and fa.bwd_launches > before[1]
     assert not ref.cuda_calls
+
+
+@pytest.mark.parametrize("kw", [{}, {"grad_accum": 2}, {"compress_grads": True}],
+                         ids=["plain", "grad_accum", "compress"])
+def test_sharded_step_at_world_1_under_nccl_is_bit_equal(card, tmp_path, kw):
+    """One NCCL rank on the card (a FileStore, no network): two sharded
+    steps (``dp``, a 1x1 mesh) give the unsharded steps' losses, params and
+    optimizer state bit for bit, through the same kernel launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.lm import trainable
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    cfg = dataclasses.replace(reduced(get_arch("gemma2-2b")), dtype="bfloat16")
+    model = build_model(cfg, "cuda")
+    g = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (4, 24), generator=g).cuda()}
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=4)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        step = steps.make_sharded_train_step(model, opt_cfg, make_test_mesh(model=1), **kw)
+        full = model.init(0)
+        params = step.shard_params(full)
+        opt = step.init_opt_state(params)
+        full_opt = steps.init_opt_state(full, compress_grads=kw.get("compress_grads", False))
+        plain = steps.make_train_step(model, opt_cfg, **kw)
+        launches, losses = [], []
+        for fn, p, o in ((plain, full, full_opt), (step, params, opt)):
+            before = (mm.launches, mm.grad_launches, fa.launches, fa.bwd_launches)
+            losses.append([float(fn(p, o, batch)[2]["loss"]) for _ in range(2)])
+            launches.append(tuple(a - b for a, b in zip(
+                (mm.launches, mm.grad_launches, fa.launches, fa.bwd_launches), before)))
+    finally:
+        dist.destroy_process_group()
+    assert losses[0] == losses[1] and launches[0] == launches[1]
+    got, want = {"params": params, "opt": opt}, {"params": trainable(full), "opt": full_opt}
+    for (path, a), b in zip(leaves_with_paths(got), leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                                  b.reshape(-1).view(torch.uint8)), path

@@ -1,7 +1,9 @@
 """The port imports nothing of JAX or of the JAX package ``repro``: every
-module, the copies of ``repro.obs`` and ``repro.service`` included, and the
+module, the copies of ``repro.obs`` and ``repro.service`` included, the
 training modules (``data``, ``optim``, ``checkpoint``, ``distributed``,
-``launch.steps``, ``launch.train``).  Its checkpoints need no ``ml_dtypes``
+``launch.steps``, ``launch.train``) and the distribution modules
+(``distributed.sharding``, ``collectives``, ``pipeline``, ``launch.mesh``,
+``launch.dryrun``, which sets no ``XLA_FLAGS`` when imported).  Its checkpoints need no ``ml_dtypes``
 either: nothing of ``repro_torch.checkpoint`` imports it, and importing the
 whole port loads it nowhere."""
 import ast
@@ -45,7 +47,7 @@ def test_checkpoint_imports_no_ml_dtypes(path):
 
 def test_importing_every_module_loads_no_jax():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
@@ -58,7 +60,11 @@ def test_importing_every_module_loads_no_jax():
         "        'repro_torch.data.pipeline', 'repro_torch.optim.adamw', 'repro_torch.optim.compression',\n"
         "        'repro_torch.checkpoint.manager', 'repro_torch.distributed.context',\n"
         "        'repro_torch.distributed.fault', 'repro_torch.launch.steps',\n"
-        "        'repro_torch.launch.train', 'repro_torch.tree'} <= set(mods), mods\n"
+        "        'repro_torch.launch.train', 'repro_torch.tree',\n"
+        "        'repro_torch.distributed.sharding', 'repro_torch.distributed.collectives',\n"
+        "        'repro_torch.distributed.pipeline', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.dryrun'} <= set(mods), mods\n"
+        "assert 'XLA_FLAGS' not in os.environ, os.environ['XLA_FLAGS']\n"
         "print(len(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)], capture_output=True, text=True,

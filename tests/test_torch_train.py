@@ -247,8 +247,12 @@ def test_train_checkpoint_resume(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--mesh-model", "2"], ["--strategy", "dp"],
                                   ["--strategy", "fsdp_tp"]])
-def test_sharded_training_is_refused(argv):
-    with pytest.raises(NotImplementedError, match="A.9"):
+def test_sharded_training_is_refused(argv, monkeypatch):
+    """Without torchrun's environment the trainer is one process and
+    refuses a mesh; under it, it trains sharded (test_torch_distributed)."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         train_mod.main(["--device", "cpu", "--steps", "1"] + argv)
 
 
