@@ -183,7 +183,27 @@ toolkit.  Phases, one result line each:
    optimizer state after one step saved and restored bit for bit
    (``checkpoint.CheckpointManager``), and ``train.main`` resumed from that
    checkpoint for 2 more steps.
-14. dist — sharded training (``repro_torch.distributed``,
+14. train_families — rwkv6-1.6b (24 layers), recurrentgemma-2b (26),
+   mixtral-8x22b (1 of 56 layers: one layer's ~38 GiB of state) and
+   whisper-medium (24 + 24 layers, 1500 stub frames) trained on the card at
+   full width (``phase_train_families``).  First the backward kernels of
+   their paths against autograd of their plain versions at the families'
+   training shapes, each gradient within K1's backward bound, two runs
+   bit-equal (K3's, ``csrc/rwkv6_scan_bwd.cu``, at 4·32·512·64 and at
+   T = 37 from a state passed in; K4's, ``csrc/rglru_scan_bwd.cu``, at
+   4·512·2560 and T = 37; K1g's, ``GroupedMatmulFn``, at mixtral's expert
+   GEMMs with 2048 rows per expert; K2's at whisper's encoder, decoder and
+   cross shapes, mixtral's window and recurrentgemma's local layers), timed
+   beside their bounds, their plain versions, ``torch.bmm`` (K1g's dX, dW)
+   and SDPA (K2).  Then per family ``repro_torch.launch.train.main``
+   (``--preset full``, bf16, 4 x 512 tokens, whisper 4 x 448, 4 steps):
+   losses finite, each new backward kernel launched as often as the family
+   has layers that run it, no plain version reached on the card; ms per
+   step (median of steps 2-4), tokens/s, init and peak memory; its profiled
+   step comes from ``--profile-steps``.  Then the kernel path against the
+   plain path at 2 layers (mixtral 1; whisper 2 + 2), the bounds of the
+   train phase, and two kernel-path steps from the same weights bit-equal.
+15. dist — sharded training (``repro_torch.distributed``,
    ``launch.steps.make_sharded_train_step``) at world 1 under NCCL in this
    process, over a ``FileStore`` in a temporary directory (``phase_dist``):
    gemma2-2b at full width and 2 layers, two sharded steps (``dp``, a 1x1
@@ -198,8 +218,9 @@ toolkit.  Phases, one result line each:
    kernel is added.  Then ``chip_smoke.py --profile-steps`` in a fresh
    process profiles one unsharded and one sharded full-depth step of
    gemma2-2b (busy share, top five ops, the NCCL kernels' share of the busy
-   time), each capture held to the launch counters as the decode capture
-   is: late in the script every capture of a train step lost kernels.
+   time) and one step of each family of ``train_families``, each capture
+   held to the launch counters as the decode capture is: late in the
+   script every capture of a train step lost kernels.
 The chunk shapes of the paged path (K2: a 64-row chunk at q_offset 256 of a
 512-row cache; K1: 64x3072x3072 on the tensor cores) are timed after the
 grouped phase beside their plain versions, SDPA given the same boolean mask
@@ -442,7 +463,8 @@ def assert_close(torch, got, want, tol: dict, what: str) -> float:
 #: kernels whose registers and spills the build phase reports (each
 #: instantiation: CTA tiles, head dims, dtypes, rounding mode)
 BUILD_BODIES = ("matmul_mma_kernel", "attention_mma_kernel", "matmul_rows_kernel",
-                "matmul_rows_round_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
+                "matmul_rows_round_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel",
+                "rwkv6_scan_bwd_kernel", "rglru_scan_bwd_kernel")
 
 
 def phase_build():
@@ -1238,6 +1260,38 @@ def phase_prime_matmul(torch, timer) -> list:
 
 
 @contextlib.contextmanager
+def tensor_core_matmuls():
+    """The plain matmul of the bf16 classes without bias or epilogue
+    (``matmul``, ``matmul_lmhead``, ``moe_gemm``) as one library call on the
+    tensor cores: cuBLAS's bf16 GEMM, f32 sums rounded once to bf16 (its
+    reduced-precision reductions off), forward and backward.  That is the
+    arithmetic of K1's ``mma`` body, so this plain version differs from the
+    f32 one as the kernel path does: by the tensor cores' accumulation,
+    which keeps fewer bits than the CUDA cores' FMA chain."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    plain = ref.matmul
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+    def matmul_tc(x, w, class_id="matmul", round_k=0, **kw):
+        if (class_id in ("matmul", "matmul_lmhead", "moe_gemm") and x.dtype == torch.bfloat16
+                and not round_k and kw.get("bias") is None and kw.get("residual") is None
+                and not kw.get("softcap")):
+            return torch.matmul(x, w)
+        return plain(x, w, class_id, round_k=round_k, **kw)
+
+    ref.matmul = matmul_tc
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        ref.matmul = plain
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+@contextlib.contextmanager
 def f64_accumulation():
     """The plain matmul accumulating in f64 instead of f32: an equally
     valid plain version that rounds to bf16 in the same places."""
@@ -1778,12 +1832,16 @@ def profile_summary(torch, prof, wall_us: float) -> dict:
 
 #: the kernels of each launch counter, by substrings of their names: every
 #: counted launch issues one of them (a rows-body K split adds a second
-#: pass, ``matmul_rows_reduce_kernel``, which is not counted)
+#: pass, ``matmul_rows_reduce_kernel``, and K3's backward its sum,
+#: ``rwkv6_scan_bwd_finish_kernel``, neither counted; K1g's launches, its
+#: gradient's among them, are the matmul family's)
 CAPTURE_KERNELS = {"matmul": ("matmul_mma_kernel", "matmul_rows_kernel",
                               "matmul_rows_round_kernel", "matmul_fma_kernel"),
                    "flash_attention": ("attention_mma_kernel", "attention_fma_kernel"),
                    "attention_bwd": ("attention_bwd_dq_kernel",),
-                   "rwkv6_scan": ("rwkv6_scan_kernel",), "rglru_scan": ("rglru_scan_kernel",)}
+                   "rwkv6_scan": ("rwkv6_scan_kernel",), "rglru_scan": ("rglru_scan_kernel",),
+                   "rwkv6_scan_bwd": ("rwkv6_scan_bwd_kernel",),
+                   "rglru_scan_bwd": ("rglru_scan_bwd_kernel",)}
 #: profiler captures taken before a busy share is reported as not measured
 PROFILE_TRIES = 3
 
@@ -1797,7 +1855,8 @@ def launch_snapshot() -> dict:
 
     return {"matmul": mm.launches + mm.grouped_launches, "flash_attention": fa.launches,
             "attention_bwd": fa.bwd_launches, "rwkv6_scan": rw.launches,
-            "rglru_scan": rg.launches}
+            "rglru_scan": rg.launches, "rwkv6_scan_bwd": rw.bwd_launches,
+            "rglru_scan_bwd": rg.bwd_launches}
 
 
 def capture_shortfall(torch, prof, before: dict, after: dict) -> dict:
@@ -3414,59 +3473,20 @@ def step_profile(torch, run) -> tuple:
     return out, summary
 
 
-def train_counts(mm, fa, rw, rg, ref) -> dict:
-    return {"launches": {"matmul": mm.launches, "grouped_matmul": mm.grouped_launches,
-                         "flash_attention": fa.launches, "rwkv6_scan": rw.launches,
-                         "rglru_scan": rg.launches},
-            "matmul_grad_launches": mm.grad_launches, "attention_bwd_launches": fa.bwd_launches,
-            "body_launches": body_counts(mm), "plain_cuda_calls": dict(ref.cuda_calls)}
-
-
-def reset_counts(mm, fa, rw, rg, ref) -> None:
-    for module in (mm, fa, rw, rg):
-        module.reset_launches()
-    ref.reset_calls()
-
-
-def grad_agreement(torch, got, want) -> dict:
-    """Per leaf: cosine and max |kernel - plain| over max |plain|."""
-    a, b = got.float().flatten(), want.float().flatten()
-    cos = float(torch.dot(a, b) / torch.clamp(a.norm() * b.norm(), min=1e-30))
-    return {"cos": cos, "max_rel": float((a - b).abs().max() / torch.clamp(b.abs().max(), min=1e-30))}
-
-
-def phase_train(torch, timer) -> dict:
-    """gemma2-2b trained on the card: the backward kernels checked and
-    timed, then ``repro_torch.launch.train.main`` at full width and depth
-    (26 layers, bf16, 4 x 512 tokens, 6 steps; each step timed and one
-    profiled), then the kernel path against the plain path at 2 layers
-    (loss and every gradient leaf), then a checkpoint round trip of the
-    2-layer model's params and optimizer state (bit for bit) and a resume
-    through ``train.main``."""
-    import math
-    import tempfile
-
-    from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_arch
-    from repro_torch.data import DataConfig, SyntheticSource
+def instrumented_train(torch, argv: list) -> tuple:
+    """``repro_torch.launch.train.main(argv)`` with each step timed (host
+    clock between syncs) by swapping ``launch.steps.make_train_step``, the
+    launch counters set to 0 just before and read just after: (its result,
+    {"ms", "losses", "init_gib"}, the counts, wall seconds, peak GiB over
+    the steps)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import build_model
-    from repro_torch.models.lm import trainable
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
-    free_engines(torch)
-    attn = attention_bwd_phase(torch, timer)
-    mmb = matmul_bwd_phase(torch, timer)
-    cfg = get_arch(TRAIN_ARCH)
-
-    # --- the main path: train.main at full width and depth ----------------
     rec = {"ms": [], "losses": []}
     make_step = steps_mod.make_train_step
 
@@ -3488,8 +3508,6 @@ def phase_train(torch, timer) -> dict:
             return out
         return step
 
-    argv = ["--arch", TRAIN_ARCH, "--preset", "full", "--batch", str(TRAIN_BATCH),
-            "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--log-every", "1"]
     steps_mod.make_train_step = instrumented
     try:
         reset_counts(mm, fa, rw, rg, ref)
@@ -3501,6 +3519,128 @@ def phase_train(torch, timer) -> dict:
         steps_mod.make_train_step = make_step
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     free_engines(torch)
+    return res, rec, counts, wall_s, peak_gib
+
+
+def train_counts(mm, fa, rw, rg, ref) -> dict:
+    return {"launches": {"matmul": mm.launches, "grouped_matmul": mm.grouped_launches,
+                         "flash_attention": fa.launches, "rwkv6_scan": rw.launches,
+                         "rglru_scan": rg.launches},
+            "matmul_grad_launches": mm.grad_launches, "attention_bwd_launches": fa.bwd_launches,
+            "grouped_grad_launches": mm.grouped_grad_launches,
+            "rwkv6_bwd_launches": rw.bwd_launches, "rglru_bwd_launches": rg.bwd_launches,
+            "body_launches": body_counts(mm),
+            "attention_class_launches": {f"{c}/{b}": n for (c, b), n in sorted(fa.class_launches.items())},
+            "plain_cuda_calls": dict(ref.cuda_calls)}
+
+
+def reset_counts(mm, fa, rw, rg, ref) -> None:
+    for module in (mm, fa, rw, rg):
+        module.reset_launches()
+    ref.reset_calls()
+
+
+def grad_agreement(torch, got, want) -> dict:
+    """Per leaf: cosine and max |kernel - plain| over max |plain|."""
+    a, b = got.float().flatten(), want.float().flatten()
+    cos = float(torch.dot(a, b) / torch.clamp(a.norm() * b.norm(), min=1e-30))
+    return {"cos": cos, "max_rel": float((a - b).abs().max() / torch.clamp(b.abs().max(), min=1e-30))}
+
+
+def path_agreement(torch, model, params, batch, what: str, control: bool = False) -> dict:
+    """The kernel path's loss and gradients against the plain path's
+    (``ops.use_backend("ref")``) on one batch: the loss within
+    ``TRAIN_LOSS_REL``, every gradient leaf within ``TRAIN_GRAD_COS`` and
+    ``TRAIN_GRAD_MAXREL``; raises otherwise.
+
+    With ``control``, the plain path with its bf16 matmuls on the library's
+    tensor-core GEMM (:func:`tensor_core_matmuls`) is held to the plain path
+    too, and each bound is the larger of the fixed one and
+    ``CONTROL_FACTOR`` times the control's distance (the loss's, and each
+    leaf's cosine gap and max_rel), as the serve phase bounds prefill
+    logits.  rwkv6-1.6b at random init amplifies the tensor cores' rounding
+    from layer to layer: at 2 layers this control alone sits at cos 0.958
+    and max_rel 0.54 on a leaf (``u``), past the fixed bounds."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    with ops.use_backend("ref"):
+        loss_p, _, grads_p = steps_mod.value_and_grad(model, params, batch)
+    plain = leaves(grads_p)
+
+    def against_plain(loss, grads):
+        agree = {path: grad_agreement(torch, a, b)
+                 for (path, a), b in zip(leaves_with_paths(grads), plain)}
+        return {"loss": float(loss), "loss_rel_err": abs(float(loss) - float(loss_p)) / abs(
+                    float(loss_p)), "min_cos": min(v["cos"] for v in agree.values()),
+                "max_rel": max(v["max_rel"] for v in agree.values()), "leaves": agree}
+
+    loss_k, _, grads_k = steps_mod.value_and_grad(model, params, batch)
+    out = {**against_plain(loss_k, grads_k), "plain_loss": float(loss_p)}
+    del grads_k
+    bound = {"loss_rel": TRAIN_LOSS_REL,
+             "leaves": {path: {"cos": TRAIN_GRAD_COS, "max_rel": TRAIN_GRAD_MAXREL}
+                        for path in out["leaves"]}}
+    if control:
+        with ops.use_backend("ref"), tensor_core_matmuls():
+            loss_c, _, grads_c = steps_mod.value_and_grad(model, params, batch)
+        out["control"] = c = against_plain(loss_c, grads_c)
+        del grads_c
+        bound["loss_rel"] = max(TRAIN_LOSS_REL, CONTROL_FACTOR * c["loss_rel_err"])
+        for path, b in bound["leaves"].items():
+            b["cos"] = min(TRAIN_GRAD_COS, 1 - CONTROL_FACTOR * (1 - c["leaves"][path]["cos"]))
+            b["max_rel"] = max(TRAIN_GRAD_MAXREL, CONTROL_FACTOR * c["leaves"][path]["max_rel"])
+    del grads_p, plain
+    out["bounds"] = bound
+    out["past_fixed_bounds"] = sorted(
+        path for path, v in out["leaves"].items()
+        if v["cos"] < TRAIN_GRAD_COS or v["max_rel"] > TRAIN_GRAD_MAXREL)
+    bad = [path for path, v in out["leaves"].items()
+           if v["cos"] < bound["leaves"][path]["cos"]
+           or v["max_rel"] > bound["leaves"][path]["max_rel"]]
+    if out["loss_rel_err"] > bound["loss_rel"] or bad:
+        log(f"{what}_path_agreement", **out)
+        raise AssertionError(f"{what}: kernel path against plain path out of bounds: loss "
+                             f"{out['loss_rel_err']} (bound {bound['loss_rel']}), leaves {bad}")
+    return out
+
+
+def phase_train(torch, timer) -> dict:
+    """gemma2-2b trained on the card: the backward kernels checked and
+    timed, then ``repro_torch.launch.train.main`` at full width and depth
+    (26 layers, bf16, 4 x 512 tokens, 6 steps; each step timed and one
+    profiled), then the kernel path against the plain path at 2 layers
+    (loss and every gradient leaf), then a checkpoint round trip of the
+    2-layer model's params and optimizer state (bit for bit) and a resume
+    through ``train.main``."""
+    import math
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticSource
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import trainable
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    free_engines(torch)
+    attn = attention_bwd_phase(torch, timer)
+    mmb = matmul_bwd_phase(torch, timer)
+    cfg = get_arch(TRAIN_ARCH)
+
+    # --- the main path: train.main at full width and depth ----------------
+    argv = ["--arch", TRAIN_ARCH, "--preset", "full", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+    res, rec, counts, wall_s, peak_gib = instrumented_train(torch, argv)
     if res["steps"] != TRAIN_STEPS or not all(math.isfinite(x) for x in rec["losses"]):
         raise AssertionError(f"train: {res}, losses {rec['losses']}")
     if not res["last_loss"] < res["first_loss"]:
@@ -3532,23 +3672,8 @@ def phase_train(torch, timer) -> dict:
     np_batch = SyntheticSource(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                           global_batch=TRAIN_BATCH)).batch_at(0)
     batch = {"tokens": torch.from_numpy(np_batch["tokens"]).cuda()}
-    loss_k, _, grads_k = steps_mod.value_and_grad(model, params, batch)
-    with ops.use_backend("ref"):
-        loss_p, _, grads_p = steps_mod.value_and_grad(model, params, batch)
-    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    agree = {path: grad_agreement(torch, a, b)
-             for (path, a), b in zip(leaves_with_paths(grads_k), leaves(grads_p))}
-    del grads_k, grads_p
-    worst_cos = min(v["cos"] for v in agree.values())
-    worst_rel = max(v["max_rel"] for v in agree.values())
-    vs_plain = {"layers": 2, "loss": float(loss_k), "plain_loss": float(loss_p),
-                "loss_rel_err": loss_rel, "min_cos": worst_cos, "max_rel": worst_rel,
-                "bounds": {"loss_rel": TRAIN_LOSS_REL, "cos": TRAIN_GRAD_COS,
-                           "max_rel": TRAIN_GRAD_MAXREL}, "leaves": agree}
+    vs_plain = {"layers": 2, **path_agreement(torch, model, params, batch, "train")}
     log("train_vs_plain", **vs_plain)
-    if loss_rel > TRAIN_LOSS_REL or worst_cos < TRAIN_GRAD_COS or worst_rel > TRAIN_GRAD_MAXREL:
-        raise AssertionError(f"train: kernel path against plain path out of bounds: "
-                             f"loss {loss_rel}, cos {worst_cos}, max_rel {worst_rel}")
 
     # --- checkpoint round trip and resume ------------------------------------
     opt = steps_mod.init_opt_state(params)
@@ -3589,6 +3714,392 @@ def phase_train(torch, timer) -> dict:
     log("train_checkpoint", **ckpt)
     return {"attention_bwd": attn, "matmul_bwd": mmb, "main": main_row, "vs_plain": vs_plain,
             "checkpoint": ckpt}
+
+
+# ---------------------------------------------------------------------------
+# train_families: the MoE, recurrent and audio families trained on the card
+# ---------------------------------------------------------------------------
+
+#: (arch, layers kept (0: all), batch, sequence): rwkv6-1.6b and
+#: recurrentgemma-2b at full depth; mixtral-8x22b at 1 of 56 layers (one
+#: layer's state, ~38 GiB at ~14 bytes a parameter, fills half the card);
+#: whisper-medium at 24 + 24 layers, its decoder's context of 448 tokens
+#: and 1500 stub frames.  All at full width, bf16, AdamW at lr 3e-3, remat
+#: ``full`` (the trainer's defaults).
+FAMILIES = (("rwkv6-1.6b", 0, 4, 512), ("recurrentgemma-2b", 0, 4, 512),
+            ("mixtral-8x22b", 1, 4, 512), ("whisper-medium", 0, 4, 448))
+#: steps per family: the median of steps 2-4 is the step time
+FAMILY_STEPS = 4
+#: depth of the kernel-vs-plain check and of the bit-equality steps (both
+#: stacks of an encoder-decoder; mixtral keeps its one layer)
+FAMILY_CHECK_LAYERS = 2
+#: per state element per token, K3's backward: the four products that give
+#: dk, dr, dw and dv's shares, G's update (a product and an FMA) and the
+#: state's recompute (the same) — 14 f32 operations; K4's backward ~12 per
+#: element, far under its bytes
+RW_BWD_OPS, RG_BWD_OPS = 14, 12
+
+
+def grads_close(torch, names, got, want, what: str, f32: bool = False) -> dict:
+    """Each gradient within ``GRAD_SCALE_ATOL``·max|plain| + ``GRAD_RTOL``·|plain|
+    (K1's backward bound; f32: 2e-4 of each, the f32 kernel tolerance held
+    to the gradient's scale): {name: {max |err|, max |err| / max |plain|}}."""
+    out = {}
+    share, rtol = (F32_TOL["atol"], F32_TOL["rtol"]) if f32 else (GRAD_SCALE_ATOL, GRAD_RTOL)
+    for name, a, b in zip(names, got, want):
+        scale = float(b.float().abs().max())
+        tol = dict(rtol=rtol, atol=share * scale)
+        err = assert_close(torch, a, b, tol, f"{what} {name}")
+        out[name] = {"max_abs_err": err, "rel": err / scale if scale else 0.0}
+    return out
+
+
+def rwkv6_bwd_rows(torch, timer) -> list:
+    """K3's backward against its plain version (``ref.rwkv6_scan_bwd``) at
+    rwkv6-1.6b's training shape (4·32·512·64) in bf16 and f32, and at T =
+    37 from a state passed in with the final state's gradient, bf16; the
+    bf16 training shape timed beside the plain backward."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    rows = []
+    for name, b, t, with_state, timed, dt in (
+            ("train", 4, 512, False, True, torch.bfloat16),
+            ("train_f32", 4, 512, False, False, torch.float32),
+            ("t37_state", 4, 37, True, False, torch.bfloat16)):
+        h, d = 32, 64
+        r, k, v = (torch.randn((b, h, t, d), generator=g, device="cuda").to(dt) for _ in range(3))
+        # w = exp(-exp(w0 + lora)) around rwkv6's init (w0 = -6: 0.9975) and below
+        w = torch.exp(-torch.exp(-6 + 4 * torch.rand((b, h, t, d), generator=g, device="cuda")))
+        w = w.to(dt)
+        u = torch.randn((h, d), generator=g, device="cuda")
+        s0 = (torch.randn((b, h, d, d), generator=g, device="cuda") if with_state
+              else torch.zeros((b, h, d, d), device="cuda"))
+        dy = torch.randn((b, h, t, d), generator=g, device="cuda").to(dt)
+        ds = torch.randn((b, h, d, d), generator=g, device="cuda") if with_state else None
+        cs = ops.schedule_for(ops.instance("rwkv6_scan", dt, T=t, C=h * d, D=d, B=b))
+        args = (r, k, v, w, u, s0, dy, ds)
+        got = rw.launch_bwd(*args, cs)
+        want = ref.rwkv6_scan_bwd(*args)
+        errs = grads_close(torch, ("dr", "dk", "dv", "dw", "du", "dstate"), got, want,
+                           f"K3 backward {name}", f32=dt == torch.float32)
+        run = rw.launch_bwd(*args, cs)
+        if not all(torch.equal(p, q) for p, q in zip(got, run)):
+            raise AssertionError(f"K3 backward {name}: two runs differ")
+        row = {"name": name, "dtype": str(dt), "B": b, "H": h, "T": t, "D": d, "state": with_state,
+               "errors": errs,
+               "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "max_rel_err": max(e["rel"] for e in errs.values()),
+               "ctas": rw.bwd_geometry(b, h, t, d)[2]}
+        if timed:
+            n = b * h * t * d
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                9 * 2 * n + 2 * 4 * b * h * d * d + 2 * 4 * h * d,
+                RW_BWD_OPS * b * h * t * d * d, F32_CUDA_CORE_FLOPS)
+            row["ms"] = timer.ms(lambda: rw.launch_bwd(*args, cs))
+            row["plain_ms"] = timer.ms(lambda: ref.rwkv6_scan_bwd(*args), iters=3)
+            row["library_ms"] = None   # no one PyTorch call computes a recurrence
+            row["fwd_ms"] = timer.ms(lambda: rw.launch(r, k, v, w, u, s0, cs))
+        rows.append(row)
+        log("families_rwkv6_bwd", **row)
+        del r, k, v, w, s0, dy, got, want, run
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rglru_bwd_rows(torch, timer) -> list:
+    """K4's backward against its plain version (``ref.rglru_scan_bwd``) at
+    recurrentgemma-2b's training shape (4·512·2560) in bf16 and f32, and,
+    from a state passed in with the final state's gradient, at T = 37,
+    bf16; the bf16 training shape timed beside the plain backward."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as rg
+
+    g = torch.Generator(device="cuda").manual_seed(42)
+    rows = []
+    for name, b, t, with_state, timed, dt in (
+            ("train", 4, 512, False, True, torch.bfloat16),
+            ("train_f32", 4, 512, False, False, torch.float32),
+            ("t37_state", 4, 37, True, False, torch.bfloat16)):
+        c = 2560
+        x = torch.randn((b, t, c), generator=g, device="cuda").to(dt)
+        # a = exp(8·logσ(λ)·r) at λ = 2 over the gate r in (0.05, 1): 0.36 to
+        # 0.95 (init: 0.60).  Within 2^-9 of 1 a rounds to bf16 1.0, where
+        # da is ±inf in both versions (tests/test_torch_backward.py)
+        r_gate = 0.05 + 0.95 * torch.rand((b, t, c), generator=g, device="cuda")
+        a = torch.exp(8 * torch.nn.functional.logsigmoid(torch.tensor(2.0)) * r_gate)
+        a = a.to(dt)
+        h0 = (torch.randn((b, c), generator=g, device="cuda") if with_state
+              else torch.zeros((b, c), device="cuda"))
+        dy = torch.randn((b, t, c), generator=g, device="cuda").to(dt)
+        dh = torch.randn((b, c), generator=g, device="cuda") if with_state else None
+        cs = ops.schedule_for(ops.instance("rglru_scan", dt, T=t, C=c, B=b))
+        args = (x, a, h0, dy, dh)
+        got = rg.launch_bwd(*args, cs)
+        want = ref.rglru_scan_bwd(*args)
+        errs = grads_close(torch, ("dx", "da", "dstate"), got, want, f"K4 backward {name}",
+                           f32=dt == torch.float32)
+        run = rg.launch_bwd(*args, cs)
+        if not all(torch.equal(p, q) for p, q in zip(got, run)):
+            raise AssertionError(f"K4 backward {name}: two runs differ")
+        row = {"name": name, "dtype": str(dt), "B": b, "T": t, "C": c, "state": with_state,
+               "errors": errs,
+               "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "max_rel_err": max(e["rel"] for e in errs.values()),
+               "ctas": rg.check_args(x, a, h0, cs)[2]}
+        if timed:
+            n = b * t * c
+            row["bound_ms"], row["bound_by"] = bound_ms(5 * 2 * n + 2 * 4 * b * c,
+                                                        RG_BWD_OPS * n, F32_CUDA_CORE_FLOPS)
+            row["ms"] = timer.ms(lambda: rg.launch_bwd(*args, cs))
+            row["plain_ms"] = timer.ms(lambda: ref.rglru_scan_bwd(*args), iters=3)
+            row["library_ms"] = None   # no one PyTorch call computes a recurrence
+            row["fwd_ms"] = timer.ms(lambda: rg.launch(x, a, h0, cs))
+        rows.append(row)
+        log("families_rglru_bwd", **row)
+        del x, a, h0, dy, got, want, run
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: mixtral-8x22b's expert GEMMs at the training batch (4 x 512 tokens,
+#: dropless: cap = 2048 rows per expert): (class, E, M, K, N)
+MOE_BWD_SHAPES = (("moe_gemm_silu_glu", 8, 2048, 6144, 32768), ("moe_gemm", 8, 2048, 16384, 6144))
+
+
+def grouped_bwd_rows(torch, timer) -> list:
+    """K1g's backward (``GroupedMatmulFn``: the GLU's pre-activation, dX and
+    dW as K1g launches) against autograd of the plain version
+    (``ref.grouped_matmul_bwd``) at mixtral's training shapes, bf16; dX's
+    and dW's launches timed beside ``torch.bmm`` of the same operands."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(43)
+    rows = []
+    for class_id, e, m, k, n in MOE_BWD_SHAPES:
+        n_out = n // 2 if "glu" in class_id else n
+        x, w = _grouped_inputs(torch, g, e, m, n, k, torch.bfloat16)
+        dy = (torch.randn((e, m, n_out), generator=g, device="cuda") / n_out ** 0.5).to(torch.bfloat16)
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = mm.grouped_grad_launches
+        got = torch.autograd.grad(ops.moe_gemm(xs, ws, class_id=class_id), (xs, ws), dy)
+        launched = mm.grouped_grad_launches - before
+        del xs, ws
+        want = ref.grouped_matmul_bwd(x, w, dy, class_id)
+        errs = grads_close(torch, ("dx", "dw"), got, want, f"K1g backward {class_id}")
+        del got, want
+        torch.cuda.empty_cache()
+        row = {"class": class_id, "E": e, "M": m, "K": k, "N": n, "grad_launches": launched,
+               "errors": errs, "max_abs_err": max(v["max_abs_err"] for v in errs.values()),
+               "max_rel_err": max(v["rel"] for v in errs.values())}
+        dz = dy if "glu" not in class_id else torch.randn((e, m, n), generator=g,
+                                                          device="cuda").to(torch.bfloat16)
+        wt, xt = w.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous()
+        for part, (a, b) in (("dx", (dz, wt)), ("dw", (xt, dz))):
+            mm_, kk, nn = a.shape[1], a.shape[2], b.shape[2]
+            b_ms, b_by = bound_ms(2 * e * (mm_ * kk + kk * nn + mm_ * nn), 2 * e * mm_ * kk * nn)
+            row[part] = {"M": mm_, "K": kk, "N": nn, "bound_ms": b_ms, "bound_by": b_by,
+                         "ms": timer.ms(lambda: mm.grouped_grad_launch(a, b)),
+                         "library_ms": timer.ms(lambda: torch.bmm(a, b))}
+        # the plain backward, whole (autograd of the plain version, f32 sums)
+        row["plain_ms"] = timer.ms(lambda: ref.grouped_matmul_bwd(x, w, dy, class_id), iters=3)
+        rows.append(row)
+        log("families_grouped_bwd", **row)
+        del x, w, dy, dz, wt, xt
+        torch.cuda.empty_cache()
+    return rows
+
+
+#: K2's backward at the families' attention shapes, (name, B, Hq, Hkv, Sq,
+#: Skv, D, causal, window): whisper's encoder (non-causal, 1500 frames), its
+#: decoder's self-attention (causal, 448) and cross-attention (448 queries
+#: over 1500 frames); mixtral's window (4096: no bite at 512) and
+#: recurrentgemma's local layers (2048)
+FAMILY_ATTN_BWD = (("whisper_encoder", 4, 16, 16, 1500, 1500, 64, False, 0),
+                   ("whisper_self", 4, 16, 16, 448, 448, 64, True, 0),
+                   ("whisper_cross", 4, 16, 16, 448, 1500, 64, False, 0),
+                   ("mixtral", 4, 48, 8, 512, 512, 128, True, 4096),
+                   ("recurrentgemma", 4, 10, 1, 512, 512, 256, True, 2048))
+
+
+def family_attention_bwd_rows(torch, timer) -> list:
+    """K2's backward against autograd of its plain version at the families'
+    training shapes, bf16, timed beside the plain backward and SDPA's
+    forward and backward (the kv heads repeated outside the clock)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(44)
+    rows = []
+    for name, b, hq, hkv, sq, skv, d, causal, window in FAMILY_ATTN_BWD:
+        bf = torch.bfloat16
+        q = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(bf)
+        k, v = (torch.randn((b, hkv, skv, d), generator=g, device="cuda").to(bf) for _ in range(2))
+        do = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(bf)
+        kw = dict(causal=causal, window=window)
+        class_id = ("flash_attention_causal" if causal else
+                    "flash_attention_cross" if sq != skv else "flash_attention_bidir")
+        cs = ops.schedule_for(ops.instance(class_id, bf, Q=sq, KV=skv, H=hq, D=d, B=b,
+                                           window=window))
+        o = fa.launch(q, k, v, cs, **kw)
+        got, want = fa.launch_bwd(q, k, v, o, do, **kw), ref.chunked_attention_bwd(q, k, v, do, **kw)
+        errs = grads_close(torch, ("dq", "dk", "dv"), got, want, f"K2 backward {name}")
+        del got, want
+        live = (sum(min(i + 1, window) if window else i + 1 for i in range(sq)) if causal
+                else sq * skv)
+        nbytes = 2 * (4 * b * hq * sq * d + 4 * b * hkv * skv * d)
+        b_ms, b_by = bound_ms(nbytes, 10 * b * hq * live * d)
+        ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+
+        def sdpa():
+            leaves = [t.detach().requires_grad_() for t in (q, ke, ve)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            return torch.autograd.grad(out, leaves, do)
+
+        row = {"name": name, "B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "Skv": skv, "D": d,
+               "causal": causal, "window": window, "errors": errs,
+               "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "ms": timer.ms(lambda: fa.launch_bwd(q, k, v, o, do, **kw)),
+               "held_ms": timer.held_ms(lambda: fa.launch_bwd(q, k, v, o, do, **kw)),
+               "plain_ms": timer.ms(lambda: ref.chunked_attention_bwd(q, k, v, do, **kw), iters=3),
+               # SDPA computes the same function where the window does not bite
+               "library_ms": timer.ms(sdpa) if window == 0 or window >= skv else None}
+        rows.append(row)
+        log("families_attention_bwd", **row)
+        del q, k, v, do, o, ke, ve
+        torch.cuda.empty_cache()
+    return rows
+
+
+def family_batch(torch, cfg, batch: int, seq: int) -> dict:
+    """The trainer's first batch for ``cfg`` (seed 0's synthetic tokens) and
+    its stub frontend inputs, on the card."""
+    from repro_torch.data import DataConfig, SyntheticSource
+    from repro_torch.launch.serve import stub_extras
+
+    tokens = SyntheticSource(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                        global_batch=batch)).batch_at(0)["tokens"]
+    out = {"tokens": torch.from_numpy(tokens).cuda()}
+    for key, v in stub_extras(cfg).items():
+        out[key] = torch.from_numpy(v).cuda().expand(batch, *v.shape).contiguous()
+    return out
+
+
+def family_check_cfg(cfg):
+    """The family's config cut to the check depth (both stacks of an
+    encoder-decoder)."""
+    layers = min(cfg.n_layers, FAMILY_CHECK_LAYERS)
+    if cfg.encoder_layers:
+        return dataclasses.replace(cfg, n_layers=layers, encoder_layers=layers)
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def steps_bit_equal(torch, model, batch) -> dict:
+    """Two kernel-path train steps from the same weights (seed 5) and the
+    same batch, each after a fresh init: their losses and updated params
+    bit-equal."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.lm import trainable
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves
+
+    kept, losses = None, []
+    for _ in range(2):
+        params = model.init(5)
+        opt = steps_mod.init_opt_state(params)
+        step = steps_mod.make_train_step(model, AdamWConfig(peak_lr=3e-3, warmup_steps=2,
+                                                            total_steps=FAMILY_STEPS))
+        losses.append(float(step(params, opt, batch)[2]["loss"]))
+        now = [p.clone() for p in leaves(trainable(params))] if kept is None else leaves(
+            trainable(params))
+        if kept is None:
+            kept = now
+        else:
+            differ = sum(not torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(
+                torch.uint8)) for a, b in zip(kept, now))
+        del params, opt, step
+        free_engines(torch)
+    if losses[0] != losses[1] or differ:
+        raise AssertionError(f"two kernel-path steps differ: losses {losses}, {differ} leaves")
+    return {"losses": losses, "leaves": len(kept), "bit_equal": True}
+
+
+#: each family's new backward kernel's counter and its launches per step
+FAMILY_BWD = {"rwkv6-1.6b": ("rwkv6_bwd_launches", lambda cfg: cfg.n_layers),
+              "recurrentgemma-2b": ("rglru_bwd_launches",
+                                    lambda cfg: sum(kd == "R" for kd in cfg.layer_kinds)),
+              "mixtral-8x22b": ("grouped_grad_launches", lambda cfg: 5 * cfg.n_layers),
+              "whisper-medium": ("attention_bwd_launches",
+                                 lambda cfg: cfg.encoder_layers + 2 * cfg.n_layers)}
+
+
+def phase_train_families(torch, timer) -> dict:
+    """rwkv6-1.6b, recurrentgemma-2b, mixtral-8x22b (1 layer) and
+    whisper-medium trained on the card: the backward kernels of their
+    paths checked against their plain versions at the families' training
+    shapes and timed (K3, K4, K1g; K2 at the families' attention shapes);
+    then per family ``repro_torch.launch.train.main`` at full width
+    (``--preset full``, ``FAMILIES``' depth and batch, 4 steps; each step
+    timed), the kernel path against the plain path at 2 layers (mixtral: 1)
+    and two kernel-path steps bit-equal.  Its profiled steps come from
+    ``--profile-steps``."""
+    import math
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    free_engines(torch)
+    kernels = {"rwkv6_bwd": rwkv6_bwd_rows(torch, timer), "rglru_bwd": rglru_bwd_rows(torch, timer),
+               "grouped_bwd": grouped_bwd_rows(torch, timer),
+               "attention_bwd": family_attention_bwd_rows(torch, timer)}
+    runs = []
+    for arch, layers, batch, seq in FAMILIES:
+        cfg = get_arch(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        argv = ["--arch", arch, "--preset", "full", "--batch", str(batch), "--seq", str(seq),
+                "--steps", str(FAMILY_STEPS), "--log-every", "1"]
+        if layers:
+            argv += ["--layers", str(layers)]
+        res, rec, counts, wall_s, peak_gib = instrumented_train(torch, argv)
+        if res["steps"] != FAMILY_STEPS or not all(math.isfinite(x) for x in rec["losses"]):
+            raise AssertionError(f"{arch}: {res}, losses {rec['losses']}")
+        key, per_step = FAMILY_BWD[arch]
+        if counts[key] != per_step(cfg) * FAMILY_STEPS:
+            raise AssertionError(f"{arch}: {counts[key]} {key}, want {per_step(cfg)} a step")
+        if counts["plain_cuda_calls"] or not counts["matmul_grad_launches"]:
+            raise AssertionError(f"{arch}: a plain version on the card, or no K1 backward: {counts}")
+        if counts["body_launches"].get("matmul/fma/bfloat16"):
+            raise AssertionError(f"{arch}: a bf16 K1 launch took the CUDA-core body: {counts}")
+        step_ms = statistics.median(rec["ms"][1:])
+        row = {"arch": arch, "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+               "d_model": cfg.d_model, "params": cfg.param_count(), "batch": batch, "seq": seq,
+               "steps": res["steps"], "result": res, "losses": rec["losses"],
+               "step_ms": rec["ms"], "ms_per_step": step_ms,
+               "tok_per_s": batch * seq / step_ms * 1e3, "init_gib": rec["init_gib"],
+               "peak_gib": peak_gib, "wall_s": wall_s, **counts}
+        log("families_train", **row)
+
+        check = family_check_cfg(cfg)
+        model = build_model(check, "cuda")
+        params = model.init(5)
+        data = family_batch(torch, check, batch, seq)
+        row["vs_plain"] = {"layers": check.n_layers, "encoder_layers": check.encoder_layers,
+                           **path_agreement(torch, model, params, data, arch, control=True)}
+        del params
+        free_engines(torch)
+        row["steps_bit_equal"] = steps_bit_equal(torch, model, data)
+        log("families_check", arch=arch, vs_plain=row["vs_plain"],
+            steps_bit_equal=row["steps_bit_equal"])
+        del model, data
+        free_engines(torch)
+        runs.append(row)
+    return {"kernels": kernels, "runs": runs}
 
 
 #: the dist phase: gemma2-2b at the train phase's batch; 2 layers for the
@@ -3797,7 +4308,8 @@ def profile_steps(torch) -> dict:
     """In a fresh process (``chip_smoke.py --profile-steps``): one profiled
     step of gemma2-2b at full depth and the train phase's batch, unsharded
     (``make_train_step``) and sharded at world 1 under NCCL
-    (``make_sharded_train_step``, ``dp``), each after two unprofiled steps.
+    (``make_sharded_train_step``, ``dp``), then one of each of
+    ``FAMILIES`` at its depth and batch, each after two unprofiled steps.
     Late in the whole script every capture of a train step held three K1
     kernels fewer than its 653 launches; in a fresh process none
     did."""
@@ -3836,6 +4348,24 @@ def profile_steps(torch) -> dict:
             out["dist"] = first_whole_capture(torch, "dist_step",
                                               lambda: step(params, opt, batch))
             del params, opt, step
+    free_engines(torch)
+    out["families"] = {}
+    for arch, layers, b, seq in FAMILIES:
+        fcfg = get_arch(arch)
+        if layers:
+            fcfg = dataclasses.replace(fcfg, n_layers=layers)
+        fmodel = build_model(fcfg, "cuda")
+        params = fmodel.init(0)
+        opt = steps_mod.init_opt_state(params)
+        step = steps_mod.make_train_step(fmodel, AdamWConfig(peak_lr=3e-3, warmup_steps=2,
+                                                             total_steps=FAMILY_STEPS))
+        data = family_batch(torch, fcfg, b, seq)
+        for _ in range(2):
+            step(params, opt, data)
+        out["families"][arch] = first_whole_capture(torch, f"{arch}_step",
+                                                    lambda: step(params, opt, data))
+        del fmodel, params, opt, step, data
+        free_engines(torch)
     return out
 
 
@@ -3915,12 +4445,22 @@ def main(argv: list[str]) -> int:
     under = under_bytes_bound(train["attention_bwd"]["timed"])
     if under:
         raise AssertionError(f"train timings under their bytes bound: {under}")
+    fam = phase_train_families(torch, Timer(torch))
+    k = fam["kernels"]
+    under = under_bytes_bound([r for r in k["rwkv6_bwd"] + k["rglru_bwd"] if "ms" in r]
+                              + k["attention_bwd"]
+                              + [r[part] for r in k["grouped_bwd"] for part in ("dx", "dw")])
+    if under:
+        raise AssertionError(f"train_families timings under their bytes bound: {under}")
     dist_r = phase_dist(torch, train["main"]["ms_per_step"])
     profiles = phase_step_profiles(torch)
     train["main"]["profile"], dist_r["main"]["profile"] = profiles["train"], profiles["dist"]
+    for run in fam["runs"]:
+        run["profile"] = profiles["families"][run["arch"]]
+    log("families_profiles", **{r["arch"]: r["profile"] for r in fam["runs"]})
     # main-path runs, counts read apart
     paths = {"slot": srv, "paged": paged, "spec": [spec], "fleet": fleet, "train": [train["main"]],
-             "dist": [dist_r["main"]]}
+             "families": fam["runs"], "dist": [dist_r["main"]]}
 
     def count(r, name, body=None):   # one run's launches of a kernel (of one body)
         if body is None:
@@ -4047,7 +4587,56 @@ def main(argv: list[str]) -> int:
          "bound_ms": rep_up["dx"]["bound_ms"], "bound_by": rep_up["dx"]["bound_by"],
          "library_ms": rep_up["dx"]["library_ms"], "dw": rep_up["dw"]},
     ]
-    # each kernel's launches per path (slot engine, paged, spec, fleet, train)
+    # the families' backward kernels: K1g's dX at mixtral's up-GEMM (dW and
+    # the down-GEMM beside it), K3's and K4's at their training shapes
+    def fam_count(key):   # a backward counter's launches over the families' runs
+        return sum(r[key] for r in fam["runs"])
+
+    rep_gbwd = next(r for r in k["grouped_bwd"] if r["class"] == "moe_gemm_silu_glu")
+    rep_rwb = next(r for r in k["rwkv6_bwd"] if "ms" in r)
+    rep_rgb = next(r for r in k["rglru_bwd"] if "ms" in r)
+    for row in kernels:   # K1's and K2's backward also run on the families' path
+        counter = {"flash_attention_bwd": "attention_bwd_launches",
+                   "matmul_bwd": "matmul_grad_launches"}.get(row["name"])
+        if counter:
+            row["launches_by_path"] = {"train": train["main"][counter],
+                                       "families": fam_count(counter)}
+            row["launches"] = sum(row["launches_by_path"].values())
+    next(r for r in kernels if r["name"] == "flash_attention_bwd")["families"] = [
+        {f: r[f] for f in ("name", "ms", "held_ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms", "max_abs_err")} for r in k["attention_bwd"]]
+    kernels += [
+        {"name": "grouped_matmul_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:236",
+         "launches": fam_count("grouped_grad_launches"),
+         "max_abs_err": max(r["max_abs_err"] for r in k["grouped_bwd"]),
+         "max_rel_err": max(r["max_rel_err"] for r in k["grouped_bwd"]),
+         "shape": {"class": rep_gbwd["class"], "E": rep_gbwd["E"], "part": "dx",
+                   **{f: rep_gbwd["dx"][f] for f in ("M", "K", "N")}},
+         "ms": rep_gbwd["dx"]["ms"], "plain_ms": rep_gbwd["plain_ms"],
+         "bound_ms": rep_gbwd["dx"]["bound_ms"], "bound_by": rep_gbwd["dx"]["bound_by"],
+         "library_ms": rep_gbwd["dx"]["library_ms"], "dw": rep_gbwd["dw"],
+         "down": next(r for r in k["grouped_bwd"] if r["class"] == "moe_gemm")},
+        {"name": "rwkv6_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+         "replaces": "src/repro/kernels/rwkv6_scan.py:86",
+         "launches": fam_count("rwkv6_bwd_launches"),
+         "max_abs_err": max(r["max_abs_err"] for r in k["rwkv6_bwd"]),
+         "max_rel_err": max(r["max_rel_err"] for r in k["rwkv6_bwd"]), "fwd_ms": rep_rwb["fwd_ms"],
+         **timed(rep_rwb, ("B", "H", "T", "D", "ctas"))},
+        {"name": "rglru_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:65",
+         "launches": fam_count("rglru_bwd_launches"),
+         "max_abs_err": max(r["max_abs_err"] for r in k["rglru_bwd"]),
+         "max_rel_err": max(r["max_rel_err"] for r in k["rglru_bwd"]), "fwd_ms": rep_rgb["fwd_ms"],
+         **timed(rep_rgb, ("B", "T", "C", "ctas"))},
+    ]
+    for row in kernels:   # the families' backward kernels run on their path alone
+        if row["name"] in ("grouped_matmul_bwd", "rwkv6_scan_bwd", "rglru_scan_bwd"):
+            row["launches_by_path"] = {"families": row["launches"]}
+    # each kernel's launches per path (slot engine, paged, spec, fleet, train, families, dist)
     for row in kernels:
         if row["name"] in ("matmul", "flash_attention", "rwkv6_scan", "rglru_scan",
                            "grouped_matmul"):

@@ -48,6 +48,8 @@ SIGNATURES = {
     "repro_rwkv6_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     "repro_rglru_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "repro_rwkv6_scan_bwd": [*[_P] * 17, *[_I] * 8, _P],
+    "repro_rglru_scan_bwd": [*[_P] * 9, *[_I] * 8, _P],
 }
 
 _lock = threading.Lock()

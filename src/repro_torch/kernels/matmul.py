@@ -92,7 +92,16 @@ and ``dW = xᵀ·dZ`` are two launches of class ``matmul`` on contiguous
 transposed operands (a tied head's ``wᵀ`` is the embedding itself), each
 under the default schedule of its own instance, summed in f32 (never in
 rounding mode), not through any provider.  ``grad_launches`` counts them.
-The grouped kernel has no backward yet (ROADMAP A.8).
+
+The grouped kernel (K1g) goes through :class:`GroupedMatmulFn` alike: the
+forward is :func:`grouped_launch`, and for ``y[e] = epilogue(x[e]·w[e])``
+the GLU's derivative is elementwise torch in f32 on the pre-activation
+recomputed by one grouped launch of class ``moe_gemm``; then ``dX[e] =
+dZ[e]·w[e]ᵀ`` and ``dW[e] = x[e]ᵀ·dZ[e]`` are two grouped launches of class
+``moe_gemm`` on contiguous transposed operands, each under the default
+schedule of its own instance (:func:`grouped_grad_schedule`).
+``grouped_grad_launches`` counts them.  The plain version of this backward
+is :func:`repro_torch.kernels.ref.grouped_matmul_bwd`.
 """
 from __future__ import annotations
 
@@ -142,12 +151,15 @@ body_launches: collections.Counter = collections.Counter()
 round_launches: collections.Counter = collections.Counter()
 #: K1 launches of :class:`MatmulFn`'s backward (also counted in ``launches``)
 grad_launches = 0
+#: K1g launches of :class:`GroupedMatmulFn`'s backward (also counted in
+#: ``grouped_launches``)
+grouped_grad_launches = 0
 
 
 def reset_launches() -> None:
     """Set every count to 0."""
-    global launches, grouped_launches, row_tile_launches, grad_launches
-    launches = grouped_launches = row_tile_launches = grad_launches = 0
+    global launches, grouped_launches, row_tile_launches, grad_launches, grouped_grad_launches
+    launches = grouped_launches = row_tile_launches = grad_launches = grouped_grad_launches = 0
     body_launches.clear()
     round_launches.clear()
 
@@ -362,16 +374,30 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     return out
 
 
-@functools.lru_cache(maxsize=1024)
-def grad_schedule(class_id: str, dtype: torch.dtype, m: int, n: int, k: int) -> ConcreteSchedule:
+def _grad_cs(class_id: str, dtype: torch.dtype, **params: int) -> ConcreteSchedule:
     """The default schedule of a backward launch's own instance: f32 sums
     throughout (a default schedule never rounds; checked)."""
     inst = KernelInstance(class_id=class_id, dtype=str(dtype).removeprefix("torch."),
-                          params=tuple(sorted(dict(M=m, N=n, K=k).items())))
+                          params=tuple(sorted(params.items())))
     cs = concretize(default_schedule(inst), inst)
     if round_k_for(cs):
         raise AssertionError(f"the default schedule of {inst} rounds partial sums")
     return cs
+
+
+@functools.lru_cache(maxsize=1024)
+def grad_schedule(class_id: str, dtype: torch.dtype, m: int, n: int, k: int) -> ConcreteSchedule:
+    """The default schedule of a K1 backward launch's own instance (f32 sums)."""
+    return _grad_cs(class_id, dtype, M=m, N=n, K=k)
+
+
+@functools.lru_cache(maxsize=1024)
+def grouped_grad_schedule(class_id: str, dtype: torch.dtype, e: int, m: int, n: int,
+                          k: int) -> ConcreteSchedule:
+    """The default schedule of a K1g backward launch's own instance, ``m``
+    rows per expert (the instance's M is m·E, as ``ops.moe_gemm`` keys it;
+    f32 sums)."""
+    return _grad_cs(class_id, dtype, M=m * e, N=n, K=k, E=e)
 
 
 def grad_launch(a: torch.Tensor, b: torch.Tensor, class_id: str = "matmul",
@@ -496,3 +522,40 @@ def grouped_launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     if round_k:
         round_launches["grouped_matmul", body] += 1
     return out
+
+
+def grouped_grad_launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (E,M,K) @ b (E,K,N) by K1g (class ``moe_gemm``) for a gradient, under
+    its default schedule."""
+    global grouped_grad_launches
+    e, m, k = a.shape
+    cs = grouped_grad_schedule("moe_gemm", a.dtype, e, m, b.shape[2], k)
+    out = grouped_launch(a, b, cs, class_id="moe_gemm")
+    grouped_grad_launches += 1
+    return out
+
+
+class GroupedMatmulFn(torch.autograd.Function):
+    """K1g under autograd on CUDA tensors: :func:`grouped_launch` forward,
+    K1g backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, cs, class_id):
+        ctx.class_id = class_id
+        ctx.save_for_backward(x, w)
+        return grouped_launch(x, w, cs, class_id=class_id)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        dz = dy.contiguous()
+        if ctx.class_id in GLU_CLASSES:
+            z = grouped_grad_launch(x, w)              # the pre-activation, recomputed
+            with torch.enable_grad():
+                zf = z.float().requires_grad_()
+                dz = torch.autograd.grad(ref.apply_epilogue(zf, ctx.class_id), zf,
+                                         dy.float())[0].to(x.dtype)
+        dx = grouped_grad_launch(dz, w.transpose(1, 2).contiguous()) if need_x else None
+        dw = grouped_grad_launch(x.transpose(1, 2).contiguous(), dz) if need_w else None
+        return dx, dw, None, None

@@ -18,13 +18,12 @@ rglru: ``T``, ``C``, ``B``), so workload keys match the reference.
 
 Under autograd (grad enabled and an input that requires it) a CUDA tensor
 goes through the kernels' autograd Functions (:class:`~repro_torch.kernels.
-matmul.MatmulFn`, :class:`~repro_torch.kernels.flash_attention.
-FlashAttentionFn`): the forward is the launch an op makes without a
-gradient, bit for bit, and the backward is kernels too.  A CPU tensor takes
-the plain version, which torch's autograd differentiates.  The grouped
-matmul and the scans have no backward kernel yet: under autograd on a CUDA
-tensor they raise ``NotImplementedError`` (ROADMAP A.8), never falling back
-to a plain version.
+matmul.MatmulFn` and ``GroupedMatmulFn``, :class:`~repro_torch.kernels.
+flash_attention.FlashAttentionFn`, :class:`~repro_torch.kernels.rwkv6_scan.
+Rwkv6ScanFn`, :class:`~repro_torch.kernels.rglru_scan.RglruScanFn`): the
+forward is the launch an op makes without a gradient, bit for bit, and the
+backward is kernels too, never a plain version.  A CPU tensor takes the
+plain version, which torch's autograd differentiates.
 
 Schedule resolution is the reference's: a :class:`ScheduleProvider` (a copy
 of ``repro.kernels.ops.ScheduleProvider``) over a
@@ -220,12 +219,6 @@ def _needs_grad(*tensors: torch.Tensor | None) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def _no_backward(kernel: str, *tensors: torch.Tensor) -> None:
-    if tensors[0].is_cuda and _needs_grad(*tensors):
-        raise NotImplementedError(f"the {kernel} kernel has no backward on the card yet "
-                                  "(ROADMAP A.8); train this arch on the CPU")
-
-
 def matmul(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "matmul",
            bias: torch.Tensor | None = None, residual: torch.Tensor | None = None,
            softcap: float = 0.0, provider: ScheduleProvider | None = None,
@@ -266,10 +259,11 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "moe_gemm",
     backend = backend or current_backend()
     if backend == "ref":
         return ref.grouped_matmul(x, w, class_id)
-    _no_backward("grouped matmul", x, w)
     e, m, k = x.shape
     n = w.shape[2]
     cs = _resolve(provider).get(instance(class_id, x.dtype, M=m * e, N=n, K=k, E=e))
+    if x.is_cuda and _needs_grad(x, w):
+        return _mm.GroupedMatmulFn.apply(x.contiguous(), w.contiguous(), cs, class_id)
     return _mm.grouped_matmul(x.contiguous(), w.contiguous(), cs, class_id=class_id)
 
 
@@ -308,11 +302,12 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     backend = backend or current_backend()
     if backend == "ref":
         return ref.rwkv6_scan(r, k, v, w, u, state)
-    _no_backward("rwkv6 scan", r, k, v, w, u, state)
     b, h, t, d = r.shape
     cs = _resolve(provider).get(instance("rwkv6_scan", r.dtype, T=t, C=h * d, D=d, B=b))
-    return _rw.rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
-                          u, state, cs)
+    r, k, v, w = (a.contiguous() for a in (r, k, v, w))
+    if r.is_cuda and _needs_grad(r, k, v, w, u, state):
+        return _rw.Rwkv6ScanFn.apply(r, k, v, w, u, state, cs)
+    return _rw.rwkv6_scan(r, k, v, w, u, state, cs)
 
 
 def rglru(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor, *,
@@ -322,7 +317,8 @@ def rglru(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor, *,
     backend = backend or current_backend()
     if backend == "ref":
         return ref.rglru_scan(x, a, state)
-    _no_backward("RG-LRU scan", x, a, state)
     b, t, c = x.shape
     cs = _resolve(provider).get(instance("rglru_scan", x.dtype, T=t, C=c, B=b))
+    if x.is_cuda and _needs_grad(x, a, state):
+        return _rg.RglruScanFn.apply(x.contiguous(), a.contiguous(), state, cs)
     return _rg.rglru_scan(x.contiguous(), a.contiguous(), state, cs)

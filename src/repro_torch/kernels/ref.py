@@ -11,9 +11,11 @@ tanh form (``approximate=True``), so :func:`gelu` is too.
 
 Every function here is differentiable by torch's autograd (no in-place
 write touches a tensor that carries a gradient): on the CPU, training
-differentiates these.  :func:`chunked_attention_bwd` is the plain version
-of the attention backward kernel: autograd through
-:func:`chunked_attention`.
+differentiates these.  The ``*_bwd`` functions are the plain versions of
+the backward kernels, each torch's autograd through its forward here:
+:func:`chunked_attention_bwd` (K2), :func:`grouped_matmul_bwd` (K1g),
+:func:`rwkv6_scan_bwd` (K3) and :func:`rglru_scan_bwd` (K4).  Each returns
+the gradient of every input, in that input's dtype.
 
 ``cuda_calls`` counts the calls of each plain version on a CUDA tensor
 since :func:`reset_calls`, so a run on the card can show that its main path
@@ -126,6 +128,26 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "moe_gemm",
     if class_id not in GROUPED_CLASSES:
         raise ValueError(f"unknown grouped matmul class {class_id!r}")
     return torch.stack([matmul(xe, we, class_id, round_k=round_k) for xe, we in zip(x, w)])
+
+
+def _grads(fn, inputs: tuple, douts: tuple) -> tuple[torch.Tensor, ...]:
+    """The gradients of ``fn(*inputs)``'s outputs at ``douts`` (None: the
+    output is not used) with respect to every input, by torch's autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, d) for o, d in zip(outs, douts) if d is not None]
+        return torch.autograd.grad([o for o, _ in pairs], leaves, [d for _, d in pairs],
+                                   allow_unused=True, materialize_grads=True)
+
+
+@_counted
+def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                       class_id: str = "moe_gemm") -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of :func:`grouped_matmul` at ``dy`` (f32 sums, no rounding
+    per K tile): the plain version of K1g's backward."""
+    return _grads(lambda a, b: grouped_matmul(a, b, class_id), (x, w), (dy,))
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +274,16 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     return y.to(r.dtype), s
 
 
+@_counted
+def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                   u: torch.Tensor, state: torch.Tensor, dy: torch.Tensor,
+                   dstate: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du, dstate_in) of :func:`rwkv6_scan` at ``dy`` (y's
+    gradient) and ``dstate`` (the final state's; None: unused): the plain
+    version of K3's backward."""
+    return _grads(rwkv6_scan, (r, k, v, w, u, state), (dy, dstate))
+
+
 # ---------------------------------------------------------------------------
 # RG-LRU scan (Griffin / RecurrentGemma)
 # ---------------------------------------------------------------------------
@@ -275,3 +307,13 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
         hs.append(h)
     y = torch.stack(hs, dim=1) if hs else xf.new_zeros(x.shape)
     return y.to(x.dtype), h
+
+
+@_counted
+def rglru_scan_bwd(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor, dy: torch.Tensor,
+                   dstate: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+    """(dx, da, dstate_in) of :func:`rglru_scan` at ``dy`` and ``dstate``
+    (the final state's gradient; None: unused): the plain version of K4's
+    backward.  Where 1 − a² is 0 (a = 1) ``da`` is ±inf (NaN where x·g is
+    0): the derivative of the square root at 0, as ``jax.grad`` gives it."""
+    return _grads(rglru_scan, (x, a, state), (dy, dstate))

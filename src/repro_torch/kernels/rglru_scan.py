@@ -37,6 +37,15 @@ C tile allow it, element by element otherwise.
 
 A tensor on the CPU takes the plain version (:func:`repro_torch.kernels.ref.rglru_scan`);
 a CUDA tensor launches the kernel or raises.  ``launches`` counts launches.
+
+Under autograd a CUDA tensor goes through :class:`RglruScanFn`: the forward
+is :func:`launch` (the same bits as without a gradient), the backward
+:func:`launch_bwd`, a kernel of its own (``csrc/rglru_scan_bwd.cu``, the
+same CTA layout): a forward walk saves the f32 state every
+:data:`BWD_STAGE_T` tokens, a reverse walk recomputes each stage's states
+from it and runs ``g = dy + a·g`` back through time, giving dx, da and the
+initial state's gradient.  ``bwd_launches`` counts its launches.  Its plain
+version is :func:`repro_torch.kernels.ref.rglru_scan_bwd`.
 """
 from __future__ import annotations
 
@@ -52,14 +61,18 @@ CTA_C = 32
 STAGE_T = 64
 #: batch rows the grid takes (its y dimension)
 MAX_BATCH = 65535
+#: tokens between the backward kernel's f32 state checkpoints (kLruBwdStageT)
+BWD_STAGE_T = 32
 
-#: kernel launches since the last reset (a plain count; see chip_smoke.py)
+#: kernel launches since the last reset (plain counts; see chip_smoke.py):
+#: the forward's and the backward's
 launches = 0
+bwd_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bwd_launches
+    launches = bwd_launches = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -108,12 +121,11 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
     return launch(x, a, state, cs)
 
 
-def launch(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
-           cs: ConcreteSchedule) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; raises on anything it does not take."""
-    global launches
-    if not x.is_cuda:
-        raise ValueError(f"the RG-LRU scan kernel runs on a CUDA tensor, got {x.device}")
+def check_args(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
+               cs: ConcreteSchedule) -> tuple[int, int, int, int]:
+    """(cta_c, stage_t, ctas, tile_c) of a launch over x, a and the state
+    under ``cs``; raises on what the kernels (forward and backward) do not
+    take.  Any device: the CPU tests reach it."""
     if x.dtype not in DTYPES or a.dtype != x.dtype:
         raise ValueError(f"RG-LRU scan takes bf16 or f32 x and a of one dtype, got {x.dtype}, {a.dtype}")
     if x.dim() != 3 or a.shape != x.shape:
@@ -130,6 +142,17 @@ def launch(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
     p = cs.instance.p
     if (cs.instance.class_id, p["T"], p["C"], p["B"]) != ("rglru_scan", t, c, b):
         raise ValueError(f"schedule for {cs.instance} does not fit x {tuple(x.shape)}")
+    return cta_c, stage_t, ctas, cs.t["C"]
+
+
+def launch(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
+           cs: ConcreteSchedule) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel; raises on anything it does not take."""
+    global launches
+    if not x.is_cuda:
+        raise ValueError(f"the RG-LRU scan kernel runs on a CUDA tensor, got {x.device}")
+    cta_c, stage_t, ctas, _ = check_args(x, a, state, cs)
+    b, t, c = x.shape
     h0 = state.to(torch.float32).contiguous()   # the reference reads the state into f32
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
@@ -140,3 +163,51 @@ def launch(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
     _build.check(rc, "RG-LRU scan kernel")
     launches += 1
     return y, h_out
+
+
+class RglruScanFn(torch.autograd.Function):
+    """K4 under autograd on CUDA tensors: :func:`launch` forward,
+    :func:`launch_bwd` backward on the saved x, a and initial state."""
+
+    @staticmethod
+    def forward(ctx, x, a, state, cs):
+        y, h = launch(x, a, state, cs)
+        ctx.cs, ctx.state_dtype = cs, state.dtype
+        ctx.save_for_backward(x, a, state)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, a, state = ctx.saved_tensors
+        dx, da, dh0 = launch_bwd(x, a, state, dy.contiguous(), dh, ctx.cs)
+        return dx, da, dh0.to(ctx.state_dtype), None
+
+
+def launch_bwd(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor, dy: torch.Tensor,
+               dstate: torch.Tensor | None, cs: ConcreteSchedule) -> tuple[torch.Tensor, ...]:
+    """Launch the backward kernel: (dx, da in x's dtype, the initial state's
+    gradient f32) at ``dy`` (y's gradient, x's dtype) and ``dstate`` (the
+    final state's, or None); raises on anything it does not take."""
+    global bwd_launches
+    if not x.is_cuda:
+        raise ValueError(f"the RG-LRU scan backward kernel runs on a CUDA tensor, got {x.device}")
+    cta_c, _, ctas, tile_c = check_args(x, a, state, cs)
+    b, t, c = x.shape
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError(f"dy must be contiguous, {tuple(x.shape)} {x.dtype}, "
+                         f"got {tuple(dy.shape)} {dy.dtype}")
+    if dstate is not None:
+        if tuple(dstate.shape) != (b, c):
+            raise ValueError(f"the final state's gradient must be {(b, c)}, got {tuple(dstate.shape)}")
+        dstate = dstate.to(torch.float32).contiguous()
+    h0 = state.to(torch.float32).contiguous()
+    dx, da, dh0 = torch.empty_like(x), torch.empty_like(x), torch.empty_like(h0)
+    ck = torch.empty((b, _cdiv(t, BWD_STAGE_T), c), dtype=torch.float32, device=x.device)
+    rc = _build.library().repro_rglru_scan_bwd(
+        x.data_ptr(), a.data_ptr(), h0.data_ptr(), dy.data_ptr(),
+        dstate.data_ptr() if dstate is not None else None, dx.data_ptr(), da.data_ptr(),
+        dh0.data_ptr(), ck.data_ptr(), b, t, c, DTYPES[x.dtype], tile_c, cta_c, BWD_STAGE_T,
+        ctas, _build.stream_handle(x.device))
+    _build.check(rc, "RG-LRU scan backward kernel")
+    bwd_launches += 1
+    return dx, da, dh0

@@ -43,6 +43,17 @@ sum for y is off that chain.
 
 A tensor on the CPU takes the plain version (:func:`repro_torch.kernels.ref.rwkv6_scan`);
 a CUDA tensor launches the kernel or raises.  ``launches`` counts launches.
+
+Under autograd a CUDA tensor goes through :class:`Rwkv6ScanFn`: the forward
+is :func:`launch` (the same bits as without a gradient), the backward
+:func:`launch_bwd`, kernels of their own (``csrc/rwkv6_scan_bwd.cu``): a
+CTA per (b, h, :data:`BWD_COLS` value columns) walks forward saving the f32
+state every :data:`BWD_STAGE_T` tokens, then walks the stages backwards,
+recomputing each stage's states from its checkpoint beside the state's
+gradient; the row sums that span a head's CTAs go through an f32
+workspace, added in a fixed order by a second kernel (no atomics).
+``bwd_launches`` counts the backward's calls.  Its plain version is
+:func:`repro_torch.kernels.ref.rwkv6_scan_bwd`.
 """
 from __future__ import annotations
 
@@ -59,14 +70,20 @@ CTA_COLS = 16
 THREAD_ROWS = 8
 #: tokens per shared-memory stage (kWkvStageT)
 STAGE_T = 32
+#: the backward's value columns per CTA (csrc/rwkv6_scan_bwd.cu kWkvBwdCols)
+BWD_COLS = 16
+#: tokens between the backward's f32 state checkpoints (kWkvBwdStageT)
+BWD_STAGE_T = 16
 
-#: kernel launches since the last reset (a plain count; see chip_smoke.py)
+#: kernel launches since the last reset (plain counts; see chip_smoke.py):
+#: the forward's and the backward's (one call: the walk and the sum)
 launches = 0
+bwd_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bwd_launches
+    launches = bwd_launches = 0
 
 
 def scan_geometry(b: int, h: int, t: int, d: int, tile_t: int) -> tuple[int, int, int, int]:
@@ -102,13 +119,11 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     return launch(r, k, v, w, u, state, cs)
 
 
-def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-           u: torch.Tensor, state: torch.Tensor,
-           cs: ConcreteSchedule) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; raises on anything it does not take."""
-    global launches
-    if not r.is_cuda:
-        raise ValueError(f"the rwkv6 scan kernel runs on a CUDA tensor, got {r.device}")
+def check_args(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               u: torch.Tensor, state: torch.Tensor, cs: ConcreteSchedule) -> tuple[int, ...]:
+    """(cta_cols, split, stage_t, ctas) of the forward's launch under ``cs``;
+    raises on what the kernels (forward and backward) do not take.  Any
+    device: the CPU tests reach it."""
     if r.dtype not in DTYPES or any(x.dtype != r.dtype for x in (k, v, w)):
         raise ValueError(f"rwkv6 scan takes bf16 or f32 r/k/v/w of one dtype, "
                          f"got {r.dtype}, {k.dtype}, {v.dtype}, {w.dtype}")
@@ -129,6 +144,18 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     p = cs.instance.p
     if (cs.instance.class_id, p["T"], p["C"], p["D"], p["B"]) != ("rwkv6_scan", t, h * d, d, b):
         raise ValueError(f"schedule for {cs.instance} does not fit r {tuple(r.shape)}")
+    return cta_cols, split, stage_t, ctas
+
+
+def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+           u: torch.Tensor, state: torch.Tensor,
+           cs: ConcreteSchedule) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel; raises on anything it does not take."""
+    global launches
+    if not r.is_cuda:
+        raise ValueError(f"the rwkv6 scan kernel runs on a CUDA tensor, got {r.device}")
+    cta_cols, split, stage_t, ctas = check_args(r, k, v, w, u, state, cs)
+    b, h, t, d = r.shape
     # the reference reads u and the initial state into f32
     u32 = u.to(torch.float32).contiguous()
     s32 = state.to(torch.float32).contiguous()
@@ -142,3 +169,73 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     _build.check(rc, "rwkv6 scan kernel")
     launches += 1
     return y, s_out
+
+
+def bwd_geometry(b: int, h: int, t: int, d: int) -> tuple[int, int, int, int]:
+    """(cols, stage_t, ctas, checkpoints) of the backward's walk over
+    (B, H, T, D): value columns per CTA, tokens per stage, the CTA count (a
+    CTA per (b, h, :data:`BWD_COLS` columns)) and the f32 state checkpoints
+    per (b, h).  Raises ``ValueError`` on a shape it does not take."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"rwkv6 scan kernel takes head dims {HEAD_DIMS}, got {d}")
+    if min(b, h, t) < 1:
+        raise ValueError(f"rwkv6 scan needs B, H and T >= 1, got {(b, h, t)}")
+    return BWD_COLS, BWD_STAGE_T, b * h * (d // BWD_COLS), -(-t // BWD_STAGE_T)
+
+
+class Rwkv6ScanFn(torch.autograd.Function):
+    """K3 under autograd on CUDA tensors: :func:`launch` forward,
+    :func:`launch_bwd` backward on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, cs):
+        y, s = launch(r, k, v, w, u, state, cs)
+        ctx.cs = cs
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, w, u, state = ctx.saved_tensors
+        dr, dk, dv, dw, du, ds0 = launch_bwd(r, k, v, w, u, state, dy.contiguous(), ds, ctx.cs)
+        return dr, dk, dv, dw, du.to(u.dtype), ds0.to(state.dtype), None
+
+
+def launch_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               u: torch.Tensor, state: torch.Tensor, dy: torch.Tensor,
+               dstate: torch.Tensor | None, cs: ConcreteSchedule) -> tuple[torch.Tensor, ...]:
+    """Launch the backward kernels: (dr, dk, dv, dw in r's dtype, du (H, D)
+    f32, the initial state's gradient f32) at ``dy`` (y's gradient, r's
+    dtype) and ``dstate`` (the final state's, or None); raises on anything
+    they do not take."""
+    global bwd_launches
+    if not r.is_cuda:
+        raise ValueError(f"the rwkv6 scan backward kernel runs on a CUDA tensor, got {r.device}")
+    check_args(r, k, v, w, u, state, cs)
+    b, h, t, d = r.shape
+    cols, stage_t, ctas, stages = bwd_geometry(b, h, t, d)
+    if dy.shape != r.shape or dy.dtype != r.dtype or not dy.is_contiguous():
+        raise ValueError(f"dy must be contiguous, {tuple(r.shape)} {r.dtype}, "
+                         f"got {tuple(dy.shape)} {dy.dtype}")
+    if dstate is not None:
+        if tuple(dstate.shape) != (b, h, d, d):
+            raise ValueError(f"the final state's gradient must be {(b, h, d, d)}, "
+                             f"got {tuple(dstate.shape)}")
+        dstate = dstate.to(torch.float32).contiguous()
+    u32 = u.to(torch.float32).contiguous()
+    s32 = state.to(torch.float32).contiguous()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du, ds0 = torch.empty_like(u32), torch.empty_like(s32)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    ck = torch.empty((b * h, stages, d, d), **f32)
+    ws = torch.empty((3, d // cols, b * h * t * d), **f32)
+    du_part = torch.empty((b * h, d), **f32)
+    rc = _build.library().repro_rwkv6_scan_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u32.data_ptr(), s32.data_ptr(),
+        dy.data_ptr(), dstate.data_ptr() if dstate is not None else None, dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
+        ck.data_ptr(), ws.data_ptr(), du_part.data_ptr(), b, h, t, d, DTYPES[r.dtype], cols,
+        stage_t, ctas, _build.stream_handle(r.device))
+    _build.check(rc, "rwkv6 scan backward kernel")
+    bwd_launches += 1
+    return dr, dk, dv, dw, du, ds0

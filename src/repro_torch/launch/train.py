@@ -22,11 +22,15 @@ Loop structure, as the reference's:
 It prints and returns the reference's result dict (``first_loss``,
 ``last_loss``, ``steps``, ``stragglers``).
 
-``--device cuda`` (the default) trains on the card, every product and its
-gradient on the port's kernels, and raises where there is none.  The MoE,
-recurrent and audio archs have no backward kernels on the card yet (ROADMAP
-A.8): they train on the CPU.  ``--layers N`` keeps the first N layers
-(default: the config's depth).
+``--device cuda`` (the default) trains on the card, every op and its
+gradient on the port's kernels (K1, K1g, K2, K3 and K4, forward and
+backward), for every family.  ``--layers N`` keeps the first N layers
+(default: the config's depth; the decoder's for an encoder-decoder arch):
+mixtral-8x22b trains at full width with ``--layers 1``, its full depth's
+~280 GB of bf16 weights fitting no one card.  The audio and vision archs
+take the reference's stub frontend inputs, zero encoder frames or patch
+embeddings (:func:`repro_torch.launch.serve.stub_extras`), beside the
+tokens.
 
 Sharded training: under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK`` in the environment) the trainer joins a process group (NCCL
@@ -74,6 +78,7 @@ from repro_torch.distributed.context import REMAT_POLICIES, set_remat_policy
 from repro_torch.kernels.ops import ScheduleProvider
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.serve import stub_extras
 from repro_torch.models.build import build_model
 from repro_torch.models.lm import retie, trainable
 from repro_torch.optim.adamw import AdamWConfig
@@ -204,11 +209,13 @@ def _train(args, cfg, device: str, distributed: bool) -> dict:
 
     losses = []
     set_remat_policy(args.remat_policy)
+    stubs = {k: torch.from_numpy(v).to(model.device).expand(args.batch, *v.shape).contiguous()
+             for k, v in stub_extras(cfg).items()}
     for step, np_batch in data:
         if step >= args.steps or preempt.requested:
             break
         t0 = time.monotonic()
-        batch = {"tokens": torch.from_numpy(np_batch["tokens"]).to(model.device)}
+        batch = {"tokens": torch.from_numpy(np_batch["tokens"]).to(model.device), **stubs}
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
         dt = time.monotonic() - t0

@@ -82,6 +82,34 @@ def moe_route(p: dict, cfg: ArchConfig, x: torch.Tensor,
     return probs, gate_vals, expert_idx
 
 
+class _PairRows(torch.autograd.Function):
+    """``x[idx // k]``: the rows of ``x`` (T, D) for token-expert pairs in
+    the order ``idx``, a permutation of the T·k pairs in token-major order
+    (pair ``p`` is token ``p // k``'s ``p % k``-th choice).  Its gradient
+    adds each token's k row gradients one after another in choice order,
+    rounding to x's dtype after each add, as the combine adds the forward's
+    contributions: the gradient of ``x[idx // k]`` (an index put with
+    accumulation over repeated rows) would add in an order that may change
+    from run to run on the card."""
+
+    @staticmethod
+    def forward(ctx, x, idx, k):
+        ctx.save_for_backward(idx)
+        ctx.k = k
+        return x[idx // k]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        per_pair = torch.empty_like(g)
+        per_pair[idx] = g                        # token-major: each pair once
+        per_pair = per_pair.reshape(-1, ctx.k, g.shape[-1])
+        dx = per_pair[:, 0]
+        for j in range(1, ctx.k):
+            dx = dx + per_pair[:, j]
+        return dx, None, None
+
+
 def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
               capacity_factor: float = CAPACITY_FACTOR) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D). Returns (out, aux_loss) — aux is the load-balance loss.
@@ -122,7 +150,9 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
     slot = torch.where(keep, se * cap + pos, e * cap)                       # overflow row
 
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
-    buf[slot] = xf[st]                     # kept slots are distinct; the overflow row is dropped
+    # xf[st], with a gradient summed in a fixed order; kept slots are
+    # distinct, and the overflow row is dropped
+    buf[slot] = _PairRows.apply(xf, order, k)
     buf = constrain_named(buf[:-1].reshape(e, cap, d), "moe_buf")
 
     h = ops.moe_gemm(buf, p["w_in"], class_id="moe_gemm_silu_glu", provider=provider)

@@ -926,21 +926,159 @@ def test_attention_forward_bits_equal_under_grad(card):
     assert o1.requires_grad and torch.equal(o0, o1)
 
 
-def test_kernels_without_backward_refuse_grad(card):
-    g = torch.Generator(device="cuda").manual_seed(4)
-    x = torch.randn((2, 4, 16), generator=g, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ops.moe_gemm(x, torch.randn((2, 16, 8), device="cuda"))
-    r, k, v, w = (torch.rand((1, 2, 5, 16), generator=g, device="cuda") for _ in range(4))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ops.rwkv6(r.requires_grad_(), k, v, w, torch.rand((2, 16), device="cuda"),
-                  torch.zeros((1, 2, 16, 16), device="cuda"))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ops.rglru(torch.rand((1, 5, 32), device="cuda", requires_grad=True),
-                  torch.rand((1, 5, 32), device="cuda"), torch.zeros((1, 32), device="cuda"))
+def test_attention_under_grad_refuses_q_offset(card):
+    x = torch.randn((2, 1, 4, 16), device="cuda", requires_grad=True)
     with pytest.raises(ValueError, match="q_offset"):
-        ops.flash_attention(x[:, None, :, :].contiguous(), x[:, None].detach(),
-                            x[:, None].detach(), q_offset=3)
+        ops.flash_attention(x, x.detach(), x.detach(), q_offset=3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("class_id", ref.GROUPED_CLASSES)
+@pytest.mark.parametrize("e,m,k,n", [(1, 6, 40, 64), (3, 20, 33, 48), (8, 70, 96, 130)])
+def test_grouped_matmul_backward_matches_plain(card, dtype, class_id, e, m, k, n):
+    """K1g's backward (GroupedMatmulFn: dX, dW and the GLU's pre-activation
+    as K1g launches) against autograd of the plain version: the rows body
+    (6 rows per expert) and the tiled bodies, ragged K and N."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(e + m + k + n)
+    x = torch.randn((e, m, k), generator=g, device="cuda").to(dt)
+    w = (torch.randn((e, k, n), generator=g, device="cuda") / k ** 0.5).to(dt)
+    n_out = n // 2 if "glu" in class_id else n
+    dy = (torch.randn((e, m, n_out), generator=g, device="cuda") / n_out ** 0.5).to(dt)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = (mm.grouped_launches, mm.grouped_grad_launches)
+    y = ops.moe_gemm(xs, ws, class_id=class_id)
+    got = torch.autograd.grad(y, (xs, ws), dy)
+    launched = 3 if "glu" in class_id else 2
+    assert mm.grouped_grad_launches == before[1] + launched
+    assert mm.grouped_launches == before[0] + 1 + launched
+    with torch.no_grad():
+        assert torch.equal(y, ops.moe_gemm(x, w, class_id=class_id))   # same bits as serving
+    ref.reset_calls()
+    want = ref.grouped_matmul_bwd(x, w, dy, class_id)
+    for a, b_ in zip(got, want):
+        assert a.dtype == dt
+        _close_to_scale(a.float(), b_.float(), _tol(dt))
+
+
+# (b, h, t, d, w_low, w_high, with_state): T = 1, T = 37 (not a multiple of
+# the backward's 16-token stages), B = 1 and 3, head dims 16, 32 and 64, w
+# near 0 and near 1, an incoming state and the final state's gradient
+RW_BWD_CASES = [(2, 1, 1, 16, 0.05, 0.95, True), (1, 3, 37, 64, 0.05, 0.95, True),
+                (3, 2, 40, 32, 0.0, 0.02, False), (1, 2, 64, 64, 0.98, 1.0, True),
+                (2, 1, 23, 16, 0.3, 0.9, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,t,d,w_low,w_high,with_state", RW_BWD_CASES)
+def test_rwkv6_backward_matches_plain(card, dtype, b, h, t, d, w_low, w_high, with_state):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(b + h + t + d)
+    r, k, v = (torch.randn((b, h, t, d), generator=g, device="cuda").to(dt) for _ in range(3))
+    w = (w_low + (w_high - w_low) * torch.rand((b, h, t, d), generator=g, device="cuda")).to(dt)
+    u = torch.randn((h, d), generator=g, device="cuda")
+    s0 = torch.randn((b, h, d, d), generator=g, device="cuda") if with_state else \
+        torch.zeros((b, h, d, d), device="cuda")
+    dy = torch.randn((b, h, t, d), generator=g, device="cuda").to(dt)
+    ds = torch.randn((b, h, d, d), generator=g, device="cuda") if with_state else None
+    leaves = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+    before = rw.bwd_launches
+    y, s = ops.rwkv6(*leaves)
+    outs, grads_in = ((y, s), (dy, ds)) if with_state else ((y,), (dy,))
+    got = torch.autograd.grad(outs, leaves, grads_in)
+    assert rw.bwd_launches == before + 1
+    want = ref.rwkv6_scan_bwd(r, k, v, w, u, s0, dy, ds)
+    for name, a, b_ in zip(("dr", "dk", "dv", "dw", "du", "dstate"), got, want):
+        assert a.dtype == b_.dtype, name
+        _close_to_scale(a.float(), b_.float(), _tol(dt) if name not in ("du", "dstate") else TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,c,tile_c,with_state", [(2, 1, 64, None, True), (1, 37, 100, None, True),
+                                                     (3, 70, 2560, None, False),
+                                                     (2, 17, 12, 8, True)])
+def test_rglru_backward_matches_plain(card, dtype, b, t, c, tile_c, with_state):
+    """T = 1, T = 37 and 70 (not multiples of the 32-token stages), a ragged
+    C under a tile of 8, an incoming state and the final state's gradient."""
+    from repro_torch.core.schedule import Schedule, concretize
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(b + t + c)
+    x = torch.randn((b, t, c), generator=g, device="cuda").to(dt)
+    a = torch.sigmoid(torch.randn((b, t, c), generator=g, device="cuda")).to(dt)
+    h0 = torch.randn((b, c), generator=g, device="cuda")
+    dy = torch.randn((b, t, c), generator=g, device="cuda").to(dt)
+    dh = torch.randn((b, c), generator=g, device="cuda") if with_state else None
+    cs = ops.schedule_for(ops.instance("rglru_scan", dt, T=t, C=c, B=b))
+    if tile_c is not None:
+        cs = concretize(Schedule.make("rglru_scan", {"T": cs.t["T"], "C": tile_c}), cs.instance)
+    leaves = [z.clone().requires_grad_() for z in (x, a, h0)]
+    before = rg.bwd_launches
+    y, h = rg.RglruScanFn.apply(*leaves, cs)
+    outs, grads_in = ((y, h), (dy, dh)) if with_state else ((y,), (dy,))
+    got = torch.autograd.grad(outs, leaves, grads_in)
+    assert rg.bwd_launches == before + 1
+    want = ref.rglru_scan_bwd(x, a, h0, dy, dh)
+    for name, p, q in zip(("dx", "da", "dstate"), got, want):
+        assert p.dtype == q.dtype, name
+        _close_to_scale(p.float(), q.float(), _tol(dt) if name != "dstate" else TOL)
+
+
+def test_backward_kernels_bits_equal_run_to_run(card):
+    """K1g's, K3's and K4's backward give the same bits twice (no atomics)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf = torch.bfloat16
+    x = torch.randn((4, 64, 96), generator=g, device="cuda").to(bf)
+    w = (torch.randn((4, 96, 130), generator=g, device="cuda") / 10).to(bf)
+    dy = torch.randn((4, 64, 65), generator=g, device="cuda").to(bf)
+    r, k, v = (torch.randn((2, 4, 50, 64), generator=g, device="cuda").to(bf) for _ in range(3))
+    wd = torch.rand((2, 4, 50, 64), generator=g, device="cuda").to(bf)
+    u, s0 = torch.randn((4, 64), device="cuda"), torch.randn((2, 4, 64, 64), device="cuda")
+    dyr = torch.randn((2, 4, 50, 64), generator=g, device="cuda").to(bf)
+    xr = torch.randn((2, 50, 2560), generator=g, device="cuda").to(bf)
+    ar = torch.rand((2, 50, 2560), generator=g, device="cuda").to(bf)
+    dyg = torch.randn((2, 50, 2560), generator=g, device="cuda").to(bf)
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in (x, w)]
+        out = list(torch.autograd.grad(ops.moe_gemm(*leaves, class_id="moe_gemm_silu_glu"),
+                                       leaves, dy))
+        leaves = [t.clone().requires_grad_() for t in (r, k, v, wd, u, s0)]
+        out += torch.autograd.grad(ops.rwkv6(*leaves)[0], leaves, dyr)
+        leaves = [t.clone().requires_grad_() for t in (xr, ar)]
+        out += torch.autograd.grad(ops.rglru(*leaves, torch.zeros((2, 2560), device="cuda"))[0],
+                                   leaves, dyg)
+        return out
+
+    _equal_bits(run(), run())
+
+
+def test_reduced_mixtral_steps_on_the_card_are_bit_equal(card):
+    """Two train steps of mixtral (reduced, bf16) on the kernel path, run
+    twice from the same weights: the losses, params and optimizer state
+    bit-equal (the MoE dispatch's and combine's gradients add in a fixed
+    order), through K1g's backward and no plain version."""
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(reduced(get_arch("mixtral-8x22b")), dtype="bfloat16")
+    model = build_model(cfg, "cuda")
+    g = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (4, 24), generator=g).cuda()}
+    runs = []
+    ref.reset_calls()
+    before = mm.grouped_grad_launches
+    for _ in range(2):
+        params = model.init(0)
+        opt = steps.init_opt_state(params)
+        step = steps.make_train_step(model, AdamWConfig(warmup_steps=1, total_steps=4))
+        losses = [float(step(params, opt, batch)[2]["loss"]) for _ in range(2)]
+        runs.append((losses, leaves({"params": params, "opt": opt})))
+    assert mm.grouped_grad_launches > before and not ref.cuda_calls
+    assert runs[0][0] == runs[1][0]
+    for a, b_ in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b_.reshape(-1).view(torch.uint8))
 
 
 def test_reduced_gemma2_trains_on_the_card_through_the_kernels(card):
