@@ -162,20 +162,25 @@ toolkit.  Phases, one result line each:
    ``trace_report`` attributes, the launches per kernel and body, and the
    phase's peak memory.
 13. train — gemma2-2b trained on the kernels, forward and backward
-   (``phase_train``).  First K2's backward kernel
-   (``csrc/flash_attention_bwd.cu``) against autograd of its plain version
-   at five shapes (gemma2's heads with a 128-token window and softcap 50,
-   the same global, minitron's GQA, a non-causal head, a prime length),
-   bf16 and f32; then timed at gemma2's training shapes (and minitron's)
-   beside its forward, its plain version and SDPA's forward and backward.
+   (``phase_train``).  First K2's backward kernels
+   (``csrc/flash_attention_bwd.cu``: bf16 on the tensor cores, f32 on the
+   CUDA cores, each launch's body checked; the forward's row log-sum-exp,
+   which they read, against ``ref.attention_lse``) against autograd of
+   their plain version at five shapes (gemma2's heads with a 128-token
+   window and softcap 50, the same global, minitron's GQA, a non-causal
+   head, a prime length), bf16 and f32; then timed at gemma2's training
+   shapes (and minitron's) beside its forward, its plain version, SDPA's
+   forward and backward (same-call ratios) and the times of the CUDA-core
+   kernels it replaced, with its CTAs per launch.
    K1's backward (dX and dW as K1 launches) against autograd of the plain
    version for every class gemma2 runs at its training shapes, the tied
    head included, dX and dW timed beside ``torch.matmul``.  Then
    ``repro_torch.launch.train.main`` at full width and full depth (26
    layers, bf16, 4 x 512 tokens, 6 steps, random weights from a seeded
    generator on the card): every loss finite and the last below the first,
-   K1 and its backward launched, 26 K2 backward launches a step, no plain
-   version reached on the card (``ref.cuda_calls``); ms per step (median of
+   K1 and its backward launched, 26 K2 backward launches a step, every one
+   on the bf16 tensor-core body, no plain version reached on the card
+   (``ref.cuda_calls``); ms per step (median of
    steps 2-6), tokens/s and peak memory over the steps; its profiled step
    comes from a fresh process (below).  Then gemma2-2b at 2 layers, kernel path
    against plain path on one batch: the loss and every gradient leaf within
@@ -190,7 +195,9 @@ toolkit.  Phases, one result line each:
    their paths against autograd of their plain versions at the families'
    training shapes, each gradient within K1's backward bound, two runs
    bit-equal (K3's, ``csrc/rwkv6_scan_bwd.cu``, at 4·32·512·64 and at
-   T = 37 from a state passed in; K4's, ``csrc/rglru_scan_bwd.cu``, at
+   T = 37 from a state passed in, a batch row bit-equal at B = 1 and
+   B = 4, each of its kernels timed on the device; K4's,
+   ``csrc/rglru_scan_bwd.cu``, at
    4·512·2560 and T = 37; K1g's, ``GroupedMatmulFn``, at mixtral's expert
    GEMMs with 2048 rows per expert; K2's at whisper's encoder, decoder and
    cross shapes, mixtral's window and recurrentgemma's local layers), timed
@@ -198,7 +205,8 @@ toolkit.  Phases, one result line each:
    and SDPA (K2).  Then per family ``repro_torch.launch.train.main``
    (``--preset full``, bf16, 4 x 512 tokens, whisper 4 x 448, 4 steps):
    losses finite, each new backward kernel launched as often as the family
-   has layers that run it, no plain version reached on the card; ms per
+   has layers that run it, every K2 backward launch on the bf16
+   tensor-core body, no plain version reached on the card; ms per
    step (median of steps 2-4), tokens/s, init and peak memory; its profiled
    step comes from ``--profile-steps``.  Then the kernel path against the
    plain path at 2 layers (mixtral 1; whisper 2 + 2), the bounds of the
@@ -236,7 +244,9 @@ kernel's numbers, the nvidia-smi line, and the last line
 
 times the scan kernels of another tree (``PARENT``, a checkout with its
 own ``src/``; say, the parent commit unpacked with ``git archive``) against
-this tree's at the main-path shapes, in turns (parent, this, this, parent),
+this tree's at the main-path shapes, and K3's backward at rwkv6-1.6b's
+training shape (each of its kernels by device time), in turns (parent,
+this, this, parent),
 each turn in its own process, and prints the same-call ratios.  Any failure raises: the script
 exits non-zero and prints no result.  Times come from CUDA events, each
 launch after an L2 flush (the serving path reads weights cold); they
@@ -366,10 +376,10 @@ class Timer:
             times.append(s.elapsed_time(e))
         return statistics.median(times)
 
-    def _kernels(self, fn, iters: int) -> tuple[collections.Counter, float]:
+    def _kernels(self, fn, iters: int) -> tuple[collections.Counter, collections.Counter]:
         """One torch.profiler capture of ``iters`` calls, each after an L2
-        flush: the launches per kernel name and their summed microseconds
-        (the flush's own kernel, fills and memsets left out)."""
+        flush: the launches and the summed microseconds per kernel name (the
+        flush's own kernel, fills and memsets left out)."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
@@ -378,13 +388,13 @@ class Timer:
                 self.flush()
                 fn()
             torch.cuda.synchronize()
-        names, us = collections.Counter(), 0.0
+        names, us = collections.Counter(), collections.Counter()
         for e in prof.events():
             if (e.device_type == torch.autograd.DeviceType.CUDA
                     and "FillFunctor" not in e.name and "Memset" not in e.name
                     and (self.flush_kernel is None or self.flush_kernel not in e.name)):
                 names[e.name] += 1
-                us += e.time_range.elapsed_us()
+                us[e.name] += e.time_range.elapsed_us()
         return names, us
 
     def device_ms(self, fn, iters: int = 10, captures: int = 3) -> float | None:
@@ -396,6 +406,13 @@ class Timer:
         capture counts only if it holds ``iters`` times the kernels of a
         capture of one call, name by name; else both are taken again, up to
         ``captures`` times, and then the time is not measured (None)."""
+        per = self.kernel_ms(fn, iters, captures)
+        return sum(per.values()) if per is not None else None
+
+    def kernel_ms(self, fn, iters: int = 10, captures: int = 3) -> dict | None:
+        """Mean device ms per call of each kernel one call launches, by
+        name, from the captures :meth:`device_ms` takes (None: not
+        measured)."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
@@ -403,7 +420,7 @@ class Timer:
             one, _ = self._kernels(fn, 1)
             names, us = self._kernels(fn, iters)
             if one and names == collections.Counter({k: n * iters for k, n in one.items()}):
-                return us / iters / 1e3
+                return {name: t / iters / 1e3 for name, t in us.items()}
             log("device_ms_capture_dropped", one_call=dict(one), **{f"{iters}_calls": dict(names)})
         log("device_ms_not_measured", captures=captures)
         return None
@@ -463,7 +480,9 @@ def assert_close(torch, got, want, tol: dict, what: str) -> float:
 #: kernels whose registers and spills the build phase reports (each
 #: instantiation: CTA tiles, head dims, dtypes, rounding mode)
 BUILD_BODIES = ("matmul_mma_kernel", "attention_mma_kernel", "matmul_rows_kernel",
-                "matmul_rows_round_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel",
+                "matmul_rows_round_kernel", "attention_bwd_dq_mma_kernel",
+                "attention_bwd_dkv_mma_kernel", "attention_bwd_dq_fma_kernel",
+                "attention_bwd_dkv_fma_kernel", "rwkv6_scan_bwd_walk_kernel",
                 "rwkv6_scan_bwd_kernel", "rglru_scan_bwd_kernel")
 
 
@@ -1040,12 +1059,18 @@ def scan_bounds(kind: str, shape: tuple) -> tuple[float, str]:
     return bound_ms(3 * b * t * c * 2 + 2 * b * c * 4, 7 * b * t * c, F32_CUDA_CORE_FLOPS)
 
 
-def time_scans(torch, timer, plain: bool = True) -> list:
+#: K3's backward timed by ``--time-scans``: rwkv6-1.6b's training shape
+RW_BWD_TIMED = (4, 32, 512, 64)
+
+
+def time_scans(torch, timer, plain: bool = True, bwd: bool = False) -> list:
     """The scan kernels of the ``repro_torch`` on ``sys.path`` at the main-path
     shapes: each checked against its plain version, then timed by events
-    and on the device (and the plain version by events, if ``plain``).
-    Takes only the wrappers' ``launch``, so it times an older tree's
-    kernels alike."""
+    and on the device (and the plain version by events, if ``plain``); with
+    ``bwd``, K3's backward at ``RW_BWD_TIMED`` too, checked against its plain
+    version and timed alike, with each of its kernels' device time.  Takes
+    only the wrappers' ``launch`` and ``launch_bwd``, so it times an older
+    tree's kernels alike."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as rw
@@ -1069,6 +1094,25 @@ def time_scans(torch, timer, plain: bool = True) -> list:
                "plain_ms": timer.ms(lambda: ref_fn(*x), iters=5) if plain else None,
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
+    if bwd:
+        b, h, t, d = RW_BWD_TIMED
+        dt = torch.bfloat16
+        r, k, v, dy = (torch.randn((b, h, t, d), generator=g, device="cuda").to(dt) for _ in range(4))
+        w = torch.exp(-torch.exp(-6 + 4 * torch.rand((b, h, t, d), generator=g, device="cuda"))).to(dt)
+        u, s0 = torch.randn((h, d), generator=g, device="cuda"), torch.zeros((b, h, d, d), device="cuda")
+        cs = _rw_cs(torch, dt, b, h, t, d)
+        args = (r, k, v, w, u, s0, dy, None)
+        errs = grads_close(torch, ("dr", "dk", "dv", "dw", "du", "dstate"), rw.launch_bwd(*args, cs),
+                           ref.rwkv6_scan_bwd(*args), "K3 backward")
+        n = b * h * t * d
+        b_ms, b_by = bound_ms(9 * 2 * n + 2 * 4 * b * h * d * d + 2 * 4 * h * d,
+                              RW_BWD_OPS * b * h * t * d * d, F32_CUDA_CORE_FLOPS)
+        rows.append({"kind": "rwkv6_bwd", "B": b, "H": h, "T": t, "D": d, "tiles": cs.t,
+                     "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                     "ms": timer.ms(lambda: rw.launch_bwd(*args, cs)),
+                     "device_ms": timer.device_ms(lambda: rw.launch_bwd(*args, cs)),
+                     "kernels_ms": timer.kernel_ms(lambda: rw.launch_bwd(*args, cs)),
+                     "plain_ms": None, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
     return rows
 
 
@@ -1187,7 +1231,8 @@ def phase_scans(torch, timer) -> dict:
 
 def scans_ab(parent: Path) -> int:
     """The scan kernels of the tree at ``parent`` (say, an unpacked parent
-    commit) and of this tree, timed at the main-path shapes in turns —
+    commit) and of this tree, timed at the main-path shapes, and K3's
+    backward at ``RW_BWD_TIMED``, in turns —
     parent, this, this, parent — each turn in its own process with that
     tree's ``src`` first on the path.  Prints each turn's rows, then per
     shape the mean device and event times and their ratios (parent / this)."""
@@ -1832,13 +1877,14 @@ def profile_summary(torch, prof, wall_us: float) -> dict:
 
 #: the kernels of each launch counter, by substrings of their names: every
 #: counted launch issues one of them (a rows-body K split adds a second
-#: pass, ``matmul_rows_reduce_kernel``, and K3's backward its sum,
-#: ``rwkv6_scan_bwd_finish_kernel``, neither counted; K1g's launches, its
-#: gradient's among them, are the matmul family's)
+#: pass, ``matmul_rows_reduce_kernel``, K2's backward its dkv kernel (and,
+#: for a split GQA group, ``attention_bwd_parts_kernel``), K3's backward its
+#: walk and du kernels, none counted; K1g's launches, its gradient's among
+#: them, are the matmul family's)
 CAPTURE_KERNELS = {"matmul": ("matmul_mma_kernel", "matmul_rows_kernel",
                               "matmul_rows_round_kernel", "matmul_fma_kernel"),
                    "flash_attention": ("attention_mma_kernel", "attention_fma_kernel"),
-                   "attention_bwd": ("attention_bwd_dq_kernel",),
+                   "attention_bwd": ("attention_bwd_dq_",),
                    "rwkv6_scan": ("rwkv6_scan_kernel",), "rglru_scan": ("rglru_scan_kernel",),
                    "rwkv6_scan_bwd": ("rwkv6_scan_bwd_kernel",),
                    "rglru_scan_bwd": ("rglru_scan_bwd_kernel",)}
@@ -3276,6 +3322,13 @@ ATTN_BWD_CHECKS = (("gemma2_window", 1, 8, 4, 512, 256, True, 128, 50.0),
 ATTN_BWD_TIMED = (("gemma2_local", 4, 8, 4, 512, 256, True, 4096, 0.0),
                   ("gemma2_global", 4, 8, 4, 512, 256, True, 0, 50.0),
                   ("minitron", 1, 24, 8, 512, 128, True, 0, 0.0))
+#: K2's backward before its tensor-core redesign (the CUDA-core f32
+#: kernels), timed by this script on an NVIDIA H100 80GB HBM3 at 700.00 W:
+#: (event ms, held ms) per row name, reported beside this run's times
+EARLIER_ATTN_BWD_MS = {"gemma2_local": (3.336, 3.238), "gemma2_global": (3.403, 3.286),
+                       "minitron": (1.360, 1.320), "whisper_encoder": (21.90, 21.75),
+                       "whisper_self": (1.310, 1.294), "whisper_cross": (6.817, 6.699),
+                       "mixtral": (6.512, 6.467), "recurrentgemma": (6.202, 6.083)}
 #: gemma2's K1 launches at the training batch (M = 4 x 512 tokens):
 #: (name, class, M, K, N): the q, k/v and o projections, the GeGLU up and
 #: down projections and the tied, softcapped LM head
@@ -3296,14 +3349,59 @@ TRAIN_GRAD_COS = 0.995
 TRAIN_GRAD_MAXREL = 5e-2
 
 
+def attention_bwd_launch(fa, q, k, v, do, cs, kw) -> tuple:
+    """One K2 backward as training runs it: the forward with its row
+    log-sum-exp, then the backward kernels; fails unless the launch took
+    the body its dtype rules (bf16: ``mma``).  (o, lse, grads)."""
+    o, lse = fa.launch(q, k, v, cs, with_lse=True, **kw)
+    body = fa.body_for(q.dtype)
+    before = fa.bwd_body_launches[body, q.dtype]
+    grads = fa.launch_bwd(q, k, v, o, lse, do, **kw)
+    if fa.bwd_body_launches[body, q.dtype] != before + 1:
+        raise AssertionError(f"K2 backward: a {q.dtype} launch did not take the {body} body")
+    return o, lse, grads
+
+
+def attention_bwd_timing(timer, fa, name, q, k, v, o, lse, do, kw, sdpa) -> dict:
+    """A K2 backward row's layout and times: body, group parts and column
+    blocks (``flash_attention.bwd_geometry``), CTAs and shared bytes (dq,
+    dkv) as the library plans the launch (``bwd_library_geometry``; fails
+    unless its CTAs are the layout's); event and
+    held ms (:meth:`Timer.held_ms`: late in this script the profiler's
+    captures of these calls came back empty or with the first few calls
+    only); SDPA's forward and backward under autograd where it computes the
+    same function (``sdpa`` not None), with the same-call ratios; each
+    kernel's device time (profiler); the CUDA-core kernels' times before
+    the redesign (``EARLIER_ATTN_BWD_MS``)."""
+    b, hq, sq, d = q.shape
+    shape = (b, hq, k.shape[1], sq, k.shape[2], d, q.dtype)
+    geo, lib = fa.bwd_geometry(*shape), fa.bwd_library_geometry(*shape)
+    if (lib["dq_ctas"], lib["dkv_ctas"]) != (geo["dq_ctas"], geo["dkv_ctas"]):
+        raise AssertionError(f"K2 backward {name}: the library launches {lib}, the layout says {geo}")
+    row = {"body": geo["body"], "parts": geo["parts"], "col_blocks": geo["col_blocks"], **lib,
+           "ms": timer.ms(lambda: fa.launch_bwd(q, k, v, o, lse, do, **kw)),
+           "held_ms": timer.held_ms(lambda: fa.launch_bwd(q, k, v, o, lse, do, **kw)),
+           # each kernel's device time (None where late captures drop events, C.9)
+           "kernels_ms": timer.kernel_ms(lambda: fa.launch_bwd(q, k, v, o, lse, do, **kw)),
+           "library_ms": None, "library_held_ms": None}
+    if sdpa is not None:
+        row["library_ms"], row["library_held_ms"] = timer.ms(sdpa), timer.held_ms(sdpa)
+    row["sdpa_ratio"] = ratio(row["ms"], row["library_ms"])
+    row["sdpa_held_ratio"] = ratio(row["held_ms"], row["library_held_ms"])
+    earlier = EARLIER_ATTN_BWD_MS.get(name)
+    row["earlier_ms"], row["earlier_held_ms"] = earlier if earlier else (None, None)
+    row["speedup_held"] = ratio(row["earlier_held_ms"], row["held_ms"])
+    return row
+
+
 def attention_bwd_phase(torch, timer) -> dict:
-    """K2's backward kernel against autograd of its plain version
-    (``ref.chunked_attention_bwd``) at ``ATTN_BWD_CHECKS``, bf16 and f32;
-    then, at ``ATTN_BWD_TIMED`` (the training batch), checked alike in bf16
-    and timed beside the plain version, the forward kernel and SDPA's
-    forward and backward under autograd, by events and by held events
-    (:meth:`Timer.held_ms`: late in this script the profiler's captures of
-    these calls came back empty or with the first few calls only)."""
+    """K2's backward kernels against autograd of their plain version
+    (``ref.chunked_attention_bwd``) at ``ATTN_BWD_CHECKS``, bf16 (the
+    tensor-core body) and f32 (the CUDA-core body), with the forward's row
+    log-sum-exp against ``ref.attention_lse``; then, at ``ATTN_BWD_TIMED``
+    (the training batch), checked alike in bf16 and timed
+    (:func:`attention_bwd_timing`) beside the plain version and the forward
+    kernel; ``bound_share`` is the bound over the held (device) time."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -3325,15 +3423,16 @@ def attention_bwd_phase(torch, timer) -> dict:
         for dtype, tol, key in ((torch.bfloat16, BF16_TOL, "bf16"), (torch.float32, F32_TOL, "f32")):
             q, k, v, do = inputs(b, hq, hkv, s, d, dtype)
             kw = dict(causal=causal, window=window, softcap=softcap)
-            o = fa.launch(q, k, v, cs_for(dtype, b, hq, s, d, window), **kw)
-            got = fa.launch_bwd(q, k, v, o, do, **kw)
+            o, lse, got = attention_bwd_launch(fa, q, k, v, do, cs_for(dtype, b, hq, s, d, window), kw)
             want = ref.chunked_attention_bwd(q, k, v, do, **kw)
-            row = {"name": name, "dtype": key}
+            row = {"name": name, "dtype": key, "body": fa.body_for(dtype),
+                   "lse": assert_close(torch, lse, ref.attention_lse(q, k, **kw), F32_TOL,
+                                       f"attention lse {name} {key}")}
             for grad, a, w in zip(("dq", "dk", "dv"), got, want):
                 row[grad] = assert_close(torch, a, w, tol, f"attention backward {name} {key} {grad}")
                 errs[key] = max(errs[key], row[grad])
             checks.append(row)
-            del q, k, v, do, o, got, want
+            del q, k, v, do, o, lse, got, want
     log("train_attention_bwd_checks", checks=checks)
 
     timed = []
@@ -3341,9 +3440,9 @@ def attention_bwd_phase(torch, timer) -> dict:
         q, k, v, do = inputs(b, hq, hkv, s, d, torch.bfloat16)
         kw = dict(causal=causal, window=window, softcap=softcap)
         cs = cs_for(torch.bfloat16, b, hq, s, d, window)
-        o = fa.launch(q, k, v, cs, **kw)
         # at the training batch too (B > 1: the b·Hkv + h/group indexing)
-        got, want = fa.launch_bwd(q, k, v, o, do, **kw), ref.chunked_attention_bwd(q, k, v, do, **kw)
+        o, lse, got = attention_bwd_launch(fa, q, k, v, do, cs, kw)
+        want = ref.chunked_attention_bwd(q, k, v, do, **kw)
         max_errs = {grad: assert_close(torch, a, w, BF16_TOL, f"attention backward {name} bf16 {grad}")
                     for grad, a, w in zip(("dq", "dk", "dv"), got, want)}
         errs["bf16"] = max(errs["bf16"], *max_errs.values())
@@ -3351,14 +3450,7 @@ def attention_bwd_phase(torch, timer) -> dict:
         live = sum(min(i + 1, window) if window else i + 1 for i in range(s)) if causal else s * s
         nbytes = 2 * (4 * b * hq * s * d + 4 * b * hkv * s * d)   # q, o, dO, dQ; k, v, dK, dV
         b_ms, b_by = bound_ms(nbytes, 10 * b * hq * live * d)      # 2.5x the forward's 4·live·D
-        row = {"name": name, "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": window,
-               "softcap": softcap, "max_abs_err": max_errs, "bound_ms": b_ms, "bound_by": b_by,
-               "ms": timer.ms(lambda: fa.launch_bwd(q, k, v, o, do, **kw)),
-               "held_ms": timer.held_ms(lambda: fa.launch_bwd(q, k, v, o, do, **kw)),
-               "fwd_ms": timer.ms(lambda: fa.launch(q, k, v, cs, **kw)),
-               "plain_ms": timer.ms(lambda: ref.chunked_attention_bwd(q, k, v, do, **kw), iters=3),
-               "library_ms": None, "library_held_ms": None}
-        row["fwd_bwd_ms"] = row["fwd_ms"] + row["ms"]
+        ke = ve = sdpa = None
         if not softcap and (window == 0 or window >= s):
             # one library call computing the same function: SDPA forward and
             # backward under autograd (the kv heads repeated outside the clock)
@@ -3369,13 +3461,16 @@ def attention_bwd_phase(torch, timer) -> dict:
                 out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
                 return torch.autograd.grad(out, leaves, do)
 
-            row["library_ms"] = timer.ms(sdpa)
-            row["library_held_ms"] = timer.held_ms(sdpa)
-            del ke, ve
-        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row = {"name": name, "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": window,
+               "softcap": softcap, "max_abs_err": max_errs, "bound_ms": b_ms, "bound_by": b_by,
+               **attention_bwd_timing(timer, fa, name, q, k, v, o, lse, do, kw, sdpa),
+               "fwd_ms": timer.ms(lambda: fa.launch(q, k, v, cs, with_lse=True, **kw)),
+               "plain_ms": timer.ms(lambda: ref.chunked_attention_bwd(q, k, v, do, **kw), iters=3)}
+        row["fwd_bwd_ms"] = row["fwd_ms"] + row["ms"]
+        row["bound_share"] = row["bound_ms"] / row["held_ms"]
         timed.append(row)
         log("train_attention_bwd_shape", **row)
-        del q, k, v, do, o
+        del q, k, v, do, o, lse, ke, ve
     torch.cuda.empty_cache()
     return {"checks": checks, "timed": timed, "max_abs_err": errs["bf16"],
             "f32_max_abs_err": errs["f32"]}
@@ -3531,7 +3626,15 @@ def train_counts(mm, fa, rw, rg, ref) -> dict:
             "rwkv6_bwd_launches": rw.bwd_launches, "rglru_bwd_launches": rg.bwd_launches,
             "body_launches": body_counts(mm),
             "attention_class_launches": {f"{c}/{b}": n for (c, b), n in sorted(fa.class_launches.items())},
+            "attention_bwd_body_launches": {f"{b}/{str(d).removeprefix('torch.')}": n
+                                            for (b, d), n in sorted(fa.bwd_body_launches.items(), key=str)},
             "plain_cuda_calls": dict(ref.cuda_calls)}
+
+
+def attention_bwd_all_mma(counts: dict) -> bool:
+    """Every K2 backward launch a run counted took the tensor-core body in
+    bf16 (training runs bf16)."""
+    return counts["attention_bwd_body_launches"].get("mma/bfloat16", 0) == counts["attention_bwd_launches"]
 
 
 def reset_counts(mm, fa, rw, rg, ref) -> None:
@@ -3650,6 +3753,8 @@ def phase_train(torch, timer) -> dict:
     if counts["attention_bwd_launches"] != cfg.n_layers * TRAIN_STEPS:
         raise AssertionError(f"train: {counts['attention_bwd_launches']} K2 backward launches, "
                              f"want {cfg.n_layers} per step")
+    if not attention_bwd_all_mma(counts):
+        raise AssertionError(f"train: a K2 backward launch left the bf16 tensor-core body: {counts}")
     if counts["plain_cuda_calls"] or any(counts["launches"][k] for k in ("grouped_matmul",
                                                                           "rwkv6_scan", "rglru_scan")):
         raise AssertionError(f"train: the card reached a plain version: {counts}")
@@ -3754,11 +3859,19 @@ def grads_close(torch, names, got, want, what: str, f32: bool = False) -> dict:
     return out
 
 
+#: K3's backward before its redesign at 4·32·512·64, bf16 (events), timed by
+#: this script on an NVIDIA H100 80GB HBM3 at 700.00 W, reported beside this run's
+EARLIER_RW_BWD_MS = 2.338
+
+
 def rwkv6_bwd_rows(torch, timer) -> list:
     """K3's backward against its plain version (``ref.rwkv6_scan_bwd``) at
     rwkv6-1.6b's training shape (4·32·512·64) in bf16 and f32, and at T =
-    37 from a state passed in with the final state's gradient, bf16; the
-    bf16 training shape timed beside the plain backward."""
+    37 from a state passed in with the final state's gradient, bf16; each
+    twice (bit-equal) and, a batch row alone against the same row at B = 4
+    (bit-equal but du, a sum over the batch); the bf16 training shape timed
+    beside the plain backward, with each kernel's device time (the walk,
+    the reverse walk, du's batch sum) and the earlier kernel's time."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rwkv6_scan as rw
 
@@ -3787,23 +3900,35 @@ def rwkv6_bwd_rows(torch, timer) -> list:
         run = rw.launch_bwd(*args, cs)
         if not all(torch.equal(p, q) for p, q in zip(got, run)):
             raise AssertionError(f"K3 backward {name}: two runs differ")
+        one = rw.launch_bwd(*(x[2:3].contiguous() for x in (r, k, v, w)), u, s0[2:3].contiguous(),
+                            dy[2:3].contiguous(), None if ds is None else ds[2:3].contiguous(),
+                            ops.schedule_for(ops.instance("rwkv6_scan", dt, T=t, C=h * d, D=d, B=1)))
+        if not all(torch.equal(p[2:3], q) for i, (p, q) in enumerate(zip(got, one)) if i != 4):
+            raise AssertionError(f"K3 backward {name}: a batch row differs at B = 1 and B = 4")
+        geo, lib = rw.bwd_geometry(b, h, t, d, dt), rw.bwd_library_geometry(b, h, t, d, dt)
+        if (lib["ctas"], lib["cluster"]) != (geo["ctas"], geo["cluster"]):
+            raise AssertionError(f"K3 backward {name}: the library launches {lib}, the layout says {geo}")
         row = {"name": name, "dtype": str(dt), "B": b, "H": h, "T": t, "D": d, "state": with_state,
-               "errors": errs,
+               "errors": errs, "bits": {"two_runs": True, "b1_vs_b4": True},
                "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                "max_rel_err": max(e["rel"] for e in errs.values()),
-               "ctas": rw.bwd_geometry(b, h, t, d)[2]}
+               **lib}
         if timed:
             n = b * h * t * d
             row["bound_ms"], row["bound_by"] = bound_ms(
                 9 * 2 * n + 2 * 4 * b * h * d * d + 2 * 4 * h * d,
                 RW_BWD_OPS * b * h * t * d * d, F32_CUDA_CORE_FLOPS)
             row["ms"] = timer.ms(lambda: rw.launch_bwd(*args, cs))
+            row["kernels_ms"] = timer.kernel_ms(lambda: rw.launch_bwd(*args, cs))
             row["plain_ms"] = timer.ms(lambda: ref.rwkv6_scan_bwd(*args), iters=3)
             row["library_ms"] = None   # no one PyTorch call computes a recurrence
             row["fwd_ms"] = timer.ms(lambda: rw.launch(r, k, v, w, u, s0, cs))
+            row["earlier_ms"] = EARLIER_RW_BWD_MS
+            row["speedup"] = EARLIER_RW_BWD_MS / row["ms"]
+            row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         log("families_rwkv6_bwd", **row)
-        del r, k, v, w, s0, dy, got, want, run
+        del r, k, v, w, s0, dy, got, want, run, one
     torch.cuda.empty_cache()
     return rows
 
@@ -3926,8 +4051,10 @@ FAMILY_ATTN_BWD = (("whisper_encoder", 4, 16, 16, 1500, 1500, 64, False, 0),
 
 def family_attention_bwd_rows(torch, timer) -> list:
     """K2's backward against autograd of its plain version at the families'
-    training shapes, bf16, timed beside the plain backward and SDPA's
-    forward and backward (the kv heads repeated outside the clock)."""
+    training shapes, bf16 (the tensor-core body), timed
+    (:func:`attention_bwd_timing`) beside the plain backward and SDPA's
+    forward and backward (the kv heads repeated outside the clock);
+    ``bound_share`` is the bound over the held (device) time."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -3945,8 +4072,8 @@ def family_attention_bwd_rows(torch, timer) -> list:
                     "flash_attention_cross" if sq != skv else "flash_attention_bidir")
         cs = ops.schedule_for(ops.instance(class_id, bf, Q=sq, KV=skv, H=hq, D=d, B=b,
                                            window=window))
-        o = fa.launch(q, k, v, cs, **kw)
-        got, want = fa.launch_bwd(q, k, v, o, do, **kw), ref.chunked_attention_bwd(q, k, v, do, **kw)
+        o, lse, got = attention_bwd_launch(fa, q, k, v, do, cs, kw)
+        want = ref.chunked_attention_bwd(q, k, v, do, **kw)
         errs = grads_close(torch, ("dq", "dk", "dv"), got, want, f"K2 backward {name}")
         del got, want
         live = (sum(min(i + 1, window) if window else i + 1 for i in range(sq)) if causal
@@ -3964,14 +4091,14 @@ def family_attention_bwd_rows(torch, timer) -> list:
                "causal": causal, "window": window, "errors": errs,
                "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                "bound_ms": b_ms, "bound_by": b_by,
-               "ms": timer.ms(lambda: fa.launch_bwd(q, k, v, o, do, **kw)),
-               "held_ms": timer.held_ms(lambda: fa.launch_bwd(q, k, v, o, do, **kw)),
-               "plain_ms": timer.ms(lambda: ref.chunked_attention_bwd(q, k, v, do, **kw), iters=3),
                # SDPA computes the same function where the window does not bite
-               "library_ms": timer.ms(sdpa) if window == 0 or window >= skv else None}
+               **attention_bwd_timing(timer, fa, name, q, k, v, o, lse, do, kw,
+                                      sdpa if window == 0 or window >= skv else None),
+               "plain_ms": timer.ms(lambda: ref.chunked_attention_bwd(q, k, v, do, **kw), iters=3)}
+        row["bound_share"] = row["bound_ms"] / row["held_ms"]
         rows.append(row)
         log("families_attention_bwd", **row)
-        del q, k, v, do, o, ke, ve
+        del q, k, v, do, o, lse, ke, ve
         torch.cuda.empty_cache()
     return rows
 
@@ -4074,6 +4201,8 @@ def phase_train_families(torch, timer) -> dict:
             raise AssertionError(f"{arch}: {counts[key]} {key}, want {per_step(cfg)} a step")
         if counts["plain_cuda_calls"] or not counts["matmul_grad_launches"]:
             raise AssertionError(f"{arch}: a plain version on the card, or no K1 backward: {counts}")
+        if not attention_bwd_all_mma(counts):
+            raise AssertionError(f"{arch}: a K2 backward launch left the bf16 tensor-core body: {counts}")
         if counts["body_launches"].get("matmul/fma/bfloat16"):
             raise AssertionError(f"{arch}: a bf16 K1 launch took the CUDA-core body: {counts}")
         step_ms = statistics.median(rec["ms"][1:])
@@ -4402,7 +4531,7 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--time-scans"] and len(argv) == 2:   # one turn of --scans-ab
         import_port(Path(argv[1]))
         torch.backends.cuda.matmul.allow_tf32 = False
-        for row in time_scans(torch, Timer(torch), plain=False):
+        for row in time_scans(torch, Timer(torch), plain=False, bwd=True):
             print(json.dumps(row), flush=True)
         return 0
     if argv:
@@ -4574,7 +4703,12 @@ def main(argv: list[str]) -> int:
          "launches": train["main"]["attention_bwd_launches"],
          "max_abs_err": train["attention_bwd"]["max_abs_err"],
          "f32_max_abs_err": train["attention_bwd"]["f32_max_abs_err"],
-         **{k: rep_bwd[k] for k in ("held_ms", "library_held_ms", "fwd_ms", "fwd_bwd_ms")},
+         **{k: rep_bwd[k] for k in ("body", "dq_ctas", "dkv_ctas", "dq_smem", "dkv_smem", "parts",
+                                    "held_ms", "library_held_ms", "sdpa_ratio",
+                                    "sdpa_held_ratio", "bound_share", "fwd_ms", "fwd_bwd_ms")},
+         "body_launches": {"train": train["main"]["attention_bwd_body_launches"],
+                           "families": dict(sum((collections.Counter(r["attention_bwd_body_launches"])
+                                                 for r in fam["runs"]), collections.Counter()))},
          **timed(rep_bwd, ("B", "Hq", "Hkv", "S", "D", "window", "softcap"))},
         {"name": "matmul_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:205",
@@ -4603,8 +4737,10 @@ def main(argv: list[str]) -> int:
                                        "families": fam_count(counter)}
             row["launches"] = sum(row["launches_by_path"].values())
     next(r for r in kernels if r["name"] == "flash_attention_bwd")["families"] = [
-        {f: r[f] for f in ("name", "ms", "held_ms", "plain_ms", "bound_ms", "bound_by",
-                           "library_ms", "max_abs_err")} for r in k["attention_bwd"]]
+        {f: r[f] for f in ("name", "body", "dq_ctas", "dkv_ctas", "parts", "ms", "held_ms",
+                           "plain_ms", "bound_ms", "bound_by", "bound_share", "library_ms",
+                           "library_held_ms", "sdpa_ratio", "sdpa_held_ratio", "max_abs_err")}
+        for r in k["attention_bwd"]]
     kernels += [
         {"name": "grouped_matmul_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -4624,7 +4760,8 @@ def main(argv: list[str]) -> int:
          "launches": fam_count("rwkv6_bwd_launches"),
          "max_abs_err": max(r["max_abs_err"] for r in k["rwkv6_bwd"]),
          "max_rel_err": max(r["max_rel_err"] for r in k["rwkv6_bwd"]), "fwd_ms": rep_rwb["fwd_ms"],
-         **timed(rep_rwb, ("B", "H", "T", "D", "ctas"))},
+         **{f: rep_rwb[f] for f in ("kernels_ms", "bound_share", "walk_smem", "smem")},
+         **timed(rep_rwb, ("B", "H", "T", "D", "ctas", "cluster"))},
         {"name": "rglru_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:65",

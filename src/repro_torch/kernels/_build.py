@@ -41,14 +41,15 @@ SIGNATURES = {
                      _I, _I, _P, _P],
     "repro_grouped_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P, _P],
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _I, _F, _I, _I, _I, _P],
-    "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _F, _F, _P],
+    "repro_flash_attention_bwd": [*[_P] * 11, *[_I] * 9, _F, _F, _I, _P],
+    "repro_flash_attention_bwd_geometry": [*[_I] * 8, _P],
     "repro_rwkv6_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     "repro_rglru_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "repro_rwkv6_scan_bwd": [*[_P] * 17, *[_I] * 8, _P],
+    "repro_rwkv6_scan_bwd": [*[_P] * 16, *[_I] * 6, _P],
+    "repro_rwkv6_scan_bwd_geometry": [*[_I] * 5, _P],
     "repro_rglru_scan_bwd": [*[_P] * 9, *[_I] * 8, _P],
 }
 

@@ -60,7 +60,7 @@ __device__ __forceinline__ void stage16(T* dst, const T* src, int valid, bool ve
   }
 }
 
-inline bool aligned16(const void* p) {
+__host__ __device__ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 

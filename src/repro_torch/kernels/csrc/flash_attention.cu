@@ -50,10 +50,17 @@
 //  * the kv head of query head h is h / (Hq / Hkv);
 //  * causal, window, q_offset and ragged Sq / Skv masks.
 //
+// Under training (FlashAttentionFn) the forward also writes each row's
+// log-sum-exp, m + log(l) in f32 (+inf for a fully masked row), which the
+// backward (csrc/flash_attention_bwd.cu) reads in place of a pass of its
+// own; asked for or not, the output's bits are the same.
+//
 // Any head dim up to 256 runs: each body is compiled for padded widths (mma:
 // 64, 128, 256; fma: 32, 64, 128, 256) and a smaller D is zero-padded to the
 // next of them in shared memory.  At S <= 512 the bytes of q, k, v and o
 // bound it, the operations (growing as S^2) for longer prompts.
+#include <math.h>
+
 #include <algorithm>
 
 #include "mma.cuh"
@@ -64,10 +71,17 @@ constexpr float kNegInf = -1e30f;
 
 struct AttnArgs {
   const void* q; const void* k; const void* v; void* o;
+  float* lse;   // (B*Hq*Sq) f32 row log-sum-exp, or null: not asked for
   int bh, hq, hkv, sq, skv, d;
   int causal, window; float softcap; int q_offset; float scale;
   int tile_q, sub, ctas;   // logical Q tile, CTAs per logical tile, CTAs per (b, h)
 };
+
+// A row's log-sum-exp from its max and sum; +inf for a fully masked row
+// (l = 0), so exp(s - lse) = 0 there as the output is.
+__device__ __forceinline__ float attn_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : INFINITY;
+}
 
 __device__ __forceinline__ bool attn_ok(const AttnArgs& a, int q_pos, int kv_pos) {
   bool ok = kv_pos < a.skv;
@@ -93,23 +107,6 @@ __host__ __device__ constexpr int attn_mma_bkv() { return DP > 128 ? 32 : 64; }
 template <int DP>
 constexpr int attn_mma_smem_bytes() {   // Q, then two (K, V) chunk stages
   return (kMmaBQ + 4 * attn_mma_bkv<DP>()) * (DP + kMmaPad) * 2;
-}
-
-// rows [g0, g0 + ROWS) of a (rows, D) bf16 matrix into shared rows of
-// DP + kMmaPad, zeros at and past row g1 and past column D
-template <int ROWS, int DP>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int g0,
-                                           int g1, int D, bool vec) {
-  constexpr int kChunks = ROWS * DP / 8;   // 16-byte chunks
-  static_assert(kChunks % kMmaThreads == 0, "every thread stages the same number");
-#pragma unroll
-  for (int j = 0; j < kChunks / kMmaThreads; ++j) {
-    const int i = threadIdx.x + j * kMmaThreads;
-    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
-    const int gr = g0 + r;
-    const int valid = gr < g1 ? D - c : 0;
-    stage8(dst + r * (DP + kMmaPad) + c, valid > 0 ? src + (size_t)gr * D + c : src, valid, vec);
-  }
 }
 
 // On the S fragment of one chunk (lane (g, tq): rows g and g + 8 at query
@@ -189,11 +186,11 @@ __global__ void __launch_bounds__(kMmaThreads) attention_mma_kernel(AttnArgs a) 
   kv_begin = (kv_begin / BKV) * BKV;
   const int nchunks = kv_end > kv_begin ? cdiv(kv_end - kv_begin, BKV) : 0;
 
-  stage_rows<kMmaBQ, DP>(Qs, qb, r0, r1, D, vec);
+  stage_rows<kMmaBQ, DP, kMmaThreads, kMmaPad>(Qs, qb, r0, r1, D, vec);
   cp_async_commit();
   if (nchunks > 0) {
-    stage_rows<BKV, DP>(Ks, kb, kv_begin, a.skv, D, vec);
-    stage_rows<BKV, DP>(Vs, vb, kv_begin, a.skv, D, vec);
+    stage_rows<BKV, DP, kMmaThreads, kMmaPad>(Ks, kb, kv_begin, a.skv, D, vec);
+    stage_rows<BKV, DP, kMmaThreads, kMmaPad>(Vs, vb, kv_begin, a.skv, D, vec);
   }
   cp_async_commit();
 
@@ -211,8 +208,8 @@ __global__ void __launch_bounds__(kMmaThreads) attention_mma_kernel(AttnArgs a) 
     const int c0 = kv_begin + c * BKV;
     if (c + 1 < nchunks) {
       const int slot = (c + 1) & 1;
-      stage_rows<BKV, DP>(Ks + slot * kKV, kb, c0 + BKV, a.skv, D, vec);
-      stage_rows<BKV, DP>(Vs + slot * kKV, vb, c0 + BKV, a.skv, D, vec);
+      stage_rows<BKV, DP, kMmaThreads, kMmaPad>(Ks + slot * kKV, kb, c0 + BKV, a.skv, D, vec);
+      stage_rows<BKV, DP, kMmaThreads, kMmaPad>(Vs + slot * kKV, vb, c0 + BKV, a.skv, D, vec);
     }
     cp_async_commit();
     cp_async_wait<1>();   // Q and chunk c have landed (this thread's copies)
@@ -296,8 +293,10 @@ __global__ void __launch_bounds__(kMmaThreads) attention_mma_kernel(AttnArgs a) 
     float l = l_r[hh];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l = fmaxf(l, 1e-30f);
     const int row = r0 + warp * 16 + g + 8 * hh;
+    if (a.lse != nullptr && tq == 0 && row < r1)
+      a.lse[(size_t)bh * a.sq + row] = attn_lse(m_r[hh], l);
+    l = fmaxf(l, 1e-30f);
     if (row >= r1) continue;
     bf16* orow = ob + (size_t)row * D;
 #pragma unroll
@@ -432,6 +431,7 @@ __global__ void __launch_bounds__(kWarps * 32) attention_fma_kernel(AttnArgs a) 
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = warp * kRowsPerWarp + i;
       if (r >= nq) continue;
+      if (a.lse != nullptr && lane == 0) a.lse[(size_t)bh * a.sq + s0 + r] = attn_lse(m_r[i], l_r[i]);
       const float l = fmaxf(l_r[i], 1e-30f);
 #pragma unroll
       for (int dv = 0; dv < NDV; ++dv)
@@ -467,10 +467,12 @@ int launch_fma(const AttnArgs& a, cudaStream_t stream) {
 // C entry point bound with ctypes.  q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D), o like
 // q, all contiguous and of one dtype.  (cta_q, ctas): the CTA geometry the
 // wrapper chose (kernels/flash_attention.py attention_geometry), CTAs per
-// (b, h), re-checked here.  Returns a cudaError_t (cudaErrorInvalidValue for
-// bad arguments).
+// (b, h), re-checked here.  lse: null, or (B,Hq,Sq) f32 that gets each row's
+// log-sum-exp of its masked, softcapped, scaled scores (+inf for a fully
+// masked row), which the backward reads; o's bits do not depend on it.
+// Returns a cudaError_t (cudaErrorInvalidValue for bad arguments).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int b, int hq, int hkv, int sq, int skv, int d, int dtype,
+                                     void* lse, int b, int hq, int hkv, int sq, int skv, int d, int dtype,
                                      int causal, int window, float softcap, int q_offset,
                                      float scale, int tile_q, int cta_q, int ctas, void* stream) {
   using namespace repro;
@@ -479,7 +481,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (hq % hkv) return (int)cudaErrorInvalidValue;
   if (dtype != kBFloat16 && dtype != kFloat32) return (int)cudaErrorInvalidValue;
   AttnArgs a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = static_cast<float*>(lse);
   a.bh = b * hq; a.hq = hq; a.hkv = hkv; a.sq = sq; a.skv = skv; a.d = d;
   a.causal = causal; a.window = window; a.softcap = softcap; a.q_offset = q_offset;
   a.scale = scale; a.tile_q = tile_q; a.ctas = ctas;

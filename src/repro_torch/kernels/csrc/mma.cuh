@@ -1,6 +1,7 @@
 // Tensor-core helpers shared by the matmul's mma body and the attention's
-// mma body: ldmatrix operand loads and the mma.sync m16n8k16 bf16 x bf16 ->
-// f32 product (cp.async staging is in common.cuh).
+// mma bodies (forward and backward): ldmatrix operand loads, the mma.sync
+// m16n8k16 bf16 x bf16 -> f32 product and bf16 row staging into padded
+// shared rows (the cp.async primitives are in common.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -43,6 +44,24 @@ __device__ __forceinline__ void stage8(__nv_bfloat16* dst, const __nv_bfloat16* 
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = i < valid ? src[i] : __float2bfloat16_rn(0.f);
     *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// Rows [g0, g0 + ROWS) of a (rows, D) bf16 matrix into shared rows of DP +
+// PAD elements (PAD = 8: 16 bytes against bank conflicts), zeros at and past
+// row g1 and past column D; the CTA's THREADS threads share the copies.
+template <int ROWS, int DP, int THREADS, int PAD = 8>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int g0,
+                                           int g1, int D, bool vec) {
+  constexpr int kChunks = ROWS * DP / 8;   // 16-byte chunks
+  static_assert(kChunks % THREADS == 0, "every thread stages the same number");
+#pragma unroll
+  for (int j = 0; j < kChunks / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
+    const int gr = g0 + r;
+    const int valid = gr < g1 ? D - c : 0;
+    stage8(dst + r * (DP + PAD) + c, valid > 0 ? src + (size_t)gr * D + c : src, valid, vec);
   }
 }
 

@@ -53,20 +53,29 @@ body and dtype, ``class_launches`` per kernel class (the schedule's instance:
 ``flash_attention_causal``, ``_bidir``, ``_cross``, ...) and body.
 
 The gradient is :func:`launch_bwd`: dQ, dK and dV from q, k, v, the
-forward's output and its gradient, by the backward kernel of
-``csrc/flash_attention_bwd.cu`` (a dq kernel, then a dkv kernel, one C
-call: one launch in ``bwd_launches``).  It takes what training gives the
-forward (causal or not, window, softcap, GQA, D up to 256, bf16 and f32)
-at ``q_offset`` 0, and no schedule: the reference keys no backward
-instance, so its tiles are its own.  :class:`FlashAttentionFn` enters it
-under autograd.  Its plain version is autograd through
-:func:`~repro_torch.kernels.ref.chunked_attention`
+forward's output, its row log-sum-exp and the output's gradient, by the
+backward kernels of ``csrc/flash_attention_bwd.cu`` (a dq kernel, then a
+dkv kernel, then for a split GQA group a kernel adding its parts; one C
+call: one launch in ``bwd_launches``, and one in ``bwd_body_launches`` by
+body and dtype).  Its bodies follow :func:`body_for` as the forward's do:
+``mma`` (bf16, the five products on the tensor cores) and ``fma`` (f32,
+CUDA cores); :func:`bwd_geometry` gives a launch's layout and CTAs, and
+:func:`bwd_library_geometry` the CTAs and shared bytes the library launches.
+It takes what training gives the forward (causal or not, window, softcap,
+GQA, Sq ≠ Skv, D up to 256, bf16 and f32) at ``q_offset`` 0, and no
+schedule: the reference keys no backward instance, so its tiles are its
+own.  :class:`FlashAttentionFn` enters it under autograd: its forward asks
+:func:`launch` for the row log-sum-exp (``with_lse``; the output's bits do
+not change) and saves it.  The plain version of the gradient is autograd
+through :func:`~repro_torch.kernels.ref.chunked_attention`
 (:func:`~repro_torch.kernels.ref.chunked_attention_bwd`), which a tensor on
-the CPU takes by torch's own autograd.
+the CPU takes by torch's own autograd; that of the log-sum-exp is
+:func:`~repro_torch.kernels.ref.attention_lse`.
 """
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
@@ -88,8 +97,19 @@ offset_launches = 0
 row_tile_launches = 0
 body_launches: collections.Counter = collections.Counter()
 class_launches: collections.Counter = collections.Counter()
-#: launches of the backward kernel (:func:`launch_bwd`) since the last reset
+#: launches of the backward kernels (:func:`launch_bwd`) since the last
+#: reset, and by (body, dtype)
 bwd_launches = 0
+bwd_body_launches: collections.Counter = collections.Counter()
+
+#: the backward's mma body: query rows (dq kernel) and keys (dkv kernel) per
+#: CTA (csrc/flash_attention_bwd.cu kBwdMmaRows)
+BWD_CTA_ROWS = 64
+#: dkv CTAs a launch aims for (two for each of the H100's 132 SMs, rounded):
+#: below it a GQA group is split between CTAs
+BWD_FILL = 256
+#: the backward's fma body: rows (dq) or keys (dkv) per CTA
+BWD_FMA_ROWS = 16
 
 
 def reset_launches() -> None:
@@ -98,6 +118,7 @@ def reset_launches() -> None:
     launches = offset_launches = row_tile_launches = bwd_launches = 0
     body_launches.clear()
     class_launches.clear()
+    bwd_body_launches.clear()
 
 
 def body_count(body: str | None = None, *, dtype: torch.dtype | None = None) -> int:
@@ -145,8 +166,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cs: ConcreteSchedule, *,
            causal: bool = True, window: int = 0, softcap: float = 0.0, q_offset: int = 0,
-           scale: float | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel; raises on anything it does not take."""
+           scale: float | None = None,
+           with_lse: bool = False) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel; raises on anything it does not take.  With
+    ``with_lse``, returns (output, each row's log-sum-exp (B, Hq, Sq) f32);
+    the output's bits are the same either way."""
     global launches, offset_launches, row_tile_launches
     if not q.is_cuda:
         raise ValueError(f"the flash-attention kernel runs on a CUDA tensor, got {q.device}")
@@ -171,11 +195,12 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cs: ConcreteSchedu
         raise ValueError(f"schedule for {cs.instance} does not fit q {tuple(q.shape)}, k {tuple(k.shape)}")
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
     body, cta_q, ctas = attention_geometry(q.dtype, sq, cs.t["Q"])
     lib = _build.library()
     rc = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, hq, hkv, sq, skv, d, DTYPES[q.dtype], int(causal), int(window), float(softcap),
+        lse.data_ptr() if with_lse else None, b, hq, hkv, sq, skv, d, DTYPES[q.dtype], int(causal), int(window), float(softcap),
         int(q_offset), float(scale), cs.t["Q"], cta_q, ctas, _build.stream_handle(q.device))
     _build.check(rc, "flash-attention kernel")
     launches += 1
@@ -183,31 +208,84 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cs: ConcreteSchedu
     row_tile_launches += cs.t["Q"] == 1 < sq
     body_launches[body, q.dtype] += 1
     class_launches[cs.instance.class_id, body] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """K2 under autograd on CUDA tensors (``q_offset`` 0): :func:`launch`
-    forward (the same bits as without a gradient), :func:`launch_bwd`
-    backward on the saved q, k, v and output."""
+    forward with the row log-sum-exp (the same output bits as without a
+    gradient), :func:`launch_bwd` backward on the saved q, k, v, output and
+    log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, cs, causal, window, softcap):
-        o = launch(q, k, v, cs, causal=causal, window=window, softcap=softcap)
+        o, lse = launch(q, k, v, cs, causal=causal, window=window, softcap=softcap, with_lse=True)
         ctx.args = dict(causal=causal, window=window, softcap=softcap)
-        ctx.save_for_backward(q, k, v, o)
+        ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        return (*launch_bwd(q, k, v, o, do.contiguous(), **ctx.args), None, None, None, None)
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*launch_bwd(q, k, v, o, lse, do.contiguous(), **ctx.args), None, None, None, None)
+
+
+def bwd_geometry(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
+                 dtype: torch.dtype) -> dict:
+    """The backward's launch over q (B, Hq, Sq, D) and k/v (B, Hkv, Skv, D):
+    its body (:func:`body_for`), ``parts`` (CTAs sharing a GQA group's query
+    heads, their dK and dV added in part order by a third kernel),
+    ``col_blocks`` (CTAs sharing dK's and dV's columns) and the CTAs of the
+    dq and dkv kernels.  The mma body takes :data:`BWD_CTA_ROWS` rows (dq)
+    or keys (dkv) a CTA, splits D = 256's columns in two, and splits the
+    group into the fewest parts (a divisor of the group) that give
+    :data:`BWD_FILL` dkv CTAs, or into its heads.  The fma body runs a CTA
+    per 16 rows or keys and walks the group in one CTA.  ``parts`` sizes
+    the workspace and goes to the kernel, which plans its own launch from
+    it (:func:`bwd_library_geometry` reports that plan; chip_smoke.py holds
+    these CTAs to it).  Raises ``ValueError`` on a shape the kernels do not
+    take."""
+    if min(b, hq, hkv, sq, skv, d) < 1:
+        raise ValueError(f"the attention backward needs every dim >= 1, got {(b, hq, hkv, sq, skv, d)}")
+    if hq % hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got {hq}, {hkv}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the attention backward takes head dims up to {MAX_HEAD_DIM}, got {d}")
+    body, group = body_for(dtype), hq // hkv
+    if body == "fma":
+        if b * hq > 65535:
+            raise ValueError(f"the fma backward takes B * Hq up to 65535 (grid.y), got {b * hq}")
+        return {"body": body, "parts": 1, "col_blocks": 1,
+                "dq_ctas": -(-sq // BWD_FMA_ROWS) * b * hq, "dkv_ctas": -(-skv // BWD_FMA_ROWS) * b * hkv}
+    col_blocks = 2 if d > 128 else 1
+    base = -(-skv // BWD_CTA_ROWS) * col_blocks * b * hkv
+    parts = next(p for p in range(1, group + 1) if group % p == 0 and (base * p >= BWD_FILL or p == group))
+    return {"body": body, "parts": parts, "col_blocks": col_blocks,
+            "dq_ctas": -(-sq // BWD_CTA_ROWS) * b * hq, "dkv_ctas": base * parts}
+
+
+def bwd_library_geometry(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
+                         dtype: torch.dtype) -> dict:
+    """What the backward kernels launch over these shapes, as the built
+    library plans it (csrc/flash_attention_bwd.cu ``plan_bwd``) at
+    :func:`bwd_geometry`'s ``parts``: each kernel's CTAs (``dq_ctas``,
+    ``dkv_ctas``) and dynamic shared bytes (``dq_smem``, ``dkv_smem``).
+    Launches nothing; needs the CUDA build."""
+    geo = bwd_geometry(b, hq, hkv, sq, skv, d, dtype)
+    out = (ctypes.c_int * 4)()
+    rc = _build.library().repro_flash_attention_bwd_geometry(
+        b, hq, hkv, sq, skv, d, DTYPES[dtype], geo["parts"], out)
+    _build.check(rc, "attention backward geometry")
+    return dict(zip(("dq_ctas", "dkv_ctas", "dq_smem", "dkv_smem"), out))
 
 
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-               do: torch.Tensor, *, causal: bool = True, window: int = 0, softcap: float = 0.0,
-               q_offset: int = 0, scale: float | None = None) -> tuple[torch.Tensor, ...]:
-    """Launch the backward kernel; raises on anything it does not take."""
+               lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True, window: int = 0,
+               softcap: float = 0.0, q_offset: int = 0,
+               scale: float | None = None) -> tuple[torch.Tensor, ...]:
+    """Launch the backward kernels at the forward's output ``o`` and row
+    log-sum-exp ``lse`` (:func:`launch` ``with_lse``); raises on anything
+    they do not take."""
     global bwd_launches
     if not q.is_cuda:
         raise ValueError(f"the attention backward kernel runs on a CUDA tensor, got {q.device}")
@@ -224,20 +302,28 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
     hkv, skv = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or hq % hkv:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)} (GQA needs Hq % Hkv == 0)")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"the attention backward takes head dims up to {MAX_HEAD_DIM}, got {d}")
+    geo = bwd_geometry(b, hq, hkv, sq, skv, d, q.dtype)
     if any(t.device != q.device for t in ts) or not all(t.is_contiguous() for t in ts):
         raise ValueError("the attention backward takes contiguous tensors on one device")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq) or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be the forward's contiguous (B, Hq, Sq) f32 log-sum-exp, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
     scale = scale if scale is not None else d ** -0.5
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # the dq kernel's row log-sum-exp and rowsum(dO * O), read by the dkv kernel
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    # rowsum(dO * O), written by the dq kernel and read by the dkv kernel;
+    # a split group's f32 dK and dV per part
     delta = torch.empty_like(lse)
+    parts = geo["parts"]
+    ws = (torch.empty((2, parts, b * hkv * skv * d), dtype=torch.float32, device=q.device)
+          if parts > 1 else None)
     rc = _build.library().repro_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, d,
-        DTYPES[q.dtype], int(causal), int(window), float(softcap), float(scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        ws.data_ptr() if ws is not None else None, b, hq, hkv, sq, skv, d,
+        DTYPES[q.dtype], int(causal), int(window), float(softcap), float(scale), parts,
         _build.stream_handle(q.device))
     _build.check(rc, "attention backward kernel")
     bwd_launches += 1
+    bwd_body_launches[geo["body"], q.dtype] += 1
     return dq, dk, dv

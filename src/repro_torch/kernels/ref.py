@@ -233,6 +233,26 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 @_counted
+def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0, q_offset: int = 0,
+                  scale: float | None = None) -> torch.Tensor:
+    """Each query row's log-sum-exp of its masked, softcapped, scaled scores,
+    (B, Hq, Sq) f32: what the forward kernel writes for the backward (the
+    plain version of its ``lse`` output).  A fully masked row gets +inf, so
+    exp(s - lse) is 0 there, as the kernels leave such a row at 0."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, hq // hkv, sq, d).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(_mask_ok(sq, skv, q_offset, causal, window, q.device), s, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(torch.isfinite(lse), lse, float("inf")).reshape(b, hq, sq)
+
+
+@_counted
 def chunked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
                           causal: bool = True, window: int = 0, softcap: float = 0.0,
                           q_offset: int = 0, chunk: int = 1024,

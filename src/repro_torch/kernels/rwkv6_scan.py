@@ -47,15 +47,22 @@ a CUDA tensor launches the kernel or raises.  ``launches`` counts launches.
 Under autograd a CUDA tensor goes through :class:`Rwkv6ScanFn`: the forward
 is :func:`launch` (the same bits as without a gradient), the backward
 :func:`launch_bwd`, kernels of their own (``csrc/rwkv6_scan_bwd.cu``): a
-CTA per (b, h, :data:`BWD_COLS` value columns) walks forward saving the f32
-state every :data:`BWD_STAGE_T` tokens, then walks the stages backwards,
-recomputing each stage's states from its checkpoint beside the state's
-gradient; the row sums that span a head's CTAs go through an f32
-workspace, added in a fixed order by a second kernel (no atomics).
-``bwd_launches`` counts the backward's calls.  Its plain version is
+walk kernel, a CTA per (b, h, :data:`BWD_COLS` value columns), saves the
+f32 state every :data:`BWD_STAGE_T` tokens; the reverse kernel, the same
+CTAs with a head's D / :data:`BWD_COLS` of them in one thread-block
+cluster, walks the segments backwards, recomputing each
+:data:`BWD_SUB_T`-token sub-stage's states from its checkpoint into
+registers beside the state's gradient, and adds the row sums that span a
+head's CTAs through the cluster's shared memory in rank order (no
+atomics, no workspace); a small kernel adds du's batch rows in order.
+:func:`bwd_geometry` gives the layout and :func:`bwd_library_geometry` the
+launch the library plans.  ``bwd_launches`` counts the
+backward's calls.  Its plain version is
 :func:`repro_torch.kernels.ref.rwkv6_scan_bwd`.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -74,6 +81,9 @@ STAGE_T = 32
 BWD_COLS = 16
 #: tokens between the backward's f32 state checkpoints (kWkvBwdStageT)
 BWD_STAGE_T = 16
+#: tokens of one reverse sub-stage, whose states a thread holds in
+#: registers (kWkvBwdSubT)
+BWD_SUB_T = 8
 
 #: kernel launches since the last reset (plain counts; see chip_smoke.py):
 #: the forward's and the backward's (one call: the walk and the sum)
@@ -171,16 +181,36 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return y, s_out
 
 
-def bwd_geometry(b: int, h: int, t: int, d: int) -> tuple[int, int, int, int]:
-    """(cols, stage_t, ctas, checkpoints) of the backward's walk over
-    (B, H, T, D): value columns per CTA, tokens per stage, the CTA count (a
-    CTA per (b, h, :data:`BWD_COLS` columns)) and the f32 state checkpoints
-    per (b, h).  Raises ``ValueError`` on a shape it does not take."""
+def bwd_geometry(b: int, h: int, t: int, d: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The backward's layout over (B, H, T, D) in ``dtype``: value columns
+    per CTA (``cols``), tokens per checkpoint segment (``stage_t``) and per
+    reverse sub-stage (``sub_t``), CTAs per head (``cluster``: the reverse
+    kernel's cluster) and in all (``ctas``, the same for both kernels) and
+    f32 state checkpoints per (b, h), which size the checkpoint workspace.
+    The kernel plans its own launch (:func:`bwd_library_geometry` reports
+    it, with its shared bytes; chip_smoke.py holds these CTAs to it).
+    Raises ``ValueError`` on a shape it does not take."""
     if d not in HEAD_DIMS:
         raise ValueError(f"rwkv6 scan kernel takes head dims {HEAD_DIMS}, got {d}")
     if min(b, h, t) < 1:
         raise ValueError(f"rwkv6 scan needs B, H and T >= 1, got {(b, h, t)}")
-    return BWD_COLS, BWD_STAGE_T, b * h * (d // BWD_COLS), -(-t // BWD_STAGE_T)
+    if dtype not in DTYPES:
+        raise ValueError(f"rwkv6 scan takes bf16 or f32, got {dtype}")
+    return {"cols": BWD_COLS, "stage_t": BWD_STAGE_T, "sub_t": BWD_SUB_T, "cluster": d // BWD_COLS,
+            "ctas": b * h * (d // BWD_COLS), "checkpoints": -(-t // BWD_STAGE_T)}
+
+
+def bwd_library_geometry(b: int, h: int, t: int, d: int, dtype: torch.dtype) -> dict:
+    """What the backward kernels launch over (B, H, T, D), as the built
+    library plans it (csrc/rwkv6_scan_bwd.cu ``plan_bwd``): CTAs of each
+    kernel (``ctas``), CTAs per cluster (``cluster``) and the walk and
+    reverse kernels' dynamic shared bytes (``walk_smem``, ``smem``).
+    Launches nothing; needs the CUDA build."""
+    bwd_geometry(b, h, t, d, dtype)
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().repro_rwkv6_scan_bwd_geometry(b, h, t, d, DTYPES[dtype], out),
+                 "rwkv6 scan backward geometry")
+    return dict(zip(("ctas", "cluster", "walk_smem", "smem"), out))
 
 
 class Rwkv6ScanFn(torch.autograd.Function):
@@ -197,7 +227,11 @@ class Rwkv6ScanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, ds):
         r, k, v, w, u, state = ctx.saved_tensors
-        dr, dk, dv, dw, du, ds0 = launch_bwd(r, k, v, w, u, state, dy.contiguous(), ds, ctx.cs)
+        # the kernels read dy by 16-byte copies: a view at an odd offset is copied
+        dy = dy.contiguous()
+        if dy.data_ptr() % 16:
+            dy = dy.clone()
+        dr, dk, dv, dw, du, ds0 = launch_bwd(r, k, v, w, u, state, dy, ds, ctx.cs)
         return dr, dk, dv, dw, du.to(u.dtype), ds0.to(state.dtype), None
 
 
@@ -213,9 +247,9 @@ def launch_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
         raise ValueError(f"the rwkv6 scan backward kernel runs on a CUDA tensor, got {r.device}")
     check_args(r, k, v, w, u, state, cs)
     b, h, t, d = r.shape
-    cols, stage_t, ctas, stages = bwd_geometry(b, h, t, d)
-    if dy.shape != r.shape or dy.dtype != r.dtype or not dy.is_contiguous():
-        raise ValueError(f"dy must be contiguous, {tuple(r.shape)} {r.dtype}, "
+    geo = bwd_geometry(b, h, t, d, r.dtype)
+    if dy.shape != r.shape or dy.dtype != r.dtype or not dy.is_contiguous() or dy.data_ptr() % 16:
+        raise ValueError(f"dy must be contiguous and 16-byte aligned, {tuple(r.shape)} {r.dtype}, "
                          f"got {tuple(dy.shape)} {dy.dtype}")
     if dstate is not None:
         if tuple(dstate.shape) != (b, h, d, d):
@@ -227,15 +261,14 @@ def launch_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du, ds0 = torch.empty_like(u32), torch.empty_like(s32)
     f32 = dict(dtype=torch.float32, device=r.device)
-    ck = torch.empty((b * h, stages, d, d), **f32)
-    ws = torch.empty((3, d // cols, b * h * t * d), **f32)
+    ck = torch.empty((b * h, geo["checkpoints"], d, d), **f32)
     du_part = torch.empty((b * h, d), **f32)
     rc = _build.library().repro_rwkv6_scan_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u32.data_ptr(), s32.data_ptr(),
         dy.data_ptr(), dstate.data_ptr() if dstate is not None else None, dr.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
-        ck.data_ptr(), ws.data_ptr(), du_part.data_ptr(), b, h, t, d, DTYPES[r.dtype], cols,
-        stage_t, ctas, _build.stream_handle(r.device))
+        ck.data_ptr(), du_part.data_ptr(), b, h, t, d, DTYPES[r.dtype], geo["stage_t"],
+        _build.stream_handle(r.device))
     _build.check(rc, "rwkv6 scan backward kernel")
     bwd_launches += 1
     return dr, dk, dv, dw, du, ds0

@@ -186,16 +186,29 @@ def test_backward_launches_refuse_cpu_tensors():
         mm.grouped_grad_launch(torch.zeros((2, 3, 4)), torch.zeros((2, 4, 5)))
 
 
-@pytest.mark.parametrize("b,h,t,d,want", [(4, 32, 512, 64, (16, 16, 512, 32)),
-                                          (1, 3, 37, 16, (16, 16, 3, 3)),
-                                          (3, 2, 1, 32, (16, 16, 12, 1))])
+def _rw_layout(cluster, ctas, checkpoints):
+    return {"cols": 16, "stage_t": 16, "sub_t": 8, "cluster": cluster, "ctas": ctas,
+            "checkpoints": checkpoints}
+
+
+@pytest.mark.parametrize("b,h,t,d,want", [
+    (4, 32, 512, 64, _rw_layout(4, 512, 32)),
+    (1, 3, 37, 16, _rw_layout(1, 3, 3)),
+    (3, 2, 1, 32, _rw_layout(2, 12, 1)),
+    # f32 inputs take the same layout
+    (4, 32, 512, 64, _rw_layout(4, 512, 32) | {"dtype": torch.float32})])
 def test_rwkv6_bwd_geometry(b, h, t, d, want):
-    """A CTA per (b, h, 16 value columns); a checkpoint every 16 tokens."""
-    assert rw.bwd_geometry(b, h, t, d) == want
+    """A CTA per (b, h, 16 value columns), a head's CTAs one cluster; a
+    checkpoint every 16 tokens, 8-token reverse sub-stages (bf16 unless
+    stated).  The shared bytes are the library's to report (on the card)."""
+    want = dict(want)
+    dtype = want.pop("dtype", torch.bfloat16)
+    assert rw.bwd_geometry(b, h, t, d, dtype) == want
 
 
 @pytest.mark.parametrize("args,match", [((1, 1, 5, 48), "head dims"), ((0, 1, 5, 16), ">= 1"),
-                                        ((1, 1, 0, 16), ">= 1")])
+                                        ((1, 1, 0, 16), ">= 1"),
+                                        ((1, 1, 5, 16, torch.float16), "bf16 or f32")])
 def test_rwkv6_bwd_geometry_refuses(args, match):
     with pytest.raises(ValueError, match=match):
         rw.bwd_geometry(*args)

@@ -816,12 +816,19 @@ def test_fleet_on_h100_serves_on_measured_seconds(card, tmp_path, engine):
 # training: the kernels' backward
 # ---------------------------------------------------------------------------
 
-# (b, hq, hkv, s, d, causal, window, softcap): gemma2's local and global
-# layers (window 128 bites at S = 256), minitron's GQA, a non-causal head,
-# a prime length
-BWD_SHAPES = [(1, 8, 4, 256, 256, True, 128, 50.0), (1, 8, 4, 256, 256, True, 0, 50.0),
-              (1, 6, 2, 200, 128, True, 0, 0.0), (2, 4, 4, 150, 64, False, 0, 0.0),
-              (1, 4, 2, 181, 16, True, 0, 0.0), (1, 4, 2, 96, 100, False, 24, 0.0)]
+# (b, hq, hkv, sq, skv, d, causal, window, softcap): gemma2's local and
+# global layers (window 128 bites at S = 256), minitron's GQA, a non-causal
+# head, a prime length; then the families' cases: whisper's 1500 frames (not
+# a multiple of the 64-key tile) and its cross-attention (448 x 1500),
+# mixtral's group of 6 under a window, recurrentgemma's group of 10 at
+# D = 256 (split between CTAs), softcap at D = 256 in a group of 6, and a
+# prime 181 under a window
+BWD_SHAPES = [(1, 8, 4, 256, 256, 256, True, 128, 50.0), (1, 8, 4, 256, 256, 256, True, 0, 50.0),
+              (1, 6, 2, 200, 200, 128, True, 0, 0.0), (2, 4, 4, 150, 150, 64, False, 0, 0.0),
+              (1, 4, 2, 181, 181, 16, True, 0, 0.0), (1, 4, 2, 96, 96, 100, False, 24, 0.0),
+              (1, 4, 4, 1500, 1500, 64, False, 0, 0.0), (1, 4, 4, 448, 1500, 64, False, 0, 0.0),
+              (1, 12, 2, 200, 200, 128, True, 64, 0.0), (1, 10, 1, 256, 256, 256, True, 100, 0.0),
+              (2, 6, 1, 130, 130, 256, True, 0, 50.0), (1, 6, 3, 181, 181, 64, True, 50, 0.0)]
 
 
 def _tol(dtype):
@@ -839,19 +846,22 @@ def _close_to_scale(got, want, tol):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window,softcap", BWD_SHAPES)
-def test_attention_backward_matches_plain(card, dtype, b, hq, hkv, s, d, causal, window, softcap):
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,softcap", BWD_SHAPES)
+def test_attention_backward_matches_plain(card, dtype, b, hq, hkv, sq, skv, d, causal, window,
+                                          softcap):
+    """bf16 on the tensor-core body (P and dS rounded to bf16 for the second
+    products), f32 on the CUDA-core body; each launch's body counted."""
     dt = getattr(torch, dtype)
-    g = torch.Generator(device="cuda").manual_seed(s + d)
-    q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda").to(dt)
-               for h in (hq, hkv, hkv))
-    do = torch.randn((b, hq, s, d), generator=g, device="cuda").to(dt)
+    g = torch.Generator(device="cuda").manual_seed(sq + skv + d)
+    q = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(dt)
+    k, v = (torch.randn((b, hkv, skv, d), generator=g, device="cuda").to(dt) for _ in range(2))
+    do = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(dt)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    before = fa.bwd_launches
+    before = (fa.bwd_launches, fa.bwd_body_launches[fa.body_for(dt), dt])
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     o = ops.flash_attention(*leaves, **kw)
     got = torch.autograd.grad(o, leaves, do)
-    assert fa.bwd_launches == before + 1
+    assert (fa.bwd_launches, fa.bwd_body_launches[fa.body_for(dt), dt]) == (before[0] + 1, before[1] + 1)
     want = ref.chunked_attention_bwd(q, k, v, do, **kw)
     for a, w in zip(got, want):
         assert a.dtype == dt
@@ -916,14 +926,26 @@ def test_tied_head_gradient_reaches_the_embedding(card):
         _close_to_scale(a.float(), b_.float(), BF16_TOL)
 
 
-def test_attention_forward_bits_equal_under_grad(card):
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_forward_bits_equal_under_grad(card, dtype):
+    """The forward's output bits are the same with and without the row
+    log-sum-exp it writes for the backward (under autograd and asked for
+    directly), and that log-sum-exp is the plain one's."""
+    dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(3)
-    q, k, v = (torch.randn((1, h, 200, 128), generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = (torch.randn((1, h, 200, 128), generator=g, device="cuda").to(dt)
                for h in (8, 2, 2))
     with torch.no_grad():
         o0 = ops.flash_attention(q, k, v, softcap=50.0)
-    o1 = ops.flash_attention(q.requires_grad_(), k, v, softcap=50.0)
+    o1 = ops.flash_attention(q.clone().requires_grad_(), k, v, softcap=50.0)
     assert o1.requires_grad and torch.equal(o0, o1)
+    for kw in (dict(softcap=50.0), dict(window=37), dict(causal=False)):
+        cs = ops.schedule_for(ops.instance("flash_attention_causal", dt, Q=200, KV=200, H=8, D=128,
+                                           B=1, window=kw.get("window", 0)))
+        plain = fa.launch(q, k, v, cs, **kw)
+        out, lse = fa.launch(q, k, v, cs, with_lse=True, **kw)
+        assert torch.equal(plain, out)
+        _close(lse, ref.attention_lse(q, k, **kw), TOL)
 
 
 def test_attention_under_grad_refuses_q_offset(card):
@@ -1025,7 +1047,9 @@ def test_rglru_backward_matches_plain(card, dtype, b, t, c, tile_c, with_state):
 
 
 def test_backward_kernels_bits_equal_run_to_run(card):
-    """K1g's, K3's and K4's backward give the same bits twice (no atomics)."""
+    """K1g's, K2's (the tensor-core body, a GQA group of 10 split between
+    CTAs, and the CUDA-core body), K3's and K4's backward give the same bits
+    twice (no atomics)."""
     g = torch.Generator(device="cuda").manual_seed(9)
     bf = torch.bfloat16
     x = torch.randn((4, 64, 96), generator=g, device="cuda").to(bf)
@@ -1038,6 +1062,10 @@ def test_backward_kernels_bits_equal_run_to_run(card):
     xr = torch.randn((2, 50, 2560), generator=g, device="cuda").to(bf)
     ar = torch.rand((2, 50, 2560), generator=g, device="cuda").to(bf)
     dyg = torch.randn((2, 50, 2560), generator=g, device="cuda").to(bf)
+    qa = torch.randn((1, 10, 300, 256), generator=g, device="cuda")
+    ka, va = (torch.randn((1, 1, 300, 256), generator=g, device="cuda") for _ in range(2))
+    doa = torch.randn((1, 10, 300, 256), generator=g, device="cuda")
+    assert fa.bwd_geometry(1, 10, 1, 300, 300, 256, bf)["parts"] == 10
 
     def run():
         leaves = [t.clone().requires_grad_() for t in (x, w)]
@@ -1048,9 +1076,99 @@ def test_backward_kernels_bits_equal_run_to_run(card):
         leaves = [t.clone().requires_grad_() for t in (xr, ar)]
         out += torch.autograd.grad(ops.rglru(*leaves, torch.zeros((2, 2560), device="cuda"))[0],
                                    leaves, dyg)
+        for dt in (bf, torch.float32):
+            leaves = [t.to(dt).clone().requires_grad_() for t in (qa, ka, va)]
+            out += torch.autograd.grad(ops.flash_attention(*leaves, window=100, softcap=50.0),
+                                       leaves, doa.to(dt))
         return out
 
     _equal_bits(run(), run())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_rwkv6_backward_rows_do_not_depend_on_b(card, dtype):
+    """K3's backward of a batch row at B = 4 and alone (B = 1), from a state
+    passed in with the final state's gradient: dr, dk, dv, dw and the
+    initial state's gradient bit-equal (every per-row sum in a fixed order
+    that B does not change)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    b, h, t, d = 4, 2, 70, 64
+    r, k, v, dy = (torch.randn((b, h, t, d), generator=g, device="cuda").to(dt) for _ in range(4))
+    w = (0.05 + 0.9 * torch.rand((b, h, t, d), generator=g, device="cuda")).to(dt)
+    u = torch.randn((h, d), generator=g, device="cuda")
+    s0, ds = (torch.randn((b, h, d, d), generator=g, device="cuda") for _ in range(2))
+    four = rw.launch_bwd(r, k, v, w, u, s0, dy, ds,
+                         ops.schedule_for(ops.instance("rwkv6_scan", dt, T=t, C=h * d, D=d, B=b)))
+    one = rw.launch_bwd(*(x[2:3].contiguous() for x in (r, k, v, w)), u, s0[2:3].contiguous(),
+                        dy[2:3].contiguous(), ds[2:3].contiguous(),
+                        ops.schedule_for(ops.instance("rwkv6_scan", dt, T=t, C=h * d, D=d, B=1)))
+    torch.cuda.synchronize()
+    for name, x4, x1 in zip(("dr", "dk", "dv", "dw", "du", "dstate"), four, one):
+        if name != "du":   # du sums over the batch
+            assert torch.equal(x4[2:3], x1), name
+
+
+#: dynamic shared memory one CTA may have on the H100 (232,448 bytes)
+SMEM_LIMIT = 227 * 1024
+# K2's backward at the families' training shapes (B, Hq, Hkv, Sq, Skv, D):
+# gemma2-2b, recurrentgemma-2b, mixtral-8x22b, minitron-4b, whisper-medium's
+# encoder and cross-attention; then a prime length at an odd head dim
+ATTN_BWD_GEOMETRY = [(4, 8, 4, 512, 512, 256), (4, 10, 1, 512, 512, 256), (4, 48, 8, 512, 512, 128),
+                     (1, 24, 8, 512, 512, 128), (4, 16, 16, 1500, 1500, 64),
+                     (4, 16, 16, 448, 1500, 64), (1, 6, 2, 181, 181, 100)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", ATTN_BWD_GEOMETRY)
+def test_attention_bwd_library_geometry_is_the_layout(card, dtype, b, hq, hkv, sq, skv, d):
+    """The CTAs the library launches are those of ``bwd_geometry``, and its
+    shared bytes fit a CTA."""
+    dt = getattr(torch, dtype)
+    geo = fa.bwd_geometry(b, hq, hkv, sq, skv, d, dt)
+    lib = fa.bwd_library_geometry(b, hq, hkv, sq, skv, d, dt)
+    assert (lib["dq_ctas"], lib["dkv_ctas"]) == (geo["dq_ctas"], geo["dkv_ctas"])
+    assert 0 < lib["dq_smem"] <= SMEM_LIMIT and 0 < lib["dkv_smem"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,h,t,d", [(4, 32, 512, 64), (1, 3, 37, 16), (3, 2, 1, 32)])
+def test_rwkv6_bwd_library_geometry_is_the_layout(card, dtype, b, h, t, d):
+    """The CTAs and clusters the library launches are those of
+    ``bwd_geometry``; the reverse kernel leaves room for four CTAs an SM
+    at rwkv6-1.6b's head dim in bf16 and fits one in f32."""
+    dt = getattr(torch, dtype)
+    geo = rw.bwd_geometry(b, h, t, d, dt)
+    lib = rw.bwd_library_geometry(b, h, t, d, dt)
+    assert (lib["ctas"], lib["cluster"]) == (geo["ctas"], geo["cluster"])
+    assert 0 < lib["walk_smem"] <= lib["smem"] <= (SMEM_LIMIT // 4 if dt == torch.bfloat16 else SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_rwkv6_backward_takes_an_unaligned_dy(card, dtype):
+    """y's gradient as a contiguous view that starts off a 16-byte boundary:
+    the autograd path copies it and the kernel gives the bits of an aligned
+    copy; launch_bwd itself refuses it."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    b, h, t, d = 2, 2, 37, 64
+    r, k, v = (torch.randn((b, h, t, d), generator=g, device="cuda").to(dt) for _ in range(3))
+    w = (0.05 + 0.9 * torch.rand((b, h, t, d), generator=g, device="cuda")).to(dt)
+    u = torch.randn((h, d), generator=g, device="cuda")
+    s0 = torch.randn((b, h, d, d), generator=g, device="cuda")
+    dy = torch.randn((b, h, t, d), generator=g, device="cuda").to(dt)
+    odd = torch.empty(dy.numel() + 1, dtype=dt, device="cuda")[1:].view(dy.shape)
+    odd.copy_(dy)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+
+    def grads(gy):
+        leaves = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+        return torch.autograd.grad(ops.rwkv6(*leaves)[0], leaves, gy)
+
+    _equal_bits(grads(odd), grads(dy))
+    cs = ops.schedule_for(ops.instance("rwkv6_scan", dt, T=t, C=h * d, D=d, B=b))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rw.launch_bwd(r, k, v, w, u, s0, odd, None, cs)
 
 
 def test_reduced_mixtral_steps_on_the_card_are_bit_equal(card):
