@@ -483,7 +483,8 @@ BUILD_BODIES = ("matmul_mma_kernel", "attention_mma_kernel", "matmul_rows_kernel
                 "matmul_rows_round_kernel", "attention_bwd_dq_mma_kernel",
                 "attention_bwd_dkv_mma_kernel", "attention_bwd_dq_fma_kernel",
                 "attention_bwd_dkv_fma_kernel", "rwkv6_scan_bwd_walk_kernel",
-                "rwkv6_scan_bwd_kernel", "rglru_scan_bwd_kernel")
+                "rwkv6_scan_bwd_kernel", "rglru_scan_bwd_kernel", "matmul_grad_wgmma_kernel",
+                "matmul_grad_mma_kernel", "matmul_grad_fma_kernel")
 
 
 def phase_build():
@@ -1879,10 +1880,10 @@ def profile_summary(torch, prof, wall_us: float) -> dict:
 #: counted launch issues one of them (a rows-body K split adds a second
 #: pass, ``matmul_rows_reduce_kernel``, K2's backward its dkv kernel (and,
 #: for a split GQA group, ``attention_bwd_parts_kernel``), K3's backward its
-#: walk and du kernels, none counted; K1g's launches, its gradient's among
-#: them, are the matmul family's)
+#: walk and du kernels, none counted; K1g's launches and both gradient
+#: launches, ``matmul_grad_*``, are the matmul family's)
 CAPTURE_KERNELS = {"matmul": ("matmul_mma_kernel", "matmul_rows_kernel",
-                              "matmul_rows_round_kernel", "matmul_fma_kernel"),
+                              "matmul_rows_round_kernel", "matmul_fma_kernel", "matmul_grad_"),
                    "flash_attention": ("attention_mma_kernel", "attention_fma_kernel"),
                    "attention_bwd": ("attention_bwd_dq_",),
                    "rwkv6_scan": ("rwkv6_scan_kernel",), "rglru_scan": ("rglru_scan_kernel",),
@@ -2064,12 +2065,14 @@ def serve_prompts(cfg) -> list:
             for n in rng.integers(100, 401, size=8)]
 
 
-def body_counts(mm) -> dict:
-    """The matmul's launches per (kernel, body, dtype) so far, as text keys."""
+def body_counts(mm, counter=None) -> dict:
+    """The matmul's launches per (kernel, body, dtype) so far (of
+    ``counter``, ``mm.body_launches`` by default), as text keys."""
     from repro_torch.kernels import ops
 
+    counter = mm.body_launches if counter is None else counter
     return {f"{kernel}/{body}/{ops.dtype_name(dtype)}": count
-            for (kernel, body, dtype), count in sorted(mm.body_launches.items(), key=str)}
+            for (kernel, body, dtype), count in sorted(counter.items(), key=str)}
 
 
 def phase_serve(torch, arch: str) -> dict:
@@ -3476,12 +3479,81 @@ def attention_bwd_phase(torch, timer) -> dict:
             "f32_max_abs_err": errs["f32"]}
 
 
+#: a gradient row's fields on the kernels line
+GRAD_LINE_FIELDS = ("ms", "held_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_held_ms", "composed_ms", "composed_held_ms", "library_held_ratio",
+                    "speedup_held", "bound_share")
+
+
+def grad_timing(torch, timer, a, b, what: str, iters: int = 10) -> dict:
+    """One gradient GEMM ``a @ b`` (per expert for 3-D operands) on the
+    views the backward passes: checked against the plain version on the same
+    views (``GRAD_SCALE_ATOL``·max|plain| + ``GRAD_RTOL``·|plain|) and two
+    launches bit-equal; then timed three ways in turns (new, composed,
+    library, library, composed, new), by events (``ms``) and behind a stream
+    hold (``held_ms``): the gradient launch (``csrc/matmul_grad.cu``), the
+    copy-then-forward composition it replaced (``composed_ms``: contiguous
+    copies of the transposed operands and the forward's launch under the
+    same default schedule, the copies included) and one library call on the
+    same views
+    (``torch.matmul``, ``torch.bmm``); the plain version's time
+    (``plain_ms``); with the bound and the ratios."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+
+    grouped = a.dim() == 3
+    e, (m, k), n = (a.shape[0] if grouped else 1), a.shape[-2:], b.shape[-1]
+    if grouped:
+        cs = mm.grouped_grad_schedule("moe_gemm", a.dtype, e, m, n, k)
+        new = lambda: mm.grouped_grad_launch(a, b)
+        composed = lambda: mm.grouped_launch(a.contiguous(), b.contiguous(), cs)
+        library = lambda: torch.bmm(a, b)
+        plain_fn = lambda: ref.grouped_matmul(a, b)
+    else:
+        cs = mm.grad_schedule("matmul", a.dtype, m, n, k)
+        new = lambda: mm.grad_launch(a, b)
+        composed = lambda: mm.launch(a.contiguous(), b.contiguous(), cs)
+        library = lambda: torch.matmul(a, b)
+        plain_fn = lambda: ref.matmul(a, b)
+    plain = plain_fn()
+    geo = mm.grad_geometry(a, b)
+    body = geo["body"]
+    cta = mm.grad_cta(body, m, n, geo["tile_m"], geo["tile_n"], e)
+    before = mm.grad_body_launches[("grouped_matmul" if grouped else "matmul"), body, a.dtype]
+    got = new()
+    if mm.grad_body_launches[("grouped_matmul" if grouped else "matmul"), body, a.dtype] != before + 1:
+        raise AssertionError(f"{what}: the launch was not counted under its body {body}")
+    scale = float(plain.float().abs().max())
+    max_err = assert_close(torch, got, plain, dict(rtol=GRAD_RTOL, atol=GRAD_SCALE_ATOL * scale), what)
+    if not bits_equal(torch, got, new()):
+        raise AssertionError(f"{what}: two launches differ")
+    del got, plain
+    b_ms, b_by = bound_ms(2 * e * (m * k + k * n + m * n), 2 * e * m * k * n)
+    times = collections.defaultdict(list)
+    for key, fn in (("", new), ("composed_", composed), ("library_", library),
+                    ("library_", library), ("composed_", composed), ("", new)):
+        times[f"{key}ms"].append(timer.ms(fn, iters=iters))
+        times[f"{key}held_ms"].append(timer.held_ms(fn, iters=iters))
+    row = {"M": m, "K": k, "N": n, "E": e, "body": body, "cta_tile": f"{cta[0]}x{cta[1]}",
+           "ctas": cta[2] * e, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": max_err, "max_rel_err": max_err / scale if scale else 0.0,
+           **{key: statistics.mean(v) for key, v in times.items()},
+           "plain_ms": timer.ms(plain_fn, iters=3)}
+    row["library_ratio"] = ratio(row["ms"], row["library_ms"])
+    row["library_held_ratio"] = ratio(row["held_ms"], row["library_held_ms"])
+    row["speedup_held"] = ratio(row["composed_held_ms"], row["held_ms"])
+    row["bound_share"] = row["bound_ms"] / row["held_ms"]
+    return row
+
+
 def matmul_bwd_phase(torch, timer) -> dict:
-    """K1's backward (``MatmulFn``: dX and dW as K1 launches, the
+    """K1's backward (``MatmulFn``: dX and dW as gradient launches, the
     epilogue's derivative elementwise) against autograd of the plain
     version for each class gemma2 runs, at its training shapes (the tied
-    head through ``transpose_of``); then dX's and dW's launches timed beside
-    the plain backward and ``torch.matmul`` of the same product."""
+    head through ``transpose_of``); then dX's and dW's (the head's dE)
+    launches checked and timed by :func:`grad_timing` beside the
+    copy-then-forward composition and ``torch.matmul`` of the same views,
+    and the plain backward whole."""
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops
 
@@ -3520,17 +3592,13 @@ def matmul_bwd_phase(torch, timer) -> dict:
             row[f"{part}_rel"] = row[f"{part}_err"] / scale
         err = max(err, row["dx_err"], row["dw_err"])
         # dX = dZ (M, N) @ w^T (N, K); dW = x^T (K, M) @ dZ (M, N) (the tied
-        # head's: dZ^T (N, M) @ x (M, K))
+        # head's: dZ^T (N, M) @ x (M, K)), on the views MatmulFn.backward passes
         dz = dy if "glu" not in class_id else torch.randn((m, n), generator=g, device="cuda").to(
             torch.bfloat16)
-        wt = src if tied else w.T.contiguous()
-        a_w, b_w = (dz.T.contiguous(), x) if tied else (x.T.contiguous(), dz)
+        wt = src if tied else w.T
+        a_w, b_w = (dz.T, x) if tied else (x.T, dz)
         for part, (a, b) in (("dx", (dz, wt)), ("dw", (a_w, b_w))):
-            mm_, kk, nn = a.shape[0], a.shape[1], b.shape[1]
-            b_ms, b_by = bound_ms(2 * (mm_ * kk + kk * nn + mm_ * nn), 2 * mm_ * kk * nn)
-            row[part] = {"M": mm_, "K": kk, "N": nn, "bound_ms": b_ms, "bound_by": b_by,
-                         "ms": timer.ms(lambda: mm.grad_launch(a, b)),
-                         "library_ms": timer.ms(lambda: torch.matmul(a, b))}
+            row[part] = grad_timing(torch, timer, a, b, f"K1 backward {name} {part}")
         row["plain_ms"] = timer.ms(lambda: grads("ref"), iters=3)   # the plain backward, whole
         rows.append(row)
         log("train_matmul_bwd", **row)
@@ -3625,10 +3693,28 @@ def train_counts(mm, fa, rw, rg, ref) -> dict:
             "grouped_grad_launches": mm.grouped_grad_launches,
             "rwkv6_bwd_launches": rw.bwd_launches, "rglru_bwd_launches": rg.bwd_launches,
             "body_launches": body_counts(mm),
+            "grad_body_launches": body_counts(mm, mm.grad_body_launches),
             "attention_class_launches": {f"{c}/{b}": n for (c, b), n in sorted(fa.class_launches.items())},
             "attention_bwd_body_launches": {f"{b}/{str(d).removeprefix('torch.')}": n
                                             for (b, d), n in sorted(fa.bwd_body_launches.items(), key=str)},
             "plain_cuda_calls": dict(ref.cuda_calls)}
+
+
+def grad_bodies_check(what: str, counts: dict, mma: int = 0) -> None:
+    """Raises unless every gradient launch of a run was counted under a
+    body, every bf16 one took ``wgmma`` but ``mma`` of them (the unaligned
+    operands: whisper-medium's LM head, two a step) and none took ``fma``
+    (f32 takes it: mixtral's router)."""
+    gb = counts["grad_body_launches"]
+    total = counts["matmul_grad_launches"] + counts["grouped_grad_launches"]
+    took = collections.Counter()
+    for key, n in gb.items():
+        _, body, dtype = key.split("/")
+        took[body, dtype] += n
+    if (sum(gb.values()) != total or took["fma", "bfloat16"] or took["mma", "bfloat16"] != mma
+            or took["mma", "float32"] or took["wgmma", "float32"]):
+        raise AssertionError(f"{what}: gradient launches by body {gb} (of {total}; want "
+                             f"{mma} bf16 on mma, the other bf16 on wgmma, no bf16 on fma)")
 
 
 def attention_bwd_all_mma(counts: dict) -> bool:
@@ -3760,6 +3846,7 @@ def phase_train(torch, timer) -> dict:
         raise AssertionError(f"train: the card reached a plain version: {counts}")
     if counts["body_launches"].get("matmul/fma/bfloat16"):
         raise AssertionError(f"train: a bf16 K1 launch took the CUDA-core body: {counts}")
+    grad_bodies_check("train", counts)
     step_ms = statistics.median(rec["ms"][1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     main_row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -3995,9 +4082,10 @@ MOE_BWD_SHAPES = (("moe_gemm_silu_glu", 8, 2048, 6144, 32768), ("moe_gemm", 8, 2
 
 def grouped_bwd_rows(torch, timer) -> list:
     """K1g's backward (``GroupedMatmulFn``: the GLU's pre-activation, dX and
-    dW as K1g launches) against autograd of the plain version
+    dW as gradient launches) against autograd of the plain version
     (``ref.grouped_matmul_bwd``) at mixtral's training shapes, bf16; dX's
-    and dW's launches timed beside ``torch.bmm`` of the same operands."""
+    and dW's launches checked and timed by :func:`grad_timing` beside the
+    copy-then-forward composition and ``torch.bmm`` of the same operands."""
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops, ref
 
@@ -4021,19 +4109,47 @@ def grouped_bwd_rows(torch, timer) -> list:
                "max_rel_err": max(v["rel"] for v in errs.values())}
         dz = dy if "glu" not in class_id else torch.randn((e, m, n), generator=g,
                                                           device="cuda").to(torch.bfloat16)
-        wt, xt = w.transpose(1, 2).contiguous(), x.transpose(1, 2).contiguous()
+        wt, xt = w.transpose(1, 2), x.transpose(1, 2)      # the views GroupedMatmulFn passes
         for part, (a, b) in (("dx", (dz, wt)), ("dw", (xt, dz))):
-            mm_, kk, nn = a.shape[1], a.shape[2], b.shape[2]
-            b_ms, b_by = bound_ms(2 * e * (mm_ * kk + kk * nn + mm_ * nn), 2 * e * mm_ * kk * nn)
-            row[part] = {"M": mm_, "K": kk, "N": nn, "bound_ms": b_ms, "bound_by": b_by,
-                         "ms": timer.ms(lambda: mm.grouped_grad_launch(a, b)),
-                         "library_ms": timer.ms(lambda: torch.bmm(a, b))}
+            row[part] = grad_timing(torch, timer, a, b, f"K1g backward {class_id} {part}", iters=5)
         # the plain backward, whole (autograd of the plain version, f32 sums)
         row["plain_ms"] = timer.ms(lambda: ref.grouped_matmul_bwd(x, w, dy, class_id), iters=3)
         rows.append(row)
         log("families_grouped_bwd", **row)
         del x, w, dy, dz, wt, xt
         torch.cuda.empty_cache()
+    return rows
+
+
+#: whisper-medium's LM head at its training batch, (tokens, d_model, vocab):
+#: its rows of 51865 values are not 16-byte aligned, so both of its gradient
+#: launches (dX = dZ·wᵀ, dW = xᵀ·dZ; the head is untied) take ``mma`` with
+#: operand modes
+WHISPER_HEAD = (4 * 448, 1024, 51865)
+#: the bf16 gradient launches a step that take ``mma``, per family
+FAMILY_GRAD_MMA = {"whisper-medium": 2}
+
+
+def whisper_head_bwd_rows(torch, timer) -> list:
+    """whisper-medium's LM head gradients (:data:`WHISPER_HEAD`) on the
+    views ``MatmulFn.backward`` passes, checked and timed by
+    :func:`grad_timing`; fails unless both take ``mma``."""
+    t, d, v = WHISPER_HEAD
+    g = torch.Generator(device="cuda").manual_seed(45)
+    bf = torch.bfloat16
+    x = torch.randn((t, d), generator=g, device="cuda").to(bf)
+    w = (torch.randn((d, v), generator=g, device="cuda") / d ** 0.5).to(bf)
+    dz = (torch.randn((t, v), generator=g, device="cuda") / v ** 0.5).to(bf)
+    rows = []
+    for part, a, b in (("dx", dz, w.T), ("dw", x.T, dz)):
+        row = {"name": f"whisper_head_{part}", **grad_timing(torch, timer, a, b,
+                                                                f"whisper head {part}")}
+        if row["body"] != "mma":
+            raise AssertionError(f"whisper head {part}: took {row['body']}, want mma")
+        rows.append(row)
+        log("families_head_bwd", **row)
+    del x, w, dz
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -4183,7 +4299,8 @@ def phase_train_families(torch, timer) -> dict:
     free_engines(torch)
     kernels = {"rwkv6_bwd": rwkv6_bwd_rows(torch, timer), "rglru_bwd": rglru_bwd_rows(torch, timer),
                "grouped_bwd": grouped_bwd_rows(torch, timer),
-               "attention_bwd": family_attention_bwd_rows(torch, timer)}
+               "attention_bwd": family_attention_bwd_rows(torch, timer),
+               "head_bwd": whisper_head_bwd_rows(torch, timer)}
     runs = []
     for arch, layers, batch, seq in FAMILIES:
         cfg = get_arch(arch)
@@ -4205,6 +4322,7 @@ def phase_train_families(torch, timer) -> dict:
             raise AssertionError(f"{arch}: a K2 backward launch left the bf16 tensor-core body: {counts}")
         if counts["body_launches"].get("matmul/fma/bfloat16"):
             raise AssertionError(f"{arch}: a bf16 K1 launch took the CUDA-core body: {counts}")
+        grad_bodies_check(arch, counts, FAMILY_GRAD_MMA.get(arch, 0) * FAMILY_STEPS)
         step_ms = statistics.median(rec["ms"][1:])
         row = {"arch": arch, "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
                "d_model": cfg.d_model, "params": cfg.param_count(), "batch": batch, "seq": seq,
@@ -4228,7 +4346,41 @@ def phase_train_families(torch, timer) -> dict:
         del model, data
         free_engines(torch)
         runs.append(row)
-    return {"kernels": kernels, "runs": runs}
+    return {"kernels": kernels, "runs": runs, "f32_check": rwkv6_f32_agreement(torch)}
+
+
+def rwkv6_f32_agreement(torch) -> dict:
+    """C.10: rwkv6-1.6b at 2 layers in f32, the kernel path (every K1 and
+    K3 launch and their backward on the f32 bodies: the gradient launches'
+    ``fma`` with operand modes) against the plain path on one batch, at the
+    fixed ``TRAIN_LOSS_REL``, ``TRAIN_GRAD_COS`` and ``TRAIN_GRAD_MAXREL``,
+    no control.  Raises if a leaf leaves them: the bf16 runs' control-relative
+    bound would then hide a fault of the port."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.models import build_model
+
+    arch, _, batch, seq = FAMILIES[0]
+    cfg = dataclasses.replace(family_check_cfg(get_arch(arch)), dtype="float32")
+    model = build_model(cfg, "cuda")
+    params = model.init(5)
+    data = family_batch(torch, cfg, batch, seq)
+    reset_counts(mm, fa, rw, rg, ref)
+    out = {"arch": arch, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           **path_agreement(torch, model, params, data, f"{arch}_f32")}
+    out["grad_body_launches"] = body_counts(mm, mm.grad_body_launches)
+    f32_fma = mm.grad_body_launches["matmul", "fma", torch.float32]
+    if not f32_fma or f32_fma != sum(mm.grad_body_launches.values()):
+        raise AssertionError(f"{arch} f32: gradient launches {out['grad_body_launches']}, want all on fma")
+    out["bwd_launches"] = {"rwkv6_scan_bwd": rw.bwd_launches, "matmul_grad": mm.grad_launches}
+    del model, params, data
+    free_engines(torch)
+    log("families_rwkv6_f32", **out)
+    return out
 
 
 #: the dist phase: gemma2-2b at the train phase's batch; 2 layers for the
@@ -4433,6 +4585,82 @@ def first_whole_capture(torch, what: str, run) -> dict | None:
     return None
 
 
+#: call sites of ``aten::copy_`` kept per step by :func:`copy_split`
+COPY_SITES = 10
+
+
+#: the profiler range each copy op of :func:`copy_split` runs in
+COPY_SITE_RANGE = "copy_site: "
+
+
+def copy_split(torch, run) -> dict:
+    """``run()`` (one train step) under a torch.profiler capture, with the
+    copies it makes split by call site: ``aten::copy_``'s device ms (its
+    kernels' time in the capture) and calls per site, the ``COPY_SITES``
+    largest and the rest summed.  A ``TorchDispatchMode`` runs each op
+    dispatched on a CUDA tensor (``.to``, ``.float``: ``aten::_to_copy``;
+    ``.contiguous``: ``aten::clone``; and every op that copies inside, say
+    ``slice_backward``) in a profiler range named for its site: the
+    innermost frame of ``repro_torch`` on the Python stack (file:line,
+    function), the autograd node running where there is one (torch's own
+    nodes copy too), and the op.  The backward runs on the calling thread
+    for this step (autograd's multithreading off).  (The profiler's own
+    stacks held no Python frame on the card, and CUDA events around each
+    copy timed the host's issue too.)"""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Sites(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if not any(isinstance(t, torch.Tensor) and t.is_cuda for t in args):
+                return func(*args, **kwargs)
+            frame = sys._getframe(1)
+            while frame is not None and "repro_torch/" not in frame.f_code.co_filename:
+                frame = frame.f_back
+            site = (f"{frame.f_code.co_filename.split('repro_torch/', 1)[1]}:{frame.f_lineno} "
+                    f"{frame.f_code.co_name}" if frame else "outside repro_torch")
+            node = torch._C._current_autograd_node()
+            if node is not None:
+                site = f"{site} [{node.name()}]"
+            with record_function(f"{COPY_SITE_RANGE}{site} <- {func.__name__.split('.')[0]}"):
+                return func(*args, **kwargs)
+
+    with (torch.autograd.set_multithreading_enabled(False),
+          profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof):
+        with Sites():
+            run()
+        torch.cuda.synchronize()
+    def copy_below(e):   # the dispatcher records a copy op again inside the mode's call
+        todo = list(e.cpu_children)
+        while todo:
+            c = todo.pop()
+            if c.name == "aten::copy_":
+                return True
+            todo += c.cpu_children
+        return False
+
+    ms, calls = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if (e.name != "aten::copy_" or e.device_type != torch.autograd.DeviceType.CPU
+                or copy_below(e)):
+            continue
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "cuda_time_total", 0.0)
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith(COPY_SITE_RANGE):
+            p = p.cpu_parent
+        site = p.name.removeprefix(COPY_SITE_RANGE) if p is not None else "no dispatched op above it"
+        ms[site] += dev / 1e3
+        calls[site] += 1
+    top = ms.most_common(COPY_SITES)
+    return {"copy_ms": sum(ms.values()), "copy_calls": sum(calls.values()),
+            "sites": [{"site": site, "ms": t, "calls": calls[site]} for site, t in top],
+            "other_ms": sum(ms.values()) - sum(t for _, t in top),
+            "other_sites": max(0, len(ms) - COPY_SITES)}
+
+
 def profile_steps(torch) -> dict:
     """In a fresh process (``chip_smoke.py --profile-steps``): one profiled
     step of gemma2-2b at full depth and the train phase's batch, unsharded
@@ -4441,7 +4669,8 @@ def profile_steps(torch) -> dict:
     ``FAMILIES`` at its depth and batch, each after two unprofiled steps.
     Late in the whole script every capture of a train step held three K1
     kernels fewer than its 653 launches; in a fresh process none
-    did."""
+    did.  After each unsharded step's capture, one more step splits its
+    copies by call site (:func:`copy_split`)."""
     import tempfile
 
     from repro_torch.configs import get_arch
@@ -4464,6 +4693,7 @@ def profile_steps(torch) -> dict:
     for _ in range(2):
         step(params, opt, batch)
     out["train"] = first_whole_capture(torch, "train_step", lambda: step(params, opt, batch))
+    out["copies"] = {TRAIN_ARCH: copy_split(torch, lambda: step(params, opt, batch))}
     del params, opt, step
     free_engines(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as d:
@@ -4493,6 +4723,7 @@ def profile_steps(torch) -> dict:
             step(params, opt, data)
         out["families"][arch] = first_whole_capture(torch, f"{arch}_step",
                                                     lambda: step(params, opt, data))
+        out["copies"][arch] = copy_split(torch, lambda: step(params, opt, data))
         del fmodel, params, opt, step, data
         free_engines(torch)
     return out
@@ -4502,7 +4733,7 @@ def phase_step_profiles(torch) -> dict:
     """:func:`profile_steps` in a fresh process; returns its result."""
     free_engines(torch)
     out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--profile-steps"],
-                         capture_output=True, text=True, timeout=600)
+                         capture_output=True, text=True, timeout=900)
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith('{"step_profiles"')]
     if out.returncode != 0 or not lines:
         raise AssertionError(f"--profile-steps failed ({out.returncode}):\n{out.stdout[-3000:]}\n"
@@ -4523,8 +4754,8 @@ def main(argv: list[str]) -> int:
         return 1
     if argv[:1] == ["--scans-ab"] and len(argv) == 2:
         return scans_ab(Path(argv[1]).resolve())
-    if argv == ["--profile-steps"]:                        # a fresh process for the captures
-        import_port()
+    if argv[:1] == ["--profile-steps"] and len(argv) <= 2:   # a fresh process for the captures
+        import_port(Path(argv[1]).resolve() if len(argv) == 2 else ROOT / "src")
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps({"step_profiles": profile_steps(torch)}), flush=True)
         return 0
@@ -4587,6 +4818,7 @@ def main(argv: list[str]) -> int:
     for run in fam["runs"]:
         run["profile"] = profiles["families"][run["arch"]]
     log("families_profiles", **{r["arch"]: r["profile"] for r in fam["runs"]})
+    log("copy_sites", **profiles["copies"])
     # main-path runs, counts read apart
     paths = {"slot": srv, "paged": paged, "spec": [spec], "fleet": fleet, "train": [train["main"]],
              "families": fam["runs"], "dist": [dist_r["main"]]}
@@ -4710,16 +4942,17 @@ def main(argv: list[str]) -> int:
                            "families": dict(sum((collections.Counter(r["attention_bwd_body_launches"])
                                                  for r in fam["runs"]), collections.Counter()))},
          **timed(rep_bwd, ("B", "Hq", "Hkv", "S", "D", "window", "softcap"))},
-        {"name": "matmul_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
-         "replaces": "src/repro/kernels/matmul.py:205",
+        {"name": "matmul_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul_grad.cu",
+         "replaces": "src/repro/kernels/matmul.py:205", "body": rep_up["dx"]["body"],
          "launches": train["main"]["matmul_grad_launches"],
          "max_abs_err": train["matmul_bwd"]["max_abs_err"],
          "max_rel_err": train["matmul_bwd"]["max_rel_err"],
          "shape": {"class": rep_up["class"], "part": "dx",
                    **{k: rep_up["dx"][k] for k in ("M", "K", "N")}},
-         "ms": rep_up["dx"]["ms"], "plain_ms": rep_up["plain_ms"],
-         "bound_ms": rep_up["dx"]["bound_ms"], "bound_by": rep_up["dx"]["bound_by"],
-         "library_ms": rep_up["dx"]["library_ms"], "dw": rep_up["dw"]},
+         **{k: rep_up["dx"][k] for k in GRAD_LINE_FIELDS},
+         "dw": rep_up["dw"],
+         "parts": {f"{r['name']}_{part}": {k: r[part][k] for k in ("body", *GRAD_LINE_FIELDS)}
+                   for r in train["matmul_bwd"]["shapes"] for part in ("dx", "dw")}},
     ]
     # the families' backward kernels: K1g's dX at mixtral's up-GEMM (dW and
     # the down-GEMM beside it), K3's and K4's at their training shapes
@@ -4741,19 +4974,29 @@ def main(argv: list[str]) -> int:
                            "plain_ms", "bound_ms", "bound_by", "bound_share", "library_ms",
                            "library_held_ms", "sdpa_ratio", "sdpa_held_ratio", "max_abs_err")}
         for r in k["attention_bwd"]]
+    rep_head = next(r for r in k["head_bwd"] if r["name"] == "whisper_head_dw")
     kernels += [
         {"name": "grouped_matmul_bwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/matmul.cu",
-         "replaces": "src/repro/kernels/matmul.py:236",
+         "source": "src/repro_torch/kernels/csrc/matmul_grad.cu",
+         "replaces": "src/repro/kernels/matmul.py:236", "body": rep_gbwd["dx"]["body"],
          "launches": fam_count("grouped_grad_launches"),
          "max_abs_err": max(r["max_abs_err"] for r in k["grouped_bwd"]),
          "max_rel_err": max(r["max_rel_err"] for r in k["grouped_bwd"]),
          "shape": {"class": rep_gbwd["class"], "E": rep_gbwd["E"], "part": "dx",
                    **{f: rep_gbwd["dx"][f] for f in ("M", "K", "N")}},
-         "ms": rep_gbwd["dx"]["ms"], "plain_ms": rep_gbwd["plain_ms"],
-         "bound_ms": rep_gbwd["dx"]["bound_ms"], "bound_by": rep_gbwd["dx"]["bound_by"],
-         "library_ms": rep_gbwd["dx"]["library_ms"], "dw": rep_gbwd["dw"],
+         **{f: rep_gbwd["dx"][f] for f in GRAD_LINE_FIELDS},
+         "dw": rep_gbwd["dw"],
          "down": next(r for r in k["grouped_bwd"] if r["class"] == "moe_gemm")},
+        # the gradient launch's mma body with operand modes: whisper's LM head
+        {"name": "matmul_bwd_unaligned", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul_grad.cu",
+         "replaces": "src/repro/kernels/matmul.py:205", "body": rep_head["body"],
+         "launches": sum(r["grad_body_launches"].get("matmul/mma/bfloat16", 0) for r in fam["runs"]),
+         "max_abs_err": max(r["max_abs_err"] for r in k["head_bwd"]),
+         "max_rel_err": max(r["max_rel_err"] for r in k["head_bwd"]),
+         "shape": {"arch": "whisper-medium", "part": "dw", **{f: rep_head[f] for f in ("M", "K", "N")}},
+         **{f: rep_head[f] for f in GRAD_LINE_FIELDS},
+         "dx": next(r for r in k["head_bwd"] if r["name"] == "whisper_head_dx")},
         {"name": "rwkv6_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:86",
@@ -4771,7 +5014,8 @@ def main(argv: list[str]) -> int:
          **timed(rep_rgb, ("B", "T", "C", "ctas"))},
     ]
     for row in kernels:   # the families' backward kernels run on their path alone
-        if row["name"] in ("grouped_matmul_bwd", "rwkv6_scan_bwd", "rglru_scan_bwd"):
+        if row["name"] in ("grouped_matmul_bwd", "rwkv6_scan_bwd", "rglru_scan_bwd",
+                           "matmul_bwd_unaligned"):
             row["launches_by_path"] = {"families": row["launches"]}
     # each kernel's launches per path (slot engine, paged, spec, fleet, train, families, dist)
     for row in kernels:

@@ -35,7 +35,9 @@ COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v", *ARCH
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-#: C entry points and their argument types (pointers, ints, floats, stream)
+_L = ctypes.c_longlong
+#: C entry points and their argument types (pointers, ints, floats, 64-bit
+#: ints, stream)
 SIGNATURES = {
     "repro_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
                      _I, _I, _P, _P],
@@ -51,6 +53,8 @@ SIGNATURES = {
     "repro_rwkv6_scan_bwd": [*[_P] * 16, *[_I] * 6, _P],
     "repro_rwkv6_scan_bwd_geometry": [*[_I] * 5, _P],
     "repro_rglru_scan_bwd": [*[_P] * 9, *[_I] * 8, _P],
+    "repro_matmul_grad": [_P, _I, _L, _P, _I, _L, _P, _P, *[_I] * 11, _P],
+    "repro_grouped_matmul_grad": [_P, _I, _L, _L, _P, _I, _L, _L, _P, *[_I] * 12, _P],
 }
 
 _lock = threading.Lock()

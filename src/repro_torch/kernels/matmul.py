@@ -83,25 +83,33 @@ kernel or raises.  ``launches`` and ``grouped_launches`` count launches per
 kernel, ``body_launches`` per kernel, body and dtype.
 
 Under autograd a CUDA tensor goes through :class:`MatmulFn`: the forward is
-the same launch (the same bits as without a gradient); the backward is K1
-again.  For ``y = epilogue(x·w)``: the epilogue's derivative is elementwise
-torch in f32 (autograd of :func:`~repro_torch.kernels.ref.apply_epilogue`,
-on the pre-activation recomputed by one more launch for the gelu and GLU
+the same launch (the same bits as without a gradient).  For ``y =
+epilogue(x·w)``: the epilogue's derivative is elementwise torch in f32
+(autograd of :func:`~repro_torch.kernels.ref.apply_epilogue`, on the
+pre-activation recomputed by one more gradient launch for the gelu and GLU
 classes; the softcap's ``1 - tanh²`` from the output), then ``dX = dZ·wᵀ``
-and ``dW = xᵀ·dZ`` are two launches of class ``matmul`` on contiguous
-transposed operands (a tied head's ``wᵀ`` is the embedding itself), each
-under the default schedule of its own instance, summed in f32 (never in
-rounding mode), not through any provider.  ``grad_launches`` counts them.
+and ``dW = xᵀ·dZ`` (a tied head's ``dE = dZᵀ·x``) are two gradient launches
+(:func:`grad_launch`, ``csrc/matmul_grad.cu``) that read ``wᵀ``, ``xᵀ`` and
+``dZᵀ`` where they lie, as views, each under the default schedule of its
+own instance, summed in f32 (never in rounding mode), not through any
+provider.  :func:`grad_geometry` reads each operand's layout from its
+strides and picks the body: ``wgmma`` (bf16 operands whose base, row stride
+and expert stride are multiples of 16 bytes: TMA and Hopper's warpgroup
+products), ``mma`` (other bf16: the forward's tensor-core body with operand
+modes) or ``fma`` (f32), a rule by dtype and alignment.  ``grad_launches``
+counts the launches, ``grad_body_launches`` per body.
 
 The grouped kernel (K1g) goes through :class:`GroupedMatmulFn` alike: the
 forward is :func:`grouped_launch`, and for ``y[e] = epilogue(x[e]·w[e])``
 the GLU's derivative is elementwise torch in f32 on the pre-activation
-recomputed by one grouped launch of class ``moe_gemm``; then ``dX[e] =
-dZ[e]·w[e]ᵀ`` and ``dW[e] = x[e]ᵀ·dZ[e]`` are two grouped launches of class
-``moe_gemm`` on contiguous transposed operands, each under the default
-schedule of its own instance (:func:`grouped_grad_schedule`).
+recomputed by one grouped gradient launch; then ``dX[e] = dZ[e]·w[e]ᵀ`` and
+``dW[e] = x[e]ᵀ·dZ[e]`` are two grouped gradient launches on
+``.transpose(1, 2)`` views, the expert on the grid's y axis, each under the
+default schedule of its own instance (:func:`grouped_grad_schedule`).
 ``grouped_grad_launches`` counts them.  The plain version of this backward
-is :func:`repro_torch.kernels.ref.grouped_matmul_bwd`.
+is :func:`repro_torch.kernels.ref.grouped_matmul_bwd`; of one gradient
+launch, :func:`~repro_torch.kernels.ref.matmul` (or ``grouped_matmul``) on
+the same views, which a CPU tensor takes.
 """
 from __future__ import annotations
 
@@ -149,11 +157,15 @@ grouped_launches = 0
 row_tile_launches = 0
 body_launches: collections.Counter = collections.Counter()
 round_launches: collections.Counter = collections.Counter()
-#: K1 launches of :class:`MatmulFn`'s backward (also counted in ``launches``)
+#: gradient launches of :class:`MatmulFn`'s backward (also counted in
+#: ``launches`` and, by body, in ``body_launches``)
 grad_launches = 0
-#: K1g launches of :class:`GroupedMatmulFn`'s backward (also counted in
+#: gradient launches of :class:`GroupedMatmulFn`'s backward (also counted in
 #: ``grouped_launches``)
 grouped_grad_launches = 0
+#: both, by (kernel, body, dtype): body ``"wgmma"``, ``"mma"`` (operand
+#: modes) or ``"fma"`` (:func:`grad_geometry`)
+grad_body_launches: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
@@ -162,6 +174,7 @@ def reset_launches() -> None:
     launches = grouped_launches = row_tile_launches = grad_launches = grouped_grad_launches = 0
     body_launches.clear()
     round_launches.clear()
+    grad_body_launches.clear()
 
 
 def body_count(body: str | None = None, *, kernel: str | None = None,
@@ -224,8 +237,8 @@ def schedule_key(cs: ConcreteSchedule) -> tuple[int, int, bool, int]:
     return tile_m, tile_n, order[0] == "M", round_k_for(cs)
 
 
-def tiled_geometry(m: int, n: int, tile_m: int, tile_n: int,
-                   groups: int = 1) -> tuple[int, int, int]:
+def tiled_geometry(m: int, n: int, tile_m: int, tile_n: int, groups: int = 1,
+                   tiles: tuple[tuple[int, int], ...] = MMA_CTA_TILES) -> tuple[int, int, int]:
     """(cta_m, cta_n, ctas) of the mma body for an (m, n) output under
     (tile_m, tile_n) logical tiles; grouped, per expert, with ``groups``
     experts side by side on the card.
@@ -234,13 +247,15 @@ def tiled_geometry(m: int, n: int, tile_m: int, tile_n: int,
     axis; a ragged edge tile may leave some of them empty (they return at
     once).  The CTA tile is the largest of :data:`MMA_CTA_TILES` that fits
     the logical tile (rounded up to 64) and launches at least :data:`SMS`
-    CTAs over all experts; where none does, the one that launches the most."""
+    CTAs over all experts; where none does, the one that launches the most.
+    ``tiles``: the compiled CTA tiles to choose from, largest first."""
     tm, tn = min(tile_m, m), min(tile_n, n)
 
     def ctas(cta: tuple[int, int]) -> int:
         return cta_count(m, n, tile_m, tile_n, *cta)
 
-    fits = [c for c in MMA_CTA_TILES if c[0] <= 64 * _cdiv(tm, 64) and c[1] <= 64 * _cdiv(tn, 64)]
+    fits = [c for c in tiles if c[0] <= 64 * _cdiv(tm, 64) and c[1] <= 64 * _cdiv(tn, 64)]
+    fits = fits or [tiles[-1]]   # no compiled tile fits: the smallest, masked
     cta = next((c for c in fits if groups * ctas(c) >= SMS), max(fits, key=ctas))
     return (*cta, ctas(cta))
 
@@ -400,29 +415,184 @@ def grouped_grad_schedule(class_id: str, dtype: torch.dtype, e: int, m: int, n: 
     return _grad_cs(class_id, dtype, M=m * e, N=n, K=k, E=e)
 
 
+#: the gradient launch's bodies (:func:`grad_geometry`) and their codes in
+#: csrc/matmul_grad.cu
+GRAD_BODIES = {"wgmma": 0, "mma": 1, "fma": 2}
+#: the CTA tiles of each gradient body (csrc/matmul_grad.cu), largest first
+GRAD_CTA_TILES = {"wgmma": ((128, 256), (128, 128)), "mma": ((128, 128), (64, 128)),
+                  "fma": ((64, 64),)}
+
+
+def operand_layout(t: torch.Tensor) -> tuple[int, int, int]:
+    """(transposed, ld, batch) of a gradient operand, a 2-D (R, C) or 3-D
+    (E, R, C) view: ``transposed`` 0 where C is contiguous (``ld``: R's
+    stride), 1 where R is (``ld``: C's stride); ``batch``: E's stride, 0 for
+    a 2-D view.  A stride that is never read (an extent of 1) is taken as
+    the packed one.  Raises where neither of R and C is contiguous."""
+    if t.dim() not in (2, 3):
+        raise ValueError(f"a gradient operand is 2-D or 3-D, got {tuple(t.shape)}")
+    r, c = t.shape[-2:]
+    sr, sc = t.stride()[-2:]
+    if sc == 1 or c == 1:
+        mode, ld, extent = 0, sr if r > 1 else c, c
+    elif sr == 1 or r == 1:
+        mode, ld, extent = 1, sc if c > 1 else r, r
+    else:
+        raise ValueError(f"a gradient operand needs one contiguous dimension, got strides {t.stride()}")
+    if ld < extent:
+        raise ValueError(f"a gradient operand's rows overlap: stride {ld} under extent {extent}")
+    batch = t.stride(0) if t.dim() == 3 and t.shape[0] > 1 else 0
+    return mode, ld, batch
+
+
+def _aligned16(t: torch.Tensor, layout: tuple[int, int, int]) -> bool:
+    """TMA can read the operand: its base, row stride and expert stride are
+    multiples of 16 bytes (csrc/matmul_grad.cu aligned_operand)."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and layout[1] * es % 16 == 0 and layout[2] * es % 16 == 0
+
+
+def grad_cs(a: torch.Tensor, b: torch.Tensor) -> ConcreteSchedule:
+    """The default schedule of a gradient launch's own instance (class
+    ``matmul``; ``moe_gemm`` per expert for 3-D operands)."""
+    if a.dim() == 3:
+        return grouped_grad_schedule("moe_gemm", a.dtype, a.shape[0], a.shape[1], b.shape[2],
+                                     a.shape[2])
+    return grad_schedule("matmul", a.dtype, a.shape[0], b.shape[1], a.shape[1])
+
+
+def grad_geometry(a: torch.Tensor, b: torch.Tensor, cs: ConcreteSchedule | None = None) -> dict:
+    """The gradient launch of ``a (M,K) @ b (K,N)`` (per expert for 3-D
+    views) under ``cs`` (default: :func:`grad_cs`): each operand's layout
+    (:func:`operand_layout`), the logical tiles and the body, a rule by
+    dtype and alignment: ``fma`` for f32; for bf16, ``wgmma`` where both
+    operands are 16-byte aligned (:func:`_aligned16`) and, along an
+    operand's contiguous M or N, the logical tile is a multiple of 8 (TMA's
+    boxes start on 16 bytes): every training shape of gemma2, rwkv6,
+    recurrentgemma and mixtral; else ``mma`` with operand modes
+    (whisper-medium's LM head: rows of 51865 values).  Any device: the CPU
+    tests reach it."""
+    if a.dtype not in DTYPES or b.dtype != a.dtype:
+        raise ValueError(f"gradient launch takes bf16 or f32 operands of one dtype, "
+                         f"got {a.dtype}, {b.dtype}")
+    if a.dim() != b.dim() or a.shape[-1] != b.shape[-2] or (a.dim() == 3 and a.shape[0] != b.shape[0]):
+        raise ValueError(f"gradient launch takes a (M,K), b (K,N) (per expert), "
+                         f"got {tuple(a.shape)}, {tuple(b.shape)}")
+    la, lb = operand_layout(a), operand_layout(b)
+    tile_m, tile_n, m_outer, _ = schedule_key(cs if cs is not None else grad_cs(a, b))
+    if a.dtype == torch.float32:
+        body = "fma"
+    else:
+        tma = (_aligned16(a, la) and _aligned16(b, lb) and (la[0] == 0 or tile_m % 8 == 0)
+               and (lb[0] == 1 or tile_n % 8 == 0))
+        body = "wgmma" if tma else "mma"
+    return {"body": body, "a": la, "b": lb, "tile_m": tile_m, "tile_n": tile_n, "m_outer": m_outer}
+
+
+def grad_cta(body: str, m: int, n: int, tile_m: int, tile_n: int,
+             groups: int = 1) -> tuple[int, int, int]:
+    """(cta_m, cta_n, ctas) of a gradient launch, CTAs per expert: the
+    body's CTA tile (:data:`GRAD_CTA_TILES`) covering each logical tile.
+    ``wgmma`` takes 128x256 where a logical tile's columns are whole 256s
+    (none of its CTAs half idle) and the launch still makes two waves of
+    the card (a 2048x2304 output under 384-column tiles keeps 128x128: 288
+    CTAs, where 128x256 would leave a second wave of 12); ``mma`` the larger
+    tile where it still fills the card, as :func:`tiled_geometry`."""
+    if body == "wgmma":
+        wide = GRAD_CTA_TILES[body][0]
+        wide_ctas = cta_count(m, n, tile_m, tile_n, *wide)
+        if min(tile_n, n) % wide[1] == 0 and groups * wide_ctas >= 2 * SMS:
+            return (*wide, wide_ctas)
+        narrow = GRAD_CTA_TILES[body][1]
+        return (*narrow, cta_count(m, n, tile_m, tile_n, *narrow))
+    return tiled_geometry(m, n, tile_m, tile_n, groups, GRAD_CTA_TILES[body])
+
+
+def _grad_run(a: torch.Tensor, b: torch.Tensor, cs: ConcreteSchedule, kernel: str,
+              bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch csrc/matmul_grad.cu on views ``a``, ``b`` under ``cs`` (K1:
+    2-D, ``kernel`` "matmul"; K1g: 3-D, "grouped_matmul"); counts it."""
+    global launches, grouped_launches
+    if not (a.is_cuda and b.device == a.device):
+        raise ValueError(f"the gradient kernel runs on CUDA tensors, got {a.device}, {b.device}")
+    geo = grad_geometry(a, b, cs)
+    body, tile_m, tile_n, m_outer = geo["body"], geo["tile_m"], geo["tile_n"], geo["m_outer"]
+    (a_t, a_ld, a_batch), (b_t, b_ld, b_batch) = geo["a"], geo["b"]
+    *lead, m, k = a.shape
+    n = b.shape[-1]
+    out = torch.empty((*lead, m, n), dtype=a.dtype, device=a.device)
+    groups = lead[0] if lead else 1
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_() if bias is None else out.copy_(bias.to(out.dtype).expand_as(out))
+    cta_m, cta_n, ctas = grad_cta(body, m, n, tile_m, tile_n, groups)
+    lib = _build.library()
+    if kernel == "matmul":
+        bias32 = bias.to(device=a.device, dtype=torch.float32).contiguous() if bias is not None else None
+        rc = lib.repro_matmul_grad(
+            a.data_ptr(), a_t, a_ld, b.data_ptr(), b_t, b_ld,
+            bias32.data_ptr() if bias32 is not None else None, out.data_ptr(), m, n, k,
+            DTYPES[a.dtype], GRAD_BODIES[body], tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas,
+            _build.stream_handle(a.device))
+        launches += 1
+    else:
+        rc = lib.repro_grouped_matmul_grad(
+            a.data_ptr(), a_t, a_ld, a_batch, b.data_ptr(), b_t, b_ld, b_batch, out.data_ptr(),
+            groups, m, n, k, DTYPES[a.dtype], GRAD_BODIES[body], tile_m, tile_n, int(m_outer),
+            cta_m, cta_n, ctas, _build.stream_handle(a.device))
+        grouped_launches += 1
+    _build.check(rc, f"{kernel} gradient kernel ({body}, {groups}x({m},{k})x({k},{n}), "
+                     f"a {geo['a']}, b {geo['b']}, tiles {tile_m}x{tile_n}, {ctas} CTAs)")
+    body_launches[kernel, body, a.dtype] += 1
+    grad_body_launches[kernel, body, a.dtype] += 1
+    return out
+
+
 def grad_launch(a: torch.Tensor, b: torch.Tensor, class_id: str = "matmul",
                 bias: torch.Tensor | None = None) -> torch.Tensor:
-    """a (M,K) @ b (K,N) by K1 for a gradient, under its default schedule."""
+    """a (M,K) @ b (K,N) (+ bias) for a gradient, under the default schedule
+    of its own instance; ``a`` and ``b`` may be transposed views, read in
+    place.  A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
     global grad_launches
-    cs = grad_schedule(class_id, a.dtype, a.shape[0], b.shape[1], a.shape[1])
-    out = launch(a, b, cs, class_id=class_id, bias=bias)
+    if class_id not in ("matmul", "matmul_bias"):
+        raise ValueError(f"a gradient launch is of class matmul or matmul_bias, got {class_id!r}")
+    if not a.is_cuda:
+        return ref.matmul(a, b, class_id, bias=bias)
+    out = _grad_run(a, b, grad_cs(a, b), "matmul", bias)
     grad_launches += 1
     return out
 
 
+#: the classes whose epilogue has a derivative: dL/dZ is not dL/dY
+ACTIVATION_CLASSES = ("matmul_lmhead_softcap", "matmul_bias_gelu", "matmul_silu_glu",
+                      "matmul_gelu_glu")
+
+
 def epilogue_grad(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
                   class_id: str, bias: torch.Tensor | None, softcap: float) -> torch.Tensor:
-    """dL/dZ (f32) of ``y = epilogue(Z)`` (``Z = x·w``, plus ``bias``) at ``dy``."""
+    """dL/dZ (f32) of ``y = epilogue(Z)`` (``Z = x·w``, plus ``bias``) at ``dy``
+    for the :data:`ACTIVATION_CLASSES`."""
     dyf = dy.float()
     if class_id == "matmul_lmhead_softcap":
         t = y.float() / softcap                     # tanh(z / c)
         return dyf * (1.0 - t * t)
-    if class_id in ("matmul_bias_gelu", "matmul_silu_glu", "matmul_gelu_glu"):
-        z = grad_launch(x, w, "matmul" if bias is None else "matmul_bias", bias=bias)
-        with torch.enable_grad():
-            zf = z.float().requires_grad_()
-            return torch.autograd.grad(ref.apply_epilogue(zf, class_id), zf, dyf)[0]
-    return dyf                                      # no activation: bias, residual, head
+    z = grad_launch(x, w, "matmul" if bias is None else "matmul_bias", bias=bias)
+    with torch.enable_grad():
+        zf = z.float().requires_grad_()
+        return torch.autograd.grad(ref.apply_epilogue(zf, class_id), zf, dyf)[0]
+
+
+def in_place(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where a gradient launch can read it as it lies
+    (:func:`operand_layout`), else a contiguous copy (an expanded gradient,
+    say, with stride 0)."""
+    try:
+        operand_layout(t)
+    except ValueError:
+        return t.contiguous()
+    return t
 
 
 class MatmulFn(torch.autograd.Function):
@@ -445,17 +615,20 @@ class MatmulFn(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, w_src, bias, y = ctx.saved_tensors
         need_x, need_w, need_src, need_bias, need_res = ctx.needs_input_grad[:5]
-        dzf = epilogue_grad(x, w, y, dy, ctx.class_id, bias, ctx.softcap)
-        dz = dzf.to(x.dtype)
+        if ctx.class_id in ACTIVATION_CLASSES:
+            dzf = epilogue_grad(x, w, y, dy, ctx.class_id, bias, ctx.softcap)
+            dz = dzf.to(x.dtype)
+        else:   # dZ is dY: no f32 round trip (bf16 -> f32 -> bf16 gives the same bits)
+            dzf, dz = None, in_place(dy)
         dx = dw = dsrc = db = dres = None
-        if need_x:
-            dx = grad_launch(dz, w_src if w_src is not None else w.T.contiguous())
+        if need_x:   # a tied head's wᵀ is the embedding itself
+            dx = grad_launch(dz, w_src if w_src is not None else w.T)
         if need_w:
-            dw = grad_launch(x.T.contiguous(), dz)
+            dw = grad_launch(x.T, dz)
         if need_src:
-            dsrc = grad_launch(dz.T.contiguous(), x)
+            dsrc = grad_launch(dz.T, x)
         if need_bias:
-            db = dzf.sum(0).to(bias.dtype)
+            db = (dzf if dzf is not None else dy.float()).sum(0).to(bias.dtype)
         if need_res:
             dres = dy.to(ctx.res_dtype)
         return dx, dw, dsrc, db, dres, None, None, None
@@ -525,12 +698,14 @@ def grouped_launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
 
 
 def grouped_grad_launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (E,M,K) @ b (E,K,N) by K1g (class ``moe_gemm``) for a gradient, under
-    its default schedule."""
+    """a (E,M,K) @ b (E,K,N) per expert (class ``moe_gemm``) for a gradient,
+    under the default schedule of its own instance; ``a`` and ``b`` may be
+    ``.transpose(1, 2)`` views, read in place.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
     global grouped_grad_launches
-    e, m, k = a.shape
-    cs = grouped_grad_schedule("moe_gemm", a.dtype, e, m, b.shape[2], k)
-    out = grouped_launch(a, b, cs, class_id="moe_gemm")
+    if not a.is_cuda:
+        return ref.grouped_matmul(a, b, "moe_gemm")
+    out = _grad_run(a, b, grad_cs(a, b), "grouped_matmul")
     grouped_grad_launches += 1
     return out
 
@@ -549,13 +724,13 @@ class GroupedMatmulFn(torch.autograd.Function):
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         need_x, need_w = ctx.needs_input_grad[:2]
-        dz = dy.contiguous()
+        dz = in_place(dy)
         if ctx.class_id in GLU_CLASSES:
             z = grouped_grad_launch(x, w)              # the pre-activation, recomputed
             with torch.enable_grad():
                 zf = z.float().requires_grad_()
                 dz = torch.autograd.grad(ref.apply_epilogue(zf, ctx.class_id), zf,
                                          dy.float())[0].to(x.dtype)
-        dx = grouped_grad_launch(dz, w.transpose(1, 2).contiguous()) if need_x else None
-        dw = grouped_grad_launch(x.transpose(1, 2).contiguous(), dz) if need_w else None
+        dx = grouped_grad_launch(dz, w.transpose(1, 2)) if need_x else None
+        dw = grouped_grad_launch(x.transpose(1, 2), dz) if need_w else None
         return dx, dw, None, None

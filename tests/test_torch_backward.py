@@ -182,8 +182,10 @@ def test_backward_launches_refuse_cpu_tensors():
     x = torch.zeros((1, 5, 8))
     with pytest.raises(ValueError, match="CUDA tensor"):
         rg.launch_bwd(x, x, torch.zeros((1, 8)), x, None, _rg_cs(1, 5, 8))
+    # the gradient launch proper; grouped_grad_launch gives a CPU tensor the plain version
+    a, b = torch.zeros((2, 3, 4)), torch.zeros((2, 4, 5))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        mm.grouped_grad_launch(torch.zeros((2, 3, 4)), torch.zeros((2, 4, 5)))
+        mm._grad_run(a, b, mm.grad_cs(a, b), "grouped_matmul")
 
 
 def _rw_layout(cluster, ctas, checkpoints):

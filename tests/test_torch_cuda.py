@@ -983,6 +983,160 @@ def test_grouped_matmul_backward_matches_plain(card, dtype, class_id, e, m, k, n
         _close_to_scale(a.float(), b_.float(), _tol(dt))
 
 
+# ---------------------------------------------------------------------------
+# the gradient launch (csrc/matmul_grad.cu): transposed operands read in place
+# ---------------------------------------------------------------------------
+
+def _operand(g, e, rows, cols, transposed, dt, scale=1.0):
+    """A (rows, cols) operand (per expert when ``e``), stored as (rows, cols)
+    or, ``transposed``, as (cols, rows) and viewed back."""
+    lead = (e,) if e else ()
+    shape = (*lead, cols, rows) if transposed else (*lead, rows, cols)
+    t = (torch.randn(shape, generator=g, device="cuda") * scale).to(dt)
+    return t.transpose(-1, -2) if transposed else t
+
+
+def _grad_body(a, b):
+    return mm.grad_geometry(a, b)["body"]
+
+
+# (m, k, n): whole 128 tiles; ragged M, N and K whose rows still start on 16
+# bytes (the wgmma body in bf16: TMA fills the ragged boxes with zeros); a
+# K of 1000 (16 stages); an output wide enough for wgmma's 128x256 CTAs
+# (288 of them); rows that do not start on 16 bytes (K or M odd: the mma
+# body with operand modes)
+GRAD_SHAPES = [(256, 192, 384), (200, 136, 264), (72, 1000, 40), (2048, 72, 4608), (130, 33, 70),
+               (77, 129, 45)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("a_t,b_t", [(0, 0), (0, 1), (1, 0), (1, 1)])
+@pytest.mark.parametrize("m,k,n", GRAD_SHAPES)
+@pytest.mark.parametrize("e", [0, 3])
+def test_grad_launch_matches_plain(card, dtype, a_t, b_t, m, k, n, e):
+    """The gradient launch on A stored (M,K) or (K,M) and B stored (K,N) or
+    (N,K) (per expert: 3 experts), against the plain version on the same
+    views: bf16 on ``wgmma`` where every TMA box starts on 16 bytes, else on
+    ``mma`` with operand modes; f32 on ``fma``; each launch's body counted,
+    and two runs bit-equal."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(m + k + n + 10 * a_t + 20 * b_t + e)
+    a = _operand(g, e, m, k, a_t, dt)
+    b = _operand(g, e, k, n, b_t, dt, k ** -0.5)
+    geo = mm.grad_geometry(a, b)
+    body = geo["body"]
+    # TMA's boxes start on 16 bytes: the rows, and along a contiguous M or N the logical tiles
+    aligned = (m % 8 == 0 and k % 8 == 0 and n % 8 == 0 and (not a_t or geo["tile_m"] % 8 == 0)
+               and (b_t or geo["tile_n"] % 8 == 0))
+    assert body == ("fma" if dt == torch.float32 else "wgmma" if aligned else "mma")
+    kernel = "grouped_matmul" if e else "matmul"
+    launch = mm.grouped_grad_launch if e else mm.grad_launch
+    before = mm.grad_body_launches[kernel, body, dt]
+    got = launch(a, b)
+    assert mm.grad_body_launches[kernel, body, dt] == before + 1
+    want = ref.grouped_matmul(a, b) if e else ref.matmul(a, b)
+    assert got.dtype == dt and got.shape == want.shape
+    _close(got, want, _tol(dt))
+    assert torch.equal(got, launch(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("a_t,b_t", [(0, 1), (1, 0)])
+@pytest.mark.parametrize("m,k,n", [(256, 192, 384), (130, 33, 70)])
+def test_grad_launch_with_bias_matches_plain(card, dtype, a_t, b_t, m, k, n):
+    """Class ``matmul_bias`` (the gelu class's recomputed pre-activation) on
+    each body."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(m + 7 * a_t)
+    a, b = _operand(g, 0, m, k, a_t, dt), _operand(g, 0, k, n, b_t, dt, k ** -0.5)
+    bias = torch.randn((n,), generator=g, device="cuda").to(dt)
+    got = mm.grad_launch(a, b, "matmul_bias", bias=bias)
+    _close(got, ref.matmul(a, b, "matmul_bias", bias=bias), _tol(dt))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("tiles,order", [({"M": 64, "N": 96, "K": 64}, ("N", "M", "K")),
+                                         ({"M": 128, "N": 384, "K": 192}, ("M", "N", "K")),
+                                         ({"M": 32, "N": 128, "K": 64}, ("M", "N", "K"))])
+def test_grad_launch_masks_at_the_logical_tile(card, dtype, tiles, order):
+    """A logical tile smaller than the CTA tile, N outer, and one that takes
+    several CTAs: the tile stays the unit of rasterisation and masking."""
+    from repro_torch.core.schedule import Schedule, concretize
+
+    dt = getattr(torch, dtype)
+    m, k, n = 256, 192, 384
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a, b = _operand(g, 0, m, k, 1, dt), _operand(g, 0, k, n, 0, dt, k ** -0.5)
+    cs = concretize(Schedule.make("matmul", tiles=tiles, order=order),
+                    ops.instance("matmul", dt, M=m, N=n, K=k))
+    got = mm._grad_run(a, b, cs, "matmul")
+    _close(got, ref.matmul(a, b), _tol(dt))
+
+
+def test_grad_launch_at_an_unaligned_head(card):
+    """whisper-medium's LM head at a few rows: rows of 51865 values are not
+    16-byte aligned, so dX = dZ·wᵀ and dW = xᵀ·dZ (and a tied head's dE =
+    dZᵀ·x) take ``mma`` with operand modes, against the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    bf = torch.bfloat16
+    dz = (torch.randn((96, 51865), generator=g, device="cuda") / 200).to(bf)
+    w = torch.randn((64, 51865), generator=g, device="cuda").to(bf)
+    x = torch.randn((96, 64), generator=g, device="cuda").to(bf)
+    for a, b in ((dz, w.T), (x.T, dz), (dz.T, x)):
+        assert _grad_body(a, b) == "mma"
+        before = mm.grad_body_launches["matmul", "mma", bf]
+        got = mm.grad_launch(a, b)
+        assert mm.grad_body_launches["matmul", "mma", bf] == before + 1
+        _close_to_scale(got.float(), ref.matmul(a, b).float(), BF16_TOL)
+
+
+def test_gradient_backward_makes_no_transposed_copy(card):
+    """Under a TorchDispatchMode, MatmulFn's backward (plain, GLU, a tied
+    head) and GroupedMatmulFn's issue no copy of a non-contiguous tensor:
+    every transposed operand is read where it lies."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    copies = (torch.ops.aten.copy_.default, torch.ops.aten.clone.default,
+              torch.ops.aten._to_copy.default)
+
+    class Copies(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.strided = 0, []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            if func in copies:
+                src = args[1] if func is torch.ops.aten.copy_.default else args[0]
+                if isinstance(src, torch.Tensor) and not src.is_contiguous():
+                    self.strided.append((str(func), tuple(src.shape), src.stride()))
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    bf = torch.bfloat16
+    x = torch.randn((2, 64, 128), generator=g, device="cuda").to(bf)
+    w = (torch.randn((128, 256), generator=g, device="cuda") / 12).to(bf)
+    emb = (torch.randn((512, 128), generator=g, device="cuda") / 12).to(bf)
+    xe = torch.randn((4, 64, 128), generator=g, device="cuda").to(bf)
+    we = (torch.randn((4, 128, 192), generator=g, device="cuda") / 12).to(bf)
+    cases = [(lambda a, b: ops.matmul(a, b), (x, w)),
+             (lambda a, b: ops.matmul(a, b, class_id="matmul_silu_glu"), (x, w)),
+             (lambda a, e: ops.matmul(a, e.detach().T.contiguous(), class_id="matmul_lmhead_softcap",
+                                      softcap=30.0, transpose_of=e), (x, emb)),
+             (lambda a, b: ops.moe_gemm(a, b), (xe, we)),
+             (lambda a, b: ops.moe_gemm(a, b, class_id="moe_gemm_silu_glu"), (xe, we))]
+    for fn, ins in cases:
+        leaves = [t.clone().requires_grad_() for t in ins]
+        y = fn(*leaves)
+        dy = torch.randn_like(y)
+        before = (mm.grad_launches, mm.grouped_grad_launches)
+        mode = Copies()
+        with mode:
+            torch.autograd.grad(y, leaves, dy)
+        assert (mm.grad_launches, mm.grouped_grad_launches) != before
+        assert mode.ops > 0 and not mode.strided, mode.strided
+
+
 # (b, h, t, d, w_low, w_high, with_state): T = 1, T = 37 (not a multiple of
 # the backward's 16-token stages), B = 1 and 3, head dims 16, 32 and 64, w
 # near 0 and near 1, an incoming state and the final state's gradient
@@ -1047,7 +1201,7 @@ def test_rglru_backward_matches_plain(card, dtype, b, t, c, tile_c, with_state):
 
 
 def test_backward_kernels_bits_equal_run_to_run(card):
-    """K1g's, K2's (the tensor-core body, a GQA group of 10 split between
+    """K1's (wgmma and fma bodies), K1g's, K2's (the tensor-core body, a GQA group of 10 split between
     CTAs, and the CUDA-core body), K3's and K4's backward give the same bits
     twice (no atomics)."""
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -1067,10 +1221,18 @@ def test_backward_kernels_bits_equal_run_to_run(card):
     doa = torch.randn((1, 10, 300, 256), generator=g, device="cuda")
     assert fa.bwd_geometry(1, 10, 1, 300, 300, 256, bf)["parts"] == 10
 
+    xk = torch.randn((2, 100, 96), generator=g, device="cuda").to(bf)
+    wk = (torch.randn((96, 264), generator=g, device="cuda") / 10).to(bf)
+    dyk = torch.randn((2, 100, 132), generator=g, device="cuda").to(bf)
+
     def run():
         leaves = [t.clone().requires_grad_() for t in (x, w)]
         out = list(torch.autograd.grad(ops.moe_gemm(*leaves, class_id="moe_gemm_silu_glu"),
                                        leaves, dy))
+        for dt in (bf, torch.float32):
+            leaves = [t.to(dt).clone().requires_grad_() for t in (xk, wk)]
+            out += torch.autograd.grad(ops.matmul(*leaves, class_id="matmul_gelu_glu"), leaves,
+                                       dyk.to(dt))
         leaves = [t.clone().requires_grad_() for t in (r, k, v, wd, u, s0)]
         out += torch.autograd.grad(ops.rwkv6(*leaves)[0], leaves, dyr)
         leaves = [t.clone().requires_grad_() for t in (xr, ar)]

@@ -547,11 +547,13 @@ def test_asking_for_a_kernel_without_a_gpu_raises():
 def test_build_is_keyed_by_sources_and_lists_every_csrc_file():
     assert sorted(p.name for p in _build._sources()) == ["flash_attention.cu",
                                                          "flash_attention_bwd.cu", "matmul.cu",
-                                                         "rglru_scan.cu", "rglru_scan_bwd.cu",
-                                                         "rwkv6_scan.cu", "rwkv6_scan_bwd.cu"]
+                                                         "matmul_grad.cu", "rglru_scan.cu",
+                                                         "rglru_scan_bwd.cu", "rwkv6_scan.cu",
+                                                         "rwkv6_scan_bwd.cu"]
     assert {"repro_rwkv6_scan", "repro_rglru_scan", "repro_grouped_matmul",
             "repro_flash_attention_bwd", "repro_rwkv6_scan_bwd",
-            "repro_rglru_scan_bwd"} <= set(_build.SIGNATURES)
+            "repro_rglru_scan_bwd", "repro_matmul_grad",
+            "repro_grouped_matmul_grad"} <= set(_build.SIGNATURES)
     assert len(_build._key()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
     assert _build.BUILD_DIR.name == "build"
