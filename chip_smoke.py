@@ -197,8 +197,11 @@ toolkit.  Phases, one result line each:
    bit-equal (K3's, ``csrc/rwkv6_scan_bwd.cu``, at 4·32·512·64 and at
    T = 37 from a state passed in, a batch row bit-equal at B = 1 and
    B = 4, each of its kernels timed on the device; K4's,
-   ``csrc/rglru_scan_bwd.cu``, at
-   4·512·2560 and T = 37; K1g's, ``GroupedMatmulFn``, at mixtral's expert
+   ``csrc/rglru_scan_bwd.cu``, at 4·512·2560 and T = 37, a batch row
+   bit-equal at B = 1 and B = 4 and under C tiles 8, 512 and
+   2560, its planned launch (CTAs, shared bytes, CTAs an SM) held to
+   ``rg.bwd_geometry``, timed by events, on the device and behind a stream
+   hold; K1g's, ``GroupedMatmulFn``, at mixtral's expert
    GEMMs with 2048 rows per expert; K2's at whisper's encoder, decoder and
    cross shapes, mixtral's window and recurrentgemma's local layers), timed
    beside their bounds, their plain versions, ``torch.bmm`` (K1g's dX, dW)
@@ -244,10 +247,15 @@ kernel's numbers, the nvidia-smi line, and the last line
 
 times the scan kernels of another tree (``PARENT``, a checkout with its
 own ``src/``; say, the parent commit unpacked with ``git archive``) against
-this tree's at the main-path shapes, and K3's backward at rwkv6-1.6b's
-training shape (each of its kernels by device time), in turns (parent,
-this, this, parent),
-each turn in its own process, and prints the same-call ratios.  Any failure raises: the script
+this tree's at the main-path shapes, K3's backward at rwkv6-1.6b's
+training shape (each of its kernels by device time) and K4's backward at
+recurrentgemma-2b's (by events, device time, held time, and held time
+with no L2 flush), in turns
+(parent, this, this, parent), each turn in its own process, and prints the
+same-call ratios.  K4's backward also runs at T = 37 from a state and in
+f32; at every shape its outputs' bits (sha256 of dx, da and the initial
+state's gradient at fixed seeded inputs) must agree between the turns and
+the trees, or the script fails.  Any failure raises: the script
 exits non-zero and prints no result.  Times come from CUDA events, each
 launch after an L2 flush (the serving path reads weights cold); they
 include the host's time to enqueue the call, which is most of a decode-sized
@@ -261,6 +269,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -1062,6 +1071,37 @@ def scan_bounds(kind: str, shape: tuple) -> tuple[float, str]:
 
 #: K3's backward timed by ``--time-scans``: rwkv6-1.6b's training shape
 RW_BWD_TIMED = (4, 32, 512, 64)
+#: K4's backward in ``--time-scans`` (B, T, C, dtype, from a state with the
+#: final state's gradient): recurrentgemma-2b's training shape in bf16
+#: (timed), T = 37 from a state, and the training shape in f32; each
+#: turn digests dx, da and the initial state's gradient
+RG_BWD_CASES = ((4, 512, 2560, "bfloat16", False), (4, 37, 2560, "bfloat16", True),
+                (4, 512, 2560, "float32", False))
+
+
+def _rg_bwd_inputs(torch, g, b, t, c, dt, with_state):
+    """K4's backward inputs, seeded: x, a, the initial state, dy and the
+    final state's gradient (None without a state).  a = exp(8·logσ(λ)·r) at
+    λ = 2 over the gate r in (0.05, 1): 0.36 to 0.95 (init: 0.60).  Within
+    2^-9 of 1 a rounds to bf16 1.0, where da is ±inf in both versions
+    (tests/test_torch_backward.py)."""
+    x = torch.randn((b, t, c), generator=g, device="cuda").to(dt)
+    r_gate = 0.05 + 0.95 * torch.rand((b, t, c), generator=g, device="cuda")
+    a = torch.exp(8 * torch.nn.functional.logsigmoid(torch.tensor(2.0)) * r_gate).to(dt)
+    h0 = (torch.randn((b, c), generator=g, device="cuda") if with_state
+          else torch.zeros((b, c), device="cuda"))
+    dy = torch.randn((b, t, c), generator=g, device="cuda").to(dt)
+    dh = torch.randn((b, c), generator=g, device="cuda") if with_state else None
+    return x, a, h0, dy, dh
+
+
+def digest(torch, tensors) -> str:
+    """sha256 of the tensors' bytes, in order: their bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        torch.cuda.synchronize()
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def time_scans(torch, timer, plain: bool = True, bwd: bool = False) -> list:
@@ -1069,9 +1109,13 @@ def time_scans(torch, timer, plain: bool = True, bwd: bool = False) -> list:
     shapes: each checked against its plain version, then timed by events
     and on the device (and the plain version by events, if ``plain``); with
     ``bwd``, K3's backward at ``RW_BWD_TIMED`` too, checked against its plain
-    version and timed alike, with each of its kernels' device time.  Takes
-    only the wrappers' ``launch`` and ``launch_bwd``, so it times an older
-    tree's kernels alike."""
+    version and timed alike, with each of its kernels' device time; and
+    K4's backward at ``RG_BWD_CASES``, each checked against its plain
+    version and its outputs digested, the first timed by events, on the
+    device and behind a stream hold, and behind a hold with no L2 flush
+    (``warm_held_ms``: the previous call's inputs partly still in the L2).
+    Takes only the wrappers' ``launch`` and ``launch_bwd``, so it times an
+    older tree's kernels alike."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as rw
@@ -1096,6 +1140,7 @@ def time_scans(torch, timer, plain: bool = True, bwd: bool = False) -> list:
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
     if bwd:
+        warm = Timer(torch, flush=None)
         b, h, t, d = RW_BWD_TIMED
         dt = torch.bfloat16
         r, k, v, dy = (torch.randn((b, h, t, d), generator=g, device="cuda").to(dt) for _ in range(4))
@@ -1114,6 +1159,25 @@ def time_scans(torch, timer, plain: bool = True, bwd: bool = False) -> list:
                      "device_ms": timer.device_ms(lambda: rw.launch_bwd(*args, cs)),
                      "kernels_ms": timer.kernel_ms(lambda: rw.launch_bwd(*args, cs)),
                      "plain_ms": None, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+        for i, (b, t, c, dname, with_state) in enumerate(RG_BWD_CASES):
+            dt = getattr(torch, dname)
+            gi = torch.Generator(device="cuda").manual_seed(60 + i)   # the same inputs in every turn
+            args = _rg_bwd_inputs(torch, gi, b, t, c, dt, with_state)
+            cs = _rg_cs(torch, dt, b, t, c)
+            got = rg.launch_bwd(*args, cs)
+            errs = grads_close(torch, ("dx", "da", "dstate"), got, ref.rglru_scan_bwd(*args),
+                               "K4 backward", f32=dt == torch.float32)
+            row = {"kind": "rglru_bwd", "B": b, "T": t, "C": c, "dtype": dname, "state": with_state,
+                   "tiles": cs.t, "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                   "digest": digest(torch, got), "ms": None, "device_ms": None, "held_ms": None,
+                   "warm_held_ms": None, "plain_ms": None, "library_ms": None}
+            if i == 0:
+                row["bound_ms"], row["bound_by"] = rg_bwd_bound(b, t, c)
+                row["ms"] = timer.ms(lambda: rg.launch_bwd(*args, cs))
+                row["device_ms"] = timer.device_ms(lambda: rg.launch_bwd(*args, cs))
+                row["held_ms"] = timer.held_ms(lambda: rg.launch_bwd(*args, cs))
+                row["warm_held_ms"] = warm.held_ms(lambda: rg.launch_bwd(*args, cs))
+            rows.append(row)
     return rows
 
 
@@ -1232,11 +1296,13 @@ def phase_scans(torch, timer) -> dict:
 
 def scans_ab(parent: Path) -> int:
     """The scan kernels of the tree at ``parent`` (say, an unpacked parent
-    commit) and of this tree, timed at the main-path shapes, and K3's
-    backward at ``RW_BWD_TIMED``, in turns —
-    parent, this, this, parent — each turn in its own process with that
-    tree's ``src`` first on the path.  Prints each turn's rows, then per
-    shape the mean device and event times and their ratios (parent / this)."""
+    commit) and of this tree, timed at the main-path shapes, K3's backward
+    at ``RW_BWD_TIMED`` and K4's at ``RG_BWD_CASES``, in turns — parent,
+    this, this, parent — each turn in its own process with that tree's
+    ``src`` first on the path.  Prints each turn's rows, then per shape the
+    mean event, device and held times and their ratios (parent / this).
+    Raises if K4's backward gives other bits in any turn (its outputs'
+    digests, at fixed seeded inputs)."""
     turns = [("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)]
     got = collections.defaultdict(list)
     for who, tree in turns:
@@ -1247,17 +1313,30 @@ def scans_ab(parent: Path) -> int:
             raise AssertionError(f"timing the scans of {tree} failed ({out.returncode})")
         for line in out.stdout.splitlines():
             row = json.loads(line)
+            if "phase" in row:   # the turn's own log line (a dropped profiler capture, say)
+                log("scan_turn_log", who=who, line=row)
+                continue
             log("scan_turn", who=who, **row)
-            got[(row["kind"], str(row["B"]), str(row["T"]), str(row["tiles"]["T"]), who)].append(row)
-    for key in sorted({k[:4] for k in got}):
-        mean = {who: {m: (None if any(r[m] is None for r in got[(*key, who)])
-                          else statistics.mean(r[m] for r in got[(*key, who)]))
-                      for m in ("ms", "device_ms")} for who in ("parent", "this")}
-        log("scan_ab", kind=key[0], B=int(key[1]), T=int(key[2]), tile_t=int(key[3]),
+            got[(row["kind"], row["B"], row["T"], row["tiles"]["T"], row.get("dtype", "bfloat16"),
+                 row.get("state", False), who)].append(row)
+    for key in sorted({k[:-1] for k in got}):
+        rows = {who: got[(*key, who)] for who in ("parent", "this")}
+        digests = {r["digest"] for who in rows for r in rows[who] if "digest" in r}
+        if len(digests) > 1:
+            raise AssertionError(f"{key}: the outputs' bits differ between turns or trees: "
+                                 f"{ {who: [r.get('digest') for r in rows[who]] for who in rows} }")
+        mean = {who: {m: (None if any(r.get(m) is None for r in rows[who])
+                          else statistics.mean(r[m] for r in rows[who]))
+                      for m in ("ms", "device_ms", "held_ms", "warm_held_ms")} for who in rows}
+        log("scan_ab", kind=key[0], B=key[1], T=key[2], tile_t=key[3], dtype=key[4], state=key[5],
+            bits_equal=bool(digests) or None,
             parent_device_ms=mean["parent"]["device_ms"], device_ms=mean["this"]["device_ms"],
             device_ratio=ratio(mean["parent"]["device_ms"], mean["this"]["device_ms"]),
+            parent_held_ms=mean["parent"]["held_ms"], held_ms=mean["this"]["held_ms"],
+            held_ratio=ratio(mean["parent"]["held_ms"], mean["this"]["held_ms"]),
+            parent_warm_held_ms=mean["parent"]["warm_held_ms"], warm_held_ms=mean["this"]["warm_held_ms"],
             parent_ms=mean["parent"]["ms"], ms=mean["this"]["ms"],
-            ratio=mean["parent"]["ms"] / mean["this"]["ms"])
+            ratio=ratio(mean["parent"]["ms"], mean["this"]["ms"]))
     print(nvidia_smi())
     return 0
 
@@ -3932,6 +4011,14 @@ FAMILY_CHECK_LAYERS = 2
 RW_BWD_OPS, RG_BWD_OPS = 14, 12
 
 
+def rg_bwd_bound(b: int, t: int, c: int) -> tuple[float, str]:
+    """K4's backward in bf16: x, a and dy read once, dx and da written once,
+    the initial state in and its gradient out (f32); or ``RG_BWD_OPS`` f32
+    operations an element on the CUDA cores."""
+    n = b * t * c
+    return bound_ms(5 * 2 * n + 2 * 4 * b * c, RG_BWD_OPS * n, F32_CUDA_CORE_FLOPS)
+
+
 def grads_close(torch, names, got, want, what: str, f32: bool = False) -> dict:
     """Each gradient within ``GRAD_SCALE_ATOL``·max|plain| + ``GRAD_RTOL``·|plain|
     (K1's backward bound; f32: 2e-4 of each, the f32 kernel tolerance held
@@ -4024,8 +4111,12 @@ def rglru_bwd_rows(torch, timer) -> list:
     """K4's backward against its plain version (``ref.rglru_scan_bwd``) at
     recurrentgemma-2b's training shape (4·512·2560) in bf16 and f32, and,
     from a state passed in with the final state's gradient, at T = 37,
-    bf16; the bf16 training shape timed beside the plain backward."""
-    from repro_torch.kernels import ops, ref
+    bf16; each bit-equal twice, a batch row at B = 1 against B = 4, and
+    under C tiles 8, 512 and 2560 (channels are independent); the launch
+    the library plans (CTAs, shared bytes, CTAs an SM) held to
+    ``rg.bwd_geometry``; the bf16 training shape timed by events, on the
+    device and behind a stream hold, beside the plain backward."""
+    from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rg
 
     g = torch.Generator(device="cuda").manual_seed(42)
@@ -4035,42 +4126,48 @@ def rglru_bwd_rows(torch, timer) -> list:
             ("train_f32", 4, 512, False, False, torch.float32),
             ("t37_state", 4, 37, True, False, torch.bfloat16)):
         c = 2560
-        x = torch.randn((b, t, c), generator=g, device="cuda").to(dt)
-        # a = exp(8·logσ(λ)·r) at λ = 2 over the gate r in (0.05, 1): 0.36 to
-        # 0.95 (init: 0.60).  Within 2^-9 of 1 a rounds to bf16 1.0, where
-        # da is ±inf in both versions (tests/test_torch_backward.py)
-        r_gate = 0.05 + 0.95 * torch.rand((b, t, c), generator=g, device="cuda")
-        a = torch.exp(8 * torch.nn.functional.logsigmoid(torch.tensor(2.0)) * r_gate)
-        a = a.to(dt)
-        h0 = (torch.randn((b, c), generator=g, device="cuda") if with_state
-              else torch.zeros((b, c), device="cuda"))
-        dy = torch.randn((b, t, c), generator=g, device="cuda").to(dt)
-        dh = torch.randn((b, c), generator=g, device="cuda") if with_state else None
-        cs = ops.schedule_for(ops.instance("rglru_scan", dt, T=t, C=c, B=b))
-        args = (x, a, h0, dy, dh)
+        args = _rg_bwd_inputs(torch, g, b, t, c, dt, with_state)
+        x, a, h0, dy, dh = args
+        cs = _rg_cs(torch, dt, b, t, c)
         got = rg.launch_bwd(*args, cs)
         want = ref.rglru_scan_bwd(*args)
         errs = grads_close(torch, ("dx", "da", "dstate"), got, want, f"K4 backward {name}",
                            f32=dt == torch.float32)
-        run = rg.launch_bwd(*args, cs)
-        if not all(torch.equal(p, q) for p, q in zip(got, run)):
-            raise AssertionError(f"K4 backward {name}: two runs differ")
+
+        def same(other, what, part=slice(None)):
+            torch.cuda.synchronize()
+            if not all(torch.equal(p[part].view(torch.uint8), q.view(torch.uint8))
+                       for p, q in zip(got, other)):
+                raise AssertionError(f"K4 backward {name}: {what}")
+
+        same(rg.launch_bwd(*args, cs), "two runs differ")
+        one = [z[2:3].contiguous() if z is not None else None for z in args]
+        same(rg.launch_bwd(*one, _rg_cs(torch, dt, 1, t, c)), "a batch row differs at B = 1 and B = 4",
+             slice(2, 3))
+        for tile_c in (8, 512, c):
+            same(rg.launch_bwd(*args, _rg_cs(torch, dt, b, t, c, tile_c=tile_c)),
+                 f"C tile {tile_c} changes the bits")
+        geo = rg.bwd_geometry(b, t, c, cs.t["C"], dt)
+        lib = rg.bwd_library_geometry(b, t, c, cs.t["C"], dt)
+        if lib != geo:
+            raise AssertionError(f"K4 backward {name}: the library plans {lib}, the layout says {geo}")
         row = {"name": name, "dtype": str(dt), "B": b, "T": t, "C": c, "state": with_state,
-               "errors": errs,
+               "errors": errs, "bits": {"two_runs": True, "b1_vs_b4": True, "c_tiles": [8, 512, c]},
                "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                "max_rel_err": max(e["rel"] for e in errs.values()),
-               "ctas": rg.check_args(x, a, h0, cs)[2]}
+               **{f: lib[f] for f in ("ctas", "threads", "stage_t", "ring", "smem", "resident")}}
         if timed:
-            n = b * t * c
-            row["bound_ms"], row["bound_by"] = bound_ms(5 * 2 * n + 2 * 4 * b * c,
-                                                        RG_BWD_OPS * n, F32_CUDA_CORE_FLOPS)
+            row["bound_ms"], row["bound_by"] = rg_bwd_bound(b, t, c)
             row["ms"] = timer.ms(lambda: rg.launch_bwd(*args, cs))
+            row["device_ms"] = timer.device_ms(lambda: rg.launch_bwd(*args, cs))
+            row["held_ms"] = timer.held_ms(lambda: rg.launch_bwd(*args, cs))
+            row["bound_share"] = row["bound_ms"] / row["held_ms"]
             row["plain_ms"] = timer.ms(lambda: ref.rglru_scan_bwd(*args), iters=3)
             row["library_ms"] = None   # no one PyTorch call computes a recurrence
             row["fwd_ms"] = timer.ms(lambda: rg.launch(x, a, h0, cs))
         rows.append(row)
         log("families_rglru_bwd", **row)
-        del x, a, h0, dy, got, want, run
+        del x, a, h0, dy, dh, args, got, want, one
     torch.cuda.empty_cache()
     return rows
 
@@ -5011,6 +5108,7 @@ def main(argv: list[str]) -> int:
          "launches": fam_count("rglru_bwd_launches"),
          "max_abs_err": max(r["max_abs_err"] for r in k["rglru_bwd"]),
          "max_rel_err": max(r["max_rel_err"] for r in k["rglru_bwd"]), "fwd_ms": rep_rgb["fwd_ms"],
+         **{f: rep_rgb[f] for f in ("device_ms", "held_ms", "bound_share", "resident", "smem")},
          **timed(rep_rgb, ("B", "T", "C", "ctas"))},
     ]
     for row in kernels:   # the families' backward kernels run on their path alone

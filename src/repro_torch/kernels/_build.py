@@ -53,6 +53,7 @@ SIGNATURES = {
     "repro_rwkv6_scan_bwd": [*[_P] * 16, *[_I] * 6, _P],
     "repro_rwkv6_scan_bwd_geometry": [*[_I] * 5, _P],
     "repro_rglru_scan_bwd": [*[_P] * 9, *[_I] * 8, _P],
+    "repro_rglru_scan_bwd_geometry": [*[_I] * 5, _P],
     "repro_matmul_grad": [_P, _I, _L, _P, _I, _L, _P, _P, *[_I] * 11, _P],
     "repro_grouped_matmul_grad": [_P, _I, _L, _L, _P, _I, _L, _L, _P, *[_I] * 12, _P],
 }

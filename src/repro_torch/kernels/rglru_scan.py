@@ -41,13 +41,21 @@ a CUDA tensor launches the kernel or raises.  ``launches`` counts launches.
 Under autograd a CUDA tensor goes through :class:`RglruScanFn`: the forward
 is :func:`launch` (the same bits as without a gradient), the backward
 :func:`launch_bwd`, a kernel of its own (``csrc/rglru_scan_bwd.cu``, the
-same CTA layout): a forward walk saves the f32 state every
-:data:`BWD_STAGE_T` tokens, a reverse walk recomputes each stage's states
-from it and runs ``g = dy + a·g`` back through time, giving dx, da and the
-initial state's gradient.  ``bwd_launches`` counts its launches.  Its plain
-version is :func:`repro_torch.kernels.ref.rglru_scan_bwd`.
+same CTA layout, :func:`bwd_geometry`): a forward walk saves the f32 state
+every :data:`BWD_STAGE_T` tokens, a reverse walk recomputes each stage's
+states from it and runs ``g = dy + a·g`` back through time, giving dx, da
+and the initial state's gradient.  Its warps work at once, as the forward
+kernel's: one runs the state chain and one the gradient chain while four
+loader warps stream x, a and dy through a :data:`BWD_RING`-slot
+``cp.async`` ring (both walks one stream of stages) and prepare the next
+stage's factors, and four storer warps store the previous stage's dx and
+da in 16-byte chunks.
+``bwd_launches`` counts its launches.  Its plain version is
+:func:`repro_torch.kernels.ref.rglru_scan_bwd`.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -61,8 +69,16 @@ CTA_C = 32
 STAGE_T = 64
 #: batch rows the grid takes (its y dimension)
 MAX_BATCH = 65535
-#: tokens between the backward kernel's f32 state checkpoints (kLruBwdStageT)
+#: tokens between the backward kernel's f32 state checkpoints, and per
+#: stage of its ring (kLruBwdStageT)
 BWD_STAGE_T = 32
+#: the backward's ring slots (kLruBwdRing), f32 factor buffers
+#: (kLruBwdBufs) and threads a CTA: two chain warps, four loader warps and
+#: four storer warps (kLruBwdThreads)
+BWD_RING, BWD_BUFS, BWD_THREADS = 6, 3, 320
+#: what an H100 SM holds: shared bytes (a CTA's 1 KiB reserve included),
+#: threads and CTAs
+SM_SMEM, CTA_SMEM_RESERVE, SM_THREADS, SM_CTAS = 228 * 1024, 1024, 2048, 32
 
 #: kernel launches since the last reset (plain counts; see chip_smoke.py):
 #: the forward's and the backward's
@@ -165,6 +181,49 @@ def launch(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor,
     return y, h_out
 
 
+def bwd_geometry(b: int, t: int, c: int, tile_c: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The backward's launch over (B, T, C) under a ``tile_c`` C tile in
+    ``dtype``: CTAs (the forward's layout, :func:`cta_channels` per batch
+    row), threads a CTA, tokens a stage, ring slots, dynamic shared bytes
+    (three buffers of two f32 planes of a stage, then the ring of x, a and
+    dy), CTAs resident an SM and the f32 checkpoint workspace's shape
+    (:func:`bwd_checkpoints`).  The kernel's ``__launch_bounds__`` keep
+    registers for 3 CTAs an SM, so shared memory decides residency: 3 in
+    bf16, 2 in f32.  The kernel plans
+    its own launch (:func:`bwd_library_geometry` reports it; chip_smoke.py
+    holds the two equal).  Nothing here depends on T but the checkpoints,
+    nor on the T tile.  Raises ``ValueError`` on what it does not take."""
+    if dtype not in DTYPES:
+        raise ValueError(f"RG-LRU scan takes bf16 or f32, got {dtype}")
+    ctas = scan_geometry(b, t, c, 1, tile_c)[2]
+    plane = BWD_STAGE_T * CTA_C
+    smem = BWD_BUFS * 2 * plane * 4 + BWD_RING * 3 * plane * dtype.itemsize
+    resident = min(SM_SMEM // (smem + CTA_SMEM_RESERVE), SM_THREADS // BWD_THREADS, SM_CTAS)
+    return {"ctas": ctas, "threads": BWD_THREADS, "stage_t": BWD_STAGE_T, "ring": BWD_RING,
+            "smem": smem, "resident": resident, "checkpoints": bwd_checkpoints(b, t, c)}
+
+
+def bwd_checkpoints(b: int, t: int, c: int) -> tuple[int, int, int]:
+    """The backward's f32 checkpoint workspace: the state at the start of
+    every :data:`BWD_STAGE_T`-token stage but the last, whose states the
+    reverse walk takes from the forward walk's own final state."""
+    return b, _cdiv(t, BWD_STAGE_T) - 1, c
+
+
+def bwd_library_geometry(b: int, t: int, c: int, tile_c: int, dtype: torch.dtype) -> dict:
+    """What the backward kernel launches over (B, T, C) under a ``tile_c`` C
+    tile, as the built library plans it (csrc/rglru_scan_bwd.cu
+    ``plan_bwd``), with the CTAs an SM holds from the runtime's occupancy
+    calculator: :func:`bwd_geometry`'s keys.  Launches nothing; needs the
+    CUDA build."""
+    bwd_geometry(b, t, c, tile_c, dtype)
+    out = (ctypes.c_int * 7)()
+    _build.check(_build.library().repro_rglru_scan_bwd_geometry(b, t, c, tile_c, DTYPES[dtype], out),
+                 "RG-LRU scan backward geometry")
+    geo = dict(zip(("ctas", "threads", "stage_t", "ring", "smem", "resident"), out))
+    return {**geo, "checkpoints": (b, out[6], c)}
+
+
 class RglruScanFn(torch.autograd.Function):
     """K4 under autograd on CUDA tensors: :func:`launch` forward,
     :func:`launch_bwd` backward on the saved x, a and initial state."""
@@ -202,7 +261,7 @@ def launch_bwd(x: torch.Tensor, a: torch.Tensor, state: torch.Tensor, dy: torch.
         dstate = dstate.to(torch.float32).contiguous()
     h0 = state.to(torch.float32).contiguous()
     dx, da, dh0 = torch.empty_like(x), torch.empty_like(x), torch.empty_like(h0)
-    ck = torch.empty((b, _cdiv(t, BWD_STAGE_T), c), dtype=torch.float32, device=x.device)
+    ck = torch.empty(bwd_checkpoints(b, t, c), dtype=torch.float32, device=x.device)
     rc = _build.library().repro_rglru_scan_bwd(
         x.data_ptr(), a.data_ptr(), h0.data_ptr(), dy.data_ptr(),
         dstate.data_ptr() if dstate is not None else None, dx.data_ptr(), da.data_ptr(),

@@ -1172,10 +1172,13 @@ def test_rwkv6_backward_matches_plain(card, dtype, b, h, t, d, w_low, w_high, wi
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,t,c,tile_c,with_state", [(2, 1, 64, None, True), (1, 37, 100, None, True),
                                                      (3, 70, 2560, None, False),
-                                                     (2, 17, 12, 8, True)])
+                                                     (2, 17, 12, 8, True), (2, 600, 2560, None, True),
+                                                     (3, 37, 100, 48, True)])
 def test_rglru_backward_matches_plain(card, dtype, b, t, c, tile_c, with_state):
-    """T = 1, T = 37 and 70 (not multiples of the 32-token stages), a ragged
-    C under a tile of 8, an incoming state and the final state's gradient."""
+    """T = 1, T = 37 and 70 (not multiples of the 32-token stages), T = 600
+    (37 stages through the ring, the last ragged), a ragged C under a tile
+    of 8 and C = 100 under a tile of 48 (rows not in 16-byte chunks: the
+    element path), an incoming state and the final state's gradient."""
     from repro_torch.core.schedule import Schedule, concretize
 
     dt = getattr(torch, dtype)
@@ -1198,6 +1201,48 @@ def test_rglru_backward_matches_plain(card, dtype, b, t, c, tile_c, with_state):
     for name, p, q in zip(("dx", "da", "dstate"), got, want):
         assert p.dtype == q.dtype, name
         _close_to_scale(p.float(), q.float(), _tol(dt) if name != "dstate" else TOL)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_rglru_backward_bit_contracts(card, dtype):
+    """K4's backward from a state with the final state's gradient: two runs,
+    a batch row at B = 1 against B = 4, and C tiles 8, 512 and 2560 give
+    the same dx, da and initial state's gradient, bit for bit (channels
+    are independent and every element takes the same operations)."""
+    from repro_torch.core.schedule import Schedule, concretize
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    b, t, c = 4, 70, 2560
+    x, dy = (torch.randn((b, t, c), generator=g, device="cuda").to(dt) for _ in range(2))
+    a = torch.sigmoid(torch.randn((b, t, c), generator=g, device="cuda")).to(dt)
+    h0, dh = (torch.randn((b, c), generator=g, device="cuda") for _ in range(2))
+
+    def cs(bb, tile_c=None):
+        out = ops.schedule_for(ops.instance("rglru_scan", dt, T=t, C=c, B=bb))
+        if tile_c is not None:
+            out = concretize(Schedule.make("rglru_scan", {"T": out.t["T"], "C": tile_c}), out.instance)
+        return out
+
+    four = rg.launch_bwd(x, a, h0, dy, dh, cs(b))
+    _equal_bits(four, rg.launch_bwd(x, a, h0, dy, dh, cs(b)))
+    one = rg.launch_bwd(*(z[2:3].contiguous() for z in (x, a, h0, dy, dh)), cs(1))
+    _equal_bits([z[2:3] for z in four], one)
+    for tile_c in (8, 512, c):
+        _equal_bits(four, rg.launch_bwd(x, a, h0, dy, dh, cs(b, tile_c)))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,t,c,tile_c", [(4, 512, 2560, 512), (1, 37, 100, 48), (2, 1, 12, 8),
+                                          (3, 600, 2560, 2560)])
+def test_rglru_bwd_library_geometry_is_the_layout(card, dtype, b, t, c, tile_c):
+    """The launch the library plans (CTAs, threads, stage, ring, shared
+    bytes, CTAs an SM by the runtime's occupancy calculator, checkpoints)
+    is ``bwd_geometry``'s: 3 CTAs an SM in bf16."""
+    dt = getattr(torch, dtype)
+    geo = rg.bwd_geometry(b, t, c, tile_c, dt)
+    assert rg.bwd_library_geometry(b, t, c, tile_c, dt) == geo
+    assert geo["resident"] == (3 if dt == torch.bfloat16 else 2)
 
 
 def test_backward_kernels_bits_equal_run_to_run(card):
