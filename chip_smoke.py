@@ -187,11 +187,18 @@ toolkit.  Phases, one result line each:
    the bounds stated at ``TRAIN_LOSS_REL``.  Then the 2-layer params and
    optimizer state after one step saved and restored bit for bit
    (``checkpoint.CheckpointManager``), and ``train.main`` resumed from that
-   checkpoint for 2 more steps.
-14. train_families — rwkv6-1.6b (24 layers), recurrentgemma-2b (26),
-   mixtral-8x22b (1 of 56 layers: one layer's ~38 GiB of state) and
-   whisper-medium (24 + 24 layers, 1500 stub frames) trained on the card at
-   full width (``phase_train_families``).  First the backward kernels of
+   checkpoint for 2 more steps.  The ``dots`` remat policy beside ``full``
+   (``dots_train``, ``dots_check``): the full-depth run again under
+   ``--remat-policy dots``, its first loss bit-equal to ``full``'s, one
+   gradient launch fewer per GeGLU layer a step (Z comes from the
+   forward), the layers' K1 forward launches once; ms per step and peak GiB
+   beside ``full``'s; at 2 layers the same agreement with the plain path
+   and two steps bit-equal.  K1's Z output itself is checked in the K1
+   phase, in every body (``z_output_checks``).
+14. train_families — rwkv6-1.6b (12 of 24 layers), recurrentgemma-2b (13
+   of 26), mixtral-8x22b (1 of 56 layers: one layer's ~38 GiB of state) and
+   whisper-medium (24 encoder + 12 of 24 decoder layers, 1500 stub frames)
+   trained on the card at full width (``phase_train_families``).  First the backward kernels of
    their paths against autograd of their plain versions at the families'
    training shapes, each gradient within K1's backward bound, two runs
    bit-equal (K3's, ``csrc/rwkv6_scan_bwd.cu``, at 4·32·512·64 and at
@@ -213,7 +220,8 @@ toolkit.  Phases, one result line each:
    step (median of steps 2-4), tokens/s, init and peak memory; its profiled
    step comes from ``--profile-steps``.  Then the kernel path against the
    plain path at 2 layers (mixtral 1; whisper 2 + 2), the bounds of the
-   train phase, and two kernel-path steps from the same weights bit-equal.
+   train phase, and two kernel-path steps from the same weights bit-equal;
+   then both again under ``dots``.
 15. dist — sharded training (``repro_torch.distributed``,
    ``launch.steps.make_sharded_train_step``) at world 1 under NCCL in this
    process, over a ``FileStore`` in a temporary directory (``phase_dist``):
@@ -229,9 +237,13 @@ toolkit.  Phases, one result line each:
    kernel is added.  Then ``chip_smoke.py --profile-steps`` in a fresh
    process profiles one unsharded and one sharded full-depth step of
    gemma2-2b (busy share, top five ops, the NCCL kernels' share of the busy
-   time) and one step of each family of ``train_families``, each capture
-   held to the launch counters as the decode capture is: late in the
-   script every capture of a train step lost kernels.
+   time), one under ``dots``, and one step of each family of
+   ``train_families``, each capture held to the launch counters as the
+   decode capture is: late in the script every capture of a train step
+   lost kernels.
+16. examples — ``repro_torch.examples`` ``quickstart`` (step 5: K1 against
+   its plain version), ``serve_lm`` and ``train_lm`` (60 steps, the loss
+   falls) once on the card (``phase_examples``).
 The chunk shapes of the paged path (K2: a 64-row chunk at q_offset 256 of a
 512-row cache; K1: 64x3072x3072 on the tensor cores) are timed after the
 grouped phase beside their plain versions, SDPA given the same boolean mask
@@ -239,8 +251,9 @@ and ``torch.matmul`` (``phase_chunk_kernels``).  Then every timed row bound
 by bytes is held to its bound (``under_bytes_bound``): a time under it
 means the timed call read data the flush left in the L2.
 
-Then the tuning line, the script's wall time, one JSON line with every
-kernel's numbers, the nvidia-smi line, and the last line
+Then the tuning line, the examples line, the script's wall time, a
+``phase_seconds`` line (each phase's wall seconds and the total), one JSON
+line with every kernel's numbers, the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --scans-ab PARENT
@@ -712,6 +725,85 @@ def rounding_cases(torch, timer, family: str) -> list:
     return rows
 
 
+#: K1's Z output (``launch(..., with_z=True)``, the ``dots`` remat policy's),
+#: per body: (name, class, dtype, M, K, N, schedule tiles or None for the
+#: default, cache_write).  The rows body unsplit (gemma2's GeGLU up at 4
+#: rows) and split over K (N = 256), in f32, and in rounding mode; the
+#: tensor-core body at gemma2's training up projection, whisper's gelu with
+#: a bias and a ragged shape; the CUDA-core body (f32); the tensor-core body
+#: in rounding mode, its K tile of 24 splitting an MMA step
+Z_CASES = (("rows", "matmul_gelu_glu", "bfloat16", 4, 2304, 18432, None, True),
+           ("rows_split_k", "matmul_silu_glu", "bfloat16", 4, 3072, 256, None, True),
+           ("rows_f32", "matmul_bias_gelu", "float32", 4, 64, 200, None, True),
+           ("rows_round", "matmul_bias_gelu", "bfloat16", 4, 3072, 1024,
+            {"M": 4, "N": 512, "K": 128}, False),
+           ("mma", "matmul_gelu_glu", "bfloat16", 2048, 2304, 18432, None, True),
+           ("mma_bias", "matmul_bias_gelu", "bfloat16", 1500, 1024, 4096, None, True),
+           ("mma_ragged", "matmul_silu_glu", "bfloat16", 70, 33, 200, None, True),
+           ("mma_round", "matmul_bias_gelu", "bfloat16", 256, 3072, 1024,
+            {"M": 128, "N": 512, "K": 24}, False),
+           ("fma", "matmul_bias_gelu", "float32", 130, 300, 96, None, True),
+           ("fma_glu", "matmul_silu_glu", "float32", 70, 33, 200, None, True))
+
+
+def z_output_checks(torch, timer) -> list:
+    """K1's Z output in every body (:data:`Z_CASES`): Z bit-equal to the
+    ``matmul`` (with a bias, ``matmul_bias``) launch of the same schedule
+    key, Y's bits the same with and without Z, Z within its dtype's
+    tolerance of the plain version; and at gemma2's up projection, the
+    launch timed with and without Z (the Z write's cost)."""
+    from repro_torch.core.schedule import Schedule, concretize
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    rows = []
+    for name, class_id, dt, m, k, n, tiles, cache_write in Z_CASES:
+        dtype = getattr(torch, dt)
+        x, w, kw = _mm_inputs(torch, g, m, n, k, class_id, dtype)
+        inst = ops.instance(class_id, dtype, M=m, N=n, K=k)
+        cs = (ops.schedule_for(inst) if tiles is None else
+              concretize(Schedule.make(class_id, tiles, cache_write=cache_write), inst))
+        key = mm.launch_key(x, w, cs, class_id=class_id, **kw)
+        body = mm.launch_geometry(dtype, m, n, k, key[0], key[1], round_k=key[3])
+        want_body = name.split("_")[0]
+        if body[0] != want_body or ("round" in name) != bool(key[3]) or (
+                ("split" in name) != (body[3] > 1)):
+            raise AssertionError(f"Z check {name}: launch {body}, round_k {key[3]}")
+        y0 = mm.launch_as(x, w, key, class_id=class_id, **kw)
+        y1, z = mm.launch_as(x, w, key, class_id=class_id, with_z=True, **kw)
+        plain_class = "matmul" if kw["bias"] is None else "matmul_bias"
+        zk = mm.launch_as(x, w, key, class_id=plain_class, bias=kw["bias"], residual=None,
+                          softcap=0.0)
+        torch.cuda.synchronize()
+        same_y = torch.equal(y0.view(torch.uint8), y1.view(torch.uint8))
+        same_z = torch.equal(z.view(torch.uint8), zk.view(torch.uint8))
+        if not (same_y and same_z):
+            raise AssertionError(f"Z check {name}: Y bits unchanged {same_y}, Z bit-equal to "
+                                 f"the {plain_class} launch {same_z}")
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        err = assert_close(torch, z, ref.matmul(x, w, plain_class, bias=kw["bias"],
+                                                round_k=key[3]), tol, f"Z {name} vs plain")
+        row = {"name": name, "class": class_id, "dtype": dt, "M": m, "K": k, "N": n,
+               "key": list(key), "body": body[0], "split_k": body[3], "ctas": body[4],
+               "z_bits_equal": same_z, "y_bits_unchanged": same_y, "max_abs_err": err}
+        if name == "mma":   # gemma2's GeGLU up projection at the training batch
+            b_ms, b_by = bound_ms(2 * (m * k + k * n + m * n // 2 + m * n), 2 * m * n * k)
+            row.update(without_z_ms=timer.ms(lambda: mm.launch_as(x, w, key, class_id=class_id, **kw)),
+                       ms=timer.ms(lambda: mm.launch_as(x, w, key, class_id=class_id, with_z=True,
+                                                        **kw)),
+                       plain_ms=timer.ms(lambda: ref.matmul(x, w, class_id, with_z=True, **kw),
+                                         iters=3, warmup=1),
+                       bound_ms=b_ms, bound_by=b_by,
+                       # no one library call computes a GLU epilogue
+                       library_ms=None)
+        rows.append(row)
+        del x, w, kw, y0, y1, z, zk
+    torch.cuda.empty_cache()
+    log("matmul_z", cases=rows)
+    return rows
+
+
 def phase_matmul(torch, timer) -> dict:
     from repro_torch.core.schedule import Schedule, concretize
     from repro_torch.kernels import matmul as mm
@@ -794,7 +886,8 @@ def phase_matmul(torch, timer) -> dict:
         del x, w, kw
         torch.cuda.empty_cache()
     rounding = rounding_cases(torch, timer, "matmul")
-    return {"shapes": shapes, "rounding": rounding,
+    z = z_output_checks(torch, timer)
+    return {"shapes": shapes, "rounding": rounding, "z": z,
             "max_abs_err": max([errs[n] for n in errs] + [r["max_abs_err"] for r in shapes])}
 
 
@@ -3768,7 +3861,8 @@ def train_counts(mm, fa, rw, rg, ref) -> dict:
     return {"launches": {"matmul": mm.launches, "grouped_matmul": mm.grouped_launches,
                          "flash_attention": fa.launches, "rwkv6_scan": rw.launches,
                          "rglru_scan": rg.launches},
-            "matmul_grad_launches": mm.grad_launches, "attention_bwd_launches": fa.bwd_launches,
+            "matmul_grad_launches": mm.grad_launches, "matmul_z_launches": mm.z_launches,
+            "attention_bwd_launches": fa.bwd_launches,
             "grouped_grad_launches": mm.grouped_grad_launches,
             "rwkv6_bwd_launches": rw.bwd_launches, "rglru_bwd_launches": rg.bwd_launches,
             "body_launches": body_counts(mm),
@@ -3935,6 +4029,7 @@ def phase_train(torch, timer) -> dict:
                 "init_gib": rec["init_gib"], "peak_gib": peak_gib, "wall_s": wall_s,
                 **counts}
     log("train_main", **main_row)
+    dots_row = dots_train(torch, cfg, argv, main_row)
 
     # --- kernel path against plain path at 2 layers ---------------------------
     cfg2 = dataclasses.replace(cfg, n_layers=2)
@@ -3945,6 +4040,7 @@ def phase_train(torch, timer) -> dict:
     batch = {"tokens": torch.from_numpy(np_batch["tokens"]).cuda()}
     vs_plain = {"layers": 2, **path_agreement(torch, model, params, batch, "train")}
     log("train_vs_plain", **vs_plain)
+    vs_plain["dots"] = dots_check(torch, model, params, batch, TRAIN_ARCH)
 
     # --- checkpoint round trip and resume ------------------------------------
     opt = steps_mod.init_opt_state(params)
@@ -3983,22 +4079,93 @@ def phase_train(torch, timer) -> dict:
     ckpt = {"leaves": n_leaves, "gib": ckpt_gib, "save_s": save_s, "restore_s": restore_s,
             "bit_exact": True, "resumed": resumed}
     log("train_checkpoint", **ckpt)
-    return {"attention_bwd": attn, "matmul_bwd": mmb, "main": main_row, "vs_plain": vs_plain,
-            "checkpoint": ckpt}
+    return {"attention_bwd": attn, "matmul_bwd": mmb, "main": main_row, "dots": dots_row,
+            "vs_plain": vs_plain, "checkpoint": ckpt}
+
+
+def k1_forward_launches(counts: dict) -> int:
+    """K1's forward launches in a run's counts (its launches less its
+    gradient launches)."""
+    return counts["launches"]["matmul"] - counts["matmul_grad_launches"]
+
+
+def dots_train(torch, cfg, argv: list, full_row: dict) -> dict:
+    """The train phase's main run again under ``--remat-policy dots``: the
+    same checks, and against the ``full`` run (``full_row``) the first
+    step's loss bit-equal (the same forward), one gradient launch fewer per
+    gelu or GLU layer a step (Z comes from the forward) and the layers' K1
+    forward launches halved (the recompute launches none).  ms per step
+    and peak GiB beside ``full``'s."""
+    import math
+
+    res, rec, counts, wall_s, peak_gib = instrumented_train(torch, argv + ["--remat-policy", "dots"])
+    steps = res["steps"]
+    if steps != TRAIN_STEPS or not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"train dots: {res}, losses {rec['losses']}")
+    if rec["losses"][0] != full_row["losses"][0]:
+        raise AssertionError(f"train dots: first loss {rec['losses'][0]!r}, full's "
+                             f"{full_row['losses'][0]!r}: not bit-equal")
+    z_layers = cfg.n_layers   # gemma2: one GeGLU up projection a layer
+    grad_full, grad_dots = full_row["matmul_grad_launches"], counts["matmul_grad_launches"]
+    fwd_full, fwd_dots = k1_forward_launches(full_row), k1_forward_launches(counts)
+    if grad_full - grad_dots != z_layers * steps:
+        raise AssertionError(f"train dots: {grad_dots} gradient launches against full's "
+                             f"{grad_full}, want {z_layers} fewer a step")
+    if fwd_full != 2 * fwd_dots - steps:   # in-layer launches twice under full, the head once
+        raise AssertionError(f"train dots: {fwd_dots} K1 forward launches against full's "
+                             f"{fwd_full}: the layers' do not run once")
+    if counts["plain_cuda_calls"] or not attention_bwd_all_mma(counts) or counts[
+            "body_launches"].get("matmul/fma/bfloat16"):
+        raise AssertionError(f"train dots: a plain version, a K2 backward off mma or a bf16 K1 "
+                             f"launch on fma: {counts}")
+    grad_bodies_check("train dots", counts)
+    step_ms = statistics.median(rec["ms"][1:])
+    row = {"remat_policy": "dots", "steps": steps, "losses": rec["losses"],
+           "first_loss_bit_equal_full": True,
+           # not required: the gradients may differ where the forward's Z
+           # rounds otherwise than the gradient body's recompute
+           "losses_bit_equal_full": rec["losses"] == full_row["losses"],
+           "step_ms": rec["ms"], "ms_per_step": step_ms,
+           "full_ms_per_step": full_row["ms_per_step"],
+           "over_full": step_ms / full_row["ms_per_step"],
+           "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3, "init_gib": rec["init_gib"],
+           "peak_gib": peak_gib, "full_peak_gib": full_row["peak_gib"], "wall_s": wall_s,
+           "grad_launches_per_step": grad_dots / steps,
+           "full_grad_launches_per_step": grad_full / steps,
+           "k1_forward_per_step": fwd_dots / steps, "full_k1_forward_per_step": fwd_full / steps,
+           **counts}
+    log("train_dots", **row)
+    return row
+
+
+def dots_check(torch, model, params, batch, what: str, control: bool = False) -> dict:
+    """The 2-layer checks under ``dots``: the kernel path against the plain
+    path (:func:`path_agreement`, the same bounds) and two kernel-path steps
+    bit-equal (:func:`steps_bit_equal`)."""
+    from repro_torch.distributed.context import using_remat_policy
+
+    with using_remat_policy("dots"):
+        out = path_agreement(torch, model, params, batch, f"{what}_dots", control=control)
+        free_engines(torch)
+        out["steps_bit_equal"] = steps_bit_equal(torch, model, batch)
+    log("dots_check", arch=what, **out)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # train_families: the MoE, recurrent and audio families trained on the card
 # ---------------------------------------------------------------------------
 
-#: (arch, layers kept (0: all), batch, sequence): rwkv6-1.6b and
-#: recurrentgemma-2b at full depth; mixtral-8x22b at 1 of 56 layers (one
-#: layer's state, ~38 GiB at ~14 bytes a parameter, fills half the card);
-#: whisper-medium at 24 + 24 layers, its decoder's context of 448 tokens
-#: and 1500 stub frames.  All at full width, bf16, AdamW at lr 3e-3, remat
-#: ``full`` (the trainer's defaults).
-FAMILIES = (("rwkv6-1.6b", 0, 4, 512), ("recurrentgemma-2b", 0, 4, 512),
-            ("mixtral-8x22b", 1, 4, 512), ("whisper-medium", 0, 4, 448))
+#: (arch, layers kept (0: all), batch, sequence): rwkv6-1.6b at 12 of 24
+#: layers and recurrentgemma-2b at 13 of 26 (cut to keep the whole script
+#: near 700 s; they were at full depth before, PERF.md §4); mixtral-8x22b
+#: at 1 of 56 layers (one layer's state, ~38 GiB at ~14 bytes a parameter,
+#: fills half the card); whisper-medium at 12 of its 24 decoder layers
+#: (``--layers`` keeps its 24 encoder layers), its decoder's context of 448
+#: tokens and 1500 stub frames.  All at full width, bf16, AdamW at lr 3e-3,
+#: remat ``full`` (the trainer's defaults).
+FAMILIES = (("rwkv6-1.6b", 12, 4, 512), ("recurrentgemma-2b", 13, 4, 512),
+            ("mixtral-8x22b", 1, 4, 512), ("whisper-medium", 12, 4, 448))
 #: steps per family: the median of steps 2-4 is the step time
 FAMILY_STEPS = 4
 #: depth of the kernel-vs-plain check and of the bit-equality steps (both
@@ -4440,6 +4607,10 @@ def phase_train_families(torch, timer) -> dict:
         row["steps_bit_equal"] = steps_bit_equal(torch, model, data)
         log("families_check", arch=arch, vs_plain=row["vs_plain"],
             steps_bit_equal=row["steps_bit_equal"])
+        params = model.init(5)
+        row["dots"] = dots_check(torch, model, params, data, arch, control=True)
+        del params
+        free_engines(torch)
         del model, data
         free_engines(torch)
         runs.append(row)
@@ -4772,6 +4943,7 @@ def profile_steps(torch) -> dict:
 
     from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig, SyntheticSource
+    from repro_torch.distributed.context import using_remat_policy
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import build_model
@@ -4791,6 +4963,11 @@ def profile_steps(torch) -> dict:
         step(params, opt, batch)
     out["train"] = first_whole_capture(torch, "train_step", lambda: step(params, opt, batch))
     out["copies"] = {TRAIN_ARCH: copy_split(torch, lambda: step(params, opt, batch))}
+    with using_remat_policy("dots"):   # the same step under the dots remat policy
+        for _ in range(2):
+            step(params, opt, batch)
+        out["train_dots"] = first_whole_capture(torch, "train_dots_step",
+                                                lambda: step(params, opt, batch))
     del params, opt, step
     free_engines(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as d:
@@ -4843,6 +5020,45 @@ def phase_step_profiles(torch) -> dict:
     return res
 
 
+#: quickstart's step 5, K1 (f32, 64x48x64, N(0, 1) inputs: outputs up to
+#: ~30) against its plain version: the f32 tolerance, 2e-4 + 2e-4·|y|
+QUICKSTART_ERR = 2e-4 * (1 + 30)
+
+
+def phase_examples(torch) -> dict:
+    """Three of the port's examples once on the card, through their
+    ``main`` (what ``python -m repro_torch.examples.<name>`` runs):
+    ``quickstart`` (step 5 launches K1), ``serve_lm`` (the slot engine on
+    three reduced archs) and ``train_lm`` for 60 steps (it fails unless the
+    loss falls).  In this process: a process of its own takes ~10 s to
+    reach the card.  The main path's launch counts are not theirs."""
+    import importlib
+    import io
+    import tempfile
+
+    free_engines(torch)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as d:
+        runs = {"quickstart": ["--db", str(Path(d) / "db.json")], "serve_lm": [],
+                "train_lm": ["--steps", "60", "--out", str(Path(d) / "train_lm")]}
+        for name, args in runs.items():
+            module = importlib.import_module(f"repro_torch.examples.{name}")
+            buf = io.StringIO()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                module.main(args)
+            torch.cuda.synchronize()
+            out[name] = {"seconds": time.monotonic() - t0,
+                         "stdout": buf.getvalue().strip().splitlines()[-4:]}
+            free_engines(torch)
+    step5 = next(ln for ln in out["quickstart"]["stdout"] if "kernel-vs-plain max err" in ln)
+    err = float(step5.split("max err:")[1].split()[0])
+    if not step5.endswith("(cuda)") or err > QUICKSTART_ERR:
+        raise AssertionError(f"quickstart's step 5: {step5}")
+    log("examples", **out)
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -4873,16 +5089,23 @@ def main(argv: list[str]) -> int:
     # the plain versions run in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_s = {}
 
-    phase_build()
-    phase_l2_flush(torch)
+    def phase(name, fn, *args):   # each phase's wall seconds
+        t0 = time.monotonic()
+        out = fn(*args)
+        phase_s[name] = time.monotonic() - t0
+        return out
+
+    phase("build", phase_build)
+    phase("l2_flush", phase_l2_flush, torch)
     timer = Timer(torch)
-    mmr = phase_matmul(torch, timer)
-    far = phase_attention(torch, timer)
-    scr = phase_scans(torch, timer)
-    prime = phase_prime_matmul(torch, timer)
-    grr = phase_grouped(torch, timer)
-    chunk = phase_chunk_kernels(torch, timer)
+    mmr = phase("matmul", phase_matmul, torch, timer)
+    far = phase("attention", phase_attention, torch, timer)
+    scr = phase("scans", phase_scans, torch, timer)
+    prime = phase("prime_matmul", phase_prime_matmul, torch, timer)
+    grr = phase("grouped", phase_grouped, torch, timer)
+    chunk = phase("chunk_kernels", phase_chunk_kernels, torch, timer)
     under = under_bytes_bound(mmr["shapes"] + mmr["rounding"] + far["shapes"] + far["slice"]
                               + scr["rwkv6"]["shapes"] + scr["rglru"]["shapes"] + prime
                               + grr["shapes"] + grr["rounding"]
@@ -4890,34 +5113,39 @@ def main(argv: list[str]) -> int:
     log("bytes_bound_check", under=under)
     if under:
         raise AssertionError(f"timings under their bytes bound (data left in the L2): {under}")
-    tuning, tuned_db = phase_tuning(torch, timer)
+    tuning, tuned_db = phase("tuning", phase_tuning, torch, timer)
     del timer
     torch.cuda.empty_cache()
-    srv = [phase_serve(torch, arch) for arch in SERVE_KERNELS]
-    tuned = phase_serve_tuned(torch, tuned_db, next(r for r in srv if r["arch"] == TUNED_ARCH))
-    paged = phase_paged(torch, srv)
-    spec = phase_spec(torch)
-    fleet = phase_fleet(torch, tuned_db, srv)
-    train = phase_train(torch, Timer(torch))
+    srv = [phase(f"serve/{arch}", phase_serve, torch, arch) for arch in SERVE_KERNELS]
+    tuned = phase("serve_tuned", phase_serve_tuned, torch, tuned_db,
+                  next(r for r in srv if r["arch"] == TUNED_ARCH))
+    paged = phase("paged", phase_paged, torch, srv)
+    spec = phase("spec", phase_spec, torch)
+    fleet = phase("fleet", phase_fleet, torch, tuned_db, srv)
+    train = phase("train", phase_train, torch, Timer(torch))
     under = under_bytes_bound(train["attention_bwd"]["timed"])
     if under:
         raise AssertionError(f"train timings under their bytes bound: {under}")
-    fam = phase_train_families(torch, Timer(torch))
+    fam = phase("train_families", phase_train_families, torch, Timer(torch))
     k = fam["kernels"]
     under = under_bytes_bound([r for r in k["rwkv6_bwd"] + k["rglru_bwd"] if "ms" in r]
                               + k["attention_bwd"]
                               + [r[part] for r in k["grouped_bwd"] for part in ("dx", "dw")])
     if under:
         raise AssertionError(f"train_families timings under their bytes bound: {under}")
-    dist_r = phase_dist(torch, train["main"]["ms_per_step"])
-    profiles = phase_step_profiles(torch)
+    dist_r = phase("dist", phase_dist, torch, train["main"]["ms_per_step"])
+    profiles = phase("step_profiles", phase_step_profiles, torch)
+    examples = phase("examples", phase_examples, torch)
     train["main"]["profile"], dist_r["main"]["profile"] = profiles["train"], profiles["dist"]
+    train["dots"]["profile"] = profiles["train_dots"]
+    log("train_dots_profile", profile=profiles["train_dots"])
     for run in fam["runs"]:
         run["profile"] = profiles["families"][run["arch"]]
     log("families_profiles", **{r["arch"]: r["profile"] for r in fam["runs"]})
     log("copy_sites", **profiles["copies"])
     # main-path runs, counts read apart
-    paths = {"slot": srv, "paged": paged, "spec": [spec], "fleet": fleet, "train": [train["main"]],
+    paths = {"slot": srv, "paged": paged, "spec": [spec], "fleet": fleet,
+             "train": [train["main"], train["dots"]],
              "families": fam["runs"], "dist": [dist_r["main"]]}
 
     def count(r, name, body=None):   # one run's launches of a kernel (of one body)
@@ -5021,6 +5249,17 @@ def main(argv: list[str]) -> int:
            **timed(row, ("B", "Hq", "Hkv", "Sq", "KV", "D", "causal", "ctas"))}
           for c, row in (("flash_attention_bidir", rep_bidir), ("flash_attention_cross", rep_cross))),
     ]
+    # K1 writing Z beside Y (the dots remat policy's), at gemma2's GeGLU up
+    # projection: its launches are the train phase's dots run's
+    rep_z = next(r for r in mmr["z"] if r["name"] == "mma")
+    kernels.append(
+        {"name": "matmul_with_z", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:205", "body": rep_z["body"],
+         "launches": train["dots"]["matmul_z_launches"],
+         "launches_by_path": {"train": train["dots"]["matmul_z_launches"]},
+         "max_abs_err": max(r["max_abs_err"] for r in mmr["z"]),
+         "without_z_ms": rep_z["without_z_ms"], "z_bits_equal": True, "y_bits_unchanged": True,
+         **timed(rep_z, ("class", "M", "K", "N", "ctas"))})
     # the slice's backward kernels: K2's at gemma2's local layer (SDPA's
     # forward and backward beside it), K1's dX at the GeGLU up projection
     rep_bwd = next(r for r in train["attention_bwd"]["timed"] if r["name"] == "gemma2_local")
@@ -5063,7 +5302,7 @@ def main(argv: list[str]) -> int:
         counter = {"flash_attention_bwd": "attention_bwd_launches",
                    "matmul_bwd": "matmul_grad_launches"}.get(row["name"])
         if counter:
-            row["launches_by_path"] = {"train": train["main"][counter],
+            row["launches_by_path"] = {"train": train["main"][counter] + train["dots"][counter],
                                        "families": fam_count(counter)}
             row["launches"] = sum(row["launches_by_path"].values())
     next(r for r in kernels if r["name"] == "flash_attention_bwd")["families"] = [
@@ -5124,7 +5363,9 @@ def main(argv: list[str]) -> int:
             row["launches_by_path"] = by_path(row["name"].removesuffix("_decode")
                                               .removesuffix("_prefill"), row["body"])
     print(json.dumps({"tuning": tuning}))
+    print(json.dumps({"examples": examples}))
     log("done", seconds=time.monotonic() - t_start)
+    print(json.dumps({"phase_seconds": {**phase_s, "total": time.monotonic() - t_start}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,10 +15,13 @@ once per forward: it captures the gather for the layers' recompute, which
 runs on autograd's thread.
 
 The reference's remat policies are ``jax.checkpoint`` policies; here the
-models read the policy's name.  ``full`` (the default) saves nothing inside
-a layer: each layer runs under ``torch.utils.checkpoint.checkpoint`` and is
-recomputed in the backward.  ``dots`` (save the matmul outputs) is not
-realised yet (ROADMAP A.8): a model asked for it raises.
+models read the policy's name (``models.lm.rematted``).  Each layer runs
+under ``torch.utils.checkpoint.checkpoint``.  ``full`` (the default) saves
+nothing inside a layer and recomputes it in the backward.  ``dots`` saves
+the outputs of the layer's K1 launches (the reference's
+``dots_with_no_batch_dims_saveable``) through selective checkpointing and
+recomputes the rest, so no K1 forward runs twice; the gelu and GLU classes
+keep their pre-activation too.
 """
 from __future__ import annotations
 
@@ -80,7 +83,7 @@ def param_gather():
 
 def set_remat_policy(name: str | None) -> None:
     """'full' (default: recompute everything, save layer boundaries only)
-    or 'dots' (save matmul outputs; not realised yet, see the module)."""
+    or 'dots' (save K1's outputs, recompute the rest; see the module)."""
     if name is not None and name not in REMAT_POLICIES:
         raise ValueError(f"remat policy must be one of {REMAT_POLICIES}, got {name!r}")
     _tls.remat_policy = name
@@ -88,3 +91,14 @@ def set_remat_policy(name: str | None) -> None:
 
 def remat_policy() -> str:
     return getattr(_tls, "remat_policy", None) or "full"
+
+
+@contextlib.contextmanager
+def using_remat_policy(name: str | None):
+    """:func:`set_remat_policy` for the block; the previous policy after it."""
+    prev = getattr(_tls, "remat_policy", None)
+    set_remat_policy(name)
+    try:
+        yield
+    finally:
+        _tls.remat_policy = prev

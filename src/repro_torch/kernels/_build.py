@@ -39,8 +39,8 @@ _L = ctypes.c_longlong
 #: C entry points and their argument types (pointers, ints, floats, 64-bit
 #: ints, stream)
 SIGNATURES = {
-    "repro_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _P, _P],
+    "repro_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _P, _P],
     "repro_grouped_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -73,6 +73,13 @@
 // (matmul_rows_round_kernel, K never split); the mma body rounds its f32
 // accumulator fragments in place where a K tile ends, and splits an MMA step
 // that a tile boundary crosses (mma_round_step).
+//
+// Z (K1 only, under the `dots` remat policy: kernels/matmul.py MatmulFn).
+// Where the caller passes z, every body also writes Z = the pre-epilogue sum
+// plus the bias, (M, N) in x's dtype, beside the output: the value a kNone
+// launch (class matmul, or matmul_bias with the bias) of the same schedule
+// writes, bit for bit, since it is the same f32 sum rounded once.  The
+// output's bits do not change; a null z writes nothing (K1g passes none).
 #include <algorithm>
 
 #include "mma.cuh"
@@ -85,6 +92,7 @@ enum Epilogue : int {
 
 struct MatmulArgs {
   const void* x; const void* w; const float* bias; const float* residual; void* out;
+  void* z;                      // Z (M, N), the pre-epilogue sums plus bias, or null
   int m, n, k, n_out;           // per expert when grouped
   int epi; float softcap;
   int tile_m, tile_n, tiles_m, tiles_n, m_outer;   // logical tiles
@@ -98,15 +106,16 @@ struct MatmulArgs {
 // f32 -> bf16 -> f32: a partial sum as the reference's bf16 output block holds it
 __device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
-// This CTA's expert's slices of x, w and out (blockIdx.y = expert).
+// This CTA's expert's slices of x, w, out and z (blockIdx.y = expert).
 template <typename T>
 struct ExpertPtrs {
-  const T* x; const T* w; T* out;
+  const T* x; const T* w; T* out; T* z;
   __device__ __forceinline__ explicit ExpertPtrs(const MatmulArgs& a) {
     const size_t e = blockIdx.y;
     x = static_cast<const T*>(a.x) + e * a.m * a.k;
     w = static_cast<const T*>(a.w) + e * a.k * a.n;
     out = static_cast<T*>(a.out) + e * a.m * a.n_out;
+    z = a.z ? static_cast<T*>(a.z) + e * a.m * a.n : nullptr;
   }
 };
 
@@ -119,9 +128,20 @@ __device__ __forceinline__ void tile_origin(const MatmulArgs& a, int t, int* m0,
   *n0 = tn * a.tile_n;
 }
 
+// The f32 sum y at column n plus its bias: the epilogue's input, and Z.
+__device__ __forceinline__ float with_bias(const MatmulArgs& a, float y, int n) {
+  return a.bias ? y + a.bias[n] : y;
+}
+
+// Z at (row, n) from its f32 sum y, where the caller asked for it.
+template <typename T>
+__device__ __forceinline__ void store_z(const MatmulArgs& a, T* z, int row, int n, float y) {
+  if (z) z[(size_t)row * a.n + n] = from_f<T>(with_bias(a, y, n));
+}
+
 // Epilogue for one output element whose f32 sum is y at column n (non-GLU).
 __device__ __forceinline__ float epilogue1(const MatmulArgs& a, float y, int row, int n) {
-  if (a.bias) y += a.bias[n];
+  y = with_bias(a, y, n);
   switch (a.epi) {
     case kGelu: y = gelu_tanh(y); break;
     case kResidual: y += a.residual[(size_t)row * a.n_out + n]; break;
@@ -133,7 +153,8 @@ __device__ __forceinline__ float epilogue1(const MatmulArgs& a, float y, int row
 
 // GLU epilogue: gate at even column n, up at n + 1; emits column n / 2.
 __device__ __forceinline__ float epilogue_glu(const MatmulArgs& a, float g, float u, int n) {
-  if (a.bias) { g += a.bias[n]; u += a.bias[n + 1]; }
+  g = with_bias(a, g, n);
+  u = with_bias(a, u, n + 1);
   return (a.epi == kSiluGlu ? silu(g) : gelu_tanh(g)) * u;
 }
 
@@ -307,12 +328,15 @@ __global__ void __launch_bounds__(kRowsThreads, 2) matmul_rows_kernel(MatmulArgs
           for (int wi = 0; wi < kWarps; ++wi) { g += red[wi][r][2 * j]; u += red[wi][r][2 * j + 1]; }
           y = epilogue_glu(a, g, u, cn0 + 2 * j);
           ocol = (cn0 + 2 * j) / 2;
+          store_z(a, p.z, row, cn0 + 2 * j, g);
+          store_z(a, p.z, row, cn0 + 2 * j + 1, u);
         } else {
           float s = 0.f;
 #pragma unroll
           for (int wi = 0; wi < kWarps; ++wi) s += red[wi][r][j];
           ocol = cn0 + j;
           y = epilogue1(a, s, row, ocol);
+          store_z(a, p.z, row, ocol, s);
         }
         p.out[(size_t)row * a.n_out + ocol] = from_f<T>(y);
       }
@@ -338,11 +362,14 @@ __global__ void __launch_bounds__(256) matmul_rows_reduce_kernel(MatmulArgs a) {
       float g = ws[at], u = ws[at + 1];
       for (int j = 1; j < a.split_k; ++j) { g += ws[j * plane + at]; u += ws[j * plane + at + 1]; }
       y = epilogue_glu(a, g, u, 2 * oc);
+      store_z(a, p.z, row, 2 * oc, g);
+      store_z(a, p.z, row, 2 * oc + 1, u);
     } else {
       const size_t at = (size_t)row * a.n + oc;
       float s = ws[at];
       for (int j = 1; j < a.split_k; ++j) s += ws[j * plane + at];
       y = epilogue1(a, s, row, oc);
+      store_z(a, p.z, row, oc, s);
     }
     p.out[(size_t)row * a.n_out + oc] = from_f<T>(y);
   }
@@ -497,6 +524,7 @@ __global__ void __launch_bounds__(kRowsThreads) matmul_rows_round_kernel(MatmulA
     if (owner) {
       const int row = r0 + orow, oc = cn0 + ocol;
       p.out[(size_t)row * a.n_out + oc] = from_f<T>(epilogue1(a, chain, row, oc));
+      store_z(a, p.z, row, oc, chain);
     }
   }
 }
@@ -700,6 +728,11 @@ __global__ void __launch_bounds__(Tile::kThreads) matmul_mma_kernel(MatmulArgs a
         } else {
           o[col] = from_f<bf16>(epilogue1(a, y0, row, col));
         }
+        if (p.z) {   // Z's row stride is N, the output's N / 2 under a GLU
+          bf16* zr = p.z + (size_t)row * a.n;
+          if (col + 1 < cn1) store2(zr + col, with_bias(a, y0, col), with_bias(a, y1, col + 1));
+          else zr[col] = from_f<bf16>(with_bias(a, y0, col));
+        }
       }
     }
   }
@@ -769,14 +802,20 @@ __global__ void __launch_bounds__(256) matmul_fma_kernel(MatmulArgs a) {
 #pragma unroll
           for (int j = 0; j < 4; j += 2) {
             const int n = sn0 + tx * 4 + j;  // even: gate at n, up at n + 1
-            if (n < n1)
+            if (n < n1) {
               out[(size_t)row * a.n_out + n / 2] = from_f<T>(epilogue_glu(a, acc[i][j], acc[i][j + 1], n));
+              store_z(a, p.z, row, n, acc[i][j]);
+              store_z(a, p.z, row, n + 1, acc[i][j + 1]);
+            }
           }
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int n = sn0 + tx * 4 + j;
-            if (n < n1) out[(size_t)row * a.n_out + n] = from_f<T>(epilogue1(a, acc[i][j], row, n));
+            if (n < n1) {
+              out[(size_t)row * a.n_out + n] = from_f<T>(epilogue1(a, acc[i][j], row, n));
+              store_z(a, p.z, row, n, acc[i][j]);
+            }
           }
         }
       }
@@ -870,17 +909,18 @@ int run(MatmulArgs& a, int dtype, void* stream) {
 }  // namespace repro
 
 // C entry point bound with ctypes.  bias (N,) and residual (M, N_out) are f32
-// (the wrapper converts them: the reference reads both into f32).  round_k:
+// (the wrapper converts them: the reference reads both into f32).  z: Z
+// (M, N) in x's dtype, written beside out where not null.  round_k:
 // the rounding mode's K tile, 0 for f32 sums throughout.  ws: the rows body's
 // f32 workspace (split_k, M, N) when split_k > 1, else unused.  Returns a
 // cudaError_t: the launch's, or cudaErrorInvalidValue for bad arguments.
 extern "C" int repro_matmul(const void* x, const void* w, const void* bias, const void* residual,
-                            void* out, int m, int n, int k, int dtype, int epi, float softcap,
+                            void* out, void* z, int m, int n, int k, int dtype, int epi, float softcap,
                             int tile_m, int tile_n, int m_outer, int cta_m, int cta_n, int ctas,
                             int split_k, int round_k, void* ws, void* stream) {
   repro::MatmulArgs a{};
   a.x = x; a.w = w; a.bias = static_cast<const float*>(bias);
-  a.residual = static_cast<const float*>(residual); a.out = out;
+  a.residual = static_cast<const float*>(residual); a.out = out; a.z = z;
   a.m = m; a.n = n; a.k = k;
   a.epi = epi; a.softcap = softcap;
   a.tile_m = tile_m; a.tile_n = tile_n; a.m_outer = m_outer; a.groups = 1;

@@ -82,12 +82,13 @@ A tensor on the CPU takes the plain version (:func:`repro_torch.kernels.ref.matm
 kernel or raises.  ``launches`` and ``grouped_launches`` count launches per
 kernel, ``body_launches`` per kernel, body and dtype.
 
-Under autograd a CUDA tensor goes through :class:`MatmulFn`: the forward is
-the same launch (the same bits as without a gradient).  For ``y =
-epilogue(x·w)``: the epilogue's derivative is elementwise torch in f32
-(autograd of :func:`~repro_torch.kernels.ref.apply_epilogue`, on the
-pre-activation recomputed by one more gradient launch for the gelu and GLU
-classes; the softcap's ``1 - tanh²`` from the output), then ``dX = dZ·wᵀ``
+Under autograd a tensor goes through :class:`MatmulFn`: the forward is the
+same launch, the same bits as without a gradient (a CPU tensor takes the
+plain version).  For ``y = epilogue(x·w)``: the epilogue's derivative is
+elementwise torch in f32 (autograd of
+:func:`~repro_torch.kernels.ref.apply_epilogue`, on the pre-activation Z
+for the gelu and GLU classes; the softcap's ``1 - tanh²`` from the output),
+then ``dX = dZ·wᵀ``
 and ``dW = xᵀ·dZ`` (a tied head's ``dE = dZᵀ·x``) are two gradient launches
 (:func:`grad_launch`, ``csrc/matmul_grad.cu``) that read ``wᵀ``, ``xᵀ`` and
 ``dZᵀ`` where they lie, as views, each under the default schedule of its
@@ -98,6 +99,16 @@ and expert stride are multiples of 16 bytes: TMA and Hopper's warpgroup
 products), ``mma`` (other bf16: the forward's tensor-core body with operand
 modes) or ``fma`` (f32), a rule by dtype and alignment.  ``grad_launches``
 counts the launches, ``grad_body_launches`` per body.
+
+Z comes from one of two places.  Under the ``full`` remat policy one more
+gradient launch recomputes it in the backward.  Inside a layer that the
+``dots`` policy remats (:func:`saving_dots`), K1's forward is one dispatcher
+op, ``torch.ops.repro_torch.matmul`` (:func:`matmul_op`), whose outputs the
+policy saves (``torch.utils.checkpoint``'s selective checkpointing), so the
+recompute takes them from the forward instead of launching it again; and
+for the gelu and GLU classes (:data:`Z_CLASSES`) the launch also writes Z
+beside Y (``with_z``: the same f32 sums, rounded once; Y's bits unchanged),
+which the backward reads in place of the recomputing launch.
 
 The grouped kernel (K1g) goes through :class:`GroupedMatmulFn` alike: the
 forward is :func:`grouped_launch`, and for ``y[e] = epilogue(x[e]·w[e])``
@@ -114,7 +125,9 @@ the same views, which a CPU tensor takes.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
+import threading
 
 import torch
 
@@ -160,6 +173,8 @@ round_launches: collections.Counter = collections.Counter()
 #: gradient launches of :class:`MatmulFn`'s backward (also counted in
 #: ``launches`` and, by body, in ``body_launches``)
 grad_launches = 0
+#: K1 launches that wrote Z beside Y (``with_z``; also counted in ``launches``)
+z_launches = 0
 #: gradient launches of :class:`GroupedMatmulFn`'s backward (also counted in
 #: ``grouped_launches``)
 grouped_grad_launches = 0
@@ -171,7 +186,9 @@ grad_body_launches: collections.Counter = collections.Counter()
 def reset_launches() -> None:
     """Set every count to 0."""
     global launches, grouped_launches, row_tile_launches, grad_launches, grouped_grad_launches
+    global z_launches
     launches = grouped_launches = row_tile_launches = grad_launches = grouped_grad_launches = 0
+    z_launches = 0
     body_launches.clear()
     round_launches.clear()
     grad_body_launches.clear()
@@ -332,11 +349,24 @@ def matmul(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
 
 def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
            class_id: str = "matmul", bias: torch.Tensor | None = None,
-           residual: torch.Tensor | None = None, softcap: float = 0.0) -> torch.Tensor:
-    """Launch the CUDA kernel; raises on anything it does not take."""
-    global launches, row_tile_launches
+           residual: torch.Tensor | None = None, softcap: float = 0.0,
+           with_z: bool = False) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel; raises on anything it does not take.  With
+    ``with_z``, returns (Y, Z): Z (M, N) in x's dtype is the pre-epilogue
+    sum plus the bias, bit for bit the output of a ``matmul`` launch (with a
+    bias: ``matmul_bias``) of the same schedule key; Y's bits do not change."""
     if not x.is_cuda:
         raise ValueError(f"the matmul kernel runs on a CUDA tensor, got {x.device}")
+    key = launch_key(x, w, cs, class_id=class_id, bias=bias, residual=residual, softcap=softcap)
+    return launch_as(x, w, key, class_id=class_id, bias=bias, residual=residual,
+                     softcap=softcap, with_z=with_z)
+
+
+def launch_key(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *, class_id: str,
+               bias: torch.Tensor | None, residual: torch.Tensor | None,
+               softcap: float) -> tuple[int, int, bool, int]:
+    """The launch's :func:`schedule_key`; raises on anything the kernel does
+    not take (any device)."""
     if class_id not in EPILOGUE:
         raise ValueError(f"matmul kernel has no class {class_id!r}")
     if x.dtype not in DTYPES or w.dtype != x.dtype:
@@ -350,9 +380,9 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     if (cs.instance.class_id, cs.instance.p["M"], cs.instance.p["N"], cs.instance.p["K"]) != (class_id, m, n, k):
         raise ValueError(f"schedule for {cs.instance} does not fit {class_id} ({m},{k})x({k},{n})")
     glu = class_id in GLU_CLASSES
-    tile_m, tile_n, m_outer, round_k = schedule_key(cs)
-    if glu and (n % 2 or tile_n % 2):
-        raise ValueError(f"GLU epilogue needs even N and N tile, got {n}, {tile_n}")
+    key = schedule_key(cs)
+    if glu and (n % 2 or key[1] % 2):
+        raise ValueError(f"GLU epilogue needs even N and N tile, got {n}, {key[1]}")
     n_out = n // 2 if glu else n
     if class_id == "matmul_residual":
         if residual is None or tuple(residual.shape) != (m, n_out):
@@ -363,12 +393,24 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
         raise ValueError("matmul_lmhead_softcap needs softcap > 0")
     if bias is not None and tuple(bias.shape) != (n,):
         raise ValueError(f"bias must have shape {(n,)}, got {tuple(bias.shape)}")
+    return key
+
+
+def launch_as(x: torch.Tensor, w: torch.Tensor, key: tuple[int, int, bool, int], *,
+              class_id: str, bias: torch.Tensor | None, residual: torch.Tensor | None,
+              softcap: float, with_z: bool = False) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """The launch of :func:`launch` under a checked :func:`launch_key`."""
+    global launches, row_tile_launches, z_launches
+    m, k = x.shape
+    n = w.shape[1]
+    tile_m, tile_n, m_outer, round_k = key
     # the reference reads bias and residual into f32 before adding them
     bias32 = bias.to(device=x.device, dtype=torch.float32).contiguous() if bias is not None else None
     res32 = residual.to(device=x.device, dtype=torch.float32).contiguous() if residual is not None else None
-    out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, n // 2 if class_id in GLU_CLASSES else n), dtype=x.dtype, device=x.device)
+    z = torch.empty((m, n), dtype=x.dtype, device=x.device) if with_z else None
     if m == 0:
-        return out
+        return (out, z) if with_z else out
     body, cta_m, cta_n, split_k, ctas = launch_geometry(x.dtype, m, n, k, tile_m, tile_n,
                                                         round_k=round_k)
     ws = _workspace(x, 1, split_k, m, n)
@@ -377,16 +419,59 @@ def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
         x.data_ptr(), w.data_ptr(),
         bias32.data_ptr() if bias32 is not None else None,
         res32.data_ptr() if res32 is not None else None,
-        out.data_ptr(), m, n, k, DTYPES[x.dtype], EPILOGUE[class_id], float(softcap),
-        tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas, split_k, round_k,
-        ws.data_ptr() if ws is not None else None, _build.stream_handle(x.device))
+        out.data_ptr(), z.data_ptr() if with_z else None, m, n, k, DTYPES[x.dtype],
+        EPILOGUE[class_id], float(softcap), tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas,
+        split_k, round_k, ws.data_ptr() if ws is not None else None,
+        _build.stream_handle(x.device))
     _build.check(rc, "matmul kernel")
     launches += 1
+    z_launches += with_z
     row_tile_launches += tile_m == 1 < m
     body_launches["matmul", body, x.dtype] += 1
     if round_k:
         round_launches["matmul", body] += 1
-    return out
+    return (out, z) if with_z else out
+
+
+@torch.library.custom_op(
+    "repro_torch::matmul", mutates_args=(),
+    schema="(Tensor x, Tensor w, Tensor? bias, Tensor? residual, str class_id, float softcap, "
+           "int tile_m, int tile_n, bool m_outer, int round_k, bool with_z) -> Tensor[]")
+def matmul_op(x, w, bias, residual, class_id, softcap, tile_m, tile_n, m_outer, round_k,
+              with_z):
+    """K1's forward as one dispatcher op, so that a selective-checkpoint
+    policy can see and save its outputs: [Y], or [Y, Z] with ``with_z``
+    (:func:`launch`).  A CUDA tensor launches the kernel under the checked
+    schedule key (tile_m, tile_n, m_outer, round_k); a CPU tensor takes the
+    plain version, ``ref.matmul``."""
+    if x.is_cuda:
+        out = launch_as(x, w, (tile_m, tile_n, m_outer, round_k), class_id=class_id, bias=bias,
+                        residual=residual, softcap=softcap, with_z=with_z)
+    else:
+        out = ref.matmul(x, w, class_id, bias=bias, residual=residual, softcap=softcap,
+                         round_k=round_k, with_z=with_z)
+    return list(out) if with_z else [out]
+
+
+_tls = threading.local()
+
+
+@contextlib.contextmanager
+def saving_dots(on: bool = True):
+    """K1's forward launches in the block (on this thread) are what the
+    ``dots`` remat policy saves: :class:`MatmulFn` runs them as
+    :func:`matmul_op` and, for :data:`Z_CLASSES`, writes and keeps Z."""
+    prev = dots_saved()
+    _tls.dots = on
+    try:
+        yield
+    finally:
+        _tls.dots = prev
+
+
+def dots_saved() -> bool:
+    """Whether this thread is inside :func:`saving_dots`."""
+    return getattr(_tls, "dots", False)
 
 
 def _grad_cs(class_id: str, dtype: torch.dtype, **params: int) -> ConcreteSchedule:
@@ -568,17 +653,24 @@ def grad_launch(a: torch.Tensor, b: torch.Tensor, class_id: str = "matmul",
 #: the classes whose epilogue has a derivative: dL/dZ is not dL/dY
 ACTIVATION_CLASSES = ("matmul_lmhead_softcap", "matmul_bias_gelu", "matmul_silu_glu",
                       "matmul_gelu_glu")
+#: the activation classes whose derivative reads Z (the softcap's reads Y)
+Z_CLASSES = ("matmul_bias_gelu", "matmul_silu_glu", "matmul_gelu_glu")
 
 
-def epilogue_grad(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
-                  class_id: str, bias: torch.Tensor | None, softcap: float) -> torch.Tensor:
+def epilogue_grad(x: torch.Tensor, w: torch.Tensor, saved: torch.Tensor | None,
+                  dy: torch.Tensor, class_id: str, bias: torch.Tensor | None,
+                  softcap: float) -> torch.Tensor:
     """dL/dZ (f32) of ``y = epilogue(Z)`` (``Z = x·w``, plus ``bias``) at ``dy``
-    for the :data:`ACTIVATION_CLASSES`."""
+    for the :data:`ACTIVATION_CLASSES`.  ``saved``: Y for the softcap; for
+    :data:`Z_CLASSES`, Z as the forward wrote it, or None, and then one
+    gradient launch recomputes it."""
     dyf = dy.float()
     if class_id == "matmul_lmhead_softcap":
-        t = y.float() / softcap                     # tanh(z / c)
+        t = saved.float() / softcap                 # tanh(z / c)
         return dyf * (1.0 - t * t)
-    z = grad_launch(x, w, "matmul" if bias is None else "matmul_bias", bias=bias)
+    z = saved
+    if z is None:
+        z = grad_launch(x, w, "matmul" if bias is None else "matmul_bias", bias=bias)
     with torch.enable_grad():
         zf = z.float().requires_grad_()
         return torch.autograd.grad(ref.apply_epilogue(zf, class_id), zf, dyf)[0]
@@ -596,27 +688,41 @@ def in_place(t: torch.Tensor) -> torch.Tensor:
 
 
 class MatmulFn(torch.autograd.Function):
-    """K1 under autograd on CUDA tensors: ``launch`` forward, K1 backward.
+    """K1 under autograd: the forward launch (a CPU tensor: the plain
+    version), K1 backward.  Inside :func:`saving_dots` the forward is
+    :func:`matmul_op`, writing Z for :data:`Z_CLASSES`.
 
     ``transpose_of`` (or None): the (N, K) tensor that ``w`` is a contiguous
     transposed copy of (a tied LM head's ``embed``).  Its gradient is
-    returned in place of ``w``'s, and it is ``dX``'s operand as it is."""
+    returned in place of ``w``'s, and it is ``dX``'s operand as it is.
+
+    Saved for the backward: x, w, ``transpose_of``, the bias and what the
+    epilogue's derivative reads (:func:`epilogue_grad`): Y for the softcap,
+    Z where the forward wrote it, else None."""
 
     @staticmethod
     def forward(ctx, x, w, transpose_of, bias, residual, cs, class_id, softcap):
-        y = launch(x, w, cs, class_id=class_id, bias=bias, residual=residual, softcap=softcap)
+        saved = None
+        if dots_saved():
+            with_z = class_id in Z_CLASSES
+            key = launch_key(x, w, cs, class_id=class_id, bias=bias, residual=residual,
+                             softcap=softcap)
+            y, *z = matmul_op(x, w, bias, residual, class_id, float(softcap), *key, with_z)
+            saved = z[0] if with_z else None
+        else:
+            y = matmul(x, w, cs, class_id=class_id, bias=bias, residual=residual, softcap=softcap)
         ctx.class_id, ctx.softcap = class_id, softcap
         ctx.res_dtype = residual.dtype if residual is not None else None
         ctx.save_for_backward(x, w, transpose_of, bias,
-                              y if class_id == "matmul_lmhead_softcap" else None)
+                              y if class_id == "matmul_lmhead_softcap" else saved)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, w, w_src, bias, y = ctx.saved_tensors
+        x, w, w_src, bias, saved = ctx.saved_tensors
         need_x, need_w, need_src, need_bias, need_res = ctx.needs_input_grad[:5]
         if ctx.class_id in ACTIVATION_CLASSES:
-            dzf = epilogue_grad(x, w, y, dy, ctx.class_id, bias, ctx.softcap)
+            dzf = epilogue_grad(x, w, saved, dy, ctx.class_id, bias, ctx.softcap)
             dz = dzf.to(x.dtype)
         else:   # dZ is dY: no f32 round trip (bf16 -> f32 -> bf16 gives the same bits)
             dzf, dz = None, in_place(dy)

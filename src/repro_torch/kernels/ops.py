@@ -23,7 +23,9 @@ flash_attention.FlashAttentionFn`, :class:`~repro_torch.kernels.rwkv6_scan.
 Rwkv6ScanFn`, :class:`~repro_torch.kernels.rglru_scan.RglruScanFn`): the
 forward is the launch an op makes without a gradient, bit for bit, and the
 backward is kernels too, never a plain version.  A CPU tensor takes the
-plain version, which torch's autograd differentiates.
+plain version, which torch's autograd differentiates; but K1 goes through
+``MatmulFn`` on the CPU too (its launches there take the plain version), so
+that the ``dots`` remat policy saves the same op on both devices.
 
 Schedule resolution is the reference's: a :class:`ScheduleProvider` (a copy
 of ``repro.kernels.ops.ScheduleProvider``) over a
@@ -243,7 +245,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "matmul",
     x2 = x.reshape(m, k).contiguous()
     res2 = residual.reshape(m, -1).contiguous() if residual is not None else None
     cs = _resolve(provider).get(instance(class_id, x.dtype, M=m, N=n, K=k))
-    if grad and x.is_cuda:
+    if grad:
         y = _mm.MatmulFn.apply(x2, w.contiguous(), transpose_of if tied else None, bias, res2,
                                cs, class_id, softcap)
     else:

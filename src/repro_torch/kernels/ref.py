@@ -96,14 +96,18 @@ def apply_epilogue(y: torch.Tensor, class_id: str, *, bias: torch.Tensor | None 
 @_counted
 def matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "matmul", *,
            bias: torch.Tensor | None = None, residual: torch.Tensor | None = None,
-           softcap: float = 0.0, round_k: int = 0) -> torch.Tensor:
+           softcap: float = 0.0, round_k: int = 0,
+           with_z: bool = False) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """x: (..., K) @ w: (K, N) in f32, epilogue in f32, cast to x.dtype.
 
     ``round_k`` > 0 is the Pallas kernel's accumulation without its f32
     scratch (``cache_write=False``, or K not innermost; see
     :func:`repro_torch.kernels.matmul.round_k_for`): the f32 product of each
     K tile of ``round_k`` rows is added to the sum so far, which is rounded
-    to x.dtype after every tile but the last.  0 sums all of K in f32."""
+    to x.dtype after every tile but the last.  0 sums all of K in f32.
+
+    ``with_z``: returns (out, Z), Z the pre-epilogue sum plus the bias cast
+    to x.dtype, as class ``matmul`` (``matmul_bias``) computes it."""
     if not round_k:
         y = torch.matmul(x.float(), w.float())
     else:
@@ -114,8 +118,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "matmul", *,
         y = torch.matmul(xf[..., :round_k], wf[:round_k])
         for k0 in range(round_k, k, round_k):
             y = y.to(x.dtype).float() + torch.matmul(xf[..., k0:k0 + round_k], wf[k0:k0 + round_k])
+    z = (y + bias if bias is not None else y).to(x.dtype) if with_z else None
     y = apply_epilogue(y, class_id, bias=bias, residual=residual, softcap=softcap)
-    return y.to(x.dtype)
+    return (y.to(x.dtype), z) if with_z else y.to(x.dtype)
 
 
 @_counted

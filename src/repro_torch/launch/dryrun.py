@@ -25,10 +25,12 @@ these fields of the reference's JSON:
   on one rank moves nothing;
 * ``roofline``, analytical on ``hw.H100``'s peaks (not a measurement):
   ``compute_analytic_s`` as the reference's (8·N·tokens for a train step
-  under full remat, 2·N·tokens otherwise, N the active params, over the
-  chips' bf16 peak); ``memory_s``, the weight bytes a device touches over
-  its HBM rate (the gathered weights read once per pass — three passes for
-  a train step: forward, recompute, backward — the weight gradient written
+  under full remat, 6·N·tokens under ``--remat-policy dots``, which
+  recomputes no matmul, 2·N·tokens otherwise, N the active params, over
+  the chips' bf16 peak); ``memory_s``, the weight bytes a device touches
+  over its HBM rate (the gathered weights read once per pass — three
+  passes for a train step: forward, recompute, backward; two under
+  ``dots``, whose recompute reads no weight — the weight gradient written
   once, and the local AdamW update: 28 bytes per local bf16 param; caches
   and activations not counted); ``collective_s``, the operand bytes over
   one GPU's NVLink rate (18 links, the NVLink domain's; a 256-chip mesh
@@ -37,7 +39,10 @@ these fields of the reference's JSON:
 The fields only a compiler gives (``lower_s``, ``compile_s``,
 ``memory_analysis``, ``cost_analysis``) are left out.  Results go to
 ``benchmarks/results/dryrun_torch/`` (one JSON per cell, a cache: cells
-already there are read back unless ``--force``).
+already there are read back unless ``--force``; a ``dots`` cell's name ends
+in ``__dots``).  Each cell records its ``remat_policy``; the collectives
+are the same under both, since ``dots`` gathers a layer's weights again in
+its recompute.
 """
 from __future__ import annotations
 
@@ -63,7 +68,7 @@ ADAMW_BYTES_PER_PARAM = 2 + 3 * 2 * 4 + 2
 
 
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool, *, remat: bool = True,
-             grad_accum: int = 1) -> dict:
+             remat_policy_name: str = "full", grad_accum: int = 1) -> dict:
     cfg = get_arch(arch_name)
     shape = get_shape(shape_name)
     ok, why = shape_applicable(cfg, shape)
@@ -86,10 +91,13 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, *, remat: bool = 
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
     n_active = cfg.active_param_count()
     model_flops = (6 if train else 2) * n_active * tokens
-    analytic_flops = (8 if train and remat else 6 if train else 2) * n_active * tokens
+    recompute = train and remat and remat_policy_name == "full"   # dots: no matmul recomputed
+    analytic_flops = (8 if recompute else 6 if train else 2) * n_active * tokens
     compute_s = analytic_flops / (chips * H100.peak_flops_bf16)
     if train:
-        hbm_bytes = (3 * full_bytes + full_bytes) * grad_accum + ADAMW_BYTES_PER_PARAM * local_params
+        passes = 3 if recompute else 2
+        hbm_bytes = ((passes * full_bytes + full_bytes) * grad_accum
+                     + ADAMW_BYTES_PER_PARAM * local_params)
     else:
         hbm_bytes = full_bytes
     memory_s = hbm_bytes / H100.hbm_bandwidth
@@ -101,6 +109,7 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, *, remat: bool = 
         "mesh": mesh.name,
         "chips": chips,
         "strategy": "dp_only" if dp_only else "fsdp+tp",
+        "remat_policy": remat_policy_name,
         "collectives": coll,
         "param_bytes_per_device": param_bytes,
         "roofline": {
@@ -116,9 +125,10 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, *, remat: bool = 
     }
 
 
-def cell_path(arch: str, shape: str, mesh: str) -> str:
+def cell_path(arch: str, shape: str, mesh: str, remat_policy_name: str = "full") -> str:
     os.makedirs(RESULTS_DIR, exist_ok=True)
-    return os.path.join(RESULTS_DIR, f"{arch}__{shape}__{mesh}.json")
+    suffix = "" if remat_policy_name == "full" else f"__{remat_policy_name}"
+    return os.path.join(RESULTS_DIR, f"{arch}__{shape}__{mesh}{suffix}.json")
 
 
 def main(argv=None) -> dict:
@@ -127,6 +137,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", choices=["single", "multi", "both"], default="both")
     ap.add_argument("--force", action="store_true", help="recompute cached cells")
+    ap.add_argument("--remat-policy", choices=["full", "dots"], default="full")
     ap.add_argument("--grad-accum", type=int, default=1)
     args = ap.parse_args(argv)
 
@@ -138,13 +149,14 @@ def main(argv=None) -> dict:
     for arch, shape in cells:
         for multi in meshes:
             mesh_name = make_production_mesh(multi_pod=multi).name
-            path = cell_path(arch, shape, mesh_name)
+            path = cell_path(arch, shape, mesh_name, args.remat_policy)
             if os.path.exists(path) and not args.force:
                 with open(path) as f:
                     res = json.load(f)
                 print(f"[cached] {arch} {shape} {mesh_name}: {res['status']}")
             else:
-                res = run_cell(arch, shape, multi, grad_accum=args.grad_accum)
+                res = run_cell(arch, shape, multi, remat_policy_name=args.remat_policy,
+                               grad_accum=args.grad_accum)
                 with open(path, "w") as f:
                     json.dump(res, f, indent=1)
                 if res["status"] == "ok":

@@ -51,6 +51,13 @@ would share the device and skew both its timings and the serve times.
         --tuning-registry /path/to/registry
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke \
         --tuning-registry /path/to/registry --target tpu-v5e
+
+``--trace-out trace.json`` writes a Chrome trace (Perfetto-loadable;
+``obs.export.write_chrome_trace``) of wall-clock spans around the engine's
+prefill and decode steps, and the resolution pipeline's events and
+re-plans, as the reference's does; on the card a step's span closes once
+its result is on the host (``ServingEngine``).  ``--metrics-out m.json``
+writes the resolution metrics registry (``to_json``).
 """
 from __future__ import annotations
 
@@ -72,6 +79,8 @@ from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.kernels.ops import BACKENDS, ScheduleProvider, set_default_provider, use_backend
 from repro_torch.models.build import build_model
+from repro_torch.obs import Tracer
+from repro_torch.obs.export import write_chrome_trace
 from repro_torch.serving import ServingEngine, SlotsFull
 from repro_torch.targets import DEFAULT_TARGET, list_targets
 
@@ -165,6 +174,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "drained at exit, on a measured target, which refuses more)")
     ap.add_argument("--tuning-budget-s", type=float, default=float("inf"),
                     help="search seconds for background tuning jobs")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Perfetto-loadable Chrome trace (wall-clock spans around the "
+                         "engine's prefill and decode steps)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the engine's resolution metrics as JSON")
     args = ap.parse_args(argv)
     if args.target is None:
         args.target = DEFAULT_TARGETS[args.device]
@@ -192,6 +206,13 @@ def main(argv=None) -> dict:
         engine = ServingEngine(model, params, slots=args.slots, max_len=args.max_len,
                                extras=stub_extras(cfg),
                                provider=provider if args.backend == "cuda" else None)
+        tracer = None
+        if args.trace_out:
+            # a standalone engine has no virtual clock: wall-clock spans
+            # around the real steps (the engine's trace_compute default)
+            tracer = Tracer()
+            engine.tracer = tracer
+            provider.pipeline.tracer = tracer
         t0 = time.monotonic()
         with use_backend(args.backend):
             while pending or engine.active:
@@ -230,6 +251,11 @@ def main(argv=None) -> dict:
                           "tiers": engine.plan.tier_counts()}
     if service is not None:
         result["tuning_service"] = service.stats()
+    if tracer is not None:
+        write_chrome_trace(args.trace_out, tracer)
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(provider.pipeline.metrics.to_json(), f, indent=1, sort_keys=True)
     print(json.dumps(result))
     return result
 

@@ -74,7 +74,7 @@ from repro_torch.core.database import ScheduleDB
 from repro_torch.data import DataConfig, Pipeline
 from repro_torch.distributed import PreemptionHandler, StragglerMonitor, elastic_restore
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.context import REMAT_POLICIES, set_remat_policy
+from repro_torch.distributed.context import REMAT_POLICIES, using_remat_policy
 from repro_torch.kernels.ops import ScheduleProvider
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import make_test_mesh
@@ -208,25 +208,25 @@ def _train(args, cfg, device: str, distributed: bool) -> dict:
     preempt = PreemptionHandler(install_signal=False)
 
     losses = []
-    set_remat_policy(args.remat_policy)
     stubs = {k: torch.from_numpy(v).to(model.device).expand(args.batch, *v.shape).contiguous()
              for k, v in stub_extras(cfg).items()}
-    for step, np_batch in data:
-        if step >= args.steps or preempt.requested:
-            break
-        t0 = time.monotonic()
-        batch = {"tokens": torch.from_numpy(np_batch["tokens"]).to(model.device), **stubs}
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        loss = float(metrics["loss"])
-        dt = time.monotonic() - t0
-        if monitor.record(step, dt) and lead:
-            print(f"[straggler] step {step} took {dt:.2f}s (ewma {monitor.ewma:.2f}s)")
-        losses.append(loss)
-        if args.log_every and step % args.log_every == 0 and lead:
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} {dt*1e3:.0f}ms", flush=True)
-        if manager and args.ckpt_every and step and step % args.ckpt_every == 0:
-            manager.save(step, bundle(), blocking=sharded is not None, sharded=sharded)
+    with using_remat_policy(args.remat_policy):
+        for step, np_batch in data:
+            if step >= args.steps or preempt.requested:
+                break
+            t0 = time.monotonic()
+            batch = {"tokens": torch.from_numpy(np_batch["tokens"]).to(model.device), **stubs}
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss = float(metrics["loss"])
+            dt = time.monotonic() - t0
+            if monitor.record(step, dt) and lead:
+                print(f"[straggler] step {step} took {dt:.2f}s (ewma {monitor.ewma:.2f}s)")
+            losses.append(loss)
+            if args.log_every and step % args.log_every == 0 and lead:
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} {dt*1e3:.0f}ms", flush=True)
+            if manager and args.ckpt_every and step and step % args.ckpt_every == 0:
+                manager.save(step, bundle(), blocking=sharded is not None, sharded=sharded)
     data.close()
     if manager:
         manager.save(len(losses) + start_step, bundle(), sharded=sharded)

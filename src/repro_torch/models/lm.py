@@ -30,9 +30,14 @@ passed down to every op as the reference passes it.
 Training: ``forward`` and ``loss_fn`` take ``remat`` (default on, as the
 reference's).  Under autograd each layer then runs under
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
-counterpart of the reference's ``jax.checkpoint`` around each layer group:
-the ``full`` policy saves nothing inside a layer and recomputes it in the
-backward; it changes no number.  A tied embedding is one parameter,
+counterpart of the reference's ``jax.checkpoint`` around each layer group,
+under the policy ``distributed.context.remat_policy`` names (:func:`rematted`):
+``full`` saves nothing inside a layer and recomputes it in the backward;
+``dots`` saves the outputs of every K1 launch in the layer (the reference's
+``dots_with_no_batch_dims_saveable``: its ``ref.matmul`` is a dot with no
+batch dimension; the MoE expert GEMM, a ``vmap``'d dot, has one and is
+recomputed, as are norms, attention and the scans).  Neither changes a
+number.  A tied embedding is one parameter,
 ``embed``: the LM head launches on its transposed copy ``embed_t`` and its
 gradient reaches ``embed`` (``ops.matmul``'s ``transpose_of``), so
 ``embed_t`` is no leaf of :func:`trainable` and is rebuilt from ``embed``
@@ -51,10 +56,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.context import gathered_params, param_gather, remat_policy
+from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
@@ -214,28 +220,44 @@ def _lm_head(params: dict, cfg: ArchConfig, h: torch.Tensor, provider=None) -> t
     return ops.matmul(h, w, class_id="matmul_lmhead", provider=provider, **tied)
 
 
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The ``dots`` policy: K1's forward op (``kernels.matmul.matmul_op``)
+    is saved, every other op recomputed (a param gather too: a layer's
+    gathered weights are never kept)."""
+    if op is torch.ops.repro_torch.matmul.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 def rematted(fn, remat: bool):
-    """``fn`` under ``torch.utils.checkpoint`` (the ``full`` policy) when
-    ``remat`` is on and a tensor among its arguments (params included)
-    requires grad under autograd; ``fn`` itself otherwise.  The recompute
-    runs under the ops backend and the param gather the forward ran under:
-    both are thread-local, and the backward of CUDA tensors runs on
-    autograd's own thread."""
+    """``fn`` under ``torch.utils.checkpoint`` when ``remat`` is on and a
+    tensor among its arguments (params included) requires grad under
+    autograd; ``fn`` itself otherwise.  The policy is the forward's
+    ``remat_policy()``: ``full`` recomputes all of ``fn`` in the backward;
+    ``dots`` runs it under ``kernels.matmul.saving_dots`` and keeps K1's
+    outputs (:func:`_save_dots`), so the recompute launches no K1 forward
+    and the backward of the gelu and GLU classes reads their Z.  The
+    recompute runs under the ops backend, the param gather and the policy
+    the forward ran under: each is thread-local, and the backward of CUDA
+    tensors runs on autograd's own thread."""
     if not remat:
         return fn
-    backend, gather = ops.current_backend(), param_gather()
+    backend, gather, dots = ops.current_backend(), param_gather(), remat_policy() == "dots"
 
     def replayable(*args):
-        with ops.use_backend(backend), gathered_params(gather):
+        with ops.use_backend(backend), gathered_params(gather), mm.saving_dots(dots):
             return fn(*args)
 
     def run(*args):
         if not (torch.is_grad_enabled() and any(
                 isinstance(t, torch.Tensor) and t.requires_grad for t in leaves(args))):
             return fn(*args)
-        if remat_policy() != "full":
-            raise NotImplementedError(f"remat policy {remat_policy()!r}: only 'full' is "
-                                      "realised (ROADMAP A.8)")
+        if dots:
+            return checkpoint(replayable, *args, use_reentrant=False, context_fn=_dots_contexts)
         return checkpoint(replayable, *args, use_reentrant=False)
 
     return run

@@ -31,6 +31,8 @@ pipeline.
 """
 from __future__ import annotations
 
+import contextlib
+
 import dataclasses
 
 import torch
@@ -186,15 +188,10 @@ class ServingEngine:
                                         device=self.model.device)}
         for k, v in self.extras.items():
             batch[k] = v[None] if v.dim() == 2 else v   # (1, ..., D) stub inputs
-        if self.tracer.enabled and self.trace_compute:
-            with self.tracer.span("prefill", self.trace_track, uid=req.uid, true_len=n,
-                                  bucket=pad):
-                logits, cache1 = self.model.prefill(self.params, batch, max_len=self.max_len,
-                                                    true_len=n, provider=self.provider)
-        else:
+        with self._compute_span("prefill", uid=req.uid, true_len=n, bucket=pad):
             logits, cache1 = self.model.prefill(self.params, batch, max_len=self.max_len,
                                                 true_len=n, provider=self.provider)
-        tok = int(torch.argmax(logits[0]))
+            tok = int(torch.argmax(logits[0]))   # the host transfer: the step's end
         req.generated.append(tok)
         if max_new_tokens <= 0 or (eos_id is not None and tok == eos_id) or \
                 len(req.generated) >= max_new_tokens:
@@ -204,6 +201,16 @@ class ServingEngine:
         _splice_slot(self.cache, cache1, slot)
         self.active[slot] = req
         return req
+
+    def _compute_span(self, name: str, **attrs):
+        """A wall-clock span around one model step where the tracer is on
+        and ``trace_compute`` is set, else nothing.  The step's block ends
+        with the host transfer of its tokens: kernels on the card run
+        behind their launch, so a span closes after the step's result is on
+        the host, not after its issue."""
+        if self.tracer.enabled and self.trace_compute:
+            return self.tracer.span(name, self.trace_track, **attrs)
+        return contextlib.nullcontext()
 
     # -- decode ----------------------------------------------------------------
     def _maybe_replan(self) -> None:
@@ -245,15 +252,11 @@ class ServingEngine:
         toks = torch.zeros(self.slots, dtype=torch.long)
         for slot, req in self.active.items():
             toks[slot] = req.generated[-1]
-        if self.tracer.enabled and self.trace_compute:
-            with self.tracer.span("decode_step", self.trace_track, active=len(self.active)):
-                logits, self.cache = self.model.decode_step(
-                    self.params, self.cache, toks.to(self.model.device), provider=self.provider)
-        else:
+        with self._compute_span("decode_step", active=len(self.active)):
             logits, self.cache = self.model.decode_step(
                 self.params, self.cache, toks.to(self.model.device), provider=self.provider)
+            nxt = torch.argmax(logits, dim=-1).tolist()   # one host transfer: the step's end
         self.last_logits = logits
-        nxt = torch.argmax(logits, dim=-1).tolist()   # one host transfer
         finished = []
         for slot, req in list(self.active.items()):
             tok = int(nxt[slot])

@@ -1459,3 +1459,78 @@ def test_sharded_step_at_world_1_under_nccl_is_bit_equal(card, tmp_path, kw):
     for (path, a), b in zip(leaves_with_paths(got), leaves(want)):
         assert a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
                                                   b.reshape(-1).view(torch.uint8)), path
+
+
+#: K1's Z output per body (``launch(..., with_z=True)``, the dots remat
+#: policy's): (class, dtype, M, K, N, schedule tiles or None, cache_write):
+#: rows unsplit, rows split over K, rows in f32 and in rounding mode; the
+#: tensor-core body, with a bias, ragged, in rounding mode (a K tile of 24
+#: splits an MMA step); the CUDA-core body (f32)
+Z_CASES = [("matmul_gelu_glu", "bfloat16", 4, 256, 1024, None, True),
+           ("matmul_silu_glu", "bfloat16", 4, 3072, 256, None, True),
+           ("matmul_bias_gelu", "float32", 4, 64, 200, None, True),
+           ("matmul_bias_gelu", "bfloat16", 4, 1024, 512, {"M": 4, "N": 512, "K": 128}, False),
+           ("matmul_gelu_glu", "bfloat16", 256, 512, 1024, None, True),
+           ("matmul_bias_gelu", "bfloat16", 300, 256, 512, None, True),
+           ("matmul_silu_glu", "bfloat16", 70, 33, 200, None, True),
+           ("matmul_bias_gelu", "bfloat16", 256, 768, 512, {"M": 128, "N": 512, "K": 24}, False),
+           ("matmul_bias_gelu", "float32", 130, 300, 96, None, True),
+           ("matmul_silu_glu", "float32", 70, 33, 200, None, True)]
+
+
+@pytest.mark.parametrize("class_id,dtype,m,k,n,tiles,cache_write", Z_CASES)
+def test_k1_z_output_is_the_matmul_launch(card, class_id, dtype, m, k, n, tiles, cache_write):
+    """Z is bit-equal to the ``matmul`` (with a bias, ``matmul_bias``)
+    launch of the same schedule key, and Y's bits are the same with and
+    without Z, in every body; Z within its dtype's tolerance of the plain
+    version."""
+    from repro_torch.core.schedule import Schedule, concretize
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    x = torch.randn((m, k), generator=g, device=card).to(dt)
+    w = (torch.randn((k, n), generator=g, device=card) / k ** 0.5).to(dt)
+    bias = torch.randn((n,), generator=g, device=card).to(dt) if "bias" in class_id else None
+    kw = dict(class_id=class_id, bias=bias, residual=None, softcap=0.0)
+    inst = ops.instance(class_id, dt, M=m, N=n, K=k)
+    cs = (ops.schedule_for(inst) if tiles is None
+          else concretize(Schedule.make(class_id, tiles, cache_write=cache_write), inst))
+    key = mm.launch_key(x, w, cs, **kw)
+    assert bool(key[3]) == (not cache_write)
+    y0 = mm.launch_as(x, w, key, **kw)
+    before = mm.z_launches
+    y1, z = mm.launch_as(x, w, key, with_z=True, **kw)
+    assert mm.z_launches == before + 1
+    z_class = "matmul" if bias is None else "matmul_bias"
+    zk = mm.launch_as(x, w, key, class_id=z_class, bias=bias, residual=None, softcap=0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(y0.view(torch.uint8), y1.view(torch.uint8))
+    assert torch.equal(z.view(torch.uint8), zk.view(torch.uint8))
+    _close(z, ref.matmul(x, w, z_class, bias=bias, round_k=key[3]),
+           TOL if dt == torch.float32 else BF16_TOL)
+
+
+def test_dots_training_saves_k1_outputs_on_the_card(card):
+    """gemma2 at reduced width in bf16: under ``dots`` the loss equals
+    ``full``'s bit for bit, one gradient launch fewer per GeGLU layer, the
+    layers' K1 forward launches once, and every GeGLU launch wrote Z."""
+    from repro_torch.distributed.context import using_remat_policy
+    from repro_torch.launch import steps
+
+    cfg = dataclasses.replace(reduced(get_arch("gemma2-2b")), dtype="bfloat16")
+    model = build_model(cfg, card)
+    params = model.init(0)
+    g = torch.Generator(device=card).manual_seed(0)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (2, 16), generator=g, device=card)}
+    runs = {}
+    for policy in ("full", "dots"):
+        mm.reset_launches()
+        with using_remat_policy(policy):
+            loss, _, _ = steps.value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        runs[policy] = (float(loss), mm.launches - mm.grad_launches, mm.grad_launches,
+                        mm.z_launches)
+    (l_full, f_full, g_full, z_full), (l_dots, f_dots, g_dots, z_dots) = runs["full"], runs["dots"]
+    assert l_full == l_dots
+    assert g_full - g_dots == cfg.n_layers == z_dots and z_full == 0
+    assert f_full == 2 * f_dots - 1    # the LM head runs once under both

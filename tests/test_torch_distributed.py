@@ -624,6 +624,32 @@ def test_sharded_step_matches_one_process(tmp_path, arch, world, model_axis, str
     assert lead["per_step"][0]["reduce_scatter"]["count"] > 0
 
 
+def _dots_sharded_run(rank, world, *args):
+    """:func:`_sharded_run` under the ``dots`` remat policy (the one-process
+    step beside it too)."""
+    from repro_torch.distributed.context import using_remat_policy
+
+    with using_remat_policy("dots"):
+        return _sharded_run(rank, world, *args)
+
+
+DOTS_CASES = [("stablelm-12b", 2, 1, "dp"), ("stablelm-12b", 4, 2, "fsdp_tp")]
+
+
+@pytest.mark.parametrize("arch,world,model_axis,strategy", DOTS_CASES,
+                         ids=[f"{a}-w{w}-{w // m}x{m}-{s}" for a, w, m, s in DOTS_CASES])
+def test_sharded_step_under_dots_issues_the_plan(tmp_path, arch, world, model_axis, strategy):
+    """Under ``dots`` the recompute gathers each layer's weights again (the
+    policy saves K1's outputs, never a gathered weight), so every step's
+    collectives are ``plan_collectives``' at worlds 2 and 4, as under
+    ``full``; the step within the one-process step's bounds (1e-5)."""
+    out = run_ranks(_dots_sharded_run, world, tmp_path, arch, model_axis, strategy, 2, {})
+    _assert_near_one_process(out[0])
+    for r in out:
+        _assert_plan_is_the_step(r)
+    assert out[0]["per_step"][0]["all_gather"]["count"] > out[0]["forward"]["all_gather"]["count"]
+
+
 MASKED_CASES = [("stablelm-12b", 2, 1, "dp", {}), ("stablelm-12b", 4, 2, "fsdp_tp", {}),
                 ("stablelm-12b", 2, 1, "dp", {"grad_accum": 2})]
 

@@ -35,7 +35,6 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.convert import grads_from_jax, opt_state_from_jax, params_from_jax
 from repro_torch.core.database import Record, ScheduleDB
 from repro_torch.core.schedule import Schedule
-from repro_torch.distributed.context import set_remat_policy
 from repro_torch.kernels import ops
 from repro_torch.launch import steps
 from repro_torch.launch import train as train_mod
@@ -156,18 +155,6 @@ def test_remat_recompute_keeps_the_forward_backend():
     t.join()
     assert seen == ["ref", "ref"] and ops.current_backend() == "cuda"
     assert torch.equal(out[0], 2 * x.detach())
-
-
-def test_remat_dots_is_refused():
-    cfg = reduced(get_arch("gemma2-2b"))
-    model = build_model(cfg, "cpu")
-    params = model.init(0)
-    set_remat_policy("dots")
-    try:
-        with pytest.raises(NotImplementedError, match="A.8"):
-            steps.value_and_grad(model, params, _torch_batch(_batch(cfg)), remat=True)
-    finally:
-        set_remat_policy(None)
 
 
 def _run_steps(arch, n_steps, **kw):
