@@ -225,16 +225,31 @@ toolkit.  Phases, one result line each:
 15. dist — sharded training (``repro_torch.distributed``,
    ``launch.steps.make_sharded_train_step``) at world 1 under NCCL in this
    process, over a ``FileStore`` in a temporary directory (``phase_dist``):
-   gemma2-2b at full width and 2 layers, two sharded steps (``dp``, a 1x1
-   mesh) against two unsharded ones on the same weights and batch — losses,
-   params and optimizer state bit-equal, the same kernel launches; that
-   state saved (rank 0 writes full leaves), the group destroyed, a fresh
-   one made and the state restored by ``elastic_restore``, bit-equal; then
-   full depth, 6 sharded steps: ms per step (median of steps 2-6) beside
-   the train phase's unsharded step, peak memory, and one step's
-   collectives by op, count and bytes, which must be what the planner's
+   gemma2-2b at full width and 2 layers, two sharded steps of each strategy
+   (``dp``; ``fsdp_tp``, tensor-parallel compute, whose ``model`` axis of one
+   rank moves nothing; a 1x1 mesh) against two unsharded ones on the same
+   weights and batch — losses, params and optimizer state bit-equal, the
+   same kernel launches, the collectives the plan's; the ``dp`` state saved
+   (rank 0 writes full leaves), the group destroyed, a fresh one made and
+   the state restored by ``elastic_restore``, bit-equal; then full depth,
+   6 sharded steps a strategy: ms per step (median of steps 2-6) beside the
+   train phase's unsharded step, peak memory, and one step's collectives by
+   op, count and bytes, which must be what the planner's
    ``launch.steps.plan_collectives`` gives.  The collectives are NCCL's; no
-   kernel is added.  Then ``chip_smoke.py --profile-steps`` in a fresh
+   kernel is added.  Then the TP phase (``phase_tp``): tensor-parallel
+   compute with 2 and 4 ranks spawned on cuda:0 over gloo (a CUDA tensor's
+   collective staged through host memory, so no time is TP speed):
+   gemma2-2b (2 layers, ``model`` 4: 2 q heads and 1 KV head a rank, a
+   64000-row vocabulary shard), mixtral-8x22b (1 layer, ``model`` 4: 2
+   experts a rank), rwkv6-1.6b (2 layers) and recurrentgemma-2b (3 layers,
+   its first attention layer's one KV head computed whole), ``model`` 2,
+   at full width, bf16 (but rwkv6) and f32 (but mixtral), one train step
+   each: every rank's collectives the
+   plan's, every kernel of the family launched, the loss and each gradient
+   leaf held to the world-1 step's plain path on the card (bf16 by
+   ``path_agreement``'s bounds and control, f32 by the fixed bounds); and
+   first the kernels at the local shapes it gives them (K2 with 1 KV head,
+   K1g with 2 experts, K4 over 640 channels) against their plain versions.  Then ``chip_smoke.py --profile-steps`` in a fresh
    process profiles one unsharded and one sharded full-depth step of
    gemma2-2b (busy share, top five ops, the NCCL kernels' share of the busy
    time), one under ``dots``, and one step of each family of
@@ -268,7 +283,15 @@ with no L2 flush), in turns
 same-call ratios.  K4's backward also runs at T = 37 from a state and in
 f32; at every shape its outputs' bits (sha256 of dx, da and the initial
 state's gradient at fixed seeded inputs) must agree between the turns and
-the trees, or the script fails.  Any failure raises: the script
+the trees, or the script fails.
+
+    python3 chip_smoke.py --tp-witness
+
+runs the TP phase's rwkv6-1.6b bf16 case (``model`` 2) three times: as the
+step is, with the residual stream's sums over ``model`` taken in f32, and
+with every sum over ``model`` in f32; each beside the world-1 kernel path
+and the tensor-core control, the leaves with the lowest cosines
+(``tp_witness``).  Any failure raises: the script
 exits non-zero and prints no result.  Times come from CUDA events, each
 launch after an L2 flush (the serving path reads weights cold); they
 include the host's time to enqueue the call, which is most of a decode-sized
@@ -4683,17 +4706,20 @@ def nccl_group(torch, directory: str, name: str):
 
 def phase_dist(torch, unsharded_ms: float) -> dict:
     """Sharded training on the card (``repro_torch.distributed``) at world
-    1 under NCCL, in this process: (1) gemma2-2b at full width and
-    ``DIST_LAYERS`` layers, two steps of ``make_sharded_train_step`` (the
-    ``dp`` strategy, a (1, 1) mesh) against two of ``make_train_step`` on the
-    same weights and batch: losses, params and optimizer state bit-equal,
-    the same kernel launches; (2) that state saved (rank 0 writes full
-    leaves), the group destroyed, a fresh one made and the state restored by
-    ``elastic_restore``, bit-equal; (3) full depth, ``DIST_STEPS`` sharded
-    steps: ms per step (median of all but the first) beside the train
-    phase's unsharded step, peak memory and one step's collectives by op,
-    held equal to the step's plan (``plan_collectives``, the planner's).
-    Its profiled step is :func:`profile_steps`'."""
+    1 under NCCL, in this process, under both strategies (``dp``: ZeRO-3;
+    ``fsdp_tp``: tensor-parallel compute, whose ``model`` axis of one rank
+    moves nothing): (1) gemma2-2b at full width and ``DIST_LAYERS`` layers,
+    two steps of ``make_sharded_train_step`` (a (1, 1) mesh) against two of
+    ``make_train_step`` on the same weights and batch: losses, params and
+    optimizer state bit-equal, the same kernel launches, the collectives the
+    plan's and none over ``model``; (2) the ``dp`` state saved (rank 0
+    writes full leaves), the group destroyed, a fresh one made and the
+    state restored by ``elastic_restore``, bit-equal; (3) full depth,
+    ``DIST_STEPS`` sharded steps a strategy: ms per step (median of all but
+    the first) beside the train phase's unsharded step, peak memory and one
+    step's collectives by op, held equal to the step's plan
+    (``plan_collectives``, the planner's).  Its profiled step is
+    :func:`profile_steps`'."""
     import math
     import os
     import tempfile
@@ -4721,124 +4747,740 @@ def phase_dist(torch, unsharded_ms: float) -> dict:
     np_batch = SyntheticSource(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                           global_batch=TRAIN_BATCH)).batch_at(0)
     batch = {"tokens": torch.from_numpy(np_batch["tokens"]).cuda()}
+    shape = tuple(batch["tokens"].shape)
     opt_cfg = AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=DIST_STEPS)
     cfg2 = dataclasses.replace(cfg, n_layers=DIST_LAYERS)
+
+    def issued(snapshot):   # a counter's snapshot as the plan gives it
+        return {op: ({k: v[k] for k in ("count", "operand_bytes", "result_bytes")}
+                     if isinstance(v, dict) else v) for op, v in snapshot.items()}
+
+    def over_model(snapshot):   # tensor-parallel collectives: over the model axis alone
+        return sum(v["axes"].get("model", 0) for v in snapshot.values() if isinstance(v, dict))
+
+    equal_rows, mains = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as d:
-        # --- 1. world 1: the sharded step against the unsharded, bit for bit
+        # --- 1. world 1: each strategy's sharded step against the unsharded, bit for bit
         with nccl_group(torch, d, "store0"):
             model = build_model(cfg2, "cuda")
-            full = model.init(5)
-            step = steps_mod.make_sharded_train_step(model, opt_cfg, make_test_mesh(model=1),
-                                                     strategy="dp")
-            params = step.shard_params(full)
-            opt = step.init_opt_state(params)
-            full_opt = steps_mod.init_opt_state(full)
-            plain = steps_mod.make_train_step(model, opt_cfg)
-            runs = {}
-            for name, fn, p, o in (("unsharded", plain, full, full_opt),
-                                   ("sharded", step, params, opt)):
-                reset_counts(mm, fa, rw, rg, ref)
-                step.groups.counter.reset()
-                losses = []
-                for _ in range(2):
-                    p, o, metrics = fn(p, o, batch)
-                    losses.append(float(metrics["loss"]))
-                torch.cuda.synchronize()
-                runs[name] = {"losses": losses, **train_counts(mm, fa, rw, rg, ref),
-                              "collectives": step.groups.counter.snapshot()}
-            got, want = {"params": params, "opt": opt}, {"params": trainable(full), "opt": full_opt}
-            differ = [path for (path, a), b in zip(leaves_with_paths(got), leaves(want))
-                      if not bits_equal(torch, a, b)]
-            same_launches = all(runs["sharded"][k] == runs["unsharded"][k] for k in (
-                "launches", "matmul_grad_launches", "attention_bwd_launches", "body_launches"))
-            equal_row = {"layers": DIST_LAYERS, "strategy": "dp", "mesh": "1x1",
-                         "leaves": len(leaves(got)), "differ": differ,
-                         "losses": runs["sharded"]["losses"],
-                         "unsharded_losses": runs["unsharded"]["losses"],
-                         "same_launches": same_launches, "runs": runs}
-            log("dist_world1_equal", **equal_row)
-            if (differ or runs["sharded"]["losses"] != runs["unsharded"]["losses"]
-                    or not same_launches):
-                raise AssertionError(f"dist: the sharded step at world 1 is not the unsharded "
-                                     f"step: leaves differ {differ}, {equal_row}")
-            if runs["sharded"]["plain_cuda_calls"] or not runs["sharded"]["collectives"].get(
-                    "reduce_scatter"):
-                raise AssertionError(f"dist: {runs['sharded']}")
-            # --- 2. the state saved by rank 0, for a fresh group to restore
-            del p, o, metrics
-            sharded = step.state_sharded(opt)
-            ck = os.path.join(d, "ckpt")
-            t0 = time.monotonic()
-            CheckpointManager(ck).save(2, got, sharded=sharded)
-            save_s = time.monotonic() - t0
-            like = sharded.like
-            del model, full, full_opt, plain, step
+            for strategy in ("dp", "fsdp_tp"):
+                full = model.init(5)
+                step = steps_mod.make_sharded_train_step(model, opt_cfg, make_test_mesh(model=1),
+                                                         strategy=strategy)
+                params = step.shard_params(full)
+                opt = step.init_opt_state(params)
+                full_opt = steps_mod.init_opt_state(full)
+                plain = steps_mod.make_train_step(model, opt_cfg)
+                runs = {}
+                for name, fn, p, o in (("unsharded", plain, full, full_opt),
+                                       ("sharded", step, params, opt)):
+                    reset_counts(mm, fa, rw, rg, ref)
+                    losses, per_step = [], []
+                    for _ in range(2):
+                        step.groups.counter.reset()
+                        p, o, metrics = fn(p, o, batch)
+                        losses.append(float(metrics["loss"]))
+                        per_step.append(step.groups.counter.snapshot())
+                    torch.cuda.synchronize()
+                    runs[name] = {"losses": losses, **train_counts(mm, fa, rw, rg, ref),
+                                  "collectives": per_step[-1]}
+                got = {"params": params, "opt": opt}
+                want = {"params": trainable(full), "opt": full_opt}
+                differ = [path for (path, a), b in zip(leaves_with_paths(got), leaves(want))
+                          if not bits_equal(torch, a, b)]
+                same_launches = all(runs["sharded"][k] == runs["unsharded"][k] for k in (
+                    "launches", "matmul_grad_launches", "attention_bwd_launches",
+                    "body_launches"))
+                plan = step.plan(shape)
+                as_planned = all(issued(c) == plan for c in per_step)
+                row = {"layers": DIST_LAYERS, "strategy": strategy, "mesh": "1x1",
+                       "leaves": len(leaves(got)), "differ": differ,
+                       "losses": runs["sharded"]["losses"],
+                       "unsharded_losses": runs["unsharded"]["losses"],
+                       "same_launches": same_launches, "collectives_as_planned": as_planned,
+                       "model_axis_collectives": over_model(per_step[-1]), "runs": runs}
+                equal_rows[strategy] = row
+                log(f"dist_world1_equal_{strategy}", **row)
+                if (differ or runs["sharded"]["losses"] != runs["unsharded"]["losses"]
+                        or not same_launches or not as_planned or row["model_axis_collectives"]):
+                    raise AssertionError(f"dist: the {strategy} sharded step at world 1 is not "
+                                         f"the unsharded step: leaves differ {differ}, {row}, "
+                                         f"plan {plan}")
+                if runs["sharded"]["plain_cuda_calls"] or not runs["sharded"][
+                        "collectives"].get("reduce_scatter"):
+                    raise AssertionError(f"dist: {runs['sharded']}")
+                del p, o, metrics, full, full_opt, plain, want
+                if strategy == "fsdp_tp":
+                    del step, params, opt, got
+                    break
+                # --- 2. the dp state saved by rank 0, for a fresh group to restore
+                sharded = step.state_sharded(opt)
+                ck = os.path.join(d, "ckpt")
+                t0 = time.monotonic()
+                CheckpointManager(ck).save(2, got, sharded=sharded)
+                save_s = time.monotonic() - t0
+                like = sharded.like
+                saved = got
+                del step, params, opt, sharded
+                free_engines(torch)
+            del model
         free_engines(torch)
         with nccl_group(torch, d, "store1"):
             groups = MeshGroups(make_test_mesh(model=1))
             t0 = time.monotonic()
             n, restored = elastic_restore(CheckpointManager(ck), like, cfg2, groups, dp_only=True)
             restore_s = time.monotonic() - t0
-            lost = [path for (path, a), b in zip(leaves_with_paths(got), leaves(restored))
+            lost = [path for (path, a), b in zip(leaves_with_paths(saved), leaves(restored))
                     if not bits_equal(torch, a.cpu(), b.cpu())]
-            elastic_row = {"step": n, "leaves": len(leaves(got)), "differ": lost,
-                           "gib": sum(a.numel() * a.element_size() for a in leaves(got)) / 2 ** 30,
+            elastic_row = {"step": n, "leaves": len(leaves(saved)), "differ": lost,
+                           "gib": sum(a.numel() * a.element_size() for a in leaves(saved)) / 2 ** 30,
                            "save_s": save_s, "restore_s": restore_s}
             log("dist_elastic_restore", **elastic_row)
             if n != 2 or lost:
                 raise AssertionError(f"dist: elastic restore lost bits: {elastic_row}")
-            del got, restored, params, opt, want, sharded
+            del saved, restored
             free_engines(torch)
 
-            # --- 3. full depth
+            # --- 3. full depth, each strategy
             model = build_model(cfg, "cuda")
-            step = steps_mod.make_sharded_train_step(model, opt_cfg, groups.mesh, groups,
-                                                     strategy="dp")
-            full = model.init(0)
-            params = step.shard_params(full)
-            del full
-            free_engines(torch)
-            opt = step.init_opt_state(params)
-            torch.cuda.synchronize()
-            init_gib = torch.cuda.memory_allocated() / 2 ** 30
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts(mm, fa, rw, rg, ref)
-            ms, losses, per_step = [], [], None
-            for _ in range(DIST_STEPS):
-                groups.counter.reset()
+            for strategy in ("dp", "fsdp_tp"):
+                step = steps_mod.make_sharded_train_step(model, opt_cfg, groups.mesh, groups,
+                                                         strategy=strategy)
+                full = model.init(0)
+                params = step.shard_params(full)
+                del full
+                free_engines(torch)
+                opt = step.init_opt_state(params)
                 torch.cuda.synchronize()
-                t0 = time.monotonic()
-                out = step(params, opt, batch)
-                torch.cuda.synchronize()
-                ms.append((time.monotonic() - t0) * 1e3)
-                losses.append(float(out[2]["loss"]))
-                per_step = groups.counter.snapshot()
-            counts = train_counts(mm, fa, rw, rg, ref)
-            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-            # the planner's count of a step is the step's, op by op
-            plan = steps_mod.plan_collectives(cfg, step.params.like, step.specs, groups.mesh)
-            issued = {op: ({k: v[k] for k in ("count", "operand_bytes", "result_bytes")}
-                           if isinstance(v, dict) else v) for op, v in per_step.items()}
-            if issued != plan:
-                raise AssertionError(f"dist: a step issued {issued}, its plan says {plan}")
-            del model, step, params, opt, out, groups
+                init_gib = torch.cuda.memory_allocated() / 2 ** 30
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts(mm, fa, rw, rg, ref)
+                ms, losses, per_step = [], [], None
+                for _ in range(DIST_STEPS):
+                    groups.counter.reset()
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    out = step(params, opt, batch)
+                    torch.cuda.synchronize()
+                    ms.append((time.monotonic() - t0) * 1e3)
+                    losses.append(float(out[2]["loss"]))
+                    per_step = groups.counter.snapshot()
+                counts = train_counts(mm, fa, rw, rg, ref)
+                peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+                # the planner's count of a step is the step's, op by op
+                plan = step.plan(shape)
+                if issued(per_step) != plan:
+                    raise AssertionError(f"dist: a {strategy} step issued {issued(per_step)}, "
+                                         f"its plan says {plan}")
+                del step, params, opt, out
+                free_engines(torch)
+                step_ms = statistics.median(ms[1:])
+                mains[strategy] = {
+                    "arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+                    "seq": TRAIN_SEQ, "strategy": strategy, "mesh": "1x1", "backend": "nccl",
+                    "steps": DIST_STEPS, "losses": losses, "step_ms": ms, "ms_per_step": step_ms,
+                    "unsharded_ms_per_step": unsharded_ms,
+                    "ratio_to_unsharded": step_ms / unsharded_ms,
+                    "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3, "init_gib": init_gib,
+                    "peak_gib": peak_gib, "collectives_per_step": per_step,
+                    "collectives_as_planned": True, **counts}
+                if not all(math.isfinite(x) for x in losses):
+                    raise AssertionError(f"dist {strategy}: losses {losses}")
+                if (counts["plain_cuda_calls"]
+                        or counts["attention_bwd_launches"] != cfg.n_layers * DIST_STEPS
+                        or not counts["matmul_grad_launches"]):
+                    raise AssertionError(f"dist {strategy}: the full-depth sharded steps' "
+                                         f"launches {counts}")
+            del model, groups
         free_engines(torch)
-    step_ms = statistics.median(ms[1:])
-    full_row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-                "strategy": "dp", "mesh": "1x1", "backend": "nccl", "steps": DIST_STEPS,
-                "losses": losses, "step_ms": ms, "ms_per_step": step_ms,
-                "unsharded_ms_per_step": unsharded_ms, "ratio_to_unsharded": step_ms / unsharded_ms,
-                "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3, "init_gib": init_gib,
-                "peak_gib": peak_gib, "collectives_per_step": per_step,
-                "collectives_as_planned": True, **counts}
+    full_row = mains["dp"]
+    full_row["fsdp_tp"] = {k: mains["fsdp_tp"][k] for k in (
+        "ms_per_step", "step_ms", "ratio_to_unsharded", "tok_per_s", "init_gib", "peak_gib",
+        "losses", "collectives_per_step")}
     log("dist", **full_row, world1_bit_equal=True, elastic_restore_bit_equal=True,
         seconds=time.monotonic() - t_phase)
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"dist: losses {losses}")
-    if (counts["plain_cuda_calls"] or counts["attention_bwd_launches"] != cfg.n_layers * DIST_STEPS
-            or not counts["matmul_grad_launches"]):
-        raise AssertionError(f"dist: the full-depth sharded steps' launches {counts}")
-    return {"world1": equal_row, "elastic": elastic_row, "main": full_row}
+    return {"world1": equal_rows["dp"], "world1_fsdp_tp": equal_rows["fsdp_tp"],
+            "elastic": elastic_row, "main": full_row, "main_fsdp_tp": mains["fsdp_tp"]}
+
+
+#: the TP phase: tensor-parallel compute (``fsdp_tp``) with 2 and 4 ranks on
+#: cuda:0 over gloo (NCCL takes one rank a device): (arch, layers, model axis,
+#: dtypes); full width, the depth cut (recurrentgemma-2b's third layer is its
+#: first attention layer).  rwkv6-1.6b runs in f32 only: in bf16 each
+#: rank's partial sums are rounded to bf16 (K1's outputs, the norms'
+#: partial gradients) before they are reduced, which one card does not do,
+#: and at random init the model amplifies rounding from layer to layer
+#: (ROADMAP C.10): its ``u`` falls past twice the tensor-core control.
+#: ``--tp-witness`` shows the reduction is not where (its bits unchanged
+#: with every sum over ``model`` taken in f32)
+TP_CASES = (("gemma2-2b", 2, 4, ("bfloat16", "float32")), ("mixtral-8x22b", 1, 4, ("bfloat16",)),
+            ("rwkv6-1.6b", 2, 2, ("float32",)),
+            ("recurrentgemma-2b", 3, 2, ("bfloat16", "float32")))
+#: the TP phase's batch (one batch shard: the mesh is (1, m)) and seed
+TP_BATCH, TP_SEQ, TP_SEED = 2, 256, 7
+#: a rank's limit: a hung collective fails the phase
+TP_RANK_TIMEOUT = 300
+#: the backward kernels' counters the TP phase reads, by kernel line
+TP_BWD_COUNTERS = {"matmul_grad_launches": "matmul_bwd",
+                   "attention_bwd_launches": "flash_attention_bwd",
+                   "grouped_grad_launches": "grouped_matmul_bwd",
+                   "rwkv6_bwd_launches": "rwkv6_scan_bwd", "rglru_bwd_launches": "rglru_scan_bwd"}
+
+
+def tp_kernel_checks(torch) -> list:
+    """The kernels at the local shapes tensor-parallel compute gives them,
+    against their plain versions, forward and backward (bf16): K2 with 2 q
+    heads and 1 KV head a rank (gemma2-2b's local layer at ``model`` 4), K1g
+    with 2 experts a rank (mixtral-8x22b's up-GEMM at ``model`` 4, 64 rows an
+    expert), K4 over 640 channels (recurrentgemma-2b's 2560 at ``model``
+    4)."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf).requires_grad_(True)
+
+    def run(fn, args, backend):
+        with ops.use_backend(backend):
+            out = fn(*args)
+            y = out[0] if isinstance(out, tuple) else out
+            dy = torch.ones_like(y) * 0.01
+            grads = torch.autograd.grad(y, [a for a in args if a.requires_grad], dy)
+        return y, grads
+
+    cases = [
+        ("flash_attention_1kv", lambda q, k, v: ops.flash_attention(
+            q, k, v, class_id="flash_attention_local", causal=True, window=4096, softcap=0.0),
+         (rand(2, 2, 256, 256), rand(2, 1, 256, 256), rand(2, 1, 256, 256))),
+        ("grouped_matmul_2_experts", lambda x, w: ops.moe_gemm(x, w, class_id="moe_gemm_silu_glu"),
+         (rand(2, 64, 6144, scale=0.1), rand(2, 6144, 32768, scale=0.02))),
+        ("rglru_640", lambda x, a: ops.rglru(x, a, torch.zeros((2, 640), device="cuda")),
+         (rand(2, 256, 640), (torch.rand((2, 256, 640), generator=g, device="cuda") * 0.5 + 0.4)
+          .to(bf).requires_grad_(True))),
+    ]
+    rows = []
+    for name, fn, args in cases:
+        y, grads = run(fn, args, "cuda")
+        y_ref, grads_ref = run(fn, args, "ref")
+        y, y_ref = y.detach(), y_ref.detach()
+        err = assert_close(torch, y, y_ref, BF16_TOL, f"tp {name}")
+        grad_err = 0.0
+        for a, b in zip(grads, grads_ref):
+            scale = float(b.float().abs().max())
+            grad_err = max(grad_err, assert_close(
+                torch, a, b, dict(atol=GRAD_SCALE_ATOL * scale, rtol=GRAD_RTOL), f"tp {name} grad"))
+        rows.append({"name": name, "shapes": [list(a.shape) for a in args], "max_abs_err": err,
+                     "grad_max_abs_err": grad_err})
+    return rows
+
+
+def tp_reference(torch, arch: str, layers: int, dtype: str) -> dict:
+    """The world-1 step of a TP case, on the card: the plain path's loss,
+    gradients and MoE routing (``ops.use_backend("ref")``: the reference
+    the TP step is held to), and in bf16, per leaf, the control (the plain
+    path with its bf16 matmuls on the library's tensor cores,
+    :func:`tensor_core_matmuls`) and the world-1 kernel path, each against
+    the plain path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import uses_moe
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers, dtype=dtype)
+    model = build_model(cfg, "cuda")
+    params = model.init(TP_SEED)
+    batch = family_batch(torch, cfg, TP_BATCH, TP_SEQ)
+    with ops.use_backend("ref"), recorded_routing() as routing:
+        loss_p, _, grads_p = steps_mod.value_and_grad(model, params, batch)
+    out = {"loss": float(loss_p), "grads": dict(leaves_with_paths(grads_p)),
+           "routing": routing[:sum(uses_moe(cfg, kind) for kind in cfg.layer_kinds)],
+           "kernel": None}
+    runs = []
+    if dtype == "bfloat16":       # f32 is held to the fixed bounds: no control
+        runs = [("kernel", contextlib.nullcontext), ("control", lambda: _plain_tc(ops))]
+    for name, ctx in runs:
+        with ctx():
+            loss, _, grads = steps_mod.value_and_grad(model, params, batch)
+        out[name] = {"loss_rel_err": abs(float(loss) - float(loss_p)) / abs(float(loss_p)),
+                     "leaves": {path: grad_agreement(torch, a, b) for (path, a), b in
+                                zip(leaves_with_paths(grads), leaves(grads_p))}}
+        del grads
+    del params, model
+    return out
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Each MoE layer's top-k experts per token (``mlp.moe_route``'s
+    indices, on the host), in the order of the calls: the forward's layers
+    first, then the recompute's."""
+    from repro_torch.models import mlp as mlpm
+
+    inner, calls = mlpm.moe_route, []
+
+    def route(*args, **kw):
+        out = inner(*args, **kw)
+        calls.append(out[2].sort(dim=-1).values.cpu())
+        return out
+
+    mlpm.moe_route = route
+    try:
+        yield calls
+    finally:
+        mlpm.moe_route = inner
+
+
+@contextlib.contextmanager
+def _plain_tc(ops):
+    with ops.use_backend("ref"), tensor_core_matmuls():
+        yield
+
+
+def _tp_rank(rank, world, d, cases, refs, routings):
+    """One rank of the TP phase: join the gloo group, run each case (its
+    result, or the traceback, to ``d``)."""
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        import_port()
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous", rank=rank,
+                                world_size=world)
+        try:
+            out = [tp_case(torch, rank, *case, refs[i], routings[i]) for i, case in enumerate(cases)]
+        finally:
+            dist.destroy_process_group()
+            for ref in refs:      # release the parent's tensors before the process exits
+                ref.clear()
+            torch.cuda.synchronize()
+        torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    except BaseException:
+        Path(d, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def tp_case(torch, rank, arch, layers, model_axis, dtype, ref_grads, ref_routing) -> dict:
+    """One ``fsdp_tp`` train step of a TP case on this rank
+    (``ShardedTrainStep``, the user's entry point): its kernel launches, its
+    collectives against the plan (with their sets of axes), the loss, and
+    per leaf this rank's gradient shard against its slice of the world-1
+    plain-path gradient (``ref_grads``, shared from the parent on the card):
+    the dot products, squared norms and largest entries that the parent sums
+    over the ranks' distinct shards; and per MoE layer the tokens it routes
+    to other experts than the world-1 step did (``ref_routing``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import local_slices, spec_axes
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers, dtype=dtype)
+    model = build_model(cfg, "cuda")
+    batch = family_batch(torch, cfg, TP_BATCH, TP_SEQ)
+    mesh = make_test_mesh(model=model_axis)
+    step = steps_mod.make_sharded_train_step(model, adamw.AdamWConfig(), mesh, strategy="fsdp_tp")
+    full = model.init(TP_SEED)
+    params = step.shard_params(full)
+    del full
+    opt = step.init_opt_state(params)
+    seen = {}
+    inner = adamw.apply_updates
+
+    def recording(p, grads, state, cfg_, gnorm=None):   # the step's gradient shards
+        seen["grads"] = [g.clone() for g in leaves(grads)]
+        return inner(p, grads, state, cfg_, gnorm=gnorm)
+
+    reset_counts(mm, fa, rw, rg, ref)
+    step.groups.counter.reset()
+    adamw.apply_updates = recording
+    try:
+        with recorded_routing() as routing:
+            _, _, metrics = step(params, opt, batch)
+    finally:
+        adamw.apply_updates = inner
+    rerouted = [int((a != b).any(dim=-1).sum()) for a, b in zip(routing, ref_routing)]
+    torch.cuda.synchronize()
+    counts = train_counts(mm, fa, rw, rg, ref)
+    snap = step.groups.counter.snapshot()
+    plan = step.plan(tuple(batch["tokens"].shape), by_axes=True)
+    issued = {op: ({k: v[k] for k in ("count", "operand_bytes", "result_bytes", "axes")}
+                   if isinstance(v, dict) else v) for op, v in snap.items()}
+    local_params = sum(t.numel() for t in leaves(params))
+    del params, opt                    # the stats below need only the gradient
+    torch.cuda.empty_cache()
+    stats = {}
+    for (path, like), pl, g in zip(leaves_with_paths(step.params.like), step.params.placements,
+                                   seen["grads"]):
+        b = ref_grads[path][local_slices(tuple(like.shape), pl.spec, mesh, step.groups.coords)]
+        stats[path] = {**_shard_stats(torch, g, b),
+                       "distinct": any("model" in spec_axes(e) for e in pl.spec)}
+    out = {"arch": arch, "dtype": dtype, "model": model_axis, "loss": float(metrics["loss"]),
+           "rerouted": rerouted,
+           "counts": counts, "collectives": snap, "as_planned": issued == plan,
+           "model_gathers": {path: list(pl.gather_axes) for (path, _), pl in
+                             zip(leaves_with_paths(step.params.like), step.params.compute)
+                             if "model" in pl.gather_axes},
+           "local_params": local_params, "stats": stats}
+    if not out["as_planned"]:
+        out["plan"] = plan
+    del step, seen, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shard_stats(torch, a, b) -> dict:
+    """Sums of a·b, a·a, b·b and the largest |a - b| and |b| of a gradient
+    shard ``a`` and its reference slice ``b`` (a view), in f32 chunks of
+    rows: an expert stack's f32 copy would not fit beside the other ranks."""
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    rows = max(1, (1 << 24) // a2.shape[1])
+    out = {"dot": 0.0, "aa": 0.0, "bb": 0.0, "max_diff": 0.0, "max_b": 0.0}
+    for x, y in zip(a2.split(rows), b2.split(rows)):
+        x, y = x.float(), y.float()
+        out["dot"] += float((x * y).sum())
+        out["aa"] += float((x * x).sum())
+        out["bb"] += float((y * y).sum())
+        out["max_diff"] = max(out["max_diff"], float((x - y).abs().max()))
+        out["max_b"] = max(out["max_b"], float(y.abs().max()))
+    return out
+
+
+def tp_waves() -> list:
+    """The TP phase's groups of ranks, (name, world, cases), in waves whose
+    groups run at once: gemma2-2b's 4 ranks beside the 2-rank cases, then
+    mixtral-8x22b's 4 ranks alone (each holds ~17 GB at the optimizer's
+    update, beside the parent's world-1 gradients)."""
+    groups = []
+    for world in sorted({m for _, _, m, _ in TP_CASES}, reverse=True):
+        cases = [(arch, layers, m, dt) for arch, layers, m, dts in TP_CASES if m == world
+                 for dt in dts]
+        alone = [c for c in cases if c[0] == "mixtral-8x22b"]
+        rest = [c for c in cases if c not in alone]
+        groups += [(f"world{world}", world, rest)] if rest else []
+        groups += [(f"world{world}_mixtral", world, alone)] if alone else []
+    together = [g for g in groups if not g[0].endswith("_mixtral")]
+    return [w for w in (together, [g for g in groups if g not in together]) if w]
+
+
+@contextlib.contextmanager
+def ranks_allocator():
+    """Spawned ranks take the expandable-segments allocator (they inherit
+    the environment): four ranks and the parent share one card."""
+    import os
+
+    key = "PYTORCH_CUDA_ALLOC_CONF"
+    prev = os.environ.get(key)
+    os.environ[key] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = prev
+
+
+def phase_tp(torch) -> dict:
+    """Tensor-parallel compute on one card (``fsdp_tp``, ROADMAP A.9b): the
+    kernels at the local shapes it gives them (:func:`tp_kernel_checks`),
+    then each case of :data:`TP_CASES` as one train step on a (1, m) mesh,
+    m ranks spawned on cuda:0 over gloo (NCCL takes one rank a device; gloo
+    stages a CUDA tensor's collective through host memory, so no time here
+    is TP speed and none is printed).  Each rank's collectives must be its
+    plan's, no leaf the plan keeps local gathered over ``model``, every
+    kernel of the family launched; the loss and every gradient leaf (summed
+    over the ranks' distinct shards) are held to the world-1 step's plain
+    path on the card: bf16 by ``path_agreement``'s bounds and control (the
+    plain path on the tensor cores), f32 by the fixed ``TRAIN_LOSS_REL``,
+    ``TRAIN_GRAD_COS`` and ``TRAIN_GRAD_MAXREL``.  A token that a MoE layer
+    routes to other experts than the world-1 step does (its top-k flipped
+    by rounding) is counted; that layer's MoE leaves keep their cosine
+    bound and lose their max_rel bound, as the serve phase leaves such
+    tokens out of its logits comparison."""
+    import math
+
+    free_engines(torch)
+    t_phase = time.monotonic()
+    kernel_rows = tp_kernel_checks(torch)
+    log("tp_kernels", rows=kernel_rows)
+    free_engines(torch)
+    runs, rows, failed, stages = [], [], [], {}
+    stages["parent_gib_at_start"] = torch.cuda.memory_reserved() / 2 ** 30
+    for wave in tp_waves():
+        t0 = time.monotonic()
+        refs = {name: [tp_reference(torch, *(c[:2] + c[3:])) for c in cases]
+                for name, _, cases in wave}
+        free_engines(torch)
+        stages["+".join(refs) + "_references"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        outs = spawn_tp_ranks(torch, wave, refs)
+        stages["+".join(refs) + "_ranks"] = time.monotonic() - t0
+        for name, world, cases in wave:
+            for i, case in enumerate(cases):
+                ranks = [o[i] for o in outs[name]]
+                try:
+                    rows.append(tp_agreement(torch, case, ranks, refs[name][i]))
+                except AssertionError as e:   # every case is run and logged, then the phase fails
+                    failed.append(str(e))
+                runs.append({"launches": {k: sum(r["counts"]["launches"][k] for r in ranks)
+                                          for k in ranks[0]["counts"]["launches"]},
+                             "body_launches": dict(sum(
+                                 (collections.Counter(r["counts"]["body_launches"]) for r in ranks),
+                                 collections.Counter())),
+                             **{k: sum(r["counts"][k] for r in ranks) for k in TP_BWD_COUNTERS}})
+        del refs
+        free_engines(torch)
+        torch.cuda.ipc_collect()           # the references the ranks mapped and released
+    stages["parent_gib_at_end"] = torch.cuda.memory_reserved() / 2 ** 30
+    out = {"kernels": kernel_rows, "cases": rows, "runs": runs, "stages": stages,
+           "seconds": time.monotonic() - t_phase}
+    log("tp", **{k: v for k, v in out.items() if k != "runs"})
+    if failed:
+        raise AssertionError("tp: " + "; ".join(failed))
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"tp: losses {[r['loss'] for r in rows]}")
+    if stages["parent_gib_at_end"] > stages["parent_gib_at_start"] + 1:
+        raise AssertionError(f"tp: the parent still holds memory after the ranks: {stages}")
+    return out
+
+
+def spawn_tp_ranks(torch, wave, refs, target=None, extra=()) -> dict:
+    """Every group of ``wave`` at once, each its own gloo group over a
+    ``FileStore`` in a temporary directory; returns each group's per-rank
+    results.  The ranks map the parent's world-1 gradients (CUDA IPC, the
+    spawn arguments).  ``target``, ``extra``: another rank function than
+    :func:`_tp_rank`, and the arguments it takes after :func:`_tp_rank`'s."""
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("spawn")
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(ranks_allocator())
+        started = []
+        for name, world, cases in wave:
+            d = stack.enter_context(tempfile.TemporaryDirectory(prefix=f"chip_smoke_tp_{name}_"))
+            procs = [ctx.Process(target=target or _tp_rank,
+                                 args=(r, world, d, cases, [ref["grads"] for ref in refs[name]],
+                                       [ref["routing"] for ref in refs[name]], *extra))
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            started.append((name, world, d, procs))
+        deadline = time.monotonic() + TP_RANK_TIMEOUT
+        for *_, procs in started:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        outs, bad = {}, {}
+        for name, world, d, procs in started:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+            errors = {r: Path(d, f"rank{r}.err").read_text() for r in range(world)
+                      if Path(d, f"rank{r}.err").exists()}
+            if errors or hung or any(p.exitcode for p in procs):
+                bad[name] = {"hung": hung, "exit_codes": [p.exitcode for p in procs],
+                             "errors": errors}
+                continue
+            outs[name] = [torch.load(Path(d, f"rank{r}.pt"), weights_only=False)
+                          for r in range(world)]
+    if bad:
+        raise AssertionError(f"tp: ranks failed: {bad}")
+    return outs
+
+
+def tp_leaves(ranks) -> dict:
+    """Per gradient leaf of a TP case, its cosine and max_rel against the
+    world-1 plain path, summed over the ranks' distinct shards."""
+    leaves = {}
+    for path, first in ranks[0]["stats"].items():
+        parts = [r["stats"][path] for r in ranks] if first["distinct"] else [first]
+        dot, aa, bb = (sum(p[k] for p in parts) for k in ("dot", "aa", "bb"))
+        leaves[path] = {"cos": dot / max((aa * bb) ** 0.5, 1e-30),
+                        "max_rel": max(p["max_diff"] for p in parts)
+                        / max(max(p["max_b"] for p in parts), 1e-30)}
+    return leaves
+
+
+def tp_agreement(torch, case, ranks, ref) -> dict:
+    """One TP case's checks over its ranks (see :func:`phase_tp`)."""
+    from repro_torch.configs import get_arch
+
+    arch, layers, model_axis, dtype = case
+    what = f"tp {arch} {dtype} model={model_axis}"
+    for r in ranks:
+        if not r["as_planned"]:
+            raise AssertionError(f"{what}: collectives {r['collectives']} are not the plan "
+                                 f"{r['plan']}")
+        if r["counts"]["plain_cuda_calls"]:
+            raise AssertionError(f"{what}: the plain version ran on the card: {r['counts']}")
+    losses = {r["loss"] for r in ranks}
+    if len(losses) != 1:
+        raise AssertionError(f"{what}: the ranks' losses differ: {losses}")
+    rwkv, moe, griffin = arch == "rwkv6-1.6b", arch == "mixtral-8x22b", arch == "recurrentgemma-2b"
+    want = {"matmul", "matmul_grad_launches"}
+    want |= {"rwkv6_scan", "rwkv6_bwd_launches"} if rwkv else {"flash_attention",
+                                                                "attention_bwd_launches"}
+    want |= {"grouped_matmul", "grouped_grad_launches"} if moe else set()
+    want |= {"rglru_scan", "rglru_bwd_launches"} if griffin else set()
+    counts = ranks[0]["counts"]
+    launched = {k for k, n in {**counts["launches"], **counts}.items()
+                if isinstance(n, int) and n}
+    if not want <= launched:
+        raise AssertionError(f"{what}: kernels {sorted(want - launched)} not launched")
+    leaves = tp_leaves(ranks)
+    loss = ranks[0]["loss"]
+    loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    bound = {"loss_rel": TRAIN_LOSS_REL,
+             "leaves": {p: {"cos": TRAIN_GRAD_COS, "max_rel": TRAIN_GRAD_MAXREL} for p in leaves}}
+    if dtype == "bfloat16":
+        c = ref["control"]
+        bound["loss_rel"] = max(TRAIN_LOSS_REL, CONTROL_FACTOR * c["loss_rel_err"])
+        for path, b in bound["leaves"].items():
+            b["cos"] = min(TRAIN_GRAD_COS, 1 - CONTROL_FACTOR * (1 - c["leaves"][path]["cos"]))
+            b["max_rel"] = max(TRAIN_GRAD_MAXREL, CONTROL_FACTOR * c["leaves"][path]["max_rel"])
+    # a token routed to other experts than the world-1 step's moves its
+    # layer's router and experts' gradients by its whole contribution (the
+    # serve phase leaves such tokens out of its logits comparison): there
+    # max_rel is not held, the cosine is
+    rerouted = ranks[0]["rerouted"]
+    moe_layers = [j for j, kind in enumerate(dataclasses.replace(
+        get_arch(arch), n_layers=layers).layer_kinds) if kind != "R"]
+    exempt = {p for p in leaves for j, n in zip(moe_layers, rerouted)
+              if n and p.startswith(f"['layers'][{j}]['moe']")}
+    bad = [p for p, v in leaves.items() if v["cos"] < bound["leaves"][p]["cos"]
+           or (v["max_rel"] > bound["leaves"][p]["max_rel"] and p not in exempt)]
+    row = {"arch": arch, "layers": layers, "model": model_axis, "dtype": dtype,
+           "ranks": len(ranks), "loss": loss, "world1_plain_loss": ref["loss"],
+           "loss_rel_err": loss_rel, "loss_bound": bound["loss_rel"],
+           "min_cos": min(v["cos"] for v in leaves.values()),
+           "max_rel": max(v["max_rel"] for v in leaves.values()),
+           "world1_kernel": ref["kernel"] and {
+               "loss_rel_err": ref["kernel"]["loss_rel_err"],
+               "min_cos": min(v["cos"] for v in ref["kernel"]["leaves"].values()),
+               "max_rel": max(v["max_rel"] for v in ref["kernel"]["leaves"].values())},
+           "rerouted_tokens": rerouted, "max_rel_not_held": sorted(exempt),
+           "model_gathers": ranks[0]["model_gathers"],
+           "local_params": [r["local_params"] for r in ranks],
+           "collectives_per_rank": {op: v["count"] for op, v in ranks[0]["collectives"].items()
+                                    if isinstance(v, dict)},
+           "launches": {k: sum(r["counts"]["launches"][k] for r in ranks)
+                        for k in ranks[0]["counts"]["launches"]}}
+    log("tp_case", **row)
+    if loss_rel > bound["loss_rel"] or bad:
+        detail = {p: {"tp": leaves[p], "bound": bound["leaves"][p],
+                      "world1_kernel": (ref["kernel"] or {}).get("leaves", {}).get(p),
+                      "control": ref.get("control", {}).get("leaves", {}).get(p)} for p in bad}
+        raise AssertionError(f"{what}: against the world-1 step: loss {loss_rel} (bound "
+                             f"{bound['loss_rel']}), leaves {bad}: {detail}")
+    return row
+
+
+#: ``--tp-witness``: a TP case run with its sums over ``model`` reduced in
+#: its own dtype (the step as it is) and widened to f32 (``activations``:
+#: the residual stream's partial sums, forward and backward; ``all``: every
+#: reduction, the replicated leaves' gradients too)
+TP_WITNESS_CASE = ("rwkv6-1.6b", 2, 2, "bfloat16")
+TP_WITNESS_WIDENINGS = ("none", "activations", "all")
+
+
+def _tp_widened_rank(rank, world, d, cases, refs, routings, widen):
+    """:func:`_tp_rank` with the sums over ``model`` that ``widen`` names
+    reduced in f32 (each bf16 operand widened, the sum rounded back)."""
+    import_port()
+    import torch
+
+    from repro_torch.distributed import collectives as col
+
+    def widened(fn):
+        def run(self, x):
+            return fn(self, x.float()).to(x.dtype) if x.dtype == torch.bfloat16 else fn(self, x)
+        return run
+
+    if widen == "activations":
+        tp = col.TensorParallel
+        tp._reduce_scatter_last = widened(tp._reduce_scatter_last)
+        tp._all_reduce = widened(tp._all_reduce)
+    elif widen == "all":
+        groups = col.MeshGroups
+        inner_rs, inner_ar = groups.reduce_scatter, groups.all_reduce
+
+        def reduce_scatter(self, out, x, axes):
+            if x.dtype != torch.bfloat16:
+                return inner_rs(self, out, x, axes)
+            wide = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+            inner_rs(self, wide, x.float(), axes)
+            out.copy_(wide)
+
+        def all_reduce(self, x, axes, op=col.dist.ReduceOp.SUM):
+            if x.dtype != torch.bfloat16:
+                return inner_ar(self, x, axes, op)
+            wide = x.float()
+            inner_ar(self, wide, axes, op)
+            x.copy_(wide)
+
+        groups.reduce_scatter, groups.all_reduce = reduce_scatter, all_reduce
+    _tp_rank(rank, world, d, cases, refs, routings)
+
+
+def tp_witness(torch) -> int:
+    """``chip_smoke.py --tp-witness``: where a bf16 TP case's distance from
+    the world-1 step comes from.  :data:`TP_WITNESS_CASE` once for each of
+    :data:`TP_WITNESS_WIDENINGS`, each held to the world-1 plain path as the
+    TP phase holds it (the collectives' bytes, which widening changes, are
+    not held to the plan); per run the loss, the smallest cosine and the
+    leaves below their bound, beside the world-1 kernel path and the
+    control."""
+    phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch, layers, model_axis, dtype = case = TP_WITNESS_CASE
+    ref = tp_reference(torch, arch, layers, dtype)
+    free_engines(torch)
+    rows = []
+    for widen in TP_WITNESS_WIDENINGS:
+        name = f"witness_{widen}"
+        ranks = [r[0] for r in spawn_tp_ranks(torch, [(name, model_axis, [case])], {name: [ref]},
+                                               target=_tp_widened_rank, extra=(widen,))[name]]
+        for r in ranks:
+            r["as_planned"] = True
+        try:
+            tp_agreement(torch, case, ranks, ref)
+            held = True
+        except AssertionError:
+            held = False
+        leaves = tp_leaves(ranks)
+        worst = sorted(leaves, key=lambda p: leaves[p]["cos"])[:4]
+        rows.append({"widen": widen, "held": held, "loss": ranks[0]["loss"],
+                     "loss_rel_err": abs(ranks[0]["loss"] - ref["loss"]) / abs(ref["loss"]),
+                     "lowest_cos": {p: {"tp": leaves[p]["cos"],
+                                        "world1_kernel": ref["kernel"]["leaves"][p]["cos"],
+                                        "control": ref["control"]["leaves"][p]["cos"],
+                                        "bound": min(TRAIN_GRAD_COS, 1 - CONTROL_FACTOR * (
+                                            1 - ref["control"]["leaves"][p]["cos"]))}
+                                    for p in worst},
+                     "reduced_dtypes": {op: v["dtypes"] for op, v in ranks[0]["collectives"].items()
+                                        if isinstance(v, dict)}})
+        log("tp_witness", **rows[-1])
+    print(json.dumps({"tp_witness": rows, "case": case, "device": nvidia_smi()}), flush=True)
+    return 0
 
 
 def first_whole_capture(torch, what: str, run) -> dict | None:
@@ -5072,6 +5714,9 @@ def main(argv: list[str]) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps({"step_profiles": profile_steps(torch)}), flush=True)
         return 0
+    if argv == ["--tp-witness"]:
+        import_port()
+        return tp_witness(torch)
     if argv[:1] == ["--time-scans"] and len(argv) == 2:   # one turn of --scans-ab
         import_port(Path(argv[1]))
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -5134,6 +5779,7 @@ def main(argv: list[str]) -> int:
     if under:
         raise AssertionError(f"train_families timings under their bytes bound: {under}")
     dist_r = phase("dist", phase_dist, torch, train["main"]["ms_per_step"])
+    tp_r = phase("tp", phase_tp, torch)
     profiles = phase("step_profiles", phase_step_profiles, torch)
     examples = phase("examples", phase_examples, torch)
     train["main"]["profile"], dist_r["main"]["profile"] = profiles["train"], profiles["dist"]
@@ -5146,7 +5792,8 @@ def main(argv: list[str]) -> int:
     # main-path runs, counts read apart
     paths = {"slot": srv, "paged": paged, "spec": [spec], "fleet": fleet,
              "train": [train["main"], train["dots"]],
-             "families": fam["runs"], "dist": [dist_r["main"]]}
+             "families": fam["runs"], "dist": [dist_r["main"], dist_r["main_fsdp_tp"]],
+             "tp": tp_r["runs"]}
 
     def count(r, name, body=None):   # one run's launches of a kernel (of one body)
         if body is None:
@@ -5362,6 +6009,12 @@ def main(argv: list[str]) -> int:
         elif row["name"] in ("matmul_decode", "matmul_prefill", "grouped_matmul_prefill"):
             row["launches_by_path"] = by_path(row["name"].removesuffix("_decode")
                                               .removesuffix("_prefill"), row["body"])
+    for row in kernels:   # the backward kernels' launches on the TP path
+        counter = next((c for c, name in TP_BWD_COUNTERS.items() if name == row["name"]), None)
+        if counter:
+            n = sum(r[counter] for r in tp_r["runs"])
+            row["launches_by_path"]["tp"] = n
+            row["launches"] += n
     print(json.dumps({"tuning": tuning}))
     print(json.dumps({"examples": examples}))
     log("done", seconds=time.monotonic() - t_start)

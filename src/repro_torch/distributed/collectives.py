@@ -5,24 +5,49 @@ reference leaves them to GSPMD, which inserts them from the shardings).
   mesh.Mesh` over the default group: one per set of axes a leaf is sharded
   over (single axes from the mesh's ``DeviceMesh``, larger proper sets from
   ``new_group``), all made at construction, in one order on every rank.
+  Every collective the port issues goes through it, named by its axes and
+  counted.  Under gloo a CUDA tensor's collective is staged through host
+  memory (gloo's reduce-scatter takes no CUDA tensor): one op, counted once.
 * :class:`GatherParam` — an autograd Function: forward, the
   ``all_gather_into_tensor`` of a leaf's shards over the ranks that hold
   distinct ones, put back into the full leaf; backward, the gradient
   reduce-scattered over the same ranks, all-reduced over the ranks that
-  hold copies of the shard, and divided by the world size.  Every rank
-  computes its loss on its batch shard, so the gradient a step applies is
-  (1/world)·Σ over ranks, which stays right when the ``model`` axis holds
-  duplicate batch shards.
-* :class:`AllReduceMean` — the mean over the world (forward and backward).
+  hold copies of the shard, and divided by the number of batch shards.
+  Under tensor-parallel compute a leaf's ``model`` shard may stay local: it
+  is gathered over the fsdp axes only (:func:`leaf_placement`'s
+  ``local_axes``).
+* :class:`TensorParallel` — the ``model`` axis's compute: the residual
+  stream's all-gather along D (backward, a reduce-scatter), a row-parallel
+  product's reduce-scatter into the residual layout (backward, an
+  all-gather), the all-reduces of the vocab-parallel loss.
+* :class:`AllReduceMean` — the mean over a set of axes (forward and
+  backward).
 * :class:`CollectiveCounter` — per op: the count, the operand bytes and the
-  result bytes (and the bytes per dtype), as the reference's dry-run counts
-  them from the compiled HLO.
+  result bytes (and the bytes per dtype and the count per set of axes), as
+  the reference's dry-run counts them from the compiled HLO.
+
+The gradients' bookkeeping.  Every rank computes the loss of its batch
+shard.  Under tensor-parallel compute the ranks of one ``model`` row hold
+one batch shard, and a value every rank of the row computes alike (a norm's
+output, the router's probabilities, the loss itself) carries on each rank a
+*partial* gradient: the rank's own share, the shares summing over the row
+to the whole.  The loss seeds its gradient on the row's first rank
+(:meth:`TensorParallel.once`), each product over a local shard adds its
+share, and each collective's backward is its dual: an all-gather's a
+reduce-scatter, a reduce-scatter's an all-gather, an all-reduce's an
+all-reduce.  So a leaf that stays local gets its whole gradient, and a leaf
+the row holds copies of (or gathers over ``model``) gets partial ones that
+the gradient's reduce over copies (or its reduce-scatter) sums; dividing
+by the number of batch shards then gives the global batch's mean.  Without
+tensor-parallel compute every rank of the mesh holds a batch shard of its
+own, and the divisor is the world size.
 
 One leaf per collective, its shard flattened into one buffer.  Leaves are
 gathered in the model's order of use, and autograd runs the backward in one
 order on every rank, so every rank issues the same collectives in the same
-order.  A group of one rank still runs its collective (a copy): at world 1
-the sharded step launches what the unsharded step launches, plus copies.
+order.  A group of one rank still runs its collective (a copy) at world 1:
+there the sharded step launches what the unsharded step launches, plus
+copies.  Above world 1 an axis of size 1 moves nothing.
 """
 from __future__ import annotations
 
@@ -34,44 +59,60 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import Spec, local_shape, local_slices, shard_leaf, spec_axes
-from repro_torch.tree import flatten_up_to, leaves, tree_map, unflatten
+from repro_torch.distributed.sharding import (Spec, attn_heads_local, local_shape, local_slices,
+                                              moe_expert_parallel, shard_leaf, spec_axes,
+                                              tp_keeps_local)
+from repro_torch.tree import flatten_up_to, leaves, leaves_with_paths, tree_map, unflatten
+
+#: the axis tensor-parallel compute splits over
+MODEL_AXIS = "model"
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def axes_key(axes) -> str:
+    """A set of axes as the counter names it ("data,model")."""
+    return ",".join(axes)
+
+
 class CollectiveCounter:
-    """Collectives issued, per op: count, operand bytes, result bytes and
-    the operand bytes per dtype."""
+    """Collectives issued, per op: count, operand bytes, result bytes, the
+    operand bytes per dtype and the count per set of axes."""
 
     def __init__(self):
         self.stats: dict[str, dict] = {}
 
-    def add(self, op: str, operand: torch.Tensor, result: torch.Tensor) -> None:
+    def add(self, op: str, operand: torch.Tensor, result: torch.Tensor, axes=()) -> None:
         s = self.stats.setdefault(op, {"count": 0, "operand_bytes": 0, "result_bytes": 0,
-                                       "dtypes": {}})
+                                       "dtypes": {}, "axes": {}})
         s["count"] += 1
         s["operand_bytes"] += _nbytes(operand)
         s["result_bytes"] += _nbytes(result)
         name = str(operand.dtype).removeprefix("torch.")
         s["dtypes"][name] = s["dtypes"].get(name, 0) + _nbytes(operand)
+        key = axes_key(axes)
+        s["axes"][key] = s["axes"].get(key, 0) + 1
 
     def reset(self) -> None:
         self.stats = {}
 
     def snapshot(self) -> dict:
-        out = {op: {**s, "dtypes": dict(s["dtypes"])} for op, s in self.stats.items()}
+        out = {op: {**s, "dtypes": dict(s["dtypes"]), "axes": dict(s["axes"])}
+               for op, s in self.stats.items()}
         out["total_operand_bytes"] = sum(s["operand_bytes"] for s in self.stats.values())
         return out
 
 
 @dataclasses.dataclass(frozen=True)
 class LeafPlacement:
-    """Where one leaf lives on a mesh of ``world`` ranks: its spec, full and
-    local shapes, the axes its shards differ over (mesh order) and the axes
-    that hold copies, with their sizes."""
+    """Where one leaf lives on a mesh of ``world`` ranks and what a gather
+    of it gives: the spec and full shape of what is gathered (the leaf
+    itself, or under tensor-parallel compute the rank's ``model`` shard of
+    it), the stored shard's shape, the axes the gather runs over (mesh
+    order) and the axes that hold copies, with their sizes, and what the
+    gradient is divided by (the number of batch shards)."""
     spec: Spec
     full_shape: tuple[int, ...]
     local_shape: tuple[int, ...]
@@ -80,6 +121,7 @@ class LeafPlacement:
     gather_size: int
     copy_size: int
     world: int
+    grad_div: int
 
     @property
     def gathers(self) -> bool:
@@ -94,15 +136,28 @@ class LeafPlacement:
         return self.copy_size > 1
 
 
-def leaf_placement(full_shape: tuple[int, ...], spec: Spec, mesh) -> LeafPlacement:
+def leaf_placement(full_shape: tuple[int, ...], spec: Spec, mesh, local_axes=(),
+                   batch_shards: int | None = None) -> LeafPlacement:
     """A leaf's placement by its spec; needs no process group (the planner
-    reads it as the sharded step does)."""
+    reads it as the sharded step does).  ``local_axes``: axes whose shard
+    the compute keeps (tensor-parallel compute: ``("model",)``), gathered
+    over the rest; ``batch_shards``: the gradient's divisor (default: the
+    world size)."""
     sharded = {a for entry in spec for a in spec_axes(entry)}
-    gather = tuple(a for a in mesh.axis_names if a in sharded)
+    gather = tuple(a for a in mesh.axis_names if a in sharded and a not in local_axes)
     copy = tuple(a for a in mesh.axis_names if a not in sharded)
-    return LeafPlacement(tuple(spec), tuple(full_shape), local_shape(tuple(full_shape), spec, mesh),
+    shape, kept = list(full_shape), []
+    for d, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        for a in axes:
+            if a in local_axes:
+                shape[d] //= mesh.shape[a]
+        rest = tuple(a for a in axes if a not in local_axes)
+        kept.append(None if not rest else rest[0] if len(rest) == 1 else rest)
+    return LeafPlacement(tuple(kept), tuple(shape), local_shape(tuple(full_shape), spec, mesh),
                          gather, copy, math.prod(mesh.shape[a] for a in gather),
-                         math.prod(mesh.shape[a] for a in copy), mesh.size)
+                         math.prod(mesh.shape[a] for a in copy), mesh.size,
+                         batch_shards or mesh.size)
 
 
 class MeshGroups:
@@ -120,6 +175,8 @@ class MeshGroups:
         self.coords = mesh.coords(self.rank)
         self.counter = counter if counter is not None else CollectiveCounter()
         self.device_mesh = mesh.device_mesh()
+        #: gloo: a CUDA tensor's collective goes through host memory
+        self.staged = dist.get_backend() == "gloo"
         names = mesh.axis_names
         self._groups: dict[frozenset, Any] = {}
         for n in range(len(names) + 1):
@@ -152,36 +209,64 @@ class MeshGroups:
     def size(self, axes) -> int:
         return math.prod(self.mesh.shape[a] for a in axes)
 
+    def moves(self, axes) -> bool:
+        """Whether a collective over ``axes`` is issued: over more than one
+        rank, or at world 1 (a copy)."""
+        return self.size(axes) > 1 or self.world == 1
+
+    @property
+    def all_axes(self) -> tuple[str, ...]:
+        return tuple(self.mesh.axis_names)
+
     def placement(self, full_shape: tuple[int, ...], spec: Spec) -> LeafPlacement:
         return leaf_placement(full_shape, spec, self.mesh)
 
     # -- the collectives, counted (every one the port issues goes here) ----------
     # all_gather_into_tensor / reduce_scatter_tensor: the names every torch
     # since 2.0 has (later versions add *_single and deprecate these)
-    def all_gather(self, out: torch.Tensor, x: torch.Tensor, group) -> None:
-        """Every rank's ``x`` concatenated in rank order into ``out``."""
-        dist.all_gather_into_tensor(out, x, group=group)
-        self.counter.add("all_gather", x, out)
+    def _host(self, *ts: torch.Tensor) -> bool:
+        return self.staged and ts[0].is_cuda
 
-    def reduce_scatter(self, out: torch.Tensor, x: torch.Tensor, group) -> None:
-        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
-        self.counter.add("reduce_scatter", x, out)
+    def all_gather(self, out: torch.Tensor, x: torch.Tensor, axes) -> None:
+        """Every rank's ``x`` over ``axes`` concatenated in rank order into
+        ``out``."""
+        if self._host(x):
+            o = out.cpu()
+            dist.all_gather_into_tensor(o, x.cpu(), group=self.group(axes))
+            out.copy_(o)
+        else:
+            dist.all_gather_into_tensor(out, x, group=self.group(axes))
+        self.counter.add("all_gather", x, out, axes)
 
-    def all_reduce(self, x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
-        dist.all_reduce(x, op=op, group=group)
-        self.counter.add("all_reduce", x, x)
+    def reduce_scatter(self, out: torch.Tensor, x: torch.Tensor, axes) -> None:
+        if self._host(x):
+            o = out.cpu()
+            dist.reduce_scatter_tensor(o, x.cpu(), op=dist.ReduceOp.SUM, group=self.group(axes))
+            out.copy_(o)
+        else:
+            dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=self.group(axes))
+        self.counter.add("reduce_scatter", x, out, axes)
+
+    def all_reduce(self, x: torch.Tensor, axes, op=dist.ReduceOp.SUM) -> None:
+        if self._host(x):
+            h = x.cpu()
+            dist.all_reduce(h, op=op, group=self.group(axes))
+            x.copy_(h)
+        else:
+            dist.all_reduce(x, op=op, group=self.group(axes))
+        self.counter.add("all_reduce", x, x, axes)
 
     # -- a leaf's shards <-> the full leaf ---------------------------------------
     def gather_full(self, local: torch.Tensor, pl: LeafPlacement) -> torch.Tensor:
-        """The full leaf from every rank's shard (a collective over the
-        ranks that hold distinct shards)."""
+        """The full leaf (or under tensor-parallel compute its local
+        ``model`` shard) from every rank's shard: a collective over the
+        ranks that hold distinct shards."""
         if not pl.gathers:
             return local.clone()
-        group = self.group(pl.gather_axes)
         sizes = [self.mesh.shape[a] for a in pl.gather_axes]
         x = local.contiguous().view(-1)
         out = torch.empty(math.prod(sizes) * x.numel(), dtype=x.dtype, device=x.device)
-        self.all_gather(out, x, group)
+        self.all_gather(out, x, pl.gather_axes)
         n = len(sizes)
         perm = []
         for d, entry in enumerate(pl.spec):
@@ -189,9 +274,10 @@ class MeshGroups:
         return out.view(tuple(sizes) + pl.local_shape).permute(perm).reshape(pl.full_shape)
 
     def reduce_grad(self, grad: torch.Tensor, pl: LeafPlacement) -> torch.Tensor:
-        """A full leaf's gradient -> this rank's shard of (1/world)·Σ over
-        ranks: reduce-scattered over the ranks with distinct shards,
-        all-reduced over the ranks with copies."""
+        """A gathered leaf's gradient -> this rank's shard of the sum over
+        ranks divided by the number of batch shards: reduce-scattered over
+        the ranks with distinct shards, all-reduced over the ranks with
+        copies."""
         if not pl.gathers:
             local = grad.contiguous().clone()
         else:
@@ -205,16 +291,16 @@ class MeshGroups:
             order = [where[a] for a in pl.gather_axes] + loc
             send = grad.reshape(tuple(split)).permute(order).contiguous().view(-1)
             local = torch.empty(math.prod(pl.local_shape), dtype=grad.dtype, device=grad.device)
-            self.reduce_scatter(local, send, self.group(pl.gather_axes))
+            self.reduce_scatter(local, send, pl.gather_axes)
             local = local.view(pl.local_shape)
         if pl.reduces_copies:
-            self.all_reduce(local, self.group(pl.copy_axes))
-        return local.div_(self.world)
+            self.all_reduce(local, pl.copy_axes)
+        return local.div_(pl.grad_div)
 
 
 class GatherParam(torch.autograd.Function):
-    """A leaf's shard -> the full leaf (all-gather); its gradient -> the
-    shard's (reduce-scatter, all-reduce over copies, / world)."""
+    """A leaf's shard -> the gathered leaf (all-gather); its gradient -> the
+    shard's (reduce-scatter, all-reduce over copies, / batch shards)."""
 
     @staticmethod
     def forward(ctx, local, placement, groups):
@@ -227,36 +313,227 @@ class GatherParam(torch.autograd.Function):
 
 
 class AllReduceMean(torch.autograd.Function):
-    """The mean over the world of a tensor every rank holds; its gradient
-    likewise."""
+    """The mean over ``axes`` (default: the world) of a tensor every rank
+    holds; its gradient likewise."""
 
     @staticmethod
-    def forward(ctx, x, groups):
-        ctx.groups = groups
-        return _mean(x, groups)
+    def forward(ctx, x, groups, axes=None):
+        ctx.groups, ctx.axes = groups, axes
+        return _mean(x, groups, axes)
 
     @staticmethod
     def backward(ctx, grad):
-        return _mean(grad, ctx.groups), None
+        return _mean(grad, ctx.groups, ctx.axes), None, None
 
 
-def _mean(x: torch.Tensor, groups: MeshGroups) -> torch.Tensor:
+def _mean(x: torch.Tensor, groups: MeshGroups, axes=None) -> torch.Tensor:
+    axes = groups.all_axes if axes is None else tuple(axes)
     y = x.contiguous().clone()
-    groups.all_reduce(y, dist.group.WORLD)
-    return y.div_(groups.world)
+    if not groups.moves(axes):
+        return y
+    groups.all_reduce(y, axes)
+    return y.div_(groups.size(axes))
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel compute over the model axis
+# ---------------------------------------------------------------------------
+
+
+def _cols(x: torch.Tensor, m: int, r: int) -> torch.Tensor:
+    n = x.shape[-1] // m
+    return x[..., r * n:(r + 1) * n]
+
+
+class _GatherLast(torch.autograd.Function):
+    """(..., n) per rank -> (..., m·n), the ranks' blocks in order along the
+    last dim (all-gather); backward, the reduce-scatter of the partial
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp._all_gather_last(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._reduce_scatter_last(g), None
+
+
+class _ScatterLast(torch.autograd.Function):
+    """(..., m·n) partial sums per rank -> (..., n), this rank's block of
+    their sum (reduce-scatter); backward, the all-gather of the blocks'
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, y, tp):
+        ctx.tp = tp
+        return tp._reduce_scatter_last(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._all_gather_last(g), None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The sum over the ``model`` row (all-reduce); backward, the sum of the
+    partial gradients (all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp._all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._all_reduce(g), None
+
+
+class _Once(torch.autograd.Function):
+    """A value every rank of the row holds alike, entering its gradient on
+    the row's first rank only (its partial gradient: zero elsewhere);
+    ``zero``: the value too is zero off the first rank."""
+
+    @staticmethod
+    def forward(ctx, x, first, zero):
+        ctx.first = first
+        return x.clone() if first or not zero else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None, None
+
+
+class TensorParallel:
+    """Tensor-parallel compute over the ``model`` axis of ``groups.mesh``
+    for ``cfg`` (the reference's GSPMD layout, computed by hand).
+
+    The residual stream keeps the reference's ``activation_sharding``,
+    ``(fsdp, None, model)``: each rank holds D/m of its columns
+    (``d_sharded``), or the whole of D where m does not divide it.  Each
+    block all-gathers it along D before its norm (:meth:`gather`), runs its
+    column-parallel products on local heads, d_ff slices, channels or
+    experts, and reduce-scatters each row-parallel product's partial sums
+    into it (:meth:`scatter`; an all-reduce where D is whole).  Embedding,
+    head and loss are vocab-parallel where m > 1 divides the vocabulary
+    (``vocab_parallel``), else whole on every rank.  ``q_local``,
+    ``kv_local`` (:func:`~repro_torch.distributed.sharding.attn_heads_local`)
+    and ``expert_parallel`` say how attention and MoE split.
+
+    A ``model`` axis of size 1 moves nothing (``moves`` false: every
+    method is the identity), at world 1 too: the residual stream is whole,
+    and a gather's copy would sit between it and the norm that reads it,
+    so an f32 stream's gradient would add the norm's terms in another
+    order than the unsharded step does."""
+
+    def __init__(self, groups: MeshGroups, cfg):
+        mesh = groups.mesh
+        self.groups, self.cfg = groups, cfg
+        self.axes = (MODEL_AXIS,)
+        self.m = mesh.shape[MODEL_AXIS]
+        self.rank = groups.coords[MODEL_AXIS]
+        self.moves = self.m > 1
+        self.d_sharded = cfg.d_model % self.m == 0
+        self.vocab_parallel = self.m > 1 and cfg.vocab_size % self.m == 0
+        self.q_local, self.kv_local = attn_heads_local(cfg, mesh)
+        self.expert_parallel = moe_expert_parallel(cfg, mesh)
+        self.batch_axes = tuple(a for a in mesh.axis_names if a != MODEL_AXIS)
+
+    # -- the residual stream ----------------------------------------------------
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream (this rank's D/m) -> the whole of D."""
+        if not (self.moves and self.d_sharded):
+            return x
+        return _GatherLast.apply(x, self)
+
+    def scatter(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial sums (the whole of D) -> their
+        sum in the residual stream's layout."""
+        if not self.moves:
+            return y
+        if self.d_sharded:
+            return _ScatterLast.apply(y, self)
+        return _SumOverModel.apply(y, self)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """A value every rank of the row holds (the whole of D) -> its part
+        in the residual stream's layout (no collective)."""
+        return _cols(x, self.m, self.rank) if self.d_sharded else x
+
+    def cols(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the last dim of a value the row holds
+        alike (a replicated leaf read at a local shard's columns)."""
+        return _cols(x, self.m, self.rank)
+
+    # -- the loss ---------------------------------------------------------------------
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the row of each rank's ``x`` (forward and backward)."""
+        return _SumOverModel.apply(x, self) if self.moves else x
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The max over the row (no gradient)."""
+        y = x.detach().contiguous().clone()
+        if self.moves:
+            self.groups.all_reduce(y, self.axes, op=dist.ReduceOp.MAX)
+        return y
+
+    def once(self, x: torch.Tensor) -> torch.Tensor:
+        """A value the row holds alike whose gradient must count once."""
+        return _Once.apply(x, self.rank == 0, False)
+
+    def first(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` on the row's first rank, zeros elsewhere (a bias a
+        row-parallel product adds once), with the gradient likewise."""
+        return _Once.apply(x, self.rank == 0, True)
+
+    # -- the collectives along the last dim -------------------------------------------
+    def _all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        out = torch.empty((self.m,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+        self.groups.all_gather(out.view(-1), x.view(-1), self.axes)
+        return out.movedim(0, -2).reshape(*x.shape[:-1], self.m * x.shape[-1])
+
+    def _reduce_scatter_last(self, y: torch.Tensor) -> torch.Tensor:
+        n = y.shape[-1] // self.m
+        send = y.reshape(*y.shape[:-1], self.m, n).movedim(-2, 0).contiguous()
+        out = torch.empty(tuple(y.shape[:-1]) + (n,), dtype=y.dtype, device=y.device)
+        self.groups.reduce_scatter(out.view(-1), send.view(-1), self.axes)
+        return out
+
+    def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.contiguous().clone()
+        self.groups.all_reduce(y, self.axes)
+        return y
+
+
+def compute_placements(sharded: "ShardedTree", tp: TensorParallel) -> list[LeafPlacement]:
+    """The placements a tree's leaves are gathered by under ``tp``: each
+    leaf's ``model`` shard kept where
+    :func:`~repro_torch.distributed.sharding.tp_keeps_local` says, every
+    gradient divided by the number of batch shards."""
+    mesh = sharded.groups.mesh
+    shards = mesh.size // tp.m
+    return [leaf_placement(pl.full_shape, pl.spec, mesh,
+                           (MODEL_AXIS,) if tp_keeps_local(path, pl.spec, tp.cfg, mesh) else (),
+                           shards)
+            for (path, _), pl in zip(leaves_with_paths(sharded.like), sharded.placements)]
 
 
 class ShardedTree:
     """One tree's placements on this rank: ``specs`` (a spec tree of the
     tree's structure, :func:`~repro_torch.distributed.sharding.param_shardings`)
-    over full leaves shaped like ``like``'s."""
+    over full leaves shaped like ``like``'s.  ``tp``: the tensor-parallel
+    compute its gathers serve (None: gathers give full leaves)."""
 
-    def __init__(self, groups: MeshGroups, like: Any, specs: Any):
+    def __init__(self, groups: MeshGroups, like: Any, specs: Any,
+                 tp: TensorParallel | None = None):
         self.groups = groups
         self.like = tree_map(lambda t: torch.empty(tuple(t.shape), dtype=t.dtype, device="meta"),
                              like)
         self.placements = [groups.placement(tuple(t.shape), s)
                            for t, s in zip(leaves(like), flatten_up_to(specs, like))]
+        self.tp = tp
+        self.compute = compute_placements(self, tp) if tp is not None else self.placements
 
     def shard(self, full: Any) -> Any:
         """This rank's slices of a full tree (leaves found by path, so its
@@ -285,29 +562,35 @@ class ShardedTree:
 
 class ParamGather:
     """What the models call on a subtree of sharded params: each leaf goes
-    through :class:`GatherParam` to its full value.  It knows a leaf by the
-    tensor itself (the step updates its shards in place).  The batch is
-    split into ``batch_shards`` distinct shards over the world (the
-    ``model`` axis may hold copies of one)."""
+    through :class:`GatherParam` to its gathered value (under
+    tensor-parallel compute, ``tp``, the rank's ``model`` shard where it
+    stays local).  It knows a leaf by the tensor itself (the step updates
+    its shards in place).  The batch is split into ``batch_shards`` distinct
+    shards over the batch axes (the fsdp axes under tensor-parallel
+    compute, every axis else)."""
 
     def __init__(self, sharded: ShardedTree, local: Any, batch_shards: int):
         self._keep = flatten_up_to(local, sharded.like)
-        self._by_id = {id(t): pl for t, pl in zip(self._keep, sharded.placements)}
+        self._by_id = {id(t): pl for t, pl in zip(self._keep, sharded.compute)}
         self.groups = sharded.groups
+        self.tp = sharded.tp
         self.batch_shards = batch_shards
+        self.batch_axes = self.tp.batch_axes if self.tp is not None else self.groups.all_axes
 
     def __call__(self, tree: Any) -> Any:
         return tree_map(lambda t: GatherParam.apply(t, self._by_id[id(t)], self.groups), tree)
 
     def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
         """A mean over this rank's batch shard -> the mean over the global
-        batch (every shard holds as many rows): :class:`AllReduceMean`."""
-        return AllReduceMean.apply(x, self.groups)
+        batch (every shard holds as many rows): :class:`AllReduceMean` over
+        the batch axes."""
+        return AllReduceMean.apply(x, self.groups, self.batch_axes)
 
     def batch_count(self, n: torch.Tensor) -> torch.Tensor:
         """This rank's share of a count over the global batch, from its
         shard's count ``n``: the global count over ``batch_shards``, at
         least 1 over it (a masked mean's divisor, floored at 1 as the
-        reference floors it).  A shard's sum over it averages over the world
-        to the global batch's sum over the global count."""
-        return torch.clamp(AllReduceMean.apply(n, self.groups), min=1.0 / self.batch_shards)
+        reference floors it).  A shard's sum over it averages over the batch
+        shards to the global batch's sum over the global count."""
+        return torch.clamp(AllReduceMean.apply(n, self.groups, self.batch_axes),
+                           min=1.0 / self.batch_shards)

@@ -1,18 +1,26 @@
 """How the launcher injects distribution into model code without threading
 mesh objects through every layer (the counterpart of
 ``repro.distributed.context``): the residual-stream and named activation
-constraints, the gather of sharded params, and the remat policy.
+constraints, tensor-parallel compute, the gather of sharded params, and the
+remat policy.
 
-The reference's constraints are GSPMD sharding constraints.  The port
-computes on gathered weights (ZeRO-3): every activation is rank-local, this
-rank's batch shard, so there is nothing to constrain.
-:func:`activation_sharding`, :func:`set_sharding_rules`, :func:`constrain`
-and :func:`constrain_named` keep the reference's names and calls and change
-nothing; nothing reads the specs they are given (tensor-parallel compute,
-which would, is ROADMAP A.9b's).  The sharded train step installs a param
-gather (:func:`gathered_params`) that the models read (:func:`param_gather`)
-once per forward: it captures the gather for the layers' recompute, which
-runs on autograd's thread.
+The reference's constraints are GSPMD sharding constraints, from which XLA
+derives its tensor-parallel collectives.  The port issues them by hand:
+under :func:`tensor_parallel` (a
+:class:`~repro_torch.distributed.collectives.TensorParallel`, which the
+sharded train step's param gather carries) each block reads the residual
+stream through :func:`gather_residual` (an all-gather along D over
+``model``) and returns its row-parallel products through
+:func:`scatter_residual` (a reduce-scatter into the reference's
+``activation_sharding`` layout, ``(fsdp, None, model)``).  Both are the
+identity outside such a context, as are :func:`activation_sharding`,
+:func:`set_sharding_rules`, :func:`constrain` and :func:`constrain_named`,
+which keep the reference's names and calls: the layouts they name are the
+ones the tensor-parallel context computes in.  The sharded train step
+installs a param gather (:func:`gathered_params`) that the models read
+(:func:`param_gather`) once per forward: it captures the gather and the
+tensor-parallel context for the layers' recompute, which runs on
+autograd's thread.
 
 The reference's remat policies are ``jax.checkpoint`` policies; here the
 models read the policy's name (``models.lm.rematted``).  Each layer runs
@@ -36,26 +44,70 @@ _tls = threading.local()
 
 @contextlib.contextmanager
 def activation_sharding(sharding):
-    """The residual stream's spec for the block: nothing to constrain under
-    gathered compute (see the module)."""
+    """The residual stream's spec for the block: the layout a
+    tensor-parallel context computes in (see the module); nothing to
+    constrain."""
     yield
 
 
 def constrain(x: torch.Tensor) -> torch.Tensor:
-    """The residual-stream constraint: the identity under gathered compute,
-    where every activation is this rank's batch shard."""
+    """The residual-stream constraint: the identity (the tensor-parallel
+    context lays the stream out itself)."""
     return x
 
 
 def set_sharding_rules(rules: dict | None) -> None:
     """Named internal-activation specs (e.g. ``moe_buf``): nothing to
-    constrain under gathered compute (see the module)."""
+    constrain (see the module)."""
 
 
 def constrain_named(x: torch.Tensor, name: str) -> torch.Tensor:
-    """A named activation's constraint: the identity under gathered compute,
-    as :func:`constrain` is."""
+    """A named activation's constraint: the identity, as :func:`constrain`
+    is."""
     return x
+
+
+# -- tensor-parallel compute ---------------------------------------------------
+
+
+@contextlib.contextmanager
+def tensor_parallel(tp):
+    """Models called in the block compute tensor-parallel under ``tp`` (a
+    :class:`~repro_torch.distributed.collectives.TensorParallel`; None:
+    whole)."""
+    prev = getattr(_tls, "tp", None)
+    _tls.tp = tp
+    try:
+        yield
+    finally:
+        _tls.tp = prev
+
+
+def tp_context():
+    """The active tensor-parallel context, or None."""
+    return getattr(_tls, "tp", None)
+
+
+def gather_residual(x: torch.Tensor) -> torch.Tensor:
+    """A block's read of the residual stream: the whole of D (an all-gather
+    over ``model`` under tensor-parallel compute)."""
+    tp = tp_context()
+    return x if tp is None else tp.gather(x)
+
+
+def scatter_residual(y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's output into the residual stream's layout (a
+    reduce-scatter of the ranks' partial sums under tensor-parallel
+    compute)."""
+    tp = tp_context()
+    return y if tp is None else tp.scatter(y)
+
+
+def local_residual(x: torch.Tensor) -> torch.Tensor:
+    """A value every rank computes whole (the whole of D) -> its part in the
+    residual stream's layout."""
+    tp = tp_context()
+    return x if tp is None else tp.local(x)
 
 
 # -- sharded params (set by the sharded train step) ------------------------
@@ -64,11 +116,13 @@ def constrain_named(x: torch.Tensor, name: str) -> torch.Tensor:
 @contextlib.contextmanager
 def gathered_params(gather):
     """Models called in the block gather their params through ``gather``
-    (a :class:`~repro_torch.distributed.collectives.ParamGather`)."""
+    (a :class:`~repro_torch.distributed.collectives.ParamGather`) and
+    compute under its tensor-parallel context, if it has one."""
     prev = getattr(_tls, "gather", None)
     _tls.gather = gather
     try:
-        yield
+        with tensor_parallel(getattr(gather, "tp", None) if gather is not None else tp_context()):
+            yield
     finally:
         _tls.gather = prev
 

@@ -33,6 +33,7 @@ reference's ``launch.dryrun._sharded_bytes``).
 from __future__ import annotations
 
 import math
+import re
 from typing import Any
 
 import torch
@@ -336,3 +337,76 @@ def sharded_bytes(tree: Any, specs: Any, mesh) -> int:
             n_shards *= _axis_size(mesh, spec_axes(entry))
         total += math.ceil(leaf.numel() / n_shards) * leaf.element_size()
     return total
+
+
+# ---------------------------------------------------------------------------
+# The port's tensor-parallel compute: which model shards stay local
+# ---------------------------------------------------------------------------
+
+#: the param-tree keys that hold an attention block's projections
+ATTN_KEYS = ("attn", "self_attn", "cross_attn")
+
+
+def _path_keys(path: str) -> list[str]:
+    """A keystr's dict keys in order ("['layers'][0]['attn']['wq']" ->
+    ['layers', 'attn', 'wq']); list indices are left out."""
+    return re.findall(r"\['([^']*)'\]", path)
+
+
+def attn_heads_local(cfg: ArchConfig, mesh) -> tuple[bool, bool]:
+    """(q heads local, KV heads local) under tensor-parallel compute.
+
+    ``_LEAF_RULES`` shard the flattened head dim whenever it divides, so a
+    rank's slice of ``wq`` or ``wk``/``wv`` may cut a head.  q heads are
+    local when the ``model`` axis splits them whole; KV heads likewise.
+    Where q heads are local and KV heads are not, each rank computes every
+    KV head and attends with the run its q heads read, which must be one
+    contiguous run in one group ratio; where it is not, or where q heads
+    are cut, every rank computes every head (the projections gathered over
+    ``model``) and ``wo`` stays row-parallel on its slice of the output."""
+    m = mesh.shape["model"]
+    q_ok = cfg.n_heads % m == 0
+    kv_ok = q_ok and cfg.n_kv_heads % m == 0
+    if q_ok and not kv_ok:
+        per, group = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+        q_ok = per % group == 0 or group % per == 0
+    return q_ok, kv_ok
+
+
+def tp_keeps_local(path: str, spec: Spec, cfg: ArchConfig, mesh) -> bool:
+    """Whether tensor-parallel compute keeps this leaf's ``model`` shard
+    local (gathers it over the fsdp axes only): every leaf sharded over
+    ``model`` but the attention projections whose heads
+    :func:`attn_heads_local` finds cut."""
+    if not any("model" in spec_axes(e) for e in spec):
+        return False
+    keys = _path_keys(path)
+    if len(keys) >= 2 and keys[-2] in ATTN_KEYS and keys[-1] in ("wq", "wk", "wv"):
+        q_ok, kv_ok = attn_heads_local(cfg, mesh)
+        return q_ok if keys[-1] == "wq" else kv_ok
+    return True
+
+
+def check_tensor_parallel(cfg: ArchConfig, mesh) -> None:
+    """Raise ``ValueError`` where tensor-parallel compute over ``mesh``'s
+    ``model`` axis cannot take ``cfg``: each row-parallel product (``wo``,
+    ``w_out``, ``cv``) must split its rows, a GLU slice must keep its
+    gate/up pairs whole, an rwkv6 rank must hold whole heads."""
+    m = mesh.shape["model"]
+    if m == 1:
+        return
+    why = []
+    if not cfg.is_attention_free and cfg.family != "ssm" and (cfg.n_heads * cfg.head_dim) % m:
+        why.append(f"the attention output's {cfg.n_heads * cfg.head_dim} columns")
+    split_ff = not (cfg.n_experts and moe_expert_parallel(cfg, mesh))
+    if split_ff and cfg.d_ff % m:
+        why.append(f"d_ff {cfg.d_ff}")
+    elif split_ff and cfg.mlp_kind in ("swiglu", "geglu") and (2 * cfg.d_ff // m) % 2:
+        why.append(f"the GLU's {2 * cfg.d_ff} packed columns into even slices")
+    if cfg.family == "ssm" and (cfg.n_heads % m or cfg.d_model % m):
+        why.append(f"rwkv6's {cfg.n_heads} heads")
+    if cfg.rnn_width and cfg.rnn_width % m:
+        why.append(f"the RG-LRU width {cfg.rnn_width}")
+    if why:
+        raise ValueError(f"tensor-parallel compute over model={m} cannot split {cfg.name}: "
+                         + ", ".join(why))

@@ -21,14 +21,21 @@ these fields of the reference's JSON:
   each other leaf once, reduce-scatters every leaf's gradient, all-reduces
   a gradient over the ranks that hold copies of its shard, all-reduces the
   MoE load-balance means and, once, the metrics and the gradient norm;
-  prefill and decode gather each leaf once.  A leaf whose shards all sit
-  on one rank moves nothing;
+  prefill and decode gather each leaf once (one forward over the cell's
+  batch: a decode cell's one token a row).  A leaf whose shards all sit
+  on one rank moves nothing.  An ``fsdp+tp`` cell computes tensor-parallel
+  over ``model``: each leaf is gathered over the fsdp axes only, its
+  ``model`` shard kept local (attention projections whose heads a shard
+  would cut excepted), and the plan adds the residual stream's all-gathers
+  and reduce-scatters per layer and pass, the vocab-parallel embedding's
+  and the loss's collectives;
 * ``roofline``, analytical on ``hw.H100``'s peaks (not a measurement):
   ``compute_analytic_s`` as the reference's (8·N·tokens for a train step
   under full remat, 6·N·tokens under ``--remat-policy dots``, which
   recomputes no matmul, 2·N·tokens otherwise, N the active params, over
   the chips' bf16 peak); ``memory_s``, the weight bytes a device touches
-  over its HBM rate (the gathered weights read once per pass — three
+  over its HBM rate (the gathered weights read once per pass, a
+  tensor-parallel leaf at its ``model`` shard's size — three
   passes for a train step: forward, recompute, backward; two under
   ``dots``, whose recompute reads no weight — the weight gradient written
   once, and the local AdamW update: 28 bytes per local bf16 param; caches
@@ -55,10 +62,11 @@ from repro_torch.configs.base import all_cells, get_arch, get_shape, shape_appli
 from repro_torch.distributed import sharding as shd
 from repro_torch.hw.specs import H100
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.distributed.collectives import MODEL_AXIS, leaf_placement
 from repro_torch.launch.steps import plan_collectives
 from repro_torch.models.build import build_model
 from repro_torch.models.lm import trainable
-from repro_torch.tree import flatten_up_to, leaves
+from repro_torch.tree import flatten_up_to, leaves, leaves_with_paths
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "benchmarks", "results", "dryrun_torch")
@@ -81,10 +89,19 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, *, remat: bool = 
     dp_only = shd.dp_dominant(cfg, mesh, kind=shape.kind, global_batch=shape.global_batch)
     specs = shd.param_shardings(params, cfg, mesh, dp_only)
     train = shape.kind == "train"
+    strategy = "dp" if dp_only else "fsdp_tp"
     coll = plan_collectives(cfg, params, specs, mesh, train=train, remat=remat,
-                            grad_accum=grad_accum)
+                            grad_accum=grad_accum, strategy=strategy,
+                            batch=(shape.global_batch, shape.seq_len if shape.kind != "decode"
+                                   else 1))
     param_bytes = shd.sharded_bytes(params, specs, mesh)
-    full_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    # the bytes of the weights a device gathers: whole leaves, or under
+    # fsdp+tp each leaf's model shard where tensor-parallel compute keeps it
+    full_bytes = 0
+    for (path, t), s in zip(leaves_with_paths(params), flatten_up_to(specs, params)):
+        local = (MODEL_AXIS,) if not dp_only and shd.tp_keeps_local(path, s, cfg, mesh) else ()
+        full_bytes += math.prod(leaf_placement(tuple(t.shape), s, mesh, local).full_shape) \
+            * t.element_size()
     local_params = sum(math.prod(shd.local_shape(tuple(t.shape), s, mesh))
                        for t, s in zip(leaves(params), flatten_up_to(specs, params)))
 

@@ -39,12 +39,15 @@ on ``cuda:LOCAL_RANK`` with ``--device cuda``, gloo on the CPU;
 ``--mesh-model``, ``--mesh-model``) test mesh over it and trains through
 :class:`~repro_torch.launch.steps.ShardedTrainStep`, at world 1 too.
 ``--strategy auto`` follows the reference's ``dp_dominant``; ``dp`` shards
-every leaf over the whole mesh, ``fsdp_tp`` takes the reference's layout.
-Both compute on weights gathered one layer at a time (ZeRO-3): under
-``fsdp_tp`` the ranks of one ``model`` row compute the same batch shard on
-the same full weights — it is not tensor-parallel compute, which is ROADMAP
-A.9b's.  Each rank draws the full params from the seed and keeps its
-shards.  Checkpoints: rank 0 writes full leaves, and ``--resume`` goes
+every leaf over the whole mesh and computes on weights gathered whole, one
+layer at a time (ZeRO-3); ``fsdp_tp`` takes the reference's layout and
+computes tensor-parallel over the ``--mesh-model`` axis: weights gathered
+over the fsdp axes only, each rank of a ``model`` row computing its heads,
+d_ff slices, channels, experts and vocabulary shard of the row's batch
+shard, the residual stream between layers holding D/m columns
+(:class:`~repro_torch.distributed.collectives.TensorParallel`).  Each rank
+draws the full params from the seed and keeps its shards.  Checkpoints:
+rank 0 writes full leaves, and ``--resume`` goes
 through :func:`~repro_torch.distributed.fault.elastic_restore`, so a run
 resumes at another world size (or in one process).  Rank 0 logs and
 prints.  Without ``torchrun`` the trainer runs one process and refuses

@@ -17,6 +17,14 @@ logit softcapping and KV caches (the counterpart of
 * ``init_attn_cache`` — full cache for global layers, window-sized ring for
   local/SWA layers.
 
+Under tensor-parallel compute (``distributed.context.tensor_parallel``,
+training only) ``wq``, ``wk`` and ``wv`` are this rank's columns: q and
+K/V hold the rank's heads (:func:`_qkv`; where KV heads are whole on every
+rank, the run its q heads read), and the output that ``wo``'s local rows
+take is those heads' columns (:func:`out_cols`; where every head is
+computed whole, the rank's slice of them).  ``wo`` then gives the rank's
+partial sums, which the caller reduce-scatters.
+
 Unlike the reference, which is functional, the caches are updated in place:
 ``attn_forward`` writes the prefix of the (fresh) cache it is given,
 ``attn_chunk`` the chunk's rows (ring caches: after attention),
@@ -29,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import tp_context
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, dense_init, dtype_of
 
@@ -53,13 +62,36 @@ def _attn_class(cfg: ArchConfig, kind: str) -> str:
 
 
 def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, provider):
-    """(B, S, D) -> q (B, H, S, hd), k/v (B, KV, S, hd)."""
+    """(B, S, D) -> q (B, H, S, hd), k/v (B, KV, S, hd): the heads this rank
+    attends with under tensor-parallel compute."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = ops.matmul(x, p["wq"], provider=provider).reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = ops.matmul(x, p["wk"], provider=provider).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = ops.matmul(x, p["wv"], provider=provider).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = ops.matmul(x, p["wq"], provider=provider).reshape(b, s, -1, hd).transpose(1, 2)
+    k = ops.matmul(x, p["wk"], provider=provider).reshape(b, s, -1, hd).transpose(1, 2)
+    v = ops.matmul(x, p["wv"], provider=provider).reshape(b, s, -1, hd).transpose(1, 2)
+    k, v = kv_for(cfg, q, k), kv_for(cfg, q, v)
     return q, k, v
+
+
+def kv_for(cfg: ArchConfig, q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    """K or V (B, KV, S, hd) for q's heads: under tensor-parallel compute with
+    q heads local and KV heads computed whole, the contiguous run of KV
+    heads this rank's q heads read (one ratio:
+    ``sharding.attn_heads_local``)."""
+    tp = tp_context()
+    if tp is None or not tp.q_local or tp.kv_local:
+        return kv
+    per, group = q.shape[1], cfg.n_heads // cfg.n_kv_heads
+    k0 = tp.rank * per // group
+    return kv[:, k0:k0 + max(1, per // group)]
+
+
+def out_cols(out: torch.Tensor) -> torch.Tensor:
+    """The attention output (B, S, heads·hd) -> the columns ``wo``'s rows
+    take: all of them, or under tensor-parallel compute with every head
+    computed whole, this rank's slice."""
+    tp = tp_context()
+    return out if tp is None or tp.q_local else tp.cols(out)
 
 
 def _rope_qk(cfg: ArchConfig, q, k, positions):
@@ -109,7 +141,7 @@ def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
         softcap=cfg.attn_softcap if kind == "G" else 0.0,
         provider=provider,
     )
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = out_cols(out.transpose(1, 2).reshape(b, s, -1))
     y = ops.matmul(out, p["wo"], provider=provider)
 
     if cache is None:

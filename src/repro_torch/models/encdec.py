@@ -26,19 +26,25 @@ chunked prefill and no speculative verify.
 Training: ``forward`` and ``loss_fn`` take ``remat``: under autograd each
 encoder and decoder layer runs under ``torch.utils.checkpoint``, as the
 reference wraps each scanned layer in ``jax.checkpoint``
-(:func:`repro_torch.models.lm.rematted`).
+(:func:`repro_torch.models.lm.rematted`).  Under tensor-parallel compute
+(``distributed.context.tensor_parallel``) both stacks keep the residual
+stream's D/m columns, every block all-gathers it before each norm and
+reduce-scatters each row-parallel product into it, as the decoder-only
+blocks do; the encoder's output is gathered whole before its norm, so
+every rank projects its own cross K/V heads from it.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.context import param_gather
+from repro_torch.distributed.context import (gather_residual, local_residual, param_gather,
+                                             scatter_residual)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
 from repro_torch.models.common import apply_norm, dense_init, dtype_of, embed_init, norm_params
-from repro_torch.models.lm import gather_top, gathered, next_token_nll, rematted
+from repro_torch.models.lm import gather_top, gathered, lookup, next_token_nll, once, rematted
 
 MAX_DECODE_POS = 32768  # learned position table size, the reference's
 
@@ -92,14 +98,14 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
 def enc_block(p: dict, cfg: ArchConfig, h: torch.Tensor, provider=None) -> torch.Tensor:
     """One encoder block: bidirectional self-attention, then the MLP."""
     b, s, _ = h.shape
-    xn = apply_norm(p["ln1"], h, cfg.norm)
+    xn = apply_norm(p["ln1"], gather_residual(h), cfg.norm)
     q, k, v = attn._qkv(p["attn"], cfg, xn, provider)
     o = ops.flash_attention(q, k, v, class_id="flash_attention_bidir", causal=False,
                             provider=provider)
-    o = o.transpose(1, 2).reshape(b, s, -1)
-    h = h + ops.matmul(o, p["attn"]["wo"], provider=provider)
-    xn2 = apply_norm(p["ln2"], h, cfg.norm)
-    return h + mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider)
+    o = attn.out_cols(o.transpose(1, 2).reshape(b, s, -1))
+    h = h + scatter_residual(ops.matmul(o, p["attn"]["wo"], provider=provider))
+    xn2 = apply_norm(p["ln2"], gather_residual(h), cfg.norm)
+    return h + scatter_residual(mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider))
 
 
 def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, provider=None,
@@ -107,11 +113,11 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, provider=None,
     """frames: (B, enc_seq, D) stub embeddings -> encoder hidden states.
     ``gather``: each layer's params gathered inside its remat (sharded
     training, :func:`repro_torch.models.lm.gathered`)."""
-    h = frames.to(dtype_of(cfg.dtype)) + params["enc_pos"][None, :frames.shape[1]]
+    h = local_residual(frames.to(dtype_of(cfg.dtype)) + params["enc_pos"][None, :frames.shape[1]])
     block = rematted(gathered(lambda p, hh: enc_block(p, cfg, hh, provider), gather), remat)
     for p in params["encoder"]:
         h = block(p, h)
-    return apply_norm(params["enc_norm"], h, cfg.norm)
+    return apply_norm(params["enc_norm"], gather_residual(h), cfg.norm)
 
 
 # ---------------------------------------------------------------------------
@@ -123,10 +129,10 @@ def _cross_attend(p: dict, cfg: ArchConfig, x: torch.Tensor, ck: torch.Tensor,
                   cv: torch.Tensor, provider=None) -> torch.Tensor:
     """x: (B, S, D) attends to precomputed cross K/V (B, Hkv, Senc, hd)."""
     b, s, _ = x.shape
-    q = ops.matmul(x, p["wq"], provider=provider).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    o = ops.flash_attention(q.transpose(1, 2), ck, cv, class_id="flash_attention_cross",
-                            causal=False, provider=provider)
-    o = o.transpose(1, 2).reshape(b, s, -1)
+    q = ops.matmul(x, p["wq"], provider=provider).reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
+    o = ops.flash_attention(q, attn.kv_for(cfg, q, ck), attn.kv_for(cfg, q, cv),
+                            class_id="flash_attention_cross", causal=False, provider=provider)
+    o = attn.out_cols(o.transpose(1, 2).reshape(b, s, -1))
     return ops.matmul(o, p["wo"], provider=provider)
 
 
@@ -134,8 +140,8 @@ def _cross_kv(p: dict, cfg: ArchConfig, enc: torch.Tensor,
               provider=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The encoder's output projected to cross K/V, each (B, Hkv, Senc, hd)."""
     b, s, _ = enc.shape
-    k = ops.matmul(enc, p["wk"], provider=provider).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = ops.matmul(enc, p["wv"], provider=provider).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    k = ops.matmul(enc, p["wk"], provider=provider).reshape(b, s, -1, cfg.head_dim)
+    v = ops.matmul(enc, p["wv"], provider=provider).reshape(b, s, -1, cfg.head_dim)
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
@@ -147,7 +153,7 @@ def dec_block(p: dict, cfg: ArchConfig, h: torch.Tensor, *, enc: torch.Tensor | 
     Full sequence (``positions``): cross K/V from ``enc``, the self-attention
     cache (given: a fresh one) written in place.  Decode (``pos``, (B,) per
     slot): one token per slot against ``cache``'s self-KV and cross K/V."""
-    xn = apply_norm(p["ln1"], h, cfg.norm)
+    xn = apply_norm(p["ln1"], gather_residual(h), cfg.norm)
     if pos is not None:
         a, c_self = attn.attn_decode(p["self_attn"], cfg, xn, "G", pos=pos, cache=cache["self"],
                                      provider=provider)
@@ -157,11 +163,11 @@ def dec_block(p: dict, cfg: ArchConfig, h: torch.Tensor, *, enc: torch.Tensor | 
                                       cache=None if cache is None else cache["self"],
                                       provider=provider)
         ck, cv = _cross_kv(p["cross_attn"], cfg, enc, provider)
-    h = h + a
-    xc = apply_norm(p["ln_x"], h, cfg.norm)
-    h = h + _cross_attend(p["cross_attn"], cfg, xc, ck, cv, provider)
-    xn2 = apply_norm(p["ln2"], h, cfg.norm)
-    h = h + mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider)
+    h = h + scatter_residual(a)
+    xc = apply_norm(p["ln_x"], gather_residual(h), cfg.norm)
+    h = h + scatter_residual(_cross_attend(p["cross_attn"], cfg, xc, ck, cv, provider))
+    xn2 = apply_norm(p["ln2"], gather_residual(h), cfg.norm)
+    h = h + scatter_residual(mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider))
     if cache is None:
         return h, None
     return h, {"self": c_self, "cross_k": ck, "cross_v": cv}
@@ -169,7 +175,7 @@ def dec_block(p: dict, cfg: ArchConfig, h: torch.Tensor, *, enc: torch.Tensor | 
 
 def _dec_embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     s = tokens.shape[1]
-    return params["embed"][tokens.long()] + params["dec_pos"][None, :s]
+    return lookup(params["embed"], tokens) + local_residual(params["dec_pos"][None, :s])
 
 
 def forward(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
@@ -188,7 +194,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
                                                          provider=provider)[0], gather), remat)
     for p in params["decoder"]:
         h = block(p, h, enc)
-    h = apply_norm(params["final_norm"], h, cfg.norm)
+    h = apply_norm(params["final_norm"], gather_residual(h), cfg.norm)
     logits = ops.matmul(h, params["lm_head"], class_id="matmul_lmhead", provider=provider)
     return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 
@@ -198,7 +204,7 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
     """Next-token cross-entropy of the decoder.  Returns (ce, {"ce", "aux"})."""
     logits, aux = forward(params, cfg, batch, remat=remat, provider=provider)
     ce = next_token_nll(logits[:, :-1], batch["tokens"][:, 1:]).mean()
-    return ce, {"ce": ce, "aux": aux}
+    return once(ce), {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -48,18 +48,27 @@ Sharded training (:mod:`repro_torch.distributed`): under a param gather
 :func:`forward` gathers the non-layer params once (a tied head's ``embed_t``
 is rebuilt from the gathered ``embed``) and each layer's params inside the
 function :func:`rematted` wraps, so under remat the backward gathers them
-again and a layer's full weights live only while it runs.  Without a gather
-nothing changes.
+again and a layer's gathered weights live only while it runs.  Under the
+gather's tensor-parallel context (``fsdp_tp``) a gather keeps each leaf's
+``model`` shard local: the residual stream holds D/m columns between
+layers, each block all-gathers it before its norms and reduce-scatters its
+row-parallel products back into it (``context.gather_residual``,
+``scatter_residual``), and the embedding, head and loss are
+vocab-parallel where the vocabulary splits (:func:`lookup`,
+:func:`next_token_nll`).  Without a gather nothing changes.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.context import gathered_params, param_gather, remat_policy
+from repro_torch.distributed.context import (gather_residual, gathered_params, local_residual,
+                                             param_gather, remat_policy, scatter_residual,
+                                             tensor_parallel, tp_context)
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
@@ -116,25 +125,27 @@ def apply_mixer(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
     (B,) offsets of the speculative verify path (attention only)."""
     if kind == "R" and verify:
         raise ValueError("speculative verify does not support recurrent layers")
-    xn = _norm(p["ln1"], cfg, x, verify)
+    xn = _norm(p["ln1"], cfg, gather_residual(x), verify)
     if kind == "R":
-        return rec.griffin_block(p["rnn"], cfg, xn, cache=cache, provider=provider)
-    if decode:
-        return attn.attn_decode(p["attn"], cfg, xn, kind, pos=pos, cache=cache,
+        a, c = rec.griffin_block(p["rnn"], cfg, xn, cache=cache, provider=provider)
+    elif decode:
+        a, c = attn.attn_decode(p["attn"], cfg, xn, kind, pos=pos, cache=cache,
                                 provider=provider)
-    if verify:
-        return attn.attn_verify(p["attn"], cfg, xn, kind, off=off, cache=cache,
+    elif verify:
+        a, c = attn.attn_verify(p["attn"], cfg, xn, kind, off=off, cache=cache,
                                 provider=provider)
-    if off is not None:
-        return attn.attn_chunk(p["attn"], cfg, xn, kind, positions=positions, off=off,
+    elif off is not None:
+        a, c = attn.attn_chunk(p["attn"], cfg, xn, kind, positions=positions, off=off,
                                cache=cache, provider=provider)
-    return attn.attn_forward(p["attn"], cfg, xn, kind, positions=positions, cache=cache,
-                             provider=provider)
+    else:
+        a, c = attn.attn_forward(p["attn"], cfg, xn, kind, positions=positions, cache=cache,
+                                 provider=provider)
+    return scatter_residual(a), c
 
 
 def ffn_input(p: dict, cfg: ArchConfig, x: torch.Tensor, verify: bool = False) -> torch.Tensor:
     """What the block's MLP or MoE reads from the residual stream x."""
-    return _norm(p["ln2"], cfg, x, verify)
+    return _norm(p["ln2"], cfg, gather_residual(x), verify)
 
 
 def apply_ffn(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
@@ -143,8 +154,9 @@ def apply_ffn(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
     add to the residual stream x, aux loss)."""
     xn = ffn_input(p, cfg, x, verify)
     if "moe" in p:
-        return mlpm.moe_apply(p["moe"], cfg, xn, provider=provider)
-    return (mlpm.mlp_apply(p["mlp"], cfg, xn, provider=provider),
+        y, aux = mlpm.moe_apply(p["moe"], cfg, xn, provider=provider)
+        return scatter_residual(y), aux
+    return (scatter_residual(mlpm.mlp_apply(p["mlp"], cfg, xn, provider=provider)),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -241,24 +253,31 @@ def rematted(fn, remat: bool):
     ``dots`` runs it under ``kernels.matmul.saving_dots`` and keeps K1's
     outputs (:func:`_save_dots`), so the recompute launches no K1 forward
     and the backward of the gelu and GLU classes reads their Z.  The
-    recompute runs under the ops backend, the param gather and the policy
-    the forward ran under: each is thread-local, and the backward of CUDA
-    tensors runs on autograd's own thread."""
+    recompute runs under the ops backend, the param gather, the
+    tensor-parallel context and the policy the forward ran under: each is
+    thread-local, and the backward of CUDA tensors runs on autograd's own
+    thread.  Under tensor-parallel compute the recompute runs the whole
+    layer (no early stop), so it issues the layer's collectives again, in
+    one order on every rank."""
     if not remat:
         return fn
     backend, gather, dots = ops.current_backend(), param_gather(), remat_policy() == "dots"
+    tp = tp_context()
 
     def replayable(*args):
-        with ops.use_backend(backend), gathered_params(gather), mm.saving_dots(dots):
+        with (ops.use_backend(backend), gathered_params(gather), tensor_parallel(tp),
+              mm.saving_dots(dots)):
             return fn(*args)
 
     def run(*args):
         if not (torch.is_grad_enabled() and any(
                 isinstance(t, torch.Tensor) and t.requires_grad for t in leaves(args))):
             return fn(*args)
-        if dots:
-            return checkpoint(replayable, *args, use_reentrant=False, context_fn=_dots_contexts)
-        return checkpoint(replayable, *args, use_reentrant=False)
+        kw = {"context_fn": _dots_contexts} if dots else {}
+        if tp is None:
+            return checkpoint(replayable, *args, use_reentrant=False, **kw)
+        with set_checkpoint_early_stop(False):
+            return checkpoint(replayable, *args, use_reentrant=False, **kw)
 
     return run
 
@@ -287,8 +306,26 @@ def gather_top(params: dict, cfg: ArchConfig, gather) -> dict:
     return out
 
 
+def lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' rows of ``embed``, in the residual stream's layout.
+    Under vocab-parallel compute ``embed`` is this rank's vocabulary shard:
+    the tokens in its range are looked up, the others zeroed, and the
+    ranks' rows summed (one addend is not zero, so the sum is exact)."""
+    tp = tp_context()
+    if tp is None:
+        return embed[tokens.long()]
+    if not tp.vocab_parallel:
+        return tp.local(embed[tokens.long()])
+    n = embed.shape[0]
+    t = tokens.long() - tp.rank * n
+    mine = (t >= 0) & (t < n)
+    h = embed[torch.where(mine, t, 0)]
+    return tp.scatter(torch.where(mine[..., None], h, torch.zeros((), dtype=h.dtype,
+                                                                  device=h.device)))
+
+
 def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    h = params["embed"][tokens.long()]
+    h = lookup(params["embed"], tokens)
     if cfg.tie_embeddings:  # gemma-family embedding scaling
         h = (h.float() * cfg.d_model ** 0.5).to(h.dtype)
     return h
@@ -348,14 +385,31 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
     b, s, _ = h.shape
     h, _, aux = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device), caches=None,
                             remat=remat, provider=provider, gather=gather)
-    h = apply_norm(params["final_norm"], h, cfg.norm)
+    h = apply_norm(params["final_norm"], gather_residual(h), cfg.norm)
     return _lm_head(params, cfg, h, provider=provider), aux
 
 
 def next_token_nll(logits: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
-    """-log softmax(logits)[tgt], in f32."""
+    """-log softmax(logits)[tgt], in f32.  Under vocab-parallel compute
+    ``logits`` are this rank's vocabulary shard: the max, the sum of
+    exponentials and the target's logit are reduced over ``model``."""
+    tp = tp_context()
+    if tp is not None and tp.vocab_parallel:
+        return _vocab_parallel_nll(logits, tgt, tp)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.gather(logp, -1, tgt.long()[..., None]).squeeze(-1)
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, tgt: torch.Tensor, tp) -> torch.Tensor:
+    z = logits.float()
+    n = z.shape[-1]
+    zmax = tp.max(z.amax(dim=-1))
+    sumexp = torch.exp(z - zmax[..., None]).sum(dim=-1)
+    t = tgt.long() - tp.rank * n
+    mine = (t >= 0) & (t < n)
+    zt = torch.gather(z, -1, torch.where(mine, t, 0)[..., None]).squeeze(-1)
+    sumexp, zt = tp.sum(torch.stack([sumexp, torch.where(mine, zt, 0.0)])).unbind()
+    return torch.log(sumexp) + zmax - zt
 
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
@@ -382,7 +436,14 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
         ce = (nll * m).sum() / count
     else:
         ce = nll.mean()
-    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+    return once(ce + 0.01 * aux), {"ce": ce, "aux": aux}
+
+
+def once(loss: torch.Tensor) -> torch.Tensor:
+    """The loss, whose gradient a tensor-parallel row seeds once (on its
+    first rank: every rank of the row computes the same loss)."""
+    tp = tp_context()
+    return loss if tp is None else tp.once(loss)
 
 
 # ---------------------------------------------------------------------------

@@ -9,13 +9,24 @@ are stably sorted by expert, packed into a fixed (E, capacity, D) buffer
 (overflow drops), pushed through the two grouped GEMMs (``ops.moe_gemm``,
 kernel K1g) and combined back with the router weights.  Capacity factor 1.25,
 dropless (capacity = tokens) while tokens × top-k <= 4096.
+
+Under tensor-parallel compute (``distributed.context.tensor_parallel``)
+``w_in`` (and ``b_in``) hold this rank's d_ff columns (a GLU's gate/up
+pairs whole) and ``w_out`` the matching rows, so both blocks return the
+rank's partial sums, which the caller reduce-scatters; ``b_out`` is added
+on the ``model`` row's first rank only.  The MoE block reads the whole
+tokens on every rank of a row, so every rank routes alike.  Expert
+parallelism (the experts split over ``model``): each rank fills and runs
+only its own experts' rows of the dispatch buffer and combines their
+contributions, no all-to-all.  The TP fallback: every expert's d_ff is
+split, as the dense block's is.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.context import constrain_named, param_gather
+from repro_torch.distributed.context import constrain_named, param_gather, tp_context
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init, dtype_of, glu_init
 
@@ -41,6 +52,9 @@ def mlp_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None) -> torch
         return ops.matmul(h, p["w_out"], provider=provider)
     bias_in = p.get("b_in")
     bias_out = p.get("b_out")
+    tp = tp_context()
+    if tp is not None and bias_out is not None:
+        bias_out = tp.first(bias_out)     # the row's partial sums take it once
     h = ops.matmul(x, p["w_in"], class_id="matmul_bias_gelu", bias=bias_in, provider=provider)
     cls = "matmul_bias" if bias_out is not None else "matmul"
     return ops.matmul(h, p["w_out"], class_id=cls, bias=bias_out, provider=provider)
@@ -115,10 +129,15 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
     """x: (B, S, D). Returns (out, aux_loss) — aux is the load-balance loss.
 
     The dispatch buffer and the output pass ``constrain_named`` where the
-    reference pins their shardings: the identity under the port's gathered
-    compute (``distributed.context``)."""
+    reference pins their shardings (the identity: ``distributed.context``).
+    Under expert parallelism ``w_in``'s leading dim is this rank's experts,
+    from ``e0``; the pairs routed elsewhere go to the overflow row, and the
+    output is the rank's share of the combine."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_topk
+    tp = tp_context()
+    e_here = p["w_in"].shape[0]
+    e0 = tp.rank * e_here if tp is not None and tp.expert_parallel else 0
     t = b * s
     dev = x.device
     xf = x.reshape(t, d)
@@ -146,22 +165,23 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
     counts = torch.bincount(se, minlength=e)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=dev) - starts[se]
-    keep = pos < cap
-    slot = torch.where(keep, se * cap + pos, e * cap)                       # overflow row
+    keep = (pos < cap) & (se >= e0) & (se < e0 + e_here)
+    rows = (se - e0) * cap + pos
+    slot = torch.where(keep, rows, e_here * cap)                            # overflow row
 
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((e_here * cap + 1, d), dtype=x.dtype, device=dev)
     # xf[st], with a gradient summed in a fixed order; kept slots are
     # distinct, and the overflow row is dropped
     buf[slot] = _PairRows.apply(xf, order, k)
-    buf = constrain_named(buf[:-1].reshape(e, cap, d), "moe_buf")
+    buf = constrain_named(buf[:-1].reshape(e_here, cap, d), "moe_buf")
 
     h = ops.moe_gemm(buf, p["w_in"], class_id="moe_gemm_silu_glu", provider=provider)
     y = ops.moe_gemm(h, p["w_out"], class_id="moe_gemm", provider=provider)  # (E, cap, D)
     y = constrain_named(y, "moe_buf")
 
-    y_flat = y.reshape(e * cap, d)
+    y_flat = y.reshape(e_here * cap, d)
     contrib = torch.where(keep, sg, 0.0)[:, None].to(x.dtype)
-    gathered = y_flat[torch.where(keep, se * cap + pos, 0)] * contrib
+    gathered = y_flat[torch.where(keep, rows, 0)] * contrib
     # Combine in a fixed order: the reference's scatter-add adds each token's
     # k contributions in ascending expert order (the pairs are sorted by
     # expert), rounding to x.dtype after each add.  A stable sort by token

@@ -18,6 +18,17 @@ kernel, and the conv1d and gates are plain torch.  The projections go
 through the matmul kernel and the scans through the rwkv6 (K3) and RG-LRU
 (K4) kernels, via :mod:`repro_torch.kernels.ops`.  Blocks return fresh
 cache dicts; they never write the cache they are given.
+
+Under tensor-parallel compute (``distributed.context.tensor_parallel``)
+the column-parallel products (rwkv6's ``wr``, ``wk``, ``wv``, ``wg``, the
+decay adapter's ``wb``, ``ck``, ``cr``; griffin's ``w_gate``, ``w_x``)
+give this rank's heads or channels, K3 runs on the local heads (``u`` is
+local) and K4 on the local channels (``conv``, ``lambda`` and the gates
+are local), and the replicated ``w0`` and ``ln_x`` are read at the local
+columns.  The row-parallel products (``wo``, ``cv``, griffin's ``w_out``)
+give partial sums: rwkv6 reduce-scatters its own into the residual stream
+(the channel mix's ``vv`` before the receptance gate, whose columns are
+the rank's), griffin's caller does.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import gather_residual, scatter_residual, tp_context
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gelu
 from repro_torch.models.common import dense_init, dtype_of, rmsnorm
@@ -85,24 +97,28 @@ def _mix(xn: torch.Tensor, xs: torch.Tensor, mu: torch.Tensor, i: int) -> torch.
 def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
                cache: dict | None, provider=None) -> tuple[torch.Tensor, dict | None]:
     """Full RWKV6 block (time-mix + channel-mix); it applies its own norms.
-    x: (B, S, D) residual stream."""
-    b, s, d = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+    x: (B, S, D) residual stream (under tensor-parallel compute, this
+    rank's D/m of it)."""
+    b, s, d = x.shape[0], x.shape[1], cfg.d_model
+    hd = cfg.head_dim
+    tp = tp_context()
     zeros = torch.zeros((d,), dtype=x.dtype, device=x.device)
 
     # ---- time mix ----
-    xn = rmsnorm(x, zeros)
+    xn = rmsnorm(gather_residual(x), zeros)
     last_tm = cache["last_tm"] if cache is not None else torch.zeros((b, d), dtype=x.dtype,
                                                                      device=x.device)
     xs = _token_shift(xn, last_tm)
     mu = p["mu"].float()
-    r = ops.matmul(_mix(xn, xs, mu, 0), p["wr"], provider=provider).reshape(b, s, h, hd)
-    k = ops.matmul(_mix(xn, xs, mu, 1), p["wk"], provider=provider).reshape(b, s, h, hd)
-    v = ops.matmul(_mix(xn, xs, mu, 2), p["wv"], provider=provider).reshape(b, s, h, hd)
+    r = ops.matmul(_mix(xn, xs, mu, 0), p["wr"], provider=provider).reshape(b, s, -1, hd)
+    k = ops.matmul(_mix(xn, xs, mu, 1), p["wk"], provider=provider).reshape(b, s, -1, hd)
+    v = ops.matmul(_mix(xn, xs, mu, 2), p["wv"], provider=provider).reshape(b, s, -1, hd)
     g = ops.matmul(_mix(xn, xs, mu, 4), p["wg"], provider=provider)
     dw = torch.tanh(ops.matmul(_mix(xn, xs, mu, 3), p["wa"], provider=provider).float())
     dw = dw @ p["wb"].float()
-    w = torch.exp(-torch.exp(p["w0"] + dw)).reshape(b, s, h, hd)   # decay in (0,1)
+    w0, ln_x = (p["w0"], p["ln_x"]) if tp is None else (tp.cols(p["w0"]), tp.cols(p["ln_x"]))
+    h, dl = r.shape[2], r.shape[2] * hd                             # the heads here
+    w = torch.exp(-torch.exp(w0 + dw)).reshape(b, s, h, hd)         # decay in (0,1)
 
     def tr(a):  # (B, S, H, hd) -> (B, H, S, hd)
         return a.transpose(1, 2)
@@ -111,23 +127,23 @@ def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
         (b, h, hd, hd), dtype=torch.float32, device=x.device)
     y, state = ops.rwkv6(tr(r), tr(k), tr(v), tr(w.to(x.dtype)), p["u"], state0,
                          provider=provider)
-    y = y.transpose(1, 2).reshape(b, s, d)
+    y = y.transpose(1, 2).reshape(b, s, dl)
     # per-head group norm + silu output gate
     yh = y.reshape(b, s, h, hd).float()
     yh = yh * torch.rsqrt(torch.mean(yh * yh, dim=-1, keepdim=True) + 1e-6)
-    y = (yh.reshape(b, s, d) * p["ln_x"].float()).to(x.dtype)
+    y = (yh.reshape(b, s, dl) * ln_x.float()).to(x.dtype)
     y = y * F.silu(g.float()).to(x.dtype)
-    x = x + ops.matmul(y, p["wo"], provider=provider)
+    x = x + scatter_residual(ops.matmul(y, p["wo"], provider=provider))
 
     # ---- channel mix ----
-    xn2 = rmsnorm(x, zeros)
+    xn2 = rmsnorm(gather_residual(x), zeros)
     last_cm = cache["last_cm"] if cache is not None else torch.zeros((b, d), dtype=x.dtype,
                                                                      device=x.device)
     xs2 = _token_shift(xn2, last_cm)
     mc = p["mu_c"].float()
     kk = ops.matmul(_mix(xn2, xs2, mc, 0), p["ck"], provider=provider)
     kk = torch.square(torch.relu(kk.float())).to(x.dtype)
-    vv = ops.matmul(kk, p["cv"], provider=provider)
+    vv = scatter_residual(ops.matmul(kk, p["cv"], provider=provider))
     rr = torch.sigmoid(ops.matmul(_mix(xn2, xs2, mc, 1), p["cr"], provider=provider).float())
     x = x + (rr * vv.float()).to(x.dtype)
 
@@ -181,7 +197,8 @@ def _rglru_decay(xc: torch.Tensor, p: dict) -> torch.Tensor:
 def griffin_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
                   cache: dict | None, provider=None) -> tuple[torch.Tensor, dict | None]:
     """Griffin recurrent block on the *normalized* input x: (B, S, D).
-    Returns the block output (the caller adds the residual)."""
+    Returns the block output (the caller adds the residual; under
+    tensor-parallel compute, this rank's partial sums)."""
     b, s, d = x.shape
     gate = gelu(ops.matmul(x, p["w_gate"], provider=provider).float())
     xr = ops.matmul(x, p["w_x"], provider=provider)        # (B, S, W)

@@ -18,7 +18,6 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -80,8 +79,8 @@ def compressed_all_reduce(x: torch.Tensor, groups) -> torch.Tensor:
     payload = q.reshape(-1)
     qs = torch.empty(world * payload.numel(), dtype=torch.int8, device=x.device)
     scales = torch.empty(world, dtype=torch.float32, device=x.device)
-    groups.all_gather(qs, payload, dist.group.WORLD)
-    groups.all_gather(scales, scale.reshape(1), dist.group.WORLD)
+    groups.all_gather(qs, payload, groups.all_axes)
+    groups.all_gather(scales, scale.reshape(1), groups.all_axes)
     qs = qs.view(world, *x.shape)
     out = dequantize(qs[0], scales[0])
     for r in range(1, world):

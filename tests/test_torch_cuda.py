@@ -1534,3 +1534,51 @@ def test_dots_training_saves_k1_outputs_on_the_card(card):
     assert l_full == l_dots
     assert g_full - g_dots == cfg.n_layers == z_dots and z_full == 0
     assert f_full == 2 * f_dots - 1    # the LM head runs once under both
+
+
+def _fwd_bwd(fn, args, backend):
+    """``fn(*args)``'s output and the gradients of its inputs under a fixed
+    output gradient, on one backend."""
+    with use_backend(backend):
+        out = fn(*args)
+        y = out[0] if isinstance(out, tuple) else out
+        grads = torch.autograd.grad(y, args, torch.full_like(y, 0.01))
+    return y, grads
+
+
+def _bf16(g, *shape, scale=1.0, low=None):
+    x = torch.randn(shape, generator=g, device="cuda") * scale
+    if low is not None:                          # a decay in (low, low + 0.5)
+        x = torch.rand(shape, generator=g, device="cuda") * 0.5 + low
+    return x.to(torch.bfloat16).requires_grad_(True)
+
+
+#: the kernels at the local shapes tensor-parallel compute gives them: K2
+#: with 2 q heads and 1 KV head a rank (gemma2-2b's local layer at model 4),
+#: K1g with 2 experts a rank (mixtral-8x22b's up-GEMM at model 4), K4 over
+#: 640 channels (recurrentgemma-2b's 2560 at model 4)
+TP_LOCAL_CASES = {
+    "attention_1kv": (lambda q, k, v: ops.flash_attention(
+        q, k, v, class_id="flash_attention_local", causal=True, window=4096, softcap=0.0),
+        lambda g: (_bf16(g, 2, 2, 256, 256), _bf16(g, 2, 1, 256, 256), _bf16(g, 2, 1, 256, 256))),
+    "grouped_2_experts": (lambda x, w: ops.moe_gemm(x, w, class_id="moe_gemm_silu_glu"),
+                          lambda g: (_bf16(g, 2, 64, 6144, scale=0.1),
+                                     _bf16(g, 2, 6144, 32768, scale=0.02))),
+    "rglru_640": (lambda x, a: ops.rglru(x, a, torch.zeros((2, 640), device="cuda")),
+                  lambda g: (_bf16(g, 2, 256, 640), _bf16(g, 2, 256, 640, low=0.4))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TP_LOCAL_CASES))
+def test_kernels_at_tensor_parallel_local_shapes(card, name):
+    """Forward at the bf16 tolerance, each input's gradient within 1e-2 of
+    its largest entry plus 3e-2 relative (K1's backward bound in
+    ``chip_smoke.py``)."""
+    fn, make = TP_LOCAL_CASES[name]
+    args = make(torch.Generator(device="cuda").manual_seed(3))
+    y, grads = _fwd_bwd(fn, args, "cuda")
+    y_ref, grads_ref = _fwd_bwd(fn, args, "ref")
+    _close(y, y_ref, BF16_TOL)
+    for a, b in zip(grads, grads_ref):
+        scale = float(b.float().abs().max())
+        _close(a.float(), b.float(), dict(atol=1e-2 * scale, rtol=3e-2))

@@ -159,3 +159,49 @@ def test_tuning_service_budget_and_dedup_match(tmp_path):
     assert jsvc.completed_order == svc.completed_order
     assert json.dumps(jsvc.stats(), sort_keys=True) == json.dumps(svc.stats(), sort_keys=True)
     assert svc.stats()["jobs_rejected_budget"] > 0 and svc.stats()["jobs_deduped"] > 0
+
+
+@pytest.mark.parametrize("workers", [0, 2], ids=["deferred", "pool"])
+def test_concurrent_misses_queue_one_job_and_late_lookups_hit(tmp_path, workers):
+    """Seven threads miss one workload at once (a barrier): one job is
+    queued and six lookups dedupe onto it, with the jobs deferred to the
+    drain or run by a pool of two.  An eighth lookup made after the job
+    published is an exact hit and queues nothing: it is no dedupe.  (The
+    reference's ``tests/test_tuning_service.py::test_concurrent_misses_one_job``
+    counts all eight lookups as misses while its pool of two may publish
+    first, so a thread that reaches the registry late is an exact hit and
+    its count of dedupes falls short; the port's service behaves alike.)"""
+    import threading
+
+    reg = ScheduleRegistry(str(tmp_path / "reg"))
+    reg.publish(_port(_donor_records(1)))
+    svc = TuningService(reg, model_id="target", runner=CachedRunner(AnalyticalRunner()),
+                        max_workers=workers, seed=0)
+    target = KernelInstance.make("matmul", M=256, N=1024, K=512)
+    barrier = threading.Barrier(7)
+    tiers = []
+
+    def miss():
+        barrier.wait()
+        tiers.append(svc.lookup(target).tier)
+
+    if workers:                # hold the pool until every thread has missed
+        gate = threading.Event()
+        inner = svc._run_job
+        svc._run_job = lambda: (gate.wait(), inner())[1]
+    threads = [threading.Thread(target=miss) for _ in range(7)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if workers:
+        gate.set()
+    stats = svc.stats()
+    assert (stats["jobs_enqueued"], stats["jobs_deduped"]) == (1, 6)
+    assert "exact" not in tiers
+    svc.drain()
+    assert svc.stats()["jobs_completed"] == 1
+    assert svc.lookup(target).tier == "exact"
+    stats = svc.stats()
+    assert (stats["jobs_enqueued"], stats["jobs_deduped"], stats["jobs_completed"]) == (1, 6, 1)
+    svc.close()
