@@ -194,7 +194,11 @@ toolkit.  Phases, one result line each:
    forward), the layers' K1 forward launches once; ms per step and peak GiB
    beside ``full``'s; at 2 layers the same agreement with the plain path
    and two steps bit-equal.  K1's Z output itself is checked in the K1
-   phase, in every body (``z_output_checks``).
+   phase, in every body (``z_output_checks``); and K1's f32 output mode at
+   minitron-4b's ``wo`` at ``model`` 4 and the gradient launch's at
+   gemma2-2b's GeGLU ``w_in`` dX at ``model`` 4 (ROADMAP C.13), each against
+   its plain version and, rounded, bit-equal to the bf16 launch, timed
+   beside it (``f32_output_checks``).
 14. train_families — rwkv6-1.6b (12 of 24 layers), recurrentgemma-2b (13
    of 26), mixtral-8x22b (1 of 56 layers: one layer's ~38 GiB of state) and
    whisper-medium (24 encoder + 12 of 24 decoder layers, 1500 stub frames)
@@ -232,24 +236,40 @@ toolkit.  Phases, one result line each:
    same kernel launches, the collectives the plan's; the ``dp`` state saved
    (rank 0 writes full leaves), the group destroyed, a fresh one made and
    the state restored by ``elastic_restore``, bit-equal; then full depth,
-   6 sharded steps a strategy: ms per step (median of steps 2-6) beside the
+   6 ``dp`` steps (at one card ``fsdp_tp`` does the same work, and is not
+   timed again): ms per step (median of steps 2-6) beside the
    train phase's unsharded step, peak memory, and one step's collectives by
    op, count and bytes, which must be what the planner's
-   ``launch.steps.plan_collectives`` gives.  The collectives are NCCL's; no
-   kernel is added.  Then the TP phase (``phase_tp``): tensor-parallel
+   ``launch.steps.plan_collectives`` gives; then minitron-4b (2 layers)
+   served by ``launch.steps.make_sharded_serve_step`` on the (1, 1) mesh,
+   plain and sequence-parallel, its prefill, 8 decode steps and caches
+   bit-equal to the unsharded ``Model.prefill``/``decode_step``.  The
+   collectives are NCCL's; no kernel is added.  Then the TP phase (``phase_tp``): tensor-parallel
    compute with 2 and 4 ranks spawned on cuda:0 over gloo (a CUDA tensor's
    collective staged through host memory, so no time is TP speed):
    gemma2-2b (2 layers, ``model`` 4: 2 q heads and 1 KV head a rank, a
    64000-row vocabulary shard), mixtral-8x22b (1 layer, ``model`` 4: 2
    experts a rank), rwkv6-1.6b (2 layers) and recurrentgemma-2b (3 layers,
    its first attention layer's one KV head computed whole), ``model`` 2,
-   at full width, bf16 (but rwkv6) and f32 (but mixtral), one train step
-   each: every rank's collectives the
+   at full width, bf16 and f32 (but mixtral), one train step
+   each, bf16's partial sums reaching every sum over ``model`` in f32
+   (ROADMAP C.13): every rank's collectives the
    plan's, every kernel of the family launched, the loss and each gradient
    leaf held to the world-1 step's plain path on the card (bf16 by
    ``path_agreement``'s bounds and control, f32 by the fixed bounds); and
    first the kernels at the local shapes it gives them (K2 with 1 KV head,
-   K1g with 2 experts, K4 over 640 channels) against their plain versions.  Then ``chip_smoke.py --profile-steps`` in a fresh
+   K1g with 2 experts, K4 over 640 channels) against their plain versions.
+   Then the sharded-serving phase (``phase_serve_sharded``): minitron-4b (2
+   layers, ``model`` 4), recurrentgemma-2b (3 layers, ``model`` 2: its KV
+   head's ``head_dim`` split, decode's scores summed over ``model``),
+   rwkv6-1.6b (2 layers, ``model`` 2) and mixtral-8x22b (1 layer, ``model``
+   4) at full width, ranks spawned on cuda:0 over gloo, each a prefill of
+   2 x 256 tokens and 8 teacher-forced decode steps through
+   ``make_sharded_serve_step``, plain ``fsdp_tp`` and with the prefill's S
+   split over ``model`` (K2 at the rank's ``q_offset`` against gathered K/V,
+   K3's and K4's states handed from rank to rank): the logits held to the
+   world-1 kernel path's by the serve bound, the collectives the plan's,
+   K1's f32 output mode launched.  Then ``chip_smoke.py --profile-steps`` in a fresh
    process profiles one unsharded and one sharded full-depth step of
    gemma2-2b (busy share, top five ops, the NCCL kernels' share of the busy
    time), one under ``dots``, and one step of each family of
@@ -284,6 +304,13 @@ same-call ratios.  K4's backward also runs at T = 37 from a state and in
 f32; at every shape its outputs' bits (sha256 of dx, da and the initial
 state's gradient at fixed seeded inputs) must agree between the turns and
 the trees, or the script fails.
+
+    python3 chip_smoke.py --dist-ab PARENT
+
+times gemma2-2b's full-depth ``dp`` sharded step and its unsharded step
+(world 1, NCCL, 4 x 512 tokens, median of steps 2-6) for the tree at
+``PARENT`` (its own ``src/``) and this one, in six turns, parent first
+(``dist_ab``), and prints each turn's times and ratio.
 
     python3 chip_smoke.py --tp-witness
 
@@ -910,8 +937,76 @@ def phase_matmul(torch, timer) -> dict:
         torch.cuda.empty_cache()
     rounding = rounding_cases(torch, timer, "matmul")
     z = z_output_checks(torch, timer)
-    return {"shapes": shapes, "rounding": rounding, "z": z,
+    f32 = f32_output_checks(torch, timer)
+    return {"shapes": shapes, "rounding": rounding, "z": z, "f32": f32,
             "max_abs_err": max([errs[n] for n in errs] + [r["max_abs_err"] for r in shapes])}
+
+
+#: K1's f32 modes (ROADMAP C.13) at row-parallel shapes: ``y``, minitron-4b's
+#: ``wo`` at model 4 (x 4 x 768 at decode, w 768 x 3072: the rows body); ``dx``,
+#: gemma2-2b's GeGLU ``w_in`` input gradient at model 4 (dY 2048 x 4608
+#: against wᵀ, w 2304 x 4608: the wgmma body)
+F32_Y_SHAPE, F32_DX_SHAPE = (4, 768, 3072), (2048, 4608, 2304)
+
+
+def _library_f32(torch, a, b):
+    """One PyTorch call with K1's f32 output on bf16 operands
+    (``torch.mm(..., out_dtype=)``), or None where this torch has none."""
+    try:
+        torch.mm(a[:1], b[:, :1], out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return None
+    return lambda: torch.mm(a, b, out_dtype=torch.float32)
+
+
+def f32_output_checks(torch, timer) -> list:
+    """K1's f32 output mode and the gradient launch's, each against its
+    plain version (``ref.matmul(..., out_f32=True)``) at f32's tolerance and
+    bit for bit against the bf16 launch once rounded (the same sums), timed
+    beside the bf16 launch, the plain version and, where this torch has
+    one, ``torch.mm`` with an f32 output."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(43)
+    bf = torch.bfloat16
+    rows = []
+    m, k, n = F32_Y_SHAPE
+    x, w, _ = _mm_inputs(torch, g, m, n, k, "matmul", bf)
+    cs = ops.schedule_for(ops.instance("matmul", bf, M=m, N=n, K=k))
+    dm, dk, dn = F32_DX_SHAPE
+    dy = torch.randn((dm, dk), generator=g, device="cuda").to(bf)
+    wt = (torch.randn((dn, dk), generator=g, device="cuda") / dk ** 0.5).to(bf).T   # wᵀ, a view
+    cases = (("y", lambda out_f32: mm.launch(x, w, cs, out_f32=out_f32),
+              lambda: ref.matmul(x, w, out_f32=True), _library_f32(torch, x, w),
+              (m, k, n), mm.launch_geometry(bf, m, n, k, cs.t["M"], cs.t["N"])[0]),
+             ("dx", lambda out_f32: mm.grad_launch(dy, wt, out_f32=out_f32),
+              lambda: ref.matmul(dy, wt, out_f32=True), _library_f32(torch, dy, wt),
+              (dm, dk, dn), mm.grad_geometry(dy, wt)["body"]))
+    for name, launch, plain, library, (mm_, kk, nn), body in cases:
+        got, low = launch(True), launch(False)
+        want = plain()
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or not torch.equal(got.to(bf), low):
+            raise AssertionError(f"f32 {name}: dtype {got.dtype}, rounded equal to the bf16 "
+                                 f"launch {torch.equal(got.to(bf), low)}")
+        err = assert_close(torch, got, want, F32_TOL, f"f32 {name} vs plain")
+        b_ms, b_by = bound_ms(2 * (mm_ * kk + kk * nn) + 4 * mm_ * nn, 2 * mm_ * kk * nn)
+        row = {"name": name, "M": mm_, "K": kk, "N": nn, "body": body, "max_abs_err": err,
+               "bits_equal_rounded": True, "ms": timer.ms(lambda: launch(True)),
+               "bf16_ms": timer.ms(lambda: launch(False)),
+               "plain_ms": timer.ms(plain, iters=3, warmup=1),
+               "library_ms": timer.ms(library) if library else None,
+               "bound_ms": b_ms, "bound_by": b_by}
+        if body == "rows":   # decode: the host's time to enqueue a call is most of ms
+            row["device_ms"] = timer.device_ms(lambda: launch(True))
+            row["bf16_device_ms"] = timer.device_ms(lambda: launch(False))
+        rows.append(row)
+        del got, low, want
+    del x, w, dy, wt
+    torch.cuda.empty_cache()
+    log("matmul_f32_modes", cases=rows)
+    return rows
 
 
 #: the slice's K1 shapes, (arch, class, M, K, N, default M tile to check):
@@ -1410,6 +1505,80 @@ def phase_scans(torch, timer) -> dict:
     return out
 
 
+#: the ``--dist-ab`` turns: the trees in turn, parent first (six turns)
+DIST_AB_TURNS = ("parent", "this", "parent", "this", "this", "parent")
+
+
+def dist_ab(parent: Path) -> int:
+    """gemma2-2b's full-depth ``dp`` sharded step (world 1, NCCL) and its
+    unsharded step, 4 x 512 tokens, six steps each (median of steps 2-6),
+    for the tree at ``parent`` and this one in turns
+    (:data:`DIST_AB_TURNS`), each turn in its own process with that tree's
+    ``src`` first on the path; prints each turn's medians and their ratio,
+    then each tree's."""
+    got = collections.defaultdict(list)
+    for who in DIST_AB_TURNS:
+        tree = parent if who == "parent" else ROOT
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--dist-turn",
+                              str(tree / "src")], capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            sys.stderr.write(out.stderr[-4000:])
+            raise AssertionError(f"the dist turn of {tree} failed ({out.returncode})")
+        row = json.loads(out.stdout.strip().splitlines()[-1])
+        log("dist_turn", who=who, **row)
+        got[who].append(row)
+    log("dist_ab", **{who: {"dp_ms": [r["dp_ms"] for r in rows],
+                            "unsharded_ms": [r["unsharded_ms"] for r in rows],
+                            "ratios": [r["ratio"] for r in rows]} for who, rows in got.items()})
+    print(nvidia_smi())
+    return 0
+
+
+def dist_turn(torch) -> dict:
+    """One ``--dist-ab`` turn on the tree already on the path."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticSource
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_arch(TRAIN_ARCH)
+    batch = {"tokens": torch.from_numpy(SyntheticSource(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)).batch_at(0)
+        ["tokens"]).cuda()}
+    opt_cfg = AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=DIST_STEPS)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_ab_") as d, nccl_group(torch, d, "s"):
+        model = build_model(cfg, "cuda")
+        for name in ("unsharded", "dp"):
+            full = model.init(0)
+            if name == "dp":
+                step = steps_mod.make_sharded_train_step(model, opt_cfg, make_test_mesh(model=1),
+                                                         strategy="dp")
+                params = step.shard_params(full)
+                del full
+                opt = step.init_opt_state(params)
+            else:
+                step = steps_mod.make_train_step(model, opt_cfg)
+                params, opt = full, steps_mod.init_opt_state(full)
+            ms = []
+            for _ in range(DIST_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                params, opt, _ = step(params, opt, batch)
+                torch.cuda.synchronize()
+                ms.append((time.monotonic() - t0) * 1e3)
+            out[f"{name}_ms"] = statistics.median(ms[1:])
+            out[f"{name}_steps"] = ms
+            del step, params, opt
+            free_engines(torch)
+    out["ratio"] = out["dp_ms"] / out["unsharded_ms"]
+    return out
+
+
 def scans_ab(parent: Path) -> int:
     """The scan kernels of the tree at ``parent`` (say, an unpacked parent
     commit) and of this tree, timed at the main-path shapes, K3's backward
@@ -1519,7 +1688,7 @@ def tensor_core_matmuls():
     def matmul_tc(x, w, class_id="matmul", round_k=0, **kw):
         if (class_id in ("matmul", "matmul_lmhead", "moe_gemm") and x.dtype == torch.bfloat16
                 and not round_k and kw.get("bias") is None and kw.get("residual") is None
-                and not kw.get("softcap")):
+                and not kw.get("softcap") and not kw.get("out_f32")):
             return torch.matmul(x, w)
         return plain(x, w, class_id, round_k=round_k, **kw)
 
@@ -1542,12 +1711,12 @@ def f64_accumulation():
 
     plain = ref.matmul
 
-    def matmul64(x, w, class_id="matmul", round_k=0, **kw):
+    def matmul64(x, w, class_id="matmul", round_k=0, out_f32=False, **kw):
         # the plain path (backend "ref") never rounds partial sums
         if round_k:
             raise ValueError("the f64 control takes no rounding K tile")
-        y = torch.matmul(x.double(), w.double()).float()
-        return ref.apply_epilogue(y, class_id, **kw).to(x.dtype)
+        y = ref.apply_epilogue(torch.matmul(x.double(), w.double()).float(), class_id, **kw)
+        return y if out_f32 else y.to(x.dtype)
 
     ref.matmul = matmul64
     try:
@@ -3888,6 +4057,8 @@ def train_counts(mm, fa, rw, rg, ref) -> dict:
             "attention_bwd_launches": fa.bwd_launches,
             "grouped_grad_launches": mm.grouped_grad_launches,
             "rwkv6_bwd_launches": rw.bwd_launches, "rglru_bwd_launches": rg.bwd_launches,
+            "matmul_f32_launches": mm.f32_launches,
+            "matmul_f32_grad_launches": mm.f32_grad_launches,
             "body_launches": body_counts(mm),
             "grad_body_launches": body_counts(mm, mm.grad_body_launches),
             "attention_class_launches": {f"{c}/{b}": n for (c, b), n in sorted(fa.class_launches.items())},
@@ -4715,10 +4886,16 @@ def phase_dist(torch, unsharded_ms: float) -> dict:
     plan's and none over ``model``; (2) the ``dp`` state saved (rank 0
     writes full leaves), the group destroyed, a fresh one made and the
     state restored by ``elastic_restore``, bit-equal; (3) full depth,
-    ``DIST_STEPS`` sharded steps a strategy: ms per step (median of all but
-    the first) beside the train phase's unsharded step, peak memory and one
-    step's collectives by op, held equal to the step's plan
-    (``plan_collectives``, the planner's).  Its profiled step is
+    ``DIST_STEPS`` ``dp`` steps: ms per step (median of all but the first)
+    beside the train phase's unsharded step, peak memory and one step's
+    collectives by op, held equal to the step's plan (``plan_collectives``,
+    the planner's); at one card ``fsdp_tp`` does ``dp``'s work, so it is
+    not timed again; (4) minitron-4b at full width and ``DIST_LAYERS``
+    layers served by ``make_sharded_serve_step`` on the (1, 1) mesh, plain
+    and sequence-parallel: the prefill's and ``SERVE_SHARDED_STEPS``
+    decode steps' logits and the caches bit-equal to ``Model.prefill`` /
+    ``Model.decode_step`` (the serving engines' calls) on the same weights,
+    the collectives the plan's.  Its profiled step is
     :func:`profile_steps`'."""
     import math
     import os
@@ -4841,9 +5018,9 @@ def phase_dist(torch, unsharded_ms: float) -> dict:
             del saved, restored
             free_engines(torch)
 
-            # --- 3. full depth, each strategy
+            # --- 3. full depth, dp
             model = build_model(cfg, "cuda")
-            for strategy in ("dp", "fsdp_tp"):
+            for strategy in ("dp",):
                 step = steps_mod.make_sharded_train_step(model, opt_cfg, groups.mesh, groups,
                                                          strategy=strategy)
                 full = model.init(0)
@@ -4891,30 +5068,102 @@ def phase_dist(torch, unsharded_ms: float) -> dict:
                         or not counts["matmul_grad_launches"]):
                     raise AssertionError(f"dist {strategy}: the full-depth sharded steps' "
                                          f"launches {counts}")
-            del model, groups
+            del model
+            free_engines(torch)
+            serve_rows = dist_serve_bits(torch, groups)
+            del groups
         free_engines(torch)
     full_row = mains["dp"]
-    full_row["fsdp_tp"] = {k: mains["fsdp_tp"][k] for k in (
-        "ms_per_step", "step_ms", "ratio_to_unsharded", "tok_per_s", "init_gib", "peak_gib",
-        "losses", "collectives_per_step")}
     log("dist", **full_row, world1_bit_equal=True, elastic_restore_bit_equal=True,
         seconds=time.monotonic() - t_phase)
     return {"world1": equal_rows["dp"], "world1_fsdp_tp": equal_rows["fsdp_tp"],
-            "elastic": elastic_row, "main": full_row, "main_fsdp_tp": mains["fsdp_tp"]}
+            "elastic": elastic_row, "main": full_row, "serve": serve_rows}
+
+
+#: the dist phase's served arch at (1, 1)
+DIST_SERVE_ARCH = "minitron-4b"
+
+
+def dist_serve_bits(torch, groups) -> list:
+    """:func:`phase_dist`'s (4): ``DIST_SERVE_ARCH`` served sharded on the
+    world-1 NCCL group's (1, 1) mesh against the unsharded steps, bit for
+    bit; returns each mode's run (its launches join the kernels line's
+    ``dist`` path)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = dataclasses.replace(get_arch(DIST_SERVE_ARCH), n_layers=DIST_LAYERS)
+    model = build_model(cfg, "cuda")
+    params = model.init(SERVE_SHARDED_SEED)
+    toks, feed = serve_sharded_inputs(torch, cfg)
+    shape = tuple(toks.shape)
+
+    def serve(prefill, decode):
+        logits, cache = prefill({"tokens": toks})
+        out, issued = [logits], [groups.counter.snapshot()]
+        for t in feed:
+            groups.counter.reset()
+            logits, cache = decode(cache, t)
+            out.append(logits)
+            issued.append(groups.counter.snapshot())
+        return out, cache, issued
+
+    with torch.no_grad():
+        want, want_cache, _ = serve(
+            lambda b: model.prefill(params, b, max_len=SERVE_SHARDED_MAX_LEN),
+            lambda c, t: model.decode_step(params, c, t))
+    rows = []
+    for sp in (False, True):
+        step = steps_mod.make_sharded_serve_step(model, groups.mesh, groups, seq_parallel=sp)
+        local = step.shard_params(params)
+        reset_counts(mm, fa, rw, rg, ref)
+        groups.counter.reset()
+        got, cache, issued = serve(lambda b: step.prefill(local, b, SERVE_SHARDED_MAX_LEN),
+                                   lambda c, t: step.decode(local, c, t))
+        torch.cuda.synchronize()
+        counts = train_counts(mm, fa, rw, rg, ref)
+        plans = [step.plan("prefill", shape, SERVE_SHARDED_MAX_LEN)] + [
+            step.plan("decode", shape, SERVE_SHARDED_MAX_LEN)] * len(feed)
+        as_planned = all({op: ({k: v[k] for k in ("count", "operand_bytes", "result_bytes")}
+                               if isinstance(v, dict) else v) for op, v in c.items()} == p
+                         for c, p in zip(issued, plans))
+        differ = [i for i, (a, b) in enumerate(zip(got, want)) if not bits_equal(torch, a, b)]
+        want_leaves = dict(leaves_with_paths(want_cache))
+        cache_differ = [path for path, a in leaves_with_paths(cache)
+                        if not bits_equal(torch, a, want_leaves[path])]
+        row = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": "1x1", "backend": "nccl",
+               "seq_parallel": sp, "logits_differ": differ, "cache_differ": cache_differ,
+               "as_planned": as_planned, **counts}
+        log("dist_serve_bit_equal", **{k: row[k] for k in (
+            "arch", "layers", "seq_parallel", "logits_differ", "cache_differ", "as_planned",
+            "launches")})
+        if differ or cache_differ or not as_planned or counts["plain_cuda_calls"]:
+            raise AssertionError(f"dist: sharded serving at (1, 1) is not the unsharded "
+                                 f"steps': {row}")
+        rows.append(row)
+        del step, local, cache, got
+    del params, model, want, want_cache
+    free_engines(torch)
+    return rows
 
 
 #: the TP phase: tensor-parallel compute (``fsdp_tp``) with 2 and 4 ranks on
 #: cuda:0 over gloo (NCCL takes one rank a device): (arch, layers, model axis,
 #: dtypes); full width, the depth cut (recurrentgemma-2b's third layer is its
-#: first attention layer).  rwkv6-1.6b runs in f32 only: in bf16 each
-#: rank's partial sums are rounded to bf16 (K1's outputs, the norms'
-#: partial gradients) before they are reduced, which one card does not do,
-#: and at random init the model amplifies rounding from layer to layer
-#: (ROADMAP C.10): its ``u`` falls past twice the tensor-core control.
-#: ``--tp-witness`` shows the reduction is not where (its bits unchanged
-#: with every sum over ``model`` taken in f32)
+#: first attention layer).  rwkv6-1.6b's bf16 case is back (ROADMAP C.13):
+#: its ranks' partial sums reach every sum over ``model`` in f32 (K1's f32
+#: output and gradient modes, the f32 carrier), where they were rounded to
+#: bf16 first and its ``u`` fell past twice the tensor-core control.
+#: ``--tp-witness`` runs that case with the sums widened further
 TP_CASES = (("gemma2-2b", 2, 4, ("bfloat16", "float32")), ("mixtral-8x22b", 1, 4, ("bfloat16",)),
-            ("rwkv6-1.6b", 2, 2, ("float32",)),
+            ("rwkv6-1.6b", 2, 2, ("bfloat16", "float32")),
             ("recurrentgemma-2b", 3, 2, ("bfloat16", "float32")))
 #: the TP phase's batch (one batch shard: the mesh is (1, m)) and seed
 TP_BATCH, TP_SEQ, TP_SEED = 2, 256, 7
@@ -5243,7 +5492,9 @@ def phase_tp(torch) -> dict:
                              "body_launches": dict(sum(
                                  (collections.Counter(r["counts"]["body_launches"]) for r in ranks),
                                  collections.Counter())),
-                             **{k: sum(r["counts"][k] for r in ranks) for k in TP_BWD_COUNTERS}})
+                             **{k: sum(r["counts"][k] for r in ranks) for k in (
+                                 *TP_BWD_COUNTERS, "matmul_f32_launches",
+                                 "matmul_f32_grad_launches")}})
         del refs
         free_engines(torch)
         torch.cuda.ipc_collect()           # the references the ranks mapped and released
@@ -5645,6 +5896,215 @@ def profile_steps(torch) -> dict:
     return out
 
 
+#: the sharded-serving phase (ROADMAP A.9b): (arch, layers, model axis), at
+#: full width with the depth cut (recurrentgemma-2b's third layer is its
+#: first attention layer, whose one KV head splits ``head_dim`` over model;
+#: mixtral-8x22b's 8 experts split 2 a rank); each served with a plain
+#: ``fsdp_tp`` prefill and with its S split over model
+SERVE_SHARDED_CASES = (("minitron-4b", 2, 4), ("recurrentgemma-2b", 3, 2),
+                       ("rwkv6-1.6b", 2, 2), ("mixtral-8x22b", 1, 4))
+#: the prompt (2 rows of 256 tokens), the decode steps (teacher-forced),
+#: the cache's text positions and the weights' seed
+SERVE_SHARDED_BATCH, SERVE_SHARDED_SEQ, SERVE_SHARDED_STEPS = 2, 256, 8
+SERVE_SHARDED_MAX_LEN, SERVE_SHARDED_SEED = 512, 9
+#: the kernels each family's serving steps must launch
+SERVE_SHARDED_KERNELS = {"minitron-4b": ("matmul", "flash_attention"),
+                         "recurrentgemma-2b": ("matmul", "flash_attention", "rglru_scan"),
+                         "rwkv6-1.6b": ("matmul", "rwkv6_scan"),
+                         "mixtral-8x22b": ("matmul", "flash_attention", "grouped_matmul")}
+
+
+def serve_sharded_inputs(torch, cfg) -> tuple:
+    """The phase's prompt and its decode steps' tokens, seeded, on the card."""
+    g = torch.Generator(device="cpu").manual_seed(SERVE_SHARDED_SEED)
+    toks = torch.randint(1, cfg.vocab_size, (SERVE_SHARDED_BATCH, SERVE_SHARDED_SEQ), generator=g)
+    feed = torch.randint(1, cfg.vocab_size, (SERVE_SHARDED_STEPS, SERVE_SHARDED_BATCH), generator=g)
+    return toks.cuda(), feed.cuda()
+
+
+def serve_sharded_reference(torch, arch: str, layers: int) -> dict:
+    """The world-1 serving steps of a case on the card: the kernel path's
+    prefill and decode logits, and per step the f64 control's distance from
+    the plain path (the serve phases' control)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ops import use_backend
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    model = build_model(cfg, "cuda")
+    params = model.init(SERVE_SHARDED_SEED)
+    toks, feed = serve_sharded_inputs(torch, cfg)
+
+    def run():
+        logits, cache = model.prefill(params, {"tokens": toks}, max_len=SERVE_SHARDED_MAX_LEN)
+        out = [logits.float().cpu()]
+        for t in feed:
+            logits, cache = model.decode_step(params, cache, t)
+            out.append(logits.float().cpu())
+        return out
+
+    kernel = run()
+    with use_backend("ref"):
+        plain = run()
+        with f64_accumulation():
+            control = run()
+    torch.cuda.synchronize()
+    del params, model
+    return {"kernel": kernel,
+            "control": [max_err(torch, c, p) for c, p in zip(control, plain)]}
+
+
+def _serve_sharded_rank(rank, world, d, cases, _grads, _routings):
+    """One rank of the sharded-serving phase: join the gloo group, serve
+    each case plain and sequence-parallel (results, or the traceback, to
+    ``d``)."""
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        import_port()
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous", rank=rank,
+                                world_size=world)
+        try:
+            out = [serve_sharded_case(torch, rank, *case, sp) for case in cases
+                   for sp in (False, True)]
+        finally:
+            dist.destroy_process_group()
+            torch.cuda.synchronize()
+        torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    except BaseException:
+        Path(d, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def serve_sharded_case(torch, rank, arch, layers, model_axis, seq_parallel) -> dict:
+    """A case's prefill and teacher-forced decode steps on this rank through
+    ``make_sharded_serve_step`` (the user's entry point): the gathered
+    logits of each, the collectives against the plan, the kernel launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.collectives import MeshGroups
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    model = build_model(cfg, "cuda")
+    mesh = make_test_mesh(model=model_axis)
+    groups = MeshGroups(mesh)
+    step = steps_mod.make_sharded_serve_step(model, mesh, groups, seq_parallel=seq_parallel)
+    full = model.init(SERVE_SHARDED_SEED)
+    params = step.shard_params(full)
+    del full
+    torch.cuda.empty_cache()
+    toks, feed = serve_sharded_inputs(torch, cfg)
+    shape = tuple(toks.shape)
+    counter, plans, issued, logits_out = groups.counter, [], [], []
+    reset_counts(mm, fa, rw, rg, ref)
+    counter.reset()
+    logits, cache = step.prefill(params, {"tokens": toks}, SERVE_SHARDED_MAX_LEN)
+    issued.append(counter.snapshot())
+    plans.append(step.plan("prefill", shape, SERVE_SHARDED_MAX_LEN, by_axes=True))
+    local = [logits]
+    for t in feed:
+        counter.reset()
+        logits, cache = step.decode(params, cache, t)
+        issued.append(counter.snapshot())
+        plans.append(step.plan("decode", shape, SERVE_SHARDED_MAX_LEN, by_axes=True))
+        local.append(logits)
+    torch.cuda.synchronize()
+    counts = train_counts(mm, fa, rw, rg, ref)
+    logits_out = [step.full_logits(x, SERVE_SHARDED_BATCH).float().cpu() for x in local]
+    as_planned = all({op: ({k: v[k] for k in ("count", "operand_bytes", "result_bytes", "axes")}
+                           if isinstance(v, dict) else v) for op, v in got.items()} == plan
+                     for got, plan in zip(issued, plans))
+    out = {"arch": arch, "model": model_axis, "seq_parallel": seq_parallel, "counts": counts,
+           "as_planned": as_planned, "logits": logits_out if rank == 0 else None,
+           "collectives": {"prefill": issued[0], "decode": issued[1]}}
+    if not as_planned:
+        out["plans"] = plans[:2]
+    del step, params, cache, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_sharded(torch) -> dict:
+    """Sharded serving on one card (``make_sharded_serve_step``, ROADMAP
+    A.9b): each case of :data:`SERVE_SHARDED_CASES` on a (1, m) mesh, m
+    ranks spawned on cuda:0 over gloo (as :func:`phase_tp`: a collective of
+    CUDA tensors goes through host memory, so no time here is sharded
+    serving's and none is printed), with a plain ``fsdp_tp`` prefill and
+    with its S split over model, then ``SERVE_SHARDED_STEPS``
+    teacher-forced decode steps.  Each prefill's and decode step's logits
+    (gathered) are held to the same model's world-1 kernel path on the card
+    within the serve phases' bound (the larger of ``LOGITS_REL_BOUND`` of
+    max |logit| and ``CONTROL_FACTOR`` times the f64 control); every
+    collective is the plan's; the family's kernels are launched, K1 in its
+    f32 output mode (bf16 at m > 1), and no plain version reaches a CUDA
+    tensor."""
+    import math
+
+    free_engines(torch)
+    t_phase = time.monotonic()
+    refs = {f"{arch}/{m}": serve_sharded_reference(torch, arch, layers)
+            for arch, layers, m in SERVE_SHARDED_CASES}
+    free_engines(torch)
+    wave = [(f"serve_world{world}", world, [c for c in SERVE_SHARDED_CASES if c[2] == world])
+            for world in sorted({c[2] for c in SERVE_SHARDED_CASES})]
+    dummy = {name: [{"grads": None, "routing": None} for _ in cases] for name, _, cases in wave}
+    outs = spawn_tp_ranks(torch, wave, dummy, target=_serve_sharded_rank)
+    rows, runs, failed = [], [], []
+    for name, world, cases in wave:
+        for i, run in enumerate(zip(*outs[name])):
+            lead = run[0]
+            arch, m, sp = lead["arch"], lead["model"], lead["seq_parallel"]
+            ref = refs[f"{arch}/{m}"]
+            diffs, bounds = [], []
+            for got, want, control in zip(lead["logits"], ref["kernel"], ref["control"]):
+                diffs.append(max_err(torch, got, want))
+                bounds.append(max(LOGITS_REL_BOUND * float(want.abs().max()),
+                                  CONTROL_FACTOR * control))
+            launches = {k: sum(r["counts"]["launches"][k] for r in run)
+                        for k in lead["counts"]["launches"]}
+            f32 = sum(r["counts"]["matmul_f32_launches"] for r in run)
+            plain = sum((collections.Counter(r["counts"]["plain_cuda_calls"]) for r in run),
+                        collections.Counter())
+            row = {"arch": arch, "model": m, "seq_parallel": sp, "logits_max_abs_diff": diffs,
+                   "logits_bound": bounds, "finite": all(math.isfinite(x) for x in diffs),
+                   "as_planned": all(r["as_planned"] for r in run), "launches": launches,
+                   "f32_launches": f32, "plain_cuda_calls": dict(plain),
+                   "collectives": lead["collectives"]}
+            rows.append(row)
+            runs.append({"launches": launches,
+                         "body_launches": dict(sum((collections.Counter(r["counts"]["body_launches"])
+                                                    for r in run), collections.Counter())),
+                         "matmul_f32_launches": f32})
+            bad = [j for j, (a, b) in enumerate(zip(diffs, bounds)) if not a <= b]
+            missing = [k for k in SERVE_SHARDED_KERNELS[arch] if not launches.get(k)]
+            if bad or not row["as_planned"] or missing or plain or not f32:
+                failed.append(f"{arch} m={m} seq_parallel={sp}: logits past bound at steps "
+                              f"{bad}, as planned {row['as_planned']}, kernels not launched "
+                              f"{missing}, plain calls {dict(plain)}, f32 launches {f32}"
+                              + ("" if lead.get("plans") is None else f", plans {lead['plans']}"))
+    del refs
+    free_engines(torch)
+    torch.cuda.ipc_collect()
+    out = {"cases": rows, "runs": runs, "seconds": time.monotonic() - t_phase}
+    log("serve_sharded", **{k: v for k, v in out.items() if k != "runs"})
+    if failed:
+        raise AssertionError("serve_sharded: " + "; ".join(failed))
+    return out
+
+
 def phase_step_profiles(torch) -> dict:
     """:func:`profile_steps` in a fresh process; returns its result."""
     free_engines(torch)
@@ -5717,6 +6177,13 @@ def main(argv: list[str]) -> int:
     if argv == ["--tp-witness"]:
         import_port()
         return tp_witness(torch)
+    if argv[:1] == ["--dist-ab"] and len(argv) == 2:
+        return dist_ab(Path(argv[1]).resolve())
+    if argv[:1] == ["--dist-turn"] and len(argv) == 2:   # one turn of --dist-ab
+        import_port(Path(argv[1]))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(dist_turn(torch)), flush=True)
+        return 0
     if argv[:1] == ["--time-scans"] and len(argv) == 2:   # one turn of --scans-ab
         import_port(Path(argv[1]))
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -5780,6 +6247,7 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"train_families timings under their bytes bound: {under}")
     dist_r = phase("dist", phase_dist, torch, train["main"]["ms_per_step"])
     tp_r = phase("tp", phase_tp, torch)
+    ss_r = phase("serve_sharded", phase_serve_sharded, torch)
     profiles = phase("step_profiles", phase_step_profiles, torch)
     examples = phase("examples", phase_examples, torch)
     train["main"]["profile"], dist_r["main"]["profile"] = profiles["train"], profiles["dist"]
@@ -5792,8 +6260,8 @@ def main(argv: list[str]) -> int:
     # main-path runs, counts read apart
     paths = {"slot": srv, "paged": paged, "spec": [spec], "fleet": fleet,
              "train": [train["main"], train["dots"]],
-             "families": fam["runs"], "dist": [dist_r["main"], dist_r["main_fsdp_tp"]],
-             "tp": tp_r["runs"]}
+             "families": fam["runs"], "dist": [dist_r["main"], *dist_r["serve"]],
+             "tp": tp_r["runs"], "serve_sharded": ss_r["runs"]}
 
     def count(r, name, body=None):   # one run's launches of a kernel (of one body)
         if body is None:
@@ -6015,6 +6483,27 @@ def main(argv: list[str]) -> int:
             n = sum(r[counter] for r in tp_r["runs"])
             row["launches_by_path"]["tp"] = n
             row["launches"] += n
+    # K1's f32 modes (ROADMAP C.13): the row-parallel products' f32 Y on the
+    # sharded-serving and TP paths, the column-parallel products' f32 dX on
+    # the TP path
+    f32_y = next(r for r in mmr["f32"] if r["name"] == "y")
+    f32_dx = next(r for r in mmr["f32"] if r["name"] == "dx")
+
+    def f32_by_path(key):
+        return {path: n for path, rs in paths.items()
+                if (n := sum(r.get(key, 0) for r in rs))}
+
+    for name, source, row, key in (
+            ("matmul_f32_out", "matmul.cu", f32_y, "matmul_f32_launches"),
+            ("matmul_grad_f32_out", "matmul_grad.cu", f32_dx, "matmul_f32_grad_launches")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{source}",
+                        "replaces": "src/repro/kernels/matmul.py:205", "body": row["body"],
+                        "launches": sum(f32_by_path(key).values()),
+                        "launches_by_path": f32_by_path(key), "max_abs_err": row["max_abs_err"],
+                        "bf16_ms": row["bf16_ms"], "bits_equal_rounded": row["bits_equal_rounded"],
+                        **{k: row[k] for k in ("device_ms", "bf16_device_ms") if k in row},
+                        **timed(row, ("M", "K", "N"))})
     print(json.dumps({"tuning": tuning}))
     print(json.dumps({"examples": examples}))
     log("done", seconds=time.monotonic() - t_start)

@@ -19,7 +19,24 @@ reference leaves them to GSPMD, which inserts them from the shardings).
 * :class:`TensorParallel` — the ``model`` axis's compute: the residual
   stream's all-gather along D (backward, a reduce-scatter), a row-parallel
   product's reduce-scatter into the residual layout (backward, an
-  all-gather), the all-reduces of the vocab-parallel loss.
+  all-gather), the all-reduces of the vocab-parallel loss, and a sharded
+  cache's collectives at decode.  In bf16 every sum of partial products
+  over ``model`` is taken in f32 (``f32_partials``): a row-parallel
+  product's partial sums reach the reduce-scatter in f32, its bias is added
+  once after it and the cast follows (the reference's order: its f32 dot
+  is summed, then cast); under autograd the gathered stream is an f32
+  *carrier* of its bf16 values, so the partial input gradients of the
+  column-parallel products (and of the norms and the MoE dispatch between
+  them) reach the gather's reduce-scatter in f32 and are rounded after it;
+  a bf16 leaf whose gradient is summed over ``model`` from partial
+  products (a norm's scale, rwkv6's token mixes and decay adapter, an
+  attention projection gathered over ``model``: :func:`widens_grad`) is
+  gathered as an f32 carrier too, and its gradient reduced in f32.
+* :class:`SequenceParallel` — context parallelism for prefill over
+  ``model``: S split over the axis, each attention layer's K and V
+  all-gathered, a token shift's rows passed on (``collective_permute``), a
+  scan's state handed from rank to rank, the final states taken from the
+  last rank.
 * :class:`AllReduceMean` — the mean over a set of axes (forward and
   backward).
 * :class:`CollectiveCounter` — per op: the count, the operand bytes and the
@@ -51,6 +68,7 @@ copies.  Above world 1 an axis of size 1 moves nothing.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import math
@@ -59,9 +77,9 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import (Spec, attn_heads_local, local_shape, local_slices,
-                                              moe_expert_parallel, shard_leaf, spec_axes,
-                                              tp_keeps_local)
+from repro_torch.distributed.sharding import (Spec, attn_heads_local, leaf_name, local_shape,
+                                              local_slices, moe_expert_parallel, shard_leaf,
+                                              spec_axes, tp_keeps_local)
 from repro_torch.tree import flatten_up_to, leaves, leaves_with_paths, tree_map, unflatten
 
 #: the axis tensor-parallel compute splits over
@@ -256,6 +274,39 @@ class MeshGroups:
             dist.all_reduce(x, op=op, group=self.group(axes))
         self.counter.add("all_reduce", x, x, axes)
 
+    def neighbour(self, axis: str, step: int) -> int | None:
+        """The global rank ``step`` places along ``axis`` from this one
+        (None: off the axis's end)."""
+        i = self.coords[axis] + step
+        if not 0 <= i < self.mesh.shape[axis]:
+            return None
+        return self.mesh.rank_of({**self.coords, axis: i})
+
+    def permute(self, x: torch.Tensor, axis: str, *, send: bool = True,
+                recv: bool = True, count: bool = True) -> torch.Tensor:
+        """Each rank's ``x`` to the next rank along ``axis`` (point to point):
+        what the previous rank sent, zeros on the first; counted once a call
+        as ``collective_permute`` (the reference's name for it).  ``send`` /
+        ``recv`` False: this rank's half of the exchange is left out (a
+        hand-off chain issues them apart, and counts the pair once)."""
+        out = torch.zeros_like(x)
+        src, dst = self.neighbour(axis, -1), self.neighbour(axis, 1)
+        host = self._host(x)
+        buf = out.cpu() if host else out
+        payload = x.contiguous().cpu() if host else x.contiguous()
+        reqs = []
+        if recv and src is not None:
+            reqs.append(dist.irecv(buf, src))
+        if send and dst is not None:
+            reqs.append(dist.isend(payload, dst))
+        for r in reqs:
+            r.wait()
+        if host:
+            out.copy_(buf)
+        if count:
+            self.counter.add("collective_permute", x, out, (axis,))
+        return out
+
     # -- a leaf's shards <-> the full leaf ---------------------------------------
     def gather_full(self, local: torch.Tensor, pl: LeafPlacement) -> torch.Tensor:
         """The full leaf (or under tensor-parallel compute its local
@@ -300,16 +351,40 @@ class MeshGroups:
 
 class GatherParam(torch.autograd.Function):
     """A leaf's shard -> the gathered leaf (all-gather); its gradient -> the
-    shard's (reduce-scatter, all-reduce over copies, / batch shards)."""
+    shard's (reduce-scatter, all-reduce over copies, / batch shards).
+    ``wide``: the gathered leaf is an f32 carrier of its bf16 values (marked
+    ``bf16_carrier``), whose f32 gradient is reduced in f32 and rounded to
+    the leaf's dtype after the sum."""
 
     @staticmethod
-    def forward(ctx, local, placement, groups):
-        ctx.placement, ctx.groups = placement, groups
-        return groups.gather_full(local, placement)
+    def forward(ctx, local, placement, groups, wide=False):
+        ctx.placement, ctx.groups, ctx.dtype = placement, groups, local.dtype
+        full = groups.gather_full(local, placement)
+        if not wide:
+            return full
+        full = full.float()
+        full.bf16_carrier = True
+        return full
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.groups.reduce_grad(grad, ctx.placement), None, None
+        return ctx.groups.reduce_grad(grad, ctx.placement).to(ctx.dtype), None, None, None
+
+
+#: leaves whose gradient's sum over the ``model`` row has at most one
+#: addend per entry (an embedding's looked-up rows, a position table's, an
+#: unsplit head seeded on one rank): exact in any dtype
+ONE_ADDEND = ("embed", "enc_pos", "dec_pos", "lm_head")
+
+
+def widens_grad(path: str, pl: LeafPlacement, dtype: torch.dtype, f32_partials: bool) -> bool:
+    """Whether tensor-parallel compute with f32 partial sums gathers this
+    leaf as an f32 carrier: a bf16 leaf whose gradient the ``model`` row sums
+    from partial products (it is gathered over ``model``, or the row holds
+    copies of it), but for :data:`ONE_ADDEND`."""
+    return (f32_partials and dtype == torch.bfloat16
+            and MODEL_AXIS in pl.gather_axes + pl.copy_axes
+            and leaf_name(path) not in ONE_ADDEND)
 
 
 class AllReduceMean(torch.autograd.Function):
@@ -348,16 +423,19 @@ def _cols(x: torch.Tensor, m: int, r: int) -> torch.Tensor:
 class _GatherLast(torch.autograd.Function):
     """(..., n) per rank -> (..., m·n), the ranks' blocks in order along the
     last dim (all-gather); backward, the reduce-scatter of the partial
-    gradients."""
+    gradients.  ``wide``: the result is an f32 carrier of the gathered
+    values and its gradient, f32 partial sums, is reduce-scattered in f32
+    and rounded to x's dtype after the sum."""
 
     @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return tp._all_gather_last(x)
+    def forward(ctx, x, tp, wide=False):
+        ctx.tp, ctx.dtype = tp, x.dtype
+        y = tp._all_gather_last(x)
+        return y.float() if wide else y
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.tp._reduce_scatter_last(g), None
+        return ctx.tp._reduce_scatter_last(g).to(ctx.dtype), None, None
 
 
 class _ScatterLast(torch.autograd.Function):
@@ -373,6 +451,38 @@ class _ScatterLast(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.tp._all_gather_last(g), None
+
+
+class _ScatterCast(torch.autograd.Function):
+    """f32 partial sums (the whole of D) per rank -> their sum in the
+    residual stream's layout (a reduce-scatter in f32, or an all-reduce
+    where D is whole on every rank), plus the bias once, cast to the
+    model's dtype; backward, the gradient's all-gather (all-reduce) in that
+    dtype, handed back as f32, and this rank's columns of the bias's."""
+
+    @staticmethod
+    def forward(ctx, y, bias, tp):
+        ctx.tp, ctx.has_bias = tp, bias is not None
+        s = tp._reduce_scatter_last(y) if tp.d_sharded else tp._all_reduce(y)
+        if bias is not None:
+            ctx.bias_dtype, ctx.n = bias.dtype, bias.shape[0]
+            s = s + tp.local(bias).float()
+        return s.to(tp.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        gy = (tp._all_gather_last(g) if tp.d_sharded else tp._all_reduce(g)).float()
+        db = None
+        if ctx.has_bias and ctx.needs_input_grad[1]:
+            part = g.float().reshape(-1, g.shape[-1]).sum(0)
+            db = torch.zeros(ctx.n, dtype=torch.float32, device=g.device)
+            if tp.d_sharded:
+                _cols(db, tp.m, tp.rank).copy_(part)
+            else:
+                db = part
+            db = db.to(ctx.bias_dtype)
+        return gy, db, None
 
 
 class _SumOverModel(torch.autograd.Function):
@@ -438,22 +548,46 @@ class TensorParallel:
         self.q_local, self.kv_local = attn_heads_local(cfg, mesh)
         self.expert_parallel = moe_expert_parallel(cfg, mesh)
         self.batch_axes = tuple(a for a in mesh.axis_names if a != MODEL_AXIS)
+        self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        #: every sum of partial products over model in f32 (bf16 at m > 1)
+        self.f32_partials = self.moves and self.dtype != torch.float32
+        #: the residual stream's reads ("gather") and writes ("scatter") so
+        #: far (``distributed.context.block_io`` checks a block's)
+        self.events: collections.Counter = collections.Counter()
+        #: (shards, this rank's index, axes): the K/V caches' S split over the
+        #: fsdp axes (a serving batch whose rows do not split over them), else
+        #: None; set by the serving step
+        self.kv_seq: tuple | None = None
 
     # -- the residual stream ----------------------------------------------------
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The residual stream (this rank's D/m) -> the whole of D."""
+        """The residual stream (this rank's D/m) -> the whole of D.  Under
+        autograd with ``f32_partials`` the result is an f32 carrier of its
+        values, whose gradient is reduce-scattered in f32."""
+        self.events["gather"] += 1
         if not (self.moves and self.d_sharded):
             return x
-        return _GatherLast.apply(x, self)
+        wide = self.f32_partials and torch.is_grad_enabled() and x.requires_grad
+        return _GatherLast.apply(x, self, wide)
 
-    def scatter(self, y: torch.Tensor) -> torch.Tensor:
+    def scatter(self, y: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
         """A row-parallel product's partial sums (the whole of D) -> their
-        sum in the residual stream's layout."""
+        sum in the residual stream's layout.  Partial sums in f32 under
+        ``f32_partials`` are summed in f32, ``bias`` (the product's, whole)
+        added once and the sum cast to the model's dtype; otherwise ``y`` is
+        summed in its dtype (and a bias must already be in it, on the row's
+        first rank: :meth:`first`)."""
+        self.events["scatter"] += 1
         if not self.moves:
             return y
+        if y.dtype != self.dtype:
+            return _ScatterCast.apply(y, bias, self)
+        if bias is not None:
+            raise ValueError("a bias goes through the sum only with f32 partial sums")
         if self.d_sharded:
             return _ScatterLast.apply(y, self)
         return _SumOverModel.apply(y, self)
+
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         """A value every rank of the row holds (the whole of D) -> its part
@@ -485,6 +619,37 @@ class TensorParallel:
         """``x`` on the row's first rank, zeros elsewhere (a bias a
         row-parallel product adds once), with the gradient likewise."""
         return _Once.apply(x, self.rank == 0, True)
+
+    # -- a sharded cache at decode ---------------------------------------------------
+    def gather_row(self, x: torch.Tensor) -> torch.Tensor:
+        """A cache row stored at this rank's D/m columns (rwkv6's
+        ``last_tm``/``last_cm``, ``cache_leaf_sharding``'s last dim over
+        model) -> the whole row (an all-gather; no gradient)."""
+        if not (self.moves and self.d_sharded):
+            return x
+        return self._all_gather_last(x)
+
+    def gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks of ``x`` in order along ``dim`` (an all-gather;
+        no gradient)."""
+        if not self.moves:
+            return x
+        return self._all_gather_last(x.movedim(dim, -1)).movedim(-1, dim).contiguous()
+
+    def seq_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` summed (or its maximum, ``op`` "max") over the axes the K/V
+        caches' S is split over (:attr:`kv_seq`; an all-reduce; no
+        gradient)."""
+        y = x.contiguous().clone()
+        self.groups.all_reduce(y, self.kv_seq[2],
+                               op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
+        return y
+
+    def sum_over_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' ``x`` (an all-reduce; no gradient)."""
+        if not self.moves:
+            return x
+        return self._all_reduce(x)
 
     # -- the collectives along the last dim -------------------------------------------
     def _all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
@@ -569,16 +734,27 @@ class ParamGather:
     shards over the batch axes (the fsdp axes under tensor-parallel
     compute, every axis else)."""
 
+    #: whether the MoE layers' load-balance means are taken over the batch
+    #: (the aux loss; a serving step, which returns none, leaves them out)
+    aux = True
+
     def __init__(self, sharded: ShardedTree, local: Any, batch_shards: int):
         self._keep = flatten_up_to(local, sharded.like)
         self._by_id = {id(t): pl for t, pl in zip(self._keep, sharded.compute)}
         self.groups = sharded.groups
         self.tp = sharded.tp
+        f32_partials = self.tp is not None and self.tp.f32_partials
+        self._wide = {id(t): widens_grad(path, pl, t.dtype, f32_partials)
+                      for (path, _), t, pl in zip(leaves_with_paths(sharded.like), self._keep,
+                                                  sharded.compute)}
         self.batch_shards = batch_shards
         self.batch_axes = self.tp.batch_axes if self.tp is not None else self.groups.all_axes
 
     def __call__(self, tree: Any) -> Any:
-        return tree_map(lambda t: GatherParam.apply(t, self._by_id[id(t)], self.groups), tree)
+        def gather(t):
+            wide = self._wide[id(t)] and torch.is_grad_enabled() and t.requires_grad
+            return GatherParam.apply(t, self._by_id[id(t)], self.groups, wide)
+        return tree_map(gather, tree)
 
     def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
         """A mean over this rank's batch shard -> the mean over the global
@@ -594,3 +770,111 @@ class ParamGather:
         shards to the global batch's sum over the global count."""
         return torch.clamp(AllReduceMean.apply(n, self.groups, self.batch_axes),
                            min=1.0 / self.batch_shards)
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism for prefill over the model axis
+# ---------------------------------------------------------------------------
+
+
+class SequenceParallel:
+    """Context parallelism for prefill over the ``model`` axis of
+    ``groups.mesh`` (the reference's ``activation_sharding(...,
+    seq_parallel=True)``): the residual stream is ``(fsdp, model, None)``,
+    this rank's ``local`` = S/m positions from ``offset`` with D whole, and
+    every weight is gathered whole, so each rank runs whole-width products
+    on its tokens.  What crosses ranks:
+
+    * attention: each layer all-gathers K and V along S (:meth:`gather_seq`,
+      two all-gathers), and the rank's queries attend at ``q_offset =
+      offset`` under the causal, window and softcap masks;
+    * a token shift or a conv window reads the previous rank's last rows
+      (:meth:`shift`, a ``collective_permute``);
+    * a scan starts from the state the previous rank ends with
+      (:meth:`handoff`): rank r waits for rank r - 1, so the ranks' scans
+      run one after another (the design's cost), and a scan continued from
+      its state gives one scan's bits;
+    * the cache after prefill: the last rank's final states, each rank
+      keeping its slice by ``cache_leaf_sharding`` (:meth:`from_last`, a
+      reduce-scatter of the last rank's state and zeros elsewhere, exact);
+      K/V caches from the gathered K and V, which hold the whole prompt;
+    * the logits: the last real position's row on every rank
+      (:meth:`row_at`, an all-reduce of that row and zeros elsewhere), each
+      rank taking its vocabulary shard of the head where ``model`` splits
+      the vocabulary (``logits_sharding``).
+
+    The collectives are counted by ``groups.counter``.  No gradient:
+    prefill."""
+
+    def __init__(self, groups: MeshGroups, cfg, seq: int):
+        self.groups, self.cfg = groups, cfg
+        self.axes = (MODEL_AXIS,)
+        self.m = groups.mesh.shape[MODEL_AXIS]
+        self.rank = groups.coords[MODEL_AXIS]
+        self.moves = self.m > 1
+        if seq % self.m:
+            raise ValueError(f"sequence parallelism splits S over model={self.m}: "
+                             f"S = {seq} does not split")
+        self.seq, self.local = seq, seq // self.m
+        self.offset = self.rank * self.local
+        self.last = self.rank == self.m - 1
+        self.vocab_parallel = self.moves and cfg.vocab_size % self.m == 0
+
+    def gather_seq(self, x: torch.Tensor, dim: int = 2) -> torch.Tensor:
+        """The whole sequence of a per-rank ``x`` along ``dim`` (an
+        all-gather over model)."""
+        if not self.moves:
+            return x
+        y = x.movedim(dim, 0).contiguous()
+        out = torch.empty((self.m,) + tuple(y.shape), dtype=y.dtype, device=y.device)
+        self.groups.all_gather(out.view(-1), y.view(-1), self.axes)
+        return out.reshape((self.m * y.shape[0],) + tuple(y.shape[1:])).movedim(0, dim)
+
+    def shift(self, rows: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+        """The previous rank's ``rows`` (its last positions, (B, n, ...)):
+        on the first rank, ``first`` (the cache's carry)."""
+        if not self.moves:
+            return first
+        got = self.groups.permute(rows.contiguous(), MODEL_AXIS)
+        return first if self.rank == 0 else got
+
+    def handoff(self, run, state0: torch.Tensor):
+        """``run(state)`` -> (out, final state) from the state the previous
+        rank ends with (the first rank: ``state0``), its final state passed
+        to the next rank.  Returns (out, final state)."""
+        if not self.moves:
+            return run(state0)
+        g = self.groups
+        state = g.permute(state0, MODEL_AXIS, send=False, count=False)   # waits for rank r - 1
+        out, final = run(state0 if self.rank == 0 else state)
+        g.permute(final, MODEL_AXIS, recv=False)
+        return out, final
+
+    def from_last(self, x: torch.Tensor, spec_entry_dim: int | None) -> torch.Tensor:
+        """The last rank's ``x``, on every rank: this rank's block along
+        ``spec_entry_dim`` (the cache's dim over model; None: whole)."""
+        if not self.moves:
+            return x
+        mine = x if self.last else torch.zeros_like(x)
+        if spec_entry_dim is None:
+            y = mine.contiguous().clone()
+            self.groups.all_reduce(y, self.axes)
+            return y
+        y = mine.movedim(spec_entry_dim, -1)
+        n = y.shape[-1] // self.m
+        send = y.reshape(*y.shape[:-1], self.m, n).movedim(-2, 0).contiguous()
+        out = torch.empty(tuple(y.shape[:-1]) + (n,), dtype=y.dtype, device=y.device)
+        self.groups.reduce_scatter(out.view(-1), send.view(-1), self.axes)
+        return out.movedim(-1, spec_entry_dim).contiguous()
+
+    def row_at(self, h: torch.Tensor, t: int) -> torch.Tensor:
+        """The residual stream's row at global position ``t`` (B, 1, D), on
+        every rank."""
+        j = t - self.offset
+        mine = 0 <= j < self.local
+        row = h[:, j:j + 1] if mine else torch.zeros_like(h[:, :1])
+        if not self.moves:
+            return row
+        row = row.contiguous().clone()
+        self.groups.all_reduce(row, self.axes)
+        return row

@@ -22,6 +22,19 @@ installs a param gather (:func:`gathered_params`) that the models read
 tensor-parallel context for the layers' recompute, which runs on
 autograd's thread.
 
+The residual stream's collectives fall where :data:`RESIDUAL_IO`
+declares: each block kind reads the stream and writes partial sums into
+it that many times a pass.  The planner (``launch.steps``) counts from it,
+and every block runs under :func:`block_io`, which checks the block's
+reads and writes against it.
+
+Serving (``launch.steps.make_sharded_serve_step``): under
+:func:`tensor_parallel` the caches are this rank's shards
+(:func:`sharded_cache` says how a cache of the global batch is laid out:
+``models.lm.init_cache`` allocates them), and under
+:func:`sequence_parallel` (a :class:`~repro_torch.distributed.collectives.
+SequenceParallel`) a prefill splits S over ``model``.
+
 The reference's remat policies are ``jax.checkpoint`` policies; here the
 models read the policy's name (``models.lm.rematted``).  Each layer runs
 under ``torch.utils.checkpoint.checkpoint``.  ``full`` (the default) saves
@@ -108,6 +121,80 @@ def local_residual(x: torch.Tensor) -> torch.Tensor:
     residual stream's layout."""
     tp = tp_context()
     return x if tp is None else tp.local(x)
+
+
+def f32_partials() -> bool:
+    """Whether row-parallel products write f32 partial sums (tensor-parallel
+    compute in bf16 over more than one rank)."""
+    tp = tp_context()
+    return tp is not None and tp.f32_partials
+
+
+#: a block kind -> the times a pass of it reads the residual stream
+#: (:func:`gather_residual`) and writes partial sums into it (a row-parallel
+#: product's scatter) under tensor-parallel compute: ``mixer_ffn`` a
+#: norm-mixer-MLP layer (attention or griffin's recurrent block, then an MLP
+#: or MoE) or a whisper encoder layer, ``rwkv`` a time mix and a channel
+#: mix, ``cross`` a whisper decoder layer (self attention, cross attention,
+#: MLP)
+RESIDUAL_IO = {"mixer_ffn": 2, "rwkv": 2, "cross": 3}
+
+
+@contextlib.contextmanager
+def block_io(kind: str):
+    """A block of ``kind`` (:data:`RESIDUAL_IO`): under tensor-parallel
+    compute, raises if it read or wrote the residual stream other than the
+    declared times."""
+    tp = tp_context()
+    if tp is None:
+        yield
+        return
+    before = (tp.events["gather"], tp.events["scatter"])
+    yield
+    got = (tp.events["gather"] - before[0], tp.events["scatter"] - before[1])
+    want = RESIDUAL_IO[kind]
+    if got != (want, want):
+        raise AssertionError(f"a {kind} block read the residual stream {got[0]} times and wrote "
+                             f"it {got[1]} times; RESIDUAL_IO declares {want} each")
+
+
+# -- sequence parallelism and sharded caches (serving) ---------------------------
+
+
+@contextlib.contextmanager
+def sequence_parallel(sp):
+    """A prefill in the block splits S over ``model`` under ``sp`` (a
+    :class:`~repro_torch.distributed.collectives.SequenceParallel`; None:
+    whole)."""
+    prev = getattr(_tls, "sp", None)
+    _tls.sp = sp
+    try:
+        yield
+    finally:
+        _tls.sp = prev
+
+
+def sp_context():
+    """The active sequence-parallel context, or None."""
+    return getattr(_tls, "sp", None)
+
+
+@contextlib.contextmanager
+def sharded_cache(layout):
+    """Caches made in the block are this rank's shards: ``layout(like)``
+    maps a cache tree of the global batch (``meta`` leaves) to this rank's
+    zeroed shards (None: whole caches)."""
+    prev = getattr(_tls, "cache_layout", None)
+    _tls.cache_layout = layout
+    try:
+        yield
+    finally:
+        _tls.cache_layout = prev
+
+
+def cache_layout():
+    """The active cache layout (see :func:`sharded_cache`), or None."""
+    return getattr(_tls, "cache_layout", None)
 
 
 # -- sharded params (set by the sharded train step) ------------------------

@@ -124,7 +124,7 @@ _LEAF_RULES: dict[str, tuple] = {
 }
 
 
-def _leaf_name(path: str) -> str:
+def leaf_name(path: str) -> str:
     # keystr like "['layers'][0]['attn']['wq']" -> "wq"
     return path.rstrip("]'").rsplit("'", 1)[-1] if "'" in path else path
 
@@ -138,7 +138,7 @@ def param_spec(path: str, shape: tuple[int, ...], cfg: ArchConfig, mesh,
     """
     fsdp = all_axes(mesh) if dp_only else fsdp_axes(mesh)
     tp_phys = None if dp_only else "model"
-    name = _leaf_name(path)
+    name = leaf_name(path)
 
     def resolve(layout: tuple) -> Spec:
         # align layout to the trailing dims; leading (stack) dims unsharded

@@ -40,9 +40,9 @@ _L = ctypes.c_longlong
 #: ints, stream)
 SIGNATURES = {
     "repro_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _P, _P],
+                     _I, _I, _I, _P, _I, _P],
     "repro_grouped_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _P, _P],
+                             _I, _I, _P, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _I, _F, _I, _I, _I, _P],
     "repro_flash_attention_bwd": [*[_P] * 11, *[_I] * 9, _F, _F, _I, _P],
@@ -54,8 +54,8 @@ SIGNATURES = {
     "repro_rwkv6_scan_bwd_geometry": [*[_I] * 5, _P],
     "repro_rglru_scan_bwd": [*[_P] * 9, *[_I] * 8, _P],
     "repro_rglru_scan_bwd_geometry": [*[_I] * 5, _P],
-    "repro_matmul_grad": [_P, _I, _L, _P, _I, _L, _P, _P, *[_I] * 11, _P],
-    "repro_grouped_matmul_grad": [_P, _I, _L, _L, _P, _I, _L, _L, _P, *[_I] * 12, _P],
+    "repro_matmul_grad": [_P, _I, _L, _P, _I, _L, _P, _P, *[_I] * 12, _P],
+    "repro_grouped_matmul_grad": [_P, _I, _L, _L, _P, _I, _L, _L, _P, *[_I] * 13, _P],
 }
 
 _lock = threading.Lock()

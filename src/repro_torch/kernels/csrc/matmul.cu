@@ -80,6 +80,14 @@
 // launch (class matmul, or matmul_bias with the bias) of the same schedule
 // writes, bit for bit, since it is the same f32 sum rounded once.  The
 // output's bits do not change; a null z writes nothing (K1g passes none).
+//
+// f32 output (out_f32, K1 and K1g).  A row-parallel product under tensor
+// parallelism gives each rank partial sums over its slice of K, which the
+// ranks add over the `model` axis before anything rounds them (the
+// reference's dot gives f32 and its cast follows the sum).  With out_f32
+// every body writes the epilogue's f32 value to an f32 `out` instead of
+// rounding it to x's dtype; the sums, their order and Z are unchanged, so a
+// launch without it keeps its bits.
 #include <algorithm>
 
 #include "mma.cuh"
@@ -101,23 +109,33 @@ struct MatmulArgs {
   int split_k;                  // rows body: K slices per strip (1 in the others)
   float* ws;                    // rows body, split_k > 1: f32 partial sums (E, split_k, M, N)
   int round_k;                  // rounding mode's K tile (0: f32 sums throughout)
+  int out_f32;                  // out is f32 (the unrounded epilogue), else x's dtype
 };
 
 // f32 -> bf16 -> f32: a partial sum as the reference's bf16 output block holds it
 __device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
-// This CTA's expert's slices of x, w, out and z (blockIdx.y = expert).
+// This CTA's expert's slices of x, w, out and z (blockIdx.y = expert);
+// out32 is out where the launch writes f32 (null otherwise).
 template <typename T>
 struct ExpertPtrs {
-  const T* x; const T* w; T* out; T* z;
+  const T* x; const T* w; T* out; T* z; float* out32;
   __device__ __forceinline__ explicit ExpertPtrs(const MatmulArgs& a) {
     const size_t e = blockIdx.y;
     x = static_cast<const T*>(a.x) + e * a.m * a.k;
     w = static_cast<const T*>(a.w) + e * a.k * a.n;
     out = static_cast<T*>(a.out) + e * a.m * a.n_out;
     z = a.z ? static_cast<T*>(a.z) + e * a.m * a.n : nullptr;
+    out32 = a.out_f32 ? static_cast<float*>(a.out) + e * a.m * a.n_out : nullptr;
   }
 };
+
+// One output element, from its epilogue's f32 value: f32, or rounded to T.
+template <typename T>
+__device__ __forceinline__ void store_out(const ExpertPtrs<T>& p, size_t at, float y) {
+  if (p.out32) p.out32[at] = y;
+  else p.out[at] = from_f<T>(y);
+}
 
 // Origin of logical tile t in the schedule's order.
 __device__ __forceinline__ void tile_origin(const MatmulArgs& a, int t, int* m0, int* n0) {
@@ -338,7 +356,7 @@ __global__ void __launch_bounds__(kRowsThreads, 2) matmul_rows_kernel(MatmulArgs
           y = epilogue1(a, s, row, ocol);
           store_z(a, p.z, row, ocol, s);
         }
-        p.out[(size_t)row * a.n_out + ocol] = from_f<T>(y);
+        store_out(p, (size_t)row * a.n_out + ocol, y);
       }
     }
     __syncthreads();
@@ -371,7 +389,7 @@ __global__ void __launch_bounds__(256) matmul_rows_reduce_kernel(MatmulArgs a) {
       y = epilogue1(a, s, row, oc);
       store_z(a, p.z, row, oc, s);
     }
-    p.out[(size_t)row * a.n_out + oc] = from_f<T>(y);
+    store_out(p, (size_t)row * a.n_out + oc, y);
   }
 }
 
@@ -523,7 +541,7 @@ __global__ void __launch_bounds__(kRowsThreads) matmul_rows_round_kernel(MatmulA
     }
     if (owner) {
       const int row = r0 + orow, oc = cn0 + ocol;
-      p.out[(size_t)row * a.n_out + oc] = from_f<T>(epilogue1(a, chain, row, oc));
+      store_out(p, (size_t)row * a.n_out + oc, epilogue1(a, chain, row, oc));
       store_z(a, p.z, row, oc, chain);
     }
   }
@@ -721,7 +739,15 @@ __global__ void __launch_bounds__(Tile::kThreads) matmul_mma_kernel(MatmulArgs a
         if (row >= cm1) continue;
         const float y0 = acc[i][j][2 * h], y1 = acc[i][j][2 * h + 1];
         bf16* o = p.out + (size_t)row * a.n_out;
-        if (glu) {  // col is even and cn1 is even, so col + 1 < cn1
+        if (p.out32) {   // f32: two scalar stores (an odd N_out leaves a row's pair unaligned)
+          float* o32 = p.out32 + (size_t)row * a.n_out;
+          if (glu) {
+            o32[col / 2] = epilogue_glu(a, y0, y1, col);
+          } else {
+            o32[col] = epilogue1(a, y0, row, col);
+            if (col + 1 < cn1) o32[col + 1] = epilogue1(a, y1, row, col + 1);
+          }
+        } else if (glu) {  // col is even and cn1 is even, so col + 1 < cn1
           o[col / 2] = from_f<bf16>(epilogue_glu(a, y0, y1, col));
         } else if (col + 1 < cn1) {
           store2(o + col, epilogue1(a, y0, row, col), epilogue1(a, y1, row, col + 1));
@@ -855,6 +881,7 @@ int run(MatmulArgs& a, int dtype, void* stream) {
   if (a.round_k > 0 && (dtype != kBFloat16 || glu || a.k % a.round_k || a.round_k >= a.k))
     return (int)cudaErrorInvalidValue;
   if (a.epi == kResidual && a.residual == nullptr) return (int)cudaErrorInvalidValue;
+  if (a.out_f32 != 0 && a.out_f32 != 1) return (int)cudaErrorInvalidValue;
   a.n_out = glu ? a.n / 2 : a.n;
   a.tiles_m = cdiv(a.m, a.tile_m); a.tiles_n = cdiv(a.n, a.tile_n);
   const Body body = a.tile_m <= 16 ? kRows : dtype == kBFloat16 ? kMma : kFma;
@@ -912,12 +939,13 @@ int run(MatmulArgs& a, int dtype, void* stream) {
 // (the wrapper converts them: the reference reads both into f32).  z: Z
 // (M, N) in x's dtype, written beside out where not null.  round_k:
 // the rounding mode's K tile, 0 for f32 sums throughout.  ws: the rows body's
-// f32 workspace (split_k, M, N) when split_k > 1, else unused.  Returns a
-// cudaError_t: the launch's, or cudaErrorInvalidValue for bad arguments.
+// f32 workspace (split_k, M, N) when split_k > 1, else unused.  out_f32: out
+// is f32, the epilogue unrounded.  Returns a cudaError_t: the launch's, or
+// cudaErrorInvalidValue for bad arguments.
 extern "C" int repro_matmul(const void* x, const void* w, const void* bias, const void* residual,
                             void* out, void* z, int m, int n, int k, int dtype, int epi, float softcap,
                             int tile_m, int tile_n, int m_outer, int cta_m, int cta_n, int ctas,
-                            int split_k, int round_k, void* ws, void* stream) {
+                            int split_k, int round_k, void* ws, int out_f32, void* stream) {
   repro::MatmulArgs a{};
   a.x = x; a.w = w; a.bias = static_cast<const float*>(bias);
   a.residual = static_cast<const float*>(residual); a.out = out; a.z = z;
@@ -926,6 +954,7 @@ extern "C" int repro_matmul(const void* x, const void* w, const void* bias, cons
   a.tile_m = tile_m; a.tile_n = tile_n; a.m_outer = m_outer; a.groups = 1;
   a.cta_m = cta_m; a.cta_n = cta_n; a.ctas = ctas;
   a.split_k = split_k; a.round_k = round_k; a.ws = static_cast<float*>(ws);
+  a.out_f32 = out_f32;
   return repro::run(a, dtype, stream);
 }
 
@@ -933,11 +962,12 @@ extern "C" int repro_matmul(const void* x, const void* w, const void* bias, cons
 // e < groups, contiguous (E,M,K), (E,K,N) and (E,M,N_out).  m, tile_m and
 // tile_n are per expert.  No bias or residual (the grouped classes have none).
 // round_k: as repro_matmul's, per expert.  ws: (E, split_k, M, N) f32 when
-// the rows body splits K.
+// the rows body splits K.  out_f32: as repro_matmul's.
 extern "C" int repro_grouped_matmul(const void* x, const void* w, void* out, int groups,
                                     int m, int n, int k, int dtype, int epi,
                                     int tile_m, int tile_n, int m_outer, int cta_m, int cta_n,
-                                    int ctas, int split_k, int round_k, void* ws, void* stream) {
+                                    int ctas, int split_k, int round_k, void* ws, int out_f32,
+                                    void* stream) {
   repro::MatmulArgs a{};
   a.x = x; a.w = w; a.out = out;
   a.m = m; a.n = n; a.k = k;
@@ -945,5 +975,6 @@ extern "C" int repro_grouped_matmul(const void* x, const void* w, void* out, int
   a.tile_m = tile_m; a.tile_n = tile_n; a.m_outer = m_outer; a.groups = groups;
   a.cta_m = cta_m; a.cta_n = cta_n; a.ctas = ctas;
   a.split_k = split_k; a.round_k = round_k; a.ws = static_cast<float*>(ws);
+  a.out_f32 = out_f32;
   return repro::run(a, dtype, stream);
 }

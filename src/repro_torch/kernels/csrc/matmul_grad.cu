@@ -72,7 +72,25 @@ struct GradArgs {
   int m, n, k, groups;                      // per expert; groups = gridDim.y
   int tile_m, tile_n, tiles_m, tiles_n, m_outer;   // logical tiles
   int cta_m, cta_n, sub_m, sub_n, ctas;     // CTA tile, CTAs per logical tile, gridDim.x
+  int out_f32;                              // out is f32 (unrounded sums), else the operands' dtype
 };
+
+// One output pair (y0 at col, y1 at col + 1 where two) of a bf16 launch:
+// rounded to bf16, or f32 where the caller asked for it.  The f32 form is
+// a column-parallel product's partial input gradient under tensor
+// parallelism, which the ranks add over `model` before it is rounded.
+__device__ __forceinline__ void store_pair(const GradArgs& a, size_t at, float y0, float y1,
+                                           bool two) {
+  if (a.out_f32) {
+    float* o = static_cast<float*>(a.out) + at;
+    o[0] = y0;
+    if (two) o[1] = y1;
+  } else {
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.out) + at;
+    if (two) store2(o, y0, y1);
+    else *o = __float2bfloat16_rn(y0);
+  }
+}
 
 // This CTA's output rectangle [cm0, cm1) x [cn0, cn1): its logical tile in
 // the schedule's order, then its sub-tile (along N first), clipped to the
@@ -308,7 +326,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   // accumulator fragment: thread (warp w of the warpgroup, lane l) holds rows
   // 16w + l/4 and + 8, columns 8j + 2(l%4) and + 1, j < BN / 8
-  bf16* out = static_cast<bf16*>(a.out) + (size_t)e * a.m * a.n;
+  const size_t plane = (size_t)e * a.m * a.n;
   const int r0 = cm0 + wg * 64 + (warp % 4) * 16 + lane / 4;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
@@ -320,10 +338,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
       if (row >= cm1) continue;
-      bf16* o = out + (size_t)row * a.n + col;
       const float y0 = acc[4 * j + 2 * h] + b0, y1 = acc[4 * j + 2 * h + 1] + b1;
-      if (col + 1 < cn1) store2(o, y0, y1);
-      else *o = __float2bfloat16_rn(y0);
+      store_pair(a, plane + (size_t)row * a.n + col, y0, y1, col + 1 < cn1);
     }
   }
 }
@@ -458,7 +474,7 @@ __global__ void __launch_bounds__(kMmThreads) matmul_grad_mma_kernel(GradArgs a)
   }
   cp_async_wait<0>();
 
-  bf16* out = static_cast<bf16*>(a.out) + e * a.m * a.n;
+  const size_t plane = (size_t)e * a.m * a.n;
   const int g = lane / 4, tq = lane % 4;
 #pragma unroll
   for (int i = 0; i < Tile::kFragM; ++i) {
@@ -472,10 +488,8 @@ __global__ void __launch_bounds__(kMmThreads) matmul_grad_mma_kernel(GradArgs a)
       for (int h = 0; h < 2; ++h) {
         const int row = cm0 + wm0 + i * 16 + g + 8 * h;
         if (row >= cm1) continue;
-        bf16* o = out + (size_t)row * a.n + col;
         const float y0 = acc[i][j][2 * h] + b0, y1 = acc[i][j][2 * h + 1] + b1;
-        if (col + 1 < cn1) store2(o, y0, y1);
-        else *o = __float2bfloat16_rn(y0);
+        store_pair(a, plane + (size_t)row * a.n + col, y0, y1, col + 1 < cn1);
       }
     }
   }
@@ -640,6 +654,7 @@ int run_grad(GradArgs& a, int dtype, int body, void* stream) {
   // each operand's stride covers its contiguous extent
   if (a.a_ld < (a.a_t ? a.m : a.k) || a.b_ld < (a.b_t ? a.k : a.n)) return (int)cudaErrorInvalidValue;
   if (dtype != kBFloat16 && dtype != kFloat32) return (int)cudaErrorInvalidValue;
+  if (a.out_f32 != 0 && a.out_f32 != 1) return (int)cudaErrorInvalidValue;
   // the rule by dtype and alignment: TMA reads boxes whose contiguous
   // dimension starts on 16 bytes, so along a contiguous M (N) every logical
   // tile's origin must too
@@ -677,17 +692,18 @@ int run_grad(GradArgs& a, int dtype, int body, void* stream) {
 // (N,), or null), out contiguous.  a_t, b_t, a_ld, b_ld: the operand modes
 // and row strides in elements (see the top of this file).  body: 0 wgmma,
 // 1 mma, 2 fma; cta_m x cta_n: the body's CTA tile; ctas: gridDim.x.
-// Returns a cudaError_t.
+// out_f32: out is f32 (bf16 operands' sums unrounded; an f32 launch's out
+// is f32 anyway).  Returns a cudaError_t.
 extern "C" int repro_matmul_grad(const void* a, int a_t, long long a_ld, const void* b, int b_t,
                                  long long b_ld, const void* bias, void* out, int m, int n, int k,
                                  int dtype, int body, int tile_m, int tile_n, int m_outer,
-                                 int cta_m, int cta_n, int ctas, void* stream) {
+                                 int cta_m, int cta_n, int ctas, int out_f32, void* stream) {
   repro::grad::GradArgs g{};
   g.a = a; g.b = b; g.bias = static_cast<const float*>(bias); g.out = out;
   g.a_t = a_t; g.b_t = b_t; g.a_ld = a_ld; g.b_ld = b_ld;
   g.m = m; g.n = n; g.k = k; g.groups = 1;
   g.tile_m = tile_m; g.tile_n = tile_n; g.m_outer = m_outer;
-  g.cta_m = cta_m; g.cta_n = cta_n; g.ctas = ctas;
+  g.cta_m = cta_m; g.cta_n = cta_n; g.ctas = ctas; g.out_f32 = out_f32;
   return repro::grad::run_grad(g, dtype, body, stream);
 }
 
@@ -697,12 +713,12 @@ extern "C" int repro_grouped_matmul_grad(const void* a, int a_t, long long a_ld,
                                          const void* b, int b_t, long long b_ld, long long b_batch,
                                          void* out, int groups, int m, int n, int k, int dtype,
                                          int body, int tile_m, int tile_n, int m_outer, int cta_m,
-                                         int cta_n, int ctas, void* stream) {
+                                         int cta_n, int ctas, int out_f32, void* stream) {
   repro::grad::GradArgs g{};
   g.a = a; g.b = b; g.out = out;
   g.a_t = a_t; g.b_t = b_t; g.a_ld = a_ld; g.b_ld = b_ld; g.a_batch = a_batch; g.b_batch = b_batch;
   g.m = m; g.n = n; g.k = k; g.groups = groups;
   g.tile_m = tile_m; g.tile_n = tile_n; g.m_outer = m_outer;
-  g.cta_m = cta_m; g.cta_n = cta_n; g.ctas = ctas;
+  g.cta_m = cta_m; g.cta_n = cta_n; g.ctas = ctas; g.out_f32 = out_f32;
   return repro::grad::run_grad(g, dtype, body, stream);
 }

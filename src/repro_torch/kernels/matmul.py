@@ -121,6 +121,21 @@ default schedule of its own instance (:func:`grouped_grad_schedule`).
 is :func:`repro_torch.kernels.ref.grouped_matmul_bwd`; of one gradient
 launch, :func:`~repro_torch.kernels.ref.matmul` (or ``grouped_matmul``) on
 the same views, which a CPU tensor takes.
+
+f32 partial sums (tensor parallelism over ``model`` in bf16).  A
+row-parallel product (``wo``, ``w_out``, ``cv``, an expert's ``w_out`` cut
+along d_ff) gives each rank partial sums that the ranks add before any
+rounding, as the reference's f32 dot is summed before its cast: with
+``out_f32`` K1 and K1g write Y in f32 (the same sums, unrounded; counted in
+``f32_launches``).  A column-parallel product's input gradient is likewise
+a partial sum: where ``x`` is an f32 *carrier* of bf16 values
+(``distributed.context``: the gathered residual stream under autograd)
+beside a bf16 ``w``, the forward launches on ``x``'s bf16 values and the
+backward's ``dX`` launch writes f32 (``grad_launch(..., out_f32=True)``,
+counted in ``f32_grad_launches``), the gradient the carrier takes.  A
+weight whose gradient the ranks sum from partial products may be such a
+carrier too (``w.bf16_carrier``: ``collectives.widens_grad``), and takes
+``dW`` in f32 alike.  A launch without either keeps its bits.
 """
 from __future__ import annotations
 
@@ -181,14 +196,19 @@ grouped_grad_launches = 0
 #: both, by (kernel, body, dtype): body ``"wgmma"``, ``"mma"`` (operand
 #: modes) or ``"fma"`` (:func:`grad_geometry`)
 grad_body_launches: collections.Counter = collections.Counter()
+#: K1 and K1g forward launches of bf16 operands that wrote Y in f32
+#: (``out_f32``), and gradient launches of bf16 operands that wrote f32
+#: (also counted in the counts above)
+f32_launches = 0
+f32_grad_launches = 0
 
 
 def reset_launches() -> None:
     """Set every count to 0."""
     global launches, grouped_launches, row_tile_launches, grad_launches, grouped_grad_launches
-    global z_launches
+    global z_launches, f32_launches, f32_grad_launches
     launches = grouped_launches = row_tile_launches = grad_launches = grouped_grad_launches = 0
-    z_launches = 0
+    z_launches = f32_launches = f32_grad_launches = 0
     body_launches.clear()
     round_launches.clear()
     grad_body_launches.clear()
@@ -339,27 +359,31 @@ def _workspace(x: torch.Tensor, groups: int, split_k: int, m: int, n: int) -> to
 
 def matmul(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
            class_id: str = "matmul", bias: torch.Tensor | None = None,
-           residual: torch.Tensor | None = None, softcap: float = 0.0) -> torch.Tensor:
-    """x (M,K) @ w (K,N) with the class's fused epilogue -> (M, N or N/2)."""
+           residual: torch.Tensor | None = None, softcap: float = 0.0,
+           out_f32: bool = False) -> torch.Tensor:
+    """x (M,K) @ w (K,N) with the class's fused epilogue -> (M, N or N/2),
+    in x's dtype or, with ``out_f32``, in f32."""
     if x.device.type == "cpu":
         return ref.matmul(x, w, class_id, bias=bias, residual=residual, softcap=softcap,
-                          round_k=round_k_for(cs))
-    return launch(x, w, cs, class_id=class_id, bias=bias, residual=residual, softcap=softcap)
+                          round_k=round_k_for(cs), out_f32=out_f32)
+    return launch(x, w, cs, class_id=class_id, bias=bias, residual=residual, softcap=softcap,
+                  out_f32=out_f32)
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
            class_id: str = "matmul", bias: torch.Tensor | None = None,
            residual: torch.Tensor | None = None, softcap: float = 0.0,
-           with_z: bool = False) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+           with_z: bool = False, out_f32: bool = False) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel; raises on anything it does not take.  With
     ``with_z``, returns (Y, Z): Z (M, N) in x's dtype is the pre-epilogue
     sum plus the bias, bit for bit the output of a ``matmul`` launch (with a
-    bias: ``matmul_bias``) of the same schedule key; Y's bits do not change."""
+    bias: ``matmul_bias``) of the same schedule key; Y's bits do not change.
+    With ``out_f32`` Y is f32: the epilogue's value before the cast."""
     if not x.is_cuda:
         raise ValueError(f"the matmul kernel runs on a CUDA tensor, got {x.device}")
     key = launch_key(x, w, cs, class_id=class_id, bias=bias, residual=residual, softcap=softcap)
     return launch_as(x, w, key, class_id=class_id, bias=bias, residual=residual,
-                     softcap=softcap, with_z=with_z)
+                     softcap=softcap, with_z=with_z, out_f32=out_f32)
 
 
 def launch_key(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *, class_id: str,
@@ -398,16 +422,18 @@ def launch_key(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *, class_
 
 def launch_as(x: torch.Tensor, w: torch.Tensor, key: tuple[int, int, bool, int], *,
               class_id: str, bias: torch.Tensor | None, residual: torch.Tensor | None,
-              softcap: float, with_z: bool = False) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+              softcap: float, with_z: bool = False,
+              out_f32: bool = False) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """The launch of :func:`launch` under a checked :func:`launch_key`."""
-    global launches, row_tile_launches, z_launches
+    global launches, row_tile_launches, z_launches, f32_launches
     m, k = x.shape
     n = w.shape[1]
     tile_m, tile_n, m_outer, round_k = key
     # the reference reads bias and residual into f32 before adding them
     bias32 = bias.to(device=x.device, dtype=torch.float32).contiguous() if bias is not None else None
     res32 = residual.to(device=x.device, dtype=torch.float32).contiguous() if residual is not None else None
-    out = torch.empty((m, n // 2 if class_id in GLU_CLASSES else n), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, n // 2 if class_id in GLU_CLASSES else n),
+                      dtype=torch.float32 if out_f32 else x.dtype, device=x.device)
     z = torch.empty((m, n), dtype=x.dtype, device=x.device) if with_z else None
     if m == 0:
         return (out, z) if with_z else out
@@ -421,11 +447,12 @@ def launch_as(x: torch.Tensor, w: torch.Tensor, key: tuple[int, int, bool, int],
         res32.data_ptr() if res32 is not None else None,
         out.data_ptr(), z.data_ptr() if with_z else None, m, n, k, DTYPES[x.dtype],
         EPILOGUE[class_id], float(softcap), tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas,
-        split_k, round_k, ws.data_ptr() if ws is not None else None,
+        split_k, round_k, ws.data_ptr() if ws is not None else None, int(out_f32),
         _build.stream_handle(x.device))
     _build.check(rc, "matmul kernel")
     launches += 1
     z_launches += with_z
+    f32_launches += out_f32 and x.dtype != torch.float32
     row_tile_launches += tile_m == 1 < m
     body_launches["matmul", body, x.dtype] += 1
     if round_k:
@@ -436,9 +463,10 @@ def launch_as(x: torch.Tensor, w: torch.Tensor, key: tuple[int, int, bool, int],
 @torch.library.custom_op(
     "repro_torch::matmul", mutates_args=(),
     schema="(Tensor x, Tensor w, Tensor? bias, Tensor? residual, str class_id, float softcap, "
-           "int tile_m, int tile_n, bool m_outer, int round_k, bool with_z) -> Tensor[]")
+           "int tile_m, int tile_n, bool m_outer, int round_k, bool with_z, "
+           "bool out_f32=False) -> Tensor[]")
 def matmul_op(x, w, bias, residual, class_id, softcap, tile_m, tile_n, m_outer, round_k,
-              with_z):
+              with_z, out_f32=False):
     """K1's forward as one dispatcher op, so that a selective-checkpoint
     policy can see and save its outputs: [Y], or [Y, Z] with ``with_z``
     (:func:`launch`).  A CUDA tensor launches the kernel under the checked
@@ -446,10 +474,10 @@ def matmul_op(x, w, bias, residual, class_id, softcap, tile_m, tile_n, m_outer, 
     plain version, ``ref.matmul``."""
     if x.is_cuda:
         out = launch_as(x, w, (tile_m, tile_n, m_outer, round_k), class_id=class_id, bias=bias,
-                        residual=residual, softcap=softcap, with_z=with_z)
+                        residual=residual, softcap=softcap, with_z=with_z, out_f32=out_f32)
     else:
         out = ref.matmul(x, w, class_id, bias=bias, residual=residual, softcap=softcap,
-                         round_k=round_k, with_z=with_z)
+                         round_k=round_k, with_z=with_z, out_f32=out_f32)
     return list(out) if with_z else [out]
 
 
@@ -594,10 +622,11 @@ def grad_cta(body: str, m: int, n: int, tile_m: int, tile_n: int,
 
 
 def _grad_run(a: torch.Tensor, b: torch.Tensor, cs: ConcreteSchedule, kernel: str,
-              bias: torch.Tensor | None = None) -> torch.Tensor:
+              bias: torch.Tensor | None = None, out_f32: bool = False) -> torch.Tensor:
     """Launch csrc/matmul_grad.cu on views ``a``, ``b`` under ``cs`` (K1:
-    2-D, ``kernel`` "matmul"; K1g: 3-D, "grouped_matmul"); counts it."""
-    global launches, grouped_launches
+    2-D, ``kernel`` "matmul"; K1g: 3-D, "grouped_matmul"); counts it.
+    ``out_f32``: the output in f32, its sums unrounded."""
+    global launches, grouped_launches, f32_grad_launches
     if not (a.is_cuda and b.device == a.device):
         raise ValueError(f"the gradient kernel runs on CUDA tensors, got {a.device}, {b.device}")
     geo = grad_geometry(a, b, cs)
@@ -605,7 +634,7 @@ def _grad_run(a: torch.Tensor, b: torch.Tensor, cs: ConcreteSchedule, kernel: st
     (a_t, a_ld, a_batch), (b_t, b_ld, b_batch) = geo["a"], geo["b"]
     *lead, m, k = a.shape
     n = b.shape[-1]
-    out = torch.empty((*lead, m, n), dtype=a.dtype, device=a.device)
+    out = torch.empty((*lead, m, n), dtype=torch.float32 if out_f32 else a.dtype, device=a.device)
     groups = lead[0] if lead else 1
     if out.numel() == 0:
         return out
@@ -619,33 +648,34 @@ def _grad_run(a: torch.Tensor, b: torch.Tensor, cs: ConcreteSchedule, kernel: st
             a.data_ptr(), a_t, a_ld, b.data_ptr(), b_t, b_ld,
             bias32.data_ptr() if bias32 is not None else None, out.data_ptr(), m, n, k,
             DTYPES[a.dtype], GRAD_BODIES[body], tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas,
-            _build.stream_handle(a.device))
+            int(out_f32), _build.stream_handle(a.device))
         launches += 1
     else:
         rc = lib.repro_grouped_matmul_grad(
             a.data_ptr(), a_t, a_ld, a_batch, b.data_ptr(), b_t, b_ld, b_batch, out.data_ptr(),
             groups, m, n, k, DTYPES[a.dtype], GRAD_BODIES[body], tile_m, tile_n, int(m_outer),
-            cta_m, cta_n, ctas, _build.stream_handle(a.device))
+            cta_m, cta_n, ctas, int(out_f32), _build.stream_handle(a.device))
         grouped_launches += 1
     _build.check(rc, f"{kernel} gradient kernel ({body}, {groups}x({m},{k})x({k},{n}), "
                      f"a {geo['a']}, b {geo['b']}, tiles {tile_m}x{tile_n}, {ctas} CTAs)")
     body_launches[kernel, body, a.dtype] += 1
     grad_body_launches[kernel, body, a.dtype] += 1
+    f32_grad_launches += out_f32 and a.dtype != torch.float32
     return out
 
 
 def grad_launch(a: torch.Tensor, b: torch.Tensor, class_id: str = "matmul",
-                bias: torch.Tensor | None = None) -> torch.Tensor:
+                bias: torch.Tensor | None = None, out_f32: bool = False) -> torch.Tensor:
     """a (M,K) @ b (K,N) (+ bias) for a gradient, under the default schedule
     of its own instance; ``a`` and ``b`` may be transposed views, read in
-    place.  A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    place.  ``out_f32``: the result in f32.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
     global grad_launches
     if class_id not in ("matmul", "matmul_bias"):
         raise ValueError(f"a gradient launch is of class matmul or matmul_bias, got {class_id!r}")
     if not a.is_cuda:
-        return ref.matmul(a, b, class_id, bias=bias)
-    out = _grad_run(a, b, grad_cs(a, b), "matmul", bias)
+        return ref.matmul(a, b, class_id, bias=bias, out_f32=out_f32)
+    out = _grad_run(a, b, grad_cs(a, b), "matmul", bias, out_f32)
     grad_launches += 1
     return out
 
@@ -698,19 +728,34 @@ class MatmulFn(torch.autograd.Function):
 
     Saved for the backward: x, w, ``transpose_of``, the bias and what the
     epilogue's derivative reads (:func:`epilogue_grad`): Y for the softcap,
-    Z where the forward wrote it, else None."""
+    Z where the forward wrote it, else None.
+
+    ``out_f32``: Y in f32 (a row-parallel product's partial sums).  An f32
+    ``x`` beside a bf16 ``w`` is a carrier of bf16 values (see the module):
+    the launches read those values and ``dX`` comes back in f32.
+    ``w_carrier``: ``w`` is one too (f32, its bf16 values read), and ``dW``
+    comes back in f32."""
 
     @staticmethod
-    def forward(ctx, x, w, transpose_of, bias, residual, cs, class_id, softcap):
+    def forward(ctx, x, w, transpose_of, bias, residual, cs, class_id, softcap, out_f32=False,
+                w_carrier=False):
+        dtype = torch.bfloat16 if w_carrier else w.dtype
+        ctx.carrier, ctx.w_carrier = x.dtype != dtype, w_carrier
+        if ctx.carrier:
+            x = carried(x, dtype)
+        if w_carrier:
+            w = carried(w, dtype)
         saved = None
         if dots_saved():
             with_z = class_id in Z_CLASSES
             key = launch_key(x, w, cs, class_id=class_id, bias=bias, residual=residual,
                              softcap=softcap)
-            y, *z = matmul_op(x, w, bias, residual, class_id, float(softcap), *key, with_z)
+            y, *z = matmul_op(x, w, bias, residual, class_id, float(softcap), *key, with_z,
+                              out_f32)
             saved = z[0] if with_z else None
         else:
-            y = matmul(x, w, cs, class_id=class_id, bias=bias, residual=residual, softcap=softcap)
+            y = matmul(x, w, cs, class_id=class_id, bias=bias, residual=residual, softcap=softcap,
+                       out_f32=out_f32)
         ctx.class_id, ctx.softcap = class_id, softcap
         ctx.res_dtype = residual.dtype if residual is not None else None
         ctx.save_for_backward(x, w, transpose_of, bias,
@@ -725,27 +770,38 @@ class MatmulFn(torch.autograd.Function):
             dzf = epilogue_grad(x, w, saved, dy, ctx.class_id, bias, ctx.softcap)
             dz = dzf.to(x.dtype)
         else:   # dZ is dY: no f32 round trip (bf16 -> f32 -> bf16 gives the same bits)
-            dzf, dz = None, in_place(dy)
+            dzf, dz = None, in_place(dy if dy.dtype == x.dtype else dy.to(x.dtype))
         dx = dw = dsrc = db = dres = None
         if need_x:   # a tied head's wᵀ is the embedding itself
-            dx = grad_launch(dz, w_src if w_src is not None else w.T)
+            dx = grad_launch(dz, w_src if w_src is not None else w.T,
+                             out_f32=getattr(ctx, "carrier", False))
         if need_w:
-            dw = grad_launch(x.T, dz)
+            dw = grad_launch(x.T, dz, out_f32=getattr(ctx, "w_carrier", False))
         if need_src:
             dsrc = grad_launch(dz.T, x)
         if need_bias:
             db = (dzf if dzf is not None else dy.float()).sum(0).to(bias.dtype)
         if need_res:
             dres = dy.to(ctx.res_dtype)
-        return dx, dw, dsrc, db, dres, None, None, None
+        return dx, dw, dsrc, db, dres, None, None, None, None, None
+
+
+def carried(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The values of an f32 carrier as ``dtype`` (they are ``dtype``'s
+    values already, so the cast is exact); raises on any other mix."""
+    if not (x.dtype == torch.float32 and dtype == torch.bfloat16):
+        raise ValueError(f"an f32 carrier of bf16 values goes with a bf16 w, got {x.dtype} "
+                         f"beside {dtype}")
+    return x.to(dtype)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
-                   class_id: str = "moe_gemm") -> torch.Tensor:
-    """x (E,M,K) @ w (E,K,N) per expert with the class's epilogue -> (E, M, N or N/2)."""
+                   class_id: str = "moe_gemm", out_f32: bool = False) -> torch.Tensor:
+    """x (E,M,K) @ w (E,K,N) per expert with the class's epilogue -> (E, M, N or N/2),
+    in x's dtype or, with ``out_f32``, in f32."""
     if x.device.type == "cpu":
-        return ref.grouped_matmul(x, w, class_id, round_k=round_k_for(cs))
-    return grouped_launch(x, w, cs, class_id=class_id)
+        return ref.grouped_matmul(x, w, class_id, round_k=round_k_for(cs), out_f32=out_f32)
+    return grouped_launch(x, w, cs, class_id=class_id, out_f32=out_f32)
 
 
 def grouped_geometry(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule,
@@ -776,14 +832,15 @@ def grouped_geometry(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule,
 
 
 def grouped_launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
-                   class_id: str = "moe_gemm") -> torch.Tensor:
-    """Launch the CUDA kernel over every expert; raises on anything it does not take."""
-    global grouped_launches
+                   class_id: str = "moe_gemm", out_f32: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel over every expert; raises on anything it does
+    not take.  ``out_f32``: the output in f32, unrounded."""
+    global grouped_launches, f32_launches
     if not x.is_cuda:
         raise ValueError(f"the grouped matmul kernel runs on a CUDA tensor, got {x.device}")
     e, m, n, k, tile_m, tile_n = grouped_geometry(x, w, cs, class_id)
-    out = torch.empty((e, m, n // 2 if class_id in GLU_CLASSES else n), dtype=x.dtype,
-                      device=x.device)
+    out = torch.empty((e, m, n // 2 if class_id in GLU_CLASSES else n),
+                      dtype=torch.float32 if out_f32 else x.dtype, device=x.device)
     if m == 0 or e == 0:
         return out
     _, _, m_outer, round_k = schedule_key(cs)
@@ -793,50 +850,58 @@ def grouped_launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
     rc = _build.library().repro_grouped_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, DTYPES[x.dtype],
         GROUPED_EPILOGUE[class_id], tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas,
-        split_k, round_k, ws.data_ptr() if ws is not None else None,
+        split_k, round_k, ws.data_ptr() if ws is not None else None, int(out_f32),
         _build.stream_handle(x.device))
     _build.check(rc, "grouped matmul kernel")
     grouped_launches += 1
+    f32_launches += out_f32 and x.dtype != torch.float32
     body_launches["grouped_matmul", body, x.dtype] += 1
     if round_k:
         round_launches["grouped_matmul", body] += 1
     return out
 
 
-def grouped_grad_launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def grouped_grad_launch(a: torch.Tensor, b: torch.Tensor, out_f32: bool = False) -> torch.Tensor:
     """a (E,M,K) @ b (E,K,N) per expert (class ``moe_gemm``) for a gradient,
     under the default schedule of its own instance; ``a`` and ``b`` may be
-    ``.transpose(1, 2)`` views, read in place.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    ``.transpose(1, 2)`` views, read in place.  ``out_f32``: the result in
+    f32.  A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
     global grouped_grad_launches
     if not a.is_cuda:
-        return ref.grouped_matmul(a, b, "moe_gemm")
-    out = _grad_run(a, b, grad_cs(a, b), "grouped_matmul")
+        return ref.grouped_matmul(a, b, "moe_gemm", out_f32=out_f32)
+    out = _grad_run(a, b, grad_cs(a, b), "grouped_matmul", out_f32=out_f32)
     grouped_grad_launches += 1
     return out
 
 
 class GroupedMatmulFn(torch.autograd.Function):
-    """K1g under autograd on CUDA tensors: :func:`grouped_launch` forward,
-    K1g backward."""
+    """K1g under autograd: :func:`grouped_matmul` forward (a CUDA tensor
+    launches, a CPU tensor takes the plain version), K1g backward.  CUDA
+    tensors always take it; CPU tensors where ``x`` is an f32 carrier or Y
+    is f32 (``out_f32``), as :class:`MatmulFn` takes both."""
 
     @staticmethod
-    def forward(ctx, x, w, cs, class_id):
+    def forward(ctx, x, w, cs, class_id, out_f32=False):
         ctx.class_id = class_id
+        ctx.carrier = x.dtype != w.dtype
+        if ctx.carrier:
+            x = carried(x, w.dtype)
         ctx.save_for_backward(x, w)
-        return grouped_launch(x, w, cs, class_id=class_id)
+        return grouped_matmul(x, w, cs, class_id=class_id, out_f32=out_f32)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         need_x, need_w = ctx.needs_input_grad[:2]
-        dz = in_place(dy)
+        dz = in_place(dy if dy.dtype == x.dtype else dy.to(x.dtype))
         if ctx.class_id in GLU_CLASSES:
             z = grouped_grad_launch(x, w)              # the pre-activation, recomputed
             with torch.enable_grad():
                 zf = z.float().requires_grad_()
                 dz = torch.autograd.grad(ref.apply_epilogue(zf, ctx.class_id), zf,
                                          dy.float())[0].to(x.dtype)
-        dx = grouped_grad_launch(dz, w.transpose(1, 2)) if need_x else None
+        dx = (grouped_grad_launch(dz, w.transpose(1, 2), getattr(ctx, "carrier", False))
+              if need_x else None)
         dw = grouped_grad_launch(x.transpose(1, 2), dz) if need_w else None
-        return dx, dw, None, None
+        return dx, dw, None, None, None

@@ -225,48 +225,71 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "matmul",
            bias: torch.Tensor | None = None, residual: torch.Tensor | None = None,
            softcap: float = 0.0, provider: ScheduleProvider | None = None,
            backend: str | None = None,
-           transpose_of: torch.Tensor | None = None) -> torch.Tensor:
+           transpose_of: torch.Tensor | None = None, out_f32: bool = False) -> torch.Tensor:
     """x: (..., K) @ w: (K, N) with fused epilogue. GLU classes emit N//2.
 
     ``transpose_of``: the (N, K) tensor ``w`` is a contiguous transposed
     copy of (a tied LM head: ``w`` is ``embed_t``, this is ``embed``).
     Without a gradient it is not read.  Under autograd the gradient of
-    ``w`` goes to it, as ``jax.grad`` of ``embed.T`` gives it."""
+    ``w`` goes to it, as ``jax.grad`` of ``embed.T`` gives it.
+
+    ``out_f32``: the result in f32, unrounded (a row-parallel product's
+    partial sums).  An f32 ``x`` beside a bf16 ``w`` is a carrier of bf16
+    values (``distributed.context``): the product reads those values and,
+    under autograd, ``x``'s gradient comes back in f32
+    (:class:`~repro_torch.kernels.matmul.MatmulFn`); a ``w`` marked
+    ``bf16_carrier`` likewise."""
     backend = backend or current_backend()
     grad = _needs_grad(x, w, bias, residual, transpose_of)
+    w_carrier = getattr(w, "bf16_carrier", False)
+    if w_carrier and not grad:
+        w, w_carrier = _mm.carried(w, torch.bfloat16), False
+    if x.dtype != w.dtype and not grad and not w_carrier:
+        x = _mm.carried(x, w.dtype)
     tied = grad and transpose_of is not None
     if tied and (backend == "ref" or not x.is_cuda):
         w, tied = transpose_of.T, False     # plain autograd carries it to transpose_of
     if backend == "ref":
-        return ref.matmul(x, w, class_id, bias=bias, residual=residual, softcap=softcap)
+        if w_carrier:
+            w = _mm.carried(w, torch.bfloat16)
+        if x.dtype != w.dtype:
+            x = _mm.carried(x, w.dtype)
+        return ref.matmul(x, w, class_id, bias=bias, residual=residual, softcap=softcap,
+                          **({"out_f32": True} if out_f32 else {}))
     *lead, k = x.shape
     n = w.shape[1]
     m = math.prod(lead)
     x2 = x.reshape(m, k).contiguous()
     res2 = residual.reshape(m, -1).contiguous() if residual is not None else None
-    cs = _resolve(provider).get(instance(class_id, x.dtype, M=m, N=n, K=k))
+    dtype = torch.bfloat16 if w_carrier else w.dtype
+    cs = _resolve(provider).get(instance(class_id, dtype, M=m, N=n, K=k))
     if grad:
         y = _mm.MatmulFn.apply(x2, w.contiguous(), transpose_of if tied else None, bias, res2,
-                               cs, class_id, softcap)
+                               cs, class_id, softcap, out_f32, w_carrier)
     else:
         y = _mm.matmul(x2, w.contiguous(), cs, class_id=class_id, bias=bias, residual=res2,
-                       softcap=softcap)
+                       softcap=softcap, out_f32=out_f32)
     return y.reshape(*lead, y.shape[-1])
 
 
 def moe_gemm(x: torch.Tensor, w: torch.Tensor, *, class_id: str = "moe_gemm",
              provider: ScheduleProvider | None = None,
-             backend: str | None = None) -> torch.Tensor:
-    """Grouped expert GEMM: x (E, M, K) @ w (E, K, N)."""
+             backend: str | None = None, out_f32: bool = False) -> torch.Tensor:
+    """Grouped expert GEMM: x (E, M, K) @ w (E, K, N).  ``out_f32`` and an
+    f32 carrier ``x``: as :func:`matmul`'s."""
     backend = backend or current_backend()
+    grad = _needs_grad(x, w)
+    if x.dtype != w.dtype and (backend == "ref" or not grad):
+        x = _mm.carried(x, w.dtype)
     if backend == "ref":
-        return ref.grouped_matmul(x, w, class_id)
+        return ref.grouped_matmul(x, w, class_id, **({"out_f32": True} if out_f32 else {}))
     e, m, k = x.shape
     n = w.shape[2]
-    cs = _resolve(provider).get(instance(class_id, x.dtype, M=m * e, N=n, K=k, E=e))
-    if x.is_cuda and _needs_grad(x, w):
-        return _mm.GroupedMatmulFn.apply(x.contiguous(), w.contiguous(), cs, class_id)
-    return _mm.grouped_matmul(x.contiguous(), w.contiguous(), cs, class_id=class_id)
+    cs = _resolve(provider).get(instance(class_id, w.dtype, M=m * e, N=n, K=k, E=e))
+    if grad and (x.is_cuda or x.dtype != w.dtype or out_f32):
+        return _mm.GroupedMatmulFn.apply(x.contiguous(), w.contiguous(), cs, class_id, out_f32)
+    return _mm.grouped_matmul(x.contiguous(), w.contiguous(), cs, class_id=class_id,
+                              out_f32=out_f32)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

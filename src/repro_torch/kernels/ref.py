@@ -96,8 +96,8 @@ def apply_epilogue(y: torch.Tensor, class_id: str, *, bias: torch.Tensor | None 
 @_counted
 def matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "matmul", *,
            bias: torch.Tensor | None = None, residual: torch.Tensor | None = None,
-           softcap: float = 0.0, round_k: int = 0,
-           with_z: bool = False) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+           softcap: float = 0.0, round_k: int = 0, with_z: bool = False,
+           out_f32: bool = False) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """x: (..., K) @ w: (K, N) in f32, epilogue in f32, cast to x.dtype.
 
     ``round_k`` > 0 is the Pallas kernel's accumulation without its f32
@@ -107,7 +107,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "matmul", *,
     to x.dtype after every tile but the last.  0 sums all of K in f32.
 
     ``with_z``: returns (out, Z), Z the pre-epilogue sum plus the bias cast
-    to x.dtype, as class ``matmul`` (``matmul_bias``) computes it."""
+    to x.dtype, as class ``matmul`` (``matmul_bias``) computes it.
+
+    ``out_f32``: out is the epilogue's f32 value, not cast (a row-parallel
+    product's partial sums, added over ranks before the cast)."""
     if not round_k:
         y = torch.matmul(x.float(), w.float())
     else:
@@ -120,19 +123,21 @@ def matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "matmul", *,
             y = y.to(x.dtype).float() + torch.matmul(xf[..., k0:k0 + round_k], wf[k0:k0 + round_k])
     z = (y + bias if bias is not None else y).to(x.dtype) if with_z else None
     y = apply_epilogue(y, class_id, bias=bias, residual=residual, softcap=softcap)
-    return (y.to(x.dtype), z) if with_z else y.to(x.dtype)
+    y = y if out_f32 else y.to(x.dtype)
+    return (y, z) if with_z else y
 
 
 @_counted
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, class_id: str = "moe_gemm", *,
-                   round_k: int = 0) -> torch.Tensor:
+                   round_k: int = 0, out_f32: bool = False) -> torch.Tensor:
     """x: (E, M, K) @ w: (E, K, N): :func:`matmul` applied to each expert (the
-    reference's ``jax.vmap(ref.matmul)``), ``round_k`` as there.  Calls this
+    reference's ``jax.vmap(ref.matmul)``), ``round_k`` and ``out_f32`` as there.  Calls this
     module's ``matmul`` one expert at a time, so a patched ``matmul`` patches
     this too, and only one expert's f32 copy of ``w`` is alive at once."""
     if class_id not in GROUPED_CLASSES:
         raise ValueError(f"unknown grouped matmul class {class_id!r}")
-    return torch.stack([matmul(xe, we, class_id, round_k=round_k) for xe, we in zip(x, w)])
+    return torch.stack([matmul(xe, we, class_id, round_k=round_k, out_f32=out_f32)
+                        for xe, we in zip(x, w)])
 
 
 def _grads(fn, inputs: tuple, douts: tuple) -> tuple[torch.Tensor, ...]:

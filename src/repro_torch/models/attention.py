@@ -17,13 +17,31 @@ logit softcapping and KV caches (the counterpart of
 * ``init_attn_cache`` — full cache for global layers, window-sized ring for
   local/SWA layers.
 
-Under tensor-parallel compute (``distributed.context.tensor_parallel``,
-training only) ``wq``, ``wk`` and ``wv`` are this rank's columns: q and
-K/V hold the rank's heads (:func:`_qkv`; where KV heads are whole on every
-rank, the run its q heads read), and the output that ``wo``'s local rows
-take is those heads' columns (:func:`out_cols`; where every head is
-computed whole, the rank's slice of them).  ``wo`` then gives the rank's
-partial sums, which the caller reduce-scatters.
+Under tensor-parallel compute (``distributed.context.tensor_parallel``)
+``wq``, ``wk`` and ``wv`` are this rank's columns: q and K/V hold the
+rank's heads (:func:`_qkv`; where KV heads are whole on every rank, the
+run its q heads read: :func:`kv_for`), and the output that ``wo``'s local
+rows take is those heads' columns (:func:`out_cols`; where every head is
+computed whole, the rank's slice of them).  ``wo`` is a row-parallel
+product (``common.row_parallel``): its partial sums go into the residual
+stream.  A sharded serving step's caches are this rank's shards by
+``cache_leaf_sharding`` (:func:`cache_part` writes them): the rank's KV
+heads, or where ``model`` does not split the KV heads but splits
+``head_dim``, the rank's ``head_dim`` slice of every KV head
+(recurrentgemma's one KV head).  Decode then contracts the rank's q slice
+against its K slice and sums the scores over ``model``
+(:func:`_split_decode_attention`): (B, H, 1, S) f32 scores a step, where
+gathering the cache would move the whole cache.  Where a serving batch's
+rows do not split over the fsdp axes, each rank holds all of them and its
+block of every K/V cache's positions (``TensorParallel.kv_seq``): prefill
+keeps its block, decode writes a row on the rank that holds its slot and
+merges the softmax over the fsdp axes (:func:`_attend`).
+
+Under sequence parallelism (``distributed.context.sequence_parallel``) a
+prefill holds this rank's S/m positions: K and V are all-gathered along S,
+the rank's queries attend at ``q_offset`` (flash attention's causal,
+window and softcap masks), and the cache is written from the gathered K
+and V, which hold the whole prompt.
 
 Unlike the reference, which is functional, the caches are updated in place:
 ``attn_forward`` writes the prefix of the (fresh) cache it is given,
@@ -37,9 +55,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.context import tp_context
+from repro_torch.distributed.context import sp_context, tp_context
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, dense_init, dtype_of
+from repro_torch.models.common import apply_rope, dense_init, dtype_of, row_parallel
 
 
 def attn_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -63,13 +81,13 @@ def _attn_class(cfg: ArchConfig, kind: str) -> str:
 
 def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, provider):
     """(B, S, D) -> q (B, H, S, hd), k/v (B, KV, S, hd): the heads this rank
-    attends with under tensor-parallel compute."""
+    computes under tensor-parallel compute (:func:`kv_for` gives the KV
+    heads its q heads read)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = ops.matmul(x, p["wq"], provider=provider).reshape(b, s, -1, hd).transpose(1, 2)
     k = ops.matmul(x, p["wk"], provider=provider).reshape(b, s, -1, hd).transpose(1, 2)
     v = ops.matmul(x, p["wv"], provider=provider).reshape(b, s, -1, hd).transpose(1, 2)
-    k, v = kv_for(cfg, q, k), kv_for(cfg, q, v)
     return q, k, v
 
 
@@ -84,6 +102,21 @@ def kv_for(cfg: ArchConfig, q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
     per, group = q.shape[1], cfg.n_heads // cfg.n_kv_heads
     k0 = tp.rank * per // group
     return kv[:, k0:k0 + max(1, per // group)]
+
+
+def cache_part(kv: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The part of ``kv`` (B, KV, S, hd: the KV heads this rank computed)
+    that a cache shaped like ``like`` holds: all of it, this rank's block
+    of the heads (sequence parallelism computes every head) or its block of
+    ``head_dim`` (tensor parallelism where ``model`` splits ``head_dim``)."""
+    heads, hd = like.shape[1], like.shape[3]
+    if (heads, hd) == (kv.shape[1], kv.shape[3]):
+        return kv
+    ctx = tp_context() or sp_context()
+    r = ctx.rank
+    if heads != kv.shape[1]:
+        return kv[:, r * heads:(r + 1) * heads]
+    return kv[..., r * hd:(r + 1) * hd]
 
 
 def out_cols(out: torch.Tensor) -> torch.Tensor:
@@ -127,34 +160,59 @@ def _cache_size(cache: dict) -> int:
 def attn_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
                  positions: torch.Tensor, provider=None,
                  cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
-    """x: (B, S, D) normalized input. Returns (attn_out, cache written)."""
+    """x: (B, S, D) normalized input. Returns (attn_out, cache written)
+    (under sequence parallelism, this rank's S/m positions)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, provider)
     q, k = _rope_qk(cfg, q, k, positions)
 
+    sp = sp_context()
+    q_offset = 0
+    if sp is not None:      # the whole sequence's K and V
+        k, v, q_offset = sp.gather_seq(k), sp.gather_seq(v), sp.offset
     window = cfg.window if kind == "L" else 0
     out = ops.flash_attention(
-        q, k, v,
+        q, kv_for(cfg, q, k), kv_for(cfg, q, v),
         class_id=_attn_class(cfg, kind),
         causal=True,
         window=window,
         softcap=cfg.attn_softcap if kind == "G" else 0.0,
+        q_offset=q_offset,
         provider=provider,
     )
     out = out_cols(out.transpose(1, 2).reshape(b, s, -1))
-    y = ops.matmul(out, p["wo"], provider=provider)
+    y = row_parallel(out, p["wo"], provider=provider)
 
     if cache is None:
         return y, None
-    size = _cache_size(cache)
+    k, v = cache_part(k, cache["k"]), cache_part(v, cache["v"])
+    seq = _kv_seq()
+    whole = cache
+    if seq is not None:         # the whole cache, then this rank's block of it
+        shape = list(cache["k"].shape)
+        shape[2] *= seq[0]
+        whole = {n: torch.zeros(shape, dtype=cache[n].dtype, device=cache[n].device)
+                 for n in ("k", "v")}
+    s = k.shape[2]
+    size = _cache_size(whole)
     if size >= s:
-        cache["k"][:, :, :s] = k.to(cache["k"].dtype)
-        cache["v"][:, :, :s] = v.to(cache["v"].dtype)
+        whole["k"][:, :, :s] = k.to(whole["k"].dtype)
+        whole["v"][:, :, :s] = v.to(whole["v"].dtype)
     else:  # ring prefill: keep the last `size` positions, slot convention p % size
         shift = (s - size) % size
-        cache["k"].copy_(torch.roll(k[:, :, s - size:, :], shift, dims=2))
-        cache["v"].copy_(torch.roll(v[:, :, s - size:, :], shift, dims=2))
+        whole["k"].copy_(torch.roll(k[:, :, s - size:, :], shift, dims=2))
+        whole["v"].copy_(torch.roll(v[:, :, s - size:, :], shift, dims=2))
+    if seq is not None:
+        n = _cache_size(cache)
+        for name in ("k", "v"):
+            cache[name].copy_(whole[name][:, :, seq[1] * n:(seq[1] + 1) * n])
     return y, cache
+
+
+def _kv_seq():
+    """The K/V caches' split of S over the fsdp axes, or None."""
+    tp = tp_context()
+    return None if tp is None else tp.kv_seq
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +238,7 @@ def attn_chunk(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
     dev = x.device
     q, k, v = _qkv(p, cfg, x, provider)
     q, k = _rope_qk(cfg, q, k, positions)
+    k, v = kv_for(cfg, q, k), kv_for(cfg, q, v)
 
     size = _cache_size(cache)
     window = cfg.window if kind == "L" else 0
@@ -216,7 +275,7 @@ def attn_chunk(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
             ck[:, :, wslots] = k.to(ck.dtype)
             cv[:, :, wslots] = v.to(cv.dtype)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    y = ops.matmul(out, p["wo"], provider=provider)
+    y = row_parallel(out, p["wo"], provider=provider)
     return y, cache
 
 
@@ -245,34 +304,74 @@ def _masked_chunk_attention(q, k, v, valid_mask, softcap: float = 0.0):
 def attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
                 pos: torch.Tensor, cache: dict, provider=None) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, D); pos: (B,) per-slot absolute positions (every slot may
-    be at a different decode position)."""
+    be at a different decode position).  Under tensor-parallel compute the
+    cache is this rank's shard (see the module)."""
     b = x.shape[0]
     pos = torch.broadcast_to(pos.to(torch.long), (b,))
     q, k, v = _qkv(p, cfg, x, provider)
     q, k = _rope_qk(cfg, q, k, pos[:, None])
 
-    size = _cache_size(cache)
+    ck, cv = cache["k"], cache["v"]
+    k, v = cache_part(k, ck), cache_part(v, cv)
+    seq = _kv_seq()
+    local = _cache_size(cache)
+    size, first = (local, 0) if seq is None else (local * seq[0], seq[1] * local)
     slot = torch.where(pos < size, pos, pos % size)          # (B,) ring for local
     bi = torch.arange(b, device=x.device)[:, None]
-    hi = torch.arange(cfg.n_kv_heads, device=x.device)[None, :]
-    ck, cv = cache["k"], cache["v"]
-    ck[bi, hi, slot[:, None]] = k[:, :, 0, :].to(ck.dtype)
-    cv[bi, hi, slot[:, None]] = v[:, :, 0, :].to(cv.dtype)
+    hi = torch.arange(ck.shape[1], device=x.device)[None, :]
+    kn, vn = k[:, :, 0, :].to(ck.dtype), v[:, :, 0, :].to(cv.dtype)
+    if seq is not None:     # only the rank that holds a row's slot writes it
+        mine = ((slot >= first) & (slot < first + local))[:, None, None]
+        slot = torch.where(mine[:, 0, 0], slot - first, 0)
+        kn = torch.where(mine, kn, ck[bi, hi, slot[:, None]])
+        vn = torch.where(mine, vn, cv[bi, hi, slot[:, None]])
+    ck[bi, hi, slot[:, None]] = kn
+    cv[bi, hi, slot[:, None]] = vn
 
     window = cfg.window if kind == "L" else 0
-    slots = torch.arange(size, device=x.device)[None, :]     # (1, size)
+    slots = first + torch.arange(local, device=x.device)[None, :]     # (1, local)
     if window and size <= window:
         # ring cache: live slots hold the last `size` (<= window) positions,
         # so only not-yet-written slots need masking
         valid = slots < torch.clamp(pos + 1, max=size)[:, None]
-        out = _masked_decode_attention(q, ck, cv, valid)
+        softcap = 0.0
     else:
         valid = slots <= pos[:, None]
-        out = _masked_decode_attention(q, ck, cv, valid,
-                                       softcap=cfg.attn_softcap if kind == "G" else 0.0)
-    out = out.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    y = ops.matmul(out, p["wo"], provider=provider)
+        softcap = cfg.attn_softcap if kind == "G" else 0.0
+    if ck.shape[-1] < cfg.head_dim:
+        out = _split_decode_attention(q, ck, cv, valid, softcap, cfg)
+    else:
+        out = _masked_decode_attention(q, kv_for(cfg, q, ck), kv_for(cfg, q, cv), valid,
+                                       softcap=softcap)
+    out = out_cols(out.transpose(1, 2).reshape(b, 1, -1))
+    y = row_parallel(out, p["wo"], provider=provider)
     return y, cache
+
+
+def _split_decode_attention(q, ck, cv, valid_mask, softcap: float, cfg: ArchConfig):
+    """Decode attention over a cache whose ``head_dim`` ``model`` splits:
+    ``ck``/``cv`` (B, KV, size, hd/m) hold this rank's slice of every KV
+    head.  Every rank takes every q head (an all-gather of q over
+    ``model`` where each computed its own), contracts its q slice against
+    its K slice, and the scores (B, KV, group, size) are summed over
+    ``model`` in f32; the softmax is then every rank's, each weighs its V
+    slice, and the slices of the output are all-gathered.  Returns the
+    output of the heads this rank computed."""
+    tp = tp_context()
+    r, hd_l = tp.rank, ck.shape[-1]
+    q_all = tp.gather_dim(q, 1) if tp.q_local else q
+    b, hq, _, d = q_all.shape
+    hkv = ck.shape[1]
+    qg = q_all[..., r * hd_l:(r + 1) * hd_l].reshape(b, hkv, hq // hkv, hd_l).float() * d ** -0.5
+    s = tp.sum_over_model(torch.einsum("bhgd,bhkd->bhgk", qg, ck.float()))
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(valid_mask[:, None, None, :], s, -1e30)
+    o = tp.gather_dim(_attend(s, cv.float()), 3).reshape(b, hq, 1, d).to(q.dtype)
+    if tp.q_local:
+        per = q.shape[1]
+        return o[:, r * per:(r + 1) * per]
+    return o
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +396,7 @@ def attn_verify(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
     q, k, v = _qkv(p, cfg, x, provider)
     positions = off[:, None] + torch.arange(s, device=dev)   # (B, C)
     q, k = _rope_qk(cfg, q, k, positions)
+    k, v = kv_for(cfg, q, k), kv_for(cfg, q, v)
 
     size = _cache_size(cache)
     bi = torch.arange(b, device=dev)[:, None, None]
@@ -311,7 +411,7 @@ def attn_verify(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
     out = _masked_verify_attention(q, ck, cv, ok,
                                    softcap=cfg.attn_softcap if kind == "G" else 0.0)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    y = ops.matmul(out, p["wo"], provider=provider)
+    y = row_parallel(out, p["wo"], provider=provider)
     return y, cache
 
 
@@ -342,6 +442,19 @@ def _decode_attention_f32(q, kf, vf, valid_mask, softcap: float):
     if softcap > 0:
         s = torch.tanh(s / softcap) * softcap
     s = torch.where(valid_mask[:, None, None, :], s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bhkd->bhgd", p, vf)
-    return o.reshape(b, hq, 1, d).to(q.dtype)
+    return _attend(s, vf).reshape(b, hq, 1, d).to(q.dtype)
+
+
+def _attend(s: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
+    """softmax(s) · v over the cache's positions, (B, KV, group, d).  Where
+    the caches' S is split over the fsdp axes (:func:`_kv_seq`), the softmax
+    is merged over them: the maxima all-reduced, then the sums of the
+    exponentials and the weighted values in one all-reduce."""
+    seq = _kv_seq()
+    if seq is None:
+        return torch.einsum("bhgk,bhkd->bhgd", torch.softmax(s, dim=-1), vf)
+    tp = tp_context()
+    e = torch.exp(s - tp.seq_reduce(s.amax(dim=-1, keepdim=True), "max"))
+    part = tp.seq_reduce(torch.cat([e.sum(dim=-1, keepdim=True),
+                                    torch.einsum("bhgk,bhkd->bhgd", e, vf)], dim=-1))
+    return part[..., 1:] / part[..., :1]

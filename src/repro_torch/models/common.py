@@ -4,10 +4,23 @@
 Parameters are plain nested dicts of tensors, as in the reference.  Every
 random draw comes from an explicit ``torch.Generator`` and lands on the
 generator's device; the scales are the reference's.
+
+Tensor-parallel compute in bf16 (``distributed.context``): the gathered
+residual stream is, under autograd, an f32 carrier of its bf16 values, and
+so is a weight whose gradient the ranks sum from partial products (a norm's
+scale, say: ``collectives.widens_grad``).  A norm of a carrier, and rwkv6's
+token mix of one, round their output to bf16 values and keep it an f32
+carrier (:func:`cast`), so the column-parallel products that read it hand
+back f32 partial gradients.
+:func:`row_parallel` is every product whose rows the ``model`` axis splits
+(an output projection): its partial sums go into the residual stream.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.context import f32_partials, scatter_residual, tp_context
+from repro_torch.kernels import ops
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -59,11 +72,34 @@ def glu_init(gen: torch.Generator, d: int, f: int, dtype,
 # ---------------------------------------------------------------------------
 
 
+class _Round(torch.autograd.Function):
+    """f32 values rounded to ``dtype``'s, kept in f32; the gradient passes
+    unrounded (the carrier's: see the module)."""
+
+    @staticmethod
+    def forward(ctx, y, dtype):
+        return y.to(dtype).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def cast(y: torch.Tensor, in_dtype: torch.dtype) -> torch.Tensor:
+    """``y`` (f32), computed from an input of ``in_dtype``: cast to it,
+    except under tensor-parallel compute with f32 partial sums, where an f32
+    input is a carrier of the model's bf16 values: then rounded to bf16's
+    values and kept an f32 carrier."""
+    if in_dtype == torch.float32 and f32_partials():
+        return _Round.apply(y, tp_context().dtype)
+    return y.to(in_dtype)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
-    return y.to(x.dtype)
+    return cast(y, x.dtype)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -72,7 +108,26 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
-    return y.to(x.dtype)
+    return cast(y, x.dtype)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, *, bias: torch.Tensor | None = None,
+                 provider=None) -> torch.Tensor:
+    """``x @ w`` (+ ``bias``, class ``matmul_bias``) into the residual
+    stream.  Under tensor-parallel compute ``x`` holds this rank's columns
+    and ``w`` its rows, so the product gives partial sums: with
+    ``f32_partials`` it writes them in f32 and the sum over ``model`` is
+    taken in f32, the bias added once after it, the cast last (the
+    reference's order); otherwise the bias goes in on the row's first rank
+    and the sum is in the product's dtype.  Outside it, the product."""
+    tp = tp_context()
+    if f32_partials():
+        return tp.scatter(ops.matmul(x, w, provider=provider, out_f32=True), bias=bias)
+    if tp is not None and bias is not None:
+        bias = tp.first(bias)
+    y = ops.matmul(x, w, class_id="matmul" if bias is None else "matmul_bias", bias=bias,
+                   provider=provider)
+    return scatter_residual(y)
 
 
 def norm_params(d: int, kind: str, dtype, device) -> dict:

@@ -31,19 +31,25 @@ reference wraps each scanned layer in ``jax.checkpoint``
 stream's D/m columns, every block all-gathers it before each norm and
 reduce-scatters each row-parallel product into it, as the decoder-only
 blocks do; the encoder's output is gathered whole before its norm, so
-every rank projects its own cross K/V heads from it.
+every rank projects its own cross K/V heads from it.  A sharded serving
+step (``launch.steps.make_sharded_serve_step``) gathers the params in
+:func:`prefill` and :func:`decode_step` and keeps this rank's shards of the
+self and cross K/V caches (``cache_leaf_sharding``: heads over ``model``).
+Sequence parallelism does not take this family: its encoder frames would
+split too (``launch.steps`` refuses it).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.context import (gather_residual, local_residual, param_gather,
-                                             scatter_residual)
+from repro_torch.distributed.context import (block_io, cache_layout, gather_residual,
+                                             local_residual, param_gather)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
-from repro_torch.models.common import apply_norm, dense_init, dtype_of, embed_init, norm_params
+from repro_torch.models.common import (apply_norm, dense_init, dtype_of, embed_init, norm_params,
+                                       row_parallel)
 from repro_torch.models.lm import gather_top, gathered, lookup, next_token_nll, once, rematted
 
 MAX_DECODE_POS = 32768  # learned position table size, the reference's
@@ -98,14 +104,15 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
 def enc_block(p: dict, cfg: ArchConfig, h: torch.Tensor, provider=None) -> torch.Tensor:
     """One encoder block: bidirectional self-attention, then the MLP."""
     b, s, _ = h.shape
-    xn = apply_norm(p["ln1"], gather_residual(h), cfg.norm)
-    q, k, v = attn._qkv(p["attn"], cfg, xn, provider)
-    o = ops.flash_attention(q, k, v, class_id="flash_attention_bidir", causal=False,
-                            provider=provider)
-    o = attn.out_cols(o.transpose(1, 2).reshape(b, s, -1))
-    h = h + scatter_residual(ops.matmul(o, p["attn"]["wo"], provider=provider))
-    xn2 = apply_norm(p["ln2"], gather_residual(h), cfg.norm)
-    return h + scatter_residual(mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider))
+    with block_io("mixer_ffn"):
+        xn = apply_norm(p["ln1"], gather_residual(h), cfg.norm)
+        q, k, v = attn._qkv(p["attn"], cfg, xn, provider)
+        o = ops.flash_attention(q, attn.kv_for(cfg, q, k), attn.kv_for(cfg, q, v),
+                                class_id="flash_attention_bidir", causal=False, provider=provider)
+        o = attn.out_cols(o.transpose(1, 2).reshape(b, s, -1))
+        h = h + row_parallel(o, p["attn"]["wo"], provider=provider)
+        xn2 = apply_norm(p["ln2"], gather_residual(h), cfg.norm)
+        return h + mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider)
 
 
 def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, provider=None,
@@ -129,11 +136,14 @@ def _cross_attend(p: dict, cfg: ArchConfig, x: torch.Tensor, ck: torch.Tensor,
                   cv: torch.Tensor, provider=None) -> torch.Tensor:
     """x: (B, S, D) attends to precomputed cross K/V (B, Hkv, Senc, hd)."""
     b, s, _ = x.shape
+    if ck.shape[-1] != cfg.head_dim:
+        raise ValueError("a cross K/V cache split along head_dim is not taken "
+                         "(whisper's KV heads split over model)")
     q = ops.matmul(x, p["wq"], provider=provider).reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
     o = ops.flash_attention(q, attn.kv_for(cfg, q, ck), attn.kv_for(cfg, q, cv),
                             class_id="flash_attention_cross", causal=False, provider=provider)
     o = attn.out_cols(o.transpose(1, 2).reshape(b, s, -1))
-    return ops.matmul(o, p["wo"], provider=provider)
+    return row_parallel(o, p["wo"], provider=provider)
 
 
 def _cross_kv(p: dict, cfg: ArchConfig, enc: torch.Tensor,
@@ -153,21 +163,24 @@ def dec_block(p: dict, cfg: ArchConfig, h: torch.Tensor, *, enc: torch.Tensor | 
     Full sequence (``positions``): cross K/V from ``enc``, the self-attention
     cache (given: a fresh one) written in place.  Decode (``pos``, (B,) per
     slot): one token per slot against ``cache``'s self-KV and cross K/V."""
-    xn = apply_norm(p["ln1"], gather_residual(h), cfg.norm)
-    if pos is not None:
-        a, c_self = attn.attn_decode(p["self_attn"], cfg, xn, "G", pos=pos, cache=cache["self"],
-                                     provider=provider)
-        ck, cv = cache["cross_k"], cache["cross_v"]
-    else:
-        a, c_self = attn.attn_forward(p["self_attn"], cfg, xn, "G", positions=positions,
-                                      cache=None if cache is None else cache["self"],
-                                      provider=provider)
-        ck, cv = _cross_kv(p["cross_attn"], cfg, enc, provider)
-    h = h + scatter_residual(a)
-    xc = apply_norm(p["ln_x"], gather_residual(h), cfg.norm)
-    h = h + scatter_residual(_cross_attend(p["cross_attn"], cfg, xc, ck, cv, provider))
-    xn2 = apply_norm(p["ln2"], gather_residual(h), cfg.norm)
-    h = h + scatter_residual(mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider))
+    with block_io("cross"):
+        xn = apply_norm(p["ln1"], gather_residual(h), cfg.norm)
+        if pos is not None:
+            a, c_self = attn.attn_decode(p["self_attn"], cfg, xn, "G", pos=pos,
+                                         cache=cache["self"], provider=provider)
+            ck, cv = cache["cross_k"], cache["cross_v"]
+        else:
+            a, c_self = attn.attn_forward(p["self_attn"], cfg, xn, "G", positions=positions,
+                                          cache=None if cache is None else cache["self"],
+                                          provider=provider)
+            ck, cv = _cross_kv(p["cross_attn"], cfg, enc, provider)
+            if cache is not None and "cross_k" in cache:     # the part the cache holds
+                ck, cv = attn.cache_part(ck, cache["cross_k"]), attn.cache_part(cv, cache["cross_v"])
+        h = h + a
+        xc = apply_norm(p["ln_x"], gather_residual(h), cfg.norm)
+        h = h + _cross_attend(p["cross_attn"], cfg, xc, ck, cv, provider)
+        xn2 = apply_norm(p["ln2"], gather_residual(h), cfg.norm)
+        h = h + mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider)
     if cache is None:
         return h, None
     return h, {"self": c_self, "cross_k": ck, "cross_v": cv}
@@ -216,27 +229,40 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *, max_len: int,
             true_len: int | None = None, provider=None) -> tuple[torch.Tensor, dict]:
     """Encode the frames and process the prompt; returns (last-position
     logits (B, V), cache).  ``true_len``: the number of real decoder tokens
-    when the prompt is right-padded (see :func:`repro_torch.models.lm.prefill`)."""
-    enc = encode(params, cfg, batch["frames"], provider)
+    when the prompt is right-padded (see :func:`repro_torch.models.lm.prefill`).
+    Sharded: params gathered, caches and logits this rank's shards."""
+    gather = param_gather()
+    if gather is not None:
+        params = gather_top(params, cfg, gather)
+    enc = encode(params, cfg, batch["frames"], provider, gather=gather)
     h = _dec_embed(params, batch["tokens"])
     b, s, _ = h.shape
-    positions = torch.arange(s, device=h.device).expand(b, s)
-    layers = []
-    for p in params["decoder"]:
-        c0 = {"self": attn.init_attn_cache(cfg, "G", b, max_len, h.device)}
-        h, c = dec_block(p, cfg, h, enc=enc, cache=c0, positions=positions, provider=provider)
-        layers.append(c)
     t = s if true_len is None else int(true_len)
     if not 1 <= t <= s:
         raise ValueError(f"true_len {t} outside 1..{s}")
-    h_last = apply_norm(params["final_norm"], h[:, t - 1:t, :], cfg.norm)
+    positions = torch.arange(s, device=h.device).expand(b, s)
+    fresh = init_cache(cfg, b, max_len, h.device)["layers"]
+    layers = []
+    for p, c0 in zip(params["decoder"], fresh):
+        p = p if gather is None else gather(p)
+        h, c = dec_block(p, cfg, h, enc=enc, cache=c0, positions=positions, provider=provider)
+        layers.append(c)
+    h_last = apply_norm(params["final_norm"], gather_residual(h[:, t - 1:t, :]), cfg.norm)
     logits = ops.matmul(h_last, params["lm_head"], class_id="matmul_lmhead", provider=provider)
     return logits[:, 0, :], {"layers": layers,
                              "t": torch.full((b,), t, dtype=torch.int32, device=h.device)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
-    """A zeroed decode cache: self KV per layer and room for the cross K/V."""
+    """A zeroed decode cache: self KV per layer and room for the cross K/V
+    (under a sharded serving step's cache layout, this rank's shards)."""
+    layout = cache_layout()
+    if layout is not None:
+        return layout(lambda b, dev: _init_cache(cfg, b, max_len, dev), batch, device)
+    return _init_cache(cfg, batch, max_len, device)
+
+
+def _init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
     dt = dtype_of(cfg.dtype)
     shape = (batch, cfg.n_kv_heads, cfg.encoder_seq, cfg.head_dim)
     return {
@@ -252,13 +278,18 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, tokens: torch.Tensor
                 provider=None) -> tuple[torch.Tensor, dict]:
     """tokens: (B,) — one new token per slot, each at its own position.
     Returns (logits (B, V), cache); self-KV rows are written in place and
-    ``t`` advances by one."""
+    ``t`` advances by one.  Sharded: see :func:`prefill`."""
+    gather = param_gather()
+    if gather is not None:
+        params = gather_top(params, cfg, gather)
     pos = cache["t"]
-    h = params["embed"][tokens.long()[:, None]] + params["dec_pos"][pos.long()][:, None, :]
+    h = (lookup(params["embed"], tokens[:, None])
+         + local_residual(params["dec_pos"][pos.long()][:, None, :]))
     layers = []
     for p, c in zip(params["decoder"], cache["layers"]):
+        p = p if gather is None else gather(p)
         h, c_out = dec_block(p, cfg, h, cache=c, pos=pos, provider=provider)
         layers.append(c_out)
-    h = apply_norm(params["final_norm"], h, cfg.norm)
+    h = apply_norm(params["final_norm"], gather_residual(h), cfg.norm)
     logits = ops.matmul(h, params["lm_head"], class_id="matmul_lmhead", provider=provider)
     return logits[:, 0, :], {"layers": layers, "t": pos + 1}

@@ -56,6 +56,16 @@ row-parallel products back into it (``context.gather_residual``,
 ``scatter_residual``), and the embedding, head and loss are
 vocab-parallel where the vocabulary splits (:func:`lookup`,
 :func:`next_token_nll`).  Without a gather nothing changes.
+
+Sharded serving (``launch.steps.make_sharded_serve_step``): :func:`prefill`
+and :func:`decode_step` gather their params as :func:`forward` does, and
+:func:`init_cache` allocates this rank's cache shards under the step's
+cache layout (``distributed.context.sharded_cache``).  Under tensor-parallel
+compute the logits are this rank's vocabulary shard where ``model`` splits
+the vocabulary.  Under sequence parallelism (prefill) each rank embeds and
+runs its S/m positions (a vision prefix's among them), the last real
+position's row is taken to every rank, and each computes its vocabulary
+shard of the logits from the whole head.
 """
 from __future__ import annotations
 
@@ -66,9 +76,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint, create_selecti
                                     set_checkpoint_early_stop)
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.context import (gather_residual, gathered_params, local_residual,
-                                             param_gather, remat_policy, scatter_residual,
-                                             tensor_parallel, tp_context)
+from repro_torch.distributed.context import (block_io, cache_layout, gather_residual,
+                                             gathered_params, param_gather, remat_policy,
+                                             scatter_residual, sp_context, tensor_parallel,
+                                             tp_context)
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
@@ -140,7 +151,7 @@ def apply_mixer(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
     else:
         a, c = attn.attn_forward(p["attn"], cfg, xn, kind, positions=positions, cache=cache,
                                  provider=provider)
-    return scatter_residual(a), c
+    return a, c
 
 
 def ffn_input(p: dict, cfg: ArchConfig, x: torch.Tensor, verify: bool = False) -> torch.Tensor:
@@ -156,7 +167,7 @@ def apply_ffn(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
     if "moe" in p:
         y, aux = mlpm.moe_apply(p["moe"], cfg, xn, provider=provider)
         return scatter_residual(y), aux
-    return (scatter_residual(mlpm.mlp_apply(p["mlp"], cfg, xn, provider=provider)),
+    return (mlpm.mlp_apply(p["mlp"], cfg, xn, provider=provider),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -173,10 +184,11 @@ def apply_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
             raise ValueError("speculative verify does not support recurrent layers")
         x, c = rec.rwkv_block(p, cfg, x, cache=cache, provider=provider)
         return x, c, torch.zeros((), dtype=torch.float32, device=x.device)
-    a, c = apply_mixer(p, cfg, kind, x, positions=positions, pos=pos, cache=cache, decode=decode,
-                       off=off, verify=verify, provider=provider)
-    x = x + a
-    y, aux = apply_ffn(p, cfg, x, provider=provider, verify=verify)
+    with block_io("mixer_ffn"):
+        a, c = apply_mixer(p, cfg, kind, x, positions=positions, pos=pos, cache=cache,
+                           decode=decode, off=off, verify=verify, provider=provider)
+        x = x + a
+        y, aux = apply_ffn(p, cfg, x, provider=provider, verify=verify)
     return x + y, c, aux
 
 
@@ -226,6 +238,10 @@ def _lm_head(params: dict, cfg: ArchConfig, h: torch.Tensor, provider=None) -> t
         w, tied = params["embed_t"], dict(transpose_of=params["embed"])
     else:
         w, tied = params["lm_head"], {}
+    sp = sp_context()
+    if sp is not None and sp.vocab_parallel:     # this rank's vocabulary shard, of a whole head
+        n = w.shape[1] // sp.m
+        w, tied = w[:, sp.rank * n:(sp.rank + 1) * n].contiguous(), {}
     if cfg.final_softcap > 0:
         return ops.matmul(h, w, class_id="matmul_lmhead_softcap", softcap=cfg.final_softcap,
                           provider=provider, **tied)
@@ -350,9 +366,10 @@ def _stack_pass(params: dict, cfg: ArchConfig, h: torch.Tensor, *, positions: to
                 return out, a
             h, a = rematted(gathered(layer, gather), remat)(params["layers"][j], h)
         else:
-            h, c_out, a = apply_block(params["layers"][j], cfg, kind, h, positions=positions,
-                                      pos=None, cache=caches[j], decode=False, off=off,
-                                      verify=verify, provider=provider)
+            p = params["layers"][j] if gather is None else gather(params["layers"][j])
+            h, c_out, a = apply_block(p, cfg, kind, h, positions=positions, pos=None,
+                                      cache=caches[j], decode=False, off=off, verify=verify,
+                                      provider=provider)
             new.append(c_out)
         aux = aux + a
     return h, new, aux
@@ -364,11 +381,19 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict, provider=None) -> torch.Tensor:
     """The tokens' embeddings, behind the projected patch embeddings of a
-    vision-prefixed arch."""
-    h = _embed(params, cfg, batch["tokens"])
-    if not cfg.vision_tokens:
+    vision-prefixed arch (under sequence parallelism, this rank's positions
+    of the two)."""
+    tokens, patches = batch["tokens"], batch.get("patch_embeds")
+    sp = sp_context()
+    if sp is not None:
+        a, b, p = sp.offset, sp.offset + sp.local, cfg.vision_tokens
+        tokens = tokens[:, max(a, p) - p:max(b, p) - p]
+        if p:
+            patches = patches[:, min(a, p):min(b, p)]
+    h = _embed(params, cfg, tokens)
+    if not cfg.vision_tokens or patches.shape[1] == 0:
         return h
-    vis = ops.matmul(batch["patch_embeds"].to(h.dtype), params["vis_proj"], provider=provider)
+    vis = ops.matmul(patches.to(h.dtype), params["vis_proj"], provider=provider)
     return torch.cat([vis, h], dim=1)
 
 
@@ -460,7 +485,16 @@ def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, devic
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
-    """``max_len`` counts text positions; the vision prefix is added here."""
+    """``max_len`` counts text positions; the vision prefix is added here.
+    Under a sharded serving step's cache layout, this rank's shards of the
+    cache of its batch shards (``batch`` rows are this rank's)."""
+    layout = cache_layout()
+    if layout is not None:
+        return layout(lambda b, dev: _init_cache(cfg, b, max_len, dev), batch, device)
+    return _init_cache(cfg, batch, max_len, device)
+
+
+def _init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
     max_len = max_len + cfg.vision_tokens
     return {
         "layers": [init_block_cache(cfg, kind, batch, max_len, device)
@@ -477,16 +511,23 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *, max_len: int,
     right-padded to a bucket: logits come from the last real position and the
     decode position starts there (pad rows sit beyond it and are overwritten
     before they become visible).  It counts text tokens: a vision prefix
-    sits before them."""
+    sits before them.  Sharded (see the module): params gathered, caches
+    and logits this rank's shards."""
+    gather = param_gather()
+    if gather is not None:
+        params = gather_top(params, cfg, gather)
+    sp = sp_context()
     h = _embed_inputs(params, cfg, batch, provider)
-    b, s, _ = h.shape
-    caches = init_cache(cfg, b, max_len, h.device)
-    h, layers, _ = _stack_pass(params, cfg, h, positions=_positions(b, s, h.device),
-                               caches=caches["layers"], provider=provider)
+    b, s_here, _ = h.shape
+    s, off = (sp.seq, sp.offset) if sp is not None else (s_here, 0)
     t = s if true_len is None else int(true_len) + cfg.vision_tokens
     if not cfg.vision_tokens + 1 <= t <= s:
         raise ValueError(f"true_len {true_len} outside 1..{s - cfg.vision_tokens}")
-    h_last = apply_norm(params["final_norm"], h[:, t - 1:t, :], cfg.norm)
+    caches = init_cache(cfg, b, max_len, h.device)
+    h, layers, _ = _stack_pass(params, cfg, h, positions=off + _positions(b, s_here, h.device),
+                               caches=caches["layers"], provider=provider, gather=gather)
+    row = h[:, t - 1:t, :] if sp is None else sp.row_at(h, t - 1)
+    h_last = apply_norm(params["final_norm"], gather_residual(row), cfg.norm)
     logits = _lm_head(params, cfg, h_last, provider=provider)
     cache = {"layers": layers,
              "t": torch.full((b,), t, dtype=torch.int32, device=h.device)}
@@ -541,14 +582,18 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, tokens: torch.Tensor
                 provider=None) -> tuple[torch.Tensor, dict]:
     """tokens: (B,) — one new token per slot. Returns (logits (B, V), cache);
     the cache's KV rows are written in place, recurrent layers return fresh
-    state, and ``t`` advances by one."""
+    state, and ``t`` advances by one.  Sharded: see the module."""
+    gather = param_gather()
+    if gather is not None:
+        params = gather_top(params, cfg, gather)
     pos = cache["t"]
     h = _embed(params, cfg, tokens[:, None])
     layers = []
     for j, kind in enumerate(cfg.layer_kinds):
-        h, c_out, _ = apply_block(params["layers"][j], cfg, kind, h, positions=None, pos=pos,
+        p = params["layers"][j] if gather is None else gather(params["layers"][j])
+        h, c_out, _ = apply_block(p, cfg, kind, h, positions=None, pos=pos,
                                   cache=cache["layers"][j], decode=True, provider=provider)
         layers.append(c_out)
-    h = apply_norm(params["final_norm"], h, cfg.norm)
+    h = apply_norm(params["final_norm"], gather_residual(h), cfg.norm)
     logits = _lm_head(params, cfg, h, provider=provider)
     return logits[:, 0, :], {"layers": layers, "t": pos + 1}

@@ -12,23 +12,31 @@ dropless (capacity = tokens) while tokens × top-k <= 4096.
 
 Under tensor-parallel compute (``distributed.context.tensor_parallel``)
 ``w_in`` (and ``b_in``) hold this rank's d_ff columns (a GLU's gate/up
-pairs whole) and ``w_out`` the matching rows, so both blocks return the
-rank's partial sums, which the caller reduce-scatters; ``b_out`` is added
-on the ``model`` row's first rank only.  The MoE block reads the whole
-tokens on every rank of a row, so every rank routes alike.  Expert
-parallelism (the experts split over ``model``): each rank fills and runs
-only its own experts' rows of the dispatch buffer and combines their
+pairs whole) and ``w_out`` the matching rows: the dense block's ``w_out``
+is a row-parallel product (``common.row_parallel``: summed over ``model``
+into the residual stream, ``b_out`` added once), and the MoE block returns
+the rank's partial sums, which the caller reduce-scatters.  The MoE block
+reads the whole tokens on every rank of a row, so every rank routes alike.
+Expert parallelism (the experts split over ``model``): each rank fills and
+runs only its own experts' rows of the dispatch buffer and combines their
 contributions, no all-to-all.  The TP fallback: every expert's d_ff is
-split, as the dense block's is.
+split, as the dense block's is.  With f32 partial sums (bf16 over more
+than one rank) the combine adds a token's contributions in f32 (the
+fallback's expert outputs are f32 partial sums themselves), and the
+caller's sum over ``model`` casts.
+
+Under sequence parallelism (``distributed.context.sequence_parallel``)
+every rank routes its own tokens over every expert, whole.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.context import constrain_named, param_gather, tp_context
+from repro_torch.distributed.context import (constrain_named, f32_partials, param_gather,
+                                             tp_context)
 from repro_torch.kernels import ops
-from repro_torch.models.common import dense_init, dtype_of, glu_init
+from repro_torch.models.common import dense_init, dtype_of, glu_init, row_parallel
 
 
 def mlp_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -44,20 +52,16 @@ def mlp_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 
 def mlp_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None) -> torch.Tensor:
+    """The MLP's output, in the residual stream's layout."""
     if cfg.mlp_kind == "swiglu":
         h = ops.matmul(x, p["w_in"], class_id="matmul_silu_glu", provider=provider)
-        return ops.matmul(h, p["w_out"], provider=provider)
+        return row_parallel(h, p["w_out"], provider=provider)
     if cfg.mlp_kind == "geglu":
         h = ops.matmul(x, p["w_in"], class_id="matmul_gelu_glu", provider=provider)
-        return ops.matmul(h, p["w_out"], provider=provider)
-    bias_in = p.get("b_in")
-    bias_out = p.get("b_out")
-    tp = tp_context()
-    if tp is not None and bias_out is not None:
-        bias_out = tp.first(bias_out)     # the row's partial sums take it once
-    h = ops.matmul(x, p["w_in"], class_id="matmul_bias_gelu", bias=bias_in, provider=provider)
-    cls = "matmul_bias" if bias_out is not None else "matmul"
-    return ops.matmul(h, p["w_out"], class_id=cls, bias=bias_out, provider=provider)
+        return row_parallel(h, p["w_out"], provider=provider)
+    h = ops.matmul(x, p["w_in"], class_id="matmul_bias_gelu", bias=p.get("b_in"),
+                   provider=provider)
+    return row_parallel(h, p["w_out"], bias=p.get("b_out"), provider=provider)
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +140,8 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_topk
     tp = tp_context()
+    dt = p["w_in"].dtype
+    wide = f32_partials()           # the combine's partial sums in f32
     e_here = p["w_in"].shape[0]
     e0 = tp.rank * e_here if tp is not None and tp.expert_parallel else 0
     t = b * s
@@ -148,7 +154,7 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
     me = probs.mean(dim=0)
     ce = torch.bincount(expert_idx.reshape(-1), minlength=e).float() / (t * k)
     gather = param_gather()
-    if gather is not None:
+    if gather is not None and gather.aux:
         me, ce = gather.batch_mean(me), gather.batch_mean(ce)
     aux = e * torch.sum(me * ce)
 
@@ -176,11 +182,13 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
     buf = constrain_named(buf[:-1].reshape(e_here, cap, d), "moe_buf")
 
     h = ops.moe_gemm(buf, p["w_in"], class_id="moe_gemm_silu_glu", provider=provider)
-    y = ops.moe_gemm(h, p["w_out"], class_id="moe_gemm", provider=provider)  # (E, cap, D)
+    # the TP fallback's expert outputs are partial sums over d_ff slices
+    y = ops.moe_gemm(h, p["w_out"], class_id="moe_gemm", provider=provider,
+                     out_f32=wide and not tp.expert_parallel)                 # (E, cap, D)
     y = constrain_named(y, "moe_buf")
 
     y_flat = y.reshape(e_here * cap, d)
-    contrib = torch.where(keep, sg, 0.0)[:, None].to(x.dtype)
+    contrib = torch.where(keep, sg, 0.0)[:, None].to(dt)
     gathered = y_flat[torch.where(keep, rows, 0)] * contrib
     # Combine in a fixed order: the reference's scatter-add adds each token's
     # k contributions in ascending expert order (the pairs are sorted by
@@ -189,7 +197,7 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, provider=None,
     # another repeats it, where index_add_ on the card would add in an order
     # that changes from run to run.
     per_token = gathered[torch.argsort(st, stable=True)].reshape(t, k, d)
-    out = torch.zeros((t, d), dtype=x.dtype, device=dev)
+    out = torch.zeros((t, d), dtype=torch.float32 if wide else dt, device=dev)
     for j in range(k):
         out = out + per_token[:, j]
     out = constrain_named(out, "moe_out")   # combine lands in the token layout

@@ -26,9 +26,21 @@ give this rank's heads or channels, K3 runs on the local heads (``u`` is
 local) and K4 on the local channels (``conv``, ``lambda`` and the gates
 are local), and the replicated ``w0`` and ``ln_x`` are read at the local
 columns.  The row-parallel products (``wo``, ``cv``, griffin's ``w_out``)
-give partial sums: rwkv6 reduce-scatters its own into the residual stream
-(the channel mix's ``vv`` before the receptance gate, whose columns are
-the rank's), griffin's caller does.
+give partial sums, which ``common.row_parallel`` sums into the residual
+stream (the channel mix's ``vv`` before the receptance gate, whose columns
+are the rank's).  A sharded serving step's cache holds the rank's heads
+(rwkv6's ``state``) or channels (griffin's ``h`` and ``conv``) and, for
+``last_tm``/``last_cm``, the rank's D/m columns of the last normalized row
+(``cache_leaf_sharding``'s layout): the next step all-gathers them
+(``TensorParallel.gather_row``) before its token shift.
+
+Under sequence parallelism (``distributed.context.sequence_parallel``,
+prefill only) a rank holds S/m positions and every head and channel: the
+token shift and the conv window read the previous rank's last rows
+(``SequenceParallel.shift``), each scan starts from the state the previous
+rank's ends with (``SequenceParallel.handoff``: the ranks' scans run one
+after another), and the cache keeps this rank's part of the last rank's
+final states (``SequenceParallel.from_last``).
 """
 from __future__ import annotations
 
@@ -36,10 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.context import gather_residual, scatter_residual, tp_context
+from repro_torch.distributed.context import block_io, gather_residual, sp_context, tp_context
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gelu
-from repro_torch.models.common import dense_init, dtype_of, rmsnorm
+from repro_torch.models.common import cast, dense_init, dtype_of, rmsnorm, row_parallel
 
 DECAY_LORA = 64
 
@@ -91,7 +103,60 @@ def init_rwkv_cache(cfg: ArchConfig, batch: int, device) -> dict:
 
 
 def _mix(xn: torch.Tensor, xs: torch.Tensor, mu: torch.Tensor, i: int) -> torch.Tensor:
-    return (xn.float() * mu[i] + xs.float() * (1 - mu[i])).to(xn.dtype)
+    return cast(xn.float() * mu[i] + xs.float() * (1 - mu[i]), xn.dtype)
+
+
+def split_dim(whole: torch.Tensor, part: torch.Tensor) -> int | None:
+    """The dim along which a cache leaf ``part`` holds a block of
+    ``whole`` (None: all of it)."""
+    return next((d for d in range(whole.dim()) if whole.shape[d] != part.shape[d]), None)
+
+
+def _carry_in(cache: dict | None, key: str, b: int, width: int, like: torch.Tensor):
+    """The last normalized row a token shift starts from: zeros without a
+    cache (and under sequence parallelism, whose prefill starts a fresh
+    one); under tensor-parallel compute the cache's D/m columns gathered."""
+    tp = tp_context()
+    if cache is None or sp_context() is not None:
+        return torch.zeros((b, width), dtype=like.dtype, device=like.device)
+    return cache[key] if tp is None else tp.gather_row(cache[key]).to(like.dtype)
+
+
+def _shifted(xn: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """:func:`_token_shift`; under sequence parallelism a rank's first
+    position takes the previous rank's last row."""
+    sp = sp_context()
+    if sp is not None:
+        last = sp.shift(xn[:, -1], last)
+    return _token_shift(xn, last)
+
+
+def _carry_out(xn: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """The cache's ``last_tm``/``last_cm`` after a step: the last
+    normalized row, as the cache leaf ``part`` holds it."""
+    tp, sp = tp_context(), sp_context()
+    row = xn[:, -1, :]
+    if sp is not None:
+        return sp.from_last(row.contiguous(), split_dim(row, part))
+    if tp is not None:
+        row = tp.local(row)
+    return row.contiguous()
+
+
+def _final(state: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """A scan's final state as the cache leaf ``part`` holds it (under
+    sequence parallelism, this rank's block of the last rank's)."""
+    sp = sp_context()
+    if sp is None:
+        return state
+    return sp.from_last(state.contiguous(), split_dim(state, part))
+
+
+def _scan(run, state0: torch.Tensor):
+    """``run(state0)`` -> (out, final state); under sequence parallelism
+    from the previous rank's final state."""
+    sp = sp_context()
+    return run(state0) if sp is None else sp.handoff(run, state0)
 
 
 def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
@@ -99,16 +164,21 @@ def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     """Full RWKV6 block (time-mix + channel-mix); it applies its own norms.
     x: (B, S, D) residual stream (under tensor-parallel compute, this
     rank's D/m of it)."""
+    with block_io("rwkv"):
+        return _rwkv_block(p, cfg, x, cache=cache, provider=provider)
+
+
+def _rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+                cache: dict | None, provider=None) -> tuple[torch.Tensor, dict | None]:
     b, s, d = x.shape[0], x.shape[1], cfg.d_model
     hd = cfg.head_dim
     tp = tp_context()
-    zeros = torch.zeros((d,), dtype=x.dtype, device=x.device)
+    dt = x.dtype
+    zeros = torch.zeros((d,), dtype=dt, device=x.device)
 
     # ---- time mix ----
     xn = rmsnorm(gather_residual(x), zeros)
-    last_tm = cache["last_tm"] if cache is not None else torch.zeros((b, d), dtype=x.dtype,
-                                                                     device=x.device)
-    xs = _token_shift(xn, last_tm)
+    xs = _shifted(xn, _carry_in(cache, "last_tm", b, d, xn))
     mu = p["mu"].float()
     r = ops.matmul(_mix(xn, xs, mu, 0), p["wr"], provider=provider).reshape(b, s, -1, hd)
     k = ops.matmul(_mix(xn, xs, mu, 1), p["wk"], provider=provider).reshape(b, s, -1, hd)
@@ -123,34 +193,34 @@ def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     def tr(a):  # (B, S, H, hd) -> (B, H, S, hd)
         return a.transpose(1, 2)
 
-    state0 = cache["state"] if cache is not None else torch.zeros(
+    state0 = cache["state"] if cache is not None and sp_context() is None else torch.zeros(
         (b, h, hd, hd), dtype=torch.float32, device=x.device)
-    y, state = ops.rwkv6(tr(r), tr(k), tr(v), tr(w.to(x.dtype)), p["u"], state0,
-                         provider=provider)
+    wd = w.to(dt)
+    y, state = _scan(lambda s0: ops.rwkv6(tr(r), tr(k), tr(v), tr(wd), p["u"], s0,
+                                          provider=provider), state0)
     y = y.transpose(1, 2).reshape(b, s, dl)
     # per-head group norm + silu output gate
     yh = y.reshape(b, s, h, hd).float()
     yh = yh * torch.rsqrt(torch.mean(yh * yh, dim=-1, keepdim=True) + 1e-6)
-    y = (yh.reshape(b, s, dl) * ln_x.float()).to(x.dtype)
-    y = y * F.silu(g.float()).to(x.dtype)
-    x = x + scatter_residual(ops.matmul(y, p["wo"], provider=provider))
+    y = (yh.reshape(b, s, dl) * ln_x.float()).to(dt)
+    y = y * F.silu(g.float()).to(dt)
+    x = x + row_parallel(y, p["wo"], provider=provider)
 
     # ---- channel mix ----
     xn2 = rmsnorm(gather_residual(x), zeros)
-    last_cm = cache["last_cm"] if cache is not None else torch.zeros((b, d), dtype=x.dtype,
-                                                                     device=x.device)
-    xs2 = _token_shift(xn2, last_cm)
+    xs2 = _shifted(xn2, _carry_in(cache, "last_cm", b, d, xn2))
     mc = p["mu_c"].float()
     kk = ops.matmul(_mix(xn2, xs2, mc, 0), p["ck"], provider=provider)
-    kk = torch.square(torch.relu(kk.float())).to(x.dtype)
-    vv = scatter_residual(ops.matmul(kk, p["cv"], provider=provider))
+    kk = torch.square(torch.relu(kk.float())).to(dt)
+    vv = row_parallel(kk, p["cv"], provider=provider)
     rr = torch.sigmoid(ops.matmul(_mix(xn2, xs2, mc, 1), p["cr"], provider=provider).float())
-    x = x + (rr * vv.float()).to(x.dtype)
+    x = x + (rr * vv.float()).to(dt)
 
     new_cache = None
     if cache is not None:
-        new_cache = {"state": state, "last_tm": xn[:, -1, :].contiguous(),
-                     "last_cm": xn2[:, -1, :].contiguous()}
+        new_cache = {"state": _final(state, cache["state"]),
+                     "last_tm": _carry_out(xn, cache["last_tm"]),
+                     "last_cm": _carry_out(xn2, cache["last_cm"])}
     return x, new_cache
 
 
@@ -205,8 +275,16 @@ def griffin_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
 
     # temporal conv1d (causal, width cw)
     cw = cfg.conv_width
-    tail = cache["conv"] if cache is not None else torch.zeros(
-        (b, cw - 1, xr.shape[-1]), dtype=xr.dtype, device=x.device)
+    sp = sp_context()
+    if cache is not None and sp is None:
+        tail = cache["conv"]
+    else:
+        tail = torch.zeros((b, cw - 1, xr.shape[-1]), dtype=xr.dtype, device=x.device)
+    if sp is not None:      # the previous rank's last cw - 1 rows of xr
+        if s < cw - 1:
+            raise ValueError(f"sequence parallelism needs S/m >= {cw - 1} positions a rank "
+                             f"(the conv window), got {s}")
+        tail = sp.shift(xr[:, s - (cw - 1):], tail)
     xpad = torch.cat([tail, xr], dim=1)                    # (B, S+cw-1, W)
     conv = sum(
         xpad[:, i:i + s, :].float() * p["conv"][i].float()
@@ -215,15 +293,17 @@ def griffin_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
 
     i_gate = torch.sigmoid(conv.float() * p["gate_i"])
     a = _rglru_decay(conv, p)
-    h0 = cache["h"] if cache is not None else torch.zeros(
+    h0 = cache["h"] if cache is not None and sp is None else torch.zeros(
         (b, xr.shape[-1]), dtype=torch.float32, device=x.device)
-    y, h_final = ops.rglru((i_gate * conv.float()).to(xr.dtype), a.to(xr.dtype), h0,
-                           provider=provider)
+    xi, ai = (i_gate * conv.float()).to(xr.dtype), a.to(xr.dtype)
+    y, h_final = _scan(lambda h: ops.rglru(xi, ai, h, provider=provider), h0)
 
-    out = (y.float() * gate).to(x.dtype)
-    out = ops.matmul(out, p["w_out"], provider=provider)
+    out = (y.float() * gate).to(xr.dtype)
+    out = row_parallel(out, p["w_out"], provider=provider)
 
     new_cache = None
     if cache is not None:
-        new_cache = {"h": h_final, "conv": xpad[:, xpad.shape[1] - (cw - 1):, :].contiguous()}
+        new_cache = {"h": _final(h_final, cache["h"]),
+                     "conv": _final(xpad[:, xpad.shape[1] - (cw - 1):, :].contiguous(),
+                                    cache["conv"])}
     return out, new_cache

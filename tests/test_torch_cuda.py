@@ -1582,3 +1582,64 @@ def test_kernels_at_tensor_parallel_local_shapes(card, name):
     for a, b in zip(grads, grads_ref):
         scale = float(b.float().abs().max())
         _close(a.float(), b.float(), dict(atol=1e-2 * scale, rtol=3e-2))
+
+
+#: K1's f32 output mode (ROADMAP C.13) at row-parallel shapes: minitron-4b's
+#: ``wo`` at model 4 (decode, the rows body; a 512-token prefill, mma), an
+#: f32 launch (fma), a split-K rows launch and K1g's TP fallback (an
+#: expert's ``w_out`` cut along d_ff)
+F32_OUT_CASES = [("matmul", 4, 768, 3072, "bfloat16"), ("matmul", 512, 768, 3072, "bfloat16"),
+                 ("matmul_bias", 70, 200, 33, "bfloat16"), ("matmul", 96, 80, 40, "float32"),
+                 ("matmul", 2, 4096, 256, "bfloat16")]
+
+
+@pytest.mark.parametrize("class_id,m,k,n,dtype", F32_OUT_CASES)
+def test_f32_output_mode_matches_plain(card, class_id, m, k, n, dtype):
+    """Y in f32 against the plain version's f32 sum (``ref.matmul(...,
+    out_f32=True)``) at f32's tolerance; the launch without the mode is the
+    f32 launch's Y rounded, bit for bit (the same sums, their bits kept)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(m + n)
+    x = torch.randn((m, k), generator=g, device="cuda").to(dt)
+    w = (torch.randn((k, n), generator=g, device="cuda") * k ** -0.5).to(dt)
+    bias = torch.randn((n,), generator=g, device="cuda").to(dt) if class_id == "matmul_bias" else None
+    cs = ops.schedule_for(ops.instance(class_id, dt, M=m, N=n, K=k))
+    got = mm.launch(x, w, cs, class_id=class_id, bias=bias, out_f32=True)
+    assert got.dtype == torch.float32
+    _close(got, ref.matmul(x, w, class_id, bias=bias, out_f32=True), TOL)
+    assert torch.equal(got.to(dt), mm.launch(x, w, cs, class_id=class_id, bias=bias))
+
+
+def test_grouped_f32_output_mode_matches_plain(card):
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((2, 64, 1024), generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((2, 1024, 768), generator=g, device="cuda") / 32).to(torch.bfloat16)
+    cs = ops.schedule_for(ops.instance("moe_gemm", torch.bfloat16, M=128, N=768, K=1024, E=2))
+    got = mm.grouped_launch(x, w, cs, out_f32=True)
+    assert got.dtype == torch.float32
+    _close(got, ref.grouped_matmul(x, w, out_f32=True), TOL)
+    assert torch.equal(got.to(torch.bfloat16), mm.grouped_launch(x, w, cs))
+
+
+#: the gradient launch's f32 mode: gemma2-2b's GeGLU ``w_in`` dX at model 4
+#: (dY 2048 x 4608 against wᵀ, wgmma), the same through mma's operand
+#: modes (an unaligned N), and K1g's dX per expert
+F32_GRAD_CASES = [(2048, 4608, 2304, 0), (130, 70, 33, 0), (64, 256, 192, 3)]
+
+
+@pytest.mark.parametrize("m,k,n,e", F32_GRAD_CASES)
+def test_f32_gradient_mode_matches_plain(card, m, k, n, e):
+    """dX = dZ·wᵀ (wᵀ a view) in f32 against the plain version's f32 sum;
+    without the mode, the f32 result rounded, bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(m + k)
+    dz = _operand(g, e, m, k, 0, torch.bfloat16)
+    wt = _operand(g, e, k, n, 1, torch.bfloat16, k ** -0.5)
+    if e:
+        got, plain = mm.grouped_grad_launch(dz, wt, out_f32=True), mm.grouped_grad_launch(dz, wt)
+        want = ref.grouped_matmul(dz, wt, out_f32=True)
+    else:
+        got, plain = mm.grad_launch(dz, wt, out_f32=True), mm.grad_launch(dz, wt)
+        want = ref.matmul(dz, wt, out_f32=True)
+    assert got.dtype == torch.float32
+    _close(got, want, TOL)
+    assert torch.equal(got.to(torch.bfloat16), plain)

@@ -366,3 +366,93 @@ def test_tensor_parallel_refuses_what_it_cannot_split():
     with pytest.raises(ValueError, match="d_ff 130"):
         shd.check_tensor_parallel(cfg, Mesh(("data", "model"), (1, 4)))
     shd.check_tensor_parallel(reduced(get_arch("mixtral-8x22b")), Mesh(("data", "model"), (1, 4)))
+
+
+
+#: the card's bounds for one bf16 path against another (chip_smoke.py's
+#: TRAIN_LOSS_REL, TRAIN_GRAD_COS, TRAIN_GRAD_MAXREL)
+BF16_LOSS_REL, BF16_GRAD_COS, BF16_GRAD_MAXREL = 5e-3, 0.995, 5e-2
+
+
+def _bf16_grads_run(rank, world, arch, model_axis):
+    """One bf16 ``fsdp_tp`` forward and backward of ``arch`` from the port's
+    seed-0 init on :func:`_tp_batch`: the loss, the gradients gathered
+    whole, the collectives (with their bytes per dtype) beside the step's
+    plan; on rank 0 the one-process loss and gradients."""
+    from repro_torch.distributed.collectives import ParamGather
+    from repro_torch.distributed.context import gathered_params
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = _cfg(arch, {"dtype": "bfloat16"})
+    model = build_model(cfg, "cpu")
+    batch = _tp_batch(cfg)
+    mesh = make_test_mesh(model=model_axis)
+    step = steps_mod.make_sharded_train_step(model, AdamWConfig(), mesh, strategy="fsdp_tp")
+    full = model.init(0)
+    params = step.shard_params(full)
+    counter = step.groups.counter
+    counter.reset()
+    gather = ParamGather(step.params, params, step.groups.size(step.batch_axes))
+    with gathered_params(gather):
+        loss, _, grads = steps_mod._grads_of(model, params, batch, 1, True, None,
+                                             shard=step.batch_shard)
+    out = {"loss": float(loss), "issued": counter.snapshot(),
+           "plan": step.plan(tuple(batch["tokens"].shape))}
+    grads = step.params.gather(grads)
+    if rank == 0:
+        one_loss, _, one_grads = steps_mod.value_and_grad(model, full, batch)
+        out.update(grads=grads, one_loss=float(one_loss), one_grads=one_grads)
+    return out
+
+
+def test_bf16_tp_sums_partials_in_f32(tmp_path):
+    """rwkv6-1.6b in bf16 at model 2 (ROADMAP C.13): every sum of partial
+    products over ``model`` is taken in f32.  The reduce-scatters of the
+    row-parallel products (``wo``, ``cv``) carry f32 partial sums and so do
+    the backward's (the duals of the residual stream's gathers, whose
+    partial input gradients come from the column-parallel products, the
+    norms and the token mixes); the only bf16 one is the vocab-parallel
+    embedding's lookup, whose sum has one addend that is not zero.  The
+    all-reduces over model of the gradients of the leaves the row holds
+    copies of are f32.  Bytes are the plan's.  The loss and gradients are held to the one-process
+    bf16 step's by the card's bounds for two bf16 paths (the f32 test
+    cases' 1e-5 bounds and their reordered-batch controls do not apply: in
+    bf16 the reordered one-process step gives the same bits, and any f32
+    reordering of a sum moves its bf16 rounding)."""
+    from repro_torch.distributed.collectives import axes_key
+    from repro_torch.launch.steps import LOSS_METRICS
+
+    cfg = _cfg("rwkv6-1.6b", {"dtype": "bfloat16"})
+    out = run_ranks(_bf16_grads_run, 2, tmp_path, "rwkv6-1.6b", 2, timeout=300)
+    rows, seq = _tp_batch(cfg)["tokens"].shape
+    lookup = rows * seq * cfg.d_model * 2           # the embedding's bf16 partial rows
+    for r in out:
+        rs = r["issued"]["reduce_scatter"]
+        assert rs["dtypes"] == {"bfloat16": lookup, "float32": rs["operand_bytes"] - lookup}
+        assert rs["axes"] == {axes_key(("model",)): rs["count"]}
+        # the gradients of the leaves the row holds copies of (norm scales,
+        # token mixes, the decay adapter) are summed over model in f32
+        ar = r["issued"]["all_reduce"]
+        assert set(ar["dtypes"]) == {"float32"}
+        assert all("model" in axes.split(",") for axes in ar["axes"])
+        for op in ("reduce_scatter", "all_gather", "all_reduce"):
+            got = {k: r["issued"][op][k] for k in ("count", "operand_bytes", "result_bytes")}
+            want = {k: r["plan"][op][k] for k in got}
+            if op == "all_reduce":      # the step's metrics and gradient norm come after
+                step_only = 4 * (1 + LOSS_METRICS) + 4
+                want = {"count": want["count"] - 2, "operand_bytes": want["operand_bytes"] - step_only,
+                        "result_bytes": want["result_bytes"] - step_only}
+            assert got == want, op
+        # row-parallel products: two a layer, in the forward and the recompute
+        assert rs["dtypes"]["float32"] >= 2 * 2 * cfg.n_layers * rows * seq * cfg.d_model * 4
+    lead = out[0]
+    assert abs(lead["loss"] - lead["one_loss"]) <= BF16_LOSS_REL * abs(lead["one_loss"])
+    want = _by_path(lead["one_grads"])
+    for path, a in leaves_with_paths(lead["grads"]):
+        b = want[path].float().flatten()
+        a = a.float().flatten()
+        cos = float(torch.dot(a, b) / torch.clamp(a.norm() * b.norm(), min=1e-30))
+        rel = float((a - b).abs().max() / torch.clamp(b.abs().max(), min=1e-30))
+        assert cos >= BF16_GRAD_COS and rel <= BF16_GRAD_MAXREL, (path, cos, rel)
