@@ -249,9 +249,12 @@ toolkit.  Phases, one result line each:
    collective staged through host memory, so no time is TP speed):
    gemma2-2b (2 layers, ``model`` 4: 2 q heads and 1 KV head a rank, a
    64000-row vocabulary shard), mixtral-8x22b (1 layer, ``model`` 4: 2
-   experts a rank), rwkv6-1.6b (2 layers) and recurrentgemma-2b (3 layers,
-   its first attention layer's one KV head computed whole), ``model`` 2,
-   at full width, bf16 and f32 (but mixtral), one train step
+   experts a rank), whisper-medium (2 + 2 layers, ``model`` 4) and
+   internvl2-26b (2 layers, ``model`` 4, its vocabulary whole; the step's
+   gradient without AdamW's update), rwkv6-1.6b (2 layers) and
+   recurrentgemma-2b (3 layers, its first attention layer's one KV head
+   computed whole), ``model`` 2, at full width, bf16 and f32 (but mixtral
+   and internvl2), one train step
    each, bf16's partial sums reaching every sum over ``model`` in f32
    (ROADMAP C.13): every rank's collectives the
    plan's, every kernel of the family launched, the loss and each gradient
@@ -262,14 +265,18 @@ toolkit.  Phases, one result line each:
    Then the sharded-serving phase (``phase_serve_sharded``): minitron-4b (2
    layers, ``model`` 4), recurrentgemma-2b (3 layers, ``model`` 2: its KV
    head's ``head_dim`` split, decode's scores summed over ``model``),
-   rwkv6-1.6b (2 layers, ``model`` 2) and mixtral-8x22b (1 layer, ``model``
-   4) at full width, ranks spawned on cuda:0 over gloo, each a prefill of
-   2 x 256 tokens and 8 teacher-forced decode steps through
-   ``make_sharded_serve_step``, plain ``fsdp_tp`` and with the prefill's S
-   split over ``model`` (K2 at the rank's ``q_offset`` against gathered K/V,
-   K3's and K4's states handed from rank to rank): the logits held to the
-   world-1 kernel path's by the serve bound, the collectives the plan's,
-   K1's f32 output mode launched.  Then ``chip_smoke.py --profile-steps`` in a fresh
+   rwkv6-1.6b (2 layers, ``model`` 2), mixtral-8x22b (1 layer, ``model``
+   4), whisper-medium (2 + 2 layers, ``model`` 4: its 1500 frames split
+   too) and internvl2-26b (2 layers, ``model`` 4) at full width, ranks
+   spawned on cuda:0 over gloo, each a prefill of 2 x 256 tokens and 8
+   teacher-forced decode steps through ``make_sharded_serve_step``, plain
+   ``fsdp_tp`` and with the prefill's S split over ``model`` (K2 at the
+   rank's ``q_offset`` against gathered K/V, K3's and K4's states handed
+   from rank to rank); and whisper-medium and recurrentgemma-2b with one
+   row on a (2, 1) mesh, 3 decode steps merging each attention's softmax
+   over ``data``: the logits held to the world-1 kernel path's by the
+   serve bound, the collectives the plan's, K1's f32 output mode launched
+   at ``model`` > 1.  Then ``chip_smoke.py --profile-steps`` in a fresh
    process profiles one unsharded and one sharded full-depth step of
    gemma2-2b (busy share, top five ops, the NCCL kernels' share of the busy
    time), one under ``dots``, and one step of each family of
@@ -4691,13 +4698,16 @@ def family_batch(torch, cfg, batch: int, seq: int) -> dict:
     return out
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` at ``layers`` layers (an encoder-decoder's both stacks)."""
+    return dataclasses.replace(cfg, n_layers=layers,
+                               encoder_layers=layers if cfg.encoder_layers else 0)
+
+
 def family_check_cfg(cfg):
     """The family's config cut to the check depth (both stacks of an
     encoder-decoder)."""
-    layers = min(cfg.n_layers, FAMILY_CHECK_LAYERS)
-    if cfg.encoder_layers:
-        return dataclasses.replace(cfg, n_layers=layers, encoder_layers=layers)
-    return dataclasses.replace(cfg, n_layers=layers)
+    return cut_depth(cfg, min(cfg.n_layers, FAMILY_CHECK_LAYERS))
 
 
 def steps_bit_equal(torch, model, batch) -> dict:
@@ -5162,9 +5172,21 @@ def dist_serve_bits(torch, groups) -> list:
 #: output and gradient modes, the f32 carrier), where they were rounded to
 #: bf16 first and its ``u`` fell past twice the tensor-core control.
 #: ``--tp-witness`` runs that case with the sums widened further
+#: whisper-medium runs 2 encoder and 2 decoder layers; internvl2-26b's
+#: 92553-row vocabulary splits over no model axis, so every rank holds its
+#: embedding and head whole (ROADMAP A.9b)
 TP_CASES = (("gemma2-2b", 2, 4, ("bfloat16", "float32")), ("mixtral-8x22b", 1, 4, ("bfloat16",)),
             ("rwkv6-1.6b", 2, 2, ("bfloat16", "float32")),
-            ("recurrentgemma-2b", 3, 2, ("bfloat16", "float32")))
+            ("recurrentgemma-2b", 3, 2, ("bfloat16", "float32")),
+            ("whisper-medium", 2, 4, ("bfloat16", "float32")),
+            ("internvl2-26b", 2, 4, ("bfloat16",)))
+#: TP cases whose ranks take the step's gradient and skip AdamW's update:
+#: internvl2-26b's whole embedding and head (1.14e9 params a rank) with an
+#: f32 master and moments come to ~21 GB a rank, and four ranks do not fit
+#: the card (nor does f32 at all)
+TP_GRADS_ONLY = ("internvl2-26b",)
+#: TP cases run in a group of their own beside the first wave's
+TP_BESIDE = ("whisper-medium", "internvl2-26b")
 #: the TP phase's batch (one batch shard: the mesh is (1, m)) and seed
 TP_BATCH, TP_SEQ, TP_SEED = 2, 256, 7
 #: a rank's limit: a hung collective fails the phase
@@ -5225,6 +5247,16 @@ def tp_kernel_checks(torch) -> list:
     return rows
 
 
+def tp_batch(torch, cfg) -> dict:
+    """The TP phase's batch: :func:`family_batch`'s tokens with
+    :func:`serve_extras`' seeded frames or patch embeddings (one copy a
+    row), so the encoder and the vision projection train on real inputs."""
+    batch = family_batch(torch, cfg, TP_BATCH, TP_SEQ)
+    batch.update({k: v.expand(TP_BATCH, *v.shape).contiguous()
+                  for k, v in serve_extras(torch, cfg).items()})
+    return batch
+
+
 def tp_reference(torch, arch: str, layers: int, dtype: str) -> dict:
     """The world-1 step of a TP case, on the card: the plain path's loss,
     gradients and MoE routing (``ops.use_backend("ref")``: the reference
@@ -5239,10 +5271,10 @@ def tp_reference(torch, arch: str, layers: int, dtype: str) -> dict:
     from repro_torch.models.lm import uses_moe
     from repro_torch.tree import leaves, leaves_with_paths
 
-    cfg = dataclasses.replace(get_arch(arch), n_layers=layers, dtype=dtype)
+    cfg = dataclasses.replace(cut_depth(get_arch(arch), layers), dtype=dtype)
     model = build_model(cfg, "cuda")
     params = model.init(TP_SEED)
-    batch = family_batch(torch, cfg, TP_BATCH, TP_SEQ)
+    batch = tp_batch(torch, cfg)
     with ops.use_backend("ref"), recorded_routing() as routing:
         loss_p, _, grads_p = steps_mod.value_and_grad(model, params, batch)
     out = {"loss": float(loss_p), "grads": dict(leaves_with_paths(grads_p)),
@@ -5325,7 +5357,9 @@ def tp_case(torch, rank, arch, layers, model_axis, dtype, ref_grads, ref_routing
     plain-path gradient (``ref_grads``, shared from the parent on the card):
     the dot products, squared norms and largest entries that the parent sums
     over the ranks' distinct shards; and per MoE layer the tokens it routes
-    to other experts than the world-1 step did (``ref_routing``)."""
+    to other experts than the world-1 step did (``ref_routing``).  An arch of
+    :data:`TP_GRADS_ONLY` takes the step's gradient and skips the update (no
+    optimizer state)."""
     from repro_torch.configs import get_arch
     from repro_torch.distributed.sharding import local_slices, spec_axes
     from repro_torch.kernels import flash_attention as fa
@@ -5339,21 +5373,23 @@ def tp_case(torch, rank, arch, layers, model_axis, dtype, ref_grads, ref_routing
     from repro_torch.optim import adamw
     from repro_torch.tree import leaves, leaves_with_paths
 
-    cfg = dataclasses.replace(get_arch(arch), n_layers=layers, dtype=dtype)
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(cut_depth(get_arch(arch), layers), dtype=dtype)
     model = build_model(cfg, "cuda")
-    batch = family_batch(torch, cfg, TP_BATCH, TP_SEQ)
+    batch = tp_batch(torch, cfg)
     mesh = make_test_mesh(model=model_axis)
     step = steps_mod.make_sharded_train_step(model, adamw.AdamWConfig(), mesh, strategy="fsdp_tp")
     full = model.init(TP_SEED)
     params = step.shard_params(full)
     del full
-    opt = step.init_opt_state(params)
+    update = arch not in TP_GRADS_ONLY
+    opt = step.init_opt_state(params) if update else {}
     seen = {}
     inner = adamw.apply_updates
 
     def recording(p, grads, state, cfg_, gnorm=None):   # the step's gradient shards
         seen["grads"] = [g.clone() for g in leaves(grads)]
-        return inner(p, grads, state, cfg_, gnorm=gnorm)
+        return inner(p, grads, state, cfg_, gnorm=gnorm) if update else (p, state, {})
 
     reset_counts(mm, fa, rw, rg, ref)
     step.groups.counter.reset()
@@ -5385,7 +5421,8 @@ def tp_case(torch, rank, arch, layers, model_axis, dtype, ref_grads, ref_routing
            "model_gathers": {path: list(pl.gather_axes) for (path, _), pl in
                              zip(leaves_with_paths(step.params.like), step.params.compute)
                              if "model" in pl.gather_axes},
-           "local_params": local_params, "stats": stats}
+           "local_params": local_params, "stats": stats, "update": update,
+           "seconds": time.monotonic() - t0}
     if not out["as_planned"]:
         out["plan"] = plan
     del step, seen, model
@@ -5412,16 +5449,19 @@ def _shard_stats(torch, a, b) -> dict:
 
 def tp_waves() -> list:
     """The TP phase's groups of ranks, (name, world, cases), in waves whose
-    groups run at once: gemma2-2b's 4 ranks beside the 2-rank cases, then
-    mixtral-8x22b's 4 ranks alone (each holds ~17 GB at the optimizer's
-    update, beside the parent's world-1 gradients)."""
+    groups run at once: gemma2-2b's 4 ranks beside the 2-rank cases and
+    :data:`TP_BESIDE`'s 4 ranks, then mixtral-8x22b's 4 ranks alone (each
+    holds ~17 GB at the optimizer's update, beside the parent's world-1
+    gradients)."""
     groups = []
     for world in sorted({m for _, _, m, _ in TP_CASES}, reverse=True):
         cases = [(arch, layers, m, dt) for arch, layers, m, dts in TP_CASES if m == world
                  for dt in dts]
         alone = [c for c in cases if c[0] == "mixtral-8x22b"]
-        rest = [c for c in cases if c not in alone]
+        beside = [c for c in cases if c[0] in TP_BESIDE]
+        rest = [c for c in cases if c not in alone + beside]
         groups += [(f"world{world}", world, rest)] if rest else []
+        groups += [(f"world{world}_encdec_vlm", world, beside)] if beside else []
         groups += [(f"world{world}_mixtral", world, alone)] if alone else []
     together = [g for g in groups if not g[0].endswith("_mixtral")]
     return [w for w in (together, [g for g in groups if g not in together]) if w]
@@ -5613,14 +5653,16 @@ def tp_agreement(torch, case, ranks, ref) -> dict:
     # serve phase leaves such tokens out of its logits comparison): there
     # max_rel is not held, the cosine is
     rerouted = ranks[0]["rerouted"]
-    moe_layers = [j for j, kind in enumerate(dataclasses.replace(
-        get_arch(arch), n_layers=layers).layer_kinds) if kind != "R"]
+    moe_layers = [j for j, kind in enumerate(cut_depth(get_arch(arch), layers).layer_kinds)
+                  if kind != "R"]
     exempt = {p for p in leaves for j, n in zip(moe_layers, rerouted)
               if n and p.startswith(f"['layers'][{j}]['moe']")}
     bad = [p for p, v in leaves.items() if v["cos"] < bound["leaves"][p]["cos"]
            or (v["max_rel"] > bound["leaves"][p]["max_rel"] and p not in exempt)]
     row = {"arch": arch, "layers": layers, "model": model_axis, "dtype": dtype,
-           "ranks": len(ranks), "loss": loss, "world1_plain_loss": ref["loss"],
+           "ranks": len(ranks), "update": ranks[0]["update"],
+           "seconds": max(r["seconds"] for r in ranks),
+           "loss": loss, "world1_plain_loss": ref["loss"],
            "loss_rel_err": loss_rel, "loss_bound": bound["loss_rel"],
            "min_cos": min(v["cos"] for v in leaves.values()),
            "max_rel": max(v["max_rel"] for v in leaves.values()),
@@ -5899,10 +5941,22 @@ def profile_steps(torch) -> dict:
 #: the sharded-serving phase (ROADMAP A.9b): (arch, layers, model axis), at
 #: full width with the depth cut (recurrentgemma-2b's third layer is its
 #: first attention layer, whose one KV head splits ``head_dim`` over model;
-#: mixtral-8x22b's 8 experts split 2 a rank); each served with a plain
-#: ``fsdp_tp`` prefill and with its S split over model
+#: mixtral-8x22b's 8 experts split 2 a rank; whisper-medium's 2 encoder and
+#: 2 decoder layers, its 16 heads 4 a rank and its 1500 frames 375 a rank
+#: under ``seq_parallel``; internvl2-26b's 8 KV heads 2 a rank, its 256
+#: patches and 256 tokens 128 a rank, its vocabulary whole); each served
+#: with a plain ``fsdp_tp`` prefill and with its S split over model
 SERVE_SHARDED_CASES = (("minitron-4b", 2, 4), ("recurrentgemma-2b", 3, 2),
-                       ("rwkv6-1.6b", 2, 2), ("mixtral-8x22b", 1, 4))
+                       ("rwkv6-1.6b", 2, 2), ("mixtral-8x22b", 1, 4),
+                       ("whisper-medium", 2, 4), ("internvl2-26b", 2, 4))
+#: one row, which a data axis of 2 does not split (``long_500k``'s case):
+#: (arch, layers, data axis) on a (data, 1) mesh, plain ``fsdp_tp``; each
+#: K/V cache's positions (whisper's frames too) split over data, every
+#: attention's softmax merged over it
+SERVE_SHARDED_ONE_ROW = (("whisper-medium", 2, 2), ("recurrentgemma-2b", 3, 2))
+#: their decode steps: on a data axis every step gathers every weight over
+#: it, through host memory under gloo
+SERVE_SHARDED_ONE_ROW_STEPS = 3
 #: the prompt (2 rows of 256 tokens), the decode steps (teacher-forced),
 #: the cache's text positions and the weights' seed
 SERVE_SHARDED_BATCH, SERVE_SHARDED_SEQ, SERVE_SHARDED_STEPS = 2, 256, 8
@@ -5911,18 +5965,33 @@ SERVE_SHARDED_MAX_LEN, SERVE_SHARDED_SEED = 512, 9
 SERVE_SHARDED_KERNELS = {"minitron-4b": ("matmul", "flash_attention"),
                          "recurrentgemma-2b": ("matmul", "flash_attention", "rglru_scan"),
                          "rwkv6-1.6b": ("matmul", "rwkv6_scan"),
-                         "mixtral-8x22b": ("matmul", "flash_attention", "grouped_matmul")}
+                         "mixtral-8x22b": ("matmul", "flash_attention", "grouped_matmul"),
+                         "whisper-medium": ("matmul", "flash_attention"),
+                         "internvl2-26b": ("matmul", "flash_attention")}
+#: the K2 classes each family's serving steps must launch besides
+SERVE_SHARDED_CLASSES = {"whisper-medium": ("flash_attention_bidir", "flash_attention_cross")}
 
 
-def serve_sharded_inputs(torch, cfg) -> tuple:
+def serve_sharded_inputs(torch, cfg, rows: int = SERVE_SHARDED_BATCH,
+                         steps: int = SERVE_SHARDED_STEPS) -> tuple:
     """The phase's prompt and its decode steps' tokens, seeded, on the card."""
     g = torch.Generator(device="cpu").manual_seed(SERVE_SHARDED_SEED)
-    toks = torch.randint(1, cfg.vocab_size, (SERVE_SHARDED_BATCH, SERVE_SHARDED_SEQ), generator=g)
-    feed = torch.randint(1, cfg.vocab_size, (SERVE_SHARDED_STEPS, SERVE_SHARDED_BATCH), generator=g)
+    toks = torch.randint(1, cfg.vocab_size, (rows, SERVE_SHARDED_SEQ), generator=g)
+    feed = torch.randint(1, cfg.vocab_size, (steps, rows), generator=g)
     return toks.cuda(), feed.cuda()
 
 
-def serve_sharded_reference(torch, arch: str, layers: int) -> dict:
+def serve_sharded_batch(torch, cfg, rows: int) -> tuple:
+    """The prefill batch (the prompt and :func:`serve_extras`' seeded frames
+    or patch embeddings, one copy a row) and the decode steps' tokens (a
+    one-row case's :data:`SERVE_SHARDED_ONE_ROW_STEPS`)."""
+    steps = SERVE_SHARDED_STEPS if rows > 1 else SERVE_SHARDED_ONE_ROW_STEPS
+    toks, feed = serve_sharded_inputs(torch, cfg, rows, steps)
+    extras = {k: v.expand(rows, *v.shape).contiguous() for k, v in serve_extras(torch, cfg).items()}
+    return {"tokens": toks, **extras}, feed
+
+
+def serve_sharded_reference(torch, arch: str, layers: int, rows: int) -> dict:
     """The world-1 serving steps of a case on the card: the kernel path's
     prefill and decode logits, and per step the f64 control's distance from
     the plain path (the serve phases' control)."""
@@ -5930,13 +5999,13 @@ def serve_sharded_reference(torch, arch: str, layers: int) -> dict:
     from repro_torch.kernels.ops import use_backend
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    cfg = cut_depth(get_arch(arch), layers)
     model = build_model(cfg, "cuda")
     params = model.init(SERVE_SHARDED_SEED)
-    toks, feed = serve_sharded_inputs(torch, cfg)
+    batch, feed = serve_sharded_batch(torch, cfg, rows)
 
     def run():
-        logits, cache = model.prefill(params, {"tokens": toks}, max_len=SERVE_SHARDED_MAX_LEN)
+        logits, cache = model.prefill(params, batch, max_len=SERVE_SHARDED_MAX_LEN)
         out = [logits.float().cpu()]
         for t in feed:
             logits, cache = model.decode_step(params, cache, t)
@@ -5971,8 +6040,8 @@ def _serve_sharded_rank(rank, world, d, cases, _grads, _routings):
         dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous", rank=rank,
                                 world_size=world)
         try:
-            out = [serve_sharded_case(torch, rank, *case, sp) for case in cases
-                   for sp in (False, True)]
+            out = [serve_sharded_case(torch, rank, *case[:4], sp) for case in cases
+                   for sp in case[4]]
         finally:
             dist.destroy_process_group()
             torch.cuda.synchronize()
@@ -5982,10 +6051,11 @@ def _serve_sharded_rank(rank, world, d, cases, _grads, _routings):
         raise SystemExit(1)
 
 
-def serve_sharded_case(torch, rank, arch, layers, model_axis, seq_parallel) -> dict:
-    """A case's prefill and teacher-forced decode steps on this rank through
-    ``make_sharded_serve_step`` (the user's entry point): the gathered
-    logits of each, the collectives against the plan, the kernel launches."""
+def serve_sharded_case(torch, rank, arch, layers, model_axis, rows, seq_parallel) -> dict:
+    """A case's prefill of ``rows`` rows and teacher-forced decode steps on
+    this rank through ``make_sharded_serve_step`` (the user's entry point),
+    on a (world / model, model) mesh: the gathered logits of each, the
+    collectives against the plan, the kernel launches."""
     from repro_torch.configs import get_arch
     from repro_torch.distributed.collectives import MeshGroups
     from repro_torch.kernels import flash_attention as fa
@@ -5997,7 +6067,8 @@ def serve_sharded_case(torch, rank, arch, layers, model_axis, seq_parallel) -> d
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    t0 = time.monotonic()
+    cfg = cut_depth(get_arch(arch), layers)
     model = build_model(cfg, "cuda")
     mesh = make_test_mesh(model=model_axis)
     groups = MeshGroups(mesh)
@@ -6006,12 +6077,12 @@ def serve_sharded_case(torch, rank, arch, layers, model_axis, seq_parallel) -> d
     params = step.shard_params(full)
     del full
     torch.cuda.empty_cache()
-    toks, feed = serve_sharded_inputs(torch, cfg)
-    shape = tuple(toks.shape)
+    batch, feed = serve_sharded_batch(torch, cfg, rows)
+    shape = tuple(batch["tokens"].shape)
     counter, plans, issued, logits_out = groups.counter, [], [], []
     reset_counts(mm, fa, rw, rg, ref)
     counter.reset()
-    logits, cache = step.prefill(params, {"tokens": toks}, SERVE_SHARDED_MAX_LEN)
+    logits, cache = step.prefill(params, batch, SERVE_SHARDED_MAX_LEN)
     issued.append(counter.snapshot())
     plans.append(step.plan("prefill", shape, SERVE_SHARDED_MAX_LEN, by_axes=True))
     local = [logits]
@@ -6023,18 +6094,43 @@ def serve_sharded_case(torch, rank, arch, layers, model_axis, seq_parallel) -> d
         local.append(logits)
     torch.cuda.synchronize()
     counts = train_counts(mm, fa, rw, rg, ref)
-    logits_out = [step.full_logits(x, SERVE_SHARDED_BATCH).float().cpu() for x in local]
+    logits_out = [step.full_logits(x, rows).float().cpu() for x in local]
     as_planned = all({op: ({k: v[k] for k in ("count", "operand_bytes", "result_bytes", "axes")}
                            if isinstance(v, dict) else v) for op, v in got.items()} == plan
                      for got, plan in zip(issued, plans))
-    out = {"arch": arch, "model": model_axis, "seq_parallel": seq_parallel, "counts": counts,
+    out = {"arch": arch, "mesh": list(mesh.shape.values()), "rows": rows,
+           "seq_parallel": seq_parallel, "counts": counts,
            "as_planned": as_planned, "logits": logits_out if rank == 0 else None,
-           "collectives": {"prefill": issued[0], "decode": issued[1]}}
+           "collectives": {"prefill": issued[0], "decode": issued[1]},
+           # a decode step's attentions (self, and whisper's cross)
+           "attentions": sum(k != "R" for k in cfg.layer_kinds) * (2 if cfg.encoder_layers else 1),
+           "seconds": time.monotonic() - t0}
     if not as_planned:
         out["plans"] = plans[:2]
     del step, params, cache, model
     torch.cuda.empty_cache()
     return out
+
+
+def serve_sharded_groups() -> list:
+    """The sharded-serving phase's groups of ranks, (name, world, cases), all
+    run at once: the (1, m) cases by world (whisper-medium's and
+    internvl2-26b's 4 ranks a group of their own), each plain and
+    ``seq_parallel``, and the one-row cases on (d, 1).  A case: (arch,
+    layers, model axis, rows, modes)."""
+    modes = (False, True)
+    groups = []
+    for world in sorted({m for _, _, m in SERVE_SHARDED_CASES}):
+        cases = [(a, n, m, SERVE_SHARDED_BATCH, modes) for a, n, m in SERVE_SHARDED_CASES
+                 if m == world]
+        beside = [c for c in cases if c[0] in TP_BESIDE]
+        rest = [c for c in cases if c not in beside]
+        groups += [(f"serve_world{world}", world, rest)] if rest else []
+        groups += [(f"serve_world{world}_encdec_vlm", world, beside)] if beside else []
+    for world in sorted({d for _, _, d in SERVE_SHARDED_ONE_ROW}):
+        groups.append((f"serve_one_row{world}", world,
+                       [(a, n, 1, 1, (False,)) for a, n, d in SERVE_SHARDED_ONE_ROW if d == world]))
+    return groups
 
 
 def phase_serve_sharded(torch) -> dict:
@@ -6043,31 +6139,35 @@ def phase_serve_sharded(torch) -> dict:
     ranks spawned on cuda:0 over gloo (as :func:`phase_tp`: a collective of
     CUDA tensors goes through host memory, so no time here is sharded
     serving's and none is printed), with a plain ``fsdp_tp`` prefill and
-    with its S split over model, then ``SERVE_SHARDED_STEPS``
-    teacher-forced decode steps.  Each prefill's and decode step's logits
+    with its S split over model, and each of :data:`SERVE_SHARDED_ONE_ROW`
+    with one row on a (d, 1) mesh, then ``SERVE_SHARDED_STEPS``
+    teacher-forced decode steps (a one-row case's
+    :data:`SERVE_SHARDED_ONE_ROW_STEPS`).  Each prefill's and decode step's logits
     (gathered) are held to the same model's world-1 kernel path on the card
     within the serve phases' bound (the larger of ``LOGITS_REL_BOUND`` of
     max |logit| and ``CONTROL_FACTOR`` times the f64 control); every
-    collective is the plan's; the family's kernels are launched, K1 in its
-    f32 output mode (bf16 at m > 1), and no plain version reaches a CUDA
-    tensor."""
+    collective is the plan's; the family's kernels (and K2 classes) are
+    launched, K1 in its f32 output mode at m > 1 (bf16), a one-row decode
+    step merges each attention's softmax over data (two all-reduces an
+    attention, whisper's cross attention too), and no plain version
+    reaches a CUDA tensor.  Each case's seconds (its slowest rank's) are
+    returned for ``phase_seconds``."""
     import math
 
     free_engines(torch)
     t_phase = time.monotonic()
-    refs = {f"{arch}/{m}": serve_sharded_reference(torch, arch, layers)
-            for arch, layers, m in SERVE_SHARDED_CASES}
+    wave = serve_sharded_groups()
+    refs = {f"{c[0]}/{c[3]}": serve_sharded_reference(torch, c[0], c[1], c[3])
+            for _, _, cases in wave for c in cases}
     free_engines(torch)
-    wave = [(f"serve_world{world}", world, [c for c in SERVE_SHARDED_CASES if c[2] == world])
-            for world in sorted({c[2] for c in SERVE_SHARDED_CASES})]
     dummy = {name: [{"grads": None, "routing": None} for _ in cases] for name, _, cases in wave}
     outs = spawn_tp_ranks(torch, wave, dummy, target=_serve_sharded_rank)
     rows, runs, failed = [], [], []
     for name, world, cases in wave:
         for i, run in enumerate(zip(*outs[name])):
             lead = run[0]
-            arch, m, sp = lead["arch"], lead["model"], lead["seq_parallel"]
-            ref = refs[f"{arch}/{m}"]
+            arch, mesh, sp = lead["arch"], lead["mesh"], lead["seq_parallel"]
+            ref = refs[f"{arch}/{lead['rows']}"]
             diffs, bounds = [], []
             for got, want, control in zip(lead["logits"], ref["kernel"], ref["control"]):
                 diffs.append(max_err(torch, got, want))
@@ -6075,25 +6175,39 @@ def phase_serve_sharded(torch) -> dict:
                                   CONTROL_FACTOR * control))
             launches = {k: sum(r["counts"]["launches"][k] for r in run)
                         for k in lead["counts"]["launches"]}
+            classes = sum((collections.Counter(r["counts"]["attention_class_launches"])
+                           for r in run), collections.Counter())
             f32 = sum(r["counts"]["matmul_f32_launches"] for r in run)
             plain = sum((collections.Counter(r["counts"]["plain_cuda_calls"]) for r in run),
                         collections.Counter())
-            row = {"arch": arch, "model": m, "seq_parallel": sp, "logits_max_abs_diff": diffs,
-                   "logits_bound": bounds, "finite": all(math.isfinite(x) for x in diffs),
+            merges = lead["collectives"]["decode"].get("all_reduce", {}).get("axes", {}).get(
+                "data", 0)
+            want_merges = 0 if mesh[0] == 1 else 2 * lead["attentions"]
+            row = {"arch": arch, "mesh": mesh, "rows": lead["rows"], "seq_parallel": sp,
+                   "logits_max_abs_diff": diffs, "logits_bound": bounds,
+                   "finite": all(math.isfinite(x) for x in diffs),
                    "as_planned": all(r["as_planned"] for r in run), "launches": launches,
-                   "f32_launches": f32, "plain_cuda_calls": dict(plain),
-                   "collectives": lead["collectives"]}
+                   "attention_classes": dict(classes), "f32_launches": f32,
+                   "plain_cuda_calls": dict(plain), "decode_merges_over_data": merges,
+                   "collectives": lead["collectives"],
+                   "seconds": max(r["seconds"] for r in run)}
             rows.append(row)
             runs.append({"launches": launches,
                          "body_launches": dict(sum((collections.Counter(r["counts"]["body_launches"])
                                                     for r in run), collections.Counter())),
+                         "attention_class_launches": dict(classes),
                          "matmul_f32_launches": f32})
             bad = [j for j, (a, b) in enumerate(zip(diffs, bounds)) if not a <= b]
             missing = [k for k in SERVE_SHARDED_KERNELS[arch] if not launches.get(k)]
-            if bad or not row["as_planned"] or missing or plain or not f32:
-                failed.append(f"{arch} m={m} seq_parallel={sp}: logits past bound at steps "
-                              f"{bad}, as planned {row['as_planned']}, kernels not launched "
-                              f"{missing}, plain calls {dict(plain)}, f32 launches {f32}"
+            missing += [c for c in SERVE_SHARDED_CLASSES.get(arch, ())
+                        if not any(key.split("/")[0] == c and n for key, n in classes.items())]
+            no_f32 = mesh[1] > 1 and not f32
+            if (bad or not row["as_planned"] or missing or plain or no_f32
+                    or merges != want_merges):
+                failed.append(f"{arch} mesh={mesh} seq_parallel={sp}: logits past bound at "
+                              f"steps {bad}, as planned {row['as_planned']}, kernels not "
+                              f"launched {missing}, plain calls {dict(plain)}, f32 launches "
+                              f"{f32}, decode merges over data {merges} (want {want_merges})"
                               + ("" if lead.get("plans") is None else f", plans {lead['plans']}"))
     del refs
     free_engines(torch)
@@ -6248,6 +6362,14 @@ def main(argv: list[str]) -> int:
     dist_r = phase("dist", phase_dist, torch, train["main"]["ms_per_step"])
     tp_r = phase("tp", phase_tp, torch)
     ss_r = phase("serve_sharded", phase_serve_sharded, torch)
+    # each TP and sharded-serving case's seconds (inside those phases; the
+    # groups of ranks run at once)
+    for r in tp_r["cases"]:
+        phase_s[f"tp_case/{r['arch']}/{r['dtype']}"] = r["seconds"]
+    for r in ss_r["cases"]:
+        mode = "sp" if r["seq_parallel"] else "plain"
+        phase_s[f"serve_sharded_case/{r['arch']}/{r['mesh'][0]}x{r['mesh'][1]}/{mode}"] = \
+            r["seconds"]
     profiles = phase("step_profiles", phase_step_profiles, torch)
     examples = phase("examples", phase_examples, torch)
     train["main"]["profile"], dist_r["main"]["profile"] = profiles["train"], profiles["dist"]

@@ -457,8 +457,10 @@ class _ScatterCast(torch.autograd.Function):
     """f32 partial sums (the whole of D) per rank -> their sum in the
     residual stream's layout (a reduce-scatter in f32, or an all-reduce
     where D is whole on every rank), plus the bias once, cast to the
-    model's dtype; backward, the gradient's all-gather (all-reduce) in that
-    dtype, handed back as f32, and this rank's columns of the bias's."""
+    model's dtype; backward, the gradient's all-gather in that dtype (where
+    D is whole, the gradient itself: the row's, see
+    :class:`_GatherWhole`), handed back as f32, and this rank's columns of
+    the bias's (where D is whole, the first rank's)."""
 
     @staticmethod
     def forward(ctx, y, bias, tp):
@@ -472,14 +474,14 @@ class _ScatterCast(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         tp = ctx.tp
-        gy = (tp._all_gather_last(g) if tp.d_sharded else tp._all_reduce(g)).float()
+        gy = (tp._all_gather_last(g) if tp.d_sharded else g).float()
         db = None
         if ctx.has_bias and ctx.needs_input_grad[1]:
             part = g.float().reshape(-1, g.shape[-1]).sum(0)
             db = torch.zeros(ctx.n, dtype=torch.float32, device=g.device)
             if tp.d_sharded:
                 _cols(db, tp.m, tp.rank).copy_(part)
-            else:
+            elif tp.rank == 0:          # a whole stream's gradient is the row's: once
                 db = part
             db = db.to(ctx.bias_dtype)
         return gy, db, None
@@ -497,6 +499,39 @@ class _SumOverModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.tp._all_reduce(g), None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """A read of a residual stream whole on every rank (``model`` does not
+    split D): forward, the stream itself (``wide``: an f32 carrier of its
+    values); backward, the sum over the row of the ranks' partial input
+    gradients (an all-reduce, in f32 for a carrier), rounded to x's dtype
+    after it.  The stream's gradient is then the row's whole one on every
+    rank (see :class:`_ReduceWhole`)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, wide=False):
+        ctx.tp, ctx.dtype = tp, x.dtype
+        return x.float() if wide else x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._all_reduce(g).to(ctx.dtype), None, None
+
+
+class _ReduceWhole(torch.autograd.Function):
+    """A write of partial sums into a residual stream whole on every rank:
+    forward, their sum over the row (an all-reduce); backward, the stream's
+    gradient, which is already the row's whole one (:class:`_GatherWhole`
+    sums each read's partial ones)."""
+
+    @staticmethod
+    def forward(ctx, y, tp):
+        return tp._all_reduce(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _Once(torch.autograd.Function):
@@ -524,7 +559,12 @@ class TensorParallel:
     block all-gathers it along D before its norm (:meth:`gather`), runs its
     column-parallel products on local heads, d_ff slices, channels or
     experts, and reduce-scatters each row-parallel product's partial sums
-    into it (:meth:`scatter`; an all-reduce where D is whole).  Embedding,
+    into it (:meth:`scatter`; an all-reduce where D is whole).  Where D is
+    whole a read moves nothing forward, and its backward sums the ranks'
+    partial input gradients (an all-reduce, f32 under ``f32_partials``), so
+    the stream's gradient is the row's on every rank: a write's backward is
+    then the identity, and a value every rank computes alike enters the
+    stream once (:meth:`local`).  Embedding,
     head and loss are vocab-parallel where m > 1 divides the vocabulary
     (``vocab_parallel``), else whole on every rank.  ``q_local``,
     ``kv_local`` (:func:`~repro_torch.distributed.sharding.attn_heads_local`)
@@ -563,11 +603,15 @@ class TensorParallel:
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The residual stream (this rank's D/m) -> the whole of D.  Under
         autograd with ``f32_partials`` the result is an f32 carrier of its
-        values, whose gradient is reduce-scattered in f32."""
+        values, whose gradient is reduce-scattered in f32 (where D is
+        whole, all-reduced in f32: :class:`_GatherWhole`)."""
         self.events["gather"] += 1
-        if not (self.moves and self.d_sharded):
+        if not self.moves:
             return x
-        wide = self.f32_partials and torch.is_grad_enabled() and x.requires_grad
+        grad = torch.is_grad_enabled() and x.requires_grad
+        wide = self.f32_partials and grad
+        if not self.d_sharded:          # whole on every rank: the sum is the backward's
+            return _GatherWhole.apply(x, self, wide) if grad else x
         return _GatherLast.apply(x, self, wide)
 
     def scatter(self, y: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -586,13 +630,17 @@ class TensorParallel:
             raise ValueError("a bias goes through the sum only with f32 partial sums")
         if self.d_sharded:
             return _ScatterLast.apply(y, self)
-        return _SumOverModel.apply(y, self)
+        return _ReduceWhole.apply(y, self)
 
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         """A value every rank of the row holds (the whole of D) -> its part
-        in the residual stream's layout (no collective)."""
-        return _cols(x, self.m, self.rank) if self.d_sharded else x
+        in the residual stream's layout (no collective).  Where D is whole,
+        the value itself, its gradient (the row's) taken on the first rank
+        only, so a leaf the row holds copies of sums it once."""
+        if self.d_sharded:
+            return _cols(x, self.m, self.rank)
+        return _Once.apply(x, self.rank == 0, False) if self.moves else x
 
     def cols(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the last dim of a value the row holds
@@ -781,13 +829,17 @@ class SequenceParallel:
     """Context parallelism for prefill over the ``model`` axis of
     ``groups.mesh`` (the reference's ``activation_sharding(...,
     seq_parallel=True)``): the residual stream is ``(fsdp, model, None)``,
-    this rank's ``local`` = S/m positions from ``offset`` with D whole, and
-    every weight is gathered whole, so each rank runs whole-width products
-    on its tokens.  What crosses ranks:
+    this rank's ``local`` positions from ``offset`` with D whole, and every
+    weight is gathered whole, so each rank runs whole-width products on its
+    tokens.  S is laid out as GSPMD lays out a dim: blocks of ``block`` =
+    ceil(S/m) positions in rank order, the last rank's shorter where m does
+    not divide S; a layout that leaves a rank no position is refused.  What
+    crosses ranks:
 
     * attention: each layer all-gathers K and V along S (:meth:`gather_seq`,
-      two all-gathers), and the rank's queries attend at ``q_offset =
-      offset`` under the causal, window and softcap masks;
+      two all-gathers of blocks padded to ``block``), and the rank's queries
+      attend at ``q_offset = offset`` under the causal, window and softcap
+      masks;
     * a token shift or a conv window reads the previous rank's last rows
       (:meth:`shift`, a ``collective_permute``);
     * a scan starts from the state the previous rank ends with
@@ -803,8 +855,9 @@ class SequenceParallel:
       rank taking its vocabulary shard of the head where ``model`` splits
       the vocabulary (``logits_sharding``).
 
-    The collectives are counted by ``groups.counter``.  No gradient:
-    prefill."""
+    An encoder's frames are a sequence of their own (:meth:`over`: the same
+    ranks, another length).  The collectives are counted by
+    ``groups.counter``.  No gradient: prefill."""
 
     def __init__(self, groups: MeshGroups, cfg, seq: int):
         self.groups, self.cfg = groups, cfg
@@ -812,23 +865,48 @@ class SequenceParallel:
         self.m = groups.mesh.shape[MODEL_AXIS]
         self.rank = groups.coords[MODEL_AXIS]
         self.moves = self.m > 1
-        if seq % self.m:
-            raise ValueError(f"sequence parallelism splits S over model={self.m}: "
-                             f"S = {seq} does not split")
-        self.seq, self.local = seq, seq // self.m
-        self.offset = self.rank * self.local
+        self.seq, self.block = seq, -(-seq // self.m)
+        last = seq - (self.m - 1) * self.block          # the last rank's, the fewest positions
+        if last <= 0:
+            raise ValueError(f"sequence parallelism lays S = {seq} out over model={self.m} in "
+                             f"blocks of {self.block}: the last rank would hold no position")
+        griffin = cfg.family != "ssm" and "R" in cfg.layer_kinds
+        if griffin and self.moves and last < cfg.conv_width - 1:
+            raise ValueError(f"sequence parallelism needs {cfg.conv_width - 1} positions a rank "
+                             f"(the conv window); S = {seq} over model={self.m} leaves the last "
+                             f"rank {last}")
+        self.offset = self.rank * self.block
+        self.local = min(seq, self.offset + self.block) - self.offset
         self.last = self.rank == self.m - 1
         self.vocab_parallel = self.moves and cfg.vocab_size % self.m == 0
 
+    def head(self, w: torch.Tensor) -> torch.Tensor:
+        """A whole LM head (D, V) -> this rank's vocabulary shard of it
+        where ``model`` splits V (``logits_sharding``), else ``w``."""
+        if not self.vocab_parallel:
+            return w
+        n = w.shape[1] // self.m
+        return w[:, self.rank * n:(self.rank + 1) * n].contiguous()
+
+    def over(self, seq: int) -> "SequenceParallel":
+        """The same ranks over a sequence of ``seq`` positions (an encoder's
+        frames)."""
+        return SequenceParallel(self.groups, self.cfg, seq)
+
     def gather_seq(self, x: torch.Tensor, dim: int = 2) -> torch.Tensor:
         """The whole sequence of a per-rank ``x`` along ``dim`` (an
-        all-gather over model)."""
+        all-gather over model of the blocks padded to ``block``, trimmed
+        to S after it)."""
         if not self.moves:
             return x
-        y = x.movedim(dim, 0).contiguous()
+        y = x.movedim(dim, 0)
+        if y.shape[0] < self.block:
+            y = torch.cat([y, y.new_zeros((self.block - y.shape[0],) + tuple(y.shape[1:]))])
+        y = y.contiguous()
         out = torch.empty((self.m,) + tuple(y.shape), dtype=y.dtype, device=y.device)
         self.groups.all_gather(out.view(-1), y.view(-1), self.axes)
-        return out.reshape((self.m * y.shape[0],) + tuple(y.shape[1:])).movedim(0, dim)
+        out = out.reshape((self.m * self.block,) + tuple(y.shape[1:]))[:self.seq]
+        return out.movedim(0, dim)
 
     def shift(self, rows: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
         """The previous rank's ``rows`` (its last positions, (B, n, ...)):

@@ -154,14 +154,19 @@ def schedule_key(cs: ConcreteSchedule) -> tuple[int]:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cs: ConcreteSchedule, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, q_offset: int = 0,
-                    scale: float | None = None) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D). Returns (B, Hq, Sq, D)."""
+                    softcap: float = 0.0, q_offset: int = 0, scale: float | None = None,
+                    with_lse: bool = False):
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D). Returns (B, Hq, Sq, D)
+    (``with_lse``: and each row's log-sum-exp, (B, Hq, Sq) f32)."""
     if q.device.type == "cpu":
-        return ref.chunked_attention(q, k, v, causal=causal, window=window, softcap=softcap,
-                                     q_offset=q_offset, chunk=cs.t["KV"], scale=scale)
+        out = ref.chunked_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                                    q_offset=q_offset, chunk=cs.t["KV"], scale=scale)
+        if not with_lse:
+            return out
+        return out, ref.attention_lse(q, k, causal=causal, window=window, softcap=softcap,
+                                      q_offset=q_offset, scale=scale)
     return launch(q, k, v, cs, causal=causal, window=window, softcap=softcap,
-                  q_offset=q_offset, scale=scale)
+                  q_offset=q_offset, scale=scale, with_lse=with_lse)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cs: ConcreteSchedule, *,

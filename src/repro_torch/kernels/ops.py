@@ -296,12 +296,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     class_id: str = "flash_attention_causal",
                     causal: bool = True, window: int = 0, softcap: float = 0.0,
                     q_offset: int = 0, provider: ScheduleProvider | None = None,
-                    backend: str | None = None, chunk: int = 1024) -> torch.Tensor:
-    """q: (B,Hq,Sq,D); k/v: (B,Hkv,Skv,D) — GQA-aware flash attention."""
+                    backend: str | None = None, chunk: int = 1024,
+                    with_lse: bool = False):
+    """q: (B,Hq,Sq,D); k/v: (B,Hkv,Skv,D) — GQA-aware flash attention.
+    ``with_lse`` (no gradient): (output, each row's log-sum-exp (B,Hq,Sq)
+    f32), for a softmax merged over blocks of the keys."""
     backend = backend or current_backend()
     if backend == "ref":
-        return ref.chunked_attention(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, q_offset=q_offset, chunk=chunk)
+        out = ref.chunked_attention(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, q_offset=q_offset, chunk=chunk)
+        if not with_lse:
+            return out
+        return out, ref.attention_lse(q, k, causal=causal, window=window, softcap=softcap,
+                                      q_offset=q_offset)
     b, hq, sq, d = q.shape
     cs = _resolve(provider).get(instance(class_id, q.dtype, Q=sq, KV=k.shape[2], H=hq, D=d,
                                          B=b, window=window))
@@ -312,7 +319,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                           causal, window, softcap)
     return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), cs,
                                causal=causal, window=window, softcap=softcap,
-                               q_offset=q_offset)
+                               q_offset=q_offset, with_lse=with_lse)
 
 
 # ---------------------------------------------------------------------------

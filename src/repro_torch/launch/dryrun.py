@@ -34,9 +34,9 @@ these fields of the reference's JSON:
   ``cache_leaf_sharding`` and its collectives (rwkv6's ``last_*`` rows;
   where ``model`` splits ``head_dim``, a decode step's scores summed over
   ``model``).  ``--seq-parallel`` plans prefill cells with S split over
-  ``model`` (every leaf gathered whole, K/V all-gathers, shifts and scan
-  hand-offs; the cell file ends in ``__sp``; whisper-medium is refused
-  there, a skipped cell);
+  ``model`` in blocks of ceil(S/m) (every leaf gathered whole, K/V
+  all-gathers, shifts and scan hand-offs; whisper-medium's encoder frames
+  split alike, its output gathered once; the cell file ends in ``__sp``);
 * ``roofline``, analytical on ``hw.H100``'s peaks (not a measurement):
   ``compute_analytic_s`` as the reference's (8·N·tokens for a train step
   under full remat, 6·N·tokens under ``--remat-policy dots``, which
@@ -93,9 +93,6 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, *, remat: bool = 
     if not ok:
         return {"status": "skipped", "reason": why}
     seq_parallel = seq_parallel and shape.kind == "prefill"
-    if seq_parallel and cfg.family == "audio":
-        return {"status": "skipped", "reason": "sequence parallelism does not take the audio "
-                                               "family (its encoder frames are S too)"}
 
     mesh = make_production_mesh(multi_pod=multi_pod)
     chips = mesh.size

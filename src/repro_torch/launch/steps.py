@@ -410,7 +410,8 @@ class _ResidualPlan:
     does not split D).  A write's partial sums are f32 (bf16 compute sums
     them in f32); ``train`` adds each one's dual (an all-gather of the
     gradient, a reduce-scatter of the f32 partial gradients of an f32
-    carrier in bf16)."""
+    carrier in bf16; where D is whole, a read's dual alone, an all-reduce
+    of f32 partial gradients)."""
 
     def __init__(self, add, cfg: ArchConfig, mesh, *, train: bool, grad_accum: int = 1):
         self.add, self.cfg, self.train, self.grad_accum = add, cfg, train, grad_accum
@@ -419,11 +420,17 @@ class _ResidualPlan:
         self.d_sharded = cfg.d_model % self.m == 0
 
     def gather(self, tokens: int, count: int, passes: int = 1) -> None:
-        """``count`` reads of the residual stream over ``tokens`` tokens."""
-        if self.m == 1 or not self.d_sharded:
+        """``count`` reads of the residual stream over ``tokens`` tokens
+        (where ``model`` does not split D, a read moves nothing forward and
+        its dual sums the partial input gradients: an all-reduce in f32)."""
+        if self.m == 1:
             return
         full = tokens * self.cfg.d_model
         n = count * self.grad_accum
+        if not self.d_sharded:
+            if self.train:
+                self.add("all_reduce", n, full * 4, full * 4, self.model)
+            return
         self.add("all_gather", n * passes, full // self.m * self.act, full * self.act,
                  self.model)
         if self.train:
@@ -440,10 +447,8 @@ class _ResidualPlan:
             self.add("reduce_scatter", n * passes, full * elem, full // self.m * elem, self.model)
             if self.train:
                 self.add("all_gather", n, full // self.m * self.act, full * self.act, self.model)
-        else:
+        else:           # its dual: none, the stream's gradient is the row's (see gather)
             self.add("all_reduce", n * passes, full * elem, full * elem, self.model)
-            if self.train:
-                self.add("all_reduce", n, full * self.act, full * self.act, self.model)
 
     def blocks(self, tokens: dict, passes: int = 1) -> None:
         """Every layer's reads and writes (:data:`~repro_torch.distributed.
@@ -543,25 +548,23 @@ class ShardedServeStep:
     one row) is held whole by every rank, and ``cache_leaf_sharding`` then
     splits each K/V cache's positions over those axes: prefill keeps the
     rank's block, decode merges each attention's softmax over them
-    (``TensorParallel.kv_seq``); refused where a K/V cache's length does
-    not split, and for whisper-medium (its cross K/V cache would split its
-    frames) and under ``seq_parallel``.
+    (``TensorParallel.kv_seq``); whisper-medium's cross K/V cache keeps the
+    rank's block of the frames where they split, and its cross attention
+    merges the softmax at prefill and decode.  Refused where a self K/V
+    cache's length does not split, and under ``seq_parallel``.
 
     ``seq_parallel``: the prefill is the reference's context-parallel one
     (``activation_sharding(..., seq_parallel=True)``: the residual stream
     ``(fsdp, model, None)``): every leaf gathered whole, S split over
-    ``model`` (:class:`~repro_torch.distributed.collectives.SequenceParallel`),
-    and the cache and logits laid out as above, so :meth:`decode` continues
-    from it under ``fsdp_tp`` alike.  An S that ``model`` does not split is
-    refused, and so is whisper-medium (its encoder frames are S too).  The
+    ``model`` in GSPMD's blocks of ceil(S/m)
+    (:class:`~repro_torch.distributed.collectives.SequenceParallel`; whisper's
+    encoder frames split alike), and the cache and logits laid out as
+    above, so :meth:`decode` continues from it under ``fsdp_tp`` alike.  The
     collectives are counted in ``groups.counter`` (:meth:`plan`)."""
 
     def __init__(self, model: Model, mesh, groups: MeshGroups | None = None, *,
                  seq_parallel: bool = False, provider=None):
         cfg = model.cfg
-        if seq_parallel and cfg.family == "audio":
-            raise ValueError(f"sequence parallelism does not take {cfg.name}: its encoder frames "
-                             "would split over model too")
         shd.check_tensor_parallel(cfg, mesh)
         self.model, self.mesh, self.provider = model, mesh, provider
         self.seq_parallel = seq_parallel
@@ -612,10 +615,6 @@ class ShardedServeStep:
         self.tp.kv_seq = (self.batch_shards, index, self.batch_axes)
         if max_len is None:
             return
-        cfg = self.model.cfg
-        if cfg.family == "audio":
-            raise ValueError(f"{cfg.name} serves only batches whose rows split over the fsdp axes "
-                             f"{self.batch_axes}: its cross K/V cache would split its frames")
         like = self.model.init_cache(rows, max_len, device="meta")
         for (path, t), spec in zip(leaves_with_paths(like), self.layout.specs(like)):
             if shd.leaf_name(path) in ("k", "v") and spec[2] is None:
@@ -706,18 +705,22 @@ def plan_serve(cfg: ArchConfig, params: Any, specs: Any, mesh, *, phase: str,
     group, S) f32 scores all-reduced, the f32 output slices all-gathered.
 
     ``seq_parallel`` (prefill): each leaf gathered whole; per attention
-    layer K and V all-gathered along S; per rwkv6 layer two token shifts
-    (``collective_permute``), the state's hand-off and the final state,
-    ``last_tm`` and ``last_cm`` taken from the last rank (reduce-scatters
-    over the cache's dim over ``model``); per griffin layer one conv shift,
-    the hand-off, and ``h`` and ``conv`` from the last rank; the last real
-    row all-reduced to every rank.
+    layer K and V all-gathered along S (blocks of ceil(S/m), padded); per
+    rwkv6 layer two token shifts (``collective_permute``), the state's
+    hand-off and the final state, ``last_tm`` and ``last_cm`` taken from
+    the last rank (reduce-scatters over the cache's dim over ``model``);
+    per griffin layer one conv shift, the hand-off, and ``h`` and ``conv``
+    from the last rank; the last real row all-reduced to every rank.
+    whisper: per encoder layer K and V all-gathered along the frames
+    (blocks of ceil(frames/m)), and the encoder's output once.
 
     A batch whose rows do not split over the fsdp axes (``long_500k``'s
     one row): the rows on every fsdp rank and each K/V cache's S split over
     the fsdp axes, a decode step merging each attention's softmax over them
     (an all-reduce of the (B, KV, group) maxima, one of the sums of the
-    exponentials and the weighted values)."""
+    exponentials and the weighted values); whisper's cross attention, where
+    its frames split, merges likewise at prefill and decode (the (B, H, S)
+    maxima of its rows' log-sum-exps, then the weights and outputs)."""
     stats, add = _collector()
     if phase not in ("prefill", "decode"):
         raise ValueError(f"phase must be prefill or decode, got {phase!r}")
@@ -756,10 +759,16 @@ def plan_serve(cfg: ArchConfig, params: Any, specs: Any, mesh, *, phase: str,
         plan.gather(rows * cfg.encoder_seq, 1)                           # the encoder's output
     plan.gather(rows, 1)                                                 # the last row's final norm
     q_local = shd.attn_heads_local(cfg, mesh)[0]
+    cross_split = audio and batch[0] % shards != 0 and cfg.encoder_seq % shards == 0
     for j, (kind, stack) in enumerate(kinds):
         if stack != "decoder":
             continue
         j -= cfg.encoder_layers if audio else 0
+        if cross_split:     # the cross attention's softmax over the frames' blocks
+            heads = rows * cfg.n_heads // (m if q_local else 1) * seq
+            add("all_reduce", 1, heads * 4, heads * 4, fsdp)
+            add("all_reduce", 1, heads * (1 + cfg.head_dim) * 4,
+                heads * (1 + cfg.head_dim) * 4, fsdp)
         if kind == "rwkv" and m > 1 and d % m == 0:
             add("all_gather", 2, rows * d // m * act, rows * d * act, model)
         if kind == "rwkv" or not decode:
@@ -803,7 +812,12 @@ def _plan_seq_parallel(add, cfg: ArchConfig, mesh, rows: int, seq: int, cache_sp
     m, model = mesh.shape[MODEL_AXIS], (MODEL_AXIS,)
     if m == 1:
         return
-    d, local = cfg.d_model, seq // m
+    d, local = cfg.d_model, -(-seq // m)             # a block, padded where m does not split S
+    if cfg.family == "audio":
+        frames = -(-cfg.encoder_seq // m)
+        kv = rows * cfg.n_kv_heads * frames * cfg.head_dim * act
+        add("all_gather", 2 * cfg.encoder_layers, kv, kv * m, model)
+        add("all_gather", 1, rows * frames * d * act, rows * frames * d * act * m, model)
 
     def from_last(path: str, elem: int) -> None:
         shape, split = cache_split(path)

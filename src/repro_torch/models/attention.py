@@ -445,16 +445,21 @@ def _decode_attention_f32(q, kf, vf, valid_mask, softcap: float):
     return _attend(s, vf).reshape(b, hq, 1, d).to(q.dtype)
 
 
+def merge_blocks(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Attention over this rank's block of the keys -> over all of them,
+    where the blocks are split over the fsdp axes (:func:`_kv_seq`): ``o``
+    (..., d) and its rows' log-sum-exp ``lse`` (...) f32; the maxima
+    all-reduced, then each block's weight and weighted output summed in one
+    all-reduce."""
+    tp = tp_context()
+    w = torch.exp(lse - tp.seq_reduce(lse, "max"))[..., None]
+    part = tp.seq_reduce(torch.cat([w, w * o.float()], dim=-1))
+    return (part[..., 1:] / part[..., :1]).to(o.dtype)
+
+
 def _attend(s: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
     """softmax(s) · v over the cache's positions, (B, KV, group, d).  Where
     the caches' S is split over the fsdp axes (:func:`_kv_seq`), the softmax
-    is merged over them: the maxima all-reduced, then the sums of the
-    exponentials and the weighted values in one all-reduce."""
-    seq = _kv_seq()
-    if seq is None:
-        return torch.einsum("bhgk,bhkd->bhgd", torch.softmax(s, dim=-1), vf)
-    tp = tp_context()
-    e = torch.exp(s - tp.seq_reduce(s.amax(dim=-1, keepdim=True), "max"))
-    part = tp.seq_reduce(torch.cat([e.sum(dim=-1, keepdim=True),
-                                    torch.einsum("bhgk,bhkd->bhgd", e, vf)], dim=-1))
-    return part[..., 1:] / part[..., :1]
+    is merged over them (:func:`merge_blocks`)."""
+    o = torch.einsum("bhgk,bhkd->bhgd", torch.softmax(s, dim=-1), vf)
+    return o if _kv_seq() is None else merge_blocks(o, torch.logsumexp(s, dim=-1))

@@ -35,8 +35,19 @@ every rank projects its own cross K/V heads from it.  A sharded serving
 step (``launch.steps.make_sharded_serve_step``) gathers the params in
 :func:`prefill` and :func:`decode_step` and keeps this rank's shards of the
 self and cross K/V caches (``cache_leaf_sharding``: heads over ``model``).
-Sequence parallelism does not take this family: its encoder frames would
-split too (``launch.steps`` refuses it).
+Where the batch's rows do not split over the fsdp axes
+(``TensorParallel.kv_seq``) every rank runs the encoder on the whole row,
+projects cross K/V from its block of the frames (where they split over
+those axes; whole where they do not) and merges the cross attention's
+softmax over the axes (:func:`_cross_attend`).
+
+Under sequence parallelism (``distributed.context.sequence_parallel``,
+prefill) the frames are a sequence of their own: each rank runs the
+encoder on its block of them (``SequenceParallel.over``), its blocks
+attending to K and V gathered along the frames, and the encoder's output
+is gathered whole after its norm; the decoder takes the rank's block of
+the prompt, as the decoder-only families do, its cross attention over the
+whole frames, the cache keeping the rank's heads.
 """
 from __future__ import annotations
 
@@ -44,7 +55,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.context import (block_io, cache_layout, gather_residual,
-                                             local_residual, param_gather)
+                                             local_residual, param_gather, sequence_parallel,
+                                             sp_context, tp_context)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlpm
@@ -102,11 +114,16 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
 
 
 def enc_block(p: dict, cfg: ArchConfig, h: torch.Tensor, provider=None) -> torch.Tensor:
-    """One encoder block: bidirectional self-attention, then the MLP."""
+    """One encoder block: bidirectional self-attention, then the MLP (under
+    sequence parallelism the rank's frames attend to K and V gathered along
+    all of them)."""
     b, s, _ = h.shape
     with block_io("mixer_ffn"):
         xn = apply_norm(p["ln1"], gather_residual(h), cfg.norm)
         q, k, v = attn._qkv(p["attn"], cfg, xn, provider)
+        sp = sp_context()
+        if sp is not None:
+            k, v = sp.gather_seq(k), sp.gather_seq(v)
         o = ops.flash_attention(q, attn.kv_for(cfg, q, k), attn.kv_for(cfg, q, v),
                                 class_id="flash_attention_bidir", causal=False, provider=provider)
         o = attn.out_cols(o.transpose(1, 2).reshape(b, s, -1))
@@ -119,12 +136,22 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, provider=None,
            remat: bool = False, gather=None) -> torch.Tensor:
     """frames: (B, enc_seq, D) stub embeddings -> encoder hidden states.
     ``gather``: each layer's params gathered inside its remat (sharded
-    training, :func:`repro_torch.models.lm.gathered`)."""
-    h = local_residual(frames.to(dtype_of(cfg.dtype)) + params["enc_pos"][None, :frames.shape[1]])
+    training, :func:`repro_torch.models.lm.gathered`).  Under sequence
+    parallelism the rank's block of the frames runs, and the output is
+    gathered whole."""
+    sp = sp_context()
+    off = 0
+    if sp is not None:
+        sp = sp.over(frames.shape[1])
+        off, frames = sp.offset, frames[:, sp.offset:sp.offset + sp.local]
+    h = local_residual(frames.to(dtype_of(cfg.dtype))
+                       + params["enc_pos"][None, off:off + frames.shape[1]])
     block = rematted(gathered(lambda p, hh: enc_block(p, cfg, hh, provider), gather), remat)
-    for p in params["encoder"]:
-        h = block(p, h)
-    return apply_norm(params["enc_norm"], gather_residual(h), cfg.norm)
+    with sequence_parallel(sp):
+        for p in params["encoder"]:
+            h = block(p, h)
+    h = apply_norm(params["enc_norm"], gather_residual(h), cfg.norm)
+    return h if sp is None else sp.gather_seq(h, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -132,16 +159,34 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, provider=None,
 # ---------------------------------------------------------------------------
 
 
+def _frames_split(cfg: ArchConfig) -> tuple | None:
+    """(shards, this rank's index) where a sharded serving step splits the
+    cross K/V cache's frames over the fsdp axes (``TensorParallel.kv_seq``,
+    a batch whose rows do not split, and frames that do), else None."""
+    tp = tp_context()
+    seq = None if tp is None else tp.kv_seq
+    if seq is None or cfg.encoder_seq % seq[0]:
+        return None
+    return seq[0], seq[1]
+
+
 def _cross_attend(p: dict, cfg: ArchConfig, x: torch.Tensor, ck: torch.Tensor,
                   cv: torch.Tensor, provider=None) -> torch.Tensor:
-    """x: (B, S, D) attends to precomputed cross K/V (B, Hkv, Senc, hd)."""
+    """x: (B, S, D) attends to precomputed cross K/V (B, Hkv, Senc, hd).
+    Where they hold this rank's block of the frames (:func:`_frames_split`)
+    the softmax is merged over the fsdp axes from each block's output and
+    row log-sum-exp (``attention.merge_blocks``)."""
     b, s, _ = x.shape
     if ck.shape[-1] != cfg.head_dim:
         raise ValueError("a cross K/V cache split along head_dim is not taken "
                          "(whisper's KV heads split over model)")
     q = ops.matmul(x, p["wq"], provider=provider).reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
+    split = _frames_split(cfg) is not None
     o = ops.flash_attention(q, attn.kv_for(cfg, q, ck), attn.kv_for(cfg, q, cv),
-                            class_id="flash_attention_cross", causal=False, provider=provider)
+                            class_id="flash_attention_cross", causal=False, provider=provider,
+                            with_lse=split)
+    if split:
+        o = attn.merge_blocks(*o)
     o = attn.out_cols(o.transpose(1, 2).reshape(b, s, -1))
     return row_parallel(o, p["wo"], provider=provider)
 
@@ -173,9 +218,11 @@ def dec_block(p: dict, cfg: ArchConfig, h: torch.Tensor, *, enc: torch.Tensor | 
             a, c_self = attn.attn_forward(p["self_attn"], cfg, xn, "G", positions=positions,
                                           cache=None if cache is None else cache["self"],
                                           provider=provider)
+            split = _frames_split(cfg) if cache is not None else None
+            if split is not None:                   # this rank's block of the frames
+                n = enc.shape[1] // split[0]
+                enc = enc[:, split[1] * n:(split[1] + 1) * n]
             ck, cv = _cross_kv(p["cross_attn"], cfg, enc, provider)
-            if cache is not None and "cross_k" in cache:     # the part the cache holds
-                ck, cv = attn.cache_part(ck, cache["cross_k"]), attn.cache_part(cv, cache["cross_v"])
         h = h + a
         xc = apply_norm(p["ln_x"], gather_residual(h), cfg.norm)
         h = h + _cross_attend(p["cross_attn"], cfg, xc, ck, cv, provider)
@@ -183,12 +230,14 @@ def dec_block(p: dict, cfg: ArchConfig, h: torch.Tensor, *, enc: torch.Tensor | 
         h = h + mlpm.mlp_apply(p["mlp"], cfg, xn2, provider=provider)
     if cache is None:
         return h, None
+    if pos is None and "cross_k" in cache:      # the part the cache holds (SP: the rank's heads)
+        ck, cv = attn.cache_part(ck, cache["cross_k"]), attn.cache_part(cv, cache["cross_v"])
     return h, {"self": c_self, "cross_k": ck, "cross_v": cv}
 
 
-def _dec_embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def _dec_embed(params: dict, tokens: torch.Tensor, off: int = 0) -> torch.Tensor:
     s = tokens.shape[1]
-    return lookup(params["embed"], tokens) + local_residual(params["dec_pos"][None, :s])
+    return lookup(params["embed"], tokens) + local_residual(params["dec_pos"][None, off:off + s])
 
 
 def forward(params: dict, cfg: ArchConfig, batch: dict, *, remat: bool = True,
@@ -230,25 +279,34 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *, max_len: int,
     """Encode the frames and process the prompt; returns (last-position
     logits (B, V), cache).  ``true_len``: the number of real decoder tokens
     when the prompt is right-padded (see :func:`repro_torch.models.lm.prefill`).
-    Sharded: params gathered, caches and logits this rank's shards."""
+    Sharded: params gathered, caches and logits this rank's shards (under
+    sequence parallelism each rank runs its block of the frames and of the
+    prompt, and the last real row is taken to every rank)."""
     gather = param_gather()
     if gather is not None:
         params = gather_top(params, cfg, gather)
     enc = encode(params, cfg, batch["frames"], provider, gather=gather)
-    h = _dec_embed(params, batch["tokens"])
-    b, s, _ = h.shape
+    sp = sp_context()
+    tokens = batch["tokens"]
+    s, off = (sp.seq, sp.offset) if sp is not None else (tokens.shape[1], 0)
+    if sp is not None:
+        tokens = tokens[:, off:off + sp.local]
+    h = _dec_embed(params, tokens, off)
+    b = h.shape[0]
     t = s if true_len is None else int(true_len)
     if not 1 <= t <= s:
         raise ValueError(f"true_len {t} outside 1..{s}")
-    positions = torch.arange(s, device=h.device).expand(b, s)
+    positions = off + torch.arange(h.shape[1], device=h.device).expand(b, h.shape[1])
     fresh = init_cache(cfg, b, max_len, h.device)["layers"]
     layers = []
     for p, c0 in zip(params["decoder"], fresh):
         p = p if gather is None else gather(p)
         h, c = dec_block(p, cfg, h, enc=enc, cache=c0, positions=positions, provider=provider)
         layers.append(c)
-    h_last = apply_norm(params["final_norm"], gather_residual(h[:, t - 1:t, :]), cfg.norm)
-    logits = ops.matmul(h_last, params["lm_head"], class_id="matmul_lmhead", provider=provider)
+    row = h[:, t - 1:t, :] if sp is None else sp.row_at(h, t - 1)
+    h_last = apply_norm(params["final_norm"], gather_residual(row), cfg.norm)
+    w = params["lm_head"] if sp is None else sp.head(params["lm_head"])
+    logits = ops.matmul(h_last, w, class_id="matmul_lmhead", provider=provider)
     return logits[:, 0, :], {"layers": layers,
                              "t": torch.full((b,), t, dtype=torch.int32, device=h.device)}
 

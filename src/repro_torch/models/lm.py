@@ -240,8 +240,7 @@ def _lm_head(params: dict, cfg: ArchConfig, h: torch.Tensor, provider=None) -> t
         w, tied = params["lm_head"], {}
     sp = sp_context()
     if sp is not None and sp.vocab_parallel:     # this rank's vocabulary shard, of a whole head
-        n = w.shape[1] // sp.m
-        w, tied = w[:, sp.rank * n:(sp.rank + 1) * n].contiguous(), {}
+        w, tied = sp.head(w), {}
     if cfg.final_softcap > 0:
         return ops.matmul(h, w, class_id="matmul_lmhead_softcap", softcap=cfg.final_softcap,
                           provider=provider, **tied)
@@ -394,6 +393,9 @@ def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict, provider=None) -> 
     if not cfg.vision_tokens or patches.shape[1] == 0:
         return h
     vis = ops.matmul(patches.to(h.dtype), params["vis_proj"], provider=provider)
+    tp = tp_context()
+    if tp is not None and not tp.d_sharded:     # whole on every rank: it enters once
+        vis = tp.local(vis)
     return torch.cat([vis, h], dim=1)
 
 

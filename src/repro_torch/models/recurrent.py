@@ -280,11 +280,8 @@ def griffin_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
         tail = cache["conv"]
     else:
         tail = torch.zeros((b, cw - 1, xr.shape[-1]), dtype=xr.dtype, device=x.device)
-    if sp is not None:      # the previous rank's last cw - 1 rows of xr
-        if s < cw - 1:
-            raise ValueError(f"sequence parallelism needs S/m >= {cw - 1} positions a rank "
-                             f"(the conv window), got {s}")
-        tail = sp.shift(xr[:, s - (cw - 1):], tail)
+    if sp is not None:      # the previous rank's last cw - 1 rows of xr (every rank
+        tail = sp.shift(xr[:, s - (cw - 1):], tail)     # holds as many: SequenceParallel)
     xpad = torch.cat([tail, xr], dim=1)                    # (B, S+cw-1, W)
     conv = sum(
         xpad[:, i:i + s, :].float() * p["conv"][i].float()

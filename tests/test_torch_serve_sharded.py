@@ -15,9 +15,15 @@ seed-0 init of a reduced arch:
   head), mixtral-8x22b (expert-parallel MoE), rwkv6-1.6b (K3's state handed
   from rank to rank), recurrentgemma-2b (its one KV head's ``head_dim``
   split over ``model``: decode sums the scores over ``model``),
-  whisper-medium (the cross K/V cache; ``seq_parallel`` refused) and
-  internvl2-26b (the vision prefix inside S; and with a vocabulary of 511
-  that no ``model`` axis splits: the head whole on every rank).
+  whisper-medium (the cross K/V cache; under ``seq_parallel`` its encoder
+  frames split over ``model`` too) and internvl2-26b (the vision prefix
+  inside S; and with a vocabulary of 511 that no ``model`` axis splits: the
+  head whole on every rank).
+
+An S that ``model`` does not split is laid out as GSPMD lays it out, in
+blocks of ceil(S/m) (minitron-4b at 18 positions on 1x4; whisper-medium
+with 15 frames at 1x2 and 1x4), and one row that no data axis splits puts
+each K/V cache's positions (whisper's frames too) over the data axis.
 
 Each case's logits and gathered caches are held within 1e-5 of the largest
 |logit| (of the largest |entry| of each cache leaf) to the one-process
@@ -50,8 +56,12 @@ MESHES = {1: [(1, 1)], 2: [(1, 2)], 4: [(2, 2), (1, 4)]}
 #: block of each K/V cache's positions (world -> meshes; the families)
 LONG_MESHES = {2: [(2, 1)], 4: [(2, 2)]}
 LONG_FAMILIES = [("minitron-4b", {}), ("gemma2-2b", {}), ("recurrentgemma-2b", {}),
-                 ("rwkv6-1.6b", {})]
+                 ("rwkv6-1.6b", {}), ("whisper-medium", {}), ("internvl2-26b", {})]
 ROWS, POSITIONS, MAX_LEN, STEPS, PAD = 2, 16, 24, 3, 3
+#: an S (or whisper's frames) that model does not split, under seq_parallel:
+#: (arch, config overrides, positions, the meshes)
+UNEVEN = [("minitron-4b", {}, 18, [(1, 4)]),
+          ("whisper-medium", {"encoder_seq": 15}, POSITIONS, [(1, 2), (1, 4)])]
 #: sharded against one process: of the largest |logit| (|cache entry|)
 ONE_PROCESS_REL = 1e-5
 #: sharded against the reference's single-device steps
@@ -66,11 +76,11 @@ def _case_id(arch, over):
     return arch + "".join(f"-{k}{v}" for k, v in over.items())
 
 
-def _inputs(cfg, rows: int = ROWS) -> tuple[dict, int, np.ndarray]:
+def _inputs(cfg, rows: int = ROWS, positions: int = POSITIONS) -> tuple[dict, int, np.ndarray]:
     """(the prefill batch, true_len, the decode steps' tokens (STEPS, rows)),
-    seeded: the text fills POSITIONS less the vision prefix."""
+    seeded: the text fills ``positions`` less the vision prefix."""
     rng = np.random.default_rng(7)
-    text = POSITIONS - cfg.vision_tokens
+    text = positions - cfg.vision_tokens
     batch = {"tokens": rng.integers(1, min(cfg.vocab_size, 500), size=(rows, text)).astype(np.int64)}
     if cfg.family == "audio":
         batch["frames"] = rng.normal(size=(rows, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
@@ -99,12 +109,14 @@ def _serve_run(rank, world):
     from repro_torch.models.build import build_model
 
     out = {}
-    cases = [(shape, arch, over, ROWS, sp) for shape in MESHES[world] for arch, over in FAMILIES
-             for sp in (False, True)]
-    cases += [(shape, arch, over, 1, False) for shape in LONG_MESHES.get(world, [])
+    cases = [(shape, arch, over, ROWS, sp, POSITIONS) for shape in MESHES[world]
+             for arch, over in FAMILIES for sp in (False, True)]
+    cases += [(shape, arch, over, 1, False, POSITIONS) for shape in LONG_MESHES.get(world, [])
               for arch, over in LONG_FAMILIES]
+    cases += [(shape, arch, over, ROWS, True, positions) for arch, over, positions, meshes in UNEVEN
+              for shape in meshes + [(1, 1)] if shape in MESHES[world]]
     groups = {}
-    for shape, arch, over, rows, sp in cases:
+    for shape, arch, over, rows, sp, positions in cases:
         mesh = Mesh(("data", "model"), shape)
         if shape not in groups:
             groups[shape] = MeshGroups(mesh)
@@ -112,13 +124,9 @@ def _serve_run(rank, world):
         cfg = _cfg(arch, over)
         model = build_model(cfg, "cpu")
         full = model.init(0)
-        batch, true_len, feed = _inputs(cfg, rows)
-        key = (shape, _case_id(arch, over), sp, rows)
-        try:
-            step = steps_mod.make_sharded_serve_step(model, mesh, groups[shape], seq_parallel=sp)
-        except ValueError as e:
-            out[key] = {"refused": str(e)}
-            continue
+        batch, true_len, feed = _inputs(cfg, rows, positions)
+        key = (shape, _case_id(arch, over), sp, rows, positions)
+        step = steps_mod.make_sharded_serve_step(model, mesh, groups[shape], seq_parallel=sp)
         params = step.shard_params(full)
         shape_bs = (rows, batch["tokens"].shape[1])
         counter.reset()
@@ -176,7 +184,7 @@ def worlds(tmp_path_factory):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(arch: str, overrides: tuple, rows: int = ROWS) -> dict:
+def _reference(arch: str, overrides: tuple, rows: int = ROWS, positions: int = POSITIONS) -> dict:
     """The reference's single-device prefill and 3 decode steps from the
     port's seed-0 init: logits, and the caches in the port's layout."""
     import jax
@@ -197,7 +205,7 @@ def _reference(arch: str, overrides: tuple, rows: int = ROWS) -> dict:
     jparams = jax.tree_util.tree_map(jnp.asarray,
                                      _reference_layout(build_model(cfg, "cpu").init(0), cfg))
     jmodel = jbuild_model(jcfg)
-    batch, true_len, feed = _inputs(cfg, rows)
+    batch, true_len, feed = _inputs(cfg, rows, positions)
     jbatch = {k: jnp.asarray(v.astype(np.int32) if k == "tokens" else v) for k, v in batch.items()}
     logits, cache = jmodel.prefill(jparams, jbatch, max_len=MAX_LEN, true_len=true_len)
     out = {"logits": [np.asarray(logits)],
@@ -233,13 +241,15 @@ SHARDED = [(w, shape) for w in (2, 4) for shape in MESHES[w]]
 @pytest.mark.parametrize("sp", [False, True], ids=["fsdp_tp", "seq_parallel"])
 @pytest.mark.parametrize("world,shape", SHARDED, ids=[f"{d}x{m}" for _, (d, m) in SHARDED])
 def test_sharded_serving_matches_one_process_and_reference(worlds, world, shape, sp, arch, over):
-    run = worlds(world)
-    key = (shape, _case_id(arch, over), sp, ROWS)
+    _assert_case(worlds(world), (shape, _case_id(arch, over), sp, ROWS, POSITIONS),
+                 _reference(arch, tuple(sorted(over.items()))))
+
+
+def _assert_case(run: dict, key: tuple, ref: dict) -> None:
+    """A case's logits and gathered caches within 1e-5 of one process and
+    2e-4 of the reference's steps, every rank's collectives the plan's."""
     got = run["lead"][key]
-    if sp and arch == "whisper-medium":
-        assert "encoder frames" in got["refused"]
-        return
-    one, ref = got["one"], _reference(arch, tuple(sorted(over.items())))
+    one = got["one"]
     for i, logits in enumerate(got["logits"]):
         _assert_near(logits, one["logits"][i], ONE_PROCESS_REL, f"logits {i}")
         _assert_near(logits, ref["logits"][i], REF_REL, f"reference logits {i}")
@@ -258,19 +268,19 @@ def test_sharded_serving_at_1x1_is_bit_equal(worlds, arch, over):
     plan's."""
     run = worlds(1)
     for sp in (False, True):
-        got = run["lead"][((1, 1), _case_id(arch, over), sp, ROWS)]
-        if "refused" in got:
-            assert sp and arch == "whisper-medium"
-            continue
-        one = got["one"]
-        for a, b in zip(got["logits"], one["logits"]):
-            assert a.dtype == b.dtype and torch.equal(a, b)
-        for name in ("prefill_cache", "cache"):
-            want = dict(leaves_with_paths(one[name]))
-            for path, t in leaves_with_paths(got[name]):
-                assert t.dtype == want[path].dtype and torch.equal(t, want[path]), (name, path)
-        for issued, plan in zip(got["issued"], got["plans"]):
-            assert issued == plan
+        _assert_bit_equal(run["lead"][((1, 1), _case_id(arch, over), sp, ROWS, POSITIONS)])
+
+
+def _assert_bit_equal(got: dict) -> None:
+    one = got["one"]
+    for a, b in zip(got["logits"], one["logits"]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for name in ("prefill_cache", "cache"):
+        want = dict(leaves_with_paths(one[name]))
+        for path, t in leaves_with_paths(got[name]):
+            assert t.dtype == want[path].dtype and torch.equal(t, want[path]), (name, path)
+    for issued, plan in zip(got["issued"], got["plans"]):
+        assert issued == plan
 
 
 LONG = [(w, shape) for w in (2, 4) for shape in LONG_MESHES[w]]
@@ -281,26 +291,18 @@ LONG = [(w, shape) for w in (2, 4) for shape in LONG_MESHES[w]]
 def test_unsplit_rows_split_the_caches_positions(worlds, world, shape, arch, over):
     """One row on a data axis of 2 (``long_500k``'s case): every rank holds
     the row and its block of each K/V cache's positions
-    (``cache_leaf_sharding``); decode merges each attention's softmax over
-    the data axis.  Logits and caches within 1e-5 of one process and 2e-4
-    of the reference's steps, collectives the plan's (two all-reduces over
-    data an attention layer a decode step)."""
+    (``cache_leaf_sharding``; whisper's cross K/V cache its block of the
+    frames); decode merges each attention's softmax over the data axis
+    (whisper's cross attention at prefill too).  Logits and caches within
+    1e-5 of one process and 2e-4 of the reference's steps, collectives the
+    plan's (two all-reduces over data an attention layer a decode step,
+    self and cross)."""
     run = worlds(world)
-    key = (shape, _case_id(arch, over), False, 1)
-    got = run["lead"][key]
-    one = got["one"]
-    ref = _reference(arch, tuple(sorted(over.items())), 1)
-    for i, logits in enumerate(got["logits"]):
-        _assert_near(logits, one["logits"][i], ONE_PROCESS_REL, f"logits {i}")
-        _assert_near(logits, ref["logits"][i], REF_REL, f"reference logits {i}")
-    for name in ("prefill_cache", "cache"):
-        _assert_caches(got[name], one[name], ONE_PROCESS_REL, name)
-        _assert_caches(got[name], ref[name], REF_REL, f"reference {name}")
+    key = (shape, _case_id(arch, over), False, 1, POSITIONS)
+    _assert_case(run, key, _reference(arch, tuple(sorted(over.items())), 1))
     cfg = _cfg(arch, over)
-    attention = sum(k != "R" for k in cfg.layer_kinds)
+    attention = sum(k != "R" for k in cfg.layer_kinds) * (2 if cfg.family == "audio" else 1)
     for r in run["ranks"]:
-        for issued, plan in zip(r[key]["issued"], r[key]["plans"]):
-            assert issued == plan, (issued, plan)
         merges = r[key]["issued"][1].get("all_reduce", {}).get("axes", {}).get("data", 0)
         assert merges == 2 * attention
 
@@ -316,21 +318,47 @@ def test_split_head_dim_cache_sums_scores_over_model(worlds):
     mesh = Mesh(("data", "model"), (1, 2))
     assert shd.cache_leaf_sharding("['layers'][2]['k']", (ROWS, 1, 8, 16), cfg, mesh) == \
         (("data",), None, None, "model")
-    got = worlds(2)["lead"][((1, 2), "recurrentgemma-2b", False, ROWS)]
+    got = worlds(2)["lead"][((1, 2), "recurrentgemma-2b", False, ROWS, POSITIONS)]
     attention = sum(k != "R" for k in cfg.layer_kinds)
     decode = got["issued"][1]["all_reduce"]
     assert decode["axes"] == {"model": attention}
 
 
+UNEVEN_CASES = [(w, shape, arch, over, positions) for arch, over, positions, meshes in UNEVEN
+                for w in (2, 4) for shape in meshes if shape in MESHES[w]]
+
+
+@pytest.mark.parametrize("world,shape,arch,over,positions", UNEVEN_CASES,
+                         ids=[f"{_case_id(a, o)}-{d}x{m}" for _, (d, m), a, o, _ in UNEVEN_CASES])
+def test_seq_parallel_takes_an_s_that_model_does_not_split(worlds, world, shape, arch, over,
+                                                          positions):
+    """minitron-4b's 18 positions over model 4 (blocks 5, 5, 5, 3) and
+    whisper-medium's 15 frames over model 2 and 4 (8, 7; 4, 4, 4, 3): held
+    like the even cases, K/V all-gathered in blocks padded to ceil(S/m),
+    and bit-equal to one process at (1, 1)."""
+    key = (shape, _case_id(arch, over), True, ROWS, positions)
+    _assert_case(worlds(world), key, _reference(arch, tuple(sorted(over.items())), ROWS,
+                                                positions))
+    _assert_bit_equal(worlds(1)["lead"][((1, 1),) + key[1:]])
+
+
 def test_seq_parallel_refuses_what_it_cannot_split():
+    """A layout of S in blocks of ceil(S/m) that leaves the last rank no
+    position (9 over 4: 3, 3, 3, 0), or fewer than griffin's conv window
+    reads (13 over 4: 4, 4, 4, 1), is refused on every rank."""
     from repro_torch.distributed.collectives import SequenceParallel
 
     class _Groups:
         mesh = Mesh(("data", "model"), (1, 4))
         coords = {"data": 0, "model": 1}
 
-    with pytest.raises(ValueError, match="S = 18 does not split"):
-        SequenceParallel(_Groups(), _cfg("minitron-4b", {}), 18)
+    with pytest.raises(ValueError, match="S = 9 .* blocks of 3: the last rank would hold no"):
+        SequenceParallel(_Groups(), _cfg("minitron-4b", {}), 9)
+    with pytest.raises(ValueError, match="3 positions a rank .* leaves the last rank 1"):
+        SequenceParallel(_Groups(), _cfg("recurrentgemma-2b", {}), 13)
+    sp = SequenceParallel(_Groups(), _cfg("minitron-4b", {}), 18)
+    assert (sp.block, sp.offset, sp.local) == (5, 5, 5)
+    assert sp.over(15).local == 4 and sp.over(1500).block == 375
 
 
 def test_planner_plans_the_serving_steps_on_the_production_mesh():
@@ -387,9 +415,12 @@ def test_planner_plans_the_serving_steps_on_the_production_mesh():
 
 
 def test_planner_cells_with_seq_parallel(tmp_path, monkeypatch):
-    """``--seq-parallel --shape prefill_32k --mesh single`` plans every
-    applicable arch (whisper-medium refused, a skipped cell) into files
-    ending in ``__sp``."""
+    """``--seq-parallel --shape prefill_32k --mesh single`` plans every arch
+    into files ending in ``__sp``, none skipped; whisper-medium's 1500
+    frames go over model 16 in blocks of 94 (the last rank's 90): each
+    encoder layer all-gathers K and V of 94 frames a rank, and the
+    encoder's output is gathered once."""
+    import json
     import os
 
     from repro_torch.configs.base import ARCH_IDS
@@ -397,6 +428,40 @@ def test_planner_cells_with_seq_parallel(tmp_path, monkeypatch):
 
     monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
     counts = dryrun.main(["--seq-parallel", "--shape", "prefill_32k", "--mesh", "single"])
-    assert counts == {"ok": len(ARCH_IDS) - 1, "skipped": 1}
+    assert counts == {"ok": len(ARCH_IDS), "skipped": 0}
     files = sorted(os.listdir(tmp_path))
     assert len(files) == len(ARCH_IDS) and all(f.endswith("__16x16__sp.json") for f in files)
+    with open(tmp_path / "whisper-medium__prefill_32k__16x16__sp.json") as f:
+        cell = json.load(f)
+    assert cell["status"] == "ok" and cell["seq_parallel"]
+    import math
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import plan_serve
+    from repro_torch.models.build import build_model
+    from repro_torch.models.lm import trainable
+    from repro_torch.tree import flatten_up_to
+
+    cfg, mesh = get_arch("whisper-medium"), make_production_mesh()
+    params = trainable(build_model(cfg, "cpu").abstract_params())
+    specs = shd.param_shardings(params, cfg, mesh)
+    coll = plan_serve(cfg, params, specs, mesh, phase="prefill", batch=(32, 32768),
+                      max_len=32768, seq_parallel=True, by_axes=True)
+    assert coll["all_gather"]["count"] == cell["collectives"]["all_gather"]["count"]
+    rows, frames = 32 // 16, 94
+    kv = rows * cfg.n_kv_heads * frames * cfg.head_dim * 2          # a rank's K (or V) frames
+    dec_kv = rows * cfg.n_kv_heads * 32768 // 16 * cfg.head_dim * 2
+    enc_out = rows * frames * cfg.d_model * 2
+    from repro_torch.distributed.collectives import leaf_placement
+
+    over_model = sum(leaf_placement(tuple(t.shape), spec, mesh).gather_axes == ("model",)
+                     for (_, t), spec in zip(leaves_with_paths(params),
+                                             flatten_up_to(specs, params)))
+    assert coll["all_gather"]["axes"]["model"] - over_model == \
+        2 * cfg.encoder_layers + 1 + 2 * cfg.n_layers
+    shards = sum(math.prod(shd.local_shape(tuple(t.shape), spec, mesh)) * t.element_size()
+                 for (_, t), spec in zip(leaves_with_paths(params), flatten_up_to(specs, params))
+                 if any(spec))
+    assert coll["all_gather"]["operand_bytes"] - shards == \
+        2 * cfg.encoder_layers * kv + enc_out + 2 * cfg.n_layers * dec_kv

@@ -374,8 +374,9 @@ def test_tensor_parallel_refuses_what_it_cannot_split():
 BF16_LOSS_REL, BF16_GRAD_COS, BF16_GRAD_MAXREL = 5e-3, 0.995, 5e-2
 
 
-def _bf16_grads_run(rank, world, arch, model_axis):
-    """One bf16 ``fsdp_tp`` forward and backward of ``arch`` from the port's
+def _bf16_grads_run(rank, world, arch, model_axis, over=None):
+    """One bf16 ``fsdp_tp`` forward and backward of ``arch`` (with the config
+    overrides ``over``) from the port's
     seed-0 init on :func:`_tp_batch`: the loss, the gradients gathered
     whole, the collectives (with their bytes per dtype) beside the step's
     plan; on rank 0 the one-process loss and gradients."""
@@ -385,7 +386,7 @@ def _bf16_grads_run(rank, world, arch, model_axis):
     from repro_torch.models.build import build_model
     from repro_torch.optim.adamw import AdamWConfig
 
-    cfg = _cfg(arch, {"dtype": "bfloat16"})
+    cfg = _cfg(arch, {**(over or {}), "dtype": "bfloat16"})
     model = build_model(cfg, "cpu")
     batch = _tp_batch(cfg)
     mesh = make_test_mesh(model=model_axis)
@@ -407,6 +408,35 @@ def _bf16_grads_run(rank, world, arch, model_axis):
     return out
 
 
+def _assert_bf16_grads_near_one_process(lead) -> None:
+    """The loss and every gradient within the card's bounds for two bf16
+    paths of the one-process bf16 step's."""
+    assert abs(lead["loss"] - lead["one_loss"]) <= BF16_LOSS_REL * abs(lead["one_loss"])
+    want = _by_path(lead["one_grads"])
+    for path, a in leaves_with_paths(lead["grads"]):
+        b = want[path].float().flatten()
+        a = a.float().flatten()
+        cos = float(torch.dot(a, b) / torch.clamp(a.norm() * b.norm(), min=1e-30))
+        rel = float((a - b).abs().max() / torch.clamp(b.abs().max(), min=1e-30))
+        assert cos >= BF16_GRAD_COS and rel <= BF16_GRAD_MAXREL, (path, cos, rel)
+
+
+def _assert_issued_is_plan(r) -> None:
+    """The collectives of one forward and backward are the step's plan, but
+    for the step's own all-reduces (the metrics and the gradient norm)."""
+    from repro_torch.launch.steps import LOSS_METRICS
+
+    for op in ("reduce_scatter", "all_gather", "all_reduce"):
+        got = {k: r["issued"].get(op, {}).get(k, 0)
+               for k in ("count", "operand_bytes", "result_bytes")}
+        want = {k: r["plan"].get(op, {}).get(k, 0) for k in got}
+        if op == "all_reduce":
+            step_only = 4 * (1 + LOSS_METRICS) + 4
+            want = {"count": want["count"] - 2, "operand_bytes": want["operand_bytes"] - step_only,
+                    "result_bytes": want["result_bytes"] - step_only}
+        assert got == want, (op, got, want)
+
+
 def test_bf16_tp_sums_partials_in_f32(tmp_path):
     """rwkv6-1.6b in bf16 at model 2 (ROADMAP C.13): every sum of partial
     products over ``model`` is taken in f32.  The reduce-scatters of the
@@ -422,7 +452,6 @@ def test_bf16_tp_sums_partials_in_f32(tmp_path):
     bf16 the reordered one-process step gives the same bits, and any f32
     reordering of a sum moves its bf16 rounding)."""
     from repro_torch.distributed.collectives import axes_key
-    from repro_torch.launch.steps import LOSS_METRICS
 
     cfg = _cfg("rwkv6-1.6b", {"dtype": "bfloat16"})
     out = run_ranks(_bf16_grads_run, 2, tmp_path, "rwkv6-1.6b", 2, timeout=300)
@@ -437,22 +466,34 @@ def test_bf16_tp_sums_partials_in_f32(tmp_path):
         ar = r["issued"]["all_reduce"]
         assert set(ar["dtypes"]) == {"float32"}
         assert all("model" in axes.split(",") for axes in ar["axes"])
-        for op in ("reduce_scatter", "all_gather", "all_reduce"):
-            got = {k: r["issued"][op][k] for k in ("count", "operand_bytes", "result_bytes")}
-            want = {k: r["plan"][op][k] for k in got}
-            if op == "all_reduce":      # the step's metrics and gradient norm come after
-                step_only = 4 * (1 + LOSS_METRICS) + 4
-                want = {"count": want["count"] - 2, "operand_bytes": want["operand_bytes"] - step_only,
-                        "result_bytes": want["result_bytes"] - step_only}
-            assert got == want, op
+        _assert_issued_is_plan(r)
         # row-parallel products: two a layer, in the forward and the recompute
         assert rs["dtypes"]["float32"] >= 2 * 2 * cfg.n_layers * rows * seq * cfg.d_model * 4
-    lead = out[0]
-    assert abs(lead["loss"] - lead["one_loss"]) <= BF16_LOSS_REL * abs(lead["one_loss"])
-    want = _by_path(lead["one_grads"])
-    for path, a in leaves_with_paths(lead["grads"]):
-        b = want[path].float().flatten()
-        a = a.float().flatten()
-        cos = float(torch.dot(a, b) / torch.clamp(a.norm() * b.norm(), min=1e-30))
-        rel = float((a - b).abs().max() / torch.clamp(b.abs().max(), min=1e-30))
-        assert cos >= BF16_GRAD_COS and rel <= BF16_GRAD_MAXREL, (path, cos, rel)
+    _assert_bf16_grads_near_one_process(out[0])
+
+@pytest.mark.parametrize("d_model", [66, 64], ids=["whole_d", "split_d"])
+def test_bf16_tp_sums_whole_residual_partials_in_f32(tmp_path, d_model):
+    """gemma2-2b in bf16 at model 4 with d_model 66, which model does not
+    split (ROADMAP C.13's last case): the residual stream is whole on every
+    rank, so no all-gather reads it; each rank's partial input gradients of
+    a read (from its heads, its d_ff slice and its vocabulary shard) reach
+    their sum over model in f32 (an all-reduce of the f32 carrier's
+    gradient) and are rounded after it, and a row-parallel product's sum
+    (an all-reduce) is f32 too.  The only bf16 sum over model is the
+    vocab-parallel lookup's, one addend not zero.  Held to the one-process
+    bf16 step by the same bounds as the split case (d_model 64, run beside
+    it), collectives the plan's."""
+    over = {"d_model": d_model}
+    cfg = _cfg("gemma2-2b", {**over, "dtype": "bfloat16"})
+    out = run_ranks(_bf16_grads_run, 4, tmp_path, "gemma2-2b", 4, over, timeout=300)
+    rows, seq = _tp_batch(cfg)["tokens"].shape
+    lookup = rows * seq * cfg.d_model * 2           # the embedding's bf16 partial rows
+    for r in out:
+        _assert_issued_is_plan(r)
+        summed = r["issued"]["reduce_scatter" if d_model % 4 == 0 else "all_reduce"]
+        assert summed["dtypes"]["bfloat16"] == lookup, summed["dtypes"]
+        assert all("model" in axes.split(",") for axes in summed["axes"])
+        if d_model % 4:
+            assert "reduce_scatter" not in r["issued"]
+            assert "model" not in r["issued"].get("all_gather", {}).get("axes", {})
+    _assert_bf16_grads_near_one_process(out[0])
