@@ -11,16 +11,20 @@ kernel's launch count.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b --preset full
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --preset smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --preset full --layers 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --preset full --layers 6
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke --arch rwkv6-1.6b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --preset smoke --arch mixtral-8x22b
 
-The MoE archs (mixtral-8x22b, dbrx-132b) run ``--preset smoke`` only: at
-full depth their bf16 weights (~280 GB, ~264 GB) fit no one card.  The
-audio and vision archs take the reference's stub inputs: zero encoder frames
-(whisper-medium) or zero patch embeddings (internvl2-26b), the same for every
-request.
+``--layers N`` keeps the first N layers at the preset's width (0, the
+default: the config's depth).  The MoE archs (mixtral-8x22b, dbrx-132b)
+run at full width on one card only with their depth cut: at full depth
+their bf16 weights (~280 GB, ~264 GB) fit no one card, while 8 of
+mixtral's 56 layers hold 20.4 B parameters (40.9 GB) and 6 of dbrx's 40
+hold 20.8 B (41.6 GB).  The audio and vision archs take the reference's
+stub inputs: zero encoder frames (whisper-medium) or zero patch embeddings
+(internvl2-26b), the same for every request.
 
 ``--device cuda`` (the default) runs on the card and raises where there is
 none; ``--backend ref`` runs the plain PyTorch versions instead of the CUDA
@@ -62,6 +66,7 @@ writes the resolution metrics registry (``to_json``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -151,6 +156,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description="serve an architecture on the port")
     ap.add_argument("--arch", default="minitron-4b", choices=list(ARCH_IDS))
     ap.add_argument("--preset", choices=["smoke", "full"], default="smoke")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the first N layers (0: the config's depth)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--requests", type=int, default=8)
@@ -190,6 +197,8 @@ def main(argv=None) -> dict:
     cfg = get_arch(args.arch)
     if args.preset == "smoke":
         cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     provider, service = make_provider(args)
     model = build_model(cfg, args.device)
     params = model.init(seed=0)
@@ -239,7 +248,8 @@ def main(argv=None) -> dict:
             service.close()
     toks = sum(len(r.generated) for r in done)
     launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
-    result = {"arch": cfg.name, "preset": args.preset, "device": str(model.device),
+    result = {"arch": cfg.name, "preset": args.preset, "layers": cfg.n_layers,
+              "device": str(model.device),
               "backend": args.backend, "requests": len(done), "decode_steps": steps,
               "tokens": toks, "tok_per_s": toks / dt, "target": args.target,
               "schedule_hits": provider.hits, "schedule_misses": provider.misses,

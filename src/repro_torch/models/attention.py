@@ -229,7 +229,8 @@ def attn_chunk(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
     Full-length caches get the chunk written at ``[off, off+C)`` before one
     causal pass of the flash-attention kernel over the whole buffer with
     ``q_offset=off`` (rows beyond ``off+C`` hold garbage the causal mask
-    hides).  Ring caches attend over [ring prefix ‖ chunk] under explicit
+    hides); so does a ring shorter than its window, which never wraps.
+    Other ring caches attend over [ring prefix ‖ chunk] under explicit
     position masks and are written *after* attention: writing a chunk into
     the ring first would overwrite positions earlier queries still need.
     """
@@ -244,13 +245,18 @@ def attn_chunk(p: dict, cfg: ArchConfig, x: torch.Tensor, kind: str, *,
     window = cfg.window if kind == "L" else 0
     softcap = cfg.attn_softcap if kind == "G" else 0.0
     ck, cv = cache["k"], cache["v"]
-    if kind == "G" or cfg.window == 0:
+    if kind == "G" or cfg.window == 0 or cfg.window > size:
+        # a full-length cache, keyed as the reference keys it (Q = C, KV =
+        # the cache length, window 0); or a ring shorter than its window
+        # (mixtral's 4096 in a 512-token context), which never wraps: each
+        # position sits in its own slot and the window never bites, so its
+        # rows sum as one-shot prefill's, under the layer's window.  The
+        # reference keeps its ring branch there: the same values, summed
+        # otherwise
         ck[:, :, off:off + s] = k.to(ck.dtype)
         cv[:, :, off:off + s] = v.to(cv.dtype)
-        # keyed as the reference keys it: Q = C, KV = the cache length,
-        # window 0
         out = ops.flash_attention(q, ck, cv, class_id=_attn_class(cfg, kind), causal=True,
-                                  window=0, softcap=softcap, q_offset=off, provider=provider)
+                                  window=window, softcap=softcap, q_offset=off, provider=provider)
     else:
         # ring (slot convention p % size): each slot's absolute position is
         # the latest p < off congruent to it (< 0: never written)

@@ -1643,3 +1643,67 @@ def test_f32_gradient_mode_matches_plain(card, m, k, n, e):
     assert got.dtype == torch.float32
     _close(got, want, TOL)
     assert torch.equal(got.to(torch.bfloat16), plain)
+
+
+# ---------------------------------------------------------------------------
+# dbrx-132b's expert GEMMs and mixtral-8x22b's paged engine at full width
+# ---------------------------------------------------------------------------
+
+#: dbrx-132b's expert GEMMs, (class, E, K, N): the up-GEMM's w stack holds
+#: 16 · 6144 · 21504 = 2.1e9 bf16 values (4.2 GB), so expert offsets pass
+#: 2^32 bytes
+DBRX_EXPERT_GEMMS = [("moe_gemm_silu_glu", 16, 6144, 21504), ("moe_gemm", 16, 10752, 6144)]
+
+
+@pytest.mark.parametrize("rows", [4, 64])
+@pytest.mark.parametrize("class_id,e,k,n", DBRX_EXPERT_GEMMS)
+def test_grouped_matmul_at_dbrx_expert_shapes(card, class_id, e, k, n, rows):
+    """K1g at dbrx's two expert GEMMs under the default schedule, 4 rows per
+    expert (decode: the rows body) and 64 (a chunk: the tensor cores),
+    against the plain version, the last expert (past 2^32 bytes in the up
+    stack) held on its own too."""
+    g = torch.Generator(device=card).manual_seed(rows + n)
+    x = torch.randn((e, rows, k), generator=g, device=card).to(torch.bfloat16)
+    w = torch.empty((e, k, n), dtype=torch.bfloat16, device=card)
+    for i in range(e):   # one expert's f32 draw at a time
+        w[i] = torch.randn((k, n), generator=g, device=card) / k ** 0.5
+    cs = ops.schedule_for(ops.instance(class_id, torch.bfloat16, M=rows * e, N=n, K=k, E=e))
+    body = mm.body_for(torch.bfloat16, mm.schedule_key(cs)[0])
+    assert body == ("rows" if rows <= 16 else "mma")
+    before = mm.body_count(body, kernel="grouped_matmul", dtype=torch.bfloat16)
+    got = ops.moe_gemm(x, w, class_id=class_id)
+    assert mm.body_count(body, kernel="grouped_matmul", dtype=torch.bfloat16) == before + 1
+    want = ops.moe_gemm(x, w, class_id=class_id, backend="ref")
+    _close(got, want, BF16_TOL)
+    _close(got[-1], ref.matmul(x[-1], w[-1], class_id.replace("moe_gemm", "matmul")), BF16_TOL)
+
+
+def test_paged_engine_streams_equal_slot_at_full_width_mixtral(card):
+    """mixtral-8x22b at full width with 1 layer: the paged engine (4 lanes,
+    pages of 16, chunks of 64) gives the slot engine's streams (exact-length
+    prefill), at prompt lengths whose one-shot prefill takes no rows-body
+    tile in K1, K1g or the router, as the chunks do; K1g runs in the chunks
+    on the tensor cores and in decode on the rows body."""
+    import numpy as np
+
+    from repro_torch.serving import PagedServingEngine
+
+    cfg = dataclasses.replace(get_arch("mixtral-8x22b"), n_layers=1)
+    model = build_model(cfg, card)
+    params = model.init(seed=0)
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, size=n)]
+               for n in (100, 150, 96, 120)]
+    slot = ServingEngine(model, params, slots=4, max_len=512, prefill_buckets=False)
+    want = [slot.add_request(p, max_new_tokens=8) for p in prompts]
+    slot.run_to_completion()
+    del slot
+    mm.reset_launches()
+    eng = PagedServingEngine(model, params, decode_batch=4, max_ctx=512, page_size=16, chunk=64)
+    got = [eng.add_request(p, max_new_tokens=8) for p in prompts]
+    eng.run_to_completion(max_steps=512)
+    assert eng.prefill_padded_tokens == eng.prefill_true_tokens == sum(map(len, prompts))
+    assert [r.generated for r in got] == [r.generated for r in want]
+    assert all(len(r.generated) == 8 for r in got)
+    for body in ("mma", "rows"):
+        assert mm.body_count(body, kernel="grouped_matmul", dtype=torch.bfloat16) > 0

@@ -12,6 +12,7 @@ against a fresh one, a live defrag, preemption, paged against slot tokens,
 and lanes that decode beside a lane whose prefill is still in flight on a
 ring cache shorter than the context.
 """
+import dataclasses
 import random
 
 import pytest
@@ -42,7 +43,7 @@ from repro_torch.serving import (
 )
 
 TOL = dict(rtol=2e-4, atol=2e-4)
-ARCHS = ["minitron-4b", "rwkv6-1.6b", "recurrentgemma-2b", "mixtral-8x22b"]
+ARCHS = ["minitron-4b", "rwkv6-1.6b", "recurrentgemma-2b", "mixtral-8x22b", "dbrx-132b"]
 
 
 _PAIRS = {}
@@ -143,6 +144,61 @@ def test_attn_chunk_matches_reference(arch):
         for key in ("k", "v"):
             np.testing.assert_allclose(cache[key].numpy(), np.asarray(jcache[key]), **TOL)
         off += c
+
+
+def test_attn_chunk_with_a_window_past_the_cache_takes_k2(monkeypatch):
+    """mixtral's window (64 here) longer than its 32-long cache: the ring
+    never wraps, so the chunk takes the flash-attention kernel at q_offset
+    with the layer's window, as one-shot prefill does; its output and cache
+    agree with the reference's ring branch."""
+    from repro_torch.kernels import ops
+
+    jcfg = dataclasses.replace(jreduced(jget_arch("mixtral-8x22b")), window=64)
+    cfg = dataclasses.replace(reduced(get_arch("mixtral-8x22b")), window=64)
+    jp = jattn.attn_params(jax.random.PRNGKey(2), jcfg)
+    p = {k: torch.from_numpy(np.array(a)) for k, a in jp.items()}
+    calls = []
+    inner = ops.flash_attention
+
+    def recorded(*args, **kw):
+        calls.append((kw["q_offset"], kw["window"]))
+        return inner(*args, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", recorded)
+    rng = np.random.default_rng(4)
+    jcache = jattn.init_attn_cache(jcfg, "L", 1, 32)
+    cache = attn.init_attn_cache(cfg, "L", 1, 32, "cpu")
+    assert tuple(cache["k"].shape) == tuple(jcache["k"].shape) and cache["k"].shape[2] == 32
+    off = 0
+    for c in (5, 11, 16):
+        x = rng.standard_normal((1, c, cfg.d_model)).astype(np.float32)
+        pos = (off + np.arange(c))[None].astype(np.int32)
+        jy, jcache = jattn.attn_chunk(jp, jcfg, jnp.asarray(x), "L", positions=jnp.asarray(pos),
+                                      off=off, cache=jcache)
+        y, cache = attn.attn_chunk(p, cfg, torch.from_numpy(x), "L",
+                                   positions=torch.from_numpy(pos).long(), off=off, cache=cache)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(cache[key].numpy(), np.asarray(jcache[key]), **TOL)
+        off += c
+    assert calls == [(0, 64), (5, 64), (16, 64)]
+
+
+def test_engine_with_a_window_past_the_context_matches_reference():
+    """The paged engine over mixtral's window-64 layers in a 32-token
+    context (the port's chunks on the flash-attention kernel, the
+    reference's on its ring branch): equal ``planned_work()``, token streams
+    and final-chunk logits within 2e-4."""
+    jcfg = dataclasses.replace(jreduced(jget_arch("mixtral-8x22b")), window=64)
+    cfg = dataclasses.replace(reduced(get_arch("mixtral-8x22b")), window=64)
+    jmodel = jbuild_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(3))
+    model = build_model(cfg, "cpu")
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    kw = dict(decode_batch=3, max_ctx=32, page_size=4, chunk=6, record_logits=True)
+    prompts = _prompts(cfg.vocab_size, lens=(4, 13, 9, 20))
+    _step_both(JPagedServingEngine(jmodel, jparams, **kw), PagedServingEngine(model, params, **kw),
+               prompts)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

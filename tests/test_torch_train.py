@@ -43,7 +43,7 @@ from repro_torch.models.lm import trainable
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.tree import leaves, leaves_with_paths
 
-FAMILIES = ["gemma2-2b", "minitron-4b", "mixtral-8x22b", "rwkv6-1.6b", "recurrentgemma-2b",
+FAMILIES = ["gemma2-2b", "minitron-4b", "mixtral-8x22b", "dbrx-132b", "rwkv6-1.6b", "recurrentgemma-2b",
             "whisper-medium", "internvl2-26b"]
 LOSS_TOL = dict(rtol=2e-4, atol=2e-4)
 GRAD_REL = 5e-4
