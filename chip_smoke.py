@@ -14,7 +14,9 @@ toolkit.  Phases, one result line each:
    (``phase_l2_flush``: fixed reads timed after the timers' flush must not
    fall under their bytes bound);
 3. matmul — the matmul kernel against its plain version: every epilogue class
-   at small ragged shapes (bf16 and f32), then minitron-4b's main-path shapes,
+   at small ragged shapes (bf16 and f32), N tiles of 2 to 21 at an odd row
+   pitch (``NARROW_PARITY``: a CTA over a group of tiles, w read as shifted
+   aligned vectors, in every body), then minitron-4b's main-path shapes,
    timed beside the plain version and ``torch.matmul``, and under both the
    default schedule and 64x64 output tiles, each shape with its body, CTA
    tile, K split, CTA count and time over ``torch.matmul``'s in the same
@@ -311,6 +313,23 @@ same-call ratios.  K4's backward also runs at T = 37 from a state and in
 f32; at every shape its outputs' bits (sha256 of dx, da and the initial
 state's gradient at fixed seeded inputs) must agree between the turns and
 the trees, or the script fails.
+
+    python3 chip_smoke.py --head-ab PARENT
+
+times internvl2-26b's LM head (``INTERNVL2_HEAD``: d_model 6144, vocab
+92553, so an N tile of 3) in the tree at ``PARENT`` and in this one: the
+training forward at 3072 rows, its dX and dW gradient launches and the
+forward at 4 rows (decode), each checked against its plain version, by
+events and device time beside ``torch.matmul`` on the same operands, in
+turns (parent, this, this, parent), each turn in its own process; it prints
+the same-call ratios, each launch's body, CTA tile and count in both trees,
+and whether the two trees' outputs (sha256 at fixed seeded inputs) have the
+same bits.  A tree whose two turns give other bits fails the script.
+
+    python3 chip_smoke.py --profile-family ARCH
+
+profiles one train step of a ``FAMILIES`` arch alone in a fresh process
+(busy time and share, top ops) and prints each kernel's device ms a step.
 
     python3 chip_smoke.py --dist-ab PARENT
 
@@ -863,6 +882,21 @@ def z_output_checks(torch, timer) -> list:
     return rows
 
 
+#: the parity sweep's narrow N tiles at an odd row pitch (N = 457 or 92553:
+#: each row of w starts at another byte offset mod 16), a CTA covering a
+#: group of tiles, w read as shifted aligned vectors: (class, M, N, K,
+#: tiles, cache_write).  The rows body (K split; in rounding mode, bf16),
+#: the tensor-core body (bf16; f32: the CUDA-core body) plain and in
+#: rounding mode, a GLU at an N tile of 2, internvl2-26b's N tile of 3 at
+#: its full vocab
+NARROW_PARITY = (("matmul", 4, 457, 640, {"M": 4, "N": 3, "K": 640}, True),
+                 ("matmul", 4, 457, 640, {"M": 4, "N": 7, "K": 32}, False),
+                 ("matmul_lmhead", 300, 457, 192, {"M": 128, "N": 3, "K": 192}, True),
+                 ("matmul_bias", 100, 457, 96, {"M": 64, "N": 21, "K": 32}, False),
+                 ("matmul_silu_glu", 70, 458, 96, {"M": 64, "N": 2, "K": 96}, True),
+                 ("matmul_lmhead", 4, 92553, 256, {"M": 4, "N": 3, "K": 256}, True))
+
+
 def phase_matmul(torch, timer) -> dict:
     from repro_torch.core.schedule import Schedule, concretize
     from repro_torch.kernels import matmul as mm
@@ -871,8 +905,8 @@ def phase_matmul(torch, timer) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
     # every epilogue class, ragged shapes (rows body: M tile <= 16; tiled: above;
-    # N not a multiple of 8, or an N tile of 500, takes the scalar-load path),
-    # bf16 and f32
+    # N not a multiple of 8, or an N tile of 500, takes the shifted read of w),
+    # bf16 and f32; then a custom schedule and NARROW_PARITY
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         for class_id in ref.MATMUL_CLASSES:
             for m, n, k in ((5, 40, 24), (3, 50, 17), (4, 1000, 64), (70, 200, 33), (130, 96, 300)):
@@ -890,6 +924,14 @@ def phase_matmul(torch, timer) -> dict:
         errs[f"custom_schedule/{ops.dtype_name(dtype)}"] = assert_close(
             torch, mm.launch(x, w, cs, class_id="matmul_silu_glu", **kw),
             ref.matmul(x, w, "matmul_silu_glu", **kw), tol, "custom schedule")
+        for cid, m, n, k, tiles, cache_write in NARROW_PARITY:
+            cs = concretize(Schedule.make(cid, tiles, cache_write=cache_write),
+                            ops.instance(cid, dtype, M=m, N=n, K=k))
+            x, w, kw = _mm_inputs(torch, g, m, n, k, cid, dtype)
+            name = f"narrow/{cid}/{ops.dtype_name(dtype)}/{m}x{n}x{k}/N tile {tiles['N']}"
+            errs[name] = assert_close(torch, mm.launch(x, w, cs, class_id=cid, **kw),
+                                      ref.matmul(x, w, cid, round_k=mm.round_k_for(cs), **kw),
+                                      tol, name)
     log("matmul_classes", checks=len(errs), max_abs_err=max(errs.values()), tol=BF16_TOL,
         f32_tol=F32_TOL)
 
@@ -1631,6 +1673,122 @@ def scans_ab(parent: Path) -> int:
             parent_warm_held_ms=mean["parent"]["warm_held_ms"], warm_held_ms=mean["this"]["warm_held_ms"],
             parent_ms=mean["parent"]["ms"], ms=mean["this"]["ms"],
             ratio=ratio(mean["parent"]["ms"], mean["this"]["ms"]))
+    print(nvidia_smi())
+    return 0
+
+
+#: ``--head-ab``'s launches of internvl2-26b's LM head (:data:`INTERNVL2_HEAD`):
+#: the training forward, dX and dW, and the forward at 4 rows (decode)
+HEAD_LAUNCHES = ("fwd", "dx", "dw", "decode")
+#: timed calls of each launch in a ``--head-ab`` turn (with one CTA a
+#: 3-column tile the forward and dW take 0.56 and 0.93 s a call on an H100)
+HEAD_AB_ITERS = 5
+
+
+def time_head(torch, timer) -> list:
+    """One ``--head-ab`` turn, on the ``repro_torch`` on ``sys.path``:
+    internvl2-26b's LM head launches (:data:`HEAD_LAUNCHES`) at fixed seeded
+    inputs, each checked against its plain version (the forwards at the
+    bf16 tolerance, dX and dW at ``GRAD_SCALE_ATOL``·max|plain| +
+    ``GRAD_RTOL``·|plain|), then timed by events and on the device
+    (profiler) beside ``torch.matmul`` on the same operands, with its body,
+    CTA tile and count and its output's sha256."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+
+    t, d, v = INTERNVL2_HEAD
+    g = torch.Generator(device="cuda").manual_seed(47)
+    bf = torch.bfloat16
+    x = torch.randn((t, d), generator=g, device="cuda").to(bf)
+    w = (torch.randn((d, v), generator=g, device="cuda") / d ** 0.5).to(bf)
+    dz = (torch.randn((t, v), generator=g, device="cuda") / v ** 0.5).to(bf)
+    x4 = x[:4].contiguous()
+    rows = []
+    for launch in HEAD_LAUNCHES:
+        if launch in ("fwd", "decode"):
+            a, b = (x, w) if launch == "fwd" else (x4, w)
+            m, k, n = a.shape[0], d, v
+            cs = ops.schedule_for(ops.instance("matmul_lmhead", bf, M=m, N=n, K=k))
+            fn = lambda a=a, b=b, cs=cs: mm.launch(a, b, cs, class_id="matmul_lmhead")  # noqa: E731
+            geo = mm.launch_geometry(bf, m, n, k, cs.t["M"], cs.t["N"])
+            body, cta, ctas = geo[0], geo[1:3], geo[4]
+            tol = BF16_TOL
+        else:
+            a, b = (dz, w.T) if launch == "dx" else (x.T, dz)
+            (m, k), n = a.shape, b.shape[1]
+            fn = lambda a=a, b=b: mm.grad_launch(a, b)  # noqa: E731
+            geo = mm.grad_geometry(a, b)
+            body = geo["body"]
+            *cta, ctas = mm.grad_cta(body, m, n, geo["tile_m"], geo["tile_n"])
+            tol = None
+        got = fn()
+        want = ref.matmul(a, b)
+        scale = float(want.float().abs().max())
+        err = assert_close(torch, got, want, tol or dict(rtol=GRAD_RTOL, atol=GRAD_SCALE_ATOL * scale),
+                           f"internvl2 head {launch}")
+        del want
+        row = {"launch": launch, "M": m, "K": k, "N": n, "body": body,
+               "cta_tile": f"{cta[0]}x{cta[1]}", "ctas": ctas, "max_abs_err": err,
+               "digest": digest(torch, [got]),
+               "ms": timer.ms(fn, iters=HEAD_AB_ITERS, warmup=1),
+               "device_ms": timer.device_ms(fn, iters=HEAD_AB_ITERS),
+               "library_ms": timer.ms(lambda a=a, b=b: torch.matmul(a, b), iters=HEAD_AB_ITERS),
+               "library_device_ms": timer.device_ms(lambda a=a, b=b: torch.matmul(a, b),
+                                                    iters=HEAD_AB_ITERS)}
+        row["bound_ms"], row["bound_by"] = bound_ms(2 * (m * k + k * n + m * n), 2 * m * n * k)
+        rows.append(row)
+        del got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def head_ab(parent: Path) -> int:
+    """internvl2-26b's LM head launches (:func:`time_head`) of the tree at
+    ``parent`` (say, an unpacked parent commit) and of this tree, in turns
+    — parent, this, this, parent — each turn in its own process with that
+    tree's ``src`` first on the path.  Prints each turn's rows, then per
+    launch the mean event and device times of each tree, their ratios
+    (parent / this), each tree's ratio to ``torch.matmul`` in the same turns
+    and whether the two trees' outputs have the same bits.  Raises if a
+    tree's two turns give other bits."""
+    turns = [("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)]
+    got = collections.defaultdict(list)
+    for who, tree in turns:
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--time-head",
+                              str(tree / "src")], capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            sys.stderr.write(out.stderr[-4000:])
+            raise AssertionError(f"timing the head of {tree} failed ({out.returncode})")
+        for line in out.stdout.splitlines():
+            row = json.loads(line)
+            if "phase" in row:   # the turn's own log line (a dropped profiler capture, say)
+                log("head_turn_log", who=who, line=row)
+                continue
+            log("head_turn", who=who, **row)
+            got[(row["launch"], who)].append(row)
+    for launch in HEAD_LAUNCHES:
+        rows = {who: got[(launch, who)] for who in ("parent", "this")}
+        digests = {who: {r["digest"] for r in rows[who]} for who in rows}
+        if any(len(d) != 1 for d in digests.values()):
+            raise AssertionError(f"{launch}: a tree's two turns give other bits: {digests}")
+        mean = {who: {m: (None if any(r.get(m) is None for r in rows[who])
+                          else statistics.mean(r[m] for r in rows[who]))
+                      for m in ("ms", "device_ms", "library_ms", "library_device_ms")}
+                for who in rows}
+        p, t = mean["parent"], mean["this"]
+        log("head_ab", launch=launch, **{k: rows["this"][0][k] for k in ("M", "K", "N", "body",
+                                                                          "cta_tile", "ctas",
+                                                                          "bound_ms")},
+            parent_cta_tile=rows["parent"][0]["cta_tile"], parent_ctas=rows["parent"][0]["ctas"],
+            bits_equal=digests["parent"] == digests["this"],
+            parent_device_ms=p["device_ms"], device_ms=t["device_ms"],
+            device_ratio=ratio(p["device_ms"], t["device_ms"]),
+            parent_ms=p["ms"], ms=t["ms"], ratio=ratio(p["ms"], t["ms"]),
+            parent_library_device_ms=p["library_device_ms"],
+            library_device_ms=t["library_device_ms"],
+            parent_library_ms=p["library_ms"], library_ms=t["library_ms"],
+            parent_library_ratio=ratio(p["device_ms"], p["library_device_ms"]),
+            library_ratio=ratio(t["device_ms"], t["library_device_ms"]))
     print(nvidia_smi())
     return 0
 
@@ -4736,9 +4894,11 @@ def whisper_head_bwd_rows(torch, timer) -> list:
 
 #: internvl2-26b's LM head on the trainer's path, (M, K, N): 4 rows of 256
 #: patches and 512 tokens (the head reads every position), d_model 6144,
-#: vocab 92553 = 3 × 30851 (its forward's N tile is 3, ROADMAP B.7); rows
-#: of 92553 values are not 16-byte aligned, so both gradient launches take
-#: ``mma`` with operand modes
+#: vocab 92553 = 3 × 30851, so the forward's and dW's N tile is 3 (ROADMAP
+#: B.7) and a CTA covers a group of 3-column tiles: 42 in a 128-column
+#: ``mma`` CTA, 21 in a 64-column rows strip at decode; rows of 92553 values
+#: are not 16-byte aligned, so w and dZ are read as shifted aligned vectors
+#: and both gradient launches take ``mma`` with operand modes
 INTERNVL2_HEAD = (4 * (256 + 512), 6144, 92553)
 
 
@@ -4747,8 +4907,7 @@ def internvl2_head_rows(torch, timer) -> list:
     ``matmul_lmhead`` under its default schedule) against its plain version
     and timed by :func:`timed_matmul_row` beside ``torch.matmul``; dX and
     dW on the views ``MatmulFn.backward`` passes, checked and timed by
-    :func:`grad_timing` (one call a turn: the launches take 42–926 ms on
-    an H100); fails unless both gradient launches take ``mma``."""
+    :func:`grad_timing`; fails unless both gradient launches take ``mma``."""
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops, ref
 
@@ -4766,7 +4925,7 @@ def internvl2_head_rows(torch, timer) -> list:
     dz = (torch.randn((t, v), generator=g, device="cuda") / v ** 0.5).to(bf)
     for part, a, b in (("dx", dz, w.T), ("dw", x.T, dz)):
         row = {"name": f"internvl2_head_{part}",
-               **grad_timing(torch, timer, a, b, f"internvl2 head {part}", iters=1)}
+               **grad_timing(torch, timer, a, b, f"internvl2 head {part}")}
         if row["body"] != "mma":
             raise AssertionError(f"internvl2 head {part}: took {row['body']}, want mma")
         rows.append(row)
@@ -6086,24 +6245,47 @@ def profile_steps(torch) -> dict:
             del params, opt, step
     free_engines(torch)
     out["families"] = {}
-    for arch, layers, b, seq in FAMILIES:
-        fcfg = get_arch(arch)
-        if layers:
-            fcfg = dataclasses.replace(fcfg, n_layers=layers)
-        fmodel = build_model(fcfg, "cuda")
-        params = fmodel.init(0)
-        opt = steps_mod.init_opt_state(params)
-        step = steps_mod.make_train_step(fmodel, AdamWConfig(peak_lr=3e-3, warmup_steps=2,
-                                                             total_steps=FAMILY_STEPS))
-        data = family_batch(torch, fcfg, b, seq)
-        for _ in range(2):
-            step(params, opt, data)
-        out["families"][arch] = first_whole_capture(torch, f"{arch}_step",
-                                                    lambda: step(params, opt, data))
-        out["copies"][arch] = copy_split(torch, lambda: step(params, opt, data))
-        del fmodel, params, opt, step, data
+    for arch, *_ in FAMILIES:
+        run = family_step(torch, arch)
+        out["families"][arch] = first_whole_capture(torch, f"{arch}_step", run)
+        out["copies"][arch] = copy_split(torch, run)
+        del run
         free_engines(torch)
     return out
+
+
+def family_step(torch, arch: str):
+    """One train step of ``arch`` at its ``FAMILIES`` depth and batch, as a
+    call, after two unprofiled steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    _, layers, b, seq = next(f for f in FAMILIES if f[0] == arch)
+    fcfg = get_arch(arch)
+    if layers:
+        fcfg = dataclasses.replace(fcfg, n_layers=layers)
+    fmodel = build_model(fcfg, "cuda")
+    params = fmodel.init(0)
+    opt = steps_mod.init_opt_state(params)
+    step = steps_mod.make_train_step(fmodel, AdamWConfig(peak_lr=3e-3, warmup_steps=2,
+                                                         total_steps=FAMILY_STEPS))
+    data = family_batch(torch, fcfg, b, seq)
+    for _ in range(2):
+        step(params, opt, data)
+    return lambda: step(params, opt, data)
+
+
+def profile_family(torch, arch: str) -> dict:
+    """``--profile-family ARCH``: one ``FAMILIES`` step alone in a fresh
+    process (late in the whole script a capture may lose kernels, C.9): its
+    capture (:func:`first_whole_capture`: device busy ms and share, top
+    ops) and the device ms a step of each kernel (:meth:`Timer.kernel_ms`,
+    no L2 flush)."""
+    run = family_step(torch, arch)
+    return {"arch": arch, "capture": first_whole_capture(torch, f"{arch}_step", run),
+            "kernel_ms": Timer(torch, flush=None).kernel_ms(run, iters=2)}
 
 
 #: the sharded-serving phase (ROADMAP A.9b): (arch, layers, model axis), at
@@ -6451,10 +6633,24 @@ def main(argv: list[str]) -> int:
         return 1
     if argv[:1] == ["--scans-ab"] and len(argv) == 2:
         return scans_ab(Path(argv[1]).resolve())
+    if argv[:1] == ["--head-ab"] and len(argv) == 2:
+        return head_ab(Path(argv[1]).resolve())
+    if argv[:1] == ["--time-head"] and len(argv) == 2:   # one turn of --head-ab
+        import_port(Path(argv[1]))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for row in time_head(torch, Timer(torch)):
+            print(json.dumps(row), flush=True)
+        return 0
     if argv[:1] == ["--profile-steps"] and len(argv) <= 2:   # a fresh process for the captures
         import_port(Path(argv[1]).resolve() if len(argv) == 2 else ROOT / "src")
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps({"step_profiles": profile_steps(torch)}), flush=True)
+        return 0
+    if argv[:1] == ["--profile-family"] and len(argv) == 2:   # one family's step alone
+        import_port()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(profile_family(torch, argv[1])), flush=True)
+        print(nvidia_smi())
         return 0
     if argv == ["--tp-witness"]:
         import_port()

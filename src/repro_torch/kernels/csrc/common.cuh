@@ -64,4 +64,45 @@ __host__ __device__ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// p rounded down to 16 bytes: the aligned vector that holds *p, which lies
+// inside the same allocation (the allocator's blocks start on 16 bytes at
+// least), so reading it is safe wherever *p is
+template <typename T>
+__host__ __device__ inline const T* align_down16(const T* p) {
+  return reinterpret_cast<const T*>(reinterpret_cast<uintptr_t>(p) & ~static_cast<uintptr_t>(15));
+}
+
+// The 16 bytes that start `off` bytes (even, 0..14) into lo and run on into
+// hi: a row segment read as aligned vectors, shifted into place in
+// registers.  Constant register indices only (by 8, then 4, then 2 bytes).
+__device__ __forceinline__ uint4 shift16(uint4 lo, uint4 hi, int off) {
+  uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int i = 0; i < 6; ++i) w[i] = (off & 8) ? w[i + 2] : w[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) w[i] = (off & 4) ? w[i + 1] : w[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = (off & 2) ? __funnelshift_r(w[i], w[i + 1], 16) : w[i];
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// v with its bytes at and past `bytes` (even) zeroed
+__device__ __forceinline__ uint4 keep_bytes(uint4 v, int bytes) {
+  uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int b = bytes - 4 * j;
+    w[j] = b >= 4 ? w[j] : b >= 2 ? (w[j] & 0xffffu) : 0u;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Logical N tiles that one CTA of cta_n columns covers side by side
+// (kernels/matmul.py n_group): floor(cta_n / tile_n) where the N tile is
+// narrower than both N and the CTA, else 1.  A CTA's columns are then one
+// group of consecutive logical tiles, masked at the group's edge and N's.
+__host__ __device__ __forceinline__ int n_group(int n, int tile_n, int cta_n) {
+  return tile_n < n && tile_n < cta_n ? cta_n / tile_n : 1;
+}
+
 }  // namespace repro

@@ -36,23 +36,32 @@
 //    bit set; a K-major one as one 64-deep box.  The
 //    operations bound it at every training shape: at M, N >= ~300 the
 //    H100's tensor cores need ~295 bf16 operations per byte of HBM.
-//  * mma (other bf16: whisper-medium's LM head, whose rows of 51865
-//    elements are not 16-byte aligned).  The forward's mma.sync body
-//    (csrc/matmul.cu) with operand modes: A stored (K,M) is staged [k][m]
-//    and read with ldmatrix.trans, B stored (N,K) staged [n][k] and read
-//    with plain ldmatrix; 16-byte cp.async where a row allows it, guarded
-//    scalar loads where not.  A 4-deep ring of 32-deep stages, 128x128 or
-//    64x128 CTAs on 8 warps.
+//  * mma (other bf16: the LM heads of whisper-medium and internvl2-26b,
+//    whose rows of 51865 and 92553 elements are not 16-byte aligned).  The
+//    forward's mma.sync body (csrc/matmul.cu) with operand modes: A stored
+//    (K,M) is staged [k][m] and read with ldmatrix.trans, B stored (N,K)
+//    staged [n][k] and read with plain ldmatrix; 16-byte cp.async where a
+//    row allows it.  Where B stored (K,N) does not (dW's dZ at an odd N),
+//    each stage's rows are copied as the aligned vectors that span the CTA's
+//    columns and shifted into place in shared memory, as the forward does
+//    for w (kShiftB); elsewhere guarded scalar loads.  A 4-deep ring of
+//    32-deep stages, 128x128 or 64x128 CTAs on 8 warps.
 //  * fma (f32): CUDA-core FMA on 64x64x16 shared tiles, 4x4 per thread,
 //    strided scalar loads ordered so a warp's loads follow the contiguous
 //    dimension.  f32 stays off the tensor cores by rule (TF32 keeps about
 //    three decimal digits; the f32 tolerance is 2e-4).
 //
-// Logical tile and CTA tile, as in the forward's mma body: the schedule's
-// (tile_m x tile_n) output tile (kernels/matmul.py grad_schedule,
-// grouped_grad_schedule) is the unit of rasterisation and of edge masking;
-// each is covered by sub_m x sub_n CTAs numbered along N first, and a CTA
-// stores only the part of its tile inside the logical tile.
+// Logical tile, group and CTA tile, as in the forward (csrc/matmul.cu): the
+// schedule's (tile_m x tile_n) output tile (kernels/matmul.py grad_schedule,
+// grouped_grad_schedule) is the unit of rasterisation and of edge masking.
+// Where the N tile is narrower than both N and the CTA's columns, one CTA
+// covers n_group = floor(cta_n / tile_n) consecutive logical tiles along N
+// (internvl2-26b's dW at an N tile of 3: 42 in a 128-column CTA), in every
+// body; otherwise a group is one tile.  Groups are numbered in the
+// schedule's order; each is covered by sub_m x sub_n CTAs numbered along N
+// first, and a CTA stores only the part of its tile inside its group and N
+// (kernels/matmul.py grad_cta, cta_count).  No output's summation order
+// depends on which columns share its CTA.
 #include <cuda.h>
 #include <dlfcn.h>
 
@@ -70,8 +79,9 @@ struct GradArgs {
   long long a_ld, b_ld, a_batch, b_batch;   // elements; the batch strides per expert
   int a_t, b_t;                             // operand modes (see above)
   int m, n, k, groups;                      // per expert; groups = gridDim.y
-  int tile_m, tile_n, tiles_m, tiles_n, m_outer;   // logical tiles
-  int cta_m, cta_n, sub_m, sub_n, ctas;     // CTA tile, CTAs per logical tile, gridDim.x
+  int tile_m, tile_n, tiles_m, m_outer;     // logical tiles
+  int span_n, spans_n;                      // columns of one group of N tiles (n_group * tile_n), groups along N
+  int cta_m, cta_n, sub_m, sub_n, ctas;     // CTA tile, CTAs per logical tile (M) and group (N), gridDim.x
   int out_f32;                              // out is f32 (unrounded sums), else the operands' dtype
 };
 
@@ -92,17 +102,18 @@ __device__ __forceinline__ void store_pair(const GradArgs& a, size_t at, float y
   }
 }
 
-// This CTA's output rectangle [cm0, cm1) x [cn0, cn1): its logical tile in
-// the schedule's order, then its sub-tile (along N first), clipped to the
-// logical tile.  False: a ragged logical tile needs fewer sub-tiles.
+// This CTA's output rectangle [cm0, cm1) x [cn0, cn1): its group (logical
+// tile rows x span_n columns) in the schedule's order, then its sub-tile
+// (along N first), clipped to the group and N.  False: a ragged group needs
+// fewer sub-tiles.
 __device__ __forceinline__ bool cta_place(const GradArgs& a, int bm, int bn, int* cm0, int* cn0,
                                           int* cm1, int* cn1) {
   const int per_tile = a.sub_m * a.sub_n, sub = blockIdx.x % per_tile, t = blockIdx.x / per_tile;
   int tm, tn;
-  if (a.m_outer) { tm = t / a.tiles_n; tn = t % a.tiles_n; }
+  if (a.m_outer) { tm = t / a.spans_n; tn = t % a.spans_n; }
   else           { tn = t / a.tiles_m; tm = t % a.tiles_m; }
-  const int m0 = tm * a.tile_m, n0 = tn * a.tile_n;
-  const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.tile_n, a.n);
+  const int m0 = tm * a.tile_m, n0 = tn * a.span_n;
+  const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.span_n, a.n);
   *cm0 = m0 + (sub / a.sub_n) * bm;
   *cn0 = n0 + (sub % a.sub_n) * bn;
   *cm1 = min(*cm0 + bm, m1);
@@ -363,12 +374,21 @@ struct MmGradTile {
   static constexpr int kSmemBytes = kMmStages * kStageElems * 2;
   static constexpr int kChunksA = BM * kMmStageK / 8, kChunksB = kMmBN * kMmStageK / 8;
   static_assert(kChunksA % kMmThreads == 0 && kChunksB % kMmThreads == 0, "even staging");
+  // the shifted read of B stored (K,N): a stage's rows of kMmBN columns from
+  // any column as kMmBN / 8 + 1 aligned vectors (a row of kLdB), shifted into
+  // a staging buffer of one stage's B after the ring
+  static constexpr int kRawB = kMmBN / 8 + 1;
+  static constexpr int kShiftBytes = kMmStageK * kLdB * 2;
 };
 
-template <int BM, bool TA, bool TB>
+// kShiftB (B stored (K,N) only): B's rows, a group's first column or an
+// expert's B do not start on 16 bytes, so each stage is copied as aligned
+// vectors and shifted in shared memory (run_grad chooses)
+template <int BM, bool TA, bool TB, bool kShiftB>
 __global__ void __launch_bounds__(kMmThreads) matmul_grad_mma_kernel(GradArgs a) {
   using bf16 = __nv_bfloat16;
   using Tile = MmGradTile<BM, TA, TB>;
+  static_assert(!kShiftB || (!TB && Tile::kLdB == 8 * Tile::kRawB), "the shifted read is of B (K,N)");
   constexpr int kLdA = Tile::kLdA, kLdB = Tile::kLdB;
   extern __shared__ __align__(16) unsigned char mm_smem[];
   bf16* smem = reinterpret_cast<bf16*>(mm_smem);
@@ -380,7 +400,8 @@ __global__ void __launch_bounds__(kMmThreads) matmul_grad_mma_kernel(GradArgs a)
   // 16-byte cp.async only where every staged chunk starts on 16 bytes: the
   // rows, and along a contiguous M or N every logical tile's origin
   const bool vec_a = a.a_ld % 8 == 0 && aligned16(A) && (!TA || a.tile_m % 8 == 0);
-  const bool vec_b = a.b_ld % 8 == 0 && aligned16(B) && (TB || a.tile_n % 8 == 0);
+  const bool vec_b = a.b_ld % 8 == 0 && aligned16(B) && (TB || a.span_n % 8 == 0);
+  bf16* shifted = smem + kMmStages * Tile::kStageElems;   // kShiftB: one stage of B, in place
 
   // A's rows [cm0, cm1) and B's columns [cn0, cn1) of K slice [k0, k0 + 32)
   auto load_stage = [&](int slot, int k0) {
@@ -399,17 +420,21 @@ __global__ void __launch_bounds__(kMmThreads) matmul_grad_mma_kernel(GradArgs a)
         stage8(sa + r * kLdA + c, valid > 0 ? A + (size_t)gm * a.a_ld + gk : A, valid, vec_a);
       }
     }
+    if constexpr (kShiftB) {   // raw: the aligned vectors that hold columns [cn0, cn1) of each k row
+      stage_raw_rows<kMmStageK, Tile::kRawB, kMmThreads>(sb, B, a.b_ld, k0, a.k, cn0, cn1);
+    } else {
 #pragma unroll
-    for (int j = 0; j < Tile::kChunksB / kMmThreads; ++j) {
-      const int i = threadIdx.x + j * kMmThreads;
-      if (TB) {   // an n row of 8 k values
-        const int r = i / (kMmStageK / 8), c = (i % (kMmStageK / 8)) * 8, gn = cn0 + r, gk = k0 + c;
-        const int valid = gn < cn1 ? a.k - gk : 0;
-        stage8(sb + r * kLdB + c, valid > 0 ? B + (size_t)gn * a.b_ld + gk : B, valid, vec_b);
-      } else {    // a k row of 8 n values
-        const int r = i / (kMmBN / 8), c = (i % (kMmBN / 8)) * 8, gk = k0 + r, gn = cn0 + c;
-        const int valid = gk < a.k ? cn1 - gn : 0;
-        stage8(sb + r * kLdB + c, valid > 0 ? B + (size_t)gk * a.b_ld + gn : B, valid, vec_b);
+      for (int j = 0; j < Tile::kChunksB / kMmThreads; ++j) {
+        const int i = threadIdx.x + j * kMmThreads;
+        if (TB) {   // an n row of 8 k values
+          const int r = i / (kMmStageK / 8), c = (i % (kMmStageK / 8)) * 8, gn = cn0 + r, gk = k0 + c;
+          const int valid = gn < cn1 ? a.k - gk : 0;
+          stage8(sb + r * kLdB + c, valid > 0 ? B + (size_t)gn * a.b_ld + gk : B, valid, vec_b);
+        } else {    // a k row of 8 n values
+          const int r = i / (kMmBN / 8), c = (i % (kMmBN / 8)) * 8, gk = k0 + r, gn = cn0 + c;
+          const int valid = gk < a.k ? cn1 - gn : 0;
+          stage8(sb + r * kLdB + c, valid > 0 ? B + (size_t)gk * a.b_ld + gn : B, valid, vec_b);
+        }
       }
     }
   };
@@ -441,6 +466,11 @@ __global__ void __launch_bounds__(kMmThreads) matmul_grad_mma_kernel(GradArgs a)
 
     const bf16* sa = smem + (kt % kMmStages) * Tile::kStageElems;
     const bf16* sb = sa + Tile::kElemsA;
+    if constexpr (kShiftB) {
+      shift_raw_rows<kMmStageK, Tile::kRawB, kMmThreads>(shifted, sb, B, a.b_ld, kt * kMmStageK, cn0);
+      __syncthreads();   // every chunk shifted; the ring's raw slot is free again
+      sb = shifted;
+    }
 #pragma unroll
     for (int kk = 0; kk < kMmStageK; kk += 16) {
       // A fragments: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
@@ -620,21 +650,30 @@ int launch_wgmma_as(const GradArgs& a, cudaStream_t s) {
   return a.b_t ? launch_wgmma<BN, 0, 0>(a, s) : launch_wgmma<BN, 0, 1>(a, s);
 }
 
-template <int BM, bool TA, bool TB>
+template <int BM, bool TA, bool TB, bool kShiftB = false>
 int launch_mma_as(const GradArgs& a, cudaStream_t s) {
   using Tile = MmGradTile<BM, TA, TB>;
-  auto kernel = matmul_grad_mma_kernel<BM, TA, TB>;
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               Tile::kSmemBytes);
+  constexpr int smem = Tile::kSmemBytes + (kShiftB ? Tile::kShiftBytes : 0);
+  auto kernel = matmul_grad_mma_kernel<BM, TA, TB, kShiftB>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(a.ctas, a.groups), kMmThreads, Tile::kSmemBytes, s>>>(a);
+  kernel<<<dim3(a.ctas, a.groups), kMmThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// B stored (K,N) takes the shifted read where its rows, a group's first
+// column or an expert's B do not start on 16 bytes
+template <int BM, bool TA>
+int launch_mma_kn(const GradArgs& a, cudaStream_t s) {
+  const bool aligned = a.b_ld % 8 == 0 && aligned16(a.b) && a.span_n % 8 == 0 &&
+                       (a.groups == 1 || a.b_batch % 8 == 0);
+  return aligned ? launch_mma_as<BM, TA, false>(a, s) : launch_mma_as<BM, TA, false, true>(a, s);
 }
 
 template <int BM>
 int launch_mma(const GradArgs& a, cudaStream_t s) {
-  if (a.a_t) return a.b_t ? launch_mma_as<BM, true, true>(a, s) : launch_mma_as<BM, true, false>(a, s);
-  return a.b_t ? launch_mma_as<BM, false, true>(a, s) : launch_mma_as<BM, false, false>(a, s);
+  if (a.a_t) return a.b_t ? launch_mma_as<BM, true, true>(a, s) : launch_mma_kn<BM, true>(a, s);
+  return a.b_t ? launch_mma_as<BM, false, true>(a, s) : launch_mma_kn<BM, false>(a, s);
 }
 
 bool aligned_operand(const void* p, long long ld, long long batch, int groups) {
@@ -667,11 +706,14 @@ int run_grad(GradArgs& a, int dtype, int body, void* stream) {
                     : body == kMma   ? (a.cta_m == 128 || a.cta_m == 64) && a.cta_n == kMmBN
                                      : a.cta_m == kFmBM && a.cta_n == kFmBN;
   if (!cta_ok) return (int)cudaErrorInvalidValue;
+  // kernels/matmul.py cta_count: groups of n_group logical N tiles, each of
+  // sub_n CTAs; sub_m CTAs per logical tile along M
+  a.span_n = n_group(a.n, a.tile_n, a.cta_n) * a.tile_n;
   a.tiles_m = cdiv(a.m, a.tile_m);
-  a.tiles_n = cdiv(a.n, a.tile_n);
+  a.spans_n = cdiv(a.n, a.span_n);
   a.sub_m = cdiv(std::min(a.tile_m, a.m), a.cta_m);
-  a.sub_n = cdiv(std::min(a.tile_n, a.n), a.cta_n);
-  if ((long long)a.tiles_m * a.tiles_n * a.sub_m * a.sub_n != (long long)a.ctas)
+  a.sub_n = cdiv(std::min(a.span_n, a.n), a.cta_n);
+  if ((long long)a.tiles_m * a.spans_n * a.sub_m * a.sub_n != (long long)a.ctas)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (body) {

@@ -1,7 +1,8 @@
 // Tensor-core helpers shared by the matmul's mma body and the attention's
 // mma bodies (forward and backward): ldmatrix operand loads, the mma.sync
-// m16n8k16 bf16 x bf16 -> f32 product and bf16 row staging into padded
-// shared rows (the cp.async primitives are in common.cuh).
+// m16n8k16 bf16 x bf16 -> f32 product, bf16 row staging into padded shared
+// rows, and the shifted read of rows off 16 bytes (the matmul's and its
+// gradient's; the cp.async primitives are in common.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -44,6 +45,43 @@ __device__ __forceinline__ void stage8(__nv_bfloat16* dst, const __nv_bfloat16* 
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = i < valid ? src[i] : __float2bfloat16_rn(0.f);
     *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// The shifted read of a row-major bf16 matrix src (rows of ld elements)
+// whose rows do not start on 16 bytes, in two steps.  First a ring stage
+// of raw rows: for each of rows [k0, k0 + ROWS), the VECS aligned 16-byte
+// vectors that hold its columns [c0, c1), by cp.async into raw rows of 8 *
+// VECS elements (zeros for rows at and past k and for vectors that hold no
+// column of [c0, c1): such a vector may lie past the tensor).
+template <int ROWS, int VECS, int THREADS>
+__device__ __forceinline__ void stage_raw_rows(__nv_bfloat16* raw, const __nv_bfloat16* src,
+                                               long long ld, int k0, int k, int c0, int c1) {
+  for (int i = threadIdx.x; i < ROWS * VECS; i += THREADS) {
+    const int r = i / VECS, j = i % VECS, gk = k0 + r;
+    const __nv_bfloat16* row = src + (size_t)gk * ld;
+    const __nv_bfloat16* v = align_down16(row + c0) + 8 * j;
+    const bool live = gk < k && v < row + c1;
+    cp_async16(smem_addr(raw + r * 8 * VECS + 8 * j), live ? v : align_down16(src), live ? 16 : 0);
+  }
+}
+
+// Then, once that stage has landed: each raw row's VECS - 1 chunks of 16
+// bytes, shifted by the row's own byte offset, into dst (rows of the same
+// stride), where ldmatrix reads them.
+template <int ROWS, int VECS, int THREADS>
+__device__ __forceinline__ void shift_raw_rows(__nv_bfloat16* dst, const __nv_bfloat16* raw,
+                                               const __nv_bfloat16* src, long long ld, int k0,
+                                               int c0) {
+  constexpr int kChunks = ROWS * (VECS - 1);
+  static_assert(kChunks % THREADS == 0, "every thread shifts the same number of chunks");
+#pragma unroll
+  for (int j = 0; j < kChunks / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int r = i / (VECS - 1), c = (i % (VECS - 1)) * 8;
+    const int off = static_cast<int>(reinterpret_cast<uintptr_t>(src + (size_t)(k0 + r) * ld + c0) & 15);
+    const uint4* q = reinterpret_cast<const uint4*>(raw + r * 8 * VECS + c);
+    *reinterpret_cast<uint4*>(dst + r * 8 * VECS + c) = shift16(q[0], q[1], off);
   }
 }
 

@@ -21,10 +21,19 @@ kernel:
 
 * ``tiles["M"]``, ``tiles["N"]`` — the logical output tile: the unit of
   rasterisation and of edge masking.  How CTAs cover it depends on the body
-  (:func:`launch_geometry`):
+  (:func:`launch_geometry`).  Where the logical N tile is narrower than both
+  N and a CTA's columns (internvl2-26b's LM head: a vocab of 92553 = 3 ×
+  30851 gives an N tile of 3), one CTA covers a *group* of ⌊CTA columns /
+  N tile⌋ consecutive logical tiles along N (:func:`n_group`), each masked
+  at its own edge and the group at N's; groups are rasterised in the
+  schedule's order as the tiles are, and a GLU's even N tile keeps each
+  gate/up pair in one thread.  A tile at least as wide as the CTA, or all
+  of N (the routers'), is its own group, placed as before.  The schedule
+  and its key do not change; one formula (:func:`cta_count`) sizes every
+  grid and the kernel re-checks it.
 
   - **rows** (M tile ≤ 16, bf16 or f32: decode, the 1-row prefill LM head):
-    a CTA covers one 64-column strip of one logical tile, all its rows, over
+    a CTA covers one 64-column strip of one group (all its <= 16 rows), over
     one K slice (:func:`rows_geometry`).  Where the strips of all experts
     launch fewer than two CTAs per SM, K is split across CTAs: each slice
     writes f32 partial sums to a workspace the wrapper allocates, and a
@@ -32,17 +41,25 @@ kernel:
     float atomics).  ``split_k`` depends on K, N, the N tile and the expert
     count, never on M, so a row's bits are the same at M = 1 and M = 4.
   - **fma** (f32 with an M tile above 16: the router): one CTA per logical
-    tile, walking it in 64x64 blocks on the CUDA cores.
+    tile, walking it in 64x64 blocks on the CUDA cores (its CTA is the
+    logical tile, so no group forms; no f32 launch on any path has an N
+    tile narrower than its N).
   - **mma** (bf16 with an M tile above 16: every prefill projection and
     expert GEMM): the tensor cores.  Each CTA runs a compiled tile from
-    :data:`MMA_CTA_TILES`; a logical tile larger than it is covered by
-    several CTAs, numbered consecutively (along N first) so they run
-    together and share the tile's rows of ``x`` and columns of ``w`` in L2,
-    and a smaller one by one CTA masked at the tile's edge.
+    :data:`MMA_CTA_TILES`; a logical tile (or group) larger than it is
+    covered by several CTAs, numbered consecutively (along N first) so they
+    run together and share the tile's rows of ``x`` and columns of ``w`` in
+    L2, and a smaller one by one CTA masked at the tile's edge.
     :func:`tiled_geometry` chooses the CTA tile: the largest that fits the
-    logical tile and still launches :data:`SMS` CTAs (one per SM), where M
-    and N allow.  A tuned 64x64 schedule still gets 64x64 CTAs, and the
-    default 128x512 tile no longer caps a 256x3072 GEMM at 12 CTAs.
+    logical tile, or the group it would cover, and still launches
+    :data:`SMS` CTAs (one per SM), where M and N allow.  A tuned 64x64
+    schedule still gets 64x64 CTAs, and the default 128x512 tile no longer
+    caps a 256x3072 GEMM at 12 CTAs.
+
+  Rows of ``w`` that do not start on 16 bytes (an odd N) are read as the
+  aligned 16-byte vectors that span a CTA's columns and shifted into place
+  (in registers in the rows body; in shared memory, behind the mma body's
+  ``cp.async`` ring), never element by element.
 
   f32 stays off the tensor cores: TF32 keeps about three decimal digits and
   the f32 tolerance is 2e-4.  That is the dtype rule, not a fallback.
@@ -274,24 +291,37 @@ def schedule_key(cs: ConcreteSchedule) -> tuple[int, int, bool, int]:
     return tile_m, tile_n, order[0] == "M", round_k_for(cs)
 
 
+def n_group(n: int, tile_n: int, cta_n: int) -> int:
+    """Logical N tiles one CTA of ``cta_n`` columns covers side by side:
+    ⌊cta_n / tile_n⌋ where the N tile is narrower than both N and the CTA,
+    else 1 (a tile at least as wide as the CTA takes ceil(tile / cta) CTAs;
+    a tile that is all of N is placed as before).  The kernels compute the
+    same (csrc/common.cuh ``n_group``)."""
+    return cta_n // tile_n if tile_n < min(n, cta_n) else 1
+
+
 def tiled_geometry(m: int, n: int, tile_m: int, tile_n: int, groups: int = 1,
                    tiles: tuple[tuple[int, int], ...] = MMA_CTA_TILES) -> tuple[int, int, int]:
     """(cta_m, cta_n, ctas) of the mma body for an (m, n) output under
     (tile_m, tile_n) logical tiles; grouped, per expert, with ``groups``
     experts side by side on the card.
 
-    Each logical tile gets ceil(min(tile, extent) / cta) CTAs along each
-    axis; a ragged edge tile may leave some of them empty (they return at
-    once).  The CTA tile is the largest of :data:`MMA_CTA_TILES` that fits
-    the logical tile (rounded up to 64) and launches at least :data:`SMS`
-    CTAs over all experts; where none does, the one that launches the most.
-    ``tiles``: the compiled CTA tiles to choose from, largest first."""
-    tm, tn = min(tile_m, m), min(tile_n, n)
+    CTAs as :func:`cta_count` places them; a ragged edge tile may leave some
+    of them empty (they return at once).  The CTA tile is the largest of
+    :data:`MMA_CTA_TILES` that fits the logical tile (rounded up to 64; along
+    N, the group of :func:`n_group` tiles it would cover) and launches at
+    least :data:`SMS` CTAs over all experts; where none does, the one that
+    launches the most.  ``tiles``: the compiled CTA tiles to choose from,
+    largest first."""
+    tm = min(tile_m, m)
 
     def ctas(cta: tuple[int, int]) -> int:
         return cta_count(m, n, tile_m, tile_n, *cta)
 
-    fits = [c for c in tiles if c[0] <= 64 * _cdiv(tm, 64) and c[1] <= 64 * _cdiv(tn, 64)]
+    def span(cta_n: int) -> int:   # the columns a CTA of this width covers
+        return min(n_group(n, tile_n, cta_n) * tile_n, n)
+
+    fits = [c for c in tiles if c[0] <= 64 * _cdiv(tm, 64) and c[1] <= 64 * _cdiv(span(c[1]), 64)]
     fits = fits or [tiles[-1]]   # no compiled tile fits: the smallest, masked
     cta = next((c for c in fits if groups * ctas(c) >= SMS), max(fits, key=ctas))
     return (*cta, ctas(cta))
@@ -299,10 +329,13 @@ def tiled_geometry(m: int, n: int, tile_m: int, tile_n: int, groups: int = 1,
 
 def cta_count(m: int, n: int, tile_m: int, tile_n: int, cta_m: int, cta_n: int) -> int:
     """CTAs that cover an (m, n) output under (tile_m, tile_n) logical tiles
-    with (cta_m, cta_n) CTA tiles: per logical tile, ceil(min(tile, extent) /
-    cta) along each axis (the kernel's gridDim.x, per expert)."""
-    return (_cdiv(m, tile_m) * _cdiv(n, tile_n)
-            * _cdiv(min(tile_m, m), cta_m) * _cdiv(min(tile_n, n), cta_n))
+    with (cta_m, cta_n) CTA tiles (the kernel's gridDim.x, per expert):
+    along N the groups of :func:`n_group` logical tiles, each of
+    ceil(min(group, N) / cta_n) CTAs; along M ceil(min(tile, M) / cta_m)
+    CTAs per logical tile."""
+    span = n_group(n, tile_n, cta_n) * tile_n
+    return (_cdiv(m, tile_m) * _cdiv(min(tile_m, m), cta_m)
+            * _cdiv(n, span) * _cdiv(min(span, n), cta_n))
 
 
 def rows_k_slice(k: int, split_k: int) -> int:
@@ -317,16 +350,17 @@ def rows_geometry(m: int, n: int, k: int, tile_m: int, tile_n: int,
     depth k under (tile_m, tile_n) logical tiles; grouped, per expert, with
     ``groups`` experts side by side on the card.
 
-    A CTA covers one :data:`ROWS_CTA_N`-column strip of one logical tile
-    (all of its <= 16 rows) over one K slice, and never crosses the logical
-    tile's edge.  Where the strips of all experts launch fewer than
+    A CTA covers one :data:`ROWS_CTA_N`-column strip of one group of
+    :func:`n_group` logical N tiles (all of its <= 16 rows) over one K
+    slice, and never crosses the group's edge: at an N tile of 3, 21 tiles
+    (63 columns) a CTA.  Where the strips of all experts launch fewer than
     :data:`ROWS_MIN_CTAS`, K is split into ``split_k`` slices of at least
     :data:`ROWS_MIN_SLICE` rows, summed in slice order by a second pass.
     ``split_k`` depends on k, n, tile_n and groups only, never on m, so a
     row's summation order (and its bits) is the same at M = 1 and M = 4.
     In rounding mode (``round_k`` > 0) K is never split: one CTA chains the
     K tiles in order."""
-    strips = _cdiv(n, tile_n) * _cdiv(min(tile_n, n), ROWS_CTA_N)
+    strips = cta_count(1, n, 1, tile_n, 1, ROWS_CTA_N)   # of one row of logical tiles
     split_k = 1
     if groups * strips < ROWS_MIN_CTAS and not round_k:
         split_k = max(1, min(_cdiv(ROWS_MIN_CTAS, groups * strips), k // ROWS_MIN_SLICE))
@@ -339,7 +373,8 @@ def launch_geometry(dtype: torch.dtype, m: int, n: int, k: int, tile_m: int, til
     """(body, cta_m, cta_n, split_k, ctas) of a launch, CTAs per expert: the
     rows body's strips and K slices from :func:`rows_geometry`, the mma
     body's CTA tiles from :func:`tiled_geometry`, one CTA per logical tile
-    in the fma body.  The kernel re-checks it and refuses a mismatch."""
+    in the fma body (:func:`cta_count` with the logical tile as the CTA's).
+    The kernel re-checks it and refuses a mismatch."""
     body = body_for(dtype, tile_m)
     if body == "rows":
         cta_n, split_k, ctas = rows_geometry(m, n, k, tile_m, tile_n, groups, round_k)
@@ -582,9 +617,9 @@ def grad_geometry(a: torch.Tensor, b: torch.Tensor, cs: ConcreteSchedule | None 
     operands are 16-byte aligned (:func:`_aligned16`) and, along an
     operand's contiguous M or N, the logical tile is a multiple of 8 (TMA's
     boxes start on 16 bytes): every training shape of gemma2, rwkv6,
-    recurrentgemma and mixtral; else ``mma`` with operand modes
-    (whisper-medium's LM head: rows of 51865 values).  Any device: the CPU
-    tests reach it."""
+    recurrentgemma and mixtral; else ``mma`` with operand modes (the LM
+    heads of whisper-medium and internvl2-26b: rows of 51865 and 92553
+    values).  Any device: the CPU tests reach it."""
     if a.dtype not in DTYPES or b.dtype != a.dtype:
         raise ValueError(f"gradient launch takes bf16 or f32 operands of one dtype, "
                          f"got {a.dtype}, {b.dtype}")
@@ -605,7 +640,9 @@ def grad_geometry(a: torch.Tensor, b: torch.Tensor, cs: ConcreteSchedule | None 
 def grad_cta(body: str, m: int, n: int, tile_m: int, tile_n: int,
              groups: int = 1) -> tuple[int, int, int]:
     """(cta_m, cta_n, ctas) of a gradient launch, CTAs per expert: the
-    body's CTA tile (:data:`GRAD_CTA_TILES`) covering each logical tile.
+    body's CTA tile (:data:`GRAD_CTA_TILES`) covering each logical tile, or
+    each group of :func:`n_group` tiles narrower than it (:func:`cta_count`:
+    internvl2-26b's dW at an N tile of 3 takes 42 a CTA).
     ``wgmma`` takes 128x256 where a logical tile's columns are whole 256s
     (none of its CTAs half idle) and the launch still makes two waves of
     the card (a 2048x2304 output under 384-column tiles keeps 128x128: 288

@@ -387,6 +387,78 @@ def test_rows_body_bits_do_not_depend_on_m(card, dtype, kind, class_id, e, k, n)
         assert torch.equal(one, four[i:i + 1] if kind == "K1" else four[:, i:i + 1])
 
 
+# narrow N tiles at an odd row pitch (N = 457, prime: every row of w starts
+# at another byte offset mod 16), every body: (kernel, class, E, rows per
+# expert, K, M tile, rounding).  The rows body (4-row tiles, K split and in
+# rounding mode), mma (plain and rounding, 128- and 64-row tiles), fma (f32),
+# K1g on both bodies, a GLU at even tiles (N = 458)
+NARROW_CASES = [("K1", "matmul", 1, 4, 640, 4, False), ("K1", "matmul", 1, 4, 640, 4, True),
+                ("K1", "matmul_lmhead", 1, 300, 192, 128, False),
+                ("K1", "matmul_bias", 1, 100, 96, 64, True),
+                ("K1g", "moe_gemm", 3, 4, 320, 4, False), ("K1g", "moe_gemm", 3, 130, 96, 64, False),
+                ("K1", "matmul_silu_glu", 1, 70, 96, 64, False),
+                ("K1", "matmul_silu_glu", 1, 4, 640, 4, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tile_n", [1, 2, 3, 7, 21, 63, 64, 65])
+@pytest.mark.parametrize("kind,class_id,e,m,k,tile_m,rounding", NARROW_CASES)
+def test_narrow_n_tiles_at_an_odd_pitch_match_plain(card, dtype, tile_n, kind, class_id, e, m, k,
+                                                    tile_m, rounding):
+    """A CTA covering a group of N tiles narrower than itself, each masked
+    at its own edge, with rows of w read as shifted aligned vectors, against
+    the plain version (with the same rounding K tile)."""
+    from repro_torch.core.schedule import Schedule, concretize
+
+    glu = "glu" in class_id
+    if glu and tile_n % 2:
+        pytest.skip("a GLU's N tile is even")
+    dt = getattr(torch, dtype)
+    n = 458 if glu else 457
+    g = torch.Generator(device="cuda").manual_seed(tile_n + m + k)
+    lead = (e,) if kind == "K1g" else ()
+    x = torch.randn((*lead, m, k), generator=g, device="cuda").to(dt)
+    w = (torch.randn((*lead, k, n), generator=g, device="cuda") / k ** 0.5).to(dt)
+    tiles = {"M": tile_m, "N": tile_n, "K": 32 if rounding else k, **({"E": 1} if lead else {})}
+    inst = (ops.instance(class_id, dt, M=m, N=n, K=k) if not lead
+            else ops.instance(class_id, dt, M=m * e, N=n, K=k, E=e))
+    cs = concretize(Schedule.make(class_id, tiles, cache_write=not rounding), inst)
+    rk = mm.round_k_for(cs)
+    assert bool(rk) == (rounding and dt == torch.bfloat16)
+    if lead:
+        got, want = mm.grouped_matmul(x, w, cs, class_id=class_id), ref.grouped_matmul(
+            x, w, class_id, round_k=rk)
+    else:
+        bias = torch.randn((n,), generator=g, device="cuda").to(dt) if "bias" in class_id else None
+        got = mm.matmul(x, w, cs, class_id=class_id, bias=bias)
+        want = ref.matmul(x, w, class_id, bias=bias, round_k=rk)
+    _close(got, want, TOL if dt == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("m,tile_m,n", [(4, 4, 30851), (128, 128, 4099)])
+def test_n_tile_3_and_63_are_bit_equal(card, m, tile_m, n):
+    """The same launch at N tile 3 (21 tiles a 64-column CTA) and at N tile
+    63 (one tile a CTA): both place 63 columns a CTA, one K slice each and
+    the same CTA tile (rows: 490 strips, no K split; mma: 64x64, 132 CTAs),
+    so every output's bits are the same (no output's summation order
+    depends on which columns share its CTA).  N is odd: rows off 16 bytes."""
+    from repro_torch.core.schedule import Schedule, concretize
+
+    k = 3072
+    g = torch.Generator(device="cuda").manual_seed(m)
+    x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((k, n), generator=g, device="cuda") / k ** 0.5).bfloat16()
+    inst = ops.instance("matmul_lmhead", torch.bfloat16, M=m, N=n, K=k)
+    outs, geos = [], []
+    for tile_n in (3, 63):
+        cs = concretize(Schedule.make("matmul_lmhead", {"M": tile_m, "N": tile_n, "K": k}), inst)
+        geos.append(mm.launch_geometry(torch.bfloat16, m, n, k, tile_m, tile_n)[:4])
+        outs.append(mm.launch(x, w, cs, class_id="matmul_lmhead"))
+    assert geos[0] == geos[1] and geos[0][3] == 1
+    _equal_bits(outs[0], outs[1])
+    _close(outs[0], ref.matmul(x, w, "matmul_lmhead"), BF16_TOL)
+
+
 # rounding mode (cache_write=False): (rows per expert, M tile), (K, K tile):
 # the rows body at 4 rows and the tensor-core body at 256, K tiles of 16
 # and 128 at K = 2048, 40 (not a multiple of 16) at 2560, 8 at 1024, and 3
@@ -1073,15 +1145,46 @@ def test_grad_launch_masks_at_the_logical_tile(card, dtype, tiles, order):
     _close(got, ref.matmul(a, b), _tol(dt))
 
 
-def test_grad_launch_at_an_unaligned_head(card):
-    """whisper-medium's LM head at a few rows: rows of 51865 values are not
-    16-byte aligned, so dX = dZ·wᵀ and dW = xᵀ·dZ (and a tied head's dE =
-    dZᵀ·x) take ``mma`` with operand modes, against the plain version."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("tile_n", [1, 2, 3, 7, 21, 63, 64, 65])
+@pytest.mark.parametrize("e", [0, 3])
+def test_grad_launch_at_narrow_n_tiles(card, dtype, tile_n, e):
+    """dW's layout (A = xᵀ, B = dZ stored (K, N)) at an odd N (457) under N
+    tiles from 1 to 65: groups of tiles narrower than the CTA, B's rows
+    read as shifted aligned vectors (``mma`` with operand modes; ``fma`` in
+    f32), against the plain version on the same views."""
+    from repro_torch.core.schedule import Schedule, concretize
+
+    dt = getattr(torch, dtype)
+    m, k, n = 200, 96, 457
+    g = torch.Generator(device="cuda").manual_seed(tile_n + e)
+    a, b = _operand(g, e, m, k, 1, dt), _operand(g, e, k, n, 0, dt, k ** -0.5)
+    inst = (ops.instance("moe_gemm", dt, M=m * e, N=n, K=k, E=e) if e
+            else ops.instance("matmul", dt, M=m, N=n, K=k))
+    cs = concretize(Schedule.make(inst.class_id, {"M": 64, "N": tile_n, "K": k,
+                                                  **({"E": 1} if e else {})}), inst)
+    assert mm.grad_geometry(a, b, cs)["body"] == ("mma" if dt == torch.bfloat16 else "fma")
+    got = mm._grad_run(a, b, cs, "grouped_matmul" if e else "matmul")
+    want = ref.grouped_matmul(a, b) if e else ref.matmul(a, b)
+    _close(got, want, _tol(dt))
+
+
+@pytest.mark.parametrize("vocab", [51865, 92553])
+def test_grad_launch_at_an_unaligned_head(card, vocab):
+    """whisper-medium's and internvl2-26b's LM heads at a few rows: rows of
+    51865 and 92553 values are not 16-byte aligned, so dX = dZ·wᵀ and dW =
+    xᵀ·dZ (and a tied head's dE = dZᵀ·x) take ``mma`` with operand modes,
+    against the plain version; internvl2's dW at its N tile of 3, 42 tiles
+    a CTA, dZ read as shifted aligned vectors."""
     g = torch.Generator(device="cuda").manual_seed(6)
     bf = torch.bfloat16
-    dz = (torch.randn((96, 51865), generator=g, device="cuda") / 200).to(bf)
-    w = torch.randn((64, 51865), generator=g, device="cuda").to(bf)
+    dz = (torch.randn((96, vocab), generator=g, device="cuda") / 200).to(bf)
+    w = torch.randn((64, vocab), generator=g, device="cuda").to(bf)
     x = torch.randn((96, 64), generator=g, device="cuda").to(bf)
+    if vocab == 92553:
+        geo = mm.grad_geometry(x.T, dz)
+        assert geo["tile_n"] == 3
+        assert mm.n_group(vocab, 3, mm.grad_cta("mma", 64, vocab, geo["tile_m"], 3)[1]) == 42
     for a, b in ((dz, w.T), (x.T, dz), (dz.T, x)):
         assert _grad_body(a, b) == "mma"
         before = mm.grad_body_launches["matmul", "mma", bf]

@@ -183,29 +183,75 @@ def test_grouped_geometry_clamps_tiles_to_one_expert():
         mm.grouped_launch(x, w, cs)
 
 
+def _group(n, tile_n, cta_n):
+    """Logical N tiles one CTA covers, as csrc/common.cuh n_group states it:
+    floor(cta_n / tile_n) where the N tile is narrower than both N and the
+    CTA, else 1."""
+    return cta_n // tile_n if tile_n < min(n, cta_n) else 1
+
+
 def _cta_regions(m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas):
-    """The output region and K slice of every CTA, as csrc/matmul.cu places
-    them: CTA b runs sub-tile (b % per_tile) // split_k (along N first; a
-    64-column strip in the rows body) and K slice b % split_k of logical
-    tile b // per_tile (in the schedule's order), masked at that logical
-    tile's edge.  Yields (b, logical tile (m0, m1, n0, n1), CTA region,
-    slice j, (k0, k1))."""
+    """The output region and K slice of every CTA, as csrc/matmul.cu (and
+    csrc/matmul_grad.cu, split_k 1) place them: CTA b runs sub-tile (b %
+    per_group) // split_k (along N first; a 64-column strip in the rows
+    body) and K slice b % split_k of group b // per_group (in the
+    schedule's order): a logical tile's rows by ``_group`` consecutive
+    logical N tiles, masked at the group's edge and N's.  Yields (b, group
+    (m0, m1, n0, n1), CTA region, slice j, (k0, k1))."""
     cdiv = lambda a, b: -(-a // b)  # noqa: E731
-    tiles_m, tiles_n = cdiv(m, tile_m), cdiv(n, tile_n)
-    sub_m, sub_n = cdiv(min(tile_m, m), cta_m), cdiv(min(tile_n, n), cta_n)
-    per_tile = sub_m * sub_n * split_k
-    assert tiles_m * tiles_n * per_tile == ctas
+    span = _group(n, tile_n, cta_n) * tile_n
+    tiles_m, spans_n = cdiv(m, tile_m), cdiv(n, span)
+    sub_m, sub_n = cdiv(min(tile_m, m), cta_m), cdiv(min(span, n), cta_n)
+    per_group = sub_m * sub_n * split_k
+    assert tiles_m * spans_n * per_group == ctas
     k_slice = mm.rows_k_slice(k, split_k)
     for b in range(ctas):
-        t, rem = divmod(b, per_tile)
+        t, rem = divmod(b, per_group)
         s, j = divmod(rem, split_k)
-        tm, tn = divmod(t, tiles_n) if m_outer else (t % tiles_m, t // tiles_m)
-        m0, n0 = tm * tile_m, tn * tile_n
-        m1, n1 = min(m0 + tile_m, m), min(n0 + tile_n, n)
+        tm, tn = divmod(t, spans_n) if m_outer else (t % tiles_m, t // tiles_m)
+        m0, n0 = tm * tile_m, tn * span
+        m1, n1 = min(m0 + tile_m, m), min(n0 + span, n)
         cm0, cn0 = m0 + (s // sub_n) * cta_m, n0 + (s % sub_n) * cta_n
-        if cm0 < m1 and cn0 < n1:   # a ragged logical tile may need fewer CTAs
+        if cm0 < m1 and cn0 < n1:   # a ragged group may need fewer CTAs
             yield (b, (m0, m1, n0, n1), (cm0, min(cm0 + cta_m, m1), cn0, min(cn0 + cta_n, n1)),
                    j, (j * k_slice, min((j + 1) * k_slice, k)))
+
+
+def _check_cover(m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas, glu):
+    """The placement's invariant: every output is covered by exactly one CTA
+    in each K slice, and the K slices partition K, in order, none empty; a
+    group is whole logical tiles, and one logical tile where the tile is at
+    least as wide as the CTA or all of N (placed as before); a logical tile
+    narrower than a CTA lies whole inside one CTA; no CTA crosses N's edge
+    or its group's (nor, so, its expert's); the CTAs of one group are
+    numbered consecutively; a GLU CTA starts on an even column and spans
+    whole pairs."""
+    cover = np.zeros((split_k, m, n), dtype=np.int64)
+    slices, first = {}, {}
+    tn = min(tile_n, n)
+    per_group = (-(-min(tile_m, m) // cta_m) * -(-min(_group(n, tile_n, cta_n) * tile_n, n) // cta_n)
+                 * split_k)
+    for b, (m0, m1, n0, n1), (cm0, cm1, cn0, cn1), j, (k0, k1) in _cta_regions(
+            m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas):
+        assert m0 <= cm0 < cm1 <= m1 <= m and n0 <= cn0 < cn1 <= n1 <= n
+        assert m0 % tile_m == 0 and n0 % tile_n == 0 and (n1 == n or (n1 - n0) % tile_n == 0)
+        if tn >= cta_n or tile_n >= n:
+            assert n1 - n0 == min(tile_n, n - n0)
+        if tn < cta_n:   # whole logical tiles inside the CTA
+            assert cn0 % tile_n == 0 and (cn1 == n or cn1 % tile_n == 0)
+        first.setdefault((m0, n0), b)
+        assert b - first[(m0, n0)] < per_group
+        if glu:
+            assert cn0 % 2 == 0 and (cn1 - cn0) % 2 == 0
+        cover[j, cm0:cm1, cn0:cn1] += 1
+        slices[j] = (k0, k1)
+    assert (cover == 1).all()
+    # the K slices partition K, in order, none empty
+    assert sorted(slices) == list(range(split_k))
+    bounds = [slices[j] for j in range(split_k)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(k0 < k1 for k0, k1 in bounds)
+    assert all(bounds[j][1] == bounds[j + 1][0] for j in range(split_k - 1))
 
 
 def _launch_case(kind, class_id, dtype, e, m, n, k, tiles):
@@ -266,10 +312,11 @@ GEOMETRY_CASES = [
 @pytest.mark.parametrize("kind,class_id,e,m,n,k,tiles", GEOMETRY_CASES)
 def test_cta_geometry_covers_every_output_once(dtype, kind, class_id, e, m, n, k, tiles):
     """Every output element of each expert is covered by exactly one CTA in
-    each K slice, and the K slices partition K; no CTA crosses its logical
-    tile's (and so its expert's) edge; the CTAs of one logical tile are
-    numbered consecutively; a GLU CTA starts on an even column and spans
-    whole pairs."""
+    each K slice, and the K slices partition K; a logical tile narrower than
+    a CTA lies whole inside one; no CTA crosses N's edge or its group's (and
+    so its expert's); the CTAs of one group are numbered consecutively; a
+    GLU CTA starts on an even column and spans whole pairs
+    (:func:`_check_cover`)."""
     dt = getattr(torch, dtype)
     m, n, tile_m, tile_n, m_outer, e = _launch_case(kind, class_id, dt, e, m, n, k, tiles)
     body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(dt, m, n, k, tile_m, tile_n, e)
@@ -282,27 +329,164 @@ def test_cta_geometry_covers_every_output_once(dtype, kind, class_id, e, m, n, k
     else:
         assert (cta_m, cta_n) == (tile_m, tile_n)
     assert split_k >= 1 and (body == "rows" or split_k == 1)
-    cover = np.zeros((split_k, m, n), dtype=np.int64)
-    slices = {}
-    first = {}
-    for b, (m0, m1, n0, n1), (cm0, cm1, cn0, cn1), j, (k0, k1) in _cta_regions(
-            m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas):
-        assert m0 <= cm0 < cm1 <= m1 <= m and n0 <= cn0 < cn1 <= n1 <= n
-        first.setdefault((m0, n0), b)
-        assert b - first[(m0, n0)] < (-(-min(tile_m, m) // cta_m) * -(-min(tile_n, n) // cta_n)
-                                      * split_k)
-        if class_id in GLU_CLASSES:
-            assert cn0 % 2 == 0 and (cn1 - cn0) % 2 == 0
-        cover[j, cm0:cm1, cn0:cn1] += 1
-        slices[j] = (k0, k1)
-    assert (cover == 1).all()
-    # the K slices partition K, in order, none empty
-    assert sorted(slices) == list(range(split_k))
-    bounds = [slices[j] for j in range(split_k)]
-    assert bounds[0][0] == 0 and bounds[-1][1] == k
-    assert all(k0 < k1 for k0, k1 in bounds)
-    assert all(bounds[j][1] == bounds[j + 1][0] for j in range(split_k - 1))
+    _check_cover(m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas,
+                 class_id in GLU_CLASSES)
 
+
+#: narrow and wide N tiles over ragged N (457 is prime; GLU cases take the
+#: even N 458 and even tiles): 1, 2, 3, 5, 7, 21 and 63 group, 64 and 65 do not
+NARROW_N_TILES = (1, 2, 3, 5, 7, 21, 63, 64, 65)
+
+
+def _narrow_cases():
+    """(kind, class, E, rows per expert, N, K, (M tile, N tile), round)
+    for every body and tile of :data:`NARROW_N_TILES`: rows (4-row tiles,
+    with and without rounding), mma (128- and 64-row tiles), fma (f32), K1g
+    on rows and mma, the gradient launch (``mma`` with operand modes: rows
+    of 457 values are not 16-byte aligned; ``fma`` in f32), 2-D and per
+    expert; GLU at the even tiles."""
+    cases = []
+    for t in NARROW_N_TILES:
+        cases += [("grad", "matmul", 1, 300, 457, 64, (128, t), False),
+                  ("grad", "moe_gemm", 3, 130, 457, 64, (64, t), False),
+                  ("K1", "matmul", 1, 4, 457, 640, (4, t), False),
+                  ("K1", "matmul", 1, 4, 457, 640, (4, t), True),
+                  ("K1", "matmul_lmhead", 1, 300, 457, 64, (128, t), False),
+                  ("K1", "matmul", 1, 100, 457, 64, (64, t), True),
+                  ("K1g", "moe_gemm", 3, 4, 457, 300, (4, t), False),
+                  ("K1g", "moe_gemm", 3, 130, 457, 64, (64, t), False)]
+        if t % 2 == 0:
+            cases += [("K1", "matmul_silu_glu", 1, 4, 458, 300, (4, t), False),
+                      ("K1", "matmul_gelu_glu", 1, 70, 458, 64, (64, t), False),
+                      ("K1g", "moe_gemm_silu_glu", 2, 70, 458, 64, (64, t), False)]
+    return cases
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind,class_id,e,m,n,k,tiles,rounding", _narrow_cases())
+def test_narrow_n_tiles_cover_every_output_once(dtype, kind, class_id, e, m, n, k, tiles,
+                                                rounding):
+    """N tiles from 1 to 65 over ragged N in every body (bf16: rows, rows in
+    rounding mode, mma; f32: rows, fma), K1, K1g and the gradient launch
+    (its ``mma`` with operand modes, its ``fma``): the placement's
+    invariant holds (:func:`_check_cover`), a tile narrower than the CTA
+    takes groups of ⌊CTA columns / N tile⌋ tiles, and the grid is
+    :func:`~repro_torch.kernels.matmul.cta_count`'s."""
+    dt = getattr(torch, dtype)
+    order = ("M", "N") if m % 2 else ("N", "M")   # both rasterisations
+    tile_k = 32 if rounding else k
+    if kind == "grad":   # dW's layout: a = xᵀ, b = dZ (K, N), N-contiguous
+        lead = (e,) if e > 1 else ()
+        a = torch.empty((*lead, k, m), dtype=dt, device="meta").transpose(-1, -2)
+        b = torch.empty((*lead, k, n), dtype=dt, device="meta")
+        inst = ops.instance(class_id, dt, M=m * e, N=n, K=k, **({"E": e} if e > 1 else {}))
+        cs = concretize(Schedule.make(class_id, {"M": tiles[0], "N": tiles[1], "K": k,
+                                                 **({"E": 1} if e > 1 else {})},
+                                      order=(*order, *(("E",) if e > 1 else ()), "K")), inst)
+        geo = mm.grad_geometry(a, b, cs)
+        assert geo["body"] == ("mma" if dt == torch.bfloat16 else "fma")
+        assert geo["tile_n"] == tiles[1]
+        cta_m, cta_n, ctas = mm.grad_cta(geo["body"], m, n, geo["tile_m"], tiles[1], e)
+        assert ctas == mm.cta_count(m, n, geo["tile_m"], tiles[1], cta_m, cta_n)
+        _check_cover(m, n, k, geo["tile_m"], tiles[1], geo["m_outer"], cta_m, cta_n, 1, ctas,
+                     False)
+        return
+    if kind == "K1":
+        inst = ops.instance(class_id, dt, M=m, N=n, K=k)
+        sched = Schedule.make(class_id, {"M": tiles[0], "N": tiles[1], "K": tile_k},
+                              order=(*order, "K"), cache_write=not rounding)
+    else:
+        inst = ops.instance(class_id, dt, M=m * e, N=n, K=k, E=e)
+        sched = Schedule.make(class_id, {"M": tiles[0], "N": tiles[1], "K": tile_k, "E": 1},
+                              order=(*order, "E", "K"), cache_write=not rounding)
+    cs = concretize(sched, inst)
+    tile_m, tile_n, m_outer, round_k = mm.schedule_key(cs)
+    assert tile_n == tiles[1] and bool(round_k) == (rounding and dt == torch.bfloat16
+                                                   and class_id not in GLU_CLASSES)
+    body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(dt, m, n, k, tile_m, tile_n, e,
+                                                           round_k)
+    assert body == mm.body_for(dt, tile_m)
+    assert ctas == mm.cta_count(m, n, tile_m, tile_n, cta_m, cta_n) * split_k
+    if body != "fma":
+        assert mm.n_group(n, tile_n, cta_n) == (cta_n // tile_n if tile_n < cta_n else 1)
+    _check_cover(m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas,
+                 class_id in GLU_CLASSES)
+
+
+#: internvl2-26b's LM head (d_model 6144, vocab 92553 = 3 × 30851, N tile 3)
+#: at decode (4 slots) and on its training path (4 × (256 + 512) rows):
+#: (M, body, CTA tile, split_k, CTAs).  A CTA covers 21 tiles (63 columns)
+#: in the rows body and 42 (126 of 128) in a 128-column mma CTA, where one
+#: CTA a logical tile would launch 30851 and 1480848 CTAs of 3 live columns
+INTERNVL2_HEAD_GEOMETRY = [(4, "rows", (4, 64), 1, 1470), (1, "rows", (1, 64), 1, 1470),
+                           (3072, "mma", (128, 128), 1, 17640)]
+
+
+@pytest.mark.parametrize("m,body,cta,split_k,ctas", INTERNVL2_HEAD_GEOMETRY)
+def test_cta_geometry_at_internvl2_head(m, body, cta, split_k, ctas):
+    inst = ops.instance("matmul_lmhead", torch.bfloat16, M=m, N=92553, K=6144)
+    cs = ops.schedule_for(inst)
+    assert cs.t["N"] == 3 and cs.t["M"] == min(m, 128)
+    got = mm.launch_geometry(torch.bfloat16, m, 92553, 6144, cs.t["M"], cs.t["N"])
+    assert got == (body, *cta, split_k, ctas)
+    assert mm.n_group(92553, 3, cta[1]) == cta[1] // 3
+
+
+def _k1_launches_of(cfg, shape):
+    """(tag, class, dtype, E, per-expert M, N, K, key) of every K1 and K1g
+    forward launch of ``cfg`` at ``shape`` under the default schedules and,
+    for a training shape, each one's gradient launches (dX, dW) under their
+    own (``grad_schedule``, ``grouped_grad_schedule``)."""
+    from repro_torch.core.extract import extract_kernels
+
+    out = []
+    for use in extract_kernels(cfg, shape):
+        inst = use.instance
+        if inst.class_id not in mm.EPILOGUE and inst.class_id not in mm.GROUPED_EPILOGUE:
+            continue
+        dt, p = getattr(torch, inst.dtype), inst.p
+        e = p.get("E", 1)
+        m, n, k = p["M"] // e, p["N"], p["K"]
+        out.append((use.tag, inst.class_id, dt, e, m, n, k, mm.schedule_key(ops.schedule_for(inst))))
+        if shape.kind != "train":
+            continue
+        for part, (gm, gn, gk) in (("dx", (m, k, n)), ("dw", (k, n, m))):
+            cs = (mm.grad_schedule("matmul", dt, gm, gn, gk) if e == 1
+                  else mm.grouped_grad_schedule("moe_gemm", dt, e, gm, gn, gk))
+            out.append((f"{use.tag}.{part}", "grad", dt, e, gm, gn, gk, mm.schedule_key(cs)))
+    return out
+
+
+def test_grouped_placement_is_internvl2_head_only():
+    """Every arch's default K1 and K1g launches at full width, serving (a
+    256-token prefill, a 4-slot decode) and training (4 × 512 tokens, with
+    the gradient launches' own schedules): the launches whose N tile is
+    narrower than both N and their CTA, and so take the grouped placement,
+    are internvl2-26b's LM head (forward, every shape; its dW) and no
+    other.  A tile that is all of N (the routers') is placed as before."""
+    from repro_torch.configs import ARCH_IDS, ShapeConfig, get_arch
+
+    shapes = (ShapeConfig("prefill", 256, 1, "prefill"), ShapeConfig("decode", 512, 4, "decode"),
+              ShapeConfig("train", 512, 4, "train"))
+    grouped, routers = set(), 0
+    for arch in ARCH_IDS:
+        for shape in shapes:
+            for tag, class_id, dt, e, m, n, k, key in _k1_launches_of(get_arch(arch), shape):
+                tile_m, tile_n, _, round_k = key
+                if class_id == "grad":
+                    body = mm.grad_geometry(torch.empty((e, m, k) if e > 1 else (m, k), dtype=dt,
+                                                        device="meta"),
+                                            torch.empty((e, k, n) if e > 1 else (k, n), dtype=dt,
+                                                        device="meta"))["body"]
+                    cta_n = mm.grad_cta(body, m, n, tile_m, tile_n, e)[1]
+                else:
+                    cta_n = mm.launch_geometry(dt, m, n, k, tile_m, tile_n, e, round_k)[2]
+                if mm.n_group(n, tile_n, cta_n) > 1:
+                    grouped.add((arch, shape.name, tag))
+                routers += class_id == "moe_router" and tile_n == n
+    assert grouped == {("internvl2-26b", "prefill", "lm_head"), ("internvl2-26b", "decode", "lm_head"),
+                       ("internvl2-26b", "train", "lm_head"), ("internvl2-26b", "train", "lm_head.dw")}
+    assert routers == 6   # mixtral's and dbrx's, one tile of all N at each shape
 
 # CTA tile and count of the mma body at the main path's 256-row prefill
 # shapes under the default 128x512 tile (PERF.md §6): minitron-4b's
@@ -393,17 +577,20 @@ def test_rows_geometry_at_main_path_decode_shapes(e, k, n, split_k, ctas):
 @pytest.mark.parametrize("k,n,tile_n,groups", [(3072, 3072, 512, 1), (3072, 1024, 512, 1),
                                                (2048, 2048, 512, 1), (777, 100, 100, 1),
                                                (16384, 6144, 512, 8), (640, 96, 96, 3),
-                                               (3000, 200, 200, 1), (3072, 256000, 512, 1)])
+                                               (3000, 200, 200, 1), (3072, 256000, 512, 1),
+                                               (6144, 92553, 3, 1)])
 def test_rows_split_k_does_not_change_with_m(k, n, tile_n, groups):
     """split_k (and so each row's summation order) is a function of K, N,
     the N tile and the expert count: the same at M = 1, the 4 decode slots,
-    16 rows and a prime 397-row prefill on 1-row tiles."""
+    16 rows and a prime 397-row prefill on 1-row tiles; internvl2-26b's
+    head (N tile 3, 21 tiles a CTA) among them."""
     geos = {m: mm.rows_geometry(m, n, k, tile_m, tile_n, groups)
             for m, tile_m in ((1, 1), (4, 4), (16, 16), (397, 1), (13, 8))}
     assert len({(cta_n, split_k) for cta_n, split_k, _ in geos.values()}) == 1
     cta_n, split_k, _ = geos[4]
+    span = _group(n, tile_n, cta_n) * tile_n
     for m, tile_m in ((1, 1), (4, 4), (16, 16), (397, 1), (13, 8)):
-        assert geos[m][2] == -(-m // tile_m) * -(-n // tile_n) * -(-min(tile_n, n) // cta_n) * split_k
+        assert geos[m][2] == -(-m // tile_m) * -(-n // span) * -(-min(span, n) // cta_n) * split_k
     # a slice is never shorter than ROWS_MIN_SLICE unless K itself is
     assert split_k == 1 or mm.rows_k_slice(k, split_k) >= mm.ROWS_MIN_SLICE
 
@@ -547,7 +734,8 @@ def test_asking_for_a_kernel_without_a_gpu_raises():
 def test_build_is_keyed_by_sources_and_lists_every_csrc_file():
     assert sorted(p.name for p in _build._sources()) == ["flash_attention.cu",
                                                          "flash_attention_bwd.cu", "matmul.cu",
-                                                         "matmul_grad.cu", "rglru_scan.cu",
+                                                         "matmul_grad.cu", "matmul_shift.cu",
+                                                         "rglru_scan.cu",
                                                          "rglru_scan_bwd.cu", "rwkv6_scan.cu",
                                                          "rwkv6_scan_bwd.cu"]
     assert {"repro_rwkv6_scan", "repro_rglru_scan", "repro_grouped_matmul",

@@ -124,6 +124,27 @@ def test_dispatch_rule_at_whisper_head(tied):
     assert mm.operand_layout(dz.T) == (1, vocab, 0)
 
 
+@pytest.mark.parametrize("part,want", [("dx", (128, 128, 1152)), ("dw", (128, 128, 35280))])
+def test_internvl2_head_gradient_geometry(part, want):
+    """internvl2-26b's LM head on its training path (``chip_smoke.py``
+    ``INTERNVL2_HEAD``: 3072 rows, d_model 6144, vocab 92553): both gradient
+    launches take ``mma`` with operand modes (rows of 92553 values are not
+    16-byte aligned).  dW's own default schedule has an N tile of 3, so a
+    128-column CTA covers 42 logical tiles (126 live columns): 48 × 735
+    CTAs, where one CTA a tile launched 2961696 of 3 live columns; dX's N
+    is d_model, its tiles wide, its CTAs as before."""
+    t, d, v = SMOKE.INTERNVL2_HEAD
+    x, w, dz = _meta(t, d), _meta(d, v), _meta(t, v)
+    a, b = {"dx": (dz, w.T), "dw": (x.T, dz)}[part]
+    geo = mm.grad_geometry(a, b)
+    assert geo["body"] == "mma"
+    m, n = a.shape[0], b.shape[1]
+    assert (geo["tile_m"], geo["tile_n"]) == ((128, 3) if part == "dw" else (128, 512))
+    got = mm.grad_cta("mma", m, n, geo["tile_m"], geo["tile_n"])
+    assert got == want
+    assert mm.n_group(n, geo["tile_n"], got[1]) == (42 if part == "dw" else 1)
+
+
 def test_operand_layout_reads_the_strides():
     x = torch.zeros((6, 10))
     assert mm.operand_layout(x) == (0, 10, 0)
