@@ -42,8 +42,12 @@ toolkit.  Phases, one result line each:
    time and device time), with its CTA count; and the enc-dec and VLM
    shapes (``SLICE_ATTN``: whisper-medium's non-causal encoder and
    cross-attention at prefill and at decode, Q = 1; internvl2-26b's causal
-   prefill behind its vision prefix), bf16 and f32 against the plain
-   version, bf16 timed alike;
+   prefill behind its vision prefix; ``NARROW_ATTN``: the 181- and
+   253-token prefills of whisper-medium's decoder self- and
+   cross-attention and of recurrentgemma-2b's local attention, whose
+   default Q tiles of 1 and 23 rows put a group of tiles in one CTA), bf16
+   and f32 against the plain version and, where the Q tile is narrower than
+   Sq, bit for bit against the launch at a Q tile of Sq, bf16 timed alike;
 5. scans — the rwkv6 (wkv6) and RG-LRU scan kernels against their plain
    versions, bf16 and f32, from a non-zero initial state: decode (T = 1), a
    prime T (default T tile 1), head dims 16, 32 and 64, 1 to 3 heads, 2560
@@ -117,6 +121,9 @@ toolkit.  Phases, one result line each:
    then over serving (``init_peak_gib``, ``serve_peak_gib``).  The prime
    181-token prompt's matmul launches per body are kept (the recurrent
    archs prefill it unpadded: every default M tile is 1, all rows body);
+   K2's launches on 1-row Q tiles and those that put a group of narrow
+   tiles in a CTA, by Q tile, are reported: every 1-row-tile launch must be
+   grouped, and an arch that prefills unbucketed must make some;
 9. serve_tuned — recurrentgemma-2b at full width served through a schedule
    registry (``launch.serve.make_provider``, ``--target h100``): the tuning
    phase's donor records plus one record in rounding mode (the decode LM
@@ -142,7 +149,7 @@ toolkit.  Phases, one result line each:
    per arch the prefill seconds (the chunk calls), ms per decode step and
    decode tok/s beside the slot engine's, the pool's bytes beside the slot
    cache's, the serve peak, launches per kernel and body, and the 1-row-tile
-   launches;
+   and grouped-tile launches;
 11. spec — speculative decoding on the paged engine, minitron-4b at full
    width, a self-draft of its first two layers, 3 proposals a burst, in
    three regimes (all-accept, all-reject, partial), each against plain
@@ -325,6 +332,20 @@ turns (parent, this, this, parent), each turn in its own process; it prints
 the same-call ratios, each launch's body, CTA tile and count in both trees,
 and whether the two trees' outputs (sha256 at fixed seeded inputs) have the
 same bits.  A tree whose two turns give other bits fails the script.
+
+    python3 chip_smoke.py --attn-ab PARENT
+
+times K2 at ``NARROW_ATTN``'s shapes (each checked against its plain
+version and at a Q tile of Sq) and the slot engine's stream of the serve
+prompts for whisper-medium and recurrentgemma-2b at full width (each
+prompt's prefill seconds, second of two runs; the 181- and 253-token
+prompts' one-shot prefill, median of seven) in the tree at ``PARENT`` and
+in this one, in turns (parent, this, this, parent), each turn in its own
+process; it prints each K2 shape's CTAs and device times in both trees
+beside SDPA, each arch's prefill seconds (all eight prompts, the 181- and
+253-token ones, one-shot and in the stream), their same-call ratios, and whether every output, the
+generated tokens and the 181- and 253-token prompts' prefill logits have
+the same sha256 in every turn of both trees; it fails where one differs.
 
     python3 chip_smoke.py --profile-family ARCH
 
@@ -1161,14 +1182,13 @@ def phase_attention(torch, timer) -> dict:
 
     # each served arch's prefill shape (bf16, the tensor-core body): minitron
     # at buckets 128 and 512, mixtral at bucket 512 (window 4096 > S), and
-    # recurrentgemma at the engine's longest prompt (356: 89-row Q tiles) and
-    # its prime one (181: 1-row Q tiles), window 2048 > S
+    # recurrentgemma at the engine's longest prompt (356: 89-row Q tiles),
+    # window 2048 > S; its narrow-tile prompts (181, 253) are NARROW_ATTN's
     shapes = []
     for arch, b, hq, hkv, s, d, window in (("minitron-4b", 1, 24, 8, 128, 128, 0),
                                             ("minitron-4b", 1, 24, 8, 512, 128, 0),
                                             ("mixtral-8x22b", 1, 48, 8, 512, 128, 4096),
-                                            ("recurrentgemma-2b", 1, 10, 1, 356, 256, 2048),
-                                            ("recurrentgemma-2b", 1, 10, 1, 181, 256, 2048)):
+                                            ("recurrentgemma-2b", 1, 10, 1, 356, 256, 2048)):
         q, k, v = _attn_inputs(torch, g, b, hq, hkv, s, s, d, torch.bfloat16)
         cs = ops.schedule_for(ops.instance("flash_attention_causal", torch.bfloat16, Q=s, KV=s,
                                            H=hq, D=d, B=b, window=window))
@@ -1213,58 +1233,86 @@ def phase_attention(torch, timer) -> dict:
                                                           for r in shapes + slice_rows])}
 
 
-#: the slice's K2 shapes, (arch, class, B, Hq, Hkv, Sq, Skv, D, causal):
-#: whisper-medium's encoder (bidirectional, 1500 frames) and its
-#: cross-attention over the 1500 frames at a prime prefill (181 rows: the
-#: default Q tile is 1), a 256-row one and 4-slot decode (Q = 1); and
-#: internvl2-26b's causal prefill of a 512-token bucket behind its
-#: 256-token vision prefix
-SLICE_ATTN = (("whisper-medium", "flash_attention_bidir", 1, 16, 16, 1500, 1500, 64, False),
-              ("whisper-medium", "flash_attention_cross", 1, 16, 16, 181, 1500, 64, False),
-              ("whisper-medium", "flash_attention_cross", 1, 16, 16, 256, 1500, 64, False),
-              ("whisper-medium", "flash_attention_cross", 4, 16, 16, 1, 1500, 64, False),
-              ("internvl2-26b", "flash_attention_causal", 1, 48, 8, 768, 768, 128, True))
+#: the K2 shapes with narrow default Q tiles (ROADMAP B.1: a CTA covers a
+#: group of them), (arch, class, B, Hq, Hkv, Sq, Skv, D, causal, window):
+#: the slot engine's unbucketed 181-token (1-row tiles, 64 a CTA) and
+#: 253-token (23-row tiles, 2 a CTA) prefills of whisper-medium's decoder
+#: self- and cross-attention (1500 frames) and recurrentgemma-2b's local
+#: attention (window 2048 > S); ``--attn-ab`` times these
+NARROW_ATTN = (("whisper-medium", "flash_attention_cross", 1, 16, 16, 181, 1500, 64, False, 0),
+               ("whisper-medium", "flash_attention_causal", 1, 16, 16, 181, 181, 64, True, 0),
+               ("recurrentgemma-2b", "flash_attention_local", 1, 10, 1, 181, 181, 256, True, 2048),
+               ("whisper-medium", "flash_attention_cross", 1, 16, 16, 253, 1500, 64, False, 0),
+               ("whisper-medium", "flash_attention_causal", 1, 16, 16, 253, 253, 64, True, 0),
+               ("recurrentgemma-2b", "flash_attention_local", 1, 10, 1, 253, 253, 256, True, 2048))
+#: the slice's K2 shapes, as :data:`NARROW_ATTN`'s: whisper-medium's encoder
+#: (bidirectional, 1500 frames) and its cross-attention over the 1500 frames
+#: at a 256-row prefill and 4-slot decode (Q = 1); internvl2-26b's causal
+#: prefill of a 512-token bucket behind its 256-token vision prefix; and
+#: the narrow-tile shapes
+SLICE_ATTN = (("whisper-medium", "flash_attention_bidir", 1, 16, 16, 1500, 1500, 64, False, 0),
+              ("whisper-medium", "flash_attention_cross", 1, 16, 16, 256, 1500, 64, False, 0),
+              ("whisper-medium", "flash_attention_cross", 4, 16, 16, 1, 1500, 64, False, 0),
+              ("internvl2-26b", "flash_attention_causal", 1, 48, 8, 768, 768, 128, True, 0),
+              *NARROW_ATTN)
 
 
-def slice_attention_row(torch, timer, g, arch, class_id, b, hq, hkv, sq, skv, d, causal) -> dict:
+def slice_attention_row(torch, timer, g, arch, class_id, b, hq, hkv, sq, skv, d, causal,
+                        window) -> dict:
     """K2 at one of the slice's shapes: f32 (CUDA-core body) and bf16
-    (tensor-core body) against the plain version, then bf16 timed beside the
-    plain version and ``F.scaled_dot_product_attention`` (event and device
-    time), with its CTA count and bound."""
+    (tensor-core body) against the plain version and, where the default Q
+    tile is narrower than Sq, bit for bit against the launch at a Q tile of
+    Sq (one tile, one group: a row's bits do not depend on its CTA); the
+    outputs' sha256; then bf16 timed beside the plain version and
+    ``F.scaled_dot_product_attention`` (event and device time), with its
+    CTA count and bound.  A window is at least Sq (so SDPA's causal mask is
+    the same function)."""
     import torch.nn.functional as F
 
+    from repro_torch.core.schedule import Schedule, concretize
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     what = f"attention {arch} {class_id} {b}x{hq}/{hkv}x{sq}x{skv}x{d}"
-    errs = []
+    if 0 < window < sq:
+        raise ValueError(f"{what}: window {window} < Sq: SDPA's mask would differ")
+    kw = dict(causal=causal, window=window)
+    errs, outs = [], []
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         q, k, v = _attn_inputs(torch, g, b, hq, hkv, sq, skv, d, dtype)
-        cs = ops.schedule_for(ops.instance(class_id, dtype, Q=sq, KV=skv, H=hq, D=d, B=b,
-                                           window=0))
+        inst = ops.instance(class_id, dtype, Q=sq, KV=skv, H=hq, D=d, B=b, window=window)
+        cs = ops.schedule_for(inst)
         body = fa.body_for(dtype)
         before = fa.body_count(body, dtype=dtype)
-        got = fa.launch(q, k, v, cs, causal=causal)
+        got = fa.launch(q, k, v, cs, **kw)
         if fa.body_count(body, dtype=dtype) != before + 1:
             raise AssertionError(f"{what} {dtype}: the launch did not take the {body} body")
-        want = ref.chunked_attention(q, k, v, chunk=cs.t["KV"], causal=causal)
+        want = ref.chunked_attention(q, k, v, chunk=cs.t["KV"], **kw)
         errs.append(assert_close(torch, got, want, tol, f"{what} {dtype}"))
-        del got, want
+        if cs.t["Q"] < sq:
+            whole = concretize(Schedule.make(class_id, {**cs.t, "Q": sq}, order=cs.schedule.order),
+                               inst)
+            if not torch.equal(fa.launch(q, k, v, whole, **kw), got):
+                raise AssertionError(f"{what} {dtype}: the output at Q tile {cs.t['Q']} differs "
+                                     f"from the output at Q tile {sq}")
+        outs.append(got)
+        del want
     # bf16 from here on: the served dtype
     ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
     live = sq * (sq + 1) / 2 if causal else sq * skv   # (q, k) pairs this input needs
     b_ms, b_by = bound_ms(2 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d), 4 * b * hq * live * d)
     body, cta_q, ctas = fa.attention_geometry(torch.bfloat16, sq, cs.t["Q"])
     row = {"arch": arch, "class": class_id, "B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "KV": skv,
-           "D": d, "causal": causal, "tiles": cs.t, "body": body, "cta_q": cta_q,
-           "ctas": b * hq * ctas, "f32_max_abs_err": errs[0], "max_abs_err": errs[1],
-           "ms": timer.ms(lambda: fa.launch(q, k, v, cs, causal=causal), iters=20),
-           "plain_ms": timer.ms(lambda: ref.chunked_attention(q, k, v, chunk=cs.t["KV"],
-                                                              causal=causal)),
+           "D": d, "causal": causal, "window": window, "tiles": cs.t, "body": body,
+           "cta_q": cta_q, "ctas": b * hq * ctas, "f32_max_abs_err": errs[0],
+           "max_abs_err": errs[1], "bits_equal_at_tile_sq": cs.t["Q"] < sq or None,
+           "f32_digest": digest(torch, outs[:1]), "digest": digest(torch, outs[1:]),
+           "ms": timer.ms(lambda: fa.launch(q, k, v, cs, **kw), iters=20),
+           "plain_ms": timer.ms(lambda: ref.chunked_attention(q, k, v, chunk=cs.t["KV"], **kw)),
            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                q, ke, ve, is_causal=causal), iters=20),
            "bound_ms": b_ms, "bound_by": b_by,
-           "device_ms": timer.device_ms(lambda: fa.launch(q, k, v, cs, causal=causal)),
+           "device_ms": timer.device_ms(lambda: fa.launch(q, k, v, cs, **kw)),
            "library_device_ms": timer.device_ms(lambda: F.scaled_dot_product_attention(
                q, ke, ve, is_causal=causal))}
     row["library_ratio"] = row["ms"] / row["library_ms"]
@@ -1639,31 +1687,15 @@ def scans_ab(parent: Path) -> int:
     mean event, device and held times and their ratios (parent / this).
     Raises if K4's backward gives other bits in any turn (its outputs'
     digests, at fixed seeded inputs)."""
-    turns = [("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)]
-    got = collections.defaultdict(list)
-    for who, tree in turns:
-        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--time-scans",
-                              str(tree / "src")], capture_output=True, text=True, timeout=900)
-        if out.returncode != 0:
-            sys.stderr.write(out.stderr[-4000:])
-            raise AssertionError(f"timing the scans of {tree} failed ({out.returncode})")
-        for line in out.stdout.splitlines():
-            row = json.loads(line)
-            if "phase" in row:   # the turn's own log line (a dropped profiler capture, say)
-                log("scan_turn_log", who=who, line=row)
-                continue
-            log("scan_turn", who=who, **row)
-            got[(row["kind"], row["B"], row["T"], row["tiles"]["T"], row.get("dtype", "bfloat16"),
-                 row.get("state", False), who)].append(row)
-    for key in sorted({k[:-1] for k in got}):
-        rows = {who: got[(*key, who)] for who in ("parent", "this")}
+    got = ab_turns(parent, "--time-scans", "scan",
+                   lambda row: (row["kind"], row["B"], row["T"], row["tiles"]["T"],
+                                row.get("dtype", "bfloat16"), row.get("state", False)))
+    for key, rows in got.items():
         digests = {r["digest"] for who in rows for r in rows[who] if "digest" in r}
         if len(digests) > 1:
             raise AssertionError(f"{key}: the outputs' bits differ between turns or trees: "
                                  f"{ {who: [r.get('digest') for r in rows[who]] for who in rows} }")
-        mean = {who: {m: (None if any(r.get(m) is None for r in rows[who])
-                          else statistics.mean(r[m] for r in rows[who]))
-                      for m in ("ms", "device_ms", "held_ms", "warm_held_ms")} for who in rows}
+        mean = ab_means(rows, ("ms", "device_ms", "held_ms", "warm_held_ms"))
         log("scan_ab", kind=key[0], B=key[1], T=key[2], tile_t=key[3], dtype=key[4], state=key[5],
             bits_equal=bool(digests) or None,
             parent_device_ms=mean["parent"]["device_ms"], device_ms=mean["this"]["device_ms"],
@@ -1742,39 +1774,57 @@ def time_head(torch, timer) -> list:
     return rows
 
 
+#: the turns of ``--scans-ab``, ``--head-ab`` and ``--attn-ab``
+AB_TURNS = ("parent", "this", "this", "parent")
+
+
+def ab_turns(parent: Path, mode: str, what: str, key) -> dict:
+    """``chip_smoke.py MODE SRC`` for the tree at ``parent`` (say, an
+    unpacked parent commit) and for this tree, in turns (:data:`AB_TURNS`),
+    each turn in its own process with that tree's ``src`` first on the
+    path.  Logs each turn's rows (``{what}_turn``; the turn's own log lines,
+    a dropped profiler capture say, as ``{what}_turn_log``) and returns
+    them by ``key(row)``, then by tree: {key: {"parent": [...], "this":
+    [...]}}, keys in the order the rows came."""
+    got = collections.defaultdict(lambda: {"parent": [], "this": []})
+    for who in AB_TURNS:
+        tree = parent if who == "parent" else ROOT
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), mode, str(tree / "src")],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            sys.stderr.write(out.stderr[-4000:])
+            raise AssertionError(f"{mode} on {tree} failed ({out.returncode})")
+        for line in out.stdout.splitlines():
+            row = json.loads(line)
+            if "phase" in row:
+                log(f"{what}_turn_log", who=who, line=row)
+                continue
+            log(f"{what}_turn", who=who, **row)
+            got[key(row)][who].append(row)
+    return dict(got)
+
+
+def ab_means(rows: dict, metrics) -> dict:
+    """Each tree's mean of each metric over its turns (None where a turn
+    did not measure it)."""
+    return {who: {m: (None if any(r.get(m) is None for r in rs) else statistics.mean(r[m] for r in rs))
+                  for m in metrics} for who, rs in rows.items()}
+
+
 def head_ab(parent: Path) -> int:
     """internvl2-26b's LM head launches (:func:`time_head`) of the tree at
-    ``parent`` (say, an unpacked parent commit) and of this tree, in turns
-    — parent, this, this, parent — each turn in its own process with that
-    tree's ``src`` first on the path.  Prints each turn's rows, then per
+    ``parent`` and of this tree, in turns (:func:`ab_turns`).  Prints per
     launch the mean event and device times of each tree, their ratios
     (parent / this), each tree's ratio to ``torch.matmul`` in the same turns
     and whether the two trees' outputs have the same bits.  Raises if a
     tree's two turns give other bits."""
-    turns = [("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)]
-    got = collections.defaultdict(list)
-    for who, tree in turns:
-        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--time-head",
-                              str(tree / "src")], capture_output=True, text=True, timeout=900)
-        if out.returncode != 0:
-            sys.stderr.write(out.stderr[-4000:])
-            raise AssertionError(f"timing the head of {tree} failed ({out.returncode})")
-        for line in out.stdout.splitlines():
-            row = json.loads(line)
-            if "phase" in row:   # the turn's own log line (a dropped profiler capture, say)
-                log("head_turn_log", who=who, line=row)
-                continue
-            log("head_turn", who=who, **row)
-            got[(row["launch"], who)].append(row)
+    got = ab_turns(parent, "--time-head", "head", lambda row: row["launch"])
     for launch in HEAD_LAUNCHES:
-        rows = {who: got[(launch, who)] for who in ("parent", "this")}
+        rows = got[launch]
         digests = {who: {r["digest"] for r in rows[who]} for who in rows}
         if any(len(d) != 1 for d in digests.values()):
             raise AssertionError(f"{launch}: a tree's two turns give other bits: {digests}")
-        mean = {who: {m: (None if any(r.get(m) is None for r in rows[who])
-                          else statistics.mean(r[m] for r in rows[who]))
-                      for m in ("ms", "device_ms", "library_ms", "library_device_ms")}
-                for who in rows}
+        mean = ab_means(rows, ("ms", "device_ms", "library_ms", "library_device_ms"))
         p, t = mean["parent"], mean["this"]
         log("head_ab", launch=launch, **{k: rows["this"][0][k] for k in ("M", "K", "N", "body",
                                                                           "cta_tile", "ctas",
@@ -1790,6 +1840,118 @@ def head_ab(parent: Path) -> int:
             parent_library_ratio=ratio(p["device_ms"], p["library_device_ms"]),
             library_ratio=ratio(t["device_ms"], t["library_device_ms"]))
     print(nvidia_smi())
+    return 0
+
+
+#: the archs whose slot-engine prefill ``--attn-ab`` times at full width
+#: (their prompts prefill unbucketed: 181 and 253 take grouped Q tiles), and
+#: the prompt lengths whose prefill logits it digests
+ATTN_AB_ARCHS = ("whisper-medium", "recurrentgemma-2b")
+ATTN_AB_PROMPTS = (181, 253)
+#: timed one-shot prefills of each of those prompts a turn (median): one
+#: engine stream's prefill seconds spread by more than K2's gain
+ATTN_AB_PREFILLS = 7
+
+
+def time_attn(torch, timer) -> list:
+    """One ``--attn-ab`` turn, on the ``repro_torch`` on ``sys.path``: each
+    :data:`NARROW_ATTN` launch at fixed seeded inputs
+    (:func:`slice_attention_row`: checked against its plain version and at
+    a Q tile of Sq, its outputs' sha256, timed beside SDPA, its CTAs);
+    then for each :data:`ATTN_AB_ARCHS` arch at full width the slot engine's
+    stream of the serve prompts, twice (the first warms up), with each
+    prompt's prefill seconds and the sha256 of the generated tokens; and
+    each :data:`ATTN_AB_PROMPTS` prompt's one-shot prefill
+    (``model.prefill``), its logits' sha256 and its median seconds over
+    :data:`ATTN_AB_PREFILLS` calls, each ended by a sync."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    g = torch.Generator(device="cuda").manual_seed(34)
+    rows = [{"kind": "attention", **slice_attention_row(torch, timer, g, *case)}
+            for case in NARROW_ATTN]
+    for arch in ATTN_AB_ARCHS:
+        cfg = get_arch(arch)
+        model = build_model(cfg, "cuda")
+        params = model.init(seed=0)
+        extras = serve_extras(torch, cfg)
+        prompts = serve_prompts(cfg)
+        lens = [len(p) for p in prompts]
+        runs = []
+        for _ in range(2):
+            engine = ServingEngine(model, params, slots=4, max_len=512, extras=extras)
+            runs.append(serve_stream(torch, engine, prompts, SERVE_NEW_TOKENS))
+            del engine
+        if runs[0]["generated"] != runs[1]["generated"]:
+            raise AssertionError(f"{arch}: two runs of the slot engine generate other tokens")
+        logits, one_shot = {}, {}
+        for n in ATTN_AB_PROMPTS:
+            batch = {"tokens": torch.tensor([prompts[lens.index(n)]], dtype=torch.long, device="cuda"),
+                     **{k: v[None] for k, v in extras.items()}}
+            secs = []
+            for _ in range(ATTN_AB_PREFILLS):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                out, _ = model.prefill(params, batch, max_len=512)
+                torch.cuda.synchronize()
+                secs.append(time.monotonic() - t0)
+            logits[str(n)] = digest(torch, [out])
+            one_shot[f"one_shot_{n}_s"] = statistics.median(secs)
+        run = runs[1]
+        rows.append({"kind": "prefill", "arch": arch, "prompt_lens": lens,
+                     "prompt_prefill_s": run["prompt_prefill_s"], "prefill_s": run["prefill_s"],
+                     **{f"prefill_{n}_s": run["prompt_prefill_s"][lens.index(n)]
+                        for n in ATTN_AB_PROMPTS},
+                     "warmup_prefill_s": runs[0]["prefill_s"], **one_shot,
+                     "tokens_digest": hashlib.sha256(json.dumps(run["generated"]).encode()).hexdigest(),
+                     "logits_digests": logits})
+        del model, params, runs
+        free_engines(torch)
+    return rows
+
+
+def attn_ab(parent: Path) -> int:
+    """K2 at its narrow-tile shapes and the slot engine's prefill of
+    :data:`ATTN_AB_ARCHS` (:func:`time_attn`) in the tree at ``parent`` and
+    in this one, in turns (:func:`ab_turns`).  Prints per K2 shape each
+    tree's CTAs, mean device times, their ratio (parent / this) and each
+    tree's ratio to SDPA; per arch each tree's mean prefill seconds (all
+    eight prompts, and each of :data:`ATTN_AB_PROMPTS`) and their ratios;
+    and whether the outputs', tokens' and logits' sha256 are the same in
+    every turn of both trees.  Raises, after printing, where any differs."""
+    got = ab_turns(parent, "--time-attn", "attn",
+                   lambda row: (row["kind"], row["arch"], row.get("class"), row.get("Sq")))
+    differ = []
+    for (kind, arch, class_id, sq), rows in got.items():
+        if kind == "attention":
+            keys = ("f32_digest", "digest")
+            mean = ab_means(rows, ("ms", "device_ms", "library_device_ms"))
+            p, t = mean["parent"], mean["this"]
+            fields = dict(class_id=class_id, Sq=sq, KV=rows["this"][0]["KV"],
+                          tiles=rows["this"][0]["tiles"], bound_ms=rows["this"][0]["bound_ms"],
+                          parent_ctas=rows["parent"][0]["ctas"], ctas=rows["this"][0]["ctas"],
+                          parent_device_ms=p["device_ms"], device_ms=t["device_ms"],
+                          device_ratio=ratio(p["device_ms"], t["device_ms"]),
+                          parent_ms=p["ms"], ms=t["ms"], ratio=ratio(p["ms"], t["ms"]),
+                          parent_library_ratio=ratio(p["device_ms"], p["library_device_ms"]),
+                          library_ratio=ratio(t["device_ms"], t["library_device_ms"]))
+        else:
+            keys = ("tokens_digest", "logits_digests")
+            metrics = ("prefill_s", *(f"{m}_{n}_s" for m in ("prefill", "one_shot")
+                                      for n in ATTN_AB_PROMPTS))
+            mean = ab_means(rows, metrics)
+            fields = {k: v for m in metrics for k, v in
+                      ((f"parent_{m}", mean["parent"][m]), (m, mean["this"][m]),
+                       (f"{m}_ratio", ratio(mean["parent"][m], mean["this"][m])))}
+        same = {k: len({json.dumps(r[k], sort_keys=True) for rs in rows.values() for r in rs}) == 1
+                for k in keys}
+        if not all(same.values()):
+            differ.append((kind, arch, class_id, sq, same))
+        log("attn_ab", kind=kind, arch=arch, bits_equal=same, **fields)
+    print(nvidia_smi())
+    if differ:
+        raise AssertionError(f"--attn-ab: bits differ between turns or trees: {differ}")
     return 0
 
 
@@ -2705,6 +2867,16 @@ def phase_serve(torch, arch: str) -> dict:
         raise AssertionError(f"{arch}: launches per attention body {attn_bodies}")
     if min(launches[k] for k in SERVE_KERNELS[arch]) <= 0:
         raise AssertionError(f"{arch}: a kernel of the main path was never launched: {launches}")
+    # K2 on narrow Q tiles (ROADMAP B.1): every launch on 1-row tiles over
+    # Sq > 1 rows put a group of tiles in each CTA; an arch that prefills
+    # unbucketed takes them at the prime prompt
+    attn_tiles = {"row_tile_launches": fa.row_tile_launches,
+                  "grouped_tile_launches": {str(t): n for t, n in
+                                            sorted(fa.grouped_tile_launches.items())}}
+    if fa.grouped_tile_launches[1] != fa.row_tile_launches or (
+            not engine.prefill_buckets and "flash_attention" in SERVE_KERNELS[arch]
+            and not fa.row_tile_launches):
+        raise AssertionError(f"{arch}: K2 launches on narrow Q tiles {attn_tiles}")
     # where the decode step's time goes on the device: a profiler capture of
     # three minitron decode steps at 4 busy slots (after the counts are read)
     profile = (profile_decode(torch, engine, prompts[:4]) if arch == "minitron-4b" else None)
@@ -2749,7 +2921,7 @@ def phase_serve(torch, arch: str) -> dict:
            "encoder_s": encoder_s,
            "encoder_share": 8 * encoder_s / run["prefill_s"] if encoder_s else None,
            "launches": launches, "body_launches": bodies, "attention_body_launches": attn_bodies,
-           "attention_class_launches": attn_classes,
+           "attention_class_launches": attn_classes, "attention_tile_launches": attn_tiles,
            "decode_rows_geometry": dict(decode_geometry), "decode_profile": profile,
            "init_peak_gib": init_peak_gib, "serve_peak_gib": serve_peak_gib,
            **logits,
@@ -3430,6 +3602,7 @@ def phase_paged(torch, srv: list) -> list:
         bodies = body_counts(mm)
         attn_bodies = {f"{b}/{ops.dtype_name(d)}": n for (b, d), n in fa.body_launches.items()}
         offset_launches, fa_row_tiles = fa.offset_launches, fa.row_tile_launches
+        fa_grouped = {str(t): n for t, n in sorted(fa.grouped_tile_launches.items())}
         mm_row_tiles = mm.row_tile_launches
         if eng.prefill_padded_tokens != eng.prefill_true_tokens:
             raise AssertionError(f"{arch}: paged prefill padded {eng.prefill_padded_tokens} "
@@ -3512,6 +3685,7 @@ def phase_paged(torch, srv: list) -> list:
                "launches": launches, "body_launches": bodies, "attention_body_launches": attn_bodies,
                "attention_offset_launches": offset_launches,
                "row_tile_launches": {"matmul": mm_row_tiles, "flash_attention": fa_row_tiles},
+               "grouped_tile_launches": fa_grouped,
                "chunk_body_launches": dict(clock.bodies["_chunk"]),
                "decode_body_launches": dict(clock.bodies["_decode"]),
                "grouped_rows_launches": grouped_rows,
@@ -6641,6 +6815,14 @@ def main(argv: list[str]) -> int:
         for row in time_head(torch, Timer(torch)):
             print(json.dumps(row), flush=True)
         return 0
+    if argv[:1] == ["--attn-ab"] and len(argv) == 2:
+        return attn_ab(Path(argv[1]).resolve())
+    if argv[:1] == ["--time-attn"] and len(argv) == 2:   # one turn of --attn-ab
+        import_port(Path(argv[1]))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for row in time_attn(torch, Timer(torch)):
+            print(json.dumps(row), flush=True)
+        return 0
     if argv[:1] == ["--profile-steps"] and len(argv) <= 2:   # a fresh process for the captures
         import_port(Path(argv[1]).resolve() if len(argv) == 2 else ROOT / "src")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -6797,6 +6979,10 @@ def main(argv: list[str]) -> int:
     # at decode (Q = 1), the launch it makes most
     rep_bidir = next(r for r in far["slice"] if r["class"] == "flash_attention_bidir")
     rep_cross = next(r for r in far["slice"] if r["class"] == "flash_attention_cross" and r["Sq"] == 1)
+    # K2 on narrow Q tiles, a group of them a CTA: whisper's cross-attention
+    # at the prime 181 (1-row tiles); its launches are the slot runs'
+    rep_narrow = next(r for r in far["slice"]
+                      if r["class"] == "flash_attention_cross" and r["Sq"] == PRIME_PROMPT)
     kernels = [
         {"name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:205", "launches": served("matmul"),
@@ -6858,6 +7044,19 @@ def main(argv: list[str]) -> int:
            **{k: row[k] for k in ("device_ms", "library_device_ms")},
            **timed(row, ("B", "Hq", "Hkv", "Sq", "KV", "D", "causal", "ctas"))}
           for c, row in (("flash_attention_bidir", rep_bidir), ("flash_attention_cross", rep_cross))),
+        {"name": "flash_attention_narrow", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:126", "body": "mma",
+         "launches": sum(sum(r["attention_tile_launches"]["grouped_tile_launches"].values())
+                         for r in srv),
+         "launches_by_path": {"slot": sum(sum(r["attention_tile_launches"]
+                                              ["grouped_tile_launches"].values()) for r in srv)},
+         "launches_by_tile": dict(sum((collections.Counter(
+             r["attention_tile_launches"]["grouped_tile_launches"]) for r in srv),
+             collections.Counter())),
+         "max_abs_err": rep_narrow["max_abs_err"], "f32_max_abs_err": rep_narrow["f32_max_abs_err"],
+         **{k: rep_narrow[k] for k in ("device_ms", "library_device_ms", "tiles")},
+         **timed(rep_narrow, ("B", "Hq", "Hkv", "Sq", "KV", "D", "causal", "ctas"))},
     ]
     # K1 writing Z beside Y (the dots remat policy's), at gemma2's GeGLU up
     # projection: its launches are the train phase's dots run's

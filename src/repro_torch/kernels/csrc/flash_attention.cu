@@ -22,9 +22,12 @@
 //    shuffles for the row max, the row sums per thread until the end); the
 //    S fragment is re-packed in registers into the bf16 A operand of
 //    O += P V, with V read by ldmatrix.trans.
-//    The schedule's Q tile stays the unit of masking: each logical tile is
-//    covered by ceil(min(tile, Sq) / 64) CTAs, never crossing its edge, and
-//    the CTAs of the last (heaviest, under a causal mask) row blocks of all
+//    The schedule's Q tile stays the unit of masking: a CTA covers q_group
+//    consecutive logical tiles (its span) where the tile is narrower than
+//    both Sq and the CTA (a prime length's default tile of 1: 64 tiles a
+//    CTA, not 64 rows staged for 1 kept), else one; each span is covered by
+//    ceil(min(span, Sq) / 64) CTAs, never crossing its last edge, and the
+//    CTAs of the last (heaviest, under a causal mask) row blocks of all
 //    heads are launched first.
 //    Two roundings differ from _kernel: (1) _kernel scales q in f32 before
 //    the dot; this body multiplies S by scale in f32 after the product, so q
@@ -32,7 +35,8 @@
 //    (the row sum l is taken over the f32 p).  Both stay inside the bf16
 //    tolerance (3e-2) against the plain version.
 //  * fma (f32): CUDA-core FMA on f32 copies in shared memory, one CTA per
-//    (b*hq, Q tile) walking it in sub-blocks of 32 rows, chunks of 32 keys.
+//    (b*hq, span: one Q tile, or q_group tiles narrower than 32 rows)
+//    walking it in sub-blocks of 32 rows, chunks of 32 keys.
 //    f32 stays off the tensor cores by rule (TF32 would break the 2e-4 f32
 //    tolerance): a dtype rule, not a fallback.
 //
@@ -40,7 +44,8 @@
 // chunk is rounded down), chunks that every row of the block masks are
 // skipped, and a chunk that masks all of one row leaves that row's state
 // bit for bit unchanged.  So a query row's result does not depend on which
-// CTA holds it, or on how a prompt was split between calls with q_offset.
+// CTA holds it, or on how a prompt was split between calls with q_offset:
+// grouping narrow tiles into one CTA keeps every bit.
 //
 // What _kernel computes, kept:
 //  * softcap (tanh(s / c) * c) comes before the mask;
@@ -74,8 +79,15 @@ struct AttnArgs {
   float* lse;   // (B*Hq*Sq) f32 row log-sum-exp, or null: not asked for
   int bh, hq, hkv, sq, skv, d;
   int causal, window; float softcap; int q_offset; float scale;
-  int tile_q, sub, ctas;   // logical Q tile, CTAs per logical tile, CTAs per (b, h)
+  int span, sub, ctas;   // rows of one group of logical Q tiles, CTAs per group, CTAs per (b, h)
 };
+
+// Logical Q tiles that one CTA of cta_q rows (the fma body: one sub-block)
+// covers (kernels/flash_attention.py q_group): floor(cta_q / tile_q) where
+// the Q tile is narrower than both Sq and the CTA, else 1.
+inline int q_group(int sq, int tile_q, int cta_q) {
+  return tile_q < sq && tile_q < cta_q ? cta_q / tile_q : 1;
+}
 
 // A row's log-sum-exp from its max and sum; +inf for a fully masked row
 // (l = 0), so exp(s - lse) = 0 there as the output is.
@@ -160,9 +172,9 @@ __global__ void __launch_bounds__(kMmaThreads) attention_mma_kernel(AttnArgs a) 
   // heaviest first: rank 0 is the last row block of every (b, h)
   const int rank = blockIdx.x / a.bh, bh = blockIdx.x % a.bh;
   const int idx = a.ctas - 1 - rank;
-  const int t0 = (idx / a.sub) * a.tile_q, t1 = min(t0 + a.tile_q, a.sq);
+  const int t0 = (idx / a.sub) * a.span, t1 = min(t0 + a.span, a.sq);
   const int r0 = t0 + (idx % a.sub) * kMmaBQ;
-  if (r0 >= t1) return;   // a ragged logical tile needs fewer CTAs
+  if (r0 >= t1) return;   // a ragged last group needs fewer CTAs
   const int r1 = min(r0 + kMmaBQ, t1);
 
   const int D = a.d;
@@ -334,7 +346,8 @@ constexpr int attn_smem_floats() {
 }
 
 // DP: the padded head dim the CTA works in (a multiple of 32, >= a.d).
-// One CTA per (b*hq, logical Q tile): blockIdx.x = tile, blockIdx.y = b*hq.
+// One CTA per (b*hq, group of logical Q tiles): blockIdx.x = group,
+// blockIdx.y = b*hq.
 template <int DP>
 __global__ void __launch_bounds__(kWarps * 32) attention_fma_kernel(AttnArgs a) {
   using T = float;
@@ -355,7 +368,7 @@ __global__ void __launch_bounds__(kWarps * 32) attention_fma_kernel(AttnArgs a) 
   T* ob = static_cast<T*>(a.o) + (size_t)bh * a.sq * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  const int t0 = blockIdx.x * a.tile_q, t1 = min(t0 + a.tile_q, a.sq);
+  const int t0 = blockIdx.x * a.span, t1 = min(t0 + a.span, a.sq);
   for (int s0 = t0; s0 < t1; s0 += kBQ) {
     const int nq = min(kBQ, t1 - s0);
     __syncthreads();  // every warp is done with the previous sub-block's Qs
@@ -466,8 +479,9 @@ int launch_fma(const AttnArgs& a, cudaStream_t stream) {
 
 // C entry point bound with ctypes.  q (B,Hq,Sq,D), k/v (B,Hkv,Skv,D), o like
 // q, all contiguous and of one dtype.  (cta_q, ctas): the CTA geometry the
-// wrapper chose (kernels/flash_attention.py attention_geometry), CTAs per
-// (b, h), re-checked here.  lse: null, or (B,Hq,Sq) f32 that gets each row's
+// wrapper chose (kernels/flash_attention.py attention_geometry; cta_q is 64
+// rows in the mma body, a CTA's span of q_group tiles in the fma body), CTAs
+// per (b, h), re-checked here.  lse: null, or (B,Hq,Sq) f32 that gets each row's
 // log-sum-exp of its masked, softcapped, scaled scores (+inf for a fully
 // masked row), which the backward reads; o's bits do not depend on it.
 // Returns a cudaError_t (cudaErrorInvalidValue for bad arguments).
@@ -484,20 +498,21 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   a.q = q; a.k = k; a.v = v; a.o = o; a.lse = static_cast<float*>(lse);
   a.bh = b * hq; a.hq = hq; a.hkv = hkv; a.sq = sq; a.skv = skv; a.d = d;
   a.causal = causal; a.window = window; a.softcap = softcap; a.q_offset = q_offset;
-  a.scale = scale; a.tile_q = tile_q; a.ctas = ctas;
-  const long long tiles = cdiv(sq, tile_q);
+  a.scale = scale; a.ctas = ctas;
   const AttnBody body = dtype == kBFloat16 ? kAttnMma : kAttnFma;
+  a.span = q_group(sq, tile_q, body == kAttnMma ? kMmaBQ : kBQ) * tile_q;
+  const long long groups = cdiv(sq, a.span);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == kAttnMma) {
     if (cta_q != kMmaBQ) return (int)cudaErrorInvalidValue;
-    a.sub = cdiv(std::min(tile_q, sq), kMmaBQ);
-    if (tiles * a.sub != ctas || (long long)ctas * a.bh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    a.sub = cdiv(std::min(a.span, sq), kMmaBQ);
+    if (groups * a.sub != ctas || (long long)ctas * a.bh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     if (d <= 64) return launch_mma<64>(a, s);
     if (d <= 128) return launch_mma<128>(a, s);
     return launch_mma<256>(a, s);
   }
   a.sub = 1;
-  if (cta_q != tile_q || tiles != ctas) return (int)cudaErrorInvalidValue;
+  if (cta_q != a.span || groups != ctas) return (int)cudaErrorInvalidValue;
   if ((long long)b * hq > 65535) return (int)cudaErrorInvalidValue;  // grid.y limit
   if (d <= 32) return launch_fma<32>(a, s);
   if (d <= 64) return launch_fma<64>(a, s);

@@ -18,18 +18,24 @@ Two bodies, by a dtype rule (:func:`body_for`), like the matmul's:
   through a double-buffered ``cp.async`` ring.  It applies ``scale`` to S after the
   product (the reference scales q before it) and feeds P to the second
   product in bf16: both stay inside the bf16 tolerance.
-* **fma** (f32): the CUDA-core body, one CTA per logical Q tile walked in
-  32-row sub-blocks, chunks of 32 keys.  TF32 would break the f32
+* **fma** (f32): the CUDA-core body, one CTA per logical Q tile (or per
+  group of :func:`q_group` tiles narrower than a 32-row sub-block) walked
+  in 32-row sub-blocks, chunks of 32 keys.  TF32 would break the f32
   tolerance of 2e-4, so f32 stays off the tensor cores.
 
 How the :class:`~repro_torch.core.schedule.ConcreteSchedule` maps onto the
 kernel:
 
-* ``tiles["Q"]`` — the logical query tile, the unit of masking.  The mma
-  body covers each logical tile with ceil(min(tile, Sq) / 64) CTAs that
-  never cross its edge (:func:`attention_geometry`); the CTAs of the last
-  row blocks, the heaviest under a causal mask, are launched first.  The
-  fma body runs one CTA per logical tile.
+* ``tiles["Q"]`` — the logical query tile, the unit of masking.  Where it
+  is narrower than both Sq and a CTA, one CTA covers a group of
+  :func:`q_group` consecutive tiles (a prime length's default tile of 1:
+  64 tiles a CTA of the mma body, not 64 rows staged for 1 kept); else a
+  group is one tile.  The mma body covers each group with
+  ceil(min(group rows, Sq) / 64) CTAs that never cross its last edge
+  (:func:`attention_geometry`); the CTAs of the last row blocks, the
+  heaviest under a causal mask, are launched first.  The fma body runs one
+  CTA per group.  Rows are independent (below), so grouping keeps every
+  bit.
 * ``tiles["KV"]`` — not used as a block size: each CTA loops over its whole
   live KV range itself, in chunks that start at global multiples of the
   chunk, skipping chunks its rows all mask.  That loop takes the place of
@@ -86,15 +92,20 @@ from repro_torch.kernels.matmul import DTYPES
 MAX_HEAD_DIM = 256
 #: query rows of one CTA of the mma body (csrc/flash_attention.cu kMmaBQ)
 MMA_CTA_Q = 64
+#: the rows :func:`q_group` fills, by body: the mma body's CTA, the fma
+#: body's 32-row sub-block (csrc/flash_attention.cu kBQ)
+CTA_Q = {"mma": MMA_CTA_Q, "fma": 32}
 
 #: kernel launches since the last reset (plain counts; see chip_smoke.py):
 #: ``launches`` of :func:`launch`, ``body_launches`` by (body, dtype),
 #: ``offset_launches`` with ``q_offset`` > 0 (chunked prefill),
 #: ``row_tile_launches`` with 1-row Q tiles over Sq > 1 rows (a prime
-#: length's default) and ``class_launches`` by (class id, body)
+#: length's default), ``grouped_tile_launches`` whose CTAs cover more than
+#: one logical Q tile, by Q tile, and ``class_launches`` by (class id, body)
 launches = 0
 offset_launches = 0
 row_tile_launches = 0
+grouped_tile_launches: collections.Counter = collections.Counter()
 body_launches: collections.Counter = collections.Counter()
 class_launches: collections.Counter = collections.Counter()
 #: launches of the backward kernels (:func:`launch_bwd`) since the last
@@ -116,6 +127,7 @@ def reset_launches() -> None:
     """Set every count to 0."""
     global launches, offset_launches, row_tile_launches, bwd_launches
     launches = offset_launches = row_tile_launches = bwd_launches = 0
+    grouped_tile_launches.clear()
     body_launches.clear()
     class_launches.clear()
     bwd_body_launches.clear()
@@ -132,17 +144,30 @@ def body_for(dtype: torch.dtype) -> str:
     return "mma" if dtype == torch.bfloat16 else "fma"
 
 
+def q_group(sq: int, tile_q: int, cta_q: int) -> int:
+    """Logical Q tiles one CTA of ``cta_q`` rows covers (:data:`CTA_Q`: the
+    mma body's CTA, the fma body's sub-block): ⌊cta_q / tile_q⌋ where the Q
+    tile is narrower than both Sq and the CTA, else 1 (a tile at least as
+    wide as the CTA, or all of Sq, is placed as before).  The kernel
+    computes the same (csrc/flash_attention.cu ``q_group``)."""
+    return cta_q // tile_q if tile_q < min(sq, cta_q) else 1
+
+
 def attention_geometry(dtype: torch.dtype, sq: int, tile_q: int) -> tuple[str, int, int]:
-    """(body, cta_q, ctas) of a launch, CTAs per (batch, head): the mma body
-    covers each logical Q tile with ceil(min(tile_q, sq) / :data:`MMA_CTA_Q`)
-    CTAs of :data:`MMA_CTA_Q` rows, masked at the tile's edge (a ragged last
-    tile may leave some empty); the fma body runs one CTA per logical tile.
-    The kernel re-checks it and refuses a mismatch."""
+    """(body, cta_q, ctas) of a launch, CTAs per (batch, head).  A group of
+    :func:`q_group` consecutive logical Q tiles (one tile where it is not
+    narrower than both Sq and the CTA) is the unit a CTA never crosses:
+    the mma body covers each group with ceil(min(group rows, sq) /
+    :data:`MMA_CTA_Q`) CTAs of :data:`MMA_CTA_Q` rows, masked at the
+    group's last edge (a ragged last group may leave some empty); the fma
+    body runs one CTA per group (``cta_q``: the group's rows).  The kernel
+    re-checks it and refuses a mismatch."""
     body = body_for(dtype)
-    tiles = -(-sq // tile_q)
+    span = q_group(sq, tile_q, CTA_Q[body]) * tile_q
+    groups = -(-sq // span)
     if body == "mma":
-        return body, MMA_CTA_Q, tiles * -(-min(tile_q, sq) // MMA_CTA_Q)
-    return body, tile_q, tiles
+        return body, MMA_CTA_Q, groups * -(-min(span, sq) // MMA_CTA_Q)
+    return body, span, groups
 
 
 def schedule_key(cs: ConcreteSchedule) -> tuple[int]:
@@ -211,6 +236,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cs: ConcreteSchedu
     launches += 1
     offset_launches += q_offset > 0
     row_tile_launches += cs.t["Q"] == 1 < sq
+    if q_group(sq, cs.t["Q"], CTA_Q[body]) > 1:
+        grouped_tile_launches[cs.t["Q"]] += 1
     body_launches[body, q.dtype] += 1
     class_launches[cs.instance.class_id, body] += 1
     return (out, lse) if with_lse else out

@@ -141,6 +141,54 @@ def test_attention_rows_do_not_depend_on_the_split(card, dtype, hkv, group, s, s
     _close(whole, ref.attention(q, k, v, window=window), TOL if dt == torch.float32 else BF16_TOL)
 
 
+# (class, Hkv, GQA group, Sq, Skv, D, causal, window, softcap, q_offset):
+# a prime Sq above 128 (default Q tile 1) or 253 (tile 23): recurrentgemma-2b's
+# local attention, a window shorter than a 64-row CTA, softcap with GQA,
+# q_offset > 0, and whisper-medium's cross-attention over 1500 frames
+NARROW_Q_CASES = [
+    ("flash_attention_local", 1, 10, 181, 181, 256, True, 2048, 0.0, 0),
+    ("flash_attention_local", 1, 10, 253, 253, 256, True, 2048, 0.0, 0),
+    ("flash_attention_causal", 2, 3, 181, 181, 128, True, 16, 0.0, 0),
+    ("flash_attention_causal", 2, 2, 173, 173, 64, True, 0, 30.0, 0),
+    ("flash_attention_causal", 2, 3, 139, 200, 80, True, 24, 0.0, 61),
+    ("flash_attention_cross", 4, 1, 181, 1500, 64, False, 0, 0.0, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("class_id,hkv,group,sq,skv,d,causal,window,softcap,q_offset", NARROW_Q_CASES)
+def test_grouped_q_tiles_keep_the_bits(card, dtype, class_id, hkv, group, sq, skv, d, causal,
+                                       window, softcap, q_offset):
+    """The default Q tile (1 at a prime Sq, 23 at 253) puts a group of
+    narrow tiles in one CTA; its output and row log-sum-exp equal, bit for
+    bit, those at a Q tile of Sq and of 64, where a CTA holds one tile:
+    chunks start at global multiples and a chunk that masks all of a row
+    leaves that row's state unchanged, so no row's bits depend on its CTA."""
+    from repro_torch.core.schedule import Schedule, concretize
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(sq + skv + d)
+    q = torch.randn((1, hkv * group, sq, d), generator=g, device=card).to(dt)
+    k = torch.randn((1, hkv, skv, d), generator=g, device=card).to(dt)
+    v = torch.randn((1, hkv, skv, d), generator=g, device=card).to(dt)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    inst = ops.instance(class_id, dt, Q=sq, KV=skv, H=hkv * group, D=d, B=1, window=window)
+    dflt = ops.schedule_for(inst)
+    tile = dflt.t["Q"]
+    assert tile == (23 if sq == 253 else 1)
+    outs = []
+    for tile_q in (tile, sq, 64):
+        cs = concretize(Schedule.make(class_id, {**dflt.t, "Q": tile_q}, order=dflt.order), inst)
+        before = fa.grouped_tile_launches[tile_q]
+        outs.append(fa.launch(q, k, v, cs, with_lse=True, **kw))
+        grouped = fa.q_group(sq, tile_q, fa.CTA_Q[fa.body_for(dt)]) > 1
+        assert fa.grouped_tile_launches[tile_q] == before + grouped
+    assert fa.q_group(sq, tile, fa.MMA_CTA_Q) > 1
+    for got in outs[1:]:
+        _equal_bits(outs[0], got)
+    _close(outs[0][0], ref.attention(q, k, v, **kw), TOL if dt == torch.float32 else BF16_TOL)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,h,t,d", [(2, 1, 1, 16), (3, 2, 1, 64), (1, 3, 37, 64),
                                      (2, 2, 40, 16), (1, 1, 70, 32)])

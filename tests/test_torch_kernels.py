@@ -595,45 +595,121 @@ def test_rows_split_k_does_not_change_with_m(k, n, tile_n, groups):
     assert split_k == 1 or mm.rows_k_slice(k, split_k) >= mm.ROWS_MIN_SLICE
 
 
-def _attn_cta_rows(sq, tile_q, cta_q, ctas):
+def _qgroup(sq, tile_q, cta_q):
+    """Logical Q tiles one CTA covers, as csrc/flash_attention.cu q_group
+    states it: floor(cta_q / tile_q) where the Q tile is narrower than both
+    Sq and the CTA (64 rows: the mma body; 32: the fma body's sub-block),
+    else 1."""
+    return cta_q // tile_q if tile_q < min(sq, cta_q) else 1
+
+
+def _attn_cta_rows(body, sq, tile_q, ctas):
     """Query rows of every CTA of one (b, h), as csrc/flash_attention.cu
-    places them: the mma body's CTA of rank r (launch order, heaviest
-    first) runs row block (ctas - 1 - r) % sub of logical tile
-    (ctas - 1 - r) // sub; the fma body one CTA per tile."""
-    sub = -(-min(tile_q, sq) // cta_q)
+    places them: a group is ``_qgroup`` consecutive logical tiles; the mma
+    body's CTA of rank r (launch order, heaviest first) runs 64-row block
+    (ctas - 1 - r) % sub of group (ctas - 1 - r) // sub; the fma body one
+    CTA per group.  Yields (rank, group rows, CTA rows)."""
+    cta_q = {"mma": 64, "fma": 32}[body]
+    span = _qgroup(sq, tile_q, cta_q) * tile_q
+    step = cta_q if body == "mma" else span
+    sub = -(-min(span, sq) // step)
     for rank in range(ctas):
         idx = ctas - 1 - rank
-        t0 = (idx // sub) * tile_q
-        t1 = min(t0 + tile_q, sq)
-        r0 = t0 + (idx % sub) * cta_q
-        if r0 < t1:
-            yield rank, (t0, t1), (r0, min(r0 + cta_q, t1))
+        g0 = (idx // sub) * span
+        g1 = min(g0 + span, sq)
+        r0 = g0 + (idx % sub) * step
+        if r0 < g1:
+            yield rank, (g0, g1), (r0, min(r0 + step, g1))
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("sq,tile_q", [(512, 128), (128, 128), (256, 128), (397, 1), (181, 1),
                                        (100, 128), (300, 96), (70, 16), (1, 1), (64, 64),
-                                       (200, 200)])
+                                       (200, 200), (253, 23), (362, 2), (96, 48), (64, 32)])
 def test_attention_geometry_covers_each_q_tile_once(dtype, sq, tile_q):
-    """Every query row is covered by exactly one CTA, no CTA crosses its
-    logical Q tile's edge, and (mma body) the last row blocks come first."""
+    """Every query row is covered by exactly one CTA; a CTA covers whole
+    consecutive logical tiles or one part of one, never crossing its
+    group's last edge; (mma body) the last row blocks come first."""
     dt = getattr(torch, dtype)
     body, cta_q, ctas = fa.attention_geometry(dt, sq, tile_q)
     assert body == fa.body_for(dt) == ("mma" if dt == torch.bfloat16 else "fma")
+    group = _qgroup(sq, tile_q, fa.CTA_Q[body])
+    span = group * tile_q
     if body == "mma":
         assert cta_q == fa.MMA_CTA_Q
-        assert ctas == -(-sq // tile_q) * -(-min(tile_q, sq) // fa.MMA_CTA_Q)
+        assert ctas == -(-sq // span) * -(-min(span, sq) // fa.MMA_CTA_Q)
     else:
-        assert (cta_q, ctas) == (tile_q, -(-sq // tile_q))
+        assert (cta_q, ctas) == (span, -(-sq // span))
+    if group > 1:   # the fewest CTAs the group allows, one part each
+        assert ctas == -(-(-(-sq // tile_q)) // group)
     cover = np.zeros(sq, dtype=np.int64)
     starts = []
-    for _, (t0, t1), (r0, r1) in _attn_cta_rows(sq, tile_q, cta_q, ctas):
-        assert t0 <= r0 < r1 <= t1 <= sq
+    for _, (g0, g1), (r0, r1) in _attn_cta_rows(body, sq, tile_q, ctas):
+        assert g0 % span == 0 and g0 <= r0 < r1 <= g1 <= sq
+        whole_tiles = r0 % tile_q == 0 and (r1 % tile_q == 0 or r1 == sq)
+        assert whole_tiles or r0 // tile_q == (r1 - 1) // tile_q
         cover[r0:r1] += 1
         starts.append(r0)
     assert (cover == 1).all()
     if body == "mma":
         assert starts == sorted(starts, reverse=True)
+
+
+@pytest.mark.parametrize("sq,tile_q,cta_q,group", [
+    (181, 1, 64, 64), (181, 1, 32, 32), (253, 23, 64, 2), (253, 23, 32, 1), (362, 2, 64, 32),
+    (96, 48, 64, 1), (64, 32, 64, 2), (64, 32, 32, 1), (64, 64, 64, 1), (100, 128, 64, 1),
+    (1, 1, 64, 1), (40, 40, 64, 1), (50, 10, 64, 6), (50, 10, 32, 3), (200, 70, 64, 1),
+    (3, 1, 64, 64)])
+def test_q_group_case_table(sq, tile_q, cta_q, group):
+    """A CTA groups ⌊cta_q / tile_q⌋ Q tiles only where the tile is
+    narrower than both Sq and the CTA; a tile that is all of Sq, or at
+    least as wide as the CTA, stays one to a group."""
+    assert fa.q_group(sq, tile_q, cta_q) == _qgroup(sq, tile_q, cta_q) == group
+
+
+# (Sq, Q tile, dtype): (cta_q, CTAs per (b, h)) now, and the CTAs one
+# logical tile a CTA launched: the prime 181's 1-row tiles 181 -> 3 (mma),
+# the 253-token prompt's 23-row tiles 11 -> 6; tiles 64 rows wide or more
+# launch as before
+GROUPED_GEOMETRY = [(181, 1, "bfloat16", (64, 3), 181), (181, 1, "float32", (32, 6), 181),
+                    (253, 23, "bfloat16", (64, 6), 11), (253, 23, "float32", (23, 11), 11),
+                    (362, 2, "bfloat16", (64, 6), 181), (64, 32, "bfloat16", (64, 1), 2),
+                    (356, 89, "bfloat16", (64, 8), 8), (512, 128, "bfloat16", (64, 8), 8),
+                    (192, 96, "bfloat16", (64, 4), 4), (122, 61, "bfloat16", (64, 2), 2)]
+
+
+@pytest.mark.parametrize("sq,tile_q,dtype,now,before", GROUPED_GEOMETRY)
+def test_attention_geometry_groups_narrow_q_tiles(sq, tile_q, dtype, now, before):
+    dt = getattr(torch, dtype)
+    body, cta_q, ctas = fa.attention_geometry(dt, sq, tile_q)
+    assert (cta_q, ctas) == now
+    ungrouped = -(-sq // tile_q) * (-(-min(tile_q, sq) // 64) if body == "mma" else 1)
+    assert ungrouped == before
+    assert (ctas < before) == (fa.q_group(sq, tile_q, fa.CTA_Q[body]) > 1)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-medium", "minitron-4b"])
+def test_grouped_q_tiles_at_the_serve_prompts(arch):
+    """Of the serve prompts' lengths (356, 291, 253, 181, 192, 112, 122,
+    104) prefilled unbucketed, K2's default Q tile groups at 181 (1-row
+    tiles, 64 a CTA) and 253 (23-row tiles, 2 a CTA) alone, for each
+    attention class of the arch; a power-of-two bucket never groups."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    grouped = {}
+    for s in (356, 291, 253, 181, 192, 112, 122, 104, 128, 256, 512):
+        skvs = {"flash_attention_causal": s}
+        if cfg.encoder_layers:
+            skvs["flash_attention_cross"] = cfg.encoder_seq
+        for class_id, skv in skvs.items():
+            cs = ops.schedule_for(ops.instance(class_id, torch.bfloat16, Q=s, KV=skv,
+                                               H=cfg.n_heads, D=cfg.head_dim, B=1, window=0))
+            group = fa.q_group(s, cs.t["Q"], fa.MMA_CTA_Q)
+            if group > 1:
+                grouped[s, class_id] = (cs.t["Q"], group)
+    classes = ["flash_attention_causal"] + (["flash_attention_cross"] if cfg.encoder_layers else [])
+    assert grouped == {**{(181, c): (1, 64) for c in classes}, **{(253, c): (23, 2) for c in classes}}
 
 
 def test_attention_geometry_at_main_path_prefill_shapes():
