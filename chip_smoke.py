@@ -72,9 +72,12 @@ toolkit.  Phases, one result line each:
    launched under each schedule, L2 flushed, the stream held behind a sleep
    so CUDA events time the device), on the kernel lists of one 256-token
    prompt at each arch's full width: the runner checked (397x2048x2048's
-   default 1-row M tiles at least 5x slower than 64x64 tiles; its times
-   beside the profiler's device times on five shapes, the plain decode
-   attention among them); one search of 32
+   default 1-row M tiles, 16 a CTA on the rows body, and 64x64 tiles on the
+   tensor cores, each timed once, ordered as the profiler's device times of
+   the same launches order them wherever those differ by more than
+   ``PRIME_ORDER_MARGIN``; both ratios logged; its times beside the
+   profiler's device times on five shapes, the plain decode attention
+   among them); one search of 32
    trials each for K2 (minitron-4b), K3 (rwkv6-1.6b) and K4
    (recurrentgemma-2b); then three pairs: starcoder2-7b and stablelm-12b
    fully tuned as donors (their records no slower than the default
@@ -123,7 +126,10 @@ toolkit.  Phases, one result line each:
    archs prefill it unpadded: every default M tile is 1, all rows body);
    K2's launches on 1-row Q tiles and those that put a group of narrow
    tiles in a CTA, by Q tile, are reported: every 1-row-tile launch must be
-   grouped, and an arch that prefills unbucketed must make some;
+   grouped, and an arch that prefills unbucketed must make some; likewise
+   K1's and K1g's rows launches on narrow M tiles (``matmul_tile_launches``:
+   every one with an M tile of at most 8 rows over more rows than one tile
+   must put a group of tiles in each CTA);
 9. serve_tuned — recurrentgemma-2b at full width served through a schedule
    registry (``launch.serve.make_provider``, ``--target h100``): the tuning
    phase's donor records plus one record in rounding mode (the decode LM
@@ -135,8 +141,9 @@ toolkit.  Phases, one result line each:
    181-token one against the serve phase's default run (same-call ratios),
    ms per decode step and the provider's share of a step's host time; it
    fails if the measured runner timed anything in the timed pass, if the
-   prime prompt's K1 launches on the tensor cores are not exactly those the
-   registry gave an M tile above 16, if a non-default launch served
+   prime prompt's K1 launches per body (tensor cores and rows) are not
+   those its plan entries' M tiles give (none compared also fails; a
+   default-tier entry on the tensor cores fails), if a non-default launch served
    disagrees with its plain version, if the prefill logits leave the serve
    bound, or if the engine did not re-plan once;
 10. paged — the paged engine (``serving/paged.py``: pages of 16 tokens,
@@ -295,6 +302,13 @@ toolkit.  Phases, one result line each:
 16. examples — ``repro_torch.examples`` ``quickstart`` (step 5: K1 against
    its plain version), ``serve_lm`` and ``train_lm`` (60 steps, the loss
    falls) once on the card (``phase_examples``).
+After the scans, K1 on the rows body at ``PRIME_MM`` (``phase_prime_matmul``:
+the prime 397-row GEMMs and recurrentgemma-2b's 181-row projection on
+1-row M tiles, 16 a CTA, and verify's 16x3072x3072), each checked against
+its plain version and bit for bit against the launch at an M tile of 16,
+with its M tiles a CTA, CTAs, K split, the CUDA-core floor, its event and
+device times beside the plain version and ``torch.matmul``, and its device
+time at passes of 4 rows; the 397- and 181-row shapes also at 64x64 tiles.
 The chunk shapes of the paged path (K2: a 64-row chunk at q_offset 256 of a
 512-row cache; K1: 64x3072x3072 on the tensor cores) are timed after the
 grouped phase beside their plain versions, SDPA given the same boolean mask
@@ -346,6 +360,20 @@ beside SDPA, each arch's prefill seconds (all eight prompts, the 181- and
 253-token ones, one-shot and in the stream), their same-call ratios, and whether every output, the
 generated tokens and the 181- and 253-token prompts' prefill logits have
 the same sha256 in every turn of both trees; it fails where one differs.
+
+    python3 chip_smoke.py --rows-ab PARENT
+
+times K1 on the rows body at ``ROWS_AB_MM`` (``PRIME_MM`` and decode's
+4x3072x3072; each checked as in ``phase_prime_matmul``) and the slot
+engine's stream of the serve prompts for whisper-medium, rwkv6-1.6b and
+recurrentgemma-2b at full width (the 181-token prompt's one-shot prefill,
+median of seven) in the tree at ``PARENT`` and in this one, in turns
+(parent, this, this, parent), each turn in its own process; it prints each
+K1 shape's M tiles a CTA, CTAs and device times in both trees beside
+``torch.matmul`` and the CUDA-core floor, each arch's prefill seconds and
+their same-call ratios, and whether every output, the generated tokens and
+the 181-token prefill logits have the same sha256 in every turn of both
+trees; it fails where one differs.
 
     python3 chip_smoke.py --profile-family ARCH
 
@@ -1774,7 +1802,7 @@ def time_head(torch, timer) -> list:
     return rows
 
 
-#: the turns of ``--scans-ab``, ``--head-ab`` and ``--attn-ab``
+#: the turns of ``--scans-ab``, ``--head-ab``, ``--attn-ab`` and ``--rows-ab``
 AB_TURNS = ("parent", "this", "this", "parent")
 
 
@@ -1857,21 +1885,28 @@ def time_attn(torch, timer) -> list:
     """One ``--attn-ab`` turn, on the ``repro_torch`` on ``sys.path``: each
     :data:`NARROW_ATTN` launch at fixed seeded inputs
     (:func:`slice_attention_row`: checked against its plain version and at
-    a Q tile of Sq, its outputs' sha256, timed beside SDPA, its CTAs);
-    then for each :data:`ATTN_AB_ARCHS` arch at full width the slot engine's
-    stream of the serve prompts, twice (the first warms up), with each
-    prompt's prefill seconds and the sha256 of the generated tokens; and
-    each :data:`ATTN_AB_PROMPTS` prompt's one-shot prefill
-    (``model.prefill``), its logits' sha256 and its median seconds over
-    :data:`ATTN_AB_PREFILLS` calls, each ended by a sync."""
+    a Q tile of Sq, its outputs' sha256, timed beside SDPA, its CTAs); then
+    the slot-engine and one-shot prefills of :data:`ATTN_AB_ARCHS` at
+    :data:`ATTN_AB_PROMPTS` (:func:`time_prefills`)."""
+    g = torch.Generator(device="cuda").manual_seed(34)
+    rows = [{"kind": "attention", **slice_attention_row(torch, timer, g, *case)}
+            for case in NARROW_ATTN]
+    return rows + time_prefills(torch, ATTN_AB_ARCHS, ATTN_AB_PROMPTS)
+
+
+def time_prefills(torch, archs, prompt_lens) -> list:
+    """For each arch at full width, the slot engine's stream of the serve
+    prompts, twice (the first warms up), with each prompt's prefill seconds
+    and the sha256 of the generated tokens; and each ``prompt_lens``
+    prompt's one-shot prefill (``model.prefill``), its logits' sha256 and
+    its median seconds over :data:`ATTN_AB_PREFILLS` calls, each ended by a
+    sync.  One row (kind ``prefill``) an arch."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
 
-    g = torch.Generator(device="cuda").manual_seed(34)
-    rows = [{"kind": "attention", **slice_attention_row(torch, timer, g, *case)}
-            for case in NARROW_ATTN]
-    for arch in ATTN_AB_ARCHS:
+    rows = []
+    for arch in archs:
         cfg = get_arch(arch)
         model = build_model(cfg, "cuda")
         params = model.init(seed=0)
@@ -1886,7 +1921,7 @@ def time_attn(torch, timer) -> list:
         if runs[0]["generated"] != runs[1]["generated"]:
             raise AssertionError(f"{arch}: two runs of the slot engine generate other tokens")
         logits, one_shot = {}, {}
-        for n in ATTN_AB_PROMPTS:
+        for n in prompt_lens:
             batch = {"tokens": torch.tensor([prompts[lens.index(n)]], dtype=torch.long, device="cuda"),
                      **{k: v[None] for k, v in extras.items()}}
             secs = []
@@ -1902,7 +1937,7 @@ def time_attn(torch, timer) -> list:
         rows.append({"kind": "prefill", "arch": arch, "prompt_lens": lens,
                      "prompt_prefill_s": run["prompt_prefill_s"], "prefill_s": run["prefill_s"],
                      **{f"prefill_{n}_s": run["prompt_prefill_s"][lens.index(n)]
-                        for n in ATTN_AB_PROMPTS},
+                        for n in prompt_lens},
                      "warmup_prefill_s": runs[0]["prefill_s"], **one_shot,
                      "tokens_digest": hashlib.sha256(json.dumps(run["generated"]).encode()).hexdigest(),
                      "logits_digests": logits})
@@ -1937,15 +1972,8 @@ def attn_ab(parent: Path) -> int:
                           parent_library_ratio=ratio(p["device_ms"], p["library_device_ms"]),
                           library_ratio=ratio(t["device_ms"], t["library_device_ms"]))
         else:
-            keys = ("tokens_digest", "logits_digests")
-            metrics = ("prefill_s", *(f"{m}_{n}_s" for m in ("prefill", "one_shot")
-                                      for n in ATTN_AB_PROMPTS))
-            mean = ab_means(rows, metrics)
-            fields = {k: v for m in metrics for k, v in
-                      ((f"parent_{m}", mean["parent"][m]), (m, mean["this"][m]),
-                       (f"{m}_ratio", ratio(mean["parent"][m], mean["this"][m])))}
-        same = {k: len({json.dumps(r[k], sort_keys=True) for rs in rows.values() for r in rs}) == 1
-                for k in keys}
+            keys, fields = prefill_ab_fields(rows, ATTN_AB_PROMPTS)
+        same = ab_same(rows, keys)
         if not all(same.values()):
             differ.append((kind, arch, class_id, sq, same))
         log("attn_ab", kind=kind, arch=arch, bits_equal=same, **fields)
@@ -1955,47 +1983,177 @@ def attn_ab(parent: Path) -> int:
     return 0
 
 
-def phase_prime_matmul(torch, timer) -> list:
-    """The matmul kernel at an unbucketed prime prefill length (M tile 1
-    under the default schedule), beside 64x64 output tiles."""
+def prefill_ab_fields(rows: dict, prompt_lens) -> tuple:
+    """The digests a prefill row of :func:`time_prefills` must keep, and
+    its fields for an ``*_ab`` line: each tree's mean prefill seconds (all
+    eight prompts, and each of ``prompt_lens`` in the stream and one-shot)
+    and their ratios (parent / this)."""
+    metrics = ("prefill_s", *(f"{m}_{n}_s" for m in ("prefill", "one_shot") for n in prompt_lens))
+    mean = ab_means(rows, metrics)
+    return ("tokens_digest", "logits_digests"), {
+        k: v for m in metrics for k, v in ((f"parent_{m}", mean["parent"][m]), (m, mean["this"][m]),
+                                           (f"{m}_ratio", ratio(mean["parent"][m], mean["this"][m])))}
+
+
+def ab_same(rows: dict, keys) -> dict:
+    """For each key, whether every turn of both trees gave the same value."""
+    return {k: len({json.dumps(r[k], sort_keys=True) for rs in rows.values() for r in rs}) == 1
+            for k in keys}
+
+
+#: K1 on the rows body at narrow M tiles and at verify's 16 rows (class, M,
+#: K, N): the prime 397-row GEMMs (1-row default tiles, 16 a CTA) beside
+#: their 64x64 tiles, recurrentgemma-2b's 181-token projection, verify's
+#: 16x3072x3072 (one 16-row tile)
+PRIME_MM = (("matmul", 397, 2048, 2048), ("matmul_gelu_glu", 397, 2560, 15360),
+            ("matmul", 181, 2560, 2560), ("matmul", 16, 3072, 3072))
+#: ``--rows-ab``'s K1 launches: those and decode's 4x3072x3072
+ROWS_AB_MM = PRIME_MM + (("matmul", 4, 3072, 3072),)
+
+
+def rows_alone(m: int) -> list:
+    """Rows of an M-row launch that :func:`rows_matmul_row` launches alone:
+    the first group's edges, the middle, and the last (ragged) group's."""
+    last = (m - 1) // 16 * 16
+    return sorted({r for r in (0, 1, 15, 16, m // 2, last, m - 2, m - 1) if 0 <= r < m})
+
+
+def rows_matmul_row(torch, timer, g, class_id, m, k, n, tile64: bool = False) -> dict:
+    """K1 under the default schedule at (m, k, n), bf16, on the rows body:
+    checked against its plain version and, bit for bit, against the same
+    launch at an M tile of 16 and against each of :func:`rows_alone`'s rows
+    launched alone at M = 1 (a 1-row CTA, the 4-row register pass: at a
+    prime M the M tile 16 launch has the grouped launch's geometry, so the
+    rows alone are what hold the grouped body to the per-row sums); its
+    geometry (M tiles a CTA, CTAs, K split), its output's sha256, and its
+    event and device times beside the plain version, ``torch.matmul`` (the
+    plain class only), the bytes bound and the CUDA-core floor (2·M·N·K over
+    the f32 CUDA-core peak: the rows body's FMAs); with ``tile64``, the same
+    at 64x64 output tiles (the tensor-core body)."""
     from repro_torch.core.schedule import Schedule, concretize
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ops, ref
 
-    g = torch.Generator(device="cuda").manual_seed(4)
-    rows = []
-    for m, k, n, class_id in ((397, 2048, 2048, "matmul"), (397, 2560, 15360, "matmul_gelu_glu")):
-        x, w, kw = _mm_inputs(torch, g, m, n, k, class_id, torch.bfloat16)
-        cs = ops.schedule_for(ops.instance(class_id, torch.bfloat16, M=m, N=n, K=k))
-        cs64 = concretize(Schedule.make(class_id, {"M": 64, "N": 64, "K": cs.t["K"]}), cs.instance)
-        want = ref.matmul(x, w, class_id, **kw)
-        err = max(assert_close(torch, mm.launch(x, w, cs, class_id=class_id, **kw), want, BF16_TOL,
-                               f"{class_id} M={m}"),
-                  assert_close(torch, mm.launch(x, w, cs64, class_id=class_id, **kw), want, BF16_TOL,
-                               f"{class_id} M={m} 64x64"))
-        b_ms, b_by = bound_ms(2 * (m * k + k * n + m * (n // 2 if "glu" in class_id else n)),
-                              2 * m * n * k)
-        body, _, cta_n, split_k, ctas = mm.launch_geometry(x.dtype, m, n, k, cs.t["M"], cs.t["N"])
-        row = {"class": class_id, "M": m, "K": k, "N": n, "tiles": cs.t, "body": body,
-               "cta_n": cta_n, "split_k": split_k, "ctas": ctas, "max_abs_err": err,
-               "ms": timer.ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw), iters=5),
-               "tile64_ctas": mm.launch_geometry(x.dtype, m, n, k, 64, 64)[4],
-               "tile64_ms": timer.ms(lambda: mm.launch(x, w, cs64, class_id=class_id, **kw), iters=5),
-               "plain_ms": timer.ms(lambda: ref.matmul(x, w, class_id, **kw), iters=5),
-               # one library call computes the same function only without an epilogue
-               "library_ms": (timer.ms(lambda: torch.matmul(x, w), iters=5)
-                              if class_id == "matmul" else None),
-               "bound_ms": b_ms, "bound_by": b_by}
+    x, w, kw = _mm_inputs(torch, g, m, n, k, class_id, torch.bfloat16)
+    cs = ops.schedule_for(ops.instance(class_id, torch.bfloat16, M=m, N=n, K=k))
+
+    def under(tiles, inst=cs.instance):
+        return concretize(Schedule.make(class_id, {**cs.t, **tiles}, order=cs.order), inst)
+
+    want = ref.matmul(x, w, class_id, **kw)
+    out = mm.launch(x, w, cs, class_id=class_id, **kw)
+    err = assert_close(torch, out, want, BF16_TOL, f"{class_id} M={m}")
+    if not torch.equal(out, mm.launch(x, w, under({"M": 16}), class_id=class_id, **kw)):
+        raise AssertionError(f"{class_id} {m}x{k}x{n}: M tile {cs.t['M']} and 16 give other bits")
+    alone = rows_alone(m)
+    one = under({"M": 1}, ops.instance(class_id, torch.bfloat16, M=1, N=n, K=k))
+    for r in alone:
+        res = kw["residual"][r:r + 1] if kw["residual"] is not None else None
+        if not torch.equal(out[r:r + 1], mm.launch(x[r:r + 1].contiguous(), w, one, class_id=class_id,
+                                                   **{**kw, "residual": res})):
+            raise AssertionError(f"{class_id} {m}x{k}x{n}: row {r} alone gives other bits")
+    body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(x.dtype, m, n, k, cs.t["M"], cs.t["N"])
+    b_ms, b_by = bound_ms(2 * (m * k + k * n + m * (n // 2 if "glu" in class_id else n)),
+                          2 * m * n * k)
+    run = lambda: mm.launch(x, w, cs, class_id=class_id, **kw)  # noqa: E731
+    lib = (lambda: torch.matmul(x, w)) if class_id == "matmul" else None
+    row = {"class": class_id, "M": m, "K": k, "N": n, "tiles": cs.t, "body": body,
+           "m_group": cta_m // cs.t["M"] if body == "rows" else 1, "cta_m": cta_m, "cta_n": cta_n,
+           "split_k": split_k, "ctas": ctas, "max_abs_err": err, "bits_equal_tile16": True,
+           "bits_equal_rows_alone": alone,
+           "digest": digest(torch, [out]),
+           "ms": timer.ms(run, iters=5), "device_ms": timer.device_ms(run, iters=5),
+           "plain_ms": timer.ms(lambda: ref.matmul(x, w, class_id, **kw), iters=5),
+           # one library call computes the same function only without an epilogue
+           "library_ms": timer.ms(lib, iters=5) if lib else None,
+           "library_device_ms": timer.device_ms(lib, iters=5) if lib else None,
+           "bound_ms": b_ms, "bound_by": b_by, "floor_ms": 2 * m * n * k / F32_CUDA_CORE_FLOPS * 1e3}
+    if tile64:
+        cs64 = under({"M": 64, "N": 64})
+        err64 = assert_close(torch, mm.launch(x, w, cs64, class_id=class_id, **kw), want, BF16_TOL,
+                             f"{class_id} M={m} 64x64")
+        run64 = lambda: mm.launch(x, w, cs64, class_id=class_id, **kw)  # noqa: E731
+        row.update(max_abs_err=max(err, err64),
+                   tile64_ctas=mm.launch_geometry(x.dtype, m, n, k, 64, 64)[4],
+                   tile64_ms=timer.ms(run64, iters=5), tile64_device_ms=timer.device_ms(run64, iters=5))
         # the same-call yardstick: the rows body's time over the tensor-core body's
         row["tile64_ratio"] = row["ms"] / row["tile64_ms"]
-        row["device_ms"] = timer.device_ms(lambda: mm.launch(x, w, cs, class_id=class_id, **kw), iters=5)
-        row["tile64_device_ms"] = timer.device_ms(lambda: mm.launch(x, w, cs64, class_id=class_id, **kw),
-                                                  iters=5)
+    return row
+
+
+def phase_prime_matmul(torch, timer) -> list:
+    """K1 on the rows body at :data:`PRIME_MM` (:func:`rows_matmul_row`),
+    the 397-row shapes beside 64x64 output tiles."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for class_id, m, k, n in PRIME_MM:
+        row = rows_matmul_row(torch, timer, g, class_id, m, k, n, tile64=m >= 64)
         rows.append(row)
         log("matmul_prime_shape", **row)
-        del x, w, want
     torch.cuda.empty_cache()
     return rows
+
+
+#: the archs whose slot-engine prefill ``--rows-ab`` times at full width
+#: (they prefill unbucketed: 181 takes 1-row M tiles), and the prompt whose
+#: prefill logits it digests (the serve phases' ``PRIME_PROMPT``)
+ROWS_AB_ARCHS = ("whisper-medium", "rwkv6-1.6b", "recurrentgemma-2b")
+ROWS_AB_PROMPTS = (181,)
+
+
+def time_rows(torch, timer) -> list:
+    """One ``--rows-ab`` turn, on the ``repro_torch`` on ``sys.path``: each
+    :data:`ROWS_AB_MM` launch at fixed seeded inputs
+    (:func:`rows_matmul_row`), then the slot-engine and one-shot prefills of
+    :data:`ROWS_AB_ARCHS` at :data:`ROWS_AB_PROMPTS` (:func:`time_prefills`)."""
+    g = torch.Generator(device="cuda").manual_seed(35)
+    rows = [{"kind": "matmul", "arch": None, **rows_matmul_row(torch, timer, g, *case)}
+            for case in ROWS_AB_MM]
+    torch.cuda.empty_cache()
+    return rows + time_prefills(torch, ROWS_AB_ARCHS, ROWS_AB_PROMPTS)
+
+
+def rows_ab(parent: Path) -> int:
+    """K1 on the rows body (:data:`ROWS_AB_MM`) and the slot engine's
+    prefill of :data:`ROWS_AB_ARCHS` (:func:`time_rows`) in the tree at
+    ``parent`` and in this one, in turns (:func:`ab_turns`).  Prints per K1
+    shape each tree's M tiles a CTA, CTAs, mean event and device times,
+    their ratio (parent / this) and each tree's ratio to ``torch.matmul``
+    and to the CUDA-core floor; per arch each tree's mean prefill seconds
+    and their ratios; and whether the outputs', tokens' and logits' sha256
+    are the same in every turn of both trees.  Raises, after printing,
+    where any differs."""
+    got = ab_turns(parent, "--time-rows", "rows",
+                   lambda row: (row["kind"], row["arch"], row.get("class"), row.get("M"),
+                                row.get("K"), row.get("N")))
+    differ = []
+    for (kind, arch, class_id, m, k, n), rows in got.items():
+        if kind == "matmul":
+            keys = ("digest",)
+            mean = ab_means(rows, ("ms", "device_ms", "library_device_ms"))
+            p, t = mean["parent"], mean["this"]
+            this = rows["this"][0]
+            fields = dict(class_id=class_id, M=m, K=k, N=n,
+                          **{f: this[f] for f in ("tiles", "bound_ms", "bound_by", "floor_ms")},
+                          parent_m_group=rows["parent"][0]["m_group"], m_group=this["m_group"],
+                          parent_ctas=rows["parent"][0]["ctas"], ctas=this["ctas"],
+                          parent_device_ms=p["device_ms"], device_ms=t["device_ms"],
+                          device_ratio=ratio(p["device_ms"], t["device_ms"]),
+                          parent_ms=p["ms"], ms=t["ms"], ratio=ratio(p["ms"], t["ms"]),
+                          library_device_ms=t["library_device_ms"],
+                          parent_library_ratio=ratio(p["device_ms"], p["library_device_ms"]),
+                          library_ratio=ratio(t["device_ms"], t["library_device_ms"]),
+                          floor_ratio=ratio(t["device_ms"], this["floor_ms"]))
+        else:
+            keys, fields = prefill_ab_fields(rows, ROWS_AB_PROMPTS)
+        same = ab_same(rows, keys)
+        if not all(same.values()):
+            differ.append((kind, arch, class_id, m, same))
+        log("rows_ab", kind=kind, arch=arch, bits_equal=same, **fields)
+    print(nvidia_smi())
+    if differ:
+        raise AssertionError(f"--rows-ab: bits differ between turns or trees: {differ}")
+    return 0
 
 
 @contextlib.contextmanager
@@ -2163,9 +2321,11 @@ TUNE_PAIRS = (("dense", ("starcoder2-7b", "stablelm-12b"), "minitron-4b", 256, T
 #: random valid schedules per searched kernel held against the plain version
 RANDOM_CHECKS = 4
 #: the runner's check: the prime prefill GEMM (M, N, K), whose default
-#: schedule (M tile 1) must time at least this many times its 64x64 tiles
+#: schedule (M tile 1, the rows body) and 64x64 tiles (the tensor-core body)
+#: the runner must order as the profiler's device times of the same launches
+#: do, wherever those differ by more than PRIME_ORDER_MARGIN
 PRIME_MNK = (397, 2048, 2048)
-PRIME_MIN_RATIO = 5.0
+PRIME_ORDER_MARGIN = 1.2
 #: the runner's event time (stream held behind a sleep) beside the
 #: profiler's device time: (class, params) of decode and prefill GEMMs, K2, K3
 TIMER_CHECKS = (("matmul", dict(M=4, N=3072, K=3072)), ("matmul", dict(M=256, N=3072, K=3072)),
@@ -2329,12 +2489,19 @@ def phase_tuning(torch, timer):
     s64 = Schedule.make("matmul", {"M": 64, "N": 64, "K": dflt.t["K"]})
     check = {"shape": list(PRIME_MNK), "default_tiles": dflt.t,
              "default_ms": cached.seconds(prime, dflt) * 1e3,
-             "tile64_ms": cached.seconds(prime, s64) * 1e3}
+             "tile64_ms": cached.seconds(prime, s64) * 1e3,
+             "measurements": runner.stats.measurements,
+             "default_device_ms": timer.device_ms(lambda: runner.run(runner.concrete(prime, dflt))),
+             "tile64_device_ms": timer.device_ms(lambda: runner.run(runner.concrete(prime, s64)))}
     check["ratio"] = check["default_ms"] / check["tile64_ms"]
-    if check["ratio"] < PRIME_MIN_RATIO:
-        raise AssertionError(f"the measured runner ranks {PRIME_MNK}'s default (tiles {dflt.t}) "
-                             f"only {check['ratio']:.2f}x slower than 64x64 tiles "
-                             f"({PRIME_MIN_RATIO}x asked)")
+    check["device_ratio"] = ratio(check["default_device_ms"], check["tile64_device_ms"])
+    if check["measurements"] != 2 or check["device_ratio"] is None:
+        raise AssertionError(f"the runner check: {check}")
+    if (max(check["device_ratio"], 1 / check["device_ratio"]) > PRIME_ORDER_MARGIN
+            and (check["ratio"] > 1) != (check["device_ratio"] > 1)):
+        raise AssertionError(f"the measured runner orders {PRIME_MNK}'s default (tiles {dflt.t}) "
+                             f"and 64x64 tiles at {check['ratio']:.3f}, the device at "
+                             f"{check['device_ratio']:.3f}")
     check["timer"] = []
     for class_id, params in TIMER_CHECKS:
         inst = KernelInstance.make(class_id, **params)
@@ -2522,15 +2689,15 @@ def layerwise_rel_err(torch, model, params, toks, extras=None) -> dict:
 @contextlib.contextmanager
 def traced_rows_geometry():
     """Every call of the matmul's ``rows_geometry`` (one per rows-body
-    launch) while the context is open: [((m, n, k, tile_m, tile_n, groups),
-    (cta_n, split_k, ctas)), ...]."""
+    launch) while the context is open: [((m, n, k, tile_m, tile_n, groups,
+    round_k), (cta_n, split_k, ctas)), ...]."""
     from repro_torch.kernels import matmul as mm
 
     plain, calls = mm.rows_geometry, []
 
     def traced(m, n, k, tile_m, tile_n, groups=1, round_k=0):
         out = plain(m, n, k, tile_m, tile_n, groups, round_k)
-        calls.append(((m, n, k, tile_m, tile_n, groups), out))
+        calls.append(((m, n, k, tile_m, tile_n, groups, round_k), out))
         return out
 
     mm.rows_geometry = traced
@@ -2855,7 +3022,7 @@ def phase_serve(torch, arch: str) -> dict:
                              f"{len(rows_calls)} rows_geometry layouts")
     decode_geometry = collections.Counter(
         f"{n}x{k}/E{e}: split_k {split_k}, {e * ctas} CTAs"
-        for (m, n, k, tile_m, tile_n, e), (_, split_k, ctas) in rows_calls if m == 4)
+        for (m, n, k, tile_m, tile_n, e, _), (_, split_k, ctas) in rows_calls if m == 4)
     if not decode_geometry:
         raise AssertionError(f"{arch}: no M = 4 decode launch took the rows body")
     # every bf16 attention launch took the tensor-core body
@@ -2877,6 +3044,30 @@ def phase_serve(torch, arch: str) -> dict:
             not engine.prefill_buckets and "flash_attention" in SERVE_KERNELS[arch]
             and not fa.row_tile_launches):
         raise AssertionError(f"{arch}: K2 launches on narrow Q tiles {attn_tiles}")
+    # K1 and K1g on narrow M tiles (ROADMAP B.1): every rows launch with an
+    # M tile of at most 8 rows over more rows than one tile put a group of
+    # tiles in each CTA, as the CTAs it launched show (rows_geometry's count,
+    # which the C entry re-checks against its own m_group): ceil(M / span)
+    # times one tile's strips and K slices, span = 16 // tile tiles' rows,
+    # where one CTA a tile would launch ceil(M / tile) times as many.  The
+    # wrapper's counters must agree; an arch that prefills unbucketed makes
+    # some at the prime prompt
+    launched = collections.Counter()
+    for (m, n, k, tile_m, tile_n, e, round_k), (_, _, ctas) in rows_calls:
+        if tile_m > 8 or m <= tile_m:
+            continue
+        per_tile = mm.rows_geometry(tile_m, n, k, tile_m, tile_n, e, round_k)[2]
+        span = 16 // tile_m * tile_m
+        if ctas == -(-m // span) * per_tile < -(-m // tile_m) * per_tile:
+            launched[tile_m] += 1
+    mm_tiles = {"row_tile_launches": mm.row_tile_launches,
+                "grouped_by_ctas": {str(t): n for t, n in sorted(launched.items())},
+                **{name: {str(t): n for t, n in sorted(c.items())}
+                   for name, c in (("grouped_tile_launches", mm.grouped_tile_launches),
+                                   ("narrow_tile_launches", mm.narrow_tile_launches))}}
+    if not (launched == mm.narrow_tile_launches == mm.grouped_tile_launches) or (
+            not engine.prefill_buckets and not launched):
+        raise AssertionError(f"{arch}: K1 launches on narrow M tiles {mm_tiles}")
     # where the decode step's time goes on the device: a profiler capture of
     # three minitron decode steps at 4 busy slots (after the counts are read)
     profile = (profile_decode(torch, engine, prompts[:4]) if arch == "minitron-4b" else None)
@@ -2915,6 +3106,7 @@ def phase_serve(torch, arch: str) -> dict:
            "prompt_lens": [len(p) for p in prompts], "decode_steps": run["steps"],
            "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
            "prompt_prefill_s": run["prompt_prefill_s"], "prime_prefill_body_launches": prime_bodies,
+           "matmul_tile_launches": mm_tiles,
            "decode_ms_per_step": run["decode_ms_per_step"],
            "tok_per_s": run["tokens"] / (run["prefill_s"] + run["decode_s"]),
            "decode_tok_per_s": (run["tokens"] - run["requests"]) / run["decode_s"],
@@ -3152,19 +3344,24 @@ def phase_serve_tuned(torch, db, default_row: dict) -> dict:
         if engine.plan.lookup(mid_use.instance).schedule != mid_sched and mid_res.tier == "default":
             raise AssertionError("the mid-run record did not become the plan's entry")
 
-        # the prime prompt: K1 on the tensor cores exactly where the registry
-        # gave an M tile above 16; under the default schedules, never
-        bf16 = torch.bfloat16
-        want_mma = sum(1 for inst, tier, cs, _ in timed["prime_calls"]
-                       if inst.class_id in mm.EPILOGUE and tier in ("exact", "transfer")
-                       and mm.body_for(bf16, mm.schedule_key(cs)[0]) == "mma")
-        default_mma = sum(1 for inst, tier, cs, _ in timed["prime_calls"]
-                          if inst.class_id in mm.EPILOGUE and tier == "default"
-                          and mm.body_for(bf16, mm.schedule_key(cs)[0]) == "mma")
-        got_mma = timed["prime_bodies"].get("matmul/mma/bfloat16", 0)
-        if got_mma != want_mma or default_mma or want_mma <= 0:
-            raise AssertionError(f"prime prefill: {got_mma} K1 mma launches, {want_mma} planned "
-                                 f"(default-tier mma {default_mma})")
+        # the prime prompt: each K1 launch on the body its plan entry's M
+        # tile gives (the tensor cores exactly where the registry gave a tile
+        # above 16, the rows body elsewhere), rows launches included; under
+        # the default schedules never the tensor cores
+        planned = collections.Counter(
+            (f"matmul/{mm.body_for(getattr(torch, inst.dtype), mm.schedule_key(cs)[0])}/{inst.dtype}",
+             tier == "default")
+            for inst, tier, cs, _ in timed["prime_calls"] if inst.class_id in mm.EPILOGUE)
+        want_bodies = collections.Counter()
+        for (key, _), n in planned.items():
+            want_bodies[key] += n
+        got_bodies = collections.Counter({k: n for k, n in timed["prime_bodies"].items()
+                                          if k.startswith("matmul/")})
+        want_mma = want_bodies["matmul/mma/bfloat16"]
+        default_mma = planned["matmul/mma/bfloat16", True]
+        if got_bodies != want_bodies or default_mma or not sum(want_bodies.values()):
+            raise AssertionError(f"prime prefill: K1 launches per body {dict(got_bodies)}, planned "
+                                 f"{dict(want_bodies)} (default-tier mma {default_mma})")
         if default_row["prime_prefill_body_launches"].get("matmul/mma/bfloat16", 0):
             raise AssertionError("the default run's prime prefill took the tensor-core body")
 
@@ -3230,6 +3427,7 @@ def phase_serve_tuned(torch, db, default_row: dict) -> dict:
             "prime_prefill_body_launches": timed["prime_bodies"],
             "default_prime_prefill_body_launches": default_row["prime_prefill_body_launches"],
             "prime_k1_mma_planned": want_mma,
+            "prime_k1_bodies_compared": sum(want_bodies.values()),
             "rounding_record": {"instance": _desc(round_rec.instance),
                                 "tiles": round_rec.schedule.t,
                                 "shape": [round_inst.class_id, *(round_inst.p[a] for a in "MKN"),
@@ -6823,6 +7021,14 @@ def main(argv: list[str]) -> int:
         for row in time_attn(torch, Timer(torch)):
             print(json.dumps(row), flush=True)
         return 0
+    if argv[:1] == ["--rows-ab"] and len(argv) == 2:
+        return rows_ab(Path(argv[1]).resolve())
+    if argv[:1] == ["--time-rows"] and len(argv) == 2:   # one turn of --rows-ab
+        import_port(Path(argv[1]))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for row in time_rows(torch, Timer(torch)):
+            print(json.dumps(row), flush=True)
+        return 0
     if argv[:1] == ["--profile-steps"] and len(argv) <= 2:   # a fresh process for the captures
         import_port(Path(argv[1]).resolve() if len(argv) == 2 else ROOT / "src")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -6983,6 +7189,11 @@ def main(argv: list[str]) -> int:
     # at the prime 181 (1-row tiles); its launches are the slot runs'
     rep_narrow = next(r for r in far["slice"]
                       if r["class"] == "flash_attention_cross" and r["Sq"] == PRIME_PROMPT)
+    # K1 on the rows body over a group of narrow M tiles: the prime 397-row
+    # GEMM (1-row tiles, 16 a CTA); its launches are the slot runs'
+    rep_prime = next(r for r in prime if (r["M"], r["K"], r["N"]) == PRIME_MNK)
+    mm_grouped = sum((collections.Counter(r["matmul_tile_launches"]["grouped_tile_launches"])
+                      for r in srv), collections.Counter())
     kernels = [
         {"name": "matmul", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:205", "launches": served("matmul"),
@@ -6991,6 +7202,14 @@ def main(argv: list[str]) -> int:
          "replaces": "src/repro/kernels/matmul.py:205", "body": "rows",
          "launches": served("matmul", "rows"), "max_abs_err": mmr["max_abs_err"],
          **timed(dec_mm, ("class", "M", "K", "N", "split_k", "ctas"))},
+        {"name": "matmul_rows_grouped", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:205", "body": "rows",
+         "launches": sum(mm_grouped.values()), "launches_by_path": {"slot": sum(mm_grouped.values())},
+         "launches_by_tile": dict(mm_grouped), "max_abs_err": rep_prime["max_abs_err"],
+         **{k: rep_prime[k] for k in ("m_group", "device_ms", "library_device_ms", "floor_ms",
+                                      "tile64_device_ms")},
+         **timed(rep_prime, ("class", "M", "K", "N", "split_k", "ctas"))},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:126",

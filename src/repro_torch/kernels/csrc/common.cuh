@@ -105,4 +105,12 @@ __host__ __device__ __forceinline__ int n_group(int n, int tile_n, int cta_n) {
   return tile_n < n && tile_n < cta_n ? cta_n / tile_n : 1;
 }
 
+// Logical M tiles that one rows-body CTA of cta_rows rows covers one under
+// the other (kernels/matmul.py m_group): floor(cta_rows / tile_m) where the
+// M tile is narrower than both M and the CTA, else 1.  The group's rows are
+// consecutive, masked at the group's edge and M's.
+__host__ __device__ __forceinline__ int m_group(int m, int tile_m, int cta_rows) {
+  return tile_m < m && tile_m < cta_rows ? cta_rows / tile_m : 1;
+}
+
 }  // namespace repro

@@ -16,17 +16,22 @@
 // kernels/matmul.py body_for, makes the same choice and counts launches per
 // body):
 //
-//  * rows (tile_m <= 16, either dtype: decode and the 1-row prefill LM head):
-//    w's bytes bound it.  A CTA covers one 64-column strip of one group of
-//    logical N tiles (below) over one K slice; its 256 threads each stream
-//    16-byte vectors of w (eight loads in flight before their FMAs), 8
-//    (bf16) or 16 (f32) threads across the strip and the rest down K.  Where the strips alone launch
-//    fewer than two CTAs per SM, K is split across CTAs (split_k, from
-//    kernels/matmul.py rows_geometry, a function of K, N, the N tile and the
-//    expert count only): each slice writes f32 partial sums to a workspace
-//    and a second pass adds them in slice order and applies the epilogue
-//    once.  No float atomics; a row's summation order never depends on M.
-//    Rows go in passes of 4; x is read through L1, where lanes share it.
+//  * rows (tile_m <= 16, either dtype: decode, verify, the 1-row prefill LM
+//    head and the 1-row tiles of a prime prompt length): w's bytes bound it.
+//    A CTA covers one 64-column strip of one group of logical N tiles over
+//    the rows of one group of logical M tiles (below) and one K slice; its
+//    256 threads each stream 16-byte vectors of w (eight loads in flight
+//    before their FMAs), 8 (bf16) or 16 (f32) threads across the strip and
+//    the rest down K.  Where the strips alone launch fewer than two CTAs per
+//    SM, K is split across CTAs (split_k, from kernels/matmul.py
+//    rows_geometry, a function of K, N, the N tile and the expert count
+//    only): each slice writes f32 partial sums to a workspace and a second
+//    pass adds them in slice order and applies the epilogue once.  No float
+//    atomics; a row's summation order never depends on M or on its CTA's
+//    other rows.  A thread holds the sums of all of its CTA's rows in one
+//    pass, so each vector of w it loads serves every row: up to 4 rows with
+//    x in registers, read through L1 (decode); up to 16 with x staged a
+//    round at a time in shared memory (verify, a group of narrow M tiles).
 //  * mma (bf16, tile_m > 16: every prefill projection and expert GEMM): the
 //    tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, operands read from
 //    shared memory with ldmatrix (.trans for w, which is (K, N) row-major).
@@ -51,10 +56,15 @@
 // logical tile.  The tiles of a group are contiguous, so masking each at its
 // own edge is masking the group at min(its end, N).  Groups are numbered in
 // the schedule's order (m_outer: M is the outer loop, so consecutive groups
-// walk along N), as the logical tiles were.  The fma body runs one CTA per
-// logical tile (its CTA is the tile, so no group forms) and walks it in
-// sub-blocks.  The rows body covers a group with 64-column strips, each
-// split into split_k K slices (numbered strip-major, slices together).  The
+// walk along N), as the logical tiles were.  Along M only the rows body
+// groups: where the M tile is narrower than both M and its 16-row CTA, one
+// CTA covers m_group = floor(16 / tile_m) consecutive logical M tiles
+// (span_m = m_group * tile_m rows: a prime prompt's 1-row tiles, 16 a CTA),
+// masked at min(the group's end, M); elsewhere span_m is the M tile.  The
+// fma body runs one CTA per logical tile (its CTA is the tile, so no group
+// forms) and walks it in sub-blocks.  The rows body covers a group with
+// 64-column strips, each split into split_k K slices (numbered
+// strip-major, slices together).  The
 // mma body runs a compiled CTA tile (128x128, 64x128 or 64x64) and covers
 // each group with sub_m x sub_n CTAs, numbered consecutively along N, so they
 // run together and share the group's x rows and w columns in L2; a group
@@ -126,13 +136,14 @@ __device__ __forceinline__ uint4 load16_shifted(const T* p, const T* end) {
 
 // ---------------------------------------------------------------------------
 // rows body: small tile_m, streams w.  A CTA covers one 64-column strip of
-// one group of logical N tiles over one K slice (kernels/matmul.py
-// rows_geometry).
+// one group of logical N tiles, over the rows of one group of logical M
+// tiles, over one K slice (kernels/matmul.py rows_geometry).
 // ---------------------------------------------------------------------------
 
 constexpr int kRowsThreads = 256;
 constexpr int kRowsCtaN = 64;    // columns of one CTA strip (kernels/matmul.py ROWS_CTA_N)
-constexpr int kRowsRM = 4;       // rows per pass over the strip
+constexpr int kRowsCtaM = 16;    // rows of one CTA at most: a group of narrow M tiles (ROWS_CTA_M)
+constexpr int kRowsRM = 4;       // rows of the register pass (x in registers); above it, staged
 constexpr int kRowsUnroll = 8;   // 16-byte loads of w in flight per thread
 constexpr int kRowsSliceAlign = 32;  // K slices are multiples of this (ROWS_SLICE_ALIGN)
 static_assert(kRowsSliceAlign % kRowsUnroll == 0, "a thread's K rows start on a multiple of 8");
@@ -206,18 +217,126 @@ __device__ __forceinline__ void rows_accumulate(const T* __restrict__ x, const T
   }
 }
 
+// The staged pass (more rows than the register pass holds: a group of
+// narrow M tiles, verify's 16 rows).  Its x is staged a round at a time in
+// shared memory, in f32, K-major: the round's kRowsUnroll * TK K rows by the
+// pass's RM rows, each K lane's 8 K rows 4 floats past the last lane's, so
+// a warp's K lanes read 16-byte vectors from distinct banks.  A thread then
+// holds RM rows' sums and applies each vector of w, read once, to all of
+// them.
+__host__ __device__ constexpr int xs_floats(int rm, int round_k) {
+  return round_k * rm + (round_k / kRowsUnroll) * 4;
+}
+template <int RM>
+__device__ __forceinline__ int xs_at(int kk, int r) { return kk * RM + (kk / kRowsUnroll) * 4 + r; }
+
+// x's values of the round of K rows from kr for the rows [r0, r0 + rows),
+// zeros past k1 and for the pass's rows past `rows`
+template <typename T, int TK, int RM>
+__device__ __forceinline__ void stage_x_round(float* xs, const T* __restrict__ x, const MatmulArgs& a,
+                                              int r0, int rows, int kr, int k1, bool x_vec) {
+  constexpr int U = kRowsUnroll;
+  constexpr int XQ = U * (int)sizeof(T) / 16;
+  for (int i = threadIdx.x; i < RM * TK; i += kRowsThreads) {
+    const int r = i % RM, kk = (i / RM) * U, kg = kr + kk;
+    float v[U];
+    if (r < rows && x_vec && kg + U <= k1) {
+      const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * a.k + kg);
+      uint4 q[XQ];
+#pragma unroll
+      for (int j = 0; j < XQ; ++j) q[j] = __ldg(src + j);
+      const T* e = reinterpret_cast<const T*>(q);
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = to_f(e[u]);
+    } else {
+      const T* src = x + (size_t)(r0 + min(r, rows - 1)) * a.k + kg;
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = r < rows && kg + u < k1 ? to_f(src[u]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) xs[xs_at<RM>(kk + u, r)] = v[u];
+  }
+}
+
+// H 16-byte vectors of w at the K rows from ku and VEC columns from col, as
+// the register pass loads them (zeros past k1; kVec or shifted)
+template <typename T, int H, bool kVec>
+__device__ __forceinline__ void load_w_rows(uint4 (&wr)[H], const T* __restrict__ w, const MatmulArgs& a,
+                                            int ku, int col, int cn1, int k1) {
+#pragma unroll
+  for (int u = 0; u < H; ++u) {
+    const T* row = w + (size_t)(ku + u) * a.n;
+    if (ku + u >= k1) wr[u] = make_uint4(0, 0, 0, 0);
+    else if (kVec) wr[u] = __ldg(reinterpret_cast<const uint4*>(row + col));
+    else wr[u] = load16_shifted(row + col, row + cn1);
+  }
+}
+
+// rows_accumulate's FMAs, in its order, for the RM rows from r0 (those past
+// `rows` sum the staged zeros and are never stored).  Every thread of the
+// CTA calls it (it stages x between barriers); `active`: this thread's
+// columns lie in the strip.  A K lane does no FMA in a round that starts
+// at or past k1, as in the register pass.
+template <typename T, int TK, bool kVec, int RM>
+__device__ __forceinline__ void rows_accumulate_staged(float* xs, const T* __restrict__ x,
+                                                       const T* __restrict__ w, const MatmulArgs& a,
+                                                       int r0, int rows, int col, int cn1, bool active,
+                                                       int k0, int k1, int ty, bool x_vec,
+                                                       float (&acc)[RM][16 / sizeof(T)]) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int U = kRowsUnroll;
+  constexpr int H = kVec ? U : U / 2;
+  static_assert(RM % 4 == 0, "x is read 4 rows at a time");
+  for (int kr = k0; kr < k1; kr += U * TK) {
+    const int kb = kr + ty * U;
+    const bool live = active && kb < k1;
+    uint4 wr[H];
+    if (live) load_w_rows<T, H, kVec>(wr, w, a, kb, col, cn1, k1);   // in flight while x is staged
+    __syncthreads();   // every thread is done with the last round's x
+    stage_x_round<T, TK, RM>(xs, x, a, r0, rows, kr, k1, x_vec);
+    __syncthreads();
+    if (!live) continue;
+#pragma unroll
+    for (int h0 = 0; h0 < U; h0 += H) {
+      if (h0 > 0) load_w_rows<T, H, kVec>(wr, w, a, kb + h0, col, cn1, k1);
+#pragma unroll
+      for (int u = 0; u < H; ++u) {
+        const T* e = reinterpret_cast<const T*>(&wr[u]);
+        float wf[VEC];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) wf[v] = to_f(e[v]);
+        const float* xk = xs + xs_at<RM>(ty * U + h0 + u, 0);
+#pragma unroll
+        for (int r4 = 0; r4 < RM; r4 += 4) {
+          const float4 q = *reinterpret_cast<const float4*>(xk + r4);
+          const float xv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) acc[r4 + j][v] = fmaf(xv[j], wf[v], acc[r4 + j][v]);
+        }
+      }
+    }
+  }
+}
+
 // Each row's sum: per thread over its K rows in ascending order, then a
 // butterfly over the warp's K lanes, then the 8 warps in order, then (when
 // split) the K slices in order, in the reduce kernel.  None of it depends on
-// M or on the other rows, so a row's bits are the same at M = 1 and M = 4.
-template <typename T>
-__global__ void __launch_bounds__(kRowsThreads, 2) matmul_rows_kernel(MatmulArgs a) {
+// M, on the pass or on the other rows, so a row's bits are the same at
+// M = 1 and M = 4, and on a 1-row tile alone or in a group of 16.  RM: rows
+// a pass carries, kRowsRM in registers, kRowsCtaM staged.
+template <typename T, int RM>
+__global__ void __launch_bounds__(kRowsThreads, RM <= kRowsRM ? 2 : 1) matmul_rows_kernel(MatmulArgs a) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int TN = kRowsCtaN / VEC;      // threads along N: 8 (bf16), 16 (f32)
   constexpr int TK = kRowsThreads / TN;    // threads along K: 32, 16
   constexpr int kWarps = kRowsThreads / 32;
   static_assert(TN <= 32 && 32 % TN == 0, "a warp holds whole K lanes");
-  __shared__ float red[kWarps][kRowsRM][kRowsCtaN];
+  constexpr int kRed = kWarps * RM * kRowsCtaN;
+  constexpr int kXs = RM > kRowsRM ? xs_floats(RM, kRowsUnroll * TK) : 0;
+  __shared__ __align__(16) float smem[kRed > kXs ? kRed : kXs];   // the staged x, then red
+  auto red = reinterpret_cast<float (*)[RM][kRowsCtaN]>(smem);
 
   const ExpertPtrs<T> p(a);
   // this CTA's place: group, then its strip, then its K slice
@@ -226,7 +345,7 @@ __global__ void __launch_bounds__(kRowsThreads, 2) matmul_rows_kernel(MatmulArgs
   const int strip = rem / a.split_k, slice = rem % a.split_k;
   int m0, n0;
   tile_origin(a, blockIdx.x / per_tile, &m0, &n0);
-  const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.span_n, a.n);
+  const int m1 = min(m0 + a.span_m, a.m), n1 = min(n0 + a.span_n, a.n);
   const int cn0 = n0 + strip * kRowsCtaN;
   if (cn0 >= n1) return;   // a ragged group needs fewer strips
   const int cn1 = min(cn0 + kRowsCtaN, n1);
@@ -244,20 +363,28 @@ __global__ void __launch_bounds__(kRowsThreads, 2) matmul_rows_kernel(MatmulArgs
   const bool glu = is_glu(a.epi);
   const int width = cn1 - cn0;
 
-  for (int r0 = m0; r0 < m1; r0 += kRowsRM) {
-    const int rows = min(kRowsRM, m1 - r0);
-    float acc[kRowsRM][VEC];
+  for (int r0 = m0; r0 < m1; r0 += RM) {
+    const int rows = min(RM, m1 - r0);
+    float acc[RM][VEC];
 #pragma unroll
-    for (int r = 0; r < kRowsRM; ++r)
+    for (int r = 0; r < RM; ++r)
 #pragma unroll
       for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
-    if (col < cn1) {
-      if (vec_ok) rows_accumulate<T, TK, true>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
-      else rows_accumulate<T, TK, false>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
+    if constexpr (RM <= kRowsRM) {
+      if (col < cn1) {
+        if (vec_ok) rows_accumulate<T, TK, true>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
+        else rows_accumulate<T, TK, false>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
+      }
+    } else if (vec_ok) {
+      rows_accumulate_staged<T, TK, true, RM>(smem, p.x, p.w, a, r0, rows, col, cn1, col < cn1, k0, k1,
+                                              ty, x_vec, acc);
+    } else {
+      rows_accumulate_staged<T, TK, false, RM>(smem, p.x, p.w, a, r0, rows, col, cn1, col < cn1, k0, k1,
+                                               ty, x_vec, acc);
     }
     // the warp's K lanes (lane bits from TN up): every lane ends with the same sum
 #pragma unroll
-    for (int r = 0; r < kRowsRM; ++r) {
+    for (int r = 0; r < RM; ++r) {
       if (r >= rows) break;   // uniform over the CTA
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
@@ -267,9 +394,10 @@ __global__ void __launch_bounds__(kRowsThreads, 2) matmul_rows_kernel(MatmulArgs
         acc[r][v] = s;
       }
     }
+    if constexpr (RM > kRowsRM) __syncthreads();   // the staged x is read: red takes its place
     if (lane < TN) {
 #pragma unroll
-      for (int r = 0; r < kRowsRM; ++r)
+      for (int r = 0; r < RM; ++r)
 #pragma unroll
         for (int v = 0; v < VEC; ++v) red[warp][r][tx * VEC + v] = acc[r][v];
     }
@@ -356,12 +484,12 @@ constexpr int kRowsRoundWide = 256;
 // and VEC columns from col, in ascending k.  kVec: 16-byte loads of w;
 // otherwise the two aligned vectors that hold them (load16_shifted), zeros
 // past the strip's edge cn1.
-template <bool kVec>
+template <bool kVec, int RM>
 __device__ __forceinline__ void rows_tile_serial(const __nv_bfloat16* __restrict__ x,
                                                  const __nv_bfloat16* __restrict__ w,
                                                  const MatmulArgs& a, int r0, int rows, int col,
                                                  int cn1, int k0, int k1,
-                                                 float (&acc)[kRowsRM][8]) {
+                                                 float (&acc)[RM][8]) {
   using T = __nv_bfloat16;
 #pragma unroll 4
   for (int kk = k0; kk < k1; ++kk) {
@@ -370,7 +498,7 @@ __device__ __forceinline__ void rows_tile_serial(const __nv_bfloat16* __restrict
                           : load16_shifted(row + col, row + cn1);
     const T* e = reinterpret_cast<const T*>(&wr);
 #pragma unroll
-    for (int r = 0; r < kRowsRM; ++r) {
+    for (int r = 0; r < RM; ++r) {
       if (r < rows) {   // uniform over the CTA
         const float xv = to_f(x[(size_t)(r0 + r) * a.k + kk]);
 #pragma unroll
@@ -380,28 +508,37 @@ __device__ __forceinline__ void rows_tile_serial(const __nv_bfloat16* __restrict
   }
 }
 
-// A CTA covers one 64-column strip of one group over the whole of K,
-// in passes of 4 rows; each of its 256 threads owns one (row, column) of a
-// pass and carries that output's chain over the K tiles in a register:
-// chain = p_0, then chain = bf16(chain) + p_j.  Each tile's f32 product p_j
-// is summed first: a tile of at least kRowsRoundWide rows by all 32 K lanes
-// as in the plain rows body (then the warp butterfly and the 8 warps in
-// order); a shorter one by one K lane alone, 32 tiles side by side, folded
-// into the chains in tile order from shared memory.  Slower than the plain
-// rows body (one CTA per strip, no K split), and exact to the rule.
+// A CTA covers one 64-column strip of one group over the whole of K, in
+// one pass of RM rows; each of its 256 threads owns one (row,
+// column) of each 4-row chunk of a pass and carries that output's chain over
+// the K tiles in a register: chain = p_0, then chain = bf16(chain) + p_j.
+// Each tile's f32 product p_j is summed first: a tile of at least
+// kRowsRoundWide rows by all 32 K lanes as in the plain rows body (then the
+// warp butterfly and the 8 warps in order); a shorter one by one K lane
+// alone, 32 tiles side by side, folded into the chains in tile order from
+// shared memory, a chunk at a time.  Slower than the plain rows body (one
+// CTA per strip, no K split), and exact to the rule.
+template <int RM>
 __global__ void __launch_bounds__(kRowsThreads) matmul_rows_round_kernel(MatmulArgs a) {
   using T = __nv_bfloat16;
   constexpr int VEC = 8;
   constexpr int TN = kRowsCtaN / VEC;      // 8 threads across the strip
   constexpr int TK = kRowsThreads / TN;    // 32 K lanes
   constexpr int kWarps = kRowsThreads / 32;
-  __shared__ float part[TK][kRowsRM][kRowsCtaN];   // per K lane (narrow) or warp (wide)
+  constexpr int kChunks = RM / kRowsRM;    // 4-row chunks of a pass: outputs a thread owns
+  constexpr int kPart = TK * kRowsRM * kRowsCtaN;
+  static_assert(kWarps * RM * kRowsCtaN <= kPart && xs_floats(RM, kRowsUnroll * TK) <= kPart,
+                "the per-warp sums and the staged x fit the per-lane buffer");
+  // per K lane, a chunk's rows (narrow); per warp, the pass's rows (wide); or the staged x
+  __shared__ __align__(16) float smem[kPart];
+  auto part = reinterpret_cast<float (*)[kRowsRM][kRowsCtaN]>(smem);
+  auto wpart = reinterpret_cast<float (*)[RM][kRowsCtaN]>(smem);
 
   const ExpertPtrs<T> p(a);
   const int strip = blockIdx.x % a.sub_n;
   int m0, n0;
   tile_origin(a, blockIdx.x / a.sub_n, &m0, &n0);
-  const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.span_n, a.n);
+  const int m1 = min(m0 + a.span_m, a.m), n1 = min(n0 + a.span_n, a.n);
   const int cn0 = n0 + strip * kRowsCtaN;
   if (cn0 >= n1) return;
   const int cn1 = min(cn0 + kRowsCtaN, n1), width = cn1 - cn0;
@@ -416,24 +553,33 @@ __global__ void __launch_bounds__(kRowsThreads) matmul_rows_round_kernel(MatmulA
   const int orow = threadIdx.x / kRowsCtaN, ocol = threadIdx.x % kRowsCtaN;   // this thread's output
   const int tiles = a.k / a.round_k;
 
-  for (int r0 = m0; r0 < m1; r0 += kRowsRM) {
-    const int rows = min(kRowsRM, m1 - r0);
-    const bool owner = orow < rows && ocol < width;
-    float chain = 0.f;
+  for (int r0 = m0; r0 < m1; r0 += RM) {
+    const int rows = min(RM, m1 - r0);
+    float chain[kChunks];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) chain[c] = 0.f;
     if (a.round_k >= kRowsRoundWide) {
       for (int t = 0; t < tiles; ++t) {
-        float acc[kRowsRM][VEC];
+        float acc[RM][VEC];
 #pragma unroll
-        for (int r = 0; r < kRowsRM; ++r)
+        for (int r = 0; r < RM; ++r)
 #pragma unroll
           for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
         const int k0 = t * a.round_k, k1 = k0 + a.round_k;
-        if (col < cn1) {
-          if (vec_ok) rows_accumulate<T, TK, true>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
-          else rows_accumulate<T, TK, false>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
+        if constexpr (RM <= kRowsRM) {
+          if (col < cn1) {
+            if (vec_ok) rows_accumulate<T, TK, true>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
+            else rows_accumulate<T, TK, false>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, ty, x_vec, acc);
+          }
+        } else if (vec_ok) {
+          rows_accumulate_staged<T, TK, true, RM>(smem, p.x, p.w, a, r0, rows, col, cn1, col < cn1, k0,
+                                                  k1, ty, x_vec, acc);
+        } else {
+          rows_accumulate_staged<T, TK, false, RM>(smem, p.x, p.w, a, r0, rows, col, cn1, col < cn1, k0,
+                                                   k1, ty, x_vec, acc);
         }
 #pragma unroll
-        for (int r = 0; r < kRowsRM; ++r) {
+        for (int r = 0; r < RM; ++r) {
           if (r >= rows) break;   // uniform over the CTA
 #pragma unroll
           for (int v = 0; v < VEC; ++v) {
@@ -443,55 +589,83 @@ __global__ void __launch_bounds__(kRowsThreads) matmul_rows_round_kernel(MatmulA
             acc[r][v] = s;
           }
         }
+        if constexpr (RM > kRowsRM) __syncthreads();   // the staged x is read
         if (lane < TN) {
 #pragma unroll
-          for (int r = 0; r < kRowsRM; ++r)
+          for (int r = 0; r < RM; ++r)
 #pragma unroll
-            for (int v = 0; v < VEC; ++v) part[warp][r][tx * VEC + v] = acc[r][v];
+            for (int v = 0; v < VEC; ++v) wpart[warp][r][tx * VEC + v] = acc[r][v];
         }
         __syncthreads();
-        if (owner) {
-          float s = 0.f;
 #pragma unroll
-          for (int wi = 0; wi < kWarps; ++wi) s += part[wi][orow][ocol];
-          chain = t == 0 ? s : round_bf16(chain) + s;
+        for (int c = 0; c < kChunks; ++c) {
+          if (c * kRowsRM + orow < rows && ocol < width) {
+            float s = 0.f;
+#pragma unroll
+            for (int wi = 0; wi < kWarps; ++wi) s += wpart[wi][c * kRowsRM + orow][ocol];
+            chain[c] = t == 0 ? s : round_bf16(chain[c]) + s;
+          }
         }
         __syncthreads();
       }
     } else {
       for (int t0 = 0; t0 < tiles; t0 += TK) {
         const int t = t0 + ty;
-        float acc[kRowsRM][VEC];
+        float acc[RM][VEC];
 #pragma unroll
-        for (int r = 0; r < kRowsRM; ++r)
+        for (int r = 0; r < RM; ++r)
 #pragma unroll
           for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
         if (t < tiles && col < cn1) {
           const int k0 = t * a.round_k, k1 = k0 + a.round_k;
-          if (vec_ok) rows_tile_serial<true>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, acc);
-          else rows_tile_serial<false>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, acc);
+          if (vec_ok) rows_tile_serial<true, RM>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, acc);
+          else rows_tile_serial<false, RM>(p.x, p.w, a, r0, rows, col, cn1, k0, k1, acc);
         }
 #pragma unroll
-        for (int r = 0; r < kRowsRM; ++r)
+        for (int c = 0; c < kChunks; ++c) {
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) part[ty][r][tx * VEC + v] = acc[r][v];
-        __syncthreads();
-        if (owner) {
-          const int last = min(TK, tiles - t0);
-          for (int j = 0; j < last; ++j) {
-            const float s = part[j][orow][ocol];
-            chain = t0 + j == 0 ? s : round_bf16(chain) + s;
+          for (int r = 0; r < kRowsRM; ++r)
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) part[ty][r][tx * VEC + v] = acc[c * kRowsRM + r][v];
+          __syncthreads();
+          if (c * kRowsRM + orow < rows && ocol < width) {
+            const int last = min(TK, tiles - t0);
+            for (int j = 0; j < last; ++j) {
+              const float s = part[j][orow][ocol];
+              chain[c] = t0 + j == 0 ? s : round_bf16(chain[c]) + s;
+            }
           }
+          __syncthreads();
         }
-        __syncthreads();
       }
     }
-    if (owner) {
-      const int row = r0 + orow, oc = cn0 + ocol;
-      store_out(p, (size_t)row * a.n_out + oc, epilogue1(a, chain, row, oc));
-      store_z(a, p.z, row, oc, chain);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (c * kRowsRM + orow < rows && ocol < width) {
+        const int row = r0 + c * kRowsRM + orow, oc = cn0 + ocol;
+        store_out(p, (size_t)row * a.n_out + oc, epilogue1(a, chain[c], row, oc));
+        store_z(a, p.z, row, oc, chain[c]);
+      }
     }
   }
+}
+
+// The rows body's kernels for a pass of RM rows: rounding mode, or the
+// plain kernel and, where K is split, its reduce pass
+template <int RM>
+int launch_rows(const MatmulArgs& a, int dtype, cudaStream_t s) {
+  const dim3 grid(a.ctas, a.groups);
+  const dim3 rgrid(std::min(cdiv(a.m * a.n_out, 256), 4096), a.groups);
+  if (a.round_k > 0) {
+    matmul_rows_round_kernel<RM><<<grid, kRowsThreads, 0, s>>>(a);
+  } else if (dtype == kBFloat16) {
+    matmul_rows_kernel<__nv_bfloat16, RM><<<grid, kRowsThreads, 0, s>>>(a);
+    if (a.split_k > 1) matmul_rows_reduce_kernel<__nv_bfloat16><<<rgrid, 256, 0, s>>>(a);
+  } else {
+    matmul_rows_kernel<float, RM><<<grid, kRowsThreads, 0, s>>>(a);
+    if (a.split_k > 1) matmul_rows_reduce_kernel<float><<<rgrid, 256, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -510,8 +684,8 @@ __global__ void __launch_bounds__(256) matmul_fma_kernel(MatmulArgs a) {
   const T* w = p.w;
   T* out = p.out;
   int m0, n0;
-  tile_origin(a, blockIdx.x, &m0, &n0);   // a group is one logical tile here (span_n = tile_n)
-  const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.span_n, a.n);
+  tile_origin(a, blockIdx.x, &m0, &n0);   // a group is one logical tile here (span = tile)
+  const int m1 = min(m0 + a.span_m, a.m), n1 = min(n0 + a.span_n, a.n);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const bool glu = is_glu(a.epi);
 
@@ -615,46 +789,40 @@ int run(MatmulArgs& a, int dtype, void* stream) {
   if (a.epi == kResidual && a.residual == nullptr) return (int)cudaErrorInvalidValue;
   if (a.out_f32 != 0 && a.out_f32 != 1) return (int)cudaErrorInvalidValue;
   a.n_out = glu ? a.n / 2 : a.n;
-  a.tiles_m = cdiv(a.m, a.tile_m);
   const Body body = a.tile_m <= 16 ? kRows : dtype == kBFloat16 ? kMma : kFma;
+  // the rows body's CTA covers a group of narrow M tiles; the others' groups are one tile
+  a.span_m = body == kRows ? m_group(a.m, a.tile_m, kRowsCtaM) * a.tile_m : a.tile_m;
+  a.spans_m = cdiv(a.m, a.span_m);
   if (a.split_k < 1 || (body != kRows && a.split_k != 1)) return (int)cudaErrorInvalidValue;
   if (body == kMma) {
     const bool compiled = (a.cta_m == 128 && a.cta_n == 128) || (a.cta_m == 64 && a.cta_n == 128) ||
                           (a.cta_m == 64 && a.cta_n == 64);
     if (!compiled) return (int)cudaErrorInvalidValue;
   } else if (body == kRows) {  // 64-column strips of a group, split_k K slices each
-    if (a.cta_m != a.tile_m || a.cta_n != kRowsCtaN) return (int)cudaErrorInvalidValue;
+    if (a.cta_m != a.span_m || a.cta_n != kRowsCtaN) return (int)cudaErrorInvalidValue;
     if (cdiv(a.k, rows_k_slice(a.k, a.split_k)) != a.split_k) return (int)cudaErrorInvalidValue;
     if (a.round_k > 0 && a.split_k != 1) return (int)cudaErrorInvalidValue;   // K tiles chain in one CTA
     if (a.split_k > 1 && a.ws == nullptr) return (int)cudaErrorInvalidValue;
   } else {  // one CTA per logical tile: the tile is the CTA's, so no group forms
     if (a.cta_m != a.tile_m || a.cta_n != a.tile_n) return (int)cudaErrorInvalidValue;
   }
-  // kernels/matmul.py cta_count: groups of n_group logical N tiles, each of
-  // sub_n CTAs; sub_m CTAs per logical tile along M
+  // kernels/matmul.py cta_count (and rows_geometry): groups of n_group
+  // logical N tiles, each of sub_n CTAs; groups of span_m rows along M, each
+  // of sub_m CTAs
   a.span_n = n_group(a.n, a.tile_n, a.cta_n) * a.tile_n;
   a.spans_n = cdiv(a.n, a.span_n);
-  a.sub_m = cdiv(std::min(a.tile_m, a.m), a.cta_m);
+  a.sub_m = cdiv(std::min(a.span_m, a.m), a.cta_m);
   a.sub_n = cdiv(std::min(a.span_n, a.n), a.cta_n);
-  if ((long long)a.tiles_m * a.spans_n * a.sub_m * a.sub_n * a.split_k != (long long)a.ctas)
+  if ((long long)a.spans_m * a.spans_n * a.sub_m * a.sub_n * a.split_k != (long long)a.ctas)
     return (int)cudaErrorInvalidValue;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(a.ctas, a.groups);
   switch (body) {
-    case kRows: {
-      const dim3 rgrid(std::min(cdiv(a.m * a.n_out, 256), 4096), a.groups);
-      if (a.round_k > 0) {
-        matmul_rows_round_kernel<<<grid, kRowsThreads, 0, s>>>(a);
-      } else if (dtype == kBFloat16) {
-        matmul_rows_kernel<__nv_bfloat16><<<grid, kRowsThreads, 0, s>>>(a);
-        if (a.split_k > 1) matmul_rows_reduce_kernel<__nv_bfloat16><<<rgrid, 256, 0, s>>>(a);
-      } else {
-        matmul_rows_kernel<float><<<grid, kRowsThreads, 0, s>>>(a);
-        if (a.split_k > 1) matmul_rows_reduce_kernel<float><<<rgrid, 256, 0, s>>>(a);
-      }
-      break;
-    }
+    case kRows:
+      // one pass over the CTA's rows: in registers up to kRowsRM, else staged
+      return std::min(a.span_m, a.m) <= kRowsRM ? launch_rows<kRowsRM>(a, dtype, s)
+                                                : launch_rows<kRowsCtaM>(a, dtype, s);
     case kFma:
       matmul_fma_kernel<<<grid, 256, 0, s>>>(a);
       break;

@@ -20,7 +20,9 @@ struct MatmulArgs {
   void* z;                      // Z (M, N), the pre-epilogue sums plus bias, or null
   int m, n, k, n_out;           // per expert when grouped
   int epi; float softcap;
-  int tile_m, tile_n, tiles_m, m_outer;   // logical tiles
+  int tile_m, tile_n, m_outer;  // logical tiles
+  int span_m, spans_m;          // rows of one group of logical M tiles (rows body: m_group * tile_m,
+                                // else tile_m), groups along M
   int span_n, spans_n;          // columns of one group of logical N tiles (n_group * tile_n), groups along N
   int cta_m, cta_n, sub_m, sub_n, ctas;   // CTA tile, CTAs per logical tile (M) and group (N), gridDim.x
   int groups;                   // experts (gridDim.y); 1 for a plain matmul
@@ -55,13 +57,13 @@ __device__ __forceinline__ void store_out(const ExpertPtrs<T>& p, size_t at, flo
   else p.out[at] = from_f<T>(y);
 }
 
-// Origin of group t (logical tile rows x a group of span_n columns) in the
-// schedule's order.
+// Origin of group t (a group of span_m rows x a group of span_n columns) in
+// the schedule's order.
 __device__ __forceinline__ void tile_origin(const MatmulArgs& a, int t, int* m0, int* n0) {
   int tm, tn;
   if (a.m_outer) { tm = t / a.spans_n; tn = t % a.spans_n; }
-  else           { tn = t / a.tiles_m; tm = t % a.tiles_m; }
-  *m0 = tm * a.tile_m;
+  else           { tn = t / a.spans_m; tm = t % a.spans_m; }
+  *m0 = tm * a.span_m;
   *n0 = tn * a.span_n;
 }
 
@@ -200,7 +202,7 @@ __global__ void __launch_bounds__(Tile::kThreads) matmul_mma_kernel(MatmulArgs a
   const int per_tile = a.sub_m * a.sub_n, sub = blockIdx.x % per_tile;
   int m0, n0;
   tile_origin(a, blockIdx.x / per_tile, &m0, &n0);
-  const int m1 = min(m0 + a.tile_m, a.m), n1 = min(n0 + a.span_n, a.n);
+  const int m1 = min(m0 + a.span_m, a.m), n1 = min(n0 + a.span_n, a.n);
   const int cm0 = m0 + (sub / a.sub_n) * BM, cn0 = n0 + (sub % a.sub_n) * BN;
   if (cm0 >= m1 || cn0 >= n1) return;   // a ragged group needs fewer sub-tiles
   const int cm1 = min(cm0 + BM, m1), cn1 = min(cn0 + BN, n1);

@@ -32,12 +32,18 @@ kernel:
   and its key do not change; one formula (:func:`cta_count`) sizes every
   grid and the kernel re-checks it.
 
-  - **rows** (M tile ≤ 16, bf16 or f32: decode, the 1-row prefill LM head):
-    a CTA covers one 64-column strip of one group (all its <= 16 rows), over
-    one K slice (:func:`rows_geometry`).  Where the strips of all experts
-    launch fewer than two CTAs per SM, K is split across CTAs: each slice
-    writes f32 partial sums to a workspace the wrapper allocates, and a
-    second pass adds them in slice order and applies the epilogue once (no
+  - **rows** (M tile ≤ 16, bf16 or f32: decode, verify, the 1-row prefill
+    LM head, a prime prompt length's 1-row tiles): a CTA covers one
+    64-column strip of one group of N tiles over the rows of one group of M
+    tiles (:func:`m_group`: where the M tile is narrower than both M and
+    :data:`ROWS_CTA_M`, ⌊16 / M tile⌋ consecutive tiles, masked at the
+    group's edge and M's), over one K slice (:func:`rows_geometry`).  A
+    thread carries the sums of all of its CTA's rows in one pass (x in
+    registers up to 4 rows, staged in shared memory above), so each vector
+    of ``w`` it loads serves all of them.  Where the strips of all
+    experts launch fewer than two CTAs per SM, K is split across CTAs: each
+    slice writes f32 partial sums to a workspace the wrapper allocates, and
+    a second pass adds them in slice order and applies the epilogue once (no
     float atomics).  ``split_k`` depends on K, N, the N tile and the expert
     count, never on M, so a row's bits are the same at M = 1 and M = 4.
   - **fma** (f32 with an M tile above 16: the router): one CTA per logical
@@ -90,9 +96,9 @@ What bounds it on the card: the bytes of ``w`` at decode (M = slots) and
 up to a few hundred rows (the H100 does ~295 bf16 tensor-core operations per
 byte of HBM, so a (K,N) weight read once is the larger cost while M is below
 ~300); the operations above that.  The rows body streams ``w`` once per
-4-row pass, 16 bytes a thread with eight loads in flight, on enough CTAs to
-fill the card; the mma body stages ``x`` and ``w`` through a 4-deep
-``cp.async`` ring into ``mma.sync`` tensor-core products.
+CTA of up to 16 rows, 16 bytes a thread with eight loads in flight, on
+enough CTAs to fill the card; the mma body stages ``x`` and ``w`` through a
+4-deep ``cp.async`` ring into ``mma.sync`` tensor-core products.
 
 A tensor on the CPU takes the plain version (:func:`repro_torch.kernels.ref.matmul`,
 :func:`~repro_torch.kernels.ref.grouped_matmul`); a CUDA tensor launches the
@@ -181,6 +187,9 @@ MMA_CTA_TILES = ((128, 128), (64, 128), (64, 64))
 SMS = 132
 #: the rows body's CTA strip: columns of one CTA (csrc/matmul.cu kRowsCtaN)
 ROWS_CTA_N = 64
+#: rows of one rows-body CTA at most, a group of narrow M tiles
+#: (csrc/matmul.cu kRowsCtaM)
+ROWS_CTA_M = 16
 #: the rows body splits K until its CTAs reach this many (two per SM), where
 #: the strips alone launch fewer
 ROWS_MIN_CTAS = 2 * SMS
@@ -194,12 +203,17 @@ ROWS_SLICE_ALIGN = 32
 #: :func:`grouped_launch` (K1g), ``body_launches`` of both by
 #: (kernel, body, dtype): kernel ``"matmul"`` or ``"grouped_matmul"``, body
 #: ``"rows"``, ``"mma"`` or ``"fma"`` (:func:`body_for`),
-#: ``round_launches`` of both in rounding mode by (kernel, body), and
+#: ``round_launches`` of both in rounding mode by (kernel, body),
 #: ``row_tile_launches`` of K1 with 1-row M tiles over M > 1 rows (a prime
-#: M's default)
+#: M's default); of K1 and K1g rows launches by M tile,
+#: ``grouped_tile_launches`` those whose CTAs cover more than one logical M
+#: tile (:func:`m_group`) and ``narrow_tile_launches`` those with an M tile
+#: of at most 8 rows over more rows than one tile (each must be grouped)
 launches = 0
 grouped_launches = 0
 row_tile_launches = 0
+grouped_tile_launches: collections.Counter = collections.Counter()
+narrow_tile_launches: collections.Counter = collections.Counter()
 body_launches: collections.Counter = collections.Counter()
 round_launches: collections.Counter = collections.Counter()
 #: gradient launches of :class:`MatmulFn`'s backward (also counted in
@@ -229,6 +243,8 @@ def reset_launches() -> None:
     body_launches.clear()
     round_launches.clear()
     grad_body_launches.clear()
+    grouped_tile_launches.clear()
+    narrow_tile_launches.clear()
 
 
 def body_count(body: str | None = None, *, kernel: str | None = None,
@@ -300,6 +316,21 @@ def n_group(n: int, tile_n: int, cta_n: int) -> int:
     return cta_n // tile_n if tile_n < min(n, cta_n) else 1
 
 
+def m_group(m: int, tile_m: int, cta_rows: int = ROWS_CTA_M) -> int:
+    """Logical M tiles one rows-body CTA of ``cta_rows`` rows covers one
+    under the other: ⌊cta_rows / tile_m⌋ where the M tile is narrower than
+    both M and the CTA, else 1 (397 rows on 1-row tiles: 16 a CTA; decode's
+    4 rows on a 4-row tile and verify's 16 on a 16-row tile: 1).  The
+    kernel computes the same (csrc/common.cuh ``m_group``)."""
+    return cta_rows // tile_m if tile_m < min(m, cta_rows) else 1
+
+
+def rows_span(m: int, tile_m: int) -> int:
+    """Rows one rows-body CTA covers: :func:`m_group` × the M tile (the
+    rows body's ``cta_m``; a ragged last group holds fewer)."""
+    return m_group(m, tile_m) * tile_m
+
+
 def tiled_geometry(m: int, n: int, tile_m: int, tile_n: int, groups: int = 1,
                    tiles: tuple[tuple[int, int], ...] = MMA_CTA_TILES) -> tuple[int, int, int]:
     """(cta_m, cta_n, ctas) of the mma body for an (m, n) output under
@@ -351,10 +382,11 @@ def rows_geometry(m: int, n: int, k: int, tile_m: int, tile_n: int,
     ``groups`` experts side by side on the card.
 
     A CTA covers one :data:`ROWS_CTA_N`-column strip of one group of
-    :func:`n_group` logical N tiles (all of its <= 16 rows) over one K
-    slice, and never crosses the group's edge: at an N tile of 3, 21 tiles
-    (63 columns) a CTA.  Where the strips of all experts launch fewer than
-    :data:`ROWS_MIN_CTAS`, K is split into ``split_k`` slices of at least
+    :func:`n_group` logical N tiles, over the :func:`rows_span` rows of one
+    group of :func:`m_group` logical M tiles and one K slice, and never
+    crosses either group's edge: at an N tile of 3, 21 tiles (63 columns) a
+    CTA; at an M tile of 1, 16 rows.  Where the strips of all experts launch
+    fewer than :data:`ROWS_MIN_CTAS`, K is split into ``split_k`` slices of at least
     :data:`ROWS_MIN_SLICE` rows, summed in slice order by a second pass.
     ``split_k`` depends on k, n, tile_n and groups only, never on m, so a
     row's summation order (and its bits) is the same at M = 1 and M = 4.
@@ -365,24 +397,36 @@ def rows_geometry(m: int, n: int, k: int, tile_m: int, tile_n: int,
     if groups * strips < ROWS_MIN_CTAS and not round_k:
         split_k = max(1, min(_cdiv(ROWS_MIN_CTAS, groups * strips), k // ROWS_MIN_SLICE))
         split_k = _cdiv(k, rows_k_slice(k, split_k))   # no empty slice
-    return ROWS_CTA_N, split_k, _cdiv(m, tile_m) * strips * split_k
+    return ROWS_CTA_N, split_k, _cdiv(m, rows_span(m, tile_m)) * strips * split_k
 
 
 def launch_geometry(dtype: torch.dtype, m: int, n: int, k: int, tile_m: int, tile_n: int,
                     groups: int = 1, round_k: int = 0) -> tuple[str, int, int, int, int]:
     """(body, cta_m, cta_n, split_k, ctas) of a launch, CTAs per expert: the
-    rows body's strips and K slices from :func:`rows_geometry`, the mma
+    rows body's strips and K slices from :func:`rows_geometry` (its
+    ``cta_m`` the rows of a group of M tiles, :func:`rows_span`), the mma
     body's CTA tiles from :func:`tiled_geometry`, one CTA per logical tile
     in the fma body (:func:`cta_count` with the logical tile as the CTA's).
     The kernel re-checks it and refuses a mismatch."""
     body = body_for(dtype, tile_m)
     if body == "rows":
         cta_n, split_k, ctas = rows_geometry(m, n, k, tile_m, tile_n, groups, round_k)
-        return body, tile_m, cta_n, split_k, ctas
+        return body, rows_span(m, tile_m), cta_n, split_k, ctas
     if body == "mma":
         cta_m, cta_n, ctas = tiled_geometry(m, n, tile_m, tile_n, groups)
         return body, cta_m, cta_n, 1, ctas
     return body, tile_m, tile_n, 1, cta_count(m, n, tile_m, tile_n, tile_m, tile_n)
+
+
+def _count_rows(body: str, m: int, tile_m: int, cta_m: int) -> None:
+    """Counts a rows launch by its M tile (``grouped_tile_launches``,
+    ``narrow_tile_launches``)."""
+    if body != "rows":
+        return
+    if cta_m > tile_m:
+        grouped_tile_launches[tile_m] += 1
+    if tile_m <= 8 and m > tile_m:
+        narrow_tile_launches[tile_m] += 1
 
 
 def _workspace(x: torch.Tensor, groups: int, split_k: int, m: int, n: int) -> torch.Tensor | None:
@@ -485,6 +529,7 @@ def launch_as(x: torch.Tensor, w: torch.Tensor, key: tuple[int, int, bool, int],
         split_k, round_k, ws.data_ptr() if ws is not None else None, int(out_f32),
         _build.stream_handle(x.device))
     _build.check(rc, "matmul kernel")
+    _count_rows(body, m, tile_m, cta_m)
     launches += 1
     z_launches += with_z
     f32_launches += out_f32 and x.dtype != torch.float32
@@ -890,6 +935,7 @@ def grouped_launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
         split_k, round_k, ws.data_ptr() if ws is not None else None, int(out_f32),
         _build.stream_handle(x.device))
     _build.check(rc, "grouped matmul kernel")
+    _count_rows(body, m, tile_m, cta_m)
     grouped_launches += 1
     f32_launches += out_f32 and x.dtype != torch.float32
     body_launches["grouped_matmul", body, x.dtype] += 1

@@ -190,51 +190,62 @@ def _group(n, tile_n, cta_n):
     return cta_n // tile_n if tile_n < min(n, cta_n) else 1
 
 
-def _cta_regions(m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas):
+def _mgroup(m, tile_m, cta_rows=16):
+    """Logical M tiles one rows-body CTA covers, as csrc/common.cuh m_group
+    states it: floor(cta_rows / tile_m) where the M tile is narrower than
+    both M and the CTA's 16 rows, else 1."""
+    return cta_rows // tile_m if tile_m < min(m, cta_rows) else 1
+
+
+def _cta_regions(m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas, span_m=None):
     """The output region and K slice of every CTA, as csrc/matmul.cu (and
     csrc/matmul_grad.cu, split_k 1) place them: CTA b runs sub-tile (b %
     per_group) // split_k (along N first; a 64-column strip in the rows
     body) and K slice b % split_k of group b // per_group (in the
-    schedule's order): a logical tile's rows by ``_group`` consecutive
-    logical N tiles, masked at the group's edge and N's.  Yields (b, group
-    (m0, m1, n0, n1), CTA region, slice j, (k0, k1))."""
+    schedule's order): ``span_m`` rows (the rows body: ``_mgroup``
+    consecutive logical M tiles; else one tile) by ``_group`` consecutive
+    logical N tiles, masked at the group's edges and M's and N's.  Yields
+    (b, group (m0, m1, n0, n1), CTA region, slice j, (k0, k1))."""
     cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    span_m = span_m or tile_m
     span = _group(n, tile_n, cta_n) * tile_n
-    tiles_m, spans_n = cdiv(m, tile_m), cdiv(n, span)
-    sub_m, sub_n = cdiv(min(tile_m, m), cta_m), cdiv(min(span, n), cta_n)
+    spans_m, spans_n = cdiv(m, span_m), cdiv(n, span)
+    sub_m, sub_n = cdiv(min(span_m, m), cta_m), cdiv(min(span, n), cta_n)
     per_group = sub_m * sub_n * split_k
-    assert tiles_m * spans_n * per_group == ctas
+    assert spans_m * spans_n * per_group == ctas
     k_slice = mm.rows_k_slice(k, split_k)
     for b in range(ctas):
         t, rem = divmod(b, per_group)
         s, j = divmod(rem, split_k)
-        tm, tn = divmod(t, spans_n) if m_outer else (t % tiles_m, t // tiles_m)
-        m0, n0 = tm * tile_m, tn * span
-        m1, n1 = min(m0 + tile_m, m), min(n0 + span, n)
+        tm, tn = divmod(t, spans_n) if m_outer else (t % spans_m, t // spans_m)
+        m0, n0 = tm * span_m, tn * span
+        m1, n1 = min(m0 + span_m, m), min(n0 + span, n)
         cm0, cn0 = m0 + (s // sub_n) * cta_m, n0 + (s % sub_n) * cta_n
         if cm0 < m1 and cn0 < n1:   # a ragged group may need fewer CTAs
             yield (b, (m0, m1, n0, n1), (cm0, min(cm0 + cta_m, m1), cn0, min(cn0 + cta_n, n1)),
                    j, (j * k_slice, min((j + 1) * k_slice, k)))
 
 
-def _check_cover(m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas, glu):
+def _check_cover(m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas, glu, span_m=None):
     """The placement's invariant: every output is covered by exactly one CTA
     in each K slice, and the K slices partition K, in order, none empty; a
-    group is whole logical tiles, and one logical tile where the tile is at
-    least as wide as the CTA or all of N (placed as before); a logical tile
-    narrower than a CTA lies whole inside one CTA; no CTA crosses N's edge
-    or its group's (nor, so, its expert's); the CTAs of one group are
-    numbered consecutively; a GLU CTA starts on an even column and spans
-    whole pairs."""
-    cover = np.zeros((split_k, m, n), dtype=np.int64)
+    group is whole logical tiles (``span_m`` rows: whole M tiles too), and
+    one logical tile where the tile is at least as wide as the CTA or all of
+    N (placed as before); a logical tile narrower than a CTA lies whole
+    inside one CTA; no CTA crosses M's or N's edge or its group's (nor, so,
+    its expert's); the CTAs of one group are numbered consecutively; a GLU
+    CTA starts on an even column and spans whole pairs."""
+    cover = np.zeros((split_k, m, n), dtype=np.uint8)
     slices, first = {}, {}
     tn = min(tile_n, n)
-    per_group = (-(-min(tile_m, m) // cta_m) * -(-min(_group(n, tile_n, cta_n) * tile_n, n) // cta_n)
+    span_m = span_m or tile_m
+    per_group = (-(-min(span_m, m) // cta_m) * -(-min(_group(n, tile_n, cta_n) * tile_n, n) // cta_n)
                  * split_k)
     for b, (m0, m1, n0, n1), (cm0, cm1, cn0, cn1), j, (k0, k1) in _cta_regions(
-            m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas):
+            m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas, span_m):
         assert m0 <= cm0 < cm1 <= m1 <= m and n0 <= cn0 < cn1 <= n1 <= n
         assert m0 % tile_m == 0 and n0 % tile_n == 0 and (n1 == n or (n1 - n0) % tile_n == 0)
+        assert m1 == m or (m1 - m0) % tile_m == 0
         if tn >= cta_n or tile_n >= n:
             assert n1 - n0 == min(tile_n, n - n0)
         if tn < cta_n:   # whole logical tiles inside the CTA
@@ -298,6 +309,13 @@ GEOMETRY_CASES = [
     # the rows body at decode (M = 4 slots) with K split across CTAs, ragged
     # strips and slices, GLU, an N tile of 500 and a custom 8-row tile
     ("K1", "matmul", 1, 4, 3072, 3072, None),
+    # the rows body over groups of narrow M tiles at a prime M: 1-row tiles
+    # (16 a CTA, the default at 397 rows), 3-row tiles (5 a CTA, a GLU), and
+    # K1g's experts on 2-row tiles (8 a CTA)
+    ("K1", "matmul", 1, 397, 2048, 2048, None),
+    ("K1", "matmul", 1, 37, 640, 200, (1, 64)),
+    ("K1", "matmul_silu_glu", 1, 37, 300, 130, (3, 48)),
+    ("K1g", "moe_gemm", 3, 37, 100, 64, (2, 48)),
     ("K1", "matmul_silu_glu", 1, 4, 1000, 1000, None),
     ("K1", "matmul", 1, 3, 200, 3000, None),
     ("K1", "matmul_lmhead", 1, 4, 4000, 3072, None),
@@ -321,16 +339,18 @@ def test_cta_geometry_covers_every_output_once(dtype, kind, class_id, e, m, n, k
     m, n, tile_m, tile_n, m_outer, e = _launch_case(kind, class_id, dt, e, m, n, k, tiles)
     body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(dt, m, n, k, tile_m, tile_n, e)
     assert body == mm.body_for(dt, tile_m)
+    span_m = tile_m
     if body == "mma":
         assert (cta_m, cta_n) in mm.MMA_CTA_TILES
     elif body == "rows":
-        assert (cta_m, cta_n) == (tile_m, mm.ROWS_CTA_N)
+        span_m = _mgroup(m, tile_m) * tile_m
+        assert (cta_m, cta_n) == (span_m, mm.ROWS_CTA_N)
         assert (cta_n, split_k, ctas) == mm.rows_geometry(m, n, k, tile_m, tile_n, e)
     else:
         assert (cta_m, cta_n) == (tile_m, tile_n)
     assert split_k >= 1 and (body == "rows" or split_k == 1)
     _check_cover(m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, ctas,
-                 class_id in GLU_CLASSES)
+                 class_id in GLU_CLASSES, span_m)
 
 
 #: narrow and wide N tiles over ragged N (457 is prime; GLU cases take the
@@ -590,9 +610,79 @@ def test_rows_split_k_does_not_change_with_m(k, n, tile_n, groups):
     cta_n, split_k, _ = geos[4]
     span = _group(n, tile_n, cta_n) * tile_n
     for m, tile_m in ((1, 1), (4, 4), (16, 16), (397, 1), (13, 8)):
-        assert geos[m][2] == -(-m // tile_m) * -(-n // span) * -(-min(span, n) // cta_n) * split_k
+        span_m = _mgroup(m, tile_m) * tile_m   # a CTA's rows: a group of narrow M tiles
+        assert geos[m][2] == -(-m // span_m) * -(-n // span) * -(-min(span, n) // cta_n) * split_k
     # a slice is never shorter than ROWS_MIN_SLICE unless K itself is
     assert split_k == 1 or mm.rows_k_slice(k, split_k) >= mm.ROWS_MIN_SLICE
+
+
+@pytest.mark.parametrize("m,tile_m,want", [(397, 1, 16), (181, 1, 16), (362, 2, 8), (13, 8, 2),
+                                            (16, 16, 1), (4, 4, 1), (45, 3, 5), (100, 10, 1),
+                                            (397, 17, 1)])
+def test_m_group_states_the_kernels_formula(m, tile_m, want):
+    """Logical M tiles one rows-body CTA covers (csrc/common.cuh m_group):
+    ⌊16 / M tile⌋ where the tile is narrower than both M and 16 rows, else
+    1; a CTA's rows (``rows_span``) are at most 16 on the rows body."""
+    assert mm.m_group(m, tile_m) == _mgroup(m, tile_m) == want
+    assert mm.rows_span(m, tile_m) == want * tile_m
+    assert tile_m > 16 or want * tile_m <= mm.ROWS_CTA_M
+
+
+# the rows body on narrow M tiles (ROADMAP B.1): (class, E, M per expert, K,
+# N, custom (M, N) tiles or None, CTAs at one CTA a logical tile, CTAs now).
+# The prime 397-row GEMMs and recurrentgemma-2b's 181-token projection on
+# their default 1-row tiles (16 a CTA); decode (M = 4) and verify (M = 16)
+# on one tile a CTA, as before; K1g's experts on 1-row tiles, per expert
+ROWS_GROUP_GEOMETRY = [
+    ("matmul", 1, 397, 2048, 2048, None, 101632, 6400),
+    ("matmul_gelu_glu", 1, 397, 2560, 15360, None, 190560, 12000),
+    ("matmul", 1, 181, 2560, 2560, None, 50680, 3360),
+    ("matmul", 1, 4, 3072, 3072, None, 288, 288),
+    ("matmul", 1, 16, 3072, 3072, None, 288, 288),
+    ("moe_gemm", 3, 37, 640, 1024, (1, 512), 1184, 96),
+]
+
+
+@pytest.mark.parametrize("class_id,e,m,k,n,tiles,tile_ctas,ctas", ROWS_GROUP_GEOMETRY)
+def test_rows_geometry_groups_narrow_m_tiles(class_id, e, m, k, n, tiles, tile_ctas, ctas):
+    """A rows-body CTA covers a group of ⌊16 / M tile⌋ narrow M tiles: the
+    same strips and K slices (split_k as at M = 1), one CTA a group where
+    there was one a logical tile; every output covered once, no CTA across
+    its group's edge or M (:func:`_check_cover`); decode and verify launch
+    as before."""
+    kind = "K1" if e == 1 else "K1g"
+    m, n, tile_m, tile_n, m_outer, e = _launch_case(kind, class_id, torch.bfloat16, e, m, n, k, tiles)
+    body, cta_m, cta_n, split_k, got = mm.launch_geometry(torch.bfloat16, m, n, k, tile_m, tile_n, e)
+    span_m = _mgroup(m, tile_m) * tile_m
+    assert (body, cta_m, got) == ("rows", span_m, ctas)
+    assert tile_ctas == -(-m // tile_m) * (ctas // -(-m // span_m))
+    assert split_k == mm.rows_geometry(1, n, k, 1, tile_n, e)[1]
+    _check_cover(m, n, k, tile_m, tile_n, m_outer, cta_m, cta_n, split_k, got,
+                 class_id in GLU_CLASSES, span_m)
+
+
+#: the serve phases' prompt lengths (chip_smoke.py serve_prompts, seed 0)
+SERVE_PROMPT_LENS = (356, 291, 253, 181, 192, 112, 122, 104)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "rwkv6-1.6b", "recurrentgemma-2b"])
+def test_unbucketed_serve_prompts_group_m_tiles_only_at_181(arch):
+    """The archs whose slot engine prefills unbucketed, at full width and
+    each serve prompt's length: the K1 and K1g launches whose rows-body CTAs
+    cover a group of narrow M tiles are the 181-token prompt's (1-row
+    default tiles) and no other prompt's."""
+    from repro_torch.configs import ShapeConfig, get_arch
+
+    for tokens in SERVE_PROMPT_LENS:
+        grouped = []
+        for tag, _, dt, e, m, n, k, key in _k1_launches_of(
+                get_arch(arch), ShapeConfig(f"prefill_{tokens}", tokens, 1, "prefill")):
+            tile_m, tile_n, _, round_k = key
+            body, cta_m, *_ = mm.launch_geometry(dt, m, n, k, tile_m, tile_n, e, round_k)
+            if body == "rows" and cta_m > tile_m:
+                assert tile_m == 1 and cta_m == mm.ROWS_CTA_M
+                grouped.append(tag)
+        assert bool(grouped) == (tokens == 181), (tokens, grouped)
 
 
 def _qgroup(sq, tile_q, cta_q):
