@@ -21,7 +21,9 @@ toolkit.  Phases, one result line each:
    default schedule and 64x64 output tiles, each shape with its body, CTA
    tile, K split, CTA count and time over ``torch.matmul``'s in the same
    call; the 256-row shapes checked and timed on each compiled CTA tile of
-   the tensor-core body; the 4-row (decode) shapes on the rows body also
+   the tensor-core body (``wgmma`` where TMA reads the operands, its bits
+   the same on every tile and in two runs; ``WGMMA_GROUPS``: groups of
+   narrow N tiles at an aligned N); the 4-row (decode) shapes on the rows body also
    timed on the device alone (profiler), and a row's bits checked equal at
    M = 1 and M = 4 and across two runs; then rounding mode
    (``cache_write=False``: partial sums rounded to bf16 after every K tile,
@@ -375,6 +377,18 @@ their same-call ratios, and whether every output, the generated tokens and
 the 181-token prefill logits have the same sha256 in every turn of both
 trees; it fails where one differs.
 
+    python3 chip_smoke.py --mma-ab PARENT
+
+times K1's and K1g's forward tensor-core body at ``MMA_AB_SHAPES`` (each
+shape's body, CTA tile and CTAs beside ``torch.matmul`` or ``torch.bmm``),
+the gradient launches of ``MMA_AB_GRADS``, one gemma2-2b train step's K1
+forward device time and minitron-4b's slot-engine prefill in the tree at
+``PARENT`` and in this one, in turns (parent, this, this, parent); it
+prints the same-call ratios and, per output, the elements whose bits
+differ between the trees, and fails where a digest differs between turns
+of one tree, a ``wgmma`` shape is slower than the parent's body by device
+time, or a gradient launch's bits differ from the parent's.
+
     python3 chip_smoke.py --profile-family ARCH
 
 profiles one train step of a ``FAMILIES`` arch alone in a fresh process
@@ -409,6 +423,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -628,8 +643,8 @@ def assert_close(torch, got, want, tol: dict, what: str) -> float:
 
 #: kernels whose registers and spills the build phase reports (each
 #: instantiation: CTA tiles, head dims, dtypes, rounding mode)
-BUILD_BODIES = ("matmul_mma_kernel", "attention_mma_kernel", "matmul_rows_kernel",
-                "matmul_rows_round_kernel", "attention_bwd_dq_mma_kernel",
+BUILD_BODIES = ("matmul_wgmma_kernel", "matmul_mma_kernel", "attention_mma_kernel",
+                "matmul_rows_kernel", "matmul_rows_round_kernel", "attention_bwd_dq_mma_kernel",
                 "attention_bwd_dkv_mma_kernel", "attention_bwd_dq_fma_kernel",
                 "attention_bwd_dkv_fma_kernel", "rwkv6_scan_bwd_walk_kernel",
                 "rwkv6_scan_bwd_kernel", "rglru_scan_bwd_kernel", "matmul_grad_wgmma_kernel",
@@ -731,13 +746,15 @@ def _mm_inputs(torch, g, m, n, k, class_id, dtype):
 
 @contextlib.contextmanager
 def forced_cta_tile(cta):
-    """The matmul's tensor-core body on one compiled CTA tile, whatever
+    """The matmul's tensor-core bodies on one compiled CTA tile, whatever
     ``tiled_geometry`` would choose (to time the choice against the others)."""
     from repro_torch.kernels import matmul as mm
 
     chosen = mm.tiled_geometry
 
-    def forced(m, n, tile_m, tile_n, groups=1):
+    def forced(m, n, tile_m, tile_n, groups=1, tiles=mm.MMA_CTA_TILES):
+        if cta not in tiles:
+            raise AssertionError(f"{cta} is not among the body's CTA tiles {tiles}")
         return (*cta, mm.cta_count(m, n, tile_m, tile_n, *cta))
 
     mm.tiled_geometry = forced
@@ -747,15 +764,25 @@ def forced_cta_tile(cta):
         mm.tiled_geometry = chosen
 
 
-def time_cta_tiles(torch, timer, launch, want, what, iters=10) -> dict:
-    """Each compiled CTA tile of the tensor-core body: checked against the
-    plain version, then timed; {"MxN": ms}."""
+def time_cta_tiles(torch, timer, launch, want, what, body, iters=10) -> dict:
+    """Each compiled CTA tile of the tensor-core ``body``: checked against
+    the plain version, then timed; {"MxN": ms}.  On the wgmma body the
+    launch's bits must be the same on every tile and in two runs (no
+    output's sum depends on which rows or columns share its CTA)."""
     from repro_torch.kernels import matmul as mm
 
-    out = {}
-    for cta in mm.MMA_CTA_TILES:
+    out, first = {}, None
+    for cta in mm.CTA_TILES[body]:
         with forced_cta_tile(cta):
-            assert_close(torch, launch(), want, BF16_TOL, f"{what} on {cta} CTA tiles")
+            got, again = launch(), launch()
+            assert_close(torch, got, want, BF16_TOL, f"{what} on {cta} CTA tiles")
+            torch.cuda.synchronize()
+            if body == "wgmma":
+                first = got if first is None else first
+                if not (torch.equal(got, again) and torch.equal(got, first)):
+                    raise AssertionError(f"{what}: the wgmma body's bits on {cta} CTA tiles differ "
+                                         f"from another run or from {mm.CTA_TILES[body][0]}")
+            del got, again
             out["x".join(map(str, cta))] = timer.ms(launch, iters=iters)
     return out
 
@@ -853,19 +880,23 @@ def rounding_cases(torch, timer, family: str) -> list:
 
 
 #: K1's Z output (``launch(..., with_z=True)``, the ``dots`` remat policy's),
-#: per body: (name, class, dtype, M, K, N, schedule tiles or None for the
-#: default, cache_write).  The rows body unsplit (gemma2's GeGLU up at 4
-#: rows) and split over K (N = 256), in f32, and in rounding mode; the
-#: tensor-core body at gemma2's training up projection, whisper's gelu with
-#: a bias and a ragged shape; the CUDA-core body (f32); the tensor-core body
-#: in rounding mode, its K tile of 24 splitting an MMA step
+#: per body (the name's first word): (name, class, dtype, M, K, N, schedule
+#: tiles or None for the default, cache_write).  The rows body unsplit
+#: (gemma2's GeGLU up at 4 rows) and split over K (N = 256), in f32, and in
+#: rounding mode; the wgmma body at gemma2's training up projection,
+#: whisper's gelu with a bias, a ragged aligned shape and a 64-row tile;
+#: the mma body at rows of x off 16 bytes (K = 33) and in rounding mode,
+#: its K tile of 24 splitting an MMA step; the CUDA-core body (f32)
 Z_CASES = (("rows", "matmul_gelu_glu", "bfloat16", 4, 2304, 18432, None, True),
            ("rows_split_k", "matmul_silu_glu", "bfloat16", 4, 3072, 256, None, True),
            ("rows_f32", "matmul_bias_gelu", "float32", 4, 64, 200, None, True),
            ("rows_round", "matmul_bias_gelu", "bfloat16", 4, 3072, 1024,
             {"M": 4, "N": 512, "K": 128}, False),
-           ("mma", "matmul_gelu_glu", "bfloat16", 2048, 2304, 18432, None, True),
-           ("mma_bias", "matmul_bias_gelu", "bfloat16", 1500, 1024, 4096, None, True),
+           ("wgmma", "matmul_gelu_glu", "bfloat16", 2048, 2304, 18432, None, True),
+           ("wgmma_bias", "matmul_bias_gelu", "bfloat16", 1500, 1024, 4096, None, True),
+           ("wgmma_ragged", "matmul_silu_glu", "bfloat16", 70, 40, 200, None, True),
+           ("wgmma_64", "matmul_gelu_glu", "bfloat16", 64, 512, 1024,
+            {"M": 64, "N": 256, "K": 512}, True),
            ("mma_ragged", "matmul_silu_glu", "bfloat16", 70, 33, 200, None, True),
            ("mma_round", "matmul_bias_gelu", "bfloat16", 256, 3072, 1024,
             {"M": 128, "N": 512, "K": 24}, False),
@@ -914,7 +945,7 @@ def z_output_checks(torch, timer) -> list:
         row = {"name": name, "class": class_id, "dtype": dt, "M": m, "K": k, "N": n,
                "key": list(key), "body": body[0], "split_k": body[3], "ctas": body[4],
                "z_bits_equal": same_z, "y_bits_unchanged": same_y, "max_abs_err": err}
-        if name == "mma":   # gemma2's GeGLU up projection at the training batch
+        if name == "wgmma":   # gemma2's GeGLU up projection at the training batch
             b_ms, b_by = bound_ms(2 * (m * k + k * n + m * n // 2 + m * n), 2 * m * n * k)
             row.update(without_z_ms=timer.ms(lambda: mm.launch_as(x, w, key, class_id=class_id, **kw)),
                        ms=timer.ms(lambda: mm.launch_as(x, w, key, class_id=class_id, with_z=True,
@@ -938,6 +969,11 @@ def z_output_checks(torch, timer) -> list:
 #: the tensor-core body (bf16; f32: the CUDA-core body) plain and in
 #: rounding mode, a GLU at an N tile of 2, internvl2-26b's N tile of 3 at
 #: its full vocab
+#: the wgmma body over groups of narrow N tiles at an aligned N (each
+#: group's first column on 16 bytes): (class, M, N, K, tiles)
+WGMMA_GROUPS = (("matmul", 200, 1024, 136, {"M": 64, "N": 24, "K": 136}),
+                ("matmul_gelu_glu", 130, 512, 64, {"M": 64, "N": 16, "K": 64}),
+                ("matmul_bias", 300, 4096, 256, {"M": 128, "N": 40, "K": 256}))
 NARROW_PARITY = (("matmul", 4, 457, 640, {"M": 4, "N": 3, "K": 640}, True),
                  ("matmul", 4, 457, 640, {"M": 4, "N": 7, "K": 32}, False),
                  ("matmul_lmhead", 300, 457, 192, {"M": 128, "N": 3, "K": 192}, True),
@@ -958,7 +994,8 @@ def phase_matmul(torch, timer) -> dict:
     # bf16 and f32; then a custom schedule and NARROW_PARITY
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         for class_id in ref.MATMUL_CLASSES:
-            for m, n, k in ((5, 40, 24), (3, 50, 17), (4, 1000, 64), (70, 200, 33), (130, 96, 300)):
+            for m, n, k in ((5, 40, 24), (3, 50, 17), (4, 1000, 64), (70, 200, 33), (130, 96, 300),
+                            (70, 200, 72), (130, 96, 304), (300, 576, 1000), (64, 256, 136)):
                 x, w, kw = _mm_inputs(torch, g, m, n, k, class_id, dtype)
                 cs = ops.schedule_for(ops.instance(class_id, dtype, M=m, N=n, K=k))
                 got = mm.launch(x, w, cs, class_id=class_id, **kw)
@@ -981,6 +1018,17 @@ def phase_matmul(torch, timer) -> dict:
             errs[name] = assert_close(torch, mm.launch(x, w, cs, class_id=cid, **kw),
                                       ref.matmul(x, w, cid, round_k=mm.round_k_for(cs), **kw),
                                       tol, name)
+        for cid, m, n, k, tiles in WGMMA_GROUPS:
+            cs = concretize(Schedule.make(cid, tiles), ops.instance(cid, dtype, M=m, N=n, K=k))
+            x, w, kw = _mm_inputs(torch, g, m, n, k, cid, dtype)
+            body, _, cta_n, _, _ = mm.launch_geometry(dtype, m, n, k, tiles["M"], tiles["N"])
+            if body != ("wgmma" if dtype == torch.bfloat16 else "fma") or (
+                    body == "wgmma" and mm.n_group(n, tiles["N"], cta_n) < 2):
+                raise AssertionError(f"{cid} {m}x{k}x{n} at N tile {tiles['N']}: {body}, "
+                                     f"{cta_n}-column CTAs")
+            name = f"wgmma_groups/{cid}/{ops.dtype_name(dtype)}/{m}x{n}x{k}/N tile {tiles['N']}"
+            errs[name] = assert_close(torch, mm.launch(x, w, cs, class_id=cid, **kw),
+                                      ref.matmul(x, w, cid, **kw), tol, name)
     log("matmul_classes", checks=len(errs), max_abs_err=max(errs.values()), tol=BF16_TOL,
         f32_tol=F32_TOL)
 
@@ -1005,7 +1053,8 @@ def phase_matmul(torch, timer) -> dict:
                     raise AssertionError(f"{class_id} {m}x{k}x{n}: rows-body bits depend on M or the run")
                 del one, again
             cta_ms = (time_cta_tiles(torch, timer, lambda: mm.launch(x, w, cs, class_id=class_id, **kw),
-                                     want, f"{class_id} {m}x{k}x{n}") if body == "mma" else None)
+                                     want, f"{class_id} {m}x{k}x{n}", body)
+                      if body in mm.CTA_TILES else None)
             del got, want
             # the same kernel under 64x64 output tiles, sized to fill the card's SMs
             cs64 = concretize(Schedule.make(class_id, {"M": 64, "N": 64, "K": cs.t["K"]}), cs.instance)
@@ -1043,10 +1092,12 @@ def phase_matmul(torch, timer) -> dict:
 
 
 #: K1's f32 modes (ROADMAP C.13) at row-parallel shapes: ``y``, minitron-4b's
-#: ``wo`` at model 4 (x 4 x 768 at decode, w 768 x 3072: the rows body); ``dx``,
+#: ``wo`` at model 4 (x 4 x 768 at decode, w 768 x 3072: the rows body), and
+#: ``y_prefill`` at a 256-row prefill (the wgmma body); ``dx``,
 #: gemma2-2b's GeGLU ``w_in`` input gradient at model 4 (dY 2048 x 4608
 #: against wᵀ, w 2304 x 4608: the wgmma body)
 F32_Y_SHAPE, F32_DX_SHAPE = (4, 768, 3072), (2048, 4608, 2304)
+F32_Y_PREFILL_SHAPE = (256, 768, 3072)
 
 
 def _library_f32(torch, a, b):
@@ -1074,16 +1125,24 @@ def f32_output_checks(torch, timer) -> list:
     m, k, n = F32_Y_SHAPE
     x, w, _ = _mm_inputs(torch, g, m, n, k, "matmul", bf)
     cs = ops.schedule_for(ops.instance("matmul", bf, M=m, N=n, K=k))
+    pm, pk, pn = F32_Y_PREFILL_SHAPE
+    xp, wp, _ = _mm_inputs(torch, g, pm, pn, pk, "matmul", bf)
+    csp = ops.schedule_for(ops.instance("matmul", bf, M=pm, N=pn, K=pk))
     dm, dk, dn = F32_DX_SHAPE
     dy = torch.randn((dm, dk), generator=g, device="cuda").to(bf)
     wt = (torch.randn((dn, dk), generator=g, device="cuda") / dk ** 0.5).to(bf).T   # wᵀ, a view
     cases = (("y", lambda out_f32: mm.launch(x, w, cs, out_f32=out_f32),
               lambda: ref.matmul(x, w, out_f32=True), _library_f32(torch, x, w),
               (m, k, n), mm.launch_geometry(bf, m, n, k, cs.t["M"], cs.t["N"])[0]),
+             ("y_prefill", lambda out_f32: mm.launch(xp, wp, csp, out_f32=out_f32),
+              lambda: ref.matmul(xp, wp, out_f32=True), _library_f32(torch, xp, wp),
+              (pm, pk, pn), mm.launch_geometry(bf, pm, pn, pk, csp.t["M"], csp.t["N"])[0]),
              ("dx", lambda out_f32: mm.grad_launch(dy, wt, out_f32=out_f32),
               lambda: ref.matmul(dy, wt, out_f32=True), _library_f32(torch, dy, wt),
               (dm, dk, dn), mm.grad_geometry(dy, wt)["body"]))
     for name, launch, plain, library, (mm_, kk, nn), body in cases:
+        if name == "y_prefill" and body != "wgmma":
+            raise AssertionError(f"f32 {name}: the {body} body")
         got, low = launch(True), launch(False)
         want = plain()
         torch.cuda.synchronize()
@@ -1103,7 +1162,7 @@ def f32_output_checks(torch, timer) -> list:
             row["bf16_device_ms"] = timer.device_ms(lambda: launch(False))
         rows.append(row)
         del got, low, want
-    del x, w, dy, wt
+    del x, w, xp, wp, dy, wt
     torch.cuda.empty_cache()
     log("matmul_f32_modes", cases=rows)
     return rows
@@ -1802,23 +1861,28 @@ def time_head(torch, timer) -> list:
     return rows
 
 
-#: the turns of ``--scans-ab``, ``--head-ab``, ``--attn-ab`` and ``--rows-ab``
+#: the turns of ``--scans-ab``, ``--head-ab``, ``--attn-ab``, ``--rows-ab`` and ``--mma-ab``
 AB_TURNS = ("parent", "this", "this", "parent")
 
 
-def ab_turns(parent: Path, mode: str, what: str, key) -> dict:
+def ab_turns(parent: Path, mode: str, what: str, key, env=None) -> dict:
     """``chip_smoke.py MODE SRC`` for the tree at ``parent`` (say, an
     unpacked parent commit) and for this tree, in turns (:data:`AB_TURNS`),
     each turn in its own process with that tree's ``src`` first on the
     path.  Logs each turn's rows (``{what}_turn``; the turn's own log lines,
     a dropped profiler capture say, as ``{what}_turn_log``) and returns
     them by ``key(row)``, then by tree: {key: {"parent": [...], "this":
-    [...]}}, keys in the order the rows came."""
+    [...]}}, keys in the order the rows came.  ``env(who, first)``: extra
+    environment of a turn (``first``: the tree's first turn), or None."""
     got = collections.defaultdict(lambda: {"parent": [], "this": []})
+    seen = set()
     for who in AB_TURNS:
         tree = parent if who == "parent" else ROOT
+        extra = env(who, who not in seen) if env else None
+        seen.add(who)
         out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), mode, str(tree / "src")],
-                             capture_output=True, text=True, timeout=900)
+                             capture_output=True, text=True, timeout=900,
+                             env={**os.environ, **extra} if extra else None)
         if out.returncode != 0:
             sys.stderr.write(out.stderr[-4000:])
             raise AssertionError(f"{mode} on {tree} failed ({out.returncode})")
@@ -2156,6 +2220,257 @@ def rows_ab(parent: Path) -> int:
     return 0
 
 
+#: ``--mma-ab``'s K1 and K1g launches, the forward tensor-core body's main
+#: shapes (PERF.md §6): (name, class, E, rows per expert, K, N, with Z).
+#: minitron-4b's 256-row prefill and 64-row paged chunk, whisper-medium's
+#: encoder (M tile 125), gemma2-2b's GeGLU up at its training batch with and
+#: without Z, mixtral-8x22b's and dbrx-132b's expert GEMMs at 256 rows each
+MMA_AB_SHAPES = (("k1_prefill", "matmul", 1, 256, 3072, 3072, False),
+                 ("k1_chunk", "matmul", 1, 64, 3072, 3072, False),
+                 ("k1_whisper_encoder", "matmul", 1, 1500, 1024, 1024, False),
+                 ("k1_gemma2_up_z", "matmul_gelu_glu", 1, 2048, 2304, 18432, True),
+                 ("k1_gemma2_up", "matmul_gelu_glu", 1, 2048, 2304, 18432, False),
+                 ("k1g_mixtral_up", "moe_gemm_silu_glu", 8, 256, 6144, 32768, False),
+                 ("k1g_mixtral_down", "moe_gemm", 8, 256, 16384, 6144, False),
+                 ("k1g_dbrx_up", "moe_gemm_silu_glu", 16, 256, 6144, 21504, False),
+                 ("k1g_dbrx_down", "moe_gemm", 16, 256, 10752, 6144, False))
+#: ``--mma-ab``'s gradient launches (``csrc/matmul_grad.cu``, whose helpers
+#: moved to ``csrc/wgmma.cuh``: their bits must not change), on the views
+#: the backward passes: (name, part, E, rows per expert, K, N of the
+#: forward): gemma2-2b's GeGLU up dX and dW, mixtral-8x22b's K1g up dX
+MMA_AB_GRADS = (("grad_dx_gemma2_up", "dx", 1, 2048, 2304, 18432),
+                ("grad_dw_gemma2_up", "dw", 1, 2048, 2304, 18432),
+                ("grad_dx_mixtral_up", "dx", 8, 512, 6144, 32768))
+#: ``--mma-ab``'s slot-engine prefill: minitron-4b's eight serve prompts,
+#: the 181-token one also one-shot
+MMA_AB_ARCHS, MMA_AB_PROMPTS = ("minitron-4b",), (181,)
+
+
+def mma_ab_row(torch, timer, name, class_id, e, m, k, n, with_z) -> tuple:
+    """One ``--mma-ab`` launch at seeded inputs under its default schedule:
+    its body and CTA geometry, event and device times beside the library
+    call's (``torch.matmul``, ``torch.bmm``; none where an epilogue has no
+    one call), its bound and its output's sha256; and the outputs."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(m + k + n + e)
+    lead = (e,) if e > 1 else ()
+    x = torch.randn((*lead, m, k), generator=g, device="cuda").to(bf)
+    w = torch.empty((*lead, k, n), dtype=bf, device="cuda")
+    for i in range(e):   # one expert's f32 draw at a time
+        (w[i] if e > 1 else w).copy_(torch.randn((k, n), generator=g, device="cuda") / k ** 0.5)
+    inst = ops.instance(class_id, bf, M=m * e, N=n, K=k, **({"E": e} if e > 1 else {}))
+    cs = ops.schedule_for(inst)
+    tile_m, tile_n, _, round_k = mm.schedule_key(cs)
+    body, cta_m, cta_n, _, ctas = mm.launch_geometry(bf, m, n, k, tile_m, tile_n, e, round_k)
+    if e > 1:
+        def launch():
+            return mm.grouped_launch(x, w, cs, class_id=class_id)
+        library = (lambda: torch.bmm(x, w)) if class_id == "moe_gemm" else None
+    else:
+        def launch():
+            return mm.launch(x, w, cs, class_id=class_id, with_z=with_z)
+        library = (lambda: torch.matmul(x, w)) if class_id == "matmul" else None
+    out = launch()
+    outs = list(out) if isinstance(out, tuple) else [out]
+    n_out = n // 2 if "glu" in class_id else n
+    b_ms, b_by = bound_ms(2 * e * (m * k + k * n + m * n_out + (m * n if with_z else 0)),
+                          2 * e * m * n * k)
+    row = {"kind": "matmul", "name": name, "class": class_id, "E": e, "M": m, "K": k, "N": n,
+           "with_z": with_z, "tiles": [tile_m, tile_n], "body": body, "cta_tile": [cta_m, cta_n],
+           "ctas": e * ctas, "digest": digest(torch, outs),
+           "ms": timer.ms(launch, iters=5), "device_ms": timer.device_ms(launch, iters=5),
+           "library_ms": timer.ms(library, iters=5) if library else None,
+           "library_device_ms": timer.device_ms(library, iters=5) if library else None,
+           "bound_ms": b_ms, "bound_by": b_by}
+    del x, w
+    return row, outs
+
+
+def mma_ab_grad_row(torch, timer, name, part, e, m, k, n) -> tuple:
+    """One ``--mma-ab`` gradient launch at seeded inputs: dX = dZ·wᵀ or
+    dW = xᵀ·dZ of the forward x (m, k) · w (k, n), per expert where e > 1,
+    on transposed views; its body, device time and output sha256; and the
+    output."""
+    from repro_torch.kernels import matmul as mm
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(m + k + n + e + 7)
+    lead = (e,) if e > 1 else ()
+    x = torch.randn((*lead, m, k), generator=g, device="cuda").to(bf)
+    w = (torch.randn((*lead, k, n), generator=g, device="cuda") / k ** 0.5).to(bf)
+    dz = (torch.randn((*lead, m, n), generator=g, device="cuda") / n ** 0.5).to(bf)
+    a, b = (dz, w.transpose(-1, -2)) if part == "dx" else (x.transpose(-1, -2), dz)
+
+    def launch():
+        return mm.grouped_grad_launch(a, b) if e > 1 else mm.grad_launch(a, b)
+    out = launch()
+    row = {"kind": "grad", "name": name, "part": part, "E": e, "M": m, "K": k, "N": n,
+           "body": mm.grad_geometry(a, b)["body"], "digest": digest(torch, [out]),
+           "device_ms": timer.device_ms(launch, iters=5)}
+    del x, w, dz, a, b
+    return row, [out]
+
+
+def k1_step_device_ms(torch) -> dict:
+    """One gemma2-2b train step at full depth and the train phase's batch
+    (two unprofiled first) under one profiler capture: the device time and
+    count of its K1 forward kernels (``matmul_*`` but ``matmul_grad_*``,
+    the launches of the forward and of the full remat policy's recompute),
+    and its device-busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticSource
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_arch(TRAIN_ARCH)
+    np_batch = SyntheticSource(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH)).batch_at(0)
+    batch = {"tokens": torch.from_numpy(np_batch["tokens"]).cuda()}
+    model = build_model(cfg, "cuda")
+    params = model.init(0)
+    opt = steps_mod.init_opt_state(params)
+    step = steps_mod.make_train_step(model, AdamWConfig(peak_lr=3e-3, warmup_steps=2,
+                                                        total_steps=TRAIN_STEPS))
+    for _ in range(2):
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    k1 = [e for e in dev if "matmul_" in e.name and "matmul_grad_" not in e.name]
+    summary = profile_summary(torch, prof, wall_us)
+    del params, opt, step, model
+    free_engines(torch)
+    return {"kind": "train_step", "arch": TRAIN_ARCH, "k1_forward_kernels": len(k1),
+            "k1_forward_device_ms": sum(e.time_range.elapsed_us() for e in k1) / 1e3,
+            "device_busy_ms": summary["device_busy_ms"], "step_ms": wall_us / 1e3}
+
+
+def time_mma(torch, timer) -> list:
+    """One ``--mma-ab`` turn, on the ``repro_torch`` on ``sys.path``: each
+    :data:`MMA_AB_SHAPES` launch (:func:`mma_ab_row`) and
+    :data:`MMA_AB_GRADS` gradient launch (:func:`mma_ab_grad_row`), each output saved
+    under ``$MMA_AB_DUMP`` where that is set (the tree's first turn); one
+    gemma2-2b step's K1 forward device time (:func:`k1_step_device_ms`);
+    minitron-4b's slot-engine prefill (:func:`time_prefills`)."""
+    dump = os.environ.get("MMA_AB_DUMP")
+    rows = []
+    for case, fn in [(c, mma_ab_row) for c in MMA_AB_SHAPES] + [(c, mma_ab_grad_row)
+                                                                 for c in MMA_AB_GRADS]:
+        row, outs = fn(torch, timer, *case)
+        if dump:
+            torch.save([o.cpu() for o in outs], Path(dump) / f"{case[0]}.pt")
+        rows.append(row)
+        del outs
+        torch.cuda.empty_cache()
+    rows.append(k1_step_device_ms(torch))
+    return rows + time_prefills(torch, MMA_AB_ARCHS, MMA_AB_PROMPTS)
+
+
+def mma_ab(parent: Path) -> int:
+    """K1's and K1g's forward tensor-core body at :data:`MMA_AB_SHAPES`, one
+    gemma2-2b train step's K1 forward device time and minitron-4b's slot
+    prefill (:func:`time_mma`) in the tree at ``parent`` and in this one,
+    in turns (:func:`ab_turns`).  Prints per shape each tree's body, CTA
+    tile and CTAs, mean event and device times, their ratio (parent /
+    this) and each tree's ratio to the library call; the elements whose
+    bits differ between the trees (another instruction may sum in another
+    order) and their largest difference; per step and prefill each tree's
+    means; per gradient launch each tree's device time and whether its
+    bits equal the parent's.  Raises, after printing, where a digest
+    differs between turns of one tree, where a shape on this tree's wgmma
+    body is slower by device time than the parent's, or where a gradient
+    launch's bits differ from the parent's."""
+    import tempfile
+
+    import torch
+
+    dumps = Path(tempfile.mkdtemp(prefix="mma_ab_"))
+    for who in ("parent", "this"):
+        (dumps / who).mkdir()
+    got = ab_turns(parent, "--time-mma", "mma",
+                   lambda row: (row["kind"], row.get("name"), row.get("arch")),
+                   env=lambda who, first: {"MMA_AB_DUMP": str(dumps / who)} if first else None)
+    differ, slower, grad_differ = [], [], []
+
+    def bits_vs_parent(name):   # per output: elements that differ, their share, the largest difference
+        a = torch.load(dumps / "parent" / f"{name}.pt")
+        b = torch.load(dumps / "this" / f"{name}.pt")
+        return [{"differ": int((x != y).sum()), "share": float((x != y).float().mean()),
+                 "max_abs_diff": float((x.float() - y.float()).abs().max())} for x, y in zip(a, b)]
+
+    for (kind, name, arch), rows in got.items():
+        if kind == "grad":
+            keys = ("digest",)
+            mean = ab_means(rows, ("device_ms",))
+            cross = bits_vs_parent(name)
+            if any(c["differ"] for c in cross):
+                grad_differ.append((name, cross))
+            fields = dict(name=name, **{f: rows["this"][0][f] for f in ("part", "E", "M", "K", "N")},
+                          parent_body=rows["parent"][0]["body"], body=rows["this"][0]["body"],
+                          parent_device_ms=mean["parent"]["device_ms"],
+                          device_ms=mean["this"]["device_ms"],
+                          device_ratio=ratio(mean["parent"]["device_ms"], mean["this"]["device_ms"]),
+                          bits_vs_parent=cross)
+        elif kind == "matmul":
+            keys = ("digest",)
+            mean = ab_means(rows, ("ms", "device_ms", "library_ms", "library_device_ms"))
+            p, t = mean["parent"], mean["this"]
+            this, par = rows["this"][0], rows["parent"][0]
+            cross = bits_vs_parent(name)
+            fields = dict(name=name, **{f: this[f] for f in ("class", "E", "M", "K", "N", "with_z",
+                                                             "tiles", "bound_ms", "bound_by")},
+                          parent_body=par["body"], body=this["body"],
+                          parent_cta_tile=par["cta_tile"], cta_tile=this["cta_tile"],
+                          parent_ctas=par["ctas"], ctas=this["ctas"],
+                          parent_device_ms=p["device_ms"], device_ms=t["device_ms"],
+                          device_ratio=ratio(p["device_ms"], t["device_ms"]),
+                          parent_ms=p["ms"], ms=t["ms"], ratio=ratio(p["ms"], t["ms"]),
+                          library_ms=t["library_ms"], library_device_ms=t["library_device_ms"],
+                          parent_library_ratio=ratio(p["device_ms"], t["library_device_ms"]),
+                          library_ratio=ratio(t["device_ms"], t["library_device_ms"]),
+                          bound_share=ratio(this["bound_ms"], t["device_ms"]),
+                          bits_vs_parent=cross)
+            if this["body"] == "wgmma" and (t["device_ms"] is None or p["device_ms"] is None
+                                            or t["device_ms"] > p["device_ms"]):
+                slower.append((name, p["device_ms"], t["device_ms"]))
+        elif kind == "train_step":
+            keys = ()
+            mean = ab_means(rows, ("k1_forward_device_ms", "k1_forward_kernels", "device_busy_ms",
+                                   "step_ms"))
+            fields = {k: v for m, vs in (("parent", mean["parent"]), ("this", mean["this"]))
+                      for k, v in ((f"{m}_{f}", x) for f, x in vs.items())}
+            fields["k1_forward_ratio"] = ratio(mean["parent"]["k1_forward_device_ms"],
+                                               mean["this"]["k1_forward_device_ms"])
+        else:
+            keys, fields = prefill_ab_fields(rows, MMA_AB_PROMPTS)
+        same = {k: {who: len({json.dumps(r[k], sort_keys=True) for r in rs}) == 1
+                    for who, rs in rows.items()} for k in keys}
+        if not all(v for s in same.values() for v in s.values()):
+            differ.append((kind, name, arch, same))
+        log("mma_ab", kind=kind, arch=arch, bits_equal_within_tree=same, **fields)
+    for who in ("parent", "this"):
+        for f in (dumps / who).iterdir():
+            f.unlink()
+        (dumps / who).rmdir()
+    dumps.rmdir()
+    print(nvidia_smi())
+    if differ or slower or grad_differ:
+        raise AssertionError(f"--mma-ab: bits differ between turns of one tree {differ}; "
+                             f"slower than the parent's body by device time {slower}; "
+                             f"gradient launches whose bits differ from the parent's {grad_differ}")
+    return 0
+
+
 @contextlib.contextmanager
 def tensor_core_matmuls():
     """The plain matmul of the bf16 classes without bias or epilogue
@@ -2242,15 +2557,31 @@ def phase_grouped(torch, timer) -> dict:
     cases = [(1, 5, 40, 24, None), (1, 70, 96, 33, None), (3, 37, 100, 64, None),
              (8, 4, 96, 48, None), (8, 300, 64, 32, None), (3, 13, 64, 40, {"M": 8, "N": 64}),
              (3, 4, 50, 17, None), (3, 70, 50, 33, None),
-             (3, 37, 100, 64, {"M": 16, "N": 48}), (3, 100, 100, 64, {"M": 64, "N": 48})]
+             (3, 37, 100, 64, {"M": 16, "N": 48}), (3, 100, 100, 64, {"M": 64, "N": 48}),
+             # the wgmma body (N and K whole 8s): experts with ragged edges,
+             # N-outer tiles, a group of narrow N tiles (16: 8 a 128-column CTA)
+             (3, 37, 104, 64, None), (3, 70, 96, 40, None), (8, 130, 256, 96, None),
+             (3, 100, 104, 72, {"M": 64, "N": 48}), (3, 130, 512, 64, {"M": 64, "N": 16})]
+    f32_bits = 0
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         for class_id in ref.GROUPED_CLASSES:
             for e, m, n, k, tiles in cases:
                 x, w = _grouped_inputs(torch, g, e, m, n, k, dtype)
                 cs = cs_for(class_id, dtype, e, m, n, k, tiles)
                 name = f"{class_id}/{ops.dtype_name(dtype)}/{e}x{m}x{n}x{k}/{tiles or 'default'}"
-                errs[name] = assert_close(torch, mm.grouped_launch(x, w, cs, class_id=class_id),
-                                          ref.grouped_matmul(x, w, class_id), tol, name)
+                got = mm.grouped_launch(x, w, cs, class_id=class_id)
+                errs[name] = assert_close(torch, got, ref.grouped_matmul(x, w, class_id), tol, name)
+                if launch_body(mm, x, w, cs) == "wgmma":   # f32 Y: its sums, unrounded
+                    y32 = mm.grouped_launch(x, w, cs, class_id=class_id, out_f32=True)
+                    errs[f"{name}/f32"] = assert_close(
+                        torch, y32, ref.grouped_matmul(x, w, class_id, out_f32=True), F32_TOL,
+                        f"{name} f32 Y")
+                    torch.cuda.synchronize()
+                    if not torch.equal(y32.to(dtype), got):
+                        raise AssertionError(f"{name}: f32 Y does not round to the bf16 launch's bits")
+                    f32_bits += 1
+    if not f32_bits:
+        raise AssertionError("no K1g case took the wgmma body")
     log("grouped_checks", checks=len(errs), max_abs_err=max(errs.values()), tol=BF16_TOL,
         f32_tol=F32_TOL)
 
@@ -2268,7 +2599,8 @@ def phase_grouped(torch, timer) -> dict:
             body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(x.dtype, m, n, k, tile_m, tile_n, e)
             iters = 10 if m <= 16 else 5
             cta_ms = (time_cta_tiles(torch, timer, lambda: mm.grouped_launch(x, w, cs, class_id=class_id),
-                                     want, f"{class_id} {e}x{m}x{k}x{n}", iters) if body == "mma" else None)
+                                     want, f"{class_id} {e}x{m}x{k}x{n}", body, iters)
+                      if body in mm.CTA_TILES else None)
             del want
             row = {"class": class_id, "E": e, "M": m, "K": k, "N": n,
                    "tiles": {"M": tile_m, "N": tile_n},
@@ -2742,7 +3074,7 @@ def profile_summary(torch, prof, wall_us: float) -> dict:
 #: for a split GQA group, ``attention_bwd_parts_kernel``), K3's backward its
 #: walk and du kernels, none counted; K1g's launches and both gradient
 #: launches, ``matmul_grad_*``, are the matmul family's)
-CAPTURE_KERNELS = {"matmul": ("matmul_mma_kernel", "matmul_rows_kernel",
+CAPTURE_KERNELS = {"matmul": ("matmul_wgmma_kernel", "matmul_mma_kernel", "matmul_rows_kernel",
                               "matmul_rows_round_kernel", "matmul_fma_kernel", "matmul_grad_"),
                    "flash_attention": ("attention_mma_kernel", "attention_fma_kernel"),
                    "attention_bwd": ("attention_bwd_dq_",),
@@ -2940,6 +3272,62 @@ def body_counts(mm, counter=None) -> dict:
             for (kernel, body, dtype), count in sorted(counter.items(), key=str)}
 
 
+#: why a bf16 K1 or K1g launch above 16 rows may take the mma body
+#: (kernels/matmul.py mma_reason): rounding mode, rows of w off 16 bytes
+#: (the shifted read), rows or base of x off 16 bytes
+MMA_REASONS = ("round", "w_off16", "x_off16")
+
+
+def forward_bodies(mm, what: str) -> dict:
+    """K1's and K1g's bf16 forward launches of a run by tensor-core body
+    (the counts since the last reset, less the gradient launches'):
+    {kernel: {"wgmma": n, "mma": {reason: n}}}.  Raises unless every mma
+    launch is one the rule sends there (:data:`MMA_REASONS`): every other
+    launch meeting it ran on wgmma (the kernel refuses any other body)."""
+    import torch
+
+    bf, out = torch.bfloat16, {}
+    for kernel in ("matmul", "grouped_matmul"):
+        fwd = {b: mm.body_launches[kernel, b, bf] - mm.grad_body_launches[kernel, b, bf]
+               for b in mm.CTA_TILES}
+        reasons = {r: n for (k, r), n in sorted(mm.mma_launches.items()) if k == kernel}
+        if fwd["mma"] != sum(reasons.values()) or set(reasons) - set(MMA_REASONS) or fwd["wgmma"] < 0:
+            raise AssertionError(f"{what}: {kernel}'s bf16 forward launches by body {fwd}, the mma "
+                                 f"body's by reason {reasons}")
+        out[kernel] = {"wgmma": fwd["wgmma"], "mma": reasons}
+    return out
+
+
+def merge_forward_bodies(runs: list) -> dict:
+    """The sum of several runs' :func:`forward_bodies`."""
+    out = {}
+    for fb in runs:
+        for kernel, v in fb.items():
+            o = out.setdefault(kernel, {"wgmma": 0, "mma": {}})
+            o["wgmma"] += v["wgmma"]
+            for r, n in v["mma"].items():
+                o["mma"][r] = o["mma"].get(r, 0) + n
+    return out
+
+
+def launch_body(mm, x, w, cs) -> str:
+    """The body a K1 (K1g: 3-D x and w) launch of x and w under ``cs``
+    takes: kernels/matmul.py launch_geometry's rule on these tensors."""
+    tile_m, tile_n, _, round_k = mm.schedule_key(cs)
+    return mm.launch_geometry(x.dtype, x.shape[-2], w.shape[-1], w.shape[-2], tile_m, tile_n,
+                              round_k=round_k, aligned=mm.bases16(x, w))[0]
+
+
+def instance_body(mm, inst, cs) -> str:
+    """The body a K1 launch of ``inst`` under ``cs`` takes, its tensors
+    16-byte aligned (the allocator's)."""
+    import torch
+
+    tile_m, tile_n, _, round_k = mm.schedule_key(cs)
+    return mm.launch_geometry(getattr(torch, inst.dtype), inst.p["M"], inst.p["N"], inst.p["K"],
+                              tile_m, tile_n, round_k=round_k)[0]
+
+
 def phase_serve(torch, arch: str) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
@@ -2992,28 +3380,30 @@ def phase_serve(torch, arch: str) -> dict:
         run = serve_stream(torch, engine, prompts, SERVE_NEW_TOKENS)
     launches = serve.kernel_launches()
     bodies = body_counts(mm)
+    fwd_bodies = forward_bodies(mm, f"serve {arch}")
     attn_classes = {f"{c}/{b}": n for (c, b), n in sorted(fa.class_launches.items())}
     prime_bodies = run["prime_bodies"]
     # an unbucketed prime prompt: every default M tile is 1, so its K1
     # launches all take the rows body, but for whisper's encoder and cross
-    # K/V projections at 1500 frames (M tile 125: the tensor cores), six per
-    # encoder layer and two per decoder layer
+    # K/V projections at 1500 frames (M tile 125: the tensor cores, wgmma),
+    # six per encoder layer and two per decoder layer
     enc_mma = 6 * cfg.encoder_layers + 2 * cfg.n_layers if cfg.encoder_layers else 0
-    if not engine.prefill_buckets and (prime_bodies.get("matmul/mma/bfloat16", 0) != enc_mma
+    if not engine.prefill_buckets and (prime_bodies.get("matmul/wgmma/bfloat16", 0) != enc_mma
                                        or not prime_bodies.get("matmul/rows/bfloat16", 0)):
         raise AssertionError(f"{arch}: the {PRIME_PROMPT}-token prefill's K1 bodies {prime_bodies}")
     # each attention class of the arch launched, all on the tensor-core body
     for c in SERVE_ATTENTION_CLASSES.get(arch, ()):
         if attn_classes.get(f"{c}/mma", 0) <= 0 or attn_classes.get(f"{c}/fma", 0):
             raise AssertionError(f"{arch}: launches per attention class and body {attn_classes}")
-    # every bf16 prefill GEMM above 16 rows ran on the tensor cores: none
-    # took the CUDA-core body, which is for f32 alone
-    if mm.body_count("mma") <= 0 or mm.body_count("fma", dtype=torch.bfloat16) != 0:
+    # every bf16 prefill GEMM above 16 rows ran on the tensor cores (wgmma
+    # but where the rule names a reason: forward_bodies): none took the
+    # CUDA-core body, which is for f32 alone
+    if mm.body_count("wgmma") <= 0 or mm.body_count("fma", dtype=torch.bfloat16) != 0:
         raise AssertionError(f"{arch}: launches per matmul body {bodies}")
     # a MoE arch's expert GEMMs: prefill on the tensor cores (T rows per
     # expert), decode on the rows body (4)
     if cfg.n_experts and min(mm.body_count(b, kernel="grouped_matmul", dtype=torch.bfloat16)
-                             for b in ("mma", "rows")) <= 0:
+                             for b in ("wgmma", "rows")) <= 0:
         raise AssertionError(f"{arch}: K1g's launches per body {bodies}")
     # every rows-body launch (decode, 1-row prefill tiles) took its layout
     # from rows_geometry: one call per launch
@@ -3113,6 +3503,7 @@ def phase_serve(torch, arch: str) -> dict:
            "encoder_s": encoder_s,
            "encoder_share": 8 * encoder_s / run["prefill_s"] if encoder_s else None,
            "launches": launches, "body_launches": bodies, "attention_body_launches": attn_bodies,
+           "forward_bodies": fwd_bodies,
            "attention_class_launches": attn_classes, "attention_tile_launches": attn_tiles,
            "decode_rows_geometry": dict(decode_geometry), "decode_profile": profile,
            "init_peak_gib": init_peak_gib, "serve_peak_gib": serve_peak_gib,
@@ -3329,6 +3720,7 @@ def phase_serve_tuned(torch, db, default_row: dict) -> dict:
         calls = rec.take()
         launches = serve.kernel_launches()
         bodies = body_counts(mm)
+        fwd_bodies = forward_bodies(mm, "serve_tuned")
         rounding = {f"{k}/{b}": c for (k, b), c in sorted(mm.round_launches.items())}
         stats1, svc1 = provider.stats(), service.stats()
         history = engine.plan_history[history0:]
@@ -3349,20 +3741,20 @@ def phase_serve_tuned(torch, db, default_row: dict) -> dict:
         # above 16, the rows body elsewhere), rows launches included; under
         # the default schedules never the tensor cores
         planned = collections.Counter(
-            (f"matmul/{mm.body_for(getattr(torch, inst.dtype), mm.schedule_key(cs)[0])}/{inst.dtype}",
-             tier == "default")
+            (f"matmul/{instance_body(mm, inst, cs)}/{inst.dtype}", tier == "default")
             for inst, tier, cs, _ in timed["prime_calls"] if inst.class_id in mm.EPILOGUE)
         want_bodies = collections.Counter()
         for (key, _), n in planned.items():
             want_bodies[key] += n
         got_bodies = collections.Counter({k: n for k, n in timed["prime_bodies"].items()
                                           if k.startswith("matmul/")})
-        want_mma = want_bodies["matmul/mma/bfloat16"]
-        default_mma = planned["matmul/mma/bfloat16", True]
+        want_mma = sum(want_bodies[f"matmul/{b}/bfloat16"] for b in mm.CTA_TILES)
+        default_mma = sum(planned[f"matmul/{b}/bfloat16", True] for b in mm.CTA_TILES)
         if got_bodies != want_bodies or default_mma or not sum(want_bodies.values()):
             raise AssertionError(f"prime prefill: K1 launches per body {dict(got_bodies)}, planned "
                                  f"{dict(want_bodies)} (default-tier mma {default_mma})")
-        if default_row["prime_prefill_body_launches"].get("matmul/mma/bfloat16", 0):
+        if any(default_row["prime_prefill_body_launches"].get(f"matmul/{b}/bfloat16", 0)
+               for b in mm.CTA_TILES):
             raise AssertionError("the default run's prime prefill took the tensor-core body")
 
         # every distinct non-default launch served, against its plain version
@@ -3424,6 +3816,7 @@ def phase_serve_tuned(torch, db, default_row: dict) -> dict:
             "default_decode_ms_per_step": default_row["decode_ms_per_step"],
             "decode_ratio": timed["decode_ms_per_step"] / default_row["decode_ms_per_step"],
             "launches": launches, "body_launches": bodies, "round_launches": rounding,
+            "forward_bodies": fwd_bodies,
             "prime_prefill_body_launches": timed["prime_bodies"],
             "default_prime_prefill_body_launches": default_row["prime_prefill_body_launches"],
             "prime_k1_mma_planned": want_mma,
@@ -3532,7 +3925,7 @@ def phase_chunk_kernels(torch, timer) -> dict:
     cs = ops.schedule_for(ops.instance("matmul", torch.bfloat16, M=m, N=n, K=kk))
     body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(torch.bfloat16, m, n, kk, cs.t["M"],
                                                            cs.t["N"])
-    if body != "mma":
+    if body != "wgmma":
         raise AssertionError(f"K1 at {m}x{kk}x{n} takes the {body} body")
     got = mm.launch(x, w, cs)
     err_mm = assert_close(torch, got, ref.matmul(x, w), BF16_TOL, f"matmul {m}x{kk}x{n}")
@@ -3603,8 +3996,7 @@ def traced_grouped_launches():
     plain, calls = mm.grouped_launch, []
 
     def traced(x, w, cs, **kw):
-        tile_m = mm.schedule_key(cs)[0]
-        calls.append((mm.body_for(x.dtype, tile_m), x.shape[1]))
+        calls.append((launch_body(mm, x, w, cs), x.shape[1]))
         return plain(x, w, cs, **kw)
 
     mm.grouped_launch = traced
@@ -3798,6 +4190,7 @@ def phase_paged(torch, srv: list) -> list:
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         launches = serve.kernel_launches()
         bodies = body_counts(mm)
+        fwd_bodies = forward_bodies(mm, f"paged {arch}")
         attn_bodies = {f"{b}/{ops.dtype_name(d)}": n for (b, d), n in fa.body_launches.items()}
         offset_launches, fa_row_tiles = fa.offset_launches, fa.row_tile_launches
         fa_grouped = {str(t): n for t, n in sorted(fa.grouped_tile_launches.items())}
@@ -3817,8 +4210,8 @@ def phase_paged(torch, srv: list) -> list:
         grouped_rows = {name: {f"{b}/{m}": n for (b, m), n in sorted(clock.grouped[name].items())}
                         for name in ("_chunk", "_decode")}
         if cfg.n_experts and (
-                not clock.grouped["_chunk"]["mma", PAGED["chunk"]]
-                or any(m > PAGED["chunk"] or (m > 16 and b != "mma")
+                not clock.grouped["_chunk"]["wgmma", PAGED["chunk"]]
+                or any(m > PAGED["chunk"] or (m > 16 and b != "wgmma")
                        for b, m in clock.grouped["_chunk"])
                 or not clock.grouped["_decode"]
                 or any(m > PAGED["decode_batch"] or b != "rows" for b, m in clock.grouped["_decode"])):
@@ -3881,7 +4274,7 @@ def phase_paged(torch, srv: list) -> list:
                "pool_bytes": pool_bytes, "slot_cache_bytes": slot_bytes,
                "serve_peak_gib": peak_gib,
                "launches": launches, "body_launches": bodies, "attention_body_launches": attn_bodies,
-               "attention_offset_launches": offset_launches,
+               "forward_bodies": fwd_bodies, "attention_offset_launches": offset_launches,
                "row_tile_launches": {"matmul": mm_row_tiles, "flash_attention": fa_row_tiles},
                "grouped_tile_launches": fa_grouped,
                "chunk_body_launches": dict(clock.bodies["_chunk"]),
@@ -3891,7 +4284,7 @@ def phase_paged(torch, srv: list) -> list:
                "logits_bounds": bounds}
 
         if arch == "minitron-4b":
-            if offset_launches <= 0 or mm.body_count("mma") <= 0 or mm.body_count("rows") <= 0:
+            if offset_launches <= 0 or mm.body_count("wgmma") <= 0 or mm.body_count("rows") <= 0:
                 raise AssertionError(f"{arch}: K2 at q_offset > 0 {offset_launches}, K1 bodies "
                                      f"{bodies}")
             fr_eng, fr_reqs, _, _, fr_steps = paged_run(torch, model, params, prompts,
@@ -3975,7 +4368,7 @@ def phase_spec(torch) -> dict:
     out = {"arch": cfg.name, "spec_k": SPEC_K, "keep_layers": SPEC_KEEP, "geometry": PAGED,
            "prompt_lens": [len(p) for p in prompts], "regimes": {}}
     totals = collections.Counter()
-    body_totals = collections.Counter()
+    body_totals, fwd_totals = collections.Counter(), []
     plain = {}
     for regime, damp in (("all_accept", 0.0), ("all_reject", 0.0), ("partial", SPEC_PARTIAL_DAMP)):
         dcfg, dparams, tparams = make_self_draft(cfg, params, keep_layers=SPEC_KEEP, damp=damp)
@@ -3993,6 +4386,7 @@ def phase_spec(torch) -> dict:
             draft_params=dparams, spec_k=SPEC_K)
         totals.update(serve.kernel_launches())
         body_totals.update(body_counts(mm))
+        fwd_totals.append(forward_bodies(mm, f"spec {regime}"))
         streams, plain_ms = plain[damp]
         equal = [r.generated for r in reqs] == streams
         verify_bodies = dict(clock.bodies["_verify"])
@@ -4018,6 +4412,7 @@ def phase_spec(torch) -> dict:
         del eng, clock, dparams, tparams
         free_engines(torch)
     out["launches"], out["body_launches"] = dict(totals), dict(body_totals)
+    out["forward_bodies"] = merge_forward_bodies(fwd_totals)
     out["phase_s"] = time.monotonic() - t_phase
     del model, params
     free_engines(torch)
@@ -4149,6 +4544,7 @@ def fleet_run(torch, name: str, model, params, db, bound: float, srv_alone, **kw
         runner_launches = after[2] - before[2]
         launches = {k: v - runner_launches[k] for k, v in serve.kernel_launches().items()}
         bodies = dict(collections.Counter(body_counts(mm)) - (after[3] - before[3]))
+        fwd_bodies = forward_bodies(mm, f"fleet {name}")
         trace_path = f"{root}/trace.json"
         write_chrome_trace(trace_path, tracer)
         with contextlib.redirect_stdout(io.StringIO()):
@@ -4223,6 +4619,7 @@ def fleet_run(torch, name: str, model, params, db, bound: float, srv_alone, **kw
            "schedule_mismatches": summary["schedule_mismatches"],
            "critical_path": {"segments": cp["segments"], "attributed_frac": cp["attributed_frac"]},
            "launches": launches, "body_launches": bodies, "divergences": divergences,
+           "forward_bodies": fwd_bodies,
            "build_s": build_s, "alone_s": alone_s, "run_s": time.monotonic() - t_run}
     if "speedup_ledger" in summary:
         row["speedup_ledger"] = {k: summary["speedup_ledger"][k]
@@ -4707,6 +5104,7 @@ def train_counts(mm, fa, rw, rg, ref) -> dict:
             "matmul_f32_grad_launches": mm.f32_grad_launches,
             "body_launches": body_counts(mm),
             "grad_body_launches": body_counts(mm, mm.grad_body_launches),
+            "forward_bodies": forward_bodies(mm, "a training run"),
             "attention_class_launches": {f"{c}/{b}": n for (c, b), n in sorted(fa.class_launches.items())},
             "attention_bwd_body_launches": {f"{b}/{str(d).removeprefix('torch.')}": n
                                             for (b, d), n in sorted(fa.bwd_body_launches.items(), key=str)},
@@ -6231,6 +6629,8 @@ def phase_tp(torch) -> dict:
                              "body_launches": dict(sum(
                                  (collections.Counter(r["counts"]["body_launches"]) for r in ranks),
                                  collections.Counter())),
+                             "forward_bodies": merge_forward_bodies(
+                                 [r["counts"]["forward_bodies"] for r in ranks]),
                              **{k: sum(r["counts"][k] for r in ranks) for k in (
                                  *TP_BWD_COUNTERS, "matmul_f32_launches",
                                  "matmul_f32_grad_launches")}})
@@ -6917,6 +7317,8 @@ def phase_serve_sharded(torch) -> dict:
             runs.append({"launches": launches,
                          "body_launches": dict(sum((collections.Counter(r["counts"]["body_launches"])
                                                     for r in run), collections.Counter())),
+                         "forward_bodies": merge_forward_bodies(
+                             [r["counts"]["forward_bodies"] for r in run]),
                          "attention_class_launches": dict(classes),
                          "matmul_f32_launches": f32})
             bad = [j for j, (a, b) in enumerate(zip(diffs, bounds)) if not a <= b]
@@ -7023,6 +7425,14 @@ def main(argv: list[str]) -> int:
         return 0
     if argv[:1] == ["--rows-ab"] and len(argv) == 2:
         return rows_ab(Path(argv[1]).resolve())
+    if argv[:1] == ["--mma-ab"] and len(argv) == 2:
+        return mma_ab(Path(argv[1]).resolve())
+    if argv[:1] == ["--time-mma"] and len(argv) == 2:   # one turn of --mma-ab
+        import_port(Path(argv[1]))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for row in time_mma(torch, Timer(torch)):
+            print(json.dumps(row), flush=True)
+        return 0
     if argv[:1] == ["--time-rows"] and len(argv) == 2:   # one turn of --rows-ab
         import_port(Path(argv[1]))
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -7157,6 +7567,17 @@ def main(argv: list[str]) -> int:
     def served(name, body=None):   # launches summed over the main-path runs
         return sum(by_path(name, body).values())
 
+    def forward_by_path(kernel):   # bf16 forward launches per tensor-core body (forward_bodies)
+        out = {}
+        for path, rs in paths.items():
+            fb = merge_forward_bodies([r["forward_bodies"] for r in rs]).get(kernel)
+            if fb and (fb["wgmma"] or fb["mma"]):
+                out[path] = fb
+        return out
+
+    def wgmma_by_path(kernel):
+        return {path: fb["wgmma"] for path, fb in forward_by_path(kernel).items()}
+
     def class_by_path(class_id):   # K2 launches of one class per path
         return {path: sum(n for r in rs for key, n in r.get("attention_class_launches", {}).items()
                           if key.split("/")[0] == class_id) for path, rs in paths.items()}
@@ -7227,14 +7648,21 @@ def main(argv: list[str]) -> int:
          "replaces": "src/repro/kernels/matmul.py:236", "launches": served("grouped_matmul"),
          "body": "rows", "max_abs_err": grr["max_abs_err"],
          **timed(rep_gr, ("class", "E", "M", "K", "N", "split_k", "ctas"))},
-        {"name": "matmul_prefill", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
-         "replaces": "src/repro/kernels/matmul.py:205", "body": "mma",
-         "launches": served("matmul", "mma"), "max_abs_err": mmr["max_abs_err"],
+        {"name": "matmul_prefill", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
+         "replaces": "src/repro/kernels/matmul.py:205", "body": pre_mm["body"],
+         "launches": sum(wgmma_by_path("matmul").values()),
+         "launches_by_path": wgmma_by_path("matmul"),
+         "forward_bodies_by_path": forward_by_path("matmul"), "max_abs_err": mmr["max_abs_err"],
+         "cta_tile_ms": pre_mm["cta_tile_ms"],
          **timed(pre_mm, ("class", "M", "K", "N", "cta_tile", "ctas"))},
         {"name": "grouped_matmul_prefill", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/matmul.cu",
-         "replaces": "src/repro/kernels/matmul.py:236", "body": "mma",
-         "launches": served("grouped_matmul", "mma"), "max_abs_err": grr["max_abs_err"],
+         "source": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
+         "replaces": "src/repro/kernels/matmul.py:236", "body": pre_gr["body"],
+         "launches": sum(wgmma_by_path("grouped_matmul").values()),
+         "launches_by_path": wgmma_by_path("grouped_matmul"),
+         "forward_bodies_by_path": forward_by_path("grouped_matmul"),
+         "max_abs_err": grr["max_abs_err"],
          **timed(pre_gr, ("class", "E", "M", "K", "N", "cta_tile", "ctas"))},
         {"name": "matmul_kstep_round", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -7249,10 +7677,11 @@ def main(argv: list[str]) -> int:
          "max_abs_err": chunk["attention"]["max_abs_err"],
          **{k: chunk["attention"][k] for k in ("device_ms", "library_device_ms")},
          **timed(chunk["attention"], ("B", "Hq", "Hkv", "C", "KV", "D", "q_offset", "ctas"))},
-        {"name": "matmul_chunk", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
-         "replaces": "src/repro/kernels/matmul.py:205", "body": "mma",
+        {"name": "matmul_chunk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
+         "replaces": "src/repro/kernels/matmul.py:205", "body": chunk["matmul"]["body"],
          "launches": sum(c for r in paged for key, c in r["chunk_body_launches"].items()
-                         if key.startswith("matmul/mma/")),
+                         if key.startswith("matmul/wgmma/")),
          "max_abs_err": chunk["matmul"]["max_abs_err"],
          **{k: chunk["matmul"][k] for k in ("device_ms", "library_device_ms")},
          **timed(chunk["matmul"], ("class", "M", "K", "N", "cta_tile", "ctas"))},
@@ -7279,9 +7708,10 @@ def main(argv: list[str]) -> int:
     ]
     # K1 writing Z beside Y (the dots remat policy's), at gemma2's GeGLU up
     # projection: its launches are the train phase's dots run's
-    rep_z = next(r for r in mmr["z"] if r["name"] == "mma")
+    rep_z = next(r for r in mmr["z"] if r["name"] == "wgmma")
     kernels.append(
-        {"name": "matmul_with_z", "route": "cuda", "source": "src/repro_torch/kernels/csrc/matmul.cu",
+        {"name": "matmul_with_z", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul_wgmma.cu",
          "replaces": "src/repro/kernels/matmul.py:205", "body": rep_z["body"],
          "launches": train["dots"]["matmul_z_launches"],
          "launches_by_path": {"train": train["dots"]["matmul_z_launches"]},
@@ -7391,9 +7821,8 @@ def main(argv: list[str]) -> int:
         if row["name"] in ("matmul", "flash_attention", "rwkv6_scan", "rglru_scan",
                            "grouped_matmul"):
             row["launches_by_path"] = by_path(row["name"])
-        elif row["name"] in ("matmul_decode", "matmul_prefill", "grouped_matmul_prefill"):
-            row["launches_by_path"] = by_path(row["name"].removesuffix("_decode")
-                                              .removesuffix("_prefill"), row["body"])
+        elif row["name"] == "matmul_decode":
+            row["launches_by_path"] = by_path("matmul", row["body"])
     for row in kernels:   # the backward kernels' launches on the TP path
         counter = next((c for c, name in TP_BWD_COUNTERS.items() if name == row["name"]), None)
         if counter:

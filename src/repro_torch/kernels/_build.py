@@ -40,9 +40,9 @@ _L = ctypes.c_longlong
 #: ints, stream)
 SIGNATURES = {
     "repro_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _P, _I, _P],
+                     _I, _I, _I, _P, _I, _I, _P],
     "repro_grouped_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _P, _I, _P],
+                             _I, _I, _P, _I, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _I, _F, _I, _I, _I, _P],
     "repro_flash_attention_bwd": [*[_P] * 11, *[_I] * 9, _F, _F, _I, _P],

@@ -12,9 +12,10 @@
 // elements), and the tiles of one expert are masked at that expert's own M
 // and N edges, so a ragged tile never reads or writes the next expert's rows.
 //
-// Three bodies, chosen by the dtype and the schedule's M tile (the wrapper,
-// kernels/matmul.py body_for, makes the same choice and counts launches per
-// body):
+// Four bodies, a rule by the dtype, the schedule's M tile, rounding mode and
+// alignment (the wrapper, kernels/matmul.py body_for, makes the choice and
+// passes it; run() re-checks it and refuses a mismatch; the wrapper counts
+// launches per body):
 //
 //  * rows (tile_m <= 16, either dtype: decode, verify, the 1-row prefill LM
 //    head and the 1-row tiles of a prime prompt length): w's bytes bound it.
@@ -32,7 +33,14 @@
 //    pass, so each vector of w it loads serves every row: up to 4 rows with
 //    x in registers, read through L1 (decode); up to 16 with x staged a
 //    round at a time in shared memory (verify, a group of narrow M tiles).
-//  * mma (bf16, tile_m > 16: every prefill projection and expert GEMM): the
+//  * wgmma (bf16, tile_m > 16, no rounding mode, x and w readable by TMA:
+//    bases, rows and experts on 16 bytes, and along w's N every CTA's first
+//    column: every prefill projection and expert GEMM and every forward
+//    product of training at an aligned N).  Hopper's warpgroup products
+//    from a TMA-filled mbarrier ring; csrc/matmul_wgmma.cu describes it.
+//  * mma (the other bf16 launches with tile_m > 16: rounding mode, rows of
+//    w off 16 bytes (the LM heads of whisper-medium and internvl2-26b, N of
+//    51865 and 92553), rows of x off 16 bytes): the
 //    tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, operands read from
 //    shared memory with ldmatrix (.trans for w, which is (K, N) row-major).
 //    A ring of 4 shared stages, each 32 deep in K, is filled by 16-byte
@@ -65,9 +73,9 @@
 // forms) and walks it in sub-blocks.  The rows body covers a group with
 // 64-column strips, each split into split_k K slices (numbered
 // strip-major, slices together).  The
-// mma body runs a compiled CTA tile (128x128, 64x128 or 64x64) and covers
-// each group with sub_m x sub_n CTAs, numbered consecutively along N, so they
-// run together and share the group's x rows and w columns in L2; a group
+// tensor-core bodies run a compiled CTA tile (128x128, 64x128 or 64x64)
+// and cover each group
+// with sub_m x sub_n CTAs, numbered consecutively along N, so they run together and share the group's x rows and w columns in L2; a group
 // smaller than the CTA tile gets one CTA, masked at its edge.  The wrapper
 // chooses the CTA tile (kernels/matmul.py tiled_geometry: the largest that
 // fits the logical tile, or the group it would cover, and still launches at
@@ -77,7 +85,8 @@
 //
 // Every body masks the ragged edges of M, N and K itself (the mma body
 // zero-fills its stages: cp.async's src-size form, or guarded scalar loads
-// where a row of x does not start on 16 bytes).  Rows of w that do not start
+// where a row of x does not start on 16 bytes; the wgmma body's TMA boxes
+// fill zeros out of bounds).  Rows of w that do not start
 // on 16 bytes (an odd N, say) are read as the aligned 16-byte vectors that
 // span a CTA's columns, never element by element: the rows body shifts each
 // thread's 16 bytes into place in registers (shift16); the mma body copies
@@ -753,7 +762,21 @@ __global__ void __launch_bounds__(256) matmul_fma_kernel(MatmulArgs a) {
   }
 }
 
-enum Body : int { kRows = 0, kMma = 1, kFma = 2 };
+enum Body : int { kRows = 0, kMma = 1, kFma = 2, kWgmma = 3 };
+
+// The body a launch takes (kernels/matmul.py body_for and tma_layout): rows
+// for an M tile of at most 16 rows, fma for f32; for bf16, wgmma where TMA
+// can read x and w (bases on 16 bytes, rows of K and N values that keep
+// every row, and every expert's slice, on 16 bytes, and along w's N every
+// CTA's first column: a logical N tile, or all of N, of whole 8s) and no
+// K tile rounds, else mma.  It reads w, K, N and the schedule, never M.
+Body body_rule(const MatmulArgs& a, int dtype) {
+  if (a.tile_m <= 16) return kRows;
+  if (dtype == kFloat32) return kFma;
+  const bool tma = aligned16(a.x) && aligned16(a.w) && a.k % 8 == 0 && a.n % 8 == 0 &&
+                   std::min(a.tile_n, a.n) % 8 == 0;
+  return tma && a.round_k == 0 ? kWgmma : kMma;
+}
 
 // The aligned mma body (w copied in aligned 16-byte chunks, cp.async's
 // src-size form zero-filling the ragged edges), or kShiftW
@@ -772,10 +795,11 @@ int launch_mma(const MatmulArgs& a, cudaStream_t stream) {
                : launch_mma_as<MmaTile64x64, false, false>(a, stream);
 }
 
-// Checks the shared arguments and the CTA geometry the wrapper chose
-// (kernels/matmul.py launch_geometry), then launches; returns a cudaError_t
-// (cudaErrorInvalidValue for bad arguments).
-int run(MatmulArgs& a, int dtype, void* stream) {
+// Checks the shared arguments, the body and the CTA geometry the wrapper
+// chose (kernels/matmul.py launch_geometry), then launches; returns a
+// cudaError_t (cudaErrorInvalidValue for bad arguments or a body other than
+// body_rule's).
+int run(MatmulArgs& a, int dtype, int body_code, void* stream) {
   if (a.m <= 0 || a.n <= 0 || a.k <= 0 || a.tile_m <= 0 || a.tile_n <= 0) return (int)cudaErrorInvalidValue;
   if (a.groups <= 0 || a.groups > 65535) return (int)cudaErrorInvalidValue;
   if (a.epi < kNone || a.epi > kSoftcap) return (int)cudaErrorInvalidValue;
@@ -789,12 +813,17 @@ int run(MatmulArgs& a, int dtype, void* stream) {
   if (a.epi == kResidual && a.residual == nullptr) return (int)cudaErrorInvalidValue;
   if (a.out_f32 != 0 && a.out_f32 != 1) return (int)cudaErrorInvalidValue;
   a.n_out = glu ? a.n / 2 : a.n;
-  const Body body = a.tile_m <= 16 ? kRows : dtype == kBFloat16 ? kMma : kFma;
+  const Body body = body_rule(a, dtype);
+  if (body_code != body) return (int)cudaErrorInvalidValue;
   // the rows body's CTA covers a group of narrow M tiles; the others' groups are one tile
   a.span_m = body == kRows ? m_group(a.m, a.tile_m, kRowsCtaM) * a.tile_m : a.tile_m;
   a.spans_m = cdiv(a.m, a.span_m);
   if (a.split_k < 1 || (body != kRows && a.split_k != 1)) return (int)cudaErrorInvalidValue;
   if (body == kMma) {
+    const bool compiled = (a.cta_m == 128 && a.cta_n == 128) || (a.cta_m == 64 && a.cta_n == 128) ||
+                          (a.cta_m == 64 && a.cta_n == 64);
+    if (!compiled) return (int)cudaErrorInvalidValue;
+  } else if (body == kWgmma) {   // kernels/matmul.py WGMMA_CTA_TILES
     const bool compiled = (a.cta_m == 128 && a.cta_n == 128) || (a.cta_m == 64 && a.cta_n == 128) ||
                           (a.cta_m == 64 && a.cta_n == 64);
     if (!compiled) return (int)cudaErrorInvalidValue;
@@ -828,6 +857,8 @@ int run(MatmulArgs& a, int dtype, void* stream) {
       break;
     case kMma:
       return launch_mma(a, s);
+    case kWgmma:
+      return launch_wgmma(a, s);
   }
   return (int)cudaGetLastError();
 }
@@ -839,12 +870,13 @@ int run(MatmulArgs& a, int dtype, void* stream) {
 // (M, N) in x's dtype, written beside out where not null.  round_k:
 // the rounding mode's K tile, 0 for f32 sums throughout.  ws: the rows body's
 // f32 workspace (split_k, M, N) when split_k > 1, else unused.  out_f32: out
-// is f32, the epilogue unrounded.  Returns a cudaError_t: the launch's, or
+// is f32, the epilogue unrounded.  body: 0 rows, 1 mma, 2 fma, 3 wgmma, as
+// body_rule chooses.  Returns a cudaError_t: the launch's, or
 // cudaErrorInvalidValue for bad arguments.
 extern "C" int repro_matmul(const void* x, const void* w, const void* bias, const void* residual,
                             void* out, void* z, int m, int n, int k, int dtype, int epi, float softcap,
                             int tile_m, int tile_n, int m_outer, int cta_m, int cta_n, int ctas,
-                            int split_k, int round_k, void* ws, int out_f32, void* stream) {
+                            int split_k, int round_k, void* ws, int out_f32, int body, void* stream) {
   repro::MatmulArgs a{};
   a.x = x; a.w = w; a.bias = static_cast<const float*>(bias);
   a.residual = static_cast<const float*>(residual); a.out = out; a.z = z;
@@ -854,19 +886,19 @@ extern "C" int repro_matmul(const void* x, const void* w, const void* bias, cons
   a.cta_m = cta_m; a.cta_n = cta_n; a.ctas = ctas;
   a.split_k = split_k; a.round_k = round_k; a.ws = static_cast<float*>(ws);
   a.out_f32 = out_f32;
-  return repro::run(a, dtype, stream);
+  return repro::run(a, dtype, body, stream);
 }
 
 // Grouped (MoE expert) matmul: out[e] = epilogue(x[e] (M,K) @ w[e] (K,N)) for
 // e < groups, contiguous (E,M,K), (E,K,N) and (E,M,N_out).  m, tile_m and
 // tile_n are per expert.  No bias or residual (the grouped classes have none).
 // round_k: as repro_matmul's, per expert.  ws: (E, split_k, M, N) f32 when
-// the rows body splits K.  out_f32: as repro_matmul's.
+// the rows body splits K.  out_f32, body: as repro_matmul's.
 extern "C" int repro_grouped_matmul(const void* x, const void* w, void* out, int groups,
                                     int m, int n, int k, int dtype, int epi,
                                     int tile_m, int tile_n, int m_outer, int cta_m, int cta_n,
                                     int ctas, int split_k, int round_k, void* ws, int out_f32,
-                                    void* stream) {
+                                    int body, void* stream) {
   repro::MatmulArgs a{};
   a.x = x; a.w = w; a.out = out;
   a.m = m; a.n = n; a.k = k;
@@ -875,5 +907,5 @@ extern "C" int repro_grouped_matmul(const void* x, const void* w, void* out, int
   a.cta_m = cta_m; a.cta_n = cta_n; a.ctas = ctas;
   a.split_k = split_k; a.round_k = round_k; a.ws = static_cast<float*>(ws);
   a.out_f32 = out_f32;
-  return repro::run(a, dtype, stream);
+  return repro::run(a, dtype, body, stream);
 }

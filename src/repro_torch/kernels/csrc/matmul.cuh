@@ -1,8 +1,10 @@
 // The matmul kernels' shared definitions (K1, K1g; csrc/matmul.cu describes
 // them): the launch arguments, the epilogues, the placement of a CTA's
-// group of logical tiles, and the mma body, whose instantiations two
-// sources compile side by side (csrc/matmul.cu the aligned ones,
-// csrc/matmul_shift.cu those reading w as shifted aligned vectors).
+// group of logical tiles, the tensor-core bodies' epilogue of an
+// accumulator pair (csrc/matmul_wgmma.cu's wgmma body uses it too), and the
+// mma body, whose instantiations two sources compile side by side
+// (csrc/matmul.cu the aligned ones, csrc/matmul_shift.cu those reading w as
+// shifted aligned vectors).
 #pragma once
 
 #include <algorithm>
@@ -98,6 +100,57 @@ __device__ __forceinline__ float epilogue_glu(const MatmulArgs& a, float g, floa
 }
 
 __host__ __device__ __forceinline__ bool is_glu(int epi) { return epi == kSiluGlu || epi == kGeluGlu; }
+
+// This CTA's output rectangle [cm0, cm1) x [cn0, cn1) in a tensor-core body
+// of bm x bn CTAs: its group in the schedule's order, then its sub-tile
+// inside the group (along N first), clipped to the group, M and N.  False:
+// a ragged group needs fewer sub-tiles.
+__device__ __forceinline__ bool cta_rect(const MatmulArgs& a, int bm, int bn, int* cm0, int* cn0,
+                                         int* cm1, int* cn1) {
+  const int per_tile = a.sub_m * a.sub_n, sub = blockIdx.x % per_tile;
+  int m0, n0;
+  tile_origin(a, blockIdx.x / per_tile, &m0, &n0);
+  const int m1 = min(m0 + a.span_m, a.m), n1 = min(n0 + a.span_n, a.n);
+  *cm0 = m0 + (sub / a.sub_n) * bm;
+  *cn0 = n0 + (sub % a.sub_n) * bn;
+  *cm1 = min(*cm0 + bm, m1);
+  *cn1 = min(*cn0 + bn, n1);
+  return *cm0 < m1 && *cn0 < n1;
+}
+
+// The epilogue of one accumulator pair of a tensor-core body: the f32 sums
+// y0 and y1 at (row, col) and (row, col + 1), col even, the second past the
+// CTA's last column cn1 where that is odd.  Y in f32 or rounded to bf16 (a
+// GLU's one value at col / 2: gate at col, up at col + 1), and Z beside it.
+// In mma.sync's m16n8 blocks and in wgmma's 64 x N fragments alike a thread
+// holds columns 2t and 2t + 1 of each 8-column block, so a GLU pair never
+// leaves its thread (a GLU's N tile is even, so is every CTA's first column).
+__device__ __forceinline__ void store_pair_epilogue(const MatmulArgs& a,
+                                                    const ExpertPtrs<__nv_bfloat16>& p, int row,
+                                                    int col, int cn1, bool glu, float y0, float y1) {
+  using bf16 = __nv_bfloat16;
+  bf16* o = p.out + (size_t)row * a.n_out;
+  if (p.out32) {   // f32: two scalar stores (an odd N_out leaves a row's pair unaligned)
+    float* o32 = p.out32 + (size_t)row * a.n_out;
+    if (glu) {
+      o32[col / 2] = epilogue_glu(a, y0, y1, col);
+    } else {
+      o32[col] = epilogue1(a, y0, row, col);
+      if (col + 1 < cn1) o32[col + 1] = epilogue1(a, y1, row, col + 1);
+    }
+  } else if (glu) {  // col is even and cn1 is even, so col + 1 < cn1
+    o[col / 2] = from_f<bf16>(epilogue_glu(a, y0, y1, col));
+  } else if (col + 1 < cn1) {
+    store2(o + col, epilogue1(a, y0, row, col), epilogue1(a, y1, row, col + 1));
+  } else {
+    o[col] = from_f<bf16>(epilogue1(a, y0, row, col));
+  }
+  if (p.z) {   // Z's row stride is N, the output's N / 2 under a GLU
+    bf16* zr = p.z + (size_t)row * a.n;
+    if (col + 1 < cn1) store2(zr + col, with_bias(a, y0, col), with_bias(a, y1, col + 1));
+    else zr[col] = from_f<bf16>(with_bias(a, y0, col));
+  }
+}
 
 // ---------------------------------------------------------------------------
 // mma body: bf16 on the tensor cores, mma.sync m16n8k16 from a cp.async ring
@@ -198,14 +251,8 @@ __global__ void __launch_bounds__(Tile::kThreads) matmul_mma_kernel(MatmulArgs a
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
 
   const ExpertPtrs<bf16> p(a);
-  // this CTA's place: group, then the sub-tile inside it (along N first)
-  const int per_tile = a.sub_m * a.sub_n, sub = blockIdx.x % per_tile;
-  int m0, n0;
-  tile_origin(a, blockIdx.x / per_tile, &m0, &n0);
-  const int m1 = min(m0 + a.span_m, a.m), n1 = min(n0 + a.span_n, a.n);
-  const int cm0 = m0 + (sub / a.sub_n) * BM, cn0 = n0 + (sub % a.sub_n) * BN;
-  if (cm0 >= m1 || cn0 >= n1) return;   // a ragged group needs fewer sub-tiles
-  const int cm1 = min(cm0 + BM, m1), cn1 = min(cn0 + BN, n1);
+  int cm0, cn0, cm1, cn1;
+  if (!cta_rect(a, BM, BN, &cm0, &cn0, &cm1, &cn1)) return;
   // 16-byte chunks of x stay aligned only if every row starts on 16 bytes;
   // those of w do unless kShiftW (launch_mma)
   const bool vec_x = a.k % 8 == 0 && (reinterpret_cast<uintptr_t>(p.x) % 16) == 0;
@@ -294,8 +341,7 @@ __global__ void __launch_bounds__(Tile::kThreads) matmul_mma_kernel(MatmulArgs a
   cp_async_wait<0>();  // only empty groups remain; leave none in flight
 
   // accumulator fragment: lane (g, t) = (lane / 4, lane % 4) holds rows g and
-  // g + 8, columns 2t and 2t + 1 of each m16n8 block: a GLU pair (even
-  // column, odd column) never leaves its thread
+  // g + 8, columns 2t and 2t + 1 of each m16n8 block (store_pair_epilogue)
   const bool glu = is_glu(a.epi);
   const int g = lane / 4, tq = lane % 4;
 #pragma unroll
@@ -308,28 +354,7 @@ __global__ void __launch_bounds__(Tile::kThreads) matmul_mma_kernel(MatmulArgs a
       for (int h = 0; h < 2; ++h) {
         const int row = cm0 + wm0 + i * 16 + g + 8 * h;
         if (row >= cm1) continue;
-        const float y0 = acc[i][j][2 * h], y1 = acc[i][j][2 * h + 1];
-        bf16* o = p.out + (size_t)row * a.n_out;
-        if (p.out32) {   // f32: two scalar stores (an odd N_out leaves a row's pair unaligned)
-          float* o32 = p.out32 + (size_t)row * a.n_out;
-          if (glu) {
-            o32[col / 2] = epilogue_glu(a, y0, y1, col);
-          } else {
-            o32[col] = epilogue1(a, y0, row, col);
-            if (col + 1 < cn1) o32[col + 1] = epilogue1(a, y1, row, col + 1);
-          }
-        } else if (glu) {  // col is even and cn1 is even, so col + 1 < cn1
-          o[col / 2] = from_f<bf16>(epilogue_glu(a, y0, y1, col));
-        } else if (col + 1 < cn1) {
-          store2(o + col, epilogue1(a, y0, row, col), epilogue1(a, y1, row, col + 1));
-        } else {
-          o[col] = from_f<bf16>(epilogue1(a, y0, row, col));
-        }
-        if (p.z) {   // Z's row stride is N, the output's N / 2 under a GLU
-          bf16* zr = p.z + (size_t)row * a.n;
-          if (col + 1 < cn1) store2(zr + col, with_bias(a, y0, col), with_bias(a, y1, col + 1));
-          else zr[col] = from_f<bf16>(with_bias(a, y0, col));
-        }
+        store_pair_epilogue(a, p, row, col, cn1, glu, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
       }
     }
   }
@@ -348,5 +373,11 @@ int launch_mma_as(const MatmulArgs& a, cudaStream_t stream) {
 // The mma body on w read as shifted aligned vectors (kShiftW), for every
 // compiled CTA tile, plain and in rounding mode (csrc/matmul_shift.cu).
 int launch_mma_shifted(const MatmulArgs& a, cudaStream_t stream);
+
+// The wgmma body (csrc/matmul_wgmma.cu) on the CTA tile a.cta_m x a.cta_n,
+// one of kernels/matmul.py WGMMA_CTA_TILES.  cudaErrorNotSupported where the
+// driver refuses a tensor map: the launch fails, it never falls through to
+// another body.
+int launch_wgmma(const MatmulArgs& a, cudaStream_t stream);
 
 }  // namespace repro

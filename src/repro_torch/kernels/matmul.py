@@ -1,7 +1,8 @@
 """Schedule-driven matmul with fused epilogues: the CUDA kernel's wrappers.
 
 Replaces the Pallas kernel ``src/repro/kernels/matmul.py`` (``build_call`` →
-``_kernel``) on both of its paths.  The CUDA source is ``csrc/matmul.cu``.
+``_kernel``) on both of its paths.  The CUDA sources are ``csrc/matmul.cu``
+(with ``csrc/matmul_shift.cu``) and ``csrc/matmul_wgmma.cu``.
 
 * :func:`matmul` (kernel K1, the reference's ``matmul()``):
   ``out = epilogue(x (M,K) @ w (K,N))`` for every non-grouped class of the
@@ -50,22 +51,34 @@ kernel:
     tile, walking it in 64x64 blocks on the CUDA cores (its CTA is the
     logical tile, so no group forms; no f32 launch on any path has an N
     tile narrower than its N).
-  - **mma** (bf16 with an M tile above 16: every prefill projection and
-    expert GEMM): the tensor cores.  Each CTA runs a compiled tile from
-    :data:`MMA_CTA_TILES`; a logical tile (or group) larger than it is
-    covered by several CTAs, numbered consecutively (along N first) so they
-    run together and share the tile's rows of ``x`` and columns of ``w`` in
-    L2, and a smaller one by one CTA masked at the tile's edge.
-    :func:`tiled_geometry` chooses the CTA tile: the largest that fits the
-    logical tile, or the group it would cover, and still launches
-    :data:`SMS` CTAs (one per SM), where M and N allow.  A tuned 64x64
-    schedule still gets 64x64 CTAs, and the default 128x512 tile no longer
-    caps a 256x3072 GEMM at 12 CTAs.
+  - **wgmma** (bf16 with an M tile above 16, no rounding mode, ``x`` and
+    ``w`` readable by TMA (:func:`tma_layout`: bases, rows and experts on 16
+    bytes, and along ``w``'s N every CTA's first column): every prefill
+    projection and expert GEMM, and every forward product of training, at
+    an aligned N): Hopper's warpgroup products from a TMA-filled mbarrier
+    ring (``csrc/matmul_wgmma.cu``), on the CTA tiles of
+    :data:`WGMMA_CTA_TILES`.
+  - **mma** (the other bf16 launches with an M tile above 16: rounding
+    mode, rows of ``w`` off 16 bytes (whisper-medium's and internvl2-26b's
+    LM heads), rows of ``x`` off 16 bytes): ``mma.sync`` on the tensor
+    cores, on the CTA tiles of :data:`MMA_CTA_TILES`.
+
+    In both tensor-core bodies a logical tile (or group) larger than the
+    CTA tile is covered by several CTAs, numbered consecutively (along N
+    first) so they run together and share the tile's rows of ``x`` and
+    columns of ``w`` in L2, and a smaller one by one CTA masked at the
+    tile's edge.  :func:`tiled_geometry` chooses the CTA tile: the largest
+    that fits the logical tile, or the group it would cover, and still
+    launches :data:`SMS` CTAs (one per SM), where M and N allow.  The body
+    is a rule (:func:`body_for`), not a fallback: it reads the weight, K, N
+    and the schedule, never M, so a paged engine's 64-row chunk and the
+    slot engine's one-shot prefill reach the same body for one weight.
 
   Rows of ``w`` that do not start on 16 bytes (an odd N) are read as the
   aligned 16-byte vectors that span a CTA's columns and shifted into place
   (in registers in the rows body; in shared memory, behind the mma body's
-  ``cp.async`` ring), never element by element.
+  ``cp.async`` ring), never element by element; the wgmma body takes none
+  of them.
 
   f32 stays off the tensor cores: TF32 keeps about three decimal digits and
   the f32 tolerance is 2e-4.  That is the dtype rule, not a fallback.
@@ -97,8 +110,10 @@ up to a few hundred rows (the H100 does ~295 bf16 tensor-core operations per
 byte of HBM, so a (K,N) weight read once is the larger cost while M is below
 ~300); the operations above that.  The rows body streams ``w`` once per
 CTA of up to 16 rows, 16 bytes a thread with eight loads in flight, on
-enough CTAs to fill the card; the mma body stages ``x`` and ``w`` through a
-4-deep ``cp.async`` ring into ``mma.sync`` tensor-core products.
+enough CTAs to fill the card; the wgmma body keeps a producer warp's TMA
+loads of ``x`` and ``w`` in flight in a ring of 64-deep stages under
+consumer warpgroups' ``wgmma`` products; the mma body stages them through a
+4-deep ``cp.async`` ring into ``mma.sync`` products.
 
 A tensor on the CPU takes the plain version (:func:`repro_torch.kernels.ref.matmul`,
 :func:`~repro_torch.kernels.ref.grouped_matmul`); a CUDA tensor launches the
@@ -183,6 +198,15 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: the mma body's compiled CTA tiles (M, N), largest first (csrc/matmul.cu)
 MMA_CTA_TILES = ((128, 128), (64, 128), (64, 64))
+#: the wgmma body's compiled CTA tiles (M, N), largest first
+#: (csrc/matmul_wgmma.cu): the mma body's, 128 rows on two consumer
+#: warpgroups, 64 on one, two CTAs an SM (a 128x256 tile, one CTA an SM,
+#: was slower on the card at every main-path shape and is not compiled)
+WGMMA_CTA_TILES = MMA_CTA_TILES
+#: each tensor-core body's compiled CTA tiles
+CTA_TILES = {"wgmma": WGMMA_CTA_TILES, "mma": MMA_CTA_TILES}
+#: the forward's bodies and their codes in csrc/matmul.cu
+BODIES = {"rows": 0, "mma": 1, "fma": 2, "wgmma": 3}
 #: streaming multiprocessors of the H100: the CTA count that fills the card once
 SMS = 132
 #: the rows body's CTA strip: columns of one CTA (csrc/matmul.cu kRowsCtaN)
@@ -202,7 +226,7 @@ ROWS_SLICE_ALIGN = 32
 #: ``launches`` of :func:`launch` (K1), ``grouped_launches`` of
 #: :func:`grouped_launch` (K1g), ``body_launches`` of both by
 #: (kernel, body, dtype): kernel ``"matmul"`` or ``"grouped_matmul"``, body
-#: ``"rows"``, ``"mma"`` or ``"fma"`` (:func:`body_for`),
+#: ``"rows"``, ``"wgmma"``, ``"mma"`` or ``"fma"`` (:func:`body_for`),
 #: ``round_launches`` of both in rounding mode by (kernel, body),
 #: ``row_tile_launches`` of K1 with 1-row M tiles over M > 1 rows (a prime
 #: M's default); of K1 and K1g rows launches by M tile,
@@ -227,6 +251,12 @@ grouped_grad_launches = 0
 #: both, by (kernel, body, dtype): body ``"wgmma"``, ``"mma"`` (operand
 #: modes) or ``"fma"`` (:func:`grad_geometry`)
 grad_body_launches: collections.Counter = collections.Counter()
+#: K1 and K1g forward launches on the mma body by (kernel, reason): the rule
+#: (:func:`body_for`) sends a bf16 launch with an M tile above 16 there only
+#: for ``"round"`` (rounding mode), ``"w_off16"`` (w's rows, or a CTA's first
+#: column, off 16 bytes: the shifted read) or ``"x_off16"`` (x's rows or
+#: base off 16 bytes); every other such launch runs ``wgmma``
+mma_launches: collections.Counter = collections.Counter()
 #: K1 and K1g forward launches of bf16 operands that wrote Y in f32
 #: (``out_f32``), and gradient launches of bf16 operands that wrote f32
 #: (also counted in the counts above)
@@ -242,6 +272,7 @@ def reset_launches() -> None:
     z_launches = f32_launches = f32_grad_launches = 0
     body_launches.clear()
     round_launches.clear()
+    mma_launches.clear()
     grad_body_launches.clear()
     grouped_tile_launches.clear()
     narrow_tile_launches.clear()
@@ -255,13 +286,27 @@ def body_count(body: str | None = None, *, kernel: str | None = None,
                if body in (None, b) and kernel in (None, k) and dtype in (None, d))
 
 
-def body_for(dtype: torch.dtype, tile_m: int) -> str:
-    """The kernel body a launch takes: ``rows`` for an M tile of at most 16
-    rows, else ``mma`` (tensor cores) for bf16 and ``fma`` (CUDA cores) for
-    f32."""
+def tma_layout(n: int, k: int, tile_n: int) -> bool:
+    """Whether TMA can read x (M,K) and w (K,N) of a launch whose bases lie
+    on 16 bytes: rows of K and N values (and so every expert's slice) start
+    on 16 bytes, and along w's N so does every CTA's first column (a logical
+    N tile, or all of N, of whole 8s: the groups of narrow tiles and the
+    CTAs inside a tile start on multiples of it).  The kernel checks the
+    same (csrc/matmul.cu body_rule)."""
+    return k % 8 == 0 and n % 8 == 0 and min(tile_n, n) % 8 == 0
+
+
+def body_for(dtype: torch.dtype, tile_m: int, tma: bool, round_k: int = 0) -> str:
+    """The kernel body a launch takes, a rule: ``rows`` for an M tile of at
+    most 16 rows, ``fma`` (CUDA cores) for f32; for bf16, ``wgmma`` where
+    ``tma`` (:func:`tma_layout`, bases on 16 bytes) and no K tile rounds
+    (``round_k``), else ``mma`` (``mma.sync``: rounding mode, rows of w or
+    x off 16 bytes)."""
     if tile_m <= 16:
         return "rows"
-    return "mma" if dtype == torch.bfloat16 else "fma"
+    if dtype != torch.bfloat16:
+        return "fma"
+    return "wgmma" if tma and not round_k else "mma"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -333,17 +378,17 @@ def rows_span(m: int, tile_m: int) -> int:
 
 def tiled_geometry(m: int, n: int, tile_m: int, tile_n: int, groups: int = 1,
                    tiles: tuple[tuple[int, int], ...] = MMA_CTA_TILES) -> tuple[int, int, int]:
-    """(cta_m, cta_n, ctas) of the mma body for an (m, n) output under
+    """(cta_m, cta_n, ctas) of a tensor-core body for an (m, n) output under
     (tile_m, tile_n) logical tiles; grouped, per expert, with ``groups``
     experts side by side on the card.
 
     CTAs as :func:`cta_count` places them; a ragged edge tile may leave some
     of them empty (they return at once).  The CTA tile is the largest of
-    :data:`MMA_CTA_TILES` that fits the logical tile (rounded up to 64; along
-    N, the group of :func:`n_group` tiles it would cover) and launches at
-    least :data:`SMS` CTAs over all experts; where none does, the one that
+    ``tiles`` that fits the logical tile (rounded up to 64; along N, the
+    group of :func:`n_group` tiles it would cover) and launches at least
+    :data:`SMS` CTAs over all experts; where none does, the one that
     launches the most.  ``tiles``: the compiled CTA tiles to choose from,
-    largest first."""
+    largest first (the body's, :data:`CTA_TILES`)."""
     tm = min(tile_m, m)
 
     def ctas(cta: tuple[int, int]) -> int:
@@ -401,19 +446,23 @@ def rows_geometry(m: int, n: int, k: int, tile_m: int, tile_n: int,
 
 
 def launch_geometry(dtype: torch.dtype, m: int, n: int, k: int, tile_m: int, tile_n: int,
-                    groups: int = 1, round_k: int = 0) -> tuple[str, int, int, int, int]:
+                    groups: int = 1, round_k: int = 0, *,
+                    aligned: bool = True) -> tuple[str, int, int, int, int]:
     """(body, cta_m, cta_n, split_k, ctas) of a launch, CTAs per expert: the
-    rows body's strips and K slices from :func:`rows_geometry` (its
-    ``cta_m`` the rows of a group of M tiles, :func:`rows_span`), the mma
-    body's CTA tiles from :func:`tiled_geometry`, one CTA per logical tile
-    in the fma body (:func:`cta_count` with the logical tile as the CTA's).
-    The kernel re-checks it and refuses a mismatch."""
-    body = body_for(dtype, tile_m)
+    body from :func:`body_for` (``aligned``: x's and w's bases lie on 16
+    bytes, as the allocator's tensors do; a launch reads it from its
+    tensors), the rows body's strips and K slices from
+    :func:`rows_geometry` (its ``cta_m`` the rows of a group of M tiles,
+    :func:`rows_span`), the tensor-core bodies' CTA tiles from
+    :func:`tiled_geometry` over their own :data:`CTA_TILES`, one CTA per
+    logical tile in the fma body (:func:`cta_count` with the logical tile
+    as the CTA's).  The kernel re-checks it and refuses a mismatch."""
+    body = body_for(dtype, tile_m, aligned and tma_layout(n, k, tile_n), round_k)
     if body == "rows":
         cta_n, split_k, ctas = rows_geometry(m, n, k, tile_m, tile_n, groups, round_k)
         return body, rows_span(m, tile_m), cta_n, split_k, ctas
-    if body == "mma":
-        cta_m, cta_n, ctas = tiled_geometry(m, n, tile_m, tile_n, groups)
+    if body in CTA_TILES:
+        cta_m, cta_n, ctas = tiled_geometry(m, n, tile_m, tile_n, groups, CTA_TILES[body])
         return body, cta_m, cta_n, 1, ctas
     return body, tile_m, tile_n, 1, cta_count(m, n, tile_m, tile_n, tile_m, tile_n)
 
@@ -427,6 +476,26 @@ def _count_rows(body: str, m: int, tile_m: int, cta_m: int) -> None:
         grouped_tile_launches[tile_m] += 1
     if tile_m <= 8 and m > tile_m:
         narrow_tile_launches[tile_m] += 1
+
+
+def bases16(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """x's and w's first elements lie on 16 bytes (:func:`launch_geometry`'s
+    ``aligned``)."""
+    return x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+
+
+def mma_reason(x: torch.Tensor, w: torch.Tensor, tile_n: int, round_k: int) -> str:
+    """Why a bf16 launch of an M tile above 16 takes the mma body
+    (:data:`mma_launches`): ``"round"``, ``"w_off16"`` or ``"x_off16"``;
+    raises where it would not (the rule sends it to ``wgmma``)."""
+    n, k = w.shape[-1], x.shape[-1]
+    if round_k:
+        return "round"
+    if w.data_ptr() % 16 or n % 8 or min(tile_n, n) % 8:
+        return "w_off16"
+    if x.data_ptr() % 16 or k % 8:
+        return "x_off16"
+    raise AssertionError(f"a launch of ({k},{n}) under N tile {tile_n} meets the wgmma rule")
 
 
 def _workspace(x: torch.Tensor, groups: int, split_k: int, m: int, n: int) -> torch.Tensor | None:
@@ -517,7 +586,7 @@ def launch_as(x: torch.Tensor, w: torch.Tensor, key: tuple[int, int, bool, int],
     if m == 0:
         return (out, z) if with_z else out
     body, cta_m, cta_n, split_k, ctas = launch_geometry(x.dtype, m, n, k, tile_m, tile_n,
-                                                        round_k=round_k)
+                                                        round_k=round_k, aligned=bases16(x, w))
     ws = _workspace(x, 1, split_k, m, n)
     lib = _build.library()
     rc = lib.repro_matmul(
@@ -527,14 +596,18 @@ def launch_as(x: torch.Tensor, w: torch.Tensor, key: tuple[int, int, bool, int],
         out.data_ptr(), z.data_ptr() if with_z else None, m, n, k, DTYPES[x.dtype],
         EPILOGUE[class_id], float(softcap), tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas,
         split_k, round_k, ws.data_ptr() if ws is not None else None, int(out_f32),
-        _build.stream_handle(x.device))
-    _build.check(rc, "matmul kernel")
+        BODIES[body], _build.stream_handle(x.device))
+    if rc:   # the message is formatted only for a failed launch
+        _build.check(rc, f"matmul kernel ({body}, ({m},{k})x({k},{n}), tiles {tile_m}x{tile_n}, "
+                         f"CTA {cta_m}x{cta_n}, {ctas} CTAs)")
     _count_rows(body, m, tile_m, cta_m)
     launches += 1
     z_launches += with_z
     f32_launches += out_f32 and x.dtype != torch.float32
     row_tile_launches += tile_m == 1 < m
     body_launches["matmul", body, x.dtype] += 1
+    if body == "mma":
+        mma_launches["matmul", mma_reason(x, w, tile_n, round_k)] += 1
     if round_k:
         round_launches["matmul", body] += 1
     return (out, z) if with_z else out
@@ -927,18 +1000,22 @@ def grouped_launch(x: torch.Tensor, w: torch.Tensor, cs: ConcreteSchedule, *,
         return out
     _, _, m_outer, round_k = schedule_key(cs)
     body, cta_m, cta_n, split_k, ctas = launch_geometry(x.dtype, m, n, k, tile_m, tile_n, e,
-                                                        round_k)
+                                                        round_k, aligned=bases16(x, w))
     ws = _workspace(x, e, split_k, m, n)
     rc = _build.library().repro_grouped_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, DTYPES[x.dtype],
         GROUPED_EPILOGUE[class_id], tile_m, tile_n, int(m_outer), cta_m, cta_n, ctas,
         split_k, round_k, ws.data_ptr() if ws is not None else None, int(out_f32),
-        _build.stream_handle(x.device))
-    _build.check(rc, "grouped matmul kernel")
+        BODIES[body], _build.stream_handle(x.device))
+    if rc:
+        _build.check(rc, f"grouped matmul kernel ({body}, {e}x({m},{k})x({k},{n}), tiles "
+                         f"{tile_m}x{tile_n}, CTA {cta_m}x{cta_n}, {ctas} CTAs)")
     _count_rows(body, m, tile_m, cta_m)
     grouped_launches += 1
     f32_launches += out_f32 and x.dtype != torch.float32
     body_launches["grouped_matmul", body, x.dtype] += 1
+    if body == "mma":
+        mma_launches["grouped_matmul", mma_reason(x, w, tile_n, round_k)] += 1
     if round_k:
         round_launches["grouped_matmul", body] += 1
     return out

@@ -11,6 +11,7 @@ scans' f32 states stay at 2e-4); the plain versions run in full
 f32 (TF32 off).  This file imports no JAX: the card's machine need not have
 it.
 """
+import contextlib
 import dataclasses
 
 import pytest
@@ -52,6 +53,14 @@ def _close(got, want, tol=TOL):
     torch.testing.assert_close(got, want, **tol)
 
 
+def _k1_body(x, w, cs, groups: int = 1) -> str:
+    """The body a K1 (K1g: 3-D x and w) launch of x, w under ``cs`` takes
+    (kernels/matmul.py launch_geometry's rule, on these tensors' bases)."""
+    tile_m, tile_n, _, round_k = mm.schedule_key(cs)
+    return mm.launch_geometry(x.dtype, x.shape[-2], w.shape[-1], w.shape[-2], tile_m, tile_n,
+                              groups, round_k, aligned=mm.bases16(x, w))[0]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("class_id", ref.MATMUL_CLASSES)
 @pytest.mark.parametrize("m,n,k", [(4, 64, 96), (3, 50, 17), (4, 1000, 64), (96, 80, 40),
@@ -70,7 +79,7 @@ def test_matmul_kernel_matches_plain(card, dtype, class_id, m, n, k):
         if class_id == "matmul_residual" else None
     softcap = 2.0 if "softcap" in class_id else 0.0
     kw = dict(class_id=class_id, bias=bias, residual=residual, softcap=softcap)
-    body = mm.body_for(dt, ops.schedule_for(ops.instance(class_id, dt, M=m, N=n, K=k)).t["M"])
+    body = _k1_body(x, w, ops.schedule_for(ops.instance(class_id, dt, M=m, N=n, K=k)))
     before, total, ours = mm.launches, mm.body_count(), mm.body_count(body, kernel="matmul", dtype=dt)
     got = ops.matmul(x, w, **kw)
     assert mm.launches == before + 1
@@ -350,7 +359,7 @@ def test_grouped_kernel_matches_plain(card, dtype, class_id, e, m, n, k, tile_m)
     if tile_m is not None:
         cs = concretize(Schedule.make(class_id, {"M": tile_m, "N": cs.t["N"], "K": k, "E": 1}),
                         cs.instance)
-    body = mm.body_for(dt, mm.grouped_geometry(x, w, cs, class_id)[4])
+    body = _k1_body(x, w, cs, e)
     before, total = mm.grouped_launches, mm.body_count()
     ours = mm.body_count(body, kernel="grouped_matmul", dtype=dt)
     got = mm.grouped_matmul(x, w, cs, class_id=class_id)
@@ -358,6 +367,110 @@ def test_grouped_kernel_matches_plain(card, dtype, class_id, e, m, n, k, tile_m)
     assert mm.body_count() == total + 1
     assert mm.body_count(body, kernel="grouped_matmul", dtype=dt) == ours + 1
     _close(got, ref.grouped_matmul(x, w, class_id), TOL if dt == torch.float32 else BF16_TOL)
+
+
+# the wgmma body (bf16, M tile above 16, x and w on 16 bytes): (E, rows per
+# expert, N, K, (M tile, N tile) or None for the default schedule): ragged
+# M, N and K (N and K whole 8s), experts with ragged edges, a group of
+# narrow N tiles (24: 5 a 128-column CTA) and a 64x64 schedule
+WGMMA_CASES = [(1, 70, 200, 72, None), (1, 130, 96, 304, None), (1, 300, 576, 1000, None),
+               (1, 200, 1024, 136, (64, 24)), (1, 256, 512, 264, (64, 64)),
+               (3, 37, 104, 200, (32, 48)), (8, 130, 256, 96, None)]
+
+
+def _wgmma_inputs(card, class_id, e, m, n, k):
+    g = torch.Generator(device=card).manual_seed(e * 7 + m + n + k)
+    lead = (e,) if e > 1 else ()
+    x = torch.randn((*lead, m, k), generator=g, device=card).bfloat16()
+    w = (torch.randn((*lead, k, n), generator=g, device=card) / k ** 0.5).bfloat16()
+    out_n = n // 2 if "glu" in class_id else n
+    kw = {}
+    if e == 1:
+        kw = dict(bias=torch.randn((n,), generator=g, device=card).bfloat16() if "bias" in class_id
+                  else None,
+                  residual=torch.randn((m, out_n), generator=g, device=card).bfloat16()
+                  if class_id == "matmul_residual" else None,
+                  softcap=2.0 if "softcap" in class_id else 0.0)
+    return x, w, kw
+
+
+def _wgmma_cs(class_id, e, m, n, k, tiles):
+    from repro_torch.core.schedule import Schedule, concretize
+
+    params = dict(M=m * e, N=n, K=k, **({"E": e} if e > 1 else {}))
+    inst = ops.instance(class_id, torch.bfloat16, **params)
+    if tiles is None:
+        return ops.schedule_for(inst)
+    return concretize(Schedule.make(class_id, {"M": tiles[0], "N": tiles[1], "K": k,
+                                               **({"E": 1} if e > 1 else {})}), inst)
+
+
+@pytest.mark.parametrize("class_id,e,m,n,k,tiles",
+                         [(c, *case) for case in WGMMA_CASES
+                          for c in (ref.GROUPED_CLASSES if case[0] > 1 else ref.MATMUL_CLASSES)])
+def test_wgmma_matches_plain_with_z_and_f32(card, class_id, e, m, n, k, tiles):
+    """Every epilogue class on the wgmma body against the plain version at
+    bf16's tolerance (K1g at the expert cases, K1 at the others); Z
+    bit-equal to the kNone launch (matmul_bias with a bias) of the same
+    schedule, Y's bits unchanged by it; f32 Y rounding to the bf16 launch's
+    bits; two runs bit-equal."""
+    grouped = class_id in ref.GROUPED_CLASSES
+    x, w, kw = _wgmma_inputs(card, class_id, e, m, n, k)
+    cs = _wgmma_cs(class_id, e, m, n, k, tiles)
+    assert _k1_body(x, w, cs, e) == "wgmma"
+    before = mm.body_count("wgmma", dtype=torch.bfloat16)
+    if grouped:
+        got = mm.grouped_matmul(x, w, cs, class_id=class_id)
+        again = mm.grouped_matmul(x, w, cs, class_id=class_id)
+        y32 = mm.grouped_matmul(x, w, cs, class_id=class_id, out_f32=True)
+        _close(got, ref.grouped_matmul(x, w, class_id), BF16_TOL)
+    else:
+        got = mm.matmul(x, w, cs, class_id=class_id, **kw)
+        again = mm.matmul(x, w, cs, class_id=class_id, **kw)
+        y32 = mm.matmul(x, w, cs, class_id=class_id, out_f32=True, **kw)
+        _close(got, ref.matmul(x, w, class_id, **kw), BF16_TOL)
+        y, z = mm.launch(x, w, cs, class_id=class_id, with_z=True, **kw)
+        plain_id = "matmul_bias" if kw["bias"] is not None else "matmul"
+        plain_cs = _wgmma_cs(plain_id, 1, m, n, k, (cs.t["M"], cs.t["N"]))
+        assert mm.schedule_key(plain_cs) == mm.schedule_key(cs)
+        _equal_bits([y, z], [got, mm.matmul(x, w, plain_cs, class_id=plain_id, bias=kw["bias"])])
+    assert mm.body_count("wgmma", dtype=torch.bfloat16) == before + (3 if grouped else 5)
+    _equal_bits([got, y32.to(torch.bfloat16)], [again, got])
+
+
+@contextlib.contextmanager
+def _forced_cta_tile(cta):
+    """Every tensor-core launch in the block on the CTA tile ``cta``."""
+    chosen = mm.tiled_geometry
+
+    def forced(m, n, tile_m, tile_n, groups=1, tiles=mm.MMA_CTA_TILES):
+        assert cta in tiles
+        return (*cta, mm.cta_count(m, n, tile_m, tile_n, *cta))
+
+    mm.tiled_geometry = forced
+    try:
+        yield
+    finally:
+        mm.tiled_geometry = chosen
+
+
+@pytest.mark.parametrize("class_id,e,m,n,k", [("matmul_gelu_glu", 1, 300, 1024, 520),
+                                              ("matmul_bias", 1, 256, 768, 3072),
+                                              ("moe_gemm_silu_glu", 4, 200, 512, 256)])
+def test_wgmma_bits_equal_on_every_cta_tile(card, class_id, e, m, n, k):
+    """One launch forced onto each compiled wgmma CTA tile gives the same
+    bits on every one (no output's sum depends on which rows or columns
+    share its CTA), and two runs agree."""
+    x, w, kw = _wgmma_inputs(card, class_id, e, m, n, k)
+    cs = _wgmma_cs(class_id, e, m, n, k, (128, 256))
+    outs = []
+    for cta in mm.WGMMA_CTA_TILES:
+        with _forced_cta_tile(cta):
+            assert mm.launch_geometry(torch.bfloat16, m, n, k, 128, 256, e)[:3] == ("wgmma", *cta)
+            for _ in range(2):
+                outs.append(mm.grouped_matmul(x, w, cs, class_id=class_id) if e > 1
+                            else mm.matmul(x, w, cs, class_id=class_id, **kw))
+    _equal_bits(outs[1:], outs[:-1])
 
 
 # decode-shaped rows-body launches whose strips alone launch few CTAs, so K
@@ -1921,8 +2034,8 @@ def test_grouped_matmul_at_dbrx_expert_shapes(card, class_id, e, k, n, rows):
     for i in range(e):   # one expert's f32 draw at a time
         w[i] = torch.randn((k, n), generator=g, device=card) / k ** 0.5
     cs = ops.schedule_for(ops.instance(class_id, torch.bfloat16, M=rows * e, N=n, K=k, E=e))
-    body = mm.body_for(torch.bfloat16, mm.schedule_key(cs)[0])
-    assert body == ("rows" if rows <= 16 else "mma")
+    body = _k1_body(x, w, cs, e)
+    assert body == ("rows" if rows <= 16 else "wgmma")
     before = mm.body_count(body, kernel="grouped_matmul", dtype=torch.bfloat16)
     got = ops.moe_gemm(x, w, class_id=class_id)
     assert mm.body_count(body, kernel="grouped_matmul", dtype=torch.bfloat16) == before + 1
@@ -1958,5 +2071,5 @@ def test_paged_engine_streams_equal_slot_at_full_width_mixtral(card):
     assert eng.prefill_padded_tokens == eng.prefill_true_tokens == sum(map(len, prompts))
     assert [r.generated for r in got] == [r.generated for r in want]
     assert all(len(r.generated) == 8 for r in got)
-    for body in ("mma", "rows"):
+    for body in ("wgmma", "rows"):
         assert mm.body_count(body, kernel="grouped_matmul", dtype=torch.bfloat16) > 0

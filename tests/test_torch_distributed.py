@@ -25,6 +25,7 @@ JAX and the reference are imported inside the tests, so the spawned ranks,
 which import this module, load neither.
 """
 import contextlib
+import datetime
 import functools
 import json
 import os
@@ -34,6 +35,7 @@ import sys
 import textwrap
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -140,15 +142,35 @@ def _run_ref(code: str, n_devices: int = 8, timeout: int = RANK_TIMEOUT) -> str:
     return out.stdout
 
 
+#: attempts at a world's gloo set-up: where a rank fails to join its group,
+#: every rank is stopped and the world starts afresh on a new rendezvous,
+#: each retry said in the test's output (a warning, and printed).  Only the
+#: set-up is retried: a rank that fails inside its case fails the test.
+SETUP_ATTEMPTS = 3
+#: a rank's limit on joining its group, so that a rank whose peer is lost
+#: fails with its own traceback well inside the case's limit
+SETUP_TIMEOUT = 90
+#: every retried set-up of this process: (test, attempt, each rank's fate)
+setup_retries: list = []
+
+
 def _rank_entry(target, rank, world, out_dir, group, args):
     """One spawned rank: join the gloo group (``group``; else ``target``
-    joins one itself), run ``target``, save what it returns (or the
-    traceback)."""
+    joins one itself), run ``target``, save what it returns.  Leaves its fate in ``out_dir``: ``rank{r}.setup`` (the
+    traceback of a failed join), ``rank{r}.joined`` (joined, the case
+    begun), ``rank{r}.err`` (the case's traceback), ``rank{r}.pt`` (its
+    result)."""
     try:
         torch.set_num_threads(1)
         if group:
-            dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous",
-                                    rank=rank, world_size=world)
+            try:
+                dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous",
+                                        rank=rank, world_size=world,
+                                        timeout=datetime.timedelta(seconds=SETUP_TIMEOUT))
+            except BaseException:
+                Path(out_dir, f"rank{rank}.setup").write_text(traceback.format_exc())
+                os._exit(3)
+        Path(out_dir, f"rank{rank}.joined").touch()
         try:
             result = target(rank, world, *args)
         finally:
@@ -160,11 +182,30 @@ def _rank_entry(target, rank, world, out_dir, group, args):
         raise SystemExit(1)
 
 
-def run_ranks(target, world: int, tmp_path, *args, timeout: int = RANK_TIMEOUT,
-              group: bool = True) -> list:
-    """``target(rank, world, *args)`` on ``world`` spawned ranks; returns
-    what each returned.  Fails (and kills the ranks) past ``timeout``."""
-    out_dir = tmp_path / f"ranks_{world}_{time.monotonic_ns()}"
+def _fates(out_dir: Path, procs, hung: list, timeout: float) -> dict:
+    """What became of each rank: its set-up or case traceback, a kill at the
+    limit (joining its group, or in its case), an exit code without a
+    traceback (a signal: the process died hard), or its result."""
+    fates = {}
+    for r, p in enumerate(procs):
+        setup, err = out_dir / f"rank{r}.setup", out_dir / f"rank{r}.err"
+        where = "in its case" if (out_dir / f"rank{r}.joined").exists() else "joining its group"
+        if setup.exists():
+            fates[r] = f"failed joining its group:\n{setup.read_text()}"
+        elif err.exists():
+            fates[r] = f"failed in its case:\n{err.read_text()}"
+        elif r in hung:
+            fates[r] = f"still running {where} after {timeout} s: killed"
+        elif p.exitcode != 0:
+            fates[r] = f"exited with code {p.exitcode} {where}, no traceback"
+        else:
+            fates[r] = "returned its result"
+    return fates
+
+
+def _spawn_world(target, world: int, out_dir: Path, group: bool, args, timeout: float):
+    """One attempt: ``world`` spawned ranks, joined until ``timeout``; the
+    ranks still alive are killed.  Returns (procs, hung ranks)."""
     out_dir.mkdir()
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_entry, args=(target, r, world, str(out_dir), group, args))
@@ -181,12 +222,34 @@ def run_ranks(target, world: int, tmp_path, *args, timeout: int = RANK_TIMEOUT,
             if p.is_alive():
                 p.kill()
                 p.join(10)
-    errors = {r: (out_dir / f"rank{r}.err").read_text() for r in range(world)
-              if (out_dir / f"rank{r}.err").exists()}
-    assert not errors, "\n".join(f"rank {r}:\n{e}" for r, e in errors.items())
-    assert not hung, f"ranks {hung} still running after {timeout} s (a hung collective?)"
-    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
-    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    return procs, hung
+
+
+def run_ranks(target, world: int, tmp_path, *args, timeout: int = RANK_TIMEOUT,
+              group: bool = True) -> list:
+    """``target(rank, world, *args)`` on ``world`` spawned ranks; returns
+    what each returned.  Fails (and kills the ranks) past ``timeout``,
+    naming every rank's fate (:func:`_fates`).  Where a rank fails to join
+    the gloo group, the world is started afresh, at most
+    :data:`SETUP_ATTEMPTS` times in all, each retry said in the output."""
+    name = os.environ.get("PYTEST_CURRENT_TEST", target.__name__).split(" ")[0]
+    stamp = time.monotonic_ns()
+    for attempt in range(1, SETUP_ATTEMPTS + 1):
+        out_dir = tmp_path / f"ranks_{world}_{stamp}_{attempt}"
+        procs, hung = _spawn_world(target, world, out_dir, group, args, timeout)
+        fates = _fates(out_dir, procs, hung, timeout)
+        report = "\n".join(f"rank {r}: {f}" for r, f in fates.items())
+        if attempt < SETUP_ATTEMPTS and any((out_dir / f"rank{r}.setup").exists()
+                                            for r in range(world)):
+            setup_retries.append((name, attempt, fates))
+            msg = (f"gloo set-up retried ({len(setup_retries)} in this process; attempt "
+                   f"{attempt + 1} of {SETUP_ATTEMPTS} for {name}):\n{report}")
+            print(msg, flush=True)
+            warnings.warn(msg, RuntimeWarning, stacklevel=2)
+            continue
+        assert not hung and all(p.exitcode == 0 for p in procs), \
+            f"{name}, world {world} (attempt {attempt}):\n{report}"
+        return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
 # ---------------------------------------------------------------------------

@@ -338,10 +338,10 @@ def test_cta_geometry_covers_every_output_once(dtype, kind, class_id, e, m, n, k
     dt = getattr(torch, dtype)
     m, n, tile_m, tile_n, m_outer, e = _launch_case(kind, class_id, dt, e, m, n, k, tiles)
     body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(dt, m, n, k, tile_m, tile_n, e)
-    assert body == mm.body_for(dt, tile_m)
+    assert body == mm.body_for(dt, tile_m, mm.tma_layout(n, k, tile_n))
     span_m = tile_m
-    if body == "mma":
-        assert (cta_m, cta_n) in mm.MMA_CTA_TILES
+    if body in mm.CTA_TILES:
+        assert (cta_m, cta_n) in mm.CTA_TILES[body]
     elif body == "rows":
         span_m = _mgroup(m, tile_m) * tile_m
         assert (cta_m, cta_n) == (span_m, mm.ROWS_CTA_N)
@@ -425,7 +425,8 @@ def test_narrow_n_tiles_cover_every_output_once(dtype, kind, class_id, e, m, n, 
                                                    and class_id not in GLU_CLASSES)
     body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(dt, m, n, k, tile_m, tile_n, e,
                                                            round_k)
-    assert body == mm.body_for(dt, tile_m)
+    assert body == mm.body_for(dt, tile_m, mm.tma_layout(n, k, tile_n), round_k)
+    assert body != "wgmma"   # N = 457 (458 under a GLU, at N tiles off whole 8s) is off 16 bytes
     assert ctas == mm.cta_count(m, n, tile_m, tile_n, cta_m, cta_n) * split_k
     if body != "fma":
         assert mm.n_group(n, tile_n, cta_n) == (cta_n // tile_n if tile_n < cta_n else 1)
@@ -508,9 +509,10 @@ def test_grouped_placement_is_internvl2_head_only():
                        ("internvl2-26b", "train", "lm_head"), ("internvl2-26b", "train", "lm_head.dw")}
     assert routers == 6   # mixtral's and dbrx's, one tile of all N at each shape
 
-# CTA tile and count of the mma body at the main path's 256-row prefill
-# shapes under the default 128x512 tile (PERF.md §6): minitron-4b's
-# projections and mixtral-8x22b's expert GEMMs (8 experts, 256 rows each)
+# CTA tile and count of the tensor-core body (wgmma: every N here is
+# aligned) at the main path's 256-row prefill shapes under the default
+# 128x512 tile (PERF.md §6): minitron-4b's projections and mixtral-8x22b's
+# expert GEMMs (8 experts, 256 rows each)
 MAIN_PATH_GEOMETRY = [
     (1, 256, 3072, (64, 64, 192)),     # q, o
     (1, 256, 1024, (64, 64, 64)),      # k, v
@@ -527,25 +529,31 @@ def test_cta_geometry_at_main_path_shapes(e, m, n, want):
                         **({} if e == 1 else {"E": e}))
     cs = ops.schedule_for(inst)
     assert (cs.t["M"], cs.t["N"]) == (128, 512)
-    assert mm.launch_geometry(torch.bfloat16, m, n, 64, 128, 512, e) == ("mma", *want[:2], 1, want[2])
+    assert mm.launch_geometry(torch.bfloat16, m, n, 64, 128, 512, e) == ("wgmma", *want[:2], 1, want[2])
     # one CTA per SM at least, or the smallest CTA tile where M·N is too small for that
-    assert e * want[2] >= mm.SMS or want[:2] == mm.MMA_CTA_TILES[-1]
+    assert e * want[2] >= mm.SMS or want[:2] == mm.WGMMA_CTA_TILES[-1]
 
 
 def test_body_follows_dtype_and_m_tile():
-    """bf16 with an M tile above 16 rows takes the tensor-core body, f32 the
-    CUDA-core one, and an M tile of at most 16 rows (decode) the rows body;
-    a 64x64 schedule keeps 64x64 CTAs."""
-    assert mm.body_for(torch.bfloat16, 17) == "mma"
-    assert mm.body_for(torch.float32, 17) == "fma"
-    assert mm.body_for(torch.bfloat16, 16) == mm.body_for(torch.float32, 16) == "rows"
+    """bf16 with an M tile above 16 rows takes a tensor-core body (wgmma
+    where TMA can read the operands, else mma), f32 the CUDA-core one, and
+    an M tile of at most 16 rows (decode) the rows body; a 64x64 schedule
+    keeps 64x64 CTAs."""
+    assert mm.body_for(torch.bfloat16, 17, True) == "wgmma"
+    assert mm.body_for(torch.bfloat16, 17, False) == "mma"
+    assert mm.body_for(torch.float32, 17, True) == mm.body_for(torch.float32, 17, False) == "fma"
+    assert (mm.body_for(torch.bfloat16, 16, True) == mm.body_for(torch.float32, 16, True)
+            == mm.body_for(torch.bfloat16, 16, False) == "rows")
     for m in (1, 4, 16):   # decode: the default M tile is the slot count
         cs = ops.schedule_for(ops.instance("matmul", torch.bfloat16, M=m, N=3072, K=3072))
         assert mm.launch_geometry(torch.bfloat16, m, 3072, 3072, cs.t["M"], cs.t["N"])[0] == "rows"
     cs = ops.schedule_for(ops.instance("moe_router", torch.float32, M=256, N=8, K=6144))
     assert mm.launch_geometry(torch.float32, 256, 8, 6144, cs.t["M"], cs.t["N"]) == ("fma", 128, 8, 1, 2)
-    assert mm.launch_geometry(torch.bfloat16, 256, 3072, 3072, 64, 64) == ("mma", 64, 64, 1, 192)
+    assert mm.launch_geometry(torch.bfloat16, 256, 3072, 3072, 64, 64) == ("wgmma", 64, 64, 1, 192)
+    assert mm.launch_geometry(torch.bfloat16, 256, 3072, 3072, 64, 64, aligned=False) == \
+        ("mma", 64, 64, 1, 192)
     assert mm.tiled_geometry(40, 40, 40, 40) == (64, 64, 1)   # smaller than any CTA tile: masked
+    assert mm.tiled_geometry(40, 40, 40, 40, tiles=mm.WGMMA_CTA_TILES) == (64, 64, 1)
 
     saved = (mm.launches, mm.grouped_launches, mm.body_launches.copy())
     mm.body_launches.update({("matmul", "mma", torch.bfloat16): 3,
@@ -557,6 +565,115 @@ def test_body_follows_dtype_and_m_tile():
     assert mm.body_count() == 0 and mm.launches == mm.grouped_launches == 0
     mm.launches, mm.grouped_launches = saved[:2]
     mm.body_launches.update(saved[2])
+
+
+#: the forward's body rule at an M tile of 64 (kernels/matmul.py body_for,
+#: tma_layout; csrc/matmul.cu body_rule): (case, K, N, N tile, rounding K
+#: tile, x's offset in elements, dtype, body, the mma body's reason)
+BODY_RULE_CASES = [
+    ("aligned", 64, 3072, 512, 0, 0, "bfloat16", "wgmma", None),
+    ("aligned_all_n", 64, 1024, 2048, 0, 0, "bfloat16", "wgmma", None),   # one tile, all of N
+    ("rounding", 256, 3072, 512, 128, 0, "bfloat16", "mma", "round"),
+    ("internvl2_head", 64, 92553, 3, 0, 0, "bfloat16", "mma", "w_off16"),
+    ("whisper_head", 64, 51865, 451, 0, 0, "bfloat16", "mma", "w_off16"),
+    ("n_tile_off8", 64, 3072, 500, 0, 0, "bfloat16", "mma", "w_off16"),
+    ("x_base_off16", 64, 3072, 512, 0, 3, "bfloat16", "mma", "x_off16"),
+    ("x_rows_off16", 100, 3072, 512, 0, 0, "bfloat16", "mma", "x_off16"),
+    ("f32", 64, 3072, 512, 0, 0, "float32", "fma", None),
+]
+
+
+@pytest.mark.parametrize("case,k,n,tile_n,round_k,x_off,dtype,want,reason", BODY_RULE_CASES,
+                         ids=[c[0] for c in BODY_RULE_CASES])
+def test_forward_body_rule(case, k, n, tile_n, round_k, x_off, dtype, want, reason):
+    """Aligned bf16 above 16 rows takes wgmma; rounding mode, rows of w
+    off 16 bytes (an odd N: internvl2-26b's and whisper-medium's heads; an
+    N tile off whole 8s) and x off 16 bytes (its base, or rows of K values
+    off whole 8s) take mma, each for its reason (``mma_reason``); f32
+    takes fma.  The rule never reads M: the same weight and schedule give
+    the same body at every M whose tile is above 16 rows (a paged 64-row
+    chunk and the slot engine's one-shot prefill)."""
+    dt = getattr(torch, dtype)
+    x = torch.zeros(64 * k + x_off, dtype=dt)[x_off:].view(64, k)
+    w = torch.zeros((k, n), dtype=dt)
+    for m in (17, 64, 65, 256, 397, 2048):
+        body = mm.launch_geometry(dt, m, n, k, 64, tile_n, round_k=round_k,
+                                  aligned=mm.bases16(x, w))[0]
+        assert body == want == mm.body_for(dt, 64, mm.bases16(x, w) and mm.tma_layout(n, k, tile_n),
+                                           round_k), (m, body)
+    if reason is None:
+        if dt == torch.bfloat16:
+            with pytest.raises(AssertionError, match="meets the wgmma rule"):
+                mm.mma_reason(x, w, tile_n, round_k)
+    else:
+        assert mm.mma_reason(x, w, tile_n, round_k) == reason
+    # and K1g per expert: the expert strides follow from K and N
+    assert mm.launch_geometry(dt, 64, n, k, 64, tile_n, 8, round_k,
+                              aligned=mm.bases16(x, w))[0] == want
+
+
+#: the wgmma body's CTA tile and count, per expert: (E, rows per expert, N,
+#: M tile, N tile, (cta_m, cta_n, CTAs))
+WGMMA_GEOMETRY = [
+    (1, 256, 3072, 128, 512, (64, 64, 192)),     # minitron-4b's q, o at 256 rows
+    (1, 256, 1024, 128, 512, (64, 64, 64)),      # k, v: the smallest, launching the most
+    (1, 256, 9216, 128, 512, (128, 128, 144)),
+    (1, 64, 3072, 64, 512, (64, 64, 48)),        # a paged 64-row chunk: 64-row tiles only
+    (1, 1500, 1024, 125, 512, (64, 128, 192)),   # whisper's encoder, M tile 125
+    (1, 2048, 18432, 128, 512, (128, 128, 2304)),  # gemma2's GeGLU up in training
+    (1, 256, 3072, 64, 64, (64, 64, 192)),       # a tuned 64x64 schedule
+    (1, 300, 4096, 128, 24, (64, 128, 210)),     # groups of 5 narrow N tiles a CTA
+    (8, 256, 32768, 128, 512, (128, 128, 512)),  # mixtral's K1g up: 4096 CTAs in all
+    (8, 256, 6144, 128, 512, (128, 128, 96)),    # mixtral's K1g down: 768
+    (16, 256, 21504, 128, 512, (128, 128, 336)),  # dbrx's K1g up: 5376
+    (16, 256, 6144, 128, 512, (128, 128, 96)),   # dbrx's K1g down: 1536
+    (1, 256, 256000, 128, 512, (128, 128, 4000)),  # a 256-row prefill's LM head
+]
+
+
+@pytest.mark.parametrize("e,m,n,tile_m,tile_n,want", WGMMA_GEOMETRY)
+def test_wgmma_cta_tiles_and_counts(e, m, n, tile_m, tile_n, want):
+    """The CTA tile is the largest of WGMMA_CTA_TILES that fits the logical
+    tile (rounded up to 64; along N the group it would cover) and launches
+    at least 132 CTAs over all experts, else the one that launches the
+    most; its count is cta_count's, and every output is covered once."""
+    got = mm.launch_geometry(torch.bfloat16, m, n, 1024, tile_m, tile_n, e)
+    assert got == ("wgmma", want[0], want[1], 1, want[2])
+    assert want[2] == mm.cta_count(m, n, tile_m, tile_n, *want[:2])
+    fits = [c for c in mm.WGMMA_CTA_TILES
+            if c[0] <= 64 * -(-min(tile_m, m) // 64)
+            and c[1] <= 64 * -(-min(mm.n_group(n, tile_n, c[1]) * tile_n, n) // 64)]
+    counts = {c: e * mm.cta_count(m, n, tile_m, tile_n, *c) for c in fits}
+    full = [c for c in fits if counts[c] >= mm.SMS]
+    assert want[:2] == (full[0] if full else max(fits, key=counts.get))
+    if e == 1 and m * n <= 2048 * 18432:
+        _check_cover(m, n, 1024, tile_m, tile_n, True, *want[:2], 1, want[2], False)
+
+
+#: each main-path shape of PERF.md §6's K1 and K1g table under its default
+#: schedule: (class, E, rows per expert, K, N, (body, cta_m, cta_n, CTAs))
+MAIN_PATH_BODIES = [
+    ("matmul", 1, 256, 3072, 3072, ("wgmma", 64, 64, 192)),
+    ("matmul", 1, 64, 3072, 3072, ("wgmma", 64, 64, 48)),          # the paged chunk
+    ("matmul", 1, 1500, 1024, 1024, ("wgmma", 64, 128, 192)),      # whisper's encoder
+    ("matmul_gelu_glu", 1, 2048, 2304, 18432, ("wgmma", 128, 128, 2304)),
+    ("moe_gemm_silu_glu", 8, 256, 6144, 32768, ("wgmma", 128, 128, 512)),
+    ("moe_gemm", 8, 256, 16384, 6144, ("wgmma", 128, 128, 96)),
+    ("moe_gemm_silu_glu", 16, 256, 6144, 21504, ("wgmma", 128, 128, 336)),
+    ("moe_gemm", 16, 256, 10752, 6144, ("wgmma", 128, 128, 96)),
+    ("matmul_lmhead", 1, 3072, 6144, 92553, ("mma", 128, 128, 17640)),   # internvl2's head
+    ("matmul_lmhead", 1, 1792, 1024, 51865, ("mma", 128, 128, 6440)),    # whisper's head
+]
+
+
+@pytest.mark.parametrize("class_id,e,m,k,n,want", MAIN_PATH_BODIES)
+def test_main_path_shapes_take_their_body(class_id, e, m, k, n, want):
+    extra = {} if e == 1 else {"E": e}
+    cs = ops.schedule_for(ops.instance(class_id, torch.bfloat16, M=m * e, N=n, K=k, **extra))
+    tile_m, tile_n, _, round_k = mm.schedule_key(cs)
+    body, cta_m, cta_n, split_k, ctas = mm.launch_geometry(torch.bfloat16, m, n, k, tile_m, tile_n,
+                                                           e, round_k)
+    assert (body, cta_m, cta_n, ctas) == want and split_k == 1
 
 
 # rows-body launches of the main path at decode (M = 4 slots, default
@@ -901,7 +1018,7 @@ def test_build_is_keyed_by_sources_and_lists_every_csrc_file():
     assert sorted(p.name for p in _build._sources()) == ["flash_attention.cu",
                                                          "flash_attention_bwd.cu", "matmul.cu",
                                                          "matmul_grad.cu", "matmul_shift.cu",
-                                                         "rglru_scan.cu",
+                                                         "matmul_wgmma.cu", "rglru_scan.cu",
                                                          "rglru_scan_bwd.cu", "rwkv6_scan.cu",
                                                          "rwkv6_scan_bwd.cu"]
     assert {"repro_rwkv6_scan", "repro_rglru_scan", "repro_grouped_matmul",
